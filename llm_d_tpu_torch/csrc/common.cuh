@@ -1,0 +1,407 @@
+// Shared device code for the port's Hopper kernels (sm_90a).
+//
+// Two building blocks live here:
+//
+//  * mla_attend: the page loop shared by the MLA decode and prefill
+//    kernels.  One thread block attends the H heads of one query position
+//    over that sequence's latent pages, reached through the block table.
+//    Each int8 page row is dequantized with its f32 scale and rounded to
+//    bf16 (the inline form of ops/pallas/quant_util.py make_page_dequant),
+//    scores and values read the SAME dequantized page (MQA: one latent row
+//    serves every head), both dots run on the tensor cores, and the
+//    softmax is the flash recurrence with one running max per page, in
+//    f32, exactly as the TPU kernels run it: q * scale and p are rounded
+//    to bf16 before their dots, sums stay f32.
+//
+//  * moe_tile_gemm: a TM x 64 output tile of bf16 activations times int8
+//    weights (exact in bf16, |q| <= 127) on the tensor cores (wmma bf16
+//    fragments, f32 accumulation); the per-output-column scale is applied
+//    by the caller to the f32 result, as the TPU kernels do.  Both int8
+//    MoE kernels use it.
+//
+// No wgmma, no TMA, no software pipelining yet: correct first; those are
+// later work.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+#define LLMD_EXPORT extern "C" __attribute__((visibility("default")))
+
+namespace llmd {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr float kNegInf = -1e30f;       // masked score
+constexpr float kMaxInit = -1e29f;      // running-max floor: masked p == 0
+
+__device__ __forceinline__ float bf2f(bf16 v) { return __bfloat162float(v); }
+
+// Round-to-nearest-even to bf16 and back: the TPU kernels' astype(bf16).
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// jax.nn.silu in f32: x * (1 / (1 + exp(-x))).
+__device__ __forceinline__ float silu_f32(float x) {
+  return x * (1.0f / (1.0f + expf(-x)));
+}
+
+// ---------------------------------------------------------------------------
+// MLA page attention
+// ---------------------------------------------------------------------------
+
+constexpr int kMlaThreads = 256;
+constexpr int kMlaMaxHeads = 16;        // heads padded to one wmma row tile
+constexpr int kMlaMaxCols = 4;          // F <= kMlaThreads * kMlaMaxCols
+
+__host__ __device__ inline size_t mla_align128(size_t b) {
+  return (b + 127) & ~size_t(127);
+}
+
+// Dynamic shared memory, each part 128-byte aligned:
+//   q [16, F] bf16 | page [bs, F] bf16 | s [16, bs] f32 | pb [16, bs] bf16 |
+//   pv [16, F] f32 | m, l, corr [16] f32.
+struct MlaSmem {
+  size_t q, page, s, pb, pv, stats, total;
+  __host__ __device__ MlaSmem(int F, int bs) {
+    const size_t R = kMlaMaxHeads;
+    q = 0;
+    page = mla_align128(q + R * F * 2);
+    s = mla_align128(page + (size_t)bs * F * 2);
+    pb = mla_align128(s + R * bs * 4);
+    pv = mla_align128(pb + R * bs * 2);
+    stats = mla_align128(pv + R * F * 4);
+    total = stats + 3 * R * 4;
+  }
+};
+
+__host__ __device__ inline size_t mla_smem_bytes(int F, int bs) {
+  return MlaSmem(F, bs).total;
+}
+
+// Four consecutive page elements (row, columns f..f+3) after the read-side
+// dequant: bf16(int8 * row scale), or the bf16 cache values as they are.
+template <bool QUANT>
+__device__ __forceinline__ void mla_load4(const void* row, const float* rscale,
+                                          int f, int group, bf16* dst) {
+  if (QUANT) {
+    const char4 v = *reinterpret_cast<const char4*>(
+        static_cast<const int8_t*>(row) + f);
+    dst[0] = __float2bfloat16((float)v.x * rscale[f / group]);
+    dst[1] = __float2bfloat16((float)v.y * rscale[(f + 1) / group]);
+    dst[2] = __float2bfloat16((float)v.z * rscale[(f + 2) / group]);
+    dst[3] = __float2bfloat16((float)v.w * rscale[(f + 3) / group]);
+  } else {
+    *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(
+        static_cast<const bf16*>(row) + f);
+  }
+}
+
+// Attends the H <= 16 heads of ONE query position.
+//   q_in      [H, F] bf16 raw absorbed query (global)
+//   cache     [slots, F] one layer plane (int8 or bf16); cscale [slots, SW]
+//   bt_row    the sequence's block table
+//   n_keys    keys at positions [0, n_keys) are attended (causal bound)
+//   new_pos   key position read from new_row/new_scale instead of the
+//             cache (the decode kernel's fresh row), or -1
+//   out       [H, F] bf16
+// Requires F % 16 == 0, bs % 16 == 0, (F / SW) % 4 == 0.  Both dots run on
+// the tensor cores (bf16 wmma, f32 accumulation): scores [16, bs] =
+// q [16, F] . page^T, values [16, F] = bf16(p) [16, bs] . page.
+template <bool QUANT>
+__device__ void mla_attend(const bf16* __restrict__ q_in, float scale, int H,
+                           int F, int bs, int SW, const void* cache,
+                           const float* cscale, const int* __restrict__ bt_row,
+                           int n_keys, int new_pos, const void* new_row,
+                           const float* new_scale, bf16* __restrict__ out,
+                           char* smem) {
+  namespace wmma = nvcuda::wmma;
+  constexpr int R = kMlaMaxHeads;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int esz = QUANT ? 1 : 2;
+  const int group = F / SW;
+
+  const MlaSmem lay(F, bs);
+  bf16* q_s = reinterpret_cast<bf16*>(smem + lay.q);
+  bf16* page_s = reinterpret_cast<bf16*>(smem + lay.page);
+  float* s_s = reinterpret_cast<float*>(smem + lay.s);
+  bf16* pb_s = reinterpret_cast<bf16*>(smem + lay.pb);
+  float* pv_s = reinterpret_cast<float*>(smem + lay.pv);
+  float* m_s = reinterpret_cast<float*>(smem + lay.stats);
+  float* l_s = m_s + R;
+  float* c_s = l_s + R;
+
+  // Pad heads to 16 rows with zeros; page rows past the live keys must
+  // hold finite values (p = 0 multiplies them), so the page starts zeroed.
+  for (int i = tid; i < R * F; i += blockDim.x) {
+    const int h = i / F;
+    q_s[i] = h < H ? __float2bfloat16(bf2f(q_in[i]) * scale)
+                   : __float2bfloat16(0.0f);
+  }
+  for (int i = tid; i < bs * F; i += blockDim.x)
+    page_s[i] = __float2bfloat16(0.0f);
+  for (int i = tid; i < R * bs; i += blockDim.x)
+    pb_s[i] = __float2bfloat16(0.0f);
+  for (int h = tid; h < R; h += blockDim.x) {
+    m_s[h] = kMaxInit;
+    l_s[h] = 0.0f;
+  }
+
+  float acc[kMlaMaxHeads][kMlaMaxCols];
+#pragma unroll
+  for (int h = 0; h < kMlaMaxHeads; ++h)
+#pragma unroll
+    for (int c = 0; c < kMlaMaxCols; ++c) acc[h][c] = 0.0f;
+
+  const int n_pages = (n_keys + bs - 1) / bs;
+  __syncthreads();
+
+  for (int j = 0; j < n_pages; ++j) {
+    const int nk = min(bs, n_keys - j * bs);
+    const long long base = (long long)bt_row[j] * bs;
+
+    // 1. Page rows [0, nk), dequantized to bf16, four columns a thread.
+    for (int i = tid; i < nk * F / 4; i += blockDim.x) {
+      const int r = (4 * i) / F;
+      const int f = 4 * i - r * F;
+      const int key = j * bs + r;
+      if (key == new_pos) {
+        mla_load4<QUANT>(new_row, new_scale, f, group, page_s + r * F + f);
+      } else {
+        const long long slot = base + r;
+        mla_load4<QUANT>(static_cast<const char*>(cache) + slot * F * esz,
+                         QUANT ? cscale + slot * SW : nullptr, f, group,
+                         page_s + r * F + f);
+      }
+    }
+    __syncthreads();
+
+    // 2. Scores on the tensor cores: warp w computes key columns
+    //    [16w, 16w + 16) over the whole F.
+    for (int n0 = 16 * warp; n0 < bs; n0 += 16 * nwarps) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sc;
+      wmma::fill_fragment(sc, 0.0f);
+      for (int k0 = 0; k0 < F; k0 += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
+        wmma::load_matrix_sync(a, q_s + k0, F);
+        wmma::load_matrix_sync(b, page_s + n0 * F + k0, F);
+        wmma::mma_sync(sc, a, b, sc);
+      }
+      wmma::store_matrix_sync(s_s + n0, sc, bs, wmma::mem_row_major);
+    }
+    __syncthreads();
+
+    // 3. Online softmax, one warp per head: the page max updates the
+    //    running max, p = exp(s - m_new) (rounded to bf16 for the value
+    //    dot; l sums the f32 p), corr rescales what came before.
+    for (int h = warp; h < H; h += nwarps) {
+      float mx = kNegInf;
+      for (int r = lane; r < bs; r += 32) {
+        const float sv = r < nk ? s_s[h * bs + r] : kNegInf;
+        s_s[h * bs + r] = sv;
+        mx = fmaxf(mx, sv);
+      }
+      mx = warp_max(mx);
+      const float m_old = m_s[h];
+      const float m_new = fmaxf(m_old, mx);
+      float sum = 0.0f;
+      for (int r = lane; r < bs; r += 32) {
+        const float pr = expf(s_s[h * bs + r] - m_new);
+        sum += pr;
+        pb_s[h * bs + r] = __float2bfloat16(pr);
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float corr = expf(m_old - m_new);
+        c_s[h] = corr;
+        l_s[h] = l_s[h] * corr + sum;
+        m_s[h] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // 4. Value dot on the same page, on the tensor cores.
+    for (int n0 = 16 * warp; n0 < F; n0 += 16 * nwarps) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> pv;
+      wmma::fill_fragment(pv, 0.0f);
+      for (int k0 = 0; k0 < bs; k0 += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+        wmma::load_matrix_sync(a, pb_s + k0, bs);
+        wmma::load_matrix_sync(b, page_s + k0 * F + n0, F);
+        wmma::mma_sync(pv, a, b, pv);
+      }
+      wmma::store_matrix_sync(pv_s + n0, pv, F, wmma::mem_row_major);
+    }
+    __syncthreads();
+
+    // 5. acc = acc * corr + pv; thread owns columns tid + c * blockDim.
+#pragma unroll
+    for (int c = 0; c < kMlaMaxCols; ++c) {
+      const int f = tid + c * blockDim.x;
+      if (f < F) {
+#pragma unroll
+        for (int h = 0; h < kMlaMaxHeads; ++h)
+          if (h < H) acc[h][c] = acc[h][c] * c_s[h] + pv_s[h * F + f];
+      }
+    }
+    // The next page's loads overwrite page_s only after every warp has
+    // read it (step 4) -- the barrier above; pv_s and c_s are rewritten
+    // only after the next two barriers.
+  }
+
+#pragma unroll
+  for (int c = 0; c < kMlaMaxCols; ++c) {
+    const int f = tid + c * blockDim.x;
+    if (f < F) {
+#pragma unroll
+      for (int h = 0; h < kMlaMaxHeads; ++h)
+        if (h < H)
+          out[h * F + f] = __float2bfloat16(acc[h][c] / fmaxf(l_s[h], 1e-30f));
+    }
+  }
+}
+
+// Zero-fills an [H, F] output (pad rows: no live key).
+__device__ __forceinline__ void mla_zero_out(bf16* out, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) out[i] = __float2bfloat16(0.0f);
+}
+
+// ---------------------------------------------------------------------------
+// int8-weight tile GEMM for the MoE kernels
+// ---------------------------------------------------------------------------
+
+constexpr int kMoeThreads = 256;        // 8 warps; 16 x 16 epilogue grid
+constexpr int kMoeTN = 64;              // output columns per block
+constexpr int kMoeLdW = kMoeTN + 8;     // bf16 row pitch of a W tile
+constexpr int kMoeLdC = kMoeTN + 4;     // f32 row pitch of the result tile
+
+// Contraction step: as deep as the 48 KB of static shared memory allows
+// (more weight bytes in flight per barrier; the loads are not pipelined).
+__host__ __device__ constexpr int moe_tk(int tm) { return tm <= 32 ? 128 : 64; }
+
+// acc[w][r][c] = sum_k A[row_ptr[m]][k] * W_w[k][col0 + n] for the output
+// element (m = ty + 16 r, n = tx * 4 + c) with ty = tid / 16, tx = tid % 16,
+// for w < NW weight matrices sharing the activation tile.  Rows whose
+// pointer is null read zeros.  The dots run on the tensor cores as bf16
+// 16x16x16 wmma fragments with f32 accumulation: the activations are bf16
+// already and int8 weights widen to bf16 exactly, so this is the
+// arithmetic of the TPU kernels' bf16 dots.  Requires K % moe_tk(TM) == 0,
+// col0 % kMoeTN == 0, ldw % 4 == 0, 8-byte aligned activation rows.
+template <int TM, int NW>
+__device__ void moe_tile_gemm(const bf16* const* row_ptr, const int8_t* const* W,
+                              int ldw, int col0, int K,
+                              float (&acc)[NW][TM / 16][4]) {
+  namespace wmma = nvcuda::wmma;
+  constexpr int RM = TM / 16;
+  constexpr int kFragsN = kMoeTN / 16;
+  constexpr int kFrags = NW * RM * kFragsN;
+  constexpr int kPerWarp = (kFrags + 7) / 8;
+  constexpr int TK = moe_tk(TM);
+  constexpr int LdA = TK + 8;           // bf16 row pitch of the A tile
+  constexpr int kBytesAW = (TM * LdA + NW * TK * kMoeLdW) * 2;
+  constexpr int kBytesC = NW * TM * kMoeLdC * 4;
+  __shared__ __align__(128) unsigned char raw[kBytesAW > kBytesC ? kBytesAW
+                                                                 : kBytesC];
+  bf16* As = reinterpret_cast<bf16*>(raw);              // [TM][LdA]
+  bf16* Ws = As + TM * LdA;                             // [NW][TK][kMoeLdW]
+  float* Cs = reinterpret_cast<float*>(raw);            // [NW][TM][kMoeLdC]
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> cf[kPerWarp];
+#pragma unroll
+  for (int i = 0; i < kPerWarp; ++i) wmma::fill_fragment(cf[i], 0.0f);
+
+  for (int k0 = 0; k0 < K; k0 += TK) {
+    for (int i = tid; i < TM * TK / 4; i += kMoeThreads) {
+      const int m = (4 * i) / TK;
+      const int kk = 4 * i - m * TK;
+      const bf16* p = row_ptr[m];
+      *reinterpret_cast<uint2*>(As + m * LdA + kk) =
+          p ? *reinterpret_cast<const uint2*>(p + k0 + kk) : make_uint2(0, 0);
+    }
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      for (int i = tid; i < TK * kMoeTN / 4; i += kMoeThreads) {
+        const int kk = i / (kMoeTN / 4);
+        const int c4 = i - kk * (kMoeTN / 4);
+        const char4 v = *reinterpret_cast<const char4*>(
+            W[w] + (long long)(k0 + kk) * ldw + col0 + c4 * 4);
+        bf16* dst = Ws + (w * TK + kk) * kMoeLdW + c4 * 4;
+        dst[0] = __float2bfloat16((float)v.x);
+        dst[1] = __float2bfloat16((float)v.y);
+        dst[2] = __float2bfloat16((float)v.z);
+        dst[3] = __float2bfloat16((float)v.w);
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kPerWarp; ++i) {
+      const int f = warp + 8 * i;
+      if (f < kFrags) {
+        const int w = f / (RM * kFragsN);
+        const int rem = f - w * RM * kFragsN;
+        const int m0 = (rem / kFragsN) * 16;
+        const int n0 = (rem % kFragsN) * 16;
+#pragma unroll
+        for (int kk = 0; kk < TK; kk += 16) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
+          wmma::load_matrix_sync(af, As + m0 * LdA + kk, LdA);
+          wmma::load_matrix_sync(
+              bfr, Ws + (w * TK + kk) * kMoeLdW + n0, kMoeLdW);
+          wmma::mma_sync(cf[i], af, bfr, cf[i]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // Results through shared memory into the epilogue's thread mapping.
+#pragma unroll
+  for (int i = 0; i < kPerWarp; ++i) {
+    const int f = warp + 8 * i;
+    if (f < kFrags) {
+      const int w = f / (RM * kFragsN);
+      const int rem = f - w * RM * kFragsN;
+      const int m0 = (rem / kFragsN) * 16;
+      const int n0 = (rem % kFragsN) * 16;
+      wmma::store_matrix_sync(Cs + (w * TM + m0) * kMoeLdC + n0, cf[i],
+                              kMoeLdC, wmma::mem_row_major);
+    }
+  }
+  __syncthreads();
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+#pragma unroll
+  for (int w = 0; w < NW; ++w)
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        acc[w][r][c] = Cs[(w * TM + ty + 16 * r) * kMoeLdC + tx * 4 + c];
+  __syncthreads();                      // Cs aliases the next call's tiles
+}
+
+}  // namespace llmd

@@ -1,0 +1,361 @@
+"""Paged KV-cache block management: allocator, prefix cache, eviction.
+
+Host-side bookkeeping for the device-resident paged cache (the device arrays
+live in the engine; this module deals only in block ids).  Design follows
+vLLM's prefix-caching allocator semantics — full blocks are content-hashed
+(chain scheme, ``llm_d_tpu_torch.utils.hashing``) and kept after free in an LRU
+evictor so later requests with a shared prefix reuse them — because the
+scheduler-side prefix scorers (reference: gaie values, SURVEY.md §2.4) are
+calibrated against exactly this behavior.
+
+Regions (SPMD data parallelism): with ``num_regions = dp > 1`` the pool is
+partitioned so region ``r`` owns global blocks [r*B_l, (r+1)*B_l), whose
+device rows live in dp-shard ``r`` of the engine's stacked cache.  A request
+is pinned to one region at admission (``assign_region``) so every page it
+touches is shard-local — device attention never crosses the dp axis (the
+reference's per-rank KV in vLLM DP engine cores, wide-ep decode.yaml:73-93).
+Block ids stay GLOBAL on the host: region / local ids are pure arithmetic
+(``block // B_l``, ``block % B_l``).  Each region's local block 0 is its
+null/trash block (padding rows of that shard's batch scatter there) and is
+never allocated; with one region this is the classic reserved block 0.
+"""
+
+from __future__ import annotations
+
+import collections
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+from llm_d_tpu_torch.engine.request import Request
+from llm_d_tpu_torch.utils.hashing import hash_block
+
+# Event callbacks for the KV-event stream and tiered offload
+# (block_hash bytes, block_id) -> None
+BlockEvent = Callable[[bytes, int], None]
+
+
+class KVCacheManager:
+    def __init__(
+        self,
+        num_blocks: int,
+        block_size: int,
+        enable_prefix_caching: bool = True,
+        hash_seed: str = "42",
+        num_regions: int = 1,
+    ) -> None:
+        assert num_blocks >= 2 * num_regions
+        assert num_blocks % num_regions == 0, \
+            f"num_blocks {num_blocks} not divisible by {num_regions} regions"
+        self.num_blocks = num_blocks
+        self.block_size = block_size
+        self.enable_prefix_caching = enable_prefix_caching
+        self.hash_seed = hash_seed
+        self.num_regions = num_regions
+        self.blocks_per_region = num_blocks // num_regions
+
+        B_l = self.blocks_per_region
+        self._free: List[collections.deque[int]] = [
+            collections.deque(range(r * B_l + 1, (r + 1) * B_l))
+            for r in range(num_regions)]
+        self._ref: Dict[int, int] = {}                   # block -> refcount
+        self._hash_of: Dict[int, bytes] = {}             # block -> content hash
+        self._cached: Dict[bytes, int] = {}              # hash -> block
+        # Free-but-cached blocks in LRU order (oldest first), per region.
+        self._evictor: List["collections.OrderedDict[int, None]"] = [
+            collections.OrderedDict() for _ in range(num_regions)]
+        # Per-request chain of block hashes (computed lazily).
+        self._req_hashes: Dict[str, List[bytes]] = {}
+        self._region_of_req: Dict[str, int] = {}
+
+        self.on_block_stored: List[BlockEvent] = []      # KV events / offload
+        self.on_block_removed: List[BlockEvent] = []
+        # Tiered cache: consulted on device-cache miss with (block_hash,
+        # protected chain blocks, target region); returns a restored
+        # (cached, evictor-parked) block id in that region or None
+        # (engine/offload.py).
+        self.secondary_lookup: Optional[
+            Callable[[bytes, frozenset, int], Optional[int]]] = None
+        self.eviction_count = 0
+
+    # ---------- introspection ----------
+
+    def region_of_block(self, block_id: int) -> int:
+        return block_id // self.blocks_per_region
+
+    def local_block_id(self, block_id: int) -> int:
+        return block_id % self.blocks_per_region
+
+    def region_of_request(self, request: Request) -> int:
+        return self._region_of_req.get(request.request_id, 0)
+
+    @property
+    def num_free_blocks(self) -> int:
+        return sum(len(f) for f in self._free) \
+            + sum(len(e) for e in self._evictor)
+
+    def region_free_blocks(self, region: int) -> int:
+        return len(self._free[region]) + len(self._evictor[region])
+
+    @property
+    def max_request_blocks(self) -> int:
+        """Largest block count any single request can ever hold (one
+        region's allocatable capacity)."""
+        return self.blocks_per_region - 1
+
+    @property
+    def usage(self) -> float:
+        usable = self.num_blocks - self.num_regions
+        return 1.0 - self.num_free_blocks / usable if usable else 0.0
+
+    # ---------- prefix cache ----------
+
+    def request_block_hashes(self, request: Request) -> List[bytes]:
+        """Chain hashes of every full block of the request's tokens."""
+        hashes = self._req_hashes.setdefault(request.request_id, [])
+        tokens = request.all_token_ids
+        n_full = len(tokens) // self.block_size
+        parent = hashes[-1] if hashes else None
+        for i in range(len(hashes), n_full):
+            chunk = tokens[i * self.block_size:(i + 1) * self.block_size]
+            parent = hash_block(parent, chunk, self.hash_seed)
+            hashes.append(parent)
+        return hashes[:n_full]
+
+    def assign_region(self, request: Request) -> int:
+        """Pin the request to a region: the cached-prefix-chain region wins
+        (the in-engine analogue of the EPP's prefix-affinity scorer) —
+        but ONLY while that region can still hold the request's remaining
+        fresh blocks; otherwise most-free wins.  A pin sticks while the
+        request holds blocks; ``unpin`` lets an unplaceable request be
+        re-routed on the next scheduling pass instead of starving the
+        queue head against one full region."""
+        rid = request.request_id
+        r = self._region_of_req.get(rid)
+        if r is not None:
+            return r
+        if self.num_regions == 1:
+            self._region_of_req[rid] = 0
+            return 0
+        chain_region: Optional[int] = None
+        chain_len = 0
+        if self.enable_prefix_caching:
+            for h in self.request_block_hashes(request):
+                b = self._cached.get(h)
+                if b is None:
+                    break
+                reg = self.region_of_block(b)
+                if chain_region is None:
+                    chain_region = reg
+                elif reg != chain_region:
+                    break           # chain crosses regions: stop at boundary
+                chain_len += 1
+        most_free = max(range(self.num_regions), key=self.region_free_blocks)
+        best_r = most_free
+        if chain_region is not None and chain_len > 0:
+            fresh_needed = max(
+                0, -(-request.num_tokens // self.block_size)
+                - chain_len)
+            if self.region_free_blocks(chain_region) >= fresh_needed:
+                best_r = chain_region
+        self._region_of_req[rid] = best_r
+        return best_r
+
+    def unpin(self, request: Request) -> bool:
+        """Drop a block-less request's region pin so the next pass may
+        assign a different region (used after a failed first allocation —
+        affinity must not beat admission)."""
+        if request.block_ids:
+            return False
+        self._region_of_req.pop(request.request_id, None)
+        return True
+
+    def find_cached_prefix(self, request: Request) -> Tuple[List[int], int]:
+        """Longest cached block-prefix for this request within its region.
+
+        Returns (block_ids, num_cached_tokens). Does NOT take refs yet —
+        call ``allocate`` with these as ``reuse_blocks``.
+        """
+        if not self.enable_prefix_caching:
+            return [], 0
+        region = self.assign_region(request)
+        blocks: List[int] = []
+        for h in self.request_block_hashes(request):
+            b = self._cached.get(h)
+            if b is not None and self.region_of_block(b) != region:
+                b = None            # foreign-shard block: unusable here
+            if b is None and self.secondary_lookup is not None:
+                # Host-tier restore on miss; earlier chain blocks are
+                # refcount-0 evictor residents and must not be reused as
+                # the restore target (silent chain corruption).
+                b = self.secondary_lookup(h, frozenset(blocks), region)
+                if b is not None and self.region_of_block(b) != region:
+                    b = None
+            if b is None:
+                break
+            blocks.append(b)
+        # Never mark the whole sequence computed: the final token must be
+        # (re)computed to produce logits for sampling.  num_tokens (not
+        # num_prompt_tokens) so a RESUME admission — output_token_ids
+        # pre-populated from the relay journal — restores through the
+        # generated region too; for fresh requests the two are equal.
+        max_cacheable = (request.num_tokens - 1) // self.block_size
+        blocks = blocks[:max_cacheable + 1]
+        n = len(blocks) * self.block_size
+        if n >= request.num_tokens:
+            blocks = blocks[:max_cacheable]
+            n = len(blocks) * self.block_size
+        return blocks, n
+
+    # ---------- allocation ----------
+
+    def _take_free_block(self, region: int = 0) -> Optional[int]:
+        # Ownership handoff by design: the caller (allocate) owns the
+        # rollback — _release on partial-allocation failure.
+        # llmd: ignore[PAIR002] handoff wrapper; allocate() rolls back
+        return self.take_block(region=region)
+
+    def take_block(self, protected: frozenset = frozenset(),
+                   region: int = 0) -> Optional[int]:
+        """Claim a block in ``region``: plain free first, else evict the LRU
+        cached block not in ``protected`` (the offload tier protects the
+        prefix chain it is mid-way through assembling)."""
+        free = self._free[region]
+        evictor = self._evictor[region]
+        while free:
+            b = free.popleft()
+            if b not in evictor:            # plain free block
+                return b
+        victim = next((b for b in evictor if b not in protected), None)
+        if victim is not None:              # evict LRU cached block
+            del evictor[victim]
+            h = self._hash_of.pop(victim, None)
+            if h is not None and self._cached.get(h) == victim:
+                del self._cached[h]
+                self.eviction_count += 1
+                for cb in self.on_block_removed:
+                    cb(h, victim)
+            return victim
+        return None
+
+    def can_allocate(self, n: int, region: Optional[int] = None) -> bool:
+        if region is None:
+            if self.num_regions == 1:
+                region = 0
+            else:
+                return max(self.region_free_blocks(r)
+                           for r in range(self.num_regions)) >= n
+        return self.region_free_blocks(region) >= n
+
+    def allocate(self, request: Request, num_tokens_after: int,
+                 reuse_blocks: Sequence[int] = ()) -> Optional[List[int]]:
+        """Grow the request's block list to cover ``num_tokens_after`` tokens.
+
+        ``reuse_blocks`` are prefix-cache hits to adopt (only valid when the
+        request currently holds no blocks). Returns newly attached block ids
+        (reused + fresh), or None if not enough free blocks (caller preempts).
+        """
+        region = self.assign_region(request)
+        needed_blocks = -(-num_tokens_after // self.block_size)
+        new_needed = needed_blocks - len(request.block_ids)
+        if new_needed <= 0:
+            return []
+        attach: List[int] = []
+        if reuse_blocks:
+            assert not request.block_ids
+            attach.extend(reuse_blocks)
+            new_needed -= len(reuse_blocks)
+        evictor = self._evictor[region]
+        if new_needed > 0 and self.region_free_blocks(region) - sum(
+                1 for b in attach if b in evictor) < new_needed:
+            return None
+        # Take refs on reused blocks (possibly resurrecting from evictor).
+        for b in attach:
+            if b in evictor:
+                del evictor[b]
+            self._ref[b] = self._ref.get(b, 0) + 1
+        for _ in range(max(0, new_needed)):
+            b = self._take_free_block(region)
+            if b is None:       # raced with evictor bookkeeping; roll back
+                for bb in attach:
+                    self._release(bb)
+                return None
+            self._ref[b] = 1
+            attach.append(b)
+        request.block_ids.extend(attach)
+        return attach
+
+    def _release(self, b: int) -> None:
+        self._ref[b] -= 1
+        if self._ref[b] == 0:
+            del self._ref[b]
+            if self.enable_prefix_caching and b in self._hash_of:
+                # Keep cached, evict LRU later.
+                self._evictor[self.region_of_block(b)][b] = None
+            else:
+                self._free[self.region_of_block(b)].append(b)
+
+    def free(self, request: Request) -> None:
+        for b in reversed(request.block_ids):
+            self._release(b)
+        request.block_ids = []
+        self._req_hashes.pop(request.request_id, None)
+        self._region_of_req.pop(request.request_id, None)
+
+    def release_tail(self, request: Request, blocks: Sequence[int]) -> None:
+        """Give back just-attached tail blocks (speculative over-allocation
+        rollback: the multistep fast path pre-allocates K tokens of blocks
+        and must not hold them when it falls back to single-step)."""
+        for b in reversed(blocks):
+            assert request.block_ids and request.block_ids[-1] == b
+            request.block_ids.pop()
+            self._release(b)
+
+    def trim_request(self, request: Request, num_tokens: int) -> int:
+        """Shrink the request's block list to exactly cover ``num_tokens``
+        tokens, releasing the tail — the spec-decode rejection rollback.
+
+        A draft-and-verify step allocates blocks for up to K+1 tokens; the
+        accepted count decides how many were really appended, so the tail
+        blocks past ``ceil(num_tokens / block_size)`` go back to the pool
+        the SAME step (block-boundary-safe: a partially-filled kept block
+        is never released, and released tail blocks were never full, hence
+        never content-hashed — the prefix cache only ever indexes accepted
+        content).  Returns the number of blocks released."""
+        keep = -(-num_tokens // self.block_size)
+        released = 0
+        while len(request.block_ids) > keep:
+            self._release(request.block_ids.pop())
+            released += 1
+        return released
+
+    def uncache_block(self, block_id: int) -> None:
+        """Drop a block's cache entry (used by offload tier on invalidation)."""
+        h = self._hash_of.pop(block_id, None)
+        if h is not None and self._cached.get(h) == block_id:
+            del self._cached[h]
+        evictor = self._evictor[self.region_of_block(block_id)]
+        if block_id in evictor:
+            del evictor[block_id]
+            self._free[self.region_of_block(block_id)].append(block_id)
+
+    # ---------- post-step caching ----------
+
+    def cache_full_blocks(self, request: Request) -> None:
+        """Register content hashes for the request's now-full blocks."""
+        if not self.enable_prefix_caching:
+            return
+        hashes = self.request_block_hashes(request)
+        n_full_computed = request.num_computed_tokens // self.block_size
+        for i in range(min(n_full_computed, len(hashes), len(request.block_ids))):
+            b = request.block_ids[i]
+            if b in self._hash_of:
+                continue
+            h = hashes[i]
+            if h in self._cached:
+                continue        # another block already canonical for this hash
+            self._hash_of[b] = h
+            self._cached[h] = b
+            for cb in self.on_block_stored:
+                cb(h, b)
+
+    def lookup_hash(self, h: bytes) -> Optional[int]:
+        return self._cached.get(h)

@@ -1,0 +1,168 @@
+"""MoE decoder-only transformer with MLA (port of the single-device MLA
+branch of ``llm_d_tpu.models.moe``).
+
+Parameters keep the JAX package's tree: ``dense_layers`` and
+``moe_layers`` hold weights stacked on a leading layer axis (the first
+``first_dense_layers`` layers run a dense SwiGLU MLP, the rest shared +
+routed experts), and a plain Python loop walks the layers.  The latent KV
+cache is one ``[L, slots, F]`` buffer (plus an f32 ``[L, slots, 1]`` scale
+plane for the int8 latent) that every layer updates in place.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from llm_d_tpu_torch.models.config import ModelConfig
+from llm_d_tpu_torch.models.mla import mla_attention_block, mla_param_shapes
+from llm_d_tpu_torch.ops import layers as L
+from llm_d_tpu_torch.ops import moe as moe_ops
+
+Params = Dict[str, Any]
+
+QUANT_KEYS = ("w_gate_q", "w_gate_s", "w_up_q", "w_up_s",
+              "w_down_q", "w_down_s")
+
+
+def _normal(shape, std, dt, generator, device) -> torch.Tensor:
+    """N(0, std^2) in f32 rounded to ``dt``, drawn one leading plane at a
+    time so the f32 temporary stays one plane."""
+    out = torch.empty(shape, dtype=dt, device=device)
+    planes = out.reshape(-1, *shape[-2:]) if len(shape) > 2 else out[None]
+    for p in planes:
+        p.copy_(torch.randn(p.shape, generator=generator, device=device,
+                            dtype=torch.float32) * std)
+    return out
+
+
+def init_params(config: ModelConfig, generator: torch.Generator,
+                device) -> Params:
+    """Random-init parameters on ``device`` (same shapes, scales and tree
+    as the JAX package; the random bits differ)."""
+    c = config
+    if not c.use_mla:
+        raise NotImplementedError("the port serves the MLA-MoE family only")
+    dt = c.torch_dtype
+    Ld = c.first_dense_layers
+    Lm = c.num_layers - Ld
+    E, Im = c.num_experts, c.moe_intermediate_size
+    Ish = Im * c.num_shared_experts
+
+    def w(shape, dtype=dt):
+        return _normal(shape, shape[-2] ** -0.5, dtype, generator, device)
+
+    def ones(shape):
+        return torch.ones(shape, dtype=dt, device=device)
+
+    def attn_params(n):
+        p = {}
+        for name, shape in mla_param_shapes(c, n).items():
+            p[name] = ones(shape) if name.endswith("_norm") else w(shape)
+        p["input_norm"] = ones((n, c.hidden_size))
+        p["post_attn_norm"] = ones((n, c.hidden_size))
+        return p
+
+    dense = attn_params(Ld)
+    dense.update({
+        "gate_proj": w((Ld, c.hidden_size, c.intermediate_size)),
+        "up_proj": w((Ld, c.hidden_size, c.intermediate_size)),
+        "down_proj": w((Ld, c.intermediate_size, c.hidden_size)),
+    })
+    moe = attn_params(Lm)
+    moe.update({
+        "router": w((Lm, c.hidden_size, E)).float(),
+        "w_gate": w((Lm, E, c.hidden_size, Im)),
+        "w_up": w((Lm, E, c.hidden_size, Im)),
+        "w_down": w((Lm, E, Im, c.hidden_size)),
+    })
+    if c.scoring_func == "sigmoid":
+        moe["e_bias"] = torch.zeros((Lm, E), dtype=torch.float32,
+                                    device=device)
+    if c.num_shared_experts > 0:
+        moe.update({
+            "shared_gate": w((Lm, c.hidden_size, Ish)),
+            "shared_up": w((Lm, c.hidden_size, Ish)),
+            "shared_down": w((Lm, Ish, c.hidden_size)),
+        })
+    params: Params = {
+        "embed": w((c.vocab_size, c.hidden_size)),
+        "dense_layers": dense,
+        "moe_layers": moe,
+        "final_norm": ones((c.hidden_size,)),
+    }
+    if not c.tie_word_embeddings:
+        params["lm_head"] = w((c.hidden_size, c.vocab_size))
+    return params
+
+
+def forward(params: Params, kv_cache: Dict[str, torch.Tensor],
+            batch: Dict[str, torch.Tensor], config: ModelConfig,
+            block_size: int, attn_backend: str = "auto") -> torch.Tensor:
+    """One engine step over a ragged batch: returns the final-normed
+    hidden states of the sampling rows ``[S, D]``; ``kv_cache`` ({"kv"}
+    or {"kv", "kv_scale"}) is updated in place."""
+    c = config
+    Ld = c.first_dense_layers
+    kv = kv_cache["kv"]
+    kv_scale = kv_cache.get("kv_scale")
+    dl, ml = params["dense_layers"], params["moe_layers"]
+    quant_stacked = ({k: ml[k] for k in QUANT_KEYS}
+                     if "w_gate_q" in ml else None)
+    x = params["embed"][batch["token_ids"].long()]
+    for li in range(c.num_layers):
+        if li < Ld:
+            lp = {k: v[li] for k, v in dl.items()}
+        else:
+            lp = {k: v[li - Ld] for k, v in ml.items() if k not in QUANT_KEYS}
+        a = mla_attention_block(
+            lp, c, L.rms_norm(x, lp["input_norm"], c.rms_norm_eps), batch,
+            kv, block_size, attn_backend, layer=li, kv_scale=kv_scale)
+        # Two bf16 roundings the JAX reference does not perform: under jit
+        # XLA feeds the post-attention norm the f32 residual sum, and the
+        # router the f32 norm output (an f32 -> bf16 -> f32 convert pair is
+        # dropped).  The residual stream itself is stored rounded.
+        h32 = x.float() + a.float()
+        x = h32.to(x.dtype)
+        hn32 = L.rms_norm(h32, lp["post_attn_norm"], c.rms_norm_eps)
+        hn = hn32.to(x.dtype)
+        if li < Ld:
+            m = L.swiglu_mlp(hn, lp["gate_proj"], lp["up_proj"],
+                             lp["down_proj"])
+        else:
+            weights, idx = moe_ops.route(
+                torch.matmul(hn32, lp["router"]), c,
+                e_bias=lp.get("e_bias"))
+            if quant_stacked is not None:
+                m = moe_ops.expert_ffn(
+                    hn, weights, idx, None, None, None,
+                    quant=dict(quant_stacked, layer=li - Ld))
+            else:
+                m = moe_ops.expert_ffn(hn, weights, idx, lp["w_gate"],
+                                       lp["w_up"], lp["w_down"])
+            if "shared_gate" in lp:
+                m = m + L.swiglu_mlp(hn, lp["shared_gate"], lp["shared_up"],
+                                     lp["shared_down"])
+        x = x + m
+    x = L.rms_norm(x, params["final_norm"], c.rms_norm_eps)
+    return x[batch["sample_idx"].long()]
+
+
+def compute_logits(params: Params, hidden: torch.Tensor,
+                   config: ModelConfig) -> torch.Tensor:
+    """f32 logits (bf16 operands, f32 products and sums)."""
+    head = params.get("lm_head")
+    if head is None:                                  # tied embeddings
+        head = params["embed"].T
+    return torch.matmul(hidden.float(), head.float())
+
+
+def kv_cache_layout(config: ModelConfig) -> Dict[str, int]:
+    """Per-buffer cache row widths: ONE latent row per token
+    (kv_lora_rank + rope), always lane-padded to a multiple of 128 so the
+    width depends on the config alone (576 -> 640 for V3)."""
+    if not config.use_mla:
+        raise NotImplementedError("the port serves the MLA-MoE family only")
+    w = config.kv_lora_rank + config.qk_rope_head_dim
+    return {"kv": -(-w // 128) * 128}

@@ -1,0 +1,138 @@
+"""Ragged paged attention over the paged KV cache: reference path, cache
+writes and the batch-layout helpers (port of ``llm_d_tpu.ops.attention``).
+
+Batch layout (padded to bucketed sizes, as the JAX package builds it):
+  q:              [T, H, D]     query vectors for every token in this step
+  token_seq_ids:  [T]           sequence row of each token
+  positions:      [T]           absolute position of each token in its seq
+  kv cache slots: [L, num_slots, W]; slot = block * bs + offset
+  block_tables:   [S, B]        physical block ids per sequence (0 = null)
+  seq_lens:       [S]           total context length per sequence (0 = pad)
+
+Block 0 is the reserved null/trash block: padding tokens write there and
+null table entries read from it (always masked out).
+
+Unlike the JAX package, the port updates the cache IN PLACE
+(``index_copy_``): PyTorch tensors are mutable, and copying a stacked
+cache per layer would cost the bytes the paged layout exists to save.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from llm_d_tpu_torch.ops.quant import dequantize_kv_block
+
+NEG_INF = -1e30
+
+
+def _gather_rows(cache: torch.Tensor, scale: Optional[torch.Tensor],
+                 idx: torch.Tensor, layer: Optional[int]) -> torch.Tensor:
+    """Row gather with optional int8 dequantization, rows returned in f32."""
+    plane = cache if layer is None else cache[layer]
+    rows = plane[idx]
+    if scale is None:
+        return rows.float()
+    s = (scale if layer is None else scale[layer])[idx]
+    return dequantize_kv_block(rows, s, torch.float32)
+
+
+def ragged_paged_attention_reference(
+    q: torch.Tensor,              # [T, H, D]
+    k_cache: torch.Tensor,        # [num_slots, KVH*D] or stacked [L, ...]
+    v_cache: torch.Tensor,
+    token_seq_ids: torch.Tensor,  # [T]
+    positions: torch.Tensor,      # [T]
+    block_tables: torch.Tensor,   # [S, B]
+    seq_lens: torch.Tensor,       # [S]
+    block_size: int,
+    scale: Optional[float] = None,
+    layer: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:                # [T, H, D] in q.dtype
+    """Full-softmax attention in f32 over each sequence's whole context
+    (the CPU path and correctness oracle)."""
+    T, H, D = q.shape
+    S, B = block_tables.shape
+    KVH = k_cache.shape[-1] // D
+    G = H // KVH
+    scale = scale if scale is not None else D ** -0.5
+    dev = q.device
+
+    slot_ids = (block_tables[:, :, None].long() * block_size
+                + torch.arange(block_size, device=dev)[None, None, :]
+                ).reshape(S, B * block_size)
+    C = B * block_size
+    k_seq = _gather_rows(k_cache, k_scale, slot_ids, layer).reshape(
+        S, C, KVH, D)
+    v_seq = _gather_rows(v_cache, v_scale, slot_ids, layer).reshape(
+        S, C, KVH, D)
+    tsi = token_seq_ids.long()
+    k_tok = k_seq[tsi]
+    v_tok = v_seq[tsi]
+
+    qf = q.float().reshape(T, KVH, G, D)
+    scores = torch.einsum("tkgd,tckd->tkgc", qf * scale, k_tok)
+    key_pos = torch.arange(C, device=dev)[None, :]
+    valid = (key_pos <= positions[:, None]) & (
+        key_pos < seq_lens.long()[tsi][:, None])
+    scores = torch.where(valid[:, None, None, :], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("tkgc,tckd->tkgd", probs, v_tok)
+    return out.reshape(T, H, D).to(q.dtype)
+
+
+def write_kv(cache: torch.Tensor, new: torch.Tensor,
+             slot_mapping: torch.Tensor, layer: Optional[int] = None) -> None:
+    """Scatter this step's rows ``new [T, ...]`` into ``cache`` slots, in
+    place (one plane of a stacked ``[L, slots, W]`` cache with ``layer``).
+    MLA has one latent buffer, so the K/V pair of the JAX signature is one
+    cache here."""
+    plane = cache if layer is None else cache[layer]
+    T = new.shape[0]
+    plane.index_copy_(0, slot_mapping.long(),
+                      new.reshape(T, -1).to(plane.dtype))
+
+
+def write_scales(scale_cache: torch.Tensor, scales_new: torch.Tensor,
+                 slot_mapping: torch.Tensor,
+                 layer: Optional[int] = None) -> None:
+    """Scatter per-row KV scales next to their int8 rows, in place."""
+    plane = scale_cache if layer is None else scale_cache[layer]
+    plane.index_copy_(0, slot_mapping.long(), scales_new.to(plane.dtype))
+
+
+def gather_per_seq_queries(q: torch.Tensor, positions: torch.Tensor,
+                           qtok_idx: torch.Tensor):
+    """[T, H, D] ragged queries -> ([S, Q, H, D], [S, Q] positions); the
+    pad sentinel T in ``qtok_idx`` gathers a zero row at position -1."""
+    T, H, D = q.shape
+    q_pad = torch.cat([q, q.new_zeros((1, H, D))])
+    pos_pad = torch.cat([positions, positions.new_full((1,), -1)])
+    idx = qtok_idx.long()
+    return q_pad[idx], pos_pad[idx]
+
+
+def resolve_backend(backend: str, device: torch.device) -> str:
+    """'auto' -> the hand-written kernels on the card, the reference on
+    the CPU."""
+    if backend == "auto":
+        return "kernel" if torch.device(device).type == "cuda" else \
+            "reference"
+    if backend not in ("kernel", "reference"):
+        raise ValueError(f"unknown attention backend {backend!r}")
+    return backend
+
+
+def decode_kernel_eligible(batch, block_size: int, row_width: int) -> bool:
+    """Gate for the decode kernel: pure-decode batch (Q == 1), pages of a
+    multiple of 16 rows, rows of a multiple of 128 columns (the same gate
+    the JAX package applies; its shapes are the ones the kernel is held
+    to)."""
+    qtok_idx = batch.get("qtok_idx")
+    return (qtok_idx is not None and qtok_idx.shape[1] == 1
+            and block_size % 16 == 0 and row_width % 128 == 0)

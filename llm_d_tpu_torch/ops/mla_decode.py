@@ -1,0 +1,213 @@
+"""Kernel A: MLA paged decode with the new latent row spliced in place.
+
+Replaces the TPU kernel ``llm_d_tpu/ops/pallas/mla_attention.py``
+``mla_paged_decode_update``.  CUDA source: ``csrc/mla_decode.cu`` (with
+the page loop in ``csrc/common.cuh``).
+
+What bounds it on the H100: bytes -- each live latent row (F int8 + one
+f32 scale) is read once per step for all H heads, about 2*H flops per
+byte, far below the card's ridge.  The design keeps every page in shared
+memory once for both the score and the value dot (MQA), dequantizes it
+there, and writes the new row from the same block that reads the page, so
+no second pass or cross-block ordering is needed.  One block per sequence
+leaves the card underfilled at small batches; splitting a sequence's
+pages over blocks is the next step.
+
+``mla_paged_decode_update_plain`` is the same function in plain PyTorch:
+the CPU tests use it, ``chip_smoke.py`` holds the kernel against it, and
+the wrapper runs it only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from llm_d_tpu_torch.ops import _build
+from llm_d_tpu_torch.ops.attention import NEG_INF
+from llm_d_tpu_torch.ops.quant import dequantize_kv_block
+
+_MAX_HEADS = 16
+_MAX_F = 1024
+_MAX_SMEM = 232448
+
+
+def _planes(kv_cache, kv_scale, layer):
+    li = 0 if layer is None else int(layer)
+    if kv_cache.ndim == 2:
+        return kv_cache, kv_scale
+    return kv_cache[li], (None if kv_scale is None else kv_scale[li])
+
+
+def mla_paged_decode_update_plain(
+    q_eff: torch.Tensor,          # [S, H, F] absorbed queries (bf16)
+    row_new: torch.Tensor,        # [S, F] new rows (int8 when kv_scale given)
+    kv_cache: torch.Tensor,       # [L, slots, F] or [slots, F]
+    block_tables: torch.Tensor,   # [S, B] i32
+    seq_lens: torch.Tensor,       # [S] i32, including the new token
+    block_size: int,
+    scale: float,
+    layer: Optional[int] = None,
+    kv_scale: Optional[torch.Tensor] = None,      # [L, slots, SW] f32
+    row_scale_new: Optional[torch.Tensor] = None,  # [S, SW] f32
+) -> torch.Tensor:                # [S, H, F] in q dtype; cache updated
+    """Writes each live sequence's new row (and scale) at position
+    ``seq_len - 1`` in place, then attends page by page with the kernel's
+    recurrence: bf16 ``q * scale``, pages dequantized to bf16, one running
+    max per page, bf16 ``p`` in the value dot, f32 sums."""
+    S, H, F = q_eff.shape
+    bs = block_size
+    dev = q_eff.device
+    plane, splane = _planes(kv_cache, kv_scale, layer)
+    sl = seq_lens.long()
+    bt = block_tables.long()
+    live = sl > 0
+    wp = (sl - 1).clamp(min=0)
+    slot = bt[torch.arange(S, device=dev), wp // bs] * bs + wp % bs
+    plane[slot[live]] = row_new[live].to(plane.dtype)
+    if splane is not None:
+        splane[slot[live]] = row_scale_new[live].to(splane.dtype)
+
+    qb = (q_eff.float() * scale).to(torch.bfloat16).float()
+    m = torch.full((S, H), -1e29, device=dev)
+    l = torch.zeros((S, H), device=dev)
+    acc = torch.zeros((S, H, F), device=dev)
+    n_pages = int((sl.max() + bs - 1) // bs) if S else 0
+    offs = torch.arange(bs, device=dev)
+    for j in range(n_pages):
+        slots = bt[:, j:j + 1] * bs + offs[None, :]             # [S, bs]
+        rows = plane[slots]
+        if splane is not None:
+            page = dequantize_kv_block(rows, splane[slots], torch.bfloat16)
+        else:
+            page = rows.to(torch.bfloat16)
+        page = page.float()                                     # [S, bs, F]
+        valid = (j * bs + offs)[None, :] < sl[:, None]          # [S, bs]
+        s = torch.einsum("shf,sbf->shb", qb, page)
+        s = torch.where(valid[:, None, :], s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("shb,sbf->shf",
+                          p.to(torch.bfloat16).float(), page)
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q_eff.dtype)
+
+
+_VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+_ARGTYPES = [_VP] * 8 + [_I] * 6 + [_LL, _I, _F, _I, _VP]
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"mla_paged_decode_update: {msg}")
+
+
+def check_cache(check, q_like, kv_cache, kv_scale, block_size, layer):
+    """Checks shared by the MLA kernel wrappers: the stacked latent cache
+    (int8 + f32 scale plane, or bf16), its row width against the queries'
+    ``[..., H, F]``, the layer index and the shared-memory need.  Returns
+    ``(cache3, scale3, slots, SW, layer)`` with 2-D caches viewed as one
+    plane."""
+    H, F = q_like.shape[-2:]
+    quantized = kv_scale is not None
+    cache3 = kv_cache if kv_cache.ndim == 3 else kv_cache[None]
+    scale3 = None
+    L, slots, Fc = cache3.shape
+    check(q_like.dtype == torch.bfloat16, "queries must be bf16")
+    check(Fc == F, "row width mismatch")
+    check(H <= _MAX_HEADS and F <= _MAX_F, f"H={H} > 16 or F={F} > 1024")
+    li = 0 if layer is None else int(layer)
+    check(0 <= li < L, f"layer {li} out of range")
+    SW = 1
+    if quantized:
+        scale3 = kv_scale if kv_scale.ndim == 3 else kv_scale[None]
+        SW = scale3.shape[2]
+        check(cache3.dtype == torch.int8, "int8 latent cache expected")
+        check(scale3.dtype == torch.float32 and scale3.shape[:2] == (L, slots)
+              and F % SW == 0, "scale plane must be f32 [L, slots, SW]")
+        check(block_size % 32 == 0, "int8 latent pages need block_size % 32")
+    else:
+        check(cache3.dtype == torch.bfloat16, "bf16 cache expected")
+    check(F % 16 == 0 and block_size % 16 == 0 and (F // SW) % 4 == 0,
+          "tensor-core tiles need F % 16, block_size % 16, (F / SW) % 4")
+    smem = _smem_bytes(F, block_size)
+    check(smem <= _MAX_SMEM, f"needs {smem} B of shared memory")
+    return cache3, scale3, slots, SW, li
+
+
+def _smem_bytes(F: int, bs: int) -> int:
+    """Dynamic shared memory of the page loop (csrc/common.cuh MlaSmem):
+    q [16, F] bf16, page [bs, F] bf16, s [16, bs] f32, p [16, bs] bf16,
+    pv [16, F] f32, three [16] f32 statistics, each part 128-B aligned."""
+    def a(b):
+        return (b + 127) // 128 * 128
+    R = _MAX_HEADS
+    page = a(R * F * 2)
+    s = a(page + bs * F * 2)
+    pb = a(s + R * bs * 4)
+    pv = a(pb + R * bs * 2)
+    stats = a(pv + R * F * 4)
+    return stats + 3 * R * 4
+
+
+def mla_paged_decode_update(
+    q_eff: torch.Tensor,
+    row_new: torch.Tensor,
+    kv_cache: torch.Tensor,
+    block_tables: torch.Tensor,
+    seq_lens: torch.Tensor,
+    block_size: int,
+    scale: float,
+    layer: Optional[int] = None,
+    kv_scale: Optional[torch.Tensor] = None,
+    row_scale_new: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Returns the attended latent rows ``[S, H, F]``; the cache (and, for
+    the int8 latent, the scale plane) is updated in place.  CPU tensors
+    run :func:`mla_paged_decode_update_plain`; CUDA tensors launch the
+    kernel or raise."""
+    if not q_eff.is_cuda:
+        return mla_paged_decode_update_plain(
+            q_eff, row_new, kv_cache, block_tables, seq_lens, block_size,
+            scale, layer=layer, kv_scale=kv_scale,
+            row_scale_new=row_scale_new)
+    S, H, F = q_eff.shape
+    quantized = kv_scale is not None
+    cache3, scale3, slots, SW, li = check_cache(
+        _check, q_eff, kv_cache, kv_scale, block_size, layer)
+    _check(row_new.shape == (S, F) and row_new.dtype == cache3.dtype,
+           "new rows must be [S, F] in the cache dtype")
+    _check(block_tables.dtype == torch.int32 and seq_lens.dtype == torch.int32
+           and block_tables.shape[0] == S and seq_lens.shape == (S,),
+           "block_tables/seq_lens must be int32 [S, B] / [S]")
+    tensors = [q_eff, row_new, cache3, block_tables, seq_lens]
+    if quantized:
+        _check(row_scale_new is not None and row_scale_new.shape == (S, SW)
+               and row_scale_new.dtype == torch.float32,
+               "new row scales must be f32 [S, SW]")
+        tensors += [scale3, row_scale_new]
+    dev = q_eff.device
+    for t in tensors:
+        _check(t.device == dev and t.is_contiguous(),
+               "inputs must be contiguous and on one device")
+
+    out = torch.empty_like(q_eff)
+    _build.launch(
+        "mla_decode.cu", "llmd_mla_decode", _ARGTYPES,
+        q_eff.data_ptr(), row_new.data_ptr(),
+        row_scale_new.data_ptr() if quantized else None,
+        cache3.data_ptr(), scale3.data_ptr() if quantized else None,
+        block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+        S, H, F, SW, block_size, block_tables.shape[1], slots, li,
+        float(scale), int(quantized), _build.stream_ptr(dev))
+    mla_paged_decode_update.launches += 1
+    return out
+
+
+mla_paged_decode_update.launches = 0

@@ -1,0 +1,269 @@
+"""MoE ops on one device: routing, the expert FFN dispatch and the int8
+kernel glue (port of the single-device half of ``llm_d_tpu.ops.moe``).
+
+Int8 experts on the card run the hand-written kernels by token count:
+
+  T <= DENSE_INT8_MAX_T            kernel C (all experts, every token)
+  DENSE < T <= GROUPED_INT8_MIN_T  kernel D (routed rows only)
+  T >  GROUPED_INT8_MIN_T          the streamed kernel, not ported yet:
+                                   raises rather than falling back
+
+Everything else (CPU tensors, bf16 experts) dequantizes and runs the
+plain dense / grouped paths, as the JAX package does off the TPU.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from llm_d_tpu_torch.models.config import ModelConfig
+from llm_d_tpu_torch.ops import moe_int8, moe_routed
+from llm_d_tpu_torch.ops.layers import silu
+from llm_d_tpu_torch.ops.quant import dequantize
+from llm_d_tpu_torch.ops.sampling import top_k_stable
+
+# Below this many tokens the all-experts dense path serves the plain path.
+DENSE_DISPATCH_MAX_T = 512
+# Int8 kernel regimes (the JAX package's crossovers, kept until the H100
+# crossovers are measured).
+DENSE_INT8_MAX_T = 64
+GROUPED_INT8_MIN_T = 512
+
+
+def route(router_logits: torch.Tensor, config: ModelConfig,
+          e_bias: Optional[torch.Tensor] = None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k expert selection with optional DeepSeek group-limited routing:
+    (weights [T, k] f32, idx [T, k] int32).  ``sigmoid`` scoring adds the
+    bias for selection only; ties go to the lower expert id, as with
+    ``jax.lax.top_k``."""
+    c = config
+    T, E = router_logits.shape
+    k = c.num_experts_per_tok
+    logits = router_logits.float()
+    if c.scoring_func == "sigmoid":
+        # 1 / (1 + exp(-x)) op by op, as jax.nn.sigmoid lowers.
+        scores = 1.0 / (1.0 + torch.exp(-logits))
+        choice = scores + (e_bias.float()[None, :]
+                           if e_bias is not None else 0.0)
+    else:
+        scores = torch.softmax(logits, dim=-1)
+        choice = scores
+    if c.n_group > 0:
+        g = c.n_group
+        gs = choice.reshape(T, g, E // g)
+        top2 = top_k_stable(gs, min(2, E // g))[0].sum(-1)       # [T, g]
+        _, keep = top_k_stable(top2, c.topk_group)
+        mask = torch.zeros((T, g), dtype=torch.bool, device=logits.device)
+        mask.scatter_(1, keep, True)
+        choice = torch.where(mask.repeat_interleave(E // g, dim=1), choice,
+                             torch.full_like(choice, float("-inf")))
+    _, idx = top_k_stable(choice, k)
+    weights = torch.gather(scores, 1, idx)
+    if c.moe_renormalize:
+        weights = weights / torch.clamp_min(
+            weights.sum(-1, keepdim=True), 1e-20)
+    weights = weights * c.routed_scaling_factor
+    return weights.float(), idx.to(torch.int32)
+
+
+def _combine_matrix(T: int, E: int, idx: torch.Tensor,
+                    weights: torch.Tensor) -> torch.Tensor:
+    """[T, E] f32 combine weights (0 for unrouted pairs; duplicate routes
+    accumulate)."""
+    comb = torch.zeros((T, E), dtype=torch.float32, device=weights.device)
+    return comb.scatter_add_(1, idx.long(), weights.float())
+
+
+def _excl_cumsum(v: torch.Tensor) -> torch.Tensor:
+    return torch.cat([v.new_zeros(1), torch.cumsum(v, 0)[:-1].to(v.dtype)])
+
+
+def _stable_argsort_bounded(keys: torch.Tensor, bound: int):
+    """Stable argsort of integer keys in [0, bound) by counting: returns
+    (order, dest, counts) -- the argsort, its inverse permutation and the
+    per-key histogram."""
+    S = keys.shape[0]
+    kl = keys.long()
+    one_hot = (kl[:, None] == torch.arange(bound, device=keys.device)[None, :])
+    cum = torch.cumsum(one_hot.to(torch.int32), dim=0)
+    rank = cum[torch.arange(S, device=keys.device), kl] - 1
+    counts = cum[-1]
+    dest = _excl_cumsum(counts)[kl] + rank
+    order = torch.zeros(S, dtype=torch.int32, device=keys.device)
+    order[dest.long()] = torch.arange(S, dtype=torch.int32,
+                                      device=keys.device)
+    return order, dest.to(torch.int32), counts
+
+
+def _sorted_tile_layout(flat: torch.Tensor, weights_flat: torch.Tensor,
+                        k: int, E: int, rt: int):
+    """Counting-sort tile layout: rows sorted by expert, each expert's run
+    padded to a multiple of ``rt``, one expert per tile.  Returns
+    ``(order, inv, tok_s, slot, wslot_pad, tile_expert, num_tiles)`` with
+    the JAX package's definitions (``S_pad = ceil(S/rt)*rt + E*rt``;
+    inactive trailing tiles repeat the last active tile's expert)."""
+    S = flat.shape[0]
+    dev = flat.device
+    order, inv, counts = _stable_argsort_bounded(flat, E)
+    ol = order.long()
+    eid_s = flat.long()[ol]
+    tok_s = (order // k).to(torch.int32)
+    padded = (counts + rt - 1) // rt * rt
+    offs = _excl_cumsum(padded)
+    rank = torch.arange(S, dtype=torch.int32, device=dev) \
+        - _excl_cumsum(counts)[eid_s]
+    slot = (offs[eid_s] + rank).to(torch.int32)
+    S_pad = -(-S // rt) * rt + E * rt
+    NT = S_pad // rt
+    wslot_pad = torch.zeros(S_pad, dtype=torch.float32, device=dev)
+    wslot_pad[slot.long()] = weights_flat.float()[ol]
+    num_tiles = (padded.sum() // rt).to(torch.int32)
+    bounds = torch.cumsum(padded, 0)
+    starts = torch.minimum(torch.arange(NT, dtype=torch.int32, device=dev),
+                           num_tiles - 1) * rt
+    tile_expert = torch.clamp_max(
+        torch.searchsorted(bounds.to(torch.int64), starts.to(torch.int64),
+                           right=True), E - 1).to(torch.int32)
+    return order, inv, tok_s, slot, wslot_pad, tile_expert, num_tiles
+
+
+def _routed_int8_kernel_path(x, weights, idx, quant: dict,
+                             row_tile: Optional[int] = None):
+    """Metadata-only glue for kernel D: the counting sort plus int32 slot
+    arithmetic; activation rows move inside the kernel."""
+    T, H = x.shape
+    k = idx.shape[1]
+    E = quant["w_gate_q"].shape[1]
+    S = T * k
+    rt = row_tile or (32 if S < E * 96 else 64)
+    order, inv, tok_s, slot, wslot_pad, tile_expert, num_tiles = \
+        _sorted_tile_layout(idx.reshape(S), weights.reshape(S), k, E, rt)
+    tok_pad = torch.zeros(wslot_pad.shape[0], dtype=torch.int32,
+                          device=x.device)
+    tok_pad[slot.long()] = tok_s
+    pos = slot[inv.long()].reshape(T, k).contiguous()
+    out = moe_routed.routed_moe_int8(
+        x.to(torch.bfloat16).contiguous(), tok_pad, wslot_pad, tile_expert,
+        num_tiles.reshape(1), pos, quant["layer"],
+        quant["w_gate_q"], quant["w_gate_s"], quant["w_up_q"],
+        quant["w_up_s"], quant["w_down_q"], quant["w_down_s"], row_tile=rt)
+    return out.to(x.dtype)
+
+
+def _dense_int8_kernel_path(x, weights, idx, quant: dict):
+    """Glue for kernel C: the combine-weight matrix plus the stacked
+    call."""
+    T = x.shape[0]
+    E = quant["w_gate_q"].shape[1]
+    comb = _combine_matrix(T, E, idx, weights)
+    out = moe_int8.dense_moe_int8(
+        x.to(torch.bfloat16).contiguous(), comb, quant["layer"],
+        quant["w_gate_q"], quant["w_gate_s"], quant["w_up_q"],
+        quant["w_up_s"], quant["w_down_q"], quant["w_down_s"])
+    return out.to(x.dtype)
+
+
+def _dequant_layer(quant: dict):
+    """Dequantized (w_gate, w_up, w_down) of the quant dict's layer plane,
+    for the plain paths."""
+    li = quant.get("layer")
+    trip = []
+    for name in ("w_gate", "w_up", "w_down"):
+        q, s = quant[f"{name}_q"], quant[f"{name}_s"]
+        if li is not None:
+            q, s = q[li], s[li]
+        trip.append(dequantize(q, s))
+    return tuple(trip)
+
+
+def _dense_expert_ffn(x, weights, idx, w_gate, w_up, w_down) -> torch.Tensor:
+    """All experts on all tokens with the combine weight folded into the
+    activations: [T, H] f32."""
+    T = x.shape[0]
+    E = w_gate.shape[0]
+    comb = _combine_matrix(T, E, idx, weights)
+    xf = x.float()
+    h = torch.einsum("th,ehi->eti", xf, w_gate.float())
+    u = torch.einsum("th,ehi->eti", xf, w_up.float())
+    a = (silu(h) * u * comb.T[:, :, None]).to(x.dtype)
+    return torch.einsum("eti,eih->th", a.float(), w_down.float())
+
+
+def _swiglu_grouped(xs, w_gate, w_up, w_down, group_sizes):
+    """SwiGLU over row groups (rows sorted by expert; group g uses expert
+    g's weights): [S, H] f32."""
+    out = torch.zeros((xs.shape[0], w_down.shape[-1]), dtype=torch.float32,
+                      device=xs.device)
+    start = 0
+    for g, n in enumerate(group_sizes.tolist()):
+        if n:
+            xg = xs[start:start + n].float()
+            h = xg @ w_gate[g].float()
+            u = xg @ w_up[g].float()
+            a = (silu(h) * u).to(xs.dtype)
+            out[start:start + n] = a.float() @ w_down[g].float()
+        start += n
+    return out
+
+
+def _unsort_combine(y: torch.Tensor, order: torch.Tensor, T: int, k: int,
+                    inv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sorted, combine-weighted rows back to tokens, summing each token's
+    k rows in f32."""
+    S = T * k
+    if inv is None:
+        inv = torch.zeros(S, dtype=torch.long, device=y.device)
+        inv[order.long()] = torch.arange(S, device=y.device)
+    contrib = y[inv.long()].float()
+    return contrib.reshape(T, k, -1).sum(dim=1)
+
+
+def _local_expert_ffn(x, weights, idx, w_gate, w_up, w_down,
+                      e0: int = 0) -> torch.Tensor:
+    """Sorted grouped GEMM over the experts [e0, e0 + E_loc); other slots
+    go to a trailing zero-weight trash group."""
+    T, H = x.shape
+    k = idx.shape[1]
+    E_loc = w_gate.shape[0]
+    S = T * k
+    lid = idx.reshape(S).long() - e0
+    is_local = (lid >= 0) & (lid < E_loc)
+    sort_key = torch.where(is_local, lid, torch.full_like(lid, E_loc))
+    order, inv, key_counts = _stable_argsort_bounded(sort_key, E_loc + 1)
+    ol = order.long()
+    xs = x[ol // k]
+    y = _swiglu_grouped(xs, w_gate, w_up, w_down, key_counts[:E_loc])
+    wslot = (weights.reshape(S).float()[ol]
+             * is_local[ol].float())[:, None]
+    return _unsort_combine(y * wslot, order, T, k, inv=inv)
+
+
+def expert_ffn(x: torch.Tensor, weights: torch.Tensor, idx: torch.Tensor,
+               w_gate: Optional[torch.Tensor], w_up: Optional[torch.Tensor],
+               w_down: Optional[torch.Tensor],
+               quant: Optional[dict] = None) -> torch.Tensor:
+    """Routed-expert FFN on one device: [T, H] in x.dtype.
+
+    ``quant`` carries stacked int8 payloads ``{w_gate_q, w_gate_s, ...}``
+    plus the MoE ``layer`` plane; on the card they go straight to kernels
+    C / D without a dequantized copy."""
+    T = x.shape[0]
+    if quant is not None and x.is_cuda:
+        if T <= DENSE_INT8_MAX_T:
+            return _dense_int8_kernel_path(x, weights, idx, quant)
+        if T <= GROUPED_INT8_MIN_T:
+            return _routed_int8_kernel_path(x, weights, idx, quant)
+        raise NotImplementedError(
+            f"int8 experts at T={T} > {GROUPED_INT8_MIN_T} tokens need the "
+            "streamed_moe_int8 kernel, which is not ported yet; cap "
+            f"max_num_batched_tokens at {GROUPED_INT8_MIN_T}")
+    if quant is not None:
+        w_gate, w_up, w_down = _dequant_layer(quant)
+    if T <= DENSE_DISPATCH_MAX_T:
+        out = _dense_expert_ffn(x, weights, idx, w_gate, w_up, w_down)
+    else:
+        out = _local_expert_ffn(x, weights, idx, w_gate, w_up, w_down)
+    return out.to(x.dtype)

@@ -1,0 +1,132 @@
+"""Batched sampling: greedy / temperature / top-k / top-p.
+
+Port of ``llm_d_tpu.ops.sampling`` (``sample``, ``compute_logprobs``,
+``compute_top_logprobs``).  Greedy rows match the JAX package exactly.
+
+Random rows add Gumbel noise to the masked top-``TOPK_MAX`` logits and
+take the argmax, as JAX does, but the noise comes from ``torch.Generator``
+streams, not JAX's threefry: seeded rows draw from a generator seeded with
+``(seed, gen_idx)`` (deterministic for a given request position, whatever
+the batch), unseeded rows from the engine's step generator.  The bits
+therefore differ from the JAX package's for the same seed; tests feed both
+packages the same ``noise`` instead.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingParams:
+    """Per-request sampling configuration (OpenAI API surface)."""
+    temperature: float = 1.0
+    top_p: float = 1.0
+    top_k: int = 0              # 0 = disabled
+    max_tokens: int = 16
+    min_tokens: int = 0
+    stop: tuple = ()
+    seed: Optional[int] = None
+    ignore_eos: bool = False
+    logprobs: Optional[int] = None
+
+    @property
+    def greedy(self) -> bool:
+        return self.temperature == 0.0
+
+
+# Sampling truncates to the top TOPK_MAX logits before top-k/top-p.
+TOPK_MAX = 64
+
+
+def top_k_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-``k`` along the last dim with ties broken toward the LOWER
+    index, as ``jax.lax.top_k`` does (``torch.topk`` promises no order
+    among equal values on the card)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _gumbel(u: torch.Tensor) -> torch.Tensor:
+    tiny = torch.finfo(torch.float32).tiny
+    return -torch.log(-torch.log(u.clamp(min=tiny, max=1.0)))
+
+
+def _row_noise(S: int, K: int, device: torch.device,
+               generator: Optional[torch.Generator],
+               seeds: Optional[torch.Tensor],
+               gen_idx: Optional[torch.Tensor]) -> torch.Tensor:
+    noise = _gumbel(torch.rand(S, K, generator=generator, device=device))
+    if seeds is None:
+        return noise
+    seeds_h = seeds.tolist()
+    gi = gen_idx.tolist() if gen_idx is not None else [0] * S
+    for s, (sd, g) in enumerate(zip(seeds_h, gi)):
+        if sd >= 0:
+            row_gen = torch.Generator(device=device)
+            row_gen.manual_seed((int(sd) << 32) | (int(g) & 0xFFFFFFFF))
+            noise[s] = _gumbel(torch.rand(K, generator=row_gen,
+                                          device=device))
+    return noise
+
+
+def sample(
+    logits: torch.Tensor,          # [S, V] f32
+    temperature: torch.Tensor,     # [S] f32 (0 = greedy)
+    top_k: torch.Tensor,           # [S] i32 (0 = off)
+    top_p: torch.Tensor,           # [S] f32 (1 = off)
+    generator: Optional[torch.Generator] = None,
+    seeds: Optional[torch.Tensor] = None,     # [S] i32, -1 = unseeded
+    gen_idx: Optional[torch.Tensor] = None,   # [S] i32 tokens generated so far
+    noise: Optional[torch.Tensor] = None,     # [S, min(64, V)] Gumbel noise
+) -> torch.Tensor:                 # [S] int64 sampled ids
+    """Batched sampling.  The per-row parameter tensors may live on the
+    CPU (the engine passes host copies, so deciding whether any row is
+    random and seeding the per-row generators costs no device sync); they
+    are moved to ``logits.device`` for the arithmetic.  ``noise``, when
+    given, replaces the generated Gumbel noise (tests)."""
+    S, V = logits.shape
+    dev = logits.device
+    greedy_ids = torch.argmax(logits, dim=-1)
+    if not bool((temperature > 0.0).any()):
+        return greedy_ids
+    K = min(TOPK_MAX, V)
+    temp_d = temperature.to(dev, torch.float32)
+    vals, idxs = top_k_stable(logits, K)                     # [S, K]
+    v = vals / torch.clamp_min(temp_d, 1e-6)[:, None]
+    ranks = torch.arange(K, device=dev)[None, :]
+    tk = top_k.to(dev)
+    k_eff = torch.where(tk <= 0, torch.full_like(tk, K),
+                        torch.clamp_max(tk, K))[:, None]
+    keep_k = ranks < k_eff
+    probs = torch.softmax(v, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    # Keep tokens until the exclusive cumulative prob exceeds p; rank 0
+    # always survives.
+    keep_p = (cum - probs) < top_p.to(dev, torch.float32)[:, None]
+    masked = torch.where(keep_k & keep_p, v,
+                         torch.full_like(v, float("-inf")))
+    if noise is None:
+        noise = _row_noise(S, K, dev, generator, seeds, gen_idx)
+    choice = torch.argmax(masked + noise.to(dev), dim=-1)     # [S]
+    sampled = torch.gather(idxs, 1, choice[:, None])[:, 0]
+    return torch.where(temp_d <= 0.0, greedy_ids, sampled)
+
+
+def compute_logprobs(logits: torch.Tensor,
+                     token_ids: torch.Tensor) -> torch.Tensor:
+    """Log-probability of the chosen tokens. logits [S, V], ids [S]."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return torch.gather(logp, 1, token_ids[:, None].long())[:, 0]
+
+
+def compute_top_logprobs(logits: torch.Tensor, token_ids: torch.Tensor,
+                         n: int = 20):
+    """(chosen [S], top_ids [S, n] int32, top_logprobs [S, n])."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    chosen = torch.gather(logp, 1, token_ids[:, None].long())[:, 0]
+    top_lps, top_ids = top_k_stable(logp, n)
+    return chosen, top_ids.to(torch.int32), top_lps

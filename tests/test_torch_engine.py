@@ -1,0 +1,175 @@
+"""Port parity, end to end on the slice: model forward, EngineCore, and
+the package's isolation from JAX.
+
+* ``models.moe.forward`` (int8 experts, int8 latent, weights from the JAX
+  init through ``params_from_numpy``) against the JAX forward on its CPU
+  path, for ``tiny-mla`` and a narrowed ``deepseek-v3-bench`` that keeps
+  its routing (64 experts, top-8, 8 groups keep 4, sigmoid), 16 heads and
+  latent widths (kv_lora 512, rope 64).  Tolerance atol = rtol = 2e-2 on
+  the final hidden states: the port matches the JAX program's rounding
+  points, but XLA fuses some f32 -> bf16 -> f32 round trips away, so a
+  minority of elements differ by one bf16 ulp.  Through the kernel path
+  (the kernels' plain versions on CPU tensors) q * scale and p are also
+  rounded to bf16 before the attention dots, as the TPU kernels do, which
+  the JAX CPU path does not: atol = rtol = 6e-2 there.
+* ``EngineCore.generate`` greedy tokens identical to the JAX EngineCore.
+* No module of the port, and not chip_smoke.py, imports jax or the JAX
+  package; the engine raises instead of serving on a GPU-less box.
+
+The kernels themselves are held to their plain versions on the card in
+tests/test_torch_gpu.py.
+"""
+
+import ast
+import dataclasses
+import pathlib
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from llm_d_tpu.engine.engine import EngineConfig as JEngineConfig
+from llm_d_tpu.engine.engine import EngineCore as JEngineCore
+from llm_d_tpu.engine import engine as JEngine
+from llm_d_tpu.engine.request import Request as JRequest
+from llm_d_tpu.models import moe as JMoE
+from llm_d_tpu.models.config import get_config as jget_config
+from llm_d_tpu.ops.quant import quantize_moe_experts as jquantize
+from llm_d_tpu.ops.sampling import SamplingParams as JSamplingParams
+from llm_d_tpu_torch.engine import EngineConfig, EngineCore
+from llm_d_tpu_torch.engine import engine as TEngine
+from llm_d_tpu_torch.engine.request import Request
+from llm_d_tpu_torch.models import moe as TMoE
+from llm_d_tpu_torch.models.config import get_config as tget_config
+from llm_d_tpu_torch.models.convert import params_from_numpy
+from llm_d_tpu_torch.ops.sampling import SamplingParams
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+TOL = dict(atol=2e-2, rtol=2e-2)
+TOL_KERNEL = dict(atol=6e-2, rtol=6e-2)
+
+
+def _narrow_bench():
+    over = dict(num_layers=2, hidden_size=256, vocab_size=1024,
+                intermediate_size=512, moe_intermediate_size=128,
+                max_model_len=512)
+    return (dataclasses.replace(jget_config("deepseek-v3-bench"), **over),
+            dataclasses.replace(tget_config("deepseek-v3-bench"), **over))
+
+
+def _configs(name):
+    if name == "tiny-mla":
+        return jget_config(name), tget_config(name), 32
+    jc, tc = _narrow_bench()
+    return jc, tc, 64
+
+
+@pytest.mark.parametrize("name", ["tiny-mla", "deepseek-v3-bench-narrow"])
+def test_forward_matches_jax(name):
+    """Prefill of three sequences, then one decode step, through the whole
+    model with int8 experts and an int8 latent cache, on the port's
+    reference path and on its kernel path (plain versions), each held to
+    the same JAX forward."""
+    jc, tc, bs = _configs(name)
+    jparams = jquantize(JMoE.init_params(jc, jax.random.PRNGKey(0)))
+    tree = jax.tree.map(np.asarray, jparams)
+    engines = {}
+    for backend in ("reference", "kernel"):
+        eng = EngineCore(EngineConfig(
+            model_config=tc, block_size=bs, num_blocks=16, max_num_seqs=4,
+            max_num_batched_tokens=128, quantization="int8",
+            kv_cache_dtype="int8", enable_prefix_caching=False,
+            attn_backend=backend, device="cpu"),
+            params=params_from_numpy(tree, "cpu"))
+        rng = np.random.default_rng(1)
+        for i, n in enumerate((5, 40, 17)):
+            eng.add_request(Request(f"r{i}", rng.integers(
+                1, tc.vocab_size, n).tolist(), SamplingParams(
+                    temperature=0.0, max_tokens=4, ignore_eos=True)))
+        engines[backend] = eng
+    ref = engines["reference"]
+    jcache = {k: jnp.zeros(v.shape, jnp.int8 if v.dtype == torch.int8
+                           else jnp.float32)
+              for k, v in ref.kv_cache.items()}
+    jfwd = jax.jit(lambda p, kv, b: JMoE.forward(p, kv, b, jc, bs, "auto"))
+    for _ in range(2):                        # prefill, then one decode
+        steps = {be: eng.scheduler.schedule() for be, eng in engines.items()}
+        batch, _ = ref._build_batch(steps["reference"])
+        want, jcache = jfwd(jparams, jcache,
+                            {k: jnp.asarray(v.numpy())
+                             for k, v in batch.items()})
+        S = len(steps["reference"].scheduled)
+        toks = np.asarray(JMoE.compute_logits(jparams, want, jc)).argmax(-1)
+        for backend, eng in engines.items():
+            b, _ = eng._build_batch(steps[backend])
+            got = TMoE.forward(eng.params, eng.kv_cache, b, tc, bs, backend)
+            np.testing.assert_allclose(
+                got.float().numpy()[:S], np.asarray(want, np.float32)[:S],
+                **(TOL if backend == "reference" else TOL_KERNEL))
+            # Both paths continue with the JAX reference's tokens.
+            for sr, tok in zip(steps[backend].scheduled, toks[:S].tolist()):
+                sr.request.num_computed_tokens += sr.num_new_tokens
+                sr.request.output_token_ids.append(tok)
+
+
+def test_generate_token_identical_to_jax_engine():
+    """tiny-mla, int8 experts and int8 latent, block 32: three requests,
+    sixteen greedy tokens each, token for token."""
+    kw = dict(model="tiny-mla", block_size=32, num_blocks=64,
+              max_num_seqs=8, max_num_batched_tokens=128,
+              quantization="int8", kv_cache_dtype="int8",
+              enable_prefix_caching=False)
+    jeng = JEngineCore(JEngineConfig(**kw))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 512, size=n).tolist() for n in (5, 40, 17)]
+    want = jeng.generate([JRequest(f"r{i}", p, JSamplingParams(
+        temperature=0.0, max_tokens=16, ignore_eos=True))
+        for i, p in enumerate(prompts)])
+    teng = EngineCore(EngineConfig(device="cpu", **kw), params=params_from_numpy(
+        jax.tree.map(np.asarray, jeng.params), "cpu"))
+    got = teng.generate([Request(f"r{i}", p, SamplingParams(
+        temperature=0.0, max_tokens=16, ignore_eos=True))
+        for i, p in enumerate(prompts)])
+    assert got == want
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = sorted((ROOT / "llm_d_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    banned = re.compile(r"^(jax|jaxlib|llm_d_tpu)(\.|$)")
+    bad = [(str(p.relative_to(ROOT)), m) for p in files
+           for m in _imports(p) if banned.match(m)]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("dtype,sw", [("bf16", 1), ("int8", 1), ("int8", 4)])
+def test_kv_pool_accounting_matches(dtype, sw):
+    layout = TMoE.kv_cache_layout(tget_config("deepseek-v3-bench"))
+    assert layout == JMoE.kv_cache_layout(jget_config("deepseek-v3-bench"))
+    assert TEngine.kv_bytes_per_token(layout, dtype, sw) == \
+        JEngine.kv_bytes_per_token(layout, dtype, sw)
+    for budget in (1 << 20, 3 << 30):
+        assert TEngine.derive_num_blocks(budget, layout, 16, 64, dtype, sw) \
+            == JEngine.derive_num_blocks(budget, layout, 16, 64, dtype, sw)
+    for n, lo, hi in ((1, 16, 512), (17, 16, 512), (700, 16, 512)):
+        assert TEngine._next_bucket(n, lo, hi) == JEngine._next_bucket(n, lo, hi)
+
+
+def test_engine_without_device_raises_on_a_cpu_box():
+    if torch.cuda.is_available():
+        pytest.skip("this box has a CUDA device")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EngineCore(EngineConfig())

@@ -1,0 +1,205 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked ``gpu`` and skips without a CUDA device.  The
+file imports neither JAX nor the JAX package, so it runs on a machine
+that has only PyTorch and the CUDA toolkit:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+Tolerances: attention kernels atol = rtol = 2e-2 against the plain
+version (same bf16 rounding points, other summation order); the decode
+splice leaves cache and scale planes identical; MoE kernels max error /
+max |output| <= 1e-2 (tests/test_moe_int8_kernel.py's rule).
+"""
+
+import dataclasses
+
+import pytest
+import torch
+
+from llm_d_tpu_torch.engine import EngineConfig, EngineCore
+from llm_d_tpu_torch.engine.request import Request
+from llm_d_tpu_torch.models.config import get_config
+from llm_d_tpu_torch.ops import mla_decode, mla_prefill
+from llm_d_tpu_torch.ops import moe as M
+from llm_d_tpu_torch.ops.quant import quantize_int8, quantize_kv_block
+from llm_d_tpu_torch.ops.sampling import SamplingParams
+
+pytestmark = pytest.mark.gpu
+TOL = dict(atol=2e-2, rtol=2e-2)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _gen(seed, dev):
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def _cache(g, dev, quantized, L, slots, F):
+    rows = torch.randn((L, slots, F), generator=g, device=dev).bfloat16()
+    if not quantized:
+        return rows, None
+    return quantize_kv_block(rows, 1)
+
+
+def _tables(g, dev, seq_lens, bs, num_blocks):
+    S = len(seq_lens)
+    B = max(max(-(-n // bs) for n in seq_lens), 1)
+    perm = torch.randperm(num_blocks - 1, generator=g, device=dev)[:S * B] + 1
+    bt = perm.reshape(S, B).to(torch.int32)
+    bt[torch.tensor(seq_lens, device=dev) == 0] = 0
+    return bt.contiguous()
+
+
+@pytest.mark.parametrize("quantized,H,F,bs", [
+    (True, 16, 640, 64), (False, 16, 640, 64), (True, 4, 128, 32)])
+def test_mla_decode_kernel(dev, quantized, H, F, bs):
+    g = _gen(1, dev)
+    seq_lens = [1, bs - 1, bs, bs + 1, 3 * bs + 7, 0, 0, 0]
+    S, L, layer = len(seq_lens), 3, 1
+    nblk = S * 4 + 1
+    kv, ks = _cache(g, dev, quantized, L, nblk * bs, F)
+    bt = _tables(g, dev, seq_lens, bs, nblk)
+    lens = torch.tensor(seq_lens, dtype=torch.int32, device=dev)
+    q = torch.randn((S, H, F), generator=g, device=dev).bfloat16()
+    row = torch.randn((S, F), generator=g, device=dev).bfloat16()
+    row_s = None
+    if quantized:
+        row, row_s = quantize_kv_block(row, 1)
+    caches = []
+    outs = []
+    for fn in (mla_decode.mla_paged_decode_update,
+               mla_decode.mla_paged_decode_update_plain):
+        kv_i = kv.clone()
+        ks_i = ks.clone() if quantized else None
+        outs.append(fn(q, row, kv_i, bt, lens, bs, 0.11, layer=layer,
+                       kv_scale=ks_i, row_scale_new=row_s))
+        caches.append((kv_i, ks_i))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(outs[0].float(), outs[1].float(), **TOL)
+    assert torch.equal(caches[0][0], caches[1][0])
+    if quantized:
+        assert torch.equal(caches[0][1], caches[1][1])
+
+
+@pytest.mark.parametrize("quantized,bs", [(True, 64), (False, 32)])
+def test_mla_prefill_kernel(dev, quantized, bs):
+    g = _gen(2, dev)
+    H, F, Q, L, layer = 16, 640, 32, 2, 1
+    seq_lens = [Q, bs + 9, 3 * bs, 0]
+    S = len(seq_lens)
+    nblk = S * 4 + 1
+    kv, ks = _cache(g, dev, quantized, L, nblk * bs, F)
+    bt = _tables(g, dev, seq_lens, bs, nblk)
+    lens = torch.tensor(seq_lens, dtype=torch.int32, device=dev)
+    q_pos = torch.full((S, Q), -1, dtype=torch.int32, device=dev)
+    q_pos[0] = torch.arange(Q, device=dev)
+    q_pos[1, :20] = torch.arange(bs - 11, bs + 9, device=dev)
+    q_pos[2] = torch.arange(3 * bs - Q, 3 * bs, device=dev)
+    qs = torch.randn((S, Q, H, F), generator=g, device=dev).bfloat16()
+    got = mla_prefill.mla_flash_prefill(qs, q_pos, kv, bt, lens, bs, 0.13,
+                                        layer=layer, kv_scale=ks)
+    want = mla_prefill.mla_flash_prefill_plain(qs, q_pos, kv, bt, lens, bs,
+                                               0.13, layer=layer, kv_scale=ks)
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+    assert torch.all(got[q_pos < 0] == 0)
+
+
+def _quant(g, dev, Lm, E, H, I):
+    quant = {}
+    for name, shape in (("w_gate", (Lm, E, H, I)), ("w_up", (Lm, E, H, I)),
+                        ("w_down", (Lm, E, I, H))):
+        quant[f"{name}_q"], quant[f"{name}_s"] = quantize_int8(
+            torch.randn(shape, generator=g, device=dev) * 0.05)
+    return quant
+
+
+def _routing(g, dev, T, E, k):
+    logits = torch.randn((T, E), generator=g, device=dev)
+    cfg = dataclasses.replace(get_config("deepseek-v3-bench"), num_experts=E,
+                              num_experts_per_tok=k)
+    w, idx = M.route(logits, cfg)
+    idx[:3, 1] = idx[:3, 0]                    # duplicate routes
+    return w, idx
+
+
+def _scaled_err(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / (want.float().abs().max() + 1e-9))
+
+
+@pytest.mark.parametrize("T", [1, 16, 40, 64])
+def test_dense_moe_kernel(dev, T):
+    g = _gen(3, dev)
+    E, H, I, k = 64, 2048, 512, 8
+    quant = _quant(g, dev, 2, E, H, I)
+    quant["layer"] = 1
+    x = torch.randn((T, H), generator=g, device=dev).bfloat16()
+    w, idx = _routing(g, dev, T, E, k)
+    comb = M._combine_matrix(T, E, idx, w)
+    args = (x, comb, 1, quant["w_gate_q"], quant["w_gate_s"],
+            quant["w_up_q"], quant["w_up_s"], quant["w_down_q"],
+            quant["w_down_s"])
+    from llm_d_tpu_torch.ops import moe_int8
+    got = moe_int8.dense_moe_int8(*args)
+    want = moe_int8.dense_moe_int8_plain(*args)
+    assert _scaled_err(got, want) <= 1e-2
+
+
+@pytest.mark.parametrize("T,rt", [(65, 16), (128, 32), (512, 64)])
+def test_routed_moe_kernel(dev, T, rt):
+    g = _gen(4, dev)
+    E, H, I, k = 64, 2048, 512, 8
+    quant = _quant(g, dev, 1, E, H, I)
+    quant["layer"] = 0
+    x = torch.randn((T, H), generator=g, device=dev).bfloat16()
+    w, idx = _routing(g, dev, T, E, k)
+    got = M._routed_int8_kernel_path(x, w, idx, quant, row_tile=rt)
+    # Oracle: all experts on the dequantized weights (the plain path).
+    want = M._dense_expert_ffn(x, w, idx, *M._dequant_layer(quant))
+    assert _scaled_err(got, want) <= 1e-2
+
+
+def test_int8_engine_rejects_steps_above_512_tokens(dev):
+    with pytest.raises(ValueError, match="streamed_moe_int8"):
+        EngineCore(EngineConfig(model="tiny-mla", quantization="int8",
+                                max_num_batched_tokens=1024, device="cuda"))
+
+
+def test_expert_ffn_above_512_tokens_raises_on_the_card(dev):
+    g = _gen(5, dev)
+    quant = _quant(g, dev, 1, 4, 64, 64)
+    quant["layer"] = 0
+    x = torch.randn((513, 64), generator=g, device=dev).bfloat16()
+    idx = torch.zeros((513, 2), dtype=torch.int32, device=dev)
+    w = torch.ones((513, 2), device=dev)
+    with pytest.raises(NotImplementedError, match="streamed_moe_int8"):
+        M.expert_ffn(x, w, idx, None, None, None, quant=quant)
+
+
+def test_engine_on_the_card_matches_the_cpu_reference(dev):
+    """Two layers of deepseek-v3-bench at full width: the first generated
+    token of each request through the kernels equals the CPU reference's
+    (prefill through kernels B and D, decode through A and C)."""
+    cfg = dataclasses.replace(get_config("deepseek-v3-bench"), num_layers=2)
+    kw = dict(model_config=cfg, block_size=64, num_blocks=32,
+              max_num_seqs=8, max_num_batched_tokens=512,
+              quantization="int8", kv_cache_dtype="int8",
+              enable_prefix_caching=False)
+    card = EngineCore(EngineConfig(device="cuda", **kw))
+    host = EngineCore(EngineConfig(device="cpu", **kw), params={
+        k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict)
+            else v.cpu()) for k, v in card.params.items()})
+    g = torch.Generator().manual_seed(6)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in (5, 70, 17)]
+    outs = [eng.generate([Request(f"r{i}", p, SamplingParams(
+        temperature=0.0, max_tokens=2, ignore_eos=True))
+        for i, p in enumerate(prompts)]) for eng in (card, host)]
+    assert [v[0] for v in outs[0].values()] == \
+        [v[0] for v in outs[1].values()]
