@@ -378,6 +378,7 @@ def main() -> int:
             name=k["name"], route="cuda", source=k["source"],
             replaces=k["replaces"], launches=launches[k["name"]],
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            max_err=err, kernel_ms=ms,      # the same two, by other names
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=None, bytes=nbytes, flops=flops,
