@@ -19,7 +19,9 @@ Phases (each raises on failure; the script then exits non-zero):
 4. check    logits of the first two layers at full width through the
             kernels against the CPU reference path with the same weights.
 
-Output: a ``{"kernels": [...]}`` line, an ``{"engine": ...}`` line, the
+Output: a ``{"bounds": [...]}`` line (the bytes and flops each kernel's
+bound is derived from), a ``{"kernels": [...]}`` line (measured launches,
+errors and times, with ``bound_ms``), an ``{"engine": ...}`` line, the
 card's name and power limit, and last ``{"ok": true, "device": ...}``.
 
     python3 chip_smoke.py --profile
@@ -263,9 +265,6 @@ def main() -> int:
     from llm_d_tpu_torch.ops import _build, mla_decode, mla_prefill, \
         moe_int8, moe_routed
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
     # 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
     libs = _build.build_all()
@@ -341,7 +340,7 @@ def main() -> int:
                            f"{missing}")
 
     # 3. kernels against their plain versions --------------------------------
-    rows = []
+    rows, bounds = [], []
     for k in kernels:
         rec = recorders[k["name"]]
         if rec.first is None:
@@ -378,11 +377,12 @@ def main() -> int:
             name=k["name"], route="cuda", source=k["source"],
             replaces=k["replaces"], launches=launches[k["name"]],
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            max_err=err, kernel_ms=ms,      # the same two, by other names
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=None, bytes=nbytes, flops=flops,
-            shape=shape_of(args)))
+            library_ms=None))
+        bounds.append(dict(name=k["name"], shape=shape_of(args),
+                           bytes=nbytes, flops=flops, bytes_ms=t_bytes,
+                           ops_ms=t_ops))
         log(f"{k['name']}: err {err:.3g}, {ms:.4f} ms vs plain "
             f"{plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms")
 
@@ -402,6 +402,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
+    # The bound's inputs, derived from the recorded launches (not timed).
+    print(json.dumps({"bounds": bounds}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"engine": {
         "model": "deepseek-v3-bench", "build_s": build_s, "init_s": init_s,
@@ -422,45 +424,63 @@ def shape_of(args):
 
 def work(name: str, args, kw, out):
     """(bytes moved, flops) the function needs on these inputs: each input
-    read once, each output written once; data-dependent parts counted as
-    this run's data needs them."""
+    it uses read once, each output written once.  Data-dependent parts
+    count what this run's data needs: live query rows, the keys and
+    block-table entries below each causal bound, the experts with a
+    routed token and the routed (token, expert) pairs."""
     import torch
+    if name in ("mla_decode", "mla_prefill"):
+        q, _, cache, _, sl = args[:5]
+        bs = kw["block_size"]
+        kv_scale = kw.get("kv_scale")
+        F = cache.shape[-1]
+        H = q.shape[-2]
+        # One latent row with its scales.
+        row_b = F * cache.element_size() + (
+            kv_scale.shape[-1] * 4 if kv_scale is not None else 0)
+        q_row_b = H * F * q.element_size()
     if name == "mla_decode":
-        q, row_new, cache, bt, sl = args[:5]
-        S, H, F = q.shape
-        sl = sl.long()
-        keys = int(sl.clamp(min=0).sum())
+        S = q.shape[0]
+        sl = sl.long().clamp(min=0)
+        keys = int(sl.sum())
         live = int((sl > 0).sum())
-        nbytes = (q.numel() * 2 + row_new.numel() + S * 4 + bt.numel() * 4
-                  + S * 4 + keys * (F + 4) + out.numel() * 2
-                  + live * (F + 4))
+        pages = int(((sl + bs - 1) // bs).sum())
+        # Position seq_len-1 comes from the new row, not from the cache.
+        nbytes = (live * q_row_b + live * row_b + S * 4 + pages * 4
+                  + (keys - live) * row_b
+                  + out.numel() * out.element_size() + live * row_b)
         return nbytes, 4 * H * F * keys
     if name == "mla_prefill":
-        qs, q_pos, cache, bt, sl = args[:5]
-        S, Q, H, F = qs.shape
-        n_keys = torch.minimum(sl.long()[:, None], q_pos.long() + 1).clamp(
-            min=0)
-        pages = n_keys.max(dim=1).values
-        nbytes = (qs.numel() * 2 + q_pos.numel() * 4 + bt.numel() * 4
-                  + int(pages.sum()) * (F + 4) + out.numel() * 2)
+        q_pos = args[1]
+        S = q.shape[0]
+        n_keys = torch.minimum(sl.long()[:, None],
+                               q_pos.long() + 1).clamp(min=0)     # [S, Q]
+        live_rows = int((n_keys > 0).sum())
+        seq_keys = n_keys.max(dim=1).values
+        pages = int(((seq_keys + bs - 1) // bs).sum())
+        nbytes = (live_rows * q_row_b + q_pos.numel() * 4 + S * 4
+                  + pages * 4 + int(seq_keys.sum()) * row_b
+                  + out.numel() * out.element_size())
         return nbytes, 4 * H * F * int(n_keys.sum())
     if name == "moe_dense_int8":
-        x, comb, layer = args[:3]
-        wg = args[3]
-        _, E, H, I = wg.shape
-        T = x.shape[0]
-        nbytes = (x.numel() * 2 + comb.numel() * 4 + E * 3 * H * I
-                  + E * (2 * I + H) * 4 + out.numel() * 4)
-        return nbytes, 2 * 3 * T * E * H * I
+        x, comb = args[:2]
+        _, E, H, I = args[3].shape
+        routed = comb != 0                                         # [T, E]
+        experts = int(routed.any(dim=0).sum())
+        pairs = int(routed.sum())
+        nbytes = (x.numel() * x.element_size() + comb.numel() * 4
+                  + experts * (3 * H * I + (2 * I + H) * 4)
+                  + out.numel() * 4)
+        return nbytes, 2 * 3 * pairs * H * I
     if name == "moe_routed_int8":
         x, tok_pad, wslot, tile_expert, num_tiles, pos = args[:6]
-        wg = args[7]
-        _, E, H, I = wg.shape
+        _, E, H, I = args[7].shape
         T, k = pos.shape
         nt = int(num_tiles.reshape(-1)[0])
+        slots = nt * kw["row_tile"]
         experts = int(torch.unique(tile_expert[:nt]).numel())
-        nbytes = (x.numel() * 2 + tok_pad.numel() * 4 + wslot.numel() * 4
-                  + tile_expert.numel() * 4 + pos.numel() * 4
+        nbytes = (T * H * x.element_size() + slots * (tok_pad.element_size()
+                  + wslot.element_size()) + nt * 4 + 4 + pos.numel() * 4
                   + experts * (3 * H * I + (2 * I + H) * 4)
                   + out.numel() * 4)
         return nbytes, 2 * 3 * T * k * H * I

@@ -46,9 +46,11 @@ def linear(x: torch.Tensor, w: torch.Tensor,
            b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: [..., in], w: [in, out]; f32 accumulation, output in x.dtype.
 
-    On the card cuBLAS multiplies bf16 with f32 accumulation and rounds
-    once; on the CPU the product runs in f32 and rounds once, which is
-    what the JAX reference does there."""
+    On the card cuBLAS multiplies bf16 and rounds once; its reductions
+    stay in f32 once :func:`~llm_d_tpu_torch.utils.device.resolve_device`
+    has resolved a CUDA device (the engine does).  On the CPU the product
+    runs in f32 and rounds once, which is what the JAX reference does
+    there."""
     if x.is_cuda:
         y = torch.matmul(x, w.to(x.dtype))
     else:

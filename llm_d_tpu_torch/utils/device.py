@@ -14,14 +14,23 @@ import torch
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
-    """``None`` means the first CUDA device; ``"cpu"`` must be explicit."""
+    """``None`` means the first CUDA device; ``"cpu"`` must be explicit.
+
+    On CUDA, bf16 matrix products are held to f32 reductions (cuBLAS may
+    otherwise reduce split-K partials in bf16), as ``jnp.dot(...,
+    preferred_element_type=f32)`` accumulates."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' to run the "
                 "plain PyTorch path explicitly")
-        return torch.device("cuda", torch.cuda.current_device())
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but CUDA is unavailable")
+        dev = torch.device("cuda", torch.cuda.current_device())
+    else:
+        dev = torch.device(device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {dev} requested but CUDA is unavailable")
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
     return dev
