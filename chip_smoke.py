@@ -5,28 +5,48 @@
 
 Phases (each raises on failure; the script then exits non-zero):
 
-1. build    compile the four CUDA kernels from llm_d_tpu_torch/csrc
+1. build    compile the eight CUDA kernels from llm_d_tpu_torch/csrc
             (one nvcc per source, in parallel) and load them;
-2. engine   serve deepseek-v3-bench at full width and depth (random
-            weights from a seed) through EngineCore with int8 experts, an
-            int8 latent cache, block size 64 and 512-token steps:
-            wave 1 (8 x 128-token prompts, 32 new tokens), wave 2
-            (96 x 32-token prompts, 16 new tokens), then wave 1 again,
-            which must repeat token for token.  Every kernel's launch
-            count must rise during these waves;
-3. kernels  each kernel against its plain PyTorch version on the inputs
-            of its first launch in phase 2, then timed against it;
-4. check    logits of the first two layers at full width through the
-            kernels against the CPU reference path with the same weights.
+2. path (i) serve deepseek-v3-bench at full width and depth (random
+            weights from a seed) through EngineCore as bench.py configures
+            it: int8 experts, int8 latent cache, block size 64, steps of
+            up to 8192 tokens.  Wave 1 (8 x 128-token prompts, 32 new
+            tokens), wave 2 (96 x 32, 16 new), wave 3 (64 x 128, 16 new:
+            the bench's prefill, one 8192-token step), wave 1 again (must
+            repeat token for token) and wave 3 under
+            LLMD_MOE_PREFILL_KERNEL=grouped.  Kernels A-F (MLA decode and
+            prefill, dense / routed / streamed / grouped int8 MoE) must
+            all launch;
+3. path(ii) serve llama3-1b at full width and depth, block size 64,
+            8192-token steps: 64 x 128-token prompts with 32 new tokens on
+            a bf16 cache (twice: must repeat token for token), then once on
+            an int8 cache with one scale per row and once with one per KV
+            head.  Kernels G and H (dense paged decode, dense flash
+            prefill) must launch;
+4. kernels  each kernel against its plain PyTorch version on the inputs
+            of its first launch in phases 2-3 (G and H: of each cache
+            mode; E also on the bench's 8192-token step at the default
+            512-token chunks and as one chunk), then timed against it;
+5. check    logits of the first two layers at full width through the
+            kernels against the CPU reference path with the same weights:
+            deepseek-v3-bench on a 100-token and on a 1024-token prompt
+            (kernels B, D / B, E, then A, C), llama3-1b on a bf16 cache
+            (H, then G).
+
+Launch counts: every count is set to 0 just before a path is driven and
+read just after it; kernels A-F count path (i), G and H path (ii).
 
 Output: a ``{"bounds": [...]}`` line (the bytes and flops each kernel's
-bound is derived from), a ``{"kernels": [...]}`` line (measured launches,
-errors and times, with ``bound_ms``), an ``{"engine": ...}`` line, the
-card's name and power limit, and last ``{"ok": true, "device": ...}``.
+bound is derived from), a ``{"kernels": [...]}`` line (one row per kernel
+at its first launch: measured launches, errors and times, with
+``bound_ms``), a ``{"variants": [...]}`` line (the same fields for the
+other inputs of phase 4), an ``{"engine": ...}`` line, the card's name and
+power limit, and last ``{"ok": true, "device": ...}``.
 
     python3 chip_smoke.py --profile
 
-adds a ``{"profile": ...}`` line: four wave-1 decode steps under
+adds a ``{"profile": ...}`` line: four wave-1 decode steps and the
+8192-token wave-3 prefill step of deepseek-v3-bench under
 ``torch.profiler``, with the device's busy time, kernel launches and the
 largest kernels per step (a measurement, not part of the smoke's
 pass/fail contract).
@@ -34,6 +54,8 @@ pass/fail contract).
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -45,6 +67,10 @@ BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
 
 WAVE1 = dict(n=8, prompt=128, new=32)
 WAVE2 = dict(n=96, prompt=32, new=16)
+WAVE3 = dict(n=64, prompt=128, new=16)       # bench.py's prefill shape
+DENSE_WAVE = dict(n=64, prompt=128, new=32)
+BENCH_T = WAVE3["n"] * WAVE3["prompt"]       # 8192-token prefill step
+DENSE_MODES = (("bf16", None), ("int8", "token"), ("int8", "head"))
 
 
 def log(msg: str) -> None:
@@ -72,27 +98,57 @@ def tensor_ptrs(tree) -> frozenset:
     return frozenset([tree.data_ptr()])
 
 
+def cache_mode(args, kw) -> str:
+    """Cache mode of a dense attention launch: bf16, int8-token or
+    int8-head (the scale planes' width)."""
+    ks = kw.get("k_scale")
+    if ks is None:
+        return "bf16"
+    return "int8-token" if ks.shape[-1] == 1 else "int8-head"
+
+
 class Recorder:
     """Wraps a kernel wrapper (a module attribute the model calls through)
-    and keeps a copy of the inputs of its first call, taken before the
-    call so in-place cache updates do not leak into the copy.  A wrapper
-    bumps the ``launches`` of whatever its module name is bound to, so
-    the count lives on the recording wrapper while it is installed."""
+    and keeps a copy of the inputs of its first call of each label
+    (``label(args, kw)``), taken before the call so in-place cache updates
+    do not leak into the copy.  A wrapper bumps the ``launches`` of
+    whatever its module name is bound to, so the count lives on the
+    recording wrapper while it is installed."""
 
-    def __init__(self, module, name: str, keep: frozenset):
+    def __init__(self, module, name: str, keep: frozenset, label=None):
         self.module, self.name = module, name
         self.fn = getattr(module, name)
         self.keep = keep
-        self.first = None
+        self.calls = {}
 
         def wrapped(*args, **kw):
-            if self.first is None:
-                self.first = (clone(args, keep), clone(kw, keep))
+            key = label(args, kw) if label else "first"
+            if key not in self.calls:
+                self.calls[key] = (clone(args, keep), clone(kw, keep))
             return self.fn(*args, **kw)
 
         wrapped.launches = 0
         self.wrapped = wrapped
         setattr(module, name, wrapped)
+
+
+@contextlib.contextmanager
+def capture(module, name: str):
+    """Records the arguments of the calls to ``module.name`` inside the
+    block (the call itself goes through)."""
+    seen = []
+    inner = getattr(module, name)
+
+    def spy(*args, **kw):
+        seen.append((args, kw))
+        return inner(*args, **kw)
+
+    spy.launches = 0        # a wrapper bumps what its module name holds
+    setattr(module, name, spy)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, inner)
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -119,10 +175,9 @@ def run_wave(engine, prompts, max_new: int, tag: str):
         for i, p in enumerate(prompts)]
     for r in reqs:
         engine.add_request(r)
-    decode_s = 0.0
-    decode_tokens = 0
-    decode_steps = 0
-    steps = 0
+    prefill_s = decode_s = 0.0
+    decode_tokens = decode_steps = steps = 0
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     while engine.has_work():
         all_prefilled = all(r.output_token_ids for r in reqs)
@@ -134,6 +189,8 @@ def run_wave(engine, prompts, max_new: int, tag: str):
             decode_s += dt
             decode_steps += 1
             decode_tokens += sum(len(o.new_token_ids) for o in outs)
+        else:
+            prefill_s += dt
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     tokens = [list(r.output_token_ids) for r in reqs]
@@ -142,84 +199,84 @@ def run_wave(engine, prompts, max_new: int, tag: str):
         if len(toks) != max_new or not all(0 <= t < vocab for t in toks):
             raise RuntimeError(f"{r.request_id}: got {len(toks)} tokens "
                                f"(want {max_new} in [0, {vocab}))")
-    return tokens, dict(steps=steps, seconds=total_s,
+    return tokens, dict(requests=len(prompts), steps=steps,
+                        seconds=total_s, prefill_seconds=prefill_s,
                         decode_steps=decode_steps, decode_seconds=decode_s,
                         decode_tokens=decode_tokens,
                         decode_tok_s=(decode_tokens / decode_s
                                       if decode_s else None))
 
 
-def reference_check(engine) -> dict:
-    """The first two layers (the dense one and one MoE layer) at full
-    width, through the kernels and through the CPU reference path with
-    the same weights: a 100-token prefill (kernels B and D) and one decode
-    step (kernels A and C).  Deeper random-weight stacks amplify the
-    expected bf16 rounding differences chaotically, so depth is cut here,
-    not width."""
-    import dataclasses
+def prompts_for(rng, vocab: int, wave: dict):
+    return [rng.integers(1, vocab, wave["prompt"]).tolist()
+            for _ in range(wave["n"])]
+
+
+def clone_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: clone_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def reference_check(mc, params, engine_kw, prompt_lens, seed: int) -> dict:
+    """The first two layers at full width (``mc``, ``params`` on the card),
+    through the kernels and through the CPU reference path with the same
+    weights: one prefill step of ``prompt_lens`` and one decode step.
+    Deeper random-weight stacks amplify the expected bf16 rounding
+    differences chaotically, so depth is cut here, not width; the context
+    is cut to what the prompts need, because the reference path gathers
+    every key of a sequence's block table for every query row."""
     import numpy as np
     import torch
     from llm_d_tpu_torch.engine import EngineConfig, EngineCore
     from llm_d_tpu_torch.engine.request import Request
     from llm_d_tpu_torch.ops.sampling import SamplingParams
 
-    mc = dataclasses.replace(engine.model_config, num_layers=2)
-    Lm = mc.num_layers - mc.first_dense_layers
-    params = dict(engine.params)
-    params["moe_layers"] = {k: v[:Lm] for k, v in
-                            engine.params["moe_layers"].items()}
-    rng = np.random.default_rng(7)
-    prompt = rng.integers(1, mc.vocab_size, 100).tolist()
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, mc.vocab_size, n).tolist()
+               for n in prompt_lens]
     logits = {}
-    cfg = engine.config
     for dev in ("cpu", "cuda"):
-        eng = EngineCore(EngineConfig(
-            model_config=mc, quantization=cfg.quantization,
-            kv_cache_dtype=cfg.kv_cache_dtype, block_size=cfg.block_size,
-            num_blocks=8, max_num_seqs=8, max_num_batched_tokens=512,
-            enable_prefix_caching=False, device=dev),
-            params=clone_to(params, dev))
-        req = Request("ref", prompt, SamplingParams(
+        eng = EngineCore(EngineConfig(model_config=mc, device=dev,
+                                      **engine_kw),
+                         params=params if dev == "cuda"
+                         else clone_to(params, "cpu"))
+        reqs = [Request(f"ref{i}", p, SamplingParams(
             temperature=0.0, max_tokens=2, ignore_eos=True))
-        eng.add_request(req)
+            for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.add_request(r)
         steps = []
         for step in range(2):
             sched = eng.scheduler.schedule()
             batch, _ = eng._build_batch(sched)
             hidden = eng.model.forward(eng.params, eng.kv_cache, batch, mc,
-                                       cfg.block_size)
+                                       engine_kw["block_size"])
+            n = len(sched.scheduled)
             steps.append(eng.model.compute_logits(
-                eng.params, hidden, mc)[:1].float().cpu())
+                eng.params, hidden, mc)[:n].float().cpu())
             for sr in sched.scheduled:
                 sr.request.num_computed_tokens += sr.num_new_tokens
-            # Both sides decode the token the CPU reference picked.
-            ref = logits["cpu"][step] if dev == "cuda" else steps[-1][0]
-            req.output_token_ids.append(int(ref.argmax()))
-        logits[dev] = torch.cat(steps)
+            # Both sides decode the tokens the CPU reference picked.
+            ref = logits["cpu"][step] if dev == "cuda" else steps[-1]
+            for r, tok in zip(reqs, ref.argmax(-1).tolist()):
+                r.output_token_ids.append(tok)
+        logits[dev] = torch.stack(steps)
+        del eng
     got, want = logits["cuda"], logits["cpu"]
     if not torch.isfinite(got).all():
         raise RuntimeError("non-finite logits from the kernel path")
     rel = float((got - want).abs().max() / want.abs().max())
     top = bool((got.argmax(-1) == want.argmax(-1)).all())
-    return dict(layers=mc.num_layers, rel_max_err=rel, top1_agree=top,
-                shape=list(got.shape))
+    return dict(model=mc.name, layers=mc.num_layers, prompts=prompt_lens,
+                rel_max_err=rel, top1_agree=top, shape=list(got.shape))
 
 
-def profile_decode(engine, prompts, steps: int = 4) -> dict:
-    """Device busy time per decode step: prefill ``prompts``, then run
-    ``steps`` decode steps under ``torch.profiler``."""
+def _profile_steps(engine, steps: int) -> dict:
+    """``steps`` engine steps under ``torch.profiler``: wall and device
+    time per step, launches and the largest kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from llm_d_tpu_torch.engine.request import Request
-    from llm_d_tpu_torch.ops.sampling import SamplingParams
-    reqs = [Request(f"prof-{i}", p, SamplingParams(
-        temperature=0.0, max_tokens=steps + 4, ignore_eos=True))
-        for i, p in enumerate(prompts)]
-    for r in reqs:
-        engine.add_request(r)
-    while not all(r.output_token_ids for r in reqs):
-        engine.step()
-    engine.step()                         # one decode step outside the trace
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -228,8 +285,6 @@ def profile_decode(engine, prompts, steps: int = 4) -> dict:
             engine.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    while engine.has_work():
-        engine.step()
     kernels = []
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total",
@@ -239,7 +294,7 @@ def profile_decode(engine, prompts, steps: int = 4) -> dict:
     device_ms = sum(k[1] for k in kernels)
     kernels.sort(key=lambda k: -k[1])
     return dict(
-        steps=steps, batch=len(prompts), wall_ms_per_step=wall_ms,
+        steps=steps, wall_ms_per_step=wall_ms,
         device_ms_per_step=device_ms if kernels else None,
         device_busy_share=device_ms / wall_ms if kernels else None,
         kernel_launches_per_step=sum(k[2] for k in kernels),
@@ -247,10 +302,35 @@ def profile_decode(engine, prompts, steps: int = 4) -> dict:
              for n, m, c in kernels[:12]])
 
 
-def clone_to(tree, device):
-    if isinstance(tree, dict):
-        return {k: clone_to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+def profile_waves(engine, decode_prompts, prefill_prompts) -> dict:
+    """Device busy time of four decode steps of ``decode_prompts`` (after
+    their prefill and one untraced decode step) and of the single
+    prefill step of ``prefill_prompts``."""
+    from llm_d_tpu_torch.engine.request import Request
+    from llm_d_tpu_torch.ops.sampling import SamplingParams
+
+    def add(prompts, tag, n):
+        reqs = [Request(f"{tag}-{i}", p, SamplingParams(
+            temperature=0.0, max_tokens=n, ignore_eos=True))
+            for i, p in enumerate(prompts)]
+        for r in reqs:
+            engine.add_request(r)
+        return reqs
+
+    reqs = add(decode_prompts, "prof", 8)
+    while not all(r.output_token_ids for r in reqs):
+        engine.step()
+    engine.step()                         # one decode step outside the trace
+    out = dict(decode=dict(_profile_steps(engine, 4),
+                           batch=len(decode_prompts)))
+    while engine.has_work():
+        engine.step()
+    add(prefill_prompts, "profp", 2)
+    out["prefill"] = dict(_profile_steps(engine, 1),
+                          tokens=sum(map(len, prefill_prompts)))
+    while engine.has_work():
+        engine.step()
+    return out
 
 
 def main() -> int:
@@ -260,10 +340,14 @@ def main() -> int:
         return 1
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
+    import dataclasses
     import numpy as np
     from llm_d_tpu_torch.engine import EngineConfig, EngineCore
-    from llm_d_tpu_torch.ops import _build, mla_decode, mla_prefill, \
-        moe_int8, moe_routed
+    from llm_d_tpu_torch.models.config import get_config
+    from llm_d_tpu_torch.ops import _build, flash_prefill, mla_decode, \
+        mla_prefill, moe_int8, moe_routed, moe_routed_stream, \
+        paged_attention
+    from llm_d_tpu_torch.ops import moe as moe_ops
 
     # 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -281,122 +365,260 @@ def main() -> int:
             f"{max((int(u.split()[1]) for u in usage), default=0)} "
             f"registers, spills: {spills or 'none'}")
 
+    pallas = "llm_d_tpu/ops/pallas/"
     kernels = [
         dict(name="mla_decode", mod=mla_decode, fn="mla_paged_decode_update",
-             plain="mla_paged_decode_update_plain",
+             plain="mla_paged_decode_update_plain", path="i",
              source="llm_d_tpu_torch/csrc/mla_decode.cu",
-             replaces="llm_d_tpu/ops/pallas/mla_attention.py:224"),
+             replaces=pallas + "mla_attention.py:224"),
         dict(name="mla_prefill", mod=mla_prefill, fn="mla_flash_prefill",
-             plain="mla_flash_prefill_plain",
+             plain="mla_flash_prefill_plain", path="i",
              source="llm_d_tpu_torch/csrc/mla_prefill.cu",
-             replaces="llm_d_tpu/ops/pallas/mla_prefill.py:165"),
+             replaces=pallas + "mla_prefill.py:165"),
         dict(name="moe_dense_int8", mod=moe_int8, fn="dense_moe_int8",
-             plain="dense_moe_int8_plain",
+             plain="dense_moe_int8_plain", path="i",
              source="llm_d_tpu_torch/csrc/moe_dense_int8.cu",
-             replaces="llm_d_tpu/ops/pallas/moe_int8.py:182"),
+             replaces=pallas + "moe_int8.py:182"),
         dict(name="moe_routed_int8", mod=moe_routed, fn="routed_moe_int8",
-             plain="routed_moe_int8_plain",
+             plain="routed_moe_int8_plain", path="i",
              source="llm_d_tpu_torch/csrc/moe_routed_int8.cu",
-             replaces="llm_d_tpu/ops/pallas/moe_routed.py:183"),
+             replaces=pallas + "moe_routed.py:183"),
+        dict(name="moe_streamed_int8", mod=moe_routed_stream,
+             fn="streamed_moe_int8", plain="streamed_moe_int8_plain",
+             path="i", source="llm_d_tpu_torch/csrc/moe_streamed_int8.cu",
+             replaces=pallas + "moe_routed_stream.py:124"),
+        dict(name="moe_grouped_int8", mod=moe_int8, fn="grouped_moe_int8",
+             plain="grouped_moe_int8_plain", path="i",
+             source="llm_d_tpu_torch/csrc/moe_grouped_int8.cu",
+             replaces=pallas + "moe_int8.py:78"),
+        dict(name="paged_decode", mod=paged_attention,
+             fn="paged_attention_decode_update",
+             plain="paged_attention_decode_update_plain", path="ii",
+             label=cache_mode, source="llm_d_tpu_torch/csrc/paged_decode.cu",
+             replaces=pallas + "paged_attention.py:282"),
+        dict(name="flash_prefill", mod=flash_prefill,
+             fn="flash_prefill_paged", plain="flash_prefill_paged_plain",
+             path="ii", label=cache_mode,
+             source="llm_d_tpu_torch/csrc/flash_prefill.cu",
+             replaces=pallas + "flash_prefill.py:188"),
     ]
 
-    # 2. engine -----------------------------------------------------------
+    # 2. path (i): deepseek-v3-bench as bench.py serves it ------------------
     t0 = time.perf_counter()
     engine = EngineCore(EngineConfig(
         model="deepseek-v3-bench", quantization="int8",
         kv_cache_dtype="int8", block_size=64, num_blocks=256,
-        max_num_seqs=128, max_num_batched_tokens=512,
+        max_num_seqs=128, max_num_batched_tokens=BENCH_T,
         enable_prefix_caching=False, device="cuda", seed=0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     log(f"engine: init {init_s:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     weights = tensor_ptrs(engine.params)
-    recorders = {k["name"]: Recorder(k["mod"], k["fn"], weights)
+    recorders = {k["name"]: Recorder(k["mod"], k["fn"], weights,
+                                     k.get("label"))
                  for k in kernels}
+    # The glue inputs of the bench's 8192-token step, to run kernel E on
+    # it at other chunk heights in phase 4.
+    bench_glue = {}
+    real_glue = moe_ops._streamed_int8_kernel_path
+
+    def glue(x, weights_, idx, quant, **kw):
+        if x.shape[0] == BENCH_T and not bench_glue:
+            bench_glue.update(args=(x.clone(), weights_.clone(), idx.clone(),
+                                    quant))
+        return real_glue(x, weights_, idx, quant, **kw)
+
+    moe_ops._streamed_int8_kernel_path = glue
+
+    def reset_counts():
+        for rec in recorders.values():
+            rec.wrapped.launches = 0
+
+    def read_counts(path):
+        counts = {k["name"]: recorders[k["name"]].wrapped.launches
+                  for k in kernels if k["path"] == path}
+        missing = [n for n, c in counts.items() if c == 0]
+        if missing:
+            raise RuntimeError(f"kernels never launched on path ({path}): "
+                               f"{missing}")
+        return counts
 
     rng = np.random.default_rng(0)
     vocab = engine.model_config.vocab_size
-    p1 = [rng.integers(1, vocab, WAVE1["prompt"]).tolist()
-          for _ in range(WAVE1["n"])]
-    p2 = [rng.integers(1, vocab, WAVE2["prompt"]).tolist()
-          for _ in range(WAVE2["n"])]
-    for k in kernels:
-        recorders[k["name"]].wrapped.launches = 0
-    tok1, st1 = run_wave(engine, p1, WAVE1["new"], "w1")
-    log(f"wave 1: {json.dumps(st1)}")
-    tok2, st2 = run_wave(engine, p2, WAVE2["new"], "w2")
-    log(f"wave 2: {json.dumps(st2)}")
-    tok1b, st1b = run_wave(engine, p1, WAVE1["new"], "w1b")
-    log(f"wave 1 again: {json.dumps(st1b)}")
-    launches = {k["name"]: recorders[k["name"]].wrapped.launches
-                for k in kernels}
-    log(f"launches: {json.dumps(launches)}")
+    p1 = prompts_for(rng, vocab, WAVE1)
+    p2 = prompts_for(rng, vocab, WAVE2)
+    p3 = prompts_for(rng, vocab, WAVE3)
+    waves_i = {}
+    reset_counts()
+    tok1, waves_i["wave1"] = run_wave(engine, p1, WAVE1["new"], "w1")
+    log(f"wave 1: {json.dumps(waves_i['wave1'])}")
+    _, waves_i["wave2"] = run_wave(engine, p2, WAVE2["new"], "w2")
+    log(f"wave 2: {json.dumps(waves_i['wave2'])}")
+    tok3, waves_i["wave3"] = run_wave(engine, p3, WAVE3["new"], "w3")
+    log(f"wave 3: {json.dumps(waves_i['wave3'])}")
+    tok1b, waves_i["wave1_repeat"] = run_wave(engine, p1, WAVE1["new"],
+                                              "w1b")
+    log(f"wave 1 again: {json.dumps(waves_i['wave1_repeat'])}")
+    prev = os.environ.get("LLMD_MOE_PREFILL_KERNEL")
+    os.environ["LLMD_MOE_PREFILL_KERNEL"] = "grouped"
+    try:
+        tok3g, waves_i["wave3_grouped"] = run_wave(engine, p3, WAVE3["new"],
+                                                   "w3g")
+    finally:
+        if prev is None:
+            del os.environ["LLMD_MOE_PREFILL_KERNEL"]
+        else:
+            os.environ["LLMD_MOE_PREFILL_KERNEL"] = prev
+    waves_i["wave3_grouped"]["same_tokens_as_streamed"] = tok3g == tok3
+    log(f"wave 3 grouped: {json.dumps(waves_i['wave3_grouped'])}")
+    launches = read_counts("i")
+    log(f"launches (i): {json.dumps(launches)}")
+    moe_ops._streamed_int8_kernel_path = real_glue
     if tok1b != tok1:
         raise RuntimeError("wave 1 did not repeat token for token")
-    missing = [n for n, c in launches.items() if c == 0]
-    if missing:
-        raise RuntimeError(f"kernels never launched on the main path: "
-                           f"{missing}")
+    if not bench_glue:
+        raise RuntimeError(f"no {BENCH_T}-token MoE step was recorded")
 
-    # 3. kernels against their plain versions --------------------------------
-    rows, bounds = [], []
-    for k in kernels:
-        rec = recorders[k["name"]]
-        if rec.first is None:
-            raise RuntimeError(f"{k['name']}: no recorded launch")
-        args, kw = rec.first
-        fn, plain = rec.fn, getattr(k["mod"], k["plain"])
+    prof = None
+    if "--profile" in sys.argv[1:]:
+        prof = profile_waves(engine, p1, p3)
+        log(f"profile: {json.dumps(prof)}")
+
+    # 3. path (ii): llama3-1b on a bf16 and on int8 caches ------------------
+    waves_ii = {}
+    llama_params2 = None
+    reset_counts()
+    for kv, gran in DENSE_MODES:
+        tag = kv if gran is None else f"{kv}-{gran}"
+        t0 = time.perf_counter()
+        eng = EngineCore(EngineConfig(
+            model="llama3-1b", kv_cache_dtype=kv, kv_scale_granularity=gran,
+            block_size=64, num_blocks=256, max_num_seqs=64,
+            max_num_batched_tokens=BENCH_T, enable_prefix_caching=False,
+            device="cuda", seed=1))
+        torch.cuda.synchronize()
+        log(f"llama3-1b {tag}: init {time.perf_counter() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        pd = prompts_for(np.random.default_rng(2), eng.model_config.vocab_size,
+                         DENSE_WAVE)
+        tokd, waves_ii[tag] = run_wave(eng, pd, DENSE_WAVE["new"], tag)
+        log(f"llama3-1b {tag} wave: {json.dumps(waves_ii[tag])}")
+        if kv == "bf16":
+            tokd2, waves_ii["bf16_repeat"] = run_wave(
+                eng, pd, DENSE_WAVE["new"], "bf16b")
+            log(f"llama3-1b bf16 wave again: "
+                f"{json.dumps(waves_ii['bf16_repeat'])}")
+            if tokd2 != tokd:
+                raise RuntimeError("llama3-1b bf16 wave did not repeat "
+                                   "token for token")
+            # The first two layers, for phase 5 (copies: a slice would
+            # keep every layer alive).
+            llama_params2 = {
+                k: ({kk: vv[:2].clone() for kk, vv in v.items()}
+                    if k == "layers" else v)
+                for k, v in eng.params.items()}
+        del eng                       # free each engine before the next
+        gc.collect()
+        torch.cuda.empty_cache()
+    counts_ii = read_counts("ii")
+    launches.update(counts_ii)
+    log(f"launches (ii): {json.dumps(counts_ii)}")
+
+    # 4. kernels against their plain versions --------------------------------
+    rows, variants, bounds = [], [], []
+
+    def check(k, label, args, kw, count: bool):
+        fn, plain = recorders[k["name"]].fn, getattr(k["mod"], k["plain"])
         a_k, kw_k = clone(args, weights), clone(kw, weights)
         a_p, kw_p = clone(args, weights), clone(kw, weights)
         got = fn(*a_k, **kw_k)
         want = plain(*a_p, **kw_p)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
-        if k["name"].startswith("mla"):
+        name = f"{k['name']} [{label}]"
+        if k["name"] in ("mla_decode", "mla_prefill", "paged_decode",
+                         "flash_prefill"):
             torch.testing.assert_close(got.float(), want.float(),
                                        atol=2e-2, rtol=2e-2)
-            if k["name"] == "mla_decode":
-                # The in-place splice: cache and scale planes exactly.
-                for idx in (2,):
-                    if not torch.equal(a_k[idx], a_p[idx]):
-                        raise RuntimeError("mla_decode: cache planes differ")
-                if not torch.equal(kw_k["kv_scale"], kw_p["kv_scale"]):
-                    raise RuntimeError("mla_decode: scale planes differ")
+            # The in-place splices: cache and scale planes exactly.
+            spliced = {"mla_decode": ([2], ["kv_scale"]),
+                       "paged_decode": ([3, 4], ["k_scale", "v_scale"])}
+            pos, names = spliced.get(k["name"], ([], []))
+            for i in pos:
+                if not torch.equal(a_k[i], a_p[i]):
+                    raise RuntimeError(f"{name}: cache planes differ")
+            for n in names:
+                if kw_k.get(n) is not None and \
+                        not torch.equal(kw_k[n], kw_p[n]):
+                    raise RuntimeError(f"{name}: {n} planes differ")
         else:
             scale = float(want.abs().max()) + 1e-9
             if err / scale > 1e-2:
-                raise RuntimeError(f"{k['name']}: error {err} / scale "
+                raise RuntimeError(f"{name}: error {err} / scale "
                                    f"{scale} > 1e-2")
         ms = time_ms(lambda: fn(*a_k, **kw_k), iters=20)
         plain_ms = time_ms(lambda: plain(*a_p, **kw_p), iters=3, warmup=1)
         nbytes, flops = work(k["name"], args, kw, got)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / BF16_FLOPS * 1e3
-        rows.append(dict(
+        row = dict(
             name=k["name"], route="cuda", source=k["source"],
             replaces=k["replaces"], launches=launches[k["name"]],
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=None))
-        bounds.append(dict(name=k["name"], shape=shape_of(args),
-                           bytes=nbytes, flops=flops, bytes_ms=t_bytes,
-                           ops_ms=t_ops))
-        log(f"{k['name']}: err {err:.3g}, {ms:.4f} ms vs plain "
+            library_ms=None)
+        if count:
+            rows.append(row)
+        else:
+            variants.append(dict(row, variant=label))
+        bounds.append(dict(name=k["name"], variant=label,
+                           shape=shape_of(args), bytes=nbytes, flops=flops,
+                           bytes_ms=t_bytes, ops_ms=t_ops))
+        log(f"{name}: err {err:.3g}, {ms:.4f} ms vs plain "
             f"{plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms")
 
-    # 4. reference check ---------------------------------------------------
-    ref = reference_check(engine)
-    log(f"reference: {json.dumps(ref)}")
-    if not ref["top1_agree"] or ref["rel_max_err"] > 5e-2:
-        raise RuntimeError(f"kernel path disagrees with the CPU reference: "
-                           f"{ref}")
+    for k in kernels:
+        calls = recorders[k["name"]].calls
+        if not calls:
+            raise RuntimeError(f"{k['name']}: no recorded launch")
+        for i, (label, (args, kw)) in enumerate(calls.items()):
+            check(k, label, args, kw, count=i == 0)
+    # Kernel E on the bench's 8192-token step: the default chunks and one.
+    streamed = next(k for k in kernels if k["name"] == "moe_streamed_int8")
+    for chunk_t in (moe_ops.PREFILL_CHUNK_T, BENCH_T):
+        with capture(moe_routed_stream, "streamed_moe_int8") as seen:
+            moe_ops._streamed_int8_kernel_path(*bench_glue["args"],
+                                               chunk_t=chunk_t)
+        args, kw = seen[0]
+        check(streamed, f"T={BENCH_T} chunk_t={chunk_t}",
+              clone(args, weights), clone(kw, weights), count=False)
+    for rec in recorders.values():
+        setattr(rec.module, rec.name, rec.fn)
 
-    prof = None
-    if "--profile" in sys.argv[1:]:
-        prof = profile_decode(engine, p1)
-        log(f"profile: {json.dumps(prof)}")
+    # 5. reference checks ----------------------------------------------------
+    mc = dataclasses.replace(engine.model_config, num_layers=2,
+                             max_model_len=1152)
+    Lm = mc.num_layers - mc.first_dense_layers
+    params = dict(engine.params)
+    params["moe_layers"] = {k: v[:Lm] for k, v in
+                            engine.params["moe_layers"].items()}
+    moe_kw = dict(quantization="int8", kv_cache_dtype="int8", block_size=64,
+                  num_blocks=24, max_num_seqs=8,
+                  max_num_batched_tokens=1024, enable_prefix_caching=False)
+    refs = [reference_check(mc, params, moe_kw, lens, seed)
+            for lens, seed in (([100], 7), ([1024], 8))]
+    lc = dataclasses.replace(get_config("llama3-1b"), num_layers=2,
+                             max_model_len=1152)
+    dense_kw = dict(block_size=64, num_blocks=24, max_num_seqs=8,
+                    max_num_batched_tokens=1024, enable_prefix_caching=False)
+    refs.append(reference_check(lc, llama_params2, dense_kw, [100, 37], 9))
+    for ref in refs:
+        log(f"reference: {json.dumps(ref)}")
+        if not ref["top1_agree"] or ref["rel_max_err"] > 5e-2:
+            raise RuntimeError(f"kernel path disagrees with the CPU "
+                               f"reference: {ref}")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -404,13 +626,14 @@ def main() -> int:
         check=True).stdout.strip()
     # The bound's inputs, derived from the recorded launches (not timed).
     print(json.dumps({"bounds": bounds}))
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"variants": variants}))
     print(json.dumps({"engine": {
-        "model": "deepseek-v3-bench", "build_s": build_s, "init_s": init_s,
-        "wave1": st1, "wave2": st2, "wave1_repeat": st1b,
-        "reference": ref}}))
+        "build_s": build_s, "init_s": init_s,
+        "deepseek-v3-bench": waves_i, "llama3-1b": waves_ii,
+        "reference": refs}}))
     if prof is not None:
         print(json.dumps({"profile": prof}))
+    print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -422,22 +645,30 @@ def shape_of(args):
     return [list(a.shape) for a in args if hasattr(a, "shape")][:2]
 
 
+def _kv_row_bytes(cache, scale) -> int:
+    """One cache row with its scales."""
+    return cache.shape[-1] * cache.element_size() + (
+        scale.shape[-1] * 4 if scale is not None else 0)
+
+
+def _expert_bytes(E: int, H: int, I: int, experts: int) -> int:
+    """int8 weights and f32 scales of ``experts`` experts."""
+    return experts * (3 * H * I + (2 * I + H) * 4)
+
+
 def work(name: str, args, kw, out):
     """(bytes moved, flops) the function needs on these inputs: each input
     it uses read once, each output written once.  Data-dependent parts
     count what this run's data needs: live query rows, the keys and
     block-table entries below each causal bound, the experts with a
-    routed token and the routed (token, expert) pairs."""
+    routed token (each expert's weights once per launch) and the routed
+    (token, expert) pairs."""
     import torch
     if name in ("mla_decode", "mla_prefill"):
         q, _, cache, _, sl = args[:5]
         bs = kw["block_size"]
-        kv_scale = kw.get("kv_scale")
-        F = cache.shape[-1]
-        H = q.shape[-2]
-        # One latent row with its scales.
-        row_b = F * cache.element_size() + (
-            kv_scale.shape[-1] * 4 if kv_scale is not None else 0)
+        row_b = _kv_row_bytes(cache, kw.get("kv_scale"))
+        H, F = q.shape[-2], cache.shape[-1]
         q_row_b = H * F * q.element_size()
     if name == "mla_decode":
         S = q.shape[0]
@@ -469,8 +700,7 @@ def work(name: str, args, kw, out):
         experts = int(routed.any(dim=0).sum())
         pairs = int(routed.sum())
         nbytes = (x.numel() * x.element_size() + comb.numel() * 4
-                  + experts * (3 * H * I + (2 * I + H) * 4)
-                  + out.numel() * 4)
+                  + _expert_bytes(E, H, I, experts) + out.numel() * 4)
         return nbytes, 2 * 3 * pairs * H * I
     if name == "moe_routed_int8":
         x, tok_pad, wslot, tile_expert, num_tiles, pos = args[:6]
@@ -481,9 +711,61 @@ def work(name: str, args, kw, out):
         experts = int(torch.unique(tile_expert[:nt]).numel())
         nbytes = (T * H * x.element_size() + slots * (tok_pad.element_size()
                   + wslot.element_size()) + nt * 4 + 4 + pos.numel() * 4
-                  + experts * (3 * H * I + (2 * I + H) * 4)
-                  + out.numel() * 4)
+                  + _expert_bytes(E, H, I, experts) + out.numel() * 4)
         return nbytes, 2 * 3 * T * k * H * I
+    if name == "moe_streamed_int8":
+        x, tok_pad, wslot, tile_expert, num_tiles, pos = args[:6]
+        _, E, H, I = args[7].shape
+        Tp, k = pos.shape
+        C, NT = num_tiles.numel(), tile_expert.numel()
+        tiles = torch.arange(NT, device=tile_expert.device)
+        live = (tiles % (NT // C)) < num_tiles.long()[tiles // (NT // C)]
+        n_live = int(live.sum())
+        experts = int(torch.unique(tile_expert[live]).numel())
+        nbytes = (Tp * H * x.element_size() + n_live * kw["row_tile"] * 8
+                  + n_live * 4 + C * 4 + pos.numel() * 4
+                  + _expert_bytes(E, H, I, experts) + out.numel() * 4)
+        return nbytes, 2 * 3 * Tp * k * H * I
+    if name == "moe_grouped_int8":
+        x_pad, wslot, tile_expert, num_tiles = args[:4]
+        _, E, H, I = args[5].shape
+        nt = int(num_tiles.reshape(-1)[0])
+        routed = int((wslot != 0).sum())
+        experts = int(torch.unique(tile_expert[:nt]).numel())
+        # The whole padded output is written (zeros past the live tiles).
+        nbytes = (routed * (H * x_pad.element_size() + 4) + nt * 4 + 4
+                  + _expert_bytes(E, H, I, experts)
+                  + out.numel() * out.element_size())
+        return nbytes, 2 * 3 * routed * H * I
+    if name == "paged_decode":
+        q, k_new, v_new, kc, vc, bt, sl = args[:7]
+        bs = kw["block_size"]
+        S, H, D = q.shape
+        row_b = _kv_row_bytes(kc, kw.get("k_scale"))
+        sl = sl.long().clamp(min=0)
+        keys = int(sl.sum())
+        live = int((sl > 0).sum())
+        pages = int(((sl + bs - 1) // bs).sum())
+        # K and V: the cached keys below the new position, the new rows
+        # read from the input and written to their slots.
+        nbytes = (live * H * D * q.element_size() + S * 4 + pages * 4
+                  + 2 * (keys - live) * row_b + 2 * 2 * live * row_b
+                  + out.numel() * out.element_size())
+        return nbytes, 4 * H * D * keys
+    if name == "flash_prefill":
+        qs, q_pos, kc, vc, bt, sl = args[:6]
+        bs = kw["block_size"]
+        S, Q, H, D = qs.shape
+        row_b = _kv_row_bytes(kc, kw.get("k_scale"))
+        n_keys = torch.minimum(sl.long()[:, None],
+                               q_pos.long() + 1).clamp(min=0)     # [S, Q]
+        live_rows = int((n_keys > 0).sum())
+        seq_keys = n_keys.max(dim=1).values
+        pages = int(((seq_keys + bs - 1) // bs).sum())
+        nbytes = (live_rows * H * D * qs.element_size() + q_pos.numel() * 4
+                  + S * 4 + pages * 4 + 2 * int(seq_keys.sum()) * row_b
+                  + out.numel() * out.element_size())
+        return nbytes, 4 * H * D * int(n_keys.sum())
     raise KeyError(name)
 
 

@@ -1,7 +1,7 @@
 """EngineCore: the serving engine on one device (port of the classic
 single-device step of ``llm_d_tpu.engine.engine``).
 
-Owns the device state (parameters and the paged latent KV cache), turns
+Owns the device state (parameters and the paged KV cache), turns
 scheduler output into bucketed ragged batches, runs one forward + sample
 per step, and advances request state.  The model runs eagerly; the
 step's one host sync is the fetch of the sampled ids.
@@ -26,9 +26,10 @@ from llm_d_tpu_torch.engine.scheduler import Scheduler, SchedulerOutput
 from llm_d_tpu_torch.models import get_model
 from llm_d_tpu_torch.models.config import ModelConfig, get_config
 from llm_d_tpu_torch.ops import sampling as sampling_ops
-from llm_d_tpu_torch.ops.moe import GROUPED_INT8_MIN_T
 from llm_d_tpu_torch.ops.quant import (
-    KV_CACHE_DTYPES, MLA_LATENT_DTYPES, quantize_moe_experts)
+    KV_CACHE_DTYPES, KV_SCALE_GRANULARITIES, MLA_LATENT_DTYPES,
+    kv_scale_width, quantize_moe_experts)
+from llm_d_tpu_torch.utils.config import env_choice
 from llm_d_tpu_torch.utils.device import resolve_device
 
 
@@ -76,6 +77,10 @@ class EngineConfig:
     quantization: Optional[str] = None
     # Paged-KV cache dtype: "bf16" or "int8" (None = bf16).
     kv_cache_dtype: Optional[str] = None
+    # int8 scale granularity of a dense cache: "token" (one f32 scale per
+    # row) or "head" (one per KV head).  None resolves LLMD_KV_SCALE_GRAN
+    # (default "token").  MLA's latent row always has one scale.
+    kv_scale_granularity: Optional[str] = None
     # MLA latent dtype gate: "auto" follows kv_cache_dtype; "bf16"/"int8"
     # pin it (None = auto).
     mla_latent_dtype: Optional[str] = None
@@ -107,21 +112,26 @@ class EngineCore:
         if latent not in MLA_LATENT_DTYPES:
             raise ValueError(f"unknown mla_latent_dtype {latent!r} "
                              f"(choices: {MLA_LATENT_DTYPES})")
-        if latent != "auto":
+        if latent != "auto" and c.use_mla:
             self.kv_cache_dtype = latent
         self.kv_quantized = self.kv_cache_dtype == "int8"
-        # The latent row is MQA-shared: one f32 scale per row.
-        self.kv_scale_width = 1 if self.kv_quantized else 0
+        gran = config.kv_scale_granularity or env_choice(
+            "LLMD_KV_SCALE_GRAN", "token", KV_SCALE_GRANULARITIES)
+        if gran not in KV_SCALE_GRANULARITIES:
+            raise ValueError(f"unknown kv_scale_granularity {gran!r} "
+                             f"(choices: {KV_SCALE_GRANULARITIES})")
+        self.kv_scale_granularity = gran
+        # The MLA latent row is MQA-shared: one f32 scale per row; dense
+        # K/V rows may carry one per KV head.
+        if not self.kv_quantized:
+            self.kv_scale_width = 0
+        elif c.use_mla:
+            self.kv_scale_width = 1
+        else:
+            self.kv_scale_width = kv_scale_width(c.num_kv_heads, gran)
 
         if config.quantization not in (None, "int8"):
             raise ValueError(f"unknown quantization {config.quantization!r}")
-        if (config.quantization == "int8" and self.device.type == "cuda"
-                and config.max_num_batched_tokens > GROUPED_INT8_MIN_T):
-            raise ValueError(
-                f"max_num_batched_tokens={config.max_num_batched_tokens} with "
-                f"int8 experts needs the streamed_moe_int8 kernel for steps "
-                f"above {GROUPED_INT8_MIN_T} tokens, which is not ported "
-                f"yet; use max_num_batched_tokens <= {GROUPED_INT8_MIN_T}")
 
         self.kv_manager = KVCacheManager(
             config.num_blocks, config.block_size,
@@ -136,7 +146,7 @@ class EngineCore:
             init_gen = torch.Generator(device=self.device)
             init_gen.manual_seed(config.seed)
             params = self.model.init_params(c, init_gen, self.device)
-        if config.quantization == "int8" \
+        if config.quantization == "int8" and "moe_layers" in params \
                 and "w_gate_q" not in params["moe_layers"]:
             params = quantize_moe_experts(params)
         self.params = params

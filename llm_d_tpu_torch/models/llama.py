@@ -1,0 +1,154 @@
+"""Dense decoder-only transformer, Llama / Qwen2 / Qwen3 families (port of
+``llm_d_tpu.models.llama``, one device).
+
+Parameters keep the JAX package's tree (``embed``, ``layers`` stacked on
+a leading layer axis, ``final_norm``, ``lm_head`` unless the embeddings
+are tied), and a plain Python loop walks the layers.  The paged cache is
+``{"k", "v"}`` of ``[L, slots, KVH*D]`` (plus f32 ``{"k_scale",
+"v_scale"}`` planes ``[L, slots, SW]`` for an int8 cache), every layer
+updating its plane in place.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from llm_d_tpu_torch.models.config import ModelConfig
+from llm_d_tpu_torch.ops import attention as A
+from llm_d_tpu_torch.ops import layers as L
+
+Params = Dict[str, Any]
+
+
+def normal_param(shape, std, dt, generator, device) -> torch.Tensor:
+    """N(0, std^2) in f32 rounded to ``dt``, drawn one leading plane at a
+    time so the f32 temporary stays one plane."""
+    out = torch.empty(shape, dtype=dt, device=device)
+    planes = out.reshape(-1, *shape[-2:]) if len(shape) > 2 else out[None]
+    for p in planes:
+        p.copy_(torch.randn(p.shape, generator=generator, device=device,
+                            dtype=torch.float32) * std)
+    return out
+
+
+def init_params(config: ModelConfig, generator: torch.Generator,
+                device) -> Params:
+    """Random-init parameters on ``device`` (same shapes, scales and tree
+    as the JAX package; the random bits differ)."""
+    c = config
+    dh = c.head_dim_
+    dt = c.torch_dtype
+    Lc = c.num_layers
+    Hm = c.hidden_size
+
+    def w(shape):
+        return normal_param(shape, shape[-2] ** -0.5, dt, generator, device)
+
+    def ones(shape):
+        return torch.ones(shape, dtype=dt, device=device)
+
+    def zeros(shape):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    layers = {
+        "input_norm": ones((Lc, Hm)),
+        "q_proj": w((Lc, Hm, c.num_heads * dh)),
+        "k_proj": w((Lc, Hm, c.num_kv_heads * dh)),
+        "v_proj": w((Lc, Hm, c.num_kv_heads * dh)),
+        "o_proj": w((Lc, c.num_heads * dh, Hm)),
+        "post_attn_norm": ones((Lc, Hm)),
+        "gate_proj": w((Lc, Hm, c.intermediate_size)),
+        "up_proj": w((Lc, Hm, c.intermediate_size)),
+        "down_proj": w((Lc, c.intermediate_size, Hm)),
+    }
+    if c.attention_bias:
+        layers["q_bias"] = zeros((Lc, c.num_heads * dh))
+        layers["k_bias"] = zeros((Lc, c.num_kv_heads * dh))
+        layers["v_bias"] = zeros((Lc, c.num_kv_heads * dh))
+    if c.qk_norm:
+        layers["q_norm"] = ones((Lc, dh))
+        layers["k_norm"] = ones((Lc, dh))
+    params: Params = {
+        "embed": w((c.vocab_size, Hm)),
+        "layers": layers,
+        "final_norm": ones((Hm,)),
+    }
+    if not c.tie_word_embeddings:
+        params["lm_head"] = w((Hm, c.vocab_size))
+    return params
+
+
+def attention_block(lp: Params, config: ModelConfig, x: torch.Tensor,
+                    batch: Dict[str, torch.Tensor],
+                    caches: Tuple[torch.Tensor, ...], block_size: int,
+                    attn_backend: str, layer: int) -> torch.Tensor:
+    """GQA self-attention over the paged cache: returns ``[T, Hm]``.
+    ``caches`` is (k, v) or, for an int8 cache, (k, v, k_scale, v_scale),
+    all stacked and updated in place at plane ``layer``."""
+    c = config
+    dh = c.head_dim_
+    T = x.shape[0]
+    q = L.linear(x, lp["q_proj"], lp.get("q_bias")).reshape(
+        T, c.num_heads, dh)
+    kx = L.linear(x, lp["k_proj"], lp.get("k_bias")).reshape(
+        T, c.num_kv_heads, dh)
+    vx = L.linear(x, lp["v_proj"], lp.get("v_bias")).reshape(
+        T, c.num_kv_heads, dh)
+    if c.qk_norm:
+        q = L.rms_norm(q, lp["q_norm"], c.rms_norm_eps)
+        kx = L.rms_norm(kx, lp["k_norm"], c.rms_norm_eps)
+    cos, sin = L.rope_cos_sin(batch["positions"], dh, c.rope_theta)
+    q = L.apply_rope(q, cos, sin)
+    kx = L.apply_rope(kx, cos, sin)
+    k_scale, v_scale = caches[2:] if len(caches) == 4 else (None, None)
+    attn = A.attention_with_kv_update(
+        q, kx, vx, caches[0], caches[1], batch, block_size=block_size,
+        backend=attn_backend, layer=layer, k_scale=k_scale,
+        v_scale=v_scale)[0]
+    return L.linear(attn.reshape(T, c.num_heads * dh), lp["o_proj"])
+
+
+def forward(params: Params, kv_cache: Dict[str, torch.Tensor],
+            batch: Dict[str, torch.Tensor], config: ModelConfig,
+            block_size: int, attn_backend: str = "auto") -> torch.Tensor:
+    """One engine step over a ragged batch: returns the final-normed
+    hidden states of the sampling rows ``[S, D]``; ``kv_cache`` is
+    updated in place."""
+    c = config
+    names = ("k", "v", "k_scale", "v_scale") if "k_scale" in kv_cache \
+        else ("k", "v")
+    caches = tuple(kv_cache[n] for n in names)
+    x = params["embed"][batch["token_ids"].long()]
+    for li in range(c.num_layers):
+        lp = {k: v[li] for k, v in params["layers"].items()}
+        a = attention_block(
+            lp, c, L.rms_norm(x, lp["input_norm"], c.rms_norm_eps), batch,
+            caches, block_size, attn_backend, layer=li)
+        # Under jit XLA feeds the post-attention norm the f32 residual sum
+        # (its f32 -> bf16 -> f32 convert pair is dropped); the residual
+        # stream itself is stored rounded (see models/moe.py).
+        h32 = x.float() + a.float()
+        x = h32.to(x.dtype)
+        hn = L.rms_norm(h32, lp["post_attn_norm"], c.rms_norm_eps).to(x.dtype)
+        x = x + L.swiglu_mlp(hn, lp["gate_proj"], lp["up_proj"],
+                             lp["down_proj"])
+    x = L.rms_norm(x, params["final_norm"], c.rms_norm_eps)
+    return x[batch["sample_idx"].long()]
+
+
+def compute_logits(params: Params, hidden: torch.Tensor,
+                   config: ModelConfig) -> torch.Tensor:
+    """f32 logits (bf16 operands, f32 products and sums); tied models use
+    the embedding's transpose."""
+    head = params.get("lm_head")
+    if head is None:
+        head = params["embed"].T
+    return torch.matmul(hidden.float(), head.float())
+
+
+def kv_cache_layout(config: ModelConfig) -> Dict[str, int]:
+    """Per-buffer cache row widths (folded ``[KVH*D]`` layout)."""
+    w = config.num_kv_heads * config.head_dim_
+    return {"k": w, "v": w}

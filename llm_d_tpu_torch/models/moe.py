@@ -16,6 +16,11 @@ from typing import Any, Dict
 import torch
 
 from llm_d_tpu_torch.models.config import ModelConfig
+# compute_logits is shared with the dense family and is part of this
+# module's model API (init_params / forward / compute_logits /
+# kv_cache_layout).
+from llm_d_tpu_torch.models.llama import compute_logits  # noqa: F401
+from llm_d_tpu_torch.models.llama import normal_param
 from llm_d_tpu_torch.models.mla import mla_attention_block, mla_param_shapes
 from llm_d_tpu_torch.ops import layers as L
 from llm_d_tpu_torch.ops import moe as moe_ops
@@ -24,17 +29,6 @@ Params = Dict[str, Any]
 
 QUANT_KEYS = ("w_gate_q", "w_gate_s", "w_up_q", "w_up_s",
               "w_down_q", "w_down_s")
-
-
-def _normal(shape, std, dt, generator, device) -> torch.Tensor:
-    """N(0, std^2) in f32 rounded to ``dt``, drawn one leading plane at a
-    time so the f32 temporary stays one plane."""
-    out = torch.empty(shape, dtype=dt, device=device)
-    planes = out.reshape(-1, *shape[-2:]) if len(shape) > 2 else out[None]
-    for p in planes:
-        p.copy_(torch.randn(p.shape, generator=generator, device=device,
-                            dtype=torch.float32) * std)
-    return out
 
 
 def init_params(config: ModelConfig, generator: torch.Generator,
@@ -51,7 +45,7 @@ def init_params(config: ModelConfig, generator: torch.Generator,
     Ish = Im * c.num_shared_experts
 
     def w(shape, dtype=dt):
-        return _normal(shape, shape[-2] ** -0.5, dtype, generator, device)
+        return normal_param(shape, shape[-2] ** -0.5, dtype, generator, device)
 
     def ones(shape):
         return torch.ones(shape, dtype=dt, device=device)
@@ -147,15 +141,6 @@ def forward(params: Params, kv_cache: Dict[str, torch.Tensor],
         x = x + m
     x = L.rms_norm(x, params["final_norm"], c.rms_norm_eps)
     return x[batch["sample_idx"].long()]
-
-
-def compute_logits(params: Params, hidden: torch.Tensor,
-                   config: ModelConfig) -> torch.Tensor:
-    """f32 logits (bf16 operands, f32 products and sums)."""
-    head = params.get("lm_head")
-    if head is None:                                  # tied embeddings
-        head = params["embed"].T
-    return torch.matmul(hidden.float(), head.float())
 
 
 def kv_cache_layout(config: ModelConfig) -> Dict[str, int]:

@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from llm_d_tpu_torch.ops.quant import dequantize_kv_block
+from llm_d_tpu_torch.ops.quant import dequantize_kv_block, quantize_kv_block
 
 NEG_INF = -1e30
 
@@ -49,6 +49,7 @@ def ragged_paged_attention_reference(
     seq_lens: torch.Tensor,       # [S]
     block_size: int,
     scale: Optional[float] = None,
+    soft_cap: Optional[float] = None,
     layer: Optional[int] = None,
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
@@ -76,6 +77,8 @@ def ragged_paged_attention_reference(
 
     qf = q.float().reshape(T, KVH, G, D)
     scores = torch.einsum("tkgd,tckd->tkgc", qf * scale, k_tok)
+    if soft_cap is not None:
+        scores = soft_cap * torch.tanh(scores / soft_cap)
     key_pos = torch.arange(C, device=dev)[None, :]
     valid = (key_pos <= positions[:, None]) & (
         key_pos < seq_lens.long()[tsi][:, None])
@@ -136,3 +139,95 @@ def decode_kernel_eligible(batch, block_size: int, row_width: int) -> bool:
     qtok_idx = batch.get("qtok_idx")
     return (qtok_idx is not None and qtok_idx.shape[1] == 1
             and block_size % 16 == 0 and row_width % 128 == 0)
+
+
+def attention_with_kv_update(
+    q: torch.Tensor,              # [T, H, D]
+    k_new: torch.Tensor,          # [T, KVH, D] this step's K rows
+    v_new: torch.Tensor,
+    k_cache: torch.Tensor,        # stacked [L, slots, KVH*D] (or [slots, ...])
+    v_cache: torch.Tensor,
+    batch,
+    block_size: int,
+    scale: Optional[float] = None,
+    soft_cap: Optional[float] = None,
+    backend: str = "auto",
+    layer: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,   # int8: [L, slots, SW] f32
+    v_scale: Optional[torch.Tensor] = None,
+):
+    """Write this step's K/V rows into the paged cache (in place) and
+    attend over it, for the dense (GQA) models.
+
+    Int8 caches quantize the new rows here with the scale plane's width
+    (per token or per KV head).  On the card a pure-decode batch goes to
+    kernel G, which writes the rows itself; a prefill or mixed batch
+    scatters its rows and goes to kernel H; a batch neither takes raises.
+    The full-softmax reference serves CPU tensors only.  Returns
+    ``(out, k_cache, v_cache)``, plus ``(k_scale, v_scale)`` for int8."""
+    from llm_d_tpu_torch.ops import flash_prefill, paged_attention
+    backend = resolve_backend(backend, q.device)
+    quantized = k_scale is not None
+    T, H, D = q.shape
+    F = k_cache.shape[-1]
+    k_rows = k_new.reshape(T, F)
+    v_rows = v_new.reshape(T, F)
+    k_s = v_s = None
+    if quantized:
+        sw = k_scale.shape[-1]
+        k_rows, k_s = quantize_kv_block(k_rows, sw)
+        v_rows, v_s = quantize_kv_block(v_rows, sw)
+    else:
+        k_rows = k_rows.to(k_cache.dtype)
+        v_rows = v_rows.to(v_cache.dtype)
+
+    def ret(out):
+        if quantized:
+            return out, k_cache, v_cache, k_scale, v_scale
+        return out, k_cache, v_cache
+
+    qtok_idx = batch.get("qtok_idx")
+    tsi = batch["token_seq_ids"].long()
+    # Int8 pages need block_size % 32, as the TPU kernels' int8 tiling does.
+    kernel_ok = backend == "kernel" and (not quantized
+                                         or block_size % 32 == 0)
+    if kernel_ok and soft_cap is None and decode_kernel_eligible(
+            batch, block_size, F):
+        rows = qtok_idx[:, 0].clamp(0, T - 1).long()
+        out = paged_attention.paged_attention_decode_update(
+            q[rows].contiguous(), k_rows[rows].contiguous(),
+            v_rows[rows].contiguous(), k_cache, v_cache,
+            batch["block_tables"], batch["seq_lens"],
+            block_size=block_size, num_kv_heads=F // D, scale=scale,
+            layer=layer, k_scale=k_scale, v_scale=v_scale,
+            k_scale_new=k_s[rows].contiguous() if quantized else None,
+            v_scale_new=v_s[rows].contiguous() if quantized else None)
+        return ret(out[tsi])
+
+    slot_mapping = batch["slot_mapping"]
+    write_kv(k_cache, k_rows, slot_mapping, layer=layer)
+    write_kv(v_cache, v_rows, slot_mapping, layer=layer)
+    if quantized:
+        write_scales(k_scale, k_s, slot_mapping, layer=layer)
+        write_scales(v_scale, v_s, slot_mapping, layer=layer)
+    if kernel_ok and qtok_idx is not None and qtok_idx.shape[1] > 1 \
+            and block_size % 16 == 0 and F % 128 == 0:
+        qs, q_pos = gather_per_seq_queries(q, batch["positions"], qtok_idx)
+        out_s = flash_prefill.flash_prefill_paged(
+            qs.contiguous(), q_pos.to(torch.int32).contiguous(), k_cache,
+            v_cache, batch["block_tables"], batch["seq_lens"],
+            block_size=block_size, num_kv_heads=F // D, scale=scale,
+            soft_cap=soft_cap, layer=layer, k_scale=k_scale,
+            v_scale=v_scale)
+        return ret(out_s[tsi, batch["token_qpos"].long()])
+    if q.is_cuda:
+        raise NotImplementedError(
+            "no dense attention kernel for this batch on the card "
+            f"(backend={backend!r}, block_size={block_size}, row width={F}, "
+            f"soft_cap={soft_cap}); the reference runs on CPU tensors only")
+    out = ragged_paged_attention_reference(
+        q, k_cache, v_cache, batch["token_seq_ids"], batch["positions"],
+        batch["block_tables"], batch["seq_lens"], block_size=block_size,
+        scale=scale, soft_cap=soft_cap, layer=layer, k_scale=k_scale,
+        v_scale=v_scale)
+    return ret(out)

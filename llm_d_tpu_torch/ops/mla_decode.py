@@ -31,7 +31,6 @@ from llm_d_tpu_torch.ops.quant import dequantize_kv_block
 
 _MAX_HEADS = 16
 _MAX_F = 1024
-_MAX_SMEM = 232448
 
 
 def _planes(kv_cache, kv_scale, layer):
@@ -137,7 +136,8 @@ def check_cache(check, q_like, kv_cache, kv_scale, block_size, layer):
     check(F % 16 == 0 and block_size % 16 == 0 and (F // SW) % 4 == 0,
           "tensor-core tiles need F % 16, block_size % 16, (F / SW) % 4")
     smem = _smem_bytes(F, block_size)
-    check(smem <= _MAX_SMEM, f"needs {smem} B of shared memory")
+    check(smem <= _build.MAX_SMEM_PER_BLOCK,
+          f"needs {smem} B of shared memory")
     return cache3, scale3, slots, SW, li
 
 

@@ -1,12 +1,14 @@
 """MoE ops on one device: routing, the expert FFN dispatch and the int8
 kernel glue (port of the single-device half of ``llm_d_tpu.ops.moe``).
 
-Int8 experts on the card run the hand-written kernels by token count:
+Int8 experts on the card run the hand-written kernels by token count, with
+the JAX package's knobs read at call time (malformed values fall back to
+the defaults):
 
-  T <= DENSE_INT8_MAX_T            kernel C (all experts, every token)
-  DENSE < T <= GROUPED_INT8_MIN_T  kernel D (routed rows only)
-  T >  GROUPED_INT8_MIN_T          the streamed kernel, not ported yet:
-                                   raises rather than falling back
+  T <= LLMD_MOE_DENSE_KERNEL_MAX_T (64)     kernel C (all experts)
+  T <= LLMD_MOE_GROUPED_MIN_T (512)         kernel D (routed rows only)
+  above, LLMD_MOE_PREFILL_KERNEL=grouped    kernel F (sorted, padded rows)
+  above, otherwise                          kernel E (chunk-streamed)
 
 Everything else (CPU tensors, bf16 experts) dequantizes and runs the
 plain dense / grouped paths, as the JAX package does off the TPU.
@@ -14,15 +16,17 @@ plain dense / grouped paths, as the JAX package does off the TPU.
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import torch
 
 from llm_d_tpu_torch.models.config import ModelConfig
-from llm_d_tpu_torch.ops import moe_int8, moe_routed
+from llm_d_tpu_torch.ops import moe_int8, moe_routed, moe_routed_stream
 from llm_d_tpu_torch.ops.layers import silu
 from llm_d_tpu_torch.ops.quant import dequantize
 from llm_d_tpu_torch.ops.sampling import top_k_stable
+from llm_d_tpu_torch.utils.config import env_int
 
 # Below this many tokens the all-experts dense path serves the plain path.
 DENSE_DISPATCH_MAX_T = 512
@@ -30,6 +34,9 @@ DENSE_DISPATCH_MAX_T = 512
 # crossovers are measured).
 DENSE_INT8_MAX_T = 64
 GROUPED_INT8_MIN_T = 512
+# Token-chunk height of the streamed kernel's metadata
+# (LLMD_MOE_PREFILL_CHUNK_T).
+PREFILL_CHUNK_T = 512
 
 
 def route(router_logits: torch.Tensor, config: ModelConfig,
@@ -78,56 +85,71 @@ def _combine_matrix(T: int, E: int, idx: torch.Tensor,
 
 
 def _excl_cumsum(v: torch.Tensor) -> torch.Tensor:
-    return torch.cat([v.new_zeros(1), torch.cumsum(v, 0)[:-1].to(v.dtype)])
+    """Exclusive prefix sum over the last dim."""
+    return torch.cumsum(v, -1).to(v.dtype) - v
 
 
 def _stable_argsort_bounded(keys: torch.Tensor, bound: int):
-    """Stable argsort of integer keys in [0, bound) by counting: returns
-    (order, dest, counts) -- the argsort, its inverse permutation and the
-    per-key histogram."""
-    S = keys.shape[0]
+    """Stable argsort of integer keys in [0, bound) by counting, over the
+    last dim of ``keys [..., S]``: returns (order, dest, counts) -- the
+    argsort, its inverse permutation and the per-key histogram."""
+    S = keys.shape[-1]
+    dev = keys.device
     kl = keys.long()
-    one_hot = (kl[:, None] == torch.arange(bound, device=keys.device)[None, :])
-    cum = torch.cumsum(one_hot.to(torch.int32), dim=0)
-    rank = cum[torch.arange(S, device=keys.device), kl] - 1
-    counts = cum[-1]
-    dest = _excl_cumsum(counts)[kl] + rank
-    order = torch.zeros(S, dtype=torch.int32, device=keys.device)
-    order[dest.long()] = torch.arange(S, dtype=torch.int32,
-                                      device=keys.device)
+    one_hot = kl[..., None] == torch.arange(bound, device=dev)
+    cum = torch.cumsum(one_hot.to(torch.int32), dim=-2)        # [..., S, b]
+    rank = torch.gather(cum, -1, kl[..., None])[..., 0] - 1
+    counts = cum[..., -1, :]
+    dest = torch.gather(_excl_cumsum(counts), -1, kl) + rank
+    order = torch.zeros(kl.shape, dtype=torch.int32, device=dev)
+    order.scatter_(-1, dest, torch.arange(
+        S, dtype=torch.int32, device=dev).expand(kl.shape))
     return order, dest.to(torch.int32), counts
 
 
 def _sorted_tile_layout(flat: torch.Tensor, weights_flat: torch.Tensor,
                         k: int, E: int, rt: int):
-    """Counting-sort tile layout: rows sorted by expert, each expert's run
-    padded to a multiple of ``rt``, one expert per tile.  Returns
-    ``(order, inv, tok_s, slot, wslot_pad, tile_expert, num_tiles)`` with
-    the JAX package's definitions (``S_pad = ceil(S/rt)*rt + E*rt``;
-    inactive trailing tiles repeat the last active tile's expert)."""
-    S = flat.shape[0]
+    """Counting-sort tile layout over the last dim of ``flat [..., S]``
+    (leading dims are independent layouts, e.g. the streamed kernel's
+    chunks): rows sorted by expert, each expert's run padded to a
+    multiple of ``rt``, one expert per tile.  Returns ``(order, inv,
+    tok_s, slot, wslot_pad, tile_expert, num_tiles)`` with the JAX
+    package's definitions (``S_pad = ceil(S/rt)*rt + E*rt``; inactive
+    trailing tiles repeat the last active tile's expert)."""
+    S = flat.shape[-1]
     dev = flat.device
     order, inv, counts = _stable_argsort_bounded(flat, E)
     ol = order.long()
-    eid_s = flat.long()[ol]
+    eid_s = torch.gather(flat.long(), -1, ol)
     tok_s = (order // k).to(torch.int32)
     padded = (counts + rt - 1) // rt * rt
     offs = _excl_cumsum(padded)
     rank = torch.arange(S, dtype=torch.int32, device=dev) \
-        - _excl_cumsum(counts)[eid_s]
-    slot = (offs[eid_s] + rank).to(torch.int32)
+        - torch.gather(_excl_cumsum(counts), -1, eid_s)
+    slot = (torch.gather(offs, -1, eid_s) + rank).to(torch.int32)
     S_pad = -(-S // rt) * rt + E * rt
     NT = S_pad // rt
-    wslot_pad = torch.zeros(S_pad, dtype=torch.float32, device=dev)
-    wslot_pad[slot.long()] = weights_flat.float()[ol]
-    num_tiles = (padded.sum() // rt).to(torch.int32)
-    bounds = torch.cumsum(padded, 0)
-    starts = torch.minimum(torch.arange(NT, dtype=torch.int32, device=dev),
-                           num_tiles - 1) * rt
+    wslot_pad = torch.zeros(flat.shape[:-1] + (S_pad,), dtype=torch.float32,
+                            device=dev)
+    wslot_pad.scatter_(-1, slot.long(),
+                       torch.gather(weights_flat.float(), -1, ol))
+    num_tiles = (padded.sum(-1) // rt).to(torch.int32)
+    bounds = torch.cumsum(padded, -1).to(torch.int64).contiguous()
+    starts = torch.minimum(torch.arange(NT, dtype=torch.int64, device=dev),
+                           num_tiles[..., None].long() - 1) * rt
     tile_expert = torch.clamp_max(
-        torch.searchsorted(bounds.to(torch.int64), starts.to(torch.int64),
-                           right=True), E - 1).to(torch.int32)
+        torch.searchsorted(bounds, starts.contiguous(), right=True),
+        E - 1).to(torch.int32)
     return order, inv, tok_s, slot, wslot_pad, tile_expert, num_tiles
+
+
+def _routed_row_tile(row_tile: Optional[int], S: int, E: int) -> int:
+    """An explicit tile, else ``LLMD_MOE_ROUTED_ROW_TILE``, else 32 rows
+    while the mean rows per expert stay under 96, then 64."""
+    if row_tile is not None:
+        return row_tile
+    return env_int("LLMD_MOE_ROUTED_ROW_TILE", 0) \
+        or (32 if S < E * 96 else 64)
 
 
 def _routed_int8_kernel_path(x, weights, idx, quant: dict,
@@ -138,7 +160,7 @@ def _routed_int8_kernel_path(x, weights, idx, quant: dict,
     k = idx.shape[1]
     E = quant["w_gate_q"].shape[1]
     S = T * k
-    rt = row_tile or (32 if S < E * 96 else 64)
+    rt = _routed_row_tile(row_tile, S, E)
     order, inv, tok_s, slot, wslot_pad, tile_expert, num_tiles = \
         _sorted_tile_layout(idx.reshape(S), weights.reshape(S), k, E, rt)
     tok_pad = torch.zeros(wslot_pad.shape[0], dtype=torch.int32,
@@ -151,6 +173,82 @@ def _routed_int8_kernel_path(x, weights, idx, quant: dict,
         quant["w_gate_q"], quant["w_gate_s"], quant["w_up_q"],
         quant["w_up_s"], quant["w_down_q"], quant["w_down_s"], row_tile=rt)
     return out.to(x.dtype)
+
+
+def _streamed_int8_kernel_path(x, weights, idx, quant: dict,
+                               chunk_t: Optional[int] = None,
+                               row_tile: Optional[int] = None,
+                               out_dtype=None):
+    """Metadata-only glue for kernel E: one counting sort per token-order
+    chunk of ``chunk_t`` rows (batched over the chunks), flattened to the
+    TPU kernel's ``[C * S_pad_c]`` / ``[C * NT_c]`` / ``[C]`` tables, plus
+    each (token, choice)'s global padded slot for the combine."""
+    T, H = x.shape
+    k = idx.shape[1]
+    E = quant["w_gate_q"].shape[1]
+    if chunk_t is None:
+        chunk_t = env_int("LLMD_MOE_PREFILL_CHUNK_T", PREFILL_CHUNK_T)
+    # Multiples of 16 rows, never taller than the (aligned) batch.
+    chunk_t = max(16, min(-(-chunk_t // 16) * 16, -(-T // 16) * 16))
+    C = -(-T // chunk_t)
+    Tp = C * chunk_t
+    S_c = chunk_t * k
+    rt = _routed_row_tile(row_tile, S_c, E)
+    x_p = x.to(torch.bfloat16)
+    if Tp != T:
+        # Pad tokens route to expert 0 with zero combine weight (and zero
+        # rows): they take slots in the last chunk but add nothing.
+        pad = Tp - T
+        x_p = torch.nn.functional.pad(x_p, (0, 0, 0, pad))
+        idx = torch.nn.functional.pad(idx, (0, 0, 0, pad))
+        weights = torch.nn.functional.pad(weights, (0, 0, 0, pad))
+    _, inv, tok_s, slot, wslot_pad, tile_expert, num_tiles = \
+        _sorted_tile_layout(idx.reshape(C, S_c), weights.reshape(C, S_c),
+                            k, E, rt)
+    S_pad_c = wslot_pad.shape[1]
+    tok_pad = torch.zeros((C, S_pad_c), dtype=torch.int32, device=x.device)
+    tok_pad.scatter_(1, slot.long(), tok_s)
+    chunk_base = torch.arange(C, dtype=torch.int32,
+                              device=x.device)[:, None] * S_pad_c
+    pos = (torch.gather(slot, 1, inv.long()) + chunk_base).reshape(Tp, k)
+    out = moe_routed_stream.streamed_moe_int8(
+        x_p.contiguous(), tok_pad.reshape(-1), wslot_pad.reshape(-1),
+        tile_expert.reshape(-1), num_tiles.contiguous(), pos.contiguous(),
+        quant["layer"], quant["w_gate_q"], quant["w_gate_s"],
+        quant["w_up_q"], quant["w_up_s"], quant["w_down_q"],
+        quant["w_down_s"], chunk_t=chunk_t, row_tile=rt)
+    return out[:T].to(out_dtype or x.dtype)
+
+
+def _grouped_int8_kernel_path(x, weights, idx, quant: dict,
+                              row_tile: Optional[int] = None):
+    """Sort/pad glue for kernel F: rows sorted by expert, each expert's
+    run padded to a ``row_tile`` multiple, gathered (never scattered)
+    from ``x`` plus a trailing zero row; the kernel's combine-weighted
+    bf16 rows come back to tokens through :func:`_unsort_combine`."""
+    T, H = x.shape
+    k = idx.shape[1]
+    E = quant["w_gate_q"].shape[1]
+    S = T * k
+    if row_tile is None:
+        rt = 128 if S < E * 256 else 256
+    else:
+        rt = row_tile
+    order, sort_inv, tok_s, dest, wslot_pad, tile_expert, num_tiles = \
+        _sorted_tile_layout(idx.reshape(S), weights.reshape(S), k, E, rt)
+    S_pad = wslot_pad.shape[0]
+    src = torch.full((S_pad,), T, dtype=torch.int32, device=x.device)
+    src[dest.long()] = tok_s
+    x_ext = torch.cat([x.to(torch.bfloat16),
+                       x.new_zeros((1, H), dtype=torch.bfloat16)])
+    x_pad = x_ext[src.long()]
+    y_pad = moe_int8.grouped_moe_int8(
+        x_pad, wslot_pad, tile_expert, num_tiles.reshape(1),
+        quant["layer"], quant["w_gate_q"], quant["w_gate_s"],
+        quant["w_up_q"], quant["w_up_s"], quant["w_down_q"],
+        quant["w_down_s"], row_tile=rt)
+    return _unsort_combine(y_pad, order, T, k, dest=dest,
+                           inv=sort_inv).to(x.dtype)
 
 
 def _dense_int8_kernel_path(x, weights, idx, quant: dict):
@@ -210,14 +308,18 @@ def _swiglu_grouped(xs, w_gate, w_up, w_down, group_sizes):
 
 
 def _unsort_combine(y: torch.Tensor, order: torch.Tensor, T: int, k: int,
+                    dest: Optional[torch.Tensor] = None,
                     inv: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Sorted, combine-weighted rows back to tokens, summing each token's
-    k rows in f32."""
+    k rows in f32.  ``y`` is in ``order``'s sorted layout, or, with
+    ``dest``, in a padded layout where sorted row ``s`` lives at
+    ``dest[s]`` (kernel F's layout)."""
     S = T * k
     if inv is None:
         inv = torch.zeros(S, dtype=torch.long, device=y.device)
         inv[order.long()] = torch.arange(S, device=y.device)
-    contrib = y[inv.long()].float()
+    src = inv.long() if dest is None else dest.long()[inv.long()]
+    contrib = y[src].float()
     return contrib.reshape(T, k, -1).sum(dim=1)
 
 
@@ -241,6 +343,19 @@ def _local_expert_ffn(x, weights, idx, w_gate, w_up, w_down,
     return _unsort_combine(y * wslot, order, T, k, inv=inv)
 
 
+def int8_kernel_regime(T: int) -> str:
+    """Which int8 kernel serves a step of ``T`` tokens: "dense" (C),
+    "routed" (D), "grouped" (F) or "streamed" (E), by the JAX package's
+    rules and knobs, read at call time."""
+    if T <= env_int("LLMD_MOE_DENSE_KERNEL_MAX_T", DENSE_INT8_MAX_T):
+        return "dense"
+    if T <= env_int("LLMD_MOE_GROUPED_MIN_T", GROUPED_INT8_MIN_T):
+        return "routed"
+    if os.environ.get("LLMD_MOE_PREFILL_KERNEL", "streamed") == "grouped":
+        return "grouped"
+    return "streamed"
+
+
 def expert_ffn(x: torch.Tensor, weights: torch.Tensor, idx: torch.Tensor,
                w_gate: Optional[torch.Tensor], w_up: Optional[torch.Tensor],
                w_down: Optional[torch.Tensor],
@@ -249,17 +364,14 @@ def expert_ffn(x: torch.Tensor, weights: torch.Tensor, idx: torch.Tensor,
 
     ``quant`` carries stacked int8 payloads ``{w_gate_q, w_gate_s, ...}``
     plus the MoE ``layer`` plane; on the card they go straight to kernels
-    C / D without a dequantized copy."""
+    C-F (:func:`int8_kernel_regime`) without a dequantized copy."""
     T = x.shape[0]
     if quant is not None and x.is_cuda:
-        if T <= DENSE_INT8_MAX_T:
-            return _dense_int8_kernel_path(x, weights, idx, quant)
-        if T <= GROUPED_INT8_MIN_T:
-            return _routed_int8_kernel_path(x, weights, idx, quant)
-        raise NotImplementedError(
-            f"int8 experts at T={T} > {GROUPED_INT8_MIN_T} tokens need the "
-            "streamed_moe_int8 kernel, which is not ported yet; cap "
-            f"max_num_batched_tokens at {GROUPED_INT8_MIN_T}")
+        path = {"dense": _dense_int8_kernel_path,
+                "routed": _routed_int8_kernel_path,
+                "grouped": _grouped_int8_kernel_path,
+                "streamed": _streamed_int8_kernel_path}[int8_kernel_regime(T)]
+        return path(x, weights, idx, quant)
     if quant is not None:
         w_gate, w_up, w_down = _dequant_layer(quant)
     if T <= DENSE_DISPATCH_MAX_T:

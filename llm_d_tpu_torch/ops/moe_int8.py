@@ -1,8 +1,8 @@
-"""Kernel C: all-experts int8 MoE FFN for small batches (T <= 64).
+"""Kernels C and F, the int8 MoE FFNs of ``llm_d_tpu/ops/pallas/moe_int8.py``.
 
-Replaces the TPU kernel ``llm_d_tpu/ops/pallas/moe_int8.py``
-``dense_moe_int8``.  CUDA source: ``csrc/moe_dense_int8.cu`` (tile GEMM
-in ``csrc/common.cuh``).
+Kernel C: all-experts int8 MoE FFN for small batches (T <= 64).  Replaces
+the TPU kernel ``dense_moe_int8``.  CUDA source: ``csrc/moe_dense_int8.cu``
+(tile GEMM in ``csrc/common.cuh``).
 
 What bounds it on the H100: bytes -- every expert's int8 weights (3*H*I
 bytes each, all E experts per layer) stream once for at most 64 tokens.
@@ -12,9 +12,18 @@ block per 64-column tile x expert group), keeps the int8 -> f32 convert
 in shared memory next to the dot, applies the per-column scale to the f32
 result, and sums experts in a fixed order (no atomics).
 
-``dense_moe_int8_plain`` is the plain PyTorch version of the same
-function (CPU tests, and the reference ``chip_smoke.py`` holds the kernel
-to).
+Kernel F: grouped int8 MoE FFN over rows sorted by expert and padded to
+the row tile, the ``LLMD_MOE_PREFILL_KERNEL=grouped`` lever above 512
+tokens.  Replaces the TPU kernel ``grouped_moe_int8``.  CUDA source:
+``csrc/moe_grouped_int8.cu``.  What bounds it on the H100: operations
+(6*H*I flops per padded row).  The rows arrive contiguous, so the design
+needs no gather; consecutive tiles of one expert reuse its weights from
+L2, and tiles past the populated count write zeros without reading any
+weight.
+
+``dense_moe_int8_plain`` and ``grouped_moe_int8_plain`` are the plain
+PyTorch versions of the same functions (CPU tests, and the reference
+``chip_smoke.py`` holds the kernels to).
 """
 
 from __future__ import annotations
@@ -42,7 +51,34 @@ def dense_moe_int8_plain(x, comb, layer: int, w_gate_q, w_gate_s, w_up_q,
     return y.sum(dim=0)
 
 
+def grouped_moe_int8_plain(x_pad, wslot_pad, tile_expert, num_tiles,
+                           layer: int, w_gate_q, w_gate_s, w_up_q, w_up_s,
+                           w_down_q, w_down_s, row_tile: int) -> torch.Tensor:
+    """x_pad [S_pad, H] bf16 rows sorted by expert, wslot_pad [S_pad] f32,
+    tile_expert [S_pad / row_tile], num_tiles [1] -> [S_pad, H] bf16:
+    ``bf16(bf16(silu(x Wg sg) (x Wu su) wslot) Wd sd)`` per row of a
+    populated tile, zeros past them.  Rows are independent, so the tiles
+    are evaluated one expert at a time."""
+    li = int(layer)
+    rt = row_tile
+    S_pad, H = x_pad.shape
+    y = torch.zeros((S_pad, H), dtype=torch.bfloat16, device=x_pad.device)
+    n_live = int(num_tiles.reshape(-1)[0]) * rt
+    row_expert = tile_expert.long().repeat_interleave(rt)[:n_live]
+    for e in torch.unique(row_expert).tolist():
+        sel = torch.nonzero(row_expert == e).reshape(-1)
+        xg = x_pad[sel].float()
+        h = (xg @ w_gate_q[li, e].float()) * w_gate_s[li, e]
+        u = (xg @ w_up_q[li, e].float()) * w_up_s[li, e]
+        a = (silu(h) * u * wslot_pad[sel, None]).to(torch.bfloat16).float()
+        y[sel] = ((a @ w_down_q[li, e].float()) * w_down_s[li, e]).to(
+            torch.bfloat16)
+    return y
+
+
 _ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_GROUPED_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 \
+    + [ctypes.c_void_p]
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -107,3 +143,50 @@ def dense_moe_int8(x, comb, layer: int, w_gate_q, w_gate_s, w_up_q, w_up_s,
 
 
 dense_moe_int8.launches = 0
+
+
+def _grouped_check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"grouped_moe_int8: {msg}")
+
+
+def grouped_moe_int8(x_pad, wslot_pad, tile_expert, num_tiles, layer: int,
+                     w_gate_q, w_gate_s, w_up_q, w_up_s, w_down_q, w_down_s,
+                     row_tile: int) -> torch.Tensor:
+    """[S_pad, H] bf16 combine-weighted rows.  CPU tensors run
+    :func:`grouped_moe_int8_plain`; CUDA tensors launch the kernel or
+    raise."""
+    if not x_pad.is_cuda:
+        return grouped_moe_int8_plain(
+            x_pad, wslot_pad, tile_expert, num_tiles, layer, w_gate_q,
+            w_gate_s, w_up_q, w_up_s, w_down_q, w_down_s, row_tile)
+    li = int(layer)
+    check = _grouped_check
+    Lm, E, H, I = check_int8_experts(check, x_pad, w_gate_q, w_gate_s,
+                                     w_up_q, w_up_s, w_down_q, w_down_s, li)
+    S_pad = x_pad.shape[0]
+    rt = row_tile
+    check(rt % 16 == 0 and S_pad % rt == 0,
+          f"row_tile {rt} must be a multiple of 16 dividing S_pad={S_pad}")
+    tm = next(t for t in (64, 32, 16) if rt % t == 0)
+    check(wslot_pad.dtype == torch.float32 and wslot_pad.shape == (S_pad,)
+          and tile_expert.dtype == num_tiles.dtype == torch.int32
+          and tile_expert.shape == (S_pad // rt,) and num_tiles.numel() == 1,
+          "metadata must be f32 [S_pad] / int32 [S_pad / rt] / int32 [1]")
+    for t in (wslot_pad, tile_expert, num_tiles):
+        check(t.device == x_pad.device and t.is_contiguous(),
+              "metadata must be contiguous and on x's device")
+    act = torch.empty((S_pad, I), dtype=torch.bfloat16, device=x_pad.device)
+    y = torch.empty((S_pad, H), dtype=torch.bfloat16, device=x_pad.device)
+    _build.launch(
+        "moe_grouped_int8.cu", "llmd_moe_grouped_int8", _GROUPED_ARGTYPES,
+        x_pad.data_ptr(), wslot_pad.data_ptr(), tile_expert.data_ptr(),
+        num_tiles.data_ptr(), w_gate_q.data_ptr(), w_up_q.data_ptr(),
+        w_down_q.data_ptr(), w_gate_s.data_ptr(), w_up_s.data_ptr(),
+        w_down_s.data_ptr(), act.data_ptr(), y.data_ptr(), S_pad, rt, E, H,
+        I, li, tm, _build.stream_ptr(x_pad.device))
+    grouped_moe_int8.launches += 1
+    return y
+
+
+grouped_moe_int8.launches = 0

@@ -12,7 +12,12 @@ the package's isolation from JAX.
   (the kernels' plain versions on CPU tensors) q * scale and p are also
   rounded to bf16 before the attention dots, as the TPU kernels do, which
   the JAX CPU path does not: atol = rtol = 6e-2 there.
-* ``EngineCore.generate`` greedy tokens identical to the JAX EngineCore.
+* ``models.llama.forward`` (bf16 and int8 caches) the same way, for
+  ``tiny`` and a narrowed ``llama3-1b`` (32 heads, 8 KV heads, D = 64).
+* ``EngineCore.generate`` greedy tokens identical to the JAX EngineCore:
+  tiny-mla with int8 experts (at steps of up to 128 and of 1024 tokens)
+  and tiny with a bf16, int8-per-token and int8-per-head cache.
+* ``params_from_numpy`` carries the dense tree bit for bit.
 * No module of the port, and not chip_smoke.py, imports jax or the JAX
   package; the engine raises instead of serving on a GPU-less box.
 
@@ -35,6 +40,7 @@ from llm_d_tpu.engine.engine import EngineConfig as JEngineConfig
 from llm_d_tpu.engine.engine import EngineCore as JEngineCore
 from llm_d_tpu.engine import engine as JEngine
 from llm_d_tpu.engine.request import Request as JRequest
+from llm_d_tpu.models import llama as JLlama
 from llm_d_tpu.models import moe as JMoE
 from llm_d_tpu.models.config import get_config as jget_config
 from llm_d_tpu.ops.quant import quantize_moe_experts as jquantize
@@ -42,6 +48,7 @@ from llm_d_tpu.ops.sampling import SamplingParams as JSamplingParams
 from llm_d_tpu_torch.engine import EngineConfig, EngineCore
 from llm_d_tpu_torch.engine import engine as TEngine
 from llm_d_tpu_torch.engine.request import Request
+from llm_d_tpu_torch.models import llama as TLlama
 from llm_d_tpu_torch.models import moe as TMoE
 from llm_d_tpu_torch.models.config import get_config as tget_config
 from llm_d_tpu_torch.models.convert import params_from_numpy
@@ -134,6 +141,155 @@ def test_generate_token_identical_to_jax_engine():
         temperature=0.0, max_tokens=16, ignore_eos=True))
         for i, p in enumerate(prompts)])
     assert got == want
+
+
+def _narrow_llama():
+    over = dict(num_layers=2, hidden_size=256, vocab_size=1024,
+                intermediate_size=512, max_model_len=512)
+    return (dataclasses.replace(jget_config("llama3-1b"), **over),
+            dataclasses.replace(tget_config("llama3-1b"), **over))
+
+
+@pytest.mark.parametrize("name,kv", [("tiny", "bf16"), ("tiny", "int8"),
+                                     ("llama3-1b-narrow", "bf16"),
+                                     ("llama3-1b-narrow", "int8")])
+def test_llama_forward_matches_jax(name, kv):
+    """Dense family: prefill of three sequences, then one decode step,
+    against the JAX forward on its CPU path, weights through
+    ``params_from_numpy``.  The narrowed llama3-1b keeps 32 heads, 8 KV
+    heads and D = 64 (row width 512), so its kernel path runs the plain
+    versions of kernels H and G.  atol = rtol = 2e-2 on the final hidden
+    states for the reference path (one bf16 ulp where XLA fuses a round
+    trip away, as for the MoE forward), 6e-2 for the kernel path (q *
+    scale and p rounded to bf16 before the dots, as the TPU kernels do)."""
+    if name == "tiny":
+        jc, tc, bs = jget_config("tiny"), tget_config("tiny"), 32
+    else:
+        (jc, tc), bs = _narrow_llama(), 64
+    jparams = JLlama.init_params(jc, jax.random.PRNGKey(0))
+    tree = jax.tree.map(np.asarray, jparams)
+    engines = {}
+    for backend in ("reference", "kernel"):
+        eng = EngineCore(EngineConfig(
+            model_config=tc, block_size=bs, num_blocks=16, max_num_seqs=4,
+            max_num_batched_tokens=128, kv_cache_dtype=kv,
+            kv_scale_granularity="head" if kv == "int8" else None,
+            enable_prefix_caching=False, attn_backend=backend,
+            device="cpu"), params=params_from_numpy(tree, "cpu"))
+        rng = np.random.default_rng(1)
+        for i, n in enumerate((5, 40, 17)):
+            eng.add_request(Request(f"r{i}", rng.integers(
+                1, tc.vocab_size, n).tolist(), SamplingParams(
+                    temperature=0.0, max_tokens=4, ignore_eos=True)))
+        engines[backend] = eng
+    ref = engines["reference"]
+    jcache = {k: jnp.zeros(v.shape, jnp.int8 if v.dtype == torch.int8
+                           else (jnp.bfloat16 if v.dtype == torch.bfloat16
+                                 else jnp.float32))
+              for k, v in ref.kv_cache.items()}
+    jfwd = jax.jit(lambda p, kv_, b: JLlama.forward(p, kv_, b, jc, bs,
+                                                    "auto"))
+    for _ in range(2):                        # prefill, then one decode
+        steps = {be: e.scheduler.schedule() for be, e in engines.items()}
+        batch, _ = ref._build_batch(steps["reference"])
+        want, jcache = jfwd(jparams, jcache,
+                            {k: jnp.asarray(v.numpy())
+                             for k, v in batch.items()})
+        S = len(steps["reference"].scheduled)
+        toks = np.asarray(JLlama.compute_logits(jparams, want, jc)).argmax(-1)
+        for backend, eng in engines.items():
+            b, _ = eng._build_batch(steps[backend])
+            got = TLlama.forward(eng.params, eng.kv_cache, b, tc, bs, backend)
+            np.testing.assert_allclose(
+                got.float().numpy()[:S], np.asarray(want, np.float32)[:S],
+                **(TOL if backend == "reference" else TOL_KERNEL))
+            for sr, tok in zip(steps[backend].scheduled, toks[:S].tolist()):
+                sr.request.num_computed_tokens += sr.num_new_tokens
+                sr.request.output_token_ids.append(tok)
+
+
+@pytest.mark.parametrize("kv,gran", [("bf16", None), ("int8", "token"),
+                                     ("int8", "head")])
+def test_llama_generate_token_identical_to_jax_engine(kv, gran):
+    """tiny (dense), block 32: three requests, sixteen greedy tokens each,
+    token for token, in every cache mode."""
+    kw = dict(model="tiny", block_size=32, num_blocks=64, max_num_seqs=8,
+              max_num_batched_tokens=128, kv_cache_dtype=kv,
+              kv_scale_granularity=gran, enable_prefix_caching=False)
+    jeng = JEngineCore(JEngineConfig(**kw))
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, 512, size=n).tolist() for n in (5, 40, 17)]
+    want = jeng.generate([JRequest(f"r{i}", p, JSamplingParams(
+        temperature=0.0, max_tokens=16, ignore_eos=True))
+        for i, p in enumerate(prompts)])
+    teng = EngineCore(EngineConfig(device="cpu", **kw),
+                      params=params_from_numpy(
+                          jax.tree.map(np.asarray, jeng.params), "cpu"))
+    assert teng.kv_scale_width == jeng.kv_scale_width
+    got = teng.generate([Request(f"r{i}", p, SamplingParams(
+        temperature=0.0, max_tokens=16, ignore_eos=True))
+        for i, p in enumerate(prompts)])
+    assert got == want
+
+
+def test_int8_engine_steps_past_512_tokens_matches_jax(monkeypatch):
+    """tiny-mla with int8 experts and 1024-token steps: two prompts of 300
+    and 400 tokens are prefilled in one 1024-token step (above the 512
+    tokens slice 1 allowed; on CPU tensors the experts run dequantized, as
+    the JAX package's CPU path runs them) and the greedy tokens match the
+    JAX engine."""
+    kw = dict(model="tiny-mla", block_size=32, num_blocks=64,
+              max_num_seqs=4, max_num_batched_tokens=1024,
+              quantization="int8", kv_cache_dtype="int8",
+              enable_prefix_caching=False)
+    jeng = JEngineCore(JEngineConfig(**kw))
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, 512, size=n).tolist() for n in (300, 400)]
+    want = jeng.generate([JRequest(f"r{i}", p, JSamplingParams(
+        temperature=0.0, max_tokens=4, ignore_eos=True))
+        for i, p in enumerate(prompts)])
+    teng = EngineCore(EngineConfig(device="cpu", **kw),
+                      params=params_from_numpy(
+                          jax.tree.map(np.asarray, jeng.params), "cpu"))
+    seen = []
+    real = TMoE.forward
+
+    def forward(params, kv, batch, *a):
+        seen.append(batch["token_ids"].shape[0])
+        return real(params, kv, batch, *a)
+
+    monkeypatch.setattr(TMoE, "forward", forward)
+    got = teng.generate([Request(f"r{i}", p, SamplingParams(
+        temperature=0.0, max_tokens=4, ignore_eos=True))
+        for i, p in enumerate(prompts)])
+    assert max(seen) > 512
+    assert got == want
+
+
+@pytest.mark.parametrize("name", ["tiny", "qwen3-0.6b"])
+def test_params_from_numpy_carries_the_llama_tree(name):
+    """The dense tree crosses whole and bit-identical; tied embeddings
+    (qwen3-0.6b) carry no lm_head, untied ones (tiny) do."""
+    over = dict(num_layers=1, vocab_size=64, hidden_size=32,
+                intermediate_size=64, num_heads=4, num_kv_heads=2,
+                head_dim=8)
+    c = dataclasses.replace(jget_config(name), **over)
+    tree = jax.tree.map(np.asarray,
+                        JLlama.init_params(c, jax.random.PRNGKey(4)))
+    got = params_from_numpy(tree, "cpu")
+    assert ("lm_head" in got) == (not c.tie_word_embeddings)
+    flat_t = dict(jax.tree_util.tree_flatten_with_path(got)[0])
+    flat_j = dict(jax.tree_util.tree_flatten_with_path(tree)[0])
+    assert flat_t.keys() == flat_j.keys()
+    for path, arr in flat_j.items():
+        t = flat_t[path]
+        assert tuple(t.shape) == arr.shape
+        np.testing.assert_array_equal(t.float().numpy(),
+                                      arr.astype(np.float32))
+    tc = dataclasses.replace(tget_config(name), **over)
+    shapes = jax.tree.map(lambda a: a.shape, tree)
+    mine = TLlama.init_params(tc, torch.Generator().manual_seed(0), "cpu")
+    assert jax.tree.map(lambda t: tuple(t.shape), mine) == shapes
 
 
 def _imports(path: pathlib.Path):

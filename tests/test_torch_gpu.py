@@ -6,10 +6,11 @@ that has only PyTorch and the CUDA toolkit:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
-Tolerances: attention kernels atol = rtol = 2e-2 against the plain
-version (same bf16 rounding points, other summation order); the decode
-splice leaves cache and scale planes identical; MoE kernels max error /
-max |output| <= 1e-2 (tests/test_moe_int8_kernel.py's rule).
+Tolerances: attention kernels (MLA A/B, dense G/H) atol = rtol = 2e-2
+against the plain version (same bf16 rounding points, other summation
+order); the decode splices leave cache and scale planes identical; MoE
+kernels (C-F) max error / max |output| <= 1e-2
+(tests/test_moe_int8_kernel.py's rule).
 """
 
 import dataclasses
@@ -165,21 +166,186 @@ def test_routed_moe_kernel(dev, T, rt):
     assert _scaled_err(got, want) <= 1e-2
 
 
-def test_int8_engine_rejects_steps_above_512_tokens(dev):
-    with pytest.raises(ValueError, match="streamed_moe_int8"):
-        EngineCore(EngineConfig(model="tiny-mla", quantization="int8",
-                                max_num_batched_tokens=1024, device="cuda"))
+def _spy(monkeypatch, module, name):
+    """Replace ``module.name`` by a wrapper that records its last call."""
+    real = getattr(module, name)
+    seen = {}
+
+    def wrapped(*args, **kw):
+        seen["args"], seen["kw"] = args, kw
+        seen["out"] = real(*args, **kw)
+        return seen["out"]
+
+    wrapped.launches = 0
+    monkeypatch.setattr(module, name, wrapped)
+    return seen
 
 
-def test_expert_ffn_above_512_tokens_raises_on_the_card(dev):
+@pytest.mark.parametrize("T,chunk_t,rt", [(600, 512, 32), (1024, 1024, 64),
+                                          (2000, 256, 16)])
+def test_streamed_moe_kernel(dev, monkeypatch, T, chunk_t, rt):
+    """Kernel E through its glue (C = 2, 1 and 8 chunks) against its plain
+    version on the same metadata."""
+    from llm_d_tpu_torch.ops import moe_routed_stream
     g = _gen(5, dev)
-    quant = _quant(g, dev, 1, 4, 64, 64)
+    E, H, I, k = 64, 2048, 512, 8
+    quant = _quant(g, dev, 2, E, H, I)
+    quant["layer"] = 1
+    x = torch.randn((T, H), generator=g, device=dev).bfloat16()
+    w, idx = _routing(g, dev, T, E, k)
+    seen = _spy(monkeypatch, moe_routed_stream, "streamed_moe_int8")
+    got = M._streamed_int8_kernel_path(x, w, idx, quant, chunk_t=chunk_t,
+                                       row_tile=rt)
+    want = moe_routed_stream.streamed_moe_int8_plain(*seen["args"],
+                                                     **seen["kw"])
+    assert _scaled_err(seen["out"], want) <= 1e-2
+    assert got.shape == (T, H) and torch.isfinite(got.float()).all()
+
+
+@pytest.mark.parametrize("T,rt", [(600, 128), (2048, 256)])
+def test_grouped_moe_kernel(dev, monkeypatch, T, rt):
+    """Kernel F through its glue against its plain version on the same
+    sorted, padded rows (the padded tail must come back zero)."""
+    from llm_d_tpu_torch.ops import moe_int8
+    g = _gen(6, dev)
+    E, H, I, k = 64, 2048, 512, 8
+    quant = _quant(g, dev, 1, E, H, I)
     quant["layer"] = 0
-    x = torch.randn((513, 64), generator=g, device=dev).bfloat16()
-    idx = torch.zeros((513, 2), dtype=torch.int32, device=dev)
-    w = torch.ones((513, 2), device=dev)
-    with pytest.raises(NotImplementedError, match="streamed_moe_int8"):
-        M.expert_ffn(x, w, idx, None, None, None, quant=quant)
+    x = torch.randn((T, H), generator=g, device=dev).bfloat16()
+    w, idx = _routing(g, dev, T, E, k)
+    seen = _spy(monkeypatch, moe_int8, "grouped_moe_int8")
+    M._grouped_int8_kernel_path(x, w, idx, quant, row_tile=rt)
+    want = moe_int8.grouped_moe_int8_plain(*seen["args"], **seen["kw"])
+    assert _scaled_err(seen["out"], want) <= 1e-2
+    n_live = int(seen["args"][3]) * rt
+    assert torch.all(seen["out"][n_live:] == 0)
+
+
+@pytest.mark.parametrize("prefill_kernel,fn", [
+    ("streamed", "moe_routed_stream.streamed_moe_int8"),
+    ("grouped", "moe_int8.grouped_moe_int8")])
+def test_expert_ffn_above_512_tokens_launches_kernel(dev, monkeypatch,
+                                                     prefill_kernel, fn):
+    """T > 512 on the card goes to kernel E, or to F under
+    LLMD_MOE_PREFILL_KERNEL=grouped, and agrees with the plain path."""
+    import importlib
+    monkeypatch.setenv("LLMD_MOE_PREFILL_KERNEL", prefill_kernel)
+    mod_name, name = fn.split(".")
+    mod = importlib.import_module(f"llm_d_tpu_torch.ops.{mod_name}")
+    g = _gen(7, dev)
+    E, H, I, k, T = 64, 2048, 512, 8, 513
+    quant = _quant(g, dev, 1, E, H, I)
+    quant["layer"] = 0
+    x = torch.randn((T, H), generator=g, device=dev).bfloat16()
+    w, idx = _routing(g, dev, T, E, k)
+    before = getattr(mod, name).launches
+    got = M.expert_ffn(x, w, idx, None, None, None, quant=quant)
+    assert getattr(mod, name).launches == before + 1
+    want = M._dense_expert_ffn(x, w, idx, *M._dequant_layer(quant))
+    assert _scaled_err(got, want) <= 1e-2
+
+
+def _dense_cache(g, dev, L, slots, F, sw):
+    """bf16 K and V caches, or int8 ones with ``sw`` scale columns."""
+    out = []
+    for _ in range(2):
+        rows = torch.randn((L, slots, F), generator=g, device=dev).bfloat16()
+        out.append((rows, None) if sw == 0 else quantize_kv_block(rows, sw))
+    return out
+
+
+@pytest.mark.parametrize("H,KVH,D,bs,sw", [
+    (32, 8, 64, 64, 0), (32, 8, 64, 64, 1), (32, 8, 64, 64, 8),
+    (8, 2, 64, 32, 2), (8, 4, 128, 16, 0)])
+def test_paged_decode_kernel(dev, H, KVH, D, bs, sw):
+    """Kernel G: output within tolerance, and the K/V cache and scale
+    planes identical to the plain version's after the in-place splice."""
+    from llm_d_tpu_torch.ops import paged_attention as PA
+    g = _gen(8, dev)
+    seq_lens = [1, bs // 2, bs, bs + 3, 3 * bs, 0, 0]
+    S, L, layer, F = len(seq_lens), 3, 1, KVH * D
+    nblk = S * 4 + 1
+    (kc, ks), (vc, vs) = _dense_cache(g, dev, L, nblk * bs, F, sw)
+    bt = _tables(g, dev, seq_lens, bs, nblk)
+    lens = torch.tensor(seq_lens, dtype=torch.int32, device=dev)
+    q = torch.randn((S, H, D), generator=g, device=dev).bfloat16()
+    kn = torch.randn((S, F), generator=g, device=dev).bfloat16()
+    vn = torch.randn((S, F), generator=g, device=dev).bfloat16()
+    kns = vns = None
+    if sw:
+        kn, kns = quantize_kv_block(kn, sw)
+        vn, vns = quantize_kv_block(vn, sw)
+    outs, planes = [], []
+    for fn in (PA.paged_attention_decode_update,
+               PA.paged_attention_decode_update_plain):
+        c = [t.clone() if t is not None else None for t in (kc, vc, ks, vs)]
+        outs.append(fn(q, kn, vn, c[0], c[1], bt, lens, bs, KVH, scale=0.1,
+                       layer=layer, k_scale=c[2], v_scale=c[3],
+                       k_scale_new=kns, v_scale_new=vns))
+        planes.append(c)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(outs[0].float(), outs[1].float(), **TOL)
+    assert torch.all(outs[0][lens == 0] == 0)
+    for a, b in zip(*planes):
+        assert a is None or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("H,KVH,D,bs,sw,soft_cap", [
+    (32, 8, 64, 64, 0, None), (32, 8, 64, 64, 1, None),
+    (32, 8, 64, 64, 8, 30.0), (8, 2, 64, 32, 0, 5.0),
+    (8, 4, 128, 16, 4, None)])
+def test_flash_prefill_kernel(dev, H, KVH, D, bs, sw, soft_cap):
+    """Kernel H: causal prefill with pad rows, a pad sequence, a stacked
+    layer index and (where given) soft_cap, against its plain version."""
+    from llm_d_tpu_torch.ops import flash_prefill as FP
+    g = _gen(9, dev)
+    Q, L, layer, F = 48, 2, 1, KVH * D
+    seq_lens = [Q, bs + 9, 3 * bs, 0]
+    S = len(seq_lens)
+    nblk = S * 4 + 1
+    (kc, ks), (vc, vs) = _dense_cache(g, dev, L, nblk * bs, F, sw)
+    bt = _tables(g, dev, seq_lens, bs, nblk)
+    lens = torch.tensor(seq_lens, dtype=torch.int32, device=dev)
+    q_pos = torch.full((S, Q), -1, dtype=torch.int32, device=dev)
+    q_pos[0] = torch.arange(Q, device=dev)
+    q_pos[1, :20] = torch.arange(bs - 11, bs + 9, device=dev)
+    q_pos[2] = torch.arange(3 * bs - Q, 3 * bs, device=dev)
+    qs = torch.randn((S, Q, H, D), generator=g, device=dev).bfloat16()
+    args = (qs, q_pos, kc, vc, bt, lens, bs, KVH)
+    kw = dict(scale=0.12, soft_cap=soft_cap, layer=layer, k_scale=ks,
+              v_scale=vs)
+    got = FP.flash_prefill_paged(*args, **kw)
+    want = FP.flash_prefill_paged_plain(*args, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+    assert torch.all(got[q_pos < 0] == 0)
+
+
+def test_llama_engine_on_the_card_matches_the_cpu_reference(dev):
+    """Two layers of llama3-1b at full width, bf16 cache: the first
+    generated token of each request through kernels H (prefill) and G
+    (decode) equals the CPU reference's, and both kernels launched."""
+    from llm_d_tpu_torch.ops import flash_prefill as FP
+    from llm_d_tpu_torch.ops import paged_attention as PA
+    cfg = dataclasses.replace(get_config("llama3-1b"), num_layers=2)
+    kw = dict(model_config=cfg, block_size=64, num_blocks=32,
+              max_num_seqs=8, max_num_batched_tokens=512,
+              enable_prefix_caching=False)
+    card = EngineCore(EngineConfig(device="cuda", **kw))
+    host = EngineCore(EngineConfig(device="cpu", **kw), params={
+        k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict)
+            else v.cpu()) for k, v in card.params.items()})
+    g = torch.Generator().manual_seed(10)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in (5, 70, 17)]
+    launches = (PA.paged_attention_decode_update.launches,
+                FP.flash_prefill_paged.launches)
+    outs = [eng.generate([Request(f"r{i}", p, SamplingParams(
+        temperature=0.0, max_tokens=2, ignore_eos=True))
+        for i, p in enumerate(prompts)]) for eng in (card, host)]
+    assert [v[0] for v in outs[0].values()] == \
+        [v[0] for v in outs[1].values()]
+    assert PA.paged_attention_decode_update.launches > launches[0]
+    assert FP.flash_prefill_paged.launches > launches[1]
 
 
 def test_engine_on_the_card_matches_the_cpu_reference(dev):

@@ -141,3 +141,162 @@ def test_group_routing_config_is_the_bench_one():
             c.num_experts_per_tok) == ("sigmoid", 8, 4, 64, 8)
     assert dataclasses.asdict(c) == dataclasses.asdict(
         jget_config("deepseek-v3-bench"))
+
+
+def _jax_streamed_metadata(idx, w, k, E, chunk_t, rt):
+    """Per-chunk tables exactly as the JAX glue builds them."""
+    T = idx.shape[0]
+    chunk_t = max(16, min(-(-chunk_t // 16) * 16, -(-T // 16) * 16))
+    C = -(-T // chunk_t)
+    pad = C * chunk_t - T
+    idx = np.pad(idx, ((0, pad), (0, 0)))
+    w = np.pad(w, ((0, pad), (0, 0)))
+    S_c = chunk_t * k
+    out = []
+    for c in range(C):
+        _, _, tok_s, slot, wslot_pad, tile_e, num_tiles = \
+            JM._sorted_tile_layout(jnp.asarray(idx.reshape(C, S_c)[c]),
+                                   jnp.asarray(w.reshape(C, S_c)[c]),
+                                   k, E, rt)
+        tok_pad = jnp.zeros((wslot_pad.shape[0],), jnp.int32).at[slot].set(
+            tok_s)
+        out.append([np.asarray(a) for a in (tok_pad, wslot_pad, tile_e,
+                                            num_tiles)])
+    return [np.concatenate([o[i].reshape(-1) for o in out])
+            for i in range(4)]
+
+
+@pytest.mark.parametrize("T,chunk_t,E,H,I,k,rt,case", [
+    (32, 64, 8, 256, 128, 2, 8, "one-chunk"),
+    (48, 16, 16, 256, 128, 8, 16, "multi-chunk"),
+    (37, 16, 8, 128, 128, 2, 8, "padded-last-chunk"),
+    (32, 16, 16, 128, 128, 2, 16, "empty-experts"),
+    (48, 16, 4, 256, 128, 2, 8, "duplicates-across-chunks"),
+])
+def test_streamed_int8_plain_matches_tpu_kernel(T, chunk_t, E, H, I, k, rt,
+                                                case):
+    """Kernel E's plain version through the port's glue against the TPU
+    kernel's glue in interpret mode; the per-chunk metadata identical."""
+    rng = np.random.default_rng(T * 7 + E)
+    x = jnp.asarray(rng.standard_normal((T, H)), jnp.bfloat16)
+    if case == "empty-experts":
+        idx = np.asarray([1, 7, 12], np.int32)[rng.integers(0, 3, (T, k))]
+        w = np.abs(rng.standard_normal((T, k))).astype(np.float32) * 0.3
+    elif case == "duplicates-across-chunks":
+        idx = np.full((T, k), 2, np.int32)
+        w = np.abs(rng.standard_normal((T, k))).astype(np.float32) * 0.3
+    else:
+        idx, w = _routing(rng, T, k, E)
+    jq, tq = _quant(rng, 2, E, H, I, 1)
+    want = JM._streamed_int8_kernel_path(
+        x, jnp.asarray(w), jnp.asarray(idx), jq, chunk_t=chunk_t,
+        row_tile=rt, interpret=True)
+    seen = {}
+    real = TM.moe_routed_stream.streamed_moe_int8
+
+    def spy(*args, **kw):
+        seen["args"] = args
+        return real(*args, **kw)
+
+    TM.moe_routed_stream.streamed_moe_int8 = spy
+    try:
+        got = TM._streamed_int8_kernel_path(_t(x), _t(w), _t(idx), tq,
+                                            chunk_t=chunk_t, row_tile=rt)
+    finally:
+        TM.moe_routed_stream.streamed_moe_int8 = real
+    assert got.shape == (T, H) and got.dtype == torch.bfloat16
+    assert _scaled_err(got.float().numpy(), want) <= 1e-2
+    meta = _jax_streamed_metadata(idx, w, k, E, chunk_t, rt)
+    for name, g, wv in zip(("tok_pad", "wslot_pad", "tile_expert",
+                            "num_tiles"), seen["args"][1:5], meta):
+        np.testing.assert_array_equal(g.numpy(), wv, err_msg=name)
+
+
+def test_streamed_chunk_rounding_matches_jax():
+    """Chunk heights round up to 16 rows and never exceed the aligned
+    batch: the flattened tables have the JAX glue's lengths."""
+    rng = np.random.default_rng(3)
+    E, H, I, k = 8, 128, 128, 2
+    jq, tq = _quant(rng, 1, E, H, I, 0)
+    for T, chunk_t in ((20, 7), (20, 100), (64, 33)):
+        x = rng.standard_normal((T, H)).astype(np.float32)
+        idx, w = _routing(rng, T, k, E, skip_experts=())
+        seen = {}
+        real = TM.moe_routed_stream.streamed_moe_int8
+        TM.moe_routed_stream.streamed_moe_int8 = \
+            lambda *a, **kw: seen.update(kw=kw, args=a) or real(*a, **kw)
+        try:
+            TM._streamed_int8_kernel_path(
+                _t(x).to(torch.bfloat16), _t(w), _t(idx), tq,
+                chunk_t=chunk_t, row_tile=8)
+        finally:
+            TM.moe_routed_stream.streamed_moe_int8 = real
+        want_chunk = max(16, min(-(-chunk_t // 16) * 16, -(-T // 16) * 16))
+        assert seen["kw"]["chunk_t"] == want_chunk
+        assert seen["args"][4].shape == (-(-T // want_chunk),)
+
+
+@pytest.mark.parametrize("T,E,H,I,k,rt", [(16, 8, 256, 128, 2, 8),
+                                          (36, 8, 256, 128, 2, 16),
+                                          (40, 16, 128, 128, 8, 16)])
+def test_grouped_int8_plain_matches_tpu_kernel(T, E, H, I, k, rt):
+    rng = np.random.default_rng(T + 31 * E)
+    x = jnp.asarray(rng.standard_normal((T, H)), jnp.bfloat16)
+    idx, w = _routing(rng, T, k, E)
+    jq, tq = _quant(rng, 2, E, H, I, 1)
+    want = JM._grouped_int8_kernel_path(x, jnp.asarray(w), jnp.asarray(idx),
+                                        jq, row_tile=rt, interpret=True)
+    got = TM._grouped_int8_kernel_path(_t(x), _t(w), _t(idx), tq,
+                                       row_tile=rt)
+    assert _scaled_err(got.float().numpy(), want) <= 1e-2
+
+
+def test_unsort_combine_with_dest_matches_jax():
+    rng = np.random.default_rng(5)
+    T, k, E, rt, H = 9, 2, 4, 8, 6
+    idx, w = _routing(rng, T, k, E, skip_experts=())
+    flat = idx.reshape(-1)
+    order, inv, _, dest, wslot, _, _ = JM._sorted_tile_layout(
+        jnp.asarray(flat), jnp.asarray(w.reshape(-1)), k, E, rt)
+    y = rng.standard_normal((wslot.shape[0], H)).astype(np.float32)
+    want = JM._unsort_combine(jnp.asarray(y), order, T, k, dest=dest,
+                              inv=inv)
+    got = TM._unsort_combine(torch.from_numpy(y), _t(order), T, k,
+                             dest=_t(dest), inv=_t(inv))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("env", [
+    {},
+    {"LLMD_MOE_PREFILL_KERNEL": "grouped"},
+    {"LLMD_MOE_PREFILL_KERNEL": "banana"},
+    {"LLMD_MOE_DENSE_KERNEL_MAX_T": "16", "LLMD_MOE_GROUPED_MIN_T": "100"},
+    {"LLMD_MOE_DENSE_KERNEL_MAX_T": "banana",
+     "LLMD_MOE_GROUPED_MIN_T": "1e3", "LLMD_MOE_PREFILL_KERNEL": "grouped"},
+])
+def test_int8_regime_matches_jax_dispatch(monkeypatch, env):
+    """The port's regime choice against the JAX package's TPU dispatch
+    (its backend check forced, its kernel paths replaced by recorders),
+    knobs and malformed values included."""
+    for name, val in env.items():
+        monkeypatch.setenv(name, val)
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    for regime in ("dense", "routed", "grouped", "streamed"):
+        monkeypatch.setattr(JM, f"_{regime}_int8_kernel_path",
+                            lambda *a, _r=regime, **kw: _r)
+    for T in (1, 16, 17, 64, 65, 100, 101, 512, 513, 8192):
+        x = jnp.zeros((T, 8), jnp.bfloat16)
+        idx = jnp.zeros((T, 2), jnp.int32)
+        want = JM.expert_ffn(x, jnp.ones((T, 2)), idx, None, None, None,
+                             quant={"layer": 0})
+        assert TM.int8_kernel_regime(T) == want, (T, env)
+
+
+def test_routed_row_tile_knob(monkeypatch):
+    assert TM._routed_row_tile(None, 100, 64) == 32
+    assert TM._routed_row_tile(None, 64 * 96, 64) == 64
+    monkeypatch.setenv("LLMD_MOE_ROUTED_ROW_TILE", "16")
+    assert TM._routed_row_tile(None, 100, 64) == 16
+    assert TM._routed_row_tile(8, 100, 64) == 8
+    monkeypatch.setenv("LLMD_MOE_ROUTED_ROW_TILE", "banana")
+    assert TM._routed_row_tile(None, 100, 64) == 32
