@@ -24,9 +24,11 @@ Phases (each raises on failure; the script then exits non-zero):
             head.  Kernels G and H (dense paged decode, dense flash
             prefill) must launch;
 4. kernels  each kernel against its plain PyTorch version on the inputs
-            of its first launch in phases 2-3 (G and H: of each cache
-            mode; E also on the bench's 8192-token step at the default
-            512-token chunks and as one chunk), then timed against it;
+            of its first launch in phases 2-3 (A: of each batch size S;
+            C: of each token count T; G and H: of each cache mode; A also
+            on 8 sequences x 4096 keys made from a seed; E also on the
+            bench's 8192-token step at the default 512-token chunks and as
+            one chunk), then timed against it;
 5. check    logits of the first two layers at full width through the
             kernels against the CPU reference path with the same weights:
             deepseek-v3-bench on a 100-token and on a 1024-token prompt
@@ -42,6 +44,13 @@ at its first launch: measured launches, errors and times, with
 ``bound_ms``), a ``{"variants": [...]}`` line (the same fields for the
 other inputs of phase 4), an ``{"engine": ...}`` line, the card's name and
 power limit, and last ``{"ok": true, "device": ...}``.
+
+    python3 chip_smoke.py --baseline DIR
+
+also times kernels A, B and C of the checkout at DIR (e.g. ``git archive``
+of the parent commit unpacked into a gitignored ``_scratch*`` directory)
+on the same phase-4 inputs, in turns with this checkout's, and prints a
+``{"baseline": ...}`` line.
 
     python3 chip_smoke.py --profile
 
@@ -164,6 +173,32 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 2) -> float:
+    """Device time per call of ``fn``: the ``iters`` calls are enqueued
+    behind a device sleep, so they run back to back and the host's cost of
+    issuing them (Python, allocation, launch) is not in the time.  The
+    sleep is lengthened until it outlasts the enqueueing."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    cycles = 20_000_000
+    while True:
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        t0 = time.perf_counter()
+        ev[1].record()
+        for _ in range(iters):
+            fn()
+        ev[2].record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if ev[0].elapsed_time(ev[1]) > 1.5 * host_ms:
+            return ev[1].elapsed_time(ev[2]) / iters
+        cycles *= 4
 
 
 def run_wave(engine, prompts, max_new: int, tag: str):
@@ -333,6 +368,74 @@ def profile_waves(engine, decode_prompts, prefill_prompts) -> dict:
     return out
 
 
+def arg_value(flag: str):
+    argv = sys.argv[1:]
+    if flag not in argv:
+        return None
+    return argv[argv.index(flag) + 1]
+
+
+def load_baseline(root: str, wrappers: dict) -> dict:
+    """The kernel wrappers ``{name: (module, function)}`` of another
+    checkout of the port at ``root`` (``--baseline DIR``, e.g. a ``git
+    archive`` of the parent commit), imported beside this checkout's under
+    their own module objects.  They build their kernels from ``root``'s
+    sources into ``root/build``, which happens here."""
+    import importlib
+    root = os.path.abspath(root)
+
+    def ours(name):
+        return name == "llm_d_tpu_torch" or name.startswith("llm_d_tpu_torch.")
+
+    saved = {k: v for k, v in sys.modules.items() if ours(k)}
+    for k in saved:
+        del sys.modules[k]
+    sys.path.insert(0, root)
+    try:
+        importlib.import_module("llm_d_tpu_torch.ops._build").build_all()
+        fns = {}
+        for name, (mod, fn) in wrappers.items():
+            m = importlib.import_module(f"llm_d_tpu_torch.ops.{mod}")
+            if not os.path.abspath(m.__file__).startswith(root + os.sep):
+                raise RuntimeError(f"baseline {mod} loaded from {m.__file__}")
+            fns[name] = getattr(m, fn)
+    finally:
+        sys.path.remove(root)
+        for k in [k for k in sys.modules if ours(k)]:
+            del sys.modules[k]
+        sys.modules.update(saved)
+    return fns
+
+
+def long_decode_inputs(args, kw, S: int, keys: int, seed: int):
+    """Kernel A's inputs at long context, from a seed: S sequences of
+    ``keys`` keys each on one int8 layer plane, at the row width, heads,
+    block size, block-table width and scale of the recorded launch
+    ``(args, kw)``."""
+    import torch
+    from llm_d_tpu_torch.ops.quant import quantize_kv_block
+    q0, _, cache, bt0 = args[:4]
+    dev = q0.device
+    H, F, B = q0.shape[1], cache.shape[-1], bt0.shape[1]
+    bs = kw["block_size"]
+    pages = keys // bs
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nblk = S * pages + 1
+    kv, ks = quantize_kv_block(torch.randn(
+        (1, nblk * bs, F), generator=g, device=dev).bfloat16(),
+        kw["kv_scale"].shape[-1])
+    bt = torch.zeros((S, B), dtype=torch.int32, device=dev)
+    bt[:, :pages] = (torch.randperm(nblk - 1, generator=g, device=dev)
+                     + 1).reshape(S, pages).to(torch.int32)
+    lens = torch.full((S,), keys, dtype=torch.int32, device=dev)
+    q = torch.randn((S, H, F), generator=g, device=dev).bfloat16()
+    row, row_s = quantize_kv_block(torch.randn(
+        (S, F), generator=g, device=dev).bfloat16(), kw["kv_scale"].shape[-1])
+    return (q, row, kv, bt, lens), dict(
+        block_size=bs, scale=kw["scale"], layer=0, kv_scale=ks,
+        row_scale_new=row_s)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -365,10 +468,22 @@ def main() -> int:
             f"{max((int(u.split()[1]) for u in usage), default=0)} "
             f"registers, spills: {spills or 'none'}")
 
+    baseline = {}
+    base_root = arg_value("--baseline")
+    if base_root:
+        t0 = time.perf_counter()
+        baseline = load_baseline(base_root, {
+            "mla_decode": ("mla_decode", "mla_paged_decode_update"),
+            "mla_prefill": ("mla_prefill", "mla_flash_prefill"),
+            "moe_dense_int8": ("moe_int8", "dense_moe_int8")})
+        log(f"baseline {base_root}: built in "
+            f"{time.perf_counter() - t0:.1f} s")
+
     pallas = "llm_d_tpu/ops/pallas/"
     kernels = [
         dict(name="mla_decode", mod=mla_decode, fn="mla_paged_decode_update",
              plain="mla_paged_decode_update_plain", path="i",
+             label=lambda a, kw: f"S={a[0].shape[0]}",
              source="llm_d_tpu_torch/csrc/mla_decode.cu",
              replaces=pallas + "mla_attention.py:224"),
         dict(name="mla_prefill", mod=mla_prefill, fn="mla_flash_prefill",
@@ -377,6 +492,7 @@ def main() -> int:
              replaces=pallas + "mla_prefill.py:165"),
         dict(name="moe_dense_int8", mod=moe_int8, fn="dense_moe_int8",
              plain="dense_moe_int8_plain", path="i",
+             label=lambda a, kw: f"T={a[0].shape[0]}",
              source="llm_d_tpu_torch/csrc/moe_dense_int8.cu",
              replaces=pallas + "moe_int8.py:182"),
         dict(name="moe_routed_int8", mod=moe_routed, fn="routed_moe_int8",
@@ -526,7 +642,7 @@ def main() -> int:
     log(f"launches (ii): {json.dumps(counts_ii)}")
 
     # 4. kernels against their plain versions --------------------------------
-    rows, variants, bounds = [], [], []
+    rows, variants, bounds, compared = [], [], [], []
 
     def check(k, label, args, kw, count: bool):
         fn, plain = recorders[k["name"]].fn, getattr(k["mod"], k["plain"])
@@ -557,7 +673,7 @@ def main() -> int:
             if err / scale > 1e-2:
                 raise RuntimeError(f"{name}: error {err} / scale "
                                    f"{scale} > 1e-2")
-        ms = time_ms(lambda: fn(*a_k, **kw_k), iters=20)
+        ms = device_ms(lambda: fn(*a_k, **kw_k))
         plain_ms = time_ms(lambda: plain(*a_p, **kw_p), iters=3, warmup=1)
         nbytes, flops = work(k["name"], args, kw, got)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -578,6 +694,22 @@ def main() -> int:
                            bytes_ms=t_bytes, ops_ms=t_ops))
         log(f"{name}: err {err:.3g}, {ms:.4f} ms vs plain "
             f"{plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms")
+        base = baseline.get(k["name"])
+        if base is not None:
+            # In turns on the same inputs: this tree, baseline, this tree,
+            # baseline.
+            a_b, kw_b = clone(args, weights), clone(kw, weights)
+            b1 = device_ms(lambda: base(*a_b, **kw_b))
+            ms2 = device_ms(lambda: fn(*a_k, **kw_k))
+            b2 = device_ms(lambda: base(*a_b, **kw_b))
+            # Eager launches, host cost included (the earlier timing).
+            eager = time_ms(lambda: fn(*a_k, **kw_k), iters=20)
+            b_eager = time_ms(lambda: base(*a_b, **kw_b), iters=20)
+            compared.append(dict(name=k["name"], variant=label,
+                                 ms=[ms, ms2], baseline_ms=[b1, b2],
+                                 eager_ms=eager, baseline_eager_ms=b_eager))
+            log(f"{name}: {ms:.4f} / {ms2:.4f} ms, baseline {b1:.4f} / "
+                f"{b2:.4f} ms; eager {eager:.4f} vs {b_eager:.4f} ms")
 
     for k in kernels:
         calls = recorders[k["name"]].calls
@@ -585,6 +717,11 @@ def main() -> int:
             raise RuntimeError(f"{k['name']}: no recorded launch")
         for i, (label, (args, kw)) in enumerate(calls.items()):
             check(k, label, args, kw, count=i == 0)
+    # Kernel A at long context: 8 sequences x 4096 keys.
+    decode = next(k for k in kernels if k["name"] == "mla_decode")
+    first = next(iter(recorders["mla_decode"].calls.values()))
+    check(decode, "S=8 keys=4096",
+          *long_decode_inputs(*first, S=8, keys=4096, seed=11), count=False)
     # Kernel E on the bench's 8192-token step: the default chunks and one.
     streamed = next(k for k in kernels if k["name"] == "moe_streamed_int8")
     for chunk_t in (moe_ops.PREFILL_CHUNK_T, BENCH_T):
@@ -627,6 +764,9 @@ def main() -> int:
     # The bound's inputs, derived from the recorded launches (not timed).
     print(json.dumps({"bounds": bounds}))
     print(json.dumps({"variants": variants}))
+    if base_root:
+        print(json.dumps({"baseline": {"root": base_root,
+                                       "kernels": compared}}))
     print(json.dumps({"engine": {
         "build_s": build_s, "init_s": init_s,
         "deepseek-v3-bench": waves_i, "llama3-1b": waves_ii,

@@ -112,9 +112,10 @@ def launch(source: str, name: str, argtypes, *args) -> None:
     refused launch never runs, and a later synchronize would not report
     it."""
     lib = load(source)
-    fn = getattr(lib, name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    fn = getattr(lib, name)           # ctypes caches the function object
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     code = fn(*args)
     if code != 0:
         msg = lib.llmd_error_string(code).decode(errors="replace")

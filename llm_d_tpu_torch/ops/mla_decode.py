@@ -6,12 +6,18 @@ the page loop in ``csrc/common.cuh``).
 
 What bounds it on the H100: bytes -- each live latent row (F int8 + one
 f32 scale) is read once per step for all H heads, about 2*H flops per
-byte, far below the card's ridge.  The design keeps every page in shared
-memory once for both the score and the value dot (MQA), dequantizes it
-there, and writes the new row from the same block that reads the page, so
-no second pass or cross-block ordering is needed.  One block per sequence
-leaves the card underfilled at small batches; splitting a sequence's
-pages over blocks is the next step.
+byte, far below the card's ridge -- and, at small batches, the latency of
+walking a sequence's pages one after another.  The design splits each
+sequence's pages into ranges, one block per (sequence, range), sized from
+the batch, the block-table width and the SM count (no host read of
+``seq_lens``: ranges past a sequence's last page exit on the device); a
+second pass combines the ranges' partial softmax statistics in range
+order (no atomics).  Each int8 page stays int8 in shared memory, arrives
+by ``cp.async`` while the previous one is multiplied, and is dequantized
+into the tensor-core fragments of both dots (MQA: one page serves every
+head).  The block that owns the page of position ``seq_len - 1`` writes
+the new row and takes that position from the input, so no other block
+reads the slot being written.
 
 ``mla_paged_decode_update_plain`` is the same function in plain PyTorch:
 the CPU tests use it, ``chip_smoke.py`` holds the kernel against it, and
@@ -21,6 +27,7 @@ the wrapper runs it only for CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -99,7 +106,22 @@ def mla_paged_decode_update_plain(
 
 _VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
-_ARGTYPES = [_VP] * 8 + [_I] * 6 + [_LL, _I, _F, _I, _VP]
+_ARGTYPES = [_VP] * 10 + [_I] * 6 + [_LL, _I, _F, _I, _I, _VP]
+_MAX_SPLITS = 256        # csrc/mla_decode.cu kMaxSplits
+_MAX_SPLIT_F = 768       # three 32-column value groups per warp
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def num_splits(S: int, B: int, device) -> int:
+    """Page ranges per sequence: enough (sequence, range) blocks for two
+    per SM, at most one range per block-table entry."""
+    sms = _sm_count(device.index if device.index is not None
+                    else torch.cuda.current_device())
+    return max(1, min(B, _MAX_SPLITS, -(-2 * sms // max(S, 1))))
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -196,16 +218,25 @@ def mla_paged_decode_update(
     for t in tensors:
         _check(t.device == dev and t.is_contiguous(),
                "inputs must be contiguous and on one device")
+    _check(F % 32 == 0 and F <= _MAX_SPLIT_F,
+           f"F={F}: the kernel takes F % 32 == 0, F <= {_MAX_SPLIT_F}")
+    _check(row_new.data_ptr() % 16 == 0 and cache3.data_ptr() % 16 == 0,
+           "cache and new rows must be 16-byte aligned (cp.async rows)")
 
+    B = block_tables.shape[1]
+    ns = num_splits(S, B, dev)
     out = torch.empty_like(q_eff)
+    part_acc = torch.empty((S, ns, H, F), dtype=torch.float32, device=dev)
+    part_ml = torch.empty((S, ns, H, 2), dtype=torch.float32, device=dev)
     _build.launch(
         "mla_decode.cu", "llmd_mla_decode", _ARGTYPES,
         q_eff.data_ptr(), row_new.data_ptr(),
         row_scale_new.data_ptr() if quantized else None,
         cache3.data_ptr(), scale3.data_ptr() if quantized else None,
         block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-        S, H, F, SW, block_size, block_tables.shape[1], slots, li,
-        float(scale), int(quantized), _build.stream_ptr(dev))
+        part_acc.data_ptr(), part_ml.data_ptr(),
+        S, H, F, SW, block_size, B, slots, li,
+        float(scale), int(quantized), ns, _build.stream_ptr(dev))
     mla_paged_decode_update.launches += 1
     return out
 

@@ -1,16 +1,21 @@
 """Kernels C and F, the int8 MoE FFNs of ``llm_d_tpu/ops/pallas/moe_int8.py``.
 
-Kernel C: all-experts int8 MoE FFN for small batches (T <= 64).  Replaces
-the TPU kernel ``dense_moe_int8``.  CUDA source: ``csrc/moe_dense_int8.cu``
-(tile GEMM in ``csrc/common.cuh``).
+Kernel C: the int8 MoE FFN for small batches (T <= 64) over the routed
+experts.  Replaces the TPU kernel ``dense_moe_int8``.  CUDA source:
+``csrc/moe_dense_int8.cu`` (cp.async and mma.sync primitives in
+``csrc/pipeline.cuh``).
 
-What bounds it on the H100: bytes -- every expert's int8 weights (3*H*I
-bytes each, all E experts per layer) stream once for at most 64 tokens.
-The design streams each weight byte once from device memory in pass 1
-(gate/up, one block per expert x 64-column tile) and pass 2 (down, one
-block per 64-column tile x expert group), keeps the int8 -> f32 convert
-in shared memory next to the dot, applies the per-column scale to the f32
-result, and sums experts in a fixed order (no atomics).
+What bounds it on the H100: bytes -- the int8 weights (3*H*I bytes each)
+of the experts that a token is routed to, once for at most 64 tokens.
+An unrouted expert's ``comb`` column is zero, so it adds exactly 0 (the
+TPU kernel multiplies it by 0): the kernel decides on the device which
+experts are routed and reads no weight of the others.  Pass 1 (gate/up,
+one block per expert x 128-column tile) and pass 2 (down, one block per
+128-column tile x group of experts, routed experts in order) stream their
+int8 tiles as stored through a ring of 16-byte ``cp.async`` copies, so
+each SM keeps tens of KB of weight loads in flight, and widen them to
+bf16 in the tensor-core fragments; the per-column scale multiplies the
+f32 result, and groups are summed in a fixed order (no atomics).
 
 Kernel F: grouped int8 MoE FFN over rows sorted by expert and padded to
 the row tile, the ``LLMD_MOE_PREFILL_KERNEL=grouped`` lever above 512
@@ -126,7 +131,13 @@ def dense_moe_int8(x, comb, layer: int, w_gate_q, w_gate_s, w_up_q, w_up_s,
            and comb.is_contiguous() and comb.device == x.device,
            "comb must be contiguous f32 [T, E]")
     tm = 16 if T <= 16 else (32 if T <= 32 else 64)
-    groups = next(g for g in (8, 4, 2, 1) if E % g == 0)
+    # Groups of four experts: pass 2 has H/128 x groups blocks, and a
+    # group's routed experts are summed in order.
+    groups = next(g for g in (16, 8, 4, 2, 1) if E % g == 0)
+    _check(E // groups <= 64, f"E={E} needs groups of at most 64 experts")
+    _check(all(t.data_ptr() % 16 == 0 for t in (x, w_gate_q, w_up_q,
+                                                w_down_q)),
+           "x and the int8 weights must be 16-byte aligned (cp.async rows)")
     act = torch.empty((E, T, I), dtype=torch.bfloat16, device=x.device)
     partial = torch.empty((groups, T, H), dtype=torch.float32,
                           device=x.device)

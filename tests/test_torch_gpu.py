@@ -57,16 +57,28 @@ def _tables(g, dev, seq_lens, bs, num_blocks):
     return bt.contiguous()
 
 
+_DECODE_LENS = {
+    "short": lambda bs: [1, bs - 1, bs, bs + 1, 3 * bs + 7, 0, 0, 0],
+    # Several page ranges per sequence, ranges of one and of two pages.
+    "long": lambda bs: [40 * bs + 3, 64 * bs, 1, 0, 0, 0, 0, 0],
+    "single": lambda bs: [64 * bs],
+}
+
+
+@pytest.mark.parametrize("lens", sorted(_DECODE_LENS))
 @pytest.mark.parametrize("quantized,H,F,bs", [
     (True, 16, 640, 64), (False, 16, 640, 64), (True, 4, 128, 32)])
-def test_mla_decode_kernel(dev, quantized, H, F, bs):
+def test_mla_decode_kernel(dev, quantized, H, F, bs, lens):
+    """The kernel against the plain version, and twice on the same inputs:
+    the partials are combined in a fixed order, so the outputs are
+    bit-equal."""
     g = _gen(1, dev)
-    seq_lens = [1, bs - 1, bs, bs + 1, 3 * bs + 7, 0, 0, 0]
+    seq_lens = _DECODE_LENS[lens](bs)
     S, L, layer = len(seq_lens), 3, 1
-    nblk = S * 4 + 1
+    nblk = S * max(-(-n // bs) for n in seq_lens) + 1
     kv, ks = _cache(g, dev, quantized, L, nblk * bs, F)
     bt = _tables(g, dev, seq_lens, bs, nblk)
-    lens = torch.tensor(seq_lens, dtype=torch.int32, device=dev)
+    lens_t = torch.tensor(seq_lens, dtype=torch.int32, device=dev)
     q = torch.randn((S, H, F), generator=g, device=dev).bfloat16()
     row = torch.randn((S, F), generator=g, device=dev).bfloat16()
     row_s = None
@@ -75,17 +87,21 @@ def test_mla_decode_kernel(dev, quantized, H, F, bs):
     caches = []
     outs = []
     for fn in (mla_decode.mla_paged_decode_update,
+               mla_decode.mla_paged_decode_update,
                mla_decode.mla_paged_decode_update_plain):
         kv_i = kv.clone()
         ks_i = ks.clone() if quantized else None
-        outs.append(fn(q, row, kv_i, bt, lens, bs, 0.11, layer=layer,
+        outs.append(fn(q, row, kv_i, bt, lens_t, bs, 0.11, layer=layer,
                        kv_scale=ks_i, row_scale_new=row_s))
         caches.append((kv_i, ks_i))
     torch.cuda.synchronize()
-    torch.testing.assert_close(outs[0].float(), outs[1].float(), **TOL)
-    assert torch.equal(caches[0][0], caches[1][0])
-    if quantized:
-        assert torch.equal(caches[0][1], caches[1][1])
+    assert torch.equal(outs[0], outs[1])
+    torch.testing.assert_close(outs[0].float(), outs[2].float(), **TOL)
+    assert torch.all(outs[0][lens_t == 0] == 0)
+    for i in (0, 1):
+        assert torch.equal(caches[i][0], caches[2][0])
+        if quantized:
+            assert torch.equal(caches[i][1], caches[2][1])
 
 
 @pytest.mark.parametrize("quantized,bs", [(True, 64), (False, 32)])
@@ -134,8 +150,12 @@ def _scaled_err(got, want):
                  / (want.float().abs().max() + 1e-9))
 
 
+@pytest.mark.parametrize("routing", ["topk", "one_expert", "none"])
 @pytest.mark.parametrize("T", [1, 16, 40, 64])
-def test_dense_moe_kernel(dev, T):
+def test_dense_moe_kernel(dev, T, routing):
+    """Top-k routing, then comb matrices whose columns are zero but one
+    (a single routed expert) or all (no routed expert: the output is
+    exactly zero) -- the kernel reads no weight of an unrouted expert."""
     g = _gen(3, dev)
     E, H, I, k = 64, 2048, 512, 8
     quant = _quant(g, dev, 2, E, H, I)
@@ -143,13 +163,23 @@ def test_dense_moe_kernel(dev, T):
     x = torch.randn((T, H), generator=g, device=dev).bfloat16()
     w, idx = _routing(g, dev, T, E, k)
     comb = M._combine_matrix(T, E, idx, w)
+    if routing == "one_expert":
+        comb[:, :37] = 0
+        comb[:, 38:] = 0
+        comb[:, 37] = w[:, 0]
+    elif routing == "none":
+        comb.zero_()
     args = (x, comb, 1, quant["w_gate_q"], quant["w_gate_s"],
             quant["w_up_q"], quant["w_up_s"], quant["w_down_q"],
             quant["w_down_s"])
     from llm_d_tpu_torch.ops import moe_int8
     got = moe_int8.dense_moe_int8(*args)
     want = moe_int8.dense_moe_int8_plain(*args)
-    assert _scaled_err(got, want) <= 1e-2
+    if routing == "none":
+        assert torch.equal(got, torch.zeros_like(got))
+    else:
+        assert _scaled_err(got, want) <= 1e-2
+        assert torch.equal(got, moe_int8.dense_moe_int8(*args))
 
 
 @pytest.mark.parametrize("T,rt", [(65, 16), (128, 32), (512, 64)])

@@ -57,14 +57,20 @@ def _tables(rng, seq_lens, bs, num_blocks):
     return jnp.asarray(bt)
 
 
-@pytest.mark.parametrize("quantized,L,layer,bs", [
-    (False, None, None, 16), (True, None, None, 32), (True, 3, 1, 32)])
-def test_decode_plain_matches_tpu_kernel(quantized, L, layer, bs):
+@pytest.mark.parametrize("quantized,L,layer,bs,long", [
+    pytest.param(False, None, None, 16, False, id="False-None-None-16"),
+    pytest.param(True, None, None, 32, False, id="True-None-None-32"),
+    pytest.param(True, 3, 1, 32, False, id="True-3-1-32"),
+    # A context of ten pages: the card kernel splits it into page ranges.
+    pytest.param(True, 3, 1, 32, True, id="True-3-1-32-long")])
+def test_decode_plain_matches_tpu_kernel(quantized, L, layer, bs, long):
     rng = np.random.default_rng(10 + bs + (L or 0))
     H, F = 4, 128
     seq_lens = [1, bs // 2, bs, bs + 3, 2 * bs + 5, 0, 0, 0]
+    if long:
+        seq_lens = [9 * bs + 5, bs + 3, 0, 1]
     S = len(seq_lens)
-    num_blocks = S * 3 + 1
+    num_blocks = S * max(3, -(-max(seq_lens) // bs)) + 1
     kv, ks = _cache(rng, quantized, L, num_blocks * bs, F)
     bt = _tables(rng, seq_lens, bs, num_blocks)
     lens = jnp.asarray(seq_lens, jnp.int32)

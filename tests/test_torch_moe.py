@@ -106,6 +106,34 @@ def test_dense_int8_plain_matches_tpu_kernel(T, E, H, I, k):
     assert _scaled_err(got.float().numpy(), want) <= 1e-2
 
 
+@pytest.mark.parametrize("T,E,H,I,k,live", [
+    (16, 8, 256, 128, 2, (0, 3, 6)), (40, 16, 128, 64, 8, (9,))])
+def test_dense_int8_unrouted_experts_add_nothing(T, E, H, I, k, live):
+    """Kernel C skips every expert whose comb column is zero.  On the JAX
+    side such an expert's weights cannot reach the output: other int8
+    values there leave it bit-identical.  The port's plain version agrees
+    with the TPU kernel on such a routing."""
+    rng = np.random.default_rng(T * E + len(live))
+    x = jnp.asarray(rng.standard_normal((T, H)), jnp.bfloat16)
+    idx = rng.choice(live, size=(T, k)).astype(np.int32)
+    w = np.abs(rng.standard_normal((T, k))).astype(np.float32) * 0.4
+    jq, tq = _quant(rng, 2, E, H, I, 1)
+    want = JM._dense_int8_kernel_path(x, jnp.asarray(w), jnp.asarray(idx),
+                                      jq, interpret=True)
+    dead = np.setdiff1d(np.arange(E), live)
+    other = dict(jq)
+    for name in ("w_gate_q", "w_up_q", "w_down_q"):
+        q = np.asarray(jq[name]).copy()
+        q[:, dead] = rng.integers(-127, 128, q[:, dead].shape)
+        assert not np.array_equal(q, np.asarray(jq[name]))
+        other[name] = jnp.asarray(q, jnp.int8)
+    again = JM._dense_int8_kernel_path(x, jnp.asarray(w), jnp.asarray(idx),
+                                       other, interpret=True)
+    np.testing.assert_array_equal(np.asarray(again), np.asarray(want))
+    got = TM._dense_int8_kernel_path(_t(x), _t(w), _t(idx), tq)
+    assert _scaled_err(got.float().numpy(), want) <= 1e-2
+
+
 @pytest.mark.parametrize("T,E,H,I,k,rt", [(24, 8, 256, 128, 2, 16),
                                           (70, 16, 128, 64, 8, 32)])
 def test_routed_int8_plain_matches_tpu_kernel(T, E, H, I, k, rt):
