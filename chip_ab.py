@@ -1,0 +1,182 @@
+#!/usr/bin/env python3
+"""Kernels A, B and C of this checkout against another checkout of the
+port, on one CUDA card, on the same inputs and in turns.
+
+    git archive <commit> llm_d_tpu_torch | tar -x -C _scratch_parent
+    python3 chip_ab.py _scratch_parent
+
+(``_scratch*`` directories are gitignored.)  Serves deepseek-v3-bench as
+``chip_smoke.py`` does (waves 1-3) and records the inputs of the first
+launch of A for each batch size S, of B, and of C for each token count
+T.  Then:
+
+1. waves: ``ROUNDS`` rounds of waves 1, 2 and 3, each round with this
+   checkout's wrappers of A, B and C installed or the other's, in the
+   order this, other, other, this, ...: prefill seconds and decode tok/s
+   of every run, their medians and ranges, and whether each side's greedy
+   tokens repeated across its rounds;
+2. kernels: each recorded input (and A on 8 sequences x 4096 keys)
+   through both checkouts' wrappers, eight times in the same order: eager
+   ms (``chip_smoke.py``'s ``ms``: 20 calls back to back, event-timed,
+   host cost included where it exceeds the kernel's), device ms and host
+   ms per call (``chip_smoke.device_ms``).
+
+Prints ``{"ab_waves": ...}``, ``{"ab_kernels": ...}`` and the card's name
+and power limit.  The other checkout builds its kernels into its own
+``build/``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+ROUNDS = 20
+ORDER = ("this", "other", "other", "this")
+TARGETS = {            # name: (module under llm_d_tpu_torch.ops, wrapper)
+    "mla_decode": ("mla_decode", "mla_paged_decode_update"),
+    "mla_prefill": ("mla_prefill", "mla_flash_prefill"),
+    "moe_dense_int8": ("moe_int8", "dense_moe_int8"),
+}
+LABELS = {
+    "mla_decode": lambda a, kw: f"S={a[0].shape[0]}",
+    "moe_dense_int8": lambda a, kw: f"T={a[0].shape[0]}",
+}
+
+
+def load_other(root: str) -> dict:
+    """The wrappers of ``TARGETS`` of the checkout at ``root``, imported
+    beside this checkout's under their own module objects, with their
+    kernels built."""
+    import importlib
+    root = os.path.abspath(root)
+
+    def ours(name):
+        return name == "llm_d_tpu_torch" or name.startswith("llm_d_tpu_torch.")
+
+    saved = {k: v for k, v in sys.modules.items() if ours(k)}
+    for k in saved:
+        del sys.modules[k]
+    sys.path.insert(0, root)
+    try:
+        importlib.import_module("llm_d_tpu_torch.ops._build").build_all()
+        fns = {}
+        for name, (mod, fn) in TARGETS.items():
+            m = importlib.import_module(f"llm_d_tpu_torch.ops.{mod}")
+            if not os.path.abspath(m.__file__).startswith(root + os.sep):
+                raise RuntimeError(f"{mod} loaded from {m.__file__}")
+            fns[name] = getattr(m, fn)
+    finally:
+        sys.path.remove(root)
+        for k in [k for k in sys.modules if ours(k)]:
+            del sys.modules[k]
+        sys.modules.update(saved)
+    return fns
+
+
+def spread(xs) -> dict:
+    return dict(median=statistics.median(xs), min=min(xs), max=max(xs),
+                runs=xs)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_ab: no CUDA device", file=sys.stderr)
+        return 1
+    if len(sys.argv) != 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    import importlib
+    import numpy as np
+    import chip_smoke as cs
+    from llm_d_tpu_torch.ops import _build
+
+    _build.build_all()
+    other = load_other(sys.argv[1])
+    mods = {n: importlib.import_module(f"llm_d_tpu_torch.ops.{m}")
+            for n, (m, _) in TARGETS.items()}
+
+    engine = cs.path_i_engine()
+    weights = cs.tensor_ptrs(engine.params)
+    recs = {n: cs.Recorder(mods[n], fn, weights, LABELS.get(n))
+            for n, (_, fn) in TARGETS.items()}
+    rng = np.random.default_rng(0)
+    vocab = engine.model_config.vocab_size
+    waves = {"wave1": cs.WAVE1, "wave2": cs.WAVE2, "wave3": cs.WAVE3}
+    prompts = {w: cs.prompts_for(rng, vocab, spec)
+               for w, spec in waves.items()}
+    for w, spec in waves.items():
+        cs.run_wave(engine, prompts[w], spec["new"], f"rec-{w}")
+    fns = {"this": {n: r.fn for n, r in recs.items()}, "other": other}
+
+    def install(side):
+        for n, (_, fn) in TARGETS.items():
+            setattr(mods[n], fn, fns[side][n])
+
+    # 1. waves, in turns ----------------------------------------------------
+    runs = {side: {w: {"prefill_seconds": [], "decode_tok_s": []}
+                   for w in waves} for side in fns}
+    tokens = {side: {} for side in fns}
+    repeat = {side: True for side in fns}
+    for i in range(ROUNDS):
+        side = ORDER[i % len(ORDER)]
+        install(side)
+        for w, spec in waves.items():
+            tok, stats = cs.run_wave(engine, prompts[w], spec["new"],
+                                     f"{side}{i}-{w}")
+            runs[side][w]["prefill_seconds"].append(stats["prefill_seconds"])
+            runs[side][w]["decode_tok_s"].append(stats["decode_tok_s"])
+            repeat[side] &= tokens[side].setdefault(w, tok) == tok
+    install("this")
+    ab_waves = {side: {w: {m: spread(v) for m, v in ms.items()}
+                       for w, ms in runs[side].items()} for side in fns}
+    for side in fns:
+        ab_waves[side]["tokens_repeat"] = repeat[side]
+    cs.log(f"waves: {json.dumps(ab_waves)}")
+
+    # 2. kernels on the recorded inputs, in turns ---------------------------
+    inputs = [(n, label, args, kw) for n, r in recs.items()
+              for label, (args, kw) in r.calls.items()]
+    first = next(iter(recs["mla_decode"].calls.values()))
+    inputs.append(("mla_decode", "S=8 keys=4096",
+                   *cs.long_decode_inputs(*first, S=8, keys=4096, seed=11)))
+    ab_kernels = []
+    for n, label, args, kw in inputs:
+        res = {side: {"ms": [], "device_ms": [], "host_ms": []}
+               for side in fns}
+        copies = {side: (cs.clone(args, weights), cs.clone(kw, weights))
+                  for side in fns}
+        for side in ORDER * 2:
+            fn, (a, k) = fns[side][n], copies[side]
+            res[side]["ms"].append(cs.time_ms(lambda: fn(*a, **k), iters=20))
+            dev, host = cs.device_ms(lambda: fn(*a, **k))
+            res[side]["device_ms"].append(dev)
+            res[side]["host_ms"].append(host)
+        row = dict(name=n, variant=label, **{
+            side: {m: spread(v) for m, v in r.items()}
+            for side, r in res.items()})
+        ab_kernels.append(row)
+        cs.log(f"{n} [{label}]: " + "; ".join(
+            f"{side} ms {row[side]['ms']['median']:.4f} device "
+            f"{row[side]['device_ms']['median']:.4f} host "
+            f"{row[side]['host_ms']['median']:.4f}" for side in fns))
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(json.dumps({"ab_waves": {"other": sys.argv[1], "rounds": ROUNDS,
+                                   **ab_waves}}))
+    print(json.dumps({"ab_kernels": ab_kernels}))
+    print(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -43,14 +43,11 @@ bound is derived from), a ``{"kernels": [...]}`` line (one row per kernel
 at its first launch: measured launches, errors and times, with
 ``bound_ms``), a ``{"variants": [...]}`` line (the same fields for the
 other inputs of phase 4), an ``{"engine": ...}`` line, the card's name and
-power limit, and last ``{"ok": true, "device": ...}``.
-
-    python3 chip_smoke.py --baseline DIR
-
-also times kernels A, B and C of the checkout at DIR (e.g. ``git archive``
-of the parent commit unpacked into a gitignored ``_scratch*`` directory)
-on the same phase-4 inputs, in turns with this checkout's, and prints a
-``{"baseline": ...}`` line.
+power limit, and last ``{"ok": true, "device": ...}``.  A kernel's ``ms``
+is the event-timed mean of 20 eager calls of its wrapper, so the
+wrapper's host cost is in it where it exceeds the kernel's; ``device_ms``
+is the same calls queued behind a device sleep, the kernels' device time
+alone.
 
     python3 chip_smoke.py --profile
 
@@ -175,11 +172,12 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 2) -> float:
-    """Device time per call of ``fn``: the ``iters`` calls are enqueued
-    behind a device sleep, so they run back to back and the host's cost of
-    issuing them (Python, allocation, launch) is not in the time.  The
-    sleep is lengthened until it outlasts the enqueueing."""
+def device_ms(fn, iters: int = 20, warmup: int = 2):
+    """``(device ms, host ms)`` per call of ``fn``: the ``iters`` calls
+    are enqueued behind a device sleep, so they run back to back and the
+    host's cost of issuing them (Python, allocation, launch), timed on the
+    host clock meanwhile, is not in the device time.  The sleep is
+    lengthened until it outlasts the enqueueing."""
     import torch
     for _ in range(warmup):
         fn()
@@ -197,7 +195,7 @@ def device_ms(fn, iters: int = 20, warmup: int = 2) -> float:
         host_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
         if ev[0].elapsed_time(ev[1]) > 1.5 * host_ms:
-            return ev[1].elapsed_time(ev[2]) / iters
+            return ev[1].elapsed_time(ev[2]) / iters, host_ms / iters
         cycles *= 4
 
 
@@ -368,43 +366,16 @@ def profile_waves(engine, decode_prompts, prefill_prompts) -> dict:
     return out
 
 
-def arg_value(flag: str):
-    argv = sys.argv[1:]
-    if flag not in argv:
-        return None
-    return argv[argv.index(flag) + 1]
-
-
-def load_baseline(root: str, wrappers: dict) -> dict:
-    """The kernel wrappers ``{name: (module, function)}`` of another
-    checkout of the port at ``root`` (``--baseline DIR``, e.g. a ``git
-    archive`` of the parent commit), imported beside this checkout's under
-    their own module objects.  They build their kernels from ``root``'s
-    sources into ``root/build``, which happens here."""
-    import importlib
-    root = os.path.abspath(root)
-
-    def ours(name):
-        return name == "llm_d_tpu_torch" or name.startswith("llm_d_tpu_torch.")
-
-    saved = {k: v for k, v in sys.modules.items() if ours(k)}
-    for k in saved:
-        del sys.modules[k]
-    sys.path.insert(0, root)
-    try:
-        importlib.import_module("llm_d_tpu_torch.ops._build").build_all()
-        fns = {}
-        for name, (mod, fn) in wrappers.items():
-            m = importlib.import_module(f"llm_d_tpu_torch.ops.{mod}")
-            if not os.path.abspath(m.__file__).startswith(root + os.sep):
-                raise RuntimeError(f"baseline {mod} loaded from {m.__file__}")
-            fns[name] = getattr(m, fn)
-    finally:
-        sys.path.remove(root)
-        for k in [k for k in sys.modules if ours(k)]:
-            del sys.modules[k]
-        sys.modules.update(saved)
-    return fns
+def path_i_engine():
+    """deepseek-v3-bench as bench.py serves it, random weights from seed 0:
+    int8 experts, int8 latent cache, block size 64, steps of up to
+    ``BENCH_T`` tokens."""
+    from llm_d_tpu_torch.engine import EngineConfig, EngineCore
+    return EngineCore(EngineConfig(
+        model="deepseek-v3-bench", quantization="int8",
+        kv_cache_dtype="int8", block_size=64, num_blocks=256,
+        max_num_seqs=128, max_num_batched_tokens=BENCH_T,
+        enable_prefix_caching=False, device="cuda", seed=0))
 
 
 def long_decode_inputs(args, kw, S: int, keys: int, seed: int):
@@ -468,17 +439,6 @@ def main() -> int:
             f"{max((int(u.split()[1]) for u in usage), default=0)} "
             f"registers, spills: {spills or 'none'}")
 
-    baseline = {}
-    base_root = arg_value("--baseline")
-    if base_root:
-        t0 = time.perf_counter()
-        baseline = load_baseline(base_root, {
-            "mla_decode": ("mla_decode", "mla_paged_decode_update"),
-            "mla_prefill": ("mla_prefill", "mla_flash_prefill"),
-            "moe_dense_int8": ("moe_int8", "dense_moe_int8")})
-        log(f"baseline {base_root}: built in "
-            f"{time.perf_counter() - t0:.1f} s")
-
     pallas = "llm_d_tpu/ops/pallas/"
     kernels = [
         dict(name="mla_decode", mod=mla_decode, fn="mla_paged_decode_update",
@@ -521,11 +481,7 @@ def main() -> int:
 
     # 2. path (i): deepseek-v3-bench as bench.py serves it ------------------
     t0 = time.perf_counter()
-    engine = EngineCore(EngineConfig(
-        model="deepseek-v3-bench", quantization="int8",
-        kv_cache_dtype="int8", block_size=64, num_blocks=256,
-        max_num_seqs=128, max_num_batched_tokens=BENCH_T,
-        enable_prefix_caching=False, device="cuda", seed=0))
+    engine = path_i_engine()
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     log(f"engine: init {init_s:.1f} s, "
@@ -642,7 +598,7 @@ def main() -> int:
     log(f"launches (ii): {json.dumps(counts_ii)}")
 
     # 4. kernels against their plain versions --------------------------------
-    rows, variants, bounds, compared = [], [], [], []
+    rows, variants, bounds = [], [], []
 
     def check(k, label, args, kw, count: bool):
         fn, plain = recorders[k["name"]].fn, getattr(k["mod"], k["plain"])
@@ -673,7 +629,8 @@ def main() -> int:
             if err / scale > 1e-2:
                 raise RuntimeError(f"{name}: error {err} / scale "
                                    f"{scale} > 1e-2")
-        ms = device_ms(lambda: fn(*a_k, **kw_k))
+        ms = time_ms(lambda: fn(*a_k, **kw_k), iters=20)
+        dev_ms, _ = device_ms(lambda: fn(*a_k, **kw_k))
         plain_ms = time_ms(lambda: plain(*a_p, **kw_p), iters=3, warmup=1)
         nbytes, flops = work(k["name"], args, kw, got)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -681,7 +638,7 @@ def main() -> int:
         row = dict(
             name=k["name"], route="cuda", source=k["source"],
             replaces=k["replaces"], launches=launches[k["name"]],
-            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=None)
@@ -692,24 +649,9 @@ def main() -> int:
         bounds.append(dict(name=k["name"], variant=label,
                            shape=shape_of(args), bytes=nbytes, flops=flops,
                            bytes_ms=t_bytes, ops_ms=t_ops))
-        log(f"{name}: err {err:.3g}, {ms:.4f} ms vs plain "
-            f"{plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms")
-        base = baseline.get(k["name"])
-        if base is not None:
-            # In turns on the same inputs: this tree, baseline, this tree,
-            # baseline.
-            a_b, kw_b = clone(args, weights), clone(kw, weights)
-            b1 = device_ms(lambda: base(*a_b, **kw_b))
-            ms2 = device_ms(lambda: fn(*a_k, **kw_k))
-            b2 = device_ms(lambda: base(*a_b, **kw_b))
-            # Eager launches, host cost included (the earlier timing).
-            eager = time_ms(lambda: fn(*a_k, **kw_k), iters=20)
-            b_eager = time_ms(lambda: base(*a_b, **kw_b), iters=20)
-            compared.append(dict(name=k["name"], variant=label,
-                                 ms=[ms, ms2], baseline_ms=[b1, b2],
-                                 eager_ms=eager, baseline_eager_ms=b_eager))
-            log(f"{name}: {ms:.4f} / {ms2:.4f} ms, baseline {b1:.4f} / "
-                f"{b2:.4f} ms; eager {eager:.4f} vs {b_eager:.4f} ms")
+        log(f"{name}: err {err:.3g}, {ms:.4f} ms ({dev_ms:.4f} on the "
+            f"device) vs plain {plain_ms:.4f} ms, bound "
+            f"{max(t_bytes, t_ops):.4f} ms")
 
     for k in kernels:
         calls = recorders[k["name"]].calls
@@ -764,9 +706,6 @@ def main() -> int:
     # The bound's inputs, derived from the recorded launches (not timed).
     print(json.dumps({"bounds": bounds}))
     print(json.dumps({"variants": variants}))
-    if base_root:
-        print(json.dumps({"baseline": {"root": base_root,
-                                       "kernels": compared}}))
     print(json.dumps({"engine": {
         "build_s": build_s, "init_s": init_s,
         "deepseek-v3-bench": waves_i, "llama3-1b": waves_ii,

@@ -2,9 +2,9 @@
 //
 // The building blocks live here:
 //
-//  * mla_attend: the page loop shared by the MLA decode and prefill
-//    kernels.  One thread block attends the H heads of one query position
-//    over that sequence's latent pages, reached through the block table.
+//  * mla_attend: the MLA prefill kernel's (B's) page loop.  One thread
+//    block attends the H heads of one query position over that sequence's
+//    latent pages, reached through the block table.
 //    Each int8 page row is dequantized with its f32 scale and rounded to
 //    bf16 (the inline form of ops/pallas/quant_util.py make_page_dequant),
 //    scores and values read the SAME dequantized page (MQA: one latent row
@@ -20,11 +20,12 @@
 //  * moe_tile_gemm: a TM x 64 output tile of bf16 activations times int8
 //    weights (exact in bf16, |q| <= 127) on the tensor cores (wmma bf16
 //    fragments, f32 accumulation); the per-output-column scale is applied
-//    by the caller to the f32 result, as the TPU kernels do.  Every int8
-//    MoE kernel uses it (kernels D and E through moe_routed.cuh).
+//    by the caller to the f32 result, as the TPU kernels do.  Kernels D
+//    and E (through moe_routed.cuh) and F use it.
 //
-// No wgmma, no TMA, no software pipelining yet: correct first; those are
-// later work.
+// None of these loops is pipelined, and none uses wgmma or TMA.  Kernels
+// A and C have loops of their own that stream tiles through cp.async
+// rings (pipeline.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -122,8 +123,6 @@ __device__ __forceinline__ void mla_load4(const void* row, const float* rscale,
 //   cache     [slots, F] one layer plane (int8 or bf16); cscale [slots, SW]
 //   bt_row    the sequence's block table
 //   n_keys    keys at positions [0, n_keys) are attended (causal bound)
-//   new_pos   key position read from new_row/new_scale instead of the
-//             cache (the decode kernel's fresh row), or -1
 //   out       [H, F] bf16
 // Requires F % 16 == 0, bs % 16 == 0, (F / SW) % 4 == 0.  Both dots run on
 // the tensor cores (bf16 wmma, f32 accumulation): scores [16, bs] =
@@ -132,9 +131,7 @@ template <bool QUANT>
 __device__ void mla_attend(const bf16* __restrict__ q_in, float scale, int H,
                            int F, int bs, int SW, const void* cache,
                            const float* cscale, const int* __restrict__ bt_row,
-                           int n_keys, int new_pos, const void* new_row,
-                           const float* new_scale, bf16* __restrict__ out,
-                           char* smem) {
+                           int n_keys, bf16* __restrict__ out, char* smem) {
   namespace wmma = nvcuda::wmma;
   constexpr int R = kMlaMaxHeads;
   const int tid = threadIdx.x;
@@ -187,15 +184,10 @@ __device__ void mla_attend(const bf16* __restrict__ q_in, float scale, int H,
     for (int i = tid; i < nk * F / 4; i += blockDim.x) {
       const int r = (4 * i) / F;
       const int f = 4 * i - r * F;
-      const int key = j * bs + r;
-      if (key == new_pos) {
-        mla_load4<QUANT>(new_row, new_scale, f, group, page_s + r * F + f);
-      } else {
-        const long long slot = base + r;
-        mla_load4<QUANT>(static_cast<const char*>(cache) + slot * F * esz,
-                         QUANT ? cscale + slot * SW : nullptr, f, group,
-                         page_s + r * F + f);
-      }
+      const long long slot = base + r;
+      mla_load4<QUANT>(static_cast<const char*>(cache) + slot * F * esz,
+                       QUANT ? cscale + slot * SW : nullptr, f, group,
+                       page_s + r * F + f);
     }
     __syncthreads();
 

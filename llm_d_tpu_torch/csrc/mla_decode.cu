@@ -44,16 +44,16 @@ constexpr int kMaxSmem = 232448;        // dynamic shared memory of a block
 constexpr int kMaxGroups = 3;           // 32-column groups a warp: F <= 768
 
 // Dynamic shared memory, each part 128-byte aligned:
-//   q [16, F+8] bf16 | NBUF pages [bs, F*esz + 16] | NBUF scales [bs, SW]
-//   f32 | scores [KW, 16, bs] f32 | p [16, bs+8] bf16 | m, l, corr [16].
+//   q [16, F+8] bf16 | 2 pages [bs, F*esz + 16] | 2 scales [bs, SW] f32 |
+//   scores [KW, 16, bs] f32 | p [16, bs+8] bf16 | m, l, corr [16] f32.
 struct DecSmem {
   size_t q, page, page_bytes, scl, s, pb, stats, total;
-  __host__ __device__ DecSmem(int F, int bs, int SW, int esz, int nbuf) {
+  __host__ __device__ DecSmem(int F, int bs, int SW, int esz) {
     q = 0;
     page = llmd::mla_align128(q + (size_t)R * (F + 8) * 2);
     page_bytes = (size_t)bs * (F * esz + 16);
-    scl = llmd::mla_align128(page + nbuf * page_bytes);
-    s = llmd::mla_align128(scl + (esz == 1 ? (size_t)nbuf * bs * SW * 4 : 0));
+    scl = llmd::mla_align128(page + 2 * page_bytes);
+    s = llmd::mla_align128(scl + (esz == 1 ? (size_t)2 * bs * SW * 4 : 0));
     pb = llmd::mla_align128(s + (size_t)score_parts(bs) * R * bs * 4);
     stats = llmd::mla_align128(pb + (size_t)R * (bs + 8) * 2);
     total = stats + 3 * R * 4;
@@ -94,7 +94,7 @@ __device__ __forceinline__ void page_quad(const char* row, const float* rs,
   }
 }
 
-template <bool QUANT, int NBUF>
+template <bool QUANT>
 __global__ void __launch_bounds__(kThreads, 2)
 mla_decode_split_kernel(const bf16* __restrict__ q,
                         const void* __restrict__ row_new,
@@ -137,7 +137,7 @@ mla_decode_split_kernel(const bf16* __restrict__ q,
         scale_plane[slot * SW + i] = nsc[i];
   }
 
-  const DecSmem lay(F, bs, SW, esz, NBUF);
+  const DecSmem lay(F, bs, SW, esz);
   bf16* q_s = reinterpret_cast<bf16*>(smem + lay.q);
   float* s_s = reinterpret_cast<float*>(smem + lay.s);
   bf16* pb_s = reinterpret_cast<bf16*>(smem + lay.pb);
@@ -210,10 +210,10 @@ mla_decode_split_kernel(const bf16* __restrict__ q,
   const int NT = bs / 8;                       // n8 key tiles of a page
   const int KW = DecSmem::score_parts(bs);
   for (int pg = p0; pg < p1; ++pg) {
-    const int b = NBUF == 2 ? (pg - p0) & 1 : 0;
+    const int b = (pg - p0) & 1;
     llmd::cp_async_wait<0>();
     __syncthreads();                  // page pg in; page pg-1 fully used
-    if (NBUF == 2 && pg + 1 < p1) issue(pg + 1, b ^ 1);
+    if (pg + 1 < p1) issue(pg + 1, b ^ 1);
     llmd::cp_async_commit();
     const char* page = smem + lay.page + b * lay.page_bytes;
     const float* scl =
@@ -317,11 +317,6 @@ mla_decode_split_kernel(const bf16* __restrict__ q,
                          llmd::pack_bf16(v8[j], v9[j]));
       }
     }
-    if (NBUF == 1 && pg + 1 < p1) {
-      __syncthreads();                // every warp is done with the page
-      issue(pg + 1, 0);
-      llmd::cp_async_commit();
-    }
   }
 
   // Partials of this range: the unnormalised accumulator, m and l.
@@ -386,32 +381,31 @@ mla_decode_combine_kernel(const float* __restrict__ part_acc,
   }
 }
 
-template <bool QUANT, int NBUF>
+template <bool QUANT>
 int launch(const void* q, const void* row_new, const void* row_scale_new,
            void* cache, void* cscale, const void* block_tables,
-           const void* seq_lens, void* out, void* part_acc, void* part_ml,
+           const void* seq_lens, void* out, float* part_acc, float* part_ml,
            int S, int H, int F, int SW, int bs, int B, long long slots,
            int layer, float scale, int NS, size_t smem, cudaStream_t stream) {
   static bool ready = false;
   if (!ready) {
     const cudaError_t err = cudaFuncSetAttribute(
-        mla_decode_split_kernel<QUANT, NBUF>,
+        mla_decode_split_kernel<QUANT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err != cudaSuccess) return (int)err;
     ready = true;
   }
-  mla_decode_split_kernel<QUANT, NBUF><<<dim3(S, NS), kThreads, smem, stream>>>(
+  mla_decode_split_kernel<QUANT><<<dim3(S, NS), kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), row_new,
       static_cast<const float*>(row_scale_new), cache,
       static_cast<float*>(cscale), static_cast<const int*>(block_tables),
-      static_cast<const int*>(seq_lens), static_cast<float*>(part_acc),
-      static_cast<float*>(part_ml), H, F, SW, bs, B, slots, layer, scale, NS);
+      static_cast<const int*>(seq_lens), part_acc, part_ml, H, F, SW, bs, B,
+      slots, layer, scale, NS);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   mla_decode_combine_kernel<<<dim3(S, H), 128, 0, stream>>>(
-      static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
-      static_cast<const int*>(seq_lens), static_cast<bf16*>(out), H, F, bs,
-      NS);
+      part_acc, part_ml, static_cast<const int*>(seq_lens),
+      static_cast<bf16*>(out), H, F, bs, NS);
   return (int)cudaGetLastError();
 }
 
@@ -420,38 +414,33 @@ int launch(const void* q, const void* row_new, const void* row_scale_new,
 // q [S, H, F] bf16 (H <= 16, F % 32 == 0, F <= 768); row_new [S, F] and
 // row_scale_new [S, SW] f32 (int8) or bf16; the cache plane `layer` of
 // [L, slots, F] (+ [L, slots, SW] f32 scales); block_tables [S, B] and
-// seq_lens [S] int32; out [S, H, F] bf16; scratch part_acc [S, NS, H, F]
-// and part_ml [S, NS, H, 2] f32, NS <= 256.
+// seq_lens [S] int32; out [S, H, F] bf16; f32 scratch `part` of
+// S * NS * H * (F + 2) floats (the [S, NS, H, F] accumulators, then the
+// [S, NS, H, 2] running max and sum), NS <= 256.  Two page buffers must
+// fit in a block's shared memory.
 LLMD_EXPORT int llmd_mla_decode(const void* q, const void* row_new,
                                 const void* row_scale_new, void* cache,
                                 void* cscale, const void* block_tables,
-                                const void* seq_lens, void* out,
-                                void* part_acc, void* part_ml, int S, int H,
-                                int F, int SW, int bs, int B, long long slots,
-                                int layer, float scale, int quantized, int NS,
-                                void* stream) {
+                                const void* seq_lens, void* out, void* part,
+                                int S, int H, int F, int SW, int bs, int B,
+                                long long slots, int layer, float scale,
+                                int quantized, int NS, void* stream) {
   if (S == 0) return 0;
   if (H > R || F % 32 != 0 || F > 32 * 8 * kMaxGroups || bs % 16 != 0 ||
       NS < 1 || NS > kMaxSplits)
     return (int)cudaErrorInvalidValue;
+  const size_t smem = DecSmem(F, bs, SW, quantized ? 1 : 2).total;
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  float* part_acc = static_cast<float*>(part);
+  float* part_ml = part_acc + (long long)S * NS * H * F;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int esz = quantized ? 1 : 2;
-  const size_t two = DecSmem(F, bs, SW, esz, 2).total;
-  const size_t one = DecSmem(F, bs, SW, esz, 1).total;
-  if (one > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  const bool dbl = two <= (size_t)kMaxSmem;
-#define LLMD_MLA_LAUNCH(QT, NB)                                                \
-  return launch<QT, NB>(q, row_new, row_scale_new, cache, cscale,              \
-                        block_tables, seq_lens, out, part_acc, part_ml, S, H,  \
-                        F, SW, bs, B, slots, layer, scale, NS,                 \
-                        NB == 2 ? two : one, st)
-  if (quantized) {
-    if (dbl) LLMD_MLA_LAUNCH(true, 2);
-    LLMD_MLA_LAUNCH(true, 1);
-  }
-  if (dbl) LLMD_MLA_LAUNCH(false, 2);
-  LLMD_MLA_LAUNCH(false, 1);
-#undef LLMD_MLA_LAUNCH
+  if (quantized)
+    return launch<true>(q, row_new, row_scale_new, cache, cscale, block_tables,
+                        seq_lens, out, part_acc, part_ml, S, H, F, SW, bs, B,
+                        slots, layer, scale, NS, smem, st);
+  return launch<false>(q, row_new, row_scale_new, cache, cscale, block_tables,
+                       seq_lens, out, part_acc, part_ml, S, H, F, SW, bs, B,
+                       slots, layer, scale, NS, smem, st);
 }
 
 LLMD_EXPORT const char* llmd_error_string(int code) {

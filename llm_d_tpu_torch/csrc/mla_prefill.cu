@@ -4,8 +4,8 @@
 // the caller scatters this step's rows (and int8 scales) first.  One
 // thread block per (sequence, query position), i.e. a query tile of one
 // position x H heads; it walks the pages up to the causal bound
-// min(seq_len, q_pos + 1) with the shared page loop (common.cuh
-// mla_attend).  Pad query rows (q_pos == -1) and pad sequences give zeros.
+// min(seq_len, q_pos + 1) with the page loop in common.cuh
+// (mla_attend).  Pad query rows (q_pos == -1) and pad sequences give zeros.
 //
 // Bound on the H100: at prefill shapes the 4*H*F flops per (query, key)
 // pair make it compute-bound (tensor-core rate) once pages are shared by
@@ -42,7 +42,7 @@ mla_prefill_kernel(const bf16* __restrict__ qs, const int* __restrict__ q_pos,
   const float* scale_plane = QUANT ? cscale + plane * SW : nullptr;
   llmd::mla_attend<QUANT>(qs + row * H * F, scale, H, F, bs, SW, cache_plane,
                           scale_plane, block_tables + (long long)s * B, n_keys,
-                          -1, nullptr, nullptr, o, smem);
+                          o, smem);
 }
 
 template <bool QUANT>

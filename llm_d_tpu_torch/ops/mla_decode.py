@@ -2,7 +2,7 @@
 
 Replaces the TPU kernel ``llm_d_tpu/ops/pallas/mla_attention.py``
 ``mla_paged_decode_update``.  CUDA source: ``csrc/mla_decode.cu`` (with
-the page loop in ``csrc/common.cuh``).
+the ``cp.async`` and ``mma.sync`` primitives in ``csrc/pipeline.cuh``).
 
 What bounds it on the H100: bytes -- each live latent row (F int8 + one
 f32 scale) is read once per step for all H heads, about 2*H flops per
@@ -11,8 +11,8 @@ walking a sequence's pages one after another.  The design splits each
 sequence's pages into ranges, one block per (sequence, range), sized from
 the batch, the block-table width and the SM count (no host read of
 ``seq_lens``: ranges past a sequence's last page exit on the device); a
-second pass combines the ranges' partial softmax statistics in range
-order (no atomics).  Each int8 page stays int8 in shared memory, arrives
+second pass combines the ranges' partial softmax statistics, kept in one
+f32 scratch tensor, in range order (no atomics).  Each int8 page stays int8 in shared memory, arrives
 by ``cp.async`` while the previous one is multiplied, and is dequantized
 into the tensor-core fragments of both dots (MQA: one page serves every
 head).  The block that owns the page of position ``seq_len - 1`` writes
@@ -106,21 +106,17 @@ def mla_paged_decode_update_plain(
 
 _VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
-_ARGTYPES = [_VP] * 10 + [_I] * 6 + [_LL, _I, _F, _I, _I, _VP]
+_ARGTYPES = [_VP] * 9 + [_I] * 6 + [_LL, _I, _F, _I, _I, _VP]
 _MAX_SPLITS = 256        # csrc/mla_decode.cu kMaxSplits
 _MAX_SPLIT_F = 768       # three 32-column value groups per warp
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def num_splits(S: int, B: int, device) -> int:
-    """Page ranges per sequence: enough (sequence, range) blocks for two
-    per SM, at most one range per block-table entry."""
-    sms = _sm_count(device.index if device.index is not None
-                    else torch.cuda.current_device())
+def num_splits(S: int, B: int, index: int) -> int:
+    """Page ranges per sequence on CUDA device ``index``: enough
+    (sequence, range) blocks for two per SM, at most one range per
+    block-table entry."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
     return max(1, min(B, _MAX_SPLITS, -(-2 * sms // max(S, 1))))
 
 
@@ -129,12 +125,14 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"mla_paged_decode_update: {msg}")
 
 
-def check_cache(check, q_like, kv_cache, kv_scale, block_size, layer):
+def check_cache(check, q_like, kv_cache, kv_scale, block_size, layer,
+                smem_bytes=None):
     """Checks shared by the MLA kernel wrappers: the stacked latent cache
     (int8 + f32 scale plane, or bf16), its row width against the queries'
-    ``[..., H, F]``, the layer index and the shared-memory need.  Returns
-    ``(cache3, scale3, slots, SW, layer)`` with 2-D caches viewed as one
-    plane."""
+    ``[..., H, F]``, the layer index and the shared-memory need, which
+    ``smem_bytes(F, block_size, SW, quantized)`` gives (default: kernel
+    B's page loop).  Returns ``(cache3, scale3, slots, SW, layer)`` with
+    2-D caches viewed as one plane."""
     H, F = q_like.shape[-2:]
     quantized = kv_scale is not None
     cache3 = kv_cache if kv_cache.ndim == 3 else kv_cache[None]
@@ -157,24 +155,43 @@ def check_cache(check, q_like, kv_cache, kv_scale, block_size, layer):
         check(cache3.dtype == torch.bfloat16, "bf16 cache expected")
     check(F % 16 == 0 and block_size % 16 == 0 and (F // SW) % 4 == 0,
           "tensor-core tiles need F % 16, block_size % 16, (F / SW) % 4")
-    smem = _smem_bytes(F, block_size)
+    smem = (smem_bytes or _smem_bytes)(F, block_size, SW, quantized)
     check(smem <= _build.MAX_SMEM_PER_BLOCK,
           f"needs {smem} B of shared memory")
     return cache3, scale3, slots, SW, li
 
 
-def _smem_bytes(F: int, bs: int) -> int:
-    """Dynamic shared memory of the page loop (csrc/common.cuh MlaSmem):
-    q [16, F] bf16, page [bs, F] bf16, s [16, bs] f32, p [16, bs] bf16,
-    pv [16, F] f32, three [16] f32 statistics, each part 128-B aligned."""
-    def a(b):
-        return (b + 127) // 128 * 128
+def _align128(b: int) -> int:
+    return (b + 127) // 128 * 128
+
+
+def _smem_bytes(F: int, bs: int, SW: int = 1, quantized: bool = True) -> int:
+    """Dynamic shared memory of kernel B's page loop (csrc/common.cuh
+    MlaSmem): q [16, F] bf16, page [bs, F] bf16, s [16, bs] f32, p [16, bs]
+    bf16, pv [16, F] f32, three [16] f32 statistics, each part 128-B
+    aligned."""
+    a = _align128
     R = _MAX_HEADS
     page = a(R * F * 2)
     s = a(page + bs * F * 2)
     pb = a(s + R * bs * 4)
     pv = a(pb + R * bs * 2)
     stats = a(pv + R * F * 4)
+    return stats + 3 * R * 4
+
+
+def _split_smem_bytes(F: int, bs: int, SW: int, quantized: bool) -> int:
+    """Dynamic shared memory of kernel A's split pass (csrc/mla_decode.cu
+    DecSmem): q [16, F+8] bf16, two pages [bs, F*esz + 16] bytes and, for
+    int8, their [bs, SW] f32 scales, scores [KW, 16, bs] f32, p [16, bs+8]
+    bf16, three [16] f32 statistics, each part 128-B aligned."""
+    a = _align128
+    R, esz = _MAX_HEADS, 1 if quantized else 2
+    page = a(R * (F + 8) * 2)
+    s = a(a(page + 2 * bs * (F * esz + 16)) + (2 * bs * SW * 4 if quantized
+                                               else 0))
+    pb = a(s + (1 if bs >= 64 else 64 // bs) * R * bs * 4)
+    stats = a(pb + R * (bs + 8) * 2)
     return stats + 3 * R * 4
 
 
@@ -202,7 +219,8 @@ def mla_paged_decode_update(
     S, H, F = q_eff.shape
     quantized = kv_scale is not None
     cache3, scale3, slots, SW, li = check_cache(
-        _check, q_eff, kv_cache, kv_scale, block_size, layer)
+        _check, q_eff, kv_cache, kv_scale, block_size, layer,
+        _split_smem_bytes)
     _check(row_new.shape == (S, F) and row_new.dtype == cache3.dtype,
            "new rows must be [S, F] in the cache dtype")
     _check(block_tables.dtype == torch.int32 and seq_lens.dtype == torch.int32
@@ -215,27 +233,28 @@ def mla_paged_decode_update(
                "new row scales must be f32 [S, SW]")
         tensors += [scale3, row_scale_new]
     dev = q_eff.device
+    di = dev.index
     for t in tensors:
-        _check(t.device == dev and t.is_contiguous(),
+        _check(t.get_device() == di and t.is_contiguous(),
                "inputs must be contiguous and on one device")
     _check(F % 32 == 0 and F <= _MAX_SPLIT_F,
-           f"F={F}: the kernel takes F % 32 == 0, F <= {_MAX_SPLIT_F}")
+           "the kernel takes F % 32 == 0, F <= 768")
     _check(row_new.data_ptr() % 16 == 0 and cache3.data_ptr() % 16 == 0,
            "cache and new rows must be 16-byte aligned (cp.async rows)")
 
     B = block_tables.shape[1]
-    ns = num_splits(S, B, dev)
+    ns = num_splits(S, B, di)
     out = torch.empty_like(q_eff)
-    part_acc = torch.empty((S, ns, H, F), dtype=torch.float32, device=dev)
-    part_ml = torch.empty((S, ns, H, 2), dtype=torch.float32, device=dev)
+    # The ranges' partials: [S, ns, H, F] accumulators, then [S, ns, H, 2]
+    # running max and sum.
+    part = torch.empty(S * ns * H * (F + 2), dtype=torch.float32, device=dev)
     _build.launch(
         "mla_decode.cu", "llmd_mla_decode", _ARGTYPES,
         q_eff.data_ptr(), row_new.data_ptr(),
         row_scale_new.data_ptr() if quantized else None,
         cache3.data_ptr(), scale3.data_ptr() if quantized else None,
         block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-        part_acc.data_ptr(), part_ml.data_ptr(),
-        S, H, F, SW, block_size, B, slots, li,
+        part.data_ptr(), S, H, F, SW, block_size, B, slots, li,
         float(scale), int(quantized), ns, _build.stream_ptr(dev))
     mla_paged_decode_update.launches += 1
     return out

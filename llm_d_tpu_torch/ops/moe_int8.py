@@ -135,20 +135,22 @@ def dense_moe_int8(x, comb, layer: int, w_gate_q, w_gate_s, w_up_q, w_up_s,
     # group's routed experts are summed in order.
     groups = next(g for g in (16, 8, 4, 2, 1) if E % g == 0)
     _check(E // groups <= 64, f"E={E} needs groups of at most 64 experts")
-    _check(all(t.data_ptr() % 16 == 0 for t in (x, w_gate_q, w_up_q,
-                                                w_down_q)),
+    _check(x.data_ptr() % 16 == 0 and w_gate_q.data_ptr() % 16 == 0
+           and w_up_q.data_ptr() % 16 == 0 and w_down_q.data_ptr() % 16 == 0,
            "x and the int8 weights must be 16-byte aligned (cp.async rows)")
-    act = torch.empty((E, T, I), dtype=torch.bfloat16, device=x.device)
-    partial = torch.empty((groups, T, H), dtype=torch.float32,
+    # One scratch tensor: bf16 act [E, T, I], then f32 partial
+    # [groups, T, H] (I % 128 == 0 keeps it 16-byte aligned).
+    act_bytes = E * T * I * 2
+    scratch = torch.empty(act_bytes + groups * T * H * 4, dtype=torch.uint8,
                           device=x.device)
     out = torch.empty((T, H), dtype=torch.float32, device=x.device)
     _build.launch(
         "moe_dense_int8.cu", "llmd_moe_dense_int8", _ARGTYPES,
         x.data_ptr(), comb.data_ptr(), w_gate_q.data_ptr(), w_up_q.data_ptr(),
         w_down_q.data_ptr(), w_gate_s.data_ptr(), w_up_s.data_ptr(),
-        w_down_s.data_ptr(), act.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), T, E, H, I, li, groups, tm,
-        _build.stream_ptr(x.device))
+        w_down_s.data_ptr(), scratch.data_ptr(),
+        scratch.data_ptr() + act_bytes, out.data_ptr(), T, E, H, I, li,
+        groups, tm, _build.stream_ptr(x.device))
     dense_moe_int8.launches += 1
     return out
 

@@ -104,6 +104,20 @@ def test_mla_decode_kernel(dev, quantized, H, F, bs, lens):
             assert torch.equal(caches[i][1], caches[2][1])
 
 
+def test_mla_decode_kernel_rejects_pages_beyond_shared_memory(dev):
+    """Two bf16 pages of 128 rows at F = 640 do not fit in a block's shared
+    memory: the wrapper raises instead of launching."""
+    S, H, F, bs = 2, 16, 640, 128
+    kv = torch.zeros((1, 4 * bs, F), dtype=torch.bfloat16, device=dev)
+    bt = torch.tensor([[1], [2]], dtype=torch.int32, device=dev)
+    lens = torch.tensor([bs, 3], dtype=torch.int32, device=dev)
+    q = torch.zeros((S, H, F), dtype=torch.bfloat16, device=dev)
+    row = torch.zeros((S, F), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        mla_decode.mla_paged_decode_update(q, row, kv, bt, lens, bs, 0.1,
+                                           layer=0)
+
+
 @pytest.mark.parametrize("quantized,bs", [(True, 64), (False, 32)])
 def test_mla_prefill_kernel(dev, quantized, bs):
     g = _gen(2, dev)
