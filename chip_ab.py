@@ -1,25 +1,28 @@
 #!/usr/bin/env python3
-"""Kernels A, B and C of this checkout against another checkout of the
-port, on one CUDA card, on the same inputs and in turns.
+"""Kernels A-F of this checkout against another checkout of the port, on
+one CUDA card, on the same inputs and in turns.
 
     git archive <commit> llm_d_tpu_torch | tar -x -C _scratch_parent
     python3 chip_ab.py _scratch_parent
 
 (``_scratch*`` directories are gitignored.)  Serves deepseek-v3-bench as
-``chip_smoke.py`` does (waves 1-3) and records the inputs of the first
-launch of A for each batch size S, of B, and of C for each token count
-T.  Then:
+``chip_smoke.py`` does (waves 1-3, then wave 3 under
+``LLMD_MOE_PREFILL_KERNEL=grouped``) and records the inputs of the first
+launch of A for each batch size S, of B for each (S, Q), of C and E for
+each token count T, and of D and F.  Then:
 
 1. waves: ``ROUNDS`` rounds of waves 1, 2 and 3, each round with this
-   checkout's wrappers of A, B and C installed or the other's, in the
-   order this, other, other, this, ...: prefill seconds and decode tok/s
-   of every run, their medians and ranges, and whether each side's greedy
-   tokens repeated across its rounds;
-2. kernels: each recorded input (and A on 8 sequences x 4096 keys)
-   through both checkouts' wrappers, eight times in the same order: eager
-   ms (``chip_smoke.py``'s ``ms``: 20 calls back to back, event-timed,
-   host cost included where it exceeds the kernel's), device ms and host
-   ms per call (``chip_smoke.device_ms``).
+   checkout's wrappers of A-F installed or the other's, in the order
+   this, other, other, this, ...: prefill seconds and decode tok/s of
+   every run, their medians, quartiles and ranges, and whether each
+   side's greedy tokens repeated across its rounds;
+2. kernels: each recorded input (and A on 8 sequences x 4096 keys, E on
+   the 8192-token step as one chunk) through both checkouts' wrappers:
+   A's and C's outputs (and A's cache splice) must be bit-equal between
+   the two, then eight timings in the same order: eager ms
+   (``chip_smoke.py``'s ``ms``: 20 calls back to back, event-timed, host
+   cost included where it exceeds the kernel's), device ms and host ms
+   per call (``chip_smoke.device_ms``).
 
 Prints ``{"ab_waves": ...}``, ``{"ab_kernels": ...}`` and the card's name
 and power limit.  The other checkout builds its kernels into its own
@@ -40,11 +43,42 @@ TARGETS = {            # name: (module under llm_d_tpu_torch.ops, wrapper)
     "mla_decode": ("mla_decode", "mla_paged_decode_update"),
     "mla_prefill": ("mla_prefill", "mla_flash_prefill"),
     "moe_dense_int8": ("moe_int8", "dense_moe_int8"),
+    "moe_routed_int8": ("moe_routed", "routed_moe_int8"),
+    "moe_streamed_int8": ("moe_routed_stream", "streamed_moe_int8"),
+    "moe_grouped_int8": ("moe_int8", "grouped_moe_int8"),
 }
 LABELS = {
     "mla_decode": lambda a, kw: f"S={a[0].shape[0]}",
+    "mla_prefill": lambda a, kw: f"S={a[0].shape[0]} Q={a[0].shape[1]}",
     "moe_dense_int8": lambda a, kw: f"T={a[0].shape[0]}",
+    "moe_streamed_int8": lambda a, kw: f"T={a[0].shape[0]}",
 }
+BIT_EQUAL = ("mla_decode", "moe_dense_int8")   # unchanged arithmetic
+
+
+def same_results(fns, args, kw, weights) -> bool:
+    """Whether the two wrappers ``fns`` give bit-equal outputs and leave
+    bit-equal inputs (kernel A splices the cache in place) on copies of
+    ``(args, kw)``."""
+    import torch
+    import chip_smoke as cs
+    res = []
+    for fn in fns:
+        a, k = cs.clone(args, weights), cs.clone(kw, weights)
+        res.append((fn(*a, **k), a, k))
+    torch.cuda.synchronize()
+    (o0, a0, k0), (o1, a1, k1) = res
+
+    def eq(x, y):
+        if isinstance(x, torch.Tensor):
+            return torch.equal(x, y)
+        if isinstance(x, dict):
+            return all(eq(x[n], y[n]) for n in x)
+        if isinstance(x, (list, tuple)):
+            return all(eq(u, v) for u, v in zip(x, y))
+        return x == y
+
+    return eq(o0, o1) and eq(a0, a1) and eq(k0, k1)
 
 
 def load_other(root: str) -> dict:
@@ -78,8 +112,9 @@ def load_other(root: str) -> dict:
 
 
 def spread(xs) -> dict:
-    return dict(median=statistics.median(xs), min=min(xs), max=max(xs),
-                runs=xs)
+    q1, _, q3 = statistics.quantiles(xs, n=4)
+    return dict(median=statistics.median(xs), q1=q1, q3=q3, min=min(xs),
+                max=max(xs), runs=xs)
 
 
 def main() -> int:
@@ -96,6 +131,7 @@ def main() -> int:
     import numpy as np
     import chip_smoke as cs
     from llm_d_tpu_torch.ops import _build
+    from llm_d_tpu_torch.ops import moe as moe_ops
 
     _build.build_all()
     other = load_other(sys.argv[1])
@@ -111,8 +147,11 @@ def main() -> int:
     waves = {"wave1": cs.WAVE1, "wave2": cs.WAVE2, "wave3": cs.WAVE3}
     prompts = {w: cs.prompts_for(rng, vocab, spec)
                for w, spec in waves.items()}
-    for w, spec in waves.items():
-        cs.run_wave(engine, prompts[w], spec["new"], f"rec-{w}")
+    with cs.bench_glue_recorder(moe_ops) as bench_glue:
+        for w, spec in waves.items():
+            cs.run_wave(engine, prompts[w], spec["new"], f"rec-{w}")
+    with cs.env_set("LLMD_MOE_PREFILL_KERNEL", "grouped"):
+        cs.run_wave(engine, prompts["wave3"], cs.WAVE3["new"], "rec-grouped")
     fns = {"this": {n: r.fn for n, r in recs.items()}, "other": other}
 
     def install(side):
@@ -139,6 +178,13 @@ def main() -> int:
     for side in fns:
         ab_waves[side]["tokens_repeat"] = repeat[side]
     cs.log(f"waves: {json.dumps(ab_waves)}")
+    for w in waves:
+        cs.log(f"{w}: " + "; ".join(
+            f"{side} prefill s {d['median']:.4f} [{d['q1']:.4f}-"
+            f"{d['q3']:.4f}] decode tok/s {t['median']:.1f} [{t['q1']:.1f}-"
+            f"{t['q3']:.1f}]" for side in fns
+            for d, t in [(ab_waves[side][w]["prefill_seconds"],
+                          ab_waves[side][w]["decode_tok_s"])]))
 
     # 2. kernels on the recorded inputs, in turns ---------------------------
     inputs = [(n, label, args, kw) for n, r in recs.items()
@@ -146,8 +192,16 @@ def main() -> int:
     first = next(iter(recs["mla_decode"].calls.values()))
     inputs.append(("mla_decode", "S=8 keys=4096",
                    *cs.long_decode_inputs(*first, S=8, keys=4096, seed=11)))
+    one_chunk = cs.bench_step_as_one_chunk(
+        moe_ops, mods["moe_streamed_int8"], bench_glue["args"])
+    inputs.append(("moe_streamed_int8",
+                   f"T={cs.BENCH_T} chunk_t={cs.BENCH_T}", *one_chunk))
     ab_kernels = []
     for n, label, args, kw in inputs:
+        if n in BIT_EQUAL and not same_results(
+                [fns[side][n] for side in fns], args, kw, weights):
+            raise RuntimeError(f"{n} [{label}]: outputs differ from the "
+                               f"other checkout's")
         res = {side: {"ms": [], "device_ms": [], "host_ms": []}
                for side in fns}
         copies = {side: (cs.clone(args, weights), cs.clone(kw, weights))

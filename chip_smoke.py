@@ -25,10 +25,11 @@ Phases (each raises on failure; the script then exits non-zero):
             prefill) must launch;
 4. kernels  each kernel against its plain PyTorch version on the inputs
             of its first launch in phases 2-3 (A: of each batch size S;
-            C: of each token count T; G and H: of each cache mode; A also
-            on 8 sequences x 4096 keys made from a seed; E also on the
-            bench's 8192-token step at the default 512-token chunks and as
-            one chunk), then timed against it;
+            B: of each (S, Q); C and E: of each token count T -- E's
+            T=8192 is the bench's step at the default 512-token chunks;
+            G and H: of each cache mode; A also on 8 sequences x 4096
+            keys made from a seed; E also on the bench's 8192-token step
+            as one chunk), then timed against it;
 5. check    logits of the first two layers at full width through the
             kernels against the CPU reference path with the same weights:
             deepseek-v3-bench on a 100-token and on a 1024-token prompt
@@ -407,6 +408,47 @@ def long_decode_inputs(args, kw, S: int, keys: int, seed: int):
         row_scale_new=row_s)
 
 
+@contextlib.contextmanager
+def env_set(name: str, value: str):
+    """Sets environment variable ``name`` inside the block."""
+    prev = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if prev is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = prev
+
+
+@contextlib.contextmanager
+def bench_glue_recorder(moe_ops):
+    """Keeps (in the dict it yields, under "args") the glue inputs of the
+    first ``BENCH_T``-token streamed MoE call inside the block."""
+    got = {}
+    real = moe_ops._streamed_int8_kernel_path
+
+    def glue(x, weights_, idx, quant, **kw):
+        if x.shape[0] == BENCH_T and not got:
+            got["args"] = (x.clone(), weights_.clone(), idx.clone(), quant)
+        return real(x, weights_, idx, quant, **kw)
+
+    moe_ops._streamed_int8_kernel_path = glue
+    try:
+        yield got
+    finally:
+        moe_ops._streamed_int8_kernel_path = real
+
+
+def bench_step_as_one_chunk(moe_ops, moe_routed_stream, glue_args):
+    """Kernel E's inputs for the recorded 8192-token MoE step laid out as
+    one chunk of ``BENCH_T`` rows."""
+    with capture(moe_routed_stream, "streamed_moe_int8") as seen:
+        moe_ops._streamed_int8_kernel_path(*glue_args, chunk_t=BENCH_T)
+    return seen[0]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -448,6 +490,7 @@ def main() -> int:
              replaces=pallas + "mla_attention.py:224"),
         dict(name="mla_prefill", mod=mla_prefill, fn="mla_flash_prefill",
              plain="mla_flash_prefill_plain", path="i",
+             label=lambda a, kw: f"S={a[0].shape[0]} Q={a[0].shape[1]}",
              source="llm_d_tpu_torch/csrc/mla_prefill.cu",
              replaces=pallas + "mla_prefill.py:165"),
         dict(name="moe_dense_int8", mod=moe_int8, fn="dense_moe_int8",
@@ -461,7 +504,8 @@ def main() -> int:
              replaces=pallas + "moe_routed.py:183"),
         dict(name="moe_streamed_int8", mod=moe_routed_stream,
              fn="streamed_moe_int8", plain="streamed_moe_int8_plain",
-             path="i", source="llm_d_tpu_torch/csrc/moe_streamed_int8.cu",
+             path="i", label=lambda a, kw: f"T={a[0].shape[0]}",
+             source="llm_d_tpu_torch/csrc/moe_streamed_int8.cu",
              replaces=pallas + "moe_routed_stream.py:124"),
         dict(name="moe_grouped_int8", mod=moe_int8, fn="grouped_moe_int8",
              plain="grouped_moe_int8_plain", path="i",
@@ -490,19 +534,6 @@ def main() -> int:
     recorders = {k["name"]: Recorder(k["mod"], k["fn"], weights,
                                      k.get("label"))
                  for k in kernels}
-    # The glue inputs of the bench's 8192-token step, to run kernel E on
-    # it at other chunk heights in phase 4.
-    bench_glue = {}
-    real_glue = moe_ops._streamed_int8_kernel_path
-
-    def glue(x, weights_, idx, quant, **kw):
-        if x.shape[0] == BENCH_T and not bench_glue:
-            bench_glue.update(args=(x.clone(), weights_.clone(), idx.clone(),
-                                    quant))
-        return real_glue(x, weights_, idx, quant, **kw)
-
-    moe_ops._streamed_int8_kernel_path = glue
-
     def reset_counts():
         for rec in recorders.values():
             rec.wrapped.launches = 0
@@ -523,30 +554,25 @@ def main() -> int:
     p3 = prompts_for(rng, vocab, WAVE3)
     waves_i = {}
     reset_counts()
-    tok1, waves_i["wave1"] = run_wave(engine, p1, WAVE1["new"], "w1")
-    log(f"wave 1: {json.dumps(waves_i['wave1'])}")
-    _, waves_i["wave2"] = run_wave(engine, p2, WAVE2["new"], "w2")
-    log(f"wave 2: {json.dumps(waves_i['wave2'])}")
-    tok3, waves_i["wave3"] = run_wave(engine, p3, WAVE3["new"], "w3")
-    log(f"wave 3: {json.dumps(waves_i['wave3'])}")
-    tok1b, waves_i["wave1_repeat"] = run_wave(engine, p1, WAVE1["new"],
-                                              "w1b")
-    log(f"wave 1 again: {json.dumps(waves_i['wave1_repeat'])}")
-    prev = os.environ.get("LLMD_MOE_PREFILL_KERNEL")
-    os.environ["LLMD_MOE_PREFILL_KERNEL"] = "grouped"
-    try:
-        tok3g, waves_i["wave3_grouped"] = run_wave(engine, p3, WAVE3["new"],
-                                                   "w3g")
-    finally:
-        if prev is None:
-            del os.environ["LLMD_MOE_PREFILL_KERNEL"]
-        else:
-            os.environ["LLMD_MOE_PREFILL_KERNEL"] = prev
-    waves_i["wave3_grouped"]["same_tokens_as_streamed"] = tok3g == tok3
-    log(f"wave 3 grouped: {json.dumps(waves_i['wave3_grouped'])}")
+    # The glue inputs of the bench's 8192-token step, to run kernel E on
+    # it as one chunk in phase 4.
+    with bench_glue_recorder(moe_ops) as bench_glue:
+        tok1, waves_i["wave1"] = run_wave(engine, p1, WAVE1["new"], "w1")
+        log(f"wave 1: {json.dumps(waves_i['wave1'])}")
+        _, waves_i["wave2"] = run_wave(engine, p2, WAVE2["new"], "w2")
+        log(f"wave 2: {json.dumps(waves_i['wave2'])}")
+        tok3, waves_i["wave3"] = run_wave(engine, p3, WAVE3["new"], "w3")
+        log(f"wave 3: {json.dumps(waves_i['wave3'])}")
+        tok1b, waves_i["wave1_repeat"] = run_wave(engine, p1, WAVE1["new"],
+                                                  "w1b")
+        log(f"wave 1 again: {json.dumps(waves_i['wave1_repeat'])}")
+        with env_set("LLMD_MOE_PREFILL_KERNEL", "grouped"):
+            tok3g, waves_i["wave3_grouped"] = run_wave(engine, p3, WAVE3["new"],
+                                                       "w3g")
+        waves_i["wave3_grouped"]["same_tokens_as_streamed"] = tok3g == tok3
+        log(f"wave 3 grouped: {json.dumps(waves_i['wave3_grouped'])}")
     launches = read_counts("i")
     log(f"launches (i): {json.dumps(launches)}")
-    moe_ops._streamed_int8_kernel_path = real_glue
     if tok1b != tok1:
         raise RuntimeError("wave 1 did not repeat token for token")
     if not bench_glue:
@@ -664,15 +690,13 @@ def main() -> int:
     first = next(iter(recorders["mla_decode"].calls.values()))
     check(decode, "S=8 keys=4096",
           *long_decode_inputs(*first, S=8, keys=4096, seed=11), count=False)
-    # Kernel E on the bench's 8192-token step: the default chunks and one.
+    # Kernel E on the bench's 8192-token step as one chunk (the default
+    # chunks are its recorded T=8192 launch).
     streamed = next(k for k in kernels if k["name"] == "moe_streamed_int8")
-    for chunk_t in (moe_ops.PREFILL_CHUNK_T, BENCH_T):
-        with capture(moe_routed_stream, "streamed_moe_int8") as seen:
-            moe_ops._streamed_int8_kernel_path(*bench_glue["args"],
-                                               chunk_t=chunk_t)
-        args, kw = seen[0]
-        check(streamed, f"T={BENCH_T} chunk_t={chunk_t}",
-              clone(args, weights), clone(kw, weights), count=False)
+    args, kw = bench_step_as_one_chunk(moe_ops, moe_routed_stream,
+                                       bench_glue["args"])
+    check(streamed, f"T={BENCH_T} chunk_t={BENCH_T}", clone(args, weights),
+          clone(kw, weights), count=False)
     for rec in recorders.values():
         setattr(rec.module, rec.name, rec.fn)
 

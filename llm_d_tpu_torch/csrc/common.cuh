@@ -2,30 +2,26 @@
 //
 // The building blocks live here:
 //
-//  * mla_attend: the MLA prefill kernel's (B's) page loop.  One thread
-//    block attends the H heads of one query position over that sequence's
-//    latent pages, reached through the block table.
-//    Each int8 page row is dequantized with its f32 scale and rounded to
-//    bf16 (the inline form of ops/pallas/quant_util.py make_page_dequant),
-//    scores and values read the SAME dequantized page (MQA: one latent row
-//    serves every head), both dots run on the tensor cores, and the
-//    softmax is the flash recurrence with one running max per page, in
-//    f32, exactly as the TPU kernels run it: q * scale and p are rounded
-//    to bf16 before their dots, sums stay f32.
-//
-//  * gqa_attend: the same page loop for the dense (GQA) decode and
-//    prefill kernels, over separate K and V caches, the G heads of one KV
-//    head at a time, with per-row or per-KV-head int8 scales.
+//  * gqa_attend: the page loop of the dense (GQA) decode and prefill
+//    kernels G and H, over separate K and V caches, the G heads of one KV
+//    head at a time, with per-row or per-KV-head int8 scales (the inline
+//    form of ops/pallas/quant_util.py make_page_dequant); both dots on the
+//    tensor cores (bf16 wmma), the flash recurrence in f32 with one
+//    running max per page, q * scale and p rounded to bf16 before their
+//    dots, as the TPU kernels run it.
 //
 //  * moe_tile_gemm: a TM x 64 output tile of bf16 activations times int8
 //    weights (exact in bf16, |q| <= 127) on the tensor cores (wmma bf16
 //    fragments, f32 accumulation); the per-output-column scale is applied
 //    by the caller to the f32 result, as the TPU kernels do.  Kernels D
-//    and E (through moe_routed.cuh) and F use it.
+//    (through moe_routed.cuh) and F use it.
 //
-// None of these loops is pipelined, and none uses wgmma or TMA.  Kernels
-// A and C have loops of their own that stream tiles through cp.async
-// rings (pipeline.cuh).
+//  * the MLA constants and helpers kernels A and B share (heads padded to
+//    one m16 tile, 128-byte alignment, zero rows).
+//
+// Neither loop here is pipelined or uses wgmma or TMA.  Kernels A, B, C
+// and E stream tiles through cp.async rings and run mma.sync on
+// fragments they build themselves (pipeline.cuh, mla_page.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -68,214 +64,13 @@ __device__ __forceinline__ float silu_f32(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// MLA page attention
+// MLA (kernels A and B)
 // ---------------------------------------------------------------------------
 
-constexpr int kMlaThreads = 256;
-constexpr int kMlaMaxHeads = 16;        // heads padded to one wmma row tile
-constexpr int kMlaMaxCols = 4;          // F <= kMlaThreads * kMlaMaxCols
+constexpr int kMlaMaxHeads = 16;        // heads padded to one m16 tile
 
 __host__ __device__ inline size_t mla_align128(size_t b) {
   return (b + 127) & ~size_t(127);
-}
-
-// Dynamic shared memory, each part 128-byte aligned:
-//   q [16, F] bf16 | page [bs, F] bf16 | s [16, bs] f32 | pb [16, bs] bf16 |
-//   pv [16, F] f32 | m, l, corr [16] f32.
-struct MlaSmem {
-  size_t q, page, s, pb, pv, stats, total;
-  __host__ __device__ MlaSmem(int F, int bs) {
-    const size_t R = kMlaMaxHeads;
-    q = 0;
-    page = mla_align128(q + R * F * 2);
-    s = mla_align128(page + (size_t)bs * F * 2);
-    pb = mla_align128(s + R * bs * 4);
-    pv = mla_align128(pb + R * bs * 2);
-    stats = mla_align128(pv + R * F * 4);
-    total = stats + 3 * R * 4;
-  }
-};
-
-__host__ __device__ inline size_t mla_smem_bytes(int F, int bs) {
-  return MlaSmem(F, bs).total;
-}
-
-// Four consecutive page elements (row, columns f..f+3) after the read-side
-// dequant: bf16(int8 * row scale), or the bf16 cache values as they are.
-template <bool QUANT>
-__device__ __forceinline__ void mla_load4(const void* row, const float* rscale,
-                                          int f, int group, bf16* dst) {
-  if (QUANT) {
-    const char4 v = *reinterpret_cast<const char4*>(
-        static_cast<const int8_t*>(row) + f);
-    dst[0] = __float2bfloat16((float)v.x * rscale[f / group]);
-    dst[1] = __float2bfloat16((float)v.y * rscale[(f + 1) / group]);
-    dst[2] = __float2bfloat16((float)v.z * rscale[(f + 2) / group]);
-    dst[3] = __float2bfloat16((float)v.w * rscale[(f + 3) / group]);
-  } else {
-    *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(
-        static_cast<const bf16*>(row) + f);
-  }
-}
-
-// Attends the H <= 16 heads of ONE query position.
-//   q_in      [H, F] bf16 raw absorbed query (global)
-//   cache     [slots, F] one layer plane (int8 or bf16); cscale [slots, SW]
-//   bt_row    the sequence's block table
-//   n_keys    keys at positions [0, n_keys) are attended (causal bound)
-//   out       [H, F] bf16
-// Requires F % 16 == 0, bs % 16 == 0, (F / SW) % 4 == 0.  Both dots run on
-// the tensor cores (bf16 wmma, f32 accumulation): scores [16, bs] =
-// q [16, F] . page^T, values [16, F] = bf16(p) [16, bs] . page.
-template <bool QUANT>
-__device__ void mla_attend(const bf16* __restrict__ q_in, float scale, int H,
-                           int F, int bs, int SW, const void* cache,
-                           const float* cscale, const int* __restrict__ bt_row,
-                           int n_keys, bf16* __restrict__ out, char* smem) {
-  namespace wmma = nvcuda::wmma;
-  constexpr int R = kMlaMaxHeads;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int esz = QUANT ? 1 : 2;
-  const int group = F / SW;
-
-  const MlaSmem lay(F, bs);
-  bf16* q_s = reinterpret_cast<bf16*>(smem + lay.q);
-  bf16* page_s = reinterpret_cast<bf16*>(smem + lay.page);
-  float* s_s = reinterpret_cast<float*>(smem + lay.s);
-  bf16* pb_s = reinterpret_cast<bf16*>(smem + lay.pb);
-  float* pv_s = reinterpret_cast<float*>(smem + lay.pv);
-  float* m_s = reinterpret_cast<float*>(smem + lay.stats);
-  float* l_s = m_s + R;
-  float* c_s = l_s + R;
-
-  // Pad heads to 16 rows with zeros; page rows past the live keys must
-  // hold finite values (p = 0 multiplies them), so the page starts zeroed.
-  for (int i = tid; i < R * F; i += blockDim.x) {
-    const int h = i / F;
-    q_s[i] = h < H ? __float2bfloat16(bf2f(q_in[i]) * scale)
-                   : __float2bfloat16(0.0f);
-  }
-  for (int i = tid; i < bs * F; i += blockDim.x)
-    page_s[i] = __float2bfloat16(0.0f);
-  for (int i = tid; i < R * bs; i += blockDim.x)
-    pb_s[i] = __float2bfloat16(0.0f);
-  for (int h = tid; h < R; h += blockDim.x) {
-    m_s[h] = kMaxInit;
-    l_s[h] = 0.0f;
-  }
-
-  float acc[kMlaMaxHeads][kMlaMaxCols];
-#pragma unroll
-  for (int h = 0; h < kMlaMaxHeads; ++h)
-#pragma unroll
-    for (int c = 0; c < kMlaMaxCols; ++c) acc[h][c] = 0.0f;
-
-  const int n_pages = (n_keys + bs - 1) / bs;
-  __syncthreads();
-
-  for (int j = 0; j < n_pages; ++j) {
-    const int nk = min(bs, n_keys - j * bs);
-    const long long base = (long long)bt_row[j] * bs;
-
-    // 1. Page rows [0, nk), dequantized to bf16, four columns a thread.
-    for (int i = tid; i < nk * F / 4; i += blockDim.x) {
-      const int r = (4 * i) / F;
-      const int f = 4 * i - r * F;
-      const long long slot = base + r;
-      mla_load4<QUANT>(static_cast<const char*>(cache) + slot * F * esz,
-                       QUANT ? cscale + slot * SW : nullptr, f, group,
-                       page_s + r * F + f);
-    }
-    __syncthreads();
-
-    // 2. Scores on the tensor cores: warp w computes key columns
-    //    [16w, 16w + 16) over the whole F.
-    for (int n0 = 16 * warp; n0 < bs; n0 += 16 * nwarps) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sc;
-      wmma::fill_fragment(sc, 0.0f);
-      for (int k0 = 0; k0 < F; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(a, q_s + k0, F);
-        wmma::load_matrix_sync(b, page_s + n0 * F + k0, F);
-        wmma::mma_sync(sc, a, b, sc);
-      }
-      wmma::store_matrix_sync(s_s + n0, sc, bs, wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    // 3. Online softmax, one warp per head: the page max updates the
-    //    running max, p = exp(s - m_new) (rounded to bf16 for the value
-    //    dot; l sums the f32 p), corr rescales what came before.
-    for (int h = warp; h < H; h += nwarps) {
-      float mx = kNegInf;
-      for (int r = lane; r < bs; r += 32) {
-        const float sv = r < nk ? s_s[h * bs + r] : kNegInf;
-        s_s[h * bs + r] = sv;
-        mx = fmaxf(mx, sv);
-      }
-      mx = warp_max(mx);
-      const float m_old = m_s[h];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.0f;
-      for (int r = lane; r < bs; r += 32) {
-        const float pr = expf(s_s[h * bs + r] - m_new);
-        sum += pr;
-        pb_s[h * bs + r] = __float2bfloat16(pr);
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        c_s[h] = corr;
-        l_s[h] = l_s[h] * corr + sum;
-        m_s[h] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // 4. Value dot on the same page, on the tensor cores.
-    for (int n0 = 16 * warp; n0 < F; n0 += 16 * nwarps) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> pv;
-      wmma::fill_fragment(pv, 0.0f);
-      for (int k0 = 0; k0 < bs; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, pb_s + k0, bs);
-        wmma::load_matrix_sync(b, page_s + k0 * F + n0, F);
-        wmma::mma_sync(pv, a, b, pv);
-      }
-      wmma::store_matrix_sync(pv_s + n0, pv, F, wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    // 5. acc = acc * corr + pv; thread owns columns tid + c * blockDim.
-#pragma unroll
-    for (int c = 0; c < kMlaMaxCols; ++c) {
-      const int f = tid + c * blockDim.x;
-      if (f < F) {
-#pragma unroll
-        for (int h = 0; h < kMlaMaxHeads; ++h)
-          if (h < H) acc[h][c] = acc[h][c] * c_s[h] + pv_s[h * F + f];
-      }
-    }
-    // The next page's loads overwrite page_s only after every warp has
-    // read it (step 4) -- the barrier above; pv_s and c_s are rewritten
-    // only after the next two barriers.
-  }
-
-#pragma unroll
-  for (int c = 0; c < kMlaMaxCols; ++c) {
-    const int f = tid + c * blockDim.x;
-    if (f < F) {
-#pragma unroll
-      for (int h = 0; h < kMlaMaxHeads; ++h)
-        if (h < H)
-          out[h * F + f] = __float2bfloat16(acc[h][c] / fmaxf(l_s[h], 1e-30f));
-    }
-  }
 }
 
 // Zero-fills an [H, F] output (pad rows: no live key).
@@ -288,6 +83,25 @@ __device__ __forceinline__ void mla_zero_out(bf16* out, int n) {
 // ---------------------------------------------------------------------------
 
 constexpr int kGqaThreads = 256;
+
+// Four consecutive cache elements (row, columns f..f+3) after the
+// read-side dequant: bf16(int8 * scale of column group f / group), or the
+// bf16 cache values as they are.
+template <bool QUANT>
+__device__ __forceinline__ void kv_load4(const void* row, const float* rscale,
+                                         int f, int group, bf16* dst) {
+  if (QUANT) {
+    const char4 v = *reinterpret_cast<const char4*>(
+        static_cast<const int8_t*>(row) + f);
+    dst[0] = __float2bfloat16((float)v.x * rscale[f / group]);
+    dst[1] = __float2bfloat16((float)v.y * rscale[(f + 1) / group]);
+    dst[2] = __float2bfloat16((float)v.z * rscale[(f + 2) / group]);
+    dst[3] = __float2bfloat16((float)v.w * rscale[(f + 3) / group]);
+  } else {
+    *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(
+        static_cast<const bf16*>(row) + f);
+  }
+}
 
 // Dynamic shared memory, each part 128-byte aligned:
 //   q [RT, D] bf16 | k [bs, D] bf16 | v [bs, D] bf16 | s [RT, bs] f32 |
@@ -401,15 +215,15 @@ __device__ void gqa_attend(const bf16* __restrict__ q, bf16* __restrict__ out,
       const int r = (4 * i) / D;
       const int f = 4 * i - r * D;
       if (j * bs + r == new_pos) {
-        mla_load4<QUANT>(k_new, ks_new, f, D, k_s + r * D + f);
-        mla_load4<QUANT>(v_new, vs_new, f, D, v_s + r * D + f);
+        kv_load4<QUANT>(k_new, ks_new, f, D, k_s + r * D + f);
+        kv_load4<QUANT>(v_new, vs_new, f, D, v_s + r * D + f);
       } else {
         const long long slot = base + r;
         const long long off = (slot * ld + col0) * esz;
-        mla_load4<QUANT>(static_cast<const char*>(k_plane) + off,
+        kv_load4<QUANT>(static_cast<const char*>(k_plane) + off,
                          QUANT ? ks_plane + slot * sw + scol : nullptr, f, D,
                          k_s + r * D + f);
-        mla_load4<QUANT>(static_cast<const char*>(v_plane) + off,
+        kv_load4<QUANT>(static_cast<const char*>(v_plane) + off,
                          QUANT ? vs_plane + slot * sw + scol : nullptr, f, D,
                          v_s + r * D + f);
       }

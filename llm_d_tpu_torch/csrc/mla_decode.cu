@@ -31,7 +31,7 @@
 // to bf16 in the mma.sync fragments of both dots: ~110 KB of shared memory
 // at F = 640, bs = 64, so two blocks share an SM.
 #include "common.cuh"
-#include "pipeline.cuh"
+#include "mla_page.cuh"
 
 namespace {
 
@@ -63,36 +63,6 @@ struct DecSmem {
     return bs >= 64 ? 1 : 64 / bs;
   }
 };
-
-// bf16 pair of page row `row` at columns f, f + 1 (f even), dequantized.
-template <bool QUANT>
-__device__ __forceinline__ uint32_t page_pair(const char* row, const float* rs,
-                                              int f, int group) {
-  if (QUANT) {
-    const uint32_t v = *reinterpret_cast<const uint16_t*>(row + f);
-    const float sc = rs[f / group];
-    return llmd::pack_bf16(llmd::s8_at(v, 0) * sc, llmd::s8_at(v, 1) * sc);
-  }
-  return *reinterpret_cast<const uint32_t*>(row + 2 * f);
-}
-
-// Columns f .. f + 3 of page row `row` (f % 4 == 0), dequantized.
-template <bool QUANT>
-__device__ __forceinline__ void page_quad(const char* row, const float* rs,
-                                          int f, int group, float (&v)[4]) {
-  if (QUANT) {
-    const uint32_t w = *reinterpret_cast<const uint32_t*>(row + f);
-    const float sc = rs[f / group];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) v[j] = llmd::s8_at(w, j) * sc;
-  } else {
-    const uint2 w = *reinterpret_cast<const uint2*>(row + 2 * f);
-    v[0] = __uint_as_float(w.x << 16);
-    v[1] = __uint_as_float(w.x & 0xffff0000u);
-    v[2] = __uint_as_float(w.y << 16);
-    v[3] = __uint_as_float(w.y & 0xffff0000u);
-  }
-}
 
 template <bool QUANT>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -236,8 +206,8 @@ mla_decode_split_kernel(const bf16* __restrict__ q,
         a[1] = *reinterpret_cast<const uint32_t*>(qa + 8 * LQ);
         a[2] = *reinterpret_cast<const uint32_t*>(qa + 8);
         a[3] = *reinterpret_cast<const uint32_t*>(qa + 8 * LQ + 8);
-        llmd::mma_bf16(d, a, page_pair<QUANT>(prow, rs, kk, group),
-                       page_pair<QUANT>(prow, rs, kk + 8, group));
+        llmd::mma_bf16(d, a, llmd::page_pair<QUANT>(prow, rs, kk, group),
+                       llmd::page_pair<QUANT>(prow, rs, kk + 8, group));
       }
       float* so = s_s + kp * R * bs + nt * 8 + 2 * qd;
       so[g * bs] = d[0];
@@ -303,14 +273,14 @@ mla_decode_split_kernel(const bf16* __restrict__ q,
         const int f = (warp + 8 * gi) * 32 + 4 * g;
         if ((warp + 8 * gi) * 32 >= F) break;
         float v0[4], v1[4], v8[4], v9[4];
-        page_quad<QUANT>(page + r0 * LDP, QUANT ? scl + r0 * SW : nullptr, f,
-                         group, v0);
-        page_quad<QUANT>(page + (r0 + 1) * LDP,
-                         QUANT ? scl + (r0 + 1) * SW : nullptr, f, group, v1);
-        page_quad<QUANT>(page + (r0 + 8) * LDP,
-                         QUANT ? scl + (r0 + 8) * SW : nullptr, f, group, v8);
-        page_quad<QUANT>(page + (r0 + 9) * LDP,
-                         QUANT ? scl + (r0 + 9) * SW : nullptr, f, group, v9);
+        const float* rs = QUANT ? scl + r0 * SW : nullptr;
+        llmd::page_quad<QUANT>(page + r0 * LDP, rs, f, group, v0);
+        llmd::page_quad<QUANT>(page + (r0 + 1) * LDP, QUANT ? rs + SW : nullptr,
+                               f, group, v1);
+        llmd::page_quad<QUANT>(page + (r0 + 8) * LDP,
+                               QUANT ? rs + 8 * SW : nullptr, f, group, v8);
+        llmd::page_quad<QUANT>(page + (r0 + 9) * LDP,
+                               QUANT ? rs + 9 * SW : nullptr, f, group, v9);
 #pragma unroll
         for (int j = 0; j < 4; ++j)
           llmd::mma_bf16(acc[gi][j], a, llmd::pack_bf16(v0[j], v1[j]),

@@ -117,66 +117,18 @@ __device__ __forceinline__ void load_step(char* st, const bf16* a_base,
   }
 }
 
-// The four signed bytes of w as exact floats, on the full-rate integer
-// and f32 pipes rather than the conversion unit (whose rate bounded the
-// loop): byte b + 128 becomes the low byte of 2^23's bit pattern, and
-// subtracting 2^23 + 128 leaves b.
-__device__ __forceinline__ void s8x4_to_f32(uint32_t w, float (&f)[4]) {
-  const uint32_t u = w ^ 0x80808080u;
-  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.0f;
-  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.0f;
-  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.0f;
-  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.0f;
-}
-
-// bf16 pair (lo in the lower half) of two floats holding integers of at
-// most 8 significant bits: their low 16 bits are zero, so the upper
-// halves are the exact bf16 values.
-__device__ __forceinline__ uint32_t pack_int_bf16(float lo, float hi) {
-  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
-}
-
-// The warp's share of one step: acc[mt][j] += A[m16 tile] . W[:, cols of
-// n8 tile j].  Thread (g, q) reads the 32-bit word of columns 4g .. 4g+3 of
-// its slice from rows 2q, 2q+1, 2q+8, 2q+9 and widens byte j into n8 tile
-// j, so tile j's local column g is the slice's column 4g + j.
+// The warp's share of one step (pipeline.cuh mma_int8_step over the
+// warp's m16 tiles, its matrix's 32-column slice and its K rows).
 template <class P, int TK>
 __device__ __forceinline__ void mma_step(const char* st, const WarpRole& r,
                                          float (&acc)[P::kMT][4][4]) {
-  const bf16* As = reinterpret_cast<const bf16*>(st);
+  const bf16* As = reinterpret_cast<const bf16*>(st) +
+                   r.ms * P::kMT * 16 * P::kLdA;
   const int8_t* Ws = reinterpret_cast<const int8_t*>(st + P::kABytes) +
-                     r.w * TK * P::kLdW + r.slice * 32 + 4 * r.g;
-#pragma unroll
-  for (int kk = r.ks * P::kKW; kk < (r.ks + 1) * P::kKW; kk += 16) {
-    const int8_t* wb = Ws + (kk + 2 * r.q) * P::kLdW;
-    const uint32_t w0 = *reinterpret_cast<const uint32_t*>(wb);
-    const uint32_t w1 = *reinterpret_cast<const uint32_t*>(wb + P::kLdW);
-    const uint32_t w8 = *reinterpret_cast<const uint32_t*>(wb + 8 * P::kLdW);
-    const uint32_t w9 = *reinterpret_cast<const uint32_t*>(wb + 9 * P::kLdW);
-    float f0[4], f1[4], f8[4], f9[4];
-    s8x4_to_f32(w0, f0);
-    s8x4_to_f32(w1, f1);
-    s8x4_to_f32(w8, f8);
-    s8x4_to_f32(w9, f9);
-    uint32_t b[4][2];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      b[j][0] = pack_int_bf16(f0[j], f1[j]);
-      b[j][1] = pack_int_bf16(f8[j], f9[j]);
-    }
-#pragma unroll
-    for (int mt = 0; mt < P::kMT; ++mt) {
-      const bf16* ab =
-          As + ((r.ms * P::kMT + mt) * 16 + r.g) * P::kLdA + kk + 2 * r.q;
-      uint32_t a[4];
-      a[0] = *reinterpret_cast<const uint32_t*>(ab);
-      a[1] = *reinterpret_cast<const uint32_t*>(ab + 8 * P::kLdA);
-      a[2] = *reinterpret_cast<const uint32_t*>(ab + 8);
-      a[3] = *reinterpret_cast<const uint32_t*>(ab + 8 * P::kLdA + 8);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) llmd::mma_bf16(acc[mt][j], a, b[j][0], b[j][1]);
-    }
-  }
+                     r.w * TK * P::kLdW + r.slice * 32;
+  llmd::mma_int8_step<1, P::kMT, P::kLdA, P::kLdW, 0>(
+      As, Ws, r.ks * P::kKW, (r.ks + 1) * P::kKW, r.g, r.q,
+      reinterpret_cast<float(&)[1][P::kMT][4][4]>(acc));
 }
 
 // Column (within the block's TN) of accumulator element e (0..3) of n8
@@ -201,30 +153,6 @@ __device__ __forceinline__ void store_acc(float* Cs, const WarpRole& r,
         const int m = (r.ms * P::kMT + mt) * 16 + r.g + (e >> 1) * 8;
         base[m * P::kLdC + acc_col(r, j, e)] = acc[mt][j][e];
       }
-}
-
-// The pipeline: N steps through a kStages ring; load(s, stage) issues step
-// s's copies, then each warp multiplies the stage in, and after(s) runs
-// once step s is in (pass 2 folds an expert's sum there).
-template <class P, class Load, class Mma, class After>
-__device__ __forceinline__ void run_ring(char* smem, int N, Load load,
-                                         Mma mma, After after) {
-#pragma unroll
-  for (int s = 0; s < P::kStages - 1; ++s) {
-    if (s < N) load(s, smem + s * P::kStage);
-    llmd::cp_async_commit();
-  }
-  for (int s = 0; s < N; ++s) {
-    llmd::cp_async_wait<P::kStages - 2>();
-    __syncthreads();                 // step s landed; stage s-1 is free
-    const int nx = s + P::kStages - 1;
-    if (nx < N) load(nx, smem + (nx % P::kStages) * P::kStage);
-    llmd::cp_async_commit();
-    mma(smem + (s % P::kStages) * P::kStage);
-    after(s);
-  }
-  llmd::cp_async_wait<0>();
-  __syncthreads();                   // the ring is free for the results
 }
 
 constexpr int kTK1 = 64;
@@ -257,7 +185,7 @@ dense_gate_up_kernel(const bf16* __restrict__ x, const float* __restrict__ comb,
   const bf16* a_base = x + (long long)t0 * H;
   const WarpRole r = warp_role<P>();
   float acc[P::kMT][4][4] = {};
-  run_ring<P>(
+  llmd::run_ring<P::kStages, P::kStage>(
       smem, H / kTK1,
       [&](int s, char* st) {
         load_step<P, TM, 2, kTK1, kTN1>(st, a_base, H, rows, s * kTK1, W, I,
@@ -325,7 +253,7 @@ dense_down_kernel(const bf16* __restrict__ act, const float* __restrict__ comb,
   const WarpRole r = warp_role<P>();
   float acc[P::kMT][4][4] = {};
   float out[P::kMT][4][4] = {};
-  run_ring<P>(
+  llmd::run_ring<P::kStages, P::kStage>(
       smem, n_live * steps,
       [&](int s, char* st) {
         const int e = live[s / steps];

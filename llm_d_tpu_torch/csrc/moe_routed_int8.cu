@@ -28,8 +28,8 @@ LLMD_EXPORT int llmd_moe_routed_int8(
     const void* us, const void* ds, void* act, void* y, void* out, int T, int k,
     int NT, int E, int H, int I, int layer, int rt, void* stream) {
   return llmd::routed_moe(rt, x, tok_pad, wslot, tile_expert, num_tiles, pos,
-                          nullptr, wg, wu, wd, gs, us, ds, act, y, out, T, k,
-                          NT, NT, 0, E, H, I, layer, stream);
+                          wg, wu, wd, gs, us, ds, act, y, out, T, k, NT, E, H,
+                          I, layer, stream);
 }
 
 LLMD_EXPORT const char* llmd_error_string(int code) {

@@ -129,10 +129,11 @@ def check_cache(check, q_like, kv_cache, kv_scale, block_size, layer,
                 smem_bytes=None):
     """Checks shared by the MLA kernel wrappers: the stacked latent cache
     (int8 + f32 scale plane, or bf16), its row width against the queries'
-    ``[..., H, F]``, the layer index and the shared-memory need, which
-    ``smem_bytes(F, block_size, SW, quantized)`` gives (default: kernel
-    B's page loop).  Returns ``(cache3, scale3, slots, SW, layer)`` with
-    2-D caches viewed as one plane."""
+    ``[..., H, F]``, the layer index and, when ``smem_bytes`` is given,
+    the shared-memory need ``smem_bytes(F, block_size, SW, quantized)``
+    (kernel B sizes its key tile itself: ``mla_prefill.key_tile``).
+    Returns ``(cache3, scale3, slots, SW, layer)`` with 2-D caches viewed
+    as one plane."""
     H, F = q_like.shape[-2:]
     quantized = kv_scale is not None
     cache3 = kv_cache if kv_cache.ndim == 3 else kv_cache[None]
@@ -155,29 +156,15 @@ def check_cache(check, q_like, kv_cache, kv_scale, block_size, layer,
         check(cache3.dtype == torch.bfloat16, "bf16 cache expected")
     check(F % 16 == 0 and block_size % 16 == 0 and (F // SW) % 4 == 0,
           "tensor-core tiles need F % 16, block_size % 16, (F / SW) % 4")
-    smem = (smem_bytes or _smem_bytes)(F, block_size, SW, quantized)
-    check(smem <= _build.MAX_SMEM_PER_BLOCK,
-          f"needs {smem} B of shared memory")
+    if smem_bytes is not None:
+        smem = smem_bytes(F, block_size, SW, quantized)
+        check(smem <= _build.MAX_SMEM_PER_BLOCK,
+              f"needs {smem} B of shared memory")
     return cache3, scale3, slots, SW, li
 
 
 def _align128(b: int) -> int:
     return (b + 127) // 128 * 128
-
-
-def _smem_bytes(F: int, bs: int, SW: int = 1, quantized: bool = True) -> int:
-    """Dynamic shared memory of kernel B's page loop (csrc/common.cuh
-    MlaSmem): q [16, F] bf16, page [bs, F] bf16, s [16, bs] f32, p [16, bs]
-    bf16, pv [16, F] f32, three [16] f32 statistics, each part 128-B
-    aligned."""
-    a = _align128
-    R = _MAX_HEADS
-    page = a(R * F * 2)
-    s = a(page + bs * F * 2)
-    pb = a(s + R * bs * 4)
-    pv = a(pb + R * bs * 2)
-    stats = a(pv + R * F * 4)
-    return stats + 3 * R * 4
 
 
 def _split_smem_bytes(F: int, bs: int, SW: int, quantized: bool) -> int:

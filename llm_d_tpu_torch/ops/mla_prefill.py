@@ -1,16 +1,21 @@
 """Kernel B: MLA causal flash prefill over the paged latent cache.
 
 Replaces the TPU kernel ``llm_d_tpu/ops/pallas/mla_prefill.py``
-``mla_flash_prefill``.  CUDA source: ``csrc/mla_prefill.cu`` (page loop
-in ``csrc/common.cuh``, shared with kernel A).
+``mla_flash_prefill``.  CUDA source: ``csrc/mla_prefill.cu`` (page
+fragment reads in ``csrc/mla_page.cuh``, shared with kernel A).
 
-What bounds it on the H100: operations at prefill shapes (4*H*F flops per
-causal (query, key) pair against F + 4 bytes per key).  The design walks
-each query position's pages only up to its causal bound, dequantizes each
-page once into shared memory for both dots, and keeps the flash
-statistics in f32; both dots run on the tensor cores.  Each query
-position still has its own block, so every block re-reads and
-re-dequantizes its pages; multi-query tiles are the next step.
+What bounds it on the H100: bytes (each live query row read and written
+once, each page of a sequence read once; 4*H*F flops per causal (query,
+key) pair are a fifth of that time at the tensor-core rate).  The design
+gives a block a tile of two query positions (32 rows: positions x heads,
+one latent row serving all of them), walks the keys up to the tile's
+largest causal bound in key tiles with each row masked at its own, keeps
+the tiles as the cache stores them in shared memory (double-buffered
+``cp.async``) and dequantizes them in the ``mma.sync`` fragments of both
+dots; scores and ``p`` stay in registers, and the f32 statistics follow
+the TPU recurrence.  The key tile (:func:`key_tile`) is independent of
+the cache's block size: a key finds its page through the block table, so
+every block size the cache checks admit is served.
 
 Read-only: the caller scatters this step's rows and scales first.
 ``mla_flash_prefill_plain`` is the plain PyTorch version (CPU tests, and
@@ -26,7 +31,8 @@ import torch
 
 from llm_d_tpu_torch.ops import _build
 from llm_d_tpu_torch.ops.attention import NEG_INF
-from llm_d_tpu_torch.ops.mla_decode import _planes, check_cache
+from llm_d_tpu_torch.ops.mla_decode import (_MAX_HEADS, _align128, _planes,
+                                             check_cache)
 from llm_d_tpu_torch.ops.quant import dequantize_kv_block
 
 
@@ -80,7 +86,31 @@ def mla_flash_prefill_plain(
 
 _VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
-_ARGTYPES = [_VP] * 7 + [_I] * 7 + [_LL, _I, _F, _I, _VP]
+_KEY_TILES = (64, 32)
+_ARGTYPES = [_VP] * 7 + [_I] * 8 + [_LL, _I, _F, _I, _VP]
+
+
+def smem_bytes(F: int, kt: int, SW: int = 1, quantized: bool = True) -> int:
+    """Dynamic shared memory of the kernel at key tile ``kt``
+    (csrc/mla_prefill.cu PrefillSmem): the q tile [32, F+8] bf16 (two
+    positions x 16 heads), two key tiles [kt, F*esz + 16] bytes and, for
+    int8, their [kt, SW] f32 scales, the partial scores [4, 32, kt+8] f32,
+    each part 128-B aligned."""
+    a = _align128
+    rows, parts, esz = 2 * _MAX_HEADS, 4, 1 if quantized else 2
+    tile = a(rows * (F + 8) * 2)
+    xs = a(a(tile + 2 * kt * (F * esz + 16))
+           + (2 * kt * SW * 4 if quantized else 0))
+    return xs + parts * rows * (kt + 8) * 4
+
+
+def key_tile(F: int, SW: int = 1, quantized: bool = True) -> int:
+    """The kernel's key tile: 64 keys if that shared-memory plan fits a
+    block, else 32 (which fits every F <= 768), else 0."""
+    for kt in _KEY_TILES:
+        if smem_bytes(F, kt, SW, quantized) <= _build.MAX_SMEM_PER_BLOCK:
+            return kt
+    return 0
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -112,6 +142,12 @@ def mla_flash_prefill(
         _check, qs, kv_cache, kv_scale, block_size, layer)
     _check(q_pos.dtype == torch.int32 and q_pos.shape == (S, Q),
            "q_pos must be int32 [S, Q]")
+    _check(F % 128 == 0 and F <= 768, "the kernel takes F % 128 == 0, F <= 768")
+    kt = key_tile(F, SW, quantized)
+    _check(kt > 0, "no key tile fits a block's shared memory")
+    _check(cache3.data_ptr() % 16 == 0 and qs.data_ptr() % 16 == 0,
+           "the cache and the queries must be 16-byte aligned (cp.async "
+           "rows, 16-byte query loads)")
     _check(block_tables.dtype == torch.int32 and seq_lens.dtype == torch.int32
            and block_tables.shape[0] == S and seq_lens.shape == (S,),
            "block_tables/seq_lens must be int32 [S, B] / [S]")
@@ -128,7 +164,7 @@ def mla_flash_prefill(
         "mla_prefill.cu", "llmd_mla_prefill", _ARGTYPES,
         qs.data_ptr(), q_pos.data_ptr(), cache3.data_ptr(),
         scale3.data_ptr() if quantized else None, block_tables.data_ptr(),
-        seq_lens.data_ptr(), out.data_ptr(), S, Q, H, F, SW, block_size,
+        seq_lens.data_ptr(), out.data_ptr(), S, Q, H, F, SW, block_size, kt,
         block_tables.shape[1], slots, li, float(scale), int(quantized),
         _build.stream_ptr(dev))
     mla_flash_prefill.launches += 1

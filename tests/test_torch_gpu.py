@@ -118,11 +118,20 @@ def test_mla_decode_kernel_rejects_pages_beyond_shared_memory(dev):
                                            layer=0)
 
 
-@pytest.mark.parametrize("quantized,bs", [(True, 64), (False, 32)])
+@pytest.mark.parametrize("quantized,bs", [
+    # Key tile 64 for int8 rows, 32 for bf16 ones (F = 640): a tile that
+    # is one page, a part of one, or spans two or three.
+    (True, 64), (False, 32), (False, 64), (True, 96), (True, 32),
+    (False, 16)])
 def test_mla_prefill_kernel(dev, quantized, bs):
+    """Query tiles of two positions: Q odd (the last tile has one), a
+    tile that straddles a page edge and a causal bound, pad positions
+    inside a tile and at the end, a sequence shorter than Q, an empty
+    sequence; key tiles smaller and larger than a page.  Against the
+    plain version, and twice: bit-equal."""
     g = _gen(2, dev)
-    H, F, Q, L, layer = 16, 640, 32, 2, 1
-    seq_lens = [Q, bs + 9, 3 * bs, 0]
+    H, F, Q, L, layer = 16, 640, 33, 2, 1
+    seq_lens = [Q, bs + 9, 3 * bs, 0, 5]
     S = len(seq_lens)
     nblk = S * 4 + 1
     kv, ks = _cache(g, dev, quantized, L, nblk * bs, F)
@@ -132,13 +141,34 @@ def test_mla_prefill_kernel(dev, quantized, bs):
     q_pos[0] = torch.arange(Q, device=dev)
     q_pos[1, :20] = torch.arange(bs - 11, bs + 9, device=dev)
     q_pos[2] = torch.arange(3 * bs - Q, 3 * bs, device=dev)
+    q_pos[2, 7] = -1                       # a pad inside the tile (6, 7)
+    q_pos[4, :5] = torch.arange(5, device=dev)
     qs = torch.randn((S, Q, H, F), generator=g, device=dev).bfloat16()
-    got = mla_prefill.mla_flash_prefill(qs, q_pos, kv, bt, lens, bs, 0.13,
-                                        layer=layer, kv_scale=ks)
-    want = mla_prefill.mla_flash_prefill_plain(qs, q_pos, kv, bt, lens, bs,
-                                               0.13, layer=layer, kv_scale=ks)
+    args = (qs, q_pos, kv, bt, lens, bs, 0.13)
+    kw = dict(layer=layer, kv_scale=ks)
+    got = mla_prefill.mla_flash_prefill(*args, **kw)
+    again = mla_prefill.mla_flash_prefill(*args, **kw)
+    want = mla_prefill.mla_flash_prefill_plain(*args, **kw)
+    torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), **TOL)
+    assert torch.equal(got, again)
     assert torch.all(got[q_pos < 0] == 0)
+
+
+def test_mla_prefill_kernel_rejects_misaligned_queries(dev):
+    """Queries at an odd bf16 offset are contiguous but not 16-byte
+    aligned: the wrapper raises instead of launching 16-byte loads."""
+    S, Q, H, F, bs = 1, 2, 16, 640, 64
+    kv = torch.zeros((1, 2 * bs, F), dtype=torch.bfloat16, device=dev)
+    bt = torch.tensor([[1]], dtype=torch.int32, device=dev)
+    lens = torch.tensor([2], dtype=torch.int32, device=dev)
+    q_pos = torch.tensor([[0, 1]], dtype=torch.int32, device=dev)
+    buf = torch.zeros(S * Q * H * F + 1, dtype=torch.bfloat16, device=dev)
+    qs = buf[1:].view(S, Q, H, F)
+    assert qs.is_contiguous()
+    with pytest.raises(ValueError, match="aligned"):
+        mla_prefill.mla_flash_prefill(qs, q_pos, kv, bt, lens, bs, 0.1,
+                                      layer=0)
 
 
 def _quant(g, dev, Lm, E, H, I):
@@ -225,25 +255,102 @@ def _spy(monkeypatch, module, name):
     return seen
 
 
-@pytest.mark.parametrize("T,chunk_t,rt", [(600, 512, 32), (1024, 1024, 64),
-                                          (2000, 256, 16)])
-def test_streamed_moe_kernel(dev, monkeypatch, T, chunk_t, rt):
-    """Kernel E through its glue (C = 2, 1 and 8 chunks) against its plain
-    version on the same metadata."""
-    from llm_d_tpu_torch.ops import moe_routed_stream
+@pytest.mark.parametrize("T,chunk_t,rt,routing", [
+    # Rows a block: 128 once the padded T reaches 2048 (k = 8, E = 64),
+    # else 64; tiles a row block in brackets.
+    (600, 512, 32, "topk"),           # T not a multiple of chunk_t (2)
+    (1024, 1024, 64, "topk"),         # (1)
+    (1792, 128, 16, "topk"),          # 14 chunks (4)
+    (2304, 256, 16, "topk"),          # (8)
+    (2048, 512, 32, "skewed"),        # one expert over every chunk (4)
+    (2000, 256, 16, "topk"),          # partial last chunk at rt 16 (8)
+    (8192, 512, 32, "topk"),          # the bench's step, 16 chunks (4)
+    (8192, 8192, 64, "topk"),         # ... as one chunk (2)
+])
+def test_streamed_moe_kernel(dev, monkeypatch, T, chunk_t, rt, routing):
+    """Kernel E through its glue against its plain version on the same
+    metadata: row blocks whose tiles come from several chunks, pad rows,
+    idle tiles, every row tile and both row-block heights; twice:
+    bit-equal."""
+    from llm_d_tpu_torch.ops import moe_routed_stream as MS
     g = _gen(5, dev)
     E, H, I, k = 64, 2048, 512, 8
     quant = _quant(g, dev, 2, E, H, I)
     quant["layer"] = 1
     x = torch.randn((T, H), generator=g, device=dev).bfloat16()
     w, idx = _routing(g, dev, T, E, k)
-    seen = _spy(monkeypatch, moe_routed_stream, "streamed_moe_int8")
+    if routing == "skewed":
+        idx[:, 0] = 5                      # ~T rows of expert 5
+        idx[:, 1:] = torch.where(idx[:, 1:] == 5, 6, idx[:, 1:])
+    seen = _spy(monkeypatch, MS, "streamed_moe_int8")
     got = M._streamed_int8_kernel_path(x, w, idx, quant, chunk_t=chunk_t,
                                        row_tile=rt)
-    want = moe_routed_stream.streamed_moe_int8_plain(*seen["args"],
-                                                     **seen["kw"])
+    args, kw = seen["args"], seen["kw"]
+    want = MS.streamed_moe_int8_plain(*args, **kw)
+    again = MS.streamed_moe_int8(*args, **kw)
+    torch.cuda.synchronize()
     assert _scaled_err(seen["out"], want) <= 1e-2
+    assert torch.equal(seen["out"], again)
     assert got.shape == (T, H) and torch.isfinite(got.float()).all()
+
+
+@pytest.mark.parametrize("T,chunk_t,rt,per_block", [
+    (600, 512, 32, 2), (2000, 256, 16, 8), (8192, 512, 32, 4),
+    (8192, 8192, 64, 2), (700, 256, 64, 1)])
+def test_streamed_row_blocks_kernel(dev, T, chunk_t, rt, per_block):
+    """Kernel E's grouping launch gives the plain grouping's table
+    exactly, on the glue's per-chunk layout."""
+    from llm_d_tpu_torch.ops import moe_routed_stream as MS
+    g = _gen(8, dev)
+    E, k = 64, 8
+    C = -(-T // chunk_t)
+    w, idx = _routing(g, dev, C * chunk_t, E, k)
+    *_, tile_e, num_tiles = M._sorted_tile_layout(
+        idx.reshape(C, -1), w.reshape(C, -1), k, E, rt)
+    tile_e = tile_e.reshape(-1).contiguous()
+    num_tiles = num_tiles.contiguous()
+    got = MS.expert_row_blocks(tile_e, num_tiles, E, per_block)
+    want = MS.expert_row_blocks_plain(tile_e, num_tiles, E, per_block)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_streamed_moe_kernel_skips_idle_row_blocks(dev):
+    """No routed row beyond one expert's: every other row block is idle
+    and exits, and the output matches the plain version."""
+    from llm_d_tpu_torch.ops import moe_routed_stream as MS
+    g = _gen(7, dev)
+    E, H, I, k, T = 64, 2048, 512, 2, 700
+    quant = _quant(g, dev, 1, E, H, I)
+    quant["layer"] = 0
+    x = torch.randn((T, H), generator=g, device=dev).bfloat16()
+    idx = torch.full((T, k), 9, dtype=torch.long, device=dev)
+    w = torch.rand((T, k), generator=g, device=dev)
+    before = MS.streamed_moe_int8.launches
+    got = M._streamed_int8_kernel_path(x, w, idx, quant, chunk_t=256,
+                                       row_tile=32)
+    want = M._dense_expert_ffn(x, w, idx, *M._dequant_layer(quant))
+    assert _scaled_err(got, want) <= 1e-2
+    assert MS.streamed_moe_int8.launches == before + 1
+
+
+def test_streamed_moe_kernel_rejects_misaligned_rows(dev, monkeypatch):
+    """x at an odd bf16 offset is contiguous but not 16-byte aligned: the
+    wrapper raises instead of launching cp.async row copies."""
+    from llm_d_tpu_torch.ops import moe_routed_stream as MS
+    g = _gen(9, dev)
+    E, H, I, k, T = 64, 2048, 512, 8, 256
+    quant = _quant(g, dev, 1, E, H, I)
+    quant["layer"] = 0
+    x = torch.randn((T, H), generator=g, device=dev).bfloat16()
+    w, idx = _routing(g, dev, T, E, k)
+    seen = _spy(monkeypatch, MS, "streamed_moe_int8")
+    M._streamed_int8_kernel_path(x, w, idx, quant, chunk_t=256, row_tile=32)
+    args = list(seen["args"])
+    buf = torch.zeros(args[0].numel() + 1, dtype=torch.bfloat16, device=dev)
+    args[0] = buf[1:].view_as(args[0]).copy_(args[0])
+    with pytest.raises(ValueError, match="aligned"):
+        MS.streamed_moe_int8(*args, **seen["kw"])
 
 
 @pytest.mark.parametrize("T,rt", [(600, 128), (2048, 256)])
@@ -392,14 +499,16 @@ def test_llama_engine_on_the_card_matches_the_cpu_reference(dev):
     assert FP.flash_prefill_paged.launches > launches[1]
 
 
-def test_engine_on_the_card_matches_the_cpu_reference(dev):
+@pytest.mark.parametrize("kv_cache_dtype", ["int8", "bf16"])
+def test_engine_on_the_card_matches_the_cpu_reference(dev, kv_cache_dtype):
     """Two layers of deepseek-v3-bench at full width: the first generated
     token of each request through the kernels equals the CPU reference's
-    (prefill through kernels B and D, decode through A and C)."""
+    (prefill through kernels B and D, decode through A and C), on an int8
+    and on a bf16 latent cache in 64-row pages."""
     cfg = dataclasses.replace(get_config("deepseek-v3-bench"), num_layers=2)
     kw = dict(model_config=cfg, block_size=64, num_blocks=32,
               max_num_seqs=8, max_num_batched_tokens=512,
-              quantization="int8", kv_cache_dtype="int8",
+              quantization="int8", kv_cache_dtype=kv_cache_dtype,
               enable_prefix_caching=False)
     card = EngineCore(EngineConfig(device="cuda", **kw))
     host = EngineCore(EngineConfig(device="cpu", **kw), params={

@@ -200,3 +200,36 @@ def test_mla_block_matches_jax(backend):
                                       np.asarray(kv_j)[:, bs:])
         np.testing.assert_array_equal(ks_t.numpy()[:, bs:],
                                       np.asarray(ks_j)[:, bs:])
+
+
+def test_prefill_shared_memory_plan():
+    """The host copy of kernel B's shared-memory plan (q tile of 2
+    positions x 16 heads, two key tiles, their scales, the score exchange
+    of 4 F parts) and the key tile it picks: 64 keys for int8 rows and 32
+    for bf16 ones at the bench's F = 640, since two bf16 tiles of 64 rows
+    do not fit.  The key tile does not depend on the block size, so the
+    shared cache check admits bf16 pages of 64 rows and int8 ones of 96."""
+    from llm_d_tpu_torch.ops import _build
+    plan = mla_prefill.smem_bytes
+    q_tile = 32 * 648 * 2
+    assert plan(640, 64, 1, True) == \
+        q_tile + 2 * 64 * 656 + 2 * 64 * 4 + 4 * 32 * 72 * 4
+    assert plan(640, 32, 1, False) == \
+        q_tile + 2 * 32 * 1296 + 4 * 32 * 40 * 4
+    assert plan(640, 64, 1, False) > _build.MAX_SMEM_PER_BLOCK
+    assert mla_prefill.key_tile(640, 1, True) == 64
+    assert mla_prefill.key_tile(640, 1, False) == 32
+    assert mla_prefill.key_tile(768, 1, False) == 32
+    q = torch.zeros((1, 2, 16, 640), dtype=torch.bfloat16)
+
+    def check(cond, msg):
+        if not cond:
+            raise ValueError(msg)
+
+    kv8 = torch.zeros((1, 192, 640), dtype=torch.int8)
+    scale = torch.zeros((1, 192, 1), dtype=torch.float32)
+    for bs in (64, 96):
+        mla_decode.check_cache(check, q, kv8, scale, bs, 0)
+    kv16 = torch.zeros((1, 128, 640), dtype=torch.bfloat16)
+    for bs in (16, 32, 64):
+        mla_decode.check_cache(check, q, kv16, None, bs, 0)

@@ -328,3 +328,53 @@ def test_routed_row_tile_knob(monkeypatch):
     assert TM._routed_row_tile(8, 100, 64) == 8
     monkeypatch.setenv("LLMD_MOE_ROUTED_ROW_TILE", "banana")
     assert TM._routed_row_tile(None, 100, 64) == 32
+
+
+@pytest.mark.parametrize("T,chunk_t,E,k,rt,per_block", [
+    (48, 16, 16, 8, 16, 8),      # several chunks, 8 tiles a row block
+    (40, 16, 8, 2, 8, 4),        # last chunk padded
+    (64, 64, 8, 2, 16, 2),       # one chunk
+    (32, 16, 16, 2, 16, 1),      # one tile a row block
+])
+def test_expert_row_blocks_cover_every_live_slot_once(T, chunk_t, E, k, rt,
+                                                      per_block):
+    """Kernel E's row blocks over the glue's per-chunk layout: every slot
+    of a populated tile lies in exactly one block, no idle tile appears,
+    a block holds one expert's tiles in expert-major, chunk-ascending
+    order, and -1 entries only trail a block."""
+    from llm_d_tpu_torch.ops.moe_routed_stream import expert_row_blocks
+    rng = np.random.default_rng(T + per_block)
+    C = -(-T // chunk_t)
+    idx, w = _routing(rng, C * chunk_t, k, E)
+    _, _, _, _, _, tile_e, num_tiles = TM._sorted_tile_layout(
+        _t(idx).reshape(C, -1), _t(w).reshape(C, -1), k, E, rt)
+    tile_e = tile_e.reshape(-1)
+    NT = tile_e.shape[0]
+    NT_c = NT // C
+    blocks = expert_row_blocks(tile_e, num_tiles, E, per_block)
+    assert blocks.dtype == torch.int32
+    assert blocks.shape == (min(NT, NT // per_block + E), per_block)
+    live = [t for t in range(NT) if t % NT_c < int(num_tiles[t // NT_c])]
+    slots = [t * rt + r for row in blocks.tolist() for t in row if t >= 0
+             for r in range(rt)]
+    assert sorted(slots) == [t * rt + r for t in live for r in range(rt)]
+    assert len(slots) == len(set(slots))
+    order = []
+    for row in blocks.tolist():
+        tiles = [t for t in row if t >= 0]
+        assert row == tiles + [-1] * (per_block - len(tiles))
+        assert len({int(tile_e[t]) for t in tiles}) <= 1
+        order += tiles
+    keys = [(int(tile_e[t]), t) for t in order]
+    assert keys == sorted(keys)
+
+
+def test_row_block_for_the_bench_steps():
+    """128 rows a block once the mean rows per expert reach 256 (the
+    bench's 3072- and 8192-token steps), 64 below (its 1024-token step),
+    never fewer than the row tile."""
+    from llm_d_tpu_torch.ops.moe_routed_stream import row_block_for
+    assert row_block_for(1024 * 8, 64, 32) == 64
+    assert row_block_for(3072 * 8, 64, 32) == 128
+    assert row_block_for(8192 * 8, 64, 64) == 128
+    assert row_block_for(100, 64, 64) == 64
