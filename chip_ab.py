@@ -8,18 +8,21 @@ one CUDA card, on the same inputs and in turns.
 (``_scratch*`` directories are gitignored.)  Serves deepseek-v3-bench as
 ``chip_smoke.py`` does (waves 1-3, then wave 3 under
 ``LLMD_MOE_PREFILL_KERNEL=grouped``) and records the inputs of the first
-launch of A for each batch size S, of B for each (S, Q), of C and E for
-each token count T, and of D and F.  Then:
+launch of A for each batch size S, of B for each (S, Q), of C, D and E
+for each token count T (D at [128, 2048] in wave 2), and of F (x_pad
+[81920, 2048] in the grouped wave 3).  Then:
 
-1. waves: ``ROUNDS`` rounds of waves 1, 2 and 3, each round with this
-   checkout's wrappers of A-F installed or the other's, in the order
-   this, other, other, this, ...: prefill seconds and decode tok/s of
-   every run, their medians, quartiles and ranges, and whether each
-   side's greedy tokens repeated across its rounds;
+1. waves: ``ROUNDS`` rounds of waves 1, 2, 3 and the grouped wave 3,
+   each round with this checkout's wrappers of A-F installed or the
+   other's, in the order this, other, other, this, ...: prefill seconds
+   and decode tok/s of every run, their medians, quartiles and ranges,
+   whether each side's greedy tokens repeated across its rounds, and
+   whether the two sides' tokens are the same wave by wave;
 2. kernels: each recorded input (and A on 8 sequences x 4096 keys, E on
    the 8192-token step as one chunk) through both checkouts' wrappers:
-   A's and C's outputs (and A's cache splice) must be bit-equal between
-   the two, then eight timings in the same order: eager ms
+   whether the outputs (and A's cache splice) are bit-equal between the
+   two, as A's and C's must be, then eight timings in the same order:
+   eager ms
    (``chip_smoke.py``'s ``ms``: 20 calls back to back, event-timed, host
    cost included where it exceeds the kernel's), device ms and host ms
    per call (``chip_smoke.device_ms``).
@@ -51,8 +54,10 @@ LABELS = {
     "mla_decode": lambda a, kw: f"S={a[0].shape[0]}",
     "mla_prefill": lambda a, kw: f"S={a[0].shape[0]} Q={a[0].shape[1]}",
     "moe_dense_int8": lambda a, kw: f"T={a[0].shape[0]}",
+    "moe_routed_int8": lambda a, kw: f"T={a[0].shape[0]}",
     "moe_streamed_int8": lambda a, kw: f"T={a[0].shape[0]}",
 }
+GROUPED = "wave3_grouped"      # wave 3 under LLMD_MOE_PREFILL_KERNEL=grouped
 BIT_EQUAL = ("mla_decode", "moe_dense_int8")   # unchanged arithmetic
 
 
@@ -144,14 +149,20 @@ def main() -> int:
             for n, (_, fn) in TARGETS.items()}
     rng = np.random.default_rng(0)
     vocab = engine.model_config.vocab_size
-    waves = {"wave1": cs.WAVE1, "wave2": cs.WAVE2, "wave3": cs.WAVE3}
+    waves = {"wave1": cs.WAVE1, "wave2": cs.WAVE2, "wave3": cs.WAVE3,
+             GROUPED: cs.WAVE3}
     prompts = {w: cs.prompts_for(rng, vocab, spec)
-               for w, spec in waves.items()}
+               for w, spec in waves.items() if w != GROUPED}
+    prompts[GROUPED] = prompts["wave3"]
+
+    def run(w, tag):
+        kernel = "grouped" if w == GROUPED else "streamed"
+        with cs.env_set("LLMD_MOE_PREFILL_KERNEL", kernel):
+            return cs.run_wave(engine, prompts[w], waves[w]["new"], tag)
+
     with cs.bench_glue_recorder(moe_ops) as bench_glue:
-        for w, spec in waves.items():
-            cs.run_wave(engine, prompts[w], spec["new"], f"rec-{w}")
-    with cs.env_set("LLMD_MOE_PREFILL_KERNEL", "grouped"):
-        cs.run_wave(engine, prompts["wave3"], cs.WAVE3["new"], "rec-grouped")
+        for w in waves:
+            run(w, f"rec-{w}")
     fns = {"this": {n: r.fn for n, r in recs.items()}, "other": other}
 
     def install(side):
@@ -166,9 +177,8 @@ def main() -> int:
     for i in range(ROUNDS):
         side = ORDER[i % len(ORDER)]
         install(side)
-        for w, spec in waves.items():
-            tok, stats = cs.run_wave(engine, prompts[w], spec["new"],
-                                     f"{side}{i}-{w}")
+        for w in waves:
+            tok, stats = run(w, f"{side}{i}-{w}")
             runs[side][w]["prefill_seconds"].append(stats["prefill_seconds"])
             runs[side][w]["decode_tok_s"].append(stats["decode_tok_s"])
             repeat[side] &= tokens[side].setdefault(w, tok) == tok
@@ -177,6 +187,8 @@ def main() -> int:
                        for w, ms in runs[side].items()} for side in fns}
     for side in fns:
         ab_waves[side]["tokens_repeat"] = repeat[side]
+    ab_waves["same_tokens"] = {w: tokens["this"][w] == tokens["other"][w]
+                               for w in waves}
     cs.log(f"waves: {json.dumps(ab_waves)}")
     for w in waves:
         cs.log(f"{w}: " + "; ".join(
@@ -198,8 +210,9 @@ def main() -> int:
                    f"T={cs.BENCH_T} chunk_t={cs.BENCH_T}", *one_chunk))
     ab_kernels = []
     for n, label, args, kw in inputs:
-        if n in BIT_EQUAL and not same_results(
-                [fns[side][n] for side in fns], args, kw, weights):
+        same = same_results([fns[side][n] for side in fns], args, kw,
+                            weights)
+        if n in BIT_EQUAL and not same:
             raise RuntimeError(f"{n} [{label}]: outputs differ from the "
                                f"other checkout's")
         res = {side: {"ms": [], "device_ms": [], "host_ms": []}
@@ -212,11 +225,11 @@ def main() -> int:
             dev, host = cs.device_ms(lambda: fn(*a, **k))
             res[side]["device_ms"].append(dev)
             res[side]["host_ms"].append(host)
-        row = dict(name=n, variant=label, **{
+        row = dict(name=n, variant=label, bit_equal=same, **{
             side: {m: spread(v) for m, v in r.items()}
             for side, r in res.items()})
         ab_kernels.append(row)
-        cs.log(f"{n} [{label}]: " + "; ".join(
+        cs.log(f"{n} [{label}]: bit-equal {same}; " + "; ".join(
             f"{side} ms {row[side]['ms']['median']:.4f} device "
             f"{row[side]['device_ms']['median']:.4f} host "
             f"{row[side]['host_ms']['median']:.4f}" for side in fns))

@@ -6,7 +6,8 @@
 Phases (each raises on failure; the script then exits non-zero):
 
 1. build    compile the eight CUDA kernels from llm_d_tpu_torch/csrc
-            (one nvcc per source, in parallel) and load them;
+            (six sources, one nvcc each, in parallel: D, E and F share
+            moe_streamed_int8.cu) and load them;
 2. path (i) serve deepseek-v3-bench at full width and depth (random
             weights from a seed) through EngineCore as bench.py configures
             it: int8 experts, int8 latent cache, block size 64, steps of
@@ -29,12 +30,27 @@ Phases (each raises on failure; the script then exits non-zero):
             T=8192 is the bench's step at the default 512-token chunks;
             G and H: of each cache mode; A also on 8 sequences x 4096
             keys made from a seed; E also on the bench's 8192-token step
-            as one chunk), then timed against it;
+            as one chunk; D also at T = 256 and 512, its 64-row blocks,
+            and F at 128-row tiles, made from a seed), then timed
+            against it;
 5. check    logits of the first two layers at full width through the
             kernels against the CPU reference path with the same weights:
             deepseek-v3-bench on a 100-token and on a 1024-token prompt
             (kernels B, D / B, E, then A, C), llama3-1b on a bf16 cache
-            (H, then G).
+            (H, then G);
+6. parity   the port's repairs against the reference: kernel A on bf16
+            latents in 128-row pages and int8 ones in 256-row pages (key
+            tiles of 64 and 128 rows) against its plain version, splices
+            exact, then phase 5's deepseek-v3-bench check (a 1024-token
+            prompt, then a decode step through A) on each; ``tiny`` (rows too
+            narrow for any kernel) served on the card through the chunked
+            attention path, a greedy wave twice (must repeat) with first
+            tokens equal to the CPU engine's on attn_backend="chunked";
+            a soft-capped decode batch through the chunked path against
+            the full-softmax reference (atol = rtol = 2e-2); Gumbel noise
+            of the threefry sampler drawn on the card for fixed seeds,
+            gen_idx values and step keys, bit-equal to the same draw on
+            the CPU.
 
 Launch counts: every count is set to 0 just before a path is driven and
 read just after it; kernels A-F count path (i), G and H path (ii).
@@ -52,8 +68,8 @@ alone.
 
     python3 chip_smoke.py --profile
 
-adds a ``{"profile": ...}`` line: four wave-1 decode steps and the
-8192-token wave-3 prefill step of deepseek-v3-bench under
+adds a ``{"profile": ...}`` line: four wave-1 and four wave-2 decode
+steps and the 8192-token wave-3 prefill step of deepseek-v3-bench under
 ``torch.profiler``, with the device's busy time, kernel launches and the
 largest kernels per step (a measurement, not part of the smoke's
 pass/fail contract).
@@ -336,10 +352,12 @@ def _profile_steps(engine, steps: int) -> dict:
              for n, m, c in kernels[:12]])
 
 
-def profile_waves(engine, decode_prompts, prefill_prompts) -> dict:
-    """Device busy time of four decode steps of ``decode_prompts`` (after
-    their prefill and one untraced decode step) and of the single
-    prefill step of ``prefill_prompts``."""
+def profile_waves(engine, decode_prompts, routed_prompts,
+                  prefill_prompts) -> dict:
+    """Device busy time of four decode steps of ``decode_prompts`` and of
+    ``routed_prompts`` (wave 2: kernel D) after their prefill and one
+    untraced decode step, and of the single prefill step of
+    ``prefill_prompts``."""
     from llm_d_tpu_torch.engine.request import Request
     from llm_d_tpu_torch.ops.sampling import SamplingParams
 
@@ -351,14 +369,16 @@ def profile_waves(engine, decode_prompts, prefill_prompts) -> dict:
             engine.add_request(r)
         return reqs
 
-    reqs = add(decode_prompts, "prof", 8)
-    while not all(r.output_token_ids for r in reqs):
-        engine.step()
-    engine.step()                         # one decode step outside the trace
-    out = dict(decode=dict(_profile_steps(engine, 4),
-                           batch=len(decode_prompts)))
-    while engine.has_work():
-        engine.step()
+    out = {}
+    for key, prompts in (("decode", decode_prompts),
+                         ("decode_routed", routed_prompts)):
+        reqs = add(prompts, f"prof-{key}", 8)
+        while not all(r.output_token_ids for r in reqs):
+            engine.step()
+        engine.step()                     # one decode step outside the trace
+        out[key] = dict(_profile_steps(engine, 4), batch=len(prompts))
+        while engine.has_work():
+            engine.step()
     add(prefill_prompts, "profp", 2)
     out["prefill"] = dict(_profile_steps(engine, 1),
                           tokens=sum(map(len, prefill_prompts)))
@@ -384,28 +404,207 @@ def long_decode_inputs(args, kw, S: int, keys: int, seed: int):
     ``keys`` keys each on one int8 layer plane, at the row width, heads,
     block size, block-table width and scale of the recorded launch
     ``(args, kw)``."""
+    q0, _, cache, bt0 = args[:4]
+    return decode_inputs(True, kw["block_size"], [keys] * S, seed,
+                         H=q0.shape[1], F=cache.shape[-1], scale=kw["scale"],
+                         B=bt0.shape[1])
+
+
+def decode_inputs(quantized: bool, bs: int, seq_lens, seed: int,
+                  H: int = 16, F: int = 640, scale: float = 0.1,
+                  B: int = 0):
+    """Kernel A's inputs from a seed: ``seq_lens`` sequences on one latent
+    layer plane (int8 with a row scale, or bf16) holding just their pages
+    of ``bs`` rows, in random order; block tables ``B`` entries wide, or
+    as wide as the longest sequence needs."""
     import torch
     from llm_d_tpu_torch.ops.quant import quantize_kv_block
-    q0, _, cache, bt0 = args[:4]
-    dev = q0.device
-    H, F, B = q0.shape[1], cache.shape[-1], bt0.shape[1]
-    bs = kw["block_size"]
-    pages = keys // bs
+    dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    nblk = S * pages + 1
-    kv, ks = quantize_kv_block(torch.randn(
-        (1, nblk * bs, F), generator=g, device=dev).bfloat16(),
-        kw["kv_scale"].shape[-1])
-    bt = torch.zeros((S, B), dtype=torch.int32, device=dev)
-    bt[:, :pages] = (torch.randperm(nblk - 1, generator=g, device=dev)
-                     + 1).reshape(S, pages).to(torch.int32)
-    lens = torch.full((S,), keys, dtype=torch.int32, device=dev)
+    S = len(seq_lens)
+    pages = [-(-n // bs) for n in seq_lens]
+    nblk = sum(pages) + 1
+    kv = torch.randn((1, nblk * bs, F), generator=g, device=dev).bfloat16()
+    row = torch.randn((S, F), generator=g, device=dev).bfloat16()
+    ks = row_s = None
+    if quantized:
+        kv, ks = quantize_kv_block(kv, 1)
+        row, row_s = quantize_kv_block(row, 1)
+    perm = (torch.randperm(nblk - 1, generator=g, device=dev) + 1).to(
+        torch.int32)
+    bt = torch.zeros((S, max(B, max(pages))), dtype=torch.int32, device=dev)
+    for s, (start, n) in enumerate(zip(
+            [sum(pages[:i]) for i in range(S)], pages)):
+        bt[s, :n] = perm[start:start + n]
+    lens = torch.tensor(seq_lens, dtype=torch.int32, device=dev)
     q = torch.randn((S, H, F), generator=g, device=dev).bfloat16()
-    row, row_s = quantize_kv_block(torch.randn(
-        (S, F), generator=g, device=dev).bfloat16(), kw["kv_scale"].shape[-1])
     return (q, row, kv, bt, lens), dict(
-        block_size=bs, scale=kw["scale"], layer=0, kv_scale=ks,
+        block_size=bs, scale=scale, layer=0, kv_scale=ks,
         row_scale_new=row_s)
+
+
+def moe_inputs(mc, T: int, seed: int):
+    """``T`` tokens of hidden rows and top-k routing over the model's
+    experts, from a seed, on the card."""
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    E, k = mc.num_experts, mc.num_experts_per_tok
+    x = torch.randn((T, mc.hidden_size), generator=g,
+                    device=dev).bfloat16()
+    idx = torch.argsort(torch.rand((T, E), generator=g, device=dev),
+                        dim=1)[:, :k].to(torch.int32)
+    w = torch.rand((T, k), generator=g, device=dev) / k
+    return x, w, idx
+
+
+def large_page_reference(mc, params, quantized: bool, bs: int,
+                         wrappers) -> dict:
+    """``reference_check`` (a 1024-token prefill, then one decode step
+    through kernel A) on a latent cache in pages of ``bs`` rows, larger
+    than two of which fit A's shared memory; each of ``wrappers``
+    (``(module, name)`` of kernels A and B) must launch."""
+    engine_kw = dict(quantization="int8",
+                     kv_cache_dtype="int8" if quantized else "bf16",
+                     block_size=bs, num_blocks=1536 // bs + 1,
+                     max_num_seqs=8, max_num_batched_tokens=1024,
+                     enable_prefix_caching=False)
+    before = [getattr(m, f).launches for m, f in wrappers]
+    ref = reference_check(mc, params, engine_kw, [1024], 8)
+    ref.update(latent=engine_kw["kv_cache_dtype"], block_size=bs,
+               launches=[getattr(m, f).launches - b
+                         for (m, f), b in zip(wrappers, before)])
+    if min(ref["launches"]) == 0:
+        raise RuntimeError(f"kernel A or B did not launch: {ref}")
+    return ref
+
+
+def tiny_on_the_card() -> dict:
+    """``tiny`` (KVH*D = 32: no kernel takes its rows) on the card: a
+    greedy wave through the chunked attention path, served twice (must
+    repeat), first tokens against the CPU engine on the 'chunked'
+    backend."""
+    import numpy as np
+    import torch
+    from llm_d_tpu_torch.engine import EngineConfig, EngineCore
+    from llm_d_tpu_torch.ops import attention
+    kw = dict(model="tiny", block_size=32, num_blocks=128, max_num_seqs=16,
+              max_num_batched_tokens=512, enable_prefix_caching=False)
+    card = EngineCore(EngineConfig(device="cuda", **kw))
+    host = EngineCore(EngineConfig(device="cpu", attn_backend="chunked",
+                                   **kw),
+                      params=clone_to(card.params, "cpu"))
+    prompts = [np.random.default_rng(3).integers(
+        1, card.model_config.vocab_size, n).tolist()
+        for n in (7, 40, 100, 3, 64, 33)]
+    with capture(attention, "ragged_paged_attention_chunked") as seen:
+        tok, stats = run_wave(card, prompts, 16, "tiny")
+    tok2, _ = run_wave(card, prompts, 16, "tiny2")
+    ref = cpu_tokens(host, prompts, 16)
+    res = dict(wave=stats, repeat=tok2 == tok,
+               first_tokens_match_cpu=[t[0] for t in tok]
+               == [t[0] for t in ref],
+               tokens_match_cpu=tok == ref,
+               chunked_calls=len(seen),
+               chunked_on_cuda=all(a[0].is_cuda for a, _ in seen))
+    if not (res["repeat"] and res["first_tokens_match_cpu"] and seen
+            and res["chunked_on_cuda"]):
+        raise RuntimeError(f"tiny on the card: {res}")
+    return res
+
+
+def cpu_tokens(engine, prompts, max_new: int):
+    """Greedy tokens of ``prompts`` from a CPU engine."""
+    from llm_d_tpu_torch.engine.request import Request
+    from llm_d_tpu_torch.ops.sampling import SamplingParams
+    reqs = [Request(f"cpu-{i}", p, SamplingParams(
+        temperature=0.0, max_tokens=max_new, ignore_eos=True))
+        for i, p in enumerate(prompts)]
+    out = engine.generate(reqs)
+    return [out[r.request_id] for r in reqs]
+
+
+def soft_cap_through_chunked() -> dict:
+    """A soft-capped decode batch (no kernel takes one) through
+    ``attention_with_kv_update`` on the card, which sends it to the
+    chunked path, against the full-softmax reference on the same cache:
+    atol = rtol = 2e-2, the K/V rows written identically outside the
+    trash block."""
+    import torch
+    from llm_d_tpu_torch.ops import attention
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    H, KVH, D, bs, L = 32, 8, 64, 64, 2
+    lens = [1, 63, 64, 65, 700, 2000, 0, 0]
+    S, B = len(lens), 32
+    T = S
+    nblk = S * B + 1
+    caches = [torch.randn((L, nblk * bs, KVH * D), generator=g,
+                          device=dev).bfloat16() for _ in range(2)]
+    bt = (torch.randperm(nblk - 1, generator=g, device=dev)[:S * B] + 1
+          ).reshape(S, B).to(torch.int32)
+    sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    bt[sl == 0] = 0
+    pos = (sl - 1).clamp(min=0)
+    rows = torch.arange(S, device=dev)
+    slot = torch.where(sl > 0, bt[rows, pos // bs] * bs + pos % bs, 0)
+    batch = dict(positions=pos.int(), token_seq_ids=rows.int(),
+                 token_qpos=torch.zeros(T, dtype=torch.int32, device=dev),
+                 slot_mapping=slot.int(), block_tables=bt.contiguous(),
+                 seq_lens=sl,
+                 qtok_idx=torch.where(sl > 0, rows, T).int()[:, None])
+    q = torch.randn((T, H, D), generator=g, device=dev).bfloat16()
+    kn = torch.randn((T, KVH, D), generator=g, device=dev).bfloat16()
+    vn = torch.randn((T, KVH, D), generator=g, device=dev).bfloat16()
+    outs = []
+    with capture(attention, "ragged_paged_attention_chunked") as seen:
+        for backend in ("kernel", "reference"):
+            kc, vc = (c.clone() for c in caches)
+            outs.append((attention.attention_with_kv_update(
+                q, kn, vn, kc, vc, batch, block_size=bs, scale=0.125,
+                soft_cap=30.0, backend=backend, layer=1)))
+    torch.cuda.synchronize()
+    live = sl > 0
+    got, want = outs[0][0][live].float(), outs[1][0][live].float()
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+    # Block 0 is the trash block: the pad rows all write slot 0, in no
+    # fixed order, and no unmasked read touches it.
+    for a, b in zip(outs[0][1:], outs[1][1:]):
+        if not torch.equal(a[:, bs:], b[:, bs:]):
+            raise RuntimeError("soft-capped batch: cache writes differ")
+    if len(seen) != 1 or not torch.isfinite(outs[0][0]).all():
+        raise RuntimeError(f"soft-capped batch: {len(seen)} chunked calls")
+    return dict(shape=[T, H, D], seq_lens=lens, chunked_calls=len(seen),
+                max_abs_err=float((got - want).abs().max()))
+
+
+def noise_on_the_card() -> dict:
+    """The sampler's Gumbel noise drawn on the card and on the CPU for the
+    same rows: seeded (seeds 0, 7, 2**31 - 1 at several gen_idx) and
+    unseeded (step keys split from the engine key of seeds 0 and 3), bit
+    for bit."""
+    import torch
+    from llm_d_tpu_torch.ops import prng, sampling
+    seeds = torch.tensor([0, 7, 2**31 - 1, -1, 7, -1, 0, -1],
+                         dtype=torch.int32)
+    gen = torch.tensor([0, 1, 1000, 5, 15, 0, 3, 2], dtype=torch.int32)
+    rows = 0
+    for engine_seed in (0, 3):
+        key = prng.prng_key(engine_seed)
+        for _ in range(3):
+            key, step = prng.split(key)
+            cpu = sampling.row_noise(8, 64, torch.device("cpu"), step,
+                                     seeds, gen)
+            card = sampling.row_noise(8, 64, torch.device("cuda"), step,
+                                      seeds.cuda(), gen.cuda()).cpu()
+            if not torch.equal(cpu.view(torch.int32),
+                               card.view(torch.int32)):
+                bad = int((cpu.view(torch.int32)
+                           != card.view(torch.int32)).sum())
+                raise RuntimeError(f"Gumbel noise differs on the card in "
+                                   f"{bad} of {cpu.numel()} values")
+            rows += 8
+    return dict(rows=rows, values_per_row=64, bit_equal=True)
 
 
 @contextlib.contextmanager
@@ -500,7 +699,8 @@ def main() -> int:
              replaces=pallas + "moe_int8.py:182"),
         dict(name="moe_routed_int8", mod=moe_routed, fn="routed_moe_int8",
              plain="routed_moe_int8_plain", path="i",
-             source="llm_d_tpu_torch/csrc/moe_routed_int8.cu",
+             label=lambda a, kw: f"T={a[0].shape[0]}",
+             source="llm_d_tpu_torch/csrc/moe_streamed_int8.cu",
              replaces=pallas + "moe_routed.py:183"),
         dict(name="moe_streamed_int8", mod=moe_routed_stream,
              fn="streamed_moe_int8", plain="streamed_moe_int8_plain",
@@ -509,7 +709,7 @@ def main() -> int:
              replaces=pallas + "moe_routed_stream.py:124"),
         dict(name="moe_grouped_int8", mod=moe_int8, fn="grouped_moe_int8",
              plain="grouped_moe_int8_plain", path="i",
-             source="llm_d_tpu_torch/csrc/moe_grouped_int8.cu",
+             source="llm_d_tpu_torch/csrc/moe_streamed_int8.cu",
              replaces=pallas + "moe_int8.py:78"),
         dict(name="paged_decode", mod=paged_attention,
              fn="paged_attention_decode_update",
@@ -580,7 +780,7 @@ def main() -> int:
 
     prof = None
     if "--profile" in sys.argv[1:]:
-        prof = profile_waves(engine, p1, p3)
+        prof = profile_waves(engine, p1, p2, p3)
         log(f"profile: {json.dumps(prof)}")
 
     # 3. path (ii): llama3-1b on a bf16 and on int8 caches ------------------
@@ -697,6 +897,25 @@ def main() -> int:
                                        bench_glue["args"])
     check(streamed, f"T={BENCH_T} chunk_t={BENCH_T}", clone(args, weights),
           clone(kw, weights), count=False)
+    # Kernels D and F at the other row blocks they take, on the engine's
+    # first MoE layer with routing from a seed: D at T = 256 and 512
+    # (64-row blocks; the waves' T = 128 runs 32-row ones), F at 128-row
+    # tiles (the waves' grouped step runs 256-row ones).
+    quant = {n: engine.params["moe_layers"][n] for n in
+             ("w_gate_q", "w_gate_s", "w_up_q", "w_up_s", "w_down_q",
+              "w_down_s")}
+    quant["layer"] = 0
+    for name, glue, T, kwg in (
+            ("moe_routed_int8", moe_ops._routed_int8_kernel_path, 256, {}),
+            ("moe_routed_int8", moe_ops._routed_int8_kernel_path, 512, {}),
+            ("moe_grouped_int8", moe_ops._grouped_int8_kernel_path, 1024,
+             dict(row_tile=128))):
+        k = next(kk for kk in kernels if kk["name"] == name)
+        x, w, idx = moe_inputs(engine.model_config, T, seed=T)
+        with capture(k["mod"], k["fn"]) as seen:
+            glue(x, w, idx, quant, **kwg)
+        check(k, f"T={T}" + (" rt=128" if kwg else ""),
+              *clone(seen[0], weights), count=False)
     for rec in recorders.values():
         setattr(rec.module, rec.name, rec.fn)
 
@@ -722,6 +941,34 @@ def main() -> int:
         if not ref["top1_agree"] or ref["rel_max_err"] > 5e-2:
             raise RuntimeError(f"kernel path disagrees with the CPU "
                                f"reference: {ref}")
+
+    # 6. parity repairs ------------------------------------------------------
+    parity = dict(decode_pages=[], engines=[])
+    for quantized, bs in ((False, 128), (True, 256)):
+        label = f"{'int8' if quantized else 'bf16'} bs={bs}"
+        kt = mla_decode.decode_key_tile(640, bs, 1, quantized)
+        if not 0 < kt < bs:
+            raise RuntimeError(f"{label}: key tile {kt}")
+        a_args, a_kw = decode_inputs(quantized, bs, [5, kt, bs, 2 * bs + 3,
+                                                     9 * bs + 1, 0, 1, 0],
+                                     seed=bs)
+        check(decode, f"{label} kt={kt}", a_args, a_kw, count=False)
+        parity["decode_pages"].append(dict(label=label, key_tile=kt))
+        ref = large_page_reference(
+            mc, params, quantized, bs,
+            [(mla_decode, "mla_paged_decode_update"),
+             (mla_prefill, "mla_flash_prefill")])
+        log(f"reference: {json.dumps(ref)}")
+        if not ref["top1_agree"] or ref["rel_max_err"] > 5e-2:
+            raise RuntimeError(f"kernel path disagrees with the CPU "
+                               f"reference: {ref}")
+        parity["engines"].append(ref)
+    parity["tiny"] = tiny_on_the_card()
+    log(f"parity: tiny {json.dumps(parity['tiny'])}")
+    parity["soft_cap"] = soft_cap_through_chunked()
+    log(f"parity: soft cap {json.dumps(parity['soft_cap'])}")
+    parity["noise"] = noise_on_the_card()
+    log(f"parity: noise {json.dumps(parity['noise'])}")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

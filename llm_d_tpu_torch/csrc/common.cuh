@@ -10,17 +10,11 @@
 //    running max per page, q * scale and p rounded to bf16 before their
 //    dots, as the TPU kernels run it.
 //
-//  * moe_tile_gemm: a TM x 64 output tile of bf16 activations times int8
-//    weights (exact in bf16, |q| <= 127) on the tensor cores (wmma bf16
-//    fragments, f32 accumulation); the per-output-column scale is applied
-//    by the caller to the f32 result, as the TPU kernels do.  Kernels D
-//    (through moe_routed.cuh) and F use it.
-//
 //  * the MLA constants and helpers kernels A and B share (heads padded to
 //    one m16 tile, 128-byte alignment, zero rows).
 //
-// Neither loop here is pipelined or uses wgmma or TMA.  Kernels A, B, C
-// and E stream tiles through cp.async rings and run mma.sync on
+// The page loop here is not pipelined and uses neither wgmma nor TMA.
+// Kernels A-F stream tiles through cp.async rings and run mma.sync on
 // fragments they build themselves (pipeline.cuh, mla_page.cuh).
 #pragma once
 
@@ -313,123 +307,6 @@ __device__ void gqa_attend(const bf16* __restrict__ q, bf16* __restrict__ out,
     out[(r / G) * pos_stride + (r % G) * D + d] =
         __float2bfloat16(acc_s[i] / fmaxf(l_s[r], 1e-30f));
   }
-}
-
-// ---------------------------------------------------------------------------
-// int8-weight tile GEMM for the MoE kernels
-// ---------------------------------------------------------------------------
-
-constexpr int kMoeThreads = 256;        // 8 warps; 16 x 16 epilogue grid
-constexpr int kMoeTN = 64;              // output columns per block
-constexpr int kMoeLdW = kMoeTN + 8;     // bf16 row pitch of a W tile
-constexpr int kMoeLdC = kMoeTN + 4;     // f32 row pitch of the result tile
-
-// Contraction step: as deep as the 48 KB of static shared memory allows
-// (more weight bytes in flight per barrier; the loads are not pipelined).
-__host__ __device__ constexpr int moe_tk(int tm) { return tm <= 32 ? 128 : 64; }
-
-// acc[w][r][c] = sum_k A[row_ptr[m]][k] * W_w[k][col0 + n] for the output
-// element (m = ty + 16 r, n = tx * 4 + c) with ty = tid / 16, tx = tid % 16,
-// for w < NW weight matrices sharing the activation tile.  Rows whose
-// pointer is null read zeros.  The dots run on the tensor cores as bf16
-// 16x16x16 wmma fragments with f32 accumulation: the activations are bf16
-// already and int8 weights widen to bf16 exactly, so this is the
-// arithmetic of the TPU kernels' bf16 dots.  Requires K % moe_tk(TM) == 0,
-// col0 % kMoeTN == 0, ldw % 4 == 0, 8-byte aligned activation rows.
-template <int TM, int NW>
-__device__ void moe_tile_gemm(const bf16* const* row_ptr, const int8_t* const* W,
-                              int ldw, int col0, int K,
-                              float (&acc)[NW][TM / 16][4]) {
-  namespace wmma = nvcuda::wmma;
-  constexpr int RM = TM / 16;
-  constexpr int kFragsN = kMoeTN / 16;
-  constexpr int kFrags = NW * RM * kFragsN;
-  constexpr int kPerWarp = (kFrags + 7) / 8;
-  constexpr int TK = moe_tk(TM);
-  constexpr int LdA = TK + 8;           // bf16 row pitch of the A tile
-  constexpr int kBytesAW = (TM * LdA + NW * TK * kMoeLdW) * 2;
-  constexpr int kBytesC = NW * TM * kMoeLdC * 4;
-  __shared__ __align__(128) unsigned char raw[kBytesAW > kBytesC ? kBytesAW
-                                                                 : kBytesC];
-  bf16* As = reinterpret_cast<bf16*>(raw);              // [TM][LdA]
-  bf16* Ws = As + TM * LdA;                             // [NW][TK][kMoeLdW]
-  float* Cs = reinterpret_cast<float*>(raw);            // [NW][TM][kMoeLdC]
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> cf[kPerWarp];
-#pragma unroll
-  for (int i = 0; i < kPerWarp; ++i) wmma::fill_fragment(cf[i], 0.0f);
-
-  for (int k0 = 0; k0 < K; k0 += TK) {
-    for (int i = tid; i < TM * TK / 4; i += kMoeThreads) {
-      const int m = (4 * i) / TK;
-      const int kk = 4 * i - m * TK;
-      const bf16* p = row_ptr[m];
-      *reinterpret_cast<uint2*>(As + m * LdA + kk) =
-          p ? *reinterpret_cast<const uint2*>(p + k0 + kk) : make_uint2(0, 0);
-    }
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      for (int i = tid; i < TK * kMoeTN / 4; i += kMoeThreads) {
-        const int kk = i / (kMoeTN / 4);
-        const int c4 = i - kk * (kMoeTN / 4);
-        const char4 v = *reinterpret_cast<const char4*>(
-            W[w] + (long long)(k0 + kk) * ldw + col0 + c4 * 4);
-        bf16* dst = Ws + (w * TK + kk) * kMoeLdW + c4 * 4;
-        dst[0] = __float2bfloat16((float)v.x);
-        dst[1] = __float2bfloat16((float)v.y);
-        dst[2] = __float2bfloat16((float)v.z);
-        dst[3] = __float2bfloat16((float)v.w);
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kPerWarp; ++i) {
-      const int f = warp + 8 * i;
-      if (f < kFrags) {
-        const int w = f / (RM * kFragsN);
-        const int rem = f - w * RM * kFragsN;
-        const int m0 = (rem / kFragsN) * 16;
-        const int n0 = (rem % kFragsN) * 16;
-#pragma unroll
-        for (int kk = 0; kk < TK; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-          wmma::load_matrix_sync(af, As + m0 * LdA + kk, LdA);
-          wmma::load_matrix_sync(
-              bfr, Ws + (w * TK + kk) * kMoeLdW + n0, kMoeLdW);
-          wmma::mma_sync(cf[i], af, bfr, cf[i]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // Results through shared memory into the epilogue's thread mapping.
-#pragma unroll
-  for (int i = 0; i < kPerWarp; ++i) {
-    const int f = warp + 8 * i;
-    if (f < kFrags) {
-      const int w = f / (RM * kFragsN);
-      const int rem = f - w * RM * kFragsN;
-      const int m0 = (rem / kFragsN) * 16;
-      const int n0 = (rem % kFragsN) * 16;
-      wmma::store_matrix_sync(Cs + (w * TM + m0) * kMoeLdC + n0, cf[i],
-                              kMoeLdC, wmma::mem_row_major);
-    }
-  }
-  __syncthreads();
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-#pragma unroll
-  for (int w = 0; w < NW; ++w)
-#pragma unroll
-    for (int r = 0; r < RM; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        acc[w][r][c] = Cs[(w * TM + ty + 16 * r) * kMoeLdC + tx * 4 + c];
-  __syncthreads();                      // Cs aliases the next call's tiles
 }
 
 }  // namespace llmd

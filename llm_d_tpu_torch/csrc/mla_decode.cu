@@ -2,15 +2,20 @@
 //
 // Replaces ops/pallas/mla_attention.py mla_paged_decode_update (TPU).
 // Flash-decoding in two passes:
-//   split    one block per (sequence, range of its pages).  A sequence's
-//            n pages are cut into min(NS, n) ranges of equal size (NS, the
-//            grid's second extent, is sized by the wrapper from the batch
-//            and the SM count; ranges past a sequence's last page exit at
-//            once).  The block attends all H heads over its pages with the
-//            TPU kernel's recurrence -- bf16 q * scale, pages dequantized to
-//            bf16, one running max per page, bf16 p in the value dot, f32
+//   split    one block per (sequence, range of its key tiles).  A key
+//            tile is KT keys (the wrapper's `decode_key_tile`: the page
+//            when two pages fit beside the q tile, else the largest of
+//            128, 64, 32, 16 rows that divides the page and fits), so a
+//            tile lies inside one page and its rows are one run of slots
+//            block_table[k / bs] * bs + k % bs.  A sequence's n tiles are
+//            cut into min(NS, n) ranges of equal size (NS, the grid's
+//            second extent, is sized by the wrapper from the batch and the
+//            SM count; ranges past a sequence's last tile exit at once).
+//            The block attends all H heads over its tiles with the TPU
+//            kernel's recurrence -- bf16 q * scale, keys dequantized to
+//            bf16, one running max per tile, bf16 p in the value dot, f32
 //            sums -- and writes f32 partials: running max m, sum l and the
-//            unnormalised [H, F] accumulator.  The block owning the page of
+//            unnormalised [H, F] accumulator.  The block owning the tile of
 //            position len-1 also writes the sequence's new latent row
 //            (int8 payload + f32 scale, or bf16) into slot
 //            block_table[(len-1)/bs]*bs + (len-1)%bs; no other block reads
@@ -24,12 +29,14 @@
 // Bound on the H100: bytes.  Per step it reads each live latent row once
 // (F + 4 bytes at int8) plus the queries, about 2*H flops per byte, far
 // below the card's ~295 flop/byte ridge -- and at small batches the
-// latency of the chain of pages.  The design spreads a sequence's pages
-// over blocks, keeps each int8 page as int8 in shared memory (16-byte
-// cp.async rows, the next page in flight while this one is multiplied;
+// latency of the chain of tiles.  The design spreads a sequence's tiles
+// over blocks, keeps each int8 tile as int8 in shared memory (16-byte
+// cp.async rows, the next tile in flight while this one is multiplied;
 // tail rows zero-filled by the copy, no buffer clearing), and widens it
 // to bf16 in the mma.sync fragments of both dots: ~110 KB of shared memory
-// at F = 640, bs = 64, so two blocks share an SM.
+// at F = 640, KT = 64, so two blocks share an SM.  The key tile does not
+// depend on the cache's block size, so every page size the wrapper's
+// checks admit is served; at int8 pages of 64 rows the tile is the page.
 #include "common.cuh"
 #include "mla_page.cuh"
 
@@ -44,23 +51,23 @@ constexpr int kMaxSmem = 232448;        // dynamic shared memory of a block
 constexpr int kMaxGroups = 3;           // 32-column groups a warp: F <= 768
 
 // Dynamic shared memory, each part 128-byte aligned:
-//   q [16, F+8] bf16 | 2 pages [bs, F*esz + 16] | 2 scales [bs, SW] f32 |
-//   scores [KW, 16, bs] f32 | p [16, bs+8] bf16 | m, l, corr [16] f32.
+//   q [16, F+8] bf16 | 2 key tiles [KT, F*esz + 16] | 2 scales [KT, SW]
+//   f32 | scores [KW, 16, KT] f32 | p [16, KT+8] bf16 | m, l, corr [16] f32.
 struct DecSmem {
   size_t q, page, page_bytes, scl, s, pb, stats, total;
-  __host__ __device__ DecSmem(int F, int bs, int SW, int esz) {
+  __host__ __device__ DecSmem(int F, int kt, int SW, int esz) {
     q = 0;
     page = llmd::mla_align128(q + (size_t)R * (F + 8) * 2);
-    page_bytes = (size_t)bs * (F * esz + 16);
+    page_bytes = (size_t)kt * (F * esz + 16);
     scl = llmd::mla_align128(page + 2 * page_bytes);
-    s = llmd::mla_align128(scl + (esz == 1 ? (size_t)2 * bs * SW * 4 : 0));
-    pb = llmd::mla_align128(s + (size_t)score_parts(bs) * R * bs * 4);
-    stats = llmd::mla_align128(pb + (size_t)R * (bs + 8) * 2);
+    s = llmd::mla_align128(scl + (esz == 1 ? (size_t)2 * kt * SW * 4 : 0));
+    pb = llmd::mla_align128(s + (size_t)score_parts(kt) * R * kt * 4);
+    stats = llmd::mla_align128(pb + (size_t)R * (kt + 8) * 2);
     total = stats + 3 * R * 4;
   }
-  // Warps that share one key tile's score dot (bs < 64: split over F).
-  __host__ __device__ static int score_parts(int bs) {
-    return bs >= 64 ? 1 : 64 / bs;
+  // Warps that share one key tile's score dot (KT < 64: split over F).
+  __host__ __device__ static int score_parts(int kt) {
+    return kt >= 64 ? 1 : 64 / kt;
   }
 };
 
@@ -73,17 +80,17 @@ mla_decode_split_kernel(const bf16* __restrict__ q,
                         const int* __restrict__ seq_lens,
                         float* __restrict__ part_acc,
                         float* __restrict__ part_ml, int H, int F, int SW,
-                        int bs, int B, long long slots, int layer, float scale,
-                        int NS) {
+                        int bs, int KT, int B, long long slots, int layer,
+                        float scale, int NS) {
   extern __shared__ __align__(128) char smem[];
   const int s = blockIdx.x, sp = blockIdx.y;
   const int sl = seq_lens[s];
   if (sl <= 0) return;
-  const int n_pages = (sl + bs - 1) / bs;
-  const int ns = min(NS, n_pages);
+  const int n_tiles = (sl + KT - 1) / KT;
+  const int ns = min(NS, n_tiles);
   if (sp >= ns) return;
-  const int p0 = (int)((long long)sp * n_pages / ns);
-  const int p1 = (int)((long long)(sp + 1) * n_pages / ns);
+  const int p0 = (int)((long long)sp * n_tiles / ns);
+  const int p1 = (int)((long long)(sp + 1) * n_tiles / ns);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, qd = lane & 3;
@@ -99,7 +106,7 @@ mla_decode_split_kernel(const bf16* __restrict__ q,
   const float* nsc = QUANT ? row_scale_new + (long long)s * SW : nullptr;
   const int wp = sl - 1;
 
-  if (sp == ns - 1) {                     // owns the page of position wp
+  if (sp == ns - 1) {                     // owns the tile of position wp
     const long long slot = (long long)bt_row[wp / bs] * bs + wp % bs;
     for (int i = tid; i < RB; i += kThreads) cache_plane[slot * RB + i] = nr[i];
     if (QUANT)
@@ -107,43 +114,45 @@ mla_decode_split_kernel(const bf16* __restrict__ q,
         scale_plane[slot * SW + i] = nsc[i];
   }
 
-  const DecSmem lay(F, bs, SW, esz);
+  const DecSmem lay(F, KT, SW, esz);
   bf16* q_s = reinterpret_cast<bf16*>(smem + lay.q);
   float* s_s = reinterpret_cast<float*>(smem + lay.s);
   bf16* pb_s = reinterpret_cast<bf16*>(smem + lay.pb);
   float* m_s = reinterpret_cast<float*>(smem + lay.stats);
   float* l_s = m_s + R;
   float* c_s = l_s + R;
-  const int LQ = F + 8, LB = bs + 8;
+  const int LQ = F + 8, LB = KT + 8;
 
-  // Issues the copies of page pg into buffer b: rows past the live keys
-  // are zero-filled (finite: p = 0 multiplies them), position wp comes
-  // from the new row.
-  auto issue = [&](int pg, int b) {
+  // Issues the copies of key tile t into buffer b: keys t*KT .. t*KT+KT-1
+  // are one run of slots of page (t*KT)/bs (KT divides bs); rows past the
+  // live keys are zero-filled (finite: p = 0 multiplies them), and
+  // position wp and its scale come from the new row.
+  auto issue = [&](int t, int b) {
     char* dst = smem + lay.page + b * lay.page_bytes;
-    const int nk = min(bs, sl - pg * bs);
-    const long long base = (long long)bt_row[pg] * bs;
+    const int k0 = t * KT;
+    const int nk = min(KT, sl - k0);
+    const long long base = (long long)bt_row[k0 / bs] * bs + k0 % bs;
     const int chunks = RB / 16;
-    for (int i = tid; i < bs * chunks; i += kThreads) {
+    for (int i = tid; i < KT * chunks; i += kThreads) {
       const int r = i / chunks, c = i - r * chunks;
       const char* src = cache_plane;
       int n = 0;
       if (r < nk) {
         n = 16;
-        src = pg * bs + r == wp ? nr : cache_plane + (base + r) * RB;
+        src = k0 + r == wp ? nr : cache_plane + (base + r) * RB;
         src += c * 16;
       }
       llmd::cp_async16(dst + r * LDP + c * 16, src, n);
     }
     if (QUANT) {
-      float* sdst = reinterpret_cast<float*>(smem + lay.scl) + b * bs * SW;
-      for (int i = tid; i < bs * SW; i += kThreads) {
+      float* sdst = reinterpret_cast<float*>(smem + lay.scl) + b * KT * SW;
+      for (int i = tid; i < KT * SW; i += kThreads) {
         const int r = i / SW, c = i - r * SW;
         const float* src = scale_plane;
         int n = 0;
         if (r < nk) {
           n = 4;
-          src = (pg * bs + r == wp ? nsc : scale_plane + (base + r) * SW) + c;
+          src = (k0 + r == wp ? nsc : scale_plane + (base + r) * SW) + c;
         }
         llmd::cp_async4(sdst + i, src, n);
       }
@@ -177,20 +186,20 @@ mla_decode_split_kernel(const bf16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[gi][j][e] = 0.0f;
 
-  const int NT = bs / 8;                       // n8 key tiles of a page
-  const int KW = DecSmem::score_parts(bs);
+  const int NT = KT / 8;                       // n8 key groups of a tile
+  const int KW = DecSmem::score_parts(KT);
   for (int pg = p0; pg < p1; ++pg) {
     const int b = (pg - p0) & 1;
     llmd::cp_async_wait<0>();
-    __syncthreads();                  // page pg in; page pg-1 fully used
+    __syncthreads();                  // tile pg in; tile pg-1 fully used
     if (pg + 1 < p1) issue(pg + 1, b ^ 1);
     llmd::cp_async_commit();
     const char* page = smem + lay.page + b * lay.page_bytes;
     const float* scl =
-        QUANT ? reinterpret_cast<const float*>(smem + lay.scl) + b * bs * SW
+        QUANT ? reinterpret_cast<const float*>(smem + lay.scl) + b * KT * SW
               : nullptr;
 
-    // 1. Scores [16, bs] = q [16, F] . page^T: warp unit u takes key tile
+    // 1. Scores [16, KT] = q [16, F] . tile^T: warp unit u takes key group
     //    u % NT over the F steps k16 = u / NT (mod KW).
     for (int u = warp; u < NT * KW; u += 8) {
       const int nt = u % NT, kp = u / NT;
@@ -209,33 +218,33 @@ mla_decode_split_kernel(const bf16* __restrict__ q,
         llmd::mma_bf16(d, a, llmd::page_pair<QUANT>(prow, rs, kk, group),
                        llmd::page_pair<QUANT>(prow, rs, kk + 8, group));
       }
-      float* so = s_s + kp * R * bs + nt * 8 + 2 * qd;
-      so[g * bs] = d[0];
-      so[g * bs + 1] = d[1];
-      so[(g + 8) * bs] = d[2];
-      so[(g + 8) * bs + 1] = d[3];
+      float* so = s_s + kp * R * KT + nt * 8 + 2 * qd;
+      so[g * KT] = d[0];
+      so[g * KT + 1] = d[1];
+      so[(g + 8) * KT] = d[2];
+      so[(g + 8) * KT + 1] = d[3];
     }
     __syncthreads();
 
-    // 2. Online softmax, one warp per head: the page max updates the
+    // 2. Online softmax, one warp per head: the tile max updates the
     //    running max, p = exp(s - m_new) (rounded to bf16 for the value
     //    dot; l sums the f32 p), corr rescales what came before.
-    const int nk = min(bs, sl - pg * bs);
+    const int nk = min(KT, sl - pg * KT);
     for (int h = warp; h < H; h += 8) {
       float mx = llmd::kNegInf;
-      for (int r = lane; r < bs; r += 32) {
+      for (int r = lane; r < KT; r += 32) {
         float sv = 0.0f;
-        for (int kp = 0; kp < KW; ++kp) sv += s_s[(kp * R + h) * bs + r];
+        for (int kp = 0; kp < KW; ++kp) sv += s_s[(kp * R + h) * KT + r];
         sv = r < nk ? sv : llmd::kNegInf;
-        s_s[h * bs + r] = sv;
+        s_s[h * KT + r] = sv;
         mx = fmaxf(mx, sv);
       }
       mx = llmd::warp_max(mx);
       const float m_old = m_s[h];
       const float m_new = fmaxf(m_old, mx);
       float sum = 0.0f;
-      for (int r = lane; r < bs; r += 32) {
-        const float pr = expf(s_s[h * bs + r] - m_new);
+      for (int r = lane; r < KT; r += 32) {
+        const float pr = expf(s_s[h * KT + r] - m_new);
         sum += pr;
         pb_s[h * LB + r] = __float2bfloat16(pr);
       }
@@ -249,7 +258,7 @@ mla_decode_split_kernel(const bf16* __restrict__ q,
     }
     __syncthreads();
 
-    // 3. acc = acc * corr + bf16(p) [16, bs] . page [bs, F].
+    // 3. acc = acc * corr + bf16(p) [16, KT] . tile [KT, F].
     const float c_lo = c_s[g], c_hi = c_s[g + 8];
 #pragma unroll
     for (int gi = 0; gi < kMaxGroups; ++gi)
@@ -260,7 +269,7 @@ mla_decode_split_kernel(const bf16* __restrict__ q,
         acc[gi][j][2] *= c_hi;
         acc[gi][j][3] *= c_hi;
       }
-    for (int kk = 0; kk < bs; kk += 16) {
+    for (int kk = 0; kk < KT; kk += 16) {
       const bf16* pa = pb_s + g * LB + kk + 2 * qd;
       uint32_t a[4];
       a[0] = *reinterpret_cast<const uint32_t*>(pa);
@@ -316,7 +325,7 @@ __global__ void __launch_bounds__(128)
 mla_decode_combine_kernel(const float* __restrict__ part_acc,
                           const float* __restrict__ part_ml,
                           const int* __restrict__ seq_lens,
-                          bf16* __restrict__ out, int H, int F, int bs,
+                          bf16* __restrict__ out, int H, int F, int KT,
                           int NS) {
   __shared__ float w_s[kMaxSplits];
   __shared__ float inv_l;
@@ -327,7 +336,7 @@ mla_decode_combine_kernel(const float* __restrict__ part_acc,
     for (int f = tid; f < F; f += blockDim.x) o[f] = __float2bfloat16(0.0f);
     return;
   }
-  const int ns = min(NS, (sl + bs - 1) / bs);
+  const int ns = min(NS, (sl + KT - 1) / KT);
   const float* ml = part_ml + ((long long)s * NS * H + h) * 2;  // stride H*2
   if (tid < 32) {
     float mx = llmd::kMaxInit;
@@ -355,8 +364,9 @@ template <bool QUANT>
 int launch(const void* q, const void* row_new, const void* row_scale_new,
            void* cache, void* cscale, const void* block_tables,
            const void* seq_lens, void* out, float* part_acc, float* part_ml,
-           int S, int H, int F, int SW, int bs, int B, long long slots,
-           int layer, float scale, int NS, size_t smem, cudaStream_t stream) {
+           int S, int H, int F, int SW, int bs, int KT, int B,
+           long long slots, int layer, float scale, int NS, size_t smem,
+           cudaStream_t stream) {
   static bool ready = false;
   if (!ready) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -369,13 +379,13 @@ int launch(const void* q, const void* row_new, const void* row_scale_new,
       static_cast<const bf16*>(q), row_new,
       static_cast<const float*>(row_scale_new), cache,
       static_cast<float*>(cscale), static_cast<const int*>(block_tables),
-      static_cast<const int*>(seq_lens), part_acc, part_ml, H, F, SW, bs, B,
-      slots, layer, scale, NS);
+      static_cast<const int*>(seq_lens), part_acc, part_ml, H, F, SW, bs, KT,
+      B, slots, layer, scale, NS);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   mla_decode_combine_kernel<<<dim3(S, H), 128, 0, stream>>>(
       part_acc, part_ml, static_cast<const int*>(seq_lens),
-      static_cast<bf16*>(out), H, F, bs, NS);
+      static_cast<bf16*>(out), H, F, KT, NS);
   return (int)cudaGetLastError();
 }
 
@@ -386,31 +396,32 @@ int launch(const void* q, const void* row_new, const void* row_scale_new,
 // [L, slots, F] (+ [L, slots, SW] f32 scales); block_tables [S, B] and
 // seq_lens [S] int32; out [S, H, F] bf16; f32 scratch `part` of
 // S * NS * H * (F + 2) floats (the [S, NS, H, F] accumulators, then the
-// [S, NS, H, 2] running max and sum), NS <= 256.  Two page buffers must
-// fit in a block's shared memory.
+// [S, NS, H, 2] running max and sum), NS <= 256.  The key tile kt divides
+// bs, is a multiple of 16, and two tile buffers fit in a block's shared
+// memory.
 LLMD_EXPORT int llmd_mla_decode(const void* q, const void* row_new,
                                 const void* row_scale_new, void* cache,
                                 void* cscale, const void* block_tables,
                                 const void* seq_lens, void* out, void* part,
-                                int S, int H, int F, int SW, int bs, int B,
-                                long long slots, int layer, float scale,
+                                int S, int H, int F, int SW, int bs, int kt,
+                                int B, long long slots, int layer, float scale,
                                 int quantized, int NS, void* stream) {
   if (S == 0) return 0;
-  if (H > R || F % 32 != 0 || F > 32 * 8 * kMaxGroups || bs % 16 != 0 ||
-      NS < 1 || NS > kMaxSplits)
+  if (H > R || F % 32 != 0 || F > 32 * 8 * kMaxGroups || kt % 16 != 0 ||
+      kt < 16 || bs % kt != 0 || NS < 1 || NS > kMaxSplits)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = DecSmem(F, bs, SW, quantized ? 1 : 2).total;
+  const size_t smem = DecSmem(F, kt, SW, quantized ? 1 : 2).total;
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   float* part_acc = static_cast<float*>(part);
   float* part_ml = part_acc + (long long)S * NS * H * F;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (quantized)
     return launch<true>(q, row_new, row_scale_new, cache, cscale, block_tables,
-                        seq_lens, out, part_acc, part_ml, S, H, F, SW, bs, B,
-                        slots, layer, scale, NS, smem, st);
+                        seq_lens, out, part_acc, part_ml, S, H, F, SW, bs, kt,
+                        B, slots, layer, scale, NS, smem, st);
   return launch<false>(q, row_new, row_scale_new, cache, cscale, block_tables,
-                       seq_lens, out, part_acc, part_ml, S, H, F, SW, bs, B,
-                       slots, layer, scale, NS, smem, st);
+                       seq_lens, out, part_acc, part_ml, S, H, F, SW, bs, kt,
+                       B, slots, layer, scale, NS, smem, st);
 }
 
 LLMD_EXPORT const char* llmd_error_string(int code) {

@@ -25,6 +25,7 @@ from llm_d_tpu_torch.engine.request import Request, RequestOutput, RequestState
 from llm_d_tpu_torch.engine.scheduler import Scheduler, SchedulerOutput
 from llm_d_tpu_torch.models import get_model
 from llm_d_tpu_torch.models.config import ModelConfig, get_config
+from llm_d_tpu_torch.ops import prng
 from llm_d_tpu_torch.ops import sampling as sampling_ops
 from llm_d_tpu_torch.ops.quant import (
     KV_CACHE_DTYPES, KV_SCALE_GRANULARITIES, MLA_LATENT_DTYPES,
@@ -69,7 +70,7 @@ class EngineConfig:
     max_num_seqs: int = 64
     max_num_batched_tokens: int = 1024
     enable_prefix_caching: bool = True
-    attn_backend: str = "auto"               # auto | kernel | reference
+    attn_backend: str = "auto"     # auto | kernel | chunked | reference
     seed: int = 0
     min_token_bucket: int = 16
     min_seq_bucket: int = 8
@@ -165,8 +166,9 @@ class EngineCore:
                     dtype=torch.float32, device=self.device)
 
         self.max_blocks_per_seq = -(-c.max_model_len // config.block_size)
-        self._sample_gen = torch.Generator(device=self.device)
-        self._sample_gen.manual_seed(config.seed)
+        # The sampling key, split once per step as the JAX engine splits
+        # its own, so unseeded rows draw the JAX package's bits too.
+        self._rng = prng.prng_key(config.seed)
         self._rejected: List[RequestOutput] = []
         self.eos_token_id: Optional[int] = None
         # Optional tokenizer enables engine-side stop-string detection.
@@ -275,6 +277,7 @@ class EngineCore:
 
         batch, host = self._build_batch(sched)
         scheduled = sched.scheduled
+        self._rng, step_key = prng.split(self._rng)
         hidden = self.model.forward(
             self.params, self.kv_cache, batch, self.model_config,
             self.config.block_size, self.config.attn_backend)
@@ -282,7 +285,7 @@ class EngineCore:
                                            self.model_config)
         ids = sampling_ops.sample(
             logits, host["temperature"], host["top_k"], host["top_p"],
-            generator=self._sample_gen, seeds=host["seeds"],
+            key=step_key, seeds=host["seeds"],
             gen_idx=host["gen_idx"])
         want_lp = any(sr.request.sampling.logprobs is not None
                       for sr in scheduled)

@@ -6,10 +6,12 @@ dot against the cached row, and outputs absorb W_uv after attending over
 the row's first kv_lora_rank columns.  With an int8 latent each row is
 quantized once, with one f32 scale, when it is written.
 
-Dispatch follows the JAX package: a pure-decode batch goes to kernel A
-(which writes the new rows itself), a prefill or mixed batch scatters its
-rows and goes to kernel B, and the full-softmax reference serves CPU
-tensors only.
+Dispatch follows the JAX package, from shapes: under the 'kernel'
+backend a pure-decode batch goes to kernel A (which writes the new rows
+itself) and a prefill or mixed batch scatters its rows and goes to kernel
+B; every other batch, on every backend, scatters its rows and runs the
+chunked flash path (``ops.attention.ragged_paged_attention_chunked``), as
+the JAX MLA block does.
 """
 
 from __future__ import annotations
@@ -141,21 +143,19 @@ def mla_attention_block(
         out_lat = out_s[batch["token_seq_ids"].long(),
                         batch["token_qpos"].long()][..., :R].float()
     else:
-        if x.is_cuda:
-            raise NotImplementedError(
-                "no MLA attention kernel for this batch on the card "
-                f"(backend={backend!r}, block_size={block_size}, "
-                f"row width={F_cache}); the reference runs on CPU tensors "
-                "only")
+        # KVH = 1: every head reads the same latent row, and the value
+        # "cache" is the key cache (attended values are its first R
+        # columns).
         A.write_kv(kv_cache, row, batch["slot_mapping"], layer=layer)
         if quantized:
             A.write_scales(kv_scale, row_s, batch["slot_mapping"],
                            layer=layer)
-        out_lat = A.ragged_paged_attention_reference(
+        out_lat = A.ragged_paged_attention_chunked(
             q_eff, kv_cache, kv_cache, batch["token_seq_ids"],
             batch["positions"], batch["block_tables"], batch["seq_lens"],
-            block_size=block_size, scale=scale, layer=layer,
-            k_scale=kv_scale, v_scale=kv_scale)[..., :R].float()
+            qtok_idx, batch["token_qpos"], block_size=block_size,
+            scale=scale, layer=layer, k_scale=kv_scale,
+            v_scale=kv_scale)[..., :R].float()
 
     attn = torch.einsum("thr,rhv->thv", out_lat,
                         w_uv.float()).to(x.dtype)

@@ -27,8 +27,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "llm_d_tpu_torch"
 
 SOURCES = ("mla_decode.cu", "mla_prefill.cu", "moe_dense_int8.cu",
-           "moe_routed_int8.cu", "moe_streamed_int8.cu", "moe_grouped_int8.cu",
-           "paged_decode.cu", "flash_prefill.cu")
+           "moe_streamed_int8.cu", "paged_decode.cu", "flash_prefill.cu")
 # Dynamic shared memory one block may use on the H100 (sm_90).
 MAX_SMEM_PER_BLOCK = 232448
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

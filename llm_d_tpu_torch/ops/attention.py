@@ -1,5 +1,7 @@
-"""Ragged paged attention over the paged KV cache: reference path, cache
-writes and the batch-layout helpers (port of ``llm_d_tpu.ops.attention``).
+"""Ragged paged attention over the paged KV cache: the reference path,
+the chunked flash path (plain PyTorch, on any device), cache writes, the
+batch-layout helpers and the backend dispatch (port of
+``llm_d_tpu.ops.attention``).
 
 Batch layout (padded to bucketed sizes, as the JAX package builds it):
   q:              [T, H, D]     query vectors for every token in this step
@@ -120,13 +122,162 @@ def gather_per_seq_queries(q: torch.Tensor, positions: torch.Tensor,
     return q_pad[idx], pos_pad[idx]
 
 
+def _flash_over_kv_chunks(
+    qs: torch.Tensor,         # [S, Q, H, D] padded per-seq queries
+    q_pos: torch.Tensor,      # [S, Q] absolute positions (pad -> -1)
+    slot_ids: torch.Tensor,   # [S, C] gather indices into the cache
+    seq_lens: torch.Tensor,   # [S]
+    k_cache: torch.Tensor, v_cache: torch.Tensor,
+    kv_chunk: int, scale: float, soft_cap: Optional[float],
+    n_live: int,
+    layer: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:            # [S, Q, H, D]
+    """Online-softmax attention over the context in ``kv_chunk`` slices
+    (the JAX package's XLA flash recurrence): peak memory is
+    O(S*Q*H*kv_chunk), and only the ``n_live`` chunks below the longest
+    context run."""
+    S, Q, H, D = qs.shape
+    KVH = k_cache.shape[-1] // D
+    G = H // KVH
+    dev = qs.device
+    qf = qs.float().reshape(S, Q, KVH, G, D) * scale
+    m = torch.full((S, Q, KVH, G), -1e29, device=dev)
+    l = torch.zeros((S, Q, KVH, G), device=dev)
+    acc = torch.zeros((S, Q, KVH, G, D), device=dev)
+    offs = torch.arange(kv_chunk, device=dev)
+    sl = seq_lens.long()
+    qp = q_pos.long()
+    for ci in range(n_live):
+        idx = slot_ids[:, ci * kv_chunk:(ci + 1) * kv_chunk]
+        k = _gather_rows(k_cache, k_scale, idx, layer).reshape(
+            S, kv_chunk, KVH, D)
+        v = _gather_rows(v_cache, v_scale, idx, layer).reshape(
+            S, kv_chunk, KVH, D)
+        s = torch.einsum("sqkgd,sckd->sqkgc", qf, k)   # [S, Q, KVH, G, kc]
+        if soft_cap is not None:
+            s = soft_cap * torch.tanh(s / soft_cap)
+        key_pos = ci * kv_chunk + offs
+        valid = (key_pos[None, None, :] <= qp[:, :, None]) & (
+            key_pos[None, None, :] < sl[:, None, None])
+        s = torch.where(valid[:, :, None, None, :], s,
+                        torch.full_like(s, NEG_INF))
+        # The running max is clamped to a finite floor, so fully masked
+        # rows and chunks give p = exp(NEG_INF - floor) = 0, not 1.
+        m_new = torch.clamp_min(torch.maximum(m, s.amax(dim=-1)), -1e29)
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("sqkgc,sckd->sqkgd", p, v)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.reshape(S, Q, H, D).to(qs.dtype)
+
+
+def _chunk_size_for(C: int, target: int = 512) -> int:
+    kc = min(target, C)
+    while C % kc:
+        kc //= 2
+    return max(kc, 1)
+
+
+# Peak f32 elements allowed in one flash score tensor [S, Qc, H, kv_chunk]
+# (~128 MB). Both chunk dims shrink to honor it, so prefill memory stays
+# bounded whatever the (S, Q) bucket combination.
+_FLASH_SCORE_BUDGET = 1 << 25
+
+
+def _flash_batched_q_chunks(
+    qs: torch.Tensor,         # [S, Q, H, D]
+    q_pos: torch.Tensor,      # [S, Q]
+    slot_ids: torch.Tensor,   # [S, C]
+    seq_lens: torch.Tensor,   # [S]
+    k_cache: torch.Tensor, v_cache: torch.Tensor,
+    scale: float, soft_cap: Optional[float], max_len: int,
+    layer: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:            # [S, Q, H, D]
+    """All sequences batched through the flash recurrence, the queries in
+    chunks of ``qc`` rows so the score tensor stays within
+    ``_FLASH_SCORE_BUDGET``."""
+    S, Q, H, D = qs.shape
+    C = slot_ids.shape[1]
+    kv_chunk = _chunk_size_for(C)
+    qc = Q
+    while qc > 8 and (S * qc * H * kv_chunk > _FLASH_SCORE_BUDGET
+                      or Q % qc) and qc % 2 == 0:
+        qc //= 2
+    while kv_chunk > 16 and S * qc * H * kv_chunk > _FLASH_SCORE_BUDGET \
+            and kv_chunk % 2 == 0 and C % (kv_chunk // 2) == 0:
+        kv_chunk //= 2
+    if Q % qc:      # non-pow2 Q bucket: no clean split, single chunk
+        qc = Q
+    n_live = min(-(-max_len // kv_chunk), C // kv_chunk)
+    outs = [_flash_over_kv_chunks(
+        qs[:, i:i + qc], q_pos[:, i:i + qc], slot_ids, seq_lens, k_cache,
+        v_cache, kv_chunk, scale, soft_cap, n_live, layer=layer,
+        k_scale=k_scale, v_scale=v_scale) for i in range(0, Q, qc)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+def ragged_paged_attention_chunked(
+    q: torch.Tensor,              # [T, H, D]
+    k_cache: torch.Tensor, v_cache: torch.Tensor,
+    token_seq_ids: torch.Tensor, positions: torch.Tensor,
+    block_tables: torch.Tensor, seq_lens: torch.Tensor,
+    qtok_idx: torch.Tensor,       # [S, Q] token per (seq, q slot); T = pad
+    token_qpos: torch.Tensor,     # [T] q slot of each token within its seq
+    block_size: int,
+    scale: Optional[float] = None,
+    soft_cap: Optional[float] = None,
+    layer: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:                # [T, H, D] in q.dtype
+    """Memory-bounded ragged attention in plain PyTorch: the JAX package's
+    XLA flash recurrence, which it runs for every batch its kernels do not
+    take.  Decode steps (Q == 1) batch all sequences through one pass;
+    prefill and mixed steps chunk the queries to bound the score tensor.
+
+    The trip count over KV chunks is data-dependent, as JAX's
+    ``while_loop``: ``max(seq_lens)`` is read to the host once per call.
+    That sync is this eager path's only one."""
+    T, H, D = q.shape
+    S, B = block_tables.shape
+    Q = qtok_idx.shape[1]
+    scale = scale if scale is not None else D ** -0.5
+    C = B * block_size
+    qs, q_pos = gather_per_seq_queries(q, positions, qtok_idx)
+    slot_ids = (block_tables[:, :, None].long() * block_size
+                + torch.arange(block_size, device=q.device)[None, None, :]
+                ).reshape(S, C)
+    max_len = int(seq_lens.max()) if S else 0
+    if Q == 1:
+        kv_chunk = _chunk_size_for(C)
+        out = _flash_over_kv_chunks(
+            qs, q_pos, slot_ids, seq_lens, k_cache, v_cache, kv_chunk,
+            scale, soft_cap, min(-(-max_len // kv_chunk), C // kv_chunk),
+            layer=layer, k_scale=k_scale, v_scale=v_scale)   # [S, 1, H, D]
+    else:
+        out = _flash_batched_q_chunks(
+            qs, q_pos, slot_ids, seq_lens, k_cache, v_cache, scale,
+            soft_cap, max_len, layer=layer, k_scale=k_scale,
+            v_scale=v_scale)
+    return out[token_seq_ids.long(), token_qpos.long()]
+
+
 def resolve_backend(backend: str, device: torch.device) -> str:
-    """'auto' -> the hand-written kernels on the card, the reference on
-    the CPU."""
+    """``auto | kernel | chunked | reference``.  'auto' is the hand-written
+    kernels on the card and the reference on the CPU.  'kernel' runs a
+    kernel where its shape gate admits the batch and the chunked path
+    otherwise (as the JAX package's 'pallas' does); 'chunked' always runs
+    the chunked path."""
     if backend == "auto":
         return "kernel" if torch.device(device).type == "cuda" else \
             "reference"
-    if backend not in ("kernel", "reference"):
+    if backend not in ("kernel", "chunked", "reference"):
         raise ValueError(f"unknown attention backend {backend!r}")
     return backend
 
@@ -160,10 +311,12 @@ def attention_with_kv_update(
     attend over it, for the dense (GQA) models.
 
     Int8 caches quantize the new rows here with the scale plane's width
-    (per token or per KV head).  On the card a pure-decode batch goes to
-    kernel G, which writes the rows itself; a prefill or mixed batch
-    scatters its rows and goes to kernel H; a batch neither takes raises.
-    The full-softmax reference serves CPU tensors only.  Returns
+    (per token or per KV head).  The dispatch is the JAX package's, decided
+    from shapes: under 'kernel' a pure-decode batch goes to kernel G,
+    which writes the rows itself, and a prefill or mixed batch scatters
+    its rows and goes to kernel H; a batch neither gate admits (and every
+    batch under 'chunked') scatters its rows and runs the chunked flash
+    path; 'reference' runs the full-softmax reference.  Returns
     ``(out, k_cache, v_cache)``, plus ``(k_scale, v_scale)`` for int8."""
     from llm_d_tpu_torch.ops import flash_prefill, paged_attention
     backend = resolve_backend(backend, q.device)
@@ -220,11 +373,13 @@ def attention_with_kv_update(
             soft_cap=soft_cap, layer=layer, k_scale=k_scale,
             v_scale=v_scale)
         return ret(out_s[tsi, batch["token_qpos"].long()])
-    if q.is_cuda:
-        raise NotImplementedError(
-            "no dense attention kernel for this batch on the card "
-            f"(backend={backend!r}, block_size={block_size}, row width={F}, "
-            f"soft_cap={soft_cap}); the reference runs on CPU tensors only")
+    if backend in ("kernel", "chunked") and qtok_idx is not None:
+        return ret(ragged_paged_attention_chunked(
+            q, k_cache, v_cache, batch["token_seq_ids"], batch["positions"],
+            batch["block_tables"], batch["seq_lens"], qtok_idx,
+            batch["token_qpos"], block_size=block_size, scale=scale,
+            soft_cap=soft_cap, layer=layer, k_scale=k_scale,
+            v_scale=v_scale))
     out = ragged_paged_attention_reference(
         q, k_cache, v_cache, batch["token_seq_ids"], batch["positions"],
         batch["block_tables"], batch["seq_lens"], block_size=block_size,

@@ -10,14 +10,17 @@ byte, far below the card's ridge -- and, at small batches, the latency of
 walking a sequence's pages one after another.  The design splits each
 sequence's pages into ranges, one block per (sequence, range), sized from
 the batch, the block-table width and the SM count (no host read of
-``seq_lens``: ranges past a sequence's last page exit on the device); a
-second pass combines the ranges' partial softmax statistics, kept in one
-f32 scratch tensor, in range order (no atomics).  Each int8 page stays int8 in shared memory, arrives
-by ``cp.async`` while the previous one is multiplied, and is dequantized
-into the tensor-core fragments of both dots (MQA: one page serves every
-head).  The block that owns the page of position ``seq_len - 1`` writes
-the new row and takes that position from the input, so no other block
-reads the slot being written.
+``seq_lens``: ranges past a sequence's last key tile exit on the device);
+a second pass combines the ranges' partial softmax statistics, kept in
+one f32 scratch tensor, in range order (no atomics).  A block walks its
+range in key tiles (:func:`decode_key_tile`: the page where two pages fit
+in shared memory, else a part of it), so every block size the reference
+serves is served.  Each int8 tile stays int8 in shared memory, arrives by
+``cp.async`` while the previous one is multiplied, and is dequantized into
+the tensor-core fragments of both dots (MQA: one tile serves every head).
+The block that owns the tile of position ``seq_len - 1`` writes the new
+row and takes that position from the input, so no other block reads the
+slot being written.
 
 ``mla_paged_decode_update_plain`` is the same function in plain PyTorch:
 the CPU tests use it, ``chip_smoke.py`` holds the kernel against it, and
@@ -106,7 +109,7 @@ def mla_paged_decode_update_plain(
 
 _VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
-_ARGTYPES = [_VP] * 9 + [_I] * 6 + [_LL, _I, _F, _I, _I, _VP]
+_ARGTYPES = [_VP] * 9 + [_I] * 7 + [_LL, _I, _F, _I, _I, _VP]
 _MAX_SPLITS = 256        # csrc/mla_decode.cu kMaxSplits
 _MAX_SPLIT_F = 768       # three 32-column value groups per warp
 
@@ -125,15 +128,13 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"mla_paged_decode_update: {msg}")
 
 
-def check_cache(check, q_like, kv_cache, kv_scale, block_size, layer,
-                smem_bytes=None):
+def check_cache(check, q_like, kv_cache, kv_scale, block_size, layer):
     """Checks shared by the MLA kernel wrappers: the stacked latent cache
     (int8 + f32 scale plane, or bf16), its row width against the queries'
-    ``[..., H, F]``, the layer index and, when ``smem_bytes`` is given,
-    the shared-memory need ``smem_bytes(F, block_size, SW, quantized)``
-    (kernel B sizes its key tile itself: ``mla_prefill.key_tile``).
-    Returns ``(cache3, scale3, slots, SW, layer)`` with 2-D caches viewed
-    as one plane."""
+    ``[..., H, F]`` and the layer index; each kernel sizes its key tile
+    itself (:func:`decode_key_tile`, ``mla_prefill.key_tile``).  Returns
+    ``(cache3, scale3, slots, SW, layer)`` with 2-D caches viewed as one
+    plane."""
     H, F = q_like.shape[-2:]
     quantized = kv_scale is not None
     cache3 = kv_cache if kv_cache.ndim == 3 else kv_cache[None]
@@ -156,10 +157,6 @@ def check_cache(check, q_like, kv_cache, kv_scale, block_size, layer,
         check(cache3.dtype == torch.bfloat16, "bf16 cache expected")
     check(F % 16 == 0 and block_size % 16 == 0 and (F // SW) % 4 == 0,
           "tensor-core tiles need F % 16, block_size % 16, (F / SW) % 4")
-    if smem_bytes is not None:
-        smem = smem_bytes(F, block_size, SW, quantized)
-        check(smem <= _build.MAX_SMEM_PER_BLOCK,
-              f"needs {smem} B of shared memory")
     return cache3, scale3, slots, SW, li
 
 
@@ -167,19 +164,34 @@ def _align128(b: int) -> int:
     return (b + 127) // 128 * 128
 
 
-def _split_smem_bytes(F: int, bs: int, SW: int, quantized: bool) -> int:
-    """Dynamic shared memory of kernel A's split pass (csrc/mla_decode.cu
-    DecSmem): q [16, F+8] bf16, two pages [bs, F*esz + 16] bytes and, for
-    int8, their [bs, SW] f32 scales, scores [KW, 16, bs] f32, p [16, bs+8]
-    bf16, three [16] f32 statistics, each part 128-B aligned."""
+def _split_smem_bytes(F: int, kt: int, SW: int, quantized: bool) -> int:
+    """Dynamic shared memory of kernel A's split pass at key tile ``kt``
+    (csrc/mla_decode.cu DecSmem): q [16, F+8] bf16, two key tiles
+    [kt, F*esz + 16] bytes and, for int8, their [kt, SW] f32 scales, scores
+    [KW, 16, kt] f32, p [16, kt+8] bf16, three [16] f32 statistics, each
+    part 128-B aligned."""
     a = _align128
     R, esz = _MAX_HEADS, 1 if quantized else 2
     page = a(R * (F + 8) * 2)
-    s = a(a(page + 2 * bs * (F * esz + 16)) + (2 * bs * SW * 4 if quantized
+    s = a(a(page + 2 * kt * (F * esz + 16)) + (2 * kt * SW * 4 if quantized
                                                else 0))
-    pb = a(s + (1 if bs >= 64 else 64 // bs) * R * bs * 4)
-    stats = a(pb + R * (bs + 8) * 2)
+    pb = a(s + (1 if kt >= 64 else 64 // kt) * R * kt * 4)
+    stats = a(pb + R * (kt + 8) * 2)
     return stats + 3 * R * 4
+
+
+def decode_key_tile(F: int, bs: int, SW: int = 1,
+                    quantized: bool = True) -> int:
+    """Kernel A's key tile for pages of ``bs`` rows: the page itself when
+    two pages fit a block's shared memory beside the q tile (so the bench's
+    int8 64-row pages run as before), else the largest of 128, 64, 32, 16
+    rows that divides the page and fits (a tile then lies inside one
+    page); 0 if none fits."""
+    for kt in (bs, 128, 64, 32, 16):
+        if kt <= bs and bs % kt == 0 and _split_smem_bytes(
+                F, kt, SW, quantized) <= _build.MAX_SMEM_PER_BLOCK:
+            return kt
+    return 0
 
 
 def mla_paged_decode_update(
@@ -206,8 +218,9 @@ def mla_paged_decode_update(
     S, H, F = q_eff.shape
     quantized = kv_scale is not None
     cache3, scale3, slots, SW, li = check_cache(
-        _check, q_eff, kv_cache, kv_scale, block_size, layer,
-        _split_smem_bytes)
+        _check, q_eff, kv_cache, kv_scale, block_size, layer)
+    kt = decode_key_tile(F, block_size, SW, quantized)
+    _check(kt > 0, "no key tile fits a block's shared memory")
     _check(row_new.shape == (S, F) and row_new.dtype == cache3.dtype,
            "new rows must be [S, F] in the cache dtype")
     _check(block_tables.dtype == torch.int32 and seq_lens.dtype == torch.int32
@@ -241,7 +254,7 @@ def mla_paged_decode_update(
         row_scale_new.data_ptr() if quantized else None,
         cache3.data_ptr(), scale3.data_ptr() if quantized else None,
         block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-        part.data_ptr(), S, H, F, SW, block_size, B, slots, li,
+        part.data_ptr(), S, H, F, SW, block_size, kt, B, slots, li,
         float(scale), int(quantized), ns, _build.stream_ptr(dev))
     mla_paged_decode_update.launches += 1
     return out

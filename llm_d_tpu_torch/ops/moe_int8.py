@@ -19,12 +19,15 @@ f32 result, and groups are summed in a fixed order (no atomics).
 
 Kernel F: grouped int8 MoE FFN over rows sorted by expert and padded to
 the row tile, the ``LLMD_MOE_PREFILL_KERNEL=grouped`` lever above 512
-tokens.  Replaces the TPU kernel ``grouped_moe_int8``.  CUDA source:
-``csrc/moe_grouped_int8.cu``.  What bounds it on the H100: operations
-(6*H*I flops per padded row).  The rows arrive contiguous, so the design
-needs no gather; consecutive tiles of one expert reuse its weights from
-L2, and tiles past the populated count write zeros without reading any
-weight.
+tokens.  Replaces the TPU kernel ``grouped_moe_int8``.  It runs kernel
+E's pipelined gate/up and down passes (``csrc/moe_streamed_int8.cu``
+``llmd_moe_grouped_int8``) with the identity row map: the rows arrive
+contiguous, so a block takes a slice of 128 (or 64, 32) rows of one
+tile without a gather, and pass 2's combine-weighted bf16 rows are the
+output (no combine pass: the glue un-sorts them).  What bounds it on the
+H100: operations (6*H*I flops per padded row).  Consecutive blocks of one
+expert reuse its weights from L2, and blocks past the populated tiles
+write zeros without reading any weight.
 
 ``dense_moe_int8_plain`` and ``grouped_moe_int8_plain`` are the plain
 PyTorch versions of the same functions (CPU tests, and the reference
@@ -179,9 +182,10 @@ def grouped_moe_int8(x_pad, wslot_pad, tile_expert, num_tiles, layer: int,
                                      w_up_q, w_up_s, w_down_q, w_down_s, li)
     S_pad = x_pad.shape[0]
     rt = row_tile
-    check(rt % 16 == 0 and S_pad % rt == 0,
-          f"row_tile {rt} must be a multiple of 16 dividing S_pad={S_pad}")
-    tm = next(t for t in (64, 32, 16) if rt % t == 0)
+    check(rt % 32 == 0 and S_pad % rt == 0,
+          f"row_tile {rt} must be a multiple of 32 dividing S_pad={S_pad}")
+    tm = next(t for t in (128, 64, 32) if rt % t == 0)
+    check(S_pad // tm <= 65535, f"S_pad={S_pad} exceeds the grid")
     check(wslot_pad.dtype == torch.float32 and wslot_pad.shape == (S_pad,)
           and tile_expert.dtype == num_tiles.dtype == torch.int32
           and tile_expert.shape == (S_pad // rt,) and num_tiles.numel() == 1,
@@ -189,10 +193,14 @@ def grouped_moe_int8(x_pad, wslot_pad, tile_expert, num_tiles, layer: int,
     for t in (wslot_pad, tile_expert, num_tiles):
         check(t.device == x_pad.device and t.is_contiguous(),
               "metadata must be contiguous and on x's device")
+    check(all(t.data_ptr() % 16 == 0
+              for t in (x_pad, w_gate_q, w_up_q, w_down_q)),
+          "x_pad and the expert payloads must be 16-byte aligned (cp.async "
+          "rows)")
     act = torch.empty((S_pad, I), dtype=torch.bfloat16, device=x_pad.device)
     y = torch.empty((S_pad, H), dtype=torch.bfloat16, device=x_pad.device)
     _build.launch(
-        "moe_grouped_int8.cu", "llmd_moe_grouped_int8", _GROUPED_ARGTYPES,
+        "moe_streamed_int8.cu", "llmd_moe_grouped_int8", _GROUPED_ARGTYPES,
         x_pad.data_ptr(), wslot_pad.data_ptr(), tile_expert.data_ptr(),
         num_tiles.data_ptr(), w_gate_q.data_ptr(), w_up_q.data_ptr(),
         w_down_q.data_ptr(), w_gate_s.data_ptr(), w_up_s.data_ptr(),

@@ -1,17 +1,19 @@
 """Kernel D: routed int8 MoE FFN over the (token, expert) rows only.
 
 Replaces the TPU kernel ``llm_d_tpu/ops/pallas/moe_routed.py``
-``routed_moe_int8``.  CUDA source: ``csrc/moe_routed_int8.cu`` (tile GEMM
-in ``csrc/common.cuh``).
+``routed_moe_int8`` (64 < T <= 512).  It is kernel E's function over one
+chunk, so it runs E's launch (``csrc/moe_streamed_int8.cu``, through
+:func:`llm_d_tpu_torch.ops.moe_routed_stream.launch_streamed` with C =
+1): the grouping launch, the pipelined gate/up and down passes, and the
+per-token combine in a fixed order (no atomics).
 
 What bounds it on the H100: bytes at decode sizes (each routed expert's
-3*H*I int8 weights against a handful of rows), operations at 512-token
-prefill chunks (T*k rows x 6*H*I flops).  The design gathers each row
-tile's activations by token id (the TPU's one-hot gather matmul was an
-MXU idiom), runs one expert per tile so its weights stream once per
-tile, reads the populated tile count from device memory so the host never
-waits on routing, and combines each token's k rows in a fixed order
-(no atomics).
+3*H*I int8 weights, ~3.1 MB for deepseek-v3-bench, against ~16 rows at
+T = 128), operations at 512 tokens.  Row blocks of 32 rows at the
+smallest sizes (:func:`~llm_d_tpu_torch.ops.moe_routed_stream.row_block_for`)
+put every routed expert's weights through the ``cp.async`` ring once,
+with two blocks an SM; the populated tile count is read on the device,
+so the host never waits on routing.
 
 ``routed_moe_int8_plain`` is the plain PyTorch version of the same
 function (CPU tests, and the reference ``chip_smoke.py`` holds the kernel
@@ -20,15 +22,10 @@ to).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from llm_d_tpu_torch.ops import _build
 from llm_d_tpu_torch.ops.layers import silu
-from llm_d_tpu_torch.ops.moe_int8 import check_int8_experts
-
-ROW_TILES = (16, 32, 64)
+from llm_d_tpu_torch.ops.moe_routed_stream import launch_streamed
 
 
 def routed_moe_int8_plain(x, tok_pad, wslot_pad, tile_expert, num_tiles, pos,
@@ -57,9 +54,6 @@ def routed_moe_int8_plain(x, tok_pad, wslot_pad, tile_expert, num_tiles, pos,
     return y[pos.long()].sum(dim=1)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-
-
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"routed_moe_int8: {msg}")
@@ -75,36 +69,11 @@ def routed_moe_int8(x, tok_pad, wslot_pad, tile_expert, num_tiles, pos,
         return routed_moe_int8_plain(
             x, tok_pad, wslot_pad, tile_expert, num_tiles, pos, layer,
             w_gate_q, w_gate_s, w_up_q, w_up_s, w_down_q, w_down_s, row_tile)
-    li = int(layer)
-    Lm, E, H, I = check_int8_experts(_check, x, w_gate_q, w_gate_s, w_up_q,
-                                     w_up_s, w_down_q, w_down_s, li)
-    T = x.shape[0]
-    rt = row_tile
-    S_pad = tok_pad.shape[0]
-    _check(rt in ROW_TILES and S_pad % rt == 0, f"row_tile {rt} unsupported")
-    NT = S_pad // rt
-    k = pos.shape[1] if pos.ndim == 2 else 0
-    _check(pos.shape == (T, k) and pos.dtype == torch.int32,
-           "pos must be int32 [T, k]")
-    _check(tok_pad.dtype == torch.int32 and wslot_pad.dtype == torch.float32
-           and wslot_pad.shape == (S_pad,) and tile_expert.shape == (NT,)
-           and tile_expert.dtype == torch.int32
-           and num_tiles.dtype == torch.int32 and num_tiles.numel() == 1,
-           "routing metadata must be int32/f32 [S_pad] / [NT] / [1]")
-    for t in (tok_pad, wslot_pad, tile_expert, num_tiles, pos):
-        _check(t.device == x.device and t.is_contiguous(),
-               "metadata must be contiguous and on x's device")
-    act = torch.empty((S_pad, I), dtype=torch.bfloat16, device=x.device)
-    y = torch.empty((S_pad, H), dtype=torch.bfloat16, device=x.device)
-    out = torch.empty((T, H), dtype=torch.float32, device=x.device)
-    _build.launch(
-        "moe_routed_int8.cu", "llmd_moe_routed_int8", _ARGTYPES,
-        x.data_ptr(), tok_pad.data_ptr(), wslot_pad.data_ptr(),
-        tile_expert.data_ptr(), num_tiles.data_ptr(), pos.data_ptr(),
-        w_gate_q.data_ptr(), w_up_q.data_ptr(), w_down_q.data_ptr(),
-        w_gate_s.data_ptr(), w_up_s.data_ptr(), w_down_s.data_ptr(),
-        act.data_ptr(), y.data_ptr(), out.data_ptr(),
-        T, k, NT, E, H, I, li, rt, _build.stream_ptr(x.device))
+    _check(num_tiles.numel() == 1, "num_tiles must hold one count")
+    out = launch_streamed(
+        _check, x, tok_pad, wslot_pad, tile_expert, num_tiles.reshape(1),
+        pos, layer, w_gate_q, w_gate_s, w_up_q, w_up_s, w_down_q, w_down_s,
+        x.shape[0], row_tile)
     routed_moe_int8.launches += 1
     return out
 

@@ -1,23 +1,24 @@
-"""Kernel E: chunk-streamed routed int8 MoE FFN for steps above 512 tokens.
+"""Kernel E: chunk-streamed routed int8 MoE FFN for steps above 512 tokens,
+and the launch it shares with kernel D.
 
 Replaces the TPU kernel ``llm_d_tpu/ops/pallas/moe_routed_stream.py``
 ``streamed_moe_int8``.  CUDA source: ``csrc/moe_streamed_int8.cu`` (the
 ring and the int8 fragment step in ``csrc/pipeline.cuh``, shared with
-kernel C).
+kernel C), which also runs kernels D (one chunk) and F (identity rows).
 
 What bounds it on the H100: operations (``2*3*T*k*H*I`` flops, about
 0.41 TFLOP per layer for a 8192-token deepseek-v3-bench step, against
 201 MB of int8 expert weights).  The TPU chunked the batch so that ``x``
 and the f32 output fit VMEM; here the chunks are only the metadata's
 layout.  The kernel's first launch groups the populated tiles,
-expert-major across chunks, into row blocks of 64 or 128 rows of one
-expert (:func:`expert_row_blocks`, plain version
+expert-major across chunks, into row blocks of 32, 64 or 128 rows of one
+expert (:func:`row_block_for`, :func:`expert_row_blocks`, plain version
 :func:`expert_row_blocks_plain`), so a weight byte is widened once for up
 to 128 rows and an expert's weights stay in L2 while its blocks run; the
 passes stream the int8 weight tiles and the gathered rows through a
 ``cp.async`` ring and widen the weights inside the ``mma.sync``
-fragments.  Each token's k
-rows are combined in a fixed order (no atomics).
+fragments.  Each token's k rows are combined in a fixed order (no
+atomics).
 
 ``streamed_moe_int8_plain`` is the plain PyTorch version of the same
 function (CPU tests, and the reference ``chip_smoke.py`` holds the kernel
@@ -33,16 +34,18 @@ import torch
 from llm_d_tpu_torch.ops import _build
 from llm_d_tpu_torch.ops.layers import silu
 from llm_d_tpu_torch.ops.moe_int8 import check_int8_experts
-from llm_d_tpu_torch.ops.moe_routed import ROW_TILES
 
+ROW_TILES = (16, 32, 64)
 _MAX_GRID_Y = 65535
 _MAX_EXPERTS = 256         # the grouping launch's per-expert tables
 
 
 def row_block_for(rows: int, E: int, row_tile: int) -> int:
-    """The kernel's row block: 128 rows once the mean routed rows per
-    expert reach 256, else 64 (never shorter than the row tile)."""
-    return max(128 if rows >= 256 * E else 64, row_tile)
+    """The kernel's row block from the mean routed rows per expert: 128
+    rows from 256, 64 from 32, else 32 (kernel D's decode waves: ~16 rows
+    an expert at T = 128); never shorter than the row tile."""
+    tm = 128 if rows >= 256 * E else (64 if rows >= 32 * E else 32)
+    return max(tm, row_tile)
 
 
 def _num_blocks(NT: int, E: int, per_block: int) -> int:
@@ -162,34 +165,53 @@ def streamed_moe_int8(x, tok_pad, wslot_pad, tile_expert, num_tiles, pos,
             x, tok_pad, wslot_pad, tile_expert, num_tiles, pos, layer,
             w_gate_q, w_gate_s, w_up_q, w_up_s, w_down_q, w_down_s,
             chunk_t, row_tile)
+    out = launch_streamed(
+        _check, x, tok_pad, wslot_pad, tile_expert, num_tiles, pos, layer,
+        w_gate_q, w_gate_s, w_up_q, w_up_s, w_down_q, w_down_s, chunk_t,
+        row_tile)
+    streamed_moe_int8.launches += 1
+    return out
+
+
+streamed_moe_int8.launches = 0
+
+
+def launch_streamed(check, x, tok_pad, wslot_pad, tile_expert, num_tiles,
+                    pos, layer: int, w_gate_q, w_gate_s, w_up_q, w_up_s,
+                    w_down_q, w_down_s, chunk_t: int,
+                    row_tile: int) -> torch.Tensor:
+    """Checks the inputs and launches ``csrc/moe_streamed_int8.cu`` over
+    ``C = num_tiles.shape[0]`` chunks: the grouping launch, passes 1-2
+    and the combine.  Kernels E and D (one chunk) share it; ``check``
+    raises with the caller's name."""
     li = int(layer)
-    Lm, E, H, I = check_int8_experts(_check, x, w_gate_q, w_gate_s, w_up_q,
+    Lm, E, H, I = check_int8_experts(check, x, w_gate_q, w_gate_s, w_up_q,
                                      w_up_s, w_down_q, w_down_s, li)
     Tp = x.shape[0]
     rt = row_tile
     C = num_tiles.shape[0]
     NT = tile_expert.shape[0]
-    _check(rt in ROW_TILES, f"row_tile {rt} unsupported")
-    _check(C > 0 and Tp == C * chunk_t and NT % C == 0 and NT <= _MAX_GRID_Y,
-           "x must hold C * chunk_t rows and tile_expert C * NT_c tiles")
+    check(rt in ROW_TILES, f"row_tile {rt} unsupported")
+    check(C > 0 and Tp == C * chunk_t and NT % C == 0 and NT <= _MAX_GRID_Y,
+          "x must hold C * chunk_t rows and tile_expert C * NT_c tiles")
     NT_c = NT // C
     k = pos.shape[1] if pos.ndim == 2 else 0
-    _check(pos.shape == (Tp, k) and pos.dtype == torch.int32,
-           "pos must be int32 [Tp, k]")
-    _check(tok_pad.dtype == torch.int32 and wslot_pad.dtype == torch.float32
-           and tok_pad.shape == wslot_pad.shape == (NT * rt,)
-           and tile_expert.dtype == num_tiles.dtype == torch.int32
-           and num_tiles.shape == (C,),
-           "routing metadata must be int32/f32 [C*S_pad_c] / [C*NT_c] / [C]")
+    check(pos.shape == (Tp, k) and pos.dtype == torch.int32,
+          "pos must be int32 [Tp, k]")
+    check(tok_pad.dtype == torch.int32 and wslot_pad.dtype == torch.float32
+          and tok_pad.shape == wslot_pad.shape == (NT * rt,)
+          and tile_expert.dtype == num_tiles.dtype == torch.int32
+          and num_tiles.shape == (C,),
+          "routing metadata must be int32/f32 [C*S_pad_c] / [C*NT_c] / [C]")
     for t in (tok_pad, wslot_pad, tile_expert, num_tiles, pos):
-        _check(t.device == x.device and t.is_contiguous(),
-               "metadata must be contiguous and on x's device")
-    _check(all(t.data_ptr() % 16 == 0
-               for t in (x, w_gate_q, w_up_q, w_down_q)),
-           "x and the expert payloads must be 16-byte aligned (cp.async "
-           "rows)")
+        check(t.device == x.device and t.is_contiguous(),
+              "metadata must be contiguous and on x's device")
+    check(all(t.data_ptr() % 16 == 0
+              for t in (x, w_gate_q, w_up_q, w_down_q)),
+          "x and the expert payloads must be 16-byte aligned (cp.async "
+          "rows)")
     tm = row_block_for(Tp * k, E, rt)
-    _check(E <= _MAX_EXPERTS, f"E={E} > {_MAX_EXPERTS}")
+    check(E <= _MAX_EXPERTS, f"E={E} > {_MAX_EXPERTS}")
     blocks = torch.empty(_num_blocks(NT, E, tm // rt) * (tm // rt),
                          dtype=torch.int32, device=x.device)
     act = torch.empty((NT * rt, I), dtype=torch.bfloat16, device=x.device)
@@ -203,10 +225,5 @@ def streamed_moe_int8(x, tok_pad, wslot_pad, tile_expert, num_tiles, pos,
         w_down_q.data_ptr(), w_gate_s.data_ptr(), w_up_s.data_ptr(),
         w_down_s.data_ptr(), act.data_ptr(), y.data_ptr(), out.data_ptr(), Tp,
         k, C, blocks.shape[0] // (tm // rt), NT_c, chunk_t, E, H, I, li, rt,
-        tm,
-        _build.stream_ptr(x.device))
-    streamed_moe_int8.launches += 1
+        tm, _build.stream_ptr(x.device))
     return out
-
-
-streamed_moe_int8.launches = 0

@@ -4,12 +4,11 @@ Port of ``llm_d_tpu.ops.sampling`` (``sample``, ``compute_logprobs``,
 ``compute_top_logprobs``).  Greedy rows match the JAX package exactly.
 
 Random rows add Gumbel noise to the masked top-``TOPK_MAX`` logits and
-take the argmax, as JAX does, but the noise comes from ``torch.Generator``
-streams, not JAX's threefry: seeded rows draw from a generator seeded with
-``(seed, gen_idx)`` (deterministic for a given request position, whatever
-the batch), unseeded rows from the engine's step generator.  The bits
-therefore differ from the JAX package's for the same seed; tests feed both
-packages the same ``noise`` instead.
+take the argmax, with the JAX package's keys and bits (``ops/prng.py``,
+threefry2x32): seeded rows draw from ``fold_in(fold_in(PRNGKey(0),
+seed), gen_idx)`` (deterministic for a given request position, whatever
+the batch or the step), unseeded rows from ``fold_in(step_key, row)``.
+Every row's noise is drawn on the logits' device in one batched call.
 """
 
 from __future__ import annotations
@@ -18,6 +17,8 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+
+from llm_d_tpu_torch.ops import prng
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,27 +51,24 @@ def top_k_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def _gumbel(u: torch.Tensor) -> torch.Tensor:
-    tiny = torch.finfo(torch.float32).tiny
-    return -torch.log(-torch.log(u.clamp(min=tiny, max=1.0)))
-
-
-def _row_noise(S: int, K: int, device: torch.device,
-               generator: Optional[torch.Generator],
-               seeds: Optional[torch.Tensor],
-               gen_idx: Optional[torch.Tensor]) -> torch.Tensor:
-    noise = _gumbel(torch.rand(S, K, generator=generator, device=device))
-    if seeds is None:
-        return noise
-    seeds_h = seeds.tolist()
-    gi = gen_idx.tolist() if gen_idx is not None else [0] * S
-    for s, (sd, g) in enumerate(zip(seeds_h, gi)):
-        if sd >= 0:
-            row_gen = torch.Generator(device=device)
-            row_gen.manual_seed((int(sd) << 32) | (int(g) & 0xFFFFFFFF))
-            noise[s] = _gumbel(torch.rand(K, generator=row_gen,
-                                          device=device))
-    return noise
+def row_noise(S: int, K: int, device: torch.device, key: prng.Key,
+              seeds: Optional[torch.Tensor] = None,
+              gen_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Gumbel noise ``[S, K]`` of every row, as the JAX package draws it:
+    seeded rows (``seeds >= 0``) from ``fold_in(fold_in(PRNGKey(0),
+    seed), gen_idx)``, the others from ``fold_in(key, row)``."""
+    rows = torch.arange(S, dtype=torch.int64, device=device)
+    k0, k1 = prng.fold_in(key, rows)
+    if seeds is not None:
+        sd = seeds.to(device, torch.int64)
+        gi = (gen_idx.to(device, torch.int64) if gen_idx is not None
+              else torch.zeros_like(sd))
+        s0, s1 = prng.fold_in(prng.fold_in(prng.prng_key(0),
+                                           sd.clamp(min=0)), gi)
+        pick = sd >= 0
+        k0 = torch.where(pick, s0, k0)
+        k1 = torch.where(pick, s1, k1)
+    return prng.gumbel((k0, k1), K)
 
 
 def sample(
@@ -78,16 +76,17 @@ def sample(
     temperature: torch.Tensor,     # [S] f32 (0 = greedy)
     top_k: torch.Tensor,           # [S] i32 (0 = off)
     top_p: torch.Tensor,           # [S] f32 (1 = off)
-    generator: Optional[torch.Generator] = None,
+    key: Optional[prng.Key] = None,           # this step's key
     seeds: Optional[torch.Tensor] = None,     # [S] i32, -1 = unseeded
     gen_idx: Optional[torch.Tensor] = None,   # [S] i32 tokens generated so far
     noise: Optional[torch.Tensor] = None,     # [S, min(64, V)] Gumbel noise
 ) -> torch.Tensor:                 # [S] int64 sampled ids
     """Batched sampling.  The per-row parameter tensors may live on the
     CPU (the engine passes host copies, so deciding whether any row is
-    random and seeding the per-row generators costs no device sync); they
-    are moved to ``logits.device`` for the arithmetic.  ``noise``, when
-    given, replaces the generated Gumbel noise (tests)."""
+    random costs no device sync); they are moved to ``logits.device`` for
+    the arithmetic.  ``key`` is the step's key (``prng.split`` of the
+    engine's); ``noise``, when given, replaces the drawn Gumbel noise
+    (tests)."""
     S, V = logits.shape
     dev = logits.device
     greedy_ids = torch.argmax(logits, dim=-1)
@@ -110,7 +109,9 @@ def sample(
     masked = torch.where(keep_k & keep_p, v,
                          torch.full_like(v, float("-inf")))
     if noise is None:
-        noise = _row_noise(S, K, dev, generator, seeds, gen_idx)
+        if key is None:
+            raise ValueError("sample: random rows need a key or noise")
+        noise = row_noise(S, K, dev, key, seeds, gen_idx)
     choice = torch.argmax(masked + noise.to(dev), dim=-1)     # [S]
     sampled = torch.gather(idxs, 1, choice[:, None])[:, 0]
     return torch.where(temp_d <= 0.0, greedy_ids, sampled)

@@ -16,7 +16,9 @@ the package's isolation from JAX.
   ``tiny`` and a narrowed ``llama3-1b`` (32 heads, 8 KV heads, D = 64).
 * ``EngineCore.generate`` greedy tokens identical to the JAX EngineCore:
   tiny-mla with int8 experts (at steps of up to 128 and of 1024 tokens)
-  and tiny with a bf16, int8-per-token and int8-per-head cache.
+  and tiny with a bf16, int8-per-token and int8-per-head cache, and on
+  the 'chunked' attention backend; sampled tokens (seeded and unseeded,
+  top-k and top-p) identical too, on tiny-mla and tiny.
 * ``params_from_numpy`` carries the dense tree bit for bit.
 * No module of the port, and not chip_smoke.py, imports jax or the JAX
   package; the engine raises instead of serving on a GPU-less box.
@@ -44,6 +46,7 @@ from llm_d_tpu.models import llama as JLlama
 from llm_d_tpu.models import moe as JMoE
 from llm_d_tpu.models.config import get_config as jget_config
 from llm_d_tpu.ops.quant import quantize_moe_experts as jquantize
+from llm_d_tpu.ops import sampling as JSampling
 from llm_d_tpu.ops.sampling import SamplingParams as JSamplingParams
 from llm_d_tpu_torch.engine import EngineConfig, EngineCore
 from llm_d_tpu_torch.engine import engine as TEngine
@@ -52,6 +55,7 @@ from llm_d_tpu_torch.models import llama as TLlama
 from llm_d_tpu_torch.models import moe as TMoE
 from llm_d_tpu_torch.models.config import get_config as tget_config
 from llm_d_tpu_torch.models.convert import params_from_numpy
+from llm_d_tpu_torch.ops import attention as TA
 from llm_d_tpu_torch.ops.sampling import SamplingParams
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -229,6 +233,107 @@ def test_llama_generate_token_identical_to_jax_engine(kv, gran):
     got = teng.generate([Request(f"r{i}", p, SamplingParams(
         temperature=0.0, max_tokens=16, ignore_eos=True))
         for i, p in enumerate(prompts)])
+    assert got == want
+
+
+def _jax_and_port_engines(kw):
+    jeng = JEngineCore(JEngineConfig(**kw))
+    teng = EngineCore(EngineConfig(device="cpu", **kw),
+                      params=params_from_numpy(
+                          jax.tree.map(np.asarray, jeng.params), "cpu"))
+    return jeng, teng
+
+
+@pytest.mark.parametrize("model,top_k", [("tiny-mla", 0), ("tiny-mla", 20),
+                                         ("tiny", 0), ("tiny", 20)])
+def test_sampled_tokens_identical_to_jax_engine(model, top_k, monkeypatch):
+    """Random sampling (temperature 1.0, top_p 0.9) through the classic
+    step: one seeded and one unseeded request, sixteen tokens each, token
+    for token with the JAX engine.  The port draws the JAX package's
+    threefry bits, seeded rows from (seed, gen_idx) and unseeded rows from
+    the engine key split once per step; tiny-mla runs int8 experts and an
+    int8 latent.
+
+    Both engines sample from the JAX forward's logits of each step (the
+    port's own forward differs from XLA's by one bf16 ulp in a minority
+    of hidden elements, as test_forward_matches_jax allows, which can
+    flip a near tie between tokens drawn at temperature 1): the JAX
+    program recomputes them, with its own sampler as a check, beside the
+    engine's step, and the port's ``compute_logits`` returns them in step
+    order."""
+    kw = dict(model=model, block_size=32, num_blocks=64, max_num_seqs=8,
+              max_num_batched_tokens=128, enable_prefix_caching=False,
+              seed=3)
+    if model == "tiny-mla":
+        kw.update(quantization="int8", kv_cache_dtype="int8")
+    jeng, teng = _jax_and_port_engines(kw)
+    jm, jc = jeng.model, jeng.model_config
+
+    @jax.jit
+    def logits_and_ids(params, kv, batch, key):
+        logits = jm.compute_logits(
+            params, jm.forward(params, kv, batch, jc, 32, "auto")[0], jc)
+        return logits, JSampling.sample(
+            logits, batch["temperature"], batch["top_k"], batch["top_p"],
+            key, seeds=batch["seeds"], gen_idx=batch["gen_idx"])
+
+    step_fn = jeng._build_step_fn()
+    logits_seen = []
+
+    def recording_step(params, kv, batch, key):
+        logits, ids = logits_and_ids(params, kv, batch, key)
+        out = step_fn(params, kv, batch, key)
+        np.testing.assert_array_equal(np.asarray(ids), np.asarray(out[0]))
+        logits_seen.append(torch.from_numpy(np.array(logits)))
+        return out
+
+    jeng._step_fn = recording_step
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, 512, size=n).tolist() for n in (9, 23)]
+    seeds = (1234, None)
+
+    def reqs(R, SP):
+        return [R(f"r{i}", p, SP(temperature=1.0, top_k=top_k, top_p=0.9,
+                                 max_tokens=16, seed=sd, ignore_eos=True))
+                for i, (p, sd) in enumerate(zip(prompts, seeds))]
+
+    want = jeng.generate(reqs(JRequest, JSamplingParams))
+    replay = iter(logits_seen)
+    monkeypatch.setattr(teng.model, "compute_logits",
+                        lambda *a: next(replay))
+    got = teng.generate(reqs(Request, SamplingParams))
+    assert got == want
+    assert next(replay, None) is None
+    assert len(set(got["r0"])) > 1 and len(set(got["r1"])) > 1
+
+
+def test_chunked_backend_token_identical_to_jax_engine():
+    """tiny with attn_backend="chunked" on both packages: three requests,
+    sixteen greedy tokens each, token for token."""
+    kw = dict(model="tiny", block_size=32, num_blocks=64, max_num_seqs=8,
+              max_num_batched_tokens=128, enable_prefix_caching=False,
+              attn_backend="chunked")
+    jeng, teng = _jax_and_port_engines(kw)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(1, 512, size=n).tolist() for n in (5, 40, 17)]
+    want = jeng.generate([JRequest(f"r{i}", p, JSamplingParams(
+        temperature=0.0, max_tokens=16, ignore_eos=True))
+        for i, p in enumerate(prompts)])
+    seen = []
+    real = TA.ragged_paged_attention_chunked
+
+    def spy(*a, **k):
+        seen.append(1)
+        return real(*a, **k)
+
+    TA.ragged_paged_attention_chunked = spy
+    try:
+        got = teng.generate([Request(f"r{i}", p, SamplingParams(
+            temperature=0.0, max_tokens=16, ignore_eos=True))
+            for i, p in enumerate(prompts)])
+    finally:
+        TA.ragged_paged_attention_chunked = real
+    assert seen
     assert got == want
 
 

@@ -65,15 +65,11 @@ _DECODE_LENS = {
 }
 
 
-@pytest.mark.parametrize("lens", sorted(_DECODE_LENS))
-@pytest.mark.parametrize("quantized,H,F,bs", [
-    (True, 16, 640, 64), (False, 16, 640, 64), (True, 4, 128, 32)])
-def test_mla_decode_kernel(dev, quantized, H, F, bs, lens):
-    """The kernel against the plain version, and twice on the same inputs:
+def _check_mla_decode(dev, quantized, H, F, bs, seq_lens):
+    """Kernel A against the plain version, and twice on the same inputs:
     the partials are combined in a fixed order, so the outputs are
-    bit-equal."""
+    bit-equal; the splices of the new rows (and scales) are exact."""
     g = _gen(1, dev)
-    seq_lens = _DECODE_LENS[lens](bs)
     S, L, layer = len(seq_lens), 3, 1
     nblk = S * max(-(-n // bs) for n in seq_lens) + 1
     kv, ks = _cache(g, dev, quantized, L, nblk * bs, F)
@@ -104,18 +100,24 @@ def test_mla_decode_kernel(dev, quantized, H, F, bs, lens):
             assert torch.equal(caches[i][1], caches[2][1])
 
 
-def test_mla_decode_kernel_rejects_pages_beyond_shared_memory(dev):
-    """Two bf16 pages of 128 rows at F = 640 do not fit in a block's shared
-    memory: the wrapper raises instead of launching."""
-    S, H, F, bs = 2, 16, 640, 128
-    kv = torch.zeros((1, 4 * bs, F), dtype=torch.bfloat16, device=dev)
-    bt = torch.tensor([[1], [2]], dtype=torch.int32, device=dev)
-    lens = torch.tensor([bs, 3], dtype=torch.int32, device=dev)
-    q = torch.zeros((S, H, F), dtype=torch.bfloat16, device=dev)
-    row = torch.zeros((S, F), dtype=torch.bfloat16, device=dev)
-    with pytest.raises(ValueError, match="shared memory"):
-        mla_decode.mla_paged_decode_update(q, row, kv, bt, lens, bs, 0.1,
-                                           layer=0)
+@pytest.mark.parametrize("lens", sorted(_DECODE_LENS))
+@pytest.mark.parametrize("quantized,H,F,bs", [
+    (True, 16, 640, 64), (False, 16, 640, 64), (True, 4, 128, 32)])
+def test_mla_decode_kernel(dev, quantized, H, F, bs, lens):
+    _check_mla_decode(dev, quantized, H, F, bs, _DECODE_LENS[lens](bs))
+
+
+@pytest.mark.parametrize("quantized,bs", [
+    (False, 96), (False, 128), (False, 256), (True, 160), (True, 256)])
+def test_mla_decode_kernel_at_pages_beyond_shared_memory(dev, quantized, bs):
+    """Two pages of these sizes do not fit in a block's shared memory at
+    F = 640, so the key tile is a part of the page (32, 64 or 128 rows):
+    a sequence ending inside a page's first tile, on a tile edge, on a
+    page edge, inside a later page, and a long one over several ranges."""
+    kt = mla_decode.decode_key_tile(640, bs, 1, quantized)
+    assert 0 < kt < bs and bs % kt == 0
+    _check_mla_decode(dev, quantized, 16, 640, bs,
+                      [5, kt, bs, 2 * bs + kt + 3, 9 * bs + 1, 0, 1, 0])
 
 
 @pytest.mark.parametrize("quantized,bs", [
@@ -240,6 +242,35 @@ def test_routed_moe_kernel(dev, T, rt):
     assert _scaled_err(got, want) <= 1e-2
 
 
+@pytest.mark.parametrize("T,rt,tm", [
+    (128, 32, 32),       # the bench's wave-2 decode: 32-row blocks
+    (65, 16, 32),        # two 16-row tiles a block
+    (256, 32, 64),       # 64-row blocks of two tiles
+    (512, 64, 64)])
+def test_routed_moe_kernel_on_the_streamed_passes(dev, monkeypatch, T, rt,
+                                                  tm):
+    """Kernel D runs E's launch with one chunk: against its plain version
+    on the same metadata, at the row block ``row_block_for`` picks, and
+    twice: bit-equal."""
+    from llm_d_tpu_torch.ops import moe_routed as MR
+    from llm_d_tpu_torch.ops import moe_routed_stream as MS
+    g = _gen(10, dev)
+    E, H, I, k = 64, 2048, 512, 8
+    quant = _quant(g, dev, 2, E, H, I)
+    quant["layer"] = 1
+    x = torch.randn((T, H), generator=g, device=dev).bfloat16()
+    w, idx = _routing(g, dev, T, E, k)
+    assert MS.row_block_for(T * k, E, rt) == tm
+    seen = _spy(monkeypatch, MR, "routed_moe_int8")
+    M._routed_int8_kernel_path(x, w, idx, quant, row_tile=rt)
+    args, kw = seen["args"], seen["kw"]
+    want = MR.routed_moe_int8_plain(*args, **kw)
+    again = MR.routed_moe_int8(*args, **kw)
+    torch.cuda.synchronize()
+    assert _scaled_err(seen["out"], want) <= 1e-2
+    assert torch.equal(seen["out"], again)
+
+
 def _spy(monkeypatch, module, name):
     """Replace ``module.name`` by a wrapper that records its last call."""
     real = getattr(module, name)
@@ -353,10 +384,13 @@ def test_streamed_moe_kernel_rejects_misaligned_rows(dev, monkeypatch):
         MS.streamed_moe_int8(*args, **seen["kw"])
 
 
-@pytest.mark.parametrize("T,rt", [(600, 128), (2048, 256)])
+@pytest.mark.parametrize("T,rt", [(600, 128), (2048, 256), (100, 64),
+                                  (1000, 32)])
 def test_grouped_moe_kernel(dev, monkeypatch, T, rt):
-    """Kernel F through its glue against its plain version on the same
-    sorted, padded rows (the padded tail must come back zero)."""
+    """Kernel F through its glue (E's passes with the identity row map, in
+    row blocks of 128, 64 or 32 rows dividing the row tile) against its
+    plain version on the same sorted, padded rows; the unpopulated tail
+    tiles must come back zero, and a second call bit-equal."""
     from llm_d_tpu_torch.ops import moe_int8
     g = _gen(6, dev)
     E, H, I, k = 64, 2048, 512, 8
@@ -369,7 +403,10 @@ def test_grouped_moe_kernel(dev, monkeypatch, T, rt):
     want = moe_int8.grouped_moe_int8_plain(*seen["args"], **seen["kw"])
     assert _scaled_err(seen["out"], want) <= 1e-2
     n_live = int(seen["args"][3]) * rt
+    assert n_live < seen["out"].shape[0]
     assert torch.all(seen["out"][n_live:] == 0)
+    again = moe_int8.grouped_moe_int8(*seen["args"], **seen["kw"])
+    assert torch.equal(seen["out"], again)
 
 
 @pytest.mark.parametrize("prefill_kernel,fn", [
@@ -499,14 +536,17 @@ def test_llama_engine_on_the_card_matches_the_cpu_reference(dev):
     assert FP.flash_prefill_paged.launches > launches[1]
 
 
-@pytest.mark.parametrize("kv_cache_dtype", ["int8", "bf16"])
-def test_engine_on_the_card_matches_the_cpu_reference(dev, kv_cache_dtype):
+@pytest.mark.parametrize("kv_cache_dtype,bs", [
+    ("int8", 64), ("bf16", 64), ("bf16", 128), ("int8", 256)])
+def test_engine_on_the_card_matches_the_cpu_reference(dev, kv_cache_dtype,
+                                                      bs):
     """Two layers of deepseek-v3-bench at full width: the first generated
     token of each request through the kernels equals the CPU reference's
-    (prefill through kernels B and D, decode through A and C), on an int8
-    and on a bf16 latent cache in 64-row pages."""
+    (prefill through kernels B and D, decode through A and C), on int8
+    and bf16 latent caches in 64-row pages and in pages larger than two
+    fit kernel A's shared memory (bf16 128, int8 256)."""
     cfg = dataclasses.replace(get_config("deepseek-v3-bench"), num_layers=2)
-    kw = dict(model_config=cfg, block_size=64, num_blocks=32,
+    kw = dict(model_config=cfg, block_size=bs, num_blocks=2048 // bs,
               max_num_seqs=8, max_num_batched_tokens=512,
               quantization="int8", kv_cache_dtype=kv_cache_dtype,
               enable_prefix_caching=False)
@@ -522,3 +562,39 @@ def test_engine_on_the_card_matches_the_cpu_reference(dev, kv_cache_dtype):
         for i, p in enumerate(prompts)]) for eng in (card, host)]
     assert [v[0] for v in outs[0].values()] == \
         [v[0] for v in outs[1].values()]
+
+
+def test_tiny_serves_on_the_card_through_the_chunked_path(dev):
+    """tiny's rows (KVH*D = 32) fit no kernel: on the card every batch
+    goes through the chunked attention path, and the greedy tokens equal
+    the CPU engine's on the 'chunked' backend."""
+    from llm_d_tpu_torch.ops import attention as A
+    kw = dict(model="tiny", block_size=32, num_blocks=64, max_num_seqs=8,
+              max_num_batched_tokens=256, enable_prefix_caching=False)
+    card = EngineCore(EngineConfig(device="cuda", **kw))
+    host = EngineCore(EngineConfig(device="cpu", attn_backend="chunked",
+                                   **kw), params={
+        k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict)
+            else v.cpu()) for k, v in card.params.items()})
+    g = torch.Generator().manual_seed(11)
+    prompts = [torch.randint(1, 512, (n,), generator=g).tolist()
+               for n in (5, 70, 17)]
+    outs = [eng.generate([Request(f"r{i}", p, SamplingParams(
+        temperature=0.0, max_tokens=8, ignore_eos=True))
+        for i, p in enumerate(prompts)]) for eng in (card, host)]
+    assert [v[0] for v in outs[0].values()] == \
+        [v[0] for v in outs[1].values()]
+    assert A.resolve_backend("auto", dev) == "kernel"
+
+
+def test_gumbel_noise_on_the_card_is_the_cpu_noise(dev):
+    """The threefry sampler's noise is integer and single-rounding f32
+    arithmetic: drawn on the card it is bit-equal to the CPU's."""
+    from llm_d_tpu_torch.ops import prng
+    from llm_d_tpu_torch.ops.sampling import row_noise
+    seeds = torch.tensor([0, 7, 2**31 - 1, -1, -1, 5], dtype=torch.int32)
+    gen = torch.tensor([0, 1, 1000, 2, 0, 9], dtype=torch.int32)
+    _, step = prng.split(prng.prng_key(3))
+    cpu = row_noise(6, 64, torch.device("cpu"), step, seeds, gen)
+    card = row_noise(6, 64, dev, step, seeds.to(dev), gen.to(dev)).cpu()
+    assert torch.equal(cpu.view(torch.int32), card.view(torch.int32))

@@ -4,7 +4,8 @@
 Layers are compared in f32 (atol 1e-5: only summation order differs).
 Greedy sampling must give identical ids; random rows must give identical
 ids when both packages see the same Gumbel noise (the JAX noise is drawn
-with the JAX package's own per-row keys and handed to the port).
+with the JAX package's own per-row keys and handed to the port).  The
+port's own noise is held to JAX's bit for bit in test_torch_prng.py.
 """
 
 import jax
@@ -16,6 +17,7 @@ import torch
 from llm_d_tpu.ops import layers as JL
 from llm_d_tpu.ops import sampling as JS
 from llm_d_tpu_torch.ops import layers as TL
+from llm_d_tpu_torch.ops import prng
 from llm_d_tpu_torch.ops import sampling as TS
 
 ATOL = 1e-5
@@ -117,18 +119,17 @@ def test_topk_topp_with_shared_noise(seed):
 
 def test_seeded_rows_repeat_and_ignore_batch():
     """Seeded rows draw from (seed, gen_idx): the same position gives the
-    same token whatever else is in the batch."""
+    same token whatever the step key and whatever else is in the batch."""
     logits, temp, top_k, top_p, seeds, gen = _sample_inputs(4)
     args = (_t(logits), torch.from_numpy(temp), torch.from_numpy(top_k),
             torch.from_numpy(top_p))
-    g1 = torch.Generator().manual_seed(1)
-    g2 = torch.Generator().manual_seed(2)
-    a = TS.sample(*args, generator=g1, seeds=torch.from_numpy(seeds),
+    k1, k2 = prng.prng_key(1), prng.prng_key(2)
+    a = TS.sample(*args, key=k1, seeds=torch.from_numpy(seeds),
                   gen_idx=torch.from_numpy(gen))
-    b = TS.sample(*args, generator=g2, seeds=torch.from_numpy(seeds),
+    b = TS.sample(*args, key=k2, seeds=torch.from_numpy(seeds),
                   gen_idx=torch.from_numpy(gen))
     np.testing.assert_array_equal(a.numpy(), b.numpy())
-    c = TS.sample(*(t[2:] for t in args), generator=g1,
+    c = TS.sample(*(t[2:] for t in args), key=k1,
                   seeds=torch.from_numpy(seeds[2:]),
                   gen_idx=torch.from_numpy(gen[2:]))
     np.testing.assert_array_equal(c.numpy(), a.numpy()[2:])

@@ -233,3 +233,25 @@ def test_prefill_shared_memory_plan():
     kv16 = torch.zeros((1, 128, 640), dtype=torch.bfloat16)
     for bs in (16, 32, 64):
         mla_decode.check_cache(check, q, kv16, None, bs, 0)
+
+
+def test_decode_key_tile_covers_every_block_size():
+    """Kernel A's key tile: the page where two pages fit a block's shared
+    memory at F = 640 (so the bench's int8 64-row pages keep their
+    tiling), else the largest of 128, 64, 32, 16 rows that divides the
+    page and fits -- for every block size the JAX kernel serves (bf16
+    ``% 16``, int8 ``% 32``) up to 1024 rows."""
+    from llm_d_tpu_torch.ops import _build
+    tile = mla_decode.decode_key_tile
+    assert tile(640, 64, 1, True) == 64
+    assert tile(640, 64, 1, False) == 64
+    assert tile(640, 128, 1, False) == 64
+    assert tile(640, 96, 1, False) == 32
+    assert tile(640, 160, 1, True) == 32
+    assert tile(640, 256, 1, True) == 128
+    for quantized, step in ((False, 16), (True, 32)):
+        for bs in range(step, 1025, step):
+            kt = tile(640, bs, 1, quantized)
+            assert kt >= 16 and bs % kt == 0, (quantized, bs)
+            assert mla_decode._split_smem_bytes(640, kt, 1, quantized) \
+                <= _build.MAX_SMEM_PER_BLOCK

@@ -378,3 +378,13 @@ def test_row_block_for_the_bench_steps():
     assert row_block_for(3072 * 8, 64, 32) == 128
     assert row_block_for(8192 * 8, 64, 64) == 128
     assert row_block_for(100, 64, 64) == 64
+
+
+@pytest.mark.parametrize("T,rt,want", [(128, 32, 32), (65, 16, 32),
+                                       (256, 32, 64), (512, 64, 64)])
+def test_row_block_for_kernel_d_steps(T, rt, want):
+    """Kernel D's decode steps run E's passes in 32-row blocks while the
+    mean rows per expert stay under 32 (the bench's wave-2 T = 128: ~16
+    rows an expert), 64 from there."""
+    from llm_d_tpu_torch.ops.moe_routed_stream import row_block_for
+    assert row_block_for(T * 8, 64, rt) == want
