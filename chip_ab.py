@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Kernels A-F of this checkout against another checkout of the port, on
+"""Kernels A-H of this checkout against another checkout of the port, on
 one CUDA card, on the same inputs and in turns.
 
     git archive <commit> llm_d_tpu_torch | tar -x -C _scratch_parent
@@ -7,22 +7,25 @@ one CUDA card, on the same inputs and in turns.
 
 (``_scratch*`` directories are gitignored.)  Serves deepseek-v3-bench as
 ``chip_smoke.py`` does (waves 1-3, then wave 3 under
-``LLMD_MOE_PREFILL_KERNEL=grouped``) and records the inputs of the first
-launch of A for each batch size S, of B for each (S, Q), of C, D and E
-for each token count T (D at [128, 2048] in wave 2), and of F (x_pad
-[81920, 2048] in the grouped wave 3).  Then:
+``LLMD_MOE_PREFILL_KERNEL=grouped``) and llama3-1b on a bf16 cache and on
+int8 caches with one scale per row and one per KV head (``chip_smoke``'s
+path (ii) wave each), and records the inputs of the first launch of A
+for each batch size S, of B for each (S, Q), of C, D and E for each token
+count T (D at [128, 2048] in wave 2), of F (x_pad [81920, 2048] in the
+grouped wave 3) and of G and H for each cache mode.  Then:
 
-1. waves: ``ROUNDS`` rounds of waves 1, 2, 3 and the grouped wave 3,
-   each round with this checkout's wrappers of A-F installed or the
-   other's, in the order this, other, other, this, ...: prefill seconds
-   and decode tok/s of every run, their medians, quartiles and ranges,
-   whether each side's greedy tokens repeated across its rounds, and
-   whether the two sides' tokens are the same wave by wave;
-2. kernels: each recorded input (and A on 8 sequences x 4096 keys, E on
-   the 8192-token step as one chunk) through both checkouts' wrappers:
-   whether the outputs (and A's cache splice) are bit-equal between the
-   two, as A's and C's must be, then eight timings in the same order:
-   eager ms
+1. waves: ``ROUNDS`` rounds of the seven waves, each round with this
+   checkout's wrappers of A-H installed or the other's, in the order
+   this, other, other, this, ...: prefill seconds and decode tok/s of
+   every run, their medians, quartiles and ranges, whether each side's
+   greedy tokens repeated across its rounds, and whether the two sides'
+   tokens are the same wave by wave;
+2. kernels: each recorded input (and A and G on 8 sequences x 4096 keys,
+   E on the 8192-token step as one chunk) through both checkouts'
+   wrappers: for A-F whether the outputs (and A's cache splice) are
+   bit-equal between the two, as they must be; for G and H, whose
+   arithmetic this tree may change, each side's max error against the
+   plain version; then eight timings in the same order: eager ms
    (``chip_smoke.py``'s ``ms``: 20 calls back to back, event-timed, host
    cost included where it exceeds the kernel's), device ms and host ms
    per call (``chip_smoke.device_ms``).
@@ -49,6 +52,8 @@ TARGETS = {            # name: (module under llm_d_tpu_torch.ops, wrapper)
     "moe_routed_int8": ("moe_routed", "routed_moe_int8"),
     "moe_streamed_int8": ("moe_routed_stream", "streamed_moe_int8"),
     "moe_grouped_int8": ("moe_int8", "grouped_moe_int8"),
+    "paged_decode": ("paged_attention", "paged_attention_decode_update"),
+    "flash_prefill": ("flash_prefill", "flash_prefill_paged"),
 }
 LABELS = {
     "mla_decode": lambda a, kw: f"S={a[0].shape[0]}",
@@ -58,7 +63,9 @@ LABELS = {
     "moe_streamed_int8": lambda a, kw: f"T={a[0].shape[0]}",
 }
 GROUPED = "wave3_grouped"      # wave 3 under LLMD_MOE_PREFILL_KERNEL=grouped
-BIT_EQUAL = ("mla_decode", "moe_dense_int8")   # unchanged arithmetic
+# G and H are held to their plain versions; A-F to the other checkout.
+PLAIN = {"paged_decode": "paged_attention_decode_update_plain",
+         "flash_prefill": "flash_prefill_paged_plain"}
 
 
 def same_results(fns, args, kw, weights) -> bool:
@@ -84,6 +91,20 @@ def same_results(fns, args, kw, weights) -> bool:
         return x == y
 
     return eq(o0, o1) and eq(a0, a1) and eq(k0, k1)
+
+
+def plain_errors(fns, plain, args, kw, weights) -> dict:
+    """Each wrapper of ``fns`` (side: wrapper) against ``plain`` on copies
+    of ``(args, kw)``: the max absolute error of its output."""
+    import torch
+    import chip_smoke as cs
+    want = plain(*cs.clone(args, weights), **cs.clone(kw, weights)).float()
+    errs = {}
+    for side, fn in fns.items():
+        got = fn(*cs.clone(args, weights), **cs.clone(kw, weights))
+        errs[side] = float((got.float() - want).abs().max())
+    torch.cuda.synchronize()
+    return errs
 
 
 def load_other(root: str) -> dict:
@@ -145,20 +166,27 @@ def main() -> int:
 
     engine = cs.path_i_engine()
     weights = cs.tensor_ptrs(engine.params)
-    recs = {n: cs.Recorder(mods[n], fn, weights, LABELS.get(n))
+    recs = {n: cs.Recorder(mods[n], fn, weights,
+                           cs.cache_mode if n in PLAIN else LABELS.get(n))
             for n, (_, fn) in TARGETS.items()}
     rng = np.random.default_rng(0)
     vocab = engine.model_config.vocab_size
-    waves = {"wave1": cs.WAVE1, "wave2": cs.WAVE2, "wave3": cs.WAVE3,
-             GROUPED: cs.WAVE3}
+    waves = {"wave1": (engine, cs.WAVE1), "wave2": (engine, cs.WAVE2),
+             "wave3": (engine, cs.WAVE3), GROUPED: (engine, cs.WAVE3)}
     prompts = {w: cs.prompts_for(rng, vocab, spec)
-               for w, spec in waves.items() if w != GROUPED}
+               for w, (_, spec) in waves.items() if w != GROUPED}
     prompts[GROUPED] = prompts["wave3"]
+    for kv, gran in cs.DENSE_MODES:
+        w = "llama3-1b " + (kv if gran is None else f"{kv}-{gran}")
+        dense = cs.path_ii_engine(kv, gran)
+        waves[w] = (dense, cs.DENSE_WAVE)
+        prompts[w] = cs.dense_prompts(dense.model_config.vocab_size)
 
     def run(w, tag):
         kernel = "grouped" if w == GROUPED else "streamed"
+        eng, spec = waves[w]
         with cs.env_set("LLMD_MOE_PREFILL_KERNEL", kernel):
-            return cs.run_wave(engine, prompts[w], waves[w]["new"], tag)
+            return cs.run_wave(eng, prompts[w], spec["new"], tag)
 
     with cs.bench_glue_recorder(moe_ops) as bench_glue:
         for w in waves:
@@ -204,17 +232,26 @@ def main() -> int:
     first = next(iter(recs["mla_decode"].calls.values()))
     inputs.append(("mla_decode", "S=8 keys=4096",
                    *cs.long_decode_inputs(*first, S=8, keys=4096, seed=11)))
+    first = next(iter(recs["paged_decode"].calls.values()))
+    inputs.append(("paged_decode", "S=8 keys=4096",
+                   *cs.long_dense_decode_inputs(*first, S=8, keys=4096,
+                                                seed=12)))
     one_chunk = cs.bench_step_as_one_chunk(
         moe_ops, mods["moe_streamed_int8"], bench_glue["args"])
     inputs.append(("moe_streamed_int8",
                    f"T={cs.BENCH_T} chunk_t={cs.BENCH_T}", *one_chunk))
     ab_kernels = []
     for n, label, args, kw in inputs:
-        same = same_results([fns[side][n] for side in fns], args, kw,
-                            weights)
-        if n in BIT_EQUAL and not same:
-            raise RuntimeError(f"{n} [{label}]: outputs differ from the "
-                               f"other checkout's")
+        sides = {side: fns[side][n] for side in fns}
+        if n in PLAIN:
+            check = dict(max_err_vs_plain=plain_errors(
+                sides, getattr(mods[n], PLAIN[n]), args, kw, weights))
+        else:
+            check = dict(bit_equal=same_results(list(sides.values()), args,
+                                                kw, weights))
+            if not check["bit_equal"]:
+                raise RuntimeError(f"{n} [{label}]: outputs differ from the "
+                                   f"other checkout's")
         res = {side: {"ms": [], "device_ms": [], "host_ms": []}
                for side in fns}
         copies = {side: (cs.clone(args, weights), cs.clone(kw, weights))
@@ -225,11 +262,11 @@ def main() -> int:
             dev, host = cs.device_ms(lambda: fn(*a, **k))
             res[side]["device_ms"].append(dev)
             res[side]["host_ms"].append(host)
-        row = dict(name=n, variant=label, bit_equal=same, **{
+        row = dict(name=n, variant=label, **check, **{
             side: {m: spread(v) for m, v in r.items()}
             for side, r in res.items()})
         ab_kernels.append(row)
-        cs.log(f"{n} [{label}]: bit-equal {same}; " + "; ".join(
+        cs.log(f"{n} [{label}]: {json.dumps(check)}; " + "; ".join(
             f"{side} ms {row[side]['ms']['median']:.4f} device "
             f"{row[side]['device_ms']['median']:.4f} host "
             f"{row[side]['host_ms']['median']:.4f}" for side in fns))

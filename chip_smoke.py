@@ -28,11 +28,14 @@ Phases (each raises on failure; the script then exits non-zero):
             of its first launch in phases 2-3 (A: of each batch size S;
             B: of each (S, Q); C and E: of each token count T -- E's
             T=8192 is the bench's step at the default 512-token chunks;
-            G and H: of each cache mode; A also on 8 sequences x 4096
-            keys made from a seed; E also on the bench's 8192-token step
-            as one chunk; D also at T = 256 and 512, its 64-row blocks,
-            and F at 128-row tiles, made from a seed), then timed
-            against it;
+            G and H: of each cache mode; A and G also on 8 sequences x
+            4096 keys made from a seed; E also on the bench's 8192-token
+            step as one chunk; D also at T = 256 and 512, its 64-row
+            blocks, and F at 128-row tiles, made from a seed), then timed
+            against it; G and H on the bf16 cache also timed as one
+            torch scaled_dot_product_attention call on the same K/V
+            gathered to contiguous rows (``library_ms``, a yardstick the
+            port never calls);
 5. check    logits of the first two layers at full width through the
             kernels against the CPU reference path with the same weights:
             deepseek-v3-bench on a 100-token and on a 1024-token prompt
@@ -42,7 +45,12 @@ Phases (each raises on failure; the script then exits non-zero):
             latents in 128-row pages and int8 ones in 256-row pages (key
             tiles of 64 and 128 rows) against its plain version, splices
             exact, then phase 5's deepseek-v3-bench check (a 1024-token
-            prompt, then a decode step through A) on each; ``tiny`` (rows too
+            prompt, then a decode step through A) on each; kernels G and
+            H at 256-row pages and D = 128 on a bf16 cache and an int8
+            one with a scale per KV head against their plain versions,
+            then phase 5's check on a 2-layer llama3-8b (D = 128) in
+            256-row pages (a 300-token prompt: two pages through H, then
+            a decode step through G; both must launch); ``tiny`` (rows too
             narrow for any kernel) served on the card through the chunked
             attention path, a greedy wave twice (must repeat) with first
             tokens equal to the CPU engine's on attn_backend="chunked";
@@ -69,10 +77,11 @@ alone.
     python3 chip_smoke.py --profile
 
 adds a ``{"profile": ...}`` line: four wave-1 and four wave-2 decode
-steps and the 8192-token wave-3 prefill step of deepseek-v3-bench under
-``torch.profiler``, with the device's busy time, kernel launches and the
-largest kernels per step (a measurement, not part of the smoke's
-pass/fail contract).
+steps and the 8192-token wave-3 prefill step of deepseek-v3-bench, and
+llama3-1b's 8192-token prefill step and four of its decode steps (bf16
+cache), under ``torch.profiler``, with the device's busy time, kernel
+launches and the largest kernels per step (a measurement, not part of
+the smoke's pass/fail contract).
 """
 
 from __future__ import annotations
@@ -352,34 +361,50 @@ def _profile_steps(engine, steps: int) -> dict:
              for n, m, c in kernels[:12]])
 
 
+def add_requests(engine, prompts, tag: str, n: int):
+    """Greedy requests for ``prompts`` (``n`` new tokens each), added to
+    ``engine``."""
+    from llm_d_tpu_torch.engine.request import Request
+    from llm_d_tpu_torch.ops.sampling import SamplingParams
+    reqs = [Request(f"{tag}-{i}", p, SamplingParams(
+        temperature=0.0, max_tokens=n, ignore_eos=True))
+        for i, p in enumerate(prompts)]
+    for r in reqs:
+        engine.add_request(r)
+    return reqs
+
+
+def profile_dense(engine, prompts) -> dict:
+    """Device busy time of the single prefill step of ``prompts`` (an
+    8192-token step through kernel H) and of four decode steps (kernel G)
+    after one untraced one."""
+    add_requests(engine, prompts, "profd", 8)
+    out = {"prefill": dict(_profile_steps(engine, 1),
+                           tokens=sum(map(len, prompts)))}
+    engine.step()                         # one decode step outside the trace
+    out["decode"] = dict(_profile_steps(engine, 4), batch=len(prompts))
+    while engine.has_work():
+        engine.step()
+    return out
+
+
 def profile_waves(engine, decode_prompts, routed_prompts,
                   prefill_prompts) -> dict:
     """Device busy time of four decode steps of ``decode_prompts`` and of
     ``routed_prompts`` (wave 2: kernel D) after their prefill and one
     untraced decode step, and of the single prefill step of
     ``prefill_prompts``."""
-    from llm_d_tpu_torch.engine.request import Request
-    from llm_d_tpu_torch.ops.sampling import SamplingParams
-
-    def add(prompts, tag, n):
-        reqs = [Request(f"{tag}-{i}", p, SamplingParams(
-            temperature=0.0, max_tokens=n, ignore_eos=True))
-            for i, p in enumerate(prompts)]
-        for r in reqs:
-            engine.add_request(r)
-        return reqs
-
     out = {}
     for key, prompts in (("decode", decode_prompts),
                          ("decode_routed", routed_prompts)):
-        reqs = add(prompts, f"prof-{key}", 8)
+        reqs = add_requests(engine, prompts, f"prof-{key}", 8)
         while not all(r.output_token_ids for r in reqs):
             engine.step()
         engine.step()                     # one decode step outside the trace
         out[key] = dict(_profile_steps(engine, 4), batch=len(prompts))
         while engine.has_work():
             engine.step()
-    add(prefill_prompts, "profp", 2)
+    add_requests(engine, prefill_prompts, "profp", 2)
     out["prefill"] = dict(_profile_steps(engine, 1),
                           tokens=sum(map(len, prefill_prompts)))
     while engine.has_work():
@@ -397,6 +422,24 @@ def path_i_engine():
         kv_cache_dtype="int8", block_size=64, num_blocks=256,
         max_num_seqs=128, max_num_batched_tokens=BENCH_T,
         enable_prefix_caching=False, device="cuda", seed=0))
+
+
+def path_ii_engine(kv: str, gran):
+    """llama3-1b at full width and depth, random weights from seed 1, on a
+    ``kv`` cache (bf16, or int8 with scales per ``gran``: token or head):
+    block size 64, steps of up to ``BENCH_T`` tokens, 64 sequences."""
+    from llm_d_tpu_torch.engine import EngineConfig, EngineCore
+    return EngineCore(EngineConfig(
+        model="llama3-1b", kv_cache_dtype=kv, kv_scale_granularity=gran,
+        block_size=64, num_blocks=256, max_num_seqs=64,
+        max_num_batched_tokens=BENCH_T, enable_prefix_caching=False,
+        device="cuda", seed=1))
+
+
+def dense_prompts(vocab: int):
+    """The path (ii) wave's prompts (the same in every cache mode)."""
+    import numpy as np
+    return prompts_for(np.random.default_rng(2), vocab, DENSE_WAVE)
 
 
 def long_decode_inputs(args, kw, S: int, keys: int, seed: int):
@@ -430,17 +473,146 @@ def decode_inputs(quantized: bool, bs: int, seq_lens, seed: int,
     if quantized:
         kv, ks = quantize_kv_block(kv, 1)
         row, row_s = quantize_kv_block(row, 1)
-    perm = (torch.randperm(nblk - 1, generator=g, device=dev) + 1).to(
-        torch.int32)
-    bt = torch.zeros((S, max(B, max(pages))), dtype=torch.int32, device=dev)
-    for s, (start, n) in enumerate(zip(
-            [sum(pages[:i]) for i in range(S)], pages)):
-        bt[s, :n] = perm[start:start + n]
+    bt = random_tables(g, pages, B)
     lens = torch.tensor(seq_lens, dtype=torch.int32, device=dev)
     q = torch.randn((S, H, F), generator=g, device=dev).bfloat16()
     return (q, row, kv, bt, lens), dict(
         block_size=bs, scale=scale, layer=0, kv_scale=ks,
         row_scale_new=row_s)
+
+
+def random_tables(g, pages, B: int = 0):
+    """Block tables of sequences holding ``pages[i]`` pages each, drawn
+    in random order from blocks 1 .. sum(pages) (block 0 stays the trash
+    block), ``B`` entries wide or as wide as the longest needs."""
+    import torch
+    dev = torch.device("cuda")
+    nblk = sum(pages) + 1
+    perm = (torch.randperm(nblk - 1, generator=g, device=dev) + 1).to(
+        torch.int32)
+    bt = torch.zeros((len(pages), max(B, max(pages))), dtype=torch.int32,
+                     device=dev)
+    for s, (start, n) in enumerate(zip(
+            [sum(pages[:i]) for i in range(len(pages))], pages)):
+        bt[s, :n] = perm[start:start + n]
+    return bt
+
+
+def dense_rows(g, shape, sw: int):
+    """bf16 rows from ``g``, or int8 ones with ``sw`` f32 scale columns:
+    ``(rows, scales or None)``."""
+    import torch
+    from llm_d_tpu_torch.ops.quant import quantize_kv_block
+    rows = torch.randn(shape, generator=g, device="cuda").bfloat16()
+    return (rows, None) if sw == 0 else quantize_kv_block(rows, sw)
+
+
+def dense_decode_inputs(sw: int, bs: int, seq_lens, seed: int, H: int = 32,
+                        KVH: int = 8, D: int = 64, scale: float = 0.125,
+                        B: int = 0):
+    """Kernel G's inputs from a seed: ``seq_lens`` sequences on one K and
+    one V layer plane (bf16, or int8 with ``sw`` scale columns) holding
+    just their pages of ``bs`` rows, in random order, and each sequence's
+    new K/V rows; block tables ``B`` entries wide, or as wide as the
+    longest sequence needs."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    S, F = len(seq_lens), KVH * D
+    pages = [-(-n // bs) for n in seq_lens]
+    slots = (sum(pages) + 1) * bs
+    (kc, ks), (vc, vs) = (dense_rows(g, (1, slots, F), sw) for _ in range(2))
+    (kn, kns), (vn, vns) = (dense_rows(g, (S, F), sw) for _ in range(2))
+    bt = random_tables(g, pages, B)
+    lens = torch.tensor(seq_lens, dtype=torch.int32, device="cuda")
+    q = torch.randn((S, H, D), generator=g, device="cuda").bfloat16()
+    return (q, kn, vn, kc, vc, bt, lens), dict(
+        block_size=bs, num_kv_heads=KVH, scale=scale, layer=0, k_scale=ks,
+        v_scale=vs, k_scale_new=kns, v_scale_new=vns)
+
+
+def long_dense_decode_inputs(args, kw, S: int, keys: int, seed: int):
+    """Kernel G's inputs at long context, from a seed: S sequences of
+    ``keys`` keys each on a bf16 layer plane, at the heads, block size,
+    block-table width and scale of the recorded launch ``(args, kw)``."""
+    q0, bt0 = args[0], args[5]
+    return dense_decode_inputs(0, kw["block_size"], [keys] * S, seed,
+                               H=q0.shape[1], KVH=kw["num_kv_heads"],
+                               D=q0.shape[2], scale=kw["scale"],
+                               B=bt0.shape[1])
+
+
+def dense_prefill_inputs(sw: int, bs: int, seq_lens, q_lens, seed: int,
+                         H: int = 32, KVH: int = 8, D: int = 128,
+                         scale: float = 0.09):
+    """Kernel H's inputs from a seed: sequence i's last ``q_lens[i]``
+    positions are the queries (padded to the longest, pad rows at
+    position -1) over a bf16 or int8 (``sw`` scale columns) layer plane
+    holding just its pages of ``bs`` rows."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    S, F, Q = len(seq_lens), KVH * D, max(q_lens)
+    pages = [max(-(-n // bs), 1) for n in seq_lens]
+    slots = (sum(pages) + 1) * bs
+    (kc, ks), (vc, vs) = (dense_rows(g, (1, slots, F), sw) for _ in range(2))
+    bt = random_tables(g, pages)
+    q_pos = torch.full((S, Q), -1, dtype=torch.int32, device="cuda")
+    for i, (n, m) in enumerate(zip(seq_lens, q_lens)):
+        q_pos[i, :m] = torch.arange(n - m, n, device="cuda")
+    qs = torch.randn((S, Q, H, D), generator=g, device="cuda").bfloat16()
+    qs[q_pos < 0] = 0
+    lens = torch.tensor(seq_lens, dtype=torch.int32, device="cuda")
+    return (qs, q_pos, kc, vc, bt, lens), dict(
+        block_size=bs, num_kv_heads=KVH, scale=scale, layer=0, k_scale=ks,
+        v_scale=vs)
+
+
+def sdpa_ms(name: str, args, kw) -> float:
+    """Eager ms of one ``torch.nn.functional.scaled_dot_product_attention``
+    call computing kernel G's (``paged_decode``) or H's
+    (``flash_prefill``) attention on a bf16 cache: the same queries, and
+    K/V gathered (untimed) from the cache into contiguous [S, KVH, L, D]
+    rows of each sequence's live keys, causal where every query row
+    attends its own prefix.  A yardstick only; the port never calls it."""
+    import torch
+    import torch.nn.functional as Fn
+    bs, KVH, scale = kw["block_size"], kw["num_kv_heads"], kw["scale"]
+    if name == "paged_decode":
+        q, kc, vc, bt, sl = args[0], args[3], args[4], args[5], args[6]
+        q = q[:, :, None, :]                                 # [S, H, 1, D]
+        q_pos = (sl.long() - 1)[:, None]                     # [S, 1]
+    else:
+        qs, q_pos, kc, vc, bt, sl = args[:6]
+        q = qs.permute(0, 2, 1, 3).contiguous()              # [S, H, Q, D]
+        q_pos = q_pos.long()
+    S, H, Q, D = q.shape
+    L = int(sl.max())
+    keys = torch.arange(L, device=q.device)
+    slots = bt.long()[:, keys // bs] * bs + keys % bs        # [S, L]
+    layer = kw.get("layer") or 0
+
+    def gather(cache):
+        plane = cache[layer] if cache.ndim == 3 else cache
+        return plane[slots].view(S, L, KVH, D).permute(0, 2, 1, 3).contiguous()
+
+    k, v = gather(kc), gather(vc)
+    causal = Q == L and bool((sl == L).all()) and bool(
+        (q_pos == keys[None, :]).all())
+    mask = None
+    if not causal:
+        mask = ((keys[None, None, :] <= q_pos[:, :, None])
+                & (keys[None, None, :] < sl.long()[:, None, None]))[:, None]
+    try:
+        Fn.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                        is_causal=causal, scale=scale,
+                                        enable_gqa=True)
+        extra = dict(enable_gqa=True)
+    except TypeError:                    # torch without enable_gqa
+        k = k.repeat_interleave(H // KVH, dim=1)
+        v = v.repeat_interleave(H // KVH, dim=1)
+        extra = {}
+    return time_ms(lambda: Fn.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, is_causal=causal, scale=scale, **extra),
+        iters=20)
 
 
 def moe_inputs(mc, T: int, seed: int):
@@ -476,6 +648,37 @@ def large_page_reference(mc, params, quantized: bool, bs: int,
                          for (m, f), b in zip(wrappers, before)])
     if min(ref["launches"]) == 0:
         raise RuntimeError(f"kernel A or B did not launch: {ref}")
+    return ref
+
+
+def dense_large_page_reference(wrappers) -> dict:
+    """``reference_check`` of a 2-layer llama3-8b (D = 128, random weights
+    from a seed) on a bf16 cache in 256-row pages: a 300-token prefill (two
+    pages through kernel H), then one decode step through kernel G; each
+    of ``wrappers`` (``(module, name)`` of G and H) must launch."""
+    import dataclasses
+    import torch
+    from llm_d_tpu_torch.models import llama
+    from llm_d_tpu_torch.models.config import get_config
+    mc = dataclasses.replace(get_config("llama3-8b"), num_layers=2,
+                             max_model_len=1024)
+    params = llama.init_params(
+        mc, torch.Generator(device="cuda").manual_seed(4),
+        torch.device("cuda"))
+    engine_kw = dict(block_size=256, num_blocks=5, max_num_seqs=8,
+                     max_num_batched_tokens=512, enable_prefix_caching=False)
+    before = [getattr(m, f).launches for m, f in wrappers]
+    ref = reference_check(mc, params, engine_kw, [300], 13)
+    ref.update(block_size=256, launches=[
+        getattr(m, f).launches - b for (m, f), b in zip(wrappers, before)])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if min(ref["launches"]) == 0:
+        raise RuntimeError(f"kernel G or H did not launch: {ref}")
+    if not ref["top1_agree"] or ref["rel_max_err"] > 5e-2:
+        raise RuntimeError(f"kernel path disagrees with the CPU "
+                           f"reference: {ref}")
     return ref
 
 
@@ -657,7 +860,6 @@ def main() -> int:
     sys.path.insert(0, root)
     import dataclasses
     import numpy as np
-    from llm_d_tpu_torch.engine import EngineConfig, EngineCore
     from llm_d_tpu_torch.models.config import get_config
     from llm_d_tpu_torch.ops import _build, flash_prefill, mla_decode, \
         mla_prefill, moe_int8, moe_routed, moe_routed_stream, \
@@ -790,16 +992,11 @@ def main() -> int:
     for kv, gran in DENSE_MODES:
         tag = kv if gran is None else f"{kv}-{gran}"
         t0 = time.perf_counter()
-        eng = EngineCore(EngineConfig(
-            model="llama3-1b", kv_cache_dtype=kv, kv_scale_granularity=gran,
-            block_size=64, num_blocks=256, max_num_seqs=64,
-            max_num_batched_tokens=BENCH_T, enable_prefix_caching=False,
-            device="cuda", seed=1))
+        eng = path_ii_engine(kv, gran)
         torch.cuda.synchronize()
         log(f"llama3-1b {tag}: init {time.perf_counter() - t0:.1f} s, "
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-        pd = prompts_for(np.random.default_rng(2), eng.model_config.vocab_size,
-                         DENSE_WAVE)
+        pd = dense_prompts(eng.model_config.vocab_size)
         tokd, waves_ii[tag] = run_wave(eng, pd, DENSE_WAVE["new"], tag)
         log(f"llama3-1b {tag} wave: {json.dumps(waves_ii[tag])}")
         if kv == "bf16":
@@ -810,6 +1007,14 @@ def main() -> int:
             if tokd2 != tokd:
                 raise RuntimeError("llama3-1b bf16 wave did not repeat "
                                    "token for token")
+            if prof is not None:
+                # The profiled steps are not the path's run: their launches
+                # do not count.
+                held = {n: r.wrapped.launches for n, r in recorders.items()}
+                prof["llama3-1b"] = profile_dense(eng, pd)
+                log(f"profile llama3-1b: {json.dumps(prof['llama3-1b'])}")
+                for n, r in recorders.items():
+                    r.wrapped.launches = held[n]
             # The first two layers, for phase 5 (copies: a slice would
             # keep every layer alive).
             llama_params2 = {
@@ -868,6 +1073,9 @@ def main() -> int:
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=None)
+        if count and k["name"] in ("paged_decode", "flash_prefill") \
+                and kw.get("k_scale") is None:
+            row["library_ms"] = sdpa_ms(k["name"], a_k, kw_k)
         if count:
             rows.append(row)
         else:
@@ -877,7 +1085,7 @@ def main() -> int:
                            bytes_ms=t_bytes, ops_ms=t_ops))
         log(f"{name}: err {err:.3g}, {ms:.4f} ms ({dev_ms:.4f} on the "
             f"device) vs plain {plain_ms:.4f} ms, bound "
-            f"{max(t_bytes, t_ops):.4f} ms")
+            f"{max(t_bytes, t_ops):.4f} ms, library {row['library_ms']}")
 
     for k in kernels:
         calls = recorders[k["name"]].calls
@@ -890,6 +1098,12 @@ def main() -> int:
     first = next(iter(recorders["mla_decode"].calls.values()))
     check(decode, "S=8 keys=4096",
           *long_decode_inputs(*first, S=8, keys=4096, seed=11), count=False)
+    # Kernel G at long context: 8 sequences x 4096 keys, split over blocks.
+    dense_decode = next(k for k in kernels if k["name"] == "paged_decode")
+    first = next(iter(recorders["paged_decode"].calls.values()))
+    check(dense_decode, "S=8 keys=4096",
+          *long_dense_decode_inputs(*first, S=8, keys=4096, seed=12),
+          count=False)
     # Kernel E on the bench's 8192-token step as one chunk (the default
     # chunks are its recorded T=8192 launch).
     streamed = next(k for k in kernels if k["name"] == "moe_streamed_int8")
@@ -963,6 +1177,23 @@ def main() -> int:
             raise RuntimeError(f"kernel path disagrees with the CPU "
                                f"reference: {ref}")
         parity["engines"].append(ref)
+    dense_prefill = next(k for k in kernels if k["name"] == "flash_prefill")
+    parity["dense_pages"] = []
+    for sw in (0, 8):
+        label = f"{'int8-head' if sw else 'bf16'} bs=256 D=128"
+        check(dense_decode, label,
+              *dense_decode_inputs(sw, 256, [5, 256, 300, 769, 1, 0],
+                                   seed=20 + sw, D=128, scale=0.09),
+              count=False)
+        check(dense_prefill, label,
+              *dense_prefill_inputs(sw, 256, [300, 256, 600, 0],
+                                    [300, 44, 72, 0], seed=30 + sw),
+              count=False)
+        parity["dense_pages"].append(label)
+    parity["llama3-8b"] = dense_large_page_reference(
+        [(paged_attention, "paged_attention_decode_update"),
+         (flash_prefill, "flash_prefill_paged")])
+    log(f"reference: {json.dumps(parity['llama3-8b'])}")
     parity["tiny"] = tiny_on_the_card()
     log(f"parity: tiny {json.dumps(parity['tiny'])}")
     parity["soft_cap"] = soft_cap_through_chunked()

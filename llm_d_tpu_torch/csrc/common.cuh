@@ -1,27 +1,25 @@
-// Shared device code for the port's Hopper kernels (sm_90a).
+// Shared device code for the port's Hopper kernels (sm_90a):
 //
-// The building blocks live here:
+//  * small helpers (bf16 reads, warp reductions, SiLU) and the MLA
+//    constants kernels A and B share (heads padded to one m16 tile,
+//    128-byte alignment, zero rows);
 //
-//  * gqa_attend: the page loop of the dense (GQA) decode and prefill
-//    kernels G and H, over separate K and V caches, the G heads of one KV
-//    head at a time, with per-row or per-KV-head int8 scales (the inline
-//    form of ops/pallas/quant_util.py make_page_dequant); both dots on the
-//    tensor cores (bf16 wmma), the flash recurrence in f32 with one
-//    running max per page, q * scale and p rounded to bf16 before their
-//    dots, as the TPU kernels run it.
+//  * the dense (GQA) kernels G and H's key tiles, whose K and V caches are
+//    separate planes of KVH*D columns: gqa_issue_tile copies KT keys of
+//    one sequence, each found through the block table whatever the
+//    cache's block size; ldmatrix_x4 (bf16 tiles) and row_pairs (int8
+//    tiles, widened with their scales) read tile rows as mma.sync
+//    operands.
 //
-//  * the MLA constants and helpers kernels A and B share (heads padded to
-//    one m16 tile, 128-byte alignment, zero rows).
-//
-// The page loop here is not pipelined and uses neither wgmma nor TMA.
-// Kernels A-F stream tiles through cp.async rings and run mma.sync on
+// The kernels stream tiles through cp.async rings and run mma.sync on
 // fragments they build themselves (pipeline.cuh, mla_page.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "mla_page.cuh"
 
 #define LLMD_EXPORT extern "C" __attribute__((visibility("default")))
 
@@ -33,11 +31,6 @@ constexpr float kNegInf = -1e30f;       // masked score
 constexpr float kMaxInit = -1e29f;      // running-max floor: masked p == 0
 
 __device__ __forceinline__ float bf2f(bf16 v) { return __bfloat162float(v); }
-
-// Round-to-nearest-even to bf16 and back: the TPU kernels' astype(bf16).
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -73,239 +66,125 @@ __device__ __forceinline__ void mla_zero_out(bf16* out, int n) {
 }
 
 // ---------------------------------------------------------------------------
-// GQA page attention over separate K and V caches (dense models)
+// GQA key tiles (kernels G and H)
 // ---------------------------------------------------------------------------
 
-constexpr int kGqaThreads = 256;
+// Four 8 x 8 bf16 matrices from shared memory (ldmatrix): lane l gives
+// the address of row l % 8 of matrix l / 8, and r[i] is matrix i in the
+// mma.sync fragment layout (row lane / 4, columns 2 (lane % 4), +1), or
+// with trans its transpose (row lane / 4 of the transpose).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
 
-// Four consecutive cache elements (row, columns f..f+3) after the
-// read-side dequant: bf16(int8 * scale of column group f / group), or the
-// bf16 cache values as they are.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// bf16 pairs (row r0, row r1) at columns f .. f + 3 (f % 4 == 0) of two
+// tile rows, dequantized as page_quad does (mla_page.cuh): pair j holds
+// column f + j, row r0 in the lower half -- the B (or A) operand of a dot
+// over the rows.  bf16 rows are paired by byte permutes, int8 ones
+// widened with the rows' scales.
 template <bool QUANT>
-__device__ __forceinline__ void kv_load4(const void* row, const float* rscale,
-                                         int f, int group, bf16* dst) {
+__device__ __forceinline__ void row_pairs(const char* r0, const char* r1,
+                                          const float* rs0, const float* rs1,
+                                          int f, int group,
+                                          uint32_t (&p)[4]) {
   if (QUANT) {
-    const char4 v = *reinterpret_cast<const char4*>(
-        static_cast<const int8_t*>(row) + f);
-    dst[0] = __float2bfloat16((float)v.x * rscale[f / group]);
-    dst[1] = __float2bfloat16((float)v.y * rscale[(f + 1) / group]);
-    dst[2] = __float2bfloat16((float)v.z * rscale[(f + 2) / group]);
-    dst[3] = __float2bfloat16((float)v.w * rscale[(f + 3) / group]);
+    float v0[4], v1[4];
+    page_quad<true>(r0, rs0, f, group, v0);
+    page_quad<true>(r1, rs1, f, group, v1);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) p[j] = pack_bf16(v0[j], v1[j]);
   } else {
-    *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(
-        static_cast<const bf16*>(row) + f);
+    const uint2 w0 = *reinterpret_cast<const uint2*>(r0 + 2 * f);
+    const uint2 w1 = *reinterpret_cast<const uint2*>(r1 + 2 * f);
+    p[0] = __byte_perm(w0.x, w1.x, 0x5410);
+    p[1] = __byte_perm(w0.x, w1.x, 0x7632);
+    p[2] = __byte_perm(w0.y, w1.y, 0x5410);
+    p[3] = __byte_perm(w0.y, w1.y, 0x7632);
   }
 }
 
-// Dynamic shared memory, each part 128-byte aligned:
-//   q [RT, D] bf16 | k [bs, D] bf16 | v [bs, D] bf16 | s [RT, bs] f32 |
-//   pb [RT, bs] bf16 | pv [RT, D] f32 | acc [RT, D] f32 |
-//   m, l, corr [RT] f32 | qpos [RT] i32.
-struct GqaSmem {
-  size_t q, k, v, s, pb, pv, acc, stats, total;
-  __host__ __device__ GqaSmem(int RT, int D, int bs) {
-    q = 0;
-    k = mla_align128(q + (size_t)RT * D * 2);
-    v = mla_align128(k + (size_t)bs * D * 2);
-    s = mla_align128(v + (size_t)bs * D * 2);
-    pb = mla_align128(s + (size_t)RT * bs * 4);
-    pv = mla_align128(pb + (size_t)RT * bs * 2);
-    acc = mla_align128(pv + (size_t)RT * D * 4);
-    stats = mla_align128(acc + (size_t)RT * D * 4);
-    total = stats + 4 * (size_t)RT * 4;
-  }
-};
-
-// Attends the query rows of ONE KV head of one sequence: row r is head
-// r % G (of the G heads sharing the KV head) at position slot r / G of
-// n_pos positions.
-//   q, out     row (p, g) at q + p * pos_stride + g * D (bf16, global)
-//   q_pos      [n_pos] absolute positions (-1 = pad row), or null: every
-//              row sits at seq_len - 1 (decode)
-//   k/v_plane  one layer plane [slots, ld] (int8 or bf16); the KV head's
-//              columns are [col0, col0 + D)
-//   ks/vs_plane  [slots, sw] f32 scale planes; the head's scale is column
-//              scol (int8 only)
-//   new_pos    key position read from k/v_new (+ ks/vs_new) instead of
-//              the cache (decode's fresh row, already offset to col0 and
-//              scol), or -1
-// Row r attends keys at positions <= q_pos[r] and < seq_len, page by page
-// through the block table, with the TPU kernels' recurrence: bf16
-// q * scale, pages dequantized to bf16, optional soft_cap * tanh(s /
-// soft_cap) (soft_cap > 0), one running max per page, bf16 p in the
-// value dot, f32 statistics.  Both dots run on the tensor cores (bf16
-// wmma, f32 accumulation).  Requires RT, D and bs multiples of 16, rows
-// = n_pos * G <= RT.
+// Issues the copies of one key tile: keys k0 .. k0 + kt - 1 of a sequence,
+// RB bytes of each K and V row from byte col of the row (the columns of
+// the tile's KV heads), into k_dst / v_dst at a pitch of LDP bytes; key
+// `key` lives at slot bt_row[key / bs] * bs + key % bs of the planes
+// [slots, row] (row bytes a cache row).  Rows r >= nk are zero-filled by
+// the copy (nothing read; finite, and p = 0 multiplies them).  Key
+// new_pos (decode's fresh row, or -1) is read from k_new / v_new (row
+// col offset already applied) and its scales from ks_new / vs_new.  QUANT:
+// nsc f32 scales a row, columns scol .. scol + nsc - 1 of the [slots, SW]
+// planes, into ks_dst / vs_dst ([kt, nsc]).  All threads of the block
+// take part (RB / 16 must divide their count); the caller commits the
+// group.
 template <bool QUANT>
-__device__ void gqa_attend(const bf16* __restrict__ q, bf16* __restrict__ out,
-                           long long pos_stride, int G, int n_pos,
-                           const int* __restrict__ q_pos, float scale,
-                           float soft_cap, int RT, int D, int bs,
-                           const void* k_plane, const void* v_plane, int ld,
-                           int col0, const float* ks_plane,
-                           const float* vs_plane, int sw, int scol,
-                           const int* __restrict__ bt_row, int seq_len,
-                           int new_pos, const void* k_new, const void* v_new,
-                           const float* ks_new, const float* vs_new,
-                           char* smem) {
-  namespace wmma = nvcuda::wmma;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int esz = QUANT ? 1 : 2;
-  const int rows = n_pos * G;
-
-  const GqaSmem lay(RT, D, bs);
-  bf16* q_s = reinterpret_cast<bf16*>(smem + lay.q);
-  bf16* k_s = reinterpret_cast<bf16*>(smem + lay.k);
-  bf16* v_s = reinterpret_cast<bf16*>(smem + lay.v);
-  float* s_s = reinterpret_cast<float*>(smem + lay.s);
-  bf16* pb_s = reinterpret_cast<bf16*>(smem + lay.pb);
-  float* pv_s = reinterpret_cast<float*>(smem + lay.pv);
-  float* acc_s = reinterpret_cast<float*>(smem + lay.acc);
-  float* m_s = reinterpret_cast<float*>(smem + lay.stats);
-  float* l_s = m_s + RT;
-  float* c_s = l_s + RT;
-  int* qpos_s = reinterpret_cast<int*>(c_s + RT);
-
-  // Rows past `rows` are zero queries at position -1; page rows past the
-  // live keys must hold finite values (p = 0 multiplies them), so the
-  // pages start zeroed.
-  for (int i = tid; i < RT * D; i += blockDim.x) {
-    const int r = i / D;
-    const int d = i - r * D;
-    q_s[i] = r < rows ? __float2bfloat16(
-                            bf2f(q[(r / G) * pos_stride + (r % G) * D + d]) *
-                            scale)
-                      : __float2bfloat16(0.0f);
-    acc_s[i] = 0.0f;
-  }
-  for (int i = tid; i < bs * D; i += blockDim.x) {
-    k_s[i] = __float2bfloat16(0.0f);
-    v_s[i] = __float2bfloat16(0.0f);
-  }
-  for (int i = tid; i < RT * bs; i += blockDim.x)
-    pb_s[i] = __float2bfloat16(0.0f);
-  for (int r = tid; r < RT; r += blockDim.x) {
-    m_s[r] = kMaxInit;
-    l_s[r] = 0.0f;
-    qpos_s[r] = r < rows ? (q_pos ? q_pos[r / G] : seq_len - 1) : -1;
-  }
-  __syncthreads();
-
-  // Causal bound of the tile: keys past max(q_pos) never score.
-  int qmax = -1;
-  for (int r = 0; r < rows; ++r) qmax = max(qmax, qpos_s[r]);
-  const int live = min(seq_len, qmax + 1);
-  const int n_pages = live > 0 ? (live + bs - 1) / bs : 0;
-
-  for (int j = 0; j < n_pages; ++j) {
-    const int nk = min(bs, live - j * bs);
-    const long long base = (long long)bt_row[j] * bs;
-
-    // 1. K and V rows [0, nk) of the page, dequantized to bf16.
-    for (int i = tid; i < nk * D / 4; i += blockDim.x) {
-      const int r = (4 * i) / D;
-      const int f = 4 * i - r * D;
-      if (j * bs + r == new_pos) {
-        kv_load4<QUANT>(k_new, ks_new, f, D, k_s + r * D + f);
-        kv_load4<QUANT>(v_new, vs_new, f, D, v_s + r * D + f);
+__device__ __forceinline__ void gqa_issue_tile(
+    char* k_dst, char* v_dst, float* ks_dst, float* vs_dst, int kt, int LDP,
+    int RB, int k0, int nk, const char* k_plane, const char* v_plane,
+    long long row, long long col, const float* ks_plane,
+    const float* vs_plane, int SW, int scol, int nsc,
+    const int* __restrict__ bt_row, int bs, int new_pos, const char* k_new,
+    const char* v_new, const float* ks_new, const float* vs_new) {
+  const int p0 = k0 / bs, o0 = k0 - p0 * bs;
+  const bool one_page = o0 + nk <= bs;
+  const long long base = (long long)bt_row[p0] * bs + o0;
+  auto slot = [&](int r) -> long long {
+    if (one_page) return base + r;
+    const int key = k0 + r;
+    return (long long)bt_row[key / bs] * bs + key % bs;
+  };
+  // RB / 16 divides the block's threads: thread t copies 16-byte chunk
+  // t % chunks of rows t / chunks, t / chunks + step, ...
+  const int chunks = RB / 16, step = blockDim.x / chunks;
+  const int c = (threadIdx.x % chunks) * 16;
+  for (int r = threadIdx.x / chunks; r < kt; r += step) {
+    const char* ks = k_plane;
+    const char* vs = v_plane;
+    int n = 0;
+    if (r < nk) {
+      n = 16;
+      if (k0 + r == new_pos) {
+        ks = k_new + c;
+        vs = v_new + c;
       } else {
-        const long long slot = base + r;
-        const long long off = (slot * ld + col0) * esz;
-        kv_load4<QUANT>(static_cast<const char*>(k_plane) + off,
-                         QUANT ? ks_plane + slot * sw + scol : nullptr, f, D,
-                         k_s + r * D + f);
-        kv_load4<QUANT>(static_cast<const char*>(v_plane) + off,
-                         QUANT ? vs_plane + slot * sw + scol : nullptr, f, D,
-                         v_s + r * D + f);
+        const long long off = slot(r) * row + col + c;
+        ks = k_plane + off;
+        vs = v_plane + off;
       }
     }
-    __syncthreads();
-
-    // 2. Scores [RT, bs] = q [RT, D] . k^T on the tensor cores.
-    const int n_sc = (RT / 16) * (bs / 16);
-    for (int t = warp; t < n_sc; t += nwarps) {
-      const int m0 = (t / (bs / 16)) * 16;
-      const int n0 = (t % (bs / 16)) * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sc;
-      wmma::fill_fragment(sc, 0.0f);
-      for (int k0 = 0; k0 < D; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(a, q_s + m0 * D + k0, D);
-        wmma::load_matrix_sync(b, k_s + n0 * D + k0, D);
-        wmma::mma_sync(sc, a, b, sc);
-      }
-      wmma::store_matrix_sync(s_s + m0 * bs + n0, sc, bs,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    // 3. Online softmax, one warp per row.
-    for (int r = warp; r < rows; r += nwarps) {
-      const int qp = qpos_s[r];
-      float mx = kNegInf;
-      for (int c = lane; c < bs; c += 32) {
-        const int key = j * bs + c;
-        float sv = s_s[r * bs + c];
-        if (soft_cap > 0.0f) sv = soft_cap * tanhf(sv / soft_cap);
-        sv = (c < nk && key <= qp && key < seq_len) ? sv : kNegInf;
-        s_s[r * bs + c] = sv;
-        mx = fmaxf(mx, sv);
-      }
-      mx = warp_max(mx);
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.0f;
-      for (int c = lane; c < bs; c += 32) {
-        const float pr = expf(s_s[r * bs + c] - m_new);
-        sum += pr;
-        pb_s[r * bs + c] = __float2bfloat16(pr);
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        c_s[r] = corr;
-        l_s[r] = l_s[r] * corr + sum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // 4. Values [RT, D] = bf16(p) [RT, bs] . v on the tensor cores.
-    const int n_pv = (RT / 16) * (D / 16);
-    for (int t = warp; t < n_pv; t += nwarps) {
-      const int m0 = (t / (D / 16)) * 16;
-      const int n0 = (t % (D / 16)) * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> pv;
-      wmma::fill_fragment(pv, 0.0f);
-      for (int k0 = 0; k0 < bs; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, pb_s + m0 * bs + k0, bs);
-        wmma::load_matrix_sync(b, v_s + k0 * D + n0, D);
-        wmma::mma_sync(pv, a, b, pv);
-      }
-      wmma::store_matrix_sync(pv_s + m0 * D + n0, pv, D, wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    // 5. acc = acc * corr + pv.  The next page's loads overwrite k_s and
-    //    v_s only after their last readers (steps 2 and 4) passed a
-    //    barrier; pv_s and c_s are rewritten only after two more.
-    for (int i = tid; i < rows * D; i += blockDim.x)
-      acc_s[i] = acc_s[i] * c_s[i / D] + pv_s[i];
+    cp_async16(k_dst + r * LDP + c, ks, n);
+    cp_async16(v_dst + r * LDP + c, vs, n);
   }
-
-  // Each thread finishes the acc elements it updated (same mapping); l_s
-  // was last written before a barrier.
-  for (int i = tid; i < rows * D; i += blockDim.x) {
-    const int r = i / D;
-    const int d = i - r * D;
-    out[(r / G) * pos_stride + (r % G) * D + d] =
-        __float2bfloat16(acc_s[i] / fmaxf(l_s[r], 1e-30f));
+  if (QUANT) {
+    for (int i = threadIdx.x; i < kt * nsc; i += blockDim.x) {
+      const int r = i / nsc, c = i - r * nsc;
+      const float* ks = ks_plane;
+      const float* vs = vs_plane;
+      int n = 0;
+      if (r < nk) {
+        n = 4;
+        if (k0 + r == new_pos) {
+          ks = ks_new + c;
+          vs = vs_new + c;
+        } else {
+          const long long off = slot(r) * SW + scol + c;
+          ks = ks_plane + off;
+          vs = vs_plane + off;
+        }
+      }
+      cp_async4(ks_dst + i, ks, n);
+      cp_async4(vs_dst + i, vs, n);
+    }
   }
 }
 

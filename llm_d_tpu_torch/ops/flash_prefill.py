@@ -1,17 +1,23 @@
 """Kernel H: dense (GQA) causal flash prefill over the paged K/V cache.
 
 Replaces the TPU kernel ``llm_d_tpu/ops/pallas/flash_prefill.py``
-``flash_prefill_paged``.  CUDA source: ``csrc/flash_prefill.cu`` (page
-loop in ``csrc/common.cuh`` ``gqa_attend``, shared with kernel G).
+``flash_prefill_paged``.  CUDA source: ``csrc/flash_prefill.cu`` (key-tile
+copies in ``csrc/common.cuh``, shared with kernel G; int8 fragment reads
+in ``csrc/mla_page.cuh``).
 
-What bounds it on the H100: operations at prefill shapes (4*D flops per
-head per causal (query, key) pair against 2*D bytes per key and KV head).
-The design gives each (sequence, query tile, KV head) one block of 64
-rows (positions times the heads sharing the KV head), walks its pages
-only up to the tile's causal bound, dequantizes each page once into
-shared memory for both dots, and keeps the flash statistics in f32; both
-dots run on the tensor cores.  Query tiles of one sequence re-read the
-same pages; larger tiles and pipelined page loads are later work.
+What bounds it on the H100: bytes at the engine's prefill shapes (each
+live query row read and written once, each key below a sequence's bound
+read once; 4*D flops per head per causal (query, key) pair are a fifth of
+that time at the tensor-core rate).  The design is FlashAttention-2 on
+``mma.sync``, as kernel B: one block per (KV head, sequence, tile of 64
+fused (position, head) rows), each key tile loaded once per block through
+a double-buffered ``cp.async`` ring, as the cache stores it (bf16 read by
+``ldmatrix``, int8 widened in the fragments of both dots); scores, ``p``
+and the f32 statistics stay in registers, each warp stops at its own
+rows' causal bound, and masks apply only on the tiles that cross a
+bound.  The key tile
+(:func:`prefill_plan`) depends on D and the cache dtype, never on the
+block size: a key finds its page through the block table.
 
 Read-only: the caller scatters this step's rows and scales first.
 ``flash_prefill_paged_plain`` is the plain PyTorch version (CPU tests,
@@ -21,16 +27,19 @@ and the reference ``chip_smoke.py`` holds the kernel to).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
 
 from llm_d_tpu_torch.ops import _build
 from llm_d_tpu_torch.ops.attention import NEG_INF
+from llm_d_tpu_torch.ops.mla_decode import _align128
 from llm_d_tpu_torch.ops.paged_attention import (
     check_kv_cache, kv_planes, page_rows)
 
-_ROWS = 64
+ROWS = 64                # fused (position, head) rows of a block
+KEY_TILE = 64            # csrc/flash_prefill.cu kKT
 
 
 def flash_prefill_paged_plain(
@@ -96,6 +105,21 @@ _VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 _ARGTYPES = [_VP] * 9 + [_I] * 8 + [_LL, _I, _F, _F, _I, _VP]
 
 
+@functools.lru_cache(maxsize=None)
+def prefill_plan(D: int, quantized: bool):
+    """Kernel H's plan for heads of ``D`` columns: ``(kt, smem)``, the key
+    tile and the block's dynamic shared memory (csrc/flash_prefill.cu
+    PrefillSmem): the q tile [64, D+8] bf16, then two stages of K and V
+    tiles [kt, D*esz + 16] bytes and, for int8, their [kt] f32 scales,
+    each part 128-B aligned.  kt = 64 fits every head size the kernel
+    takes; the block size plays no part."""
+    a = _align128
+    kt = KEY_TILE
+    tile = a(kt * (D * (1 if quantized else 2) + 16))
+    stage = a(2 * tile + (2 * kt * 4 if quantized else 0))
+    return kt, a(ROWS * (D + 8) * 2) + 2 * stage
+
+
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"flash_prefill_paged: {msg}")
@@ -131,7 +155,12 @@ def flash_prefill_paged(
     _check(soft_cap is None or soft_cap > 0, "soft_cap must be positive")
     k3, v3, ks3, vs3, slots, SW, li = check_kv_cache(
         _check, qs, k_cache, v_cache, k_scale, v_scale, KVH, block_size,
-        layer, _ROWS)
+        layer)
+    _check(H // KVH <= ROWS, f"{H // KVH} heads per KV head > {ROWS}")
+    _, smem = prefill_plan(D, quantized)
+    _check(smem <= _build.MAX_SMEM_PER_BLOCK,
+           f"D={D} needs {smem} B of shared memory")
+    _check(qs.data_ptr() % 16 == 0, "queries must be 16-byte aligned")
     _check(q_pos.dtype == torch.int32 and q_pos.shape == (S, Q),
            "q_pos must be int32 [S, Q]")
     _check(block_tables.dtype == torch.int32 and seq_lens.dtype == torch.int32

@@ -2,17 +2,28 @@
 
 Replaces the TPU kernel ``llm_d_tpu/ops/pallas/paged_attention.py``
 ``paged_attention_decode_update``.  CUDA source: ``csrc/paged_decode.cu``
-(page loop in ``csrc/common.cuh`` ``gqa_attend``).
+(key-tile copies in ``csrc/common.cuh``, ``cp.async`` and ``mma.sync`` in
+``csrc/pipeline.cuh``, int8 fragment reads in ``csrc/mla_page.cuh``).
 
 What bounds it on the H100: bytes -- each live key's K and V columns
 (bf16, or int8 plus f32 scales) are read once per step for the G query
 heads that share the KV head, about 2*G flops per byte, far below the
-card's ridge.  The design gives each (sequence, KV head) one block that
-reads only that head's columns, dequantizes each page once into shared
-memory for both dots, and writes the new rows (and scales) from the
-block that reads the pages, so no second pass or cross-block ordering is
-needed.  The TPU kernel's zero-expanded queries and sequence grouping
-were TPU devices and are dropped.
+card's ridge -- and, at small batches, the latency of walking a
+sequence's keys one tile after another.  The design splits each
+sequence's key tiles into ranges, one block per (sequence, group of KV
+heads, range), the range count sized from shapes only
+(:func:`num_splits`, cached); a second pass combines the ranges' partial
+softmax statistics in range order (no atomics).  A block's four warps
+take a KV head each (or share one head's keys), read the group's columns
+of each key row contiguously, keep the tiles as stored in a ``cp.async``
+ring and widen int8 in the ``mma.sync`` fragments; the keys sit on the
+m16 side of both dots, so the G heads waste no tensor-core rows, and
+scores stay in registers.  The key tile (:func:`decode_plan`) depends on
+D, the cache dtype and the heads a block covers, never on the block
+size.  The block of the range holding position ``seq_len - 1`` writes
+the new rows and every block takes that position from the input, so no
+block reads a slot being written.  The TPU kernel's zero-expanded
+queries and sequence grouping were TPU devices and are dropped.
 
 ``paged_attention_decode_update_plain`` is the same function in plain
 PyTorch: the CPU tests use it, ``chip_smoke.py`` holds the kernel
@@ -22,12 +33,14 @@ against it, and the wrapper runs it only for CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
 
 from llm_d_tpu_torch.ops import _build
 from llm_d_tpu_torch.ops.attention import NEG_INF
+from llm_d_tpu_torch.ops.mla_decode import _align128
 from llm_d_tpu_torch.ops.quant import dequantize_kv_block
 
 
@@ -122,16 +135,24 @@ def paged_attention_decode_update_plain(
 
 _VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
-_ARGTYPES = [_VP] * 12 + [_I] * 7 + [_LL, _I, _F, _I, _VP]
+_ARGTYPES = [_VP] * 13 + [_I] * 9 + [_LL, _I, _F, _I, _I, _VP]
+_MAX_SPLITS = 256        # csrc/paged_decode.cu kMaxSplits
+_STAGES = 3              # csrc/paged_decode.cu kStages
+# Two blocks of the split pass share an SM.
+_SMEM_BUDGET = _build.MAX_SMEM_PER_BLOCK // 2
+HEAD_DIMS = (64, 128)    # the kernels' head sizes
+MAX_GROUP = 16           # heads per KV head: two n8 tiles
 
 
 def check_kv_cache(check, q_like, k_cache, v_cache, k_scale, v_scale,
-                   num_kv_heads: int, block_size: int, layer, rows: int):
+                   num_kv_heads: int, block_size: int, layer):
     """Checks shared by the dense attention wrappers: stacked K/V caches
     (int8 with f32 scale planes of width 1 or KVH, or bf16), their row
-    width against the queries' ``[..., H, D]``, the layer index and the
-    shared-memory need of a ``rows``-row tile.  Returns ``(k3, v3, ks3,
-    vs3, slots, SW, layer)`` with 2-D caches viewed as one plane."""
+    width against the queries' ``[..., H, D]``, the head size, the JAX
+    kernels' page gate and the layer index; each kernel sizes its key
+    tile itself (:func:`decode_plan`, ``flash_prefill.prefill_plan``).  Returns
+    ``(k3, v3, ks3, vs3, slots, SW, layer)`` with 2-D caches viewed as one
+    plane."""
     H, D = q_like.shape[-2:]
     KVH = num_kv_heads
     quantized = k_scale is not None
@@ -142,7 +163,8 @@ def check_kv_cache(check, q_like, k_cache, v_cache, k_scale, v_scale,
     check(v3.shape == k3.shape and v3.dtype == k3.dtype,
           "K and V caches must match")
     check(F == KVH * D and H % KVH == 0, f"row width {F} != KVH*D or H % KVH")
-    check(H // KVH <= rows, f"{H // KVH} heads per KV head > {rows}")
+    check(D in HEAD_DIMS, f"head size {D} not in {HEAD_DIMS}")
+    check(block_size % 16 == 0, "pages need block_size % 16")
     li = 0 if layer is None else int(layer)
     check(0 <= li < L, f"layer {li} out of range")
     ks3 = vs3 = None
@@ -157,29 +179,57 @@ def check_kv_cache(check, q_like, k_cache, v_cache, k_scale, v_scale,
               and SW in (1, KVH), "scale planes must be f32 [L, slots, 1|KVH]")
     else:
         check(k3.dtype == torch.bfloat16, "bf16 cache expected")
-    check(D % 16 == 0 and block_size % 16 == 0,
-          "tensor-core tiles need D % 16 and block_size % 16")
-    smem = smem_bytes(rows, D, block_size)
-    check(smem <= _build.MAX_SMEM_PER_BLOCK,
-          f"needs {smem} B of shared memory")
+    check(k3.data_ptr() % 16 == 0 and v3.data_ptr() % 16 == 0,
+          "caches must be 16-byte aligned (cp.async rows)")
     return k3, v3, ks3, vs3, slots, SW, li
 
 
-def smem_bytes(rows: int, D: int, bs: int) -> int:
-    """Dynamic shared memory of ``gqa_attend`` (csrc/common.cuh GqaSmem):
-    q [rows, D] bf16, K and V pages [bs, D] bf16, s [rows, bs] f32,
-    p [rows, bs] bf16, pv and acc [rows, D] f32, four [rows] statistics,
-    each part 128-B aligned."""
-    def a(b):
-        return (b + 127) // 128 * 128
-    k = a(rows * D * 2)
-    v = a(k + bs * D * 2)
-    s = a(v + bs * D * 2)
-    pb = a(s + rows * bs * 4)
-    pv = a(pb + rows * bs * 2)
-    acc = a(pv + rows * D * 4)
-    stats = a(acc + rows * D * 4)
-    return stats + 4 * rows * 4
+def decode_stage_bytes(kt: int, wh: int, D: int, quantized: bool,
+                       per_head: bool) -> int:
+    """One ring stage of the split pass (csrc/paged_decode.cu
+    StageLayout): K and V tiles [kt, wh*D*esz + 16] bytes, then for int8
+    their [kt, wh or 1] f32 scales, each part 128-B aligned."""
+    a = _align128
+    ldp = wh * D * (1 if quantized else 2) + 16
+    tile = a(kt * ldp)
+    scales = a(kt * (wh if per_head else 1) * 4) if quantized else 0
+    return 2 * tile + 2 * scales
+
+
+@functools.lru_cache(maxsize=None)
+def decode_plan(num_kv_heads: int, D: int, quantized: bool,
+                per_head: bool = False):
+    """Kernel G's plan for ``num_kv_heads`` KV heads of ``D`` columns:
+    ``(wh, kt, smem)``.  A block's four warps cover ``wh`` (4, 2 or 1,
+    the largest dividing KVH) KV heads, each head's keys shared by
+    ``4 / wh`` warps; the key tile ``kt`` is the largest of 64, 32, 16
+    rows that gives every warp a whole number of m16 slices (at most four)
+    and whose three ring stages fit two blocks to an SM.  The block size
+    plays no part.  ``(0, 0, 0)`` if nothing fits."""
+    wh = next(w for w in (4, 2, 1) if num_kv_heads % w == 0)
+    wk = 4 // wh
+    for kt in (64, 32, 16):
+        if kt % (16 * wk) or kt // 16 // wk > 4:
+            continue
+        smem = _STAGES * decode_stage_bytes(kt, wh, D, quantized, per_head)
+        if smem <= _SMEM_BUDGET:
+            return wh, kt, smem
+    return 0, 0, 0
+
+
+@functools.lru_cache(maxsize=None)
+def num_splits(S: int, groups: int, max_tiles: int, sms: int) -> int:
+    """Key-tile ranges per sequence on a card of ``sms`` SMs: as many as
+    keep the (sequence, head group, range) blocks within one wave of two
+    per SM, at least one, at most one per key tile a block table can hold.
+    Shapes only, so a captured step replays it."""
+    return max(1, min(max_tiles, _MAX_SPLITS,
+                      2 * sms // max(S * groups, 1)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -222,7 +272,11 @@ def paged_attention_decode_update(
     quantized = k_scale is not None
     k3, v3, ks3, vs3, slots, SW, li = check_kv_cache(
         _check, q, k_cache, v_cache, k_scale, v_scale, KVH, block_size,
-        layer, 16)
+        layer)
+    G = H // KVH
+    _check(G <= MAX_GROUP, f"{G} heads per KV head > {MAX_GROUP}")
+    wh, kt, smem = decode_plan(KVH, D, quantized, quantized and SW > 1)
+    _check(kt > 0, f"no key tile fits KVH={KVH}, D={D} in shared memory")
     F = KVH * D
     _check(k_new.shape == v_new.shape == (S, F)
            and k_new.dtype == v_new.dtype == k3.dtype,
@@ -238,11 +292,21 @@ def paged_attention_decode_update(
                "new row scales must be f32 [S, SW]")
         tensors += [ks3, vs3, k_scale_new, v_scale_new]
     dev = q.device
+    di = dev.index
     for t in tensors:
-        _check(t.device == dev and t.is_contiguous(),
+        _check(t.get_device() == di and t.is_contiguous(),
                "inputs must be contiguous and on one device")
+    _check(k_new.data_ptr() % 16 == 0 and v_new.data_ptr() % 16 == 0,
+           "new rows must be 16-byte aligned (cp.async rows)")
 
+    B = block_tables.shape[1]
+    ns = num_splits(S, KVH // wh, -(-B * block_size // kt),
+                    _sm_count(di))
     out = torch.empty_like(q)
+    # The (range, key part) partials: [S, ns, 4/wh, H, D] accumulators,
+    # then [S, ns, 4/wh, H, 2] running max and sum.
+    part = torch.empty(S * ns * (4 // wh) * H * (D + 2), dtype=torch.float32,
+                       device=dev)
     _build.launch(
         "paged_decode.cu", "llmd_paged_decode", _ARGTYPES,
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
@@ -252,8 +316,8 @@ def paged_attention_decode_update(
         ks3.data_ptr() if quantized else None,
         vs3.data_ptr() if quantized else None,
         block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-        S, H, KVH, D, SW, block_size, block_tables.shape[1], slots, li,
-        float(scale), int(quantized), _build.stream_ptr(dev))
+        part.data_ptr(), S, H, KVH, D, SW, block_size, kt, wh, B, slots,
+        li, float(scale), int(quantized), ns, _build.stream_ptr(dev))
     paged_attention_decode_update.launches += 1
     return out
 

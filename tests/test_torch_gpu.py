@@ -442,17 +442,13 @@ def _dense_cache(g, dev, L, slots, F, sw):
     return out
 
 
-@pytest.mark.parametrize("H,KVH,D,bs,sw", [
-    (32, 8, 64, 64, 0), (32, 8, 64, 64, 1), (32, 8, 64, 64, 8),
-    (8, 2, 64, 32, 2), (8, 4, 128, 16, 0)])
-def test_paged_decode_kernel(dev, H, KVH, D, bs, sw):
-    """Kernel G: output within tolerance, and the K/V cache and scale
-    planes identical to the plain version's after the in-place splice."""
+def _check_paged_decode(dev, H, KVH, D, bs, sw, seq_lens):
+    """Kernel G against its plain version: output within tolerance, and
+    the K/V cache and scale planes identical after the in-place splice."""
     from llm_d_tpu_torch.ops import paged_attention as PA
     g = _gen(8, dev)
-    seq_lens = [1, bs // 2, bs, bs + 3, 3 * bs, 0, 0]
     S, L, layer, F = len(seq_lens), 3, 1, KVH * D
-    nblk = S * 4 + 1
+    nblk = S * max(-(-n // bs) for n in seq_lens) + 1
     (kc, ks), (vc, vs) = _dense_cache(g, dev, L, nblk * bs, F, sw)
     bt = _tables(g, dev, seq_lens, bs, nblk)
     lens = torch.tensor(seq_lens, dtype=torch.int32, device=dev)
@@ -478,10 +474,50 @@ def test_paged_decode_kernel(dev, H, KVH, D, bs, sw):
         assert a is None or torch.equal(a, b)
 
 
+@pytest.mark.parametrize("H,KVH,D,bs,sw", [
+    (32, 8, 64, 64, 0), (32, 8, 64, 64, 1), (32, 8, 64, 64, 8),
+    (8, 2, 64, 32, 2), (8, 4, 128, 16, 0),
+    # Pages beyond what a page-sized tile fit (the first version refused
+    # D = 128 at 512 rows): the key tile is apart from the block size.
+    (32, 8, 64, 128, 0), (32, 8, 64, 256, 8), (32, 8, 64, 512, 0),
+    (32, 8, 128, 128, 8), (32, 8, 128, 256, 0), (32, 8, 128, 512, 8),
+    (32, 8, 128, 512, 0),
+    # G = 16 on one KV head (four warps share its keys), G = 6 (mixtral).
+    (16, 1, 128, 256, 1), (48, 8, 128, 64, 0)])
+def test_paged_decode_kernel(dev, H, KVH, D, bs, sw):
+    """Kernel G: output within tolerance, and the K/V cache and scale
+    planes identical to the plain version's after the in-place splice."""
+    _check_paged_decode(dev, H, KVH, D, bs, sw,
+                        [1, bs // 2, bs, bs + 3, 3 * bs, 0, 0])
+
+
+@pytest.mark.parametrize("sw", [0, 8])
+def test_paged_decode_kernel_splits_long_contexts(dev, sw):
+    """Kernel G at 8 sequences x 4096 keys (llama3-1b's heads): each
+    sequence's key tiles are split over several blocks and combined in
+    order; output within tolerance, splice exact."""
+    from llm_d_tpu_torch.ops import paged_attention as PA
+    wh, kt, _ = PA.decode_plan(8, 64, sw > 0, sw > 1)
+    assert PA.num_splits(8, 8 // wh, 4096 // kt, PA._sm_count(
+        dev.index or 0)) > 1
+    _check_paged_decode(dev, 32, 8, 64, 64, sw, [4096] * 8)
+
+
 @pytest.mark.parametrize("H,KVH,D,bs,sw,soft_cap", [
     (32, 8, 64, 64, 0, None), (32, 8, 64, 64, 1, None),
     (32, 8, 64, 64, 8, 30.0), (8, 2, 64, 32, 0, 5.0),
-    (8, 4, 128, 16, 4, None)])
+    (8, 4, 128, 16, 4, None),
+    # Pages beyond what a page-sized tile fit (the first version refused
+    # D = 128 at 256 and 512 rows and D = 64 at 512).
+    (32, 8, 64, 128, 0, None), (32, 8, 64, 256, 8, None),
+    (32, 8, 64, 512, 0, None), (32, 8, 128, 128, 8, None),
+    (32, 8, 128, 256, 0, 30.0), (32, 8, 128, 256, 8, None),
+    (32, 8, 128, 512, 8, None), (32, 8, 128, 512, 0, None),
+    # MHA (G = 1), G = 8 (qwen3-32b, llama3-70b), G = 6 (does not divide
+    # the 64-row tile).
+    (8, 8, 64, 64, 0, None), (8, 8, 128, 256, 8, None),
+    (64, 8, 128, 64, 0, None), (64, 8, 128, 256, 8, None),
+    (48, 8, 128, 64, 0, None)])
 def test_flash_prefill_kernel(dev, H, KVH, D, bs, sw, soft_cap):
     """Kernel H: causal prefill with pad rows, a pad sequence, a stacked
     layer index and (where given) soft_cap, against its plain version."""
