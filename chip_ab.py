@@ -6,7 +6,9 @@ one CUDA card, on the same inputs and in turns.
     python3 chip_ab.py _scratch_parent
 
 (``_scratch*`` directories are gitignored.)  Serves deepseek-v3-bench as
-``chip_smoke.py`` does (waves 1-3, then wave 3 under
+``chip_smoke.py`` does, but through the classic loop (one step per
+dispatch: the rounds swap the wrappers, and a captured decode graph
+would keep the ones it was captured with), (waves 1-3, then wave 3 under
 ``LLMD_MOE_PREFILL_KERNEL=grouped``) and llama3-1b on a bf16 cache and on
 int8 caches with one scale per row and one per KV head (``chip_smoke``'s
 path (ii) wave each), and records the inputs of the first launch of A
@@ -164,7 +166,7 @@ def main() -> int:
     mods = {n: importlib.import_module(f"llm_d_tpu_torch.ops.{m}")
             for n, (m, _) in TARGETS.items()}
 
-    engine = cs.path_i_engine()
+    engine = cs.path_i_engine(1)
     weights = cs.tensor_ptrs(engine.params)
     recs = {n: cs.Recorder(mods[n], fn, weights,
                            cs.cache_mode if n in PLAIN else LABELS.get(n))

@@ -11,27 +11,40 @@ Phases (each raises on failure; the script then exits non-zero):
 2. path (i) serve deepseek-v3-bench at full width and depth (random
             weights from a seed) through EngineCore as bench.py configures
             it: int8 experts, int8 latent cache, block size 64, steps of
-            up to 8192 tokens.  Wave 1 (8 x 128-token prompts, 32 new
-            tokens), wave 2 (96 x 32, 16 new), wave 3 (64 x 128, 16 new:
-            the bench's prefill, one 8192-token step), wave 1 again (must
-            repeat token for token) and wave 3 under
-            LLMD_MOE_PREFILL_KERNEL=grouped.  Kernels A-F (MLA decode and
-            prefill, dense / routed / streamed / grouped int8 MoE) must
-            all launch;
+            up to 8192 tokens, 32 scheduler steps per dispatch with async
+            scheduling (each decode block one CUDA graph replay), the
+            block pool sized as bench.py sizes it.  Wave 1 (8 x 128-token
+            prompts, 32 new tokens), wave 2 (96 x 32, 16 new), wave 3 (64
+            x 128, 16 new: the bench's prefill, one 8192-token step), wave
+            1 again (must repeat token for token) and wave 3 under
+            LLMD_MOE_PREFILL_KERNEL=grouped; every wave's decode must run
+            in blocks of 32 steps.  Kernels A-F (MLA decode and prefill,
+            dense / routed / streamed / grouped int8 MoE) must all
+            launch, and A, C and D inside graph replays.  Then a sampled
+            block (8 rows at temperature 0.7, half seeded); one replay of
+            the S = 8 and S = 128 greedy graphs and of the sampled one,
+            each bit-equal to the block's eager body on the same inputs
+            and cache; and waves 1-3 served in alternating rounds (5 a
+            side) by the classic loop (one step per dispatch, the same
+            weights) and the bench-configured engine: greedy tokens
+            identical, decode tok/s and prefill seconds of each side;
 3. path(ii) serve llama3-1b at full width and depth, block size 64,
             8192-token steps: 64 x 128-token prompts with 32 new tokens on
-            a bf16 cache (twice: must repeat token for token), then once on
-            an int8 cache with one scale per row and once with one per KV
-            head.  Kernels G and H (dense paged decode, dense flash
-            prefill) must launch;
+            a bf16 cache (twice: must repeat token for token; then with
+            32 scheduler steps per dispatch and async scheduling on the
+            same weights: the classic run's tokens), then once on an int8
+            cache with one scale per row and once with one per KV head.
+            Kernels G and H (dense paged decode, dense flash prefill)
+            must launch, and G inside graph replays;
 4. kernels  each kernel against its plain PyTorch version on the inputs
             of its first launch in phases 2-3 (A: of each batch size S;
             B: of each (S, Q); C and E: of each token count T -- E's
             T=8192 is the bench's step at the default 512-token chunks;
             G and H: of each cache mode; A and G also on 8 sequences x
             4096 keys made from a seed; E also on the bench's 8192-token
-            step as one chunk; D also at T = 256 and 512, its 64-row
-            blocks, and F at 128-row tiles, made from a seed), then timed
+            step as one chunk; C also at T = 8, D at T = 256 and 512,
+            its 64-row blocks, and F at 128-row tiles, made from a seed),
+            then timed
             against it; G and H on the bf16 cache also timed as one
             torch scaled_dot_product_attention call on the same K/V
             gathered to contiguous rows (``library_ms``, a yardstick the
@@ -61,14 +74,21 @@ Phases (each raises on failure; the script then exits non-zero):
             the CPU.
 
 Launch counts: every count is set to 0 just before a path is driven and
-read just after it; kernels A-F count path (i), G and H path (ii).
+read just after it; kernels A-F count path (i), G and H path (ii).  A
+count is the wrapper's own (eager launches, graph warm-ups included)
+plus the launches inside graph replays: a capture records each graph's
+launches, and every replay adds them (``engine/cuda_graph.py``); the
+``kernels`` line gives the latter as ``graph_launches``.
 
 Output: a ``{"bounds": [...]}`` line (the bytes and flops each kernel's
 bound is derived from), a ``{"kernels": [...]}`` line (one row per kernel
 at its first launch: measured launches, errors and times, with
 ``bound_ms``), a ``{"variants": [...]}`` line (the same fields for the
 other inputs of phase 4), an ``{"engine": ...}`` line, the card's name and
-power limit, and last ``{"ok": true, "device": ...}``.  A kernel's ``ms``
+power limit, and last ``{"ok": true, "device": ...}``.  The engine line
+holds the classic-against-multistep rounds, the graph checks and the
+graphs' shared pool (``pool_bytes``, device memory the captures
+reserved).  A kernel's ``ms``
 is the event-timed mean of 20 eager calls of its wrapper, so the
 wrapper's host cost is in it where it exceeds the kernel's; ``device_ms``
 is the same calls queued behind a device sleep, the kernels' device time
@@ -77,7 +97,9 @@ alone.
     python3 chip_smoke.py --profile
 
 adds a ``{"profile": ...}`` line: four wave-1 and four wave-2 decode
-steps and the 8192-token wave-3 prefill step of deepseek-v3-bench, and
+steps of the classic loop, one multistep block (32 decode iterations,
+one graph replay) of wave 1 and of wave 2, and the 8192-token wave-3
+prefill step of deepseek-v3-bench, and
 llama3-1b's 8192-token prefill step and four of its decode steps (bf16
 cache), under ``torch.profiler``, with the device's busy time, kernel
 launches and the largest kernels per step (a measurement, not part of
@@ -102,6 +124,9 @@ WAVE2 = dict(n=96, prompt=32, new=16)
 WAVE3 = dict(n=64, prompt=128, new=16)       # bench.py's prefill shape
 DENSE_WAVE = dict(n=64, prompt=128, new=32)
 BENCH_T = WAVE3["n"] * WAVE3["prompt"]       # 8192-token prefill step
+BENCH_K = 32                                 # bench.py's num_scheduler_steps
+ROUNDS = 5                                   # classic vs multistep, a side
+WAVE2_S = 128                                # wave 2's sequence bucket
 DENSE_MODES = (("bf16", None), ("int8", "token"), ("int8", "head"))
 
 
@@ -236,10 +261,13 @@ def run_wave(engine, prompts, max_new: int, tag: str):
         engine.add_request(r)
     prefill_s = decode_s = 0.0
     decode_tokens = decode_steps = steps = 0
+    counts0 = None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     while engine.has_work():
         all_prefilled = all(r.output_token_ids for r in reqs)
+        if all_prefilled and counts0 is None:
+            counts0 = (engine._dispatch_count, engine._step_count)
         ts = time.perf_counter()
         outs = engine.step()
         dt = time.perf_counter() - ts
@@ -251,6 +279,7 @@ def run_wave(engine, prompts, max_new: int, tag: str):
         else:
             prefill_s += dt
     torch.cuda.synchronize()
+    counts0 = counts0 or (engine._dispatch_count, engine._step_count)
     total_s = time.perf_counter() - t0
     tokens = [list(r.output_token_ids) for r in reqs]
     vocab = engine.model_config.vocab_size
@@ -263,7 +292,12 @@ def run_wave(engine, prompts, max_new: int, tag: str):
                         decode_steps=decode_steps, decode_seconds=decode_s,
                         decode_tokens=decode_tokens,
                         decode_tok_s=(decode_tokens / decode_s
-                                      if decode_s else None))
+                                      if decode_s else None),
+                        # Device dispatches and engine steps of the decode
+                        # phase: K steps per dispatch under multistep.
+                        decode_dispatches=engine._dispatch_count
+                        - counts0[0],
+                        decode_engine_steps=engine._step_count - counts0[1])
 
 
 def prompts_for(rng, vocab: int, wave: dict):
@@ -331,17 +365,22 @@ def reference_check(mc, params, engine_kw, prompt_lens, seed: int) -> dict:
                 rel_max_err=rel, top1_agree=top, shape=list(got.shape))
 
 
-def _profile_steps(engine, steps: int) -> dict:
-    """``steps`` engine steps under ``torch.profiler``: wall and device
-    time per step, launches and the largest kernels."""
+def _profile_steps(engine, steps: int, drain: bool = False) -> dict:
+    """``steps`` engine steps under ``torch.profiler`` (with ``drain``,
+    every step until the engine is idle, counted as ``steps``): wall and
+    device time per step, launches and the largest kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            engine.step()
+        if drain:
+            while engine.has_work():
+                engine.step()
+        else:
+            for _ in range(steps):
+                engine.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     kernels = []
@@ -412,28 +451,163 @@ def profile_waves(engine, decode_prompts, routed_prompts,
     return out
 
 
-def path_i_engine():
-    """deepseek-v3-bench as bench.py serves it, random weights from seed 0:
-    int8 experts, int8 latent cache, block size 64, steps of up to
-    ``BENCH_T`` tokens."""
+def profile_blocks(engine, waves) -> dict:
+    """Device busy time of one multistep block (``BENCH_K`` decode
+    iterations, one graph replay) of each of ``waves`` ({name: prompts})
+    after its prefill step: the dispatching step and the retiring one,
+    until the engine is idle (one block: each request asks for
+    ``1 + BENCH_K`` tokens)."""
+    out = {}
+    for key, prompts in waves.items():
+        reqs = add_requests(engine, prompts, f"profb-{key}", 1 + BENCH_K)
+        while not all(r.output_token_ids for r in reqs):
+            engine.step()
+        d0 = engine._dispatch_count
+        out[key] = dict(_profile_steps(engine, 1, drain=True),
+                        batch=len(prompts), engine_steps=BENCH_K,
+                        dispatches=engine._dispatch_count - d0)
+    return out
+
+
+def path_i_engine(steps: int = BENCH_K, params=None):
+    """deepseek-v3-bench as bench.py serves it, random weights from seed 0
+    (or ``params``): int8 experts, int8 latent cache, block size 64, steps
+    of up to ``BENCH_T`` tokens, ``steps`` scheduler steps per dispatch
+    with async scheduling (the classic loop at ``steps`` = 1), and the
+    block pool sized as bench.py:157-163 sizes it: room for every
+    sequence's prompt, its new tokens and one more block of steps."""
     from llm_d_tpu_torch.engine import EngineConfig, EngineCore
+    max_seqs, bs = 128, 64
+    per_seq = -(-(WAVE1["prompt"] + WAVE1["new"] + BENCH_K + 1) // bs)
     return EngineCore(EngineConfig(
         model="deepseek-v3-bench", quantization="int8",
-        kv_cache_dtype="int8", block_size=64, num_blocks=256,
-        max_num_seqs=128, max_num_batched_tokens=BENCH_T,
-        enable_prefix_caching=False, device="cuda", seed=0))
+        kv_cache_dtype="int8", block_size=bs,
+        num_blocks=max_seqs * per_seq + bs, max_num_seqs=max_seqs,
+        max_num_batched_tokens=BENCH_T, num_scheduler_steps=steps,
+        async_scheduling=steps > 1, enable_prefix_caching=False,
+        device="cuda", seed=0), params=params)
 
 
-def path_ii_engine(kv: str, gran):
-    """llama3-1b at full width and depth, random weights from seed 1, on a
-    ``kv`` cache (bf16, or int8 with scales per ``gran``: token or head):
-    block size 64, steps of up to ``BENCH_T`` tokens, 64 sequences."""
+def path_ii_engine(kv: str, gran, steps: int = 1, params=None):
+    """llama3-1b at full width and depth, random weights from seed 1 (or
+    ``params``), on a ``kv`` cache (bf16, or int8 with scales per
+    ``gran``: token or head): block size 64, steps of up to ``BENCH_T``
+    tokens, 64 sequences, ``steps`` scheduler steps per dispatch (async
+    scheduling when more than one)."""
     from llm_d_tpu_torch.engine import EngineConfig, EngineCore
     return EngineCore(EngineConfig(
         model="llama3-1b", kv_cache_dtype=kv, kv_scale_granularity=gran,
         block_size=64, num_blocks=256, max_num_seqs=64,
-        max_num_batched_tokens=BENCH_T, enable_prefix_caching=False,
-        device="cuda", seed=1))
+        max_num_batched_tokens=BENCH_T, num_scheduler_steps=steps,
+        async_scheduling=steps > 1, enable_prefix_caching=False,
+        device="cuda", seed=1), params=params)
+
+
+def check_multistep(stats: dict, tag: str) -> None:
+    """Every decode dispatch of a wave served by a multistep engine was a
+    block of ``BENCH_K`` engine steps."""
+    d, n = stats["decode_dispatches"], stats["decode_engine_steps"]
+    if d == 0 or n != BENCH_K * d:
+        raise RuntimeError(f"{tag}: decode ran {n} engine steps in {d} "
+                           f"dispatches, not blocks of {BENCH_K}")
+
+
+def spread(values) -> dict:
+    """Median, quartiles and range of ``values``."""
+    import numpy as np
+    v = np.asarray(values, dtype=float)
+    return dict(median=float(np.median(v)), q1=float(np.percentile(v, 25)),
+                q3=float(np.percentile(v, 75)), min=float(v.min()),
+                max=float(v.max()), n=len(v))
+
+
+def classic_rounds(classic, bench, waves: dict, rounds: int) -> dict:
+    """Each of ``waves`` ({name: (wave, prompts)}) served by the classic
+    engine and by the bench-configured one in alternating rounds (the
+    side that goes first alternates too).  Greedy tokens must be identical
+    between the two sides in every round.  Per wave and side: the spread
+    of decode tok/s and prefill seconds, and whether the multistep side's
+    decode tok/s is resolved above the classic side's (every multistep
+    round above every classic round)."""
+    runs = {w: {"classic": [], "multistep": []} for w in waves}
+    for r in range(rounds):
+        sides = [("classic", classic), ("multistep", bench)]
+        if r % 2:
+            sides.reverse()
+        for w, (wave, prompts) in waves.items():
+            tokens = {}
+            for side, eng in sides:
+                tokens[side], st = run_wave(eng, prompts, wave["new"],
+                                            f"{side[0]}{r}{w}")
+                if side == "multistep":
+                    check_multistep(st, f"round {r} {w}")
+                runs[w][side].append(st)
+            if tokens["classic"] != tokens["multistep"]:
+                diff = sum(a != b for x, y in zip(tokens["classic"],
+                                                  tokens["multistep"])
+                           for a, b in zip(x, y))
+                raise RuntimeError(f"round {r} {w}: multistep tokens differ "
+                                   f"from the classic loop's in {diff}")
+    out = {}
+    for w, sides in runs.items():
+        out[w] = {side: dict(
+            decode_tok_s=spread([st["decode_tok_s"] for st in sts]),
+            prefill_s=spread([st["prefill_seconds"] for st in sts]))
+            for side, sts in sides.items()}
+        out[w]["same_tokens"] = True
+        out[w]["decode_resolved"] = (
+            out[w]["multistep"]["decode_tok_s"]["min"]
+            > out[w]["classic"]["decode_tok_s"]["max"])
+    return out
+
+
+def graph_equals_eager(engine, key) -> dict:
+    """The decode-block graph of ``key`` ((S, random rows)) replayed on its
+    static inputs against the block's eager body
+    (``EngineCore._ms_body``) on the same inputs from the same cache:
+    ids and cache planes bit-equal."""
+    import torch
+    g = engine._graphs.graphs[key]
+    snap = {k: v.clone() for k, v in engine.kv_cache.items()}
+    g.graph.replay()
+    torch.cuda.synchronize()
+    ids_graph = g.ids.clone()
+    kv_graph = {k: v.clone() for k, v in engine.kv_cache.items()}
+    for k, v in engine.kv_cache.items():
+        v.copy_(snap[k])
+    ids_eager = torch.empty_like(g.ids)
+    engine._ms_body(g.inputs, g.inputs["keys"], ids_eager, key[1])
+    torch.cuda.synchronize()
+    res = dict(S=key[0], random_rows=key[1], K=g.ids.shape[0],
+               live_rows=int(g.inputs["active"].sum()),
+               ids_equal=torch.equal(ids_graph, ids_eager),
+               cache_equal=all(torch.equal(v, kv_graph[k])
+                               for k, v in engine.kv_cache.items()))
+    del snap, kv_graph
+    if not (res["ids_equal"] and res["cache_equal"]):
+        raise RuntimeError(f"graph replay differs from the eager body: {res}")
+    return res
+
+
+def sampled_block(engine, vocab: int) -> list:
+    """Eight requests at temperature 0.7 (top-p 0.9; every other one
+    seeded) served by the multistep engine: a prefill step and one block
+    with random rows."""
+    import numpy as np
+    from llm_d_tpu_torch.engine.request import Request
+    from llm_d_tpu_torch.ops.sampling import SamplingParams
+    rng = np.random.default_rng(4)
+    reqs = [Request(f"smp-{i}", rng.integers(1, vocab, 64).tolist(),
+                    SamplingParams(temperature=0.7, top_p=0.9,
+                                   seed=1234 + i if i % 2 else None,
+                                   max_tokens=1 + BENCH_K, ignore_eos=True))
+            for i in range(8)]
+    out = engine.generate(reqs)
+    toks = [out[r.request_id] for r in reqs]
+    if any(len(t) != 1 + BENCH_K for t in toks) or \
+            len({t for row in toks for t in row}) < 2:
+        raise RuntimeError(f"sampled block: {toks}")
+    return toks
 
 
 def dense_prompts(vocab: int):
@@ -930,8 +1104,12 @@ def main() -> int:
     engine = path_i_engine()
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    # The classic loop (one step per dispatch) on the same weights: the
+    # yardstick of the rounds below, not the path.
+    classic = path_i_engine(1, engine.params)
     log(f"engine: init {init_s:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{engine.config.num_blocks} blocks")
     weights = tensor_ptrs(engine.params)
     recorders = {k["name"]: Recorder(k["mod"], k["fn"], weights,
                                      k.get("label"))
@@ -940,14 +1118,20 @@ def main() -> int:
         for rec in recorders.values():
             rec.wrapped.launches = 0
 
-    def read_counts(path):
-        counts = {k["name"]: recorders[k["name"]].wrapped.launches
-                  for k in kernels if k["path"] == path}
+    def read_counts(path, replayed):
+        """Each kernel's launches on ``path``: its wrapper's count (eager
+        launches, graph warm-ups included) plus its launches inside graph
+        replays (``replayed``: the ``DecodeGraphs.launches`` of the path's
+        multistep engines, by wrapper name)."""
+        in_graphs = {k["name"]: sum(r[k["fn"]] for r in replayed)
+                     for k in kernels if k["path"] == path}
+        counts = {n: recorders[n].wrapped.launches + c
+                  for n, c in in_graphs.items()}
         missing = [n for n, c in counts.items() if c == 0]
         if missing:
             raise RuntimeError(f"kernels never launched on path ({path}): "
                                f"{missing}")
-        return counts
+        return counts, in_graphs
 
     rng = np.random.default_rng(0)
     vocab = engine.model_config.vocab_size
@@ -973,20 +1157,49 @@ def main() -> int:
                                                        "w3g")
         waves_i["wave3_grouped"]["same_tokens_as_streamed"] = tok3g == tok3
         log(f"wave 3 grouped: {json.dumps(waves_i['wave3_grouped'])}")
-    launches = read_counts("i")
-    log(f"launches (i): {json.dumps(launches)}")
+    launches, graph_launches = read_counts(
+        "i", [dict(engine._graphs.launches)])
+    log(f"launches (i): {json.dumps(launches)}, inside graph replays: "
+        f"{json.dumps(graph_launches)}")
+    for w, st in waves_i.items():
+        check_multistep(st, w)
     if tok1b != tok1:
         raise RuntimeError("wave 1 did not repeat token for token")
     if not bench_glue:
         raise RuntimeError(f"no {BENCH_T}-token MoE step was recorded")
+    for name in ("mla_decode", "moe_dense_int8", "moe_routed_int8"):
+        if graph_launches[name] == 0:
+            raise RuntimeError(f"{name} never launched inside a graph")
+
+    # Graph replays against the eager body; the multistep engine against
+    # the classic loop.
+    sampled_block(engine, vocab)
+    graphs_i = [graph_equals_eager(engine, key)
+                for key in ((8, False), (WAVE2_S, False), (8, True))]
+    log(f"graph vs eager: {json.dumps(graphs_i)}")
+    rounds_i = classic_rounds(classic, engine, {
+        "wave1": (WAVE1, p1), "wave2": (WAVE2, p2), "wave3": (WAVE3, p3)},
+        ROUNDS)
+    log(f"classic vs multistep: {json.dumps(rounds_i)}")
+    graphs_info = dict(
+        pool_bytes=engine._graphs.pool_bytes,
+        graphs=[dict(S=k[0], random_rows=k[1], launches=g.launches)
+                for k, g in engine._graphs.graphs.items()],
+        replays=engine._graphs.replays)
+    log(f"graphs (i): {json.dumps(graphs_info)}")
 
     prof = None
     if "--profile" in sys.argv[1:]:
-        prof = profile_waves(engine, p1, p2, p3)
+        prof = profile_waves(classic, p1, p2, p3)
+        prof["blocks"] = profile_blocks(engine, {"wave1": p1, "wave2": p2})
         log(f"profile: {json.dumps(prof)}")
+    del classic
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # 3. path (ii): llama3-1b on a bf16 and on int8 caches ------------------
     waves_ii = {}
+    graphs_ii = []
     llama_params2 = None
     reset_counts()
     for kv, gran in DENSE_MODES:
@@ -1007,6 +1220,32 @@ def main() -> int:
             if tokd2 != tokd:
                 raise RuntimeError("llama3-1b bf16 wave did not repeat "
                                    "token for token")
+            # The same wave through multistep blocks (as bench.py would
+            # serve it), on the same weights, twice: the classic run's
+            # tokens.
+            ms = path_ii_engine(kv, gran, BENCH_K, eng.params)
+            tokm, waves_ii["bf16_multistep"] = run_wave(
+                ms, pd, DENSE_WAVE["new"], "bf16m")
+            waves_ii["bf16_multistep"]["same_tokens_as_classic"] = \
+                tokm == tokd
+            log(f"llama3-1b bf16 multistep wave: "
+                f"{json.dumps(waves_ii['bf16_multistep'])}")
+            # Again, with the graph captured: the steady state.
+            tokm2, waves_ii["bf16_multistep_repeat"] = run_wave(
+                ms, pd, DENSE_WAVE["new"], "bf16m2")
+            log(f"llama3-1b bf16 multistep wave again: "
+                f"{json.dumps(waves_ii['bf16_multistep_repeat'])}")
+            for w in ("bf16_multistep", "bf16_multistep_repeat"):
+                check_multistep(waves_ii[w], f"llama3-1b {w}")
+            if tokm != tokd or tokm2 != tokd:
+                raise RuntimeError("llama3-1b bf16 multistep tokens differ "
+                                   "from the classic loop's")
+            graphs_ii.append(dict(ms._graphs.launches))
+            graphs_info["llama3-1b"] = dict(
+                pool_bytes=ms._graphs.pool_bytes,
+                graphs=[dict(S=k[0], random_rows=k[1], launches=g.launches)
+                        for k, g in ms._graphs.graphs.items()])
+            del ms
             if prof is not None:
                 # The profiled steps are not the path's run: their launches
                 # do not count.
@@ -1024,9 +1263,13 @@ def main() -> int:
         del eng                       # free each engine before the next
         gc.collect()
         torch.cuda.empty_cache()
-    counts_ii = read_counts("ii")
+    counts_ii, graph_ii = read_counts("ii", graphs_ii)
     launches.update(counts_ii)
-    log(f"launches (ii): {json.dumps(counts_ii)}")
+    graph_launches.update(graph_ii)
+    log(f"launches (ii): {json.dumps(counts_ii)}, inside graph replays: "
+        f"{json.dumps(graph_ii)}")
+    if graph_launches["paged_decode"] == 0:
+        raise RuntimeError("paged_decode never launched inside a graph")
 
     # 4. kernels against their plain versions --------------------------------
     rows, variants, bounds = [], [], []
@@ -1069,6 +1312,7 @@ def main() -> int:
         row = dict(
             name=k["name"], route="cuda", source=k["source"],
             replaces=k["replaces"], launches=launches[k["name"]],
+            graph_launches=graph_launches[k["name"]],
             max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -1111,15 +1355,16 @@ def main() -> int:
                                        bench_glue["args"])
     check(streamed, f"T={BENCH_T} chunk_t={BENCH_T}", clone(args, weights),
           clone(kw, weights), count=False)
-    # Kernels D and F at the other row blocks they take, on the engine's
-    # first MoE layer with routing from a seed: D at T = 256 and 512
-    # (64-row blocks; the waves' T = 128 runs 32-row ones), F at 128-row
-    # tiles (the waves' grouped step runs 256-row ones).
+    # Kernels C-F at other shapes, on the engine's first MoE layer with
+    # routing from a seed: C at T = 8 (a decode block of 8 rows), D at T =
+    # 256 and 512 (64-row blocks; the waves' T = 128 runs 32-row ones), F
+    # at 128-row tiles (the waves' grouped step runs 256-row ones).
     quant = {n: engine.params["moe_layers"][n] for n in
              ("w_gate_q", "w_gate_s", "w_up_q", "w_up_s", "w_down_q",
               "w_down_s")}
     quant["layer"] = 0
     for name, glue, T, kwg in (
+            ("moe_dense_int8", moe_ops._dense_int8_kernel_path, 8, {}),
             ("moe_routed_int8", moe_ops._routed_int8_kernel_path, 256, {}),
             ("moe_routed_int8", moe_ops._routed_int8_kernel_path, 512, {}),
             ("moe_grouped_int8", moe_ops._grouped_int8_kernel_path, 1024,
@@ -1211,7 +1456,8 @@ def main() -> int:
     print(json.dumps({"engine": {
         "build_s": build_s, "init_s": init_s,
         "deepseek-v3-bench": waves_i, "llama3-1b": waves_ii,
-        "reference": refs}}))
+        "classic_vs_multistep": rounds_i, "graph_vs_eager": graphs_i,
+        "graphs": graphs_info, "reference": refs}}))
     if prof is not None:
         print(json.dumps({"profile": prof}))
     print(json.dumps({"kernels": rows}))

@@ -6,7 +6,15 @@ scheduler output into bucketed ragged batches, runs one forward + sample
 per step, and advances request state.  The model runs eagerly; the
 step's one host sync is the fetch of the sampled ids.
 
-Not ported yet (later slices): multistep and async scheduling,
+Multistep and async scheduling (``num_scheduler_steps`` > 1,
+``async_scheduling``), as the JAX engine's classic pipeline runs them: a
+pure-decode round runs K decode iterations as one block with one host
+fetch, and under async scheduling the next block is queued before the
+current one is retired.  On the card each block is one replay of a
+captured CUDA graph (``engine/cuda_graph.py``); on the CPU its body runs
+eagerly.
+
+Not ported yet (later slices): the fused multistep pipeline and
 speculative decode, fused mixed rounds, EPLB, KV offload, the KV
 connector, metrics and tracing.
 """
@@ -20,6 +28,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from llm_d_tpu_torch.engine.cuda_graph import DecodeGraphs
 from llm_d_tpu_torch.engine.kv_cache import KVCacheManager
 from llm_d_tpu_torch.engine.request import Request, RequestOutput, RequestState
 from llm_d_tpu_torch.engine.scheduler import Scheduler, SchedulerOutput
@@ -74,6 +83,15 @@ class EngineConfig:
     seed: int = 0
     min_token_bucket: int = 16
     min_seq_bucket: int = 8
+    # Multistep decode: a pure-decode round runs this many decode
+    # iterations as one block, sampled ids fed back on the device, with
+    # one host fetch per block.
+    num_scheduler_steps: int = 1
+    # Async scheduling: keep one decode block in flight and queue its
+    # successor (last ids taken from the in-flight block on the device)
+    # before retiring it, so the host's token processing overlaps the
+    # device.  New arrivals drain the pipeline.
+    async_scheduling: bool = False
     # MoE expert-weight quantization: "int8" or None.
     quantization: Optional[str] = None
     # Paged-KV cache dtype: "bf16" or "int8" (None = bf16).
@@ -133,6 +151,12 @@ class EngineCore:
 
         if config.quantization not in (None, "int8"):
             raise ValueError(f"unknown quantization {config.quantization!r}")
+        if config.async_scheduling and config.num_scheduler_steps <= 1:
+            # The pipeline operates on multistep blocks; without them the
+            # flag would be a silent no-op.
+            raise ValueError(
+                "async_scheduling requires num_scheduler_steps > 1 "
+                "(it pipelines fused decode blocks)")
 
         self.kv_manager = KVCacheManager(
             config.num_blocks, config.block_size,
@@ -169,6 +193,17 @@ class EngineCore:
         # The sampling key, split once per step as the JAX engine splits
         # its own, so unseeded rows draw the JAX package's bits too.
         self._rng = prng.prng_key(config.seed)
+        # Engine steps taken and device dispatches made: K steps per
+        # dispatch under multistep, one classic.
+        self._step_count = 0
+        self._dispatch_count = 0
+        # Async scheduling: the one in-flight decode block.
+        self._inflight: Optional[Dict[str, Any]] = None
+        # The decode blocks' CUDA graphs (none on the CPU, where a block's
+        # body runs eagerly).
+        self._graphs = (DecodeGraphs(self.device)
+                        if config.num_scheduler_steps > 1
+                        and self.device.type == "cuda" else None)
         self._rejected: List[RequestOutput] = []
         self.eos_token_id: Optional[int] = None
         # Optional tokenizer enables engine-side stop-string detection.
@@ -263,16 +298,319 @@ class EngineCore:
                  for k, v in arrs.items()}
         return batch, host
 
+    # ---------- multistep decode ----------
+
+    def _ms_body(self, mb: Dict[str, torch.Tensor], keys: torch.Tensor,
+                 ids: torch.Tensor, random_rows: bool) -> None:
+        """``ids.shape[0]`` decode iterations of the block ``mb`` (the
+        JAX engine's ``_build_multistep_fn`` body), sampled ids fed to
+        the next iteration on the device; iteration ``it`` draws with
+        key ``keys[it]`` and writes its ids to ``ids[it]``.  A plain
+        function of tensors that never syncs the host: on the card it is
+        what a block's graph captures.  ``random_rows`` says whether any
+        row samples at random (decided on the host, per block).
+
+        Sequence row ``s`` decodes token row ``s``.  The token rows are
+        padded to the classic step's token bucket (``min_token_bucket``,
+        where the JAX block runs T == S) with the classic step's pad
+        tokens, so a decode row meets the same matrix shapes whichever
+        path serves it: cuBLAS picks its GEMM by the row count, and an
+        8-row product rounds otherwise than a 16-row one."""
+        c, cfg = self.model_config, self.config
+        bs = cfg.block_size
+        bt = mb["block_tables"]
+        active = mb["active"]
+        S, B = bt.shape
+        T = _next_bucket(S, cfg.min_token_bucket, cfg.max_num_batched_tokens)
+
+        def tokens(v):                   # [S] -> [T], pad tokens 0
+            return torch.nn.functional.pad(v, (0, T - S)) if T > S else v
+
+        seq_ids = torch.arange(S, dtype=torch.int32, device=bt.device)
+        tok_seq_ids = tokens(seq_ids)
+        qpos = torch.zeros(T, dtype=torch.int32, device=bt.device)
+        last_ids, pos0 = mb["last_ids"], mb["pos0"]
+        for it in range(ids.shape[0]):
+            # One token per sequence.  Rows past their table (finished
+            # rows keep advancing) are clamped; they are inactive and
+            # write the trash block.
+            page = (pos0 // bs).clamp(max=B - 1).long()
+            slot = torch.gather(bt, 1, page[:, None])[:, 0] * bs + pos0 % bs
+            batch = dict(
+                token_ids=tokens(last_ids), positions=tokens(pos0),
+                token_seq_ids=tok_seq_ids, token_qpos=qpos,
+                slot_mapping=tokens(torch.where(active, slot, pos0 % bs)),
+                block_tables=bt,
+                seq_lens=torch.where(active, pos0 + 1, 0),
+                sample_idx=seq_ids, qtok_idx=seq_ids[:, None])
+            hidden = self.model.forward(self.params, self.kv_cache, batch, c,
+                                        bs, self.config.attn_backend)
+            logits = self.model.compute_logits(self.params, hidden, c)
+            tok = sampling_ops.sample(
+                logits, mb["temperature"], mb["top_k"], mb["top_p"],
+                key=(keys[it, 0], keys[it, 1]), seeds=mb["seeds"],
+                gen_idx=mb["gen0"] + it, random_rows=random_rows)
+            ids[it] = torch.where(active, tok, 0)
+            last_ids, pos0 = ids[it], pos0 + 1
+
+    def _ms_static(self, S: int, K: int
+                   ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """A block graph's static inputs and output ``ids [K, S]``."""
+        def z(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+        i32 = torch.int32
+        inputs = dict(
+            last_ids=z(S, i32), pos0=z(S, i32),
+            block_tables=z((S, self.max_blocks_per_seq), i32),
+            active=z(S, torch.bool), temperature=z(S, torch.float32),
+            top_k=z(S, i32), top_p=z(S, torch.float32), seeds=z(S, i32),
+            gen0=z(S, i32), keys=z((K, 2), torch.int64))
+        return inputs, z((K, S), i32)
+
+    def _try_multistep(self, sched: SchedulerOutput) -> Optional[int]:
+        """If this is a pure-decode round eligible for multistep,
+        pre-allocate K tokens per request and return K; else None."""
+        K = self.config.num_scheduler_steps
+        if K <= 1 or not sched.scheduled:
+            return None
+        for sr in sched.scheduled:
+            req = sr.request
+            if (sr.num_new_tokens != 1
+                    or req.num_computed_tokens != req.num_tokens - 1
+                    or req.do_remote_decode
+                    or req.sampling.logprobs is not None):
+                return None
+            if req.num_tokens + K >= self.model_config.max_model_len:
+                return None
+        # Pre-allocate blocks to cover K new tokens for every request.
+        allocated: List[Tuple[Request, List[int]]] = []
+        for sr in sched.scheduled:
+            req = sr.request
+            ok = self.kv_manager.allocate(req, req.num_computed_tokens + K)
+            if ok is None:
+                # Roll back earlier requests' tail blocks: holding them
+                # until finish fragments the pool under exactly the
+                # pressure that made allocation fail.
+                for r, blocks in reversed(allocated):
+                    self.kv_manager.release_tail(r, blocks)
+                return None   # fall back to the single step
+            allocated.append((req, ok))
+        return K
+
+    def _ms_meta(self, scheduled) -> Tuple[Dict[str, np.ndarray], List,
+                                           np.ndarray]:
+        """Host arrays of a multistep block: (meta, scheduled in row
+        order, row of each scheduled entry).  S buckets alone, as in the
+        JAX engine; ``_ms_body`` pads the token rows."""
+        cfg = self.config
+        S = _next_bucket(len(scheduled),
+                         min(cfg.min_seq_bucket, cfg.max_num_seqs),
+                         cfg.max_num_seqs)
+        B = self.max_blocks_per_seq
+        last_ids = np.zeros(S, np.int32)
+        pos0 = np.zeros(S, np.int32)
+        block_tables = np.zeros((S, B), np.int32)
+        active = np.zeros(S, bool)
+        temperature = np.zeros(S, np.float32)
+        top_k = np.zeros(S, np.int32)
+        top_p = np.ones(S, np.float32)
+        seeds = np.full(S, -1, np.int32)
+        gen0 = np.zeros(S, np.int32)
+        for s, sr in enumerate(scheduled):
+            req = sr.request
+            last_ids[s] = req.all_token_ids[req.num_computed_tokens]
+            pos0[s] = req.num_computed_tokens
+            block_tables[s, :len(req.block_ids)] = req.block_ids
+            active[s] = True
+            temperature[s] = req.sampling.temperature
+            top_k[s] = req.sampling.top_k
+            top_p[s] = req.sampling.top_p
+            if req.sampling.seed is not None:
+                seeds[s] = int(req.sampling.seed) & 0x7FFFFFFF
+            gen0[s] = len(req.output_token_ids)
+        meta = dict(last_ids=last_ids, pos0=pos0, block_tables=block_tables,
+                    active=active, temperature=temperature, top_k=top_k,
+                    top_p=top_p, seeds=seeds, gen0=gen0)
+        return meta, list(scheduled), np.arange(len(scheduled),
+                                                dtype=np.int32)
+
+    def _ms_dispatch(self, meta: Dict[str, Any], scheduled, K: int,
+                     rows: np.ndarray) -> Dict[str, Any]:
+        """Queue one multistep block; returns the in-flight record
+        without synchronizing (ids reach the host at retire).
+        ``meta["last_ids"]`` may be a device tensor: a predecessor
+        block's last ids, copied in stream order."""
+        self._rng, step_key = prng.split(self._rng)
+        keys = np.asarray(prng.split(step_key, K), np.int64)    # [K, 2]
+        random_rows = bool((meta["temperature"] > 0).any())
+        S = meta["pos0"].shape[0]
+        rec = dict(scheduled=list(scheduled), K=K, meta=meta, rows=rows)
+        if self._graphs is None:
+            mb = {k: torch.as_tensor(v, device=self.device)
+                  for k, v in meta.items()}
+            ids = torch.empty((K, S), dtype=torch.int32, device=self.device)
+            self._ms_body(mb, torch.as_tensor(keys, device=self.device),
+                          ids, random_rows)
+            rec.update(ids_dev=ids, ids_host=ids, done=None)
+        else:
+            g = self._graphs.block((S, random_rows),
+                                   lambda: self._ms_static(S, K))
+            self._graphs.load(g, dict(meta, keys=keys))
+            if g.graph is None:
+                self._graphs.capture(
+                    g, lambda n: self._ms_body(
+                        g.inputs, g.inputs["keys"][:n], g.ids[:n],
+                        random_rows), K)
+            host, done = self._graphs.replay(g)
+            rec.update(ids_dev=g.ids, ids_host=host, done=done)
+        self._dispatch_count += 1
+        return rec
+
+    def _ms_retire(self, inflight: Dict[str, Any]) -> List[RequestOutput]:
+        """Wait for one in-flight block and advance request state."""
+        scheduled, K = inflight["scheduled"], inflight["K"]
+        if inflight["done"] is not None:
+            # The block's own copy: a successor queued after it runs on.
+            inflight["done"].synchronize()
+        ids_ks = inflight["ids_host"].numpy()
+        self._step_count += K
+        outputs: List[RequestOutput] = []
+        now = time.monotonic()
+        for s, sr in zip(inflight["rows"], scheduled):
+            req = sr.request
+            if req.state is not RequestState.RUNNING:
+                # Finished (a stop at an earlier retire) or aborted while
+                # this block was in flight: its tokens are discarded.  Its
+                # KV writes landed past every live reader's length, and
+                # stream order puts them before any reallocation's.
+                continue
+            new_tokens: List[int] = []
+            finish = None
+            for k in range(K):
+                token = int(ids_ks[k, s])
+                req.num_computed_tokens += 1
+                req.output_token_ids.append(token)
+                new_tokens.append(token)
+                finish = self._check_stop(req, token)
+                if finish is not None:
+                    break
+            # Tokens past a stop are discarded; their KV writes live in
+            # already-allocated blocks and are freed with the request.
+            req.last_token_time = now
+            self.kv_manager.cache_full_blocks(req)
+            outputs.append(RequestOutput(
+                req.request_id, new_tokens, finish is not None,
+                finish_reason=finish))
+            if finish is not None:
+                self.scheduler.finish(req, RequestState(finish))
+        return outputs
+
+    def _ms_try_extend(self, inflight: Dict[str, Any]
+                       ) -> Optional[Dict[str, Any]]:
+        """Dispatch the in-flight block's successor before the in-flight
+        tokens are known: last ids come from the device, positions
+        advance by K, fresh blocks are pre-allocated.  Returns the new
+        in-flight record, or None when the pipeline must drain (new
+        arrivals, rejections, an expired deadline, allocation failure,
+        or every request ending within the current block)."""
+        if self._rejected or self.scheduler.waiting:
+            return None
+        scheduled, K = inflight["scheduled"], inflight["K"]
+        meta = inflight["meta"]
+        rows = inflight["rows"]
+        max_len = self.model_config.max_model_len
+        live = 0
+        for s, sr in zip(rows, scheduled):
+            req = sr.request
+            if req.state is not RequestState.RUNNING:
+                continue
+            if req.deadline_expired():
+                # Drain so the next schedule() pass evicts the expired
+                # request and frees its blocks.
+                return None
+            if int(meta["pos0"][s]) + 2 * K >= max_len:
+                return None
+            if int(meta["gen0"][s]) + K < req.sampling.max_tokens:
+                live += 1
+        if live == 0:
+            return None     # everything finishes within the in-flight block
+        # Pre-allocate blocks covering the successor's K tokens.  Requests
+        # certain to finish (by length) inside the in-flight block get no
+        # allocation: they become pad rows below.
+        finishing = [int(meta["gen0"][s]) + K >= sr.request.sampling.max_tokens
+                     for s, sr in zip(rows, scheduled)]
+        allocated: List[Tuple[Request, List[int]]] = []
+        for (s, sr), fin in zip(zip(rows, scheduled), finishing):
+            req = sr.request
+            if req.state is not RequestState.RUNNING or fin:
+                continue
+            ok = self.kv_manager.allocate(req, int(meta["pos0"][s]) + 2 * K)
+            if ok is None:
+                for r, blocks in reversed(allocated):
+                    self.kv_manager.release_tail(r, blocks)
+                return None
+            allocated.append((req, ok))
+
+        bt = meta["block_tables"]
+        next_bt = bt
+        next_active = meta["active"]
+        for (s, sr), fin in zip(zip(rows, scheduled), finishing):
+            if sr.request.state is not RequestState.RUNNING or fin:
+                # Stopped at an earlier retire, or stopping at its length
+                # limit in the in-flight block: a pad row (seq_len 0, no
+                # attention, trash-block writes).
+                if next_active is meta["active"]:
+                    next_active = next_active.copy()
+                next_active[s] = False
+                continue
+            local = np.asarray(sr.request.block_ids, np.int32)
+            nb = len(local)
+            if nb and bt[s, nb - 1] != local[-1]:
+                if next_bt is bt:
+                    next_bt = bt.copy()
+                next_bt[s, :nb] = local
+        next_meta = dict(
+            meta,
+            last_ids=inflight["ids_dev"][K - 1],   # device tensor, no sync
+            pos0=meta["pos0"] + np.int32(K),
+            gen0=meta["gen0"] + np.int32(K),
+            block_tables=next_bt,
+            active=next_active)
+        return self._ms_dispatch(next_meta, scheduled, K, rows)
+
+    def _run_multistep(self, sched: SchedulerOutput,
+                       K: int) -> List[RequestOutput]:
+        meta, ordered, rows = self._ms_meta(sched.scheduled)
+        return self._ms_retire(self._ms_dispatch(meta, ordered, K, rows))
+
     # ---------- step ----------
 
     def step(self) -> List[RequestOutput]:
         outputs: List[RequestOutput] = list(self._rejected)
         self._rejected.clear()
+        if self._inflight is not None:
+            # Pipelined decode: queue the successor block on the device
+            # first, then retire the in-flight one, so the host's token
+            # processing runs while the device computes the successor.
+            rec = self._inflight
+            nxt = self._ms_try_extend(rec)
+            outputs.extend(self._ms_retire(rec))
+            self._inflight = nxt
+            return outputs
         sched = self.scheduler.schedule()
         for req in sched.preempted:      # requests finished by the scheduler
             outputs.append(RequestOutput(
                 req.request_id, [], True, finish_reason=req.state.value))
         if sched.empty:
+            return outputs
+
+        K = self._try_multistep(sched)
+        if K is not None:
+            if self.config.async_scheduling:
+                meta, ordered, rows = self._ms_meta(sched.scheduled)
+                self._inflight = self._ms_dispatch(meta, ordered, K, rows)
+                return outputs    # this block's tokens arrive next step
+            outputs.extend(self._run_multistep(sched, K))
             return outputs
 
         batch, host = self._build_batch(sched)
@@ -299,6 +637,8 @@ class EngineCore:
         # The step's one host sync: the first copy waits for the device;
         # the rest are already computed.
         fetched = [t.cpu() for t in fetch]
+        self._dispatch_count += 1
+        self._step_count += 1
         ids_h = fetched[0].numpy()
         logprobs = fetched[1].numpy() if want_lp else None
         top = ((fetched[2].numpy(), fetched[3].numpy())

@@ -122,7 +122,8 @@ def xla_log(x: torch.Tensor) -> torch.Tensor:
     f32 = torch.float32
 
     def c(v):
-        return torch.tensor(v, dtype=f32, device=x.device)
+        # A fill, not a host-to-device copy: a captured graph may hold it.
+        return torch.full((), v, dtype=f32, device=x.device)
 
     x = torch.maximum(x.float(), c(_F32_TINY))
     bits = x.view(torch.int32)

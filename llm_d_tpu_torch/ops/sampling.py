@@ -80,17 +80,22 @@ def sample(
     seeds: Optional[torch.Tensor] = None,     # [S] i32, -1 = unseeded
     gen_idx: Optional[torch.Tensor] = None,   # [S] i32 tokens generated so far
     noise: Optional[torch.Tensor] = None,     # [S, min(64, V)] Gumbel noise
+    random_rows: Optional[bool] = None,       # any row with temperature > 0
 ) -> torch.Tensor:                 # [S] int64 sampled ids
     """Batched sampling.  The per-row parameter tensors may live on the
     CPU (the engine passes host copies, so deciding whether any row is
     random costs no device sync); they are moved to ``logits.device`` for
-    the arithmetic.  ``key`` is the step's key (``prng.split`` of the
-    engine's); ``noise``, when given, replaces the drawn Gumbel noise
-    (tests)."""
+    the arithmetic.  ``random_rows`` gives that decision instead (the
+    multistep block decides it on the host, once per block, and passes
+    device tensors).  ``key`` is the step's key (``prng.split`` of the
+    engine's), its words ints or 0-d int64 tensors; ``noise``, when
+    given, replaces the drawn Gumbel noise (tests)."""
     S, V = logits.shape
     dev = logits.device
     greedy_ids = torch.argmax(logits, dim=-1)
-    if not bool((temperature > 0.0).any()):
+    if random_rows is None:
+        random_rows = bool((temperature > 0.0).any())
+    if not random_rows:
         return greedy_ids
     K = min(TOPK_MAX, V)
     temp_d = temperature.to(dev, torch.float32)

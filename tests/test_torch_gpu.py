@@ -11,6 +11,11 @@ against the plain version (same bf16 rounding points, other summation
 order); the decode splices leave cache and scale planes identical; MoE
 kernels (C-F) max error / max |output| <= 1e-2
 (tests/test_moe_int8_kernel.py's rule).
+
+The multistep engine's decode blocks (one CUDA graph each) are held to
+their eager body bit for bit, async scheduling to sync and to the
+classic loop token for token, and a capture that meets a host sync must
+raise.
 """
 
 import dataclasses
@@ -634,3 +639,117 @@ def test_gumbel_noise_on_the_card_is_the_cpu_noise(dev):
     cpu = row_noise(6, 64, torch.device("cpu"), step, seeds, gen)
     card = row_noise(6, 64, dev, step, seeds.to(dev), gen.to(dev)).cpu()
     assert torch.equal(cpu.view(torch.int32), card.view(torch.int32))
+
+
+def _bench_2layer_engine(dev, params=None, **over):
+    """Two layers of deepseek-v3-bench at full width as bench.py serves
+    it (int8 experts and latent, 64-row pages), with ``over`` on top."""
+    cfg = dataclasses.replace(get_config("deepseek-v3-bench"), num_layers=2,
+                              max_model_len=1024)
+    kw = dict(model_config=cfg, block_size=64, num_blocks=480,
+              max_num_seqs=128, max_num_batched_tokens=8192,
+              quantization="int8", kv_cache_dtype="int8",
+              enable_prefix_caching=False, device="cuda", seed=7)
+    kw.update(over)
+    return EngineCore(EngineConfig(**kw), params=params)
+
+
+def _block_requests(n, K, sampled, seed):
+    """``n`` requests of 40-90 prompt tokens, each served by its prefill
+    step and then exactly one K-step block; sampled ones alternate seeded
+    and unseeded rows at temperature 0.7."""
+    g = torch.Generator().manual_seed(seed)
+    reqs = []
+    for i in range(n):
+        p = torch.randint(1, 32768, (40 + (i * 7) % 51,), generator=g)
+        reqs.append(Request(f"b{i}", p.tolist(), SamplingParams(
+            temperature=0.7 if sampled else 0.0, top_p=0.9,
+            seed=(1234 + i) if sampled and i % 2 else None,
+            max_tokens=1 + K, ignore_eos=True)))
+    return reqs
+
+
+@pytest.mark.parametrize("n,S", [(6, 8), (40, 64), (100, 128)])
+@pytest.mark.parametrize("sampled", [False, True])
+def test_decode_block_graph_replay_equals_the_eager_body(dev, n, S,
+                                                         sampled):
+    """A decode block served through its CUDA graph, replayed again on the
+    same static inputs and cache, is bit-equal to the block's eager body
+    (``EngineCore._ms_body``) from the same cache: the ids and the cache
+    it leaves.  The replay's ids are also the tokens the engine served,
+    and the replays launched kernels A and C (S <= 64) or D (S = 128)."""
+    K = 8
+    eng = _bench_2layer_engine(dev, num_scheduler_steps=K)
+    reqs = _block_requests(n, K, sampled, seed=S)
+    eng.generate(reqs)
+    assert eng._dispatch_count == 2 and eng._step_count == 1 + K
+    g = eng._graphs.graphs[(S, sampled)]
+    served = torch.tensor([r.output_token_ids[1:] for r in reqs],
+                          dtype=torch.int32)
+    snap = {k: v.clone() for k, v in eng.kv_cache.items()}
+    g.graph.replay()
+    torch.cuda.synchronize()
+    ids_graph = g.ids.clone()
+    kv_graph = {k: v.clone() for k, v in eng.kv_cache.items()}
+    for k, v in eng.kv_cache.items():
+        v.copy_(snap[k])
+    ids_eager = torch.empty_like(g.ids)
+    eng._ms_body(g.inputs, g.inputs["keys"], ids_eager, sampled)
+    torch.cuda.synchronize()
+    assert torch.equal(ids_graph, ids_eager)
+    for k, v in eng.kv_cache.items():
+        assert torch.equal(v, kv_graph[k]), k
+    assert torch.equal(ids_graph[:, :n].cpu().T, served)
+    moe = "dense_moe_int8" if S <= 64 else "routed_moe_int8"
+    for name in ("mla_paged_decode_update", moe):
+        assert eng._graphs.launches[name] > 0, name
+
+
+def test_async_tokens_equal_sync_tokens_on_the_card(dev):
+    """The bench's pipeline on the card (K = 8 here): async scheduling
+    serves the same tokens as sync multistep, and both the classic loop's,
+    greedy rows and seeded sampled rows alike (a seeded row's noise
+    follows its seed and position, whatever the step keys), with
+    max_tokens ending mid-block, on a block boundary and inside the first
+    block."""
+    K = 8
+    sync = _bench_2layer_engine(dev, num_scheduler_steps=K)
+    async_ = _bench_2layer_engine(dev, num_scheduler_steps=K,
+                                  async_scheduling=True, params=sync.params)
+    classic = _bench_2layer_engine(dev, params=sync.params)
+    cases = [(30, 33, 0.0, None), (9, 20, 0.0, None), (70, 17, 0.7, 1234),
+             (100, 5, 0.0, None), (64, 25, 0.7, 99)]
+
+    def reqs():
+        gg = torch.Generator().manual_seed(3)
+        return [Request(f"a{i}", torch.randint(1, 32768, (n,),
+                                               generator=gg).tolist(),
+                        SamplingParams(temperature=t, max_tokens=m, seed=s,
+                                       ignore_eos=True))
+                for i, (n, m, t, s) in enumerate(cases)]
+
+    want = sync.generate(reqs())
+    got = async_.generate(reqs())
+    assert got == want
+    assert classic.generate(reqs()) == want
+    assert [len(v) for v in got.values()] == [c[1] for c in cases]
+    assert async_._graphs.replays > 1
+    assert async_._dispatch_count < async_._step_count
+
+
+def test_a_failed_capture_raises(dev, monkeypatch):
+    """A decode block whose body syncs the host cannot be captured: the
+    engine raises and never serves the block eagerly instead."""
+    from llm_d_tpu_torch.ops import sampling as SO
+    real = SO.sample
+
+    def syncing_sample(logits, *a, **kw):
+        float(logits.sum())              # a host sync: illegal in a capture
+        return real(logits, *a, **kw)
+
+    monkeypatch.setattr(SO, "sample", syncing_sample)
+    eng = _bench_2layer_engine(dev, num_scheduler_steps=8)
+    with pytest.raises(RuntimeError):
+        eng.generate(_block_requests(3, 8, False, seed=1))
+    assert eng._graphs.replays == 0
+    assert all(g.graph is None for g in eng._graphs.graphs.values())
