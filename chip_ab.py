@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Kernels A-H of this checkout against another checkout of the port, on
-one CUDA card, on the same inputs and in turns.
+"""This checkout of the port against another, on one CUDA card, on the
+same weights and inputs and in turns: its engine serving the waves, and
+kernels A-H.
 
     git archive <commit> llm_d_tpu_torch | tar -x -C _scratch_parent
     python3 chip_ab.py _scratch_parent
@@ -16,12 +17,13 @@ for each batch size S, of B for each (S, Q), of C, D and E for each token
 count T (D at [128, 2048] in wave 2), of F (x_pad [81920, 2048] in the
 grouped wave 3) and of G and H for each cache mode.  Then:
 
-1. waves: ``ROUNDS`` rounds of the seven waves, each round with this
-   checkout's wrappers of A-H installed or the other's, in the order
-   this, other, other, this, ...: prefill seconds and decode tok/s of
-   every run, their medians, quartiles and ranges, whether each side's
-   greedy tokens repeated across its rounds, and whether the two sides'
-   tokens are the same wave by wave;
+1. waves: ``ROUNDS`` rounds of the seven waves, each round served by
+   this checkout's engines or by the other's (the other checkout's
+   modules throughout: engine, models, glue and the wrappers of A-H), on
+   the same weights, in the order this, other, other, this, ...: prefill
+   seconds and decode tok/s of every run, their medians, quartiles and
+   ranges, whether each side's greedy tokens repeated across its rounds,
+   and whether the two sides' tokens are the same wave by wave;
 2. kernels: each recorded input (and A and G on 8 sequences x 4096 keys,
    E on the 8192-token step as one chunk) through both checkouts'
    wrappers: for A-F whether the outputs (and A's cache splice) are
@@ -39,6 +41,7 @@ and power limit.  The other checkout builds its kernels into its own
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -109,34 +112,53 @@ def plain_errors(fns, plain, args, kw, weights) -> dict:
     return errs
 
 
-def load_other(root: str) -> dict:
-    """The wrappers of ``TARGETS`` of the checkout at ``root``, imported
-    beside this checkout's under their own module objects, with their
-    kernels built."""
-    import importlib
-    root = os.path.abspath(root)
+def _ours(name: str) -> bool:
+    return name == "llm_d_tpu_torch" or name.startswith("llm_d_tpu_torch.")
 
-    def ours(name):
-        return name == "llm_d_tpu_torch" or name.startswith("llm_d_tpu_torch.")
 
-    saved = {k: v for k, v in sys.modules.items() if ours(k)}
+@contextlib.contextmanager
+def swapped(modules: dict):
+    """``sys.modules`` holds ``modules`` in place of this checkout's
+    ``llm_d_tpu_torch`` modules inside the block, so imports made at call
+    time (``chip_smoke``'s, the engine's lazy ones) resolve to them."""
+    saved = {k: v for k, v in sys.modules.items() if _ours(k)}
     for k in saved:
         del sys.modules[k]
-    sys.path.insert(0, root)
+    sys.modules.update(modules)
     try:
-        importlib.import_module("llm_d_tpu_torch.ops._build").build_all()
-        fns = {}
-        for name, (mod, fn) in TARGETS.items():
-            m = importlib.import_module(f"llm_d_tpu_torch.ops.{mod}")
-            if not os.path.abspath(m.__file__).startswith(root + os.sep):
-                raise RuntimeError(f"{mod} loaded from {m.__file__}")
-            fns[name] = getattr(m, fn)
+        yield
     finally:
-        sys.path.remove(root)
-        for k in [k for k in sys.modules if ours(k)]:
+        for k in [k for k in sys.modules if _ours(k)]:
             del sys.modules[k]
         sys.modules.update(saved)
-    return fns
+
+
+def load_other(root: str):
+    """The checkout at ``root``: every module of its ``llm_d_tpu_torch``
+    imported beside this checkout's under their own module objects
+    (``{name: module}``, for ``swapped``), its kernels built, and its
+    wrappers of ``TARGETS``."""
+    import importlib
+    import pkgutil
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    try:
+        with swapped({}):
+            pkg = importlib.import_module("llm_d_tpu_torch")
+            for info in pkgutil.walk_packages(pkg.__path__,
+                                              "llm_d_tpu_torch."):
+                importlib.import_module(info.name)
+            modules = {k: v for k, v in sys.modules.items() if _ours(k)}
+    finally:
+        sys.path.remove(root)
+    for name, m in modules.items():
+        if not os.path.abspath(m.__file__).startswith(root + os.sep):
+            raise RuntimeError(f"{name} loaded from {m.__file__}")
+    with swapped(modules):
+        modules["llm_d_tpu_torch.ops._build"].build_all()
+    fns = {name: getattr(modules[f"llm_d_tpu_torch.ops.{mod}"], fn)
+           for name, (mod, fn) in TARGETS.items()}
+    return modules, fns
 
 
 def spread(xs) -> dict:
@@ -162,7 +184,7 @@ def main() -> int:
     from llm_d_tpu_torch.ops import moe as moe_ops
 
     _build.build_all()
-    other = load_other(sys.argv[1])
+    other_modules, other = load_other(sys.argv[1])
     mods = {n: importlib.import_module(f"llm_d_tpu_torch.ops.{m}")
             for n, (m, _) in TARGETS.items()}
 
@@ -173,31 +195,41 @@ def main() -> int:
             for n, (_, fn) in TARGETS.items()}
     rng = np.random.default_rng(0)
     vocab = engine.model_config.vocab_size
-    waves = {"wave1": (engine, cs.WAVE1), "wave2": (engine, cs.WAVE2),
-             "wave3": (engine, cs.WAVE3), GROUPED: (engine, cs.WAVE3)}
+    # Each wave's engine on each side: the other checkout's engines are
+    # built from its own modules, on this side's weights.
+    with swapped(other_modules):
+        other_engine = cs.path_i_engine(1, engine.params)
+    waves = {"wave1": cs.WAVE1, "wave2": cs.WAVE2, "wave3": cs.WAVE3,
+             GROUPED: cs.WAVE3}
+    engines = {"this": dict.fromkeys(waves, engine),
+               "other": dict.fromkeys(waves, other_engine)}
     prompts = {w: cs.prompts_for(rng, vocab, spec)
-               for w, (_, spec) in waves.items() if w != GROUPED}
+               for w, spec in waves.items() if w != GROUPED}
     prompts[GROUPED] = prompts["wave3"]
     for kv, gran in cs.DENSE_MODES:
         w = "llama3-1b " + (kv if gran is None else f"{kv}-{gran}")
         dense = cs.path_ii_engine(kv, gran)
-        waves[w] = (dense, cs.DENSE_WAVE)
+        with swapped(other_modules):
+            engines["other"][w] = cs.path_ii_engine(kv, gran,
+                                                    params=dense.params)
+        engines["this"][w] = dense
+        waves[w] = cs.DENSE_WAVE
         prompts[w] = cs.dense_prompts(dense.model_config.vocab_size)
+    fns = {"this": {n: r.fn for n, r in recs.items()}, "other": other}
 
-    def run(w, tag):
+    def run(side, w, tag):
         kernel = "grouped" if w == GROUPED else "streamed"
-        eng, spec = waves[w]
-        with cs.env_set("LLMD_MOE_PREFILL_KERNEL", kernel):
-            return cs.run_wave(eng, prompts[w], spec["new"], tag)
+        modules = (swapped(other_modules) if side == "other"
+                   else contextlib.nullcontext())
+        with cs.env_set("LLMD_MOE_PREFILL_KERNEL", kernel), modules:
+            return cs.run_wave(engines[side][w], prompts[w],
+                               waves[w]["new"], tag)
 
     with cs.bench_glue_recorder(moe_ops) as bench_glue:
         for w in waves:
-            run(w, f"rec-{w}")
-    fns = {"this": {n: r.fn for n, r in recs.items()}, "other": other}
-
-    def install(side):
-        for n, (_, fn) in TARGETS.items():
-            setattr(mods[n], fn, fns[side][n])
+            run("this", w, f"rec-{w}")
+    for n, (_, fn) in TARGETS.items():          # the recording is done
+        setattr(mods[n], fn, recs[n].fn)
 
     # 1. waves, in turns ----------------------------------------------------
     runs = {side: {w: {"prefill_seconds": [], "decode_tok_s": []}
@@ -206,13 +238,11 @@ def main() -> int:
     repeat = {side: True for side in fns}
     for i in range(ROUNDS):
         side = ORDER[i % len(ORDER)]
-        install(side)
         for w in waves:
-            tok, stats = run(w, f"{side}{i}-{w}")
+            tok, stats = run(side, w, f"{side}{i}-{w}")
             runs[side][w]["prefill_seconds"].append(stats["prefill_seconds"])
             runs[side][w]["decode_tok_s"].append(stats["decode_tok_s"])
             repeat[side] &= tokens[side].setdefault(w, tok) == tok
-    install("this")
     ab_waves = {side: {w: {m: spread(v) for m, v in ms.items()}
                        for w, ms in runs[side].items()} for side in fns}
     for side in fns:

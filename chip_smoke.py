@@ -71,21 +71,41 @@ Phases (each raises on failure; the script then exits non-zero):
             the full-softmax reference (atol = rtol = 2e-2); Gumbel noise
             of the threefry sampler drawn on the card for fixed seeds,
             gen_idx values and step keys, bit-equal to the same draw on
-            the CPU.
+            the CPU;
+7. server   (a) the port's OpenAI server (``ModelServer``) in this
+            process over path (i)'s engine, on a local socket, with a
+            tokenizer that writes each token id as decimal text: wave 1's
+            prompts as token-id lists one at a time (streamed and not in
+            turn), each reply the direct engine's tokens for that prompt
+            alone; then all eight at once, each ending by length with 32
+            tokens (the count equal to the direct wave's is reported).
+            Kernels A-E must launch in this run.  (b) With this process's
+            engines freed, ``python -m llm_d_tpu_torch.server.openai``
+            with bench.py's flags as a subprocess: readiness on
+            /v1/models, wave 3's shape as 64 concurrent requests (half
+            streamed: client-side TTFT, TPOT, decode tokens/s) twice, a
+            cold load (the process's first prefill and graph capture)
+            and a warm one, /metrics against what was served,
+            /admin/drain (readiness 503), then SIGTERM: exit code 0
+            within the drain time.
 
 Launch counts: every count is set to 0 just before a path is driven and
-read just after it; kernels A-F count path (i), G and H path (ii).  A
+read just after it; kernels A-F count path (i), G and H path (ii), and
+each row adds the in-process server's run (phase 7(a), also given as
+``server_launches``).  A
 count is the wrapper's own (eager launches, graph warm-ups included)
 plus the launches inside graph replays: a capture records each graph's
 launches, and every replay adds them (``engine/cuda_graph.py``); the
 ``kernels`` line gives the latter as ``graph_launches``.
 
-Output: a ``{"bounds": [...]}`` line (the bytes and flops each kernel's
-bound is derived from), a ``{"kernels": [...]}`` line (one row per kernel
-at its first launch: measured launches, errors and times, with
-``bound_ms``), a ``{"variants": [...]}`` line (the same fields for the
-other inputs of phase 4), an ``{"engine": ...}`` line, the card's name and
-power limit, and last ``{"ok": true, "device": ...}``.  The engine line
+Output, in this order: a ``{"bounds": [...]}`` line (the bytes and flops
+each kernel's bound is derived from), a ``{"variants": [...]}`` line (the
+fields of the kernels line for the other inputs of phase 4), an
+``{"engine": ...}`` line, a ``{"server": ...}`` line (phase 7, with the
+card's name and power limit), a ``{"kernels": [...]}`` line (one row per
+kernel at its first launch: measured launches, errors and times, with
+``bound_ms``), the card's name and power limit, and last ``{"ok": true,
+"device": ...}``.  The engine line
 holds the classic-against-multistep rounds, the graph checks and the
 graphs' shared pool (``pool_bytes``, device memory the captures
 reserved).  A kernel's ``ms``
@@ -128,6 +148,14 @@ BENCH_K = 32                                 # bench.py's num_scheduler_steps
 ROUNDS = 5                                   # classic vs multistep, a side
 WAVE2_S = 128                                # wave 2's sequence bucket
 DENSE_MODES = (("bf16", None), ("int8", "token"), ("int8", "head"))
+# Phase 7(b): the server entry point with path (i)'s configuration
+# (bench.py:156-173), and its drain bound.
+SERVER_FLAGS = ["--model", "deepseek-v3-bench", "--quantization", "int8",
+                "--kv-cache-dtype", "int8", "--block-size", "64",
+                "--num-blocks", "576", "--max-num-seqs", "128",
+                "--max-num-batched-tokens", str(BENCH_T),
+                "--num-scheduler-steps", str(BENCH_K), "--async-scheduling"]
+DRAIN_S = 30
 
 
 def log(msg: str) -> None:
@@ -984,6 +1012,325 @@ def noise_on_the_card() -> dict:
     return dict(rows=rows, values_per_row=64, bit_equal=True)
 
 
+class DecimalTokenizer:
+    """Decodes each id as its decimal text and a space (so a reply's text
+    carries its token ids, and the text of a prefix is a prefix of the
+    text); no special tokens."""
+    bos_token_id = eos_token_id = pad_token_id = None
+
+    def encode(self, text: str, add_bos: bool = True):
+        return [int(t) for t in text.split()]
+
+    def decode(self, ids) -> str:
+        return "".join(f"{i} " for i in ids)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_call(url: str, path: str, body=None, timeout: float = 600.0):
+    """``(status, headers, reply)`` of one call (a POST when ``body`` is
+    given); a JSON reply is parsed, any other is text.  ``headers`` look
+    names up without regard to case."""
+    import urllib.error
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(
+        url + path, data=data,
+        headers={"Content-Type": "application/json"} if data else {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, headers, raw = r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        status, headers, raw = e.code, e.headers, e.read()
+    if headers.get("Content-Type", "").startswith("application/json"):
+        return status, headers, json.loads(raw)
+    return status, headers, raw.decode()
+
+
+def completion(url: str, body: dict, timeout: float = 600.0) -> dict:
+    """One /v1/completions call, streamed or not: its token count (from
+    the usage block of a whole reply), its token ids (a stream's from each
+    chunk's ``llmd`` meta; a whole reply's from its text, read as the
+    ``DecimalTokenizer`` writes it, when the server uses that tokenizer),
+    finish reason, and client-side clock readings (``perf_counter``) at
+    the send, the first and the last token chunk, and the end."""
+    import urllib.request
+    t_send = time.perf_counter()
+    if not body.get("stream"):
+        status, _, reply = http_call(url, "/v1/completions", body, timeout)
+        if status != 200:
+            raise RuntimeError(f"completion: HTTP {status}: {reply}")
+        choice = reply["choices"][0]
+        words = choice["text"].split()
+        return dict(n=reply["usage"]["completion_tokens"],
+                    tokens=([int(t) for t in words]
+                            if all(w.isdigit() for w in words) else None),
+                    finish=choice["finish_reason"], t_send=t_send,
+                    t_first=None, t_last=None, t_end=time.perf_counter())
+    req = urllib.request.Request(
+        url + "/v1/completions", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    tokens, finish, t_first, t_last, done = [], None, None, None, False
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        for line in r:
+            if not line.startswith(b"data: "):
+                continue
+            data = line[len(b"data: "):].strip()
+            if data == b"[DONE]":
+                done = True
+                break
+            chunk = json.loads(data)
+            now = time.perf_counter()
+            if chunk["llmd"]["tok"]:
+                t_first = t_first or now
+                t_last = now
+            tokens += chunk["llmd"]["tok"]
+            finish = chunk["choices"][0]["finish_reason"] or finish
+    if not done:
+        raise RuntimeError("completion: the stream ended before [DONE]")
+    return dict(n=len(tokens), tokens=tokens, finish=finish, t_send=t_send,
+                t_first=t_first, t_last=t_last, t_end=time.perf_counter())
+
+
+def concurrently(url: str, bodies) -> list:
+    """``completion`` of every body at once, one thread each."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(bodies)) as ex:
+        return list(ex.map(lambda b: completion(url, b), bodies))
+
+
+def serve_in_thread(server):
+    """Start ``server`` (a ``ModelServer``) on a local socket, on an event
+    loop in its own thread; returns ``(url, close)``."""
+    import asyncio
+    import threading
+    loop = asyncio.new_event_loop()
+    app = server.build_app()
+    box = {}
+    ready = threading.Event()
+
+    def run():
+        asyncio.set_event_loop(loop)
+        try:
+            box["port"] = loop.run_until_complete(app.start("127.0.0.1", 0))
+        except BaseException as e:            # reported to the caller
+            box["error"] = e
+            ready.set()
+            return
+        ready.set()
+        loop.run_forever()
+
+    thread = threading.Thread(target=run, name="smoke-server", daemon=True)
+    thread.start()
+    if not ready.wait(120) or "error" in box:
+        raise RuntimeError(f"the in-process server did not start: "
+                           f"{box.get('error')}")
+
+    def close():
+        asyncio.run_coroutine_threadsafe(app.close(), loop).result(120)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(60)
+        if thread.is_alive():
+            raise RuntimeError("the in-process server did not stop")
+
+    return f"http://127.0.0.1:{box['port']}", close
+
+
+def greedy_body(prompt, max_new: int, stream: bool) -> dict:
+    return dict(prompt=prompt, max_tokens=max_new, temperature=0.0,
+                ignore_eos=True, stream=stream)
+
+
+def server_in_process(engine, prompts, max_new: int, alone, together):
+    """Phase 7(a): ``ModelServer`` over ``engine`` (path (i)'s, already
+    served and captured), the ``DecimalTokenizer`` as its tokenizer.
+    ``prompts`` one at a time, streamed and not in turn: each reply must
+    hold ``alone`` (the direct engine's tokens for that prompt alone);
+    then all at once: each must end by length with ``max_new`` tokens,
+    and the count of tokens equal to ``together`` (the direct engine's
+    wave) is reported."""
+    from llm_d_tpu_torch.server.openai import ModelServer
+    server = ModelServer(engine, DecimalTokenizer(), "deepseek-v3-bench")
+    url, close = serve_in_thread(server)
+    try:
+        got = [completion(url, greedy_body(p, max_new, bool(i % 2)))
+               for i, p in enumerate(prompts)]
+        bad = [i for i, (g, want) in enumerate(zip(got, alone))
+               if g["tokens"] != want or g["finish"] != "length"]
+        if bad:
+            raise RuntimeError(f"server replies {bad} differ from the "
+                               f"direct engine's tokens")
+        conc = concurrently(url, [greedy_body(p, max_new, bool(i % 2))
+                                  for i, p in enumerate(prompts)])
+        for i, r in enumerate(conc):
+            if r["finish"] != "length" or r["tokens"] is None \
+                    or len(r["tokens"]) != max_new:
+                raise RuntimeError(f"concurrent request {i}: {r['n']} "
+                                   f"tokens, finish {r['finish']}")
+        agree = sum(a == b for r, want in zip(conc, together)
+                    for a, b in zip(r["tokens"], want))
+        if server.async_engine.dead is not None:
+            raise RuntimeError("the engine thread died") \
+                from server.async_engine.dead
+    finally:
+        close()
+    return dict(one_at_a_time=len(got), identical=True,
+                concurrent=len(conc),
+                concurrent_tokens_equal_to_the_wave=agree,
+                concurrent_tokens=max_new * len(conc))
+
+
+def scrape(url: str) -> dict:
+    from llm_d_tpu_torch.utils.metrics import parse_prometheus_text
+    status, _, text = http_call(url, "/metrics", timeout=60)
+    if status != 200:
+        raise RuntimeError(f"/metrics: HTTP {status}")
+    return parse_prometheus_text(text)
+
+
+def server_subprocess(root: str, vocab: int) -> dict:
+    """Phase 7(b): ``python -m llm_d_tpu_torch.server.openai`` with the
+    bench flags on a free port (its log in build/server.log, whose end is
+    written to stderr if the phase fails).  Wave
+    3's shape as concurrent requests (half streamed), a cold load and then
+    a warm one, each with client-side TTFT, TPOT and decode tokens/s;
+    ``/metrics`` against what was served (and scraped every 50 ms during
+    the loads), then ``/admin/drain``, readiness 503, and SIGTERM: the
+    process must exit 0 within the drain time."""
+    import signal
+    import threading
+    import numpy as np
+    from llm_d_tpu_torch.utils.lifecycle import DRAINING_HEADER
+    port = free_port()
+    url = f"http://127.0.0.1:{port}"
+    log_path = os.path.join(root, "build", "server.log")
+    os.makedirs(os.path.dirname(log_path), exist_ok=True)
+    cmd = [sys.executable, "-m", "llm_d_tpu_torch.server.openai",
+           *SERVER_FLAGS, "--host", "127.0.0.1", "--port", str(port)]
+    env = dict(os.environ, LLMD_DRAIN_TIMEOUT_S=str(DRAIN_S))
+    t0 = time.perf_counter()
+    with open(log_path, "wb") as log_f:
+        proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=log_f,
+                                stderr=subprocess.STDOUT)
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise RuntimeError(f"the server exited with {proc.returncode}"
+                                   f" before it was ready")
+            if time.perf_counter() - t0 > 300:
+                raise RuntimeError("the server was not ready in 300 s")
+            try:
+                if http_call(url, "/v1/models", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                pass
+            time.sleep(0.1)
+        startup_s = time.perf_counter() - t0
+        rng = np.random.default_rng(5)
+        n, new = WAVE3["n"], WAVE3["new"]
+        peak = dict(running=0.0, waiting=0.0, kv_usage=0.0)
+        stop = threading.Event()
+
+        def watch():
+            while not stop.wait(0.05):
+                m = scrape(url)
+                peak["running"] = max(peak["running"],
+                                      m["vllm:num_requests_running"])
+                peak["waiting"] = max(peak["waiting"],
+                                      m["vllm:num_requests_waiting"])
+                peak["kv_usage"] = max(peak["kv_usage"],
+                                       m["vllm:kv_cache_usage_perc"])
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        loads = {}
+        try:
+            # The cold load meets the process's first prefill step and
+            # captures the decode graph; the warm one is the steady state.
+            for name in ("cold", "warm"):
+                bodies = [greedy_body(
+                    rng.integers(1, vocab, WAVE3["prompt"]).tolist(), new,
+                    i % 2 == 0) for i in range(n)]
+                loads[name] = load_stats(concurrently(url, bodies), new,
+                                         vocab)
+        finally:
+            stop.set()
+            watcher.join(30)
+        n *= len(loads)
+        m = scrape(url)
+        model = SERVER_FLAGS[SERVER_FLAGS.index("--model") + 1]
+        lab = f'{{model_name="{model}"}}'
+        counts = dict(
+            generation_tokens=m["vllm:generation_tokens_total" + lab],
+            request_success=m['vllm:request_success_total{finished_reason='
+                              f'"length",model_name="{model}"}}'],
+            ttft_count=m["vllm:time_to_first_token_seconds_count" + lab],
+            itl_count=m["vllm:inter_token_latency_seconds_count" + lab],
+            running=m["vllm:num_requests_running" + lab],
+            waiting=m["vllm:num_requests_waiting" + lab],
+            kv_usage=m["vllm:kv_cache_usage_perc" + lab])
+        want = dict(generation_tokens=n * new, request_success=n,
+                    ttft_count=n, running=0, waiting=0, kv_usage=0)
+        wrong = {k: (counts[k], v) for k, v in want.items()
+                 if counts[k] != v}
+        if wrong or not n <= counts["itl_count"] <= n * (new - 1):
+            raise RuntimeError(f"/metrics disagrees with what was served "
+                               f"(got, want): {wrong}, itl_count "
+                               f"{counts['itl_count']}")
+        if not (0 < peak["running"] <= n and peak["kv_usage"] > 0):
+            raise RuntimeError(f"load gauges during the load: {peak}")
+        status, _, reply = http_call(url, "/admin/drain", {})
+        if status != 200 or reply.get("status") != "draining":
+            raise RuntimeError(f"/admin/drain: HTTP {status}: {reply}")
+        status, headers, _ = http_call(url, "/v1/models")
+        if status != 503 or headers.get(DRAINING_HEADER) != "1":
+            raise RuntimeError(f"/v1/models while draining: HTTP {status}")
+        t_term = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=DRAIN_S + 60)
+        exit_s = time.perf_counter() - t_term
+        if rc != 0 or exit_s > DRAIN_S:
+            raise RuntimeError(f"after SIGTERM the server exited with {rc} "
+                               f"in {exit_s:.1f} s")
+    except BaseException:
+        with open(log_path, "rb") as log_f:
+            sys.stderr.write(log_f.read()[-8000:].decode(errors="replace"))
+        raise
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    return dict(startup_s=startup_s, requests=n, new_tokens=new, **loads,
+                metrics=counts, load_peak=peak, drain_exit_code=rc,
+                exit_s=exit_s)
+
+
+def load_stats(res, new: int, vocab: int) -> dict:
+    """Client-side figures of one concurrent load (``completion`` results,
+    ``new`` tokens each): TTFT and TPOT of the streamed requests, and
+    decode tokens/s from the last first token to the last reply."""
+    for i, r in enumerate(res):
+        if r["finish"] != "length" or r["n"] != new or not all(
+                0 <= t < vocab for t in r["tokens"] or ()):
+            raise RuntimeError(f"request {i}: {r['n']} tokens, finish "
+                               f"{r['finish']}")
+    streamed = [r for r in res if r["t_first"] is not None]
+    t_decode = (max(r["t_end"] for r in res)
+                - max(r["t_first"] for r in streamed))
+    return dict(
+        streamed=len(streamed),
+        ttft_s=spread([r["t_first"] - r["t_send"] for r in streamed]),
+        tpot_s=spread([(r["t_last"] - r["t_first"]) / (new - 1)
+                       for r in streamed]),
+        decode_tok_s=len(res) * (new - 1) / t_decode,
+        decode_seconds=t_decode)
+
+
 @contextlib.contextmanager
 def env_set(name: str, value: str):
     """Sets environment variable ``name`` inside the block."""
@@ -1274,7 +1621,7 @@ def main() -> int:
     # 4. kernels against their plain versions --------------------------------
     rows, variants, bounds = [], [], []
 
-    def check(k, label, args, kw, count: bool):
+    def check(k, label, args, kw, count: bool, library: bool = False):
         fn, plain = recorders[k["name"]].fn, getattr(k["mod"], k["plain"])
         a_k, kw_k = clone(args, weights), clone(kw, weights)
         a_p, kw_p = clone(args, weights), clone(kw, weights)
@@ -1317,7 +1664,8 @@ def main() -> int:
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=None)
-        if count and k["name"] in ("paged_decode", "flash_prefill") \
+        if (count or library) and k["name"] in ("paged_decode",
+                                                "flash_prefill") \
                 and kw.get("k_scale") is None:
             row["library_ms"] = sdpa_ms(k["name"], a_k, kw_k)
         if count:
@@ -1429,11 +1777,11 @@ def main() -> int:
         check(dense_decode, label,
               *dense_decode_inputs(sw, 256, [5, 256, 300, 769, 1, 0],
                                    seed=20 + sw, D=128, scale=0.09),
-              count=False)
+              count=False, library=True)
         check(dense_prefill, label,
               *dense_prefill_inputs(sw, 256, [300, 256, 600, 0],
                                     [300, 44, 72, 0], seed=30 + sw),
-              count=False)
+              count=False, library=True)
         parity["dense_pages"].append(label)
     parity["llama3-8b"] = dense_large_page_reference(
         [(paged_attention, "paged_attention_decode_update"),
@@ -1450,6 +1798,49 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
+
+    # 7. the server ----------------------------------------------------------
+    # (a) In process, over path (i)'s engine: the direct engine's tokens
+    # for each wave-1 prompt alone first (not the server's run), then the
+    # server's run, its launches counted from 0.
+    alone = [run_wave(engine, [p], WAVE1["new"], f"alone{i}")[0][0]
+             for i, p in enumerate(p1)]
+    for k in kernels:
+        getattr(k["mod"], k["fn"]).launches = 0
+    replayed0 = dict(engine._graphs.launches)
+    server = {"card": smi}
+    server["in_process"] = server_in_process(engine, p1, WAVE1["new"],
+                                             alone, tok1)
+    in_graphs = {k["name"]: engine._graphs.launches[k["fn"]]
+                 - replayed0[k["fn"]] for k in kernels}
+    server_counts = {k["name"]: getattr(k["mod"], k["fn"]).launches
+                     + in_graphs[k["name"]] for k in kernels}
+    log(f"server (in process): {json.dumps(server['in_process'])}, "
+        f"launches {json.dumps(server_counts)}, inside graph replays "
+        f"{json.dumps(in_graphs)}")
+    missing = [n for n in ("mla_decode", "mla_prefill", "moe_dense_int8",
+                           "moe_routed_int8", "moe_streamed_int8")
+               if server_counts[n] == 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched by the server: {missing}")
+    for row in rows:
+        row["server_launches"] = server_counts[row["name"]]
+        row["launches"] += server_counts[row["name"]]
+        row["graph_launches"] += in_graphs[row["name"]]
+    # (b) The entry point as a subprocess, with this process's engines and
+    # recorded inputs freed first.
+    del engine, params, quant, recorders, rec, bench_glue, llama_params2, \
+        decode, dense_decode, dense_prefill, streamed, first, args, kw, \
+        x, w, idx, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"server: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still "
+        f"allocated in this process")
+    server["entry_point"] = server_subprocess(root, vocab)
+    # The direct engine's steady wave 3 in the same call (the rounds).
+    server["direct_engine_wave3_decode_tok_s"] = \
+        rounds_i["wave3"]["multistep"]["decode_tok_s"]
+    log(f"server (entry point): {json.dumps(server['entry_point'])}")
     # The bound's inputs, derived from the recorded launches (not timed).
     print(json.dumps({"bounds": bounds}))
     print(json.dumps({"variants": variants}))
@@ -1460,6 +1851,7 @@ def main() -> int:
         "graphs": graphs_info, "reference": refs}}))
     if prof is not None:
         print(json.dumps({"profile": prof}))
+    print(json.dumps({"server": server}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

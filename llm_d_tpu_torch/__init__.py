@@ -7,3 +7,5 @@ under ``csrc/``, built with ``nvcc`` on first use (``ops/_build.py``);
 each kernel's module also holds a plain PyTorch version of the same
 function, which runs for CPU tensors and is what the kernels are held to.
 """
+
+__version__ = "0.1.0"

@@ -14,9 +14,14 @@ current one is retired.  On the card each block is one replay of a
 captured CUDA graph (``engine/cuda_graph.py``); on the CPU its body runs
 eagerly.
 
+``self.metrics`` (``utils/metrics.EngineMetrics``) is updated at the JAX
+engine's points with the same counts, from host-side state only: after
+the host fetch a classic step or a block's retire already makes, never
+inside a step or a captured graph.
+
 Not ported yet (later slices): the fused multistep pipeline and
 speculative decode, fused mixed rounds, EPLB, KV offload, the KV
-connector, metrics and tracing.
+connector and tracing.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from llm_d_tpu_torch.ops.quant import (
     kv_scale_width, quantize_moe_experts)
 from llm_d_tpu_torch.utils.config import env_choice
 from llm_d_tpu_torch.utils.device import resolve_device
+from llm_d_tpu_torch.utils.metrics import EngineMetrics
 
 
 def _next_bucket(n: int, lo: int, hi: int) -> int:
@@ -205,6 +211,9 @@ class EngineCore:
                         if config.num_scheduler_steps > 1
                         and self.device.type == "cuda" else None)
         self._rejected: List[RequestOutput] = []
+        self.metrics = EngineMetrics(c.name)
+        self._last_evictions = 0
+        self._last_preemptions = 0
         self.eos_token_id: Optional[int] = None
         # Optional tokenizer enables engine-side stop-string detection.
         self.tokenizer = None
@@ -226,7 +235,8 @@ class EngineCore:
         self.scheduler.abort_request(request_id)
 
     def has_work(self) -> bool:
-        return self.scheduler.has_work() or bool(self._rejected)
+        return (self.scheduler.has_work() or bool(self._rejected)
+                or self._inflight is not None)
 
     # ---------- batch building ----------
 
@@ -464,6 +474,7 @@ class EngineCore:
             host, done = self._graphs.replay(g)
             rec.update(ids_dev=g.ids, ids_host=host, done=done)
         self._dispatch_count += 1
+        self.metrics.engine_dispatches.inc()
         return rec
 
     def _ms_retire(self, inflight: Dict[str, Any]) -> List[RequestOutput]:
@@ -474,6 +485,7 @@ class EngineCore:
             inflight["done"].synchronize()
         ids_ks = inflight["ids_host"].numpy()
         self._step_count += K
+        self.metrics.engine_steps.inc(K)
         outputs: List[RequestOutput] = []
         now = time.monotonic()
         for s, sr in zip(inflight["rows"], scheduled):
@@ -496,6 +508,10 @@ class EngineCore:
                     break
             # Tokens past a stop are discarded; their KV writes live in
             # already-allocated blocks and are freed with the request.
+            self.metrics.generation_tokens.inc(len(new_tokens))
+            if req.last_token_time is not None:
+                self.metrics.inter_token_latency.observe(
+                    (now - req.last_token_time) / max(1, len(new_tokens)))
             req.last_token_time = now
             self.kv_manager.cache_full_blocks(req)
             outputs.append(RequestOutput(
@@ -503,6 +519,8 @@ class EngineCore:
                 finish_reason=finish))
             if finish is not None:
                 self.scheduler.finish(req, RequestState(finish))
+                self._count_success(req, finish, now)
+        self._update_queue_metrics()
         return outputs
 
     def _ms_try_extend(self, inflight: Dict[str, Any]
@@ -598,10 +616,20 @@ class EngineCore:
             self._inflight = nxt
             return outputs
         sched = self.scheduler.schedule()
+        sched_now = time.monotonic()
+        for sr in sched.scheduled:
+            if sr.is_first_schedule and not sr.request.queue_wait_observed:
+                sr.request.queue_wait_observed = True
+                self.metrics.observe_queue_wait(
+                    sr.request.criticality,
+                    max(0.0, sched_now - sr.request.arrival_time))
         for req in sched.preempted:      # requests finished by the scheduler
+            if req.state is RequestState.FINISHED_DEADLINE:
+                self.metrics.inc_deadline_exceeded(req.criticality)
             outputs.append(RequestOutput(
                 req.request_id, [], True, finish_reason=req.state.value))
         if sched.empty:
+            self._update_queue_metrics()
             return outputs
 
         K = self._try_multistep(sched)
@@ -639,6 +667,8 @@ class EngineCore:
         fetched = [t.cpu() for t in fetch]
         self._dispatch_count += 1
         self._step_count += 1
+        self.metrics.engine_dispatches.inc()
+        self.metrics.engine_steps.inc()
         ids_h = fetched[0].numpy()
         logprobs = fetched[1].numpy() if want_lp else None
         top = ((fetched[2].numpy(), fetched[3].numpy())
@@ -652,11 +682,23 @@ class EngineCore:
             if req.num_computed_tokens != req.num_tokens:
                 continue                  # mid-prefill chunk: no sampling yet
             if req.num_computed_tokens <= req.num_prompt_tokens:
+                # Prefill just completed.
+                self.metrics.prompt_tokens.inc(req.num_prompt_tokens)
+                if req.num_cached_prompt_tokens:
+                    self.metrics.prefix_cache_hits.inc(
+                        req.num_cached_prompt_tokens)
+                self.metrics.prefix_cache_queries.inc(req.num_prompt_tokens)
                 if req.first_token_time is None:
                     req.first_token_time = now
+                    self.metrics.time_to_first_token.observe(
+                        now - req.arrival_time)
+            elif req.last_token_time is not None:
+                self.metrics.inter_token_latency.observe(
+                    now - req.last_token_time)
             req.last_token_time = now
             token = int(ids_h[s])
             req.output_token_ids.append(token)
+            self.metrics.generation_tokens.inc()
             finish = self._check_stop(req, token)
             top_lp = None
             if top is not None and (req.sampling.logprobs or 0) > 0:
@@ -671,7 +713,33 @@ class EngineCore:
                 top_logprobs=top_lp))
             if finish is not None:
                 self.scheduler.finish(req, RequestState(finish))
+                self._count_success(req, finish, now)
+        # Step composition, from scheduler metadata.
+        if sched.prefill_tokens:
+            self.metrics.step_prefill_tokens.inc(sched.prefill_tokens)
+        if sched.decode_tokens:
+            self.metrics.step_decode_tokens.inc(sched.decode_tokens)
+        self._update_queue_metrics()
         return outputs
+
+    def _count_success(self, req: Request, finish: str, now: float) -> None:
+        self.metrics.request_success.labels(
+            model_name=self.metrics.model_name,
+            finished_reason=finish).inc()
+        self.metrics.e2e_request_latency.observe(now - req.arrival_time)
+
+    def _update_queue_metrics(self) -> None:
+        self.metrics.num_requests_waiting.set(self.scheduler.num_waiting)
+        self.metrics.num_requests_running.set(self.scheduler.num_running)
+        self.metrics.kv_cache_usage_perc.set(self.kv_manager.usage)
+        if self.kv_manager.eviction_count > self._last_evictions:
+            self.metrics.kv_cache_evictions.inc(
+                self.kv_manager.eviction_count - self._last_evictions)
+            self._last_evictions = self.kv_manager.eviction_count
+        if self.scheduler.num_preemptions > self._last_preemptions:
+            self.metrics.preemptions.inc(
+                self.scheduler.num_preemptions - self._last_preemptions)
+            self._last_preemptions = self.scheduler.num_preemptions
 
     def _check_stop(self, req: Request, token: int) -> Optional[str]:
         sp = req.sampling

@@ -8,11 +8,7 @@ import time
 from typing import Any, Dict, List, Optional
 
 from llm_d_tpu_torch.ops.sampling import SamplingParams
-
-# SLO classes as priority tiers (the JAX package keeps this table in
-# utils/lifecycle.py beside the header contract the port does not serve
-# yet).
-CRITICALITY_TIERS = {"critical": -1, "standard": 0, "sheddable": 1}
+from llm_d_tpu_torch.utils.lifecycle import CRITICALITY_TIERS
 
 
 class RequestState(enum.Enum):

@@ -1,0 +1,658 @@
+"""OpenAI-compatible model server over the port's engine (port of
+``llm_d_tpu.server.openai``).
+
+    python -m llm_d_tpu_torch.server.openai --model deepseek-v3-bench \\
+        --quantization int8 --kv-cache-dtype int8 --block-size 64 \\
+        --num-blocks 576 --max-num-seqs 128 --max-num-batched-tokens 8192 \\
+        --num-scheduler-steps 32 --async-scheduling
+
+serves on the first CUDA card (``--device cpu`` must be asked for).  The
+paths, status codes, JSON keys, SSE framing, headers and metrics are the
+JAX server's, so the gateway, the EPP and the monitoring stack see one
+surface:
+
+  GET  /health          -> 200 as soon as the process is up (liveness)
+  GET  /v1/models       -> 200 once the model is loaded (readiness); 503
+                           with x-llmd-draining while draining
+  GET  /metrics         -> Prometheus text, ``vllm:*`` taxonomy
+  GET  /version, POST /tokenize
+  POST /v1/completions, /v1/chat/completions (+SSE streaming)
+  POST /admin/drain     -> readiness down, in-flight requests complete;
+                           SIGTERM drains too, then the process exits
+
+The HTTP layer is the standard library's (``server/http_server.py``):
+the card machine has no aiohttp.
+
+Not served yet (each refused with a status and a message naming it, not
+quietly dropped): ``logprobs``, ``kv_transfer_params`` (PD
+disaggregation), mid-stream ``resume``, ``/debug/traces``, and the CLI
+flags of multi-device serving, KV offload, DBO, EPLB, spec decode, the
+KV connector and KV events (``UNSERVED_FLAGS``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import contextlib
+import json
+import logging
+import signal
+import time
+import uuid as uuid_mod
+from typing import Any, Dict, List, Optional
+
+from llm_d_tpu_torch.engine.async_engine import AsyncEngine
+from llm_d_tpu_torch.engine.engine import EngineConfig, EngineCore
+from llm_d_tpu_torch.engine.request import Request, RequestOutput
+from llm_d_tpu_torch.ops.sampling import SamplingParams
+from llm_d_tpu_torch.server.http_server import (
+    HTTPServer, Response, json_response, text_response)
+from llm_d_tpu_torch.server.http_server import Request as HTTPRequest
+from llm_d_tpu_torch.utils.config import env_float, env_int
+from llm_d_tpu_torch.utils.lifecycle import (
+    DEADLINE_EXCEEDED_HEADER,
+    DRAINING_HEADER,
+    REQUEST_ID_HEADER,
+    RESUME_OFFSET_HEADER,
+    SCHED_DEPTH_HEADER,
+    parse_criticality,
+    parse_deadline,
+)
+from llm_d_tpu_torch.utils.tokenizer import get_tokenizer
+
+logger = logging.getLogger(__name__)
+
+# The ``llmd`` key of every SSE chunk: the completion-token offset and ids
+# of the chunk's new tokens (the relays' journal and the load generator's
+# continuity check read it; OpenAI clients ignore it).
+CHUNK_META_KEY = "llmd"
+
+
+def _sampling_from_body(body: Dict[str, Any]) -> SamplingParams:
+    return SamplingParams(
+        temperature=float(body.get("temperature", 1.0)),
+        top_p=float(body.get("top_p", 1.0)),
+        top_k=int(body.get("top_k", 0)),
+        max_tokens=int(body.get("max_tokens", body.get("max_completion_tokens", 16))),
+        min_tokens=int(body.get("min_tokens", 0)),
+        stop=tuple(body.get("stop") or ()),
+        seed=body.get("seed"),
+        ignore_eos=bool(body.get("ignore_eos", False)),
+    )
+
+
+def _unported(body: Dict[str, Any], headers: Dict[str, str]) -> Optional[str]:
+    """What a request asks for that this server does not serve, or None."""
+    if body.get("logprobs") not in (None, False) or body.get("top_logprobs"):
+        return "logprobs: device logprobs are not ported"
+    if body.get("kv_transfer_params"):
+        return ("kv_transfer_params: PD disaggregation needs the KV "
+                "connector, which is not ported")
+    if body.get("resume") or RESUME_OFFSET_HEADER in headers:
+        return "resume: mid-stream resume (stream_resume) is not ported"
+    return None
+
+
+class ModelServer:
+    def __init__(self, engine: EngineCore, tokenizer, model_name: str) -> None:
+        self.engine = engine
+        self.async_engine = AsyncEngine(engine)
+        self.tokenizer = tokenizer
+        self.model_name = model_name
+        self.model_loaded = False
+        self.started_at = time.time()
+        self.app: Optional[HTTPServer] = None
+        # --- lifecycle ---
+        # draining: readiness is down and new inference is refused (503)
+        # while in-flight requests complete, bounded by drain_timeout_s;
+        # stragglers past the bound are aborted.
+        self.draining = False
+        self._inflight = 0
+        self._drain_task: Optional[asyncio.Task] = None
+        self._exit_after_drain = False
+        self.drain_timeout_s = env_float("LLMD_DRAIN_TIMEOUT_S", 30.0)
+        # Default latency budget applied when the client sends none
+        # (0 = no default).
+        self.deadline_default_ms = env_int("LLMD_DEADLINE_DEFAULT_MS", 0)
+        if tokenizer.eos_token_id is not None:
+            engine.eos_token_id = tokenizer.eos_token_id
+        # Engine-side stop-string detection (finish_reason="stop" without
+        # decoding to max_tokens first).
+        engine.tokenizer = tokenizer
+
+    # ---------- app ----------
+
+    def build_app(self) -> HTTPServer:
+        self.app = HTTPServer({
+            ("GET", "/health"): self.health,
+            ("GET", "/v1/models"): self.models,
+            ("GET", "/metrics"): self.metrics,
+            ("GET", "/debug/traces"): self.debug_traces,
+            ("GET", "/version"): self.version,
+            ("POST", "/v1/completions"): self.completions,
+            ("POST", "/v1/chat/completions"): self.chat_completions,
+            ("POST", "/tokenize"): self.tokenize,
+            ("POST", "/admin/drain"): self.admin_drain,
+        }, on_startup=[self._on_startup], on_cleanup=[self._on_cleanup])
+        return self.app
+
+    async def serve(self, host: str, port: int) -> None:
+        """Serve until stopped (SIGTERM after its drain, or SIGINT)."""
+        app = self.build_app()
+        bound = await app.start(host, port)
+        logger.info("serving %s on %s:%d", self.model_name, host, bound)
+        try:
+            await app.wait_stopped()
+        finally:
+            await app.close()
+
+    async def _on_startup(self) -> None:
+        await self.async_engine.start()
+        self.model_loaded = True
+        try:
+            # Rolling restarts: SIGTERM flips to draining instead of
+            # dropping work; after the bounded drain the server stops.
+            # Only installable on the main thread's loop: embedded and
+            # test servers skip it.
+            asyncio.get_running_loop().add_signal_handler(
+                signal.SIGTERM, self._on_sigterm)
+        except (NotImplementedError, RuntimeError, ValueError):
+            pass
+
+    async def _on_cleanup(self) -> None:
+        self.async_engine.stop()
+
+    # ---------- probes / meta ----------
+
+    async def health(self, request: HTTPRequest) -> Response:
+        if self.async_engine.dead is not None:
+            return text_response("engine dead", status=500)
+        return text_response("ok")
+
+    async def models(self, request: HTTPRequest) -> Response:
+        if not self.model_loaded:
+            return json_response({"error": "model loading"}, status=503)
+        if self.draining:
+            return json_response(
+                {"error": "draining"}, status=503,
+                headers={DRAINING_HEADER: "1"})
+        return json_response({
+            "object": "list",
+            "data": [{"id": self.model_name, "object": "model",
+                      "created": int(self.started_at), "owned_by": "llm-d-tpu"}],
+        })
+
+    async def metrics(self, request: HTTPRequest) -> Response:
+        return Response(self.engine.metrics.render())
+
+    async def debug_traces(self, request: HTTPRequest) -> Response:
+        return json_response(
+            {"error": "/debug/traces: the tracer is not ported"}, status=501)
+
+    async def version(self, request: HTTPRequest) -> Response:
+        from llm_d_tpu_torch import __version__
+        return json_response({"version": __version__})
+
+    async def tokenize(self, request: HTTPRequest) -> Response:
+        try:
+            body = request.json()
+        except ValueError:
+            return json_response({"error": "invalid json"}, status=400)
+        ids = self.tokenizer.encode(body.get("prompt", ""))
+        return json_response({"tokens": ids, "count": len(ids)})
+
+    # ---------- drain (graceful restart protocol) ----------
+
+    async def admin_drain(self, request: HTTPRequest) -> Response:
+        """Flip this replica to draining: readiness goes 503, new inference
+        is refused, in-flight requests complete up to ``drain_timeout_s``,
+        then stragglers are aborted.  Idempotent."""
+        self._begin_drain()
+        return json_response({
+            "status": "draining",
+            "inflight": self._inflight,
+            "timeout_s": self.drain_timeout_s,
+        })
+
+    def _on_sigterm(self) -> None:
+        logger.info("SIGTERM: draining (timeout %.1fs)", self.drain_timeout_s)
+        self._begin_drain(exit_after=True)
+
+    def _begin_drain(self, exit_after: bool = False) -> None:
+        if not self.draining:
+            self.draining = True
+            self.engine.metrics.drain_state.set(1)
+            self.engine.metrics.drain_inflight.set(self._inflight)
+            self._drain_task = asyncio.get_running_loop().create_task(
+                self._drain_loop())
+        if exit_after and not self._exit_after_drain \
+                and self._drain_task is not None:
+            # SIGTERM may land after /admin/drain already started the
+            # drain: attach the stop to the running drain.
+            self._exit_after_drain = True
+            self._drain_task.add_done_callback(lambda _t: self.app.stop())
+
+    async def _drain_loop(self) -> None:
+        bound = time.monotonic() + self.drain_timeout_s
+        m = self.engine.metrics
+        while time.monotonic() < bound:
+            m.drain_inflight.set(self._inflight)
+            if self._inflight == 0 and not self.engine.has_work():
+                break
+            await asyncio.sleep(0.05)
+        # Bounded drain: abort stragglers.
+        stragglers = list(self.async_engine._streams)
+        for rid in stragglers:
+            logger.warning("drain timeout: aborting in-flight request %s",
+                           rid)
+            self.async_engine.abort(rid, notify=True)
+        m.drain_inflight.set(0)
+        logger.info("drain complete (%d straggler(s) aborted)",
+                    len(stragglers))
+
+    # ---------- inference ----------
+
+    def _prompt_ids(self, body: Dict[str, Any], chat: bool) -> List[int]:
+        """Prompt token ids for either endpoint schema."""
+        if chat:
+            messages = body.get("messages", [])
+            if hasattr(self.tokenizer, "_tok") and hasattr(
+                    self.tokenizer._tok, "apply_chat_template"):
+                return self.tokenizer._tok.apply_chat_template(
+                    messages, add_generation_prompt=True)
+            text = "".join(
+                f"<|{m.get('role', 'user')}|>{m.get('content', '')}"
+                for m in messages) + "<|assistant|>"
+            return self.tokenizer.encode(text)
+        prompt = body.get("prompt", "")
+        if isinstance(prompt, list) and prompt and isinstance(prompt[0], int):
+            return prompt
+        return self.tokenizer.encode(str(prompt))
+
+    def _make_request(self, body: Dict[str, Any], prompt_ids: List[int],
+                      headers: Optional[Dict[str, str]] = None) -> Request:
+        headers = headers or {}
+        # Correlation: the body's request_id wins, then the x-request-id
+        # header, then a fresh mint.
+        rid = (body.get("request_id")
+               or headers.get(REQUEST_ID_HEADER)
+               or f"cmpl-{uuid_mod.uuid4().hex}")
+        # Deadline: an absolute epoch from the gateway wins; a bare
+        # relative budget is based here.  Epoch -> engine monotonic clock
+        # so queue time spent before this hop still counts.
+        deadline_epoch = parse_deadline(headers, body)
+        if deadline_epoch is None and self.deadline_default_ms > 0:
+            deadline_epoch = time.time() + self.deadline_default_ms / 1000.0
+        deadline = None
+        if deadline_epoch is not None:
+            deadline = time.monotonic() + (deadline_epoch - time.time())
+        return Request(
+            request_id=rid,
+            prompt_token_ids=prompt_ids,
+            sampling=_sampling_from_body(body),
+            priority=int(body.get("priority", 0)),
+            criticality=parse_criticality(headers, body),
+            deadline=deadline,
+        )
+
+    def _refuse_draining(self) -> Optional[Response]:
+        """503 for new inference while draining (the gateway retries it
+        on an alternate replica)."""
+        if not self.draining:
+            return None
+        return json_response(
+            {"error": "draining: replica is shutting down"}, status=503,
+            headers={DRAINING_HEADER: "1"})
+
+    async def completions(self, request: HTTPRequest) -> Response:
+        return await self._inference(request, chat=False)
+
+    async def chat_completions(self, request: HTTPRequest) -> Response:
+        return await self._inference(request, chat=True)
+
+    async def _inference(self, request: HTTPRequest, chat: bool) -> Response:
+        try:
+            body = request.json()
+        except ValueError:
+            return json_response({"error": "invalid json"}, status=400)
+        refused = self._refuse_draining()
+        if refused is not None:
+            return refused
+        missing = _unported(body, request.headers)
+        if missing is not None:
+            return json_response({"error": f"not served: {missing}"},
+                                 status=501)
+        prompt_ids = self._prompt_ids(body, chat)
+        vocab = self.engine.model_config.vocab_size
+        if not all(type(t) is int and 0 <= t < vocab for t in prompt_ids):
+            # An id past the embedding table would fault the device.
+            return json_response({"error": f"invalid request: prompt token "
+                                           f"ids must be ints in [0, {vocab})"},
+                                 status=400)
+        return await self._run(request, body, prompt_ids, chat)
+
+    def _usage(self, req: Request, body: Dict[str, Any]) -> Dict[str, Any]:
+        """Usage block with latency actuals (and the gateway's predictions
+        when it sent them)."""
+        usage: Dict[str, Any] = {
+            "prompt_tokens": req.num_prompt_tokens,
+            "completion_tokens": len(req.output_token_ids),
+            "total_tokens": req.num_tokens,
+        }
+        if req.first_token_time is not None:
+            usage["ttft_ms"] = round(
+                (req.first_token_time - req.arrival_time) * 1000.0, 3)
+        n_out = len(req.output_token_ids)
+        if (req.last_token_time is not None
+                and req.first_token_time is not None and n_out > 1):
+            usage["avg_tpot_ms"] = round(
+                (req.last_token_time - req.first_token_time)
+                / (n_out - 1) * 1000.0, 3)
+        pred = body.get("_predicted")
+        if pred:
+            usage["predicted_ttft_ms"] = pred.get("ttft_ms")
+            usage["avg_predicted_tpot_ms"] = pred.get("tpot_ms")
+        return usage
+
+    async def _run(self, http_req: HTTPRequest, body: Dict[str, Any],
+                   prompt_ids: List[int], chat: bool) -> Response:
+        try:
+            req = self._make_request(body, prompt_ids, http_req.headers)
+        except (TypeError, ValueError) as exc:
+            return json_response(
+                {"error": f"invalid request: {exc}"}, status=400)
+        logger.debug("request %s admitted (criticality=%s prompt_tokens=%d)",
+                     req.request_id, req.criticality, req.num_prompt_tokens)
+        if req.deadline_expired():
+            # Budget already blown (e.g. spent queueing at the gateway).
+            self.engine.metrics.inc_deadline_exceeded(req.criticality)
+            return json_response(
+                {"error": "deadline exceeded", "request_id": req.request_id},
+                status=504, headers={DEADLINE_EXCEEDED_HEADER: "1"})
+        self._inflight += 1
+        try:
+            if self.draining:
+                self.engine.metrics.drain_inflight.set(self._inflight)
+            return await self._run_inner(http_req, body, req, chat)
+        finally:
+            self._inflight -= 1
+            if self.draining:
+                self.engine.metrics.drain_inflight.set(self._inflight)
+
+    async def _run_inner(self, http_req: HTTPRequest, body: Dict[str, Any],
+                         req: Request, chat: bool):
+        created = int(time.time())
+        if bool(body.get("stream", False)):
+            # The headers leave before this request is admitted, so the
+            # depth counts it (+1): the value a fresh scrape would see.
+            resp = await http_req.stream({
+                "Content-Type": "text/event-stream",
+                "Cache-Control": "no-cache",
+                SCHED_DEPTH_HEADER: str(self._sched_depth() + 1)})
+            await self._stream_tokens_into(resp, req, body, chat, created)
+            await resp.write_eof()
+            return resp
+
+        final_out = None
+        async with contextlib.aclosing(
+                self.async_engine.generate(req)) as outs:
+            async for out in outs:
+                final_out = out
+        text = self.tokenizer.decode(req.output_token_ids)
+        text, stopped = self._apply_stop_strings(req, text, text)
+        finish_reason = final_out.finish_reason if final_out else None
+        if stopped:
+            finish_reason = "stop"
+        if finish_reason == "deadline" and not req.output_token_ids:
+            # Expired while queued: nothing was produced.
+            return json_response(
+                {"error": "deadline exceeded", "request_id": req.request_id},
+                status=504, headers={DEADLINE_EXCEEDED_HEADER: "1"})
+        payload = {
+            "id": req.request_id,
+            "object": "chat.completion" if chat else "text_completion",
+            "created": created,
+            "model": self.model_name,
+            "choices": [{
+                "index": 0,
+                "finish_reason": finish_reason,
+                **({"message": {"role": "assistant", "content": text}}
+                   if chat else {"text": text}),
+            }],
+            "usage": self._usage(req, body),
+        }
+        # This request already left the scheduler: the depth is everyone
+        # still queued or running behind it.
+        headers = {SCHED_DEPTH_HEADER: str(self._sched_depth())}
+        if finish_reason == "deadline":
+            headers[DEADLINE_EXCEEDED_HEADER] = "1"
+        return json_response(payload, headers=headers)
+
+    async def _stream_tokens_into(self, resp, req: Request,
+                                  body: Dict[str, Any], chat: bool,
+                                  created: int) -> None:
+        """Generate and write one request's SSE token stream, then the
+        usage frame (when asked for) and ``[DONE]``."""
+        async def write_frame(payload: Dict[str, Any]) -> None:
+            await resp.write(b"data: " + json.dumps(payload).encode()
+                             + b"\n\n")
+
+        await self._generate_stream(req, chat, created, write_frame)
+        if bool((body.get("stream_options") or {}).get("include_usage")):
+            await write_frame({
+                "id": req.request_id,
+                "object": "chat.completion.chunk" if chat
+                else "text_completion",
+                "created": created, "model": self.model_name,
+                "choices": [],
+                "usage": self._usage(req, body),
+            })
+        await resp.write(b"data: [DONE]\n\n")
+
+    async def _generate_stream(self, req: Request, chat: bool,
+                               created: int, write_frame) -> None:
+        # The tokens this stream has delivered.  The engine thread appends
+        # to the request's own list, which may already hold a later
+        # output's tokens when this one is written.
+        ids: List[int] = []
+        all_text_len = 0
+        async with contextlib.aclosing(
+                self.async_engine.generate(req)) as outs:
+            async for out in outs:
+                off = len(ids)
+                ids.extend(out.new_token_ids)
+                text = self.tokenizer.decode(ids)
+                delta, all_text_len = text[all_text_len:], len(text)
+                delta, stopped = self._apply_stop_strings(req, delta, text)
+                finished = out.finished or stopped
+                reason = "stop" if stopped else out.finish_reason
+                await write_frame(self._chunk(
+                    req, delta, out, off, created, chat, finished=finished,
+                    finish_reason=reason))
+                if stopped and not out.finished:
+                    # The engine missed the stop string (it spanned a
+                    # longer window): end the request through the engine
+                    # thread.
+                    self.async_engine.abort(req.request_id)
+                    break
+                if finished:
+                    break
+
+    def _sched_depth(self) -> int:
+        """Scheduler depth (waiting + running)."""
+        s = self.engine.scheduler
+        return int(s.num_waiting + s.num_running)
+
+    def _apply_stop_strings(self, req: Request, delta: str, full: str):
+        """Truncate output at the first stop string. Returns (delta', stopped)."""
+        for s in req.sampling.stop:
+            idx = full.find(s)
+            if idx >= 0:
+                delta_start = len(full) - len(delta)
+                return (full[delta_start:idx] if idx > delta_start else ""), True
+        return delta, False
+
+    def _chunk(self, req: Request, delta: str, out: RequestOutput, off: int,
+               created: int, chat: bool, finished: bool,
+               finish_reason: Optional[str]) -> Dict[str, Any]:
+        choice: Dict[str, Any] = {
+            "index": 0,
+            "finish_reason": finish_reason if finished else None}
+        if chat:
+            choice["delta"] = {"content": delta}
+        else:
+            choice["text"] = delta
+        return {
+            "id": req.request_id,
+            "object": "chat.completion.chunk" if chat else "text_completion",
+            "created": created, "model": self.model_name,
+            "choices": [choice],
+            CHUNK_META_KEY: {"off": off, "tok": list(out.new_token_ids)},
+        }
+
+
+def build_server(engine_config: EngineConfig,
+                 tokenizer_name: Optional[str] = None,
+                 model_name: Optional[str] = None,
+                 engine: Optional[EngineCore] = None) -> ModelServer:
+    engine = engine or EngineCore(engine_config)
+    tok = get_tokenizer(tokenizer_name)
+    return ModelServer(engine, tok,
+                       model_name or engine_config.resolve_model().name)
+
+
+def engine_config_from_args(args) -> EngineConfig:
+    """Parsed CLI flags -> EngineConfig."""
+    return EngineConfig(
+        model=args.model, block_size=args.block_size,
+        num_blocks=args.num_blocks, max_num_seqs=args.max_num_seqs,
+        max_num_batched_tokens=args.max_num_batched_tokens,
+        num_scheduler_steps=args.num_scheduler_steps,
+        async_scheduling=args.async_scheduling,
+        quantization=args.quantization,
+        kv_cache_dtype=args.kv_cache_dtype,
+        device=args.device)
+
+
+# The JAX server's flags this server does not serve, by argparse dest,
+# with what is missing.  Each is refused when set to anything but its
+# default.
+_MULTI_DEVICE = "multi-device serving is not ported (one card)"
+UNSERVED_FLAGS = {
+    "config": "YAML config layers are not ported",
+    "config_overlay": "YAML config layers are not ported",
+    "compilation_cache_dir": "XLA's compilation cache has no counterpart "
+                             "(the kernels build with nvcc)",
+    "tensor_parallel_size": _MULTI_DEVICE,
+    "data_parallel_size": _MULTI_DEVICE,
+    "data_parallel_size_local": _MULTI_DEVICE,
+    "data_parallel_start_rank": _MULTI_DEVICE,
+    "data_parallel_address": _MULTI_DEVICE,
+    "data_parallel_rpc_port": _MULTI_DEVICE,
+    "data_parallel_hybrid_lb": _MULTI_DEVICE,
+    "data_parallel_workers": _MULTI_DEVICE,
+    "data_parallel_mode": _MULTI_DEVICE,
+    "allow_device_subset": _MULTI_DEVICE,
+    "latency_training_url": "the latency predictor's training feed is "
+                            "not ported",
+    "kv_offload_blocks": "KV offload is not ported",
+    "kv_shared_tier_port": "the shared KV tier is not ported",
+    "kv_shared_tier_peers": "the shared KV tier is not ported",
+    "kv_cache_hbm_gb": "sizing the block pool from a memory budget is not "
+                       "ported (pass --num-blocks)",
+    "enable_dbo": "dual-batch overlap is not ported",
+    "dbo_decode_token_threshold": "dual-batch overlap is not ported",
+    "dbo_prefill_token_threshold": "dual-batch overlap is not ported",
+    "enable_eplb": "EPLB is not ported",
+    "eplb_config": "EPLB is not ported",
+    "spec_k": "speculative decode is not ported",
+    "spec_strict": "speculative decode is not ported",
+    "kv_transfer_config": "the KV connector (PD disaggregation) is not "
+                          "ported",
+    "kv_events_endpoint": "the KV-events publisher is not ported",
+    "pod_identity": "the KV-events publisher is not ported",
+}
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    """The JAX server's flags (same names and defaults) plus ``--device``;
+    ``check_served`` refuses the ones in ``UNSERVED_FLAGS``."""
+    p = argparse.ArgumentParser("llmd-serve-torch")
+    p.add_argument("--config", default=None)
+    p.add_argument("--config-overlay", action="append", default=[])
+    p.add_argument("--compilation-cache-dir", default=None)
+    p.add_argument("--model", default="tiny")
+    p.add_argument("--tokenizer", default=None)
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8200)
+    p.add_argument("--block-size", type=int, default=32)
+    p.add_argument("--num-blocks", type=int, default=2048)
+    p.add_argument("--max-num-seqs", type=int, default=128)
+    p.add_argument("--max-num-batched-tokens", type=int, default=2048)
+    p.add_argument("--tensor-parallel-size", type=int, default=1)
+    p.add_argument("--data-parallel-size", type=int, default=1)
+    p.add_argument("--data-parallel-size-local", type=int, default=None)
+    p.add_argument("--data-parallel-start-rank", type=int, default=None)
+    p.add_argument("--data-parallel-address", default=None)
+    p.add_argument("--data-parallel-rpc-port", type=int, default=None)
+    p.add_argument("--data-parallel-hybrid-lb", action="store_true")
+    p.add_argument("--data-parallel-workers", default="")
+    p.add_argument("--data-parallel-mode", choices=["spmd", "ranks"],
+                   default="spmd")
+    p.add_argument(
+        "--num-scheduler-steps", type=int, default=1,
+        help="decode steps per dispatch on pure-decode rounds (each block "
+             "one CUDA graph replay on the card)")
+    p.add_argument(
+        "--async-scheduling", action="store_true",
+        help="keep one decode block in flight and dispatch its successor "
+             "before retiring it; requires --num-scheduler-steps > 1")
+    p.add_argument("--allow-device-subset", action="store_true")
+    p.add_argument("--latency-training-url", default=None)
+    p.add_argument("--kv-offload-blocks", type=int, default=0)
+    p.add_argument("--kv-shared-tier-port", type=int, default=None)
+    p.add_argument("--kv-shared-tier-peers", default="")
+    p.add_argument("--quantization", default=None, choices=[None, "int8"],
+                   help="MoE expert-weight quantization")
+    p.add_argument("--kv-cache-dtype", default=None,
+                   choices=[None, "bf16", "int8"],
+                   help="paged-KV cache dtype (default bf16)")
+    p.add_argument("--kv-cache-hbm-gb", type=float, default=None)
+    p.add_argument("--enable-dbo", action="store_true")
+    p.add_argument("--dbo-decode-token-threshold", type=int, default=32)
+    p.add_argument("--dbo-prefill-token-threshold", type=int, default=32)
+    p.add_argument("--enable-eplb", action="store_true")
+    p.add_argument("--eplb-config", default=None)
+    p.add_argument("--spec-k", type=int, default=None)
+    p.add_argument("--spec-strict", action="store_true")
+    p.add_argument("--kv-transfer-config", default=None)
+    p.add_argument("--kv-events-endpoint", default=None)
+    p.add_argument("--pod-identity", default=None)
+    p.add_argument(
+        "--device", default=None,
+        help="torch device to serve on (default: the first CUDA card; "
+             "'cpu' runs the plain PyTorch path and must be asked for)")
+    return p
+
+
+def check_served(parser: argparse.ArgumentParser, args) -> None:
+    """``parser.error`` for the first unserved flag set to anything but
+    its default."""
+    for dest, why in UNSERVED_FLAGS.items():
+        if getattr(args, dest) != parser.get_default(dest):
+            flag = "--" + dest.replace("_", "-")
+            parser.error(f"{flag} is not served by the PyTorch port: {why}")
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    p = build_arg_parser()
+    args = p.parse_args(argv)
+    check_served(p, args)
+    logging.basicConfig(level=logging.INFO)
+    server = build_server(engine_config_from_args(args), args.tokenizer)
+    asyncio.run(server.serve(args.host, args.port))
+
+
+if __name__ == "__main__":
+    main()

@@ -28,6 +28,20 @@ def env_int(name: str, default: int) -> int:
         return default
 
 
+def env_float(name: str, default: float) -> float:
+    """Float env knob; a value that is not a float falls back to
+    ``default``."""
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    try:
+        return float(raw)
+    except ValueError:
+        logger.warning("%s=%r is not a float; using default %s",
+                       name, raw, default)
+        return default
+
+
 def env_choice(name: str, default: str, choices: Sequence[str]) -> str:
     """Enumerated string env knob (case- and space-insensitive); an
     unknown value falls back to ``default``."""

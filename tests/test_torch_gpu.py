@@ -15,7 +15,8 @@ kernels (C-F) max error / max |output| <= 1e-2
 The multistep engine's decode blocks (one CUDA graph each) are held to
 their eager body bit for bit, async scheduling to sync and to the
 classic loop token for token, and a capture that meets a host sync must
-raise.
+raise.  The OpenAI server over the same engine answers with the direct
+engine's tokens.
 """
 
 import dataclasses
@@ -753,3 +754,76 @@ def test_a_failed_capture_raises(dev, monkeypatch):
         eng.generate(_block_requests(3, 8, False, seed=1))
     assert eng._graphs.replays == 0
     assert all(g.graph is None for g in eng._graphs.graphs.values())
+
+
+def test_server_answers_with_the_direct_engines_tokens(dev):
+    """The port's OpenAI server over a 2-layer deepseek-v3-bench in 32-step
+    async blocks (the decode graph captured on the server's engine
+    thread) answers one greedy token-id request, streamed (the ids ride
+    in each chunk's ``llmd`` meta), with the direct engine's tokens, and
+    its /metrics counts the request."""
+    import asyncio
+    import json
+    import threading
+    import urllib.request
+
+    from llm_d_tpu_torch.server.openai import ModelServer
+    from llm_d_tpu_torch.utils.metrics import parse_prometheus_text
+    from llm_d_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    K = 32
+    direct = _bench_2layer_engine(dev, num_scheduler_steps=K,
+                                  async_scheduling=True)
+    served = _bench_2layer_engine(dev, num_scheduler_steps=K,
+                                  async_scheduling=True, params=direct.params)
+    prompt = torch.randint(1, 32768, (100,),
+                           generator=torch.Generator().manual_seed(9)).tolist()
+    want = direct.generate([Request("d", prompt, SamplingParams(
+        temperature=0.0, max_tokens=1 + K, ignore_eos=True))])["d"]
+
+    server = ModelServer(served, ByteTokenizer(), "m")
+    app = server.build_app()
+    loop = asyncio.new_event_loop()
+    box = {}
+    started = threading.Event()
+
+    def run():
+        asyncio.set_event_loop(loop)
+        box["port"] = loop.run_until_complete(app.start("127.0.0.1", 0))
+        started.set()
+        loop.run_forever()
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    assert started.wait(timeout=120)
+    url = f"http://127.0.0.1:{box['port']}"
+    try:
+        body = dict(prompt=prompt, max_tokens=1 + K, temperature=0.0,
+                    ignore_eos=True, stream=True)
+        req = urllib.request.Request(
+            url + "/v1/completions", data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        tokens, done = [], False
+        with urllib.request.urlopen(req, timeout=600) as r:
+            for line in r:
+                if line.strip() == b"data: [DONE]":
+                    done = True
+                elif line.startswith(b"data: "):
+                    tokens += json.loads(line[6:])["llmd"]["tok"]
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+            m = parse_prometheus_text(r.read().decode())
+    finally:
+        asyncio.run_coroutine_threadsafe(app.close(), loop).result(120)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(timeout=60)
+    assert not thread.is_alive()
+    assert done and tokens == want
+    assert server.async_engine.dead is None
+    assert served._graphs.replays == 1
+    lab = '{model_name="deepseek-v3-bench"}'
+    assert m["vllm:generation_tokens_total" + lab] == 1 + K
+    assert m['vllm:request_success_total{finished_reason="length",'
+             'model_name="deepseek-v3-bench"}'] == 1
+    assert m["vllm:time_to_first_token_seconds_count" + lab] == 1
+    assert m["llmd_tpu:engine_steps_total" + lab] == 1 + K
+    assert m["llmd_tpu:engine_dispatch_total" + lab] == 2
