@@ -28,6 +28,37 @@ Phases (each raises on failure; the script then exits non-zero):
             side) by the classic loop (one step per dispatch, the same
             weights) and the bench-configured engine: greedy tokens
             identical, decode tok/s and prefill seconds of each side;
+2b. path (iii) serve deepseek-v3-bench on path (i)'s weights as bench.py's
+            bench_spec and bench_mixed configure it: speculative decode
+            with K = 4 drafts (every step one fused mixed round), one
+            scheduler step, 384 sequences, 1984 blocks.  (a) Wave 1 with
+            real verification, twice (must repeat), against the classic
+            loop: first tokens (a differing one is reported with the
+            classic step's top-2 logit margin), equal tokens and the
+            drafted / accepted counts; then once more with the classic
+            run's MoE routing replayed, where every row must keep the
+            classic tokens up to a near tie (top-2 margin within
+            2 * 5e-2 * max|logit|); (b) a verify step (8 rows, 4 live
+            drafts each) of the first two layers through kernels B and C
+            against the CPU reference (which takes the card's expert
+            choice and computes its own gate weights, within 5e-2 of the
+            card's): relative max logit error <= 5e-2, the same argmax
+            at every live position whose reference top-2 margin exceeds
+            2 * 5e-2 * max|logit|; (c) bench_spec's
+            shape, 256 x 128-token prompts and 128 new tokens at the
+            fixed acceptance 0.7: a warm-up and 3 timed runs (accepted
+            decode tok/s, acceptance, tokens per step), every request
+            ending by length, the pool whole after each run, the
+            acceptance coin of a run's steps drawn on the card bit-equal
+            to the CPU's; (d) bench_mixed's shape at share 0.25: 64
+            joiners (128-token prompts, 64 new) added one per step to the
+            256 decoding rows, twice (emitted tok/s, p99 step ms), kernel
+            B at Q = 128 over more than 256 rows; (e) the OpenAI server
+            in process over the engine: wave 1's prompts one at a time
+            with logprobs = 5, each reply the direct engine's tokens for
+            that prompt alone, every logprob finite and <= 0, every top-5
+            list sorted and headed by the greedy token.  Kernels B and E
+            must launch on this path;
 3. path(ii) serve llama3-1b at full width and depth, block size 64,
             8192-token steps: 64 x 128-token prompts with 32 new tokens on
             a bf16 cache (twice: must repeat token for token; then with
@@ -48,7 +79,9 @@ Phases (each raises on failure; the script then exits non-zero):
             against it; G and H on the bf16 cache also timed as one
             torch scaled_dot_product_attention call on the same K/V
             gathered to contiguous rows (``library_ms``, a yardstick the
-            port never calls);
+            port never calls), and so are A and B on bf16 latents at
+            wave 1's decode and wave 3's prefill shapes (K the 640-wide
+            latent row, V its first 512 columns);
 5. check    logits of the first two layers at full width through the
             kernels against the CPU reference path with the same weights:
             deepseek-v3-bench on a 100-token and on a 1024-token prompt
@@ -91,8 +124,9 @@ Phases (each raises on failure; the script then exits non-zero):
 
 Launch counts: every count is set to 0 just before a path is driven and
 read just after it; kernels A-F count path (i), G and H path (ii), and
-each row adds the in-process server's run (phase 7(a), also given as
-``server_launches``).  A
+each row adds path (iii)'s run (phases (a) and (c)-(e), also given as
+``spec_launches``) and the in-process server's run (phase 7(a), also
+given as ``server_launches``).  A
 count is the wrapper's own (eager launches, graph warm-ups included)
 plus the launches inside graph replays: a capture records each graph's
 launches, and every replay adds them (``engine/cuda_graph.py``); the
@@ -102,7 +136,8 @@ Output, in this order: a ``{"bounds": [...]}`` line (the bytes and flops
 each kernel's bound is derived from), a ``{"variants": [...]}`` line (the
 fields of the kernels line for the other inputs of phase 4), an
 ``{"engine": ...}`` line, a ``{"server": ...}`` line (phase 7, with the
-card's name and power limit), a ``{"kernels": [...]}`` line (one row per
+card's name and power limit), a ``{"spec": ...}`` line (path (iii), with
+the card's name and power limit), a ``{"kernels": [...]}`` line (one row per
 kernel at its first launch: measured launches, errors and times, with
 ``bound_ms``), the card's name and power limit, and last ``{"ok": true,
 "device": ...}``.  The engine line
@@ -119,7 +154,8 @@ alone.
 adds a ``{"profile": ...}`` line: four wave-1 and four wave-2 decode
 steps of the classic loop, one multistep block (32 decode iterations,
 one graph replay) of wave 1 and of wave 2, and the 8192-token wave-3
-prefill step of deepseek-v3-bench, and
+prefill step of deepseek-v3-bench, one bench_spec decode step (256
+rows) and one mixed round of path (iii), and
 llama3-1b's 8192-token prefill step and four of its decode steps (bf16
 cache), under ``torch.profiler``, with the device's busy time, kernel
 launches and the largest kernels per step (a measurement, not part of
@@ -156,6 +192,14 @@ SERVER_FLAGS = ["--model", "deepseek-v3-bench", "--quantization", "int8",
                 "--max-num-batched-tokens", str(BENCH_T),
                 "--num-scheduler-steps", str(BENCH_K), "--async-scheduling"]
 DRAIN_S = 30
+# Path (iii): speculative decode as bench.py's bench_spec and bench_mixed
+# configure it (bench.py:273-274, 275-437).
+SPEC_K = 4                                   # SPEC_BENCH_K
+SPEC_ACCEPT = 0.7                            # SPEC_BENCH_ACCEPT
+SPEC_WAVE = dict(n=256, prompt=128, new=128)
+MIXED_SHARE = 0.25                           # MIXED_BENCH_SHARE
+MIXED_JOIN = dict(n=int(MIXED_SHARE * SPEC_WAVE["n"]), prompt=128, new=64)
+SPEC_ROUNDS = 3                              # timed runs after a warm-up
 
 
 def log(msg: str) -> None:
@@ -192,24 +236,56 @@ def cache_mode(args, kw) -> str:
     return "int8-token" if ks.shape[-1] == 1 else "int8-head"
 
 
+# The unpadded token count of the engine step being built, noted by
+# ``note_live_tokens`` for the MoE kernels' bounds (None: not noted).
+LIVE_TOKENS = [None]
+
+
+def note_live_tokens(engine) -> None:
+    """Notes in ``LIVE_TOKENS`` the live token count of each batch
+    ``engine`` builds: a classic step's scheduled tokens, a fused round's
+    tokens and drafts, a multistep block's rows (one token each)."""
+    build, fused, ms = (engine._build_batch, engine._build_fused_batch,
+                        engine._ms_dispatch)
+
+    def build_batch(out, *a, **kw):
+        LIVE_TOKENS[0] = out.total_tokens
+        return build(out, *a, **kw)
+
+    def build_fused_batch(scheduled, *a, **kw):
+        LIVE_TOKENS[0] = sum(sr.num_new_tokens + sr.num_draft_tokens
+                             for sr in scheduled)
+        return fused(scheduled, *a, **kw)
+
+    def ms_dispatch(meta, scheduled, *a, **kw):
+        LIVE_TOKENS[0] = len(scheduled)
+        return ms(meta, scheduled, *a, **kw)
+
+    engine._build_batch = build_batch
+    engine._build_fused_batch = build_fused_batch
+    engine._ms_dispatch = ms_dispatch
+
+
 class Recorder:
     """Wraps a kernel wrapper (a module attribute the model calls through)
     and keeps a copy of the inputs of its first call of each label
     (``label(args, kw)``), taken before the call so in-place cache updates
-    do not leak into the copy.  A wrapper bumps the ``launches`` of
-    whatever its module name is bound to, so the count lives on the
-    recording wrapper while it is installed."""
+    do not leak into the copy, with ``LIVE_TOKENS`` at that call in
+    ``notes``.  A wrapper bumps the ``launches`` of whatever its module
+    name is bound to, so the count lives on the recording wrapper while
+    it is installed."""
 
     def __init__(self, module, name: str, keep: frozenset, label=None):
         self.module, self.name = module, name
         self.fn = getattr(module, name)
         self.keep = keep
-        self.calls = {}
+        self.calls, self.notes = {}, {}
 
         def wrapped(*args, **kw):
             key = label(args, kw) if label else "first"
             if key not in self.calls:
                 self.calls[key] = (clone(args, keep), clone(kw, keep))
+                self.notes[key] = LIVE_TOKENS[0]
             return self.fn(*args, **kw)
 
         wrapped.launches = 0
@@ -218,14 +294,20 @@ class Recorder:
 
 
 @contextlib.contextmanager
-def capture(module, name: str):
+def capture(module, name: str, key=None):
     """Records the arguments of the calls to ``module.name`` inside the
-    block (the call itself goes through)."""
-    seen = []
+    block (the call itself goes through), or with ``key`` counts the
+    calls by ``key(args, kw)`` and hands the launches made in the block
+    back to what was installed before."""
+    import collections
+    seen = [] if key is None else collections.Counter()
     inner = getattr(module, name)
 
     def spy(*args, **kw):
-        seen.append((args, kw))
+        if key is None:
+            seen.append((args, kw))
+        else:
+            seen[key(args, kw)] += 1
         return inner(*args, **kw)
 
     spy.launches = 0        # a wrapper bumps what its module name holds
@@ -234,6 +316,8 @@ def capture(module, name: str):
         yield seen
     finally:
         setattr(module, name, inner)
+        if key is not None:
+            inner.launches += spy.launches
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -315,7 +399,11 @@ def run_wave(engine, prompts, max_new: int, tag: str):
         if len(toks) != max_new or not all(0 <= t < vocab for t in toks):
             raise RuntimeError(f"{r.request_id}: got {len(toks)} tokens "
                                f"(want {max_new} in [0, {vocab}))")
-    return tokens, dict(requests=len(prompts), steps=steps,
+    spec = {}
+    if engine.spec_k:
+        spec = dict(spec_drafted=sum(r.spec_drafted for r in reqs),
+                    spec_accepted=sum(r.spec_accepted for r in reqs))
+    return tokens, dict(spec,requests=len(prompts), steps=steps,
                         seconds=total_s, prefill_seconds=prefill_s,
                         decode_steps=decode_steps, decode_seconds=decode_s,
                         decode_tokens=decode_tokens,
@@ -638,6 +726,478 @@ def sampled_block(engine, vocab: int) -> list:
     return toks
 
 
+def path_iii_engine(params):
+    """deepseek-v3-bench as bench.py's bench_mixed configures its spec
+    engine (bench.py:366-377), on ``params``: int8 experts and latent,
+    block size 64, steps of up to ``BENCH_T`` tokens, one scheduler step
+    (spec decode owns the multi-token step), ``SPEC_K`` drafts, prefix
+    caching off, and room for 1.5 x 256 sequences of prompt, new tokens
+    and drafts, plus 64 blocks.  The drafter is random from seed 1."""
+    from llm_d_tpu_torch.engine import EngineConfig, EngineCore
+    bs = 64
+    n_seqs = SPEC_WAVE["n"] + SPEC_WAVE["n"] // 2
+    per_seq = -(-(SPEC_WAVE["prompt"] + SPEC_WAVE["new"] + SPEC_K + 2) // bs)
+    return EngineCore(EngineConfig(
+        model="deepseek-v3-bench", quantization="int8",
+        kv_cache_dtype="int8", block_size=bs,
+        num_blocks=n_seqs * per_seq + bs, max_num_seqs=n_seqs,
+        max_num_batched_tokens=BENCH_T, num_scheduler_steps=1,
+        enable_prefix_caching=False, spec_k=SPEC_K, device="cuda", seed=0),
+        params=params)
+
+
+@contextlib.contextmanager
+def routing_tape(engine, tape: dict, replay: bool):
+    """Inside the block, tapes the MoE expert choice of every live token
+    of ``engine``'s forwards by (MoE layer, prompt index, position) (the
+    request ids are ``tag-i``), or with ``replay`` gives each live token
+    found on ``tape`` the taped choice, with gate weights from its own
+    scores; yields a one-item list counting the token-layers replayed."""
+    import torch
+    from llm_d_tpu_torch.ops import moe as moe_ops
+    model, sched = engine.model, engine.scheduler
+    real_sched, real_fwd, real_route = (sched.schedule, model.forward,
+                                        moe_ops.route)
+    state = dict(rows=[], keys=[], layer=0)
+    replayed = [0]
+
+    def schedule(*a, **kw):
+        out = real_sched(*a, **kw)
+        state["rows"] = [int(sr.request.request_id.rsplit("-", 1)[1])
+                         for sr in out.scheduled]
+        return out
+
+    def forward(params, kv_cache, batch, *a, **kw):
+        T = batch["positions"].shape[0]
+        qtok = batch["qtok_idx"].reshape(-1).cpu()
+        pos, seq = batch["positions"].cpu(), batch["token_seq_ids"].cpu()
+        state["keys"] = [(t, state["rows"][int(seq[t])], int(pos[t]))
+                         for t in torch.unique(qtok[qtok < T]).tolist()]
+        state["layer"] = 0
+        return real_fwd(params, kv_cache, batch, *a, **kw)
+
+    def route(logits, c, e_bias=None):
+        w, idx = real_route(logits, c, e_bias=e_bias)
+        layer = state["layer"]
+        state["layer"] += 1
+        if not replay:
+            chosen = idx.cpu().tolist()
+            for t, r, p in state["keys"]:
+                tape[(layer, r, p)] = chosen[t]
+            return w, idx
+        hits = [(t, tape[(layer, r, p)]) for t, r, p in state["keys"]
+                if (layer, r, p) in tape]
+        if not hits:
+            return w, idx
+        idx = idx.clone()
+        idx[torch.tensor([t for t, _ in hits], device=idx.device)] = \
+            torch.tensor([e for _, e in hits], dtype=idx.dtype,
+                         device=idx.device)
+        replayed[0] += len(hits)
+        scores, _ = moe_ops.route_scores(logits, c, e_bias)
+        return moe_ops.gate_weights(scores, idx, c), idx
+
+    sched.schedule, model.forward, moe_ops.route = schedule, forward, route
+    try:
+        yield replayed
+    finally:
+        sched.schedule, model.forward, moe_ops.route = (real_sched, real_fwd,
+                                                        real_route)
+
+
+def classic_margins(classic, prompts, max_new: int):
+    """The classic loop's wave on ``prompts`` with its routing taped
+    (``routing_tape``): its tokens, the tape, and for each prompt's token
+    at each step the top-2 logit margin and the decision bar ``2 * 5e-2 *
+    max|logit|`` (``[step][row]``, one token a row a step)."""
+    import torch
+    from llm_d_tpu_torch.models import moe
+    real, margins, bars, tape = moe.compute_logits, [], [], {}
+
+    def spy(*a):
+        out = real(*a)
+        rows = out[:len(prompts)].float()
+        top2 = torch.topk(rows, 2, dim=-1).values
+        margins.append((top2[:, 0] - top2[:, 1]).tolist())
+        bars.append((2 * 5e-2 * rows.abs().amax(-1)).tolist())
+        return out
+
+    moe.compute_logits = spy
+    try:
+        with routing_tape(classic, tape, replay=False):
+            tokens, _ = run_wave(classic, prompts, max_new, "margin")
+    finally:
+        moe.compute_logits = real
+    return tokens, tape, margins, bars
+
+
+def divergence(tokens, ref, margins, bars) -> dict:
+    """Where each row of ``tokens`` first differs from ``ref``, with the
+    reference step's top-2 margin and decision bar there."""
+    at = [next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), len(a))
+          for a, b in zip(tokens, ref)]
+    return dict(
+        first_divergence_per_row=at,
+        classic_top2_margin_there=[margins[j][i] if j < len(margins)
+                                   else None for i, j in enumerate(at)],
+        classic_bar_there=[bars[j][i] if j < len(bars) else None
+                           for i, j in enumerate(at)],
+        tokens_equal_to_classic=sum(a == b for x, y in zip(tokens, ref)
+                                    for a, b in zip(x, y)))
+
+
+def spec_greedy(engine, prompts, classic_tokens, yardstick) -> dict:
+    """Phase (a): wave 1 through the spec engine with real verification,
+    twice (must repeat); against the classic loop's tokens, each first
+    token (a differing one reported with the classic step's top-2
+    margin), the count of equal tokens, and where each row first differs
+    with the classic step's top-2 margin there.  Then the witness: the
+    classic loop again with its routing taped (``yardstick``, from
+    ``classic_margins``), and the spec engine with that routing replayed (``routing_tape``), which takes out the MoE's
+    top-8 flips; each row must then equal the classic run's tokens up to
+    a near tie, a first difference where the classic top-2 margin is
+    within the decision bar ``2 * 5e-2 * max|logit|``."""
+    tok, st = run_wave(engine, prompts, WAVE1["new"], "sa")
+    tok2, st2 = run_wave(engine, prompts, WAVE1["new"], "sa2")
+    if tok2 != tok:
+        raise RuntimeError("spec wave 1 did not repeat token for token")
+    ref, tape, margins, bars = yardstick
+    if ref != classic_tokens:
+        raise RuntimeError("the classic loop did not repeat under the tape")
+    differ = [dict(row=i, spec=a[0], classic=b[0],
+                   classic_top2_margin=margins[0][i])
+              for i, (a, b) in enumerate(zip(tok, classic_tokens))
+              if a[0] != b[0]]
+    with routing_tape(engine, tape, replay=True) as replayed:
+        tok3, st3 = run_wave(engine, prompts, WAVE1["new"], "sr")
+    witness = dict(divergence(tok3, ref, margins, bars), wave=st3,
+                   token_layers_replayed=replayed[0])
+    witness["near_ties_only"] = all(
+        m is None or m <= b for m, b in zip(
+            witness["classic_top2_margin_there"],
+            witness["classic_bar_there"]))
+    res = dict(divergence(tok, classic_tokens, margins, bars), wave=st,
+               repeat=st2, repeats=True,
+               first_tokens_equal=len(prompts) - len(differ),
+               first_tokens_differ=differ,
+               tokens=WAVE1["new"] * len(prompts),
+               classic_routing_replayed=witness)
+    if not witness["near_ties_only"]:
+        raise RuntimeError(f"with the classic routing replayed, the spec "
+                           f"engine left the classic tokens at a decided "
+                           f"position: {witness}")
+    return res
+
+
+def spec_reference_check(mc, params, draft_params, engine_kw, seed: int
+                         ) -> dict:
+    """Phase (b): a verify step of the first two layers at full width,
+    through the kernels on the card and through the CPU reference path
+    with the same weights: 8 prompts of 100 tokens prefilled, then each
+    row verifies ``SPEC_K`` live drafts (from a seed) after the card's
+    first token.  Logits of every live position are compared: relative
+    max error <= 5e-2, and the same argmax wherever the reference's top-2
+    margin exceeds twice that bar (``2 * 5e-2 * max|logit|``: random
+    weights put near ties within the kernel path's rounding, which the
+    other positions report).  The MoE routing is a top-8 choice over
+    near-equal scores, which a one-ulp difference in the router's input
+    flips between the card and the CPU (ROADMAP §3), so the CPU side
+    takes the card's expert choice (the flips its own choice would have
+    made are counted, with the gap in selection score they cost) and
+    computes the gate weights from its own scores, which must match the
+    card's within the phase's bar, 5e-2 of their largest."""
+    import numpy as np
+    import torch
+    from llm_d_tpu_torch.engine import EngineConfig, EngineCore
+    from llm_d_tpu_torch.engine.request import Request
+    from llm_d_tpu_torch.ops import moe as moe_ops
+    from llm_d_tpu_torch.ops.sampling import SamplingParams
+
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, mc.vocab_size, 100).tolist()
+               for _ in range(8)]
+    drafts = rng.integers(1, mc.vocab_size, (8, SPEC_K)).tolist()
+    card = str(params["embed"].device)
+    real_route = moe_ops.route
+    routes, flips, gaps, w_err, first, logits = [], [], [], [], None, {}
+    on_card = [True]
+
+    def route(logits_r, c, e_bias=None):
+        w, idx = real_route(logits_r, c, e_bias=e_bias)
+        if on_card[0]:
+            routes.append((w, idx))
+            return w, idx
+        cw, cidx = (t.cpu() for t in routes[len(flips)])
+        flips.append(sum(set(x) != set(y) for x, y in
+                         zip(idx.tolist(), cidx.tolist())))
+        scores, choice = moe_ops.route_scores(logits_r, c, e_bias)
+        gaps.append(float((choice.gather(1, idx.long()).sum(-1)
+                           - choice.gather(1, cidx.long()).sum(-1)
+                           ).abs().max()))
+        w = moe_ops.gate_weights(scores, cidx, c)
+        w_err.append(float((w - cw).abs().max() / cw.abs().max()))
+        return w, cidx
+
+    moe_ops.route = route
+    try:
+        for dev in (card, "cpu"):
+            on_card[0] = dev == card
+            eng = EngineCore(
+                EngineConfig(model_config=mc, device=dev, spec_k=SPEC_K,
+                             **engine_kw),
+                params=params if dev == card else clone_to(params, "cpu"),
+                draft_params=(draft_params if dev == card
+                              else clone_to(draft_params, "cpu")))
+            reqs = [Request(f"sref{i}", p, SamplingParams(
+                temperature=0.0, max_tokens=8, ignore_eos=True))
+                for i, p in enumerate(prompts)]
+            for r in reqs:
+                eng.add_request(r)
+            for step in range(2):
+                sched = eng.scheduler.schedule()
+                if step == 1 and any(sr.num_draft_tokens != SPEC_K
+                                     for sr in sched.scheduled):
+                    raise RuntimeError("verify step without K live drafts")
+                batch, _ = eng._build_fused_batch(sched.scheduled)
+                hidden = eng.model.forward(eng.params, eng.kv_cache, batch,
+                                           mc, engine_kw["block_size"])
+                n = len(sched.scheduled) * (SPEC_K + 1)
+                out = eng.model.compute_logits(
+                    eng.params, hidden, mc)[:n].float().cpu()
+                if step == 1:
+                    logits[dev] = out
+                    continue
+                if first is None:          # the card's first tokens
+                    first = out[::SPEC_K + 1].argmax(-1).tolist()
+                for sr, tok, d in zip(sched.scheduled, first, drafts):
+                    req = sr.request
+                    req.num_computed_tokens += sr.num_new_tokens
+                    req.output_token_ids.append(tok)
+                    req.spec_drafts, req.spec_drafts_at = d, req.num_tokens
+            del eng
+    finally:
+        moe_ops.route = real_route
+    got, want = logits[card], logits["cpu"]
+    if not torch.isfinite(got).all():
+        raise RuntimeError("non-finite logits from the kernel path")
+    rel = float((got - want).abs().max() / want.abs().max())
+    # A position's argmax is decided when the reference's top-2 margin
+    # exceeds twice the error bar (both logits may move by it); a closer
+    # pair is a near tie the check reports.
+    top2 = torch.topk(want, 2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    err = (got - want).abs().amax(-1)
+    agree = got.argmax(-1) == want.argmax(-1)
+    decided = margin > 2 * 5e-2 * want.abs().max()
+    differ = [dict(position=i, card=int(got[i].argmax()),
+                   cpu=int(want[i].argmax()), cpu_top2_margin=float(margin[i]),
+                   max_abs_err=float(err[i]))
+              for i in range(got.shape[0]) if not agree[i]]
+    top = bool(agree[decided].all())
+    res = dict(model=mc.name, layers=mc.num_layers, rows=8,
+               live_positions=int(got.shape[0]), rel_max_err=rel,
+               top1_agree_where_decided=top,
+               decided_positions=int(decided.sum()),
+               top1_agree_all=bool(agree.all()), argmax_differ=differ,
+               shape=list(got.shape), routing_flips_of_cpu_routing=flips,
+               routing_flip_max_score_gap=gaps, gate_weight_rel_err=w_err,
+               routed_tokens=[int(idx.shape[0]) for _, idx in routes])
+    if not top or rel > 5e-2 or max(w_err) > 5e-2:
+        raise RuntimeError(f"verify logits disagree with the CPU "
+                           f"reference: {res}")
+    return res
+
+
+def spec_prompts(seed: int, n: int, prompt: int, vocab: int):
+    import numpy as np
+    return np.random.default_rng(seed).integers(1, vocab, (n, prompt)
+                                                 ).tolist()
+
+
+def spec_bench(engine, prompts) -> dict:
+    """Phase (c): bench_spec's shape (``SPEC_WAVE``) at the fixed
+    acceptance ``SPEC_ACCEPT``: a warm-up and ``SPEC_ROUNDS`` timed runs.
+    Every request must end by length with its tokens and the pool must
+    be back at its free count after each run.  Per run: accepted decode
+    tok/s (tokens emitted after every prompt was prefilled, over that
+    wall time, as bench.py's ``_run_workload`` counts), acceptance and
+    tokens per step; then the coin of the first timed run's steps drawn
+    on the card against the CPU, bit for bit."""
+    import torch
+    from llm_d_tpu_torch.ops.sampling import accept_coin
+    engine.set_spec_fixed_accept(SPEC_ACCEPT)
+    free0 = engine.kv_manager.num_free_blocks
+    new = SPEC_WAVE["new"]
+    runs, coin_steps = [], None
+    for rep in range(1 + SPEC_ROUNDS):
+        reqs = add_requests(engine, prompts, f"spec{rep}", new)
+        step0 = engine._step_count
+        t0 = time.perf_counter()
+        while any(r.num_computed_tokens < r.num_prompt_tokens for r in reqs):
+            engine.step()
+        t1 = time.perf_counter()
+        before, steps = sum(len(r.output_token_ids) for r in reqs), 0
+        while engine.has_work():
+            engine.step()
+            steps += 1
+        t2 = time.perf_counter()
+        bad = [r.request_id for r in reqs if len(r.output_token_ids) != new
+               or r.state.value != "length"]
+        if bad:
+            raise RuntimeError(f"spec bench: {bad[:4]} did not end by "
+                               f"length with {new} tokens")
+        if engine.kv_manager.num_free_blocks != free0:
+            raise RuntimeError("spec bench: blocks leaked")
+        drafted = sum(r.spec_drafted for r in reqs)
+        accepted = sum(r.spec_accepted for r in reqs)
+        tokens = sum(len(r.output_token_ids) for r in reqs) - before
+        run = dict(prefill_s=t1 - t0, decode_s=t2 - t1, decode_steps=steps,
+                   decode_tokens=tokens, decode_tok_s=tokens / (t2 - t1),
+                   drafted=drafted, accepted=accepted,
+                   acceptance=accepted / drafted,
+                   tokens_per_step=tokens / steps,
+                   tokens_per_row_step=1 + SPEC_K * accepted / drafted)
+        if rep:
+            runs.append(run)
+            if coin_steps is None:
+                coin_steps = (step0, engine._step_count)
+        log(f"spec bench run {rep}: {json.dumps(run)}")
+    S = SPEC_WAVE["n"]
+    for step in range(*coin_steps):
+        card = accept_coin(step, S, SPEC_K, engine.device).cpu()
+        cpu = accept_coin(step, S, SPEC_K, "cpu")
+        if not torch.equal(card.view(torch.int32), cpu.view(torch.int32)):
+            raise RuntimeError(f"acceptance coin of step {step} differs on "
+                               f"the card")
+    return dict(requests=S, prompt=SPEC_WAVE["prompt"], new=new,
+                spec_k=SPEC_K, fixed_accept=SPEC_ACCEPT, runs=runs,
+                decode_tok_s=spread([r["decode_tok_s"] for r in runs]),
+                acceptance=spread([r["acceptance"] for r in runs]),
+                tokens_per_step=spread([r["tokens_per_step"] for r in runs]),
+                coin_steps_bit_equal=coin_steps[1] - coin_steps[0],
+                leak_free=True)
+
+
+def mixed_bench(engine, base, joiners, runs: int = 2) -> list:
+    """Phase (d): bench_mixed's shape at ``MIXED_SHARE`` (bench.py:380-
+    406): ``base`` prefilled and decoding at the fixed acceptance, then
+    ``joiners`` added one per step; the window's emitted tok/s and p99
+    step ms.  Every request must end by length and the pool must come
+    back whole; kernel B must run at Q = 128 for more than 256 rows."""
+    from llm_d_tpu_torch.engine.request import Request
+    from llm_d_tpu_torch.ops import mla_prefill
+    from llm_d_tpu_torch.ops.sampling import SamplingParams
+    engine.set_spec_fixed_accept(SPEC_ACCEPT)
+    free0 = engine.kv_manager.num_free_blocks
+    out = []
+    for rep in range(runs):
+        reqs = add_requests(engine, base, f"mixb{rep}", SPEC_WAVE["new"])
+        while any(r.num_computed_tokens < r.num_prompt_tokens for r in reqs):
+            engine.step()
+        join = [Request(f"mixj{rep}-{i}", p, SamplingParams(
+            temperature=0.0, max_tokens=MIXED_JOIN["new"], ignore_eos=True))
+            for i, p in enumerate(joiners)]
+        before = sum(len(r.output_token_ids) for r in reqs)
+        step_ms, j = [], 0
+        with capture(mla_prefill, "mla_flash_prefill",
+                     lambda a, kw: tuple(a[0].shape[:2])) as shapes:
+            t0 = time.perf_counter()
+            while engine.has_work() or j < len(join):
+                if j < len(join):
+                    engine.add_request(join[j])
+                    j += 1
+                s0 = time.perf_counter()
+                engine.step()
+                step_ms.append(1e3 * (time.perf_counter() - s0))
+            dt = time.perf_counter() - t0
+        tokens = sum(len(r.output_token_ids) for r in reqs + join) - before
+        bad = [r.request_id for r in reqs + join
+               if r.state.value != "length" or len(r.output_token_ids)
+               != r.sampling.max_tokens]
+        if bad:
+            raise RuntimeError(f"mixed bench: {bad[:4]} did not end by "
+                               f"length")
+        if engine.kv_manager.num_free_blocks != free0:
+            raise RuntimeError("mixed bench: blocks leaked")
+        wide = sum(n for (S, Q), n in shapes.items()
+                   if Q == 128 and S > SPEC_WAVE["n"])
+        if not wide:
+            raise RuntimeError(f"mixed bench: kernel B never ran at Q = 128 "
+                               f"over the decode rows: {dict(shapes)}")
+        ordered = sorted(step_ms)
+        out.append(dict(
+            base=len(reqs), joiners=len(join), steps=len(step_ms),
+            seconds=dt, tokens=tokens, tok_s=tokens / dt,
+            p99_step_ms=ordered[min(len(ordered) - 1,
+                                    int(0.99 * len(ordered)))],
+            median_step_ms=ordered[len(ordered) // 2],
+            b_launches_q128=wide,
+            b_shapes={f"S={S} Q={Q}": n for (S, Q), n in shapes.items()}))
+        log(f"mixed bench run {rep}: {json.dumps(out[-1])}")
+    return out
+
+
+def spec_server(engine, prompts, alone) -> dict:
+    """Phase (e): ``ModelServer`` in process over the spec engine (real
+    verification), ``prompts`` one at a time with ``logprobs`` = 5: each
+    reply's tokens are the direct engine's for that prompt alone, every
+    logprob finite and <= 0, every top-5 list sorted and headed by the
+    greedy token."""
+    import math
+    from llm_d_tpu_torch.server.openai import ModelServer
+    server = ModelServer(engine, DecimalTokenizer(), "deepseek-v3-bench")
+    url, close = serve_in_thread(server)
+    checked = 0
+    try:
+        for i, (p, want) in enumerate(zip(prompts, alone)):
+            status, _, reply = http_call(url, "/v1/completions", dict(
+                greedy_body(p, len(want), False), logprobs=5))
+            if status != 200:
+                raise RuntimeError(f"logprobs request {i}: HTTP {status}")
+            lp = reply["choices"][0]["logprobs"]
+            toks = [int(t) for t in lp["tokens"]]
+            if toks != want:
+                raise RuntimeError(f"logprobs request {i}: tokens differ "
+                                   f"from the direct spec engine's")
+            for tok, v, top in zip(lp["tokens"], lp["token_logprobs"],
+                                   lp["top_logprobs"]):
+                vals = list(top.values())
+                if not (math.isfinite(v) and v <= 0) or len(top) != 5 \
+                        or vals != sorted(vals, reverse=True) \
+                        or next(iter(top)) != tok \
+                        or abs(vals[0] - v) > 1e-6:
+                    raise RuntimeError(f"logprobs request {i}: token {tok} "
+                                       f"logprob {v}, top {top}")
+                checked += 1
+        if server.async_engine.dead is not None:
+            raise RuntimeError("the engine thread died") \
+                from server.async_engine.dead
+    finally:
+        close()
+    return dict(requests=len(prompts), tokens_checked=checked,
+                identical=True)
+
+
+def profile_spec(engine, prompts, joiner) -> dict:
+    """Device busy time of one bench_spec decode step (256 rows at the
+    fixed acceptance, after the prefill and one untraced step) and of
+    one mixed round (a 128-token joiner's prefill beside them)."""
+    from llm_d_tpu_torch.engine.request import Request
+    from llm_d_tpu_torch.ops.sampling import SamplingParams
+    engine.set_spec_fixed_accept(SPEC_ACCEPT)
+    reqs = add_requests(engine, prompts, "profs", SPEC_WAVE["new"])
+    while any(r.num_computed_tokens < r.num_prompt_tokens for r in reqs):
+        engine.step()
+    engine.step()
+    out = {"spec_step": dict(_profile_steps(engine, 1), batch=len(prompts))}
+    engine.add_request(Request("profj", joiner, SamplingParams(
+        temperature=0.0, max_tokens=2, ignore_eos=True)))
+    out["mixed_round"] = _profile_steps(engine, 1)
+    while engine.has_work():
+        engine.step()
+    return out
+
+
 def dense_prompts(vocab: int):
     """The path (ii) wave's prompts (the same in every cache mode)."""
     import numpy as np
@@ -768,22 +1328,39 @@ def dense_prefill_inputs(sw: int, bs: int, seq_lens, q_lens, seed: int,
         v_scale=vs)
 
 
+# The MLA latent's value columns (kv_lora_rank of deepseek-v3-bench); the
+# rest of the 640-wide row is rope and padding.
+MLA_V_COLS = 512
+
+
 def sdpa_ms(name: str, args, kw) -> float:
     """Eager ms of one ``torch.nn.functional.scaled_dot_product_attention``
-    call computing kernel G's (``paged_decode``) or H's
-    (``flash_prefill``) attention on a bf16 cache: the same queries, and
-    K/V gathered (untimed) from the cache into contiguous [S, KVH, L, D]
-    rows of each sequence's live keys, causal where every query row
-    attends its own prefix.  A yardstick only; the port never calls it."""
+    call computing the attention of kernel A (``mla_decode``), B
+    (``mla_prefill``), G (``paged_decode``) or H (``flash_prefill``) on a
+    bf16 cache: the same queries, and K/V gathered (untimed) from the
+    cache into contiguous [S, KVH, L, D] rows of each sequence's live
+    keys (MLA: the 16 query heads over one shared K, the whole latent
+    row, and V, its first ``MLA_V_COLS`` columns), causal where every
+    query row attends its own prefix.  A yardstick only; the port never
+    calls it."""
     import torch
     import torch.nn.functional as Fn
-    bs, KVH, scale = kw["block_size"], kw["num_kv_heads"], kw["scale"]
-    if name == "paged_decode":
+    bs, scale = kw["block_size"], kw["scale"]
+    KVH = kw.get("num_kv_heads", 1)
+    if name == "mla_decode":
+        q, kc, bt, sl = args[0], args[2], args[3], args[4]
+        vc = kc
+    elif name == "mla_prefill":
+        qs, q_pos, kc, bt, sl = args[:5]
+        vc = kc
+    elif name == "paged_decode":
         q, kc, vc, bt, sl = args[0], args[3], args[4], args[5], args[6]
+    else:
+        qs, q_pos, kc, vc, bt, sl = args[:6]
+    if name.endswith("decode"):
         q = q[:, :, None, :]                                 # [S, H, 1, D]
         q_pos = (sl.long() - 1)[:, None]                     # [S, 1]
     else:
-        qs, q_pos, kc, vc, bt, sl = args[:6]
         q = qs.permute(0, 2, 1, 3).contiguous()              # [S, H, Q, D]
         q_pos = q_pos.long()
     S, H, Q, D = q.shape
@@ -797,6 +1374,8 @@ def sdpa_ms(name: str, args, kw) -> float:
         return plane[slots].view(S, L, KVH, D).permute(0, 2, 1, 3).contiguous()
 
     k, v = gather(kc), gather(vc)
+    if name.startswith("mla_"):
+        v = v[..., :MLA_V_COLS].contiguous()
     causal = Q == L and bool((sl == L).all()) and bool(
         (q_pos == keys[None, :]).all())
     mask = None
@@ -815,6 +1394,29 @@ def sdpa_ms(name: str, args, kw) -> float:
     return time_ms(lambda: Fn.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, is_causal=causal, scale=scale, **extra),
         iters=20)
+
+
+def mla_prefill_inputs(bs: int, seq_lens, q_lens, seed: int, H: int = 16,
+                       F: int = 640, scale: float = 0.1):
+    """Kernel B's inputs on a bf16 latent from a seed: sequence i's last
+    ``q_lens[i]`` positions are the queries (padded to the longest, pad
+    rows at position -1) over one layer plane holding just its pages of
+    ``bs`` rows, in random order."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    S, Q = len(seq_lens), max(q_lens)
+    pages = [max(-(-n // bs), 1) for n in seq_lens]
+    kv = torch.randn((1, (sum(pages) + 1) * bs, F), generator=g,
+                     device="cuda").bfloat16()
+    bt = random_tables(g, pages)
+    q_pos = torch.full((S, Q), -1, dtype=torch.int32, device="cuda")
+    for i, (n, m) in enumerate(zip(seq_lens, q_lens)):
+        q_pos[i, :m] = torch.arange(n - m, n, device="cuda")
+    qs = torch.randn((S, Q, H, F), generator=g, device="cuda").bfloat16()
+    qs[q_pos < 0] = 0
+    lens = torch.tensor(seq_lens, dtype=torch.int32, device="cuda")
+    return (qs, q_pos, kv, bt, lens), dict(block_size=bs, scale=scale,
+                                           layer=0, kv_scale=None)
 
 
 def moe_inputs(mc, T: int, seed: int):
@@ -1454,6 +2056,8 @@ def main() -> int:
     # The classic loop (one step per dispatch) on the same weights: the
     # yardstick of the rounds below, not the path.
     classic = path_i_engine(1, engine.params)
+    note_live_tokens(engine)
+    note_live_tokens(classic)
     log(f"engine: init {init_s:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
         f"{engine.config.num_blocks} blocks")
@@ -1540,7 +2144,69 @@ def main() -> int:
         prof = profile_waves(classic, p1, p2, p3)
         prof["blocks"] = profile_blocks(engine, {"wave1": p1, "wave2": p2})
         log(f"profile: {json.dumps(prof)}")
-    del classic
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+
+    # 2b. path (iii): speculative decode as bench_spec / bench_mixed ------
+    t0 = time.perf_counter()
+    spec_eng = path_iii_engine(engine.params)
+    note_live_tokens(spec_eng)
+    torch.cuda.synchronize()
+    spec = dict(card=smi, init_s=time.perf_counter() - t0,
+                num_blocks=spec_eng.config.num_blocks,
+                max_num_seqs=spec_eng.config.max_num_seqs)
+    # The first two layers, for the verify check (b) and phase 5.
+    mc = dataclasses.replace(engine.model_config, num_layers=2,
+                             max_model_len=1152)
+    Lm = mc.num_layers - mc.first_dense_layers
+    params = dict(engine.params)
+    params["moe_layers"] = {k: v[:Lm] for k, v in
+                            engine.params["moe_layers"].items()}
+    moe_kw = dict(quantization="int8", kv_cache_dtype="int8", block_size=64,
+                  num_blocks=24, max_num_seqs=8,
+                  max_num_batched_tokens=1024, enable_prefix_caching=False)
+    # The classic loop's taped run is a yardstick, not the path's run.
+    yardstick = classic_margins(classic, p1, WAVE1["new"])
+    reset_counts()
+    spec["greedy"] = spec_greedy(spec_eng, p1, tok1, yardstick)
+    log(f"spec (a) greedy: {json.dumps(spec['greedy'])}")
+    # (b) compares kernels with the CPU reference: not the path's run, so
+    # the recorders step aside.
+    for rec in recorders.values():
+        setattr(rec.module, rec.name, rec.fn)
+    spec["verify_reference"] = spec_reference_check(
+        mc, params, spec_eng.draft_params, moe_kw, 10)
+    log(f"spec (b) verify logits: {json.dumps(spec['verify_reference'])}")
+    for rec in recorders.values():
+        setattr(rec.module, rec.name, rec.wrapped)
+    sp = spec_prompts(21, SPEC_WAVE["n"], SPEC_WAVE["prompt"], vocab)
+    spec["bench_spec"] = spec_bench(spec_eng, sp)
+    log(f"spec (c) bench_spec: {json.dumps(spec['bench_spec'])}")
+    joiners = spec_prompts(22, MIXED_JOIN["n"], MIXED_JOIN["prompt"], vocab)
+    spec["bench_mixed"] = mixed_bench(spec_eng, sp, joiners)
+    spec_eng.set_spec_fixed_accept(None)
+    alone = [run_wave(spec_eng, [p], WAVE1["new"], f"salone{i}")[0][0]
+             for i, p in enumerate(p1)]
+    spec["server"] = spec_server(spec_eng, p1, alone)
+    log(f"spec (e) server: {json.dumps(spec['server'])}")
+    spec_counts = {k["name"]: recorders[k["name"]].wrapped.launches
+                   for k in kernels if k["path"] == "i"}
+    log(f"launches (iii): {json.dumps(spec_counts)}")
+    missing = [n for n in ("mla_prefill", "moe_streamed_int8")
+               if spec_counts[n] == 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched on path (iii): "
+                           f"{missing}")
+    for n, c in spec_counts.items():
+        launches[n] += c
+    if prof is not None:
+        prof["spec"] = profile_spec(spec_eng, sp, joiners[0])
+        log(f"profile spec: {json.dumps(prof['spec'])}")
+    del classic, spec_eng, alone
+    LIVE_TOKENS[0] = None
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1620,8 +2286,10 @@ def main() -> int:
 
     # 4. kernels against their plain versions --------------------------------
     rows, variants, bounds = [], [], []
+    attention = ("mla_decode", "mla_prefill", "paged_decode", "flash_prefill")
 
-    def check(k, label, args, kw, count: bool, library: bool = False):
+    def check(k, label, args, kw, count: bool, library: bool = False,
+              live_tokens=None):
         fn, plain = recorders[k["name"]].fn, getattr(k["mod"], k["plain"])
         a_k, kw_k = clone(args, weights), clone(kw, weights)
         a_p, kw_p = clone(args, weights), clone(kw, weights)
@@ -1630,8 +2298,7 @@ def main() -> int:
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         name = f"{k['name']} [{label}]"
-        if k["name"] in ("mla_decode", "mla_prefill", "paged_decode",
-                         "flash_prefill"):
+        if k["name"] in attention:
             torch.testing.assert_close(got.float(), want.float(),
                                        atol=2e-2, rtol=2e-2)
             # The in-place splices: cache and scale planes exactly.
@@ -1653,20 +2320,20 @@ def main() -> int:
         ms = time_ms(lambda: fn(*a_k, **kw_k), iters=20)
         dev_ms, _ = device_ms(lambda: fn(*a_k, **kw_k))
         plain_ms = time_ms(lambda: plain(*a_p, **kw_p), iters=3, warmup=1)
-        nbytes, flops = work(k["name"], args, kw, got)
+        nbytes, flops = work(k["name"], args, kw, got, live_tokens)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / BF16_FLOPS * 1e3
         row = dict(
             name=k["name"], route="cuda", source=k["source"],
             replaces=k["replaces"], launches=launches[k["name"]],
             graph_launches=graph_launches[k["name"]],
+            spec_launches=spec_counts.get(k["name"], 0),
             max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=None)
-        if (count or library) and k["name"] in ("paged_decode",
-                                                "flash_prefill") \
-                and kw.get("k_scale") is None:
+        if (count or library) and k["name"] in attention \
+                and kw.get("k_scale") is None and kw.get("kv_scale") is None:
             row["library_ms"] = sdpa_ms(k["name"], a_k, kw_k)
         if count:
             rows.append(row)
@@ -1684,7 +2351,8 @@ def main() -> int:
         if not calls:
             raise RuntimeError(f"{k['name']}: no recorded launch")
         for i, (label, (args, kw)) in enumerate(calls.items()):
-            check(k, label, args, kw, count=i == 0)
+            check(k, label, args, kw, count=i == 0,
+                  live_tokens=recorders[k["name"]].notes[label])
     # Kernel A at long context: 8 sequences x 4096 keys.
     decode = next(k for k in kernels if k["name"] == "mla_decode")
     first = next(iter(recorders["mla_decode"].calls.values()))
@@ -1723,19 +2391,19 @@ def main() -> int:
             glue(x, w, idx, quant, **kwg)
         check(k, f"T={T}" + (" rt=128" if kwg else ""),
               *clone(seen[0], weights), count=False)
+    # Kernels A and B on bf16 latents at wave 1's decode and wave 3's
+    # prefill shapes, each also timed as one SDPA call (library_ms).
+    check(decode, "bf16 S=8 keys=160",
+          *decode_inputs(False, 64, [160] * 8, seed=13), count=False,
+          library=True)
+    prefill = next(k for k in kernels if k["name"] == "mla_prefill")
+    check(prefill, "bf16 S=64 Q=128",
+          *mla_prefill_inputs(64, [128] * 64, [128] * 64, seed=14),
+          count=False, library=True)
     for rec in recorders.values():
         setattr(rec.module, rec.name, rec.fn)
 
     # 5. reference checks ----------------------------------------------------
-    mc = dataclasses.replace(engine.model_config, num_layers=2,
-                             max_model_len=1152)
-    Lm = mc.num_layers - mc.first_dense_layers
-    params = dict(engine.params)
-    params["moe_layers"] = {k: v[:Lm] for k, v in
-                            engine.params["moe_layers"].items()}
-    moe_kw = dict(quantization="int8", kv_cache_dtype="int8", block_size=64,
-                  num_blocks=24, max_num_seqs=8,
-                  max_num_batched_tokens=1024, enable_prefix_caching=False)
     refs = [reference_check(mc, params, moe_kw, lens, seed)
             for lens, seed in (([100], 7), ([1024], 8))]
     lc = dataclasses.replace(get_config("llama3-1b"), num_layers=2,
@@ -1794,11 +2462,6 @@ def main() -> int:
     parity["noise"] = noise_on_the_card()
     log(f"parity: noise {json.dumps(parity['noise'])}")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
-
     # 7. the server ----------------------------------------------------------
     # (a) In process, over path (i)'s engine: the direct engine's tokens
     # for each wave-1 prompt alone first (not the server's run), then the
@@ -1831,7 +2494,7 @@ def main() -> int:
     # recorded inputs freed first.
     del engine, params, quant, recorders, rec, bench_glue, llama_params2, \
         decode, dense_decode, dense_prefill, streamed, first, args, kw, \
-        x, w, idx, seen
+        x, w, idx, seen, prefill
     gc.collect()
     torch.cuda.empty_cache()
     log(f"server: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still "
@@ -1852,6 +2515,7 @@ def main() -> int:
     if prof is not None:
         print(json.dumps({"profile": prof}))
     print(json.dumps({"server": server}))
+    print(json.dumps({"spec": spec}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -1875,14 +2539,21 @@ def _expert_bytes(E: int, H: int, I: int, experts: int) -> int:
     return experts * (3 * H * I + (2 * I + H) * 4)
 
 
-def work(name: str, args, kw, out):
+def work(name: str, args, kw, out, live_tokens=None):
     """(bytes moved, flops) the function needs on these inputs: each input
     it uses read once, each output written once.  Data-dependent parts
-    count what this run's data needs: live query rows, the keys and
-    block-table entries below each causal bound, the experts with a
-    routed token (each expert's weights once per launch) and the routed
-    (token, expert) pairs."""
+    count what this run's data needs: live query rows (their outputs
+    alone: a pad row's zeros are not needed), the keys and block-table
+    entries below each causal bound, the experts with a routed token
+    (each expert's weights once per launch) and the routed (token,
+    expert) pairs.  ``live_tokens`` (the engine step's unpadded token
+    count, ``note_live_tokens``) limits an MoE kernel's tokens to the
+    step's: the pad rows of a token bucket route like tokens but are
+    thrown away."""
     import torch
+    if name in ("mla_decode", "mla_prefill", "paged_decode",
+                "flash_prefill"):
+        out_row_b = out.shape[-2] * out.shape[-1] * out.element_size()
     if name in ("mla_decode", "mla_prefill"):
         q, _, cache, _, sl = args[:5]
         bs = kw["block_size"]
@@ -1897,8 +2568,7 @@ def work(name: str, args, kw, out):
         pages = int(((sl + bs - 1) // bs).sum())
         # Position seq_len-1 comes from the new row, not from the cache.
         nbytes = (live * q_row_b + live * row_b + S * 4 + pages * 4
-                  + (keys - live) * row_b
-                  + out.numel() * out.element_size() + live * row_b)
+                  + (keys - live) * row_b + live * out_row_b + live * row_b)
         return nbytes, 4 * H * F * keys
     if name == "mla_prefill":
         q_pos = args[1]
@@ -1910,40 +2580,41 @@ def work(name: str, args, kw, out):
         pages = int(((seq_keys + bs - 1) // bs).sum())
         nbytes = (live_rows * q_row_b + q_pos.numel() * 4 + S * 4
                   + pages * 4 + int(seq_keys.sum()) * row_b
-                  + out.numel() * out.element_size())
+                  + live_rows * out_row_b)
         return nbytes, 4 * H * F * int(n_keys.sum())
     if name == "moe_dense_int8":
         x, comb = args[:2]
         _, E, H, I = args[3].shape
-        routed = comb != 0                                         # [T, E]
+        T = live_tokens or x.shape[0]
+        routed = comb[:T] != 0                                     # [T, E]
         experts = int(routed.any(dim=0).sum())
         pairs = int(routed.sum())
-        nbytes = (x.numel() * x.element_size() + comb.numel() * 4
-                  + _expert_bytes(E, H, I, experts) + out.numel() * 4)
+        nbytes = (T * H * x.element_size() + T * E * 4
+                  + _expert_bytes(E, H, I, experts) + T * H * 4)
         return nbytes, 2 * 3 * pairs * H * I
     if name == "moe_routed_int8":
         x, tok_pad, wslot, tile_expert, num_tiles, pos = args[:6]
         _, E, H, I = args[7].shape
-        T, k = pos.shape
+        T, k = live_tokens or pos.shape[0], pos.shape[1]
         nt = int(num_tiles.reshape(-1)[0])
         slots = nt * kw["row_tile"]
         experts = int(torch.unique(tile_expert[:nt]).numel())
         nbytes = (T * H * x.element_size() + slots * (tok_pad.element_size()
-                  + wslot.element_size()) + nt * 4 + 4 + pos.numel() * 4
-                  + _expert_bytes(E, H, I, experts) + out.numel() * 4)
+                  + wslot.element_size()) + nt * 4 + 4 + T * k * 4
+                  + _expert_bytes(E, H, I, experts) + T * H * 4)
         return nbytes, 2 * 3 * T * k * H * I
     if name == "moe_streamed_int8":
         x, tok_pad, wslot, tile_expert, num_tiles, pos = args[:6]
         _, E, H, I = args[7].shape
-        Tp, k = pos.shape
+        Tp, k = live_tokens or pos.shape[0], pos.shape[1]
         C, NT = num_tiles.numel(), tile_expert.numel()
         tiles = torch.arange(NT, device=tile_expert.device)
         live = (tiles % (NT // C)) < num_tiles.long()[tiles // (NT // C)]
         n_live = int(live.sum())
         experts = int(torch.unique(tile_expert[live]).numel())
         nbytes = (Tp * H * x.element_size() + n_live * kw["row_tile"] * 8
-                  + n_live * 4 + C * 4 + pos.numel() * 4
-                  + _expert_bytes(E, H, I, experts) + out.numel() * 4)
+                  + n_live * 4 + C * 4 + Tp * k * 4
+                  + _expert_bytes(E, H, I, experts) + Tp * H * 4)
         return nbytes, 2 * 3 * Tp * k * H * I
     if name == "moe_grouped_int8":
         x_pad, wslot, tile_expert, num_tiles = args[:4]
@@ -1969,7 +2640,7 @@ def work(name: str, args, kw, out):
         # read from the input and written to their slots.
         nbytes = (live * H * D * q.element_size() + S * 4 + pages * 4
                   + 2 * (keys - live) * row_b + 2 * 2 * live * row_b
-                  + out.numel() * out.element_size())
+                  + live * out_row_b)
         return nbytes, 4 * H * D * keys
     if name == "flash_prefill":
         qs, q_pos, kc, vc, bt, sl = args[:6]
@@ -1983,7 +2654,7 @@ def work(name: str, args, kw, out):
         pages = int(((seq_keys + bs - 1) // bs).sum())
         nbytes = (live_rows * H * D * qs.element_size() + q_pos.numel() * 4
                   + S * 4 + pages * 4 + 2 * int(seq_keys.sum()) * row_b
-                  + out.numel() * out.element_size())
+                  + live_rows * out_row_b)
         return nbytes, 4 * H * D * int(n_keys.sum())
     raise KeyError(name)
 

@@ -19,14 +19,26 @@ engine's points with the same counts, from host-side state only: after
 the host fetch a classic step or a block's retire already makes, never
 inside a step or a captured graph.
 
-Not ported yet (later slices): the fused multistep pipeline and
-speculative decode, fused mixed rounds, EPLB, KV offload, the KV
-connector and tracing.
+Speculative decode (``spec_k`` > 0, MTP draft-and-verify), as the JAX
+engine's single-round path runs it: every step is one fused mixed round
+(``_run_fused``).  Prefill chunks, plain decodes and K+1-position
+draft-verify rows share one forward over the ragged batch; ``spec_verify``
+accepts drafts and samples; the drafter proposes the next drafts from
+the accepted position's hidden state; rejected tails go back to the
+pool the same step; one batched host fetch.  Greedy and seeded output
+is the non-spec engine's, token for token.  ``spec_fixed_accept``
+(bench only) replaces verification with a seeded coin.
+
+Not ported yet (later slices): the fused multistep pipeline
+(``spec_k`` > 0 with ``num_scheduler_steps`` > 1 raises), EPLB, KV
+offload, the KV connector, ``stub_components`` and tracing.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
+import os
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -44,9 +56,15 @@ from llm_d_tpu_torch.ops import sampling as sampling_ops
 from llm_d_tpu_torch.ops.quant import (
     KV_CACHE_DTYPES, KV_SCALE_GRANULARITIES, MLA_LATENT_DTYPES,
     kv_scale_width, quantize_moe_experts)
-from llm_d_tpu_torch.utils.config import env_choice
+from llm_d_tpu_torch.utils.config import env_choice, env_float, env_int
 from llm_d_tpu_torch.utils.device import resolve_device
 from llm_d_tpu_torch.utils.metrics import EngineMetrics
+from llm_d_tpu_torch.utils.predictor import (
+    SpecAcceptanceTracker, StepTimeModel)
+
+logger = logging.getLogger(__name__)
+
+SPEC_DECODE_MODES = ("auto", "off")
 
 
 def _next_bucket(n: int, lo: int, hi: int) -> int:
@@ -100,18 +118,29 @@ class EngineConfig:
     async_scheduling: bool = False
     # MoE expert-weight quantization: "int8" or None.
     quantization: Optional[str] = None
-    # Paged-KV cache dtype: "bf16" or "int8" (None = bf16).
+    # Paged-KV cache dtype: "bf16" or "int8".  None resolves
+    # LLMD_KV_CACHE_DTYPE (default bf16).
     kv_cache_dtype: Optional[str] = None
     # int8 scale granularity of a dense cache: "token" (one f32 scale per
     # row) or "head" (one per KV head).  None resolves LLMD_KV_SCALE_GRAN
     # (default "token").  MLA's latent row always has one scale.
     kv_scale_granularity: Optional[str] = None
     # MLA latent dtype gate: "auto" follows kv_cache_dtype; "bf16"/"int8"
-    # pin it (None = auto).
+    # pin it.  None resolves LLMD_MLA_LATENT_DTYPE (default auto).
     mla_latent_dtype: Optional[str] = None
     # None = the first CUDA device (raises without one); "cpu" must be
     # asked for explicitly.
     device: Optional[str] = None
+    # Speculative decode (MTP draft-and-verify): "auto" runs the fused
+    # mixed round whenever spec_k > 0; "off" is today's engine.  None
+    # resolves LLMD_SPEC_DECODE.
+    spec_decode: Optional[str] = None
+    # Draft tokens per step (K); 0 = off.  None resolves LLMD_SPEC_K.
+    spec_k: Optional[int] = None
+    # Bench only: accept each live draft by a seeded coin at this rate
+    # instead of verifying it (changes the output).  Read every step, so
+    # a bench may switch it between waves (``set_spec_fixed_accept``).
+    spec_fixed_accept: Optional[float] = None
 
     def resolve_model(self) -> ModelConfig:
         return self.model_config or get_config(self.model)
@@ -119,26 +148,34 @@ class EngineConfig:
 
 class EngineCore:
     def __init__(self, config: EngineConfig,
-                 params: Optional[Dict[str, Any]] = None) -> None:
-        """``params`` (e.g. from ``models.convert.params_from_numpy``) must
-        already live on the engine's device; ``None`` random-initializes
-        from ``config.seed``."""
+                 params: Optional[Dict[str, Any]] = None,
+                 draft_params: Optional[Dict[str, Any]] = None) -> None:
+        """``params`` and ``draft_params`` (e.g. from
+        ``models.convert.params_from_numpy``) must already live on the
+        engine's device; ``None`` random-initializes them from
+        ``config.seed`` and, for the drafter, ``config.seed + 1``."""
         self.config = config
         self.device = resolve_device(config.device)
         self.model_config = config.resolve_model()
         c = self.model_config
         self.model = get_model(c)
 
-        self.kv_cache_dtype = config.kv_cache_dtype or "bf16"
+        # An explicit value wins; None resolves the environment knob (an
+        # invalid environment value falls back with a warning, an invalid
+        # explicit one raises).
+        self.kv_cache_dtype = config.kv_cache_dtype or env_choice(
+            "LLMD_KV_CACHE_DTYPE", "bf16", KV_CACHE_DTYPES)
         if self.kv_cache_dtype not in KV_CACHE_DTYPES:
             raise ValueError(f"unknown kv_cache_dtype {self.kv_cache_dtype!r}"
                              f" (choices: {KV_CACHE_DTYPES})")
-        latent = config.mla_latent_dtype or "auto"
-        if latent not in MLA_LATENT_DTYPES:
-            raise ValueError(f"unknown mla_latent_dtype {latent!r} "
-                             f"(choices: {MLA_LATENT_DTYPES})")
-        if latent != "auto" and c.use_mla:
-            self.kv_cache_dtype = latent
+        if c.use_mla:
+            latent = config.mla_latent_dtype or env_choice(
+                "LLMD_MLA_LATENT_DTYPE", "auto", MLA_LATENT_DTYPES)
+            if latent not in MLA_LATENT_DTYPES:
+                raise ValueError(f"unknown mla_latent_dtype {latent!r} "
+                                 f"(choices: {MLA_LATENT_DTYPES})")
+            if latent != "auto":
+                self.kv_cache_dtype = latent
         self.kv_quantized = self.kv_cache_dtype == "int8"
         gran = config.kv_scale_granularity or env_choice(
             "LLMD_KV_SCALE_GRAN", "token", KV_SCALE_GRANULARITIES)
@@ -172,6 +209,21 @@ class EngineCore:
             max_num_seqs=config.max_num_seqs,
             max_num_batched_tokens=config.max_num_batched_tokens,
             max_model_len=c.max_model_len)
+        # Decode-priority chunk budgeting: LLMD_PREFILL_CHUNK pins a
+        # per-chunk prefill cap; "auto" (the default) sizes chunks from the
+        # step-latency model against LLMD_STEP_TIME_TARGET_MS, and with no
+        # target the cap stays off (chunks are budget-bound only).
+        raw_chunk = os.environ.get("LLMD_PREFILL_CHUNK", "auto")
+        self._prefill_chunk_fixed: Optional[int] = None
+        if raw_chunk != "auto":
+            try:
+                self._prefill_chunk_fixed = max(1, int(raw_chunk))
+            except ValueError:
+                logger.warning("LLMD_PREFILL_CHUNK=%r is neither 'auto' nor "
+                               "an integer; using 'auto'", raw_chunk)
+        self._step_time_target_ms = env_float("LLMD_STEP_TIME_TARGET_MS", 0.0)
+        self.step_time_model = StepTimeModel()
+        self.scheduler.prefill_chunk_cap = self._prefill_chunk_cap
 
         if params is None:
             init_gen = torch.Generator(device=self.device)
@@ -212,6 +264,38 @@ class EngineCore:
                         and self.device.type == "cuda" else None)
         self._rejected: List[RequestOutput] = []
         self.metrics = EngineMetrics(c.name)
+        self._disabled_seen: set = set()
+
+        # Speculative decode: on when the mode is "auto" and K > 0 (the
+        # default K of 0 keeps today's engine).
+        spec_mode = config.spec_decode or env_choice(
+            "LLMD_SPEC_DECODE", "auto", SPEC_DECODE_MODES)
+        if spec_mode not in SPEC_DECODE_MODES:
+            raise ValueError(f"unknown spec_decode {spec_mode!r} "
+                             f"(choices: {SPEC_DECODE_MODES})")
+        spec_k = (config.spec_k if config.spec_k is not None
+                  else env_int("LLMD_SPEC_K", 0))
+        self.spec_k = 0
+        self.draft_params = None
+        self.spec_tracker: Optional[SpecAcceptanceTracker] = None
+        if spec_mode != "off" and spec_k > 0:
+            if config.num_scheduler_steps > 1:
+                raise ValueError(
+                    "spec_k > 0 with num_scheduler_steps > 1 runs the fused "
+                    "multistep pipeline, which the PyTorch port does not "
+                    "serve yet; use num_scheduler_steps=1 or spec_k=0")
+            self.spec_k = int(spec_k)
+            if draft_params is None:
+                draft_gen = torch.Generator(device=self.device)
+                draft_gen.manual_seed(config.seed + 1)
+                draft_params = self.model.init_draft_params(
+                    c, draft_gen, self.device)
+            self.draft_params = draft_params
+            self.spec_tracker = SpecAcceptanceTracker(self.spec_k)
+            self.scheduler.spec_lookahead = self._spec_lookahead
+            logger.info("spec decode on: K=%d%s", self.spec_k,
+                        f" (fixed acceptance {config.spec_fixed_accept})"
+                        if config.spec_fixed_accept is not None else "")
         self._last_evictions = 0
         self._last_preemptions = 0
         self.eos_token_id: Optional[int] = None
@@ -233,10 +317,50 @@ class EngineCore:
 
     def abort_request(self, request_id: str) -> None:
         self.scheduler.abort_request(request_id)
+        self._spec_forget(request_id)
 
     def has_work(self) -> bool:
         return (self.scheduler.has_work() or bool(self._rejected)
                 or self._inflight is not None)
+
+    # ---------- feature composition and chunk budgeting ----------
+
+    def _disable_feature(self, feature: str, blocker: str) -> None:
+        """Count a feature demotion (``engine_feature_disabled_total``)
+        and log it once."""
+        self.metrics.inc_feature_disabled(feature, blocker)
+        if (feature, blocker) not in self._disabled_seen:
+            self._disabled_seen.add((feature, blocker))
+            logger.warning("%s demoted: %s", feature, blocker)
+
+    def set_spec_fixed_accept(self, rate: Optional[float]) -> None:
+        """Bench only: verify drafts (``rate`` None) or accept them by the
+        seeded coin at ``rate`` from the next step on."""
+        self.config = dataclasses.replace(self.config,
+                                          spec_fixed_accept=rate)
+
+    def _spec_forget(self, request_id: str) -> None:
+        """Drop a finished request's acceptance state (every finish
+        path), so live requests are never evicted from the bounded
+        table by stale ones."""
+        if self.spec_tracker is not None:
+            self.spec_tracker.forget(request_id)
+
+    def _prefill_chunk_cap(self, decode_tokens: int) -> Optional[int]:
+        """Per-chunk prefill token cap of one schedule pass (the
+        scheduler's callback, after ``decode_tokens`` of decode and spec
+        lookahead are funded): LLMD_PREFILL_CHUNK when fixed, else the
+        step-latency model's chunk under LLMD_STEP_TIME_TARGET_MS, else
+        None (budget-bound only)."""
+        if self._prefill_chunk_fixed is not None:
+            return self._prefill_chunk_fixed
+        if self._step_time_target_ms <= 0.0 \
+                or not self.step_time_model.trained:
+            return None
+        return self.step_time_model.chunk_for(
+            decode_tokens, self._step_time_target_ms,
+            lo=self.config.min_token_bucket,
+            hi=self.config.max_num_batched_tokens)
 
     # ---------- batch building ----------
 
@@ -601,6 +725,268 @@ class EngineCore:
         meta, ordered, rows = self._ms_meta(sched.scheduled)
         return self._ms_retire(self._ms_dispatch(meta, ordered, K, rows))
 
+    # ---------- speculative decode: the fused mixed round ----------
+
+    def _spec_lookahead(self, req: Request) -> int:
+        """Draft tokens worth scheduling for this decode entry (the
+        scheduler's spec callback): fresh drafts only, at the tracker's
+        adaptive depth, never past ``max_model_len`` nor past the
+        request's own ``max_tokens`` (verify work that could never
+        emit)."""
+        if req.do_remote_decode:
+            self._disable_feature("spec_decode", "do_remote_decode")
+            return 0
+        if req.spec_drafts_at != req.num_tokens or not req.spec_drafts:
+            return 0                      # stale or absent: plain decode
+        k = min(self.spec_tracker.suggest_k(req.request_id),
+                len(req.spec_drafts), self.spec_k)
+        k = min(k, self.model_config.max_model_len - req.num_tokens - 1)
+        k = min(k, req.sampling.max_tokens - len(req.output_token_ids) - 1)
+        return max(0, k)
+
+    def _empty_fused_np(self, T: int, S: int, Q: int,
+                        B: int) -> Dict[str, np.ndarray]:
+        arrs = self._empty_batch_np(T, S, Q, B)
+        del arrs["gen_idx"]     # spec_verify takes gen0 and the verify rows
+        K = self.spec_k
+        arrs["sample_idx"] = np.zeros(S * (K + 1), np.int32)
+        arrs["gen0"] = np.zeros(S, np.int32)
+        arrs["draft_tokens"] = np.zeros((S, K), np.int32)
+        arrs["spec_n"] = np.zeros(S, np.int32)
+        return arrs
+
+    def _fill_fused_batch(self, arrs: Dict[str, np.ndarray],
+                          scheduled) -> None:
+        """The ragged token layout of a mixed round (each row packs its
+        real length: a prefill chunk's n tokens, or a decode row's last
+        accepted token and its nd drafts) plus a fixed ``[S*(K+1)]``
+        verify-stride ``sample_idx``, whatever the row mix.  A decode
+        row's slot q gathers token ``t0 + min(q, nd)`` (slots past nd are
+        masked by ``spec_n``); a prefill row's slots all gather its
+        chunk's last token (slot 0 is the classic first-token sample);
+        pad rows gather token 0 at temperature 0 and are discarded."""
+        K = self.spec_k
+        Qv = K + 1
+        bs = self.config.block_size
+        t = 0
+        for s, sr in enumerate(scheduled):
+            req, n = sr.request, sr.num_new_tokens
+            nd = sr.num_draft_tokens
+            n_row = n + nd
+            p0 = req.num_computed_tokens
+            if nd:
+                # Decode row: the last accepted token and the live drafts.
+                arrs["token_ids"][t] = req.all_token_ids[p0]
+                arrs["token_ids"][t + 1:t + n_row] = req.spec_drafts[:nd]
+                arrs["draft_tokens"][s, :nd] = req.spec_drafts[:nd]
+            else:
+                # Plain decode (n == 1) or a prefill chunk.
+                arrs["token_ids"][t:t + n_row] = \
+                    req.all_token_ids[p0:p0 + n]
+            pos = np.arange(p0, p0 + n_row)
+            arrs["positions"][t:t + n_row] = pos
+            arrs["token_seq_ids"][t:t + n_row] = s
+            arrs["token_qpos"][t:t + n_row] = np.arange(n_row)
+            blocks = np.asarray(req.block_ids, np.int32)
+            arrs["slot_mapping"][t:t + n_row] = \
+                blocks[pos // bs] * bs + pos % bs
+            arrs["block_tables"][s, :len(blocks)] = blocks
+            arrs["seq_lens"][s] = p0 + n_row
+            arrs["qtok_idx"][s, :n_row] = np.arange(t, t + n_row)
+            if nd:
+                arrs["sample_idx"][s * Qv:(s + 1) * Qv] = \
+                    t + np.minimum(np.arange(Qv), nd)
+            else:
+                arrs["sample_idx"][s * Qv:(s + 1) * Qv] = t + n - 1
+            sp = req.sampling
+            arrs["temperature"][s] = sp.temperature
+            arrs["top_k"][s] = sp.top_k
+            arrs["top_p"][s] = sp.top_p
+            if sp.seed is not None:
+                arrs["seeds"][s] = int(sp.seed) & 0x7FFFFFFF
+            arrs["gen0"][s] = len(req.output_token_ids)
+            arrs["spec_n"][s] = nd
+            t += n_row
+
+    _VERIFY_KEYS = ("temperature", "top_k", "top_p", "seeds", "gen0",
+                    "draft_tokens", "spec_n")
+
+    def _build_fused_batch(self, scheduled
+                           ) -> Tuple[Dict[str, torch.Tensor],
+                                      Dict[str, torch.Tensor]]:
+        """(device batch of the forward, host verify rows) of a mixed
+        round.  T, S and Q bucket as in the JAX engine: drafts are
+        budgeted like real tokens, so T covers them."""
+        cfg = self.config
+        n_rows = [sr.num_new_tokens + sr.num_draft_tokens
+                  for sr in scheduled]
+        max_q = max(n_rows, default=1)
+        Q = 1 if max_q == 1 else _next_bucket(
+            max_q, cfg.min_token_bucket, cfg.max_num_batched_tokens)
+        S = _next_bucket(len(scheduled),
+                         min(cfg.min_seq_bucket, cfg.max_num_seqs),
+                         cfg.max_num_seqs)
+        T = _next_bucket(sum(n_rows), cfg.min_token_bucket,
+                         cfg.max_num_batched_tokens)
+        arrs = self._empty_fused_np(T, S, Q, self.max_blocks_per_seq)
+        self._fill_fused_batch(arrs, scheduled)
+        verify = {k: torch.from_numpy(arrs.pop(k)) for k in self._VERIFY_KEYS}
+        batch = {k: torch.from_numpy(v).to(self.device)
+                 for k, v in arrs.items()}
+        return batch, verify
+
+    def _fused_body(self, batch: Dict[str, torch.Tensor],
+                    verify: Dict[str, torch.Tensor], key: prng.Key,
+                    want_lp: bool, want_top: bool) -> List[torch.Tensor]:
+        """The fused mixed round as a function of tensors (the JAX
+        engine's ``fused_fn``): forward over the ragged batch, logits of
+        every verify position, ``spec_verify``, the hidden state gathered
+        at each row's accepted position, ``draft_propose`` from it and
+        the bonus token, and the logprobs of every verify position when
+        a row asks for them.  Returns ``[ids [S, K+1], accepted [S],
+        drafts [S, K]]`` (+ ``lp [S, K+1]``, + top-20 ids and logprobs
+        ``[S, K+1, 20]``), all still on the device."""
+        c, K = self.model_config, self.spec_k
+        hidden = self.model.forward(
+            self.params, self.kv_cache, batch, c, self.config.block_size,
+            self.config.attn_backend)                    # [S*(K+1), D]
+        logits = self.model.compute_logits(self.params, hidden, c)
+        ids, accepted = sampling_ops.spec_verify(
+            logits, verify["draft_tokens"], verify["spec_n"],
+            verify["temperature"], verify["top_k"], verify["top_p"], key,
+            seeds=verify["seeds"], gen0=verify["gen0"],
+            fixed_accept=self.config.spec_fixed_accept,
+            step=self._step_count)
+        S = accepted.shape[0]
+        rows = torch.arange(S, device=ids.device)
+        h_a = hidden.reshape(S, K + 1, -1)[rows, accepted]
+        bonus = ids[rows, accepted]
+        drafts = self.model.draft_propose(self.params, self.draft_params,
+                                          h_a, bonus, K, c)
+        out = [ids, accepted, drafts]
+        if want_top:
+            out.extend(sampling_ops.verify_logprobs(logits, ids, top_n=20))
+        elif want_lp:
+            out.append(sampling_ops.verify_logprobs(logits, ids))
+        return out
+
+    def _run_fused(self, sched: SchedulerOutput) -> List[RequestOutput]:
+        """One fused mixed-round step, whatever the row mix.  Decode rows
+        emit their accepted drafts and the correction or bonus token (1
+        to K+1 tokens) and trim the rejected tail's blocks back to the
+        pool this step; prefill rows advance their chunk with the classic
+        bookkeeping and, when the chunk completes the prompt, emit slot
+        0's first token and keep the drafts proposed from it, so the
+        request's first decode step is already spec-armed.  Logprobs rows
+        get one value (and one top-N dict) per emitted token."""
+        scheduled = sched.scheduled
+        step_t0 = time.monotonic()
+        want_top = any((sr.request.sampling.logprobs or 0) > 0
+                       for sr in scheduled)
+        want_lp = any(sr.request.sampling.logprobs is not None
+                      for sr in scheduled)
+        batch, verify = self._build_fused_batch(scheduled)
+        self._rng, step_key = prng.split(self._rng)
+        fetch = self._fused_body(batch, verify, step_key, want_lp, want_top)
+        # The step's one host sync: the first copy waits for the device.
+        fetched = [t.cpu().numpy() for t in fetch]
+        self._dispatch_count += 1
+        self._step_count += 1
+        self.metrics.engine_dispatches.inc()
+        self.metrics.engine_steps.inc()
+        ids, accepted, drafts = fetched[:3]
+        logprobs = fetched[3] if want_lp else None
+        top = (fetched[4], fetched[5]) if want_top else None
+
+        outputs: List[RequestOutput] = []
+        now = time.monotonic()
+        for s, sr in enumerate(scheduled):
+            req, n = sr.request, sr.num_new_tokens
+            nd = sr.num_draft_tokens
+            # A decode entry has sampled at least one token: a 1-token
+            # final prefill chunk is otherwise indistinguishable.
+            is_decode = (n == 1 and bool(req.output_token_ids)
+                         and req.num_computed_tokens == req.num_tokens - 1)
+            if not is_decode:
+                # ---- prefill chunk (classic bookkeeping) ----
+                req.num_computed_tokens += n
+                self.kv_manager.cache_full_blocks(req)
+                if req.num_computed_tokens != req.num_tokens:
+                    continue          # mid-prefill chunk: sample discarded
+                if req.num_computed_tokens <= req.num_prompt_tokens:
+                    self._count_prefill_done(req, now)
+                elif req.last_token_time is not None:
+                    self.metrics.inter_token_latency.observe(
+                        now - req.last_token_time)
+                req.last_token_time = now
+                new_tokens = [int(ids[s, 0])]
+                req.output_token_ids.append(new_tokens[0])
+                self.metrics.generation_tokens.inc()
+                finish = self._check_stop(req, new_tokens[0])
+            else:
+                # ---- decode row (draft-and-verify bookkeeping) ----
+                a = min(int(accepted[s]), nd)
+                req.spec_drafted += nd
+                req.spec_accepted += a
+                if nd:
+                    self.metrics.spec_draft_tokens.inc(nd)
+                    if a:
+                        self.metrics.spec_accepted_tokens.inc(a)
+                    self.spec_tracker.observe(req.request_id, nd, a)
+                new_tokens = []
+                finish = None
+                for q in range(a + 1):
+                    token = int(ids[s, q])
+                    req.num_computed_tokens += 1
+                    req.output_token_ids.append(token)
+                    new_tokens.append(token)
+                    finish = self._check_stop(req, token)
+                    if finish is not None:
+                        break           # tokens past a stop are discarded
+                self.metrics.generation_tokens.inc(len(new_tokens))
+                if req.last_token_time is not None:
+                    self.metrics.inter_token_latency.observe(
+                        (now - req.last_token_time) / len(new_tokens))
+                req.last_token_time = now
+                self.kv_manager.cache_full_blocks(req)
+            top_lp = None
+            if top is not None and (req.sampling.logprobs or 0) > 0:
+                k = min(int(req.sampling.logprobs), top[0].shape[-1])
+                top_lp = [{int(top[0][s, q, j]): float(top[1][s, q, j])
+                           for j in range(k)}
+                          for q in range(len(new_tokens))]
+            outputs.append(RequestOutput(
+                req.request_id, new_tokens, finish is not None,
+                finish_reason=finish,
+                logprobs=([float(logprobs[s, q])
+                           for q in range(len(new_tokens))]
+                          if req.sampling.logprobs is not None else None),
+                top_logprobs=top_lp))
+            if finish is not None:
+                self.scheduler.finish(req, RequestState(finish))
+                self._spec_forget(req.request_id)
+                self._count_success(req, finish, now)
+                continue
+            # The next step's drafts, proposed on the device from this
+            # step's accepted position; the tag makes them stale if any
+            # other path appends a token first.
+            req.spec_drafts = [int(t) for t in drafts[s]]
+            req.spec_drafts_at = req.num_tokens
+            if is_decode:
+                # Rejection rollback: blocks past the accepted content
+                # (and the pending token's slot) go back this step.
+                self.kv_manager.trim_request(req, req.num_tokens)
+        # Step composition: the decode load counts the verify rows.
+        decode_load = sched.decode_tokens + sched.spec_tokens
+        if sched.prefill_tokens:
+            self.metrics.step_prefill_tokens.inc(sched.prefill_tokens)
+        if decode_load:
+            self.metrics.step_decode_tokens.inc(decode_load)
+        self.step_time_model.observe(
+            sched.prefill_tokens, decode_load, (now - step_t0) * 1e3)
+        self._update_queue_metrics()
+        return outputs
+
     # ---------- step ----------
 
     def step(self) -> List[RequestOutput]:
@@ -626,10 +1012,17 @@ class EngineCore:
         for req in sched.preempted:      # requests finished by the scheduler
             if req.state is RequestState.FINISHED_DEADLINE:
                 self.metrics.inc_deadline_exceeded(req.criticality)
+            self._spec_forget(req.request_id)
             outputs.append(RequestOutput(
                 req.request_id, [], True, finish_reason=req.state.value))
         if sched.empty:
             self._update_queue_metrics()
+            return outputs
+
+        if self.spec_k > 0:
+            # Whatever this pass scheduled (prefill chunks, plain decodes,
+            # draft-verify rows, logprobs rows) runs as one fused round.
+            outputs.extend(self._run_fused(sched))
             return outputs
 
         K = self._try_multistep(sched)
@@ -643,6 +1036,7 @@ class EngineCore:
 
         batch, host = self._build_batch(sched)
         scheduled = sched.scheduled
+        step_t0 = time.monotonic()
         self._rng, step_key = prng.split(self._rng)
         hidden = self.model.forward(
             self.params, self.kv_cache, batch, self.model_config,
@@ -682,16 +1076,7 @@ class EngineCore:
             if req.num_computed_tokens != req.num_tokens:
                 continue                  # mid-prefill chunk: no sampling yet
             if req.num_computed_tokens <= req.num_prompt_tokens:
-                # Prefill just completed.
-                self.metrics.prompt_tokens.inc(req.num_prompt_tokens)
-                if req.num_cached_prompt_tokens:
-                    self.metrics.prefix_cache_hits.inc(
-                        req.num_cached_prompt_tokens)
-                self.metrics.prefix_cache_queries.inc(req.num_prompt_tokens)
-                if req.first_token_time is None:
-                    req.first_token_time = now
-                    self.metrics.time_to_first_token.observe(
-                        now - req.arrival_time)
+                self._count_prefill_done(req, now)
             elif req.last_token_time is not None:
                 self.metrics.inter_token_latency.observe(
                     now - req.last_token_time)
@@ -719,8 +1104,20 @@ class EngineCore:
             self.metrics.step_prefill_tokens.inc(sched.prefill_tokens)
         if sched.decode_tokens:
             self.metrics.step_decode_tokens.inc(sched.decode_tokens)
+        self.step_time_model.observe(
+            sched.prefill_tokens, sched.decode_tokens, (now - step_t0) * 1e3)
         self._update_queue_metrics()
         return outputs
+
+    def _count_prefill_done(self, req: Request, now: float) -> None:
+        """Prompt, prefix-cache and TTFT counts of a finished prefill."""
+        self.metrics.prompt_tokens.inc(req.num_prompt_tokens)
+        if req.num_cached_prompt_tokens:
+            self.metrics.prefix_cache_hits.inc(req.num_cached_prompt_tokens)
+        self.metrics.prefix_cache_queries.inc(req.num_prompt_tokens)
+        if req.first_token_time is None:
+            req.first_token_time = now
+            self.metrics.time_to_first_token.observe(now - req.arrival_time)
 
     def _count_success(self, req: Request, finish: str, now: float) -> None:
         self.metrics.request_success.labels(

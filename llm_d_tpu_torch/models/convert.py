@@ -4,7 +4,9 @@ The tree has the JAX package's layout (``embed``, ``dense_layers``,
 ``moe_layers``, ...), e.g. ``jax.tree.map(np.asarray, params)``.  bf16
 arrays (``ml_dtypes.bfloat16``) cross as raw ``uint16`` bits, so values
 are bit-identical on both sides; int8 payloads and f32 scales (from
-``quantize_moe_experts``) cross as they are.
+``quantize_moe_experts``) cross as they are.  The MTP drafter's tree
+(``init_draft_params``; the JAX engine's ``draft_params``) crosses the
+same way and goes to ``EngineCore(..., draft_params=...)``.
 """
 
 from __future__ import annotations

@@ -148,6 +148,66 @@ def compute_logits(params: Params, hidden: torch.Tensor,
     return torch.matmul(hidden.float(), head.float())
 
 
+def init_draft_params(config: ModelConfig, generator: torch.Generator,
+                      device) -> Params:
+    """The MTP-style drafter (``llama.init_draft_params``): the last
+    hidden state and the embedding of the token just sampled, each
+    normed, through a ``[2D, D]`` projection plus one SwiGLU MLP; the
+    target's embedding and head give the draft logits, and the same
+    module serves every draft depth.  A tree of its own, apart from the
+    target's parameters (same shapes and scales as the JAX package; the
+    random bits differ)."""
+    c = config
+    dt = c.torch_dtype
+    D, I = c.hidden_size, c.intermediate_size
+
+    def w(shape):
+        return normal_param(shape, shape[0] ** -0.5, dt, generator, device)
+
+    def ones(shape):
+        return torch.ones(shape, dtype=dt, device=device)
+
+    return {
+        "h_norm": ones((D,)),
+        "e_norm": ones((D,)),
+        "proj": w((2 * D, D)),
+        "mlp_norm": ones((D,)),
+        "gate_proj": w((D, I)),
+        "up_proj": w((D, I)),
+        "down_proj": w((I, D)),
+    }
+
+
+def draft_propose(params: Params, draft_params: Params, hidden: torch.Tensor,
+                  last_ids: torch.Tensor, K: int,
+                  config: ModelConfig) -> torch.Tensor:
+    """Greedy MTP rollout (``llama.draft_propose``): ``K`` draft ids
+    ``[S, K]`` from the target's hidden state ``hidden [S, D]`` at the
+    position that sampled ``last_ids [S]``; each depth folds the previous
+    draft's embedding back in.  Drafts are greedy whatever the request's
+    sampling (ties to the lower id): the verifier compares them with the
+    target's own samples."""
+    c, dp = config, draft_params
+    eps = c.rms_norm_eps
+    h, tok = hidden, last_ids.long()
+    out = []
+    for _ in range(K):
+        e = params["embed"][tok].to(h.dtype)
+        x = torch.cat([L.rms_norm(h, dp["h_norm"], eps),
+                       L.rms_norm(e, dp["e_norm"], eps)], dim=-1)
+        # Under jit XLA feeds the MLP's norm the f32 product (the f32 ->
+        # bf16 -> f32 convert pair is dropped); the residual sum adds the
+        # rounded one.
+        h2_32 = torch.matmul(x.float(), dp["proj"].float())
+        h2 = h2_32.to(h.dtype)
+        hn = L.rms_norm(h2_32, dp["mlp_norm"], eps).to(h.dtype)
+        h = h2 + L.swiglu_mlp(hn, dp["gate_proj"], dp["up_proj"],
+                              dp["down_proj"])
+        tok = torch.argmax(compute_logits(params, h, c), dim=-1)
+        out.append(tok)
+    return torch.stack(out, dim=1).to(torch.int32)
+
+
 def kv_cache_layout(config: ModelConfig) -> Dict[str, int]:
     """Per-buffer cache row widths (folded ``[KVH*D]`` layout)."""
     w = config.num_kv_heads * config.head_dim_

@@ -16,10 +16,11 @@ from typing import Any, Dict
 import torch
 
 from llm_d_tpu_torch.models.config import ModelConfig
-# compute_logits is shared with the dense family and is part of this
-# module's model API (init_params / forward / compute_logits /
-# kv_cache_layout).
-from llm_d_tpu_torch.models.llama import compute_logits  # noqa: F401
+# The logits head and the MTP drafter are shared with the dense family
+# and are part of this module's model API (the drafter reads only the
+# embedding and head of the target, which both families carry alike).
+from llm_d_tpu_torch.models.llama import (  # noqa: F401
+    compute_logits, draft_propose, init_draft_params)
 from llm_d_tpu_torch.models.llama import normal_param
 from llm_d_tpu_torch.models.mla import mla_attention_block, mla_param_shapes
 from llm_d_tpu_torch.ops import layers as L

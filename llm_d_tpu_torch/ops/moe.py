@@ -39,18 +39,13 @@ GROUPED_INT8_MIN_T = 512
 PREFILL_CHUNK_T = 512
 
 
-def route(router_logits: torch.Tensor, config: ModelConfig,
-          e_bias: Optional[torch.Tensor] = None
-          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k expert selection with optional DeepSeek group-limited routing:
-    (weights [T, k] f32, idx [T, k] int32).  ``sigmoid`` scoring adds the
-    bias for selection only; ties go to the lower expert id, as with
-    ``jax.lax.top_k``."""
-    c = config
-    T, E = router_logits.shape
-    k = c.num_experts_per_tok
+def route_scores(router_logits: torch.Tensor, config: ModelConfig,
+                 e_bias: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(gate scores, selection scores) [T, E] f32: ``sigmoid`` scoring
+    adds the bias for selection only."""
     logits = router_logits.float()
-    if c.scoring_func == "sigmoid":
+    if config.scoring_func == "sigmoid":
         # 1 / (1 + exp(-x)) op by op, as jax.nn.sigmoid lowers.
         scores = 1.0 / (1.0 + torch.exp(-logits))
         choice = scores + (e_bias.float()[None, :]
@@ -58,22 +53,42 @@ def route(router_logits: torch.Tensor, config: ModelConfig,
     else:
         scores = torch.softmax(logits, dim=-1)
         choice = scores
+    return scores, choice
+
+
+def gate_weights(scores: torch.Tensor, idx: torch.Tensor,
+                 config: ModelConfig) -> torch.Tensor:
+    """Combine weights [T, k] f32 of the chosen experts ``idx`` from the
+    gate scores (renormalized and scaled as the config says)."""
+    weights = torch.gather(scores, 1, idx.long())
+    if config.moe_renormalize:
+        weights = weights / torch.clamp_min(
+            weights.sum(-1, keepdim=True), 1e-20)
+    return (weights * config.routed_scaling_factor).float()
+
+
+def route(router_logits: torch.Tensor, config: ModelConfig,
+          e_bias: Optional[torch.Tensor] = None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k expert selection with optional DeepSeek group-limited routing:
+    (weights [T, k] f32, idx [T, k] int32).  Ties go to the lower expert
+    id, as with ``jax.lax.top_k``."""
+    c = config
+    T, E = router_logits.shape
+    k = c.num_experts_per_tok
+    scores, choice = route_scores(router_logits, c, e_bias)
     if c.n_group > 0:
         g = c.n_group
         gs = choice.reshape(T, g, E // g)
         top2 = top_k_stable(gs, min(2, E // g))[0].sum(-1)       # [T, g]
         _, keep = top_k_stable(top2, c.topk_group)
-        mask = torch.zeros((T, g), dtype=torch.bool, device=logits.device)
+        mask = torch.zeros((T, g), dtype=torch.bool,
+                           device=router_logits.device)
         mask.scatter_(1, keep, True)
         choice = torch.where(mask.repeat_interleave(E // g, dim=1), choice,
                              torch.full_like(choice, float("-inf")))
     _, idx = top_k_stable(choice, k)
-    weights = torch.gather(scores, 1, idx)
-    if c.moe_renormalize:
-        weights = weights / torch.clamp_min(
-            weights.sum(-1, keepdim=True), 1e-20)
-    weights = weights * c.routed_scaling_factor
-    return weights.float(), idx.to(torch.int32)
+    return gate_weights(scores, idx, c), idx.to(torch.int32)
 
 
 def _combine_matrix(T: int, E: int, idx: torch.Tensor,

@@ -18,9 +18,9 @@ builds.
 * ``fold_in(key, d)`` is ``threefry2x32(key, (0, d))``, and ``split(key,
   n)[i]`` is ``fold_in(key, i)`` (the partitionable split).
 * ``random_bits(key, n)`` hashes the counters ``(0, i)``, i < n, and XORs
-  the two output words; ``gumbel`` turns them into uniforms with the
-  mantissa trick ``(bits >> 9) | 0x3F800000`` minus 1, clamps at
-  ``finfo.tiny`` and takes ``-log(-log(u))``.
+  the two output words; ``uniform`` turns them into [0, 1) with the
+  mantissa trick ``(bits >> 9) | 0x3F800000`` minus 1, and ``gumbel``
+  does the same, clamps at ``finfo.tiny`` and takes ``-log(-log(u))``.
 
 The logarithm is the one XLA's CPU backend emits (Cephes' polynomial with
 its split ln 2, evaluated by fused multiply-adds), written out in f32
@@ -80,11 +80,13 @@ def split(key: Key, num: int = 2) -> List[Key]:
     return [fold_in(key, i) for i in range(num)]
 
 
-def random_bits(key: Key, n: int) -> torch.Tensor:
+def random_bits(key: Key, n: int, device=None) -> torch.Tensor:
     """32 random bits ``[..., n]`` (int64) per key of shape ``[...]``
-    (``jax.random.bits`` at uint32)."""
+    (``jax.random.bits`` at uint32; for a shape of several dimensions
+    the bits of its row-major flattening), on the keys' device or, for a
+    key of ints, on ``device``."""
     k0, k1 = key
-    dev = k0.device if isinstance(k0, torch.Tensor) else None
+    dev = k0.device if isinstance(k0, torch.Tensor) else device
     counts = torch.arange(n, dtype=torch.int64, device=dev)
     k0 = k0[..., None] if isinstance(k0, torch.Tensor) else k0
     k1 = k1[..., None] if isinstance(k1, torch.Tensor) else k1
@@ -149,11 +151,21 @@ def xla_log(x: torch.Tensor) -> torch.Tensor:
     return x + e * c(0.693359375)
 
 
+def _one_to_two(bits: torch.Tensor) -> torch.Tensor:
+    """f32 in [1, 2) from the top 23 of 32-bit words."""
+    return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+
+
 def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
     """``jax.random.uniform(minval=tiny, maxval=1)`` from 32-bit words."""
-    one = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    u = (one - 1.0) + _F32_TINY      # (1 - tiny) rounds to 1 in f32
+    u = (_one_to_two(bits) - 1.0) + _F32_TINY  # (1 - tiny) rounds to 1
     return torch.clamp_min(u, _F32_TINY)
+
+
+def uniform(key: Key, n: int, device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, (n,), float32)`` (range [0, 1)): ``[...,
+    n]`` f32 per key of shape ``[...]``."""
+    return _one_to_two(random_bits(key, n, device)) - 1.0
 
 
 def gumbel(key: Key, n: int) -> torch.Tensor:

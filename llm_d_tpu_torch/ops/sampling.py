@@ -1,7 +1,8 @@
 """Batched sampling: greedy / temperature / top-k / top-p.
 
-Port of ``llm_d_tpu.ops.sampling`` (``sample``, ``compute_logprobs``,
-``compute_top_logprobs``).  Greedy rows match the JAX package exactly.
+Port of ``llm_d_tpu.ops.sampling`` (``sample``, ``spec_verify``,
+``compute_logprobs``, ``verify_logprobs``, ``compute_top_logprobs``).
+Greedy rows match the JAX package exactly.
 
 Random rows add Gumbel noise to the masked top-``TOPK_MAX`` logits and
 take the argmax, with the JAX package's keys and bits (``ops/prng.py``,
@@ -122,6 +123,64 @@ def sample(
     return torch.where(temp_d <= 0.0, greedy_ids, sampled)
 
 
+# The key of the fixed-acceptance coin, folded with the engine step.
+ACCEPT_COIN_SEED = 0x5BEC
+
+
+def accept_coin(step: int, S: int, K: int, device) -> torch.Tensor:
+    """``jax.random.uniform(fold_in(PRNGKey(0x5BEC), step), (S, K))``,
+    bit for bit, on ``device``."""
+    key = prng.fold_in(prng.prng_key(ACCEPT_COIN_SEED), int(step))
+    return prng.uniform(key, S * K, device).reshape(S, K)
+
+
+def spec_verify(
+    logits: torch.Tensor,          # [S*(K+1), V] f32, position-major per seq
+    draft_tokens: torch.Tensor,    # [S, K] drafted ids fed at slots 1..K
+    spec_n: torch.Tensor,          # [S] live drafts per seq (0 = plain)
+    temperature: torch.Tensor,     # [S] f32
+    top_k: torch.Tensor,           # [S] i32
+    top_p: torch.Tensor,           # [S] f32
+    key: prng.Key,
+    seeds: torch.Tensor,           # [S] i32, -1 = unseeded
+    gen0: torch.Tensor,            # [S] i32 tokens emitted before this step
+    fixed_accept: Optional[float] = None,
+    step: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:   # (ids [S, K+1], accepted [S])
+    """Draft verification and bonus sampling (``sampling.spec_verify``).
+
+    Every verify position samples the target's token with the randomness
+    the non-spec engine would use there: ``sample`` over the ``S*(K+1)``
+    rows, parameters repeated per position, seeded rows at ``gen_idx =
+    gen0 + q``.  A draft is accepted while it equals the target's sample
+    at its position (and is live), so the emitted prefix ``ids[:,
+    :accepted + 1]`` is the non-spec output for greedy and seeded rows.
+
+    ``fixed_accept`` (bench only) replaces the equality with a coin
+    keyed on (``step``, row): ``accept_coin(step) < fixed_accept``.  The
+    per-row parameters may live on the CPU, as for ``sample``."""
+    S, K = draft_tokens.shape
+    Q = K + 1
+    dev = logits.device
+
+    def rep(x):
+        return torch.repeat_interleave(x, Q)
+
+    gen_idx = (gen0.to(torch.int64)[:, None]
+               + torch.arange(Q, dtype=torch.int64)[None, :]).reshape(-1)
+    ids = sample(logits, rep(temperature), rep(top_k), rep(top_p), key=key,
+                 seeds=rep(seeds), gen_idx=gen_idx).reshape(S, Q)
+    if fixed_accept is not None:
+        match = accept_coin(step, S, K, dev) < torch.tensor(
+            fixed_accept, dtype=torch.float32, device=dev)
+    else:
+        match = draft_tokens.to(dev, torch.int64) == ids[:, :K]
+    live = (torch.arange(K, device=dev)[None, :]
+            < spec_n.to(dev)[:, None])
+    accepted = torch.cumprod((match & live).to(torch.int32), dim=1).sum(1)
+    return ids, accepted
+
+
 def compute_logprobs(logits: torch.Tensor,
                      token_ids: torch.Tensor) -> torch.Tensor:
     """Log-probability of the chosen tokens. logits [S, V], ids [S]."""
@@ -136,3 +195,18 @@ def compute_top_logprobs(logits: torch.Tensor, token_ids: torch.Tensor,
     chosen = torch.gather(logp, 1, token_ids[:, None].long())[:, 0]
     top_lps, top_ids = top_k_stable(logp, n)
     return chosen, top_ids.to(torch.int32), top_lps
+
+
+def verify_logprobs(logits: torch.Tensor, ids: torch.Tensor,
+                    top_n: int = 0):
+    """Logprobs of every verify position: ``logits`` [S*(K+1), V] as
+    ``spec_verify`` takes them, ``ids`` [S, K+1] its samples.  Returns
+    ``lp [S, K+1]`` and, with ``top_n > 0``, ``top_ids`` / ``top_lps``
+    ``[S, K+1, top_n]``; the host keeps the accepted prefix."""
+    S, Q = ids.shape
+    flat = ids.reshape(-1)
+    if top_n <= 0:
+        return compute_logprobs(logits, flat).reshape(S, Q)
+    chosen, top_ids, top_lps = compute_top_logprobs(logits, flat, top_n)
+    return (chosen.reshape(S, Q), top_ids.reshape(S, Q, top_n),
+            top_lps.reshape(S, Q, top_n))

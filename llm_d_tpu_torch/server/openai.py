@@ -23,11 +23,18 @@ surface:
 The HTTP layer is the standard library's (``server/http_server.py``):
 the card machine has no aiohttp.
 
+``logprobs`` / ``top_logprobs`` are served on completions and chat in
+the JAX server's response shape (in the final JSON body; streamed chunks
+carry none, as the JAX server's carry none), and ``--spec-k`` serves
+speculative decode (``--spec-strict`` is accepted and does nothing: no
+startup condition demotes spec decode in this engine).
+
 Not served yet (each refused with a status and a message naming it, not
-quietly dropped): ``logprobs``, ``kv_transfer_params`` (PD
-disaggregation), mid-stream ``resume``, ``/debug/traces``, and the CLI
-flags of multi-device serving, KV offload, DBO, EPLB, spec decode, the
-KV connector and KV events (``UNSERVED_FLAGS``).
+quietly dropped): ``kv_transfer_params`` (PD disaggregation), mid-stream
+``resume``, ``/debug/traces``, ``--spec-k`` with
+``--num-scheduler-steps`` > 1 (the fused multistep pipeline), and the
+CLI flags of multi-device serving, KV offload, DBO, EPLB, the KV
+connector and KV events (``UNSERVED_FLAGS``).
 """
 
 from __future__ import annotations
@@ -70,6 +77,13 @@ CHUNK_META_KEY = "llmd"
 
 
 def _sampling_from_body(body: Dict[str, Any]) -> SamplingParams:
+    lp = body.get("logprobs")
+    if lp is True:
+        # Chat schema: a boolean switch and a separate count of
+        # alternatives (0 or absent: the chosen token's logprob only).
+        lp = int(body.get("top_logprobs") or 0)
+    elif lp is False:
+        lp = None
     return SamplingParams(
         temperature=float(body.get("temperature", 1.0)),
         top_p=float(body.get("top_p", 1.0)),
@@ -79,13 +93,12 @@ def _sampling_from_body(body: Dict[str, Any]) -> SamplingParams:
         stop=tuple(body.get("stop") or ()),
         seed=body.get("seed"),
         ignore_eos=bool(body.get("ignore_eos", False)),
+        logprobs=lp,
     )
 
 
 def _unported(body: Dict[str, Any], headers: Dict[str, str]) -> Optional[str]:
     """What a request asks for that this server does not serve, or None."""
-    if body.get("logprobs") not in (None, False) or body.get("top_logprobs"):
-        return "logprobs: device logprobs are not ported"
     if body.get("kv_transfer_params"):
         return ("kv_transfer_params: PD disaggregation needs the KV "
                 "connector, which is not ported")
@@ -395,10 +408,17 @@ class ModelServer:
             return resp
 
         final_out = None
+        lp_ids: List[int] = []
+        lp_vals: List[float] = []
+        lp_tops: List[Dict[int, float]] = []
         async with contextlib.aclosing(
                 self.async_engine.generate(req)) as outs:
             async for out in outs:
                 final_out = out
+                if req.sampling.logprobs is not None:
+                    lp_ids.extend(out.new_token_ids)
+                    lp_vals.extend(out.logprobs or [])
+                    lp_tops.extend(out.top_logprobs or [])
         text = self.tokenizer.decode(req.output_token_ids)
         text, stopped = self._apply_stop_strings(req, text, text)
         finish_reason = final_out.finish_reason if final_out else None
@@ -422,12 +442,41 @@ class ModelServer:
             }],
             "usage": self._usage(req, body),
         }
+        if req.sampling.logprobs is not None and lp_ids:
+            payload["choices"][0]["logprobs"] = self._logprobs_field(
+                lp_ids, lp_vals, lp_tops, chat)
         # This request already left the scheduler: the depth is everyone
         # still queued or running behind it.
         headers = {SCHED_DEPTH_HEADER: str(self._sched_depth())}
         if finish_reason == "deadline":
             headers[DEADLINE_EXCEEDED_HEADER] = "1"
         return json_response(payload, headers=headers)
+
+    def _logprobs_field(self, ids: List[int], values: List[float],
+                        tops: List[Dict[int, float]],
+                        chat: bool) -> Dict[str, Any]:
+        """The ``logprobs`` of a choice: each token's logprob and its
+        top-N alternatives, in the chat or the completions schema."""
+        toks = [self.tokenizer.decode([t]) for t in ids]
+        if chat:
+            return {"content": [
+                {"token": tok, "logprob": lp,
+                 "top_logprobs": [{"token": self.tokenizer.decode([tid]),
+                                   "logprob": v} for tid, v in top.items()]}
+                for tok, lp, top in zip(toks, values,
+                                        tops or [{}] * len(toks))]}
+        offsets, pos = [], 0
+        for t in toks:
+            offsets.append(pos)
+            pos += len(t)
+        return {
+            "tokens": toks,
+            "token_logprobs": values,
+            "top_logprobs": [{self.tokenizer.decode([tid]): v
+                              for tid, v in top.items()}
+                             for top in tops] if tops else None,
+            "text_offset": offsets,
+        }
 
     async def _stream_tokens_into(self, resp, req: Request,
                                   body: Dict[str, Any], chat: bool,
@@ -532,6 +581,7 @@ def engine_config_from_args(args) -> EngineConfig:
         async_scheduling=args.async_scheduling,
         quantization=args.quantization,
         kv_cache_dtype=args.kv_cache_dtype,
+        spec_k=args.spec_k,
         device=args.device)
 
 
@@ -566,8 +616,6 @@ UNSERVED_FLAGS = {
     "dbo_prefill_token_threshold": "dual-batch overlap is not ported",
     "enable_eplb": "EPLB is not ported",
     "eplb_config": "EPLB is not ported",
-    "spec_k": "speculative decode is not ported",
-    "spec_strict": "speculative decode is not ported",
     "kv_transfer_config": "the KV connector (PD disaggregation) is not "
                           "ported",
     "kv_events_endpoint": "the KV-events publisher is not ported",
@@ -617,15 +665,26 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="MoE expert-weight quantization")
     p.add_argument("--kv-cache-dtype", default=None,
                    choices=[None, "bf16", "int8"],
-                   help="paged-KV cache dtype (default bf16)")
+                   help="paged-KV cache dtype (default: LLMD_KV_CACHE_DTYPE, "
+                        "else bf16; LLMD_MLA_LATENT_DTYPE gates the MLA "
+                        "latent separately)")
     p.add_argument("--kv-cache-hbm-gb", type=float, default=None)
     p.add_argument("--enable-dbo", action="store_true")
     p.add_argument("--dbo-decode-token-threshold", type=int, default=32)
     p.add_argument("--dbo-prefill-token-threshold", type=int, default=32)
     p.add_argument("--enable-eplb", action="store_true")
     p.add_argument("--eplb-config", default=None)
-    p.add_argument("--spec-k", type=int, default=None)
-    p.add_argument("--spec-strict", action="store_true")
+    p.add_argument(
+        "--spec-k", type=int, default=None,
+        help="speculative decode (MTP draft-and-verify): draft tokens per "
+             "decode step, verified in one fused forward; greedy and "
+             "seeded output equals non-spec decode.  Default: LLMD_SPEC_K "
+             "(0 = off); needs --num-scheduler-steps 1")
+    p.add_argument(
+        "--spec-strict", action="store_true",
+        help="refuse to start instead of demoting spec decode at startup; "
+             "accepted for the JAX server's command line, a no-op here: "
+             "nothing demotes spec decode at startup in this engine")
     p.add_argument("--kv-transfer-config", default=None)
     p.add_argument("--kv-events-endpoint", default=None)
     p.add_argument("--pod-identity", default=None)
@@ -638,11 +697,15 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 def check_served(parser: argparse.ArgumentParser, args) -> None:
     """``parser.error`` for the first unserved flag set to anything but
-    its default."""
+    its default, and for spec decode over multistep blocks."""
     for dest, why in UNSERVED_FLAGS.items():
         if getattr(args, dest) != parser.get_default(dest):
             flag = "--" + dest.replace("_", "-")
             parser.error(f"{flag} is not served by the PyTorch port: {why}")
+    if (args.spec_k or 0) > 0 and args.num_scheduler_steps > 1:
+        parser.error("--spec-k with --num-scheduler-steps > 1 is not served "
+                     "by the PyTorch port: the fused multistep pipeline is "
+                     "not ported")
 
 
 def main(argv: Optional[List[str]] = None) -> None:

@@ -410,6 +410,11 @@ class EngineMetrics:
         self._deadline_exceeded.labels(
             model_name=self.model_name, criticality=criticality).inc()
 
+    def inc_feature_disabled(self, feature: str, blocker: str) -> None:
+        self._feature_disabled.labels(
+            model_name=self.model_name, feature=feature,
+            blocker=blocker).inc()
+
     def render(self) -> bytes:
         return self.registry.render()
 

@@ -15,7 +15,9 @@ kernels (C-F) max error / max |output| <= 1e-2
 The multistep engine's decode blocks (one CUDA graph each) are held to
 their eager body bit for bit, async scheduling to sync and to the
 classic loop token for token, and a capture that meets a host sync must
-raise.  The OpenAI server over the same engine answers with the direct
+raise.  The spec engine's fused rounds repeat token for token and free
+their rejected blocks, and its acceptance coin is the CPU's bit for
+bit.  The OpenAI server over the same engine answers with the direct
 engine's tokens.
 """
 
@@ -640,6 +642,71 @@ def test_gumbel_noise_on_the_card_is_the_cpu_noise(dev):
     cpu = row_noise(6, 64, torch.device("cpu"), step, seeds, gen)
     card = row_noise(6, 64, dev, step, seeds.to(dev), gen.to(dev)).cpu()
     assert torch.equal(cpu.view(torch.int32), card.view(torch.int32))
+
+
+def test_accept_coin_on_the_card_is_the_cpu_coin(dev):
+    """The fixed-acceptance coin (threefry bits and the [0, 1) mantissa
+    trick) drawn on the card is bit-equal to the CPU's, at bench_spec's
+    (256, 4) over 64 steps."""
+    from llm_d_tpu_torch.ops.sampling import accept_coin
+    for step in range(64):
+        cpu = accept_coin(step, 256, 4, "cpu")
+        card = accept_coin(step, 256, 4, dev).cpu()
+        assert torch.equal(cpu.view(torch.int32), card.view(torch.int32))
+
+
+@pytest.mark.parametrize("fixed", [None, 0.7])
+def test_spec_engine_on_the_card_repeats_and_frees_its_blocks(dev, fixed):
+    """Two layers of deepseek-v3-bench at full width with spec decode (K =
+    4, real verification or the fixed coin): a mixed wave (12 prompts,
+    half of them added while the rest decode) served by two engines on
+    the same weights (the coin follows the engine's step count) gives
+    the same tokens, every request ends by length, kernel B ran the
+    verify rows (Q = 16), and the pool is whole again after each
+    wave."""
+    from llm_d_tpu_torch.ops import mla_prefill as MP
+    engines = [_bench_2layer_engine(dev, spec_k=4, spec_fixed_accept=fixed)]
+    engines.append(_bench_2layer_engine(
+        dev, params=engines[0].params, spec_k=4, spec_fixed_accept=fixed))
+    free0 = engines[0].kv_manager.num_free_blocks
+    seen = []
+    real = MP.mla_flash_prefill
+
+    def spy(qs, *a, **kw):
+        seen.append(qs.shape[1])
+        return real(qs, *a, **kw)
+
+    spy.launches = 0
+
+    def wave(eng, tag):
+        g = torch.Generator().manual_seed(5)
+        reqs = [Request(f"{tag}{i}", torch.randint(
+            1, 32768, (20 + 9 * i,), generator=g).tolist(), SamplingParams(
+                temperature=0.0, max_tokens=24, ignore_eos=True))
+            for i in range(12)]
+        for r in reqs[:6]:
+            eng.add_request(r)
+        for r in reqs[6:]:
+            eng.step()
+            eng.add_request(r)
+        while eng.has_work():
+            eng.step()
+        assert all(len(r.output_token_ids) == 24 for r in reqs)
+        assert eng.kv_manager.num_free_blocks == free0
+        assert eng.kv_manager._ref == {}
+        return [r.output_token_ids for r in reqs], reqs
+
+    MP.mla_flash_prefill = spy
+    try:
+        first, reqs = wave(engines[0], "s")
+        again, _ = wave(engines[1], "t")
+    finally:
+        MP.mla_flash_prefill = real
+    assert first == again
+    assert 16 in seen
+    assert sum(r.spec_drafted for r in reqs) > 0
+    if fixed is not None:
+        assert sum(r.spec_accepted for r in reqs) > 0
 
 
 def _bench_2layer_engine(dev, params=None, **over):

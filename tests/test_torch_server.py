@@ -18,10 +18,17 @@ schedule; the comparisons are exact:
 * ``/metrics``: the same ``vllm:*`` families, and equal counters and
   histogram counts after the same requests, read with the JAX package's
   ``parse_prometheus_text``; the unchanged EPP ``Datastore.scrape_once``
-  reads the port server's load gauges.
+  reads the port server's load gauges;
+* ``logprobs`` / ``top_logprobs`` on completions and chat, streamed and
+  not: the same reply shape and tokens, logprob values at atol = rtol =
+  2e-2 (the forwards differ by one bf16 ulp in a few hidden elements);
+* ``--spec-k 4`` (``tiny`` with speculative decode, the drafter's weights
+  carried across too): the JAX spec server's tokens, plain and with
+  logprobs.
 
-Port-only checks: unported features (``logprobs``, ``kv_transfer_params``,
-resume) and unserved CLI flags are refused with a message naming them,
+Port-only checks: unported features (``kv_transfer_params``, resume),
+unserved CLI flags and ``--spec-k`` with ``--num-scheduler-steps`` > 1
+are refused with a message naming them,
 and ``python -m llm_d_tpu_torch.server.openai`` serves with aiohttp,
 prometheus_client and requests blocked, then drains and exits 0 on
 SIGTERM.  Every HTTP call has its own timeout.
@@ -63,6 +70,7 @@ MODES = {
     "tiny-mla-k4": dict(model="tiny-mla", quantization="int8",
                         kv_cache_dtype="int8", num_scheduler_steps=4,
                         async_scheduling=True),
+    "tiny-spec": dict(model="tiny", kv_cache_dtype="bf16", spec_k=4),
 }
 
 
@@ -142,8 +150,14 @@ class _Pair:
     def __init__(self, mode: str) -> None:
         kw = _kw(mode)
         jeng = JEngineCore(JEngineConfig(**kw))
-        teng = EngineCore(EngineConfig(device="cpu", **kw), params=params_from_numpy(
-            jax.tree.map(np.asarray, jeng.params), "cpu"))
+
+        def tree(p):
+            return params_from_numpy(jax.tree.map(np.asarray, p), "cpu")
+
+        teng = EngineCore(EngineConfig(device="cpu", **kw),
+                          params=tree(jeng.params),
+                          draft_params=(tree(jeng.draft_params)
+                                        if jeng.draft_params else None))
         self.jax_server = jbuild_server(None, engine=jeng, model_name="m")
         self.port_server = TServer.build_server(None, engine=teng,
                                                 model_name="m")
@@ -171,6 +185,13 @@ def tiny():
 @pytest.fixture(scope="module")
 def tiny_mla_k4():
     pair = _Pair("tiny-mla-k4")
+    yield pair
+    pair.close()
+
+
+@pytest.fixture(scope="module")
+def tiny_spec():
+    pair = _Pair("tiny-spec")
     yield pair
     pair.close()
 
@@ -407,9 +428,109 @@ def test_multistep_async_greedy_equals_the_jax_server(tiny_mla_k4, prompt):
     assert _counts(tm, names) == _counts(jm, names)
 
 
+def _logprobs(reply, chat):
+    """A reply's logprobs field as (token strings, values, top lists of
+    (token, value)), plus the completions schema's text offsets."""
+    lp = reply.json()["choices"][0]["logprobs"]
+    if chat:
+        items = lp["content"]
+        return ([x["token"] for x in items], [x["logprob"] for x in items],
+                [[(t["token"], t["logprob"]) for t in x["top_logprobs"]]
+                 for x in items], None)
+    tops = [list(t.items()) for t in lp["top_logprobs"] or []]
+    return lp["tokens"], lp["token_logprobs"], tops, lp["text_offset"]
+
+
+def _same_logprobs(t, j, chat):
+    """Equal tokens and offsets, values at atol = rtol = 2e-2."""
+    tt, tv, ttop, toff = _logprobs(t, chat)
+    jt, jv, jtop, joff = _logprobs(j, chat)
+    assert tt == jt and toff == joff
+    np.testing.assert_allclose(tv, jv, atol=2e-2, rtol=2e-2)
+    assert [[tok for tok, _ in row] for row in ttop] == \
+        [[tok for tok, _ in row] for row in jtop]
+    for trow, jrow in zip(ttop, jtop):
+        np.testing.assert_allclose([v for _, v in trow], [v for _, v in jrow],
+                                   atol=2e-2, rtol=2e-2)
+    assert all(v <= 0 for v in tv)
+    return tt, tv, ttop
+
+
+def _logprobs_body(chat, stream, top):
+    body = dict(GREEDY, model="m", max_tokens=6, stream=stream)
+    if chat:
+        body.update(messages=[{"role": "user", "content": "probe"}],
+                    logprobs=True)
+        if top is not None:
+            body["top_logprobs"] = top
+        return "/v1/chat/completions", body
+    body.update(prompt=[9, 41, 7, 300], logprobs=top or 0)
+    return "/v1/completions", body
+
+
+@pytest.mark.parametrize("chat,top", [(False, 3), (False, 0), (True, 2),
+                                      (True, None)])
+def test_logprobs_equal_the_jax_server(tiny, chat, top):
+    """Completions ``logprobs=N`` and chat ``logprobs=true`` (with and
+    without ``top_logprobs``): the reply equals the JAX server's but for
+    the logprob values, which match at 2e-2; in chat the greedy token
+    heads its sorted top list."""
+    path, body = _logprobs_body(chat, False, top)
+    j, t = tiny.both("POST", path, json=body)
+    assert j.status_code == t.status_code == 200
+    strip = [_strip(r.json()) for r in (t, j)]
+    for s in strip:
+        s["choices"][0].pop("logprobs")
+    assert strip[0] == strip[1]
+    toks, _, tops = _same_logprobs(t, j, chat)
+    assert len(toks) == 6
+    if not top:
+        assert all(row == [] for row in tops)
+    elif chat:
+        # (The completions schema keys alternatives by their text, which
+        # the byte tokenizer repeats across ids.)
+        assert all(len(row) == top and row[0][0] == tok
+                   and [v for _, v in row] == sorted(
+                       (v for _, v in row), reverse=True)
+                   for row, tok in zip(tops, toks))
+
+
+@pytest.mark.parametrize("chat", [False, True])
+def test_streamed_logprobs_requests_equal_the_jax_server(tiny, chat):
+    """A streamed request asking for logprobs is served: the chunks equal
+    the JAX server's (which carry no logprobs) and end in [DONE]."""
+    path, body = _logprobs_body(chat, True, 2)
+    j, t = (_sse(r) for r in tiny.both("POST", path, json=body, stream=True))
+    assert j[-1] == t[-1] == "DONE"
+    assert _chunks(t) == _chunks(j)
+    assert sum(len(c[0]) for c in _chunks(t)[0]) == 6
+
+
+@pytest.mark.parametrize("prompt", [[11, 12, 13, 14, 15], "spec decode"])
+def test_spec_server_equals_the_jax_spec_server(tiny_spec, prompt):
+    """``--spec-k 4``: completions (whole and streamed) and a logprobs
+    request give the JAX spec server's tokens; both engines drafted."""
+    body = dict(GREEDY, model="m", prompt=prompt, max_tokens=12)
+    j, t = tiny_spec.both("POST", "/v1/completions", json=body)
+    assert j.status_code == t.status_code == 200
+    assert _strip(t.json()) == _strip(j.json())
+    j, t = (_sse(r) for r in tiny_spec.both(
+        "POST", "/v1/completions", json=dict(body, stream=True),
+        stream=True))
+    assert _chunks(t) == _chunks(j)
+    j, t = tiny_spec.both("POST", "/v1/completions",
+                          json=dict(body, logprobs=2))
+    assert _same_logprobs(t, j, False)[0] == _logprobs(j, False)[0]
+    names = ("llmd_tpu:spec_draft_tokens_total",
+             "llmd_tpu:engine_steps_total")
+    jm, tm = _metrics(tiny_spec)
+    assert _counts(tm, names) == _counts(jm, names)
+    assert _counts(tm, names)[
+        'llmd_tpu:spec_draft_tokens_total{model_name="tiny"}'] > 0
+    assert tiny_spec.port_server.engine.spec_k == 4
+
+
 @pytest.mark.parametrize("body,names", [
-    (dict(logprobs=2), "logprobs"),
-    (dict(logprobs=True, top_logprobs=1), "logprobs"),
     (dict(kv_transfer_params={"do_remote_decode": True}),
      "kv_transfer_params"),
     (dict(resume={"token_ids": [1, 2]}), "resume")])
@@ -433,7 +554,7 @@ def test_out_of_vocabulary_prompt_ids_are_refused(tiny, prompt):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--tensor-parallel-size", "2"], ["--spec-k", "2"],
+    ["--tensor-parallel-size", "2"],
     ["--kv-transfer-config", "{}"], ["--enable-eplb"],
     ["--kv-events-endpoint", "tcp://x:1"], ["--kv-offload-blocks", "8"],
     ["--enable-dbo"], ["--compilation-cache-dir", "/tmp/x"]])
@@ -443,6 +564,19 @@ def test_an_unserved_cli_flag_is_a_parser_error(flag, capsys):
         TServer.check_served(p, p.parse_args(["--model", "tiny"] + flag))
     assert e.value.code == 2
     assert flag[0] in capsys.readouterr().err
+
+
+def test_spec_k_with_multistep_is_a_parser_error(capsys):
+    p = TServer.build_arg_parser()
+    with pytest.raises(SystemExit) as e:
+        TServer.check_served(p, p.parse_args(
+            ["--spec-k", "4", "--num-scheduler-steps", "4"]))
+    assert e.value.code == 2
+    assert "fused multistep pipeline" in capsys.readouterr().err
+    args = p.parse_args(["--spec-k", "4", "--spec-strict"])
+    TServer.check_served(p, args)
+    assert TServer.engine_config_from_args(args).spec_k == 4
+    assert TServer.engine_config_from_args(p.parse_args([])).spec_k is None
 
 
 def test_served_cli_flags_map_to_the_engine_config():
