@@ -57,8 +57,34 @@ Phases (each raises on failure; the script then exits non-zero):
             in process over the engine: wave 1's prompts one at a time
             with logprobs = 5, each reply the direct engine's tokens for
             that prompt alone, every logprob finite and <= 0, every top-5
-            list sorted and headed by the greedy token.  Kernels B and E
-            must launch on this path;
+            list sorted and headed by the greedy token; then 24 mixed
+            requests at once (greedy, logprobs 0 and 5, seeded and
+            unseeded sampling), each ending by length, with the graph
+            layer's keys, pool bytes and drops (``graph_bounds``) before
+            and after.  Kernels B and E must launch on this path.  Every fused round is one CUDA
+            graph replay (the witness run of (a) goes eagerly: its tape
+            reads each batch on the host); each captured key is then
+            replayed against its eager body, bit-equal;
+2c. path (iv) serve deepseek-v3-bench on path (i)'s weights as bench.py's
+            bench_everything_on configures it: spec decode (K = 4) with
+            N = 4 fused rounds per dispatch and async scheduling (the
+            fused multistep pipeline, each dispatch one CUDA graph
+            replay), 256 sequences, 1344 blocks, EPLB off (one device);
+            its yardstick is the same engine at N = 1 (each single fused
+            round one replay).  (a) Wave 1 with real verification
+            through both: equal tokens between them and against the
+            classic loop, each first difference with the classic step's
+            top-2 margin and decision bar (reported); (b) 256 x 128-token
+            prompts, 128 new at the fixed acceptance 0.7, a warm-up and 3
+            timed runs a side in alternating rounds: accepted decode
+            tok/s, acceptance and engine steps per dispatch, every
+            request ending by length, the pool whole after each run, the
+            coins of a run's steps drawn on the card bit-equal to the
+            CPU's and each graph's coin input the CPU's coin of its
+            rounds; (c) each captured fused key replayed against its
+            eager body, bit-equal (outputs, and the cache outside the
+            trash block 0); the graphs' pool bytes and each key's cold
+            cost.  Kernels B and E must launch inside its graphs;
 3. path(ii) serve llama3-1b at full width and depth, block size 64,
             8192-token steps: 64 x 128-token prompts with 32 new tokens on
             a bf16 cache (twice: must repeat token for token; then with
@@ -125,8 +151,9 @@ Phases (each raises on failure; the script then exits non-zero):
 Launch counts: every count is set to 0 just before a path is driven and
 read just after it; kernels A-F count path (i), G and H path (ii), and
 each row adds path (iii)'s run (phases (a) and (c)-(e), also given as
-``spec_launches``) and the in-process server's run (phase 7(a), also
-given as ``server_launches``).  A
+``spec_launches``), path (iv)'s run (phases (a) and (b), also given as
+``everything_on_launches``) and the in-process server's run (phase
+7(a), also given as ``server_launches``).  A
 count is the wrapper's own (eager launches, graph warm-ups included)
 plus the launches inside graph replays: a capture records each graph's
 launches, and every replay adds them (``engine/cuda_graph.py``); the
@@ -137,7 +164,8 @@ each kernel's bound is derived from), a ``{"variants": [...]}`` line (the
 fields of the kernels line for the other inputs of phase 4), an
 ``{"engine": ...}`` line, a ``{"server": ...}`` line (phase 7, with the
 card's name and power limit), a ``{"spec": ...}`` line (path (iii), with
-the card's name and power limit), a ``{"kernels": [...]}`` line (one row per
+the card's name and power limit), an ``{"everything_on": ...}`` line
+(path (iv), likewise), a ``{"kernels": [...]}`` line (one row per
 kernel at its first launch: measured launches, errors and times, with
 ``bound_ms``), the card's name and power limit, and last ``{"ok": true,
 "device": ...}``.  The engine line
@@ -155,11 +183,17 @@ adds a ``{"profile": ...}`` line: four wave-1 and four wave-2 decode
 steps of the classic loop, one multistep block (32 decode iterations,
 one graph replay) of wave 1 and of wave 2, and the 8192-token wave-3
 prefill step of deepseek-v3-bench, one bench_spec decode step (256
-rows) and one mixed round of path (iii), and
+rows) and one mixed round of path (iii) (each one graph replay), one
+steady step of path (iv) (one N = 4 dispatch queued, one retired), and
 llama3-1b's 8192-token prefill step and four of its decode steps (bf16
 cache), under ``torch.profiler``, with the device's busy time, kernel
 launches and the largest kernels per step (a measurement, not part of
-the smoke's pass/fail contract).
+the smoke's pass/fail contract); then, after the server phase, four
+fresh processes (``--cold-probe``) each serving path (i)'s wave 3 up
+to its first 32-step decode block, with that block's capture timed
+part by part: by default, with CUDA modules loaded eagerly, with
+another Python thread busy half the time meanwhile, and the same with
+a 0.5 ms switch interval.
 """
 
 from __future__ import annotations
@@ -200,6 +234,7 @@ SPEC_WAVE = dict(n=256, prompt=128, new=128)
 MIXED_SHARE = 0.25                           # MIXED_BENCH_SHARE
 MIXED_JOIN = dict(n=int(MIXED_SHARE * SPEC_WAVE["n"]), prompt=128, new=64)
 SPEC_ROUNDS = 3                              # timed runs after a warm-up
+EON_N = 4                                    # EVERYTHING_BENCH_ROUNDS
 
 
 def log(msg: str) -> None:
@@ -244,25 +279,25 @@ LIVE_TOKENS = [None]
 def note_live_tokens(engine) -> None:
     """Notes in ``LIVE_TOKENS`` the live token count of each batch
     ``engine`` builds: a classic step's scheduled tokens, a fused round's
-    tokens and drafts, a multistep block's rows (one token each)."""
-    build, fused, ms = (engine._build_batch, engine._build_fused_batch,
+    tokens and drafts (each live row's stride, in every round of a
+    dispatch), a multistep block's rows (one token each)."""
+    build, fused, ms = (engine._build_batch, engine._fms_build,
                         engine._ms_dispatch)
 
     def build_batch(out, *a, **kw):
         LIVE_TOKENS[0] = out.total_tokens
         return build(out, *a, **kw)
 
-    def build_fused_batch(scheduled, *a, **kw):
-        LIVE_TOKENS[0] = sum(sr.num_new_tokens + sr.num_draft_tokens
-                             for sr in scheduled)
-        return fused(scheduled, *a, **kw)
+    def fms_build(specs, *a, **kw):
+        LIVE_TOKENS[0] = sum(sp["stride"] for sp in specs if sp["active"])
+        return fused(specs, *a, **kw)
 
     def ms_dispatch(meta, scheduled, *a, **kw):
         LIVE_TOKENS[0] = len(scheduled)
         return ms(meta, scheduled, *a, **kw)
 
     engine._build_batch = build_batch
-    engine._build_fused_batch = build_fused_batch
+    engine._fms_build = fms_build
     engine._ms_dispatch = ms_dispatch
 
 
@@ -682,24 +717,13 @@ def graph_equals_eager(engine, key) -> dict:
     static inputs against the block's eager body
     (``EngineCore._ms_body``) on the same inputs from the same cache:
     ids and cache planes bit-equal."""
-    import torch
+    from llm_d_tpu_torch.engine.cuda_graph import replay_equals_eager
     g = engine._graphs.graphs[key]
-    snap = {k: v.clone() for k, v in engine.kv_cache.items()}
-    g.graph.replay()
-    torch.cuda.synchronize()
-    ids_graph = g.ids.clone()
-    kv_graph = {k: v.clone() for k, v in engine.kv_cache.items()}
-    for k, v in engine.kv_cache.items():
-        v.copy_(snap[k])
-    ids_eager = torch.empty_like(g.ids)
-    engine._ms_body(g.inputs, g.inputs["keys"], ids_eager, key[1])
-    torch.cuda.synchronize()
-    res = dict(S=key[0], random_rows=key[1], K=g.ids.shape[0],
+    res = replay_equals_eager(g, engine.kv_cache, lambda out: engine._ms_body(
+        g.inputs, g.inputs["keys"], out["ids"], key[1]))
+    res = dict(S=key[0], random_rows=key[1], K=g.outputs["ids"].shape[0],
                live_rows=int(g.inputs["active"].sum()),
-               ids_equal=torch.equal(ids_graph, ids_eager),
-               cache_equal=all(torch.equal(v, kv_graph[k])
-                               for k, v in engine.kv_cache.items()))
-    del snap, kv_graph
+               ids_equal=res["outputs_equal"], cache_equal=res["cache_equal"])
     if not (res["ids_equal"] and res["cache_equal"]):
         raise RuntimeError(f"graph replay differs from the eager body: {res}")
     return res
@@ -868,8 +892,14 @@ def spec_greedy(engine, prompts, classic_tokens, yardstick) -> dict:
                    classic_top2_margin=margins[0][i])
               for i, (a, b) in enumerate(zip(tok, classic_tokens))
               if a[0] != b[0]]
-    with routing_tape(engine, tape, replay=True) as replayed:
-        tok3, st3 = run_wave(engine, prompts, WAVE1["new"], "sr")
+    # The tape reads the batch on the host and swaps expert choices at
+    # every forward: this run's rounds go eagerly (graphs step aside).
+    graphs, engine._graphs = engine._graphs, None
+    try:
+        with routing_tape(engine, tape, replay=True) as replayed:
+            tok3, st3 = run_wave(engine, prompts, WAVE1["new"], "sr")
+    finally:
+        engine._graphs = graphs
     witness = dict(divergence(tok3, ref, margins, bars), wave=st3,
                    token_layers_replayed=replayed[0])
     witness["near_ties_only"] = all(
@@ -958,7 +988,12 @@ def spec_reference_check(mc, params, draft_params, engine_kw, seed: int
                 if step == 1 and any(sr.num_draft_tokens != SPEC_K
                                      for sr in sched.scheduled):
                     raise RuntimeError("verify step without K live drafts")
-                batch, _ = eng._build_fused_batch(sched.scheduled)
+                plan = eng._fms_plan(sched, 1)
+                inp = {k: torch.as_tensor(v, device=eng.device) for k, v in
+                       dict(plan["sbatch"], **plan["xs"],
+                            **plan["carry"]).items()}
+                batch = eng._fms_round_batch(inp, 0, inp["pos"], inp["last"],
+                                             inp["drafts"])
                 hidden = eng.model.forward(eng.params, eng.kv_cache, batch,
                                            mc, engine_kw["block_size"])
                 n = len(sched.scheduled) * (SPEC_K + 1)
@@ -1099,6 +1134,7 @@ def mixed_bench(engine, base, joiners, runs: int = 2) -> list:
             for i, p in enumerate(joiners)]
         before = sum(len(r.output_token_ids) for r in reqs)
         step_ms, j = [], 0
+        replays0 = {k: g.replays for k, g in engine._graphs.graphs.items()}
         with capture(mla_prefill, "mla_flash_prefill",
                      lambda a, kw: tuple(a[0].shape[:2])) as shapes:
             t0 = time.perf_counter()
@@ -1110,6 +1146,12 @@ def mixed_bench(engine, base, joiners, runs: int = 2) -> list:
                 engine.step()
                 step_ms.append(1e3 * (time.perf_counter() - s0))
             dt = time.perf_counter() - t0
+        # B inside graph replays: a fused key's (S, Q) is its launch's.
+        for k, g in engine._graphs.graphs.items():
+            n = (g.replays - replays0.get(k, 0)) \
+                * g.launches.get("mla_flash_prefill", 0)
+            if n:
+                shapes[(k[1], k[3])] += n
         tokens = sum(len(r.output_token_ids) for r in reqs + join) - before
         bad = [r.request_id for r in reqs + join
                if r.state.value != "length" or len(r.output_token_ids)
@@ -1137,17 +1179,30 @@ def mixed_bench(engine, base, joiners, runs: int = 2) -> list:
     return out
 
 
+def mixed_bodies(prompts, max_new: int) -> list:
+    """Three requests a prompt, in turn greedy, greedy with ``logprobs``
+    0 and 5, seeded and unseeded sampling at temperature 0.8, streamed
+    and not: the flags that split the fused graph keys."""
+    kinds = [dict(), dict(logprobs=0), dict(logprobs=5),
+             dict(temperature=0.8, seed=7), dict(temperature=0.8)]
+    return [dict(greedy_body(p, max_new, bool(i % 2)), **kinds[i % 5])
+            for i, p in enumerate(prompts * 3)]
+
+
 def spec_server(engine, prompts, alone) -> dict:
     """Phase (e): ``ModelServer`` in process over the spec engine (real
     verification), ``prompts`` one at a time with ``logprobs`` = 5: each
     reply's tokens are the direct engine's for that prompt alone, every
     logprob finite and <= 0, every top-5 list sorted and headed by the
-    greedy token."""
+    greedy token.  Then mixed traffic (``mixed_bodies``) all at once:
+    each request must end by length; the graph layer's keys, pool bytes
+    and drops are reported before and after it."""
     import math
     from llm_d_tpu_torch.server.openai import ModelServer
     server = ModelServer(engine, DecimalTokenizer(), "deepseek-v3-bench")
     url, close = serve_in_thread(server)
     checked = 0
+    before = graph_bounds(engine)
     try:
         for i, (p, want) in enumerate(zip(prompts, alone)):
             status, _, reply = http_call(url, "/v1/completions", dict(
@@ -1169,13 +1224,29 @@ def spec_server(engine, prompts, alone) -> dict:
                     raise RuntimeError(f"logprobs request {i}: token {tok} "
                                        f"logprob {v}, top {top}")
                 checked += 1
+        bodies = mixed_bodies(prompts, len(alone[0]))
+        mixed = concurrently(url, bodies)
+        for i, (b, r) in enumerate(zip(bodies, mixed)):
+            if r["finish"] != "length" or r["n"] != b["max_tokens"]:
+                raise RuntimeError(f"mixed request {i}: {r['n']} tokens, "
+                                   f"finish {r['finish']}")
         if server.async_engine.dead is not None:
             raise RuntimeError("the engine thread died") \
                 from server.async_engine.dead
     finally:
         close()
     return dict(requests=len(prompts), tokens_checked=checked,
-                identical=True)
+                identical=True, mixed_requests=len(mixed),
+                graphs_before=before, graphs_after=graph_bounds(engine))
+
+
+def graph_bounds(engine) -> dict:
+    """The graph layer's size against its caps: graphs held, their
+    shared pool's bytes, graphs dropped and pool resets."""
+    g = engine._graphs
+    return dict(graphs=len(g.graphs), max_graphs=g.max_graphs,
+                pool_bytes=g.pool_bytes, max_pool_bytes=g.max_pool_bytes,
+                evictions=g.evictions, pool_resets=g.pool_resets)
 
 
 def profile_spec(engine, prompts, joiner) -> dict:
@@ -1196,6 +1267,305 @@ def profile_spec(engine, prompts, joiner) -> dict:
     while engine.has_work():
         engine.step()
     return out
+
+
+def path_iv_engine(params, N: int, draft_params=None):
+    """deepseek-v3-bench as bench.py's bench_everything_on configures it
+    (bench.py:466-489), on ``params``: int8 experts and latent, block
+    size 64, steps of up to ``BENCH_T`` tokens, ``SPEC_WAVE["n"]``
+    sequences, ``SPEC_K`` drafts at the fixed acceptance ``SPEC_ACCEPT``,
+    ``N`` fused rounds per dispatch with async scheduling (N = 1: the
+    single fused round), prefix caching off, and room for every
+    sequence's prompt, new tokens and two dispatches of drafts at
+    ``EON_N`` (1344 blocks).  EPLB stays off: with one device its
+    placement is the identity.  The drafter is random from seed 1 (or
+    ``draft_params``)."""
+    from llm_d_tpu_torch.engine import EngineConfig, EngineCore
+    bs = 64
+    cover = (SPEC_WAVE["prompt"] + SPEC_WAVE["new"]
+             + 2 * EON_N * (SPEC_K + 1) + 2)
+    return EngineCore(EngineConfig(
+        model="deepseek-v3-bench", quantization="int8",
+        kv_cache_dtype="int8", block_size=bs,
+        num_blocks=SPEC_WAVE["n"] * -(-cover // bs) + bs,
+        max_num_seqs=SPEC_WAVE["n"], max_num_batched_tokens=BENCH_T,
+        num_scheduler_steps=N, async_scheduling=N > 1,
+        enable_prefix_caching=False, spec_k=SPEC_K,
+        spec_fixed_accept=SPEC_ACCEPT, device="cuda", seed=0),
+        params=params, draft_params=draft_params)
+
+
+def eon_greedy(engines, prompts, classic_tokens, yardstick) -> dict:
+    """Phase (iv)(a): wave 1 with real verification through the N-round
+    engine and the single-round one (``engines``: {N: engine}), each
+    against the classic loop's tokens (``yardstick``: its margins and
+    bars, ``classic_margins``) and against each other: equal tokens, and
+    where each row first differs with the classic step's top-2 margin and
+    decision bar there (a difference within the bar is a near tie)."""
+    _, _, margins, bars = yardstick
+    toks, out = {}, {}
+    for N, eng in engines.items():
+        eng.set_spec_fixed_accept(None)
+        toks[N], st = run_wave(eng, prompts, WAVE1["new"], f"eg{N}")
+        d = divergence(toks[N], classic_tokens, margins, bars)
+        d["near_ties_only"] = all(
+            m is None or m <= b for m, b in zip(
+                d["classic_top2_margin_there"], d["classic_bar_there"]))
+        out[f"N={N}"] = dict(d, wave=st)
+        eng.set_spec_fixed_accept(SPEC_ACCEPT)
+    a, b = (toks[N] for N in engines)
+    out["tokens"] = WAVE1["new"] * len(prompts)
+    out["equal_tokens_between_n"] = sum(x == y for r, q in zip(a, b)
+                                        for x, y in zip(r, q))
+    return out
+
+
+def eon_run(engine, prompts, tag: str) -> dict:
+    """One bench_everything_on run (``SPEC_WAVE`` at ``SPEC_ACCEPT``):
+    accepted decode tok/s as bench.py's ``_run_workload`` counts it
+    (tokens after every prompt was prefilled, over that wall time),
+    acceptance, and engine steps per dispatch over the whole run, as
+    bench.py quotes them.  Every request must end by length with its
+    tokens and the pool must be whole after the run."""
+    free0 = engine.kv_manager.num_free_blocks
+    new = SPEC_WAVE["new"]
+    reqs = add_requests(engine, prompts, tag, new)
+    s0, d0 = engine._step_count, engine._dispatch_count
+    g0 = len(engine._graphs.graphs)
+    t0 = time.perf_counter()
+    while any(r.num_computed_tokens < r.num_prompt_tokens for r in reqs):
+        engine.step()
+    t1 = time.perf_counter()
+    before, steps = sum(len(r.output_token_ids) for r in reqs), 0
+    while engine.has_work():
+        engine.step()
+        steps += 1
+    t2 = time.perf_counter()
+    bad = [r.request_id for r in reqs if len(r.output_token_ids) != new
+           or r.state.value != "length"]
+    if bad:
+        raise RuntimeError(f"everything-on run: {bad[:4]} did not end by "
+                           f"length with {new} tokens")
+    if engine.kv_manager.num_free_blocks != free0:
+        raise RuntimeError("everything-on run: blocks leaked")
+    drafted = sum(r.spec_drafted for r in reqs)
+    accepted = sum(r.spec_accepted for r in reqs)
+    tokens = sum(len(r.output_token_ids) for r in reqs) - before
+    return dict(prefill_s=t1 - t0, decode_s=t2 - t1, decode_host_steps=steps,
+                decode_tokens=tokens, decode_tok_s=tokens / (t2 - t1),
+                drafted=drafted, accepted=accepted,
+                acceptance=accepted / drafted,
+                engine_steps=engine._step_count - s0,
+                dispatches=engine._dispatch_count - d0,
+                steps_per_dispatch=(engine._step_count - s0)
+                / max(1, engine._dispatch_count - d0),
+                step_range=(s0, engine._step_count),
+                graphs_captured=len(engine._graphs.graphs) - g0)
+
+
+def eon_bench(engines, prompts) -> dict:
+    """Phase (iv)(b): bench_everything_on's shape through the N-round
+    engine and its yardstick, the single-round one, in alternating
+    rounds (the side that goes first alternates): a warm-up run each,
+    then ``SPEC_ROUNDS`` timed runs each.  Per side: the spread of
+    accepted decode tok/s, acceptance and steps per dispatch, and
+    whether the N-round side is resolved above the other (every run
+    above every run).  Then the coins of the first timed run's steps
+    drawn on the card against the CPU, bit for bit, and the coins the
+    N-round engine's last dispatch fed its graph against the CPU's."""
+    import torch
+    from llm_d_tpu_torch.ops.sampling import accept_coin
+    runs = {N: [] for N in engines}
+    order = list(engines)
+    for rep in range(1 + SPEC_ROUNDS):
+        for N in (order if rep % 2 == 0 else order[::-1]):
+            run = eon_run(engines[N], prompts, f"eon{N}r{rep}")
+            log(f"everything-on N={N} run {rep}: {json.dumps(run)}")
+            if rep:
+                runs[N].append(run)
+    S = SPEC_WAVE["n"]
+    coin_steps = 0
+    for N, rs in runs.items():
+        for step in range(*rs[0]["step_range"]):
+            card = accept_coin(step, S, SPEC_K, "cuda").cpu()
+            cpu = accept_coin(step, S, SPEC_K, "cpu")
+            if not torch.equal(card.view(torch.int32), cpu.view(torch.int32)):
+                raise RuntimeError(f"acceptance coin of step {step} "
+                                   f"differs on the card")
+            coin_steps += 1
+    eng = engines[order[0]]
+    fed = 0
+    for key, g in eng._graphs.graphs.items():
+        if key[0] != "fms" or g.graph is None \
+                or float(g.inputs["rate"][0]) < 0:
+            continue
+
+        def bits(t):
+            return t.contiguous().view(torch.int32)
+
+        coin = g.inputs["coin"].cpu()
+        N, Sg = coin.shape[:2]
+        base = next((st for st in range(eng._step_count) if torch.equal(
+            bits(coin[0]), bits(accept_coin(st, Sg, SPEC_K, "cpu")))), None)
+        if base is None or not all(torch.equal(bits(coin[r]), bits(
+                accept_coin(base + r, Sg, SPEC_K, "cpu"))) for r in range(N)):
+            raise RuntimeError(f"graph {key}: its coin input is not the "
+                               f"CPU's coin of its rounds' steps")
+        fed += 1
+    out = {}
+    for N, rs in runs.items():
+        out[f"N={N}"] = dict(
+            runs=rs, decode_tok_s=spread([r["decode_tok_s"] for r in rs]),
+            acceptance=spread([r["acceptance"] for r in rs]),
+            steps_per_dispatch=spread([r["steps_per_dispatch"] for r in rs]))
+    a, b = (out[f"N={N}"]["decode_tok_s"] for N in order)
+    return dict(out, requests=S, prompt=SPEC_WAVE["prompt"],
+                new=SPEC_WAVE["new"], spec_k=SPEC_K,
+                fixed_accept=SPEC_ACCEPT, rounds_per_dispatch=order[0],
+                resolved_above_single_round=a["min"] > b["max"],
+                coin_steps_bit_equal=coin_steps,
+                graph_coin_inputs_checked=fed, leak_free=True)
+
+
+def fused_graph_checks(engine) -> list:
+    """Each captured fused key of ``engine`` replayed on its static inputs
+    against its eager body (``EngineCore._fms_body``) from the same
+    cache: every output and the cache outside block 0 bit-equal (block 0
+    is the trash block dead slots write, in any order)."""
+    from llm_d_tpu_torch.engine.cuda_graph import replay_equals_eager
+    out = []
+    for key, g in engine._graphs.graphs.items():
+        if key[0] != "fms" or g.graph is None:
+            continue
+        _, S, T, Q, _, _, N, lp, top, rnd = key
+        res = replay_equals_eager(
+            g, engine.kv_cache,
+            lambda o: engine._fms_body(g.inputs, o, N, lp, top, rnd),
+            trash_rows=engine.config.block_size)
+        out.append(dict(S=S, T=T, Q=Q, N=N, want_lp=lp, want_top=top,
+                        random_rows=rnd, **res))
+        if not all(res.values()):
+            raise RuntimeError(f"fused graph {key} differs from its eager "
+                               f"body: {res}")
+    if not out:
+        raise RuntimeError("no fused graph was captured")
+    return out
+
+
+def graph_costs(engine) -> dict:
+    """The graph layer of ``engine``: its shared pool's bytes, and each
+    captured key with its launches and cold cost (``BlockGraph.cold``)."""
+    return dict(graph_bounds(engine), replays=engine._graphs.replays,
+                graphs=[dict(key=[str(x) for x in key],
+                             launches=sum(g.launches.values()), cold=g.cold)
+                        for key, g in engine._graphs.graphs.items()
+                        if g.graph is not None])
+
+
+def profile_eon(engine, prompts) -> dict:
+    """Device busy time of one step of the N-round engine in its steady
+    state (after the prefill and two pipelined steps): the step queues
+    one N-round dispatch (one graph replay) and retires the one before
+    it."""
+    reqs = add_requests(engine, prompts, "profe", SPEC_WAVE["new"])
+    while any(r.num_computed_tokens < r.num_prompt_tokens for r in reqs):
+        engine.step()
+    for _ in range(2):
+        engine.step()
+    d0, s0 = engine._dispatch_count, engine._step_count
+    out = dict(_profile_steps(engine, 1), batch=len(prompts),
+               dispatches=engine._dispatch_count - d0,
+               engine_steps=engine._step_count - s0)
+    while engine.has_work():
+        engine.step()
+    return out
+
+
+COLD_MODES = ("default", "eager", "busy", "busy-switch")
+COLD_PROBE_S = 240
+
+
+def cold_probe(root: str, mode: str) -> dict:
+    """The first decode block of a fresh process, as the server meets it:
+    ``python3 chip_smoke.py --cold-probe MODE`` builds path (i)'s engine,
+    serves wave 3's shape (one 8192-token prefill step, then the first
+    32-step block: its graph's warm-up, capture and first replay) and
+    prints the parts' host seconds.  ``MODE``: "default"; "eager" (CUDA
+    modules loaded at context creation, ``CUDA_MODULE_LOADING=EAGER``);
+    "busy" (another Python thread busy half of every 10 ms meanwhile, as
+    a server's event loop under load competes for the interpreter);
+    "busy-switch" (the same, with the interpreter's switch interval at
+    0.5 ms instead of 5 ms).  A probe still running after
+    ``COLD_PROBE_S`` seconds is stopped and reported so."""
+    env = dict(os.environ)
+    if mode == "eager":
+        env["CUDA_MODULE_LOADING"] = "EAGER"
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run(
+            [sys.executable, os.path.join(root, "chip_smoke.py"),
+             "--cold-probe", mode], cwd=root, env=env, capture_output=True,
+            text=True, timeout=COLD_PROBE_S)
+    except subprocess.TimeoutExpired:
+        return dict(mode=mode, timed_out_s=COLD_PROBE_S)
+    if res.returncode != 0:
+        raise RuntimeError(f"cold probe {mode}: {res.stderr[-4000:]}")
+    return dict(json.loads(res.stdout.strip().splitlines()[-1]),
+                process_s=time.perf_counter() - t0)
+
+
+def cold_probe_main(mode: str) -> int:
+    """The body of ``--cold-probe`` (in its own process)."""
+    import threading
+    import numpy as np
+    import torch
+    from llm_d_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    torch.zeros(1, device="cuda")
+    ctx_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine = path_i_engine()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    stop = threading.Event()
+    spins = [0]
+
+    def busy():
+        while not stop.is_set():
+            t_end = time.perf_counter() + 0.005
+            while time.perf_counter() < t_end:
+                spins[0] += 1
+            time.sleep(0.005)
+
+    if mode.startswith("busy"):
+        if mode == "busy-switch":
+            sys.setswitchinterval(0.0005)
+        threading.Thread(target=busy, daemon=True).start()
+    prompts = prompts_for(np.random.default_rng(5),
+                          engine.model_config.vocab_size, WAVE3)
+    reqs = add_requests(engine, prompts, "cold", 1 + BENCH_K)
+    t0 = time.perf_counter()
+    engine.step()                        # the 8192-token prefill step
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine.step()                        # dispatches the first block
+    dispatch_s = time.perf_counter() - t0
+    while engine.has_work():
+        engine.step()
+    torch.cuda.synchronize()
+    block_s = time.perf_counter() - t0
+    stop.set()
+    if any(len(r.output_token_ids) != 1 + BENCH_K for r in reqs):
+        raise RuntimeError("cold probe: a request did not finish")
+    (key, g), = engine._graphs.graphs.items()
+    print(json.dumps(dict(
+        mode=mode, context_s=ctx_s, engine_init_s=init_s,
+        kernels_loaded_before_block=sorted(_build._libs),
+        prefill_s=prefill_s, first_block_dispatch_s=dispatch_s,
+        first_block_s=block_s, graph=dict(key=list(key), **g.cold),
+        launches=sum(g.launches.values()), spins=spins[0])))
+    return 0
 
 
 def dense_prompts(vocab: int):
@@ -1907,9 +2277,14 @@ def server_subprocess(root: str, vocab: int) -> dict:
         if proc.poll() is None:
             proc.kill()
             proc.wait(timeout=60)
+    # Each graph the server captured, with its cold cost (logged by
+    # engine/cuda_graph.py).
+    with open(log_path, errors="replace") as log_f:
+        captures = [ln.split("captured graph ", 1)[1].strip()
+                    for ln in log_f if "captured graph " in ln]
     return dict(startup_s=startup_s, requests=n, new_tokens=new, **loads,
                 metrics=counts, load_peak=peak, drain_exit_code=rc,
-                exit_s=exit_s)
+                exit_s=exit_s, graph_captures=captures)
 
 
 def load_stats(res, new: int, vocab: int) -> dict:
@@ -1981,6 +2356,8 @@ def main() -> int:
         return 1
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
+    if "--cold-probe" in sys.argv[1:]:
+        return cold_probe_main(sys.argv[sys.argv.index("--cold-probe") + 1])
     import dataclasses
     import numpy as np
     from llm_d_tpu_torch.models.config import get_config
@@ -2134,7 +2511,8 @@ def main() -> int:
     log(f"classic vs multistep: {json.dumps(rounds_i)}")
     graphs_info = dict(
         pool_bytes=engine._graphs.pool_bytes,
-        graphs=[dict(S=k[0], random_rows=k[1], launches=g.launches)
+        graphs=[dict(S=k[0], random_rows=k[1], launches=g.launches,
+                     cold=g.cold)
                 for k, g in engine._graphs.graphs.items()],
         replays=engine._graphs.replays)
     log(f"graphs (i): {json.dumps(graphs_info)}")
@@ -2192,7 +2570,9 @@ def main() -> int:
              for i, p in enumerate(p1)]
     spec["server"] = spec_server(spec_eng, p1, alone)
     log(f"spec (e) server: {json.dumps(spec['server'])}")
+    # Path (iii)'s fused rounds are graph replays too.
     spec_counts = {k["name"]: recorders[k["name"]].wrapped.launches
+                   + spec_eng._graphs.launches[k["fn"]]
                    for k in kernels if k["path"] == "i"}
     log(f"launches (iii): {json.dumps(spec_counts)}")
     missing = [n for n in ("mla_prefill", "moe_streamed_int8")
@@ -2202,10 +2582,71 @@ def main() -> int:
                            f"{missing}")
     for n, c in spec_counts.items():
         launches[n] += c
+        graph_launches[n] += spec_eng._graphs.launches[
+            next(k["fn"] for k in kernels if k["name"] == n)]
+    # Each fused key against its eager body (a comparison: its launches
+    # are not the path's, and the recorders step aside).
+    for rec in recorders.values():
+        setattr(rec.module, rec.name, rec.fn)
+    spec["graph_vs_eager"] = fused_graph_checks(spec_eng)
+    for rec in recorders.values():
+        setattr(rec.module, rec.name, rec.wrapped)
+    spec["graphs"] = graph_costs(spec_eng)
+    log(f"spec graphs: {json.dumps(spec['graph_vs_eager'])} "
+        f"{json.dumps(spec['graphs'])}")
     if prof is not None:
         prof["spec"] = profile_spec(spec_eng, sp, joiners[0])
         log(f"profile spec: {json.dumps(prof['spec'])}")
-    del classic, spec_eng, alone
+    del spec_eng, alone
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2c. path (iv): the fused multistep pipeline as bench_everything_on --
+    t0 = time.perf_counter()
+    eon = {EON_N: path_iv_engine(engine.params, EON_N)}
+    eon[1] = path_iv_engine(engine.params, 1, eon[EON_N].draft_params)
+    for e in eon.values():
+        note_live_tokens(e)
+    torch.cuda.synchronize()
+    everything = dict(card=smi, init_s=time.perf_counter() - t0,
+                      num_blocks=eon[EON_N].config.num_blocks,
+                      max_num_seqs=eon[EON_N].config.max_num_seqs,
+                      eplb="off (one device: the identity placement)")
+    reset_counts()
+    everything["greedy"] = eon_greedy(eon, p1, tok1, yardstick)
+    log(f"everything-on (a) greedy: {json.dumps(everything['greedy'])}")
+    everything["bench_everything_on"] = eon_bench(eon, sp)
+    log(f"everything-on (b): {json.dumps(everything['bench_everything_on'])}")
+    eon_graph = {k["name"]: sum(e._graphs.launches[k["fn"]]
+                                for e in eon.values())
+                 for k in kernels if k["path"] == "i"}
+    eon_counts = {n: recorders[n].wrapped.launches + c
+                  for n, c in eon_graph.items()}
+    everything.update(launches=eon_counts, graph_launches=eon_graph)
+    log(f"launches (iv): {json.dumps(eon_counts)}, inside graph replays: "
+        f"{json.dumps(eon_graph)}")
+    missing = [n for n in ("mla_prefill", "moe_streamed_int8")
+               if eon_graph[n] == 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched inside path (iv)'s "
+                           f"graphs: {missing}")
+    for n, c in eon_counts.items():
+        launches[n] += c
+        graph_launches[n] += eon_graph[n]
+    for rec in recorders.values():
+        setattr(rec.module, rec.name, rec.fn)
+    everything["graph_vs_eager"] = {f"N={N}": fused_graph_checks(e)
+                                    for N, e in eon.items()}
+    for rec in recorders.values():
+        setattr(rec.module, rec.name, rec.wrapped)
+    everything["graphs"] = {f"N={N}": graph_costs(e) for N, e in eon.items()}
+    log(f"everything-on graphs: "
+        f"{json.dumps(everything['graph_vs_eager'])} "
+        f"{json.dumps(everything['graphs'])}")
+    if prof is not None:
+        prof["everything_on"] = profile_eon(eon[EON_N], sp)
+        log(f"profile everything-on: {json.dumps(prof['everything_on'])}")
+    del classic, eon, e
     LIVE_TOKENS[0] = None
     gc.collect()
     torch.cuda.empty_cache()
@@ -2328,6 +2769,7 @@ def main() -> int:
             replaces=k["replaces"], launches=launches[k["name"]],
             graph_launches=graph_launches[k["name"]],
             spec_launches=spec_counts.get(k["name"], 0),
+            everything_on_launches=eon_counts.get(k["name"], 0),
             max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -2500,10 +2942,16 @@ def main() -> int:
     log(f"server: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still "
         f"allocated in this process")
     server["entry_point"] = server_subprocess(root, vocab)
+    log(f"server (entry point): {json.dumps(server['entry_point'])}")
+    if prof is not None:
+        # The first decode block of a fresh process, part by part.
+        prof["cold_first_block"] = []
+        for m in COLD_MODES:
+            prof["cold_first_block"].append(cold_probe(root, m))
+            log(f"profile cold: {json.dumps(prof['cold_first_block'][-1])}")
     # The direct engine's steady wave 3 in the same call (the rounds).
     server["direct_engine_wave3_decode_tok_s"] = \
         rounds_i["wave3"]["multistep"]["decode_tok_s"]
-    log(f"server (entry point): {json.dumps(server['entry_point'])}")
     # The bound's inputs, derived from the recorded launches (not timed).
     print(json.dumps({"bounds": bounds}))
     print(json.dumps({"variants": variants}))
@@ -2516,6 +2964,7 @@ def main() -> int:
         print(json.dumps({"profile": prof}))
     print(json.dumps({"server": server}))
     print(json.dumps({"spec": spec}))
+    print(json.dumps({"everything_on": everything}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

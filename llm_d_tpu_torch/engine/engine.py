@@ -20,18 +20,20 @@ the host fetch a classic step or a block's retire already makes, never
 inside a step or a captured graph.
 
 Speculative decode (``spec_k`` > 0, MTP draft-and-verify), as the JAX
-engine's single-round path runs it: every step is one fused mixed round
-(``_run_fused``).  Prefill chunks, plain decodes and K+1-position
-draft-verify rows share one forward over the ragged batch; ``spec_verify``
-accepts drafts and samples; the drafter proposes the next drafts from
-the accepted position's hidden state; rejected tails go back to the
-pool the same step; one batched host fetch.  Greedy and seeded output
+engine runs it: every step is one fused mixed round (``_run_fused``) or,
+with ``num_scheduler_steps`` = N > 1, N fused rounds as one dispatch
+(the fused multistep pipeline, ``_fms_*``), pipelined under async
+scheduling.  Prefill chunks, plain decodes and K+1-position draft-verify
+rows share one forward over the ragged batch; ``spec_verify`` accepts
+drafts and samples; the drafter proposes the next drafts from the
+accepted position's hidden state; rejected tails go back to the pool at
+retire; one batched host fetch per dispatch.  Greedy and seeded output
 is the non-spec engine's, token for token.  ``spec_fixed_accept``
-(bench only) replaces verification with a seeded coin.
+(bench only) replaces verification with a seeded coin.  On the card the
+single round and each N-round dispatch are CUDA graph replays too.
 
-Not ported yet (later slices): the fused multistep pipeline
-(``spec_k`` > 0 with ``num_scheduler_steps`` > 1 raises), EPLB, KV
-offload, the KV connector, ``stub_components`` and tracing.
+Not ported yet (later slices): EPLB, KV offload, the KV connector,
+``stub_components`` and tracing.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ from llm_d_tpu_torch.models import get_model
 from llm_d_tpu_torch.models.config import ModelConfig, get_config
 from llm_d_tpu_torch.ops import prng
 from llm_d_tpu_torch.ops import sampling as sampling_ops
+from llm_d_tpu_torch.ops.moe import DENSE_DISPATCH_MAX_T
 from llm_d_tpu_torch.ops.quant import (
     KV_CACHE_DTYPES, KV_SCALE_GRANULARITIES, MLA_LATENT_DTYPES,
     kv_scale_width, quantize_moe_experts)
@@ -65,6 +68,11 @@ from llm_d_tpu_torch.utils.predictor import (
 logger = logging.getLogger(__name__)
 
 SPEC_DECODE_MODES = ("auto", "off")
+
+# Graphs an engine keeps (the least recently used goes first): path
+# (iii)'s bench_spec and bench_mixed traffic, the server's mixed requests
+# included, captures fewer.
+CUDA_GRAPH_MAX_KEYS = 64
 
 
 def _next_bucket(n: int, lo: int, hi: int) -> int:
@@ -96,7 +104,7 @@ def derive_num_blocks(hbm_budget_bytes: int, layout: Dict[str, int],
 
 @dataclasses.dataclass
 class EngineConfig:
-    model: str = "tiny-mla"                  # preset name
+    model: str = "tiny"                      # preset name
     model_config: Optional[ModelConfig] = None
     block_size: int = 32
     num_blocks: int = 256                    # KV blocks incl. null block 0
@@ -192,6 +200,12 @@ class EngineCore:
         else:
             self.kv_scale_width = kv_scale_width(c.num_kv_heads, gran)
 
+        if config.quantization == "int8" and not c.is_moe:
+            # Serving bf16 weights while the operator believes the
+            # experts were quantized is a misconfiguration.
+            raise ValueError(
+                "quantization='int8' quantizes MoE expert weights; "
+                f"model {c.name!r} is dense")
         if config.quantization not in (None, "int8"):
             raise ValueError(f"unknown quantization {config.quantization!r}")
         if config.async_scheduling and config.num_scheduler_steps <= 1:
@@ -229,8 +243,8 @@ class EngineCore:
             init_gen = torch.Generator(device=self.device)
             init_gen.manual_seed(config.seed)
             params = self.model.init_params(c, init_gen, self.device)
-        if config.quantization == "int8" and "moe_layers" in params \
-                and "w_gate_q" not in params["moe_layers"]:
+        if config.quantization == "int8" \
+                and "w_gate_q" not in params.get("moe_layers", {}):
             params = quantize_moe_experts(params)
         self.params = params
 
@@ -255,13 +269,9 @@ class EngineCore:
         # dispatch under multistep, one classic.
         self._step_count = 0
         self._dispatch_count = 0
-        # Async scheduling: the one in-flight decode block.
+        # Async scheduling: the one in-flight decode block or fused
+        # dispatch.
         self._inflight: Optional[Dict[str, Any]] = None
-        # The decode blocks' CUDA graphs (none on the CPU, where a block's
-        # body runs eagerly).
-        self._graphs = (DecodeGraphs(self.device)
-                        if config.num_scheduler_steps > 1
-                        and self.device.type == "cuda" else None)
         self._rejected: List[RequestOutput] = []
         self.metrics = EngineMetrics(c.name)
         self._disabled_seen: set = set()
@@ -279,11 +289,6 @@ class EngineCore:
         self.draft_params = None
         self.spec_tracker: Optional[SpecAcceptanceTracker] = None
         if spec_mode != "off" and spec_k > 0:
-            if config.num_scheduler_steps > 1:
-                raise ValueError(
-                    "spec_k > 0 with num_scheduler_steps > 1 runs the fused "
-                    "multistep pipeline, which the PyTorch port does not "
-                    "serve yet; use num_scheduler_steps=1 or spec_k=0")
             self.spec_k = int(spec_k)
             if draft_params is None:
                 draft_gen = torch.Generator(device=self.device)
@@ -296,11 +301,45 @@ class EngineCore:
             logger.info("spec decode on: K=%d%s", self.spec_k,
                         f" (fixed acceptance {config.spec_fixed_accept})"
                         if config.spec_fixed_accept is not None else "")
+        # The CUDA graphs of the decode blocks and of the fused rounds and
+        # dispatches (none on the CPU, where their bodies run eagerly):
+        # at most CUDA_GRAPH_MAX_KEYS graphs, their pool at most half the
+        # card's memory still free beside the weights and the KV pool.
+        self._graphs = None
+        if self.device.type == "cuda" \
+                and (config.num_scheduler_steps > 1 or self.spec_k):
+            self._check_capturable()
+            self._graphs = DecodeGraphs(
+                self.device, max_graphs=CUDA_GRAPH_MAX_KEYS,
+                max_pool_bytes=torch.cuda.mem_get_info(self.device)[0] // 2)
         self._last_evictions = 0
         self._last_preemptions = 0
         self.eos_token_id: Optional[int] = None
         # Optional tokenizer enables engine-side stop-string detection.
         self.tokenizer = None
+
+    def _check_capturable(self) -> None:
+        """Refuse a configuration whose captured steps would reach a
+        host read.  bf16 experts over ``DENSE_DISPATCH_MAX_T`` tokens run
+        the grouped plain path, which reads its group sizes to the host;
+        a decode block captures up to the row bucket's tokens, a fused
+        round up to ``max_num_batched_tokens``."""
+        cfg = self.config
+        if not self.model_config.is_moe \
+                or "w_gate_q" in self.params.get("moe_layers", {}):
+            return
+        t_max = cfg.max_num_batched_tokens if self.spec_k else _next_bucket(
+            cfg.max_num_seqs, cfg.min_token_bucket,
+            cfg.max_num_batched_tokens)
+        if t_max > DENSE_DISPATCH_MAX_T:
+            raise ValueError(
+                f"bf16 experts cannot be captured in a CUDA graph over "
+                f"{DENSE_DISPATCH_MAX_T} tokens (this configuration "
+                f"captures steps of up to {t_max}): use "
+                f"quantization='int8', or max_num_batched_tokens <= "
+                f"{DENSE_DISPATCH_MAX_T}"
+                + ("" if self.spec_k else " or max_num_seqs <= "
+                   f"{DENSE_DISPATCH_MAX_T}"))
 
     # ---------- public API ----------
 
@@ -357,10 +396,13 @@ class EngineCore:
         if self._step_time_target_ms <= 0.0 \
                 or not self.step_time_model.trained:
             return None
+        # Under the fused multistep pipeline the funded chunk runs once a
+        # round, N rounds between host looks: size it per round.
+        rounds = max(1, self.config.num_scheduler_steps) if self.spec_k else 1
         return self.step_time_model.chunk_for(
             decode_tokens, self._step_time_target_ms,
             lo=self.config.min_token_bucket,
-            hi=self.config.max_num_batched_tokens)
+            hi=self.config.max_num_batched_tokens, rounds=rounds)
 
     # ---------- batch building ----------
 
@@ -488,7 +530,8 @@ class EngineCore:
             last_ids, pos0 = ids[it], pos0 + 1
 
     def _ms_static(self, S: int, K: int
-                   ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+                   ) -> Tuple[Dict[str, torch.Tensor],
+                              Dict[str, torch.Tensor]]:
         """A block graph's static inputs and output ``ids [K, S]``."""
         def z(shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=self.device)
@@ -499,7 +542,7 @@ class EngineCore:
             active=z(S, torch.bool), temperature=z(S, torch.float32),
             top_k=z(S, i32), top_p=z(S, torch.float32), seeds=z(S, i32),
             gen0=z(S, i32), keys=z((K, 2), torch.int64))
-        return inputs, z((K, S), i32)
+        return inputs, dict(ids=z((K, S), i32))
 
     def _try_multistep(self, sched: SchedulerOutput) -> Optional[int]:
         """If this is a pure-decode round eligible for multistep,
@@ -578,7 +621,8 @@ class EngineCore:
         keys = np.asarray(prng.split(step_key, K), np.int64)    # [K, 2]
         random_rows = bool((meta["temperature"] > 0).any())
         S = meta["pos0"].shape[0]
-        rec = dict(scheduled=list(scheduled), K=K, meta=meta, rows=rows)
+        rec = dict(kind="ms", scheduled=list(scheduled), K=K, meta=meta,
+                   rows=rows)
         if self._graphs is None:
             mb = {k: torch.as_tensor(v, device=self.device)
                   for k, v in meta.items()}
@@ -593,10 +637,11 @@ class EngineCore:
             if g.graph is None:
                 self._graphs.capture(
                     g, lambda n: self._ms_body(
-                        g.inputs, g.inputs["keys"][:n], g.ids[:n],
+                        g.inputs, g.inputs["keys"][:n], g.outputs["ids"][:n],
                         random_rows), K)
             host, done = self._graphs.replay(g)
-            rec.update(ids_dev=g.ids, ids_host=host, done=done)
+            rec.update(ids_dev=g.outputs["ids"], ids_host=host["ids"],
+                       done=done)
         self._dispatch_count += 1
         self.metrics.engine_dispatches.inc()
         return rec
@@ -730,122 +775,38 @@ class EngineCore:
     def _spec_lookahead(self, req: Request) -> int:
         """Draft tokens worth scheduling for this decode entry (the
         scheduler's spec callback): fresh drafts only, at the tracker's
-        adaptive depth, never past ``max_model_len`` nor past the
-        request's own ``max_tokens`` (verify work that could never
-        emit)."""
+        adaptive depth, so that a dispatch (``num_scheduler_steps``
+        rounds, each advancing up to k+1 tokens) never runs past
+        ``max_model_len``, and never past the request's own
+        ``max_tokens`` (verify work that could never emit)."""
         if req.do_remote_decode:
             self._disable_feature("spec_decode", "do_remote_decode")
             return 0
         if req.spec_drafts_at != req.num_tokens or not req.spec_drafts:
             return 0                      # stale or absent: plain decode
+        rounds = max(1, self.config.num_scheduler_steps)
         k = min(self.spec_tracker.suggest_k(req.request_id),
                 len(req.spec_drafts), self.spec_k)
-        k = min(k, self.model_config.max_model_len - req.num_tokens - 1)
+        k = min(k, (self.model_config.max_model_len - req.num_tokens)
+                // rounds - 1)
         k = min(k, req.sampling.max_tokens - len(req.output_token_ids) - 1)
         return max(0, k)
 
-    def _empty_fused_np(self, T: int, S: int, Q: int,
-                        B: int) -> Dict[str, np.ndarray]:
-        arrs = self._empty_batch_np(T, S, Q, B)
-        del arrs["gen_idx"]     # spec_verify takes gen0 and the verify rows
-        K = self.spec_k
-        arrs["sample_idx"] = np.zeros(S * (K + 1), np.int32)
-        arrs["gen0"] = np.zeros(S, np.int32)
-        arrs["draft_tokens"] = np.zeros((S, K), np.int32)
-        arrs["spec_n"] = np.zeros(S, np.int32)
-        return arrs
-
-    def _fill_fused_batch(self, arrs: Dict[str, np.ndarray],
-                          scheduled) -> None:
-        """The ragged token layout of a mixed round (each row packs its
-        real length: a prefill chunk's n tokens, or a decode row's last
-        accepted token and its nd drafts) plus a fixed ``[S*(K+1)]``
-        verify-stride ``sample_idx``, whatever the row mix.  A decode
-        row's slot q gathers token ``t0 + min(q, nd)`` (slots past nd are
-        masked by ``spec_n``); a prefill row's slots all gather its
-        chunk's last token (slot 0 is the classic first-token sample);
-        pad rows gather token 0 at temperature 0 and are discarded."""
-        K = self.spec_k
-        Qv = K + 1
-        bs = self.config.block_size
-        t = 0
-        for s, sr in enumerate(scheduled):
-            req, n = sr.request, sr.num_new_tokens
-            nd = sr.num_draft_tokens
-            n_row = n + nd
-            p0 = req.num_computed_tokens
-            if nd:
-                # Decode row: the last accepted token and the live drafts.
-                arrs["token_ids"][t] = req.all_token_ids[p0]
-                arrs["token_ids"][t + 1:t + n_row] = req.spec_drafts[:nd]
-                arrs["draft_tokens"][s, :nd] = req.spec_drafts[:nd]
-            else:
-                # Plain decode (n == 1) or a prefill chunk.
-                arrs["token_ids"][t:t + n_row] = \
-                    req.all_token_ids[p0:p0 + n]
-            pos = np.arange(p0, p0 + n_row)
-            arrs["positions"][t:t + n_row] = pos
-            arrs["token_seq_ids"][t:t + n_row] = s
-            arrs["token_qpos"][t:t + n_row] = np.arange(n_row)
-            blocks = np.asarray(req.block_ids, np.int32)
-            arrs["slot_mapping"][t:t + n_row] = \
-                blocks[pos // bs] * bs + pos % bs
-            arrs["block_tables"][s, :len(blocks)] = blocks
-            arrs["seq_lens"][s] = p0 + n_row
-            arrs["qtok_idx"][s, :n_row] = np.arange(t, t + n_row)
-            if nd:
-                arrs["sample_idx"][s * Qv:(s + 1) * Qv] = \
-                    t + np.minimum(np.arange(Qv), nd)
-            else:
-                arrs["sample_idx"][s * Qv:(s + 1) * Qv] = t + n - 1
-            sp = req.sampling
-            arrs["temperature"][s] = sp.temperature
-            arrs["top_k"][s] = sp.top_k
-            arrs["top_p"][s] = sp.top_p
-            if sp.seed is not None:
-                arrs["seeds"][s] = int(sp.seed) & 0x7FFFFFFF
-            arrs["gen0"][s] = len(req.output_token_ids)
-            arrs["spec_n"][s] = nd
-            t += n_row
-
-    _VERIFY_KEYS = ("temperature", "top_k", "top_p", "seeds", "gen0",
-                    "draft_tokens", "spec_n")
-
-    def _build_fused_batch(self, scheduled
-                           ) -> Tuple[Dict[str, torch.Tensor],
-                                      Dict[str, torch.Tensor]]:
-        """(device batch of the forward, host verify rows) of a mixed
-        round.  T, S and Q bucket as in the JAX engine: drafts are
-        budgeted like real tokens, so T covers them."""
-        cfg = self.config
-        n_rows = [sr.num_new_tokens + sr.num_draft_tokens
-                  for sr in scheduled]
-        max_q = max(n_rows, default=1)
-        Q = 1 if max_q == 1 else _next_bucket(
-            max_q, cfg.min_token_bucket, cfg.max_num_batched_tokens)
-        S = _next_bucket(len(scheduled),
-                         min(cfg.min_seq_bucket, cfg.max_num_seqs),
-                         cfg.max_num_seqs)
-        T = _next_bucket(sum(n_rows), cfg.min_token_bucket,
-                         cfg.max_num_batched_tokens)
-        arrs = self._empty_fused_np(T, S, Q, self.max_blocks_per_seq)
-        self._fill_fused_batch(arrs, scheduled)
-        verify = {k: torch.from_numpy(arrs.pop(k)) for k in self._VERIFY_KEYS}
-        batch = {k: torch.from_numpy(v).to(self.device)
-                 for k, v in arrs.items()}
-        return batch, verify
-
     def _fused_body(self, batch: Dict[str, torch.Tensor],
                     verify: Dict[str, torch.Tensor], key: prng.Key,
-                    want_lp: bool, want_top: bool) -> List[torch.Tensor]:
+                    want_lp: bool, want_top: bool,
+                    random_rows: bool) -> List[torch.Tensor]:
         """The fused mixed round as a function of tensors (the JAX
         engine's ``fused_fn``): forward over the ragged batch, logits of
         every verify position, ``spec_verify``, the hidden state gathered
         at each row's accepted position, ``draft_propose`` from it and
         the bonus token, and the logprobs of every verify position when
-        a row asks for them.  Returns ``[ids [S, K+1], accepted [S],
-        drafts [S, K]]`` (+ ``lp [S, K+1]``, + top-20 ids and logprobs
-        ``[S, K+1, 20]``), all still on the device."""
+        a row asks for them.  ``verify`` holds the rows' sampling
+        parameters, ``gen0``, ``draft_tokens``, ``spec_n``, the round's
+        acceptance ``coin [S, K]`` and the ``rate`` (negative: verify).
+        Returns ``[ids [S, K+1], accepted [S], drafts [S, K]]`` (+ ``lp
+        [S, K+1]``, + top-20 ids and logprobs ``[S, K+1, 20]``), all
+        still on the device."""
         c, K = self.model_config, self.spec_k
         hidden = self.model.forward(
             self.params, self.kv_cache, batch, c, self.config.block_size,
@@ -855,8 +816,8 @@ class EngineCore:
             logits, verify["draft_tokens"], verify["spec_n"],
             verify["temperature"], verify["top_k"], verify["top_p"], key,
             seeds=verify["seeds"], gen0=verify["gen0"],
-            fixed_accept=self.config.spec_fixed_accept,
-            step=self._step_count)
+            fixed_accept=verify["rate"], coin=verify["coin"],
+            random_rows=random_rows)
         S = accepted.shape[0]
         rows = torch.arange(S, device=ids.device)
         h_a = hidden.reshape(S, K + 1, -1)[rows, accepted]
@@ -870,122 +831,533 @@ class EngineCore:
             out.append(sampling_ops.verify_logprobs(logits, ids))
         return out
 
-    def _run_fused(self, sched: SchedulerOutput) -> List[RequestOutput]:
-        """One fused mixed-round step, whatever the row mix.  Decode rows
-        emit their accepted drafts and the correction or bonus token (1
-        to K+1 tokens) and trim the rejected tail's blocks back to the
-        pool this step; prefill rows advance their chunk with the classic
-        bookkeeping and, when the chunk completes the prompt, emit slot
-        0's first token and keep the drafts proposed from it, so the
-        request's first decode step is already spec-armed.  Logprobs rows
-        get one value (and one top-N dict) per emitted token."""
-        scheduled = sched.scheduled
-        step_t0 = time.monotonic()
-        want_top = any((sr.request.sampling.logprobs or 0) > 0
-                       for sr in scheduled)
-        want_lp = any(sr.request.sampling.logprobs is not None
-                      for sr in scheduled)
-        batch, verify = self._build_fused_batch(scheduled)
+    # ---------- the fused multistep pipeline ----------
+
+    def _fms_round_batch(self, inp: Dict[str, torch.Tensor], r: int,
+                         pos: torch.Tensor, last: torch.Tensor,
+                         drafts: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Round ``r``'s forward batch of a fused dispatch: the plan's
+        precomputed round ``inp[...][r]`` with the decode rows' token
+        ids, positions, slots and ``seq_lens`` patched from the carry
+        (``pos``, ``last``, ``drafts``).  A decode row's slot 0 feeds its
+        last token, slots 1..nd its drafts; slots past nd and pad tokens
+        write block-0 trash.  Tokens past every row's stride are left as
+        the plan laid them out (token 0 at position 0, slot 0: the single
+        round's pad tokens; the JAX program patches them as row 0's)."""
+        K, bs = self.spec_k, self.config.block_size
+        bt = inp["block_tables"]
+        row = inp["slot_row"].long()
+        sq = inp["slot_q"]
+        nd, is_dec = inp["spec_n"][r], inp["is_dec"][r]
+        patch = is_dec[row] & inp["in_row"]
+        qi = (sq.long() - 1).clamp(0, max(K - 1, 0))
+        tok_dec = torch.where(sq == 0, last[row], drafts[row, qi])
+        pos_t = torch.where(patch, pos[row] + sq, inp["positions"][r])
+        dead = inp["dead"][r] | (patch & (sq > nd[row])) \
+            | ~inp["active"][row]
+        # Dead slots may sit past the table (they write trash anyway).
+        page = (pos_t // bs).long().clamp(max=bt.shape[1] - 1)
+        slot = bt[row, page] * bs + pos_t % bs
+        slot_mapping = torch.where(dead, pos_t % bs, torch.where(
+            patch, slot, inp["slot_mapping"][r]))
+        seq_lens = torch.where(is_dec, pos + nd + 1, inp["seq_lens"][r])
+        return dict(
+            token_ids=torch.where(patch, tok_dec, inp["token_ids"][r]),
+            positions=pos_t, token_seq_ids=inp["slot_row"], token_qpos=sq,
+            slot_mapping=slot_mapping, block_tables=bt,
+            seq_lens=torch.where(inp["active"], seq_lens, 0),
+            sample_idx=inp["sample_idx"][r], qtok_idx=inp["qtok_idx"][r])
+
+    def _fms_body(self, inp: Dict[str, torch.Tensor],
+                  out: Dict[str, torch.Tensor], n: int, want_lp: bool,
+                  want_top: bool, random_rows: bool) -> None:
+        """``n`` fused mixed rounds of one dispatch (the JAX engine's
+        ``fms_fn``, one ``lax.scan`` step a round) as a plain function
+        of tensors that never syncs the host: on the card it is what a
+        fused graph captures, on the CPU it runs eagerly.  Every round is
+        ``_fused_body`` on ``_fms_round_batch``; the carry (``pos``,
+        ``last``, ``drafts``, ``gen0``) stays on the device between
+        rounds.  Round ``r`` samples with key ``inp["keys"][r]`` and
+        accepts by ``inp["coin"][r]`` against ``inp["rate"]``; it writes
+        ``out["ids"][r]``, ``out["accepted"][r]`` (and the logprobs), and
+        the final carry lands in ``out``'s carry tensors (the inputs are
+        left as they were).  Rows are flat ``[S]``: the port has one
+        device, so the JAX program's stacked ``[dp, S_l]`` rows do not
+        arise."""
+        active = inp["active"]
+        pos, last, drafts, gen0 = (inp[k] for k in
+                                   ("pos", "last", "drafts", "gen0"))
+        keys = inp["keys"]
+        params = {k: inp[k] for k in ("temperature", "top_k", "top_p",
+                                      "seeds")}
+        for r in range(n):
+            is_dec, comp = inp["is_dec"][r], inp["completing"][r]
+            batch = self._fms_round_batch(inp, r, pos, last, drafts)
+            res = self._fused_body(
+                batch, dict(params, gen0=gen0, draft_tokens=drafts,
+                            spec_n=inp["spec_n"][r], coin=inp["coin"][r],
+                            rate=inp["rate"]),
+                (keys[r, 0], keys[r, 1]), want_lp, want_top, random_rows)
+            ids, accepted, new_drafts = res[:3]
+            accepted = accepted.to(torch.int32)
+            # Row state: a decode row advances by its accepted prefix and
+            # the bonus token; a completing prefill row emits its first
+            # token and enters decode spec-armed; a mid-prompt row moves
+            # its chunk pointer; inactive rows hold.
+            dec = active & is_dec
+            emitted = torch.where(dec, accepted + 1,
+                                  (active & comp).to(torch.int32))
+            sampled = active & (is_dec | comp)
+            at = torch.where(is_dec, accepted, 0).long()
+            last = torch.where(sampled, ids.gather(1, at[:, None])[:, 0]
+                               .to(torch.int32), last)
+            drafts = torch.where(sampled[:, None], new_drafts, drafts)
+            gen0 = gen0 + emitted
+            pos = torch.where(dec, pos + emitted,
+                              torch.where(active, inp["next_pos"][r], pos))
+            out["ids"][r] = ids
+            out["accepted"][r] = accepted
+            for name, t in zip(("lp", "top_ids", "top_lps"), res[3:]):
+                out[name][r] = t
+        for name, t in (("pos", pos), ("last", last), ("drafts", drafts),
+                        ("gen0", gen0)):
+            out[name].copy_(t)
+
+    def _fms_outputs(self, S: int, N: int, want_lp: bool,
+                     want_top: bool) -> Dict[str, torch.Tensor]:
+        """The output tensors of an N-round dispatch over ``S`` rows."""
+        Qv = self.spec_k + 1
+
+        def z(shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+        out = dict(ids=z((N, S, Qv)), accepted=z((N, S)), pos=z(S),
+                   last=z(S), drafts=z((S, self.spec_k)), gen0=z(S))
+        if want_lp or want_top:
+            out["lp"] = z((N, S, Qv), torch.float32)
+        if want_top:
+            out["top_ids"] = z((N, S, Qv, 20))
+            out["top_lps"] = z((N, S, Qv, 20), torch.float32)
+        return out
+
+    def _fms_plan(self, sched: SchedulerOutput,
+                  N: int) -> Optional[Dict[str, Any]]:
+        """Plan ``N`` fused rounds from one schedule pass (the JAX
+        engine's ``_fms_plan``), or None to fall back to a single round.
+
+        Per row: a decode entry runs N draft-verify rounds at its funded
+        depth (stride 1+nd: ``_spec_lookahead`` divided the
+        ``max_model_len`` headroom by N); a prefill entry consumes its
+        prompt in stride-sized chunks (round 0's chunk is the scheduler's)
+        and, once complete, continues as decode with up to min(K,
+        stride-1) drafts in the same slots.  The worst-case KV tail
+        (every draft accepted every round) is allocated here and trimmed
+        once a row at retire.  A row that cannot be covered (a
+        ``max_model_len`` horizon, pool pressure) bails the whole plan,
+        counted in ``engine_feature_disabled_total``.  With N = 1 this
+        is the single fused round, which the scheduler already funded."""
+        K = self.spec_k
+        max_len = self.model_config.max_model_len
+        specs: List[Dict[str, Any]] = []
+        for sr in sched.scheduled:
+            req, n = sr.request, sr.num_new_tokens
+            nd = sr.num_draft_tokens
+            is_decode = (n == 1 and bool(req.output_token_ids)
+                         and req.num_computed_tokens == req.num_tokens - 1)
+            computed = req.num_computed_tokens
+            rounds: List[Tuple[str, int]] = []
+            if is_decode:
+                stride = 1 + nd
+                rounds = [("dec", nd)] * N
+                cover = computed + N * stride
+                min_emit = N
+            else:
+                stride = n
+                nd_post = min(K, stride - 1)
+                cover = done = computed
+                min_emit = 0
+                for _ in range(N):
+                    left = req.num_tokens - done
+                    if left > 0:
+                        c_r = min(stride, left)
+                        rounds.append(("chunk", c_r))
+                        done += c_r
+                        if done == req.num_tokens:
+                            min_emit += 1       # completion emits 1
+                        cover = max(cover, done)
+                    else:
+                        rounds.append(("dec", nd_post))
+                        cover = max(cover, done + nd_post + 1)
+                        done += nd_post + 1
+                        min_emit += 1
+            if cover > max_len:
+                self._disable_feature("fused_multistep", "max_model_len")
+                return None
+            specs.append(dict(req=req, active=True, stride=stride,
+                              rounds=rounds, cover=cover, min_emit=min_emit,
+                              gen0=len(req.output_token_ids)))
+        allocated: List[Tuple[Request, List[int]]] = []
+        for spec in specs:
+            got = self.kv_manager.allocate(spec["req"], spec["cover"])
+            if got is None:
+                for r_, blocks in reversed(allocated):
+                    self.kv_manager.release_tail(r_, blocks)
+                self._disable_feature("fused_multistep", "kv_allocation")
+                return None
+            allocated.append((spec["req"], got))
+        return self._fms_build(specs, N, self._step_count)
+
+    def _fms_build(self, specs: List[Dict[str, Any]], N: int,
+                   step_base: int, S: Optional[int] = None
+                   ) -> Dict[str, Any]:
+        """Host arrays of an N-round dispatch (the JAX engine's
+        ``_fms_build`` with one shard): per-row statics (``sbatch``:
+        sampling parameters, block tables, the fixed ``slot_row`` /
+        ``slot_q`` token layout and ``in_row``, the tokens inside a live
+        row's stride), per-round content (``xs``, leading dim N) and the
+        initial carry.  Inactive specs keep their row (a successor's
+        carry is positional) but add no tokens.  ``S`` pins the row
+        bucket of a successor whose carry stays on the device."""
+        cfg = self.config
+        K = self.spec_k
+        Qv = K + 1
+        B = self.max_blocks_per_seq
+        bs = cfg.block_size
+        live = [sp_ for sp_ in specs if sp_["active"]]
+        if S is None:
+            S = _next_bucket(len(specs),
+                             min(cfg.min_seq_bucket, cfg.max_num_seqs),
+                             cfg.max_num_seqs)
+        T = _next_bucket(sum(sp_["stride"] for sp_ in live)
+                         or cfg.min_token_bucket,
+                         cfg.min_token_bucket, cfg.max_num_batched_tokens)
+        max_q = max((sp_["stride"] for sp_ in live), default=1)
+        Q = 1 if max_q == 1 else _next_bucket(
+            max_q, cfg.min_token_bucket, cfg.max_num_batched_tokens)
+        sb = dict(
+            temperature=np.zeros(S, np.float32), top_k=np.zeros(S, np.int32),
+            top_p=np.ones(S, np.float32), seeds=np.full(S, -1, np.int32),
+            block_tables=np.zeros((S, B), np.int32),
+            active=np.zeros(S, bool), slot_row=np.zeros(T, np.int32),
+            slot_q=np.zeros(T, np.int32), in_row=np.zeros(T, bool))
+        x = dict(
+            token_ids=np.zeros((N, T), np.int32),
+            positions=np.zeros((N, T), np.int32),
+            slot_mapping=np.zeros((N, T), np.int32),
+            dead=np.ones((N, T), bool),
+            seq_lens=np.zeros((N, S), np.int32),
+            sample_idx=np.zeros((N, S * Qv), np.int32),
+            qtok_idx=np.full((N, S, Q), T, np.int32),
+            spec_n=np.zeros((N, S), np.int32),
+            is_dec=np.zeros((N, S), bool),
+            completing=np.zeros((N, S), bool),
+            next_pos=np.zeros((N, S), np.int32))
+        carry = dict(pos=np.zeros(S, np.int32), last=np.zeros(S, np.int32),
+                     drafts=np.zeros((S, K), np.int32),
+                     gen0=np.zeros(S, np.int32))
+        t = 0
+        for i, sp_ in enumerate(specs):
+            if not sp_["active"]:
+                continue
+            req, stride = sp_["req"], sp_["stride"]
+            sampling = req.sampling
+            sb["temperature"][i] = sampling.temperature
+            sb["top_k"][i] = sampling.top_k
+            sb["top_p"][i] = sampling.top_p
+            if sampling.seed is not None:
+                sb["seeds"][i] = int(sampling.seed) & 0x7FFFFFFF
+            blocks = np.asarray(req.block_ids, np.int32)
+            sb["block_tables"][i, :len(blocks)] = blocks
+            sb["active"][i] = True
+            sb["slot_row"][t:t + stride] = i
+            sb["slot_q"][t:t + stride] = np.arange(stride)
+            sb["in_row"][t:t + stride] = True
+            done = req.num_computed_tokens
+            carry["pos"][i] = done
+            carry["gen0"][i] = len(req.output_token_ids)
+            if sp_["rounds"][0][0] == "dec" and req.output_token_ids:
+                carry["last"][i] = req.all_token_ids[done]
+                d = req.spec_drafts[:K]
+                carry["drafts"][i, :len(d)] = d
+            for rno, (kind, val) in enumerate(sp_["rounds"]):
+                if kind == "chunk":
+                    pos = np.arange(done, done + val)
+                    x["token_ids"][rno, t:t + val] = \
+                        req.all_token_ids[done:done + val]
+                    x["positions"][rno, t:t + val] = pos
+                    x["slot_mapping"][rno, t:t + val] = \
+                        blocks[pos // bs] * bs + pos % bs
+                    x["dead"][rno, t:t + val] = False
+                    x["seq_lens"][rno, i] = done + val
+                    x["sample_idx"][rno, i * Qv:(i + 1) * Qv] = t + val - 1
+                    x["qtok_idx"][rno, i, :val] = np.arange(t, t + val)
+                    done += val
+                    x["completing"][rno, i] = done == req.num_tokens
+                    x["next_pos"][rno, i] = done
+                else:
+                    used = val + 1
+                    x["dead"][rno, t:t + used] = False
+                    x["is_dec"][rno, i] = True
+                    x["spec_n"][rno, i] = val
+                    x["sample_idx"][rno, i * Qv:(i + 1) * Qv] = \
+                        t + np.minimum(np.arange(Qv), val)
+                    x["qtok_idx"][rno, i, :used] = np.arange(t, t + used)
+            t += stride
+        return dict(
+            kind="fms", N=N, S=S, T=T, Q=Q, step_base=step_base,
+            specs=specs, sbatch=sb, xs=x, carry=carry,
+            covers={sp_["req"].request_id: sp_["cover"] for sp_ in live})
+
+    def _fms_coins(self, plan: Dict[str, Any]
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+        """(coin [N, S, K], rate [1]) of a dispatch: each round's
+        fixed-acceptance coin, keyed on its engine step (``accept_coin``
+        on the host, so the graph takes it as an input), and the rate,
+        read now (-1 verifies; the coin is then unused)."""
+        N, S, K = plan["N"], plan["S"], self.spec_k
+        rate = self.config.spec_fixed_accept
+        if rate is None:
+            return np.zeros((N, S, K), np.float32), np.full(1, -1.0,
+                                                             np.float32)
+        coin = np.stack([sampling_ops.accept_coin(
+            plan["step_base"] + r, S, K, "cpu").numpy() for r in range(N)])
+        return coin, np.full(1, rate, np.float32)
+
+    def _fms_dispatch(self, plan: Dict[str, Any],
+                      carry_dev: Optional[Dict[str, torch.Tensor]] = None
+                      ) -> Dict[str, Any]:
+        """Queue one N-round dispatch (N = 1: the single fused round);
+        returns the in-flight record without synchronizing (its outputs
+        reach the host at retire).  ``carry_dev`` chains a successor from
+        its predecessor's device carry.  On the card the dispatch is one
+        replay of the graph of its key: every shape the body bakes in
+        (rows, tokens, query width, verify stride, block-table width, N,
+        the logprobs it returns, any random row)."""
+        t0 = time.monotonic()
+        live = [sp_ for sp_ in plan["specs"] if sp_["active"]]
+        want_top = any((sp_["req"].sampling.logprobs or 0) > 0
+                       for sp_ in live)
+        want_lp = any(sp_["req"].sampling.logprobs is not None
+                      for sp_ in live)
+        N, S = plan["N"], plan["S"]
+        random_rows = bool((plan["sbatch"]["temperature"] > 0).any())
         self._rng, step_key = prng.split(self._rng)
-        fetch = self._fused_body(batch, verify, step_key, want_lp, want_top)
-        # The step's one host sync: the first copy waits for the device.
-        fetched = [t.cpu().numpy() for t in fetch]
+        # The single round samples with the step key itself, as the JAX
+        # engine's fused round does; N rounds with its N splits.
+        keys = np.asarray(prng.split(step_key, N) if N > 1 else [step_key],
+                          np.int64)
+        coin, rate = self._fms_coins(plan)
+        values = dict(plan["sbatch"], **plan["xs"], keys=keys, coin=coin,
+                      rate=rate, **(carry_dev or plan["carry"]))
+        rec = dict(kind="fms", plan=plan, want_lp=want_lp,
+                   want_top=want_top, t0=t0)
+        if self._graphs is None:
+            inp = {k: torch.as_tensor(v, device=self.device)
+                   for k, v in values.items()}
+            out = self._fms_outputs(S, N, want_lp, want_top)
+            self._fms_body(inp, out, N, want_lp, want_top, random_rows)
+            rec.update(out_dev=out, done=None,
+                       out_host={k: v.cpu() for k, v in out.items()})
+        else:
+            key = ("fms", S, plan["T"], plan["Q"], self.spec_k + 1,
+                   self.max_blocks_per_seq, N, want_lp, want_top,
+                   random_rows)
+            g = self._graphs.block(key, lambda: (
+                {k: torch.empty_like(torch.as_tensor(v), device=self.device)
+                 for k, v in values.items()},
+                self._fms_outputs(S, N, want_lp, want_top)))
+            self._graphs.load(g, values)
+            if g.graph is None:
+                self._graphs.capture(
+                    g, lambda n: self._fms_body(g.inputs, g.outputs, n,
+                                                want_lp, want_top,
+                                                random_rows), N)
+            host, done = self._graphs.replay(g)
+            rec.update(out_dev=g.outputs, out_host=host, done=done)
         self._dispatch_count += 1
-        self._step_count += 1
         self.metrics.engine_dispatches.inc()
-        self.metrics.engine_steps.inc()
-        ids, accepted, drafts = fetched[:3]
-        logprobs = fetched[3] if want_lp else None
-        top = (fetched[4], fetched[5]) if want_top else None
+        return rec
+
+    def _fms_retire(self, rec: Dict[str, Any],
+                    successor: Optional[Dict[str, Any]] = None
+                    ) -> List[RequestOutput]:
+        """Wait for one fused dispatch and replay its rounds through the
+        per-request bookkeeping (the JAX engine's ``_fms_retire``): chunk
+        rounds advance prefill (a completing chunk does the first-token
+        bookkeeping), decode rounds walk the accepted prefix with the
+        stop checks; tokens computed past a stop are discarded.  Each
+        row then takes its next drafts from the final carry and gets one
+        ``trim_request``: to its content, or with ``successor`` in
+        flight to the successor's worst-case cover.  Logprobs rows get
+        one value (and one top-N dict) per emitted token."""
+        plan = rec["plan"]
+        N = plan["N"]
+        if rec["done"] is not None:
+            # The dispatch's own copy: a successor queued after it runs on.
+            rec["done"].synchronize()
+        h = {k: v.numpy() for k, v in rec["out_host"].items()}
+        ids, acc, drafts_f = h["ids"], h["accepted"], h["drafts"]
+        lp = h.get("lp")
+        top = (h["top_ids"], h["top_lps"]) if rec["want_top"] else None
+        self._step_count += N
+        self.metrics.engine_steps.inc(N)
 
         outputs: List[RequestOutput] = []
         now = time.monotonic()
-        for s, sr in enumerate(scheduled):
-            req, n = sr.request, sr.num_new_tokens
-            nd = sr.num_draft_tokens
-            # A decode entry has sampled at least one token: a 1-token
-            # final prefill chunk is otherwise indistinguishable.
-            is_decode = (n == 1 and bool(req.output_token_ids)
-                         and req.num_computed_tokens == req.num_tokens - 1)
-            if not is_decode:
-                # ---- prefill chunk (classic bookkeeping) ----
-                req.num_computed_tokens += n
-                self.kv_manager.cache_full_blocks(req)
-                if req.num_computed_tokens != req.num_tokens:
-                    continue          # mid-prefill chunk: sample discarded
-                if req.num_computed_tokens <= req.num_prompt_tokens:
-                    self._count_prefill_done(req, now)
-                elif req.last_token_time is not None:
-                    self.metrics.inter_token_latency.observe(
-                        now - req.last_token_time)
-                req.last_token_time = now
-                new_tokens = [int(ids[s, 0])]
-                req.output_token_ids.append(new_tokens[0])
-                self.metrics.generation_tokens.inc()
-                finish = self._check_stop(req, new_tokens[0])
-            else:
-                # ---- decode row (draft-and-verify bookkeeping) ----
-                a = min(int(accepted[s]), nd)
-                req.spec_drafted += nd
+        pre_toks = dec_toks = 0
+        for s, sp_ in enumerate(plan["specs"]):
+            if not sp_["active"]:
+                continue
+            req = sp_["req"]
+            pre_toks += sum(v for k, v in sp_["rounds"] if k == "chunk")
+            dec_toks += sum(v + 1 for k, v in sp_["rounds"] if k == "dec")
+            if req.state is not RequestState.RUNNING:
+                continue    # finished at an earlier retire or aborted
+            new_tokens: List[int] = []
+            lp_list: List[float] = []
+            top_at: List[Tuple[int, int]] = []
+            finish = None
+            for rno, (kind, val) in enumerate(sp_["rounds"]):
+                if finish is not None:
+                    break
+                if kind == "chunk":
+                    req.num_computed_tokens += val
+                    if req.num_computed_tokens != req.num_tokens:
+                        continue          # mid-prompt round
+                    if req.num_computed_tokens <= req.num_prompt_tokens:
+                        self._count_prefill_done(req, now)
+                    token = int(ids[rno, s, 0])
+                    req.output_token_ids.append(token)
+                    new_tokens.append(token)
+                    top_at.append((rno, 0))
+                    finish = self._check_stop(req, token)
+                    continue
+                a = min(int(acc[rno, s]), val)
+                req.spec_drafted += val
                 req.spec_accepted += a
-                if nd:
-                    self.metrics.spec_draft_tokens.inc(nd)
+                if val:
+                    self.metrics.spec_draft_tokens.inc(val)
                     if a:
                         self.metrics.spec_accepted_tokens.inc(a)
-                    self.spec_tracker.observe(req.request_id, nd, a)
-                new_tokens = []
-                finish = None
+                    self.spec_tracker.observe(req.request_id, val, a)
                 for q in range(a + 1):
-                    token = int(ids[s, q])
+                    token = int(ids[rno, s, q])
                     req.num_computed_tokens += 1
                     req.output_token_ids.append(token)
                     new_tokens.append(token)
+                    top_at.append((rno, q))
                     finish = self._check_stop(req, token)
                     if finish is not None:
-                        break           # tokens past a stop are discarded
-                self.metrics.generation_tokens.inc(len(new_tokens))
+                        break         # tokens past a stop are discarded
+            self.metrics.generation_tokens.inc(len(new_tokens))
+            if new_tokens:
                 if req.last_token_time is not None:
                     self.metrics.inter_token_latency.observe(
                         (now - req.last_token_time) / len(new_tokens))
                 req.last_token_time = now
-                self.kv_manager.cache_full_blocks(req)
+            # The next dispatch's drafts, from the final carry; the tag
+            # makes them stale if any other path appends a token first.
+            req.spec_drafts = [int(t) for t in drafts_f[s]]
+            req.spec_drafts_at = req.num_tokens
+            self.kv_manager.cache_full_blocks(req)
+            sampling = req.sampling
             top_lp = None
-            if top is not None and (req.sampling.logprobs or 0) > 0:
-                k = min(int(req.sampling.logprobs), top[0].shape[-1])
-                top_lp = [{int(top[0][s, q, j]): float(top[1][s, q, j])
-                           for j in range(k)}
-                          for q in range(len(new_tokens))]
-            outputs.append(RequestOutput(
-                req.request_id, new_tokens, finish is not None,
-                finish_reason=finish,
-                logprobs=([float(logprobs[s, q])
-                           for q in range(len(new_tokens))]
-                          if req.sampling.logprobs is not None else None),
-                top_logprobs=top_lp))
+            if top is not None and (sampling.logprobs or 0) > 0:
+                k = min(int(sampling.logprobs), top[0].shape[-1])
+                top_lp = [{int(top[0][rno, s, q, j]):
+                           float(top[1][rno, s, q, j]) for j in range(k)}
+                          for rno, q in top_at]
+            if new_tokens:
+                outputs.append(RequestOutput(
+                    req.request_id, new_tokens, finish is not None,
+                    finish_reason=finish,
+                    logprobs=([float(lp[rno, s, q]) for rno, q in top_at]
+                              if sampling.logprobs is not None else None),
+                    top_logprobs=top_lp))
             if finish is not None:
                 self.scheduler.finish(req, RequestState(finish))
                 self._spec_forget(req.request_id)
                 self._count_success(req, finish, now)
                 continue
-            # The next step's drafts, proposed on the device from this
-            # step's accepted position; the tag makes them stale if any
-            # other path appends a token first.
-            req.spec_drafts = [int(t) for t in drafts[s]]
-            req.spec_drafts_at = req.num_tokens
-            if is_decode:
-                # Rejection rollback: blocks past the accepted content
-                # (and the pending token's slot) go back this step.
-                self.kv_manager.trim_request(req, req.num_tokens)
-        # Step composition: the decode load counts the verify rows.
-        decode_load = sched.decode_tokens + sched.spec_tokens
-        if sched.prefill_tokens:
-            self.metrics.step_prefill_tokens.inc(sched.prefill_tokens)
-        if decode_load:
-            self.metrics.step_decode_tokens.inc(decode_load)
-        self.step_time_model.observe(
-            sched.prefill_tokens, decode_load, (now - step_t0) * 1e3)
+            # Rejection rollback, once a dispatch: blocks past the
+            # surviving content (and the pending token's slot) go back,
+            # except those a successor in flight writes.
+            keep = req.num_tokens
+            if successor is not None:
+                keep = max(keep, successor["plan"]["covers"].get(
+                    req.request_id, keep))
+            self.kv_manager.trim_request(req, keep)
+        if pre_toks:
+            self.metrics.step_prefill_tokens.inc(pre_toks)
+        if dec_toks:
+            self.metrics.step_decode_tokens.inc(dec_toks)
+        # One sample a round, as the chunk cap sizes chunks per round.
+        self.step_time_model.observe(pre_toks / N, dec_toks / N,
+                                     (now - rec["t0"]) * 1e3 / N)
         self._update_queue_metrics()
         return outputs
+
+    def _fms_try_extend(self, rec: Dict[str, Any]
+                        ) -> Optional[Dict[str, Any]]:
+        """Dispatch the in-flight fused dispatch's successor from its
+        device carry (``_ms_try_extend``'s double buffering, the JAX
+        engine's ``_fms_try_extend``): rows continue as N decode rounds
+        at their last depth, their worst-case tails allocated now.  A
+        row still mid-prompt, new arrivals, rejections, an expired
+        deadline, pool pressure or a ``max_model_len`` horizon drain the
+        pipeline (None), so the next step's schedule pass re-plans."""
+        if self._rejected or self.scheduler.waiting:
+            return None
+        plan = rec["plan"]
+        N = plan["N"]
+        max_len = self.model_config.max_model_len
+        next_specs: List[Dict[str, Any]] = []
+        for sp_ in plan["specs"]:
+            nxt = dict(sp_, active=False)
+            next_specs.append(nxt)
+            req = sp_["req"]
+            if not sp_["active"] or req.state is not RequestState.RUNNING:
+                continue
+            if req.deadline_expired():
+                return None
+            if sp_["rounds"][-1][0] != "dec":
+                return None     # still mid-prompt after N rounds
+            gen_min = sp_["gen0"] + sp_["min_emit"]
+            if gen_min >= req.sampling.max_tokens:
+                continue        # certain to finish in flight: a pad row
+            nd = sp_["rounds"][-1][1]
+            cover = sp_["cover"] + N * (nd + 1)
+            if cover > max_len:
+                return None
+            nxt.update(active=True, stride=nd + 1, rounds=[("dec", nd)] * N,
+                       cover=cover, gen0=gen_min, min_emit=N)
+        if not any(nxt["active"] for nxt in next_specs):
+            return None
+        allocated: List[Tuple[Request, List[int]]] = []
+        for nxt in next_specs:
+            if not nxt["active"]:
+                continue
+            got = self.kv_manager.allocate(nxt["req"], nxt["cover"])
+            if got is None:
+                for r_, blocks in reversed(allocated):
+                    self.kv_manager.release_tail(r_, blocks)
+                return None
+            allocated.append((nxt["req"], got))
+        nplan = self._fms_build(next_specs, N, self._step_count + N,
+                                S=plan["S"])
+        return self._fms_dispatch(nplan, carry_dev={
+            k: rec["out_dev"][k] for k in ("pos", "last", "drafts", "gen0")})
+
+    def _run_fused(self, sched: SchedulerOutput) -> List[RequestOutput]:
+        """One fused mixed-round step, whatever the row mix: the fused
+        pipeline's one-round dispatch, retired at once.  Decode rows emit
+        their accepted drafts and the correction or bonus token (1 to
+        K+1 tokens) and trim the rejected tail's blocks back to the pool
+        this step; prefill rows advance their chunk and, when the chunk
+        completes the prompt, emit slot 0's first token and keep the
+        drafts proposed from it, so the request's first decode step is
+        already spec-armed."""
+        # The scheduler funded this round's tokens: the plan always fits.
+        return self._fms_retire(self._fms_dispatch(self._fms_plan(sched, 1)))
 
     # ---------- step ----------
 
@@ -997,8 +1369,12 @@ class EngineCore:
             # first, then retire the in-flight one, so the host's token
             # processing runs while the device computes the successor.
             rec = self._inflight
-            nxt = self._ms_try_extend(rec)
-            outputs.extend(self._ms_retire(rec))
+            if rec["kind"] == "fms":
+                nxt = self._fms_try_extend(rec)
+                outputs.extend(self._fms_retire(rec, successor=nxt))
+            else:
+                nxt = self._ms_try_extend(rec)
+                outputs.extend(self._ms_retire(rec))
             self._inflight = nxt
             return outputs
         sched = self.scheduler.schedule()
@@ -1021,7 +1397,18 @@ class EngineCore:
 
         if self.spec_k > 0:
             # Whatever this pass scheduled (prefill chunks, plain decodes,
-            # draft-verify rows, logprobs rows) runs as one fused round.
+            # draft-verify rows, logprobs rows) runs as one fused round,
+            # or with num_scheduler_steps = N > 1 as N rounds in one
+            # dispatch, pipelined under async scheduling.
+            N = self.config.num_scheduler_steps
+            plan = self._fms_plan(sched, N) if N > 1 else None
+            if plan is not None:
+                rec = self._fms_dispatch(plan)
+                if self.config.async_scheduling:
+                    self._inflight = rec
+                    return outputs   # this dispatch retires next step
+                outputs.extend(self._fms_retire(rec))
+                return outputs
             outputs.extend(self._run_fused(sched))
             return outputs
 

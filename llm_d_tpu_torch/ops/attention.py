@@ -222,6 +222,17 @@ def _flash_batched_q_chunks(
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
+def _context_bound(seq_lens: torch.Tensor, C: int) -> int:
+    """The longest context of the batch, read to the host; under a CUDA
+    graph capture, which allows no host read, the table's ``C`` slots.
+    The chunks past every row's length are then fully masked: each
+    leaves the running max, sum and accumulator as they were, so the
+    output is the same, bit for bit."""
+    if seq_lens.is_cuda and torch.cuda.is_current_stream_capturing():
+        return C
+    return int(seq_lens.max()) if seq_lens.shape[0] else 0
+
+
 def ragged_paged_attention_chunked(
     q: torch.Tensor,              # [T, H, D]
     k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -242,8 +253,8 @@ def ragged_paged_attention_chunked(
     prefill and mixed steps chunk the queries to bound the score tensor.
 
     The trip count over KV chunks is data-dependent, as JAX's
-    ``while_loop``: ``max(seq_lens)`` is read to the host once per call.
-    That sync is this eager path's only one."""
+    ``while_loop``: ``max(seq_lens)`` is read to the host once per call
+    (:func:`_context_bound`).  That sync is this eager path's only one."""
     T, H, D = q.shape
     S, B = block_tables.shape
     Q = qtok_idx.shape[1]
@@ -253,7 +264,7 @@ def ragged_paged_attention_chunked(
     slot_ids = (block_tables[:, :, None].long() * block_size
                 + torch.arange(block_size, device=q.device)[None, None, :]
                 ).reshape(S, C)
-    max_len = int(seq_lens.max()) if S else 0
+    max_len = _context_bound(seq_lens, C)
     if Q == 1:
         kv_chunk = _chunk_size_for(C)
         out = _flash_over_kv_chunks(

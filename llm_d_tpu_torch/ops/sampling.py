@@ -144,8 +144,9 @@ def spec_verify(
     key: prng.Key,
     seeds: torch.Tensor,           # [S] i32, -1 = unseeded
     gen0: torch.Tensor,            # [S] i32 tokens emitted before this step
-    fixed_accept: Optional[float] = None,
-    step: int = 0,
+    coin: Optional[torch.Tensor] = None,          # [S, K] f32
+    fixed_accept: Optional[torch.Tensor] = None,  # f32, < 0: verify
+    random_rows: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:   # (ids [S, K+1], accepted [S])
     """Draft verification and bonus sampling (``sampling.spec_verify``).
 
@@ -156,9 +157,12 @@ def spec_verify(
     at its position (and is live), so the emitted prefix ``ids[:,
     :accepted + 1]`` is the non-spec output for greedy and seeded rows.
 
-    ``fixed_accept`` (bench only) replaces the equality with a coin
-    keyed on (``step``, row): ``accept_coin(step) < fixed_accept``.  The
-    per-row parameters may live on the CPU, as for ``sample``."""
+    With a ``coin`` (bench only: the step's ``accept_coin``, drawn on
+    the host ahead, so that a captured graph takes it as an input), a
+    draft is accepted while its coin is below ``fixed_accept``, an f32
+    tensor; a negative rate verifies as above.  The per-row parameters
+    may live on the CPU, as for ``sample``; ``random_rows`` says whether
+    any row is random, which a graph cannot ask of its inputs."""
     S, K = draft_tokens.shape
     Q = K + 1
     dev = logits.device
@@ -166,15 +170,17 @@ def spec_verify(
     def rep(x):
         return torch.repeat_interleave(x, Q)
 
-    gen_idx = (gen0.to(torch.int64)[:, None]
-               + torch.arange(Q, dtype=torch.int64)[None, :]).reshape(-1)
+    gen_idx = (gen0.to(dev, torch.int64)[:, None]
+               + torch.arange(Q, dtype=torch.int64, device=dev)[None, :]
+               ).reshape(-1)
     ids = sample(logits, rep(temperature), rep(top_k), rep(top_p), key=key,
-                 seeds=rep(seeds), gen_idx=gen_idx).reshape(S, Q)
-    if fixed_accept is not None:
-        match = accept_coin(step, S, K, dev) < torch.tensor(
-            fixed_accept, dtype=torch.float32, device=dev)
+                 seeds=rep(seeds), gen_idx=gen_idx,
+                 random_rows=random_rows).reshape(S, Q)
+    equal = draft_tokens.to(dev, torch.int64) == ids[:, :K]
+    if coin is not None:
+        match = (coin < fixed_accept) | ((fixed_accept < 0) & equal)
     else:
-        match = draft_tokens.to(dev, torch.int64) == ids[:, :K]
+        match = equal
     live = (torch.arange(K, device=dev)[None, :]
             < spec_n.to(dev)[:, None])
     accepted = torch.cumprod((match & live).to(torch.int32), dim=1).sum(1)

@@ -697,15 +697,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 def check_served(parser: argparse.ArgumentParser, args) -> None:
     """``parser.error`` for the first unserved flag set to anything but
-    its default, and for spec decode over multistep blocks."""
+    its default."""
     for dest, why in UNSERVED_FLAGS.items():
         if getattr(args, dest) != parser.get_default(dest):
             flag = "--" + dest.replace("_", "-")
             parser.error(f"{flag} is not served by the PyTorch port: {why}")
-    if (args.spec_k or 0) > 0 and args.num_scheduler_steps > 1:
-        parser.error("--spec-k with --num-scheduler-steps > 1 is not served "
-                     "by the PyTorch port: the fused multistep pipeline is "
-                     "not ported")
 
 
 def main(argv: Optional[List[str]] = None) -> None:

@@ -95,10 +95,13 @@ class StepTimeModel:
         return float(max(0.0, self._coef @ x))
 
     def chunk_for(self, decode_tokens: int, target_ms: float,
-                  lo: int, hi: int) -> int:
+                  lo: int, hi: int, rounds: int = 1) -> int:
         """Largest prefill chunk in [lo, hi] predicted to keep the step
         under ``target_ms``: untrained -> ``hi``; even ``lo`` over the
-        target -> ``lo`` (prefills must progress)."""
+        target -> ``lo`` (prefills must progress).  Under an N-round
+        fused dispatch (``rounds``) a waiting decode sees N rounds back
+        to back, so each round gets ``target_ms / rounds``."""
+        target_ms = target_ms / max(1, rounds)
         if not self.trained or target_ms <= 0 or hi <= lo:
             return hi
         if self.predict(hi, decode_tokens) <= target_ms:

@@ -152,6 +152,44 @@ def test_query_and_key_chunks_follow_the_budget(monkeypatch):
                                atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("mode", ["decode", "prefill"])
+@pytest.mark.parametrize("kind", ["bf16", "int8-row", "soft_cap"])
+def test_whole_table_bound_is_bit_equal(mode, kind, monkeypatch):
+    """Under a CUDA graph capture the chunked path cannot read the
+    longest context to the host and runs every chunk of the table
+    (``_context_bound`` returns the table's slots): the extra chunks are
+    fully masked, and the output is bit-equal to the live-chunk run."""
+    rng = np.random.default_rng(11 + len(kind))
+    H, KVH, D, bs = 8, 2, 32, 16
+    sw = 1 if kind == "int8-row" else 0
+    # Tables of 80 pages: 1280 keys in five 256-key chunks, of which
+    # the longest context (601 or 309 keys) needs three or two.
+    b, _, ((k, ks), (v, vs)) = _case(rng, mode, KVH, D, sw, bs, B=80)
+    T = b["positions"].shape[0]
+    q = _t(jnp.asarray(rng.standard_normal((T, H, D)), jnp.bfloat16))
+    names = ("token_seq_ids", "positions", "block_tables", "seq_lens",
+             "qtok_idx", "token_qpos")
+    seen = []
+    real = TA._flash_over_kv_chunks
+
+    def spy(*a, **kw):
+        seen.append(a[9])                 # n_live
+        return real(*a, **kw)
+
+    monkeypatch.setattr(TA, "_flash_over_kv_chunks", spy)
+    outs = []
+    for whole in (False, True):
+        if whole:
+            monkeypatch.setattr(TA, "_context_bound", lambda sl, C: C)
+        outs.append(TA.ragged_paged_attention_chunked(
+            q, _t(k), _t(v), *(_t(b[n]) for n in names), block_size=bs,
+            scale=0.2, soft_cap=5.0 if kind == "soft_cap" else None,
+            layer=1, k_scale=None if ks is None else _t(ks),
+            v_scale=None if vs is None else _t(vs)))
+    assert seen == [3 if mode == "decode" else 2, 5]
+    assert torch.equal(outs[0], outs[1])
+
+
 @pytest.mark.parametrize("backend,soft_cap,D", [
     ("chunked", None, 64),       # every batch takes the chunked path
     ("kernel", 5.0, 64),         # soft-capped decode: no kernel takes it

@@ -429,6 +429,31 @@ def test_kv_pool_accounting_matches(dtype, sw):
         assert TEngine._next_bucket(n, lo, hi) == JEngine._next_bucket(n, lo, hi)
 
 
+def test_engine_config_defaults_equal_the_jax_dataclass():
+    """Every field both packages' ``EngineConfig`` have defaults to the
+    same value (the port's default model is ``tiny``, as in JAX)."""
+    jfields = {f.name: f for f in dataclasses.fields(JEngineConfig)}
+    shared = [f.name for f in dataclasses.fields(EngineConfig)
+              if f.name in jfields]
+    assert len(shared) >= 20
+    t, j = EngineConfig(), JEngineConfig()
+    assert {n: getattr(t, n) for n in shared} == \
+        {n: getattr(j, n) for n in shared}
+    assert t.model == "tiny"
+
+
+def test_int8_on_a_dense_model_raises_as_in_jax():
+    """``quantization="int8"`` quantizes MoE experts: on a dense model
+    both engines refuse to build, with the same message."""
+    kw = dict(model="tiny", quantization="int8", block_size=8, num_blocks=16)
+    with pytest.raises(ValueError) as je:
+        JEngineCore(JEngineConfig(**kw))
+    with pytest.raises(ValueError) as te:
+        EngineCore(EngineConfig(device="cpu", **kw))
+    assert str(te.value) == str(je.value)
+    assert "is dense" in str(te.value)
+
+
 def test_engine_without_device_raises_on_a_cpu_box():
     if torch.cuda.is_available():
         pytest.skip("this box has a CUDA device")

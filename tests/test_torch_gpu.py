@@ -15,7 +15,11 @@ kernels (C-F) max error / max |output| <= 1e-2
 The multistep engine's decode blocks (one CUDA graph each) are held to
 their eager body bit for bit, async scheduling to sync and to the
 classic loop token for token, and a capture that meets a host sync must
-raise.  The spec engine's fused rounds repeat token for token and free
+raise.  So are the spec engine's fused rounds and N-round dispatches
+(one graph a key, through the kernels or the chunked attention path),
+and everything-on greedy tokens equal N = 1's; capped graph sets serve
+the uncapped tokens, and bf16 experts past the dense bound are refused
+at build.  The spec engine's fused rounds repeat token for token and free
 their rejected blocks, and its acceptance coin is the CPU's bit for
 bit.  The OpenAI server over the same engine answers with the direct
 engine's tokens.
@@ -757,11 +761,11 @@ def test_decode_block_graph_replay_equals_the_eager_body(dev, n, S,
     snap = {k: v.clone() for k, v in eng.kv_cache.items()}
     g.graph.replay()
     torch.cuda.synchronize()
-    ids_graph = g.ids.clone()
+    ids_graph = g.outputs["ids"].clone()
     kv_graph = {k: v.clone() for k, v in eng.kv_cache.items()}
     for k, v in eng.kv_cache.items():
         v.copy_(snap[k])
-    ids_eager = torch.empty_like(g.ids)
+    ids_eager = torch.empty_like(g.outputs["ids"])
     eng._ms_body(g.inputs, g.inputs["keys"], ids_eager, sampled)
     torch.cuda.synchronize()
     assert torch.equal(ids_graph, ids_eager)
@@ -771,6 +775,69 @@ def test_decode_block_graph_replay_equals_the_eager_body(dev, n, S,
     moe = "dense_moe_int8" if S <= 64 else "routed_moe_int8"
     for name in ("mla_paged_decode_update", moe):
         assert eng._graphs.launches[name] > 0, name
+
+
+@pytest.mark.parametrize("N", [1, 2])
+def test_fused_graph_replay_equals_the_eager_body(dev, N):
+    """Spec decode (K = 4, fixed acceptance 0.7) on the 2-layer bench
+    engine: every fused round (N = 1, the single round) or N = 2
+    dispatch is a graph replay; each captured key, replayed again on its
+    static inputs and cache, is bit-equal to its eager body
+    (``EngineCore._fms_body``) from the same cache: every output (ids,
+    acceptance, final carry) and the cache outside block 0 (the trash
+    block dead slots write).  The replays launched kernel B; requests
+    end by length and the pool is whole."""
+    from llm_d_tpu_torch.engine.cuda_graph import replay_equals_eager
+    eng = _bench_2layer_engine(dev, spec_k=4, spec_fixed_accept=0.7,
+                               num_scheduler_steps=N)
+    free0 = eng.kv_manager.num_free_blocks
+    reqs = _block_requests(12, 11, False, seed=N)
+    eng.generate(reqs)
+    assert all(len(r.output_token_ids) == 12 for r in reqs)
+    assert eng.kv_manager.num_free_blocks == free0
+    keys = [k for k in eng._graphs.graphs if k[0] == "fms"]
+    assert keys and all(k[6] == N for k in keys)
+    assert eng._graphs.replays >= eng._dispatch_count
+    for key in keys:
+        g = eng._graphs.graphs[key]
+        res = replay_equals_eager(
+            g, eng.kv_cache, lambda out: eng._fms_body(
+                g.inputs, out, N, key[7], key[8], key[9]),
+            trash_rows=eng.config.block_size)
+        assert res == dict(outputs_equal=True, cache_equal=True), key
+    assert eng._graphs.launches["mla_flash_prefill"] > 0
+    if N > 1:
+        assert eng._step_count > eng._dispatch_count
+
+
+def test_everything_on_tiny_mla_on_the_card_equals_its_n1_run(dev):
+    """``tiny-mla`` (int8 latent in 32-row pages; its 64-wide experts
+    are below the int8 kernels' 128-column tile, so they stay bf16) with
+    spec decode everything-on (K = 4, N = 4, async scheduling): greedy
+    tokens equal the same engine's at N = 1 (the single fused round,
+    also graphed) on the same weights, the pipeline chains dispatches,
+    and the pool is whole."""
+    kw = dict(model="tiny-mla", kv_cache_dtype="int8", block_size=32,
+              num_blocks=64, max_num_seqs=8, max_num_batched_tokens=256,
+              enable_prefix_caching=False, device="cuda", spec_k=4)
+    one = EngineCore(EngineConfig(**kw))
+    eon = EngineCore(EngineConfig(**kw, num_scheduler_steps=4,
+                                  async_scheduling=True),
+                     params=one.params, draft_params=one.draft_params)
+
+    def reqs():
+        g = torch.Generator().manual_seed(9)
+        return [Request(f"m{i}", torch.randint(1, 512, (5 + 11 * i,),
+                                               generator=g).tolist(),
+                        SamplingParams(temperature=0.0, max_tokens=20 + i,
+                                       ignore_eos=True)) for i in range(5)]
+
+    free0 = eon.kv_manager.num_free_blocks
+    want = one.generate(reqs())
+    assert eon.generate(reqs()) == want
+    assert eon._step_count > 2 * eon._dispatch_count
+    assert eon._graphs.replays == eon._dispatch_count
+    assert eon.kv_manager.num_free_blocks == free0
 
 
 def test_async_tokens_equal_sync_tokens_on_the_card(dev):
@@ -820,7 +887,101 @@ def test_a_failed_capture_raises(dev, monkeypatch):
     with pytest.raises(RuntimeError):
         eng.generate(_block_requests(3, 8, False, seed=1))
     assert eng._graphs.replays == 0
-    assert all(g.graph is None for g in eng._graphs.graphs.values())
+    assert not eng._graphs.graphs         # the failed key holds no graph
+
+
+def test_bf16_experts_past_the_dense_bound_are_refused_at_build(dev):
+    """bf16 experts over 512 tokens run the grouped plain path, which
+    reads its group sizes to the host: a graph cannot hold it, so an
+    engine that would capture such a step raises when it is built (a
+    fused round captures up to max_num_batched_tokens, a decode block up
+    to its row bucket); within the bound it builds, and int8 experts
+    build at any size."""
+    kw = dict(model="tiny-mla", block_size=32, num_blocks=64,
+              enable_prefix_caching=False, device="cuda")
+    with pytest.raises(ValueError, match="bf16 experts"):
+        EngineCore(EngineConfig(spec_k=4, max_num_batched_tokens=8192,
+                                **kw))
+    with pytest.raises(ValueError, match="max_num_seqs"):
+        EngineCore(EngineConfig(num_scheduler_steps=4, max_num_seqs=1024,
+                                max_num_batched_tokens=8192, **kw))
+    EngineCore(EngineConfig(spec_k=4, max_num_batched_tokens=512, **kw))
+    EngineCore(EngineConfig(num_scheduler_steps=4, max_num_seqs=256,
+                            max_num_batched_tokens=8192, **kw))
+    EngineCore(EngineConfig(spec_k=4, max_num_batched_tokens=8192,
+                            quantization="int8", **kw))
+
+
+@pytest.mark.parametrize("N", [1, 2])
+def test_fused_rounds_through_the_chunked_path_are_captured(dev, N):
+    """tiny's rows (KVH*D = 32) fit no kernel, so its fused rounds attend
+    through the chunked path, whose context bound is read to the host
+    eagerly and is the whole table under a capture: spec decode (K = 4)
+    at N rounds a dispatch serves by length with the pool whole, and
+    each captured key's replay is bit-equal to its eager body."""
+    from llm_d_tpu_torch.engine.cuda_graph import replay_equals_eager
+    eng = EngineCore(EngineConfig(
+        model="tiny", block_size=32, num_blocks=64, max_num_seqs=8,
+        max_num_batched_tokens=256, enable_prefix_caching=False,
+        device="cuda", spec_k=4, num_scheduler_steps=N,
+        async_scheduling=N > 1))
+    free0 = eng.kv_manager.num_free_blocks
+    g = torch.Generator().manual_seed(5)
+    reqs = [Request(f"c{i}", torch.randint(1, 512, (3 + 17 * i,),
+                                           generator=g).tolist(),
+                    SamplingParams(temperature=0.0, max_tokens=12 + i,
+                                   ignore_eos=True)) for i in range(5)]
+    eng.generate(reqs)
+    assert [len(r.output_token_ids) for r in reqs] == [12 + i
+                                                       for i in range(5)]
+    assert eng.kv_manager.num_free_blocks == free0
+    keys = [k for k in eng._graphs.graphs if k[0] == "fms"]
+    assert keys and eng._graphs.replays == eng._dispatch_count
+    for key in keys:
+        gr = eng._graphs.graphs[key]
+        res = replay_equals_eager(
+            gr, eng.kv_cache, lambda out: eng._fms_body(
+                gr.inputs, out, key[6], key[7], key[8], key[9]),
+            trash_rows=eng.config.block_size)
+        assert res == dict(outputs_equal=True, cache_equal=True), key
+
+
+@pytest.mark.parametrize("cap", ["keys", "pool"])
+def test_capped_graphs_serve_the_uncapped_tokens(dev, monkeypatch, cap):
+    """With at most two graphs (``CUDA_GRAPH_MAX_KEYS``), or a 1 MB pool
+    cap (every new key then finds the pool full and starts a fresh one),
+    a spec engine whose traffic meets more fused keys than that drops
+    graphs and captures again, and serves the tokens of an engine with
+    the default caps on the same weights."""
+    from llm_d_tpu_torch.engine import engine as E
+    kw = dict(model="tiny-mla", kv_cache_dtype="int8", block_size=32,
+              num_blocks=64, max_num_seqs=8, max_num_batched_tokens=256,
+              enable_prefix_caching=False, device="cuda", spec_k=4)
+
+    def reqs():
+        g = torch.Generator().manual_seed(4)
+        return [Request(f"k{i}", torch.randint(1, 512, (5 + 13 * i,),
+                                               generator=g).tolist(),
+                        SamplingParams(temperature=0.7 if i % 2 else 0.0,
+                                       seed=40 + i, max_tokens=9 + 3 * i,
+                                       ignore_eos=True)) for i in range(6)]
+
+    free = EngineCore(EngineConfig(**kw))
+    want = free.generate(reqs())
+    assert len(free._graphs.graphs) > 2 and free._graphs.evictions == 0
+    if cap == "keys":
+        monkeypatch.setattr(E, "CUDA_GRAPH_MAX_KEYS", 2)
+    capped = EngineCore(EngineConfig(**kw), params=free.params,
+                        draft_params=free.draft_params)
+    if cap == "pool":
+        capped._graphs.max_pool_bytes = 1 << 20
+    assert capped.generate(reqs()) == want
+    graphs = capped._graphs
+    assert graphs.evictions > 0 and graphs.replays == capped._dispatch_count
+    if cap == "keys":
+        assert len(graphs.graphs) <= 2 and graphs.pool_resets == 0
+    else:
+        assert graphs.pool_resets > 0
 
 
 def test_server_answers_with_the_direct_engines_tokens(dev):

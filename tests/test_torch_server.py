@@ -53,6 +53,7 @@ import requests
 from llm_d_tpu.engine.engine import EngineConfig as JEngineConfig
 from llm_d_tpu.engine.engine import EngineCore as JEngineCore
 from llm_d_tpu.epp.datastore import Datastore, EndpointState
+from llm_d_tpu.server import openai as JServer
 from llm_d_tpu.server.openai import build_server as jbuild_server
 from llm_d_tpu.utils.lifecycle import (
     CRITICALITY_HEADER, DEADLINE_ABS_HEADER, DEADLINE_EXCEEDED_HEADER,
@@ -71,6 +72,8 @@ MODES = {
                         kv_cache_dtype="int8", num_scheduler_steps=4,
                         async_scheduling=True),
     "tiny-spec": dict(model="tiny", kv_cache_dtype="bf16", spec_k=4),
+    "tiny-everything": dict(model="tiny", kv_cache_dtype="bf16", spec_k=4,
+                            num_scheduler_steps=4, async_scheduling=True),
 }
 
 
@@ -530,6 +533,35 @@ def test_spec_server_equals_the_jax_spec_server(tiny_spec, prompt):
     assert tiny_spec.port_server.engine.spec_k == 4
 
 
+def test_everything_on_server_equals_the_jax_server():
+    """``--spec-k 4 --num-scheduler-steps 4 --async-scheduling`` (the
+    fused multistep pipeline): a greedy completion and a streamed one
+    give the JAX server's tokens, both engines drafted, and the engine
+    steps outnumber the dispatches on both."""
+    pair = _Pair("tiny-everything")
+    try:
+        body = dict(GREEDY, model="m", prompt=[11, 12, 13, 14, 15],
+                    max_tokens=12)
+        j, t = pair.both("POST", "/v1/completions", json=body)
+        assert j.status_code == t.status_code == 200
+        assert _strip(t.json()) == _strip(j.json())
+        j, t = (_sse(r) for r in pair.both(
+            "POST", "/v1/completions", json=dict(body, stream=True),
+            stream=True))
+        (tc, tt, _), (jc, jt, _) = _chunks(t), _chunks(j)
+        assert [x for c in tc for x in c[0]] == [x for c in jc for x in c[0]]
+        assert tt == jt
+        names = ("llmd_tpu:spec_draft_tokens_total",
+                 "llmd_tpu:engine_steps_total",
+                 "llmd_tpu:engine_dispatch_total")
+        jm, tm = _metrics(pair)
+        assert _counts(tm, names) == _counts(jm, names)
+        eng = pair.port_server.engine
+        assert eng.spec_k == 4 and eng._step_count > eng._dispatch_count
+    finally:
+        pair.close()
+
+
 @pytest.mark.parametrize("body,names", [
     (dict(kv_transfer_params={"do_remote_decode": True}),
      "kv_transfer_params"),
@@ -567,12 +599,22 @@ def test_an_unserved_cli_flag_is_a_parser_error(flag, capsys):
 
 
 def test_spec_k_with_multistep_is_a_parser_error(capsys):
+    """No longer an error: the port serves the fused multistep pipeline,
+    so ``--spec-k 4 --num-scheduler-steps 4 --async-scheduling`` parses
+    into that EngineConfig, as the JAX server's parser maps it."""
     p = TServer.build_arg_parser()
-    with pytest.raises(SystemExit) as e:
-        TServer.check_served(p, p.parse_args(
-            ["--spec-k", "4", "--num-scheduler-steps", "4"]))
-    assert e.value.code == 2
-    assert "fused multistep pipeline" in capsys.readouterr().err
+    argv = ["--model", "tiny", "--spec-k", "4", "--num-scheduler-steps",
+            "4", "--async-scheduling"]
+    args = p.parse_args(argv)
+    TServer.check_served(p, args)
+    assert capsys.readouterr().err == ""
+    cfg = TServer.engine_config_from_args(args)
+    assert (cfg.spec_k, cfg.num_scheduler_steps, cfg.async_scheduling) == \
+        (4, 4, True)
+    jcfg = JServer.engine_config_from_args(
+        JServer.build_arg_parser().parse_args(argv))
+    assert (jcfg.spec_k, jcfg.num_scheduler_steps, jcfg.async_scheduling) \
+        == (cfg.spec_k, cfg.num_scheduler_steps, cfg.async_scheduling)
     args = p.parse_args(["--spec-k", "4", "--spec-strict"])
     TServer.check_served(p, args)
     assert TServer.engine_config_from_args(args).spec_k == 4

@@ -29,7 +29,7 @@ EngineCore against the JAX engine, on the CPU (after
   backs off.
 * Knobs: ``LLMD_SPEC_DECODE=off`` is today's engine, ``LLMD_SPEC_K``
   resolves with its invalid-value fallback, spec with
-  ``num_scheduler_steps`` > 1 is refused by name, and
+  ``num_scheduler_steps`` > 1 builds with spec armed, and
   ``LLMD_KV_CACHE_DTYPE`` / ``LLMD_MLA_LATENT_DTYPE`` resolve as in the
   JAX engine.
 """
@@ -300,8 +300,9 @@ def test_accept_coin_is_jax_uniform_bit_for_bit():
             torch.from_numpy(x["spec_n"]), torch.zeros(S),
             torch.zeros(S, dtype=torch.int32), torch.ones(S),
             prng.prng_key(0), seeds=torch.full((S,), -1, dtype=torch.int32),
-            gen0=torch.zeros(S, dtype=torch.int32), fixed_accept=0.7,
-            step=step)
+            gen0=torch.zeros(S, dtype=torch.int32),
+            coin=TSampling.accept_coin(step, S, K, "cpu"),
+            fixed_accept=torch.tensor(0.7))
         np.testing.assert_array_equal(acc.numpy(), np.asarray(jacc))
 
 
@@ -551,8 +552,16 @@ def test_env_k_resolution_and_invalid_fallback(monkeypatch, raw, want):
 
 
 def test_spec_with_multistep_is_refused_by_name():
-    with pytest.raises(ValueError, match="fused multistep pipeline"):
-        port_engine(kw_of("tiny"), spec_k=K, num_scheduler_steps=4)
+    """No longer refused: spec decode over multistep (and async) builds
+    with spec armed, as the JAX engine does, and serves through the
+    fused multistep pipeline (tests/test_torch_everything_on.py)."""
+    for over in (dict(num_scheduler_steps=4),
+                 dict(num_scheduler_steps=2, async_scheduling=True)):
+        eng = port_engine(kw_of("tiny"), spec_k=K, **over)
+        jeng = JEngineCore(JEngineConfig(spec_k=K, **kw_of("tiny"), **over))
+        assert eng.spec_k == jeng.spec_k == K
+        assert eng.draft_params is not None
+        assert eng.scheduler.spec_lookahead is not None
     # spec_k 0 (or spec decode off) with multistep is today's engine.
     assert port_engine(kw_of("tiny"), spec_k=0,
                        num_scheduler_steps=4).spec_k == 0
