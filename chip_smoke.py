@@ -85,6 +85,40 @@ Phases (each raises on failure; the script then exits non-zero):
             eager body, bit-equal (outputs, and the cache outside the
             trash block 0); the graphs' pool bytes and each key's cold
             cost.  Kernels B and E must launch inside its graphs;
+2d. path (v) P/D disaggregation and the tiered KV cache on path (i)'s
+            weights.  (a) A producer with path (i)'s configuration and a
+            consumer with its full configuration (32-step blocks, async)
+            over the native transport on 127.0.0.1: wave 3 with
+            ``do_remote_decode`` on the producer (its 8192-token prefill,
+            kernels E and B), each request's blocks pulled by the consumer
+            (which steps once every pull has landed), scattered, its last
+            prompt token recomputed (A with C) and decoded in a graph
+            replay: every cache buffer of every scattered block equal to
+            the producer's bytes, the producer's pins all released (pool
+            empty), the wire bytes a request (header + 2 blocks of int8
+            latent rows and f32 scales), pull ms, the producer's prefill
+            seconds, the consumer's admission-to-first-token seconds, and
+            warm decode tok/s (a second run, the same tokens) beside path
+            (i)'s wave 3; tokens against path (i)'s with the classic
+            loop's margins, and a witness run with the classic routing
+            replayed (consumer eager) that may leave the classic tokens
+            only at near ties; then wave 1's prompts one at a time.
+            (b) Path (i)'s configuration with the prefix cache on, 448
+            blocks, and a 2048-block host tier, against the same engine
+            without the tier: wave 1's prompts, decode waves (64 x 128,
+            128 new: the flush runs under async decode) in alternating
+            rounds after a warm-up a side (decode tok/s, tier on and
+            off), until wave 1's prefix is evicted, then wave 1 again:
+            each restored block's bytes equal the saved slab's, tokens
+            equal the tier-less engine's second pass (a device prefix
+            hit, the same batch shapes), decode blocks graph replays;
+            saves, loads, flush and restore ms.  (c) Two
+            ``python -m llm_d_tpu_torch.server.openai`` processes with
+            path (i)'s flags and ``--kv-transfer-config`` (producer,
+            consumer); this process plays the routing sidecar for wave
+            1's prompts one at a time: tokens equal (a)'s, the
+            consumer's ``kv_transfer_seconds_count`` 8, exit 0 on
+            SIGTERM (logs in build/kv_*.log);
 3. path(ii) serve llama3-1b at full width and depth, block size 64,
             8192-token steps: 64 x 128-token prompts with 32 new tokens on
             a bf16 cache (twice: must repeat token for token; then with
@@ -152,8 +186,10 @@ Launch counts: every count is set to 0 just before a path is driven and
 read just after it; kernels A-F count path (i), G and H path (ii), and
 each row adds path (iii)'s run (phases (a) and (c)-(e), also given as
 ``spec_launches``), path (iv)'s run (phases (a) and (b), also given as
-``everything_on_launches``) and the in-process server's run (phase
-7(a), also given as ``server_launches``).  A
+``everything_on_launches``), path (v)'s run (phases (a) and (b),
+also given as ``pd_launches``; (c) runs in its own processes) and the
+in-process server's run (phase 7(a), also given as
+``server_launches``).  A
 count is the wrapper's own (eager launches, graph warm-ups included)
 plus the launches inside graph replays: a capture records each graph's
 launches, and every replay adds them (``engine/cuda_graph.py``); the
@@ -165,7 +201,8 @@ fields of the kernels line for the other inputs of phase 4), an
 ``{"engine": ...}`` line, a ``{"server": ...}`` line (phase 7, with the
 card's name and power limit), a ``{"spec": ...}`` line (path (iii), with
 the card's name and power limit), an ``{"everything_on": ...}`` line
-(path (iv), likewise), a ``{"kernels": [...]}`` line (one row per
+(path (iv), likewise), a ``{"pd": ...}`` line (path (v), likewise), a
+``{"kernels": [...]}`` line (one row per
 kernel at its first launch: measured launches, errors and times, with
 ``bound_ms``), the card's name and power limit, and last ``{"ok": true,
 "device": ...}``.  The engine line
@@ -620,23 +657,26 @@ def profile_blocks(engine, waves) -> dict:
     return out
 
 
-def path_i_engine(steps: int = BENCH_K, params=None):
+def path_i_engine(steps: int = BENCH_K, params=None, **over):
     """deepseek-v3-bench as bench.py serves it, random weights from seed 0
     (or ``params``): int8 experts, int8 latent cache, block size 64, steps
     of up to ``BENCH_T`` tokens, ``steps`` scheduler steps per dispatch
     with async scheduling (the classic loop at ``steps`` = 1), and the
     block pool sized as bench.py:157-163 sizes it: room for every
-    sequence's prompt, its new tokens and one more block of steps."""
+    sequence's prompt, its new tokens and one more block of steps.
+    ``over`` replaces EngineConfig fields (path (v))."""
     from llm_d_tpu_torch.engine import EngineConfig, EngineCore
     max_seqs, bs = 128, 64
     per_seq = -(-(WAVE1["prompt"] + WAVE1["new"] + BENCH_K + 1) // bs)
-    return EngineCore(EngineConfig(
+    kw = dict(
         model="deepseek-v3-bench", quantization="int8",
         kv_cache_dtype="int8", block_size=bs,
         num_blocks=max_seqs * per_seq + bs, max_num_seqs=max_seqs,
         max_num_batched_tokens=BENCH_T, num_scheduler_steps=steps,
         async_scheduling=steps > 1, enable_prefix_caching=False,
-        device="cuda", seed=0), params=params)
+        device="cuda", seed=0)
+    kw.update(over)
+    return EngineCore(EngineConfig(**kw), params=params)
 
 
 def path_ii_engine(kv: str, gran, steps: int = 1, params=None):
@@ -795,8 +835,12 @@ def routing_tape(engine, tape: dict, replay: bool):
         T = batch["positions"].shape[0]
         qtok = batch["qtok_idx"].reshape(-1).cpu()
         pos, seq = batch["positions"].cpu(), batch["token_seq_ids"].cpu()
-        state["keys"] = [(t, state["rows"][int(seq[t])], int(pos[t]))
-                         for t in torch.unique(qtok[qtok < T]).tolist()]
+        rows = state["rows"]
+        # Pad rows of a multistep block (past the scheduled ones) have
+        # no request.
+        state["keys"] = [(t, rows[int(seq[t])], int(pos[t]))
+                         for t in torch.unique(qtok[qtok < T]).tolist()
+                         if int(seq[t]) < len(rows)]
         state["layer"] = 0
         return real_fwd(params, kv_cache, batch, *a, **kw)
 
@@ -1478,6 +1522,464 @@ def profile_eon(engine, prompts) -> dict:
                engine_steps=engine._step_count - s0)
     while engine.has_work():
         engine.step()
+    return out
+
+
+# Path (v): P/D disaggregation and the tiered KV cache on path (i)'s
+# configuration.  The tier's decode wave fills two blocks a row while
+# decoding (so the flush runs under async scheduling); its pool is small
+# enough that two such waves evict the first wave's cached prefix.
+TIER_WAVE = dict(n=64, prompt=128, new=128)
+TIER_BLOCKS = 448
+TIER_HOST_BLOCKS = 2048
+TIER_ROUNDS = 3                              # a side, alternating
+
+
+def pd_engines(params):
+    """Path (v)(a)'s pair on ``params``: a producer with path (i)'s
+    configuration and a consumer with path (i)'s full configuration
+    (32-step blocks, async), talking over the native transport on
+    127.0.0.1."""
+    from llm_d_tpu_torch.transfer import KVConnectorConfig, TpuConnector
+    from llm_d_tpu_torch.transfer import transport
+    if transport._load_native() is None:
+        raise RuntimeError("the native KV transport did not build (g++)")
+    prod = path_i_engine(BENCH_K, params)
+    prod.kv_connector = TpuConnector(KVConnectorConfig(
+        kv_role="kv_producer", host="127.0.0.1"))
+    if not isinstance(prod.kv_connector.server,
+                      transport.NativeTransferServer):
+        raise RuntimeError("the producer is not serving the native transport")
+    cons = path_i_engine(BENCH_K, params)
+    cons.kv_connector = TpuConnector(KVConnectorConfig(kv_role="kv_consumer"))
+    return prod, cons
+
+
+def pd_prefill(prod, prompts, tag: str):
+    """The sidecar's first leg on ``prod``: each prompt with one new token
+    under ``do_remote_decode``; returns (requests, seconds until every
+    prefill finished and pinned its blocks)."""
+    import torch
+    from llm_d_tpu_torch.engine.request import Request, RequestState
+    from llm_d_tpu_torch.ops.sampling import SamplingParams
+    reqs = [Request(f"{tag}-{i}", p, SamplingParams(
+        temperature=0.0, max_tokens=1, ignore_eos=True),
+        do_remote_decode=True) for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        prod.add_request(r)
+    while not all(r.state is RequestState.FINISHED_REMOTE_PREFILL
+                  for r in reqs):
+        if not prod.scheduler.has_work():
+            raise RuntimeError(f"{tag}: prefill ended without pinning: "
+                               f"{[r.state.value for r in reqs]}")
+        prod.step()
+    return reqs, time.perf_counter() - t0
+
+
+def cache_rows(engine, blocks):
+    """Every cache buffer's rows of ``blocks``, in block order."""
+    import torch
+    ids = torch.tensor(blocks, dtype=torch.long, device=engine.device)
+    bs = engine.config.block_size
+    return {n: t.view(t.shape[0], -1, bs, t.shape[2]).index_select(1, ids)
+            for n, t in engine.kv_cache.items()}
+
+
+def pd_decode(cons, prod, preqs, prompts, max_new: int, check_bytes=False):
+    """The sidecar's second leg on ``cons``: each request with its
+    producer's ``kv_transfer_params``.  The consumer steps once every
+    pull has landed, so it admits the wave in one poll (and decodes it
+    in one batch, as the producer prefilled it).  With ``check_bytes``,
+    every cache buffer of every block the consumer scattered must equal
+    the producer's bytes for that request.  Returns (tokens, figures)."""
+    import numpy as np
+    import torch
+    from llm_d_tpu_torch.engine.request import Request
+    from llm_d_tpu_torch.ops.sampling import SamplingParams
+    reqs = [Request(pr.request_id, p, SamplingParams(
+        temperature=0.0, max_tokens=max_new, ignore_eos=True),
+        do_remote_prefill=True, kv_transfer_params=pr.kv_transfer_params)
+        for pr, p in zip(preqs, prompts)]
+    conn = cons.kv_connector
+    t0 = time.perf_counter()
+    for r in reqs:
+        cons.add_request(r)
+    while conn._loaded.qsize() < len(reqs):
+        if time.perf_counter() - t0 > 120:
+            raise RuntimeError("KV pulls did not land in 120 s")
+        time.sleep(0.0005)
+    landed = list(conn._loaded.queue)
+    failed = [(r.request_id, err) for r, _, err, _ in landed if err]
+    if failed:
+        raise RuntimeError(f"KV pulls failed: {failed[:4]}")
+    pulls = [dt for _, _, _, dt in landed]
+    sizes = [len(blob) for _, blob, _, _ in landed]
+    torch.cuda.synchronize()
+    t_admit = time.perf_counter()
+    outs = conn.poll(cons)
+    if outs or any(not r.block_ids for r in reqs):
+        raise RuntimeError(f"admission failed: {outs}")
+    same = None
+    if check_bytes:
+        pb = [b for r in preqs for b in r.block_ids]
+        db = [b for r in reqs for b in r.block_ids]
+        want, got = cache_rows(prod, pb), cache_rows(cons, db)
+        same = {n: bool(torch.equal(got[n], want[n])) for n in want}
+        if not all(same.values()):
+            raise RuntimeError(f"scattered blocks differ from the "
+                               f"producer's bytes: {same}")
+    first_s = None
+    decode_s, decode_tokens = 0.0, 0
+    counts0 = None
+    while cons.has_work():
+        ts = time.perf_counter()
+        outs = cons.step()
+        dt = time.perf_counter() - ts
+        if first_s is None:
+            if all(r.output_token_ids for r in reqs):
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - t_admit
+                counts0 = (cons._dispatch_count, cons._step_count)
+            continue
+        decode_s += dt
+        decode_tokens += sum(len(o.new_token_ids) for o in outs)
+    tokens = [list(r.output_token_ids) for r in reqs]
+    if any(len(t) != max_new for t in tokens):
+        raise RuntimeError(f"consumer tokens: {[len(t) for t in tokens]}")
+    pulls_ms = np.asarray(pulls) * 1e3
+    return tokens, dict(
+        requests=len(reqs), blob_bytes=sorted(set(sizes)),
+        pull_ms=dict(median=float(np.median(pulls_ms)),
+                     p99=float(np.percentile(pulls_ms, 99)),
+                     max=float(pulls_ms.max())),
+        admission_to_first_token_s=first_s, decode_seconds=decode_s,
+        decode_tokens=decode_tokens,
+        decode_tok_s=decode_tokens / decode_s if decode_s else None,
+        decode_dispatches=cons._dispatch_count - counts0[0],
+        decode_engine_steps=cons._step_count - counts0[1],
+        bytes_equal=same)
+
+
+def pd_release(prod) -> float:
+    """Steps the producer until every pin its consumer released is
+    freed; its pool must then be empty.  Returns the seconds it took."""
+    t0 = time.perf_counter()
+    while prod.pinned_transfers:
+        if time.perf_counter() - t0 > 30:
+            raise RuntimeError(f"pins never released: "
+                               f"{sorted(prod.pinned_transfers)[:4]}")
+        prod.step()
+        time.sleep(0.001)
+    if prod.kv_manager.usage != 0.0:
+        raise RuntimeError(f"producer pool not empty: "
+                           f"{prod.kv_manager.usage}")
+    return time.perf_counter() - t0
+
+
+def pd_run(prod, cons, p3, tok3, yardstick3, p1, rounds_i) -> dict:
+    """Path (v)(a): wave 3 disaggregated (the producer's 8192-token
+    prefill, 64 pulls, the consumer's 32-step blocks), its bytes, pins
+    and tokens; the routing-replay witness; wave 1's prompts one at a
+    time (the tokens phase (c) must give)."""
+    out = dict(transport="native",
+               graph_pools={
+                   "producer": (None if prod._graphs is None
+                                else graph_bounds(prod)),
+                   "consumer": graph_bounds(cons)})
+    preqs, out["producer_prefill_s"] = pd_prefill(prod, p3, "pd")
+    tok, st = pd_decode(cons, prod, preqs, p3, WAVE3["new"],
+                        check_bytes=True)
+    check_multistep(st, "P/D wave 3")
+    out["wave3"] = st
+    L, bs = cons.model_config.num_layers, cons.config.block_size
+    nb = -(-WAVE3["prompt"] // bs)
+    payload = sum(nb * L * bs * t.shape[2] * t.element_size()
+                  for t in cons.kv_cache.values())
+    header = 24 + 5 * len(cons.kv_cache)
+    out["payload_bytes_per_request"] = payload
+    out["wire_bytes_per_request"] = payload + header
+    if st["blob_bytes"] != [payload + header]:
+        raise RuntimeError(f"blob bytes {st['blob_bytes']} != "
+                           f"{payload + header}")
+    out["pins_released_s"] = pd_release(prod)
+    # Again, warm (the first run's block captured the consumer's graph):
+    # the same tokens, and the decode figures to set beside path (i)'s.
+    replays0 = cons._graphs.replays
+    preqs, out["producer_prefill_warm_s"] = pd_prefill(prod, p3, "pd2")
+    tok2, out["wave3_warm"] = pd_decode(cons, prod, preqs, p3, WAVE3["new"])
+    check_multistep(out["wave3_warm"], "P/D wave 3 warm")
+    pd_release(prod)
+    if tok2 != tok or cons._graphs.replays == replays0:
+        raise RuntimeError("P/D wave 3 did not repeat through the "
+                           "consumer's graph")
+    out["consumer_graph_replays"] = cons._graphs.replays
+    _, _, margins, bars = yardstick3
+    d = divergence(tok, tok3, margins, bars)
+    d["tokens"] = WAVE3["new"] * len(p3)
+    out["against_path_i"] = d
+    out["path_i_wave3_decode_tok_s"] = \
+        rounds_i["wave3"]["multistep"]["decode_tok_s"]
+    # The witness: wave 3 again, the consumer eager with the classic
+    # loop's routing replayed (its recomputed last prompt tokens run other
+    # kernels than the producer's prefill, and a one-ulp router
+    # difference flips top-8 near ties): every row must keep the classic
+    # tokens up to a near tie.
+    ref, tape, _, _ = yardstick3
+    wreqs, _ = pd_prefill(prod, p3, "pdw")
+    graphs, cons._graphs = cons._graphs, None
+    try:
+        with routing_tape(cons, tape, replay=True) as replayed:
+            wtok, _ = pd_decode(cons, prod, wreqs, p3, WAVE3["new"])
+    finally:
+        cons._graphs = graphs
+    pd_release(prod)
+    w = divergence(wtok, ref, margins, bars)
+    w["near_ties_only"] = all(
+        m is None or m <= b for m, b in zip(
+            w["classic_top2_margin_there"], w["classic_bar_there"]))
+    w["token_layers_replayed"] = replayed[0]
+    out["classic_routing_replayed"] = w
+    if not w["near_ties_only"]:
+        raise RuntimeError(f"P/D with the classic routing replayed left the "
+                           f"classic tokens at a decided position: {w}")
+    # Wave 1's prompts one at a time: the CLI pair's reference.
+    alone = []
+    for i, p in enumerate(p1):
+        pr, _ = pd_prefill(prod, [p], f"pd1{i}")
+        t, _ = pd_decode(cons, prod, pr, [p], WAVE1["new"])
+        alone.append(t[0])
+    pd_release(prod)
+    return out, alone
+
+
+def chain_hashes(engine, prompt):
+    """The prefix cache's chain hashes of ``prompt``'s full blocks."""
+    from llm_d_tpu_torch.utils.hashing import hash_block
+    km, out, parent = engine.kv_manager, [], None
+    for i in range(len(prompt) // km.block_size):
+        parent = hash_block(parent, prompt[i * km.block_size:
+                                           (i + 1) * km.block_size],
+                            km.hash_seed)
+        out.append(parent)
+    return out
+
+
+def tier_run(params, p1, tok1, vocab):
+    """Path (v)(b): path (i)'s configuration with the prefix cache on, a
+    448-block pool and a 2048-block host tier (``on``), against the same
+    engine without the tier (``off``).  ``off`` serves wave 1's prompts
+    twice (the second pass hits its device prefix cache: the control);
+    ``on`` serves them, then decode waves that evict their prefix, then
+    them again (restored from the host tier): the tokens must be the
+    control's, and each restored block's bytes the saved slab's.  The
+    decode waves alternate between ``on`` and ``off``.  Returns the
+    figures and the two engines' launches inside graph replays."""
+    import numpy as np
+    import torch
+    from llm_d_tpu_torch.engine.offload import _pack_block_slab
+    on = path_i_engine(BENCH_K, params, enable_prefix_caching=True,
+                       num_blocks=TIER_BLOCKS,
+                       kv_offload_blocks=TIER_HOST_BLOCKS)
+    off = path_i_engine(BENCH_K, params, enable_prefix_caching=True,
+                        num_blocks=TIER_BLOCKS)
+    for e in (on, off):
+        note_live_tokens(e)
+    # Host seconds of each flush that queued copies (or packed earlier
+    # ones), and of each restore.
+    flush_s, restore_s = [], []
+    real_flush = on.host_tier.flush
+
+    def flush():
+        t = time.perf_counter()
+        pending = bool(on.host_tier._pending or on.host_tier._gathers)
+        real_flush()
+        if pending:
+            flush_s.append(time.perf_counter() - t)
+
+    on.host_tier.flush = flush
+    out = dict(num_blocks=TIER_BLOCKS, host_blocks=TIER_HOST_BLOCKS)
+    first_on, st = run_wave(on, p1, WAVE1["new"], "ta")
+    check_multistep(st, "tier wave A")
+    first_off, _ = run_wave(off, p1, WAVE1["new"], "ta")
+    control, st = run_wave(off, p1, WAVE1["new"], "tc")
+    if off.kv_manager.eviction_count:
+        raise RuntimeError("the control evicted its prefix")
+    out["first_pass_equal"] = first_on == first_off
+    out["first_pass_equal_path_i"] = first_on == tok1
+    rng = np.random.default_rng(31)
+    runs = {"on": [], "off": []}
+    replays0 = on._graphs.replays
+    # A warm-up wave a side (each engine's first decode block of this
+    # shape is its capture), then the rounds.
+    for r in range(-1, TIER_ROUNDS):
+        prompts = prompts_for(rng, vocab, TIER_WAVE)
+        sides = [("on", on), ("off", off)]
+        if r % 2:
+            sides.reverse()
+        toks = {}
+        for side, eng in sides:
+            toks[side], st = run_wave(eng, prompts, TIER_WAVE["new"],
+                                      f"t{side}{r}")
+            check_multistep(st, f"tier round {r} {side}")
+            if r >= 0:
+                runs[side].append(st)
+        if toks["on"] != toks["off"]:
+            raise RuntimeError(f"tier round {r}: the tier changed tokens")
+    km = on.kv_manager
+    hashes = [h for p in p1 for h in chain_hashes(on, p)]
+    resident = sum(km.lookup_hash(h) is not None for h in hashes)
+    if resident == len(hashes):
+        raise RuntimeError("the decode waves did not evict wave A's prefix")
+    real = km.secondary_lookup
+    restored = []
+    bs = on.config.block_size
+
+    def restore(h, protected=frozenset(), region=0):
+        t = time.perf_counter()
+        b = real(h, protected, region)
+        if b is not None:
+            restore_s.append(time.perf_counter() - t)
+            torch.cuda.synchronize()
+            rows = {n: t[:, b * bs:(b + 1) * bs].cpu()
+                    for n, t in on.kv_cache.items()}
+            restored.append(_pack_block_slab(rows)
+                            == on.host_tier._store[h])
+        return b
+
+    km.secondary_lookup = restore
+    loads0 = on.host_tier.loads
+    try:
+        again, st = run_wave(on, p1, WAVE1["new"], "tr")
+    finally:
+        km.secondary_lookup = real
+    check_multistep(st, "tier wave A restored")
+    tier = on.host_tier
+    out.update(
+        evictions=km.eviction_count, prefix_blocks_resident=resident,
+        prefix_blocks=len(hashes), restored=len(restored),
+        restored_bytes_equal=sum(restored),
+        saves=tier.saves, loads=tier.loads - loads0,
+        host_blocks_held=tier.num_blocks,
+        flush_ms=spread(np.asarray(flush_s) * 1e3),
+        restore_ms=spread(np.asarray(restore_s) * 1e3),
+        restore_total_ms=float(np.sum(restore_s) * 1e3),
+        replays_during_rounds=on._graphs.replays - replays0,
+        decode_tok_s={side: spread([x["decode_tok_s"] for x in v])
+                      for side, v in runs.items()},
+        restored_tokens_equal_control=again == control,
+        graphs={"on": graph_bounds(on), "off": graph_bounds(off)})
+    if not restored or not all(restored):
+        raise RuntimeError(f"restored blocks differ from the saved slab: "
+                           f"{sum(restored)} of {len(restored)} equal")
+    if again != control:
+        diff = sum(a != b for x, y in zip(again, control)
+                   for a, b in zip(x, y))
+        raise RuntimeError(f"the restored run's tokens differ from the "
+                           f"control's in {diff}")
+    on.host_tier.close()
+    return out, [dict(on._graphs.launches), dict(off._graphs.launches)]
+
+
+def pd_cli_pair(root, prompts, want) -> dict:
+    """Path (v)(c): ``python -m llm_d_tpu_torch.server.openai`` twice with
+    path (i)'s flags, a producer and a consumer (``--kv-transfer-config``);
+    this process plays the routing sidecar: each prompt (one at a time)
+    to the producer with ``{"kv_transfer_params": {"do_remote_decode":
+    true}}`` and one new token, then to the consumer with the producer's
+    returned params, streamed.  Tokens must equal ``want``; the
+    consumer's ``/metrics`` must count one transfer per request; both
+    servers must exit 0 on SIGTERM."""
+    import signal
+    procs, urls, logs = {}, {}, {}
+    t0 = time.perf_counter()
+    for role in ("kv_producer", "kv_consumer"):
+        port = free_port()
+        urls[role] = f"http://127.0.0.1:{port}"
+        logs[role] = os.path.join(root, "build", f"{role}.log")
+        os.makedirs(os.path.dirname(logs[role]), exist_ok=True)
+        cmd = [sys.executable, "-m", "llm_d_tpu_torch.server.openai",
+               *SERVER_FLAGS, "--host", "127.0.0.1", "--port", str(port),
+               "--kv-transfer-config",
+               json.dumps({"kv_role": role, "kv_ip": "127.0.0.1"})]
+        env = dict(os.environ, LLMD_DRAIN_TIMEOUT_S=str(DRAIN_S))
+        with open(logs[role], "wb") as f:
+            procs[role] = subprocess.Popen(cmd, cwd=root, env=env, stdout=f,
+                                           stderr=subprocess.STDOUT)
+    out = {}
+    try:
+        for role, url in urls.items():
+            while True:
+                if procs[role].poll() is not None:
+                    raise RuntimeError(f"{role} exited with "
+                                       f"{procs[role].returncode}")
+                if time.perf_counter() - t0 > 300:
+                    raise RuntimeError(f"{role} not ready in 300 s")
+                try:
+                    if http_call(url, "/v1/models", timeout=5)[0] == 200:
+                        break
+                except OSError:
+                    pass
+                time.sleep(0.1)
+        out["startup_s"] = time.perf_counter() - t0
+        tokens, ttft = [], []
+        for p in prompts:
+            body = greedy_body(p, WAVE1["new"], True)
+            # The sidecar's prefill body (llm_d_tpu/sidecar/proxy.py).
+            pbody = dict(body, stream=False, max_tokens=1,
+                         kv_transfer_params={"do_remote_decode": True})
+            ts = time.perf_counter()
+            status, _, reply = http_call(urls["kv_producer"],
+                                         "/v1/completions", pbody)
+            if status != 200 or "kv_transfer_params" not in reply:
+                raise RuntimeError(f"producer: HTTP {status}: {reply}")
+            res = completion(urls["kv_consumer"], dict(
+                body, kv_transfer_params=reply["kv_transfer_params"]))
+            if res["finish"] != "length":
+                raise RuntimeError(f"consumer: {res}")
+            ttft.append(res["t_first"] - ts)
+            tokens.append(res["tokens"])
+        out["ttft_s"] = spread(ttft)
+        out["tokens_equal"] = sum(a == b for x, y in zip(tokens, want)
+                                  for a, b in zip(x, y))
+        out["tokens"] = WAVE1["new"] * len(prompts)
+        model = SERVER_FLAGS[SERVER_FLAGS.index("--model") + 1]
+        lab = f'{{model_name="{model}"}}'
+        m = scrape(urls["kv_consumer"])
+        out["consumer_kv_transfer_seconds_count"] = \
+            m["llmd_tpu:kv_transfer_seconds_count" + lab]
+        t1 = time.perf_counter()
+        while scrape(urls["kv_producer"])["vllm:kv_cache_usage_perc" + lab]:
+            if time.perf_counter() - t1 > 30:
+                raise RuntimeError("the producer kept its pins")
+            time.sleep(0.05)
+        if tokens != want:
+            raise RuntimeError(f"the CLI pair's tokens differ from the "
+                               f"in-process pair's: {out['tokens_equal']} "
+                               f"of {out['tokens']} equal")
+        if out["consumer_kv_transfer_seconds_count"] != len(prompts):
+            raise RuntimeError(f"consumer /metrics: {out}")
+        out["exit"] = {}
+        for role, proc in procs.items():
+            t_term = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=DRAIN_S + 60)
+            out["exit"][role] = dict(code=rc,
+                                     seconds=time.perf_counter() - t_term)
+            if rc != 0:
+                raise RuntimeError(f"{role} exited with {rc} on SIGTERM")
+    except BaseException:
+        for role, path in logs.items():
+            with open(path, "rb") as f:
+                sys.stderr.write(f"--- {role} ---\n"
+                                 + f.read()[-4000:].decode(errors="replace"))
+        raise
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
     return out
 
 
@@ -2646,10 +3148,54 @@ def main() -> int:
     if prof is not None:
         prof["everything_on"] = profile_eon(eon[EON_N], sp)
         log(f"profile everything-on: {json.dumps(prof['everything_on'])}")
-    del classic, eon, e
+    del eon, e
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2d. path (v): P/D disaggregation and the tiered KV cache ------------
+    t0 = time.perf_counter()
+    # The classic loop's wave 3 with its routing taped: the witness's
+    # yardstick (not the path's run).
+    yardstick3 = classic_margins(classic, p3, WAVE3["new"])
+    if yardstick3[0] != tok3:
+        raise RuntimeError("the classic loop's wave 3 differs from path (i)'s")
+    reset_counts()
+    prod, cons = pd_engines(engine.params)
+    for e in (prod, cons):
+        note_live_tokens(e)
+    pd_out, pd_alone = pd_run(prod, cons, p3, tok3, yardstick3, p1,
+                              rounds_i)
+    pd_out["card"] = smi
+    log(f"P/D (a): {json.dumps(pd_out)}")
+    replayed_v = [dict(cons._graphs.launches)]
+    del prod, cons, classic, yardstick3
+    gc.collect()
+    torch.cuda.empty_cache()
+    pd_out["tier"], tier_launches = tier_run(engine.params, p1, tok1, vocab)
+    replayed_v += tier_launches
+    log(f"P/D (b) tier: {json.dumps(pd_out['tier'])}")
+    pd_graph = {k["name"]: sum(r[k["fn"]] for r in replayed_v)
+                for k in kernels if k["path"] == "i"}
+    pd_counts = {n: recorders[n].wrapped.launches + c
+                 for n, c in pd_graph.items()}
+    pd_out.update(launches=pd_counts, graph_launches=pd_graph)
+    log(f"launches (v): {json.dumps(pd_counts)}, inside graph replays: "
+        f"{json.dumps(pd_graph)}")
+    missing = [n for n in ("mla_prefill", "moe_streamed_int8", "mla_decode",
+                           "moe_dense_int8") if pd_counts[n] == 0]
+    missing += [f"{n} (graphs)" for n in ("mla_decode", "moe_dense_int8")
+                if pd_graph[n] == 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched on path (v): {missing}")
+    for n, c in pd_counts.items():
+        launches[n] += c
+        graph_launches[n] += pd_graph[n]
     LIVE_TOKENS[0] = None
     gc.collect()
     torch.cuda.empty_cache()
+    pd_out["cli_pair"] = pd_cli_pair(root, p1, pd_alone)
+    log(f"P/D (c) CLI pair: {json.dumps(pd_out['cli_pair'])}")
+    pd_out["seconds"] = time.perf_counter() - t0
 
     # 3. path (ii): llama3-1b on a bf16 and on int8 caches ------------------
     waves_ii = {}
@@ -2770,6 +3316,7 @@ def main() -> int:
             graph_launches=graph_launches[k["name"]],
             spec_launches=spec_counts.get(k["name"], 0),
             everything_on_launches=eon_counts.get(k["name"], 0),
+            pd_launches=pd_counts.get(k["name"], 0),
             max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -2965,6 +3512,7 @@ def main() -> int:
     print(json.dumps({"server": server}))
     print(json.dumps({"spec": spec}))
     print(json.dumps({"everything_on": everything}))
+    print(json.dumps({"pd": pd_out}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -72,6 +72,11 @@ class AsyncEngine:
                 outputs = self.engine.step()
                 if outputs and self._loop is not None:
                     self._loop.call_soon_threadsafe(self._dispatch, outputs)
+                if not self.engine.scheduler.has_work():
+                    # Only connector work pending (KV pulls in flight /
+                    # producer pins awaiting release): poll, don't spin.
+                    self._wake.wait(timeout=0.01)
+                    self._wake.clear()
         except BaseException as e:  # engine death must not hang clients
             logger.exception("engine loop died")
             self.dead = e

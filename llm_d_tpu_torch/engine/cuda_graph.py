@@ -49,10 +49,19 @@ wrappers' counters and kept per graph (``BlockGraph.launches``); every
 replay adds them to ``DecodeGraphs.launches``, by wrapper name.  A
 wrapper's launches on a path are its counter (eager launches, the
 warm-up's included) plus that sum.
+
+The cyclic garbage collector is off while a body is recorded.  Engines
+live in reference cycles (the scheduler holds their callbacks), so a
+dead engine's tensors, pinned host buffers among them, are freed by the
+collector whenever it runs; a pinned buffer freed inside a capture
+queries CUDA events, which a capture forbids, and the process aborts.
+PyTorch's ``torch.cuda.graph`` no longer collects on entry, so the
+collector is held off here and runs after the capture instead.
 """
 
 from __future__ import annotations
 
+import gc
 import logging
 import time
 from collections import OrderedDict
@@ -212,12 +221,16 @@ class DecodeGraphs:
         reserved = torch.cuda.memory_reserved(self.device)
         graph = torch.cuda.CUDAGraph()
         t1 = time.perf_counter()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self.pool):
                 t2 = time.perf_counter()
                 body(K)
                 t3 = time.perf_counter()
         finally:
+            if collecting:
+                gc.enable()
             after = _counts()
             for mod, name in KERNEL_WRAPPERS:
                 getattr(mod, name).launches = before[name]

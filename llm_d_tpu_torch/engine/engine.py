@@ -32,8 +32,26 @@ is the non-spec engine's, token for token.  ``spec_fixed_accept``
 (bench only) replaces verification with a seeded coin.  On the card the
 single round and each N-round dispatch are CUDA graph replays too.
 
-Not ported yet (later slices): EPLB, KV offload, the KV connector,
-``stub_components`` and tracing.
+P/D disaggregation and the tiered prefix cache, as the JAX engine runs
+them: a ``kv_connector`` (``transfer/connector.TpuConnector``) makes the
+engine a producer (a ``do_remote_decode`` request stops after its
+prefill, its blocks pinned and served over the transfer wire until the
+consumer pulls them) or a consumer (a request with ``kv_transfer_params``
+pulls the producer's blocks, scatters them into fresh local blocks and
+recomputes only its last prompt token); ``kv_offload_blocks`` > 0 adds a
+host-RAM tier under the device prefix cache (``engine/offload.py``),
+shared with peer pods through ``kv_shared_tier_port`` /
+``kv_shared_tier_peers``.  The connector is polled at the top of every
+step, before an in-flight block is extended or retired; the tier is
+flushed at the end of each step.  On the CPU these run against the JAX
+package in ``tests/test_torch_pd.py`` and ``tests/test_torch_offload.py``;
+on the card ``chip_smoke.py`` path (v) serves ``deepseek-v3-bench``
+disaggregated (two engines over the native transport), through the tier,
+and as a pair of server processes.
+
+Not ported yet (later slices): EPLB, ``stub_components`` and the
+engine's phase spans (``utils/tracing.py`` is here for the connector's
+and the tier's spans).
 """
 
 from __future__ import annotations
@@ -149,6 +167,13 @@ class EngineConfig:
     # instead of verifying it (changes the output).  Read every step, so
     # a bench may switch it between waves (``set_spec_fixed_accept``).
     spec_fixed_accept: Optional[float] = None
+    # Tiered prefix cache: host-RAM blocks surviving device eviction
+    # (reference: tiered-prefix-cache/cpu, OffloadingConnector role).
+    kv_offload_blocks: int = 0            # 0 = off
+    # Cross-pod shared tier (the LMCache role): serve host-tier blocks to
+    # peers over a transfer server / consult peers on local miss.
+    kv_shared_tier_port: Optional[int] = None   # None = don't serve; 0 = ephemeral
+    kv_shared_tier_peers: Tuple[str, ...] = ()  # "host:port" peer servers
 
     def resolve_model(self) -> ModelConfig:
         return self.model_config or get_config(self.model)
@@ -274,6 +299,21 @@ class EngineCore:
         self._inflight: Optional[Dict[str, Any]] = None
         self._rejected: List[RequestOutput] = []
         self.metrics = EngineMetrics(c.name)
+        # PD producer: finished prefills whose blocks stay pinned until the
+        # consumer pulls them (reference contract: README.tpu.md:182-189);
+        # a stalled-request abort must wait for them.
+        self.pinned_transfers: Dict[str, Request] = {}
+        self.scheduler.external_pinned_blocks = lambda: sum(
+            len(r.block_ids) for r in self.pinned_transfers.values())
+        # Optional KV connector (set by the server / PD wiring).
+        self.kv_connector = None
+        self.host_tier = None
+        if config.kv_offload_blocks > 0:
+            from llm_d_tpu_torch.engine.offload import HostKVTier
+            self.host_tier = HostKVTier(
+                self, config.kv_offload_blocks,
+                serve_port=config.kv_shared_tier_port,
+                peers=list(config.kv_shared_tier_peers))
         self._disabled_seen: set = set()
 
         # Speculative decode: on when the mode is "auto" and K > 0 (the
@@ -344,23 +384,59 @@ class EngineCore:
     # ---------- public API ----------
 
     def add_request(self, request: Request) -> None:
-        if request.do_remote_decode or request.kv_transfer_params:
-            # No KV connector in the port yet: a disaggregated request
-            # served locally would look healthy while defeating PD.
-            request.state = RequestState.FINISHED_ABORTED
-            self._rejected.append(RequestOutput(
-                request.request_id, [], True,
-                finish_reason=RequestState.FINISHED_ABORTED.value))
+        if request.do_remote_decode and (
+                self.kv_connector is None
+                or getattr(self.kv_connector, "server", None) is None):
+            # The producer contract needs a serving connector: without one
+            # the prefill would pin blocks forever (no release pump).
+            logger.error(
+                "request %s asks for remote decode but this engine has no "
+                "producer-role KV connector; rejecting", request.request_id)
+            self._reject(request)
+            return
+        if request.kv_transfer_params:
+            if self.kv_connector is None:
+                # A silent local prefill would defeat disaggregation while
+                # looking healthy: fail the request loudly instead.
+                logger.error(
+                    "request %s carries kv_transfer_params but no KV "
+                    "connector is configured; rejecting", request.request_id)
+                self._reject(request)
+                return
+            # PD consumer: pull remote KV before the request is schedulable.
+            self.kv_connector.start_load_kv(self, request)
             return
         self.scheduler.add_request(request)
+
+    def _reject(self, request: Request) -> None:
+        request.state = RequestState.FINISHED_ABORTED
+        self._rejected.append(RequestOutput(
+            request.request_id, [], True,
+            finish_reason=RequestState.FINISHED_ABORTED.value))
 
     def abort_request(self, request_id: str) -> None:
         self.scheduler.abort_request(request_id)
         self._spec_forget(request_id)
+        # Aborting a finished remote prefill (PD producer) frees its pinned
+        # blocks, or the usable cache shrinks for good.
+        self.release_pinned(request_id)
+        if self.kv_connector is not None:
+            # Consumer side: the request may only exist as an in-flight KV
+            # pull; poll() then drops it instead of admitting it.
+            self.kv_connector.abort(request_id)
 
     def has_work(self) -> bool:
         return (self.scheduler.has_work() or bool(self._rejected)
-                or self._inflight is not None)
+                or self._inflight is not None or self._connector_pending())
+
+    def release_pinned(self, request_id: str) -> None:
+        """Producer side: transfer complete, free the pinned prefill blocks."""
+        req = self.pinned_transfers.pop(request_id, None)
+        if req is not None:
+            self.kv_manager.free(req)
+
+    def _connector_pending(self) -> bool:
+        return self.kv_connector is not None and self.kv_connector.has_pending()
 
     # ---------- feature composition and chunk budgeting ----------
 
@@ -557,6 +633,11 @@ class EngineCore:
                     or req.do_remote_decode
                     or req.sampling.logprobs is not None):
                 return None
+            if req.do_remote_prefill and not req.output_token_ids:
+                # A PD consumer's admitted row recomputes its last prompt
+                # token: a 1-token prefill (first-token counts and TTFT in
+                # the classic retire); its first decode joins the blocks.
+                return None
             if req.num_tokens + K >= self.model_config.max_model_len:
                 return None
         # Pre-allocate blocks to cover K new tokens for every request.
@@ -629,7 +710,9 @@ class EngineCore:
             ids = torch.empty((K, S), dtype=torch.int32, device=self.device)
             self._ms_body(mb, torch.as_tensor(keys, device=self.device),
                           ids, random_rows)
-            rec.update(ids_dev=ids, ids_host=ids, done=None)
+            # Eager on a card only when its graphs are set aside (a
+            # smoke's witness run): the host copy waits for the block.
+            rec.update(ids_dev=ids, ids_host=ids.cpu(), done=None)
         else:
             g = self._graphs.block((S, random_rows),
                                    lambda: self._ms_static(S, K))
@@ -700,7 +783,8 @@ class EngineCore:
         in-flight record, or None when the pipeline must drain (new
         arrivals, rejections, an expired deadline, allocation failure,
         or every request ending within the current block)."""
-        if self._rejected or self.scheduler.waiting:
+        if self._rejected or self.scheduler.waiting \
+                or self._connector_pending():
             return None
         scheduled, K = inflight["scheduled"], inflight["K"]
         meta = inflight["meta"]
@@ -961,6 +1045,11 @@ class EngineCore:
         for sr in sched.scheduled:
             req, n = sr.request, sr.num_new_tokens
             nd = sr.num_draft_tokens
+            if req.do_remote_decode and N > 1:
+                # A PD producer's row stops after its prefill: the single
+                # fused round (N = 1) serves it.
+                self._disable_feature("fused_multistep", "do_remote_decode")
+                return None
             is_decode = (n == 1 and bool(req.output_token_ids)
                          and req.num_computed_tokens == req.num_tokens - 1)
             computed = req.num_computed_tokens
@@ -1225,6 +1314,13 @@ class EngineCore:
                         continue          # mid-prompt round
                     if req.num_computed_tokens <= req.num_prompt_tokens:
                         self._count_prefill_done(req, now)
+                        if req.do_remote_decode:
+                            # PD producer: stop here, pin the blocks,
+                            # publish the transfer params.
+                            outputs.append(self._finish_remote_prefill(
+                                req, int(ids[rno, s, 0])))
+                            finish = "remote"
+                            break
                     token = int(ids[rno, s, 0])
                     req.output_token_ids.append(token)
                     new_tokens.append(token)
@@ -1248,6 +1344,9 @@ class EngineCore:
                     finish = self._check_stop(req, token)
                     if finish is not None:
                         break         # tokens past a stop are discarded
+            if finish == "remote":
+                self.kv_manager.cache_full_blocks(req)
+                continue
             self.metrics.generation_tokens.inc(len(new_tokens))
             if new_tokens:
                 if req.last_token_time is not None:
@@ -1305,7 +1404,8 @@ class EngineCore:
         row still mid-prompt, new arrivals, rejections, an expired
         deadline, pool pressure or a ``max_model_len`` horizon drain the
         pipeline (None), so the next step's schedule pass re-plans."""
-        if self._rejected or self.scheduler.waiting:
+        if self._rejected or self.scheduler.waiting \
+                or self._connector_pending():
             return None
         plan = rec["plan"]
         N = plan["N"]
@@ -1364,6 +1464,12 @@ class EngineCore:
     def step(self) -> List[RequestOutput]:
         outputs: List[RequestOutput] = list(self._rejected)
         self._rejected.clear()
+        if self.kv_connector is not None:
+            # Pump the connector before an in-flight block is extended or
+            # retired: admit finished KV pulls (their scatter queued behind
+            # the in-flight replay), surface failed ones, release producer
+            # pins the consumer acknowledged.
+            outputs.extend(self.kv_connector.poll(self))
         if self._inflight is not None:
             # Pipelined decode: queue the successor block on the device
             # first, then retire the in-flight one, so the host's token
@@ -1464,6 +1570,11 @@ class EngineCore:
                 continue                  # mid-prefill chunk: no sampling yet
             if req.num_computed_tokens <= req.num_prompt_tokens:
                 self._count_prefill_done(req, now)
+                if req.do_remote_decode:
+                    # PD producer: stop here, pin blocks, publish params.
+                    outputs.append(self._finish_remote_prefill(
+                        req, int(ids_h[s])))
+                    continue
             elif req.last_token_time is not None:
                 self.metrics.inter_token_latency.observe(
                     now - req.last_token_time)
@@ -1496,6 +1607,29 @@ class EngineCore:
         self._update_queue_metrics()
         return outputs
 
+    def _finish_remote_prefill(self, req: Request,
+                               first_token: int) -> RequestOutput:
+        """PD producer: the prefill is done; pin the request's blocks, serve
+        their KV under the request uuid and answer with the transfer
+        params the consumer pulls by."""
+        req.state = RequestState.FINISHED_REMOTE_PREFILL
+        self.scheduler.running.remove(req)
+        self.pinned_transfers[req.request_id] = req
+        if self.kv_connector is not None:
+            self.kv_connector.register_transfer(self, req)
+        params: Dict[str, Any] = {
+            "remote_block_ids": list(req.block_ids),
+            "remote_host": getattr(self.kv_connector, "host", "localhost"),
+            "remote_port": getattr(self.kv_connector, "port", 0),
+            "uuid": req.request_id,
+            "first_token": first_token,
+        }
+        req.kv_transfer_params = params
+        return RequestOutput(
+            req.request_id, [first_token], True,
+            finish_reason=RequestState.FINISHED_REMOTE_PREFILL.value,
+            kv_transfer_params=params)
+
     def _count_prefill_done(self, req: Request, now: float) -> None:
         """Prompt, prefix-cache and TTFT counts of a finished prefill."""
         self.metrics.prompt_tokens.inc(req.num_prompt_tokens)
@@ -1513,6 +1647,9 @@ class EngineCore:
         self.metrics.e2e_request_latency.observe(now - req.arrival_time)
 
     def _update_queue_metrics(self) -> None:
+        if self.host_tier is not None:
+            # One device->host copy for all blocks cached this step.
+            self.host_tier.flush()
         self.metrics.num_requests_waiting.set(self.scheduler.num_waiting)
         self.metrics.num_requests_running.set(self.scheduler.num_running)
         self.metrics.kv_cache_usage_perc.set(self.kv_manager.usage)
@@ -1557,4 +1694,6 @@ class EngineCore:
             if not self.has_work():
                 break
             self.step()
+            if not self.scheduler.has_work() and self.has_work():
+                time.sleep(0.001)   # only async connector work pending
         return {r.request_id: list(r.output_token_ids) for r in requests}

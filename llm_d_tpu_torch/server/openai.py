@@ -29,12 +29,25 @@ carry none, as the JAX server's carry none), and ``--spec-k`` serves
 speculative decode (``--spec-strict`` is accepted and does nothing: no
 startup condition demotes spec decode in this engine).
 
+P/D disaggregation: ``--kv-transfer-config`` (the JAX server's JSON:
+``kv_role``, ``kv_ip``, ``kv_port``, ``kv_load_failure_policy``) gives the
+engine a KV connector.  A request body with ``{"kv_transfer_params":
+{"do_remote_decode": true}}`` is prefilled only, its blocks pinned, and
+its final body (or last streamed chunk) carries the ``kv_transfer_params``
+a decode server pulls by; a body carrying those params on a consumer pulls
+the blocks and decodes.  The routing sidecar (``llm_d_tpu.sidecar``) or
+any client that passes the params on drives the pair.  The tiered prefix
+cache: ``--kv-offload-blocks``, ``--kv-shared-tier-port`` and static
+``host:port`` entries of ``--kv-shared-tier-peers`` (dynamic ``dns:`` /
+``k8s:`` specs are refused by name).  On the CPU,
+``tests/test_torch_pd.py`` drives two such servers behind the JAX
+sidecar; on the card, ``chip_smoke.py`` path (v)(c) runs a producer and a
+consumer process.
+
 Not served yet (each refused with a status and a message naming it, not
-quietly dropped): ``kv_transfer_params`` (PD disaggregation), mid-stream
-``resume``, ``/debug/traces``, ``--spec-k`` with
-``--num-scheduler-steps`` > 1 (the fused multistep pipeline), and the
-CLI flags of multi-device serving, KV offload, DBO, EPLB, the KV
-connector and KV events (``UNSERVED_FLAGS``).
+quietly dropped): mid-stream ``resume``, ``/debug/traces``, and the CLI
+flags of multi-device serving, DBO, EPLB and KV events
+(``UNSERVED_FLAGS``).
 """
 
 from __future__ import annotations
@@ -97,11 +110,14 @@ def _sampling_from_body(body: Dict[str, Any]) -> SamplingParams:
     )
 
 
-def _unported(body: Dict[str, Any], headers: Dict[str, str]) -> Optional[str]:
-    """What a request asks for that this server does not serve, or None."""
-    if body.get("kv_transfer_params"):
-        return ("kv_transfer_params: PD disaggregation needs the KV "
-                "connector, which is not ported")
+def _unported(body: Dict[str, Any], headers: Dict[str, str],
+              engine: EngineCore) -> Optional[str]:
+    """What a request asks for that this server does not serve, or None.
+    ``kv_transfer_params`` needs a KV connector: without one, a local
+    prefill would look healthy while defeating disaggregation."""
+    if body.get("kv_transfer_params") and engine.kv_connector is None:
+        return ("kv_transfer_params: this server has no KV connector "
+                "(start it with --kv-transfer-config)")
     if body.get("resume") or RESUME_OFFSET_HEADER in headers:
         return "resume: mid-stream resume (stream_resume) is not ported"
     return None
@@ -300,7 +316,7 @@ class ModelServer:
         deadline = None
         if deadline_epoch is not None:
             deadline = time.monotonic() + (deadline_epoch - time.time())
-        return Request(
+        req = Request(
             request_id=rid,
             prompt_token_ids=prompt_ids,
             sampling=_sampling_from_body(body),
@@ -308,6 +324,15 @@ class ModelServer:
             criticality=parse_criticality(headers, body),
             deadline=deadline,
         )
+        ktp = body.get("kv_transfer_params")
+        if ktp:
+            if ktp.get("do_remote_decode"):
+                # Producer role: run prefill only, pin KV for remote pull.
+                req.do_remote_decode = True
+            elif ktp.get("remote_block_ids") or ktp.get("do_remote_prefill"):
+                req.do_remote_prefill = True
+                req.kv_transfer_params = ktp
+        return req
 
     def _refuse_draining(self) -> Optional[Response]:
         """503 for new inference while draining (the gateway retries it
@@ -332,7 +357,7 @@ class ModelServer:
         refused = self._refuse_draining()
         if refused is not None:
             return refused
-        missing = _unported(body, request.headers)
+        missing = _unported(body, request.headers, self.engine)
         if missing is not None:
             return json_response({"error": f"not served: {missing}"},
                                  status=501)
@@ -445,6 +470,8 @@ class ModelServer:
         if req.sampling.logprobs is not None and lp_ids:
             payload["choices"][0]["logprobs"] = self._logprobs_field(
                 lp_ids, lp_vals, lp_tops, chat)
+        if final_out is not None and final_out.kv_transfer_params:
+            payload["kv_transfer_params"] = final_out.kv_transfer_params
         # This request already left the scheduler: the depth is everyone
         # still queued or running behind it.
         headers = {SCHED_DEPTH_HEADER: str(self._sched_depth())}
@@ -552,13 +579,16 @@ class ModelServer:
             choice["delta"] = {"content": delta}
         else:
             choice["text"] = delta
-        return {
+        chunk = {
             "id": req.request_id,
             "object": "chat.completion.chunk" if chat else "text_completion",
             "created": created, "model": self.model_name,
             "choices": [choice],
             CHUNK_META_KEY: {"off": off, "tok": list(out.new_token_ids)},
         }
+        if out.finished and out.kv_transfer_params:
+            chunk["kv_transfer_params"] = out.kv_transfer_params
+        return chunk
 
 
 def build_server(engine_config: EngineConfig,
@@ -579,6 +609,9 @@ def engine_config_from_args(args) -> EngineConfig:
         max_num_batched_tokens=args.max_num_batched_tokens,
         num_scheduler_steps=args.num_scheduler_steps,
         async_scheduling=args.async_scheduling,
+        kv_offload_blocks=args.kv_offload_blocks,
+        kv_shared_tier_port=args.kv_shared_tier_port,
+        kv_shared_tier_peers=shared_tier_peers(args),
         quantization=args.quantization,
         kv_cache_dtype=args.kv_cache_dtype,
         spec_k=args.spec_k,
@@ -606,9 +639,6 @@ UNSERVED_FLAGS = {
     "allow_device_subset": _MULTI_DEVICE,
     "latency_training_url": "the latency predictor's training feed is "
                             "not ported",
-    "kv_offload_blocks": "KV offload is not ported",
-    "kv_shared_tier_port": "the shared KV tier is not ported",
-    "kv_shared_tier_peers": "the shared KV tier is not ported",
     "kv_cache_hbm_gb": "sizing the block pool from a memory budget is not "
                        "ported (pass --num-blocks)",
     "enable_dbo": "dual-batch overlap is not ported",
@@ -616,8 +646,6 @@ UNSERVED_FLAGS = {
     "dbo_prefill_token_threshold": "dual-batch overlap is not ported",
     "enable_eplb": "EPLB is not ported",
     "eplb_config": "EPLB is not ported",
-    "kv_transfer_config": "the KV connector (PD disaggregation) is not "
-                          "ported",
     "kv_events_endpoint": "the KV-events publisher is not ported",
     "pod_identity": "the KV-events publisher is not ported",
 }
@@ -658,9 +686,20 @@ def build_arg_parser() -> argparse.ArgumentParser:
              "before retiring it; requires --num-scheduler-steps > 1")
     p.add_argument("--allow-device-subset", action="store_true")
     p.add_argument("--latency-training-url", default=None)
-    p.add_argument("--kv-offload-blocks", type=int, default=0)
-    p.add_argument("--kv-shared-tier-port", type=int, default=None)
-    p.add_argument("--kv-shared-tier-peers", default="")
+    p.add_argument(
+        "--kv-offload-blocks", type=int, default=0,
+        help="host-RAM tier capacity in KV blocks (0 = off); evicted "
+             "device blocks stay restorable (reference: tiered-prefix-cache)")
+    p.add_argument(
+        "--kv-shared-tier-port", type=int, default=None,
+        help="serve host-tier blocks to peer pods on this port (0 = "
+             "ephemeral; requires --kv-offload-blocks > 0; the LMCache "
+             "role)")
+    p.add_argument(
+        "--kv-shared-tier-peers", default="",
+        help="comma list of static host:port shared-tier servers consulted "
+             "on prefix miss before recompute (dynamic dns:/k8s: specs are "
+             "not served)")
     p.add_argument("--quantization", default=None, choices=[None, "int8"],
                    help="MoE expert-weight quantization")
     p.add_argument("--kv-cache-dtype", default=None,
@@ -685,7 +724,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
         help="refuse to start instead of demoting spec decode at startup; "
              "accepted for the JAX server's command line, a no-op here: "
              "nothing demotes spec decode at startup in this engine")
-    p.add_argument("--kv-transfer-config", default=None)
+    p.add_argument(
+        "--kv-transfer-config", default=None,
+        help="KV connector JSON for P/D disaggregation: kv_role "
+             "(kv_producer | kv_consumer | kv_both), kv_ip (address "
+             "advertised to consumers), kv_port (0 = ephemeral), "
+             "kv_load_failure_policy (fail | recompute)")
     p.add_argument("--kv-events-endpoint", default=None)
     p.add_argument("--pod-identity", default=None)
     p.add_argument(
@@ -695,13 +739,47 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return p
 
 
+def shared_tier_peers(args) -> tuple:
+    return tuple(s.strip() for s in args.kv_shared_tier_peers.split(",")
+                 if s.strip())
+
+
 def check_served(parser: argparse.ArgumentParser, args) -> None:
     """``parser.error`` for the first unserved flag set to anything but
-    its default."""
+    its default, for dynamic shared-tier peer specs, and for a shared
+    tier without the host tier it serves from."""
     for dest, why in UNSERVED_FLAGS.items():
         if getattr(args, dest) != parser.get_default(dest):
             flag = "--" + dest.replace("_", "-")
             parser.error(f"{flag} is not served by the PyTorch port: {why}")
+    from llm_d_tpu_torch.engine.offload import DYNAMIC_PEER_PREFIXES
+    dynamic = [p for p in shared_tier_peers(args)
+               if p.startswith(DYNAMIC_PEER_PREFIXES)]
+    if dynamic:
+        parser.error(
+            f"--kv-shared-tier-peers {','.join(dynamic)} is not served by "
+            "the PyTorch port: dynamic peer discovery (dns:/k8s:) needs the "
+            "EPP's aiohttp resolvers; pass static host:port peers")
+    if (args.kv_shared_tier_port is not None or shared_tier_peers(args)) \
+            and args.kv_offload_blocks <= 0:
+        # Running with the cross-pod cache off while the operator
+        # configured it is a misconfiguration, not a fallback.
+        parser.error("--kv-shared-tier-port/--kv-shared-tier-peers require "
+                     "--kv-offload-blocks > 0 (the shared tier serves the "
+                     "host tier's blocks)")
+
+
+def kv_connector_from_args(args):
+    """The engine's KV connector of ``--kv-transfer-config``, or None."""
+    if not args.kv_transfer_config:
+        return None
+    from llm_d_tpu_torch.transfer import KVConnectorConfig, TpuConnector
+    ktc = json.loads(args.kv_transfer_config)
+    return TpuConnector(KVConnectorConfig(
+        kv_role=ktc.get("kv_role", "kv_both"),
+        host=ktc.get("kv_ip", "127.0.0.1"),
+        port=int(ktc.get("kv_port", 0)),
+        kv_load_failure_policy=ktc.get("kv_load_failure_policy", "fail")))
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -710,6 +788,11 @@ def main(argv: Optional[List[str]] = None) -> None:
     check_served(p, args)
     logging.basicConfig(level=logging.INFO)
     server = build_server(engine_config_from_args(args), args.tokenizer)
+    connector = kv_connector_from_args(args)
+    if connector is not None:
+        server.engine.kv_connector = connector
+        logger.info("KV connector: role=%s serving on %s:%s",
+                    connector.config.kv_role, connector.host, connector.port)
     asyncio.run(server.serve(args.host, args.port))
 
 

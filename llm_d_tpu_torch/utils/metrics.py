@@ -401,6 +401,12 @@ class EngineMetrics:
             "Host-blocked seconds at a migration flip (≈0: staging is "
             "async; the flip is a reference swap).")
 
+    def observe_phase(self, phase: str, criticality: str,
+                      seconds: float) -> None:
+        self._request_phase.labels(
+            model_name=self.model_name, phase=phase,
+            criticality=criticality).observe(max(0.0, seconds))
+
     def observe_queue_wait(self, criticality: str, seconds: float) -> None:
         self._queue_wait.labels(
             model_name=self.model_name, criticality=criticality).observe(

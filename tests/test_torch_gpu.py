@@ -22,7 +22,8 @@ the uncapped tokens, and bf16 experts past the dense bound are refused
 at build.  The spec engine's fused rounds repeat token for token and free
 their rejected blocks, and its acceptance coin is the CPU's bit for
 bit.  The OpenAI server over the same engine answers with the direct
-engine's tokens.
+engine's tokens.  A graph captured before a PD consumer's scatter and a
+host-tier restore reads the rows they wrote.
 """
 
 import dataclasses
@@ -739,6 +740,79 @@ def _block_requests(n, K, sampled, seed):
             seed=(1234 + i) if sampled and i % 2 else None,
             max_tokens=1 + K, ignore_eos=True)))
     return reqs
+
+
+def test_graphs_read_the_rows_a_connector_scatter_and_a_restore_wrote(dev):
+    """A decode block's graph is captured first; then a PD consumer's
+    scatter and a host-tier restore write rows into the cache tensors it
+    captured (in place: no buffer is rebound), and the blocks that read
+    them are replays of that same graph.  Their tokens equal those of
+    engines that read the same rows without graphs or without the tier:
+    a classic-loop consumer pulling from the same producer, and a control
+    engine whose third pass hits its device prefix cache (same batch
+    shapes, so bit-equal)."""
+    import time
+    from llm_d_tpu_torch.transfer import KVConnectorConfig, TpuConnector
+    K = 8
+
+    def greedy(rid, prompt, n=1 + K, **kw):
+        return Request(rid, prompt, SamplingParams(
+            temperature=0.0, max_tokens=n, ignore_eos=True), **kw)
+
+    g = torch.Generator().manual_seed(21)
+
+    def prompt(n):
+        return torch.randint(1, 32768, (n,), generator=g).tolist()
+
+    kw = dict(num_scheduler_steps=K, enable_prefix_caching=True,
+              num_blocks=8, kv_offload_blocks=64)
+    eng = _bench_2layer_engine(dev, **kw)
+    eng.generate([greedy("warm", prompt(70))])
+    n_graphs = len(eng._graphs.graphs)
+    ptrs = {k: v.data_ptr() for k, v in eng.kv_cache.items()}
+
+    # P/D: the graphed engine consumes; a classic-loop consumer reads the
+    # same rows eagerly.
+    producer = _bench_2layer_engine(dev, params=eng.params)
+    classic = _bench_2layer_engine(dev, params=eng.params)
+    producer.kv_connector = TpuConnector(KVConnectorConfig(
+        kv_role="kv_producer", host="127.0.0.1"))
+    p_pd = prompt(90)
+    tokens = {}
+    for name, cons in (("graphed", eng), ("classic", classic)):
+        cons.kv_connector = TpuConnector(KVConnectorConfig(
+            kv_role="kv_consumer"))
+        pre = greedy(f"pd-{name}", p_pd, 1, do_remote_decode=True)
+        producer.generate([pre])
+        tokens[name] = cons.generate([greedy(
+            f"pd-{name}", p_pd, do_remote_prefill=True,
+            kv_transfer_params=pre.kv_transfer_params)])[f"pd-{name}"]
+        cons.kv_connector.close()
+        cons.kv_connector = None
+    assert tokens["graphed"] == tokens["classic"]
+    for _ in range(500):
+        producer.step()
+        if not producer.pinned_transfers:
+            break
+        time.sleep(0.01)
+    assert producer.kv_manager.usage == 0.0
+    producer.kv_connector.close()
+
+    # The tier: A, fillers that evict A's prefix, A again (restored).
+    control = _bench_2layer_engine(dev, params=eng.params,
+                                   **dict(kw, num_blocks=64,
+                                          kv_offload_blocks=0))
+    p_a = prompt(130)
+    fillers = [prompt(130) for _ in range(3)]
+    runs = {}
+    for name, e in (("tier", eng), ("control", control)):
+        runs[name] = [e.generate([greedy(f"a{i}", p)])[f"a{i}"]
+                      for i, p in enumerate([p_a, *fillers, p_a])]
+    assert eng.host_tier.loads >= 2 and eng.kv_manager.eviction_count > 0
+    assert control.kv_manager.eviction_count == 0
+    assert runs["tier"] == runs["control"]
+    assert len(eng._graphs.graphs) == n_graphs
+    assert {k: v.data_ptr() for k, v in eng.kv_cache.items()} == ptrs
 
 
 @pytest.mark.parametrize("n,S", [(6, 8), (40, 64), (100, 128)])

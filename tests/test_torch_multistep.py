@@ -201,3 +201,48 @@ def test_block_keys_are_jax_splits_of_the_step_key():
     assert len(got) == len(want) > 1
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+def test_graph_capture_holds_the_collector_off(monkeypatch):
+    """A block's body is recorded with the cyclic garbage collector off
+    (and on again after, also when the body raises): a dead engine's
+    pinned buffers freed by a collection inside a capture would abort
+    the process on the card.  The CUDA calls of ``_capture`` are stood in
+    for on the CPU; the warm-up runs with the collector on."""
+    import contextlib
+    import gc
+    import types
+    import torch
+    from llm_d_tpu_torch.engine import cuda_graph
+
+    class _Stream:
+        def wait_stream(self, other):
+            pass
+
+    fakes = dict(current_stream=lambda *a: _Stream(),
+                 Stream=lambda *a: _Stream(),
+                 stream=lambda s: contextlib.nullcontext(),
+                 synchronize=lambda *a: None, empty_cache=lambda: None,
+                 memory_reserved=lambda *a: 0, CUDAGraph=object,
+                 graph=lambda g, pool=None: contextlib.nullcontext())
+    for name, fake in fakes.items():
+        monkeypatch.setattr(torch.cuda, name, fake)
+    graphs = object.__new__(cuda_graph.DecodeGraphs)
+    graphs.device, graphs.pool, graphs.pool_bytes = "cpu", None, 0
+    seen = {}
+
+    def body(n):
+        seen[n] = gc.isenabled()
+
+    assert gc.isenabled()
+    graphs._capture(types.SimpleNamespace(key="k"), body, 4)
+    assert seen == {1: True, 4: False}
+    assert gc.isenabled()
+
+    def failing(n):
+        if n > 1:
+            raise RuntimeError("capture failed")
+
+    with pytest.raises(RuntimeError, match="capture failed"):
+        graphs._capture(types.SimpleNamespace(key="k"), failing, 4)
+    assert gc.isenabled()

@@ -26,9 +26,11 @@ schedule; the comparisons are exact:
   carried across too): the JAX spec server's tokens, plain and with
   logprobs.
 
-Port-only checks: unported features (``kv_transfer_params``, resume),
-unserved CLI flags and ``--spec-k`` with ``--num-scheduler-steps`` > 1
-are refused with a message naming them,
+Port-only checks: unported features (resume, and ``kv_transfer_params``
+on a server without a KV connector) and unserved CLI flags (dynamic
+shared-tier peer specs among them) are refused with a message naming
+them; the P/D and tier flags map to the engine config and the connector;
+``--spec-k`` with ``--num-scheduler-steps`` > 1 parses;
 and ``python -m llm_d_tpu_torch.server.openai`` serves with aiohttp,
 prometheus_client and requests blocked, then drains and exits 0 on
 SIGTERM.  Every HTTP call has its own timeout.
@@ -587,8 +589,9 @@ def test_out_of_vocabulary_prompt_ids_are_refused(tiny, prompt):
 
 @pytest.mark.parametrize("flag", [
     ["--tensor-parallel-size", "2"],
-    ["--kv-transfer-config", "{}"], ["--enable-eplb"],
-    ["--kv-events-endpoint", "tcp://x:1"], ["--kv-offload-blocks", "8"],
+    ["--kv-shared-tier-peers", "dns:kv-peers:5999",
+     "--kv-offload-blocks", "8"], ["--enable-eplb"],
+    ["--kv-events-endpoint", "tcp://x:1"], ["--kv-cache-hbm-gb", "8"],
     ["--enable-dbo"], ["--compilation-cache-dir", "/tmp/x"]])
 def test_an_unserved_cli_flag_is_a_parser_error(flag, capsys):
     p = TServer.build_arg_parser()
@@ -596,6 +599,68 @@ def test_an_unserved_cli_flag_is_a_parser_error(flag, capsys):
         TServer.check_served(p, p.parse_args(["--model", "tiny"] + flag))
     assert e.value.code == 2
     assert flag[0] in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("dest", sorted(TServer.UNSERVED_FLAGS))
+def test_every_unserved_flag_is_still_refused(dest, capsys):
+    """Each entry of ``UNSERVED_FLAGS`` (the P/D and tier flags are no
+    longer among them) set to a value other than its default is a parser
+    error naming the flag."""
+    p = TServer.build_arg_parser()
+    action = next(a for a in p._actions if a.dest == dest)
+    flag = action.option_strings[0]
+    if action.nargs == 0:
+        argv = [flag]
+    elif action.type is int:
+        argv = [flag, "2"]
+    elif action.type is float:
+        argv = [flag, "2.5"]
+    elif action.choices:
+        argv = [flag, next(c for c in action.choices
+                           if c != action.default)]
+    else:
+        argv = [flag, "x"]
+    with pytest.raises(SystemExit) as e:
+        TServer.check_served(p, p.parse_args(argv))
+    assert e.value.code == 2
+    assert flag in capsys.readouterr().err
+
+
+def test_pd_and_tier_flags_are_served(capsys):
+    """``--kv-transfer-config``, ``--kv-offload-blocks``,
+    ``--kv-shared-tier-port`` and static ``--kv-shared-tier-peers`` parse
+    into the EngineConfig the JAX server's parser builds and the
+    connector its JSON names; a shared tier without the host tier is a
+    parser error, as in the JAX server."""
+    argv = ["--model", "tiny", "--kv-offload-blocks", "64",
+            "--kv-shared-tier-port", "0", "--kv-shared-tier-peers",
+            "10.0.0.9:5999, 1.2.3.4:1", "--kv-transfer-config",
+            json.dumps({"kv_role": "kv_consumer", "kv_ip": "10.0.0.1",
+                        "kv_load_failure_policy": "recompute"})]
+    p = TServer.build_arg_parser()
+    args = p.parse_args(argv)
+    TServer.check_served(p, args)
+    assert capsys.readouterr().err == ""
+    cfg = TServer.engine_config_from_args(args)
+    jcfg = JServer.engine_config_from_args(
+        JServer.build_arg_parser().parse_args(argv))
+    names = ("kv_offload_blocks", "kv_shared_tier_port",
+             "kv_shared_tier_peers")
+    assert [getattr(cfg, n) for n in names] == \
+        [getattr(jcfg, n) for n in names] == \
+        [64, 0, ("10.0.0.9:5999", "1.2.3.4:1")]
+    conn = TServer.kv_connector_from_args(args)
+    try:
+        assert (conn.config.kv_role, conn.host, conn.port,
+                conn.config.kv_load_failure_policy) == (
+            "kv_consumer", "10.0.0.1", 0, "recompute")
+        assert conn.server is None
+    finally:
+        conn.close()
+    assert TServer.kv_connector_from_args(p.parse_args([])) is None
+    with pytest.raises(SystemExit):
+        TServer.check_served(p, p.parse_args(["--kv-shared-tier-port", "0"]))
+    assert "--kv-offload-blocks > 0" in capsys.readouterr().err
 
 
 def test_spec_k_with_multistep_is_a_parser_error(capsys):
