@@ -69,15 +69,20 @@ Phases (each raises on failure; the script then exits non-zero):
             bench_everything_on configures it: spec decode (K = 4) with
             N = 4 fused rounds per dispatch and async scheduling (the
             fused multistep pipeline, each dispatch one CUDA graph
-            replay), 256 sequences, 1344 blocks, EPLB off (one device);
-            its yardstick is the same engine at N = 1 (each single fused
-            round one replay).  (a) Wave 1 with real verification
-            through both: equal tokens between them and against the
-            classic loop, each first difference with the classic step's
-            top-2 margin and decision bar (reported); (b) 256 x 128-token
-            prompts, 128 new at the fixed acceptance 0.7, a warm-up and 3
-            timed runs a side in alternating rounds: accepted decode
-            tok/s, acceptance and engine steps per dispatch, every
+            replay), 256 sequences, 1344 blocks, EPLB on (one card: the
+            identity placement; every dispatch's routed ids ride its
+            graph's outputs into the tracker); its yardsticks are the
+            same engine at N = 1 (each single fused round one replay) and
+            at N = 4 with EPLB off.  (a) Wave 1 with real verification
+            through the three: equal tokens between N = 4 and N = 1 and
+            against the classic loop, each first difference with the
+            classic step's top-2 margin and decision bar (reported), and
+            EPLB on and off token for token (required); (b) 256 x
+            128-token prompts, 128 new at the fixed acceptance 0.7, a
+            warm-up and 3 timed runs a side in alternating rounds:
+            accepted decode tok/s (EPLB's collection cost is on against
+            off), acceptance and engine steps per dispatch, the
+            imbalance, the routed ids recorded and migrations (0), every
             request ending by length, the pool whole after each run, the
             coins of a run's steps drawn on the card bit-equal to the
             CPU's and each graph's coin input the CPU's coin of its
@@ -119,6 +124,31 @@ Phases (each raises on failure; the script then exits non-zero):
             1's prompts one at a time: tokens equal (a)'s, the
             consumer's ``kv_transfer_seconds_count`` 8, exit 0 on
             SIGTERM (logs in build/kv_*.log);
+2e. path (vi) and the EPLB, attribution and sizing phases, on path
+            (i)'s weights: (a) bench_eplb_skew's configuration (spec K =
+            4 at 0.7, one scheduler step, 256 sequences, EPLB with a
+            512-step window and a 32-step interval): before each run a
+            Zipf(1.2) trace recorded into the tracker, a warm-up and 2
+            runs of 256 x 128-token prompts with 128 new (accepted decode
+            tok/s, ep, migrations (0 on one card), migrated MB, flip
+            stall ms); kernels B and E inside its graphs; (b) the EPLB
+            controller at ep = 4 on path (i)'s int8 experts (P = 68
+            slots): install, a per-layer Zipf trace, on_step ticks
+            staging on the controller's side stream until the flip
+            (stage device and host ms, flip host ms, bytes): every
+            serving tensor keeps its data_ptr(), the physical _q/_s
+            planes equal the logical ones gathered by the final plans bit
+            for bit, and kernels C, D and E through the new tables (T =
+            16, 256, 2048) give the logical launch's output; (c) the
+            attribution sweep as bench.py --stub runs it: bench_model's
+            engine at batch sizes 64 and 256, unstubbed and with each of
+            attn, moe_ffn and shared_expert stubbed (a warm-up of one
+            decode block, one timed run each): decode and prefill ms per
+            step and each component's cost by difference; (d) pool
+            sizing from a 4 GiB budget on deepseek-v3-bench (int8 latent)
+            and, in phase 3, llama3-1b (bf16, int8-token, int8-head): the
+            derived num_blocks equals the arithmetic and the allocated
+            cache num_blocks x kv_block_bytes;
 3. path(ii) serve llama3-1b at full width and depth, block size 64,
             8192-token steps: 64 x 128-token prompts with 32 new tokens on
             a bf16 cache (twice: must repeat token for token; then with
@@ -187,9 +217,11 @@ read just after it; kernels A-F count path (i), G and H path (ii), and
 each row adds path (iii)'s run (phases (a) and (c)-(e), also given as
 ``spec_launches``), path (iv)'s run (phases (a) and (b), also given as
 ``everything_on_launches``), path (v)'s run (phases (a) and (b),
-also given as ``pd_launches``; (c) runs in its own processes) and the
-in-process server's run (phase 7(a), also given as
-``server_launches``).  A
+also given as ``pd_launches``; (c) runs in its own processes), path
+(vi)'s run (phase 2e(a), ``eplb_launches``), the attribution sweep
+(phase 2e(c), ``attribution_launches``; the controller's launches in
+2e(b) are comparisons and do not count) and the in-process server's run
+(phase 7(a), also given as ``server_launches``).  A
 count is the wrapper's own (eager launches, graph warm-ups included)
 plus the launches inside graph replays: a capture records each graph's
 launches, and every replay adds them (``engine/cuda_graph.py``); the
@@ -201,7 +233,9 @@ fields of the kernels line for the other inputs of phase 4), an
 ``{"engine": ...}`` line, a ``{"server": ...}`` line (phase 7, with the
 card's name and power limit), a ``{"spec": ...}`` line (path (iii), with
 the card's name and power limit), an ``{"everything_on": ...}`` line
-(path (iv), likewise), a ``{"pd": ...}`` line (path (v), likewise), a
+(path (iv), likewise), a ``{"pd": ...}`` line (path (v), likewise), an
+``{"eplb": ...}`` line (path (vi) and the controller, likewise), an
+``{"attribution": ...}`` line, a ``{"sizing": [...]}`` line, a
 ``{"kernels": [...]}`` line (one row per
 kernel at its first launch: measured launches, errors and times, with
 ``bound_ms``), the card's name and power limit, and last ``{"ok": true,
@@ -679,19 +713,22 @@ def path_i_engine(steps: int = BENCH_K, params=None, **over):
     return EngineCore(EngineConfig(**kw), params=params)
 
 
-def path_ii_engine(kv: str, gran, steps: int = 1, params=None):
+def path_ii_engine(kv: str, gran, steps: int = 1, params=None, **over):
     """llama3-1b at full width and depth, random weights from seed 1 (or
     ``params``), on a ``kv`` cache (bf16, or int8 with scales per
     ``gran``: token or head): block size 64, steps of up to ``BENCH_T``
     tokens, 64 sequences, ``steps`` scheduler steps per dispatch (async
-    scheduling when more than one)."""
+    scheduling when more than one).  ``over`` replaces EngineConfig
+    fields (the pool-sizing check)."""
     from llm_d_tpu_torch.engine import EngineConfig, EngineCore
-    return EngineCore(EngineConfig(
+    kw = dict(
         model="llama3-1b", kv_cache_dtype=kv, kv_scale_granularity=gran,
         block_size=64, num_blocks=256, max_num_seqs=64,
         max_num_batched_tokens=BENCH_T, num_scheduler_steps=steps,
         async_scheduling=steps > 1, enable_prefix_caching=False,
-        device="cuda", seed=1), params=params)
+        device="cuda", seed=1)
+    kw.update(over)
+    return EngineCore(EngineConfig(**kw), params=params)
 
 
 def check_multistep(stats: dict, tag: str) -> None:
@@ -1313,16 +1350,17 @@ def profile_spec(engine, prompts, joiner) -> dict:
     return out
 
 
-def path_iv_engine(params, N: int, draft_params=None):
+def path_iv_engine(params, N: int, draft_params=None, eplb: bool = True):
     """deepseek-v3-bench as bench.py's bench_everything_on configures it
     (bench.py:466-489), on ``params``: int8 experts and latent, block
     size 64, steps of up to ``BENCH_T`` tokens, ``SPEC_WAVE["n"]``
     sequences, ``SPEC_K`` drafts at the fixed acceptance ``SPEC_ACCEPT``,
     ``N`` fused rounds per dispatch with async scheduling (N = 1: the
-    single fused round), prefix caching off, and room for every
+    single fused round), EPLB on (``eplb``; with one card its placement
+    is the identity, and its controller copies the expert weights into
+    its own physical table), prefix caching off, and room for every
     sequence's prompt, new tokens and two dispatches of drafts at
-    ``EON_N`` (1344 blocks).  EPLB stays off: with one device its
-    placement is the identity.  The drafter is random from seed 1 (or
+    ``EON_N`` (1344 blocks).  The drafter is random from seed 1 (or
     ``draft_params``)."""
     from llm_d_tpu_torch.engine import EngineConfig, EngineCore
     bs = 64
@@ -1333,19 +1371,43 @@ def path_iv_engine(params, N: int, draft_params=None):
         kv_cache_dtype="int8", block_size=bs,
         num_blocks=SPEC_WAVE["n"] * -(-cover // bs) + bs,
         max_num_seqs=SPEC_WAVE["n"], max_num_batched_tokens=BENCH_T,
-        num_scheduler_steps=N, async_scheduling=N > 1,
+        num_scheduler_steps=N, async_scheduling=N > 1, enable_eplb=eplb,
         enable_prefix_caching=False, spec_k=SPEC_K,
         spec_fixed_accept=SPEC_ACCEPT, device="cuda", seed=0),
         params=params, draft_params=draft_params)
 
 
+def side_label(N) -> str:
+    """A path (iv) engine's label: its rounds per dispatch, or the N-round
+    engine with EPLB off ("off")."""
+    return f"N={EON_N} eplb off" if N == "off" else f"N={N}"
+
+
+def count_routed(engine) -> list:
+    """A running count of the routed ids ``engine``'s EPLB tracker is
+    handed (its window keeps only the last ``window_size`` steps)."""
+    import numpy as np
+    counted = [0]
+    tracker = engine.eplb.tracker
+    real = tracker.record
+
+    def record(ids, steps=1):
+        counted[0] += int(np.asarray(ids).size)
+        return real(ids, steps)
+
+    tracker.record = record
+    return counted
+
+
 def eon_greedy(engines, prompts, classic_tokens, yardstick) -> dict:
     """Phase (iv)(a): wave 1 with real verification through the N-round
-    engine and the single-round one (``engines``: {N: engine}), each
-    against the classic loop's tokens (``yardstick``: its margins and
-    bars, ``classic_margins``) and against each other: equal tokens, and
-    where each row first differs with the classic step's top-2 margin and
-    decision bar there (a difference within the bar is a near tie)."""
+    engine, the single-round one and the N-round one with EPLB off
+    (``engines``: {N or "off": engine}), each against the classic loop's
+    tokens (``yardstick``: its margins and bars, ``classic_margins``) and
+    against each other: equal tokens, and where each row first differs
+    with the classic step's top-2 margin and decision bar there (a
+    difference within the bar is a near tie).  EPLB on and off must give
+    the same tokens: the identity table feeds C-E the same inputs."""
     _, _, margins, bars = yardstick
     toks, out = {}, {}
     for N, eng in engines.items():
@@ -1355,12 +1417,16 @@ def eon_greedy(engines, prompts, classic_tokens, yardstick) -> dict:
         d["near_ties_only"] = all(
             m is None or m <= b for m, b in zip(
                 d["classic_top2_margin_there"], d["classic_bar_there"]))
-        out[f"N={N}"] = dict(d, wave=st)
+        out[side_label(N)] = dict(d, wave=st)
         eng.set_spec_fixed_accept(SPEC_ACCEPT)
-    a, b = (toks[N] for N in engines)
+    a, b = toks[EON_N], toks[1]
     out["tokens"] = WAVE1["new"] * len(prompts)
     out["equal_tokens_between_n"] = sum(x == y for r, q in zip(a, b)
                                         for x, y in zip(r, q))
+    if toks["off"] != toks[EON_N]:
+        raise RuntimeError("path (iv): greedy tokens with EPLB on differ "
+                           "from EPLB off")
+    out["equal_tokens_eplb_on_off"] = True
     return out
 
 
@@ -1409,9 +1475,10 @@ def eon_run(engine, prompts, tag: str) -> dict:
 
 def eon_bench(engines, prompts) -> dict:
     """Phase (iv)(b): bench_everything_on's shape through the N-round
-    engine and its yardstick, the single-round one, in alternating
-    rounds (the side that goes first alternates): a warm-up run each,
-    then ``SPEC_ROUNDS`` timed runs each.  Per side: the spread of
+    engine and its yardsticks, the single-round one and the N-round one
+    with EPLB off, in alternating rounds (the order of the sides
+    reverses every round): a warm-up run each, then ``SPEC_ROUNDS``
+    timed runs each.  Per side: the spread of
     accepted decode tok/s, acceptance and steps per dispatch, and
     whether the N-round side is resolved above the other (every run
     above every run).  Then the coins of the first timed run's steps
@@ -1424,7 +1491,8 @@ def eon_bench(engines, prompts) -> dict:
     for rep in range(1 + SPEC_ROUNDS):
         for N in (order if rep % 2 == 0 else order[::-1]):
             run = eon_run(engines[N], prompts, f"eon{N}r{rep}")
-            log(f"everything-on N={N} run {rep}: {json.dumps(run)}")
+            log(f"everything-on {side_label(N)} run {rep}: "
+                f"{json.dumps(run)}")
             if rep:
                 runs[N].append(run)
     S = SPEC_WAVE["n"]
@@ -1458,15 +1526,20 @@ def eon_bench(engines, prompts) -> dict:
         fed += 1
     out = {}
     for N, rs in runs.items():
-        out[f"N={N}"] = dict(
+        out[side_label(N)] = dict(
             runs=rs, decode_tok_s=spread([r["decode_tok_s"] for r in rs]),
             acceptance=spread([r["acceptance"] for r in rs]),
             steps_per_dispatch=spread([r["steps_per_dispatch"] for r in rs]))
-    a, b = (out[f"N={N}"]["decode_tok_s"] for N in order)
+    a, b, off = (out[side_label(N)]["decode_tok_s"]
+                 for N in (EON_N, 1, "off"))
     return dict(out, requests=S, prompt=SPEC_WAVE["prompt"],
                 new=SPEC_WAVE["new"], spec_k=SPEC_K,
                 fixed_accept=SPEC_ACCEPT, rounds_per_dispatch=order[0],
                 resolved_above_single_round=a["min"] > b["max"],
+                # EPLB's collection cost at N = EON_N, written down (the
+                # on side below every off run, or above every one).
+                eplb_on_resolved_below_off=a["max"] < off["min"],
+                eplb_on_resolved_above_off=a["min"] > off["max"],
                 coin_steps_bit_equal=coin_steps,
                 graph_coin_inputs_checked=fed, leak_free=True)
 
@@ -1522,6 +1595,327 @@ def profile_eon(engine, prompts) -> dict:
                engine_steps=engine._step_count - s0)
     while engine.has_work():
         engine.step()
+    return out
+
+
+# Path (vi): bench_eplb_skew (bench.py:542-600) on path (i)'s weights,
+# the EPLB controller at ep = 4 on the same weights, the attribution sweep
+# (bench.py --stub, :1096-1110) and the pool-sizing check.
+EPLB_SKEW_CONFIG = {"window_size": 512, "step_interval": 32}
+EPLB_ZIPF = 1.2                              # EPLB_BENCH_ZIPF
+EPLB_RUNS = 2                                # timed runs after a warm-up
+CTRL_EP = 4
+CTRL_TS = (16, 256, 2048)                    # kernels C, D, E
+STUB_COMPONENTS = ("attn", "moe_ffn", "shared_expert")
+ATTR_SIZES = (64, 256)
+ATTR_PROMPT = ATTR_DECODE = 128
+SIZING_BUDGET = 4 << 30
+
+
+def path_vi_engine(params, draft_params):
+    """deepseek-v3-bench as bench.py's bench_eplb_skew configures it
+    (bench.py:568-585), on ``params`` and ``draft_params``: int8 experts
+    and latent, block size 64, 8192-token steps, ``SPEC_WAVE["n"]``
+    sequences, one scheduler step (every step one fused round, one graph
+    replay), ``SPEC_K`` drafts at ``SPEC_ACCEPT``, EPLB with a 512-step
+    window and a 32-step interval, prefix caching off, and
+    ``n x ceil((128 + 128 + K + 2) / 64) + 64`` = 1344 blocks."""
+    from llm_d_tpu_torch.engine import EngineConfig, EngineCore
+    bs = 64
+    per_seq = -(-(SPEC_WAVE["prompt"] + SPEC_WAVE["new"] + SPEC_K + 2) // bs)
+    return EngineCore(EngineConfig(
+        model="deepseek-v3-bench", quantization="int8",
+        kv_cache_dtype="int8", block_size=bs,
+        num_blocks=SPEC_WAVE["n"] * per_seq + bs,
+        max_num_seqs=SPEC_WAVE["n"], max_num_batched_tokens=BENCH_T,
+        num_scheduler_steps=1, enable_eplb=True,
+        eplb_config=dict(EPLB_SKEW_CONFIG), enable_prefix_caching=False,
+        spec_k=SPEC_K, spec_fixed_accept=SPEC_ACCEPT, device="cuda", seed=0),
+        params=params, draft_params=draft_params)
+
+
+def zipf_probs(E: int):
+    import numpy as np
+    p = np.arange(1, E + 1, dtype=np.float64) ** -EPLB_ZIPF
+    return p / p.sum()
+
+
+def eplb_skew(engine, prompts) -> dict:
+    """Path (vi): bench_eplb_skew's runs.  Before each run a Zipf(1.2)
+    trace (``RandomState(1234)``, ``[n_layers, 4096, 2]``) is recorded into
+    the tracker, dominating its window; then ``SPEC_WAVE`` at
+    ``SPEC_ACCEPT`` (``eon_run``: accepted decode tok/s, every request
+    ending by length, the pool whole).  A warm-up and ``EPLB_RUNS`` timed
+    runs.  With one card every plan aligns to the identity: migrations
+    must be 0."""
+    import numpy as np
+    eplb = engine.eplb
+    routed = count_routed(engine)
+    p = zipf_probs(eplb.E)
+    rng = np.random.RandomState(1234)
+    runs, migrations = [], 0
+    for rep in range(EPLB_RUNS + 1):
+        eplb.tracker.record(rng.choice(eplb.E, size=(eplb.n_layers, 4096, 2),
+                                       p=p))
+        before = eplb.num_rebalances
+        run = eon_run(engine, prompts, f"skew{rep}")
+        run["imbalance"] = eplb.tracker.imbalance()
+        log(f"eplb skew run {rep}: {json.dumps(run)}")
+        if rep:
+            runs.append(run)
+            migrations += eplb.num_rebalances - before
+    if migrations or eplb.num_rebalances:
+        raise RuntimeError(f"path (vi): {eplb.num_rebalances} migrations "
+                           f"at ep = {eplb.ep}")
+    return dict(runs=runs,
+                decode_tok_s=spread([r["decode_tok_s"] for r in runs]),
+                zipf_skew=EPLB_ZIPF, spec_k=SPEC_K, fixed_accept=SPEC_ACCEPT,
+                eplb_config=EPLB_SKEW_CONFIG, ep=eplb.ep,
+                migrations=migrations,
+                migrated_mb=eplb.migrated_bytes / 1e6,
+                flip_stall_ms=eplb.last_flip_stall_s * 1e3,
+                num_suppressed=eplb.num_suppressed,
+                imbalance=eplb.tracker.imbalance(),
+                routed_ids_recorded=routed[0])
+
+
+def controller_phase(params, mc) -> dict:
+    """The EPLB controller at ep = ``CTRL_EP`` on path (i)'s int8 expert
+    weights (all MoE layers), on this one card: ``install`` gathers the
+    physical table (P = E + r slots); a per-layer Zipf trace plans a
+    migration; ``on_step`` ticks stage it on the controller's side stream
+    (device time by events on that stream, host time per tick) until the
+    flip.  Then the serving tensors kept their ``data_ptr()``, each
+    physical ``_q``/``_s`` plane equals the logical one gathered by its
+    layer's final plan bit for bit, the tables are the plans', and kernels
+    C, D and E through ``to_physical_experts`` with the new tables give
+    the logical-id launch's output on the same inputs (max error / max
+    |output| <= 1e-2; whether bit-equal is reported)."""
+    import numpy as np
+    import torch
+    from llm_d_tpu_torch.ops import moe as moe_ops
+    from llm_d_tpu_torch.parallel.eplb import (EplbConfig, EplbController,
+                                               _expert_major_keys)
+    dev = torch.device("cuda")
+    E, k = mc.num_experts, mc.num_experts_per_tok
+    ctrl = EplbController(E, CTRL_EP, EplbConfig.from_dict(
+        dict(EPLB_SKEW_CONFIG, imbalance_threshold=1.0)))
+    logical = params["moe_layers"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    phys = ctrl.install(params)
+    torch.cuda.synchronize()
+    install_s = time.perf_counter() - t0
+    ml = phys["moe_layers"]
+    names = _expert_major_keys(ml)
+    ptrs = {n: t.data_ptr() for n, t in ml.items()}
+    Lm = ctrl.n_layers
+    rng = np.random.RandomState(1234)
+    p = zipf_probs(E)
+    trace = np.stack([rng.choice(E, size=(4096, k), p=rng.permutation(p))
+                      for _ in range(Lm)])
+    ctrl._side = torch.cuda.Stream(dev)
+    events, host_ms = [], []
+    real_stage = ctrl._stage
+
+    def stage(batch, params_):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record(ctrl._side)
+        t = time.perf_counter()
+        n = real_stage(batch, params_)
+        host_ms.append((time.perf_counter() - t) * 1e3)
+        b.record(ctrl._side)
+        events.append((a, b))
+        return n
+
+    ctrl._stage = stage
+    step = EPLB_SKEW_CONFIG["step_interval"]
+    ctrl.on_step(trace, step, phys)
+    if not ctrl.migrating:
+        raise RuntimeError("controller phase: the skewed trace planned no "
+                           "migration")
+    total = ctrl._migration.total_moves
+    ticks, deferred = 1, 0
+    t0 = time.perf_counter()
+    while ctrl.migrating and time.perf_counter() - t0 < 60:
+        step += 1
+        if not ctrl._migration.moves:
+            deferred += 1
+        ctrl.on_step(None, step, phys)
+        ticks += 1
+    if ctrl.migrating:
+        raise RuntimeError("controller phase: the migration never flipped")
+    torch.cuda.synchronize()
+    out = dict(ep=CTRL_EP, experts=E, physical=ml["w_gate_q"].shape[1],
+               layers=Lm, moves=total, ticks=ticks, deferred_ticks=deferred,
+               move_budget=ctrl.move_budget, install_s=install_s,
+               stage_device_ms=sum(a.elapsed_time(b) for a, b in events),
+               stage_host_ms=sum(host_ms),
+               flip_host_ms=ctrl.last_flip_stall_s * 1e3,
+               migrated_bytes=ctrl.migrated_bytes,
+               replicas_max=int(max(pl.num_replicas.max()
+                                    for pl in ctrl.plans)))
+    if {n: t.data_ptr() for n, t in ml.items()} != ptrs:
+        raise RuntimeError("controller phase: a serving tensor moved")
+    for li, plan in enumerate(ctrl.plans):
+        p2l = torch.as_tensor(plan.phys_to_logical, device=dev).long()
+        for n in names:
+            if not torch.equal(ml[n][li], logical[n][li].index_select(0, p2l)):
+                raise RuntimeError(f"controller phase: {n} layer {li} is "
+                                   f"not the logical weights by its plan")
+    rt, nr = ctrl._stacked_tables(Lm)
+    if not (torch.equal(ml["replica_table"].cpu(), torch.from_numpy(rt))
+            and torch.equal(ml["num_replicas"].cpu(), torch.from_numpy(nr))):
+        raise RuntimeError("controller phase: tables differ from the plans")
+    out.update(weights_bit_equal=True, data_ptr_stable=True)
+    li = int(np.argmax([pl.num_replicas.max() for pl in ctrl.plans]))
+    qk = ("w_gate_q", "w_gate_s", "w_up_q", "w_up_s", "w_down_q", "w_down_s")
+    kernels = []
+    for T, glue in zip(CTRL_TS, (moe_ops._dense_int8_kernel_path,
+                                 moe_ops._routed_int8_kernel_path,
+                                 moe_ops._streamed_int8_kernel_path)):
+        x, w, idx = moe_inputs(mc, T, seed=100 + T)
+        want = glue(x, w, idx, dict({n: logical[n] for n in qk}, layer=li))
+        idx_p = moe_ops.to_physical_experts(
+            idx, ml["replica_table"][li], ml["num_replicas"][li], phase=li)
+        got = glue(x, w, idx_p, dict({n: ml[n] for n in qk}, layer=li))
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.abs().max()) + 1e-9
+        kernels.append(dict(T=T, glue=glue.__name__, max_abs_err=err,
+                            scale=scale, bit_equal=torch.equal(got, want),
+                            replicated_ids=int((idx_p != idx).sum())))
+        if err / scale > 1e-2:
+            raise RuntimeError(f"controller phase: T={T} through the "
+                               f"physical table: error {err} / {scale}")
+    out.update(layer=li, kernels=kernels)
+    return out
+
+
+def attribution_table(baseline: dict, stubbed: dict) -> dict:
+    """Per-component decode / prefill ms per step by difference, as
+    bench.py's ``_attribution_table`` computes it: baseline minus
+    stubbed, per phase and batch size, and the residual no stub
+    accounts for."""
+    metrics = (("decode_ms_per_step", "decode"),
+               ("prefill_ms_per_step", "prefill"))
+    components = {}
+    for stub, sweep in stubbed.items():
+        row = {}
+        for bs, base in baseline.items():
+            for key, phase in metrics:
+                row[f"{phase}_bs{bs}_ms"] = round(base[key] - sweep[bs][key], 2)
+        components[stub] = row
+    residual = {}
+    for bs, base in baseline.items():
+        for key, phase in metrics:
+            cell = f"{phase}_bs{bs}_ms"
+            residual[cell] = round(base[key] - sum(
+                c[cell] for c in components.values()), 2)
+    return {"components": components, "residual_ms": residual}
+
+
+def bench_reqs(tag: str, n: int, decode_steps: int, offset: int):
+    """bench.py's ``_make_reqs``: ``n`` greedy ``ATTR_PROMPT``-token
+    prompts, ``decode_steps + 1`` new tokens each."""
+    from llm_d_tpu_torch.engine.request import Request
+    from llm_d_tpu_torch.ops.sampling import SamplingParams
+    return [Request(f"{tag}-{i}", [(7 * i + 13 * j + offset) % 32000 + 1
+                                   for j in range(ATTR_PROMPT)],
+                    SamplingParams(temperature=0.0,
+                                   max_tokens=decode_steps + 1,
+                                   ignore_eos=True)) for i in range(n)]
+
+
+def bench_workload(engine, reqs):
+    """bench.py's ``_run_workload``: (prefill s, prefill steps, decode s,
+    decode tokens)."""
+    import torch
+    for r in reqs:
+        engine.add_request(r)
+    steps = 0
+    t0 = time.perf_counter()
+    while any(r.num_computed_tokens < r.num_prompt_tokens for r in reqs):
+        engine.step()
+        steps += 1
+    t_prefill = time.perf_counter() - t0
+    before = sum(len(r.output_token_ids) for r in reqs)
+    t1 = time.perf_counter()
+    while engine.has_work():
+        engine.step()
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t1
+    return (t_prefill, steps, t_decode,
+            sum(len(r.output_token_ids) for r in reqs) - before)
+
+
+def attribution(params) -> tuple:
+    """The attribution sweep as ``bench.py --stub`` runs it, on path (i)'s
+    weights: deepseek-v3-bench at bench_model's configuration for batch
+    sizes 64 and 256 (block 64, 32-step decode blocks, async scheduling,
+    8192-token steps, 256 sequences, 1344 blocks), once unstubbed and
+    once with each of ``attn``, ``moe_ffn`` and ``shared_expert`` (each an
+    engine of its own, capturing its own stubbed blocks).  Per batch
+    size a warm-up (the prefill and one decode block: the keys' captures)
+    and one timed run (128-token prompts, 128 decode steps): decode and
+    prefill ms per step, and the components' cost by difference.
+    Returns (the sweep, the kernels' launches, inside graph replays)."""
+    import gc
+    import torch
+    sweeps, replayed = {}, []
+    for stub in ("none",) + STUB_COMPONENTS:
+        eng = path_i_engine(params=params, max_num_seqs=max(ATTR_SIZES),
+                            num_blocks=max(ATTR_SIZES) * -(-(
+                                ATTR_PROMPT + ATTR_DECODE + BENCH_K + 1)
+                                // 64) + 64,
+                            stub_components=() if stub == "none"
+                            else (stub,))
+        sweep = {}
+        for bs in ATTR_SIZES:
+            bench_workload(eng, bench_reqs(f"aw{stub}{bs}", bs, BENCH_K,
+                                           50000 + 1000 * bs))
+            t_pre, n_pre, t_dec, toks = bench_workload(
+                eng, bench_reqs(f"ab{stub}{bs}", bs, ATTR_DECODE, 1000 * bs))
+            sweep[str(bs)] = dict(
+                decode_ms_per_step=1000 * t_dec / ATTR_DECODE,
+                prefill_ms_per_step=1000 * t_pre / max(n_pre, 1),
+                prefill_steps=n_pre, decode_tok_s=toks / t_dec,
+                prefill_tok_s=bs * ATTR_PROMPT / t_pre)
+        log(f"attribution {stub}: {json.dumps(sweep)}")
+        sweeps[stub] = sweep
+        replayed.append(dict(eng._graphs.launches))
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(sweeps=sweeps, sizes=list(ATTR_SIZES), prompt=ATTR_PROMPT,
+                decode_steps=ATTR_DECODE, table=attribution_table(
+                    sweeps["none"], {s: sweeps[s] for s in STUB_COMPONENTS})
+                ), replayed
+
+
+def sizing_check(engine, label: str) -> dict:
+    """An engine built with ``kv_cache_hbm_bytes`` = 4 GiB: its derived
+    ``num_blocks`` equals the arithmetic (budget // (layers x block x
+    (payload bytes + scale bytes) per row)), and the cache it allocated
+    equals ``num_blocks x kv_block_bytes``."""
+    from llm_d_tpu_torch.engine.engine import kv_block_bytes
+    c, cfg = engine.model_config, engine.config
+    layout = engine.model.kv_cache_layout(c)
+    row = sum(layout.values()) * (1 if engine.kv_quantized else 2) \
+        + (len(layout) * engine.kv_scale_width * 4
+           if engine.kv_quantized else 0)
+    want = max(SIZING_BUDGET // (c.num_layers * cfg.block_size * row), 2)
+    per_block = kv_block_bytes(layout, c.num_layers, cfg.block_size,
+                               engine.kv_cache_dtype, engine.kv_scale_width)
+    allocated = sum(t.numel() * t.element_size()
+                    for t in engine.kv_cache.values())
+    out = dict(label=label, budget=SIZING_BUDGET, num_blocks=cfg.num_blocks,
+               arithmetic=want, kv_block_bytes=per_block,
+               allocated=allocated)
+    if cfg.num_blocks != want or allocated != cfg.num_blocks * per_block \
+            or allocated > SIZING_BUDGET:
+        raise RuntimeError(f"pool sizing: {out}")
     return out
 
 
@@ -3107,18 +3501,35 @@ def main() -> int:
     t0 = time.perf_counter()
     eon = {EON_N: path_iv_engine(engine.params, EON_N)}
     eon[1] = path_iv_engine(engine.params, 1, eon[EON_N].draft_params)
+    # The yardstick of EPLB's collection: the N-round engine without it.
+    eon["off"] = path_iv_engine(engine.params, EON_N,
+                                eon[EON_N].draft_params, eplb=False)
     for e in eon.values():
         note_live_tokens(e)
+    routed_iv = count_routed(eon[EON_N])
     torch.cuda.synchronize()
     everything = dict(card=smi, init_s=time.perf_counter() - t0,
                       num_blocks=eon[EON_N].config.num_blocks,
-                      max_num_seqs=eon[EON_N].config.max_num_seqs,
-                      eplb="off (one device: the identity placement)")
+                      max_num_seqs=eon[EON_N].config.max_num_seqs)
     reset_counts()
     everything["greedy"] = eon_greedy(eon, p1, tok1, yardstick)
     log(f"everything-on (a) greedy: {json.dumps(everything['greedy'])}")
     everything["bench_everything_on"] = eon_bench(eon, sp)
     log(f"everything-on (b): {json.dumps(everything['bench_everything_on'])}")
+    eplb_iv = eon[EON_N].eplb
+    everything["eplb"] = dict(
+        ep=eplb_iv.ep, physical=eon[EON_N].params["moe_layers"][
+            "w_gate_q"].shape[1], imbalance=eplb_iv.tracker.imbalance(),
+        routed_ids_recorded=routed_iv[0],
+        routed_ids_in_window=float(eplb_iv.tracker.load.sum()),
+        migrations=eplb_iv.num_rebalances,
+        num_suppressed=eplb_iv.num_suppressed,
+        single_round_migrations=eon[1].eplb.num_rebalances)
+    log(f"everything-on eplb: {json.dumps(everything['eplb'])}")
+    if eplb_iv.num_rebalances or eon[1].eplb.num_rebalances \
+            or not routed_iv[0]:
+        raise RuntimeError(f"path (iv): EPLB at ep = 1 migrated or recorded "
+                           f"nothing: {everything['eplb']}")
     eon_graph = {k["name"]: sum(e._graphs.launches[k["fn"]]
                                 for e in eon.values())
                  for k in kernels if k["path"] == "i"}
@@ -3137,18 +3548,89 @@ def main() -> int:
         graph_launches[n] += eon_graph[n]
     for rec in recorders.values():
         setattr(rec.module, rec.name, rec.fn)
-    everything["graph_vs_eager"] = {f"N={N}": fused_graph_checks(e)
-                                    for N, e in eon.items()}
+    everything["graph_vs_eager"] = {side_label(N): fused_graph_checks(e)
+                                    for N, e in eon.items() if N != "off"}
     for rec in recorders.values():
         setattr(rec.module, rec.name, rec.wrapped)
-    everything["graphs"] = {f"N={N}": graph_costs(e) for N, e in eon.items()}
+    everything["graphs"] = {side_label(N): graph_costs(e)
+                            for N, e in eon.items()}
     log(f"everything-on graphs: "
         f"{json.dumps(everything['graph_vs_eager'])} "
         f"{json.dumps(everything['graphs'])}")
     if prof is not None:
         prof["everything_on"] = profile_eon(eon[EON_N], sp)
         log(f"profile everything-on: {json.dumps(prof['everything_on'])}")
-    del eon, e
+    draft_params = eon[EON_N].draft_params
+    del eon, e, eplb_iv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2e. path (vi): bench_eplb_skew; the controller at ep = 4; the
+    # attribution sweep; pool sizing ----------------------------------------
+    t0 = time.perf_counter()
+    skew_eng = path_vi_engine(engine.params, draft_params)
+    note_live_tokens(skew_eng)
+    eplb_out = dict(card=smi, init_s=time.perf_counter() - t0,
+                    num_blocks=skew_eng.config.num_blocks,
+                    max_num_seqs=skew_eng.config.max_num_seqs)
+    reset_counts()
+    eplb_out["bench_eplb_skew"] = eplb_skew(skew_eng, sp)
+    log(f"eplb (vi): {json.dumps(eplb_out['bench_eplb_skew'])}")
+    skew_graph = {k["name"]: skew_eng._graphs.launches[k["fn"]]
+                  for k in kernels if k["path"] == "i"}
+    skew_counts = {n: recorders[n].wrapped.launches + c
+                   for n, c in skew_graph.items()}
+    eplb_out.update(launches=skew_counts, graph_launches=skew_graph)
+    log(f"launches (vi): {json.dumps(skew_counts)}, inside graph replays: "
+        f"{json.dumps(skew_graph)}")
+    missing = [n for n in ("mla_prefill", "moe_streamed_int8")
+               if skew_graph[n] == 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched inside path (vi)'s "
+                           f"graphs: {missing}")
+    for n, c in skew_counts.items():
+        launches[n] += c
+        graph_launches[n] += skew_graph[n]
+    eplb_out["seconds"] = time.perf_counter() - t0
+    del skew_eng, draft_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The controller's kernel launches compare the physical table with
+    # the logical one: not a path's run, so the recorders step aside.
+    for rec in recorders.values():
+        setattr(rec.module, rec.name, rec.fn)
+    t0 = time.perf_counter()
+    eplb_out["controller"] = controller_phase(engine.params,
+                                              engine.model_config)
+    eplb_out["controller"]["seconds"] = time.perf_counter() - t0
+    for rec in recorders.values():
+        setattr(rec.module, rec.name, rec.wrapped)
+    log(f"eplb controller: {json.dumps(eplb_out['controller'])}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reset_counts()
+    attr, replayed_attr = attribution(engine.params)
+    attr_graph = {k["name"]: sum(r[k["fn"]] for r in replayed_attr)
+                  for k in kernels if k["path"] == "i"}
+    attr_counts = {n: recorders[n].wrapped.launches + c
+                   for n, c in attr_graph.items()}
+    attr.update(card=smi, launches=attr_counts, graph_launches=attr_graph,
+                seconds=time.perf_counter() - t0)
+    log(f"attribution: {json.dumps(attr['table'])}")
+    missing = [n for n in ("mla_decode", "mla_prefill", "moe_dense_int8",
+                           "moe_routed_int8", "moe_streamed_int8")
+               if attr_counts[n] == 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched by the attribution "
+                           f"sweep: {missing}")
+    for n, c in attr_counts.items():
+        launches[n] += c
+        graph_launches[n] += attr_graph[n]
+    sizing = [sizing_check(path_i_engine(
+        1, engine.params, kv_cache_hbm_bytes=SIZING_BUDGET),
+        "deepseek-v3-bench int8 latent")]
+    log(f"sizing: {json.dumps(sizing[-1])}")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3209,6 +3691,12 @@ def main() -> int:
         torch.cuda.synchronize()
         log(f"llama3-1b {tag}: init {time.perf_counter() - t0:.1f} s, "
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        sizing.append(sizing_check(path_ii_engine(
+            kv, gran, params=eng.params, kv_cache_hbm_bytes=SIZING_BUDGET),
+            f"llama3-1b {tag}"))
+        log(f"sizing: {json.dumps(sizing[-1])}")
+        gc.collect()
+        torch.cuda.empty_cache()
         pd = dense_prompts(eng.model_config.vocab_size)
         tokd, waves_ii[tag] = run_wave(eng, pd, DENSE_WAVE["new"], tag)
         log(f"llama3-1b {tag} wave: {json.dumps(waves_ii[tag])}")
@@ -3317,6 +3805,8 @@ def main() -> int:
             spec_launches=spec_counts.get(k["name"], 0),
             everything_on_launches=eon_counts.get(k["name"], 0),
             pd_launches=pd_counts.get(k["name"], 0),
+            eplb_launches=skew_counts.get(k["name"], 0),
+            attribution_launches=attr_counts.get(k["name"], 0),
             max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -3513,6 +4003,9 @@ def main() -> int:
     print(json.dumps({"spec": spec}))
     print(json.dumps({"everything_on": everything}))
     print(json.dumps({"pd": pd_out}))
+    print(json.dumps({"eplb": eplb_out}))
+    print(json.dumps({"attribution": attr}))
+    print(json.dumps({"sizing": sizing}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -231,11 +231,13 @@ dense_down_kernel(const bf16* __restrict__ act, const float* __restrict__ comb,
   const int rows = min(TM, T - t0);
   const int tid = threadIdx.x;
   const int e0 = grp * experts_per_group;
+  // The last groups are shorter (or empty) when groups do not divide E.
+  const int n_exp = max(0, min(experts_per_group, E - e0));
 
   // The group's experts with a routed token in the tile, in order.
   if (tid == 0) live_mask = 0ull;
   __syncthreads();
-  for (int i = tid; i < experts_per_group * rows; i += kThreads) {
+  for (int i = tid; i < n_exp * rows; i += kThreads) {
     const int el = i / rows, m = i % rows;
     if (comb[(long long)(t0 + m) * E + e0 + el] != 0.0f)
       atomicOr(&live_mask, 1ull << el);
@@ -243,7 +245,7 @@ dense_down_kernel(const bf16* __restrict__ act, const float* __restrict__ comb,
   __syncthreads();
   if (tid == 0) {
     int n = 0;
-    for (int el = 0; el < experts_per_group; ++el)
+    for (int el = 0; el < n_exp; ++el)
       if ((live_mask >> el) & 1ull) live[n++] = e0 + el;
     n_live = n;
   }
@@ -337,7 +339,8 @@ int launch(const void* x, const void* comb, const void* wg, const void* wu,
                           stream>>>(
       static_cast<const bf16*>(act), static_cast<const float*>(comb),
       static_cast<const int8_t*>(wd), static_cast<const float*>(ds),
-      static_cast<float*>(partial), T, E, H, I, layer, E / groups);
+      static_cast<float*>(partial), T, E, H, I, layer,
+      (E + groups - 1) / groups);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long n = (long long)T * H;
@@ -350,8 +353,9 @@ int launch(const void* x, const void* comb, const void* wg, const void* wu,
 
 // x [T, H] bf16, comb [T, E] f32, stacked weights [Lm, E, ...] int8 with
 // f32 scales, act scratch [E, T, I] bf16, partial scratch [groups, T, H]
-// f32, out [T, H] f32.  tm is the token tile (16, 32 or 64); E / groups
-// <= 64, H % 128 == 0, I % 128 == 0.
+// f32, out [T, H] f32.  tm is the token tile (16, 32 or 64); groups of
+// ceil(E / groups) <= 64 experts (the last ones shorter), H % 128 == 0,
+// I % 128 == 0.
 LLMD_EXPORT int llmd_moe_dense_int8(const void* x, const void* comb,
                                     const void* wg, const void* wu,
                                     const void* wd, const void* gs,

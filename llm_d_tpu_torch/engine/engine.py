@@ -49,9 +49,23 @@ on the card ``chip_smoke.py`` path (v) serves ``deepseek-v3-bench``
 disaggregated (two engines over the native transport), through the tier,
 and as a pair of server processes.
 
-Not ported yet (later slices): EPLB, ``stub_components`` and the
-engine's phase spans (``utils/tracing.py`` is here for the connector's
-and the tier's spans).
+EPLB (``enable_eplb``, ``eplb_config``), as the JAX engine runs it on
+one device: the ``parallel/eplb.EplbController`` (ep = 1) installs the
+physical expert table into ``params["moe_layers"]``, and every retire
+point (the classic step, a decode block, a fused round or an N-round
+dispatch) hands it the routed logical ids of the real tokens (pad rows,
+rejected drafts and rounds past a stop dropped, with the JAX engine's
+masks).  The ids ride the step's one batched host fetch: a decode block
+and a fused dispatch write them into a static output of their graph.
+A migration's flip writes the serving tensors in place, so captured
+graphs stay valid.  ``stub_components`` drops components from every
+step body for the attribution sweep; ``kv_cache_hbm_bytes`` sizes the
+block pool from a memory budget; ``spec_strict`` refuses to start where
+a feature would be demoted at startup.
+
+Not ported yet (later slices): the engine's phase spans
+(``utils/tracing.py`` is here for the connector's and the tier's spans)
+and the multi-device fields (mesh, DBO).
 """
 
 from __future__ import annotations
@@ -110,13 +124,21 @@ def kv_bytes_per_token(layout: Dict[str, int], kv_cache_dtype: str = "bf16",
     return per
 
 
+def kv_block_bytes(layout: Dict[str, int], num_layers: int, block_size: int,
+                   kv_cache_dtype: str = "bf16", scale_width: int = 1) -> int:
+    """Device bytes one KV block costs across all layers and cache
+    buffers, scale planes included."""
+    return num_layers * block_size * kv_bytes_per_token(
+        layout, kv_cache_dtype, scale_width)
+
+
 def derive_num_blocks(hbm_budget_bytes: int, layout: Dict[str, int],
                       num_layers: int, block_size: int,
                       kv_cache_dtype: str = "bf16",
                       scale_width: int = 1) -> int:
     """How many paged-KV blocks fit a device-memory budget."""
-    per_block = num_layers * block_size * kv_bytes_per_token(
-        layout, kv_cache_dtype, scale_width)
+    per_block = kv_block_bytes(layout, num_layers, block_size,
+                               kv_cache_dtype, scale_width)
     return max(hbm_budget_bytes // per_block, 2)
 
 
@@ -142,6 +164,12 @@ class EngineConfig:
     # before retiring it, so the host's token processing overlaps the
     # device.  New arrivals drain the pipeline.
     async_scheduling: bool = False
+    # EPLB (MoE models): redundant-expert load balancing (reference:
+    # --enable-eplb --eplb-config, decode.yaml:79,100-104).  On one
+    # device the placement stays the identity; the routed ids are
+    # collected and the imbalance published.
+    enable_eplb: bool = False
+    eplb_config: Optional[Dict[str, Any]] = None
     # MoE expert-weight quantization: "int8" or None.
     quantization: Optional[str] = None
     # Paged-KV cache dtype: "bf16" or "int8".  None resolves
@@ -154,6 +182,13 @@ class EngineConfig:
     # MLA latent dtype gate: "auto" follows kv_cache_dtype; "bf16"/"int8"
     # pin it.  None resolves LLMD_MLA_LATENT_DTYPE (default auto).
     mla_latent_dtype: Optional[str] = None
+    # Size the block pool from a device-memory budget instead of
+    # num_blocks (dtype-aware: an int8 cache fits ~2x the blocks).
+    kv_cache_hbm_bytes: Optional[int] = None
+    # Attribution harness only: components dropped from every step body
+    # ("attn", "moe_ffn", "shared_expert"), so their cost is measured by
+    # difference.  Changes the output.
+    stub_components: Tuple[str, ...] = ()
     # None = the first CUDA device (raises without one); "cpu" must be
     # asked for explicitly.
     device: Optional[str] = None
@@ -167,6 +202,10 @@ class EngineConfig:
     # instead of verifying it (changes the output).  Read every step, so
     # a bench may switch it between waves (``set_spec_fixed_accept``).
     spec_fixed_accept: Optional[float] = None
+    # Strict composition (--spec-strict): a feature that would be demoted
+    # at startup refuses to start instead.  None resolves
+    # LLMD_SPEC_STRICT (default 0).
+    spec_strict: Optional[bool] = None
     # Tiered prefix cache: host-RAM blocks surviving device eviction
     # (reference: tiered-prefix-cache/cpu, OffloadingConnector role).
     kv_offload_blocks: int = 0            # 0 = off
@@ -224,6 +263,18 @@ class EngineCore:
             self.kv_scale_width = 1
         else:
             self.kv_scale_width = kv_scale_width(c.num_kv_heads, gran)
+        if config.kv_cache_hbm_bytes:
+            # Dtype-aware pool sizing: the same budget holds ~2x the int8
+            # blocks.
+            derived = derive_num_blocks(
+                config.kv_cache_hbm_bytes, self.model.kv_cache_layout(c),
+                c.num_layers, config.block_size, self.kv_cache_dtype,
+                self.kv_scale_width)
+            logger.info("kv pool auto-sized: %d blocks (%s, %.2f GiB "
+                        "budget)", derived, self.kv_cache_dtype,
+                        config.kv_cache_hbm_bytes / 2**30)
+            config = dataclasses.replace(config, num_blocks=derived)
+            self.config = config
 
         if config.quantization == "int8" and not c.is_moe:
             # Serving bf16 weights while the operator believes the
@@ -272,6 +323,15 @@ class EngineCore:
                 and "w_gate_q" not in params.get("moe_layers", {}):
             params = quantize_moe_experts(params)
         self.params = params
+        # EPLB on the engine's one device (ep = 1): the physical expert
+        # table replaces the logical weights (copies the controller owns).
+        self.eplb = None
+        if config.enable_eplb and c.is_moe:
+            from llm_d_tpu_torch.parallel.eplb import (EplbConfig,
+                                                       EplbController)
+            self.eplb = EplbController(
+                c.num_experts, 1, EplbConfig.from_dict(config.eplb_config))
+            self.params = self.eplb.install(self.params)
 
         num_slots = config.num_blocks * config.block_size
         layout = self.model.kv_cache_layout(c)
@@ -299,6 +359,8 @@ class EngineCore:
         self._inflight: Optional[Dict[str, Any]] = None
         self._rejected: List[RequestOutput] = []
         self.metrics = EngineMetrics(c.name)
+        if self.eplb is not None:
+            self.eplb.metrics = self.metrics
         # PD producer: finished prefills whose blocks stay pinned until the
         # consumer pulls them (reference contract: README.tpu.md:182-189);
         # a stalled-request abort must wait for them.
@@ -328,7 +390,14 @@ class EngineCore:
         self.spec_k = 0
         self.draft_params = None
         self.spec_tracker: Optional[SpecAcceptanceTracker] = None
-        if spec_mode != "off" and spec_k > 0:
+        self.spec_strict = (bool(config.spec_strict)
+                            if config.spec_strict is not None
+                            else env_int("LLMD_SPEC_STRICT", 0) != 0)
+        blockers = (self._spec_blockers()
+                    if spec_mode != "off" and spec_k > 0 else [])
+        for blocker in blockers:
+            self._disable_feature("spec_decode", blocker, startup=True)
+        if spec_mode != "off" and spec_k > 0 and not blockers:
             self.spec_k = int(spec_k)
             if draft_params is None:
                 draft_gen = torch.Generator(device=self.device)
@@ -380,6 +449,32 @@ class EngineCore:
                 f"{DENSE_DISPATCH_MAX_T}"
                 + ("" if self.spec_k else " or max_num_seqs <= "
                    f"{DENSE_DISPATCH_MAX_T}"))
+
+    def _moe_opts(self) -> Optional[Dict[str, Any]]:
+        """MoE forward knobs every step body passes: the attribution stubs
+        (None on a dense model, and when nothing is stubbed)."""
+        if not self.model_config.is_moe or not self.config.stub_components:
+            return None
+        return dict(stub_components=tuple(self.config.stub_components))
+
+    def _forward(self, batch: Dict[str, torch.Tensor]
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The model forward of a step body: (hidden states of the
+        sampling rows, routed logical expert ids ``[Lm, T, k]`` when EPLB
+        collects them, else None)."""
+        c, cfg = self.model_config, self.config
+        args = (self.params, self.kv_cache, batch, c, cfg.block_size,
+                cfg.attn_backend)
+        opts = self._moe_opts()
+        kw = {} if opts is None else dict(moe_opts=opts)
+        if self.eplb is None:
+            return self.model.forward(*args, **kw), None
+        return self.model.forward(*args, collect_routed=True, **kw)
+
+    def _routed_shape(self, T: int) -> Tuple[int, int, int]:
+        c = self.model_config
+        return (c.num_layers - c.first_dense_layers, T,
+                c.num_experts_per_tok)
 
     # ---------- public API ----------
 
@@ -440,10 +535,24 @@ class EngineCore:
 
     # ---------- feature composition and chunk budgeting ----------
 
-    def _disable_feature(self, feature: str, blocker: str) -> None:
+    def _spec_blockers(self) -> List[str]:
+        """Startup conditions that would force spec decode off: none, as
+        in the JAX engine (spec composes with multistep, async
+        scheduling and EPLB).  The one place a future incompatibility is
+        declared, so ``_disable_feature`` governs it."""
+        return []
+
+    def _disable_feature(self, feature: str, blocker: str,
+                         startup: bool = False) -> None:
         """Count a feature demotion (``engine_feature_disabled_total``)
-        and log it once."""
+        and log it once; a STARTUP demotion under ``spec_strict`` refuses
+        to start instead."""
         self.metrics.inc_feature_disabled(feature, blocker)
+        if startup and self.spec_strict:
+            raise ValueError(
+                f"{feature} requested but unavailable ({blocker}) and "
+                f"LLMD_SPEC_STRICT/--spec-strict is set: refusing to "
+                f"start with a silently degraded config")
         if (feature, blocker) not in self._disabled_seen:
             self._disabled_seen.add((feature, blocker))
             logger.warning("%s demoted: %s", feature, blocker)
@@ -553,7 +662,8 @@ class EngineCore:
     # ---------- multistep decode ----------
 
     def _ms_body(self, mb: Dict[str, torch.Tensor], keys: torch.Tensor,
-                 ids: torch.Tensor, random_rows: bool) -> None:
+                 ids: torch.Tensor, random_rows: bool,
+                 routed: Optional[torch.Tensor] = None) -> None:
         """``ids.shape[0]`` decode iterations of the block ``mb`` (the
         JAX engine's ``_build_multistep_fn`` body), sampled ids fed to
         the next iteration on the device; iteration ``it`` draws with
@@ -567,7 +677,10 @@ class EngineCore:
         where the JAX block runs T == S) with the classic step's pad
         tokens, so a decode row meets the same matrix shapes whichever
         path serves it: cuBLAS picks its GEMM by the row count, and an
-        8-row product rounds otherwise than a 16-row one."""
+        8-row product rounds otherwise than a 16-row one.
+
+        Under EPLB iteration ``it`` writes its routed logical ids to
+        ``routed[it]`` (``[Lm, T, k]``)."""
         c, cfg = self.model_config, self.config
         bs = cfg.block_size
         bt = mb["block_tables"]
@@ -595,8 +708,9 @@ class EngineCore:
                 block_tables=bt,
                 seq_lens=torch.where(active, pos0 + 1, 0),
                 sample_idx=seq_ids, qtok_idx=seq_ids[:, None])
-            hidden = self.model.forward(self.params, self.kv_cache, batch, c,
-                                        bs, self.config.attn_backend)
+            hidden, r = self._forward(batch)
+            if routed is not None:
+                routed[it] = r
             logits = self.model.compute_logits(self.params, hidden, c)
             tok = sampling_ops.sample(
                 logits, mb["temperature"], mb["top_k"], mb["top_p"],
@@ -618,7 +732,12 @@ class EngineCore:
             active=z(S, torch.bool), temperature=z(S, torch.float32),
             top_k=z(S, i32), top_p=z(S, torch.float32), seeds=z(S, i32),
             gen0=z(S, i32), keys=z((K, 2), torch.int64))
-        return inputs, dict(ids=z((K, S), i32))
+        outputs = dict(ids=z((K, S), i32))
+        if self.eplb is not None:
+            T = _next_bucket(S, self.config.min_token_bucket,
+                             self.config.max_num_batched_tokens)
+            outputs["routed"] = z((K,) + self._routed_shape(T), i32)
+        return inputs, outputs
 
     def _try_multistep(self, sched: SchedulerOutput) -> Optional[int]:
         """If this is a pure-decode round eligible for multistep,
@@ -707,24 +826,29 @@ class EngineCore:
         if self._graphs is None:
             mb = {k: torch.as_tensor(v, device=self.device)
                   for k, v in meta.items()}
-            ids = torch.empty((K, S), dtype=torch.int32, device=self.device)
+            _, out = self._ms_static(S, K)
+            ids, routed = out["ids"], out.get("routed")
             self._ms_body(mb, torch.as_tensor(keys, device=self.device),
-                          ids, random_rows)
+                          ids, random_rows,
+                          **({} if routed is None else dict(routed=routed)))
             # Eager on a card only when its graphs are set aside (a
             # smoke's witness run): the host copy waits for the block.
-            rec.update(ids_dev=ids, ids_host=ids.cpu(), done=None)
+            rec.update(ids_dev=ids, ids_host=ids.cpu(), done=None,
+                       routed_host=None if routed is None else routed.cpu())
         else:
             g = self._graphs.block((S, random_rows),
                                    lambda: self._ms_static(S, K))
             self._graphs.load(g, dict(meta, keys=keys))
+            routed = g.outputs.get("routed")
             if g.graph is None:
                 self._graphs.capture(
                     g, lambda n: self._ms_body(
                         g.inputs, g.inputs["keys"][:n], g.outputs["ids"][:n],
-                        random_rows), K)
+                        random_rows, **({} if routed is None
+                                        else dict(routed=routed[:n]))), K)
             host, done = self._graphs.replay(g)
             rec.update(ids_dev=g.outputs["ids"], ids_host=host["ids"],
-                       done=done)
+                       done=done, routed_host=host.get("routed"))
         self._dispatch_count += 1
         self.metrics.engine_dispatches.inc()
         return rec
@@ -738,6 +862,14 @@ class EngineCore:
         ids_ks = inflight["ids_host"].numpy()
         self._step_count += K
         self.metrics.engine_steps.inc(K)
+        if self.eplb is not None:
+            # The block's real rows only, [K, Lm, T, k] -> the
+            # layer-leading [Lm, K*S, k] the tracker takes.
+            routed = inflight["routed_host"].numpy()[:, :, inflight["rows"]]
+            routed = np.moveaxis(routed, 1, 0)
+            self.params = self.eplb.on_step(
+                routed.reshape(routed.shape[0], -1, routed.shape[-1]),
+                self._step_count, self.params)
         outputs: List[RequestOutput] = []
         now = time.monotonic()
         for s, sr in zip(inflight["rows"], scheduled):
@@ -879,7 +1011,8 @@ class EngineCore:
     def _fused_body(self, batch: Dict[str, torch.Tensor],
                     verify: Dict[str, torch.Tensor], key: prng.Key,
                     want_lp: bool, want_top: bool,
-                    random_rows: bool) -> List[torch.Tensor]:
+                    random_rows: bool
+                    ) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
         """The fused mixed round as a function of tensors (the JAX
         engine's ``fused_fn``): forward over the ragged batch, logits of
         every verify position, ``spec_verify``, the hidden state gathered
@@ -889,12 +1022,11 @@ class EngineCore:
         parameters, ``gen0``, ``draft_tokens``, ``spec_n``, the round's
         acceptance ``coin [S, K]`` and the ``rate`` (negative: verify).
         Returns ``[ids [S, K+1], accepted [S], drafts [S, K]]`` (+ ``lp
-        [S, K+1]``, + top-20 ids and logprobs ``[S, K+1, 20]``), all
+        [S, K+1]``, + top-20 ids and logprobs ``[S, K+1, 20]``) and the
+        routed logical ids ``[Lm, T, k]`` under EPLB (else None), all
         still on the device."""
         c, K = self.model_config, self.spec_k
-        hidden = self.model.forward(
-            self.params, self.kv_cache, batch, c, self.config.block_size,
-            self.config.attn_backend)                    # [S*(K+1), D]
+        hidden, routed = self._forward(batch)            # [S*(K+1), D]
         logits = self.model.compute_logits(self.params, hidden, c)
         ids, accepted = sampling_ops.spec_verify(
             logits, verify["draft_tokens"], verify["spec_n"],
@@ -913,7 +1045,7 @@ class EngineCore:
             out.extend(sampling_ops.verify_logprobs(logits, ids, top_n=20))
         elif want_lp:
             out.append(sampling_ops.verify_logprobs(logits, ids))
-        return out
+        return out, routed
 
     # ---------- the fused multistep pipeline ----------
 
@@ -963,7 +1095,8 @@ class EngineCore:
         ``last``, ``drafts``, ``gen0``) stays on the device between
         rounds.  Round ``r`` samples with key ``inp["keys"][r]`` and
         accepts by ``inp["coin"][r]`` against ``inp["rate"]``; it writes
-        ``out["ids"][r]``, ``out["accepted"][r]`` (and the logprobs), and
+        ``out["ids"][r]``, ``out["accepted"][r]`` (and the logprobs, and
+        under EPLB the round's routed ids ``out["routed"][r]``), and
         the final carry lands in ``out``'s carry tensors (the inputs are
         left as they were).  Rows are flat ``[S]``: the port has one
         device, so the JAX program's stacked ``[dp, S_l]`` rows do not
@@ -977,11 +1110,13 @@ class EngineCore:
         for r in range(n):
             is_dec, comp = inp["is_dec"][r], inp["completing"][r]
             batch = self._fms_round_batch(inp, r, pos, last, drafts)
-            res = self._fused_body(
+            res, routed = self._fused_body(
                 batch, dict(params, gen0=gen0, draft_tokens=drafts,
                             spec_n=inp["spec_n"][r], coin=inp["coin"][r],
                             rate=inp["rate"]),
                 (keys[r, 0], keys[r, 1]), want_lp, want_top, random_rows)
+            if routed is not None:
+                out["routed"][r] = routed
             ids, accepted, new_drafts = res[:3]
             accepted = accepted.to(torch.int32)
             # Row state: a decode row advances by its accepted prefix and
@@ -1007,9 +1142,10 @@ class EngineCore:
                         ("gen0", gen0)):
             out[name].copy_(t)
 
-    def _fms_outputs(self, S: int, N: int, want_lp: bool,
+    def _fms_outputs(self, S: int, T: int, N: int, want_lp: bool,
                      want_top: bool) -> Dict[str, torch.Tensor]:
-        """The output tensors of an N-round dispatch over ``S`` rows."""
+        """The output tensors of an N-round dispatch over ``S`` rows and
+        ``T`` token slots."""
         Qv = self.spec_k + 1
 
         def z(shape, dtype=torch.int32):
@@ -1021,6 +1157,8 @@ class EngineCore:
         if want_top:
             out["top_ids"] = z((N, S, Qv, 20))
             out["top_lps"] = z((N, S, Qv, 20), torch.float32)
+        if self.eplb is not None:
+            out["routed"] = z((N,) + self._routed_shape(T))
         return out
 
     def _fms_plan(self, sched: SchedulerOutput,
@@ -1144,9 +1282,11 @@ class EngineCore:
                      drafts=np.zeros((S, K), np.int32),
                      gen0=np.zeros(S, np.int32))
         t = 0
+        offs = np.zeros(len(specs), np.int64)
         for i, sp_ in enumerate(specs):
             if not sp_["active"]:
                 continue
+            offs[i] = t
             req, stride = sp_["req"], sp_["stride"]
             sampling = req.sampling
             sb["temperature"][i] = sampling.temperature
@@ -1193,7 +1333,7 @@ class EngineCore:
             t += stride
         return dict(
             kind="fms", N=N, S=S, T=T, Q=Q, step_base=step_base,
-            specs=specs, sbatch=sb, xs=x, carry=carry,
+            specs=specs, offs=offs, sbatch=sb, xs=x, carry=carry,
             covers={sp_["req"].request_id: sp_["cover"] for sp_ in live})
 
     def _fms_coins(self, plan: Dict[str, Any]
@@ -1242,7 +1382,7 @@ class EngineCore:
         if self._graphs is None:
             inp = {k: torch.as_tensor(v, device=self.device)
                    for k, v in values.items()}
-            out = self._fms_outputs(S, N, want_lp, want_top)
+            out = self._fms_outputs(S, plan["T"], N, want_lp, want_top)
             self._fms_body(inp, out, N, want_lp, want_top, random_rows)
             rec.update(out_dev=out, done=None,
                        out_host={k: v.cpu() for k, v in out.items()})
@@ -1253,7 +1393,7 @@ class EngineCore:
             g = self._graphs.block(key, lambda: (
                 {k: torch.empty_like(torch.as_tensor(v), device=self.device)
                  for k, v in values.items()},
-                self._fms_outputs(S, N, want_lp, want_top)))
+                self._fms_outputs(S, plan["T"], N, want_lp, want_top)))
             self._graphs.load(g, values)
             if g.graph is None:
                 self._graphs.capture(
@@ -1293,10 +1433,14 @@ class EngineCore:
         outputs: List[RequestOutput] = []
         now = time.monotonic()
         pre_toks = dec_toks = 0
+        # EPLB: the token slots whose routing counts, round by round.
+        valid = (np.zeros((N, plan["T"]), bool)
+                 if self.eplb is not None else None)
         for s, sp_ in enumerate(plan["specs"]):
             if not sp_["active"]:
                 continue
             req = sp_["req"]
+            off = int(plan["offs"][s])
             pre_toks += sum(v for k, v in sp_["rounds"] if k == "chunk")
             dec_toks += sum(v + 1 for k, v in sp_["rounds"] if k == "dec")
             if req.state is not RequestState.RUNNING:
@@ -1310,6 +1454,8 @@ class EngineCore:
                     break
                 if kind == "chunk":
                     req.num_computed_tokens += val
+                    if valid is not None:
+                        valid[rno, off:off + val] = True
                     if req.num_computed_tokens != req.num_tokens:
                         continue          # mid-prompt round
                     if req.num_computed_tokens <= req.num_prompt_tokens:
@@ -1328,6 +1474,11 @@ class EngineCore:
                     finish = self._check_stop(req, token)
                     continue
                 a = min(int(acc[rno, s]), val)
+                if valid is not None:
+                    # The accepted prefix and the bonus slot: rejected
+                    # drafts' routing must not skew the balance stats,
+                    # as their KV is trimmed.
+                    valid[rno, off:off + a + 1] = True
                 req.spec_drafted += val
                 req.spec_accepted += a
                 if val:
@@ -1385,6 +1536,11 @@ class EngineCore:
                 keep = max(keep, successor["plan"]["covers"].get(
                     req.request_id, keep))
             self.kv_manager.trim_request(req, keep)
+        if valid is not None:
+            routed = h["routed"]                         # [N, Lm, T, k]
+            self.params = self.eplb.on_step(np.concatenate(
+                [routed[rno][:, np.flatnonzero(valid[rno]), :]
+                 for rno in range(N)], axis=1), self._step_count, self.params)
         if pre_toks:
             self.metrics.step_prefill_tokens.inc(pre_toks)
         if dec_toks:
@@ -1531,9 +1687,7 @@ class EngineCore:
         scheduled = sched.scheduled
         step_t0 = time.monotonic()
         self._rng, step_key = prng.split(self._rng)
-        hidden = self.model.forward(
-            self.params, self.kv_cache, batch, self.model_config,
-            self.config.block_size, self.config.attn_backend)
+        hidden, routed = self._forward(batch)
         logits = self.model.compute_logits(self.params, hidden,
                                            self.model_config)
         ids = sampling_ops.sample(
@@ -1549,6 +1703,8 @@ class EngineCore:
             fetch.extend(sampling_ops.compute_top_logprobs(logits, ids))
         elif want_lp:
             fetch.append(sampling_ops.compute_logprobs(logits, ids))
+        if routed is not None:
+            fetch.append(routed)
         # The step's one host sync: the first copy waits for the device;
         # the rest are already computed.
         fetched = [t.cpu() for t in fetch]
@@ -1556,6 +1712,12 @@ class EngineCore:
         self._step_count += 1
         self.metrics.engine_dispatches.inc()
         self.metrics.engine_steps.inc()
+        if routed is not None:
+            # The real tokens' routing (the bucket's pad rows would skew
+            # the load toward the pad token's favorite experts).
+            self.params = self.eplb.on_step(
+                fetched.pop().numpy()[:, :sched.total_tokens, :],
+                self._step_count, self.params)
         ids_h = fetched[0].numpy()
         logprobs = fetched[1].numpy() if want_lp else None
         top = ((fetched[2].numpy(), fetched[3].numpy())

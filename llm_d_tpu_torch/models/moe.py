@@ -11,7 +11,7 @@ plane for the int8 latent) that every layer updates in place.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -94,26 +94,46 @@ def init_params(config: ModelConfig, generator: torch.Generator,
 
 def forward(params: Params, kv_cache: Dict[str, torch.Tensor],
             batch: Dict[str, torch.Tensor], config: ModelConfig,
-            block_size: int, attn_backend: str = "auto") -> torch.Tensor:
+            block_size: int, attn_backend: str = "auto",
+            collect_routed: bool = False,
+            moe_opts: Optional[Dict[str, Any]] = None):
     """One engine step over a ragged batch: returns the final-normed
     hidden states of the sampling rows ``[S, D]``; ``kv_cache`` ({"kv"}
-    or {"kv", "kv_scale"}) is updated in place."""
+    or {"kv", "kv_scale"}) is updated in place.  With ``collect_routed``
+    also returns the routed LOGICAL expert ids ``[Lm, T, k]`` (int32) of
+    every MoE layer, for EPLB's load tracker.
+
+    With ``replica_table`` / ``num_replicas`` in ``moe_layers`` (EPLB's
+    physical table) a token's logical experts go to physical replicas
+    (``ops.moe.to_physical_experts``, phased by the MoE layer index), and
+    the expert weights are the ``[Lm, P, ...]`` physical ones.
+    ``moe_opts["stub_components"]`` drops components for the attribution
+    sweep, as the JAX forward does: ``attn`` (the whole attention block,
+    cache writes included: the block contributes zeros), ``moe_ffn`` (the
+    routed experts; routing still runs, so EPLB still collects) and
+    ``shared_expert``."""
     c = config
     Ld = c.first_dense_layers
     kv = kv_cache["kv"]
     kv_scale = kv_cache.get("kv_scale")
     dl, ml = params["dense_layers"], params["moe_layers"]
+    stub = frozenset((moe_opts or {}).get("stub_components") or ())
     quant_stacked = ({k: ml[k] for k in QUANT_KEYS}
                      if "w_gate_q" in ml else None)
+    routed = []
     x = params["embed"][batch["token_ids"].long()]
     for li in range(c.num_layers):
         if li < Ld:
             lp = {k: v[li] for k, v in dl.items()}
         else:
             lp = {k: v[li - Ld] for k, v in ml.items() if k not in QUANT_KEYS}
-        a = mla_attention_block(
-            lp, c, L.rms_norm(x, lp["input_norm"], c.rms_norm_eps), batch,
-            kv, block_size, attn_backend, layer=li, kv_scale=kv_scale)
+        hn_in = L.rms_norm(x, lp["input_norm"], c.rms_norm_eps)
+        if "attn" in stub:
+            a = torch.zeros_like(hn_in)
+        else:
+            a = mla_attention_block(
+                lp, c, hn_in, batch, kv, block_size, attn_backend, layer=li,
+                kv_scale=kv_scale)
         # Two bf16 roundings the JAX reference does not perform: under jit
         # XLA feeds the post-attention norm the f32 residual sum, and the
         # router the f32 norm output (an f32 -> bf16 -> f32 convert pair is
@@ -129,19 +149,32 @@ def forward(params: Params, kv_cache: Dict[str, torch.Tensor],
             weights, idx = moe_ops.route(
                 torch.matmul(hn32, lp["router"]), c,
                 e_bias=lp.get("e_bias"))
-            if quant_stacked is not None:
+            routed.append(idx)
+            phys_idx = idx
+            if "replica_table" in lp:
+                # A physical replica of each logical expert, round-robin,
+                # the MoE layer index phasing the walk.
+                phys_idx = moe_ops.to_physical_experts(
+                    idx, lp["replica_table"], lp["num_replicas"],
+                    phase=li - Ld)
+            if "moe_ffn" in stub:
+                m = torch.zeros_like(hn)
+            elif quant_stacked is not None:
                 m = moe_ops.expert_ffn(
-                    hn, weights, idx, None, None, None,
+                    hn, weights, phys_idx, None, None, None,
                     quant=dict(quant_stacked, layer=li - Ld))
             else:
-                m = moe_ops.expert_ffn(hn, weights, idx, lp["w_gate"],
+                m = moe_ops.expert_ffn(hn, weights, phys_idx, lp["w_gate"],
                                        lp["w_up"], lp["w_down"])
-            if "shared_gate" in lp:
+            if "shared_gate" in lp and "shared_expert" not in stub:
                 m = m + L.swiglu_mlp(hn, lp["shared_gate"], lp["shared_up"],
                                      lp["shared_down"])
         x = x + m
     x = L.rms_norm(x, params["final_norm"], c.rms_norm_eps)
-    return x[batch["sample_idx"].long()]
+    hidden = x[batch["sample_idx"].long()]
+    if collect_routed:
+        return hidden, torch.stack(routed)
+    return hidden
 
 
 def kv_cache_layout(config: ModelConfig) -> Dict[str, int]:

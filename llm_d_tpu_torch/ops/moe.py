@@ -91,6 +91,24 @@ def route(router_logits: torch.Tensor, config: ModelConfig,
     return gate_weights(scores, idx, c), idx.to(torch.int32)
 
 
+def to_physical_experts(idx: torch.Tensor, replica_table: torch.Tensor,
+                        num_replicas: torch.Tensor,
+                        phase: int = 0) -> torch.Tensor:
+    """EPLB: map routed logical experts ``idx [T, k]`` to physical replica
+    slots ``[T, k]`` (int32) through ``replica_table [E, max_r]`` and
+    ``num_replicas [E]``.  The replica is round-robin over the (token,
+    slot) index plus the layer's ``phase``, as in the JAX package:
+    replicas hold identical weights, so the choice never changes the
+    output.  Plain tensor ops (no host read), so a captured body may
+    call it."""
+    T, k = idx.shape
+    il = idx.long()
+    slot = torch.arange(T * k, dtype=torch.int32,
+                        device=idx.device).reshape(T, k) + phase
+    r = slot % num_replicas[il]
+    return replica_table[il, r.long()].to(torch.int32)
+
+
 def _combine_matrix(T: int, E: int, idx: torch.Tensor,
                     weights: torch.Tensor) -> torch.Tensor:
     """[T, E] f32 combine weights (0 for unrouted pairs; duplicate routes

@@ -89,6 +89,17 @@ _GROUPED_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 \
     + [ctypes.c_void_p]
 
 
+def dense_groups(E: int) -> int:
+    """Expert groups of kernel C's pass 2 (H/128 x groups blocks, a
+    group's routed experts summed in order): the most of 16, 8, 4, 2, 1
+    dividing ``E`` into groups of at most 64 experts; else 16 groups of
+    ceil(E / 16) experts, the last ones shorter (an EPLB physical table
+    of E + r slots need not divide)."""
+    _check(E <= 16 * 64, f"E={E} needs groups of at most 64 experts")
+    return next((g for g in (16, 8, 4, 2, 1) if E % g == 0 and E // g <= 64),
+                16)
+
+
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"dense_moe_int8: {msg}")
@@ -134,10 +145,7 @@ def dense_moe_int8(x, comb, layer: int, w_gate_q, w_gate_s, w_up_q, w_up_s,
            and comb.is_contiguous() and comb.device == x.device,
            "comb must be contiguous f32 [T, E]")
     tm = 16 if T <= 16 else (32 if T <= 32 else 64)
-    # Groups of four experts: pass 2 has H/128 x groups blocks, and a
-    # group's routed experts are summed in order.
-    groups = next(g for g in (16, 8, 4, 2, 1) if E % g == 0)
-    _check(E // groups <= 64, f"E={E} needs groups of at most 64 experts")
+    groups = dense_groups(E)
     _check(x.data_ptr() % 16 == 0 and w_gate_q.data_ptr() % 16 == 0
            and w_up_q.data_ptr() % 16 == 0 and w_down_q.data_ptr() % 16 == 0,
            "x and the int8 weights must be 16-byte aligned (cp.async rows)")

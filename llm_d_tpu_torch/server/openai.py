@@ -26,8 +26,15 @@ the card machine has no aiohttp.
 ``logprobs`` / ``top_logprobs`` are served on completions and chat in
 the JAX server's response shape (in the final JSON body; streamed chunks
 carry none, as the JAX server's carry none), and ``--spec-k`` serves
-speculative decode (``--spec-strict`` is accepted and does nothing: no
-startup condition demotes spec decode in this engine).
+speculative decode (``--spec-strict`` refuses to start where a startup
+condition would demote it, as in the JAX server; none does today).
+
+EPLB: ``--enable-eplb`` and ``--eplb-config`` (the JAX server's JSON:
+``window_size``, ``step_interval``, ``num_redundant_experts``, ...) arm
+the engine's expert-load controller; on one card the placement stays
+the identity, and ``/metrics`` carries ``llmd_tpu:eplb_imbalance`` and
+the migration counters.  ``--kv-cache-hbm-gb`` sizes the block pool from
+a memory budget (GiB) instead of ``--num-blocks``.
 
 P/D disaggregation: ``--kv-transfer-config`` (the JAX server's JSON:
 ``kv_role``, ``kv_ip``, ``kv_port``, ``kv_load_failure_policy``) gives the
@@ -46,8 +53,7 @@ consumer process.
 
 Not served yet (each refused with a status and a message naming it, not
 quietly dropped): mid-stream ``resume``, ``/debug/traces``, and the CLI
-flags of multi-device serving, DBO, EPLB and KV events
-(``UNSERVED_FLAGS``).
+flags of multi-device serving, DBO and KV events (``UNSERVED_FLAGS``).
 """
 
 from __future__ import annotations
@@ -614,7 +620,12 @@ def engine_config_from_args(args) -> EngineConfig:
         kv_shared_tier_peers=shared_tier_peers(args),
         quantization=args.quantization,
         kv_cache_dtype=args.kv_cache_dtype,
+        kv_cache_hbm_bytes=(int(args.kv_cache_hbm_gb * 2**30)
+                            if args.kv_cache_hbm_gb else None),
+        enable_eplb=args.enable_eplb,
+        eplb_config=json.loads(args.eplb_config) if args.eplb_config else None,
         spec_k=args.spec_k,
+        spec_strict=True if args.spec_strict else None,
         device=args.device)
 
 
@@ -639,13 +650,9 @@ UNSERVED_FLAGS = {
     "allow_device_subset": _MULTI_DEVICE,
     "latency_training_url": "the latency predictor's training feed is "
                             "not ported",
-    "kv_cache_hbm_gb": "sizing the block pool from a memory budget is not "
-                       "ported (pass --num-blocks)",
     "enable_dbo": "dual-batch overlap is not ported",
     "dbo_decode_token_threshold": "dual-batch overlap is not ported",
     "dbo_prefill_token_threshold": "dual-batch overlap is not ported",
-    "enable_eplb": "EPLB is not ported",
-    "eplb_config": "EPLB is not ported",
     "kv_events_endpoint": "the KV-events publisher is not ported",
     "pod_identity": "the KV-events publisher is not ported",
 }
@@ -707,12 +714,23 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="paged-KV cache dtype (default: LLMD_KV_CACHE_DTYPE, "
                         "else bf16; LLMD_MLA_LATENT_DTYPE gates the MLA "
                         "latent separately)")
-    p.add_argument("--kv-cache-hbm-gb", type=float, default=None)
+    p.add_argument(
+        "--kv-cache-hbm-gb", type=float, default=None,
+        help="size the block pool from this device-memory budget in GiB "
+             "(dtype-aware: an int8 cache fits ~2x the blocks); overrides "
+             "--num-blocks")
     p.add_argument("--enable-dbo", action="store_true")
     p.add_argument("--dbo-decode-token-threshold", type=int, default=32)
     p.add_argument("--dbo-prefill-token-threshold", type=int, default=32)
-    p.add_argument("--enable-eplb", action="store_true")
-    p.add_argument("--eplb-config", default=None)
+    p.add_argument(
+        "--enable-eplb", action="store_true",
+        help="MoE expert load balancing with redundant experts (reference: "
+             "--enable-eplb, decode.yaml:79); one card: the identity "
+             "placement, routed ids collected, imbalance published")
+    p.add_argument(
+        "--eplb-config", default=None,
+        help='JSON eplb config, e.g. \'{"window_size":1000,'
+             '"step_interval":3000,"num_redundant_experts":32}\'')
     p.add_argument(
         "--spec-k", type=int, default=None,
         help="speculative decode (MTP draft-and-verify): draft tokens per "
@@ -721,9 +739,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
              "(0 = off); needs --num-scheduler-steps 1")
     p.add_argument(
         "--spec-strict", action="store_true",
-        help="refuse to start instead of demoting spec decode at startup; "
-             "accepted for the JAX server's command line, a no-op here: "
-             "nothing demotes spec decode at startup in this engine")
+        help="refuse to start instead of demoting spec decode at startup "
+             "(LLMD_SPEC_STRICT); no startup condition demotes it today")
     p.add_argument(
         "--kv-transfer-config", default=None,
         help="KV connector JSON for P/D disaggregation: kv_role "

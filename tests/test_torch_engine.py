@@ -437,7 +437,9 @@ def test_engine_config_defaults_equal_the_jax_dataclass():
     jfields = {f.name: f for f in dataclasses.fields(JEngineConfig)}
     shared = [f.name for f in dataclasses.fields(EngineConfig)
               if f.name in jfields]
-    assert len(shared) >= 20
+    assert len(shared) >= 25
+    assert {"enable_eplb", "eplb_config", "kv_cache_hbm_bytes",
+            "stub_components", "spec_strict"} <= set(shared)
     t, j = EngineConfig(), JEngineConfig()
     assert {n: getattr(t, n) for n in shared} == \
         {n: getattr(j, n) for n in shared}

@@ -385,6 +385,8 @@ class FmsReplay(HiddenReplay):
                                    else np.asarray(routed)))
                 y, carry = rest(params, dparams, hidden, sb, x, carry,
                                 keys[r])
+                if e.eplb is not None:
+                    y["routed"] = routed      # as the JAX program's ys
                 ys.append(y)
             ys = {k: jnp.stack([y[k] for y in ys]) for k in ys[0]}
             return ys, dict(zip(("pos", "last", "drafts", "gen0"), carry)), kv
@@ -416,12 +418,16 @@ class FmsReplay(HiddenReplay):
             scores, _ = TMoeOps.route_scores(logits, c, e_bias)
             return TMoeOps.gate_weights(scores, idx, c), idx
 
-        def forward(params, kv, batch, *a):
+        def forward(params, kv, batch, *a, **kw):
             jbatch, jcache, jhidden, *routed = next(steps)
             for k, v in kv.items():
                 v.copy_(tensor_from_numpy(jcache[k], "cpu"))
             routing.update(ids=routed[0] if routed else None, layer=0)
-            got = real(params, kv, batch, *a)
+            got = real(params, kv, batch, *a, **kw)
+            if kw.get("collect_routed"):
+                # The port's routed ids are the JAX round's expert choice.
+                got, got_routed = got
+                np.testing.assert_array_equal(got_routed.numpy(), routed[0])
             T = batch["token_ids"].shape[0]
             qtok = batch["qtok_idx"].numpy().reshape(-1)
             live = np.zeros(T, bool)
@@ -438,7 +444,10 @@ class FmsReplay(HiddenReplay):
             np.testing.assert_allclose(got.float().numpy(),
                                        jhidden.astype(np.float32),
                                        atol=2e-2, rtol=2e-2)
-            return tensor_from_numpy(jhidden, "cpu")
+            hidden = tensor_from_numpy(jhidden, "cpu")
+            if kw.get("collect_routed"):
+                return hidden, got_routed
+            return hidden
 
         monkeypatch.setattr(teng.model, "forward", forward)
         monkeypatch.setattr(TMoeOps, "route", route)

@@ -714,7 +714,7 @@ def test_spec_engine_on_the_card_repeats_and_frees_its_blocks(dev, fixed):
         assert sum(r.spec_accepted for r in reqs) > 0
 
 
-def _bench_2layer_engine(dev, params=None, **over):
+def _bench_2layer_engine(dev, params=None, draft_params=None, **over):
     """Two layers of deepseek-v3-bench at full width as bench.py serves
     it (int8 experts and latent, 64-row pages), with ``over`` on top."""
     cfg = dataclasses.replace(get_config("deepseek-v3-bench"), num_layers=2,
@@ -724,7 +724,8 @@ def _bench_2layer_engine(dev, params=None, **over):
               quantization="int8", kv_cache_dtype="int8",
               enable_prefix_caching=False, device="cuda", seed=7)
     kw.update(over)
-    return EngineCore(EngineConfig(**kw), params=params)
+    return EngineCore(EngineConfig(**kw), params=params,
+                      draft_params=draft_params)
 
 
 def _block_requests(n, K, sampled, seed):
@@ -1129,3 +1130,109 @@ def test_server_answers_with_the_direct_engines_tokens(dev):
     assert m["vllm:time_to_first_token_seconds_count" + lab] == 1
     assert m["llmd_tpu:engine_steps_total" + lab] == 1 + K
     assert m["llmd_tpu:engine_dispatch_total" + lab] == 2
+
+
+def test_eplb_migration_stages_on_a_side_stream_and_flips_in_place(dev):
+    """The EPLB controller at ep = 4 on the 2-layer bench engine's int8
+    experts: a skewed trace plans a migration, each tick stages its moves
+    on the controller's side stream (never waiting on the host), and the
+    flip writes the serving tensors in place: every ``data_ptr()`` is
+    unchanged, the physical ``_q``/``_s`` planes equal the logical ones
+    gathered by the final plans bit for bit, the tables are the plans'
+    stacked tables, and kernel C through the new table gives the logical
+    launch's output."""
+    import time
+    from llm_d_tpu_torch.parallel.eplb import (EplbConfig, EplbController,
+                                               _expert_major_keys)
+    eng = _bench_2layer_engine(dev, num_blocks=16)
+    logical = {k: v.clone() for k, v in eng.params["moe_layers"].items()}
+    ctrl = EplbController(64, 4, EplbConfig.from_dict(dict(
+        window_size=100, step_interval=4, imbalance_threshold=1.0,
+        move_budget=16)))
+    params = ctrl.install(eng.params)
+    ml = params["moe_layers"]
+    assert ml["w_gate_q"].shape[1] == 68
+    ptrs = {k: v.data_ptr() for k, v in ml.items()}
+    p = torch.arange(1, 65, dtype=torch.float64) ** -1.2
+    ids = torch.multinomial(p / p.sum(), 512 * 8, replacement=True,
+                            generator=torch.Generator().manual_seed(0))
+    params = ctrl.on_step(ids.reshape(1, 512, 8).numpy(), 4, params)
+    assert ctrl.migrating and ctrl._migration.total_moves > 16
+    step = 5
+    t0 = time.monotonic()
+    while ctrl.migrating and time.monotonic() - t0 < 30:
+        params = ctrl.on_step(None, step, params)
+        step += 1
+    assert not ctrl.migrating and ctrl.num_rebalances == 1
+    assert ctrl._side is not None and ctrl.migrated_bytes > 0
+    torch.cuda.synchronize()
+    assert {k: v.data_ptr() for k, v in ml.items()} == ptrs
+    phys = torch.as_tensor(ctrl.plans[0].phys_to_logical, device=dev).long()
+    for name in _expert_major_keys(ml):
+        assert torch.equal(ml[name], logical[name][:, phys]), name
+    rt, nr = ctrl._stacked_tables(1)
+    assert torch.equal(ml["replica_table"].cpu(), torch.from_numpy(rt))
+    assert torch.equal(ml["num_replicas"].cpu(), torch.from_numpy(nr))
+    g = _gen(3, dev)
+    x = torch.randn((16, 2048), generator=g, device=dev).bfloat16()
+    weights, idx = M.route(torch.randn((16, 64), generator=g, device=dev),
+                           eng.model_config)
+    qk = ("w_gate_q", "w_gate_s", "w_up_q", "w_up_s", "w_down_q",
+          "w_down_s")
+    want = M._dense_int8_kernel_path(
+        x, weights, idx, dict({k: logical[k] for k in qk}, layer=0))
+    got = M._dense_int8_kernel_path(
+        x, weights, M.to_physical_experts(idx, ml["replica_table"][0],
+                                          ml["num_replicas"][0]),
+        dict({k: ml[k] for k in qk}, layer=0))
+    assert _scaled_err(got.float(), want.float()) <= 1e-2
+
+
+@pytest.mark.parametrize("N", [0, 2])
+def test_eplb_routed_ids_in_graph_replays_equal_the_eager_body(dev, N):
+    """EPLB on the 2-layer bench engine (one card: the identity table):
+    8-step decode blocks (N = 0) or spec rounds in N = 2 dispatches write
+    their routed ids into a static output of their graph; a replay on the
+    same inputs and cache equals the eager body, the ids included, and
+    the tokens equal the engine's with EPLB off, whose tracker saw every
+    real token's routing."""
+    from llm_d_tpu_torch.engine.cuda_graph import replay_equals_eager
+    over = (dict(num_scheduler_steps=8) if N == 0 else
+            dict(spec_k=4, spec_fixed_accept=0.7, num_scheduler_steps=N))
+    off = _bench_2layer_engine(dev, **over)
+    eng = _bench_2layer_engine(dev, params=off.params, enable_eplb=True,
+                               draft_params=off.draft_params, **over)
+    reqs = _block_requests(12, 8, False, seed=5 + N)
+    want = off.generate(_block_requests(12, 8, False, seed=5 + N))
+    assert eng.generate(reqs) == want
+    assert eng.eplb.tracker.load.sum() >= 8 * 12
+    assert eng.eplb.num_rebalances == 0
+    for key, g in eng._graphs.graphs.items():
+        assert "routed" in g.outputs
+        if N == 0:
+            res = replay_equals_eager(g, eng.kv_cache, lambda out: (
+                eng._ms_body(g.inputs, g.inputs["keys"], out["ids"],
+                             key[1], out["routed"])))
+        else:
+            res = replay_equals_eager(g, eng.kv_cache, lambda out: (
+                eng._fms_body(g.inputs, out, N, key[7], key[8], key[9])),
+                trash_rows=eng.config.block_size)
+        assert res == dict(outputs_equal=True, cache_equal=True), key
+
+
+@pytest.mark.parametrize("stub", ["attn", "moe_ffn", "shared_expert"])
+def test_stubbed_engine_captures_its_own_blocks(dev, stub):
+    """A stubbed engine (the attribution sweep's) serves 8-step decode
+    blocks through graphs of its own stubbed body: the replay equals the
+    eager body, and the ``attn`` stub writes no cache row."""
+    from llm_d_tpu_torch.engine.cuda_graph import replay_equals_eager
+    eng = _bench_2layer_engine(dev, num_scheduler_steps=8,
+                               stub_components=(stub,))
+    eng.generate(_block_requests(6, 8, False, seed=9))
+    assert eng._graphs.graphs
+    for key, g in eng._graphs.graphs.items():
+        res = replay_equals_eager(g, eng.kv_cache, lambda out: eng._ms_body(
+            g.inputs, g.inputs["keys"], out["ids"], key[1]))
+        assert res == dict(outputs_equal=True, cache_equal=True), key
+    if stub == "attn":
+        assert all(not v.any() for v in eng.kv_cache.values())

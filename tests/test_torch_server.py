@@ -26,6 +26,11 @@ schedule; the comparisons are exact:
   carried across too): the JAX spec server's tokens, plain and with
   logprobs.
 
+``--enable-eplb``, ``--eplb-config``, ``--kv-cache-hbm-gb`` and
+``--spec-strict`` map to the JAX server's engine config; on ``tiny-mla``
+the two servers answer alike and publish the same
+``llmd_tpu:eplb_imbalance``.
+
 Port-only checks: unported features (resume, and ``kv_transfer_params``
 on a server without a KV connector) and unserved CLI flags (dynamic
 shared-tier peer specs among them) are refused with a message naming
@@ -564,6 +569,59 @@ def test_everything_on_server_equals_the_jax_server():
         pair.close()
 
 
+def test_eplb_and_pool_budget_server_equals_the_jax_server():
+    """``--enable-eplb --eplb-config ... --kv-cache-hbm-gb ...
+    --spec-strict`` through both servers' parsers: the engine configs
+    agree, the engines derive the same block pool from the budget, and
+    after the same greedy requests (``tiny-mla``, int8 experts and
+    latent) the replies and ``llmd_tpu:eplb_imbalance`` on ``/metrics``
+    are equal, with the routed ids recorded."""
+    argv = ["--model", "tiny-mla", "--quantization", "int8",
+            "--kv-cache-dtype", "int8", "--block-size", "8",
+            "--max-num-batched-tokens", "64", "--enable-eplb",
+            "--eplb-config", json.dumps({"window_size": 100,
+                                         "step_interval": 4}),
+            "--kv-cache-hbm-gb", "0.0005", "--spec-strict"]
+    p = TServer.build_arg_parser()
+    args = p.parse_args(argv + ["--device", "cpu"])
+    TServer.check_served(p, args)
+    tcfg = TServer.engine_config_from_args(args)
+    jcfg = JServer.engine_config_from_args(
+        JServer.build_arg_parser().parse_args(argv))
+    names = ("enable_eplb", "eplb_config", "kv_cache_hbm_bytes",
+             "spec_strict", "num_blocks")
+    assert [getattr(tcfg, n) for n in names] == \
+        [getattr(jcfg, n) for n in names]
+    jeng = JEngineCore(jcfg)
+    tree = jax.tree.map(np.asarray, jeng.params)
+    tree["moe_layers"] = {k: v for k, v in tree["moe_layers"].items()
+                          if k not in ("replica_table", "num_replicas")}
+    teng = EngineCore(tcfg, params=params_from_numpy(tree, "cpu"))
+    assert teng.config.num_blocks == jeng.config.num_blocks != 2048
+    assert teng.spec_strict and jeng.spec_strict
+    jax_srv = _serve_jax(jbuild_server(None, engine=jeng, model_name="m"))
+    port_srv = _serve_port(TServer.build_server(None, engine=teng,
+                                                model_name="m"))
+    try:
+        for prompt in ([5, 17, 300, 42, 7, 9], [1, 2, 3], "hello eplb"):
+            j, t = (requests.post(s.url + "/v1/completions", json=dict(
+                GREEDY, model="m", prompt=prompt, max_tokens=9),
+                timeout=TIMEOUT) for s in (jax_srv, port_srv))
+            assert j.status_code == t.status_code == 200
+            assert _strip(t.json()) == _strip(j.json())
+        gauge = 'llmd_tpu:eplb_imbalance{model_name="tiny-mla"}'
+        jm, tm = (parse_prometheus_text(requests.get(
+            s.url + "/metrics", timeout=TIMEOUT).text)
+            for s in (jax_srv, port_srv))
+        assert tm[gauge] == jm[gauge] > 1.0
+        migrations = 'llmd_tpu:eplb_migrations_total{model_name="tiny-mla"}'
+        assert tm[migrations] == jm[migrations] == 0
+        assert teng.eplb.tracker.load.sum() == jeng.eplb.tracker.load.sum() > 0
+    finally:
+        port_srv.close()
+        jax_srv.close()
+
+
 @pytest.mark.parametrize("body,names", [
     (dict(kv_transfer_params={"do_remote_decode": True}),
      "kv_transfer_params"),
@@ -590,8 +648,8 @@ def test_out_of_vocabulary_prompt_ids_are_refused(tiny, prompt):
 @pytest.mark.parametrize("flag", [
     ["--tensor-parallel-size", "2"],
     ["--kv-shared-tier-peers", "dns:kv-peers:5999",
-     "--kv-offload-blocks", "8"], ["--enable-eplb"],
-    ["--kv-events-endpoint", "tcp://x:1"], ["--kv-cache-hbm-gb", "8"],
+     "--kv-offload-blocks", "8"], ["--dbo-decode-token-threshold", "8"],
+    ["--kv-events-endpoint", "tcp://x:1"], ["--config", "layers.yaml"],
     ["--enable-dbo"], ["--compilation-cache-dir", "/tmp/x"]])
 def test_an_unserved_cli_flag_is_a_parser_error(flag, capsys):
     p = TServer.build_arg_parser()
@@ -714,10 +772,16 @@ main(sys.argv[1:])
 def test_entry_point_serves_without_aiohttp_and_exits_0_on_sigterm():
     """``main`` with aiohttp, prometheus_client, requests and jax blocked
     in ``sys.modules``: serves ``tiny`` on the CPU, drains on SIGTERM
-    (readiness 503 while an in-flight stream completes) and exits 0."""
+    (readiness 503 while an in-flight stream completes) and exits 0.
+
+    The server process runs one intra-op thread: with PyTorch's default
+    (a thread per core) its spinning worker threads compete with the
+    test run's other workers for the cores, and a 40-token ``tiny``
+    stream then outlasted the 20 s drain bound."""
     port = _free_port()
     env = dict(os.environ, LLMD_DRAIN_TIMEOUT_S="20",
-               PYTHONPATH=str(ROOT))
+               PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
+               MKL_NUM_THREADS="1")
     proc = subprocess.Popen(
         [sys.executable, "-c", _ENTRY, "--model", "tiny", "--device", "cpu",
          "--port", str(port), "--host", "127.0.0.1", "--block-size", "8",

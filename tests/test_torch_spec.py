@@ -120,7 +120,10 @@ class HiddenReplay:
     feeds them to the port's engine in step order.  The port's batch
     must equal the JAX engine's, array for array, and its forward still
     runs, from the JAX step's cache, held to the JAX hidden states at
-    atol = rtol = 2e-2 (as in test_forward_matches_jax)."""
+    atol = rtol = 2e-2 (as in test_forward_matches_jax).  Under EPLB the
+    JAX step also hands its engine the routed ids (as its own fused
+    program does), and the port's forward answers with the JAX step's
+    routed ids too, so both trackers see one routing."""
 
     def __init__(self, jeng) -> None:
         self.jeng = jeng
@@ -140,11 +143,12 @@ class HiddenReplay:
         e = self.jeng
         jm, jc, bs = e.model, e.model_config, e.config.block_size
         fixed, mesh, opts = e.config.spec_fixed_accept, e.mesh, e._moe_opts()
+        collect = dict(collect_routed=True) if e.eplb is not None else {}
 
         @jax.jit
         def fwd(params, kv, batch):
             return jm.forward(params, kv, batch, jc, bs, e.config.attn_backend,
-                              mesh=mesh, moe_opts=opts)
+                              mesh=mesh, moe_opts=opts, **collect)
 
         @jax.jit
         def rest(params, dparams, hidden, batch, rng):
@@ -169,10 +173,12 @@ class HiddenReplay:
 
         def fn(params, dparams, kv, batch, rng):
             cache = jax.tree.map(np.asarray, kv)
-            hidden, kv = fwd(params, kv, batch)
+            hidden, kv, *routed = fwd(params, kv, batch)
             self.steps.append((jax.tree.map(np.asarray, batch), cache,
-                               np.asarray(hidden)))
-            return (*rest(params, dparams, hidden, batch, rng), None, kv)
+                               np.asarray(hidden),
+                               *(np.asarray(r) for r in routed)))
+            return (*rest(params, dparams, hidden, batch, rng),
+                    routed[0] if routed else None, kv)
 
         return fn
 
@@ -181,17 +187,22 @@ class HiddenReplay:
         steps = iter(self.steps)
         real = teng.model.forward
 
-        def forward(params, kv, batch, *a):
-            jbatch, jcache, jhidden = next(steps)
+        def forward(params, kv, batch, *a, **kw):
+            jbatch, jcache, jhidden, *routed = next(steps)
             for k, v in kv.items():
                 v.copy_(tensor_from_numpy(jcache[k], "cpu"))
-            got = real(params, kv, batch, *a)
+            got = real(params, kv, batch, *a, **kw)
+            if kw.get("collect_routed"):
+                got = got[0]
             for k, v in batch.items():
                 np.testing.assert_array_equal(v.numpy(), jbatch[k], err_msg=k)
             np.testing.assert_allclose(got.float().numpy(),
                                        jhidden.astype(np.float32),
                                        atol=2e-2, rtol=2e-2)
-            return tensor_from_numpy(jhidden, "cpu")
+            hidden = tensor_from_numpy(jhidden, "cpu")
+            if kw.get("collect_routed"):
+                return hidden, torch.from_numpy(routed[0].astype(np.int32))
+            return hidden
 
         monkeypatch.setattr(teng.model, "forward", forward)
         self.left = steps
