@@ -210,7 +210,36 @@ Phases (each raises on failure; the script then exits non-zero):
             cold load (the process's first prefill and graph capture)
             and a warm one, /metrics against what was served,
             /admin/drain (readiness 503), then SIGTERM: exit code 0
-            within the drain time.
+            within the drain time.  (c) Observability and resume, on
+            path (i)'s engine and flags: (a) the in-process server with
+            tracing on serves wave 1's prompts one at a time, then with
+            tracing off (LLMD_TRACE=0): the same tokens and graph
+            replays, one request_phase_seconds sample a request and
+            phase both ways, and with tracing on one connected trace a
+            request in /debug/traces (server.request over engine.queue,
+            engine.prefill and engine.decode, a 32-step decode block
+            among the engine.step spans); then wave 1 at once in
+            alternating rounds, decode tok/s on against off (reported);
+            (d) with --latency-training-url pointed at a local /samples
+            endpoint, 8 requests give 8 ttft and 8 tpot samples whose
+            actual_ms are the replies' usage; (b) path (v)(b)'s engine
+            (prefix cache, 448 blocks, 2048-block host tier) with a KV
+            events sink: the stored hashes are the manager's cached
+            blocks, and after wave-3-shaped waves evict them the sink's
+            live set is still the cache, one removal an eviction; the
+            same events through ZMQ where zmq and msgpack import, else
+            --kv-events-endpoint refused naming them; (c) on that
+            engine a stream dropped after 8 tokens, its blocks flushed to
+            the host tier and dropped from the device cache, resumed at
+            offset 8: src "restored", restored tokens > 0, restore ms;
+            after (b), two server processes with bench.py's flags (the
+            second from YAML --config / --config-overlay files where
+            yaml imports, else --config refused naming it: (e)): a
+            97-token stream from the first, cut after 8 tokens by a
+            SIGKILL, resumed on the second (continuous, src marked),
+            its tokens against an uninterrupted run on the second and
+            the classic loop's with its top-2 margins (reported).
+            Kernels A-E must launch in the in-process part.
 
 Launch counts: every count is set to 0 just before a path is driven and
 read just after it; kernels A-F count path (i), G and H path (ii), and
@@ -220,8 +249,10 @@ each row adds path (iii)'s run (phases (a) and (c)-(e), also given as
 also given as ``pd_launches``; (c) runs in its own processes), path
 (vi)'s run (phase 2e(a), ``eplb_launches``), the attribution sweep
 (phase 2e(c), ``attribution_launches``; the controller's launches in
-2e(b) are comparisons and do not count) and the in-process server's run
-(phase 7(a), also given as ``server_launches``).  A
+2e(b) are comparisons and do not count), the in-process server's run
+(phase 7(a), also given as ``server_launches``) and phase 7(c)'s
+in-process run (``observe_launches``; its classic-loop yardstick does
+not count).  A
 count is the wrapper's own (eager launches, graph warm-ups included)
 plus the launches inside graph replays: a capture records each graph's
 launches, and every replay adds them (``engine/cuda_graph.py``); the
@@ -235,7 +266,9 @@ card's name and power limit), a ``{"spec": ...}`` line (path (iii), with
 the card's name and power limit), an ``{"everything_on": ...}`` line
 (path (iv), likewise), a ``{"pd": ...}`` line (path (v), likewise), an
 ``{"eplb": ...}`` line (path (vi) and the controller, likewise), an
-``{"attribution": ...}`` line, a ``{"sizing": [...]}`` line, a
+``{"attribution": ...}`` line, a ``{"sizing": [...]}`` line, an
+``{"observe": ...}`` line (phase 7(c), with the card's name and power
+limit), a
 ``{"kernels": [...]}`` line (one row per
 kernel at its first launch: measured launches, errors and times, with
 ``bound_ms``), the card's name and power limit, and last ``{"ok": true,
@@ -2292,30 +2325,15 @@ def pd_cli_pair(root, prompts, want) -> dict:
         port = free_port()
         urls[role] = f"http://127.0.0.1:{port}"
         logs[role] = os.path.join(root, "build", f"{role}.log")
-        os.makedirs(os.path.dirname(logs[role]), exist_ok=True)
-        cmd = [sys.executable, "-m", "llm_d_tpu_torch.server.openai",
-               *SERVER_FLAGS, "--host", "127.0.0.1", "--port", str(port),
-               "--kv-transfer-config",
-               json.dumps({"kv_role": role, "kv_ip": "127.0.0.1"})]
-        env = dict(os.environ, LLMD_DRAIN_TIMEOUT_S=str(DRAIN_S))
-        with open(logs[role], "wb") as f:
-            procs[role] = subprocess.Popen(cmd, cwd=root, env=env, stdout=f,
-                                           stderr=subprocess.STDOUT)
+        procs[role] = start_server(root, [
+            *SERVER_FLAGS, "--host", "127.0.0.1", "--port", str(port),
+            "--kv-transfer-config",
+            json.dumps({"kv_role": role, "kv_ip": "127.0.0.1"})],
+            f"{role}.log")
     out = {}
     try:
         for role, url in urls.items():
-            while True:
-                if procs[role].poll() is not None:
-                    raise RuntimeError(f"{role} exited with "
-                                       f"{procs[role].returncode}")
-                if time.perf_counter() - t0 > 300:
-                    raise RuntimeError(f"{role} not ready in 300 s")
-                try:
-                    if http_call(url, "/v1/models", timeout=5)[0] == 200:
-                        break
-                except OSError:
-                    pass
-                time.sleep(0.1)
+            wait_ready(procs[role], url)
         out["startup_s"] = time.perf_counter() - t0
         tokens, ttft = [], []
         for p in prompts:
@@ -3009,6 +3027,35 @@ def serve_in_thread(server):
     return f"http://127.0.0.1:{box['port']}", close
 
 
+def start_server(root: str, argv, log_name: str):
+    """``python -m llm_d_tpu_torch.server.openai`` with ``argv`` (its log
+    in build/``log_name``); returns the process."""
+    log_path = os.path.join(root, "build", log_name)
+    os.makedirs(os.path.dirname(log_path), exist_ok=True)
+    with open(log_path, "wb") as log_f:
+        return subprocess.Popen(
+            [sys.executable, "-m", "llm_d_tpu_torch.server.openai", *argv],
+            cwd=root, stdout=log_f, stderr=subprocess.STDOUT,
+            env=dict(os.environ, LLMD_DRAIN_TIMEOUT_S=str(DRAIN_S)))
+
+
+def wait_ready(proc, url: str, limit_s: float = 300) -> float:
+    t0 = time.perf_counter()
+    while True:
+        if proc.poll() is not None:
+            raise RuntimeError(f"the server at {url} exited with "
+                               f"{proc.returncode} before it was ready")
+        if time.perf_counter() - t0 > limit_s:
+            raise RuntimeError(f"the server at {url} was not ready in "
+                               f"{limit_s} s")
+        try:
+            if http_call(url, "/v1/models", timeout=5)[0] == 200:
+                return time.perf_counter() - t0
+        except OSError:
+            pass
+        time.sleep(0.1)
+
+
 def greedy_body(prompt, max_new: int, stream: bool) -> dict:
     return dict(prompt=prompt, max_tokens=max_new, temperature=0.0,
                 ignore_eos=True, stream=stream)
@@ -3077,28 +3124,10 @@ def server_subprocess(root: str, vocab: int) -> dict:
     port = free_port()
     url = f"http://127.0.0.1:{port}"
     log_path = os.path.join(root, "build", "server.log")
-    os.makedirs(os.path.dirname(log_path), exist_ok=True)
-    cmd = [sys.executable, "-m", "llm_d_tpu_torch.server.openai",
-           *SERVER_FLAGS, "--host", "127.0.0.1", "--port", str(port)]
-    env = dict(os.environ, LLMD_DRAIN_TIMEOUT_S=str(DRAIN_S))
-    t0 = time.perf_counter()
-    with open(log_path, "wb") as log_f:
-        proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=log_f,
-                                stderr=subprocess.STDOUT)
+    proc = start_server(root, [*SERVER_FLAGS, "--host", "127.0.0.1",
+                               "--port", str(port)], "server.log")
     try:
-        while True:
-            if proc.poll() is not None:
-                raise RuntimeError(f"the server exited with {proc.returncode}"
-                                   f" before it was ready")
-            if time.perf_counter() - t0 > 300:
-                raise RuntimeError("the server was not ready in 300 s")
-            try:
-                if http_call(url, "/v1/models", timeout=5)[0] == 200:
-                    break
-            except OSError:
-                pass
-            time.sleep(0.1)
-        startup_s = time.perf_counter() - t0
+        startup_s = wait_ready(proc, url)
         rng = np.random.default_rng(5)
         n, new = WAVE3["n"], WAVE3["new"]
         peak = dict(running=0.0, waiting=0.0, kv_usage=0.0)
@@ -3202,6 +3231,511 @@ def load_stats(res, new: int, vocab: int) -> dict:
                        for r in streamed]),
         decode_tok_s=len(res) * (new - 1) / t_decode,
         decode_seconds=t_decode)
+
+
+# Phase 7(c): observability and resume, on path (i)'s engine and flags.
+OBS_ROUNDS = 3                       # tracing on / off, a side, alternating
+RESUME_AT = 8                        # the journal's length at the kill
+RESUME_NEW = 3 * BENCH_K + 1         # the stream is mid-way at the kill
+PHASE_COUNT = "llmd_tpu:request_phase_seconds_count{"
+
+
+def phase_counts(m: dict) -> dict:
+    """``request_phase_seconds`` sample counts by phase."""
+    out = {}
+    for k, v in m.items():
+        if k.startswith(PHASE_COUNT):
+            ph = k.split('phase="', 1)[1].split('"', 1)[0]
+            out[ph] = out.get(ph, 0) + v
+    return out
+
+
+def debug_traces(url: str, drain: bool = False) -> dict:
+    """``/debug/traces`` as ``{trace id: [span, ...]}``."""
+    import urllib.request
+    path = "/debug/traces" + ("?drain=1" if drain else "")
+    with urllib.request.urlopen(url + path, timeout=60) as r:
+        if r.status != 200:
+            raise RuntimeError(f"{path}: HTTP {r.status}")
+        text = r.read().decode()
+    by = {}
+    for ln in text.splitlines():
+        if ln.strip():
+            span = json.loads(ln)
+            by.setdefault(span["trace"], []).append(span)
+    return by
+
+
+def check_trace(spans, fused: int) -> int:
+    """One request's trace: one ``server.request`` root, no orphan, the
+    engine's queue, prefill and decode spans under the root, and a decode
+    block of ``fused`` steps among its step spans.  Returns its spans."""
+    ids = {s["span"] for s in spans}
+    roots = [s["name"] for s in spans if not s.get("parent")]
+    orphans = [s["name"] for s in spans
+               if s.get("parent") and s["parent"] not in ids]
+    if roots != ["server.request"] or orphans:
+        raise RuntimeError(f"trace not connected: roots {roots}, "
+                           f"orphans {orphans}")
+    root = next(s["span"] for s in spans if not s.get("parent"))
+    phases = sorted(s["name"] for s in spans if s["parent"] == root
+                    and s["name"] != "engine.step")
+    if phases != ["engine.decode", "engine.prefill", "engine.queue"]:
+        raise RuntimeError(f"phase spans under server.request: {phases}")
+    if not any(s["name"] == "engine.step"
+               and s.get("attrs", {}).get("kind") == "decode"
+               and s["attrs"].get("fused") == fused for s in spans):
+        raise RuntimeError(f"no {fused}-step decode block span in a trace")
+    return len(spans)
+
+
+def sse_stream(url: str, body: dict, headers=None, stop_after=None):
+    """One streamed /v1/completions call: the chunks' ``llmd`` metas and
+    whether ``[DONE]`` came.  With ``stop_after`` the client hangs up once
+    it holds that many tokens."""
+    import urllib.request
+    req = urllib.request.Request(
+        url + "/v1/completions", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    metas, done, n = [], False, 0
+    with urllib.request.urlopen(req, timeout=600) as r:
+        for line in r:
+            if not line.startswith(b"data: "):
+                continue
+            data = line[len(b"data: "):].strip()
+            if data == b"[DONE]":
+                done = True
+                break
+            metas.append(json.loads(data)["llmd"])
+            n += len(metas[-1]["tok"])
+            if stop_after is not None and n >= stop_after:
+                break
+    return metas, done
+
+
+def journal_of(metas, n: int):
+    """The first ``n`` tokens of a stream and their metas, as a relay's
+    journal holds them when the replica dies after delivering ``n``."""
+    out, kept = [], []
+    for m in metas:
+        take = m["tok"][:n - len(out)]
+        if take:
+            kept.append(dict(off=m["off"], tok=take))
+            out += take
+    return out, kept
+
+
+def refusal(argv) -> str:
+    """The parser error ``check_served`` gives for ``argv`` (raises when
+    it is served)."""
+    import io
+    from llm_d_tpu_torch.server import openai as srv
+    p = srv.build_arg_parser()
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        try:
+            srv.check_served(p, p.parse_args(argv))
+        except SystemExit as e:
+            if e.code == 2:
+                return err.getvalue().strip().splitlines()[-1]
+            raise
+    raise RuntimeError(f"{argv} is served here")
+
+
+def importable(*names) -> bool:
+    import importlib
+    try:
+        for n in names:
+            importlib.import_module(n)
+    except ImportError:
+        return False
+    return True
+
+
+def sample_sidecar():
+    """A standard-library ``/samples`` endpoint (the latency-training
+    sidecar's): ``(url, samples received, server)``."""
+    import http.server
+    import threading
+    got = []
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def do_POST(self):
+            body = json.loads(self.rfile.read(
+                int(self.headers.get("Content-Length", 0))))
+            if self.path == "/samples":
+                got.extend(body if isinstance(body, list) else [body])
+            self.send_response(200)
+            self.send_header("Content-Length", "2")
+            self.end_headers()
+            self.wfile.write(b"{}")
+
+        def log_message(self, *args):
+            pass
+
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return f"http://127.0.0.1:{srv.server_address[1]}", got, srv
+
+
+def graph_replays(engine) -> int:
+    """The engine's graph replays (0 for an engine that runs eagerly)."""
+    return engine._graphs.replays if engine._graphs is not None else 0
+
+
+def observe_server(engine, prompts, max_new: int, vocab: int) -> dict:
+    """Phase 7(c)(a) and (d) on the in-process server over path (i)'s
+    engine.  (a) ``prompts`` one at a time, tracing on and then off: the
+    same tokens and graph replays, one phase sample per request and phase
+    either way, and with tracing on one connected trace a request in
+    ``/debug/traces``; then all at once in alternating rounds, decode
+    tok/s on against off (reported).  (d) With the latency-training URL
+    set to a local ``/samples`` endpoint, the prompts at once, not
+    streamed: one ``ttft`` and one ``tpot`` sample a request, their
+    ``actual_ms`` the replies' usage."""
+    import math
+    from concurrent.futures import ThreadPoolExecutor
+    from llm_d_tpu_torch.server.openai import ModelServer
+    server = ModelServer(engine, DecimalTokenizer(), "deepseek-v3-bench")
+    url, close = serve_in_thread(server)
+    out = {}
+    try:
+        debug_traces(url, drain=True)
+        runs = {}
+        for side in ("on", "off"):
+            with env_set("LLMD_TRACE", "1" if side == "on" else "0"):
+                m0, r0 = phase_counts(scrape(url)), graph_replays(engine)
+                toks = [completion(url, greedy_body(p, max_new, bool(i % 2)))
+                        ["tokens"] for i, p in enumerate(prompts)]
+                m1 = phase_counts(scrape(url))
+                runs[side] = dict(
+                    tokens=toks, replays=graph_replays(engine) - r0,
+                    phases={k: m1.get(k, 0) - m0.get(k, 0)
+                            for k in ("queue", "prefill", "decode")})
+            if side == "on":
+                traces = debug_traces(url, drain=True)
+        on, off = runs["on"], runs["off"]
+        if on["tokens"] != off["tokens"] or on["replays"] != off["replays"]:
+            raise RuntimeError(f"tracing changed the run: replays "
+                               f"{on['replays']} on, {off['replays']} off")
+        for side, run in runs.items():
+            if set(run["phases"].values()) != {len(prompts)}:
+                raise RuntimeError(f"phase samples (tracing {side}): "
+                                   f"{run['phases']}")
+        if len(traces) != len(prompts):
+            raise RuntimeError(f"{len(traces)} traces for {len(prompts)} "
+                               f"requests")
+        spans = [check_trace(v, BENCH_K) for v in traces.values()]
+        if debug_traces(url):
+            raise RuntimeError("spans recorded with tracing off")
+        tok_s = {"on": [], "off": []}
+        for r in range(OBS_ROUNDS):
+            for side in (("on", "off") if r % 2 == 0 else ("off", "on")):
+                with env_set("LLMD_TRACE", "1" if side == "on" else "0"):
+                    tok_s[side].append(load_stats(concurrently(url, [
+                        greedy_body(p, max_new, i % 2 == 0)
+                        for i, p in enumerate(prompts)]), max_new,
+                        vocab)["decode_tok_s"])
+        debug_traces(url, drain=True)
+        out["tracing"] = dict(
+            requests=len(prompts), replays=on["replays"],
+            tokens_equal_off=True, phase_samples=on["phases"],
+            spans_per_trace=spans,
+            decode_tok_s={k: spread(v) for k, v in tok_s.items()},
+            decode_tok_s_rounds=tok_s)
+        # (d) the predictor's training feed
+        feed_url, got, sidecar = sample_sidecar()
+        server.latency_training_url = feed_url
+        try:
+            with ThreadPoolExecutor(len(prompts)) as ex:
+                replies = list(ex.map(lambda p: http_call(
+                    url, "/v1/completions", greedy_body(p, max_new, False)),
+                    prompts))
+            usage = [r[2]["usage"] for r in replies if r[0] == 200]
+            t0 = time.perf_counter()
+            while len(got) < 2 * len(prompts) \
+                    and time.perf_counter() - t0 < 10:
+                time.sleep(0.05)
+        finally:
+            server.latency_training_url = None
+            sidecar.shutdown()
+        by = {t: sorted(s["actual_ms"] for s in got if s["target"] == t)
+              for t in ("ttft", "tpot")}
+        want = {"ttft": sorted(u["ttft_ms"] for u in usage),
+                "tpot": sorted(u["avg_tpot_ms"] for u in usage)}
+        if len(usage) != len(prompts) or by != want or not all(
+                math.isfinite(x) for v in by.values() for x in v):
+            raise RuntimeError(f"training samples {by} != usage {want}")
+        keys = sorted({tuple(sorted(s["features"])) for s in got})
+        out["feed"] = dict(samples={t: len(v) for t, v in by.items()},
+                           feature_keys=keys,
+                           ttft_ms=spread(by["ttft"]),
+                           tpot_ms=spread(by["tpot"]))
+        if server.async_engine.dead is not None:
+            raise RuntimeError("the engine thread died") \
+                from server.async_engine.dead
+    finally:
+        close()
+    return out
+
+
+def observe_events(obs, prompts, vocab: int) -> dict:
+    """Phase 7(c)(b): the port's ``InprocKvEventSink`` on the prefix-
+    caching engine ``obs`` (path (v)(b)'s) into a collector.  After wave
+    1's prompts the stored hashes must be the manager's cached blocks
+    (each prompt's chain among them); after wave-3-shaped waves that evict
+    them, the collector's live set (stores less removals) must still be
+    the manager's cache, with one removal an eviction.  Where ``zmq`` and
+    ``msgpack`` import, the same events must arrive through a
+    ``ZmqKvEventPublisher`` on a SUB socket on 127.0.0.1; otherwise
+    ``--kv-events-endpoint`` must be refused naming them."""
+    import numpy as np
+    from llm_d_tpu_torch.events.kv_events import (
+        InprocKvEventSink, ZmqKvEventPublisher)
+
+    class Collector:
+        def __init__(self):
+            self.events = []
+
+        def on_event(self, pod, etype, hashes):
+            self.events += [(etype, bytes(h)) for h in hashes]
+
+    km = obs.kv_manager
+    col = Collector()
+    sink = InprocKvEventSink(col, "smoke:8200")
+    hooks = (list(km.on_block_stored), list(km.on_block_removed))
+    sink.attach(km)
+    zmq_ok = importable("zmq", "msgpack")
+    pub = sub = None
+    if zmq_ok:
+        import zmq
+        sub = zmq.Context.instance().socket(zmq.SUB)
+        port = sub.bind_to_random_port("tcp://127.0.0.1")
+        sub.setsockopt(zmq.SUBSCRIBE, b"kv@")
+        pub = ZmqKvEventPublisher(f"tcp://127.0.0.1:{port}", "smoke:8200",
+                                  model="deepseek-v3-bench")
+        pub.attach(km)
+        pub.start()
+        # A socket takes in new peers (and a SUB forwards its subscription
+        # to them) inside its own calls: poll while the publisher joins.
+        for _ in range(10):
+            sub.poll(50)
+    out = {}
+    try:
+        ev0 = km.eviction_count
+        run_wave(obs, prompts, WAVE1["new"], "ev")
+        stored = [h for e, h in col.events if e == "BlockStored"]
+        chains = {h for p in prompts for h in chain_hashes(obs, p)}
+        if set(stored) != set(km._cached) or not chains <= set(stored):
+            raise RuntimeError("stored events differ from the cached blocks")
+        out["stored_wave1"] = len(stored)
+        rng = np.random.default_rng(41)
+        waves = 0
+        while km.eviction_count == ev0 and waves < 4:
+            run_wave(obs, prompts_for(rng, vocab, WAVE3), WAVE3["new"],
+                     f"ev{waves}")
+            waves += 1
+        live = set()
+        for etype, h in col.events:
+            (live.add if etype == "BlockStored" else live.discard)(h)
+        removed = sum(e == "BlockRemoved" for e, _ in col.events)
+        if km.eviction_count == ev0 or live != set(km._cached) \
+                or removed != km.eviction_count - ev0:
+            raise RuntimeError(f"after {waves} waves: {removed} removals, "
+                               f"{km.eviction_count - ev0} evictions, live "
+                               f"set == cache: {live == set(km._cached)}")
+        out.update(events=len(col.events), removed=removed,
+                   evicted_wave1_blocks=len(chains - set(km._cached)),
+                   eviction_waves=waves)
+        if zmq_ok:
+            import msgpack
+            import zmq
+            got, quiet = [], time.perf_counter()
+            while time.perf_counter() - quiet < 1.0:
+                if sub.poll(100):
+                    _, payload = sub.recv_multipart()
+                    for ev in msgpack.unpackb(payload)["events"]:
+                        got += [(ev["type"], bytes(h))
+                                for h in ev["block_hashes"]]
+                    quiet = time.perf_counter()
+            if got != col.events:
+                raise RuntimeError(f"zmq delivered {len(got)} events, the "
+                                   f"sink {len(col.events)}")
+            out["zmq"] = dict(events=len(got))
+        else:
+            msg = refusal(["--kv-events-endpoint", "tcp://127.0.0.1:5557"])
+            if "--kv-events-endpoint" not in msg or not any(
+                    m in msg for m in ("zmq", "msgpack")):
+                raise RuntimeError(f"refusal does not name it: {msg}")
+            out["zmq"] = dict(missing=[m for m in ("zmq", "msgpack")
+                                       if not importable(m)], refused=msg)
+    finally:
+        km.on_block_stored[:], km.on_block_removed[:] = hooks
+        if pub is not None:
+            pub.stop()
+            sub.close(0)
+    return out
+
+
+def observe_restore(obs, prompt) -> dict:
+    """Phase 7(c)(c), in process: the in-process server over ``obs`` (the
+    host tier on).  A stream of ``prompt`` is dropped by its client after
+    ``RESUME_AT`` tokens; once its blocks are in the host tier and out of
+    the device cache, the stream is resumed at that offset: its first
+    chunk must say ``restored`` with restored tokens > 0, and journal and
+    continuation must be continuous.  Reports the restores' host ms."""
+    from llm_d_tpu_torch.server.openai import ModelServer
+    from llm_d_tpu_torch.server.stream_resume import (
+        OUTCOME_RESTORED, verify_continuity)
+    from llm_d_tpu_torch.utils.lifecycle import RESUME_OFFSET_HEADER
+    server = ModelServer(obs, DecimalTokenizer(), "deepseek-v3-bench")
+    url, close = serve_in_thread(server)
+    km, tier = obs.kv_manager, obs.host_tier
+    real, restore_s = km.secondary_lookup, []
+    try:
+        body = greedy_body(prompt, RESUME_NEW, True)
+        metas, _ = sse_stream(url, body, stop_after=RESUME_AT)
+        journal, kept = journal_of(metas, RESUME_AT)
+        t0 = time.perf_counter()
+        while obs.has_work() or server.async_engine._streams:
+            if time.perf_counter() - t0 > 60:
+                raise RuntimeError("the dropped stream was not aborted")
+            time.sleep(0.05)
+        tier.flush()
+        tier.complete(wait=True)
+        hashes = chain_hashes(obs, prompt + journal)
+        if any(h not in tier._store for h in hashes):
+            raise RuntimeError("the stream's blocks are not in the host tier")
+        dropped = 0
+        for h in hashes:
+            b = km.lookup_hash(h)
+            if b is not None:
+                km.uncache_block(b)
+                dropped += 1
+
+        def restore(h, protected=frozenset(), region=0):
+            t = time.perf_counter()
+            b = real(h, protected, region)
+            if b is not None:
+                restore_s.append(time.perf_counter() - t)
+            return b
+
+        km.secondary_lookup = restore
+        resumed, done = sse_stream(
+            url, dict(body, resume={"offset": RESUME_AT,
+                                    "token_ids": journal}),
+            headers={RESUME_OFFSET_HEADER: str(RESUME_AT)})
+    finally:
+        km.secondary_lookup = real
+        close()
+    problems = verify_continuity(kept + resumed, RESUME_NEW)
+    first = resumed[0] if resumed else {}
+    if not done or problems or first.get("src") != OUTCOME_RESTORED \
+            or not first.get("restored"):
+        raise RuntimeError(f"host-tier resume: done {done}, {problems}, "
+                           f"first meta {first}")
+    return dict(prompt_tokens=len(prompt), offset=RESUME_AT,
+                device_blocks_dropped=dropped, restored_blocks=len(restore_s),
+                restored_tokens=first["restored"], src=first["src"],
+                restore_host_ms=[x * 1e3 for x in restore_s],
+                restore_total_ms=sum(restore_s) * 1e3)
+
+
+def resume_pair(root: str, prompt, yardstick) -> dict:
+    """Phase 7(c)(c) and (e) across processes: two servers with path
+    (i)'s flags; the second from ``--config`` + ``--config-overlay``
+    files where ``yaml`` imports (the overlay sets its port, so serving
+    there shows the merge), else with ``--config`` checked refused by
+    name.  A stream of ``prompt`` from the first is cut after
+    ``RESUME_AT`` tokens by a SIGKILL of that server and re-posted to the
+    second with ``resume`` and the offset header: journal and
+    continuation must be continuous and the first resumed chunk must
+    carry ``src``.  The tokens are held against an uninterrupted run on
+    the second server (reported beside ``yardstick``, the classic loop's
+    tokens and top-2 margins for ``prompt``)."""
+    import signal
+    from llm_d_tpu_torch.server.stream_resume import verify_continuity
+    from llm_d_tpu_torch.utils.lifecycle import RESUME_OFFSET_HEADER
+    ports = [free_port(), free_port()]
+    urls = [f"http://127.0.0.1:{p}" for p in ports]
+    out = {}
+    layered = importable("yaml")
+    if layered:
+        base = os.path.join(root, "build", "smoke_base.yaml")
+        over = os.path.join(root, "build", "smoke_overlay.yaml")
+        os.makedirs(os.path.dirname(base), exist_ok=True)
+        flags = [*SERVER_FLAGS, "--host", "127.0.0.1", "--port", "1"]
+        with open(base, "w") as f:
+            i = 0
+            while i < len(flags):
+                # "--name value" -> "name: value"; a switch -> "name: true".
+                value = flags[i + 1] if i + 1 < len(flags) \
+                    and not flags[i + 1].startswith("--") else None
+                f.write(f"{flags[i][2:]}: "
+                        f"{'true' if value is None else value}\n")
+                i += 1 if value is None else 2
+        with open(over, "w") as f:
+            f.write(f"port: {ports[1]}\n")
+        argv_b = ["--config", base, "--config-overlay", over]
+    else:
+        argv_b = [*SERVER_FLAGS, "--host", "127.0.0.1", "--port",
+                  str(ports[1])]
+        msg = refusal(["--config", "layers.yaml"])
+        if "--config" not in msg or "yaml" not in msg:
+            raise RuntimeError(f"refusal does not name it: {msg}")
+        out["yaml"] = dict(missing=True, refused=msg)
+    procs = [start_server(root, [*SERVER_FLAGS, "--host", "127.0.0.1",
+                                 "--port", str(ports[0])], "resume_a.log"),
+             start_server(root, argv_b, "resume_b.log")]
+    try:
+        out["startup_s"] = [wait_ready(p, u) for p, u in zip(procs, urls)]
+        if layered:
+            out["yaml"] = dict(missing=False, served_on_overlay_port=True)
+        body = greedy_body(prompt, RESUME_NEW, True)
+        metas, _ = sse_stream(urls[0], body, stop_after=RESUME_AT)
+        procs[0].send_signal(signal.SIGKILL)
+        procs[0].wait(timeout=60)
+        journal, kept = journal_of(metas, RESUME_AT)
+        t0 = time.perf_counter()
+        resumed, done = sse_stream(
+            urls[1], dict(body, resume={"offset": RESUME_AT,
+                                        "token_ids": journal}),
+            headers={RESUME_OFFSET_HEADER: str(RESUME_AT)})
+        resume_s = time.perf_counter() - t0
+        problems = verify_continuity(kept + resumed, RESUME_NEW)
+        if not done or problems or "src" not in resumed[0]:
+            raise RuntimeError(f"resume across servers: done {done}, "
+                               f"{problems}, first meta {resumed[0]}")
+        tokens = journal + [t for m in resumed for t in m["tok"]]
+        whole = completion(urls[1], body)["tokens"]
+        ref, _, margins, bars = yardstick
+        out.update(
+            killed_rc=procs[0].returncode, offset=RESUME_AT,
+            new_tokens=RESUME_NEW, src=resumed[0]["src"],
+            restored_tokens=resumed[0].get("restored", 0),
+            resume_request_s=resume_s,
+            tokens_equal_uninterrupted=sum(a == b for a, b in
+                                           zip(tokens, whole)),
+            uninterrupted_equal_classic=whole == ref[0],
+            vs_uninterrupted=divergence([tokens], [whole], margins, bars),
+            vs_classic=divergence([tokens], ref, margins, bars))
+        procs[1].send_signal(signal.SIGTERM)
+        out["exit_code"] = procs[1].wait(timeout=DRAIN_S + 60)
+        if out["exit_code"] != 0:
+            raise RuntimeError(f"the resume server exited with "
+                               f"{out['exit_code']}")
+    except BaseException:
+        for name in ("resume_a.log", "resume_b.log"):
+            with open(os.path.join(root, "build", name), "rb") as log_f:
+                sys.stderr.write(log_f.read()[-4000:].decode(
+                    errors="replace"))
+        raise
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+    return out
 
 
 @contextlib.contextmanager
@@ -3969,6 +4503,54 @@ def main() -> int:
         row["server_launches"] = server_counts[row["name"]]
         row["launches"] += server_counts[row["name"]]
         row["graph_launches"] += in_graphs[row["name"]]
+    # (c) Observability and resume: tracing, the training feed, KV events
+    # and the host-tier resume in this process, on path (i)'s engine and,
+    # for the events and the restore, on path (v)(b)'s prefix-caching
+    # engine with the host tier; the resume across server processes after
+    # (b).  The classic loop's tokens and margins for the resumed prompt
+    # come first (a yardstick, not the phase's run).
+    t_obs = time.perf_counter()
+    classic = path_i_engine(1, engine.params)
+    yardstick_r = classic_margins(classic, [p1[0]], RESUME_NEW)
+    del classic
+    for k in kernels:
+        getattr(k["mod"], k["fn"]).launches = 0
+    replayed0 = dict(engine._graphs.launches)
+    observe = {"card": smi}
+    observe.update(observe_server(engine, p1, WAVE1["new"], vocab))
+    log(f"observe (a), (d): {json.dumps(observe)}")
+    obs = path_i_engine(BENCH_K, engine.params, enable_prefix_caching=True,
+                        num_blocks=TIER_BLOCKS,
+                        kv_offload_blocks=TIER_HOST_BLOCKS)
+    note_live_tokens(obs)
+    observe["events"] = observe_events(obs, p1, vocab)
+    log(f"observe (b): {json.dumps(observe['events'])}")
+    # With the journal, the prompt fills two blocks and two rows: the
+    # second block holds generated tokens, so its restore counts some.
+    observe["restore"] = observe_restore(
+        obs, p1[0][:2 * obs.config.block_size - RESUME_AT + 2])
+    log(f"observe (c) host tier: {json.dumps(observe['restore'])}")
+    in_graphs = {k["name"]: engine._graphs.launches[k["fn"]]
+                 - replayed0[k["fn"]] + obs._graphs.launches[k["fn"]]
+                 for k in kernels}
+    obs_counts = {k["name"]: getattr(k["mod"], k["fn"]).launches
+                  + in_graphs[k["name"]] for k in kernels}
+    log(f"observe launches {json.dumps(obs_counts)}, inside graph replays "
+        f"{json.dumps(in_graphs)}")
+    missing = [n for n in ("mla_decode", "mla_prefill", "moe_dense_int8",
+                           "moe_routed_int8", "moe_streamed_int8")
+               if obs_counts[n] == 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched in phase 7(c): "
+                           f"{missing}")
+    for row in rows:
+        row["observe_launches"] = obs_counts[row["name"]]
+        row["launches"] += obs_counts[row["name"]]
+        row["graph_launches"] += in_graphs[row["name"]]
+    obs.host_tier.close()
+    del obs
+    LIVE_TOKENS[0] = None
+    observe["in_process_s"] = time.perf_counter() - t_obs
     # (b) The entry point as a subprocess, with this process's engines and
     # recorded inputs freed first.
     del engine, params, quant, recorders, rec, bench_glue, llama_params2, \
@@ -3980,6 +4562,10 @@ def main() -> int:
         f"allocated in this process")
     server["entry_point"] = server_subprocess(root, vocab)
     log(f"server (entry point): {json.dumps(server['entry_point'])}")
+    t_obs = time.perf_counter()
+    observe["resume"] = resume_pair(root, p1[0], yardstick_r)
+    observe["resume"]["seconds"] = time.perf_counter() - t_obs
+    log(f"observe (c), (e): {json.dumps(observe['resume'])}")
     if prof is not None:
         # The first decode block of a fresh process, part by part.
         prof["cold_first_block"] = []
@@ -4006,6 +4592,7 @@ def main() -> int:
     print(json.dumps({"eplb": eplb_out}))
     print(json.dumps({"attribution": attr}))
     print(json.dumps({"sizing": sizing}))
+    print(json.dumps({"observe": observe}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -63,9 +63,19 @@ step body for the attribution sweep; ``kv_cache_hbm_bytes`` sizes the
 block pool from a memory budget; ``spec_strict`` refuses to start where
 a feature would be demoted at startup.
 
-Not ported yet (later slices): the engine's phase spans
-(``utils/tracing.py`` is here for the connector's and the tier's spans)
-and the multi-device fields (mesh, DBO).
+Tracing (``utils/tracing.py``), as the JAX engine records it: every
+request's ``queue``, ``prefill`` (``first_decode`` on a P/D consumer) and
+``decode`` phases go into ``llmd_tpu:request_phase_seconds``, and, for a
+request that carries a trace context (``Request.trace_ctx``), into
+``engine.*`` spans under it; each retire point (the classic step, a
+decode block, a fused round or an N-round dispatch) records one
+``engine.step`` span parented on its first traced request.  Spans are
+stamped from the clock reads that already bracket a dispatch and its
+retire, on the host: nothing is added to a step body or a captured
+graph, and no host sync.  ``step`` checks the ``engine.step`` fault point
+(``utils/faultinject.py``) first, as the JAX engine does.
+
+Not ported yet (later slices): the multi-device fields (mesh, DBO).
 """
 
 from __future__ import annotations
@@ -91,8 +101,10 @@ from llm_d_tpu_torch.ops.moe import DENSE_DISPATCH_MAX_T
 from llm_d_tpu_torch.ops.quant import (
     KV_CACHE_DTYPES, KV_SCALE_GRANULARITIES, MLA_LATENT_DTYPES,
     kv_scale_width, quantize_moe_experts)
+from llm_d_tpu_torch.utils import tracing
 from llm_d_tpu_torch.utils.config import env_choice, env_float, env_int
 from llm_d_tpu_torch.utils.device import resolve_device
+from llm_d_tpu_torch.utils.faultinject import get_injector
 from llm_d_tpu_torch.utils.metrics import EngineMetrics
 from llm_d_tpu_torch.utils.predictor import (
     SpecAcceptanceTracker, StepTimeModel)
@@ -359,6 +371,10 @@ class EngineCore:
         self._inflight: Optional[Dict[str, Any]] = None
         self._rejected: List[RequestOutput] = []
         self.metrics = EngineMetrics(c.name)
+        # Phase and step spans (``_trace_phase``; no-ops for untraced
+        # requests, stamped at retire points from clock reads already
+        # taken).
+        self.tracer = tracing.get_tracer("engine")
         if self.eplb is not None:
             self.eplb.metrics = self.metrics
         # PD producer: finished prefills whose blocks stay pinned until the
@@ -822,7 +838,7 @@ class EngineCore:
         random_rows = bool((meta["temperature"] > 0).any())
         S = meta["pos0"].shape[0]
         rec = dict(kind="ms", scheduled=list(scheduled), K=K, meta=meta,
-                   rows=rows)
+                   rows=rows, t0=time.monotonic())
         if self._graphs is None:
             mb = {k: torch.as_tensor(v, device=self.device)
                   for k, v in meta.items()}
@@ -872,6 +888,16 @@ class EngineCore:
                 self._step_count, self.params)
         outputs: List[RequestOutput] = []
         now = time.monotonic()
+        # The block's step span, from the dispatch's and this retire's
+        # clock reads (no sync of its own).
+        traced = next((sr.request for sr in scheduled
+                       if sr.request.trace_ctx is not None), None)
+        if traced is not None:
+            self.tracer.record_span(
+                "engine.step", self._mono_to_epoch(inflight["t0"]),
+                self._mono_to_epoch(now), parent=traced.trace_ctx,
+                step=self._step_count, kind="decode", fused=K,
+                n_seqs=len(scheduled))
         for s, sr in zip(inflight["rows"], scheduled):
             req = sr.request
             if req.state is not RequestState.RUNNING:
@@ -1432,7 +1458,7 @@ class EngineCore:
 
         outputs: List[RequestOutput] = []
         now = time.monotonic()
-        pre_toks = dec_toks = 0
+        pre_toks = dec_toks = total_drafted = total_accepted = 0
         # EPLB: the token slots whose routing counts, round by round.
         valid = (np.zeros((N, plan["T"]), bool)
                  if self.eplb is not None else None)
@@ -1479,6 +1505,8 @@ class EngineCore:
                     # drafts' routing must not skew the balance stats,
                     # as their KV is trimmed.
                     valid[rno, off:off + a + 1] = True
+                total_drafted += val
+                total_accepted += a
                 req.spec_drafted += val
                 req.spec_accepted += a
                 if val:
@@ -1548,6 +1576,20 @@ class EngineCore:
         # One sample a round, as the chunk cap sizes chunks per round.
         self.step_time_model.observe(pre_toks / N, dec_toks / N,
                                      (now - rec["t0"]) * 1e3 / N)
+        traced = next((sp_["req"] for sp_ in plan["specs"]
+                       if sp_["active"] and sp_["req"].trace_ctx is not None),
+                      None)
+        if traced is not None:
+            self.tracer.record_span(
+                "engine.step", self._mono_to_epoch(rec["t0"]),
+                self._mono_to_epoch(now), parent=traced.trace_ctx,
+                step=self._step_count,
+                kind=("decode" if pre_toks == 0
+                      else "prefill" if dec_toks == 0 else "mixed"),
+                spec=True, fused=N,
+                n_seqs=sum(1 for sp_ in plan["specs"] if sp_["active"]),
+                prefill_tokens=pre_toks, decode_tokens=dec_toks,
+                drafted=total_drafted, accepted=total_accepted)
         self._update_queue_metrics()
         return outputs
 
@@ -1618,6 +1660,10 @@ class EngineCore:
     # ---------- step ----------
 
     def step(self) -> List[RequestOutput]:
+        # Chaos fault point: a raised fault is an engine death (the async
+        # engine fails every stream, /health turns 500).  Keyed by model
+        # name, so a harness can kill one replica of several.
+        get_injector().check("engine.step", key=str(self.config.model))
         outputs: List[RequestOutput] = list(self._rejected)
         self._rejected.clear()
         if self.kv_connector is not None:
@@ -1644,9 +1690,13 @@ class EngineCore:
         for sr in sched.scheduled:
             if sr.is_first_schedule and not sr.request.queue_wait_observed:
                 sr.request.queue_wait_observed = True
+                sr.request.first_schedule_time = sched_now
                 self.metrics.observe_queue_wait(
                     sr.request.criticality,
                     max(0.0, sched_now - sr.request.arrival_time))
+                self._trace_phase(
+                    sr.request, "engine.queue", "queue",
+                    min(sr.request.arrival_time, sched_now), sched_now)
         for req in sched.preempted:      # requests finished by the scheduler
             if req.state is RequestState.FINISHED_DEADLINE:
                 self.metrics.inc_deadline_exceeded(req.criticality)
@@ -1724,6 +1774,18 @@ class EngineCore:
                if want_top else None)
 
         now = time.monotonic()
+        traced = next((sr.request for sr in scheduled
+                       if sr.request.trace_ctx is not None), None)
+        if traced is not None:
+            max_new = max(sr.num_new_tokens for sr in scheduled)
+            self.tracer.record_span(
+                "engine.step", self._mono_to_epoch(step_t0),
+                self._mono_to_epoch(now), parent=traced.trace_ctx,
+                step=self._step_count,
+                kind="decode" if max_new == 1 else "prefill",
+                n_seqs=len(scheduled), n_tokens=sched.total_tokens,
+                prefill_tokens=sched.prefill_tokens,
+                decode_tokens=sched.decode_tokens, fused=False)
         for s, sr in enumerate(scheduled):
             req, n = sr.request, sr.num_new_tokens
             req.num_computed_tokens += n
@@ -1793,7 +1855,9 @@ class EngineCore:
             kv_transfer_params=params)
 
     def _count_prefill_done(self, req: Request, now: float) -> None:
-        """Prompt, prefix-cache and TTFT counts of a finished prefill."""
+        """Prompt, prefix-cache and TTFT counts of a finished prefill, and
+        its phase (a P/D consumer's one local token is the first-decode
+        leg of the TTFT split)."""
         self.metrics.prompt_tokens.inc(req.num_prompt_tokens)
         if req.num_cached_prompt_tokens:
             self.metrics.prefix_cache_hits.inc(req.num_cached_prompt_tokens)
@@ -1801,12 +1865,41 @@ class EngineCore:
         if req.first_token_time is None:
             req.first_token_time = now
             self.metrics.time_to_first_token.observe(now - req.arrival_time)
+            self._trace_phase(
+                req, "engine.prefill",
+                "first_decode" if req.do_remote_prefill else "prefill",
+                req.first_schedule_time or req.arrival_time, now,
+                cached_tokens=req.num_cached_prompt_tokens or None,
+                resume_offset=req.resume_offset or None,
+                restored_tokens=req.resume_restored_tokens or None)
 
     def _count_success(self, req: Request, finish: str, now: float) -> None:
         self.metrics.request_success.labels(
             model_name=self.metrics.model_name,
             finished_reason=finish).inc()
         self.metrics.e2e_request_latency.observe(now - req.arrival_time)
+        self._trace_phase(
+            req, "engine.decode", "decode", req.first_token_time or now, now,
+            n_tokens=len(req.output_token_ids), finish=finish)
+
+    @staticmethod
+    def _mono_to_epoch(mono: float) -> float:
+        """Engine-clock (monotonic) stamp -> epoch, for spans recorded
+        after the fact (request stamps live on the monotonic clock)."""
+        return time.time() - (time.monotonic() - mono)
+
+    def _trace_phase(self, req: Request, name: str, phase: str,
+                     start_mono: float, end_mono: float, **attrs) -> None:
+        """Observe one request phase in ``request_phase_seconds`` and, for
+        a traced request, record its span."""
+        self.metrics.observe_phase(phase, req.criticality,
+                                   end_mono - start_mono)
+        if req.trace_ctx is None:
+            return
+        self.tracer.record_span(
+            name, self._mono_to_epoch(start_mono),
+            self._mono_to_epoch(end_mono), parent=req.trace_ctx,
+            request_id=req.request_id, phase=phase, **attrs)
 
     def _update_queue_metrics(self) -> None:
         if self.host_tier is not None:

@@ -88,7 +88,10 @@ class Request:
                  headers: Dict[str, str], body: bytes,
                  writer: asyncio.StreamWriter) -> None:
         self.method = method
-        self.path = urllib.parse.urlsplit(target).path
+        parts = urllib.parse.urlsplit(target)
+        self.path = parts.path
+        # Query parameters; a repeated name keeps its last value.
+        self.query = dict(urllib.parse.parse_qsl(parts.query))
         self.version = version
         # Header names lowercased; a repeated header keeps its last value.
         self.headers = headers

@@ -15,6 +15,7 @@ surface:
   GET  /v1/models       -> 200 once the model is loaded (readiness); 503
                            with x-llmd-draining while draining
   GET  /metrics         -> Prometheus text, ``vllm:*`` taxonomy
+  GET  /debug/traces    -> the tracer rings as JSONL (``?drain=1`` clears)
   GET  /version, POST /tokenize
   POST /v1/completions, /v1/chat/completions (+SSE streaming)
   POST /admin/drain     -> readiness down, in-flight requests complete;
@@ -51,9 +52,30 @@ cache: ``--kv-offload-blocks``, ``--kv-shared-tier-port`` and static
 sidecar; on the card, ``chip_smoke.py`` path (v)(c) runs a producer and a
 consumer process.
 
-Not served yet (each refused with a status and a message naming it, not
-quietly dropped): mid-stream ``resume``, ``/debug/traces``, and the CLI
-flags of multi-device serving, DBO and KV events (``UNSERVED_FLAGS``).
+The rest of an llm-d model server, as the JAX server serves it:
+
+* tracing: each request gets a ``server.request`` span, parented on the
+  incoming ``traceparent`` / llmd trace headers, under which the engine
+  records its phase and step spans; ``/debug/traces`` dumps them;
+* the latency predictor's training feed: ``--latency-training-url``
+  posts each finished request's ``ttft`` / ``tpot`` sample, with the
+  load it met at arrival, to ``<url>/samples`` (standard library, on a
+  daemon thread, 1 s timeout);
+* KV events: ``--kv-events-endpoint`` (``--pod-identity``) publishes the
+  prefix cache's BlockStored / BlockRemoved events for the EPP's precise
+  prefix scorer (``events/kv_events.py``; needs ``zmq`` and ``msgpack``);
+* config layers: ``--config`` and ``--config-overlay`` YAML files, the
+  command line winning (``utils/config.py``; needs ``yaml``);
+* mid-stream resume, the replica's half (``server/stream_resume.py``): a
+  body with ``resume`` (and the ``x-llmd-resume-offset`` header) admits
+  prompt + journal and streams on from the offset, its first chunk
+  marked ``restored`` or ``recomputed``.
+
+A flag whose module is missing is refused by name (``check_served``).
+
+Not served (each refused with a message naming it, not quietly
+dropped): the CLI flags of multi-device serving and DBO
+(``UNSERVED_FLAGS``), and the relay half of resume (the DP leader's).
 """
 
 from __future__ import annotations
@@ -63,8 +85,12 @@ import asyncio
 import contextlib
 import json
 import logging
+import importlib
+import queue
 import signal
+import threading
 import time
+import urllib.request
 import uuid as uuid_mod
 from typing import Any, Dict, List, Optional
 
@@ -72,10 +98,13 @@ from llm_d_tpu_torch.engine.async_engine import AsyncEngine
 from llm_d_tpu_torch.engine.engine import EngineConfig, EngineCore
 from llm_d_tpu_torch.engine.request import Request, RequestOutput
 from llm_d_tpu_torch.ops.sampling import SamplingParams
+from llm_d_tpu_torch.server import stream_resume
 from llm_d_tpu_torch.server.http_server import (
     HTTPServer, Response, json_response, text_response)
 from llm_d_tpu_torch.server.http_server import Request as HTTPRequest
-from llm_d_tpu_torch.utils.config import env_float, env_int
+from llm_d_tpu_torch.utils import tracing
+from llm_d_tpu_torch.utils.config import (
+    apply_file_config, env_float, env_int, load_layers)
 from llm_d_tpu_torch.utils.lifecycle import (
     DEADLINE_EXCEEDED_HEADER,
     DRAINING_HEADER,
@@ -89,10 +118,9 @@ from llm_d_tpu_torch.utils.tokenizer import get_tokenizer
 
 logger = logging.getLogger(__name__)
 
-# The ``llmd`` key of every SSE chunk: the completion-token offset and ids
-# of the chunk's new tokens (the relays' journal and the load generator's
-# continuity check read it; OpenAI clients ignore it).
-CHUNK_META_KEY = "llmd"
+# Training samples waiting for the poster thread; past this many (a slow
+# or unreachable trainer) new samples are dropped.
+TRAINING_QUEUE_MAX = 1024
 
 
 def _sampling_from_body(body: Dict[str, Any]) -> SamplingParams:
@@ -116,16 +144,13 @@ def _sampling_from_body(body: Dict[str, Any]) -> SamplingParams:
     )
 
 
-def _unported(body: Dict[str, Any], headers: Dict[str, str],
-              engine: EngineCore) -> Optional[str]:
+def _unported(body: Dict[str, Any], engine: EngineCore) -> Optional[str]:
     """What a request asks for that this server does not serve, or None.
     ``kv_transfer_params`` needs a KV connector: without one, a local
     prefill would look healthy while defeating disaggregation."""
     if body.get("kv_transfer_params") and engine.kv_connector is None:
         return ("kv_transfer_params: this server has no KV connector "
                 "(start it with --kv-transfer-config)")
-    if body.get("resume") or RESUME_OFFSET_HEADER in headers:
-        return "resume: mid-stream resume (stream_resume) is not ported"
     return None
 
 
@@ -138,6 +163,13 @@ class ModelServer:
         self.model_loaded = False
         self.started_at = time.time()
         self.app: Optional[HTTPServer] = None
+        # The latency-training sidecar's base URL (--latency-training-url)
+        # and the KV-events publisher (--kv-events-endpoint), when set.
+        self.latency_training_url: Optional[str] = None
+        self._samples: "queue.Queue[tuple]" = queue.Queue(
+            maxsize=TRAINING_QUEUE_MAX)
+        self._sample_thread: Optional[threading.Thread] = None
+        self.kv_event_publisher = None
         # --- lifecycle ---
         # draining: readiness is down and new inference is refused (503)
         # while in-flight requests complete, bounded by drain_timeout_s;
@@ -197,6 +229,8 @@ class ModelServer:
 
     async def _on_cleanup(self) -> None:
         self.async_engine.stop()
+        if self.kv_event_publisher is not None:
+            self.kv_event_publisher.stop()
 
     # ---------- probes / meta ----------
 
@@ -222,8 +256,14 @@ class ModelServer:
         return Response(self.engine.metrics.render())
 
     async def debug_traces(self, request: HTTPRequest) -> Response:
-        return json_response(
-            {"error": "/debug/traces: the tracer is not ported"}, status=501)
+        """Every tracer's spans as JSONL (``?drain=1`` clears the rings):
+        what ``scripts/trace_report.py`` and ``generate_load.py
+        --trace-export`` read."""
+        drain = request.query.get("drain") in ("1", "true")
+        spans = ([s for t in tracing.all_tracers().values()
+                  for s in t.drain()] if drain else tracing.snapshot_all())
+        return Response(tracing.render_jsonl(spans).encode(),
+                        content_type="application/jsonl")
 
     async def version(self, request: HTTPRequest) -> Response:
         from llm_d_tpu_torch import __version__
@@ -338,6 +378,30 @@ class ModelServer:
             elif ktp.get("remote_block_ids") or ktp.get("do_remote_prefill"):
                 req.do_remote_prefill = True
                 req.kv_transfer_params = ktp
+        resume = body.get("resume")
+        if resume:
+            # Mid-stream resume: the relay's journal arrives as generated
+            # tokens.  The scheduler admits prompt + journal as a prefill
+            # (restored from the prefix cache or a tier where it can,
+            # recomputed where it cannot) and decoding continues from the
+            # journal's end.
+            ids = list(resume.get("token_ids") or [])
+            vocab = self.engine.model_config.vocab_size
+            if not all(type(t) is int and 0 <= t < vocab for t in ids):
+                # The journal is prefilled with the prompt: an id past the
+                # embedding table would fault the device.
+                raise ValueError(f"resume token ids must be ints in "
+                                 f"[0, {vocab})")
+            off_hdr = headers.get(RESUME_OFFSET_HEADER)
+            if off_hdr is not None and int(off_hdr) != len(ids):
+                raise ValueError(
+                    f"resume offset {off_hdr} != {len(ids)} journaled "
+                    f"token ids")
+            if req.do_remote_prefill or req.do_remote_decode:
+                raise ValueError("resume cannot combine with PD "
+                                 "kv_transfer_params roles")
+            req.output_token_ids = ids
+            req.resume_offset = len(ids)
         return req
 
     def _refuse_draining(self) -> Optional[Response]:
@@ -363,7 +427,7 @@ class ModelServer:
         refused = self._refuse_draining()
         if refused is not None:
             return refused
-        missing = _unported(body, request.headers, self.engine)
+        missing = _unported(body, self.engine)
         if missing is not None:
             return json_response({"error": f"not served: {missing}"},
                                  status=501)
@@ -399,6 +463,59 @@ class ModelServer:
             usage["avg_predicted_tpot_ms"] = pred.get("tpot_ms")
         return usage
 
+    def _arrival_features(self, req: Request) -> Dict[str, float]:
+        """The load a request meets at admission: the latency predictor's
+        features."""
+        return {
+            "num_waiting": float(self.engine.scheduler.num_waiting),
+            "num_running": float(self.engine.scheduler.num_running),
+            "kv_usage": float(self.engine.kv_manager.usage),
+            "prompt_tokens": float(req.num_prompt_tokens),
+        }
+
+    def _post_training_sample(self, req: Request,
+                              feats: Dict[str, float]) -> None:
+        """Queue a finished request's actuals for the latency-training
+        sidecar.  One daemon thread posts them, so neither the event loop
+        nor the engine thread waits on it; a failure, or a sample past a
+        full queue, is logged at debug."""
+        url = self.latency_training_url
+        if not url:
+            return
+        samples = []
+        usage = self._usage(req, {})
+        if "ttft_ms" in usage:
+            samples.append({"target": "ttft", "features": feats,
+                            "actual_ms": usage["ttft_ms"]})
+        if "avg_tpot_ms" in usage:
+            tf = {k: feats[k] for k in
+                  ("num_waiting", "num_running", "kv_usage")}
+            samples.append({"target": "tpot", "features": tf,
+                            "actual_ms": usage["avg_tpot_ms"]})
+        if not samples:
+            return
+        if self._sample_thread is None:
+            self._sample_thread = threading.Thread(
+                target=self._sample_loop, name="latency-sample", daemon=True)
+            self._sample_thread.start()
+        try:
+            self._samples.put_nowait((url, json.dumps(samples).encode()))
+        except queue.Full:
+            logger.debug("latency-training queue full; sample dropped")
+
+    def _sample_loop(self) -> None:
+        """The one thread that posts training samples, in arrival order."""
+        while True:
+            url, data = self._samples.get()
+            try:
+                with urllib.request.urlopen(urllib.request.Request(
+                        f"{url}/samples", data=data,
+                        headers={"Content-Type": "application/json"}),
+                        timeout=1.0) as r:
+                    r.read()
+            except Exception as exc:
+                logger.debug("latency-training sample post failed: %s", exc)
+
     async def _run(self, http_req: HTTPRequest, body: Dict[str, Any],
                    prompt_ids: List[int], chat: bool) -> Response:
         try:
@@ -406,11 +523,26 @@ class ModelServer:
         except (TypeError, ValueError) as exc:
             return json_response(
                 {"error": f"invalid request: {exc}"}, status=400)
-        logger.debug("request %s admitted (criticality=%s prompt_tokens=%d)",
-                     req.request_id, req.criticality, req.num_prompt_tokens)
+        # The admission span: a root for a request straight from a client,
+        # a child of the gateway's or sidecar's hop otherwise; a root's
+        # trace id is seeded from the request id.  The engine's spans
+        # parent on it through the request.
+        headers = http_req.headers
+        span = tracing.get_tracer("server").start_span(
+            "server.request",
+            parent=tracing.parse_trace_headers(headers),
+            request_id=headers.get(REQUEST_ID_HEADER, req.request_id),
+            criticality=req.criticality,
+            prompt_tokens=req.num_prompt_tokens,
+            resume_offset=req.resume_offset or None)
+        req.trace_ctx = span.ctx()
+        logger.debug("request %s admitted (trace=%s criticality=%s "
+                     "prompt_tokens=%d)", req.request_id, span.trace_id,
+                     req.criticality, req.num_prompt_tokens)
         if req.deadline_expired():
             # Budget already blown (e.g. spent queueing at the gateway).
             self.engine.metrics.inc_deadline_exceeded(req.criticality)
+            span.end(error="deadline exceeded at admission")
             return json_response(
                 {"error": "deadline exceeded", "request_id": req.request_id},
                 status=504, headers={DEADLINE_EXCEEDED_HEADER: "1"})
@@ -423,10 +555,13 @@ class ModelServer:
             self._inflight -= 1
             if self.draining:
                 self.engine.metrics.drain_inflight.set(self._inflight)
+            span.end(completion_tokens=len(req.output_token_ids),
+                     finish=req.state.value)
 
     async def _run_inner(self, http_req: HTTPRequest, body: Dict[str, Any],
                          req: Request, chat: bool):
         created = int(time.time())
+        arrival_feats = self._arrival_features(req)
         if bool(body.get("stream", False)):
             # The headers leave before this request is admitted, so the
             # depth counts it (+1): the value a fresh scrape would see.
@@ -436,6 +571,7 @@ class ModelServer:
                 SCHED_DEPTH_HEADER: str(self._sched_depth() + 1)})
             await self._stream_tokens_into(resp, req, body, chat, created)
             await resp.write_eof()
+            self._post_training_sample(req, arrival_feats)
             return resp
 
         final_out = None
@@ -478,6 +614,7 @@ class ModelServer:
                 lp_ids, lp_vals, lp_tops, chat)
         if final_out is not None and final_out.kv_transfer_params:
             payload["kv_transfer_params"] = final_out.kv_transfer_params
+        self._post_training_sample(req, arrival_feats)
         # This request already left the scheduler: the depth is everyone
         # still queued or running behind it.
         headers = {SCHED_DEPTH_HEADER: str(self._sched_depth())}
@@ -514,13 +651,22 @@ class ModelServer:
     async def _stream_tokens_into(self, resp, req: Request,
                                   body: Dict[str, Any], chat: bool,
                                   created: int) -> None:
-        """Generate and write one request's SSE token stream, then the
-        usage frame (when asked for) and ``[DONE]``."""
+        """Generate and write one (possibly resumed) request's SSE token
+        stream, then the usage frame (when asked for) and ``[DONE]``."""
         async def write_frame(payload: Dict[str, Any]) -> None:
             await resp.write(b"data: " + json.dumps(payload).encode()
                              + b"\n\n")
 
-        await self._generate_stream(req, chat, created, write_frame)
+        if req.resume_offset >= req.sampling.max_tokens:
+            # The break fell between the last token and [DONE]: every
+            # token was delivered; send the finish frame without decoding
+            # another.
+            await write_frame(self._chunk(
+                req, "", RequestOutput(req.request_id, [], True, "length"),
+                req.resume_offset, created, chat, finished=True,
+                finish_reason="length"))
+        else:
+            await self._generate_stream(req, chat, created, write_frame)
         if bool((body.get("stream_options") or {}).get("include_usage")):
             await write_frame({
                 "id": req.request_id,
@@ -534,11 +680,13 @@ class ModelServer:
 
     async def _generate_stream(self, req: Request, chat: bool,
                                created: int, write_frame) -> None:
-        # The tokens this stream has delivered.  The engine thread appends
-        # to the request's own list, which may already hold a later
-        # output's tokens when this one is written.
-        ids: List[int] = []
-        all_text_len = 0
+        # The completion tokens delivered so far (a resumed request's
+        # journal first: its text went out from the replica that died).
+        # The engine thread appends to the request's own list, which may
+        # already hold a later output's tokens when this one is written.
+        ids: List[int] = list(req.output_token_ids)
+        all_text_len = len(self.tokenizer.decode(ids)) if ids else 0
+        first_meta_pending = req.resume_offset > 0
         async with contextlib.aclosing(
                 self.async_engine.generate(req)) as outs:
             async for out in outs:
@@ -549,9 +697,15 @@ class ModelServer:
                 delta, stopped = self._apply_stop_strings(req, delta, text)
                 finished = out.finished or stopped
                 reason = "stop" if stopped else out.finish_reason
+                src = None
+                if first_meta_pending:
+                    first_meta_pending = False
+                    src = (stream_resume.OUTCOME_RESTORED
+                           if req.resume_restored_tokens > 0
+                           else stream_resume.OUTCOME_RECOMPUTED)
                 await write_frame(self._chunk(
                     req, delta, out, off, created, chat, finished=finished,
-                    finish_reason=reason))
+                    finish_reason=reason, resume_src=src))
                 if stopped and not out.finished:
                     # The engine missed the stop string (it spanned a
                     # longer window): end the request through the engine
@@ -577,7 +731,8 @@ class ModelServer:
 
     def _chunk(self, req: Request, delta: str, out: RequestOutput, off: int,
                created: int, chat: bool, finished: bool,
-               finish_reason: Optional[str]) -> Dict[str, Any]:
+               finish_reason: Optional[str],
+               resume_src: Optional[str] = None) -> Dict[str, Any]:
         choice: Dict[str, Any] = {
             "index": 0,
             "finish_reason": finish_reason if finished else None}
@@ -590,7 +745,9 @@ class ModelServer:
             "object": "chat.completion.chunk" if chat else "text_completion",
             "created": created, "model": self.model_name,
             "choices": [choice],
-            CHUNK_META_KEY: {"off": off, "tok": list(out.new_token_ids)},
+            stream_resume.CHUNK_META_KEY: stream_resume.chunk_meta(
+                off, out.new_token_ids, src=resume_src,
+                restored_tokens=req.resume_restored_tokens),
         }
         if out.finished and out.kv_transfer_params:
             chunk["kv_transfer_params"] = out.kv_transfer_params
@@ -634,8 +791,6 @@ def engine_config_from_args(args) -> EngineConfig:
 # default.
 _MULTI_DEVICE = "multi-device serving is not ported (one card)"
 UNSERVED_FLAGS = {
-    "config": "YAML config layers are not ported",
-    "config_overlay": "YAML config layers are not ported",
     "compilation_cache_dir": "XLA's compilation cache has no counterpart "
                              "(the kernels build with nvcc)",
     "tensor_parallel_size": _MULTI_DEVICE,
@@ -648,13 +803,18 @@ UNSERVED_FLAGS = {
     "data_parallel_workers": _MULTI_DEVICE,
     "data_parallel_mode": _MULTI_DEVICE,
     "allow_device_subset": _MULTI_DEVICE,
-    "latency_training_url": "the latency predictor's training feed is "
-                            "not ported",
     "enable_dbo": "dual-batch overlap is not ported",
     "dbo_decode_token_threshold": "dual-batch overlap is not ported",
     "dbo_prefill_token_threshold": "dual-batch overlap is not ported",
-    "kv_events_endpoint": "the KV-events publisher is not ported",
-    "pod_identity": "the KV-events publisher is not ported",
+}
+
+# Served flags that need a module beyond the standard library, by
+# argparse dest.  Where one is missing the flag is refused by name:
+# starting without it would hide the misconfiguration.
+FLAG_MODULES = {
+    "config": ("yaml",),
+    "config_overlay": ("yaml",),
+    "kv_events_endpoint": ("zmq", "msgpack"),
 }
 
 
@@ -747,8 +907,15 @@ def build_arg_parser() -> argparse.ArgumentParser:
              "(kv_producer | kv_consumer | kv_both), kv_ip (address "
              "advertised to consumers), kv_port (0 = ephemeral), "
              "kv_load_failure_policy (fail | recompute)")
-    p.add_argument("--kv-events-endpoint", default=None)
-    p.add_argument("--pod-identity", default=None)
+    p.add_argument(
+        "--kv-events-endpoint", default=None,
+        help="publish KV-cache block events to this ZMQ endpoint for the "
+             "EPP's precise prefix index, e.g. tcp://epp:5557 (needs zmq "
+             "and msgpack)")
+    p.add_argument(
+        "--pod-identity", default=None,
+        help="this replica's address as the EPP sees it (host:port); "
+             "defaults to <host>:<port>")
     p.add_argument(
         "--device", default=None,
         help="torch device to serve on (default: the first CUDA card; "
@@ -761,14 +928,52 @@ def shared_tier_peers(args) -> tuple:
                  if s.strip())
 
 
+def check_modules(parser: argparse.ArgumentParser, args) -> None:
+    """``parser.error`` for the first flag of ``FLAG_MODULES`` that is set
+    while a module it needs cannot be imported."""
+    for dest, modules in FLAG_MODULES.items():
+        if getattr(args, dest) == parser.get_default(dest):
+            continue
+        missing = []
+        for name in modules:
+            try:
+                importlib.import_module(name)
+            except ImportError:
+                missing.append(name)
+        if missing:
+            flag = "--" + dest.replace("_", "-")
+            parser.error(f"{flag} needs the Python module(s) "
+                         f"{', '.join(missing)}, which cannot be imported "
+                         f"here")
+
+
+def apply_config_layers(parser: argparse.ArgumentParser, args,
+                        argv: Optional[List[str]] = None) -> None:
+    """``--config`` then each ``--config-overlay``, merged into ``args``
+    with the command line winning (before ``check_served``, so a layer
+    that sets an unserved flag is refused too)."""
+    if not (args.config or args.config_overlay):
+        return
+    layers = ([args.config] if args.config else []) + args.config_overlay
+    try:
+        merged = load_layers(layers)
+    except ImportError as exc:
+        flag = "--config" if args.config else "--config-overlay"
+        parser.error(f"{flag} needs the Python module(s) {exc.name}, "
+                     f"which cannot be imported here")
+    apply_file_config(args, parser, merged, argv=argv)
+
+
 def check_served(parser: argparse.ArgumentParser, args) -> None:
     """``parser.error`` for the first unserved flag set to anything but
-    its default, for dynamic shared-tier peer specs, and for a shared
-    tier without the host tier it serves from."""
+    its default, for a served flag whose module is missing, for dynamic
+    shared-tier peer specs, and for a shared tier without the host tier
+    it serves from."""
     for dest, why in UNSERVED_FLAGS.items():
         if getattr(args, dest) != parser.get_default(dest):
             flag = "--" + dest.replace("_", "-")
             parser.error(f"{flag} is not served by the PyTorch port: {why}")
+    check_modules(parser, args)
     from llm_d_tpu_torch.engine.offload import DYNAMIC_PEER_PREFIXES
     dynamic = [p for p in shared_tier_peers(args)
                if p.startswith(DYNAMIC_PEER_PREFIXES)]
@@ -799,17 +1004,50 @@ def kv_connector_from_args(args):
         kv_load_failure_policy=ktc.get("kv_load_failure_policy", "fail")))
 
 
+def kv_event_publisher_from_args(args):
+    """The ``ZmqKvEventPublisher`` of ``--kv-events-endpoint`` (not yet
+    started), or None.  The EPP keys its prefix index by the address it
+    routes to, so a wildcard ``--host`` without ``--pod-identity`` is
+    replaced by this host's address (with a warning)."""
+    if not args.kv_events_endpoint:
+        return None
+    from llm_d_tpu_torch.events.kv_events import ZmqKvEventPublisher
+    identity = args.pod_identity
+    if not identity:
+        host = args.host
+        if host in ("0.0.0.0", "::", ""):
+            import socket
+            host = socket.gethostbyname(socket.gethostname())
+            logger.warning(
+                "kv-events: --pod-identity not set and --host is a "
+                "wildcard; guessing %s:%s (set --pod-identity to the "
+                "address the EPP routes to)", host, args.port)
+        identity = f"{host}:{args.port}"
+    return ZmqKvEventPublisher(args.kv_events_endpoint, identity,
+                               model=args.model)
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     p = build_arg_parser()
     args = p.parse_args(argv)
+    apply_config_layers(p, args, argv)
     check_served(p, args)
     logging.basicConfig(level=logging.INFO)
     server = build_server(engine_config_from_args(args), args.tokenizer)
+    if args.latency_training_url:
+        server.latency_training_url = args.latency_training_url.rstrip("/")
     connector = kv_connector_from_args(args)
     if connector is not None:
         server.engine.kv_connector = connector
         logger.info("KV connector: role=%s serving on %s:%s",
                     connector.config.kv_role, connector.host, connector.port)
+    publisher = kv_event_publisher_from_args(args)
+    if publisher is not None:
+        publisher.attach(server.engine.kv_manager)
+        publisher.start()
+        server.kv_event_publisher = publisher
+        logger.info("KV events: publishing %s to %s",
+                    publisher.topic.decode(), publisher.endpoint)
     asyncio.run(server.serve(args.host, args.port))
 
 

@@ -31,10 +31,13 @@ schedule; the comparisons are exact:
 the two servers answer alike and publish the same
 ``llmd_tpu:eplb_imbalance``.
 
-Port-only checks: unported features (resume, and ``kv_transfer_params``
-on a server without a KV connector) and unserved CLI flags (dynamic
-shared-tier peer specs among them) are refused with a message naming
-them; the P/D and tier flags map to the engine config and the connector;
+Port-only checks: ``kv_transfer_params`` on a server without a KV
+connector and unserved CLI flags (dynamic shared-tier peer specs among
+them) are refused with a message naming them; a flag whose module is
+missing (``yaml``, ``zmq``, ``msgpack``) is refused naming the module;
+the observability flags parse as the JAX parser parses them; a ``resume``
+body is served as the JAX server serves it; the P/D and tier flags map
+to the engine config and the connector;
 ``--spec-k`` with ``--num-scheduler-steps`` > 1 parses;
 and ``python -m llm_d_tpu_torch.server.openai`` serves with aiohttp,
 prometheus_client and requests blocked, then drains and exits 0 on
@@ -99,10 +102,10 @@ def _free_port() -> int:
     return port
 
 
-def _wait_ready(url: str) -> None:
+def _wait_ready(url: str, path: str = "/v1/models") -> None:
     for _ in range(300):
         try:
-            if requests.get(url + "/v1/models", timeout=5).status_code == 200:
+            if requests.get(url + path, timeout=5).status_code == 200:
                 return
         except requests.ConnectionError:
             pass
@@ -113,7 +116,7 @@ def _wait_ready(url: str) -> None:
 class _Served:
     """One server on its own event loop in a daemon thread."""
 
-    def __init__(self, start, stop) -> None:
+    def __init__(self, start, stop, ready_path: str = "/v1/models") -> None:
         self.loop = asyncio.new_event_loop()
         self._stop = stop
         box = {}
@@ -129,7 +132,7 @@ class _Served:
         self.thread.start()
         assert started.wait(timeout=60)
         self.url = f"http://127.0.0.1:{box['port']}"
-        _wait_ready(self.url)
+        _wait_ready(self.url, ready_path)
 
     def close(self) -> None:
         asyncio.run_coroutine_threadsafe(self._stop(), self.loop).result(30)
@@ -138,7 +141,9 @@ class _Served:
         assert not self.thread.is_alive()
 
 
-def _serve_jax(server) -> _Served:
+def _serve_jax(server, ready_path: str = "/v1/models") -> _Served:
+    """An aiohttp application of the JAX package (``server.build_app()``)
+    on its own loop, ready once ``ready_path`` answers 200."""
     from aiohttp import web
     runner = web.AppRunner(server.build_app())
     port = _free_port()
@@ -148,7 +153,7 @@ def _serve_jax(server) -> _Served:
         await web.TCPSite(runner, "127.0.0.1", port).start()
         return port
 
-    return _Served(start, runner.cleanup)
+    return _Served(start, runner.cleanup, ready_path)
 
 
 def _serve_port(server) -> _Served:
@@ -378,13 +383,20 @@ def _metrics(pair):
 
 
 def test_metrics_equal_the_jax_server(tiny):
+    """The ``vllm:*`` counters and histogram counts, and the engine's
+    phase histogram (one queue, prefill and decode sample per request and
+    criticality), equal the JAX server's."""
     tiny.both("POST", "/v1/completions", json=dict(
         GREEDY, model="m", prompt=[1, 2, 3], max_tokens=4))
     j, t = _metrics(tiny)
     assert _families(t) == _families(j)
     assert "vllm:generation_tokens_total" in _families(t)
-    jc, tc = _counts(j), _counts(t)
+    names = ("llmd_tpu:request_phase_seconds_count",)
+    jc, tc = _counts(j, names), _counts(t, names)
     assert tc == jc
+    for phase in ("queue", "prefill", "decode"):
+        assert sum(v for k, v in tc.items() if k.startswith(names[0])
+                   and f'phase="{phase}"' in k) >= 1, phase
     assert tc['vllm:generation_tokens_total{model_name="tiny"}'] >= 4
     assert tc['vllm:time_to_first_token_seconds_count{model_name="tiny"}'] >= 1
     assert tc['vllm:inter_token_latency_seconds_count{model_name="tiny"}'] >= 3
@@ -624,13 +636,34 @@ def test_eplb_and_pool_budget_server_equals_the_jax_server():
 
 @pytest.mark.parametrize("body,names", [
     (dict(kv_transfer_params={"do_remote_decode": True}),
-     "kv_transfer_params"),
-    (dict(resume={"token_ids": [1, 2]}), "resume")])
+     "kv_transfer_params")])
 def test_unported_features_are_refused_by_name(tiny, body, names):
     r = requests.post(tiny.port.url + "/v1/completions", json=dict(
         GREEDY, prompt="x", max_tokens=2, **body), timeout=TIMEOUT)
     assert r.status_code == 501
     assert names in r.json()["error"]
+
+
+def test_a_resume_body_is_served_as_the_jax_server_serves_it(tiny):
+    """Mid-stream resume is served, not refused: the journal's tokens
+    come back as the start of the completion, the usage counts them, and
+    an offset header that disagrees with the journal is a 400."""
+    base = dict(GREEDY, model="m", prompt=[7, 8, 9], max_tokens=6)
+    j, t = tiny.both("POST", "/v1/completions", json=base)
+    assert _strip(t.json()) == _strip(j.json())
+    r = requests.post(tiny.port.url + "/v1/completions",
+                      json=dict(base, stream=True), stream=True,
+                      timeout=TIMEOUT)
+    journal = [tok for f in _sse(r)[:-1] for tok in f["llmd"]["tok"]]
+    body = dict(base, resume={"offset": 2, "token_ids": journal[:2]})
+    j, t = tiny.both("POST", "/v1/completions", json=body,
+                     headers={"x-llmd-resume-offset": "2"})
+    assert t.status_code == j.status_code == 200
+    assert _strip(t.json()) == _strip(j.json())
+    assert t.json()["usage"]["completion_tokens"] == 6
+    j, t = tiny.both("POST", "/v1/completions", json=body,
+                     headers={"x-llmd-resume-offset": "3"})
+    assert t.status_code == j.status_code == 400
 
 
 @pytest.mark.parametrize("prompt", [[1, 2, 10 ** 6], [3, -1], [4, 2.5]])
@@ -645,11 +678,28 @@ def test_out_of_vocabulary_prompt_ids_are_refused(tiny, prompt):
                         timeout=TIMEOUT).status_code == 200
 
 
+@pytest.mark.parametrize("journal", [[5, 10 ** 6], [-1], [4, 2.5]])
+@pytest.mark.parametrize("stream", [False, True])
+def test_out_of_vocabulary_resume_ids_are_refused(tiny, journal, stream):
+    """A resume journal is prefilled with the prompt, so its ids are held
+    to the prompt's check: a 400, and the engine serves on."""
+    r = requests.post(tiny.port.url + "/v1/completions", json=dict(
+        GREEDY, prompt=[7, 8, 9], max_tokens=4, stream=stream,
+        resume={"offset": len(journal), "token_ids": journal}),
+        headers={"x-llmd-resume-offset": str(len(journal))},
+        timeout=TIMEOUT)
+    assert r.status_code == 400
+    assert "token ids" in r.json()["error"]
+    r = requests.post(tiny.port.url + "/v1/completions", json=dict(
+        GREEDY, prompt=[7, 8, 9], max_tokens=2), timeout=TIMEOUT)
+    assert r.status_code == 200
+    assert r.json()["usage"]["completion_tokens"] == 2
+
+
 @pytest.mark.parametrize("flag", [
     ["--tensor-parallel-size", "2"],
     ["--kv-shared-tier-peers", "dns:kv-peers:5999",
      "--kv-offload-blocks", "8"], ["--dbo-decode-token-threshold", "8"],
-    ["--kv-events-endpoint", "tcp://x:1"], ["--config", "layers.yaml"],
     ["--enable-dbo"], ["--compilation-cache-dir", "/tmp/x"]])
 def test_an_unserved_cli_flag_is_a_parser_error(flag, capsys):
     p = TServer.build_arg_parser()
@@ -682,6 +732,44 @@ def test_every_unserved_flag_is_still_refused(dest, capsys):
         TServer.check_served(p, p.parse_args(argv))
     assert e.value.code == 2
     assert flag in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag,module", [
+    (["--kv-events-endpoint", "tcp://x:1"], "zmq"),
+    (["--kv-events-endpoint", "tcp://x:1"], "msgpack"),
+    (["--config", "layers.yaml"], "yaml"),
+    (["--config-overlay", "h100.yaml"], "yaml")])
+def test_a_flag_whose_module_is_missing_is_refused_by_name(
+        flag, module, monkeypatch, capsys):
+    """Where ``zmq``, ``msgpack`` or ``yaml`` cannot be imported, the flag
+    that needs it is a parser error naming the flag and the module."""
+    monkeypatch.setitem(sys.modules, module, None)
+    p = TServer.build_arg_parser()
+    with pytest.raises(SystemExit) as e:
+        TServer.check_served(p, p.parse_args(["--model", "tiny"] + flag))
+    assert e.value.code == 2
+    err = capsys.readouterr().err
+    assert flag[0] in err and module in err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--config", "base.yaml"], ["--config-overlay", "h100.yaml"],
+    ["--latency-training-url", "http://trainer:8000/"],
+    ["--kv-events-endpoint", "tcp://epp:5557"],
+    ["--pod-identity", "10.0.0.3:8200"]], ids=lambda a: a[0])
+def test_an_observability_flag_is_served(argv, capsys):
+    """``--config``, ``--config-overlay``, ``--latency-training-url``,
+    ``--kv-events-endpoint`` and ``--pod-identity`` pass ``check_served``
+    (their modules import here) and parse into what the JAX server's
+    parser builds."""
+    p = TServer.build_arg_parser()
+    args = p.parse_args(["--model", "tiny"] + argv)
+    TServer.check_served(p, args)
+    assert capsys.readouterr().err == ""
+    jargs = JServer.build_arg_parser().parse_args(["--model", "tiny"] + argv)
+    dest = argv[0][2:].replace("-", "_")
+    assert getattr(args, dest) == getattr(jargs, dest)
+    assert getattr(args, dest) != p.get_default(dest)
 
 
 def test_pd_and_tier_flags_are_served(capsys):
