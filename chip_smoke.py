@@ -239,7 +239,33 @@ Phases (each raises on failure; the script then exits non-zero):
             SIGKILL, resumed on the second (continuous, src marked),
             its tokens against an uninterrupted run on the second and
             the classic loop's with its top-2 margins (reported).
-            Kernels A-E must launch in the in-process part.
+            Kernels A-E must launch in the in-process part;
+8. path (vii) MoE with GQA attention, once phase 7 has freed the
+            card: qwen3-30b-a3b at full width and depth (48 layers, 128
+            experts, top-8; random weights from a
+            seed, the int8 experts drawn and quantized plane by plane)
+            through path (i)'s configuration (int8 experts, int8 cache
+            with per-token scales, block size 64, 8192-token steps, 32-step
+            decode blocks under async scheduling, 576 blocks): the build's
+            peak device memory; waves 1-3 and wave 1 again (must repeat),
+            every decode in 32-step blocks, kernels C, D, E, G and H
+            launching (G, C and D inside graph replays); the in-process
+            server (wave 1 one at a time, each reply the direct engine's
+            tokens for that prompt alone); waves 1-3 in 3 alternating
+            rounds a side against the classic loop (tokens identical);
+            the f32 head's time (``compute_logits``) against one bf16
+            matmul; the first two layers against the CPU reference (a
+            100- and 37-token batch, a 1024-token prompt; relative max
+            logit error <= 5e-2, the same argmax; the CPU takes the
+            card's expert choice, the flips its own would make are
+            reported); C, D, E, G and H
+            against their plain versions at the path's recorded inputs
+            (G and H also timed as one SDPA call on the K/V gathered and
+            dequantized to bf16).  Then the mixtral-8x22b witness, its
+            depth cut to 8 of 56 layers (one card cannot hold 135 GB of
+            int8 experts): waves 1 and 3 and wave 1 again, the 2-layer
+            reference check on the 100- and 37-token batch, C, E, G and
+            H at its recorded inputs and D from a seed at T = 256.
 
 Launch counts: every count is set to 0 just before a path is driven and
 read just after it; kernels A-F count path (i), G and H path (ii), and
@@ -252,7 +278,10 @@ also given as ``pd_launches``; (c) runs in its own processes), path
 2e(b) are comparisons and do not count), the in-process server's run
 (phase 7(a), also given as ``server_launches``) and phase 7(c)'s
 in-process run (``observe_launches``; its classic-loop yardstick does
-not count).  A
+not count), and C, D, E, G and H add path (vii)'s waves and in-process
+server run (``moe_gqa_launches``; the direct engine's one-at-a-time
+yardstick and the classic rounds do not count) and the witness's waves
+(``witness_launches``).  A
 count is the wrapper's own (eager launches, graph warm-ups included)
 plus the launches inside graph replays: a capture records each graph's
 launches, and every replay adds them (``engine/cuda_graph.py``); the
@@ -268,7 +297,8 @@ the card's name and power limit), an ``{"everything_on": ...}`` line
 ``{"eplb": ...}`` line (path (vi) and the controller, likewise), an
 ``{"attribution": ...}`` line, a ``{"sizing": [...]}`` line, an
 ``{"observe": ...}`` line (phase 7(c), with the card's name and power
-limit), a
+limit), a ``{"moe_gqa": ...}`` line (path (vii) and the witness, with
+the card's name and power limit), a
 ``{"kernels": [...]}`` line (one row per
 kernel at its first launch: measured launches, errors and times, with
 ``bound_ms``), the card's name and power limit, and last ``{"ok": true,
@@ -290,7 +320,8 @@ prefill step of deepseek-v3-bench, one bench_spec decode step (256
 rows) and one mixed round of path (iii) (each one graph replay), one
 steady step of path (iv) (one N = 4 dispatch queued, one retired), and
 llama3-1b's 8192-token prefill step and four of its decode steps (bf16
-cache), under ``torch.profiler``, with the device's busy time, kernel
+cache), and path (vii)'s one 32-step block of wave 1 and of wave 2 and
+its 8192-token prefill step (qwen3-30b-a3b), under ``torch.profiler``, with the device's busy time, kernel
 launches and the largest kernels per step (a measurement, not part of
 the smoke's pass/fail contract); then, after the server phase, four
 fresh processes (``--cold-probe``) each serving path (i)'s wave 3 up
@@ -566,58 +597,101 @@ def clone_to(tree, device):
     return tree.to(device)
 
 
-def reference_check(mc, params, engine_kw, prompt_lens, seed: int) -> dict:
+def reference_check(mc, params, engine_kw, prompt_lens, seed: int,
+                    card_routing: bool = False) -> dict:
     """The first two layers at full width (``mc``, ``params`` on the card),
     through the kernels and through the CPU reference path with the same
-    weights: one prefill step of ``prompt_lens`` and one decode step.
+    weights: one prefill step of ``prompt_lens`` and one decode step, in
+    which both sides decode the tokens the CPU reference picked.
     Deeper random-weight stacks amplify the expected bf16 rounding
     differences chaotically, so depth is cut here, not width; the context
     is cut to what the prompts need, because the reference path gathers
-    every key of a sequence's block table for every query row."""
+    every key of a sequence's block table for every query row.
+
+    With ``card_routing`` the CPU side takes the card's expert choice of
+    each MoE layer and computes the gate weights from its own scores, as
+    path (iii)'s verify check does: a top-8 choice over 128 near-equal
+    softmax scores flips at a one-ulp difference in the router's input
+    (ROADMAP §3), which no logit tolerance covers.  The flips the CPU's
+    own choice would have made at the step's live tokens are counted (by
+    MoE layer, prefill then decode), with the largest gap in selection
+    score they cost."""
     import numpy as np
     import torch
     from llm_d_tpu_torch.engine import EngineConfig, EngineCore
     from llm_d_tpu_torch.engine.request import Request
+    from llm_d_tpu_torch.ops import moe as moe_ops
     from llm_d_tpu_torch.ops.sampling import SamplingParams
 
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(1, mc.vocab_size, n).tolist()
                for n in prompt_lens]
-    logits = {}
+    engines, reqs = {}, {}
     for dev in ("cpu", "cuda"):
-        eng = EngineCore(EngineConfig(model_config=mc, device=dev,
-                                      **engine_kw),
-                         params=params if dev == "cuda"
-                         else clone_to(params, "cpu"))
-        reqs = [Request(f"ref{i}", p, SamplingParams(
+        engines[dev] = EngineCore(
+            EngineConfig(model_config=mc, device=dev, **engine_kw),
+            params=params if dev == "cuda" else clone_to(params, "cpu"))
+        reqs[dev] = [Request(f"ref{i}", p, SamplingParams(
             temperature=0.0, max_tokens=2, ignore_eos=True))
             for i, p in enumerate(prompts)]
-        for r in reqs:
-            eng.add_request(r)
-        steps = []
+        for r in reqs[dev]:
+            engines[dev].add_request(r)
+    real_route = moe_ops.route
+    taped, flips, gaps, live = [], [], [], [0]
+
+    def route(logits_r, c, e_bias=None):
+        w, idx = real_route(logits_r, c, e_bias=e_bias)
+        if logits_r.is_cuda:
+            taped.append(idx)
+            return w, idx
+        cidx = taped.pop(0).cpu()
+        # The step's live tokens (pad rows route too, but are dropped).
+        own, card = idx[:live[0]], cidx[:live[0]]
+        flips.append(sum(set(x) != set(y) for x, y in
+                         zip(own.tolist(), card.tolist())))
+        scores, choice = moe_ops.route_scores(logits_r, c, e_bias)
+        gaps.append(float((choice[:live[0]].gather(1, own.long()).sum(-1)
+                           - choice[:live[0]].gather(1, card.long()).sum(-1)
+                           ).abs().max()))
+        return moe_ops.gate_weights(scores, cidx, c), cidx
+
+    logits = {"cpu": [], "cuda": []}
+    if card_routing:
+        moe_ops.route = route
+    try:
         for step in range(2):
-            sched = eng.scheduler.schedule()
-            batch, _ = eng._build_batch(sched)
-            hidden = eng.model.forward(eng.params, eng.kv_cache, batch, mc,
-                                       engine_kw["block_size"])
-            n = len(sched.scheduled)
-            steps.append(eng.model.compute_logits(
-                eng.params, hidden, mc)[:n].float().cpu())
-            for sr in sched.scheduled:
-                sr.request.num_computed_tokens += sr.num_new_tokens
+            # The card first: with card_routing the CPU takes its choice.
+            for dev in ("cuda", "cpu"):
+                eng = engines[dev]
+                sched = eng.scheduler.schedule()
+                batch, _ = eng._build_batch(sched)
+                live[0] = sched.total_tokens
+                hidden = eng.model.forward(eng.params, eng.kv_cache, batch,
+                                           mc, engine_kw["block_size"])
+                n = len(sched.scheduled)
+                logits[dev].append(eng.model.compute_logits(
+                    eng.params, hidden, mc)[:n].float().cpu())
+                for sr in sched.scheduled:
+                    sr.request.num_computed_tokens += sr.num_new_tokens
             # Both sides decode the tokens the CPU reference picked.
-            ref = logits["cpu"][step] if dev == "cuda" else steps[-1]
-            for r, tok in zip(reqs, ref.argmax(-1).tolist()):
-                r.output_token_ids.append(tok)
-        logits[dev] = torch.stack(steps)
-        del eng
-    got, want = logits["cuda"], logits["cpu"]
+            for dev in ("cuda", "cpu"):
+                for r, tok in zip(reqs[dev],
+                                  logits["cpu"][-1].argmax(-1).tolist()):
+                    r.output_token_ids.append(tok)
+    finally:
+        moe_ops.route = real_route
+    del engines
+    got, want = torch.stack(logits["cuda"]), torch.stack(logits["cpu"])
     if not torch.isfinite(got).all():
         raise RuntimeError("non-finite logits from the kernel path")
     rel = float((got - want).abs().max() / want.abs().max())
     top = bool((got.argmax(-1) == want.argmax(-1)).all())
-    return dict(model=mc.name, layers=mc.num_layers, prompts=prompt_lens,
-                rel_max_err=rel, top1_agree=top, shape=list(got.shape))
+    res = dict(model=mc.name, layers=mc.num_layers, prompts=prompt_lens,
+               rel_max_err=rel, top1_agree=top, shape=list(got.shape))
+    if card_routing:
+        res.update(card_routing=True, routing_flips_of_cpu_routing=flips,
+                   routing_flip_max_score_gap=gaps)
+    return res
 
 
 def _profile_steps(engine, steps: int, drain: bool = False) -> dict:
@@ -1313,7 +1387,8 @@ def spec_server(engine, prompts, alone) -> dict:
     and drops are reported before and after it."""
     import math
     from llm_d_tpu_torch.server.openai import ModelServer
-    server = ModelServer(engine, DecimalTokenizer(), "deepseek-v3-bench")
+    server = ModelServer(engine, DecimalTokenizer(),
+                         engine.model_config.name)
     url, close = serve_in_thread(server)
     checked = 0
     before = graph_bounds(engine)
@@ -2624,9 +2699,10 @@ def sdpa_ms(name: str, args, kw) -> float:
     bf16 cache: the same queries, and K/V gathered (untimed) from the
     cache into contiguous [S, KVH, L, D] rows of each sequence's live
     keys (MLA: the 16 query heads over one shared K, the whole latent
-    row, and V, its first ``MLA_V_COLS`` columns), causal where every
-    query row attends its own prefix.  A yardstick only; the port never
-    calls it."""
+    row, and V, its first ``MLA_V_COLS`` columns; an int8 G / H cache
+    dequantized to bf16 as it is gathered), causal where every query row
+    attends its own prefix.  A yardstick only; the port never calls
+    it."""
     import torch
     import torch.nn.functional as Fn
     bs, scale = kw["block_size"], kw["scale"]
@@ -2653,11 +2729,17 @@ def sdpa_ms(name: str, args, kw) -> float:
     slots = bt.long()[:, keys // bs] * bs + keys % bs        # [S, L]
     layer = kw.get("layer") or 0
 
-    def gather(cache):
+    def gather(cache, scale):
         plane = cache[layer] if cache.ndim == 3 else cache
-        return plane[slots].view(S, L, KVH, D).permute(0, 2, 1, 3).contiguous()
+        rows = plane[slots]                                  # [S, L, F]
+        if scale is not None:
+            # An int8 cache: the same rows dequantized to bf16.
+            sc = (scale[layer] if scale.ndim == 3 else scale)[slots]
+            rows = (rows.float().view(S, L, sc.shape[-1], -1)
+                    * sc[..., None]).view(S, L, -1).bfloat16()
+        return rows.view(S, L, KVH, D).permute(0, 2, 1, 3).contiguous()
 
-    k, v = gather(kc), gather(vc)
+    k, v = gather(kc, kw.get("k_scale")), gather(vc, kw.get("v_scale"))
     if name.startswith("mla_"):
         v = v[..., :MLA_V_COLS].contiguous()
     causal = Q == L and bool((sl == L).all()) and bool(
@@ -3070,7 +3152,8 @@ def server_in_process(engine, prompts, max_new: int, alone, together):
     and the count of tokens equal to ``together`` (the direct engine's
     wave) is reported."""
     from llm_d_tpu_torch.server.openai import ModelServer
-    server = ModelServer(engine, DecimalTokenizer(), "deepseek-v3-bench")
+    server = ModelServer(engine, DecimalTokenizer(),
+                         engine.model_config.name)
     url, close = serve_in_thread(server)
     try:
         got = [completion(url, greedy_body(p, max_new, bool(i % 2)))
@@ -3396,7 +3479,8 @@ def observe_server(engine, prompts, max_new: int, vocab: int) -> dict:
     import math
     from concurrent.futures import ThreadPoolExecutor
     from llm_d_tpu_torch.server.openai import ModelServer
-    server = ModelServer(engine, DecimalTokenizer(), "deepseek-v3-bench")
+    server = ModelServer(engine, DecimalTokenizer(),
+                         engine.model_config.name)
     url, close = serve_in_thread(server)
     out = {}
     try:
@@ -3736,6 +3820,268 @@ def resume_pair(root: str, prompt, yardstick) -> dict:
                 p.kill()
                 p.wait(timeout=60)
     return out
+
+
+# Path (vii): MoE with GQA attention.  qwen3-30b-a3b at full width and
+# depth (48 layers, 128 experts, top-8: 29.0 GB of int8 experts), and
+# mixtral-8x22b at full width with its depth cut: 56 layers of int8
+# experts (135 GB) cannot fit one card.
+GQA_MOE_MODEL = "qwen3-30b-a3b"
+GQA_MOE_ROUNDS = 3                           # classic vs multistep, a side
+WITNESS_MODEL = "mixtral-8x22b"
+WITNESS_LAYERS = 8
+GQA_MOE_KERNELS = ("moe_dense_int8", "moe_routed_int8", "moe_streamed_int8",
+                   "paged_decode", "flash_prefill")
+
+
+def gqa_moe_config(name: str):
+    """The model config path (vii) serves: ``name``'s preset, the witness
+    cut to ``WITNESS_LAYERS`` layers."""
+    import dataclasses
+    from llm_d_tpu_torch.models.config import get_config
+    mc = get_config(name)
+    if name == WITNESS_MODEL:
+        mc = dataclasses.replace(mc, num_layers=WITNESS_LAYERS)
+    return mc
+
+
+def gqa_moe_label(name: str, tag: str):
+    """Recorder label of path (vii)'s launches: the MoE kernels by token
+    count, H by its query batch, G by its first launch."""
+    if name in ("moe_dense_int8", "moe_routed_int8", "moe_streamed_int8"):
+        return lambda a, kw: f"{tag} T={a[0].shape[0]}"
+    if name == "flash_prefill":
+        return lambda a, kw: f"{tag} S={a[0].shape[0]} Q={a[0].shape[1]}"
+    return lambda a, kw: f"{tag} first"
+
+
+def replayed_launches(engine) -> dict:
+    """Kernel launches inside ``engine``'s graph replays so far, by
+    wrapper name."""
+    return dict(engine._graphs.launches)
+
+
+def head_ms(engine, rows: int) -> dict:
+    """``compute_logits`` on ``rows`` hidden rows (f32 operands: its f32
+    copy of the head on every call) against one bf16 matmul of the same
+    head, event-timed."""
+    import torch
+    mc, params = engine.model_config, engine.params
+    g = torch.Generator(device=engine.device).manual_seed(rows)
+    h = torch.randn((rows, mc.hidden_size), generator=g,
+                    device=engine.device).bfloat16()
+    head = params.get("lm_head")
+    head = params["embed"].T if head is None else head
+    return dict(rows=rows, head_shape=list(head.shape),
+                f32_copy_bytes=head.numel() * 4,
+                compute_logits_ms=time_ms(lambda: engine.model.compute_logits(
+                    params, h, mc), iters=10),
+                bf16_matmul_ms=time_ms(lambda: torch.matmul(h, head),
+                                       iters=10))
+
+
+def profile_gqa_moe(engine, p1, p2, p3) -> dict:
+    """``--profile`` of path (vii): one 32-step block of wave 1 and of
+    wave 2 (one graph replay each) and the 8192-token prefill step of
+    wave 3."""
+    out = {"blocks": profile_blocks(engine, {"wave1": p1, "wave2": p2})}
+    add_requests(engine, p3, "profgp", 2)
+    out["prefill"] = dict(_profile_steps(engine, 1),
+                          tokens=sum(map(len, p3)))
+    while engine.has_work():
+        engine.step()
+    return out
+
+
+def gqa_moe_path(name: str, kernels, check, smi: str, witness: bool,
+                 prof) -> tuple:
+    """Path (vii) on ``name`` (``gqa_moe_config``), random weights from
+    seed 0, through path (i)'s configuration (int8 experts, int8 cache
+    with per-token scales, block size 64, 8192-token steps, 32-step decode
+    blocks under async scheduling, 576 blocks).  Waves 1, 2 (not on the
+    witness) and 3, then wave 1 again (must repeat); every decode in
+    32-step blocks; G, H, C, E and (but on the witness) D launch, G and C
+    (and D) inside graph replays.  Not on the witness: the classic loop
+    on the same weights in ``GQA_MOE_ROUNDS`` alternating rounds (tokens
+    identical), the in-process server (wave 1 one at a time, each reply
+    the direct engine's tokens for that prompt alone) and the head's
+    time.  Then the first two layers against the CPU reference, and the
+    kernels against their plain versions (``check``) at the path's
+    recorded inputs (on the witness D from a seed).  The path's own
+    recorders wrap the kernel wrappers while it runs.  Returns (result,
+    launches, launches inside graph replays) by kernel name."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from llm_d_tpu_torch.ops import moe as moe_ops
+    tag = "witness" if witness else "vii"
+    mc = gqa_moe_config(name)
+    t_path = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = path_i_engine(BENCH_K, model=name, model_config=mc)
+    torch.cuda.synchronize()
+    total = torch.cuda.get_device_properties(0).total_memory
+    out = dict(card=smi, model=name, layers=mc.num_layers,
+               init_s=time.perf_counter() - t0,
+               num_blocks=engine.config.num_blocks,
+               build=dict(
+                   before_gib=before / 2**30,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   peak_over_before_gib=(torch.cuda.max_memory_allocated()
+                                         - before) / 2**30,
+                   held_gib=(torch.cuda.memory_allocated() - before)
+                   / 2**30, card_gib=total / 2**30))
+    if witness:
+        from llm_d_tpu_torch.models.config import get_config
+        out["reduced"] = (f"num_layers {get_config(name).num_layers} -> "
+                          f"{mc.num_layers}: one card cannot hold the "
+                          f"int8 experts of every layer")
+    log(f"path (vii) {name}: build {json.dumps(out['build'])}")
+    if torch.cuda.max_memory_allocated() >= total:
+        raise RuntimeError(f"{name}: the build's peak exceeds the card")
+    note_live_tokens(engine)
+    keep = tensor_ptrs(engine.params)
+    mine = [k for k in kernels if k["name"] in GQA_MOE_KERNELS]
+    recs = {k["name"]: Recorder(k["mod"], k["fn"], keep,
+                                gqa_moe_label(k["name"], tag))
+            for k in mine}
+
+    def install(on: bool):
+        for r in recs.values():
+            setattr(r.module, r.name, r.wrapped if on else r.fn)
+
+    rng = np.random.default_rng(7)
+    vocab = mc.vocab_size
+    p1 = prompts_for(rng, vocab, WAVE1)
+    p2 = prompts_for(rng, vocab, WAVE2)
+    p3 = prompts_for(rng, vocab, WAVE3)
+    waves = {}
+    t1 = time.perf_counter()
+    tok1, waves["wave1"] = run_wave(engine, p1, WAVE1["new"], f"{tag}w1")
+    if not witness:
+        _, waves["wave2"] = run_wave(engine, p2, WAVE2["new"], f"{tag}w2")
+    _, waves["wave3"] = run_wave(engine, p3, WAVE3["new"], f"{tag}w3")
+    tok1b, waves["wave1_repeat"] = run_wave(engine, p1, WAVE1["new"],
+                                            f"{tag}w1b")
+    for w, st in waves.items():
+        check_multistep(st, f"{name} {w}")
+        log(f"path (vii) {name} {w}: {json.dumps(st)}")
+    if tok1b != tok1:
+        raise RuntimeError(f"{name}: wave 1 did not repeat token for token")
+    out["waves"] = waves
+    out["waves_s"] = time.perf_counter() - t1
+    install(False)
+    replayed = replayed_launches(engine)
+    if not witness:
+        # The direct engine's tokens of each wave-1 prompt alone (the
+        # server's yardstick, not the path's run), then the server's run.
+        t1 = time.perf_counter()
+        alone = [run_wave(engine, [p], WAVE1["new"], f"{tag}alone{i}")[0][0]
+                 for i, p in enumerate(p1)]
+        yard = {f: n - replayed[f]
+                for f, n in replayed_launches(engine).items()}
+        install(True)
+        out["server"] = server_in_process(engine, p1, WAVE1["new"], alone,
+                                          tok1)
+        install(False)
+        replayed = {f: n - yard[f]
+                    for f, n in replayed_launches(engine).items()}
+        out["server"]["seconds"] = time.perf_counter() - t1
+    counts = {k["name"]: recs[k["name"]].wrapped.launches
+              + replayed[k["fn"]] for k in mine}
+    in_graphs = {k["name"]: replayed[k["fn"]] for k in mine}
+    out.update(launches=counts, graph_launches=in_graphs,
+               graphs=graph_costs(engine))
+    log(f"launches (vii) {name}: {json.dumps(counts)}, inside graph "
+        f"replays: {json.dumps(in_graphs)}")
+    need = [n for n in GQA_MOE_KERNELS
+            if not (witness and n == "moe_routed_int8")]
+    missing = [n for n in need if counts[n] == 0]
+    missing += [f"{n} (graphs)" for n in ("paged_decode", "moe_dense_int8")
+                + (() if witness else ("moe_routed_int8",))
+                if in_graphs[n] == 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched on path (vii) {name}: "
+                           f"{missing}")
+    if not witness:
+        t1 = time.perf_counter()
+        classic = path_i_engine(1, engine.params, model=name,
+                                model_config=mc)
+        note_live_tokens(classic)
+        out["classic_vs_multistep"] = classic_rounds(classic, engine, {
+            "wave1": (WAVE1, p1), "wave2": (WAVE2, p2),
+            "wave3": (WAVE3, p3)}, GQA_MOE_ROUNDS)
+        log(f"path (vii) {name} classic vs multistep: "
+            f"{json.dumps(out['classic_vs_multistep'])}")
+        del classic
+        out["rounds_s"] = time.perf_counter() - t1
+        out["head"] = [head_ms(engine, n) for n in (8, 128)]
+        log(f"path (vii) {name} head: {json.dumps(out['head'])}")
+        if prof is not None:
+            prof[f"vii {name}"] = profile_gqa_moe(engine, p1, p2, p3)
+            log(f"profile (vii) {name}: "
+                f"{json.dumps(prof[f'vii {name}'])}")
+    # The first two layers against the CPU reference.
+    mc2 = dataclasses.replace(mc, num_layers=2, max_model_len=1152)
+    Ld = min(mc.first_dense_layers, 2)
+    params2 = dict(engine.params)
+    params2["dense_layers"] = {k: v[:Ld] for k, v in
+                               engine.params["dense_layers"].items()}
+    params2["moe_layers"] = {k: v[:2 - Ld] for k, v in
+                             engine.params["moe_layers"].items()}
+    moe_kw = dict(quantization="int8", kv_cache_dtype="int8", block_size=64,
+                  num_blocks=24, max_num_seqs=8,
+                  max_num_batched_tokens=1024, enable_prefix_caching=False)
+    t1 = time.perf_counter()
+    checks = (([100, 37], 27),) if witness else (([100, 37], 27),
+                                                 ([1024], 28))
+    out["reference"] = [reference_check(mc2, params2, moe_kw, lens, seed,
+                                        card_routing=True)
+                        for lens, seed in checks]
+    out["reference_s"] = time.perf_counter() - t1
+    for ref in out["reference"]:
+        log(f"reference: {json.dumps(ref)}")
+        if not ref["top1_agree"] or ref["rel_max_err"] > 5e-2:
+            raise RuntimeError(f"kernel path disagrees with the CPU "
+                               f"reference: {ref}")
+    del params2
+    # The kernels against their plain versions at the path's inputs.
+    t1 = time.perf_counter()
+    checked = []
+    for k in mine:
+        rec = recs[k["name"]]
+        for label, (args, kw) in rec.calls.items():
+            check(k, label, args, kw, count=False,
+                  library=k["name"] in ("paged_decode", "flash_prefill"),
+                  live_tokens=rec.notes[label], keep=keep)
+            checked.append(label)
+        rec.calls.clear()
+    if witness:
+        k = next(kk for kk in mine if kk["name"] == "moe_routed_int8")
+        quant = {n: engine.params["moe_layers"][n] for n in
+                 ("w_gate_q", "w_gate_s", "w_up_q", "w_up_s", "w_down_q",
+                  "w_down_s")}
+        quant["layer"] = 0
+        x, w, idx = moe_inputs(mc, 256, seed=256)
+        with capture(k["mod"], k["fn"]) as seen:
+            moe_ops._routed_int8_kernel_path(x, w, idx, quant)
+        check(k, f"{tag} T=256 (from a seed)", *seen[0], count=False,
+              keep=keep)
+        checked.append(f"{tag} T=256 (from a seed)")
+        del quant, x, w, idx, seen
+    out.update(kernel_checks=checked,
+               kernel_checks_s=time.perf_counter() - t1)
+    del engine, recs, rec
+    LIVE_TOKENS[0] = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_path
+    return out, counts, in_graphs
 
 
 @contextlib.contextmanager
@@ -4295,13 +4641,18 @@ def main() -> int:
 
     # 4. kernels against their plain versions --------------------------------
     rows, variants, bounds = [], [], []
+    raw = {n: rec.fn for n, rec in recorders.items()}
     attention = ("mla_decode", "mla_prefill", "paged_decode", "flash_prefill")
 
     def check(k, label, args, kw, count: bool, library: bool = False,
-              live_tokens=None):
-        fn, plain = recorders[k["name"]].fn, getattr(k["mod"], k["plain"])
-        a_k, kw_k = clone(args, weights), clone(kw, weights)
-        a_p, kw_p = clone(args, weights), clone(kw, weights)
+              live_tokens=None, keep=None):
+        """``k``'s kernel against its plain version on ``(args, kw)``
+        (copies, but of the tensors in ``keep``: path (i)'s weights by
+        default), then timed."""
+        fn, plain = raw[k["name"]], getattr(k["mod"], k["plain"])
+        keep = weights if keep is None else keep
+        a_k, kw_k = clone(args, keep), clone(kw, keep)
+        a_p, kw_p = clone(args, keep), clone(kw, keep)
         got = fn(*a_k, **kw_k)
         want = plain(*a_p, **kw_p)
         torch.cuda.synchronize()
@@ -4346,7 +4697,8 @@ def main() -> int:
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=None)
         if (count or library) and k["name"] in attention \
-                and kw.get("k_scale") is None and kw.get("kv_scale") is None:
+                and kw.get("kv_scale") is None \
+                and (library or kw.get("k_scale") is None):
             row["library_ms"] = sdpa_ms(k["name"], a_k, kw_k)
         if count:
             rows.append(row)
@@ -4566,6 +4918,21 @@ def main() -> int:
     observe["resume"] = resume_pair(root, p1[0], yardstick_r)
     observe["resume"]["seconds"] = time.perf_counter() - t_obs
     log(f"observe (c), (e): {json.dumps(observe['resume'])}")
+    # 8. path (vii): qwen3-30b-a3b at full width and depth, then the
+    # mixtral-8x22b witness at 8 layers, on a card the earlier phases have
+    # left; each path's kernels held to their plain versions as it ends.
+    gqa = {}
+    for name, witness in ((GQA_MOE_MODEL, False), (WITNESS_MODEL, True)):
+        res, counts, in_graphs = gqa_moe_path(name, kernels, check, smi,
+                                              witness, prof)
+        gqa[name] = res
+        for row in rows:
+            n = row["name"]
+            row["witness_launches" if witness else "moe_gqa_launches"] = \
+                counts.get(n, 0)
+            row["launches"] += counts.get(n, 0)
+            row["graph_launches"] += in_graphs.get(n, 0)
+        log(f"path (vii) {name}: {res['seconds']:.1f} s")
     if prof is not None:
         # The first decode block of a fresh process, part by part.
         prof["cold_first_block"] = []
@@ -4593,6 +4960,7 @@ def main() -> int:
     print(json.dumps({"attribution": attr}))
     print(json.dumps({"sizing": sizing}))
     print(json.dumps({"observe": observe}))
+    print(json.dumps({"moe_gqa": gqa}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

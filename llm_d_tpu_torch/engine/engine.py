@@ -330,9 +330,14 @@ class EngineCore:
         if params is None:
             init_gen = torch.Generator(device=self.device)
             init_gen.manual_seed(config.seed)
-            params = self.model.init_params(c, init_gen, self.device)
-        if config.quantization == "int8" \
+            # int8 experts are drawn and quantized plane by plane: no bf16
+            # expert stack is ever held (58 GB at qwen3-30b-a3b).
+            kw = (dict(quantize_experts=True)
+                  if config.quantization == "int8" else {})
+            params = self.model.init_params(c, init_gen, self.device, **kw)
+        elif config.quantization == "int8" \
                 and "w_gate_q" not in params.get("moe_layers", {}):
+            # Drops each bf16 stack from the caller's tree as it goes.
             params = quantize_moe_experts(params)
         self.params = params
         # EPLB on the engine's one device (ep = 1): the physical expert

@@ -1,9 +1,10 @@
 """Model configurations and presets (copy of ``llm_d_tpu.models.config``).
 
 One config type covers the dense (Llama/Qwen) and MoE (Mixtral/DeepSeek
--style) families; ``num_experts == 0`` means dense.  The port serves the
-MLA + MoE family (``deepseek-v3-bench``, ``tiny-mla``); the other presets
-are kept so both packages name the same models.
+-style) families; ``num_experts == 0`` means dense.  The port serves
+every preset: dense models, MoE with MLA attention (``deepseek-v3-bench``,
+``tiny-mla``) and MoE with GQA attention (``tiny-moe``,
+``qwen3-30b-a3b``, ``mixtral-8x22b``).
 """
 
 from __future__ import annotations

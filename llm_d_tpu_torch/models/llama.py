@@ -33,12 +33,36 @@ def normal_param(shape, std, dt, generator, device) -> torch.Tensor:
     return out
 
 
+def attention_params(config: ModelConfig, n: int, w, ones) -> Params:
+    """The GQA attention tree of ``n`` stacked layers (the dense family's,
+    and the MoE family's without MLA: JAX ``moe._attn_params``):
+    projections from ``w(shape)``, norms from ``ones(shape)``, zero
+    biases under ``attention_bias`` and q/k norms under ``qk_norm``."""
+    c = config
+    dh, Hm = c.head_dim_, c.hidden_size
+    p = {
+        "input_norm": ones((n, Hm)),
+        "q_proj": w((n, Hm, c.num_heads * dh)),
+        "k_proj": w((n, Hm, c.num_kv_heads * dh)),
+        "v_proj": w((n, Hm, c.num_kv_heads * dh)),
+        "o_proj": w((n, c.num_heads * dh, Hm)),
+        "post_attn_norm": ones((n, Hm)),
+    }
+    if c.attention_bias:
+        p["q_bias"] = torch.zeros_like(ones((n, c.num_heads * dh)))
+        p["k_bias"] = torch.zeros_like(ones((n, c.num_kv_heads * dh)))
+        p["v_bias"] = torch.zeros_like(ones((n, c.num_kv_heads * dh)))
+    if c.qk_norm:
+        p["q_norm"] = ones((n, dh))
+        p["k_norm"] = ones((n, dh))
+    return p
+
+
 def init_params(config: ModelConfig, generator: torch.Generator,
                 device) -> Params:
     """Random-init parameters on ``device`` (same shapes, scales and tree
     as the JAX package; the random bits differ)."""
     c = config
-    dh = c.head_dim_
     dt = c.torch_dtype
     Lc = c.num_layers
     Hm = c.hidden_size
@@ -49,27 +73,12 @@ def init_params(config: ModelConfig, generator: torch.Generator,
     def ones(shape):
         return torch.ones(shape, dtype=dt, device=device)
 
-    def zeros(shape):
-        return torch.zeros(shape, dtype=dt, device=device)
-
-    layers = {
-        "input_norm": ones((Lc, Hm)),
-        "q_proj": w((Lc, Hm, c.num_heads * dh)),
-        "k_proj": w((Lc, Hm, c.num_kv_heads * dh)),
-        "v_proj": w((Lc, Hm, c.num_kv_heads * dh)),
-        "o_proj": w((Lc, c.num_heads * dh, Hm)),
-        "post_attn_norm": ones((Lc, Hm)),
+    layers = attention_params(c, Lc, w, ones)
+    layers.update({
         "gate_proj": w((Lc, Hm, c.intermediate_size)),
         "up_proj": w((Lc, Hm, c.intermediate_size)),
         "down_proj": w((Lc, c.intermediate_size, Hm)),
-    }
-    if c.attention_bias:
-        layers["q_bias"] = zeros((Lc, c.num_heads * dh))
-        layers["k_bias"] = zeros((Lc, c.num_kv_heads * dh))
-        layers["v_bias"] = zeros((Lc, c.num_kv_heads * dh))
-    if c.qk_norm:
-        layers["q_norm"] = ones((Lc, dh))
-        layers["k_norm"] = ones((Lc, dh))
+    })
     params: Params = {
         "embed": w((c.vocab_size, Hm)),
         "layers": layers,

@@ -1,12 +1,17 @@
-"""MoE decoder-only transformer with MLA (port of the single-device MLA
-branch of ``llm_d_tpu.models.moe``).
+"""MoE decoder-only transformer, DeepSeek (MLA) and Qwen-MoE / Mixtral
+(GQA) families (port of the single-device half of
+``llm_d_tpu.models.moe``).
 
 Parameters keep the JAX package's tree: ``dense_layers`` and
 ``moe_layers`` hold weights stacked on a leading layer axis (the first
 ``first_dense_layers`` layers run a dense SwiGLU MLP, the rest shared +
-routed experts), and a plain Python loop walks the layers.  The latent KV
-cache is one ``[L, slots, F]`` buffer (plus an f32 ``[L, slots, 1]`` scale
-plane for the int8 latent) that every layer updates in place.
+routed experts; with none, ``dense_layers`` keeps its keys with 0-length
+leading dims), and a plain Python loop walks the layers.  The MLA cache
+is one latent ``[L, slots, F]`` buffer (plus an f32 ``[L, slots, 1]``
+scale plane for the int8 latent); the GQA cache is ``{"k", "v"}`` of
+``[L, slots, KVH*D]`` (plus f32 ``{"k_scale", "v_scale"}`` planes for an
+int8 cache), as the dense family's.  Every layer updates its plane in
+place.
 """
 
 from __future__ import annotations
@@ -21,10 +26,12 @@ from llm_d_tpu_torch.models.config import ModelConfig
 # embedding and head of the target, which both families carry alike).
 from llm_d_tpu_torch.models.llama import (  # noqa: F401
     compute_logits, draft_propose, init_draft_params)
-from llm_d_tpu_torch.models.llama import normal_param
+from llm_d_tpu_torch.models.llama import (attention_block, attention_params,
+                                          normal_param)
 from llm_d_tpu_torch.models.mla import mla_attention_block, mla_param_shapes
 from llm_d_tpu_torch.ops import layers as L
 from llm_d_tpu_torch.ops import moe as moe_ops
+from llm_d_tpu_torch.ops.quant import quantize_int8
 
 Params = Dict[str, Any]
 
@@ -32,13 +39,35 @@ QUANT_KEYS = ("w_gate_q", "w_gate_s", "w_up_q", "w_up_s",
               "w_down_q", "w_down_s")
 
 
+def quantized_normal_param(shape, std, dt, generator, device
+                           ) -> Dict[str, torch.Tensor]:
+    """``normal_param`` of an expert stack ``[L, E, K, N]`` straight into
+    int8: ``{"_q": int8 [L, E, K, N], "_s": f32 [L, E, 1, N]}``.  Each
+    ``[K, N]`` plane is drawn as ``normal_param`` draws it, rounded to
+    ``dt`` and quantized over K at once (``quantize_int8`` scales each
+    plane's columns alone, so this equals quantizing the whole stack)."""
+    lead = shape[:-2]
+    K, N = shape[-2:]
+    q = torch.empty(shape, dtype=torch.int8, device=device)
+    s = torch.empty((*lead, 1, N), dtype=torch.float32, device=device)
+    for qp, sp in zip(q.reshape(-1, K, N), s.reshape(-1, 1, N)):
+        w = (torch.randn((K, N), generator=generator, device=device,
+                         dtype=torch.float32) * std).to(dt)
+        qp[...], sp[...] = quantize_int8(w)
+    return {"_q": q, "_s": s}
+
+
 def init_params(config: ModelConfig, generator: torch.Generator,
-                device) -> Params:
+                device, quantize_experts: bool = False) -> Params:
     """Random-init parameters on ``device`` (same shapes, scales and tree
-    as the JAX package; the random bits differ)."""
+    as the JAX package; the random bits differ).
+
+    With ``quantize_experts`` the routed experts come as int8 payloads
+    and scales (``quantize_moe_experts``' tree), each expert plane drawn
+    in bf16 and quantized at once, so no bf16 expert stack is ever held;
+    the draws are the same, so the result equals ``init_params`` then
+    ``quantize_moe_experts`` bit for bit."""
     c = config
-    if not c.use_mla:
-        raise NotImplementedError("the port serves the MLA-MoE family only")
     dt = c.torch_dtype
     Ld = c.first_dense_layers
     Lm = c.num_layers - Ld
@@ -52,12 +81,20 @@ def init_params(config: ModelConfig, generator: torch.Generator,
         return torch.ones(shape, dtype=dt, device=device)
 
     def attn_params(n):
+        if not c.use_mla:
+            return attention_params(c, n, w, ones)
         p = {}
         for name, shape in mla_param_shapes(c, n).items():
             p[name] = ones(shape) if name.endswith("_norm") else w(shape)
         p["input_norm"] = ones((n, c.hidden_size))
         p["post_attn_norm"] = ones((n, c.hidden_size))
         return p
+
+    def experts(shape):
+        if not quantize_experts:
+            return {"": w(shape)}
+        return quantized_normal_param(shape, shape[-2] ** -0.5, dt,
+                                      generator, device)
 
     dense = attn_params(Ld)
     dense.update({
@@ -66,12 +103,11 @@ def init_params(config: ModelConfig, generator: torch.Generator,
         "down_proj": w((Ld, c.intermediate_size, c.hidden_size)),
     })
     moe = attn_params(Lm)
-    moe.update({
-        "router": w((Lm, c.hidden_size, E)).float(),
-        "w_gate": w((Lm, E, c.hidden_size, Im)),
-        "w_up": w((Lm, E, c.hidden_size, Im)),
-        "w_down": w((Lm, E, Im, c.hidden_size)),
-    })
+    moe["router"] = w((Lm, c.hidden_size, E)).float()
+    for name, shape in (("w_gate", (Lm, E, c.hidden_size, Im)),
+                        ("w_up", (Lm, E, c.hidden_size, Im)),
+                        ("w_down", (Lm, E, Im, c.hidden_size))):
+        moe.update({name + sfx: t for sfx, t in experts(shape).items()})
     if c.scoring_func == "sigmoid":
         moe["e_bias"] = torch.zeros((Lm, E), dtype=torch.float32,
                                     device=device)
@@ -111,11 +147,20 @@ def forward(params: Params, kv_cache: Dict[str, torch.Tensor],
     sweep, as the JAX forward does: ``attn`` (the whole attention block,
     cache writes included: the block contributes zeros), ``moe_ffn`` (the
     routed experts; routing still runs, so EPLB still collects) and
-    ``shared_expert``."""
+    ``shared_expert``.
+
+    ``kv_cache`` is the MLA latent ({"kv"} or {"kv", "kv_scale"}) or, for
+    GQA attention, the dense family's ({"k", "v"} or {"k", "v",
+    "k_scale", "v_scale"}), as the JAX forward reads it."""
     c = config
     Ld = c.first_dense_layers
-    kv = kv_cache["kv"]
-    kv_scale = kv_cache.get("kv_scale")
+    if c.use_mla:
+        kv = kv_cache["kv"]
+        kv_scale = kv_cache.get("kv_scale")
+    else:
+        names = (("k", "v", "k_scale", "v_scale") if "k_scale" in kv_cache
+                 else ("k", "v"))
+        caches = tuple(kv_cache[n] for n in names)
     dl, ml = params["dense_layers"], params["moe_layers"]
     stub = frozenset((moe_opts or {}).get("stub_components") or ())
     quant_stacked = ({k: ml[k] for k in QUANT_KEYS}
@@ -130,6 +175,9 @@ def forward(params: Params, kv_cache: Dict[str, torch.Tensor],
         hn_in = L.rms_norm(x, lp["input_norm"], c.rms_norm_eps)
         if "attn" in stub:
             a = torch.zeros_like(hn_in)
+        elif not c.use_mla:
+            a = attention_block(lp, c, hn_in, batch, caches, block_size,
+                                attn_backend, layer=li)
         else:
             a = mla_attention_block(
                 lp, c, hn_in, batch, kv, block_size, attn_backend, layer=li,
@@ -178,10 +226,12 @@ def forward(params: Params, kv_cache: Dict[str, torch.Tensor],
 
 
 def kv_cache_layout(config: ModelConfig) -> Dict[str, int]:
-    """Per-buffer cache row widths: ONE latent row per token
+    """Per-buffer cache row widths.  MLA: ONE latent row per token
     (kv_lora_rank + rope), always lane-padded to a multiple of 128 so the
-    width depends on the config alone (576 -> 640 for V3)."""
-    if not config.use_mla:
-        raise NotImplementedError("the port serves the MLA-MoE family only")
-    w = config.kv_lora_rank + config.qk_rope_head_dim
-    return {"kv": -(-w // 128) * 128}
+    width depends on the config alone (576 -> 640 for V3); GQA: the
+    folded ``[KVH*D]`` K and V rows."""
+    if config.use_mla:
+        w = config.kv_lora_rank + config.qk_rope_head_dim
+        return {"kv": -(-w // 128) * 128}
+    w = config.num_kv_heads * config.head_dim_
+    return {"k": w, "v": w}

@@ -76,8 +76,10 @@ def quantize_moe_experts(params: Dict[str, Any]) -> Dict[str, Any]:
 
     One layer plane at a time, so the f32 temporaries stay the size of one
     plane (about 0.27 GB at deepseek-v3-bench width) rather than the whole
-    stack; each bf16 plane is dropped once its stack is converted."""
-    ml = dict(params["moe_layers"])
+    stack.  Each bf16 stack is popped from the caller's ``moe_layers``
+    before it is converted, so it is freed once converted (unless the
+    caller holds it elsewhere) and at most one bf16 stack is live."""
+    ml = params["moe_layers"]
     for name in EXPERT_WEIGHT_KEYS:
         if name not in ml:
             continue
@@ -90,6 +92,4 @@ def quantize_moe_experts(params: Dict[str, Any]) -> Dict[str, Any]:
         del w
         ml[f"{name}_q"] = q
         ml[f"{name}_s"] = s
-    out = dict(params)
-    out["moe_layers"] = ml
-    return out
+    return params

@@ -21,8 +21,8 @@ the package's isolation from JAX.
   top-k and top-p) identical too, on tiny-mla and tiny.
 * ``params_from_numpy`` carries the dense tree bit for bit.
 * No module of the port, and not chip_smoke.py, imports jax, the JAX
-  package, ml_dtypes or aiohttp; the engine raises instead of serving on
-  a GPU-less box.
+  package, ml_dtypes, aiohttp or safetensors; the engine raises instead
+  of serving on a GPU-less box.
 
 The kernels themselves are held to their plain versions on the card in
 tests/test_torch_gpu.py.
@@ -411,8 +411,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "llm_d_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
-    # Nor ml_dtypes or aiohttp: the card machine has neither.
-    banned = re.compile(r"^(jax|jaxlib|llm_d_tpu|ml_dtypes|aiohttp)(\.|$)")
+    # Nor ml_dtypes, aiohttp or safetensors: the card machine has none of
+    # them (the loader reads safetensors files itself).
+    banned = re.compile(
+        r"^(jax|jaxlib|llm_d_tpu|ml_dtypes|aiohttp|safetensors)(\.|$)")
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imports(p) if banned.match(m)]
     assert not bad, bad

@@ -2,8 +2,9 @@
 versions of kernels C (dense int8) and D (routed int8).
 
 Routing at the deepseek-v3-bench routing config (sigmoid + bias, 8 groups
-keep 4, top-8 of 64) must pick identical experts with weights within
-1e-6.  The tile layout metadata must be identical.  The kernels' plain
+keep 4, top-8 of 64), at qwen3-30b-a3b's (softmax, top-8 of 128,
+renormalized) and at mixtral-8x22b's (top-2 of 8) must pick identical
+experts with weights within 1e-6.  The tile layout metadata must be identical.  The kernels' plain
 versions, driven through the port's own glue, are held to the TPU
 kernels' glue in interpret mode with the scale-normalised tolerance of
 tests/test_moe_int8_kernel.py (max error / max |output| <= 1e-2).
@@ -36,7 +37,9 @@ def _scaled_err(got, want):
 
 
 @pytest.mark.parametrize("preset,T", [("deepseek-v3-bench", 130),
-                                      ("tiny-moe", 21)])
+                                      ("tiny-moe", 21),
+                                      ("qwen3-30b-a3b", 96),
+                                      ("mixtral-8x22b", 64)])
 def test_route_matches(preset, T):
     jc, tc = jget_config(preset), tget_config(preset)
     rng = np.random.default_rng(T)
