@@ -241,8 +241,9 @@ Phases (each raises on failure; the script then exits non-zero):
             the classic loop's with its top-2 margins (reported).
             Kernels A-E must launch in the in-process part;
 8. path (vii) MoE with GQA attention, once phase 7 has freed the
-            card: qwen3-30b-a3b at full width and depth (48 layers, 128
-            experts, top-8; random weights from a
+            card: qwen3-30b-a3b at full width, its depth cut to 16 of
+            48 layers for the time limit (128 experts, top-8; random
+            weights from a
             seed, the int8 experts drawn and quantized plane by plane)
             through path (i)'s configuration (int8 experts, int8 cache
             with per-token scales, block size 64, 8192-token steps, 32-step
@@ -262,10 +263,41 @@ Phases (each raises on failure; the script then exits non-zero):
             against their plain versions at the path's recorded inputs
             (G and H also timed as one SDPA call on the K/V gathered and
             dequantized to bf16).  Then the mixtral-8x22b witness, its
-            depth cut to 8 of 56 layers (one card cannot hold 135 GB of
+            depth cut to 4 of 56 layers (one card cannot hold 135 GB of
             int8 experts): waves 1 and 3 and wave 1 again, the 2-layer
             reference check on the 100- and 37-token batch, C, E, G and
             H at its recorded inputs and D from a seed at T = 256.
+9. path (viii) tensor and expert parallelism, once phase 8 has freed
+            the card: deepseek-v3-bench at full width and depth, tp = ep
+            = 4, as four rank processes of one mesh on the one card
+            (``parallel/launch.RankPool``; NCCL refuses two ranks on one
+            GPU, so the backend rule picks gloo, each collective staged
+            through host memory; classic steps, since gloo collectives
+            cannot be captured), each holding its shards of seed 0's
+            draws (path (i)'s weights).  Wave 1 (A at 4 heads a rank, E
+            on each rank's received rows), wave 3 to 2 new tokens (its
+            8192-token prefill: B at 4 heads, E on two 1024-token
+            dispatch chunks a rank), and wave 1 to 4 new tokens on the
+            bf16 wire and with the psum dispatch: every rank's tokens
+            identical, A, B and E launching on every rank; the a2a int8
+            and int8-dispatch wires and the psum dispatch against a2a on
+            the bf16 wire on one MoE layer (<= 2% rel-RMS); each recorded
+            kernel input against its plain version (phase 4's
+            tolerances, timed, with bounds and SDPA times); each rank's
+            peak memory; ``collective_bytes_total`` beside the bytes the
+            collectives moved.  Then the first two layers on the mesh
+            against the one-rank engine on the same weights (relative max
+            logit error <= 5e-2, the same argmax, with and without the
+            mesh's expert choice replayed); the qwen3-30b-a3b witness at
+            tp = ep = 4 cut to 8 of 48 layers (wave 1 and one 8192-token
+            prefill: G at one KV head, H, E); the tp server (``python -m
+            llm_d_tpu_torch.server.openai --tensor-parallel-size 4`` with
+            path (i)'s flags in classic steps): wave 1's prompts one at a
+            time, each reply the direct tp engine's tokens for that prompt
+            alone, then SIGTERM: exit 0 and no rank left; last, the
+            one-rank classic loop's wave 1 at full depth against the
+            mesh's, tokens counted with and without the mesh's expert
+            choice replayed.
 
 Launch counts: every count is set to 0 just before a path is driven and
 read just after it; kernels A-F count path (i), G and H path (ii), and
@@ -281,7 +313,10 @@ in-process run (``observe_launches``; its classic-loop yardstick does
 not count), and C, D, E, G and H add path (vii)'s waves and in-process
 server run (``moe_gqa_launches``; the direct engine's one-at-a-time
 yardstick and the classic rounds do not count) and the witness's waves
-(``witness_launches``).  A
+(``witness_launches``); A, B, E, G and H add path (viii)'s waves on
+every rank (``mesh_launches``; its one-at-a-time yardstick for the
+server does not count), and each row lists its rank-local inputs'
+checks as ``mesh_inputs``.  A
 count is the wrapper's own (eager launches, graph warm-ups included)
 plus the launches inside graph replays: a capture records each graph's
 launches, and every replay adds them (``engine/cuda_graph.py``); the
@@ -298,7 +333,8 @@ the card's name and power limit), an ``{"everything_on": ...}`` line
 ``{"attribution": ...}`` line, a ``{"sizing": [...]}`` line, an
 ``{"observe": ...}`` line (phase 7(c), with the card's name and power
 limit), a ``{"moe_gqa": ...}`` line (path (vii) and the witness, with
-the card's name and power limit), a
+the card's name and power limit), a ``{"mesh": ...}`` line (path (viii),
+likewise), a
 ``{"kernels": [...]}`` line (one row per
 kernel at its first launch: measured launches, errors and times, with
 ``bound_ms``), the card's name and power limit, and last ``{"ok": true,
@@ -2698,8 +2734,8 @@ def sdpa_ms(name: str, args, kw) -> float:
     (``mla_prefill``), G (``paged_decode``) or H (``flash_prefill``) on a
     bf16 cache: the same queries, and K/V gathered (untimed) from the
     cache into contiguous [S, KVH, L, D] rows of each sequence's live
-    keys (MLA: the 16 query heads over one shared K, the whole latent
-    row, and V, its first ``MLA_V_COLS`` columns; an int8 G / H cache
+    keys (MLA: the query heads over one shared K, the whole latent row,
+    and V, its first ``MLA_V_COLS`` columns; an int8 cache or latent
     dequantized to bf16 as it is gathered), causal where every query row
     attends its own prefix.  A yardstick only; the port never calls
     it."""
@@ -2739,7 +2775,11 @@ def sdpa_ms(name: str, args, kw) -> float:
                     * sc[..., None]).view(S, L, -1).bfloat16()
         return rows.view(S, L, KVH, D).permute(0, 2, 1, 3).contiguous()
 
-    k, v = gather(kc, kw.get("k_scale")), gather(vc, kw.get("v_scale"))
+    if name.startswith("mla_"):
+        # An int8 latent has one scale plane for its shared K and V.
+        k = v = gather(kc, kw.get("kv_scale"))
+    else:
+        k, v = gather(kc, kw.get("k_scale")), gather(vc, kw.get("v_scale"))
     if name.startswith("mla_"):
         v = v[..., :MLA_V_COLS].contiguous()
     causal = Q == L and bool((sl == L).all()) and bool(
@@ -3822,27 +3862,28 @@ def resume_pair(root: str, prompt, yardstick) -> dict:
     return out
 
 
-# Path (vii): MoE with GQA attention.  qwen3-30b-a3b at full width and
-# depth (48 layers, 128 experts, top-8: 29.0 GB of int8 experts), and
+# Path (vii): MoE with GQA attention.  qwen3-30b-a3b at full width with
+# its depth cut to GQA_MOE_LAYERS of 48 for the smoke's time limit (all 48,
+# 29.0 GB of int8 experts, fit the card but take 137-150 s of smoke), and
 # mixtral-8x22b at full width with its depth cut: 56 layers of int8
 # experts (135 GB) cannot fit one card.
 GQA_MOE_MODEL = "qwen3-30b-a3b"
+GQA_MOE_LAYERS = 16
 GQA_MOE_ROUNDS = 3                           # classic vs multistep, a side
 WITNESS_MODEL = "mixtral-8x22b"
-WITNESS_LAYERS = 8
+WITNESS_LAYERS = 4
 GQA_MOE_KERNELS = ("moe_dense_int8", "moe_routed_int8", "moe_streamed_int8",
                    "paged_decode", "flash_prefill")
 
 
 def gqa_moe_config(name: str):
-    """The model config path (vii) serves: ``name``'s preset, the witness
-    cut to ``WITNESS_LAYERS`` layers."""
+    """The model config path (vii) serves: ``name``'s preset cut to
+    ``GQA_MOE_LAYERS`` layers, the witness to ``WITNESS_LAYERS``."""
     import dataclasses
     from llm_d_tpu_torch.models.config import get_config
     mc = get_config(name)
-    if name == WITNESS_MODEL:
-        mc = dataclasses.replace(mc, num_layers=WITNESS_LAYERS)
-    return mc
+    layers = WITNESS_LAYERS if name == WITNESS_MODEL else GQA_MOE_LAYERS
+    return dataclasses.replace(mc, num_layers=layers)
 
 
 def gqa_moe_label(name: str, tag: str):
@@ -3936,11 +3977,11 @@ def gqa_moe_path(name: str, kernels, check, smi: str, witness: bool,
                                          - before) / 2**30,
                    held_gib=(torch.cuda.memory_allocated() - before)
                    / 2**30, card_gib=total / 2**30))
-    if witness:
-        from llm_d_tpu_torch.models.config import get_config
-        out["reduced"] = (f"num_layers {get_config(name).num_layers} -> "
-                          f"{mc.num_layers}: one card cannot hold the "
-                          f"int8 experts of every layer")
+    from llm_d_tpu_torch.models.config import get_config
+    out["reduced"] = (f"num_layers {get_config(name).num_layers} -> "
+                      f"{mc.num_layers}: " + (
+                          "one card cannot hold the int8 experts of every "
+                          "layer" if witness else "the smoke's time limit"))
     log(f"path (vii) {name}: build {json.dumps(out['build'])}")
     if torch.cuda.max_memory_allocated() >= total:
         raise RuntimeError(f"{name}: the build's peak exceeds the card")
@@ -4123,6 +4164,680 @@ def bench_step_as_one_chunk(moe_ops, moe_routed_stream, glue_args):
     with capture(moe_routed_stream, "streamed_moe_int8") as seen:
         moe_ops._streamed_int8_kernel_path(*glue_args, chunk_t=BENCH_T)
     return seen[0]
+
+# Phase 9, path (viii): tensor and expert parallelism.  deepseek-v3-bench
+# at tp = ep = 4 in path (i)'s configuration but classic steps, as four
+# rank processes of one mesh on the one card: NCCL refuses two ranks on a
+# GPU, so the ranks talk over gloo, each collective staged through host
+# memory, and gloo collectives cannot be captured in a CUDA graph.  The
+# witness: qwen3-30b-a3b at tp = ep = 4.
+MESH_TP = 4
+MESH_MODEL = "deepseek-v3-bench"
+MESH_WITNESS = "qwen3-30b-a3b"
+# The witness's depth, cut for the smoke's time limit (48 layers at
+# tp = 4 over gloo take ~125 s for wave 1 and the prefill).
+MESH_WITNESS_LAYERS = 8
+# New tokens of the waves on the bf16 wire and the psum dispatch, of
+# wave 3 on the mesh, and of each request the tp server serves alone.
+MESH_SIDE_NEW = 4
+MESH_W3_NEW = 2
+MESH_SERVER_NEW = 2
+MESH_KERNELS = ("mla_decode", "mla_prefill", "moe_streamed_int8")
+MESH_WITNESS_KERNELS = ("paged_decode", "flash_prefill", "moe_streamed_int8")
+# Path (i)'s server flags less the captured blocks (refused on gloo).
+MESH_SERVER_FLAGS = SERVER_FLAGS[:SERVER_FLAGS.index("--num-scheduler-steps")]
+# The wrapper each kernel of the mesh paths launches through, and its
+# plain version: (module, wrapper, plain).
+MESH_WRAPPERS = {
+    "mla_decode": ("mla_decode", "mla_paged_decode_update",
+                   "mla_paged_decode_update_plain"),
+    "mla_prefill": ("mla_prefill", "mla_flash_prefill",
+                    "mla_flash_prefill_plain"),
+    "moe_streamed_int8": ("moe_routed_stream", "streamed_moe_int8",
+                          "streamed_moe_int8_plain"),
+    "paged_decode": ("paged_attention", "paged_attention_decode_update",
+                     "paged_attention_decode_update_plain"),
+    "flash_prefill": ("flash_prefill", "flash_prefill_paged",
+                      "flash_prefill_paged_plain"),
+}
+# A rank's engine and recorders between the pool's calls.
+MESH_STATE = {}
+
+
+def _mesh_module(name: str):
+    import importlib
+    return importlib.import_module(f"llm_d_tpu_torch.ops.{name}")
+
+
+def _mesh_launches(names) -> dict:
+    return {n: getattr(_mesh_module(MESH_WRAPPERS[n][0]),
+                       MESH_WRAPPERS[n][1]).launches for n in names}
+
+
+def _mesh_reset(names) -> None:
+    for n in names:
+        getattr(_mesh_module(MESH_WRAPPERS[n][0]),
+                MESH_WRAPPERS[n][1]).launches = 0
+
+
+def mesh_config(model: str, layers=None):
+    import dataclasses
+    from llm_d_tpu_torch.models.config import get_config
+    mc = get_config(model)
+    if layers is not None:
+        mc = dataclasses.replace(mc, num_layers=layers,
+                                 max_model_len=min(mc.max_model_len, 1152))
+    return mc
+
+
+def mesh_setup(model: str, names, layers=None, record: bool = True,
+               **over) -> dict:
+    """Rank side: this rank's engine of ``model`` on the mesh (its
+    shards of seed 0's draws, path (i)'s configuration in classic steps),
+    kept for the calls that follow; rank 0 records the first inputs of
+    each kernel label.  Returns the build's seconds and memory."""
+    import torch
+    from llm_d_tpu_torch.parallel.mesh import MeshConfig
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mc = mesh_config(model, layers)
+    kw = dict(model=model, model_config=mc, device=None,
+              mesh=MeshConfig(tp=MESH_TP))
+    kw.update(over)
+    eng = path_i_engine(1, **kw)
+    torch.cuda.synchronize()
+    out = dict(rank=eng.mesh.rank, backend=eng.mesh.backend,
+               staged_through_host=eng.mesh.stage_host,
+               device=str(eng.device), init_s=time.perf_counter() - t0,
+               held_gib=torch.cuda.memory_allocated(eng.device) / 2**30,
+               collective_wire=eng._collective_wire)
+    MESH_STATE.clear()
+    MESH_STATE.update(engine=eng, names=tuple(names), recs={})
+    if eng.mesh.rank == 0 and record:
+        keep = tensor_ptrs(eng.params)
+        MESH_STATE["keep"] = keep
+        for n in names:
+            mod, fn, _ = MESH_WRAPPERS[n]
+            MESH_STATE["recs"][n] = Recorder(_mesh_module(mod), fn, keep,
+                                             mesh_label(n))
+    return out
+
+
+def mesh_label(name: str):
+    """Recorder label of a mesh path's launches: E by its received rows,
+    A and G by their sequences, B and H by sequences and query rows."""
+    if name == "moe_streamed_int8":
+        return lambda a, kw: f"viii rows={a[0].shape[0]}"
+    if name in ("mla_prefill", "flash_prefill"):
+        return lambda a, kw: f"viii S={a[0].shape[0]} Q={a[0].shape[1]}"
+    return lambda a, kw: f"viii S={a[0].shape[0]}"
+
+
+def mesh_wave(tag: str, prompts, new: int, env=None, tape: bool = False
+              ) -> dict:
+    """Rank side: rank 0 serves ``prompts`` (``new`` greedy tokens each)
+    on the mesh and the other ranks follow, every rank under ``env``;
+    each kernel's launches on this rank are counted from 0.  With
+    ``tape`` rank 0 tapes the MoE expert choice (``routing_tape``)."""
+    import torch
+    eng, names = MESH_STATE["engine"], MESH_STATE["names"]
+    _mesh_reset(names)
+    wire0 = dict(eng.mesh.wire_bytes)
+    with contextlib.ExitStack() as stack:
+        for k, v in (env or {}).items():
+            stack.enter_context(env_set(k, v))
+        if eng.mesh.rank != 0:
+            tokens = eng.follow()
+            tokens = [tokens[f"{tag}-{i}"] for i in range(len(prompts))]
+            stats, taped = None, None
+        else:
+            taped = {}
+            if tape:
+                stack.enter_context(routing_tape(eng, taped, replay=False))
+            tokens, stats = run_wave(eng, prompts, new, tag)
+            eng.stop_mesh()
+    torch.cuda.synchronize()
+    # A recorder installed on rank 0 holds its kernel's count.
+    launches = _mesh_launches(names)
+    return dict(tokens=tokens, stats=stats, launches=launches, tape=taped,
+                wire_bytes={k: v - wire0.get(k, 0)
+                            for k, v in eng.mesh.wire_bytes.items()},
+                peak_gib=torch.cuda.max_memory_allocated(eng.device) / 2**30)
+
+
+def mesh_alone(prompts, new: int) -> list:
+    """Rank side: rank 0 serves each of ``prompts`` alone (``new`` greedy
+    tokens), the other ranks follow; the tokens of each."""
+    eng = MESH_STATE["engine"]
+    if eng.mesh.rank != 0:
+        got = eng.follow()
+        return [got[f"alone{i}-0"] for i in range(len(prompts))]
+    out = [run_wave(eng, [p], new, f"alone{i}")[0][0]
+           for i, p in enumerate(prompts)]
+    eng.stop_mesh()
+    return out
+
+
+def mesh_wires(T: int, seed: int) -> dict:
+    """Rank side: one MoE layer of the engine (its first, int8 experts)
+    on rows and routing from ``seed`` through the a2a dispatch on the
+    int8, int8-dispatch and bf16 wires and the psum dispatch on the bf16
+    and int8 wires: every output against a2a on the bf16 wire, rel-RMS
+    (the JAX harness's bound: 2% per collective).  The same on every
+    rank."""
+    import torch
+    from llm_d_tpu_torch.ops import moe as moe_ops
+    eng = MESH_STATE["engine"]
+    x, w, idx = moe_inputs(eng.model_config, T, seed=seed)
+    quant = {n: eng.params["moe_layers"][n] for n in
+             ("w_gate_q", "w_gate_s", "w_up_q", "w_up_s", "w_down_q",
+              "w_down_s")}
+    quant["layer"] = 0
+    outs = {}
+    for dispatch, wire in (("a2a", "bf16"), ("a2a", "int8"),
+                           ("a2a", "int8-dispatch"), ("psum", "bf16"),
+                           ("psum", "int8")):
+        outs[f"{dispatch} {wire}"] = moe_ops.expert_ffn(
+            x, w, idx, None, None, None, quant=quant, mesh=eng.mesh,
+            dispatch=dispatch, collective_dtype=wire).float()
+    ref = outs["a2a bf16"]
+    rms = float(ref.pow(2).mean().sqrt()) + 1e-12
+    return {k: float((v - ref).pow(2).mean().sqrt()) / rms
+            for k, v in outs.items() if k != "a2a bf16"}
+
+
+def mesh_kernel_checks() -> list:
+    """Rank side (rank 0): each recorded kernel input (rank-local shapes)
+    against the kernel's plain version with phase 4's tolerances, timed
+    (eager ms, device ms, the plain version's ms), with its bound from
+    ``work``; G and H also as one SDPA call on the dequantized K/V.  E's
+    live work is its received rows with a nonzero combine weight (the
+    fixed-region layout's empty region tails go to expert 0 with weight
+    0)."""
+    import torch
+    keep = MESH_STATE.get("keep")
+    out = []
+    for n, rec in MESH_STATE["recs"].items():
+        mod, fn_name, plain_name = MESH_WRAPPERS[n]
+        fn, plain = rec.fn, getattr(_mesh_module(mod), plain_name)
+        for label, (args, kw) in rec.calls.items():
+            a_k, kw_k = clone(args, keep), clone(kw, keep)
+            a_p, kw_p = clone(args, keep), clone(kw, keep)
+            got = fn(*a_k, **kw_k)
+            want = plain(*a_p, **kw_p)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            name = f"{n} [{label}]"
+            if n in ("mla_decode", "mla_prefill", "paged_decode",
+                     "flash_prefill"):
+                torch.testing.assert_close(got.float(), want.float(),
+                                           atol=2e-2, rtol=2e-2)
+                spliced = {"mla_decode": ([2], ["kv_scale"]),
+                           "paged_decode": ([3, 4], ["k_scale", "v_scale"])}
+                pos, planes = spliced.get(n, ([], []))
+                for i in pos:
+                    if not torch.equal(a_k[i], a_p[i]):
+                        raise RuntimeError(f"{name}: cache planes differ")
+                for pl in planes:
+                    if kw_k.get(pl) is not None and \
+                            not torch.equal(kw_k[pl], kw_p[pl]):
+                        raise RuntimeError(f"{name}: {pl} planes differ")
+                live = None
+            else:
+                scale = float(want.abs().max()) + 1e-9
+                if err / scale > 1e-2:
+                    raise RuntimeError(f"{name}: error {err} / scale "
+                                       f"{scale} > 1e-2")
+                live = int((args[2] != 0).sum())
+            ms = time_ms(lambda: fn(*a_k, **kw_k), iters=20)
+            dev_ms, _ = device_ms(lambda: fn(*a_k, **kw_k))
+            plain_ms = time_ms(lambda: plain(*a_p, **kw_p), iters=3,
+                               warmup=1)
+            nbytes, flops = work(n, args, kw, got, live)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / BF16_FLOPS * 1e3
+            lib = None
+            if n in ("paged_decode", "flash_prefill", "mla_decode",
+                     "mla_prefill"):
+                lib = sdpa_ms(n, a_k, kw_k)
+            out.append(dict(name=n, inputs=label, shape=shape_of(args),
+                            max_abs_err=err, ms=ms, device_ms=dev_ms,
+                            plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                            bound_by="bytes" if t_bytes >= t_ops
+                            else "operations", library_ms=lib,
+                            live_rows=live))
+            log(f"mesh {name}: err {err:.3g}, {ms:.4f} ms ({dev_ms:.4f} on "
+                f"the device) vs plain {plain_ms:.4f} ms, bound "
+                f"{max(t_bytes, t_ops):.4f} ms, library {lib}")
+        rec.calls.clear()
+        setattr(rec.module, rec.name, rec.fn)
+    return out
+
+
+def mesh_metrics() -> dict:
+    """Rank side: rank 0's ``llmd_tpu:collective_bytes_total`` by
+    collective, and the bytes this rank's collectives put on the wire."""
+    eng = MESH_STATE["engine"]
+    counted = {}
+    if eng.mesh.rank == 0:
+        for line in eng.metrics.render().decode().splitlines():
+            if line.startswith("llmd_tpu:collective_bytes_total{"):
+                labels, value = line.rsplit(" ", 1)
+                key = labels.split('collective="')[1].split('"')[0]
+                counted[key] = float(value)
+    return dict(counter=counted, wire_bytes=dict(eng.mesh.wire_bytes))
+
+
+def mesh_teardown() -> dict:
+    """Rank side: free the engine; returns this rank's peak memory."""
+    import torch
+    eng = MESH_STATE.get("engine")
+    dev = eng.device if eng is not None else None
+    for rec in MESH_STATE.get("recs", {}).values():
+        setattr(rec.module, rec.name, rec.fn)
+    MESH_STATE.clear()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+
+
+def mesh_two_layer(prompt_lens, seed: int) -> dict:
+    """Rank side: the first two layers of deepseek-v3-bench (seed 0's
+    draws of a 2-layer model) on the mesh, through the kernels: a prefill
+    step of ``prompt_lens`` and one decode step of each row's argmax.
+    Rank 0 returns the logits of both steps, the tokens decoded and its
+    expert choice of every MoE layer call (the one-rank check replays
+    it)."""
+    import numpy as np
+    import torch
+    from llm_d_tpu_torch.engine.request import Request
+    from llm_d_tpu_torch.ops import moe as moe_ops
+    from llm_d_tpu_torch.ops.sampling import SamplingParams
+    mesh_setup(MESH_MODEL, (), layers=2, record=False, num_blocks=24,
+               max_num_seqs=8, max_num_batched_tokens=1024)
+    eng = MESH_STATE["engine"]
+    mc = eng.model_config
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, mc.vocab_size, n).tolist()
+               for n in prompt_lens]
+    reqs = [Request(f"ref{i}", p, SamplingParams(
+        temperature=0.0, max_tokens=2, ignore_eos=True))
+        for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.scheduler.add_request(r)
+    real_route, tape = moe_ops.route, []
+
+    def route(logits_r, c, e_bias=None):
+        w, idx = real_route(logits_r, c, e_bias=e_bias)
+        tape.append(idx.cpu())
+        return w, idx
+    moe_ops.route = route
+    logits, picks = [], []
+    try:
+        for _ in range(2):
+            sched = eng.scheduler.schedule()
+            batch, _ = eng._build_batch(sched)
+            hidden = eng.model.forward(eng.params, eng.kv_cache, batch, mc,
+                                       eng.config.block_size, mesh=eng.mesh)
+            n = len(sched.scheduled)
+            lg = eng.model.compute_logits(eng.params, hidden, mc,
+                                          mesh=eng.mesh)[:n].float().cpu()
+            logits.append(lg)
+            for sr in sched.scheduled:
+                sr.request.num_computed_tokens += sr.num_new_tokens
+            pick = lg.argmax(-1).tolist()
+            picks.append(pick)
+            for r, tok in zip(reqs, pick):
+                r.output_token_ids.append(tok)
+    finally:
+        moe_ops.route = real_route
+    rank = eng.mesh.rank
+    mesh_teardown()
+    if rank != 0:
+        return {}
+    return dict(prompts=prompts, logits=[lg.numpy() for lg in logits],
+                picks=picks, tape=[t.numpy() for t in tape])
+
+
+def mesh_reference(tp: dict, replay: bool) -> dict:
+    """The one-rank engine on the same 2-layer weights on the card (seed
+    0's draws): the steps ``mesh_two_layer`` took, decoding its tokens,
+    with its expert choice replayed at every MoE layer call where
+    ``replay`` (gate weights from the one-rank engine's own scores):
+    relative max logit error and argmax agreement, and the routed tokens
+    whose expert set the replay changed."""
+    import torch
+    from llm_d_tpu_torch.engine.request import Request
+    from llm_d_tpu_torch.ops import moe as moe_ops
+    from llm_d_tpu_torch.ops.sampling import SamplingParams
+    eng = path_i_engine(1, model_config=mesh_config(MESH_MODEL, 2),
+                        num_blocks=24, max_num_seqs=8,
+                        max_num_batched_tokens=1024)
+    mc = eng.model_config
+    reqs = [Request(f"ref{i}", p, SamplingParams(
+        temperature=0.0, max_tokens=2, ignore_eos=True))
+        for i, p in enumerate(tp["prompts"])]
+    for r in reqs:
+        eng.scheduler.add_request(r)
+    real_route, tape, flips = moe_ops.route, list(tp["tape"]), []
+
+    def route(logits_r, c, e_bias=None):
+        w, idx = real_route(logits_r, c, e_bias=e_bias)
+        theirs = torch.from_numpy(tape.pop(0)).to(idx.device)
+        flips.append(int((theirs.sort(-1).values
+                          != idx.sort(-1).values).any(-1).sum()))
+        if not replay:
+            return w, idx
+        scores, _ = moe_ops.route_scores(logits_r, c, e_bias)
+        return moe_ops.gate_weights(scores, theirs, c), theirs
+    moe_ops.route = route
+    logits = []
+    try:
+        for step in range(2):
+            sched = eng.scheduler.schedule()
+            batch, _ = eng._build_batch(sched)
+            hidden = eng.model.forward(eng.params, eng.kv_cache, batch, mc,
+                                       eng.config.block_size)
+            n = len(sched.scheduled)
+            logits.append(eng.model.compute_logits(
+                eng.params, hidden, mc)[:n].float().cpu())
+            for sr in sched.scheduled:
+                sr.request.num_computed_tokens += sr.num_new_tokens
+            for r, tok in zip(reqs, tp["picks"][step]):
+                r.output_token_ids.append(tok)
+    finally:
+        moe_ops.route = real_route
+    del eng
+    got = torch.stack([torch.from_numpy(lg) for lg in tp["logits"]])
+    want = torch.stack(logits)
+    if not torch.isfinite(got).all():
+        raise RuntimeError("non-finite logits from the mesh")
+    return dict(replayed=replay,
+                rel_max_err=float((got - want).abs().max()
+                                  / want.abs().max()),
+                top1_agree=bool((got.argmax(-1) == want.argmax(-1)).all()),
+                routed_rows_differing_per_call=flips, shape=list(got.shape))
+
+
+def token_agreement(got, want) -> dict:
+    """Greedy tokens of two runs of the same prompts: equal positions,
+    rows equal throughout, and each row's first differing position."""
+    same = sum(a == b for g, w in zip(got, want) for a, b in zip(g, w))
+    first = [next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+             for g, w in zip(got, want)]
+    return dict(equal_tokens=same, tokens=sum(map(len, want)),
+                equal_rows=sum(f is None for f in first), rows=len(want),
+                first_difference=first)
+
+
+def mesh_server(root: str, prompts, direct) -> dict:
+    """Phase 9's server: ``python -m llm_d_tpu_torch.server.openai
+    --tensor-parallel-size 4`` with path (i)'s flags in classic steps
+    (its log in build/mesh_server.log).  Wave 1's prompts one at a time
+    (``MESH_SERVER_NEW`` greedy tokens, streamed), each reply's tokens the
+    direct tp engine's for that prompt alone (``direct``: a batch of other
+    rows changes cuBLAS's GEMM choice, and 16 random layers amplify the
+    rounding); then SIGTERM: exit 0, and no rank process left."""
+    import signal
+    port = free_port()
+    url = f"http://127.0.0.1:{port}"
+    log_path = os.path.join(root, "build", "mesh_server.log")
+    proc = start_server(root, [*MESH_SERVER_FLAGS, "--tensor-parallel-size",
+                               str(MESH_TP), "--host", "127.0.0.1", "--port",
+                               str(port)], "mesh_server.log")
+    try:
+        startup_s = wait_ready(proc, url, limit_s=600)
+        ranks = _child_pids(proc.pid)
+        if len(ranks) < MESH_TP - 1:
+            raise RuntimeError(f"the server started {len(ranks)} ranks")
+        t0 = time.perf_counter()
+        res = [completion(url, greedy_body(p, MESH_SERVER_NEW, True))
+               for p in prompts]
+        serve_s = time.perf_counter() - t0
+        got = [r["tokens"] for r in res]
+        if got != direct:
+            raise RuntimeError(f"the tp server's replies differ from the "
+                               f"direct tp engine's: "
+                               f"{token_agreement(got, direct)}")
+        status, _, health = http_call(url, "/health")
+        t_term = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=DRAIN_S + 120)
+        exit_s = time.perf_counter() - t_term
+        time.sleep(1.0)
+        left = [p for p in ranks if _pid_alive(p)]
+        if rc != 0 or left:
+            raise RuntimeError(f"after SIGTERM the tp server exited with "
+                               f"{rc}; ranks left: {left}")
+    except BaseException:
+        with open(log_path, "rb") as log_f:
+            sys.stderr.write(log_f.read()[-8000:].decode(errors="replace"))
+        raise
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        for p in _child_pids(proc.pid):
+            os.kill(p, 9)
+    return dict(startup_s=startup_s, ranks=len(ranks) + 1,
+                requests=len(prompts), replies_equal_direct=True,
+                serve_s=serve_s, health=status, exit_code=rc,
+                exit_s=exit_s)
+
+
+def _child_pids(pid: int) -> list:
+    """The live rank processes ``pid`` started (multiprocessing's spawned
+    children; its resource tracker is not a rank)."""
+    out = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read()
+        except OSError:
+            continue
+        if int(fields[1]) == pid and fields[0] != "Z" \
+                and b"spawn_main" in cmd:
+            out.append(int(d))
+    return out
+
+
+def _pid_alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def mesh_path(root: str, smi: str) -> tuple:
+    """Phase 9, path (viii): ``MESH_TP`` rank processes on the card (a
+    ``RankPool``; the backend the rule picks) serve deepseek-v3-bench at
+    full width and depth, tp = ep = 4: wave 1 (A at 4 heads, E on the
+    received rows at decode size), wave 3 (the 8192-token prefill: B at
+    4 heads, E on two dispatch chunks of 1024 tokens a rank), and wave 1
+    again on the bf16 wire and with the psum dispatch.  Every rank's
+    tokens identical; the wires against each other on one MoE layer
+    (2% rel-RMS); each recorded kernel input against its plain version;
+    each rank's peak; ``collective_bytes_total`` beside the bytes the
+    collectives moved.  Then the 2-layer check against the one-rank
+    engine (with and without the routing replayed), the tp server, the
+    qwen3-30b-a3b witness (wave 1 and one 8192-token prefill: G at one
+    KV head, H, E), and the one-rank classic loop's wave 1 at full depth
+    against the mesh's (with and without the routing replayed).
+    Returns (result, launches by kernel, per-kernel checks)."""
+    import numpy as np
+    import torch
+    from llm_d_tpu_torch.parallel.launch import RankPool
+    t_path = time.perf_counter()
+    rng = np.random.default_rng(0)
+    vocab = mesh_config(MESH_MODEL).vocab_size
+    p1 = prompts_for(rng, vocab, WAVE1)
+    prompts_for(rng, vocab, WAVE2)
+    p3 = prompts_for(rng, vocab, WAVE3)
+    out = dict(card=smi, tp=MESH_TP, ep=MESH_TP, model=MESH_MODEL,
+               steps="classic (gloo collectives are not capturable)")
+    launches, checks = {}, []
+    pool = RankPool(MESH_TP, device=None, threads=2, timeout_s=900)
+    try:
+        t0 = time.perf_counter()
+        out["build"] = pool.run(mesh_setup, MESH_MODEL, MESH_KERNELS)
+        out["build_s"] = time.perf_counter() - t0
+        b0 = out["build"][0]
+        out["backend"] = b0["backend"]
+        out["transport"] = ("gloo, every collective staged through host "
+                            "memory (the ranks share one card)"
+                            if b0["staged_through_host"] else b0["backend"])
+        log(f"mesh: {MESH_TP} ranks on {out['transport']}, build "
+            f"{json.dumps(out['build'])}")
+        waves = {}
+        for tag, prompts, new, env, tape in (
+                ("m1", p1, WAVE1["new"], None, True),
+                ("m3", p3, MESH_W3_NEW, None, False),
+                ("m1bf16", p1, MESH_SIDE_NEW,
+                 {"LLMD_COLLECTIVE_DTYPE": "bf16"}, False),
+                ("m1psum", p1, MESH_SIDE_NEW, {"LLMD_MOE_DISPATCH": "psum"},
+                 False)):
+            res = pool.run(mesh_wave, tag, prompts, new, env, tape)
+            toks = [r["tokens"] for r in res]
+            if any(t != toks[0] for t in toks):
+                raise RuntimeError(f"mesh wave {tag}: the ranks' tokens "
+                                   f"differ")
+            waves[tag] = dict(res[0]["stats"], env=env,
+                              launches_by_rank=[r["launches"] for r in res],
+                              wire_bytes_by_rank=[r["wire_bytes"]
+                                                  for r in res],
+                              ranks_identical=True,
+                              timing="gloo through the host, classic "
+                                     "steps")
+            waves[tag]["tokens"] = toks[0]
+            if tape:
+                waves[tag]["tape"] = res[0]["tape"]
+            log(f"mesh wave {tag}: {json.dumps(res[0]['stats'])}, "
+                f"launches {json.dumps(res[0]['launches'])}")
+        main_runs = ("m1", "m3")
+        for n in MESH_KERNELS:
+            per_rank = [sum(waves[w]["launches_by_rank"][r][n]
+                            for w in main_runs) for r in range(MESH_TP)]
+            if min(per_rank) == 0:
+                raise RuntimeError(f"{n} never launched on a rank of path "
+                                   f"(viii): {per_rank}")
+            launches[n] = sum(per_rank)
+        tok1 = waves["m1"]["tokens"]
+        head = [t[:MESH_SIDE_NEW] for t in tok1]
+        out["wire_tokens"] = dict(
+            bf16_wire=token_agreement(waves["m1bf16"]["tokens"], head),
+            psum=token_agreement(waves["m1psum"]["tokens"], head))
+        t0 = time.perf_counter()
+        alone = pool.run(mesh_alone, p1, MESH_SERVER_NEW)
+        if any(a != alone[0] for a in alone):
+            raise RuntimeError("mesh alone: the ranks' tokens differ")
+        out["alone_s"] = time.perf_counter() - t0
+        wires = pool.run(mesh_wires, 256, 256)
+        out["wires_rel_rms_vs_a2a_bf16"] = wires[0]
+        if any(w != wires[0] for w in wires):
+            raise RuntimeError("mesh wires: the ranks' outputs differ")
+        bad = {k: v for k, v in wires[0].items() if v > 2e-2}
+        if bad:
+            raise RuntimeError(f"mesh wires past 2% rel-RMS: {bad}")
+        log(f"mesh wires: {json.dumps(wires[0])}")
+        checks = pool.run(mesh_kernel_checks)[0]
+        m = pool.run(mesh_metrics)
+        out["collective_bytes"] = dict(
+            counter=m[0]["counter"],
+            wire_bytes_by_rank=[r["wire_bytes"] for r in m],
+            note="the counter is the JAX byte model (routed rows); the "
+                 "fixed-region exchange ships each region whole")
+        out["peak_gib_by_rank"] = [r["peak_gib"]
+                                   for r in pool.run(mesh_teardown)]
+        log(f"mesh: peaks {out['peak_gib_by_rank']}, collective bytes "
+            f"{json.dumps(out['collective_bytes'])}")
+        # The first two layers against the one-rank engine.
+        t0 = time.perf_counter()
+        tp2 = pool.run(mesh_two_layer, [100, 37], 27)[0]
+        out["reference"] = [mesh_reference(tp2, replay)
+                            for replay in (False, True)]
+        out["reference_s"] = time.perf_counter() - t0
+        log(f"mesh reference: {json.dumps(out['reference'])}")
+        ref = out["reference"][1]
+        if not ref["top1_agree"] or ref["rel_max_err"] > 5e-2:
+            raise RuntimeError(f"the mesh disagrees with the one-rank "
+                               f"engine: {ref}")
+        # The witness: qwen3-30b-a3b at tp = ep = 4.
+        t0 = time.perf_counter()
+        wvocab = mesh_config(MESH_WITNESS).vocab_size
+        wrng = np.random.default_rng(7)
+        w1 = prompts_for(wrng, wvocab, WAVE1)
+        w3 = prompts_for(wrng, wvocab, dict(WAVE3, new=1))
+        full = mesh_config(MESH_WITNESS).num_layers
+        wit = dict(model=MESH_WITNESS, layers=MESH_WITNESS_LAYERS,
+                   reduced=f"num_layers {full} -> {MESH_WITNESS_LAYERS}: "
+                           "the smoke's time limit (each decode step of "
+                           "48 layers is ~2.4 s over gloo)")
+        wit["build"] = pool.run(mesh_setup, MESH_WITNESS,
+                                MESH_WITNESS_KERNELS,
+                                layers=MESH_WITNESS_LAYERS)
+        wit["waves"] = {}
+        wl = {}
+        for tag, prompts, new in (("q1", w1, WAVE1["new"]), ("q3", w3, 1)):
+            res = pool.run(mesh_wave, tag, prompts, new)
+            if any(r["tokens"] != res[0]["tokens"] for r in res):
+                raise RuntimeError(f"witness wave {tag}: the ranks' "
+                                   f"tokens differ")
+            wit["waves"][tag] = dict(res[0]["stats"], ranks_identical=True)
+            for n in MESH_WITNESS_KERNELS:
+                wl[n] = wl.get(n, 0) + sum(r["launches"][n] for r in res)
+            log(f"mesh witness {tag}: {json.dumps(res[0]['stats'])}")
+        missing = [n for n, c in wl.items() if c == 0]
+        if missing:
+            raise RuntimeError(f"kernels never launched on the mesh "
+                               f"witness: {missing}")
+        wit["launches"] = wl
+        wit_checks = pool.run(mesh_kernel_checks)[0]
+        for c in wit_checks:
+            c["witness"] = True
+        checks += wit_checks
+        wit["peak_gib_by_rank"] = [r["peak_gib"]
+                                   for r in pool.run(mesh_teardown)]
+        wit["seconds"] = time.perf_counter() - t0
+        out["witness"] = wit
+        log(f"mesh witness: {json.dumps({k: v for k, v in wit.items() if k != 'waves'})}")
+    finally:
+        pool.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The server, with the ranks of the pool gone.
+    t0 = time.perf_counter()
+    out["server"] = mesh_server(root, p1, alone[0])
+    out["server"]["seconds"] = time.perf_counter() - t0
+    log(f"mesh server: {json.dumps(out['server'])}")
+    # The one-rank classic loop's wave 1 at full depth on the same
+    # weights, without and with the mesh's routing replayed.
+    t0 = time.perf_counter()
+    one = path_i_engine(1, model=MESH_MODEL)
+    tape = waves["m1"].pop("tape")
+    alone, _ = run_wave(one, p1, WAVE1["new"], "m1")
+    with routing_tape(one, tape, replay=True) as replayed:
+        again, _ = run_wave(one, p1, WAVE1["new"], "m1")
+    out["one_rank_tokens"] = dict(
+        own_routing=token_agreement(tok1, alone),
+        mesh_routing_replayed=dict(token_agreement(tok1, again),
+                                   token_layers_replayed=replayed[0]))
+    out["one_rank_s"] = time.perf_counter() - t0
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"mesh vs one rank: {json.dumps(out['one_rank_tokens'])}")
+    for w in waves.values():
+        w.pop("tokens", None)
+    out["waves"] = waves
+    out["seconds"] = time.perf_counter() - t_path
+    return out, launches, checks
+
 
 
 def main() -> int:
@@ -4696,9 +5411,11 @@ def main() -> int:
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=None)
-        if (count or library) and k["name"] in attention \
-                and kw.get("kv_scale") is None \
-                and (library or kw.get("k_scale") is None):
+        # One SDPA call on the gathered (dequantized) latent computes A's
+        # and B's function at every input; G and H as phase 4 chose.
+        if k["name"] in ("mla_decode", "mla_prefill") or (
+                (count or library) and k["name"] in attention
+                and (library or kw.get("k_scale") is None)):
             row["library_ms"] = sdpa_ms(k["name"], a_k, kw_k)
         if count:
             rows.append(row)
@@ -4933,6 +5650,17 @@ def main() -> int:
             row["launches"] += counts.get(n, 0)
             row["graph_launches"] += in_graphs.get(n, 0)
         log(f"path (vii) {name}: {res['seconds']:.1f} s")
+    # 9. path (viii): tp = ep = 4 as four ranks, once phase 8 has freed the
+    # card.
+    mesh, mesh_counts, mesh_checks = mesh_path(root, smi)
+    for row in rows:
+        n = row["name"]
+        row["mesh_launches"] = mesh_counts.get(n, 0) + \
+            mesh["witness"]["launches"].get(n, 0)
+        row["launches"] += row["mesh_launches"]
+        row["mesh_inputs"] = [{k: v for k, v in c.items() if k != "name"}
+                              for c in mesh_checks if c["name"] == n]
+    log(f"path (viii): {mesh['seconds']:.1f} s")
     if prof is not None:
         # The first decode block of a fresh process, part by part.
         prof["cold_first_block"] = []
@@ -4961,6 +5689,7 @@ def main() -> int:
     print(json.dumps({"sizing": sizing}))
     print(json.dumps({"observe": observe}))
     print(json.dumps({"moe_gqa": gqa}))
+    print(json.dumps({"mesh": mesh}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -75,7 +75,21 @@ retire, on the host: nothing is added to a step body or a captured
 graph, and no host sync.  ``step`` checks the ``engine.step`` fault point
 (``utils/faultinject.py``) first, as the JAX engine does.
 
-Not ported yet (later slices): the multi-device fields (mesh, DBO).
+Tensor and expert parallelism (``mesh=MeshConfig(tp=N)``), as the JAX
+engine serves a mesh: every rank of the ranks' process group builds an
+``EngineCore`` with the same config; each holds its shard of the model's
+``sharding_rules`` and the KV pool of ``kv_cache_spec`` (the MLA latent
+replicated, GQA K/V by KV head), and the model runs the collectives
+(``parallel/mesh.py``).  Rank 0 owns the requests: every add and abort
+goes to the other ranks with the order of the step that sees it
+(``parallel.mesh.StepChannel``), together with rank 0's clock for
+deadlines; the others run ``follow()``, the same schedule step by step,
+and sample the same all-gathered logits with the same keys, so every
+rank holds the same tokens.  ``llmd_tpu:collective_bytes_total`` charges
+each computed token's EP exchange bytes (the JAX byte model).  Refused
+by name on a mesh: DP and SP axes, spec decode, P/D, the host tier,
+EPLB at ep > 1, a step-time target, and captured decode blocks where
+the collectives cannot be captured (gloo on CUDA); DBO everywhere.
 """
 
 from __future__ import annotations
@@ -95,12 +109,17 @@ from llm_d_tpu_torch.engine.request import Request, RequestOutput, RequestState
 from llm_d_tpu_torch.engine.scheduler import Scheduler, SchedulerOutput
 from llm_d_tpu_torch.models import get_model
 from llm_d_tpu_torch.models.config import ModelConfig, get_config
+from llm_d_tpu_torch.models.llama import local_config
 from llm_d_tpu_torch.ops import prng
 from llm_d_tpu_torch.ops import sampling as sampling_ops
 from llm_d_tpu_torch.ops.moe import DENSE_DISPATCH_MAX_T
 from llm_d_tpu_torch.ops.quant import (
     KV_CACHE_DTYPES, KV_SCALE_GRANULARITIES, MLA_LATENT_DTYPES,
     kv_scale_width, quantize_moe_experts)
+from llm_d_tpu_torch.parallel.mesh import (Mesh, MeshConfig, StepChannel,
+                                           check_served)
+from llm_d_tpu_torch.parallel.sharding import (shard_shape, shard_tree,
+                                               validate_divisibility)
 from llm_d_tpu_torch.utils import tracing
 from llm_d_tpu_torch.utils.config import env_choice, env_float, env_int
 from llm_d_tpu_torch.utils.device import resolve_device
@@ -225,6 +244,16 @@ class EngineConfig:
     # peers over a transfer server / consult peers on local miss.
     kv_shared_tier_port: Optional[int] = None   # None = don't serve; 0 = ephemeral
     kv_shared_tier_peers: Tuple[str, ...] = ()  # "host:port" peer servers
+    # The mesh this engine is one rank of (None = one device): every rank
+    # joins the process group first, then builds an EngineCore with this
+    # config (``parallel/launch.py`` starts them).
+    mesh: Optional[MeshConfig] = None
+    # Permit a mesh smaller than the host's card count (tests / dryruns).
+    # Otherwise idle cards are a misconfiguration that fails fast.
+    allow_device_subset: bool = False
+    # DBO (dual-batch overlap; reference --enable-dbo): refused by name
+    # until the port serves it.
+    enable_dbo: bool = False
 
     def resolve_model(self) -> ModelConfig:
         return self.model_config or get_config(self.model)
@@ -239,10 +268,27 @@ class EngineCore:
         engine's device; ``None`` random-initializes them from
         ``config.seed`` and, for the drafter, ``config.seed + 1``."""
         self.config = config
-        self.device = resolve_device(config.device)
+        if config.enable_dbo:
+            raise ValueError(
+                "enable_dbo (dual-batch overlap of the EP exchange with the "
+                "expert GEMMs) is not served by the port yet")
         self.model_config = config.resolve_model()
         c = self.model_config
         self.model = get_model(c)
+        self.mesh: Optional[Mesh] = None
+        if config.mesh is not None and config.mesh.num_devices > 1:
+            import torch.distributed as dist
+            check_served(config.mesh)
+            if not dist.is_initialized():
+                raise RuntimeError(
+                    f"mesh {config.mesh}: join the ranks' process group "
+                    "first (parallel.mesh.init_distributed)")
+            self.device = resolve_device(config.device, dist.get_rank())
+            self.mesh = Mesh.from_process_group(
+                config.mesh, self.device, config.allow_device_subset)
+            self._check_cards(config)
+        else:
+            self.device = resolve_device(config.device)
 
         # An explicit value wins; None resolves the environment knob (an
         # invalid environment value falls back with a warning, an invalid
@@ -327,18 +373,34 @@ class EngineCore:
         self.step_time_model = StepTimeModel()
         self.scheduler.prefill_chunk_cap = self._prefill_chunk_cap
 
+        if self.mesh is not None:
+            self._check_mesh()
+            # Heads that do not divide over tp are refused here, by name.
+            local_config(c, self.mesh)
         if params is None:
             init_gen = torch.Generator(device=self.device)
             init_gen.manual_seed(config.seed)
             # int8 experts are drawn and quantized plane by plane: no bf16
-            # expert stack is ever held (58 GB at qwen3-30b-a3b).
+            # expert stack is ever held (58 GB at qwen3-30b-a3b).  On a
+            # mesh each rank keeps its shards of the same draws.
             kw = (dict(quantize_experts=True)
                   if config.quantization == "int8" else {})
+            if self.mesh is not None:
+                kw["mesh"] = self.mesh
             params = self.model.init_params(c, init_gen, self.device, **kw)
-        elif config.quantization == "int8" \
-                and "w_gate_q" not in params.get("moe_layers", {}):
-            # Drops each bf16 stack from the caller's tree as it goes.
-            params = quantize_moe_experts(params)
+        else:
+            if self.mesh is not None:
+                # The caller's full tree: this rank's shards.
+                rules = self.model.sharding_rules(c)
+                problems = validate_divisibility(rules, params, self.mesh)
+                if problems:
+                    raise ValueError(f"parameters do not shard over "
+                                     f"{config.mesh}: {problems}")
+                params = shard_tree(params, rules, self.mesh)
+            if config.quantization == "int8" \
+                    and "w_gate_q" not in params.get("moe_layers", {}):
+                # Drops each bf16 stack from the tree as it goes.
+                params = quantize_moe_experts(params)
         self.params = params
         # EPLB on the engine's one device (ep = 1): the physical expert
         # table replaces the logical weights (copies the controller owns).
@@ -352,16 +414,24 @@ class EngineCore:
 
         num_slots = config.num_blocks * config.block_size
         layout = self.model.kv_cache_layout(c)
+        specs = self.model.kv_cache_spec(c)
         payload = torch.int8 if self.kv_quantized else torch.bfloat16
         self.kv_cache: Dict[str, torch.Tensor] = {}
+        # On a mesh each rank holds its shard of ``kv_cache_spec``; per-head
+        # scales shard like the payload's folded head dim, one scale per
+        # row is replicated.
+        mesh_shape = self.mesh or MeshConfig()
         for name, width in layout.items():
             self.kv_cache[name] = torch.zeros(
-                (c.num_layers, num_slots, width), dtype=payload,
-                device=self.device)
+                shard_shape((c.num_layers, num_slots, width), specs[name],
+                            mesh_shape), dtype=payload, device=self.device)
             if self.kv_quantized:
+                s_spec = specs[name] if self.kv_scale_width > 1 else ()
                 self.kv_cache[f"{name}_scale"] = torch.zeros(
-                    (c.num_layers, num_slots, self.kv_scale_width),
+                    shard_shape((c.num_layers, num_slots,
+                                 self.kv_scale_width), s_spec, mesh_shape),
                     dtype=torch.float32, device=self.device)
+        self._collective_setup()
 
         self.max_blocks_per_seq = -(-c.max_model_len // config.block_size)
         # The sampling key, split once per step as the JAX engine splits
@@ -431,6 +501,16 @@ class EngineCore:
             logger.info("spec decode on: K=%d%s", self.spec_k,
                         f" (fixed acceptance {config.spec_fixed_accept})"
                         if config.spec_fixed_accept is not None else "")
+        # A mesh: rank 0's orders to the other ranks; every rank reads
+        # deadlines against rank 0's clock at the step's order.
+        self._channel: Optional[StepChannel] = None
+        self._pending_ops: List[Tuple[str, bytes]] = []
+        self._followed: Dict[str, Request] = {}
+        self._record_followed = True
+        if self.mesh is not None:
+            self._channel = StepChannel(self.mesh)
+            self._step_now = time.monotonic()
+            self.scheduler.clock = lambda: self._step_now
         # The CUDA graphs of the decode blocks and of the fused rounds and
         # dispatches (none on the CPU, where their bodies run eagerly):
         # at most CUDA_GRAPH_MAX_KEYS graphs, their pool at most half the
@@ -471,6 +551,86 @@ class EngineCore:
                 + ("" if self.spec_k else " or max_num_seqs <= "
                    f"{DENSE_DISPATCH_MAX_T}"))
 
+    def _check_cards(self, config: EngineConfig) -> None:
+        """A mesh smaller than the host's card count idles cards: refused
+        unless ``allow_device_subset`` (ranks that share one card idle
+        none)."""
+        if self.device.type != "cuda" or config.allow_device_subset:
+            return
+        cards = torch.cuda.device_count()
+        if cards > config.mesh.num_devices:
+            raise ValueError(
+                f"mesh {config.mesh} needs {config.mesh.num_devices} "
+                f"devices, got {cards}")
+
+    def _check_mesh(self) -> None:
+        """Refuse, by name, what this slice does not serve on a mesh."""
+        cfg, mesh = self.config, self.mesh
+        refused = []
+        spec_mode = cfg.spec_decode or env_choice(
+            "LLMD_SPEC_DECODE", "auto", SPEC_DECODE_MODES)
+        spec_k = (cfg.spec_k if cfg.spec_k is not None
+                  else env_int("LLMD_SPEC_K", 0))
+        if spec_mode != "off" and spec_k > 0:
+            refused.append("spec decode (spec_k > 0) and the fused rounds")
+        if cfg.kv_offload_blocks > 0 or cfg.kv_shared_tier_port is not None \
+                or cfg.kv_shared_tier_peers:
+            refused.append("the host and shared KV tiers")
+        if cfg.enable_eplb and mesh.config.ep > 1:
+            refused.append(f"EPLB at ep = {mesh.config.ep} (cross-device "
+                           "expert migrations)")
+        if self._step_time_target_ms > 0:
+            refused.append("LLMD_STEP_TIME_TARGET_MS (each rank would size "
+                           "its prefill chunks from its own step times)")
+        if mesh.stage_host and cfg.num_scheduler_steps > 1:
+            refused.append(
+                "captured decode blocks (num_scheduler_steps > 1) on a gloo "
+                "mesh on CUDA: gloo collectives cannot be captured in a "
+                "CUDA graph")
+        if refused:
+            raise ValueError(f"not served on mesh {mesh.config}: "
+                             + "; ".join(refused))
+
+    def _collective_setup(self) -> None:
+        """EP wire accounting (the JAX engine's): on a multi-device MoE
+        mesh each computed token's k routed copies cross the dispatch and
+        combine exchanges once per MoE layer, charged at the resolved
+        wire dtype to ``llmd_tpu:collective_bytes_total``; where every
+        step runs the psum fallback (ep not a power of two), the
+        all-reduce model instead."""
+        c = self.model_config
+        self._collective_wire = None
+        if not c.is_moe or self.mesh is None:
+            return
+        from llm_d_tpu_torch.parallel.quant_collectives import (
+            a2a_row_bytes, psum_bytes_per_token, resolve_collective_dtype)
+        self._collective_wire = resolve_collective_dtype(
+            backend=self.device.type)
+        Lm = c.num_layers - c.first_dense_layers
+        ep = self.mesh.config.ep
+        if c.num_experts % ep == 0 and ep & (ep - 1) == 0:
+            row = a2a_row_bytes(c.hidden_size, self._collective_wire)
+            self._a2a_token_bytes = {
+                phase: b * c.num_experts_per_tok * Lm
+                for phase, b in row.items()}
+        else:
+            self._a2a_token_bytes = {"allreduce": psum_bytes_per_token(
+                c.hidden_size, self._collective_wire) * Lm}
+
+    def _account_collective_bytes(self, n_tokens: int) -> None:
+        """Charge ``n_tokens`` computed tokens' EP exchange bytes (no-op
+        off the multi-device MoE path)."""
+        if self._collective_wire is None or not n_tokens:
+            return
+        for phase, b in self._a2a_token_bytes.items():
+            self.metrics.add_collective_bytes(
+                phase, self._collective_wire, n_tokens * b)
+
+    def _logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        kw = {} if self.mesh is None else dict(mesh=self.mesh)
+        return self.model.compute_logits(self.params, hidden,
+                                         self.model_config, **kw)
+
     def _moe_opts(self) -> Optional[Dict[str, Any]]:
         """MoE forward knobs every step body passes: the attribution stubs
         (None on a dense model, and when nothing is stubbed)."""
@@ -488,6 +648,8 @@ class EngineCore:
                 cfg.attn_backend)
         opts = self._moe_opts()
         kw = {} if opts is None else dict(moe_opts=opts)
+        if self.mesh is not None:
+            kw["mesh"] = self.mesh
         if self.eplb is None:
             return self.model.forward(*args, **kw), None
         return self.model.forward(*args, collect_routed=True, **kw)
@@ -500,6 +662,8 @@ class EngineCore:
     # ---------- public API ----------
 
     def add_request(self, request: Request) -> None:
+        if self._channel is not None:
+            self._order("add", request)
         if request.do_remote_decode and (
                 self.kv_connector is None
                 or getattr(self.kv_connector, "server", None) is None):
@@ -531,6 +695,8 @@ class EngineCore:
             finish_reason=RequestState.FINISHED_ABORTED.value))
 
     def abort_request(self, request_id: str) -> None:
+        if self._channel is not None:
+            self._order("abort", request_id)
         self.scheduler.abort_request(request_id)
         self._spec_forget(request_id)
         # Aborting a finished remote prefill (PD producer) frees its pinned
@@ -540,6 +706,58 @@ class EngineCore:
             # Consumer side: the request may only exist as an in-flight KV
             # pull; poll() then drops it instead of admitting it.
             self.kv_connector.abort(request_id)
+
+    # ---------- the ranks of a mesh ----------
+
+    def _order(self, kind: str, arg) -> None:
+        """Rank 0 queues an add or abort for the other ranks (sent with
+        the next step's order); the other ranks record the requests they
+        follow."""
+        if self._channel.leader:
+            if kind == "add":
+                import pickle
+                arg = pickle.dumps(dataclasses.replace(arg, trace_ctx=None))
+            self._pending_ops.append((kind, arg))
+        elif kind == "add" and self._record_followed:
+            self._followed[arg.request_id] = arg
+
+    def _send_step(self) -> None:
+        """Rank 0: order the other ranks to take this step, with the adds
+        and aborts since the last one and rank 0's clock."""
+        self._step_now = time.monotonic()
+        self._channel.send((self._pending_ops, self._step_now))
+        self._pending_ops = []
+
+    def follow(self, record: bool = True) -> Dict[str, List[int]]:
+        """A rank other than 0: apply rank 0's orders and take its steps
+        until it stops the mesh (:meth:`stop_mesh`).  Returns the output
+        ids of every request this rank followed (with ``record``; a
+        server's ranks keep none)."""
+        import pickle
+        if self._channel is None or self._channel.leader:
+            raise RuntimeError("follow() runs on the ranks other than 0")
+        self._record_followed = record
+        self._followed = {}
+        while True:
+            msg = self._channel.recv()
+            if msg is None:
+                break
+            ops, self._step_now = msg
+            for kind, arg in ops:
+                if kind == "add":
+                    self.add_request(pickle.loads(arg))
+                else:
+                    self.abort_request(arg)
+            self.step()
+        return {rid: list(r.output_token_ids)
+                for rid, r in self._followed.items()}
+
+    def stop_mesh(self) -> None:
+        """Rank 0: end the other ranks' :meth:`follow` loops.  The mesh
+        stays whole: steps ordered after this wait for the ranks' next
+        :meth:`follow`."""
+        if self._channel is not None and self._channel.leader:
+            self._channel.send(None)
 
     def has_work(self) -> bool:
         return (self.scheduler.has_work() or bool(self._rejected)
@@ -732,7 +950,7 @@ class EngineCore:
             hidden, r = self._forward(batch)
             if routed is not None:
                 routed[it] = r
-            logits = self.model.compute_logits(self.params, hidden, c)
+            logits = self._logits(hidden)
             tok = sampling_ops.sample(
                 logits, mb["temperature"], mb["top_k"], mb["top_p"],
                 key=(keys[it, 0], keys[it, 1]), seeds=mb["seeds"],
@@ -924,6 +1142,9 @@ class EngineCore:
             # Tokens past a stop are discarded; their KV writes live in
             # already-allocated blocks and are freed with the request.
             self.metrics.generation_tokens.inc(len(new_tokens))
+            # The block computed all K steps of the row whatever its stop:
+            # all K crossed the EP wire.
+            self._account_collective_bytes(K)
             if req.last_token_time is not None:
                 self.metrics.inter_token_latency.observe(
                     (now - req.last_token_time) / max(1, len(new_tokens)))
@@ -1669,6 +1890,11 @@ class EngineCore:
         # engine fails every stream, /health turns 500).  Keyed by model
         # name, so a harness can kill one replica of several.
         get_injector().check("engine.step", key=str(self.config.model))
+        if self._channel is not None and self._channel.leader:
+            if self.kv_connector is not None:
+                raise ValueError("P/D (a KV connector) is not served on "
+                                 f"mesh {self.mesh.config}")
+            self._send_step()
         outputs: List[RequestOutput] = list(self._rejected)
         self._rejected.clear()
         if self.kv_connector is not None:
@@ -1743,8 +1969,7 @@ class EngineCore:
         step_t0 = time.monotonic()
         self._rng, step_key = prng.split(self._rng)
         hidden, routed = self._forward(batch)
-        logits = self.model.compute_logits(self.params, hidden,
-                                           self.model_config)
+        logits = self._logits(hidden)
         ids = sampling_ops.sample(
             logits, host["temperature"], host["top_k"], host["top_p"],
             key=step_key, seeds=host["seeds"],
@@ -1794,6 +2019,7 @@ class EngineCore:
         for s, sr in enumerate(scheduled):
             req, n = sr.request, sr.num_new_tokens
             req.num_computed_tokens += n
+            self._account_collective_bytes(n)
             self.kv_manager.cache_full_blocks(req)
             if req.num_computed_tokens != req.num_tokens:
                 continue                  # mid-prefill chunk: no sampling yet

@@ -72,6 +72,9 @@ class Scheduler:
         self.max_num_seqs = max_num_seqs
         self.max_num_batched_tokens = max_num_batched_tokens
         self.max_model_len = max_model_len
+        # The clock deadlines are read against: the ranks of a mesh all
+        # read rank 0's, so they expire the same requests on the same step.
+        self.clock = time.monotonic
         self.waiting: collections.deque[Request] = collections.deque()
         self.running: List[Request] = []
         self.num_preemptions = 0
@@ -169,7 +172,7 @@ class Scheduler:
         cache).  Evicted requests finish with state FINISHED_DEADLINE —
         the engine surfaces them as outputs and the server maps them to
         504 + x-llmd-deadline-exceeded."""
-        now = time.monotonic()
+        now = self.clock()
         for q in (self.waiting, self.running):
             for req in [r for r in list(q) if r.deadline_expired(now)]:
                 q.remove(req)

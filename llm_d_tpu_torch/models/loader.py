@@ -328,18 +328,29 @@ def _load_experts(weights, names: List[List[str]], ours: str, dt, device,
 
 
 def load_from_safetensors_dir(config: ModelConfig, path: str, device="cpu",
-                              quantize_experts: bool = False
-                              ) -> Dict[str, Any]:
+                              quantize_experts: bool = False,
+                              mesh=None) -> Dict[str, Any]:
     """Load all ``*.safetensors`` under ``path`` (an HF snapshot) onto
-    ``device``; MoE configs may quantize their experts as they load."""
+    ``device``; MoE configs may quantize their experts as they load.
+    With a ``mesh``, this rank's shards of the model's
+    ``sharding_rules``: the tree loads whole into host memory, then each
+    leaf's shard moves to ``device``."""
     files = sorted(f for f in os.listdir(path) if f.endswith(".safetensors"))
     if not files:
         raise FileNotFoundError(f"no .safetensors files under {path}")
     weights = SafetensorsFiles([os.path.join(path, f) for f in files])
+    load_to = "cpu" if mesh is not None else device
     if config.is_moe:
-        return load_moe_from_state_dict(config, weights, device=device,
+        tree = load_moe_from_state_dict(config, weights, device=load_to,
                                         quantize_experts=quantize_experts)
-    return load_dense_from_state_dict(config, weights, device=device)
+    else:
+        tree = load_dense_from_state_dict(config, weights, device=load_to)
+    if mesh is None:
+        return tree
+    from llm_d_tpu_torch.models import get_model
+    from llm_d_tpu_torch.parallel.sharding import shard_tree
+    return shard_tree(tree, get_model(config).sharding_rules(config), mesh,
+                      convert=lambda t: t.contiguous().to(device))
 
 
 def config_from_hf_dir(path: str, name: str = "hf") -> ModelConfig:

@@ -62,9 +62,14 @@ def mla_attention_block(
     attn_backend: str,
     layer: int,
     kv_scale: torch.Tensor = None,    # int8 latent: [L, slots, SW] f32
+    mesh=None,
 ) -> torch.Tensor:
     """Weight-absorbed MLA over the paged latent cache: returns
-    ``[T, Hm]``; the cache (and scale plane) is updated in place."""
+    ``[T, Hm]``; the cache (and scale plane) is updated in place.  Under
+    tensor parallelism ``config`` is the rank's local config (its share
+    of the heads: q_b / kv_b are column-parallel, head-major), the latent
+    row and its cache are replicated, and o_proj sums the ranks' partial
+    products."""
     c = config
     T = x.shape[0]
     H = c.num_heads
@@ -159,4 +164,14 @@ def mla_attention_block(
 
     attn = torch.einsum("thr,rhv->thv", out_lat,
                         w_uv.float()).to(x.dtype)
-    return L.linear(attn.reshape(T, H * vdim), lp["o_proj"])
+    return L.linear_reduce(attn.reshape(T, H * vdim), lp["o_proj"], mesh)
+
+
+def mla_sharding_rules():
+    """TP over heads (the JAX table): q_b / kv_b column-parallel
+    (head-major last dim), o_proj row-parallel; the low-rank
+    down-projections and norms replicate."""
+    return [
+        (r"layers/(q_proj|q_b_proj|kv_b_proj)", (None, None, "tp")),
+        (r"layers/o_proj", (None, "tp", None)),
+    ]

@@ -317,12 +317,14 @@ def attention_with_kv_update(
     layer: Optional[int] = None,
     k_scale: Optional[torch.Tensor] = None,   # int8: [L, slots, SW] f32
     v_scale: Optional[torch.Tensor] = None,
+    amax_reduce=None,
 ):
     """Write this step's K/V rows into the paged cache (in place) and
     attend over it, for the dense (GQA) models.
 
     Int8 caches quantize the new rows here with the scale plane's width
-    (per token or per KV head).  The dispatch is the JAX package's, decided
+    (per token or per KV head; ``amax_reduce`` as ``quantize_kv_block``
+    takes it).  The dispatch is the JAX package's, decided
     from shapes: under 'kernel' a pure-decode batch goes to kernel G,
     which writes the rows itself, and a prefill or mixed batch scatters
     its rows and goes to kernel H; a batch neither gate admits (and every
@@ -339,8 +341,8 @@ def attention_with_kv_update(
     k_s = v_s = None
     if quantized:
         sw = k_scale.shape[-1]
-        k_rows, k_s = quantize_kv_block(k_rows, sw)
-        v_rows, v_s = quantize_kv_block(v_rows, sw)
+        k_rows, k_s = quantize_kv_block(k_rows, sw, amax_reduce)
+        v_rows, v_s = quantize_kv_block(v_rows, sw, amax_reduce)
     else:
         k_rows = k_rows.to(k_cache.dtype)
         v_rows = v_rows.to(v_cache.dtype)

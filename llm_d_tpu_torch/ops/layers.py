@@ -60,6 +60,22 @@ def linear(x: torch.Tensor, w: torch.Tensor,
     return y
 
 
+def linear_reduce(x: torch.Tensor, w: torch.Tensor, mesh=None
+                  ) -> torch.Tensor:
+    """Row-parallel :func:`linear`: under tensor parallelism ``x`` and
+    ``w`` hold this rank's shard of the contraction dim, and the partial
+    products are summed over ``tp`` in f32 before the one rounding to
+    x.dtype (as XLA reduces a sharded ``preferred_element_type=f32``
+    dot).  On the card each partial product is cuBLAS's bf16 result."""
+    if mesh is None or mesh.axis_size("tp") == 1:
+        return linear(x, w)
+    if x.is_cuda:
+        y = torch.matmul(x, w.to(x.dtype)).float()
+    else:
+        y = torch.matmul(x.float(), w.float())
+    return mesh.all_reduce(y, "tp").to(x.dtype)
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``x * 1 / (1 + exp(-x))`` op by op, as ``jax.nn.silu`` lowers: for
     bf16 inputs every step rounds to bf16 (``F.silu`` rounds once, which
@@ -68,7 +84,9 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 
 def swiglu_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-               w_down: torch.Tensor) -> torch.Tensor:
+               w_down: torch.Tensor, mesh=None) -> torch.Tensor:
+    """SwiGLU MLP; under tp gate/up are column-parallel and down_proj
+    row-parallel (:func:`linear_reduce`)."""
     gate = linear(x, w_gate)
     up = linear(x, w_up)
-    return linear(silu(gate) * up, w_down)
+    return linear_reduce(silu(gate) * up, w_down, mesh)

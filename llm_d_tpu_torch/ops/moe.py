@@ -1,5 +1,5 @@
-"""MoE ops on one device: routing, the expert FFN dispatch and the int8
-kernel glue (port of the single-device half of ``llm_d_tpu.ops.moe``).
+"""MoE ops: routing, the expert FFN dispatch, the int8 kernel glue and
+expert parallelism over a mesh (port of ``llm_d_tpu.ops.moe``).
 
 Int8 experts on the card run the hand-written kernels by token count, with
 the JAX package's knobs read at call time (malformed values fall back to
@@ -12,6 +12,12 @@ the defaults):
 
 Everything else (CPU tensors, bf16 experts) dequantizes and runs the
 plain dense / grouped paths, as the JAX package does off the TPU.
+
+On a mesh (``expert_ffn(..., mesh=)``) the experts shard over every rank
+and tokens travel to their experts' ranks by all-to-all (``a2a``) or
+every rank runs its experts on all tokens and the outputs are summed
+(``psum``); int8 experts run kernel E on the received rows on every
+backend (its plain version on the CPU).
 """
 
 from __future__ import annotations
@@ -392,13 +398,28 @@ def int8_kernel_regime(T: int) -> str:
 def expert_ffn(x: torch.Tensor, weights: torch.Tensor, idx: torch.Tensor,
                w_gate: Optional[torch.Tensor], w_up: Optional[torch.Tensor],
                w_down: Optional[torch.Tensor],
-               quant: Optional[dict] = None) -> torch.Tensor:
-    """Routed-expert FFN on one device: [T, H] in x.dtype.
+               quant: Optional[dict] = None, mesh=None,
+               dispatch: str = "auto",
+               collective_dtype: Optional[str] = None) -> torch.Tensor:
+    """Routed-expert FFN: [T, H] in x.dtype, on every rank of ``mesh``.
 
-    ``quant`` carries stacked int8 payloads ``{w_gate_q, w_gate_s, ...}``
-    plus the MoE ``layer`` plane; on the card they go straight to kernels
-    C-F (:func:`int8_kernel_regime`) without a dequantized copy."""
+    One device: ``quant`` carries stacked int8 payloads ``{w_gate_q,
+    w_gate_s, ...}`` plus the MoE ``layer`` plane; on the card they go
+    straight to kernels C-F (:func:`int8_kernel_regime`) without a
+    dequantized copy.
+
+    On a mesh the expert weights (or payloads) are this rank's shard of
+    the expert dim, and ``dispatch`` picks the exchange as the JAX
+    package does: ``a2a`` (the default where ``T`` and ``E`` divide by
+    the EP degree; :func:`expert_ffn_a2a`) or ``psum`` (every rank runs
+    its experts on all tokens, partial outputs all-reduced, quantized
+    under the int8 wire); ``dense`` / ``ragged`` are one-device modes and
+    raise.  ``collective_dtype`` is the wire (None resolves
+    ``LLMD_COLLECTIVE_DTYPE``)."""
     T = x.shape[0]
+    if mesh is not None and mesh.size > 1:
+        return _expert_ffn_mesh(x, weights, idx, w_gate, w_up, w_down,
+                                quant, mesh, dispatch, collective_dtype)
     if quant is not None and x.is_cuda:
         path = {"dense": _dense_int8_kernel_path,
                 "routed": _routed_int8_kernel_path,
@@ -412,3 +433,205 @@ def expert_ffn(x: torch.Tensor, weights: torch.Tensor, idx: torch.Tensor,
     else:
         out = _local_expert_ffn(x, weights, idx, w_gate, w_up, w_down)
     return out.to(x.dtype)
+
+
+# ---------- expert parallelism over a mesh ----------
+# (port of the mesh half of ``llm_d_tpu.ops.moe``: ``_a2a_moe_chunk``,
+# ``expert_ffn_a2a`` and the psum branch of ``expert_ffn``)
+
+
+def _wire_backend(x: torch.Tensor) -> str:
+    return "cuda" if x.is_cuda else "cpu"
+
+
+def _expert_ffn_mesh(x, weights, idx, w_gate, w_up, w_down, quant, mesh,
+                     dispatch, collective_dtype):
+    from llm_d_tpu_torch.parallel.mesh import AXIS_EP
+    from llm_d_tpu_torch.parallel.quant_collectives import (
+        quantized_psum, resolve_collective_dtype)
+    T = x.shape[0]
+    ep = mesh.axis_size(AXIS_EP)
+    E_loc = (quant["w_gate_q"].shape[1] if quant is not None
+             else w_gate.shape[0])
+    E = E_loc * ep
+    if dispatch == "auto":
+        dispatch = os.environ.get("LLMD_MOE_DISPATCH", "auto")
+    if dispatch in ("dense", "ragged"):
+        # One-device modes must not silently run the psum oracle.
+        raise ValueError(
+            f"dispatch={dispatch!r} is single-device only; use 'a2a' or "
+            f"'psum' on a {ep}-device mesh")
+    if dispatch == "auto":
+        dispatch = "a2a" if (T % ep == 0 and E % ep == 0) else "psum"
+    if dispatch == "a2a":
+        return expert_ffn_a2a(x, weights, idx, w_gate, w_up, w_down, mesh,
+                              quant=quant,
+                              collective_dtype=collective_dtype)
+    if dispatch != "psum":
+        raise ValueError(f"unknown dispatch {dispatch!r}")
+    if quant is not None:
+        w_gate, w_up, w_down = _dequant_layer(quant)
+    # "int8-dispatch" has no meaning for a reduction: the exact psum.
+    wire = resolve_collective_dtype(collective_dtype, _wire_backend(x))
+    out = _local_expert_ffn(x, weights, idx, w_gate, w_up, w_down,
+                            mesh.axis_index(AXIS_EP) * E_loc)
+    if wire == "int8":
+        out = quantized_psum(out, mesh, AXIS_EP)
+    else:
+        out = mesh.all_reduce(out, AXIS_EP)
+    return out.to(x.dtype)
+
+
+def _pack_rows(*planes: torch.Tensor) -> torch.Tensor:
+    """Row-aligned planes (``[N, ...]`` of any dtypes) as one int8 byte
+    matrix ``[N, bytes a row]``: one exchange carries them all."""
+    return torch.cat([p.reshape(p.shape[0], -1).contiguous().view(torch.int8)
+                      for p in planes], dim=1)
+
+
+def _unpack_rows(buf: torch.Tensor, *specs):
+    """Inverse of :func:`_pack_rows`: ``specs`` are ``(dtype, width)``
+    in packing order; returns ``[N, width]`` planes (width 1 squeezed)."""
+    out, col = [], 0
+    for dtype, width in specs:
+        nbytes = width * torch.empty((), dtype=dtype).element_size()
+        plane = buf[:, col:col + nbytes].contiguous().view(dtype)
+        out.append(plane[:, 0] if width == 1 else plane)
+        col += nbytes
+    return out
+
+
+def _a2a_moe_chunk(x_c, w_c, idx_c, w_gate, w_up, w_down, mesh,
+                   quant: Optional[dict], wire: str) -> torch.Tensor:
+    """One chunk of the dispatch / expert FFN / combine pipeline:
+    ``[Tc, H]`` f32.
+
+    Fixed-region layout (the JAX package's off the TPU): the receive
+    buffer has one region of ``S = Tc * k`` rows per source rank, source
+    ``s``'s rows contiguous from ``s * S``, shipped by ``all_to_all`` on
+    equal splits; shapes stay static and no split size is read to the
+    host.  Rows go in order of destination rank
+    (:func:`_stable_argsort_bounded` with bound ``ep``), each with its
+    local expert id; a region's empty tail carries id -1, which is how
+    the receiver tells the rows that arrived (JAX exchanges the counts
+    instead).  Under the ``int8`` / ``int8-dispatch`` wire the rows ship
+    per-row quantized with an f32 scale beside them and are dequantized
+    on arrival.  Payload, scale and id planes travel packed in one byte
+    exchange each way (:func:`_pack_rows`).  With ``quant`` the received
+    rows run kernel E in arrival order (each row its own token, routed
+    k = 1 to its local expert, the validity mask as its combine weight:
+    empty tails go to expert 0 with weight 0); bf16 experts run the
+    grouped plain path.  Results return by the reverse exchange, as bf16
+    or int8 rows (never f32), and the combine weights are applied at the
+    origin after dequantization, each token's copies summed in a fixed
+    order (the same tokens on every run)."""
+    from llm_d_tpu_torch.parallel.mesh import AXIS_EP
+    from llm_d_tpu_torch.parallel.quant_collectives import (
+        dequantize_rows, quantize_rows)
+    Tc, H = x_c.shape
+    k = idx_c.shape[1]
+    dev = x_c.device
+    ep = mesh.axis_size(AXIS_EP)
+    E_loc = (quant["w_gate_q"].shape[1] if quant is not None
+             else w_gate.shape[0])
+    S = Tc * k
+    rows = ep * S
+    quant_dispatch = wire in ("int8", "int8-dispatch")
+    quant_combine = wire == "int8"
+
+    flat = idx_c.reshape(S).long()
+    dest = flat // E_loc
+    order, _, send_counts = _stable_argsort_bounded(dest, ep)
+    ol = order.long()
+    dest_s = dest[ol]
+    eloc_s = (flat % E_loc)[ol].to(torch.int32)
+    tok_s = ol // k
+    within = torch.arange(S, device=dev) - _excl_cumsum(send_counts)[dest_s]
+    pidx = dest_s * S + within
+
+    payload = x_c[tok_s]                                 # [S, H]
+    if quant_dispatch:
+        q, qs = quantize_rows(payload)
+        planes = (q, qs, eloc_s)
+        specs = ((torch.int8, H), (torch.float32, 1), (torch.int32, 1))
+    else:
+        planes = (payload.to(torch.bfloat16), eloc_s)
+        specs = ((torch.bfloat16, H), (torch.int32, 1))
+    packed = _pack_rows(*planes)
+    send = torch.zeros((rows, packed.shape[1]), dtype=torch.int8,
+                       device=dev)
+    # Empty tails: id -1 (zero payload, zero scale).
+    send[:, -4:] = torch.full((rows, 1), -1, dtype=torch.int32,
+                              device=dev).view(torch.int8)
+    send[pidx] = packed
+    recv = _unpack_rows(mesh.all_to_all(send, AXIS_EP), *specs)
+    recv_e = recv[-1]
+    valid = recv_e >= 0
+    if quant_dispatch:
+        recv_x = dequantize_rows(recv[0], recv[1], x_c.dtype)
+    else:
+        recv_x = recv[0].to(x_c.dtype)
+
+    if quant is not None:
+        y = _streamed_int8_kernel_path(
+            recv_x, valid.float()[:, None],
+            torch.where(valid, recv_e, 0)[:, None], quant,
+            out_dtype=torch.float32)
+    else:
+        e_key = torch.where(valid, recv_e.long(), E_loc)
+        order2, _, key_counts = _stable_argsort_bounded(e_key, E_loc + 1)
+        o2 = order2.long()
+        ys = _swiglu_grouped(recv_x[o2], w_gate, w_up, w_down,
+                             key_counts[:E_loc])         # empty rows: 0
+        y = torch.zeros((rows, H), dtype=torch.float32, device=dev)
+        y[o2] = ys                                       # arrival order
+
+    if quant_combine:
+        yq, ys_ = quantize_rows(y)
+        back = _pack_rows(yq, ys_)
+        ret_q, ret_s = _unpack_rows(mesh.all_to_all(back, AXIS_EP),
+                                    (torch.int8, H), (torch.float32, 1))
+        ret = dequantize_rows(ret_q[pidx], ret_s[pidx])  # [S, H] f32
+    else:
+        ret = mesh.all_to_all(y.to(torch.bfloat16), AXIS_EP)[pidx].float()
+    # Weighted, back in (token, choice) order, and each token's k copies
+    # summed in choice order: a fixed order (an index_add on the card
+    # sums with atomics, in whatever order they land).
+    contrib = torch.empty((S, H), dtype=torch.float32, device=dev)
+    contrib[ol] = ret * w_c.reshape(S).float()[ol][:, None]
+    return contrib.reshape(Tc, k, H).sum(dim=1)
+
+
+def expert_ffn_a2a(x, weights, idx, w_gate, w_up, w_down, mesh,
+                   chunk_tokens: Optional[int] = None,
+                   quant: Optional[dict] = None,
+                   collective_dtype: Optional[str] = None) -> torch.Tensor:
+    """Sparse all-to-all EP dispatch over every rank of ``mesh``.
+
+    Each rank takes its ``T / ep`` slice of the (replicated) batch, in
+    chunks of ``LLMD_MOE_DP_CHUNK_SIZE`` tokens (1024; the largest
+    divisor of the slice at or below it) through :func:`_a2a_moe_chunk`,
+    then one all-gather puts the full ``[T, H]`` (in x.dtype) back on
+    every rank.  Needs ``T % ep == 0`` and ``E % ep == 0``."""
+    from llm_d_tpu_torch.parallel.mesh import AXIS_EP
+    from llm_d_tpu_torch.parallel.quant_collectives import (
+        resolve_collective_dtype)
+    wire = resolve_collective_dtype(collective_dtype, _wire_backend(x))
+    ep = mesh.axis_size(AXIS_EP)
+    T = x.shape[0]
+    if T % ep:
+        raise ValueError(f"a2a dispatch needs T % ep == 0 (T={T}, ep={ep})")
+    T_loc = T // ep
+    if chunk_tokens is None:
+        chunk_tokens = env_int("LLMD_MOE_DP_CHUNK_SIZE", 1024)
+    chunk_tokens = max(1, min(chunk_tokens, T_loc))
+    while T_loc % chunk_tokens:
+        chunk_tokens -= 1
+    r0 = mesh.axis_index(AXIS_EP) * T_loc
+    outs = []
+    for c0 in range(r0, r0 + T_loc, chunk_tokens):
+        sl = slice(c0, c0 + chunk_tokens)
+        outs.append(_a2a_moe_chunk(x[sl], weights[sl], idx[sl], w_gate,
+                                   w_up, w_down, mesh, quant, wire))
+    out = torch.cat(outs) if len(outs) > 1 else outs[0]
+    return mesh.all_gather(out.to(x.dtype), AXIS_EP, dim=0)

@@ -47,15 +47,19 @@ def kv_scale_width(num_kv_heads: int, granularity: str) -> int:
     return num_kv_heads if granularity == "head" else 1
 
 
-def quantize_kv_block(rows: torch.Tensor, scale_width: int
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_kv_block(rows: torch.Tensor, scale_width: int,
+                      amax_reduce=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 over KV rows ``[..., N, F]``: returns (q int8
     ``[..., N, F]``, scales f32 ``[..., N, SW]``), each scale covering one
-    contiguous ``F / SW`` column group of its row."""
+    contiguous ``F / SW`` column group of its row.  ``amax_reduce`` maps
+    the group amax first (under tensor parallelism, the max over the
+    ranks that hold the rest of a row)."""
     f32 = rows.float()
     *lead, n, f = f32.shape
     g = f32.reshape(*lead, n, scale_width, f // scale_width)
     amax = g.abs().amax(dim=-1)
+    if amax_reduce is not None:
+        amax = amax_reduce(amax)
     scales = torch.clamp_min(amax, 1e-8) * _INV_127
     q = torch.clamp(torch.round(g / scales[..., None]), -127, 127)
     return q.reshape(f32.shape).to(torch.int8), scales

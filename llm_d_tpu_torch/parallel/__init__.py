@@ -1,2 +1,4 @@
-"""Parallel layer of the port: expert-parallel load balancing on one
-device (``eplb``)."""
+"""Parallel layer of the port: the mesh of ranks and its collectives
+(``mesh``), starting the ranks (``launch``), the sharding rules
+(``sharding``), the quantized collectives and their byte models
+(``quant_collectives``), and expert-parallel load balancing (``eplb``)."""

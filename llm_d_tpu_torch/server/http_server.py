@@ -26,6 +26,9 @@ from typing import Any, Awaitable, Callable, Dict, Iterable, Optional, Tuple
 logger = logging.getLogger(__name__)
 
 MAX_BODY_BYTES = 64 << 20
+# How long a stopping server waits for each connection's buffered bytes
+# to reach the peer.
+CLOSE_FLUSH_S = 10.0
 MAX_HEADERS = 128
 
 
@@ -215,10 +218,18 @@ class HTTPServer:
         await self._stopped.wait()
 
     async def close(self) -> None:
+        """Stop listening, end every connection and run the cleanup
+        hooks.  A connection's task closes its socket after the bytes it
+        wrote are flushed (``_client``), and this waits for them, up to
+        ``CLOSE_FLUSH_S``: a reply finished just before a stop must not be
+        cut off when the process exits."""
         if self._server is not None:
             self._server.close()
-            for task in list(self._conns):
+            tasks = list(self._conns)
+            for task in tasks:
                 task.cancel()
+            if tasks:
+                await asyncio.wait(tasks, timeout=CLOSE_FLUSH_S)
             await self._server.wait_closed()
         for hook in self.on_cleanup:
             await hook()
@@ -246,6 +257,14 @@ class HTTPServer:
         finally:
             self._conns.discard(task)
             writer.close()
+            # The transport flushes what it still buffers before the
+            # socket closes; wait for that (a cancelled task may await
+            # here once), so a stopping server does not drop the tail of
+            # a reply.
+            try:
+                await asyncio.wait_for(writer.wait_closed(), CLOSE_FLUSH_S)
+            except (Exception, asyncio.CancelledError):
+                pass
 
     async def _respond(self, req: Request, writer: asyncio.StreamWriter,
                        gone: asyncio.Event) -> bool:

@@ -73,9 +73,21 @@ The rest of an llm-d model server, as the JAX server serves it:
 
 A flag whose module is missing is refused by name (``check_served``).
 
+Tensor and expert parallelism: ``--tensor-parallel-size N`` serves one
+mesh ``MeshConfig(tp=N)`` (the JAX server's mapping with dp = 1): this
+process is rank 0 and starts ranks 1..N-1 (``parallel/launch.py``), each
+building its engine on its card (``cuda:rank % cards``; ranks share a
+card over gloo where there are fewer cards); readiness comes once every
+rank has built.  Drain and SIGTERM stop every rank (exit 0).  If a rank
+dies, ``/health`` fails and the server exits non-zero: it never serves
+on with fewer ranks.  ``--allow-device-subset`` permits a mesh smaller
+than the host's card count.  On a mesh P/D, the host tier, spec decode,
+EPLB and (gloo on CUDA) ``--num-scheduler-steps`` > 1 are refused by
+name.
+
 Not served (each refused with a message naming it, not quietly
-dropped): the CLI flags of multi-device serving and DBO
-(``UNSERVED_FLAGS``), and the relay half of resume (the DP leader's).
+dropped): the DP and DBO flags (``UNSERVED_FLAGS``), and the relay half
+of resume (the DP leader's).
 """
 
 from __future__ import annotations
@@ -98,6 +110,7 @@ from llm_d_tpu_torch.engine.async_engine import AsyncEngine
 from llm_d_tpu_torch.engine.engine import EngineConfig, EngineCore
 from llm_d_tpu_torch.engine.request import Request, RequestOutput
 from llm_d_tpu_torch.ops.sampling import SamplingParams
+from llm_d_tpu_torch.parallel.mesh import MeshConfig
 from llm_d_tpu_torch.server import stream_resume
 from llm_d_tpu_torch.server.http_server import (
     HTTPServer, Response, json_response, text_response)
@@ -154,6 +167,15 @@ def _unported(body: Dict[str, Any], engine: EngineCore) -> Optional[str]:
     return None
 
 
+def attach_tokenizer(engine: EngineCore, tokenizer) -> None:
+    """The end-of-sequence id and engine-side stop-string detection
+    (finish_reason="stop" without decoding to max_tokens first); every
+    rank of a mesh attaches the same tokenizer, so all stop alike."""
+    if tokenizer.eos_token_id is not None:
+        engine.eos_token_id = tokenizer.eos_token_id
+    engine.tokenizer = tokenizer
+
+
 class ModelServer:
     def __init__(self, engine: EngineCore, tokenizer, model_name: str) -> None:
         self.engine = engine
@@ -182,11 +204,9 @@ class ModelServer:
         # Default latency budget applied when the client sends none
         # (0 = no default).
         self.deadline_default_ms = env_int("LLMD_DEADLINE_DEFAULT_MS", 0)
-        if tokenizer.eos_token_id is not None:
-            engine.eos_token_id = tokenizer.eos_token_id
-        # Engine-side stop-string detection (finish_reason="stop" without
-        # decoding to max_tokens first).
-        engine.tokenizer = tokenizer
+        attach_tokenizer(engine, tokenizer)
+        # Set when a rank of the engine's mesh died: /health fails.
+        self.rank_failure: Optional[str] = None
 
     # ---------- app ----------
 
@@ -235,6 +255,8 @@ class ModelServer:
     # ---------- probes / meta ----------
 
     async def health(self, request: HTTPRequest) -> Response:
+        if self.rank_failure is not None:
+            return text_response(self.rank_failure, status=500)
         if self.async_engine.dead is not None:
             return text_response("engine dead", status=500)
         return text_response("ok")
@@ -783,17 +805,20 @@ def engine_config_from_args(args) -> EngineConfig:
         eplb_config=json.loads(args.eplb_config) if args.eplb_config else None,
         spec_k=args.spec_k,
         spec_strict=True if args.spec_strict else None,
+        mesh=(MeshConfig(tp=args.tensor_parallel_size)
+              if args.tensor_parallel_size > 1 else None),
+        allow_device_subset=args.allow_device_subset,
         device=args.device)
 
 
 # The JAX server's flags this server does not serve, by argparse dest,
 # with what is missing.  Each is refused when set to anything but its
 # default.
-_MULTI_DEVICE = "multi-device serving is not ported (one card)"
+_MULTI_DEVICE = ("DP attention is not served by the port yet (one mesh "
+                 "of --tensor-parallel-size ranks)")
 UNSERVED_FLAGS = {
     "compilation_cache_dir": "XLA's compilation cache has no counterpart "
                              "(the kernels build with nvcc)",
-    "tensor_parallel_size": _MULTI_DEVICE,
     "data_parallel_size": _MULTI_DEVICE,
     "data_parallel_size_local": _MULTI_DEVICE,
     "data_parallel_start_rank": _MULTI_DEVICE,
@@ -802,7 +827,6 @@ UNSERVED_FLAGS = {
     "data_parallel_hybrid_lb": _MULTI_DEVICE,
     "data_parallel_workers": _MULTI_DEVICE,
     "data_parallel_mode": _MULTI_DEVICE,
-    "allow_device_subset": _MULTI_DEVICE,
     "enable_dbo": "dual-batch overlap is not ported",
     "dbo_decode_token_threshold": "dual-batch overlap is not ported",
     "dbo_prefill_token_threshold": "dual-batch overlap is not ported",
@@ -991,6 +1015,127 @@ def check_served(parser: argparse.ArgumentParser, args) -> None:
                      "host tier's blocks)")
 
 
+def check_mesh_flags(parser: argparse.ArgumentParser, args) -> None:
+    """``parser.error`` for a flag the engine refuses on a mesh, before
+    any rank starts."""
+    tp = args.tensor_parallel_size
+    if tp <= 1:
+        return
+    refused = {
+        "--kv-transfer-config": bool(args.kv_transfer_config),
+        "--kv-offload-blocks": args.kv_offload_blocks > 0,
+        "--spec-k": bool(args.spec_k),
+        "--enable-eplb": args.enable_eplb,
+    }
+    for flag, on in refused.items():
+        if on:
+            parser.error(f"{flag} is not served on a mesh "
+                         f"(--tensor-parallel-size {tp}) by the PyTorch port")
+    if args.num_scheduler_steps > 1 and args.device != "cpu":
+        import torch
+        from llm_d_tpu_torch.parallel.mesh import backend_for
+        if backend_for(torch.device("cuda"), tp) == "gloo":
+            parser.error(
+                f"--num-scheduler-steps {args.num_scheduler_steps} is not "
+                f"served on {tp} ranks that share a card: their gloo "
+                "collectives cannot be captured in a CUDA graph")
+
+
+def _rank_main(rank: int, world: int, address: str, argv: List[str]) -> None:
+    """Ranks 1..N-1 of ``--tensor-parallel-size N``: the same flags, the
+    engine on this rank's card, then rank 0's steps until it stops the
+    mesh.  SIGTERM and SIGINT are rank 0's to act on."""
+    signal.signal(signal.SIGTERM, signal.SIG_IGN)
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    logging.basicConfig(level=logging.INFO)
+    import torch.distributed as dist
+    from llm_d_tpu_torch.parallel.mesh import init_distributed
+    from llm_d_tpu_torch.utils.device import resolve_device
+    p = build_arg_parser()
+    args = p.parse_args(argv)
+    apply_config_layers(p, args, argv)
+    init_distributed(rank, world, address,
+                     resolve_device(args.device, rank))
+    engine = EngineCore(engine_config_from_args(args))
+    attach_tokenizer(engine, get_tokenizer(args.tokenizer))
+    dist.barrier()                   # every rank has built
+    engine.follow(record=False)
+    dist.destroy_process_group()
+
+
+# After a rank dies, /health answers 500 this long before the server
+# stops (so a liveness probe sees the failure), then it exits non-zero.
+RANK_FAILURE_GRACE_S = 2.0
+
+
+def _watch_ranks(server: "ModelServer", procs, loop, stopping) -> None:
+    """Rank 0's watch over the other ranks: one that exits while the
+    server runs fails /health and stops the server (exit non-zero)."""
+    while not stopping.is_set():
+        for p in procs:
+            if not p.is_alive():
+                if stopping.is_set():
+                    return
+                server.rank_failure = (f"rank {p.name} exited with code "
+                                       f"{p.exitcode}")
+                logger.error("mesh: %s; stopping", server.rank_failure)
+                stopping.wait(RANK_FAILURE_GRACE_S)
+                loop.call_soon_threadsafe(server.app.stop)
+                return
+        stopping.wait(0.5)
+
+
+def _serve_mesh(args, argv: List[str]) -> int:
+    """Rank 0 of ``--tensor-parallel-size N``: start the other ranks,
+    build, wait until every rank has built, serve; then stop every
+    rank."""
+    import torch.distributed as dist
+    from llm_d_tpu_torch.parallel.launch import free_port, start_ranks
+    from llm_d_tpu_torch.parallel.mesh import init_distributed
+    from llm_d_tpu_torch.utils.device import resolve_device
+    world = args.tensor_parallel_size
+    address = f"127.0.0.1:{free_port()}"
+    procs = start_ranks(world, address, _rank_main, (argv,))
+    stopping = threading.Event()
+    try:
+        backend = init_distributed(0, world, address,
+                                   resolve_device(args.device, 0))
+        logger.info("mesh: tp=%d ranks on %s", world, backend)
+        server = build_server(engine_config_from_args(args), args.tokenizer)
+        dist.barrier()               # every rank has built
+        if args.latency_training_url:
+            server.latency_training_url = \
+                args.latency_training_url.rstrip("/")
+        publisher = kv_event_publisher_from_args(args)
+        if publisher is not None:
+            publisher.attach(server.engine.kv_manager)
+            publisher.start()
+            server.kv_event_publisher = publisher
+
+        async def serve():
+            watcher = threading.Thread(
+                target=_watch_ranks, name="rank-watch", daemon=True,
+                args=(server, procs, asyncio.get_running_loop(), stopping))
+            watcher.start()
+            await server.serve(args.host, args.port)
+
+        asyncio.run(serve())
+        stopping.set()
+        if server.rank_failure is not None:
+            return 1
+        server.engine.stop_mesh()
+        for p in procs:
+            p.join(timeout=60)
+        dist.destroy_process_group()
+        return 0 if all(p.exitcode == 0 for p in procs) else 1
+    finally:
+        stopping.set()
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+
+
 def kv_connector_from_args(args):
     """The engine's KV connector of ``--kv-transfer-config``, or None."""
     if not args.kv_transfer_config:
@@ -1028,11 +1173,16 @@ def kv_event_publisher_from_args(args):
 
 
 def main(argv: Optional[List[str]] = None) -> None:
+    import sys
     p = build_arg_parser()
     args = p.parse_args(argv)
     apply_config_layers(p, args, argv)
     check_served(p, args)
+    check_mesh_flags(p, args)
     logging.basicConfig(level=logging.INFO)
+    if args.tensor_parallel_size > 1:
+        sys.exit(_serve_mesh(args, list(sys.argv[1:] if argv is None
+                                        else argv)))
     server = build_server(engine_config_from_args(args), args.tokenizer)
     if args.latency_training_url:
         server.latency_training_url = args.latency_training_url.rstrip("/")

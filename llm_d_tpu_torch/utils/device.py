@@ -12,9 +12,12 @@ from typing import Optional, Union
 import torch
 
 
-def resolve_device(device: Optional[Union[str, torch.device]] = None
-                   ) -> torch.device:
-    """``None`` means the first CUDA device; ``"cpu"`` must be explicit.
+def resolve_device(device: Optional[Union[str, torch.device]] = None,
+                   local_rank: Optional[int] = None) -> torch.device:
+    """``None`` means the first CUDA device, or for the rank
+    ``local_rank`` of a mesh the card ``local_rank % device_count``
+    (ranks share cards when there are fewer cards than ranks); ``"cpu"``
+    must be explicit.
 
     On CUDA, bf16 matrix products are held to f32 reductions (cuBLAS may
     otherwise reduce split-K partials in bf16), as ``jnp.dot(...,
@@ -24,7 +27,9 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' to run the "
                 "plain PyTorch path explicitly")
-        dev = torch.device("cuda", torch.cuda.current_device())
+        dev = torch.device("cuda", torch.cuda.current_device()
+                           if local_rank is None
+                           else local_rank % torch.cuda.device_count())
     else:
         dev = torch.device(device)
         if dev.type == "cuda" and not torch.cuda.is_available():

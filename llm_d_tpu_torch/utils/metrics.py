@@ -421,6 +421,12 @@ class EngineMetrics:
             model_name=self.model_name, feature=feature,
             blocker=blocker).inc()
 
+    def add_collective_bytes(self, collective: str, dtype: str,
+                             n: int) -> None:
+        self._collective_bytes.labels(
+            model_name=self.model_name, collective=collective,
+            dtype=dtype).inc(n)
+
     def render(self) -> bytes:
         return self.registry.render()
 

@@ -97,17 +97,17 @@ def test_file_config_on_the_flags_equals_the_jax_server(layers, cli):
 
 
 def test_a_layer_that_sets_an_unserved_flag_is_refused(tmp_path, capsys):
-    path = tmp_path / "tp.yaml"
-    path.write_text("tensor-parallel-size: 2\n")
+    path = tmp_path / "dp.yaml"
+    path.write_text("data-parallel-size: 2\n")
     argv = ["--config", str(path)]
     p = TServer.build_arg_parser()
     args = p.parse_args(argv)
     TServer.apply_config_layers(p, args, argv)
-    assert args.tensor_parallel_size == 2
+    assert args.data_parallel_size == 2
     with pytest.raises(SystemExit) as e:
         TServer.check_served(p, args)
     assert e.value.code == 2
-    assert "--tensor-parallel-size" in capsys.readouterr().err
+    assert "--data-parallel-size" in capsys.readouterr().err
 
 
 def test_without_yaml_the_layers_are_refused_by_name(layers, monkeypatch,

@@ -1236,3 +1236,60 @@ def test_stubbed_engine_captures_its_own_blocks(dev, stub):
         assert res == dict(outputs_equal=True, cache_equal=True), key
     if stub == "attn":
         assert all(not v.any() for v in eng.kv_cache.values())
+
+
+def rank_tp_hidden(mc, kw: dict, prompts):
+    """Rank side of the tp = 2 check: this rank's engine (its shards of
+    the seeded draws) serves ``prompts`` for two tokens; rank 0 returns
+    the sampled rows' hidden states of every step and the tokens."""
+    from llm_d_tpu_torch.parallel.mesh import MeshConfig
+    eng = EngineCore(EngineConfig(model_config=mc, mesh=MeshConfig(tp=2),
+                                  **kw))
+    if eng.mesh.rank != 0:
+        eng.follow(record=False)
+        return None
+    return _hidden_and_tokens(eng, prompts)
+
+
+def _hidden_and_tokens(eng, prompts):
+    hidden = []
+    forward = eng._forward
+
+    def recorded(batch):
+        h, r = forward(batch)
+        hidden.append(h.float().cpu())
+        return h, r
+    eng._forward = recorded
+    out = eng.generate([Request(f"r{i}", p, SamplingParams(
+        temperature=0.0, max_tokens=2, ignore_eos=True))
+        for i, p in enumerate(prompts)])
+    if eng.mesh is not None:
+        eng.stop_mesh()
+    return hidden, out
+
+
+def test_tp2_forward_on_the_card_matches_the_one_rank_forward(dev):
+    """Two gloo ranks sharing the card (tp = ep = 2) serve the first two
+    layers of deepseek-v3-bench at full width (int8 experts, int8 latent,
+    the int8 wire) through the kernels (A and B at 8 heads a rank, E on
+    each rank's received rows): each step's hidden states within 5e-2 of
+    the largest of the one-rank engine's on the same seeded weights (the
+    smoke's 2-layer bar), and the same greedy tokens."""
+    from llm_d_tpu_torch.parallel.launch import RankPool
+    mc = dataclasses.replace(get_config("deepseek-v3-bench"), num_layers=2)
+    kw = dict(block_size=64, num_blocks=32, max_num_seqs=8,
+              max_num_batched_tokens=512, quantization="int8",
+              kv_cache_dtype="int8", enable_prefix_caching=False)
+    g = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(1, mc.vocab_size, (n,), generator=g).tolist()
+               for n in (5, 70, 17)]
+    with RankPool(2, device=None, timeout_s=600) as pool:
+        got, got_tokens = pool.run(rank_tp_hidden, mc, kw, prompts)[0]
+    want, want_tokens = _hidden_and_tokens(
+        EngineCore(EngineConfig(model_config=mc, device="cuda", **kw)),
+        prompts)
+    assert got_tokens == want_tokens
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        rel = float((a - b).abs().max() / b.abs().max())
+        assert rel <= 5e-2, rel

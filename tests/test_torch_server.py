@@ -310,7 +310,20 @@ def test_stop_strings_and_max_tokens_equal_the_jax_server(tiny):
                          stream=stream)
         if stream:
             jf, tf = _sse(j), _sse(t)
-            assert _chunks(tf) == _chunks(jf)
+            (jt, jtext, jrest), (tt, ttext, trest) = _chunks(jf), _chunks(tf)
+            assert (ttext, trest) == (jtext, jrest)
+            if jt != tt:
+                # The JAX server decodes each chunk from the request's
+                # token list, which its engine thread may already have
+                # extended by the next output: it then sees the stop
+                # string early and ends its stream on that output's frame.  The port decodes from the stream's own
+                # ids, so its stream is always the one without that
+                # look-ahead: the JAX frames are the port's up to the one
+                # where the JAX stream saw the stop early.
+                n = len(jt)
+                assert n < len(tt) and jt[:-1] == tt[:n - 1]
+                assert jt[-1][0] == tt[n - 1][0]
+                assert jt[-1][1] == tt[-1][1] == "stop"
             assert tf[-2]["choices"][0]["finish_reason"] == "stop"
         else:
             assert _strip(t.json()) == _strip(j.json())
@@ -697,7 +710,7 @@ def test_out_of_vocabulary_resume_ids_are_refused(tiny, journal, stream):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--tensor-parallel-size", "2"],
+    ["--data-parallel-size", "2"],
     ["--kv-shared-tier-peers", "dns:kv-peers:5999",
      "--kv-offload-blocks", "8"], ["--dbo-decode-token-threshold", "8"],
     ["--enable-dbo"], ["--compilation-cache-dir", "/tmp/x"]])
