@@ -274,10 +274,11 @@ Phases (each raises on failure; the script then exits non-zero):
             GPU, so the backend rule picks gloo, each collective staged
             through host memory; classic steps, since gloo collectives
             cannot be captured), each holding its shards of seed 0's
-            draws (path (i)'s weights).  Wave 1 (A at 4 heads a rank, E
-            on each rank's received rows), wave 3 to 2 new tokens (its
-            8192-token prefill: B at 4 heads, E on two 1024-token
-            dispatch chunks a rank), and wave 1 to 4 new tokens on the
+            draws (path (i)'s weights).  Wave 1 to ``MESH_W1_NEW`` (16)
+            new tokens (A at 4 heads a rank, E on each rank's received
+            rows), wave 3 to 2 new tokens (its 8192-token prefill: B at 4
+            heads, E on two 1024-token dispatch chunks a rank), and wave
+            1 to 4 new tokens on the
             bf16 wire and with the psum dispatch: every rank's tokens
             identical, A, B and E launching on every rank; the a2a int8
             and int8-dispatch wires and the psum dispatch against a2a on
@@ -289,15 +290,42 @@ Phases (each raises on failure; the script then exits non-zero):
             against the one-rank engine on the same weights (relative max
             logit error <= 5e-2, the same argmax, with and without the
             mesh's expert choice replayed); the qwen3-30b-a3b witness at
-            tp = ep = 4 cut to 8 of 48 layers (wave 1 and one 8192-token
+            tp = ep = 4 cut to 4 of 48 layers (wave 1 and one 8192-token
             prefill: G at one KV head, H, E); the tp server (``python -m
             llm_d_tpu_torch.server.openai --tensor-parallel-size 4`` with
-            path (i)'s flags in classic steps): wave 1's prompts one at a
-            time, each reply the direct tp engine's tokens for that prompt
-            alone, then SIGTERM: exit 0 and no rank left; last, the
-            one-rank classic loop's wave 1 at full depth against the
-            mesh's, tokens counted with and without the mesh's expert
-            choice replayed.
+            path (i)'s flags in classic steps): wave 1's first 4 prompts
+            one at a time, each reply the direct tp engine's tokens for
+            that prompt alone, then SIGTERM: exit 0 and no rank left;
+            last, the one-rank classic loop's wave 1 at full depth
+            against the mesh's, tokens counted with and without the
+            mesh's expert choice replayed;
+10. path (ix) data parallelism on one host, on phase 9's four ranks once
+            its engine is torn down: deepseek-v3-bench at full width and
+            depth on a ``MeshConfig(dp=2, tp=2)`` mesh (ep = 4), each dp
+            shard serving its own requests' attention over its half of
+            the KV pool (each rank's plane ``[16, 18432, 640]`` and its
+            routed-expert bytes a quarter of the total, both checked).
+            Wave 1 to ``MESH_W1_NEW`` new tokens (A at 8 heads a rank on
+            its shard's rows, E on the received rows; each shard's expert
+            choice taped) and wave 3 to 2 new tokens (its 8192-token
+            prefill, 4096 tokens a shard: B at 8 heads, E on two
+            1024-token chunks a rank): every rank's tokens identical, A,
+            B and E launching on every rank; each recorded rank-local
+            kernel input against its plain version; peaks and collective
+            bytes; the first two layers on the dp mesh (a request a
+            region) against the one-rank engine, within 5e-2 with the
+            same argmax, with and without the dp mesh's routing replayed.
+            Then the dp server (``--data-parallel-size 2
+            --tensor-parallel-size 2``, path (i)'s flags in classic
+            steps, log build/dp_server.log): wave 1's first 4 prompts one
+            at a time, each reply the direct dp engine's, SIGTERM: exit 0
+            and no rank left; the one-rank classic loop's wave 1 against the
+            dp mesh's, with and without its routing replayed; last a
+            ``DPEngineGroup`` of two engines sharing the card (ranks
+            mode) on the one-rank engine's weights: dispatch splits wave
+            1 4 / 4, tokens against the one engine serving the same
+            requests, and where they differ again with its routing
+            replayed.
 
 Launch counts: every count is set to 0 just before a path is driven and
 read just after it; kernels A-F count path (i), G and H path (ii), and
@@ -316,7 +344,9 @@ yardstick and the classic rounds do not count) and the witness's waves
 (``witness_launches``); A, B, E, G and H add path (viii)'s waves on
 every rank (``mesh_launches``; its one-at-a-time yardstick for the
 server does not count), and each row lists its rank-local inputs'
-checks as ``mesh_inputs``.  A
+checks as ``mesh_inputs``; A, B and E add path (ix)'s waves on every
+rank (``dp_launches``; the one-at-a-time yardstick, the 2-layer check
+and the DP group do not count), its checks as ``dp_inputs``.  A
 count is the wrapper's own (eager launches, graph warm-ups included)
 plus the launches inside graph replays: a capture records each graph's
 launches, and every replay adds them (``engine/cuda_graph.py``); the
@@ -334,7 +364,7 @@ the card's name and power limit), an ``{"everything_on": ...}`` line
 ``{"observe": ...}`` line (phase 7(c), with the card's name and power
 limit), a ``{"moe_gqa": ...}`` line (path (vii) and the witness, with
 the card's name and power limit), a ``{"mesh": ...}`` line (path (viii),
-likewise), a
+likewise), a ``{"dp": ...}`` line (path (ix), likewise), a
 ``{"kernels": [...]}`` line (one row per
 kernel at its first launch: measured launches, errors and times, with
 ``bound_ms``), the card's name and power limit, and last ``{"ok": true,
@@ -996,26 +1026,36 @@ def routing_tape(engine, tape: dict, replay: bool):
     of ``engine``'s forwards by (MoE layer, prompt index, position) (the
     request ids are ``tag-i``), or with ``replay`` gives each live token
     found on ``tape`` the taped choice, with gate weights from its own
-    scores; yields a one-item list counting the token-layers replayed."""
+    scores; yields a one-item list counting the token-layers replayed.
+    ``engine`` may be a DP group (each rank's forwards read its own
+    schedule, told apart by their cache) or a rank of a dp mesh (its
+    shard's requests: ranks of other dp shards tape theirs)."""
     import torch
     from llm_d_tpu_torch.ops import moe as moe_ops
-    model, sched = engine.model, engine.scheduler
-    real_sched, real_fwd, real_route = (sched.schedule, model.forward,
-                                        moe_ops.route)
-    state = dict(rows=[], keys=[], layer=0)
+    engines = getattr(engine, "engines", [engine])
+    model = engines[0].model
+    real_scheds = [e.scheduler.schedule for e in engines]
+    real_fwd, real_route = model.forward, moe_ops.route
+    # Each engine's scheduled prompt indices in its batch's row order,
+    # by the identity of its cache.
+    rows_of = {}
+    state = dict(keys=[], layer=0)
     replayed = [0]
 
-    def schedule(*a, **kw):
-        out = real_sched(*a, **kw)
-        state["rows"] = [int(sr.request.request_id.rsplit("-", 1)[1])
-                         for sr in out.scheduled]
-        return out
+    def tapped(e, real):
+        def schedule(*a, **kw):
+            out = real(*a, **kw)
+            mine = e._split_by_shard(out.scheduled)[e.dp_index]
+            rows_of[id(e.kv_cache)] = [
+                int(sr.request.request_id.rsplit("-", 1)[1]) for sr in mine]
+            return out
+        return schedule
 
     def forward(params, kv_cache, batch, *a, **kw):
         T = batch["positions"].shape[0]
         qtok = batch["qtok_idx"].reshape(-1).cpu()
         pos, seq = batch["positions"].cpu(), batch["token_seq_ids"].cpu()
-        rows = state["rows"]
+        rows = rows_of.get(id(kv_cache), [])
         # Pad rows of a multistep block (past the scheduled ones) have
         # no request.
         state["keys"] = [(t, rows[int(seq[t])], int(pos[t]))
@@ -1045,12 +1085,15 @@ def routing_tape(engine, tape: dict, replay: bool):
         scores, _ = moe_ops.route_scores(logits, c, e_bias)
         return moe_ops.gate_weights(scores, idx, c), idx
 
-    sched.schedule, model.forward, moe_ops.route = schedule, forward, route
+    for e, real in zip(engines, real_scheds):
+        e.scheduler.schedule = tapped(e, real)
+    model.forward, moe_ops.route = forward, route
     try:
         yield replayed
     finally:
-        sched.schedule, model.forward, moe_ops.route = (real_sched, real_fwd,
-                                                        real_route)
+        for e, real in zip(engines, real_scheds):
+            e.scheduler.schedule = real
+        model.forward, moe_ops.route = real_fwd, real_route
 
 
 def classic_margins(classic, prompts, max_new: int):
@@ -4172,11 +4215,18 @@ def bench_step_as_one_chunk(moe_ops, moe_routed_stream, glue_args):
 # memory, and gloo collectives cannot be captured in a CUDA graph.  The
 # witness: qwen3-30b-a3b at tp = ep = 4.
 MESH_TP = 4
+# The ranks of phases 9 and 10 (one pool).
+MESH_WORLD = 4
 MESH_MODEL = "deepseek-v3-bench"
 MESH_WITNESS = "qwen3-30b-a3b"
 # The witness's depth, cut for the smoke's time limit (48 layers at
 # tp = 4 over gloo take ~125 s for wave 1 and the prefill).
-MESH_WITNESS_LAYERS = 8
+MESH_WITNESS_LAYERS = 4
+# New tokens of wave 1 on the meshes (phases 9 and 10, the witness, and
+# their one-rank yardstick), cut from wave 1's 32 for the time limit; and
+# the prompts each mesh server serves one at a time (wave 1's first).
+MESH_W1_NEW = 16
+MESH_SERVER_PROMPTS = 4
 # New tokens of the waves on the bf16 wire and the psum dispatch, of
 # wave 3 on the mesh, and of each request the tp server serves alone.
 MESH_SIDE_NEW = 4
@@ -4231,11 +4281,13 @@ def mesh_config(model: str, layers=None):
 
 
 def mesh_setup(model: str, names, layers=None, record: bool = True,
-               **over) -> dict:
+               path: str = "viii", **over) -> dict:
     """Rank side: this rank's engine of ``model`` on the mesh (its
-    shards of seed 0's draws, path (i)'s configuration in classic steps),
-    kept for the calls that follow; rank 0 records the first inputs of
-    each kernel label.  Returns the build's seconds and memory."""
+    shards of seed 0's draws, path (i)'s configuration in classic steps;
+    ``over`` replaces fields, the mesh among them), kept for the calls
+    that follow; rank 0 records the first inputs of each kernel label
+    (labelled by ``path``).  Returns the build's seconds and memory, the
+    rank's cache planes and its routed-expert bytes."""
     import torch
     from llm_d_tpu_torch.parallel.mesh import MeshConfig
     torch.cuda.reset_peak_memory_stats()
@@ -4246,11 +4298,19 @@ def mesh_setup(model: str, names, layers=None, record: bool = True,
     kw.update(over)
     eng = path_i_engine(1, **kw)
     torch.cuda.synchronize()
-    out = dict(rank=eng.mesh.rank, backend=eng.mesh.backend,
+    ml = eng.params.get("moe_layers", {})
+    out = dict(rank=eng.mesh.rank, coord=eng.mesh.coord,
+               backend=eng.mesh.backend,
                staged_through_host=eng.mesh.stage_host,
                device=str(eng.device), init_s=time.perf_counter() - t0,
                held_gib=torch.cuda.memory_allocated(eng.device) / 2**30,
-               collective_wire=eng._collective_wire)
+               collective_wire=eng._collective_wire,
+               kv_planes={k: list(v.shape) for k, v in eng.kv_cache.items()},
+               pool_slots=eng.config.num_blocks * eng.config.block_size,
+               expert_bytes=sum(v.numel() * v.element_size()
+                                for k, v in ml.items()
+                                if k.startswith(("w_gate", "w_up",
+                                                 "w_down"))))
     MESH_STATE.clear()
     MESH_STATE.update(engine=eng, names=tuple(names), recs={})
     if eng.mesh.rank == 0 and record:
@@ -4259,18 +4319,18 @@ def mesh_setup(model: str, names, layers=None, record: bool = True,
         for n in names:
             mod, fn, _ = MESH_WRAPPERS[n]
             MESH_STATE["recs"][n] = Recorder(_mesh_module(mod), fn, keep,
-                                             mesh_label(n))
+                                             mesh_label(n, path))
     return out
 
 
-def mesh_label(name: str):
+def mesh_label(name: str, path: str = "viii"):
     """Recorder label of a mesh path's launches: E by its received rows,
     A and G by their sequences, B and H by sequences and query rows."""
     if name == "moe_streamed_int8":
-        return lambda a, kw: f"viii rows={a[0].shape[0]}"
+        return lambda a, kw: f"{path} rows={a[0].shape[0]}"
     if name in ("mla_prefill", "flash_prefill"):
-        return lambda a, kw: f"viii S={a[0].shape[0]} Q={a[0].shape[1]}"
-    return lambda a, kw: f"viii S={a[0].shape[0]}"
+        return lambda a, kw: f"{path} S={a[0].shape[0]} Q={a[0].shape[1]}"
+    return lambda a, kw: f"{path} S={a[0].shape[0]}"
 
 
 def mesh_wave(tag: str, prompts, new: int, env=None, tape: bool = False
@@ -4278,7 +4338,8 @@ def mesh_wave(tag: str, prompts, new: int, env=None, tape: bool = False
     """Rank side: rank 0 serves ``prompts`` (``new`` greedy tokens each)
     on the mesh and the other ranks follow, every rank under ``env``;
     each kernel's launches on this rank are counted from 0.  With
-    ``tape`` rank 0 tapes the MoE expert choice (``routing_tape``)."""
+    ``tape`` the first tp rank of each dp shard (rank 0 alone at dp = 1)
+    tapes its shard's MoE expert choice (``routing_tape``)."""
     import torch
     eng, names = MESH_STATE["engine"], MESH_STATE["names"]
     _mesh_reset(names)
@@ -4286,14 +4347,15 @@ def mesh_wave(tag: str, prompts, new: int, env=None, tape: bool = False
     with contextlib.ExitStack() as stack:
         for k, v in (env or {}).items():
             stack.enter_context(env_set(k, v))
+        taped = None
+        if tape and eng.mesh.coord["tp"] == 0:
+            taped = {}
+            stack.enter_context(routing_tape(eng, taped, replay=False))
         if eng.mesh.rank != 0:
             tokens = eng.follow()
             tokens = [tokens[f"{tag}-{i}"] for i in range(len(prompts))]
-            stats, taped = None, None
+            stats = None
         else:
-            taped = {}
-            if tape:
-                stack.enter_context(routing_tape(eng, taped, replay=False))
             tokens, stats = run_wave(eng, prompts, new, tag)
             eng.stop_mesh()
     torch.cuda.synchronize()
@@ -4571,25 +4633,27 @@ def token_agreement(got, want) -> dict:
                 first_difference=first)
 
 
-def mesh_server(root: str, prompts, direct) -> dict:
+def mesh_server(root: str, prompts, direct, layout=None,
+                log_name: str = "mesh_server.log") -> dict:
     """Phase 9's server: ``python -m llm_d_tpu_torch.server.openai
-    --tensor-parallel-size 4`` with path (i)'s flags in classic steps
-    (its log in build/mesh_server.log).  Wave 1's prompts one at a time
+    --tensor-parallel-size 4`` (or the flags ``layout``, phase 10's dp
+    layout) with path (i)'s flags in classic steps (its log in
+    build/``log_name``).  Wave 1's prompts one at a time
     (``MESH_SERVER_NEW`` greedy tokens, streamed), each reply's tokens the
-    direct tp engine's for that prompt alone (``direct``: a batch of other
-    rows changes cuBLAS's GEMM choice, and 16 random layers amplify the
-    rounding); then SIGTERM: exit 0, and no rank process left."""
+    direct mesh engine's for that prompt alone (``direct``: a batch of
+    other rows changes cuBLAS's GEMM choice, and 16 random layers amplify
+    the rounding); then SIGTERM: exit 0, and no rank process left."""
     import signal
+    layout = layout or ["--tensor-parallel-size", str(MESH_TP)]
     port = free_port()
     url = f"http://127.0.0.1:{port}"
-    log_path = os.path.join(root, "build", "mesh_server.log")
-    proc = start_server(root, [*MESH_SERVER_FLAGS, "--tensor-parallel-size",
-                               str(MESH_TP), "--host", "127.0.0.1", "--port",
-                               str(port)], "mesh_server.log")
+    log_path = os.path.join(root, "build", log_name)
+    proc = start_server(root, [*MESH_SERVER_FLAGS, *layout, "--host",
+                               "127.0.0.1", "--port", str(port)], log_name)
     try:
         startup_s = wait_ready(proc, url, limit_s=600)
         ranks = _child_pids(proc.pid)
-        if len(ranks) < MESH_TP - 1:
+        if len(ranks) < MESH_WORLD - 1:
             raise RuntimeError(f"the server started {len(ranks)} ranks")
         t0 = time.perf_counter()
         res = [completion(url, greedy_body(p, MESH_SERVER_NEW, True))
@@ -4597,8 +4661,8 @@ def mesh_server(root: str, prompts, direct) -> dict:
         serve_s = time.perf_counter() - t0
         got = [r["tokens"] for r in res]
         if got != direct:
-            raise RuntimeError(f"the tp server's replies differ from the "
-                               f"direct tp engine's: "
+            raise RuntimeError(f"the mesh server's replies ({layout}) "
+                               f"differ from the direct mesh engine's: "
                                f"{token_agreement(got, direct)}")
         status, _, health = http_call(url, "/health")
         t_term = time.perf_counter()
@@ -4608,8 +4672,8 @@ def mesh_server(root: str, prompts, direct) -> dict:
         time.sleep(1.0)
         left = [p for p in ranks if _pid_alive(p)]
         if rc != 0 or left:
-            raise RuntimeError(f"after SIGTERM the tp server exited with "
-                               f"{rc}; ranks left: {left}")
+            raise RuntimeError(f"after SIGTERM the mesh server ({layout}) "
+                               f"exited with {rc}; ranks left: {left}")
     except BaseException:
         with open(log_path, "rb") as log_f:
             sys.stderr.write(log_f.read()[-8000:].decode(errors="replace"))
@@ -4620,7 +4684,7 @@ def mesh_server(root: str, prompts, direct) -> dict:
             proc.wait(timeout=60)
         for p in _child_pids(proc.pid):
             os.kill(p, 9)
-    return dict(startup_s=startup_s, ranks=len(ranks) + 1,
+    return dict(flags=layout, startup_s=startup_s, ranks=len(ranks) + 1,
                 requests=len(prompts), replies_equal_direct=True,
                 serve_s=serve_s, health=status, exit_code=rc,
                 exit_s=exit_s)
@@ -4654,6 +4718,280 @@ def _pid_alive(pid: int) -> bool:
         return False
 
 
+# Phase 10, path (ix): data parallelism on one host.  deepseek-v3-bench
+# at dp = 2, tp = 2 (ep = 4: 16 of 64 experts a layer on each rank) as the
+# four ranks of phase 9's pool, each dp shard serving its own requests'
+# attention over its half of the KV pool (classic steps, gloo as in phase
+# 9); then the dp server (--data-parallel-size 2 --tensor-parallel-size 2)
+# and a DPEngineGroup of two one-device engines sharing the card.
+DP_SIZE, DP_TP = 2, 2
+DP_LAYOUT = ["--data-parallel-size", str(DP_SIZE), "--tensor-parallel-size",
+             str(DP_TP)]
+
+
+def dp_mesh():
+    from llm_d_tpu_torch.parallel.mesh import MeshConfig
+    return MeshConfig(dp=DP_SIZE, tp=DP_TP)
+
+
+def _expert_total_bytes(mc) -> int:
+    """The routed experts' int8 payloads and f32 scales, every layer."""
+    Lm = mc.num_layers - mc.first_dense_layers
+    E, H, Im = mc.num_experts, mc.hidden_size, mc.moe_intermediate_size
+    return Lm * E * (3 * H * Im + 4 * (2 * Im + H))
+
+
+def _logits_by_request(eng, host, hidden, reqs):
+    """The f32 logits of ``reqs`` in their order, from a step's gathered
+    sampling rows."""
+    lg = eng._logits(hidden).float().cpu()
+    row_of = {sr.request.request_id: int(row)
+              for sr, row in zip(host["scheduled"], host["rows"])}
+    return lg[[row_of[r.request_id] for r in reqs]]
+
+
+def dp_two_layer(prompt_lens, seed: int) -> dict:
+    """Rank side: the first two layers of deepseek-v3-bench on the dp mesh
+    through the kernels: a prefill step of ``prompt_lens`` (a request a
+    region) and one decode step of each row's argmax, each through the
+    engine's own shard batch and forward (the shards' sampling rows
+    gathered over dp).  Rank 0 returns the logits of both steps by
+    request, the tokens decoded and each request's region; the first tp
+    rank of each shard its shard's expert choice."""
+    import numpy as np
+    from llm_d_tpu_torch.engine.request import Request
+    from llm_d_tpu_torch.ops.sampling import SamplingParams
+    mesh_setup(MESH_MODEL, (), layers=2, record=False, num_blocks=24,
+               max_num_seqs=8, max_num_batched_tokens=1024, mesh=dp_mesh())
+    eng = MESH_STATE["engine"]
+    mc = eng.model_config
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, mc.vocab_size, n).tolist()
+               for n in prompt_lens]
+    reqs = [Request(f"ref-{i}", p, SamplingParams(
+        temperature=0.0, max_tokens=2, ignore_eos=True))
+        for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.scheduler.add_request(r)
+    tape, logits, picks = {}, [], []
+    with contextlib.ExitStack() as stack:
+        if eng.mesh.coord["tp"] == 0:
+            stack.enter_context(routing_tape(eng, tape, replay=False))
+        for _ in range(2):
+            sched = eng.scheduler.schedule()
+            batch, host = eng._build_batch(sched)
+            hidden, _ = eng._forward(batch)
+            lg = _logits_by_request(eng, host, hidden, reqs)
+            logits.append(lg)
+            for sr in sched.scheduled:
+                sr.request.num_computed_tokens += sr.num_new_tokens
+            pick = lg.argmax(-1).tolist()
+            picks.append(pick)
+            for r, tok in zip(reqs, pick):
+                r.output_token_ids.append(tok)
+    regions = [eng.kv_manager.region_of_request(r) for r in reqs]
+    coord = eng.mesh.coord
+    mesh_teardown()
+    out = dict(tape=tape if coord["tp"] == 0 else None)
+    if coord["dp"] == coord["tp"] == 0:
+        out.update(prompts=prompts, logits=[lg.numpy() for lg in logits],
+                   picks=picks, regions=regions)
+    return out
+
+
+def dp_reference(two: dict, tape: dict, replay: bool) -> dict:
+    """The one-rank engine on the same 2-layer weights on the card: the
+    steps ``dp_two_layer`` took (its requests, decoding its tokens), with
+    the dp mesh's expert choice replayed where ``replay`` (by layer,
+    request and position; gate weights from its own scores): relative max
+    logit error, argmax agreement, the token-layers replayed."""
+    import torch
+    from llm_d_tpu_torch.engine.request import Request
+    from llm_d_tpu_torch.ops.sampling import SamplingParams
+    eng = path_i_engine(1, model_config=mesh_config(MESH_MODEL, 2),
+                        num_blocks=24, max_num_seqs=8,
+                        max_num_batched_tokens=1024)
+    reqs = [Request(f"ref-{i}", p, SamplingParams(
+        temperature=0.0, max_tokens=2, ignore_eos=True))
+        for i, p in enumerate(two["prompts"])]
+    for r in reqs:
+        eng.scheduler.add_request(r)
+    logits = []
+    with (routing_tape(eng, tape, replay=True) if replay
+          else contextlib.nullcontext([0])) as replayed:
+        for step in range(2):
+            sched = eng.scheduler.schedule()
+            batch, host = eng._build_batch(sched)
+            hidden, _ = eng._forward(batch)
+            logits.append(_logits_by_request(eng, host, hidden, reqs))
+            for sr in sched.scheduled:
+                sr.request.num_computed_tokens += sr.num_new_tokens
+            for r, tok in zip(reqs, two["picks"][step]):
+                r.output_token_ids.append(tok)
+    del eng
+    got = torch.stack([torch.from_numpy(lg) for lg in two["logits"]])
+    want = torch.stack(logits)
+    if not torch.isfinite(got).all():
+        raise RuntimeError("non-finite logits from the dp mesh")
+    return dict(replayed=replay, token_layers_replayed=replayed[0],
+                rel_max_err=float((got - want).abs().max()
+                                  / want.abs().max()),
+                top1_agree=bool((got.argmax(-1) == want.argmax(-1)).all()),
+                shape=list(got.shape))
+
+
+def dp_pool_phase(pool, p1, p3) -> dict:
+    """Phase 10 on the pool's four ranks: deepseek-v3-bench at dp = tp =
+    2, full width and depth: each rank's cache plane (half the pool) and
+    routed-expert bytes (a quarter), wave 1 (``MESH_W1_NEW`` new tokens,
+    its expert choice taped by each shard) and wave 3 to 2 new tokens
+    (its 8192-token prefill, 4096 tokens a shard): every rank's tokens
+    identical and A, B and E launching on every rank; wave 1's prompts
+    one at a time (the server's yardstick); each recorded rank-local
+    kernel input against its plain version; collective bytes and peaks;
+    then the 2-layer check against the one-rank engine."""
+    t0 = time.perf_counter()
+    mc = mesh_config(MESH_MODEL)
+    out = dict(dp=DP_SIZE, tp=DP_TP, ep=DP_SIZE * DP_TP, model=MESH_MODEL,
+               steps="classic (gloo collectives are not capturable)")
+    out["build"] = pool.run(mesh_setup, MESH_MODEL, MESH_KERNELS,
+                            path="ix", mesh=dp_mesh())
+    out["build_s"] = time.perf_counter() - t0
+    total = _expert_total_bytes(mc)
+    for b in out["build"]:
+        want_kv = [mc.num_layers, b["pool_slots"] // DP_SIZE,
+                   -(-(mc.kv_lora_rank + mc.qk_rope_head_dim) // 128) * 128]
+        if b["kv_planes"]["kv"] != want_kv:
+            raise RuntimeError(f"dp rank {b['rank']}: KV plane "
+                               f"{b['kv_planes']['kv']}, want {want_kv}")
+        if b["expert_bytes"] * DP_SIZE * DP_TP != total:
+            raise RuntimeError(f"dp rank {b['rank']}: {b['expert_bytes']} "
+                               f"expert bytes, want {total} / "
+                               f"{DP_SIZE * DP_TP}")
+    out["kv_plane_fraction"] = 1 / DP_SIZE
+    out["expert_bytes"] = dict(total=total, per_rank=[
+        b["expert_bytes"] for b in out["build"]], fraction=1 / (
+            DP_SIZE * DP_TP))
+    log(f"dp: build {json.dumps(out['build'])}")
+    waves, launches, tape = {}, {}, {}
+    for tag, prompts, new, taped in (("d1", p1, MESH_W1_NEW, True),
+                                     ("d3", p3, MESH_W3_NEW, False)):
+        res = pool.run(mesh_wave, tag, prompts, new, None, taped)
+        toks = [r["tokens"] for r in res]
+        if any(t != toks[0] for t in toks):
+            raise RuntimeError(f"dp wave {tag}: the ranks' tokens differ")
+        waves[tag] = dict(res[0]["stats"], ranks_identical=True,
+                          launches_by_rank=[r["launches"] for r in res],
+                          wire_bytes_by_rank=[r["wire_bytes"] for r in res],
+                          peak_gib_by_rank=[r["peak_gib"] for r in res],
+                          timing="gloo through the host, classic steps")
+        waves[tag]["tokens"] = toks[0]
+        for r in res:
+            tape.update(r["tape"] or {})
+        log(f"dp wave {tag}: {json.dumps(res[0]['stats'])}, launches "
+            f"{json.dumps([r['launches'] for r in res])}")
+    for n in MESH_KERNELS:
+        per_rank = [sum(waves[w]["launches_by_rank"][r][n] for w in waves)
+                    for r in range(MESH_WORLD)]
+        if min(per_rank) == 0:
+            raise RuntimeError(f"{n} never launched on a rank of path (ix): "
+                               f"{per_rank}")
+        launches[n] = sum(per_rank)
+    t1 = time.perf_counter()
+    alone = pool.run(mesh_alone, p1[:MESH_SERVER_PROMPTS], MESH_SERVER_NEW)
+    if any(a != alone[0] for a in alone):
+        raise RuntimeError("dp alone: the ranks' tokens differ")
+    out["alone_s"] = time.perf_counter() - t1
+    checks = pool.run(mesh_kernel_checks)[0]
+    m = pool.run(mesh_metrics)
+    out["collective_bytes"] = dict(
+        counter=m[0]["counter"],
+        wire_bytes_by_rank=[r["wire_bytes"] for r in m])
+    out["peak_gib_by_rank"] = [r["peak_gib"] for r in pool.run(mesh_teardown)]
+    log(f"dp: peaks {out['peak_gib_by_rank']}, collective bytes "
+        f"{json.dumps(out['collective_bytes'])}")
+    t1 = time.perf_counter()
+    two = pool.run(dp_two_layer, [100, 37], 27)
+    two_tape = {}
+    for r in two:
+        two_tape.update(r["tape"] or {})
+    ref = two[0]
+    out["reference_regions"] = ref["regions"]
+    out["reference"] = [dp_reference(ref, two_tape, replay)
+                        for replay in (False, True)]
+    out["reference_s"] = time.perf_counter() - t1
+    log(f"dp reference: {json.dumps(out['reference'])}")
+    if sorted(ref["regions"]) != list(range(DP_SIZE)):
+        raise RuntimeError(f"the 2-layer requests' regions: "
+                           f"{ref['regions']}")
+    best = out["reference"][1]
+    if not best["top1_agree"] or best["rel_max_err"] > 5e-2:
+        raise RuntimeError(f"the dp mesh disagrees with the one-rank "
+                           f"engine: {best}")
+    out["pool_s"] = time.perf_counter() - t0
+    return dict(out=out, waves=waves, launches=launches, checks=checks,
+                tape=tape, alone=alone[0])
+
+
+def dp_group_check(one, prompts, new: int) -> dict:
+    """Path (ix), ranks mode: a ``DPEngineGroup`` of two engines on the
+    card (the same card twice: they step one after another) on the
+    weights of ``one`` (the one-rank engine, classic steps) and in its
+    configuration: wave 1's prompts (``new`` greedy tokens), dispatch
+    split between the ranks, tokens against ``one`` serving the same
+    requests and, where they differ, again with ``one``'s expert choice
+    replayed on the group."""
+    import torch
+    from llm_d_tpu_torch.engine.dp_group import DPEngineGroup
+    from llm_d_tpu_torch.engine.request import Request
+    from llm_d_tpu_torch.ops.sampling import SamplingParams
+    t0 = time.perf_counter()
+    group = DPEngineGroup(one.config, 2, params=one.params,
+                          devices=[one.device, one.device])
+    out = dict(ranks=len(group.engines),
+               devices=[str(e.device) for e in group.engines],
+               shared_weights=group.engines[1].params["embed"]
+               is one.params["embed"],
+               build_s=time.perf_counter() - t0)
+    tape = {}
+    with routing_tape(one, tape, replay=False):
+        want, stats = run_wave(one, prompts, new, "g1")
+    out["one_engine_s"] = stats["seconds"]
+
+    def serve(replay: bool):
+        reqs = [Request(f"g1-{i}", p, SamplingParams(
+            temperature=0.0, max_tokens=new, ignore_eos=True))
+            for i, p in enumerate(prompts)]
+        with (routing_tape(group, tape, replay=True) if replay
+              else contextlib.nullcontext([0])) as replayed:
+            t1 = time.perf_counter()
+            for r in reqs:
+                group.add_request(r)
+            split = [e.scheduler.num_waiting for e in group.engines]
+            while group.has_work():
+                group.step()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t1
+        return [list(r.output_token_ids) for r in reqs], split, secs, \
+            replayed[0]
+
+    got, split, secs, _ = serve(False)
+    if sorted(split) != [len(prompts) // 2] * 2:
+        raise RuntimeError(f"the group's dispatch split {split}")
+    out.update(split=split, group_s=secs,
+               tokens=token_agreement(got, want))
+    if got != want:
+        again, _, _, n = serve(True)
+        out["tokens_routing_replayed"] = dict(token_agreement(again, want),
+                                              token_layers_replayed=n)
+    group.close()
+    del group
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def mesh_path(root: str, smi: str) -> tuple:
     """Phase 9, path (viii): ``MESH_TP`` rank processes on the card (a
     ``RankPool``; the backend the rule picks) serve deepseek-v3-bench at
@@ -4668,8 +5006,12 @@ def mesh_path(root: str, smi: str) -> tuple:
     engine (with and without the routing replayed), the tp server, the
     qwen3-30b-a3b witness (wave 1 and one 8192-token prefill: G at one
     KV head, H, E), and the one-rank classic loop's wave 1 at full depth
-    against the mesh's (with and without the routing replayed).
-    Returns (result, launches by kernel, per-kernel checks)."""
+    against the mesh's (with and without the routing replayed).  Phase
+    10 (path (ix)) shares the pool and the one-rank engine: its pool
+    part (``dp_pool_phase``) runs after the witness, its server after
+    phase 9's, its one-rank comparison and the DP group
+    (``dp_group_check``) after phase 9's.  Returns (result, launches by
+    kernel, per-kernel checks, path (ix)'s {out, launches, checks})."""
     import numpy as np
     import torch
     from llm_d_tpu_torch.parallel.launch import RankPool
@@ -4696,7 +5038,7 @@ def mesh_path(root: str, smi: str) -> tuple:
             f"{json.dumps(out['build'])}")
         waves = {}
         for tag, prompts, new, env, tape in (
-                ("m1", p1, WAVE1["new"], None, True),
+                ("m1", p1, MESH_W1_NEW, None, True),
                 ("m3", p3, MESH_W3_NEW, None, False),
                 ("m1bf16", p1, MESH_SIDE_NEW,
                  {"LLMD_COLLECTIVE_DTYPE": "bf16"}, False),
@@ -4733,7 +5075,8 @@ def mesh_path(root: str, smi: str) -> tuple:
             bf16_wire=token_agreement(waves["m1bf16"]["tokens"], head),
             psum=token_agreement(waves["m1psum"]["tokens"], head))
         t0 = time.perf_counter()
-        alone = pool.run(mesh_alone, p1, MESH_SERVER_NEW)
+        alone = pool.run(mesh_alone, p1[:MESH_SERVER_PROMPTS],
+                         MESH_SERVER_NEW)
         if any(a != alone[0] for a in alone):
             raise RuntimeError("mesh alone: the ranks' tokens differ")
         out["alone_s"] = time.perf_counter() - t0
@@ -4775,15 +5118,16 @@ def mesh_path(root: str, smi: str) -> tuple:
         w3 = prompts_for(wrng, wvocab, dict(WAVE3, new=1))
         full = mesh_config(MESH_WITNESS).num_layers
         wit = dict(model=MESH_WITNESS, layers=MESH_WITNESS_LAYERS,
-                   reduced=f"num_layers {full} -> {MESH_WITNESS_LAYERS}: "
-                           "the smoke's time limit (each decode step of "
-                           "48 layers is ~2.4 s over gloo)")
+                   reduced=f"num_layers {full} -> {MESH_WITNESS_LAYERS}, "
+                           f"wave 1 to {MESH_W1_NEW} new tokens: the "
+                           "smoke's time limit (each decode step of 48 "
+                           "layers is ~2.4 s over gloo)")
         wit["build"] = pool.run(mesh_setup, MESH_WITNESS,
                                 MESH_WITNESS_KERNELS,
                                 layers=MESH_WITNESS_LAYERS)
         wit["waves"] = {}
         wl = {}
-        for tag, prompts, new in (("q1", w1, WAVE1["new"]), ("q3", w3, 1)):
+        for tag, prompts, new in (("q1", w1, MESH_W1_NEW), ("q3", w3, 1)):
             res = pool.run(mesh_wave, tag, prompts, new)
             if any(r["tokens"] != res[0]["tokens"] for r in res):
                 raise RuntimeError(f"witness wave {tag}: the ranks' "
@@ -4806,37 +5150,65 @@ def mesh_path(root: str, smi: str) -> tuple:
         wit["seconds"] = time.perf_counter() - t0
         out["witness"] = wit
         log(f"mesh witness: {json.dumps({k: v for k, v in wit.items() if k != 'waves'})}")
+        out["seconds_pool"] = time.perf_counter() - t_path
+        # Phase 10, path (ix): the dp mesh on the same ranks.
+        dp = dp_pool_phase(pool, p1, p3)
     finally:
         pool.close()
     gc.collect()
     torch.cuda.empty_cache()
-    # The server, with the ranks of the pool gone.
+    # The servers, with the ranks of the pool gone.
     t0 = time.perf_counter()
-    out["server"] = mesh_server(root, p1, alone[0])
+    out["server"] = mesh_server(root, p1[:MESH_SERVER_PROMPTS], alone[0])
     out["server"]["seconds"] = time.perf_counter() - t0
     log(f"mesh server: {json.dumps(out['server'])}")
+    dpo = dp["out"]
+    t0 = time.perf_counter()
+    dpo["server"] = mesh_server(root, p1[:MESH_SERVER_PROMPTS], dp["alone"],
+                                layout=DP_LAYOUT,
+                                log_name="dp_server.log")
+    dpo["server"]["seconds"] = time.perf_counter() - t0
+    log(f"dp server: {json.dumps(dpo['server'])}")
     # The one-rank classic loop's wave 1 at full depth on the same
     # weights, without and with the mesh's routing replayed.
     t0 = time.perf_counter()
     one = path_i_engine(1, model=MESH_MODEL)
     tape = waves["m1"].pop("tape")
-    alone, _ = run_wave(one, p1, WAVE1["new"], "m1")
+    alone, _ = run_wave(one, p1, MESH_W1_NEW, "m1")
     with routing_tape(one, tape, replay=True) as replayed:
-        again, _ = run_wave(one, p1, WAVE1["new"], "m1")
+        again, _ = run_wave(one, p1, MESH_W1_NEW, "m1")
     out["one_rank_tokens"] = dict(
         own_routing=token_agreement(tok1, alone),
         mesh_routing_replayed=dict(token_agreement(tok1, again),
                                    token_layers_replayed=replayed[0]))
     out["one_rank_s"] = time.perf_counter() - t0
+    log(f"mesh vs one rank: {json.dumps(out['one_rank_tokens'])}")
+    # Path (ix)'s wave 1 against the one-rank loop, without and with the
+    # dp mesh's routing replayed; then the DP group on the same weights.
+    t0 = time.perf_counter()
+    dtok = dp["waves"]["d1"].pop("tokens")
+    with routing_tape(one, dp["tape"], replay=True) as replayed:
+        dagain, _ = run_wave(one, p1, MESH_W1_NEW, "d1")
+    dpo["one_rank_tokens"] = dict(
+        own_routing=token_agreement(dtok, alone),
+        mesh_routing_replayed=dict(token_agreement(dtok, dagain),
+                                   token_layers_replayed=replayed[0]))
+    dpo["one_rank_s"] = time.perf_counter() - t0
+    log(f"dp vs one rank: {json.dumps(dpo['one_rank_tokens'])}")
+    dpo["group"] = dp_group_check(one, p1, MESH_W1_NEW)
+    log(f"dp group: {json.dumps(dpo['group'])}")
     del one
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"mesh vs one rank: {json.dumps(out['one_rank_tokens'])}")
     for w in waves.values():
         w.pop("tokens", None)
     out["waves"] = waves
+    dp["waves"]["d3"].pop("tokens", None)
+    dpo["waves"] = dp["waves"]
     out["seconds"] = time.perf_counter() - t_path
-    return out, launches, checks
+    dpo["card"] = smi
+    return out, launches, checks, dict(out=dpo, launches=dp["launches"],
+                                       checks=dp["checks"])
 
 
 
@@ -5652,7 +6024,10 @@ def main() -> int:
         log(f"path (vii) {name}: {res['seconds']:.1f} s")
     # 9. path (viii): tp = ep = 4 as four ranks, once phase 8 has freed the
     # card.
-    mesh, mesh_counts, mesh_checks = mesh_path(root, smi)
+    # 10. path (ix): dp = 2 x tp = 2 on the same ranks, its server and a
+    # DP group of two engines (inside mesh_path: they share its pool and
+    # its one-rank engine).
+    mesh, mesh_counts, mesh_checks, dp = mesh_path(root, smi)
     for row in rows:
         n = row["name"]
         row["mesh_launches"] = mesh_counts.get(n, 0) + \
@@ -5660,7 +6035,11 @@ def main() -> int:
         row["launches"] += row["mesh_launches"]
         row["mesh_inputs"] = [{k: v for k, v in c.items() if k != "name"}
                               for c in mesh_checks if c["name"] == n]
-    log(f"path (viii): {mesh['seconds']:.1f} s")
+        row["dp_launches"] = dp["launches"].get(n, 0)
+        row["launches"] += row["dp_launches"]
+        row["dp_inputs"] = [{k: v for k, v in c.items() if k != "name"}
+                            for c in dp["checks"] if c["name"] == n]
+    log(f"paths (viii) and (ix): {mesh['seconds']:.1f} s")
     if prof is not None:
         # The first decode block of a fresh process, part by part.
         prof["cold_first_block"] = []
@@ -5690,6 +6069,7 @@ def main() -> int:
     print(json.dumps({"observe": observe}))
     print(json.dumps({"moe_gqa": gqa}))
     print(json.dumps({"mesh": mesh}))
+    print(json.dumps({"dp": dp["out"]}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

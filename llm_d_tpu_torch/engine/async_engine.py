@@ -9,6 +9,11 @@ Every engine call (adding and aborting requests, steps, and so the
 decode graphs' captures and replays) runs on the engine thread, so a
 capture never races a step.  PyTorch keeps the current CUDA device per
 thread: the thread selects the engine's device before its first step.
+
+The engine is an ``EngineCore`` or a ``DPEngineGroup`` (its ranks'
+engines behind one dispatcher, ``engine/dp_group.py``): both offer the
+calls used here (``add_request``, ``abort_request``, ``has_work``,
+``step``, ``scheduler.has_work``, ``device``).
 """
 
 from __future__ import annotations
@@ -17,10 +22,11 @@ import asyncio
 import logging
 import queue
 import threading
-from typing import AsyncIterator, Dict, Optional
+from typing import AsyncIterator, Dict, Optional, Union
 
 import torch
 
+from llm_d_tpu_torch.engine.dp_group import DPEngineGroup
 from llm_d_tpu_torch.engine.engine import EngineCore
 from llm_d_tpu_torch.engine.request import Request, RequestOutput
 
@@ -28,7 +34,7 @@ logger = logging.getLogger(__name__)
 
 
 class AsyncEngine:
-    def __init__(self, engine: EngineCore) -> None:
+    def __init__(self, engine: Union[EngineCore, DPEngineGroup]) -> None:
         self.engine = engine
         self._inbox: "queue.Queue" = queue.Queue()
         self._streams: Dict[str, asyncio.Queue] = {}

@@ -87,9 +87,23 @@ deadlines; the others run ``follow()``, the same schedule step by step,
 and sample the same all-gathered logits with the same keys, so every
 rank holds the same tokens.  ``llmd_tpu:collective_bytes_total`` charges
 each computed token's EP exchange bytes (the JAX byte model).  Refused
-by name on a mesh: DP and SP axes, spec decode, P/D, the host tier,
+by name on a mesh: the SP axis, spec decode, P/D, the host tier,
 EPLB at ep > 1, a step-time target, and captured decode blocks where
 the collectives cannot be captured (gloo on CUDA); DBO everywhere.
+
+Data parallelism on the mesh (``MeshConfig(dp, tp)``, the JAX engine's
+stacked mode, the attention half of wide EP): the pool is split into
+``dp`` KV regions (``KVCacheManager(num_regions=dp)``), each request
+pinned to one, and the rank at dp index ``r`` holds only region ``r``'s
+``[L, slots / dp, W]`` plane.  Every rank keeps the same schedule; each
+step groups the scheduled requests by region and pads every shard to
+common ``T_l`` / ``S_l`` buckets (``_build_batch``, ``_ms_meta``), block
+ids rebased by ``r * B_l``; a rank runs only its own shard's forward
+(``parallel/dp_attention.py``), the routed experts over all ``dp * tp``
+ranks, and the sampling rows of every shard are all-gathered over dp
+(the flat rows ``r * S_l + s``), so every rank samples the same tokens.
+``kv_cache_hbm_bytes`` is a per-device budget: the block count scales
+by dp.
 """
 
 from __future__ import annotations
@@ -116,8 +130,8 @@ from llm_d_tpu_torch.ops.moe import DENSE_DISPATCH_MAX_T
 from llm_d_tpu_torch.ops.quant import (
     KV_CACHE_DTYPES, KV_SCALE_GRANULARITIES, MLA_LATENT_DTYPES,
     kv_scale_width, quantize_moe_experts)
-from llm_d_tpu_torch.parallel.mesh import (Mesh, MeshConfig, StepChannel,
-                                           check_served)
+from llm_d_tpu_torch.parallel.mesh import (AXIS_DP, Mesh, MeshConfig,
+                                           StepChannel, check_served)
 from llm_d_tpu_torch.parallel.sharding import (shard_shape, shard_tree,
                                                validate_divisibility)
 from llm_d_tpu_torch.utils import tracing
@@ -262,11 +276,14 @@ class EngineConfig:
 class EngineCore:
     def __init__(self, config: EngineConfig,
                  params: Optional[Dict[str, Any]] = None,
-                 draft_params: Optional[Dict[str, Any]] = None) -> None:
+                 draft_params: Optional[Dict[str, Any]] = None,
+                 metrics: Optional[EngineMetrics] = None) -> None:
         """``params`` and ``draft_params`` (e.g. from
         ``models.convert.params_from_numpy``) must already live on the
         engine's device; ``None`` random-initializes them from
-        ``config.seed`` and, for the drafter, ``config.seed + 1``."""
+        ``config.seed`` and, for the drafter, ``config.seed + 1``.
+        ``metrics`` may be shared with other engines (a DP group's
+        ranks); by default the engine has its own."""
         self.config = config
         if config.enable_dbo:
             raise ValueError(
@@ -289,6 +306,11 @@ class EngineCore:
             self._check_cards(config)
         else:
             self.device = resolve_device(config.device)
+        # SPMD data parallelism (the JAX engine's stacked mode): requests
+        # pin to one of dp KV regions, each rank holds and attends over
+        # its region's plane, MoE EP spans every rank.
+        self.dp = config.mesh.dp if self.mesh is not None else 1
+        self.dp_index = self.mesh.coord["dp"] if self.mesh is not None else 0
 
         # An explicit value wins; None resolves the environment knob (an
         # invalid environment value falls back with a warning, an invalid
@@ -323,14 +345,16 @@ class EngineCore:
             self.kv_scale_width = kv_scale_width(c.num_kv_heads, gran)
         if config.kv_cache_hbm_bytes:
             # Dtype-aware pool sizing: the same budget holds ~2x the int8
-            # blocks.
-            derived = derive_num_blocks(
+            # blocks.  The budget is per device: a dp mesh's ranks each
+            # hold 1/dp of the pool, so the block count scales by dp.
+            derived = self.dp * derive_num_blocks(
                 config.kv_cache_hbm_bytes, self.model.kv_cache_layout(c),
                 c.num_layers, config.block_size, self.kv_cache_dtype,
                 self.kv_scale_width)
             logger.info("kv pool auto-sized: %d blocks (%s, %.2f GiB "
-                        "budget)", derived, self.kv_cache_dtype,
-                        config.kv_cache_hbm_bytes / 2**30)
+                        "budget a device, dp=%d)", derived,
+                        self.kv_cache_dtype,
+                        config.kv_cache_hbm_bytes / 2**30, self.dp)
             config = dataclasses.replace(config, num_blocks=derived)
             self.config = config
 
@@ -349,9 +373,16 @@ class EngineCore:
                 "async_scheduling requires num_scheduler_steps > 1 "
                 "(it pipelines fused decode blocks)")
 
+        if self.dp > 1 and (config.num_blocks % self.dp
+                            or config.num_blocks < 2 * self.dp):
+            raise ValueError(
+                f"num_blocks {config.num_blocks} does not split into "
+                f"{self.dp} KV regions of at least 2 blocks on mesh "
+                f"{config.mesh}")
         self.kv_manager = KVCacheManager(
             config.num_blocks, config.block_size,
-            enable_prefix_caching=config.enable_prefix_caching)
+            enable_prefix_caching=config.enable_prefix_caching,
+            num_regions=self.dp)
         self.scheduler = Scheduler(
             self.kv_manager,
             max_num_seqs=config.max_num_seqs,
@@ -412,7 +443,8 @@ class EngineCore:
                 c.num_experts, 1, EplbConfig.from_dict(config.eplb_config))
             self.params = self.eplb.install(self.params)
 
-        num_slots = config.num_blocks * config.block_size
+        # A dp rank holds its region's plane only: [L, slots / dp, W].
+        num_slots = self.kv_manager.blocks_per_region * config.block_size
         layout = self.model.kv_cache_layout(c)
         specs = self.model.kv_cache_spec(c)
         payload = torch.int8 if self.kv_quantized else torch.bfloat16
@@ -445,7 +477,8 @@ class EngineCore:
         # dispatch.
         self._inflight: Optional[Dict[str, Any]] = None
         self._rejected: List[RequestOutput] = []
-        self.metrics = EngineMetrics(c.name)
+        self.metrics = metrics if metrics is not None \
+            else EngineMetrics(c.name)
         # Phase and step spans (``_trace_phase``; no-ops for untraced
         # requests, stamped at retire points from clock reads already
         # taken).
@@ -642,7 +675,9 @@ class EngineCore:
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The model forward of a step body: (hidden states of the
         sampling rows, routed logical expert ids ``[Lm, T, k]`` when EPLB
-        collects them, else None)."""
+        collects them, else None).  On a dp mesh ``batch`` is this rank's
+        shard and the rows come back gathered over dp: every shard's
+        ``[S_l]`` rows, in dp order."""
         c, cfg = self.model_config, self.config
         args = (self.params, self.kv_cache, batch, c, cfg.block_size,
                 cfg.attn_backend)
@@ -651,8 +686,13 @@ class EngineCore:
         if self.mesh is not None:
             kw["mesh"] = self.mesh
         if self.eplb is None:
-            return self.model.forward(*args, **kw), None
-        return self.model.forward(*args, collect_routed=True, **kw)
+            hidden, routed = self.model.forward(*args, **kw), None
+        else:
+            hidden, routed = self.model.forward(*args, collect_routed=True,
+                                                **kw)
+        if self.dp > 1:
+            hidden = self.mesh.all_gather(hidden, AXIS_DP, dim=0)
+        return hidden, routed
 
     def _routed_shape(self, T: int) -> Tuple[int, int, int]:
         c = self.model_config
@@ -849,6 +889,8 @@ class EngineCore:
             gen_idx=np.zeros(S, np.int32))
 
     def _fill_batch(self, arrs: Dict[str, np.ndarray], scheduled) -> None:
+        """One (dp shard's) batch arrays from its scheduled requests, block
+        ids rebased to the shard's plane."""
         bs = self.config.block_size
         t = 0
         for s, sr in enumerate(scheduled):
@@ -858,7 +900,8 @@ class EngineCore:
             pos_arr = np.arange(start, start + n)
             arrs["positions"][t:t + n] = pos_arr
             arrs["token_seq_ids"][t:t + n] = s
-            blocks = np.asarray(req.block_ids, np.int32)
+            blocks = np.asarray(req.block_ids, np.int32) \
+                - self._block_offset(req)
             arrs["slot_mapping"][t:t + n] = \
                 blocks[pos_arr // bs] * bs + pos_arr % bs
             arrs["token_qpos"][t:t + n] = np.arange(n)
@@ -877,25 +920,60 @@ class EngineCore:
 
     _HOST_KEYS = ("temperature", "top_k", "top_p", "seeds", "gen_idx")
 
+    def _block_offset(self, req: Request) -> int:
+        """Global -> shard-local block id rebase of ``req`` (0 off dp:
+        region 0 spans the whole pool)."""
+        return (self.kv_manager.region_of_request(req)
+                * self.kv_manager.blocks_per_region)
+
+    def _split_by_shard(self, scheduled) -> List[List]:
+        """Scheduled entries by the dp region their request is pinned
+        to, in schedule order (one list off dp)."""
+        per: List[List] = [[] for _ in range(self.dp)]
+        for sr in scheduled:
+            per[self.kv_manager.region_of_request(sr.request)].append(sr)
+        return per
+
     def _build_batch(self, out: SchedulerOutput
                      ) -> Tuple[Dict[str, torch.Tensor],
-                                Dict[str, torch.Tensor]]:
+                                Dict[str, Any]]:
         """(device batch, host sampling rows).  T, S and Q bucket to powers
-        of two as in the JAX engine, so the kernels see the same shapes."""
+        of two as in the JAX engine, so the kernels see the same shapes.
+        ``host["scheduled"]`` lists the scheduled entries in row order and
+        ``host["rows"]`` gives each one's sampling row.
+
+        On a dp mesh (the JAX engine's stacked ``_build_batch``) the
+        requests group by region, every shard pads to common ``T_l`` /
+        ``S_l`` buckets and the device batch is this rank's shard, its
+        block ids rebased to its plane; the host rows are every shard's,
+        flat (``r * S_l + s``), as the sampling rows are gathered."""
         cfg = self.config
         max_q = max((sr.num_new_tokens for sr in out.scheduled), default=1)
-        T = _next_bucket(out.total_tokens, cfg.min_token_bucket,
-                         cfg.max_num_batched_tokens)
-        S = _next_bucket(len(out.scheduled),
-                         min(cfg.min_seq_bucket, cfg.max_num_seqs),
-                         cfg.max_num_seqs)
         Q = 1 if max_q == 1 else _next_bucket(
             max_q, cfg.min_token_bucket, cfg.max_num_batched_tokens)
-        arrs = self._empty_batch_np(T, S, Q, self.max_blocks_per_seq)
-        self._fill_batch(arrs, out.scheduled)
-        host = {k: torch.from_numpy(arrs.pop(k)) for k in self._HOST_KEYS}
+        per = self._split_by_shard(out.scheduled)
+        T = _next_bucket(
+            max(sum(sr.num_new_tokens for sr in shard) for shard in per),
+            cfg.min_token_bucket, cfg.max_num_batched_tokens)
+        S = _next_bucket(max(len(shard) for shard in per),
+                         min(cfg.min_seq_bucket, cfg.max_num_seqs),
+                         cfg.max_num_seqs)
+        shards = []
+        scheduled: List = []
+        rows: List[int] = []
+        for r, shard in enumerate(per):
+            arrs = self._empty_batch_np(T, S, Q, self.max_blocks_per_seq)
+            self._fill_batch(arrs, shard)
+            shards.append(arrs)
+            scheduled.extend(shard)
+            rows.extend(r * S + s for s in range(len(shard)))
+        own = shards[self.dp_index]
+        host = {k: torch.from_numpy(np.concatenate([a[k] for a in shards]))
+                for k in self._HOST_KEYS}
+        host["scheduled"] = scheduled
+        host["rows"] = np.asarray(rows, np.int64)
         batch = {k: torch.from_numpy(v).to(self.device)
-                 for k, v in arrs.items()}
+                 for k, v in own.items() if k not in self._HOST_KEYS}
         return batch, host
 
     # ---------- multistep decode ----------
@@ -922,9 +1000,14 @@ class EngineCore:
         ``routed[it]`` (``[Lm, T, k]``)."""
         c, cfg = self.model_config, self.config
         bs = cfg.block_size
-        bt = mb["block_tables"]
-        active = mb["active"]
-        S, B = bt.shape
+        # On a dp mesh the rows are every shard's ``[dp * S_l]``: the
+        # forward runs this rank's ``S_l`` of them, sampling all of them.
+        S_all = mb["block_tables"].shape[0]
+        S = S_all // self.dp
+        own = slice(self.dp_index * S, (self.dp_index + 1) * S)
+        bt = mb["block_tables"][own]
+        active = mb["active"][own]
+        B = bt.shape[1]
         T = _next_bucket(S, cfg.min_token_bucket, cfg.max_num_batched_tokens)
 
         def tokens(v):                   # [S] -> [T], pad tokens 0
@@ -938,14 +1021,15 @@ class EngineCore:
             # One token per sequence.  Rows past their table (finished
             # rows keep advancing) are clamped; they are inactive and
             # write the trash block.
-            page = (pos0 // bs).clamp(max=B - 1).long()
-            slot = torch.gather(bt, 1, page[:, None])[:, 0] * bs + pos0 % bs
+            p0 = pos0[own]
+            page = (p0 // bs).clamp(max=B - 1).long()
+            slot = torch.gather(bt, 1, page[:, None])[:, 0] * bs + p0 % bs
             batch = dict(
-                token_ids=tokens(last_ids), positions=tokens(pos0),
+                token_ids=tokens(last_ids[own]), positions=tokens(p0),
                 token_seq_ids=tok_seq_ids, token_qpos=qpos,
-                slot_mapping=tokens(torch.where(active, slot, pos0 % bs)),
+                slot_mapping=tokens(torch.where(active, slot, p0 % bs)),
                 block_tables=bt,
-                seq_lens=torch.where(active, pos0 + 1, 0),
+                seq_lens=torch.where(active, p0 + 1, 0),
                 sample_idx=seq_ids, qtok_idx=seq_ids[:, None])
             hidden, r = self._forward(batch)
             if routed is not None:
@@ -955,7 +1039,7 @@ class EngineCore:
                 logits, mb["temperature"], mb["top_k"], mb["top_p"],
                 key=(keys[it, 0], keys[it, 1]), seeds=mb["seeds"],
                 gen_idx=mb["gen0"] + it, random_rows=random_rows)
-            ids[it] = torch.where(active, tok, 0)
+            ids[it] = torch.where(mb["active"], tok, 0)
             last_ids, pos0 = ids[it], pos0 + 1
 
     def _ms_static(self, S: int, K: int
@@ -1017,11 +1101,15 @@ class EngineCore:
                                            np.ndarray]:
         """Host arrays of a multistep block: (meta, scheduled in row
         order, row of each scheduled entry).  S buckets alone, as in the
-        JAX engine; ``_ms_body`` pads the token rows."""
+        JAX engine; ``_ms_body`` pads the token rows.  On a dp mesh the
+        rows are flat over ``[dp * S_l]`` (shard ``r``'s from ``r *
+        S_l``), block ids rebased to each shard's plane."""
         cfg = self.config
-        S = _next_bucket(len(scheduled),
-                         min(cfg.min_seq_bucket, cfg.max_num_seqs),
-                         cfg.max_num_seqs)
+        per = self._split_by_shard(scheduled)
+        S_l = _next_bucket(max(len(p) for p in per),
+                           min(cfg.min_seq_bucket, cfg.max_num_seqs),
+                           cfg.max_num_seqs)
+        S = S_l * self.dp
         B = self.max_blocks_per_seq
         last_ids = np.zeros(S, np.int32)
         pos0 = np.zeros(S, np.int32)
@@ -1032,11 +1120,17 @@ class EngineCore:
         top_p = np.ones(S, np.float32)
         seeds = np.full(S, -1, np.int32)
         gen0 = np.zeros(S, np.int32)
-        for s, sr in enumerate(scheduled):
+        ordered: List = []
+        rows: List[int] = []
+        for s, sr in ((r * S_l + i, sr) for r, shard in enumerate(per)
+                      for i, sr in enumerate(shard)):
             req = sr.request
+            ordered.append(sr)
+            rows.append(s)
             last_ids[s] = req.all_token_ids[req.num_computed_tokens]
             pos0[s] = req.num_computed_tokens
-            block_tables[s, :len(req.block_ids)] = req.block_ids
+            block_tables[s, :len(req.block_ids)] = \
+                np.asarray(req.block_ids, np.int32) - self._block_offset(req)
             active[s] = True
             temperature[s] = req.sampling.temperature
             top_k[s] = req.sampling.top_k
@@ -1047,8 +1141,7 @@ class EngineCore:
         meta = dict(last_ids=last_ids, pos0=pos0, block_tables=block_tables,
                     active=active, temperature=temperature, top_k=top_k,
                     top_p=top_p, seeds=seeds, gen0=gen0)
-        return meta, list(scheduled), np.arange(len(scheduled),
-                                                dtype=np.int32)
+        return meta, ordered, np.asarray(rows, np.int32)
 
     def _ms_dispatch(self, meta: Dict[str, Any], scheduled, K: int,
                      rows: np.ndarray) -> Dict[str, Any]:
@@ -1218,7 +1311,8 @@ class EngineCore:
                     next_active = next_active.copy()
                 next_active[s] = False
                 continue
-            local = np.asarray(sr.request.block_ids, np.int32)
+            local = np.asarray(sr.request.block_ids, np.int32) \
+                - self._block_offset(sr.request)
             nb = len(local)
             if nb and bt[s, nb - 1] != local[-1]:
                 if next_bt is bt:
@@ -1965,7 +2059,7 @@ class EngineCore:
             return outputs
 
         batch, host = self._build_batch(sched)
-        scheduled = sched.scheduled
+        scheduled, rows = host["scheduled"], host["rows"]
         step_t0 = time.monotonic()
         self._rng, step_key = prng.split(self._rng)
         hidden, routed = self._forward(batch)
@@ -2016,7 +2110,7 @@ class EngineCore:
                 n_seqs=len(scheduled), n_tokens=sched.total_tokens,
                 prefill_tokens=sched.prefill_tokens,
                 decode_tokens=sched.decode_tokens, fused=False)
-        for s, sr in enumerate(scheduled):
+        for s, sr in zip(rows, scheduled):
             req, n = sr.request, sr.num_new_tokens
             req.num_computed_tokens += n
             self._account_collective_bytes(n)

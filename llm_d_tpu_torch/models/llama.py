@@ -31,6 +31,7 @@ import torch
 from llm_d_tpu_torch.models.config import ModelConfig
 from llm_d_tpu_torch.ops import attention as A
 from llm_d_tpu_torch.ops import layers as L
+from llm_d_tpu_torch.parallel.dp_attention import dp_attend
 from llm_d_tpu_torch.parallel.sharding import (shard_slices, shard_tensor,
                                                spec_for_path)
 
@@ -240,18 +241,26 @@ def forward(params: Params, kv_cache: Dict[str, torch.Tensor],
             mesh=None) -> torch.Tensor:
     """One engine step over a ragged batch: returns the final-normed
     hidden states of the sampling rows ``[S, D]`` (on every rank of a
-    mesh); ``kv_cache`` is updated in place."""
+    mesh); ``kv_cache`` is updated in place.  On a mesh with ``dp`` > 1
+    the batch, the cache planes and the rows returned are the rank's dp
+    shard's (``parallel/dp_attention.py``)."""
     c = config
     lc = local_config(c, mesh)
     names = ("k", "v", "k_scale", "v_scale") if "k_scale" in kv_cache \
         else ("k", "v")
     caches = tuple(kv_cache[n] for n in names)
+
+    def attend(lp, hn, caches, ab, li):
+        return attention_block(lp, lc, hn, ab, caches, block_size,
+                               attn_backend, layer=li, mesh=mesh)
+
     x = embed_tokens(params, batch["token_ids"], mesh)
     for li in range(c.num_layers):
         lp = {k: v[li] for k, v in params["layers"].items()}
-        a = attention_block(
-            lp, lc, L.rms_norm(x, lp["input_norm"], c.rms_norm_eps), batch,
-            caches, block_size, attn_backend, layer=li, mesh=mesh)
+        # On a dp mesh: the rank's shard, its tokens over its cache plane.
+        a = dp_attend(attend, mesh, lp,
+                      L.rms_norm(x, lp["input_norm"], c.rms_norm_eps),
+                      caches, batch, li)
         # Under jit XLA feeds the post-attention norm the f32 residual sum
         # (its f32 -> bf16 -> f32 convert pair is dropped); the residual
         # stream itself is stored rounded (see models/moe.py).

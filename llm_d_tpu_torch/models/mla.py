@@ -12,6 +12,12 @@ itself) and a prefill or mixed batch scatters its rows and goes to kernel
 B; every other batch, on every backend, scatters its rows and runs the
 chunked flash path (``ops.attention.ragged_paged_attention_chunked``), as
 the JAX MLA block does.
+
+On a dp mesh the MoE forward calls the block through
+``parallel.dp_attention.dp_attend``: it sees the rank's shard (its tokens,
+its block ids rebased to its ``[L, slots / dp, F]`` latent plane), so A
+and B run at rank-local shapes, as the Pallas kernels do per shard under
+JAX's ``shard_map``.
 """
 
 from __future__ import annotations

@@ -19,7 +19,10 @@ first dense layers, the embedding and the head are tensor-parallel as in
 table), the routed experts expert-parallel over all N ranks
 (``ops.moe.expert_ffn(..., mesh=)``), and the router and the residual
 stream replicated.  The MLA latent cache is replicated; GQA K/V hold the
-rank's KV heads (:func:`kv_cache_spec`).
+rank's KV heads (:func:`kv_cache_spec`).  With ``dp`` > 1 as well (the
+wide-EP regime) each rank runs its dp shard's tokens: attention over its
+own cache plane (``parallel.dp_attention.dp_attend``), the tp
+collectives on its tp group, and the experts over all ``dp * tp`` ranks.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from llm_d_tpu_torch.models.mla import (mla_attention_block,
 from llm_d_tpu_torch.ops import layers as L
 from llm_d_tpu_torch.ops import moe as moe_ops
 from llm_d_tpu_torch.ops.quant import quantize_int8
+from llm_d_tpu_torch.parallel.dp_attention import dp_attend
 from llm_d_tpu_torch.parallel.mesh import AXIS_EP
 from llm_d_tpu_torch.parallel.sharding import shard_slices
 
@@ -205,6 +209,19 @@ def forward(params: Params, kv_cache: Dict[str, torch.Tensor],
                      if "w_gate_q" in ml else None)
     routed = []
     trace = {"x": [], "weights": [], "idx": []}
+
+    def attend_local(lp, hn, caches, ab, li):
+        """MLA (one latent buffer, optionally int8 + its scale plane) or
+        GQA attention of the rank's tokens."""
+        if not c.use_mla:
+            return attention_block(lp, lc, hn, ab, caches, block_size,
+                                   attn_backend, layer=li, mesh=mesh)
+        return mla_attention_block(
+            lp, lc, hn, ab, caches[0], block_size, attn_backend, layer=li,
+            kv_scale=caches[1], mesh=mesh)
+
+    if c.use_mla:
+        caches = (kv, kv_scale)
     x = embed_tokens(params, batch["token_ids"], mesh)
     for li in range(c.num_layers):
         if li < Ld:
@@ -214,13 +231,9 @@ def forward(params: Params, kv_cache: Dict[str, torch.Tensor],
         hn_in = L.rms_norm(x, lp["input_norm"], c.rms_norm_eps)
         if "attn" in stub:
             a = torch.zeros_like(hn_in)
-        elif not c.use_mla:
-            a = attention_block(lp, lc, hn_in, batch, caches, block_size,
-                                attn_backend, layer=li, mesh=mesh)
         else:
-            a = mla_attention_block(
-                lp, lc, hn_in, batch, kv, block_size, attn_backend, layer=li,
-                kv_scale=kv_scale, mesh=mesh)
+            # On a dp mesh: the rank's shard, its tokens over its plane.
+            a = dp_attend(attend_local, mesh, lp, hn_in, caches, batch, li)
         # Two bf16 roundings the JAX reference does not perform: under jit
         # XLA feeds the post-attention norm the f32 residual sum, and the
         # router the f32 norm output (an f32 -> bf16 -> f32 convert pair is

@@ -17,7 +17,11 @@ On a mesh (``expert_ffn(..., mesh=)``) the experts shard over every rank
 and tokens travel to their experts' ranks by all-to-all (``a2a``) or
 every rank runs its experts on all tokens and the outputs are summed
 (``psum``); int8 experts run kernel E on the received rows on every
-backend (its plain version on the CPU).
+backend (its plain version on the CPU).  On a ``(dp, tp)`` mesh ``x`` is
+the rank's dp shard's ``[T_l, H]`` (the same on its tp ranks): each rank
+dispatches its ``T_l / tp`` slice over the EP group of all ``dp * tp``
+ranks, as the JAX package's stacked ``[dp * T_l]`` rows split over EP,
+and the shard's rows come back by an all-gather over its tp group.
 """
 
 from __future__ import annotations
@@ -446,10 +450,11 @@ def _wire_backend(x: torch.Tensor) -> str:
 
 def _expert_ffn_mesh(x, weights, idx, w_gate, w_up, w_down, quant, mesh,
                      dispatch, collective_dtype):
-    from llm_d_tpu_torch.parallel.mesh import AXIS_EP
+    from llm_d_tpu_torch.parallel.mesh import AXIS_DP, AXIS_EP
     from llm_d_tpu_torch.parallel.quant_collectives import (
         quantized_psum, resolve_collective_dtype)
-    T = x.shape[0]
+    # The step's tokens over the whole mesh: every dp shard's T_l rows.
+    T = x.shape[0] * mesh.axis_size(AXIS_DP)
     ep = mesh.axis_size(AXIS_EP)
     E_loc = (quant["w_gate_q"].shape[1] if quant is not None
              else w_gate.shape[0])
@@ -473,13 +478,18 @@ def _expert_ffn_mesh(x, weights, idx, w_gate, w_up, w_down, quant, mesh,
         w_gate, w_up, w_down = _dequant_layer(quant)
     # "int8-dispatch" has no meaning for a reduction: the exact psum.
     wire = resolve_collective_dtype(collective_dtype, _wire_backend(x))
-    out = _local_expert_ffn(x, weights, idx, w_gate, w_up, w_down,
+    # Every rank runs its experts on every dp shard's tokens, and keeps
+    # its own shard's rows of the sum.
+    xs, ws, ids = (mesh.all_gather(t, AXIS_DP, dim=0)
+                   for t in (x, weights, idx))
+    out = _local_expert_ffn(xs, ws, ids, w_gate, w_up, w_down,
                             mesh.axis_index(AXIS_EP) * E_loc)
     if wire == "int8":
         out = quantized_psum(out, mesh, AXIS_EP)
     else:
         out = mesh.all_reduce(out, AXIS_EP)
-    return out.to(x.dtype)
+    d, T_l = mesh.axis_index(AXIS_DP), x.shape[0]
+    return out[d * T_l:(d + 1) * T_l].to(x.dtype)
 
 
 def _pack_rows(*planes: torch.Tensor) -> torch.Tensor:
@@ -608,30 +618,36 @@ def expert_ffn_a2a(x, weights, idx, w_gate, w_up, w_down, mesh,
                    collective_dtype: Optional[str] = None) -> torch.Tensor:
     """Sparse all-to-all EP dispatch over every rank of ``mesh``.
 
-    Each rank takes its ``T / ep`` slice of the (replicated) batch, in
-    chunks of ``LLMD_MOE_DP_CHUNK_SIZE`` tokens (1024; the largest
-    divisor of the slice at or below it) through :func:`_a2a_moe_chunk`,
-    then one all-gather puts the full ``[T, H]`` (in x.dtype) back on
-    every rank.  Needs ``T % ep == 0`` and ``E % ep == 0``."""
-    from llm_d_tpu_torch.parallel.mesh import AXIS_EP
+    ``x`` is replicated over the rank's tp group (the whole batch at dp
+    = 1, the rank's dp shard otherwise).  Each rank takes its ``T / tp``
+    slice of it, in chunks of ``LLMD_MOE_DP_CHUNK_SIZE`` tokens (1024;
+    the largest divisor of the slice at or below it) through
+    :func:`_a2a_moe_chunk` over the EP group of every rank, then one
+    all-gather over tp puts the ``[T, H]`` (in x.dtype) back on each of
+    them.  Rank ``(d, t)`` so dispatches rows ``d * T + t * T / tp`` of
+    the JAX package's stacked ``[dp * T]`` rows, as its EP split of them
+    does.  Needs ``dp * T % ep == 0`` and ``E % ep == 0``."""
+    from llm_d_tpu_torch.parallel.mesh import AXIS_EP, AXIS_TP
     from llm_d_tpu_torch.parallel.quant_collectives import (
         resolve_collective_dtype)
     wire = resolve_collective_dtype(collective_dtype, _wire_backend(x))
     ep = mesh.axis_size(AXIS_EP)
+    tp = mesh.axis_size(AXIS_TP)
     T = x.shape[0]
-    if T % ep:
-        raise ValueError(f"a2a dispatch needs T % ep == 0 (T={T}, ep={ep})")
-    T_loc = T // ep
+    if T % tp:
+        raise ValueError(f"a2a dispatch needs the step's tokens to divide "
+                         f"over ep (T={T * (ep // tp)}, ep={ep})")
+    T_loc = T // tp
     if chunk_tokens is None:
         chunk_tokens = env_int("LLMD_MOE_DP_CHUNK_SIZE", 1024)
     chunk_tokens = max(1, min(chunk_tokens, T_loc))
     while T_loc % chunk_tokens:
         chunk_tokens -= 1
-    r0 = mesh.axis_index(AXIS_EP) * T_loc
+    r0 = mesh.axis_index(AXIS_TP) * T_loc
     outs = []
     for c0 in range(r0, r0 + T_loc, chunk_tokens):
         sl = slice(c0, c0 + chunk_tokens)
         outs.append(_a2a_moe_chunk(x[sl], weights[sl], idx[sl], w_gate,
                                    w_up, w_down, mesh, quant, wire))
     out = torch.cat(outs) if len(outs) > 1 else outs[0]
-    return mesh.all_gather(out.to(x.dtype), AXIS_EP, dim=0)
+    return mesh.all_gather(out.to(x.dtype), AXIS_TP, dim=0)

@@ -8,12 +8,18 @@ process group per axis plus the EP group (every rank), and runs each
 collective the model needs over them.
 
 Axes, as in JAX:
-  - ``dp``: data parallelism over requests (DP attention);
+  - ``dp``: data parallelism over requests (DP attention): each dp index
+    serves its own requests' attention over its own KV plane
+    (``parallel/dp_attention.py``);
   - ``sp``: sequence parallelism (ring attention);
   - ``tp``: tensor parallelism within a replica.
 Expert parallelism runs over the flattened ``(dp, sp, tp)`` axes, so the
-EP degree is the whole mesh.  This slice serves ``dp = sp = 1``: DP
-attention and ring attention are refused by name.
+EP degree is the whole mesh.  The ranks lie on the grid row-major, as
+:func:`select_devices` (JAX's ``make_mesh``) arranges them: rank ``d * tp
++ t`` is dp index ``d``, tp index ``t``.  :meth:`Mesh.from_process_group`
+makes one process group per dp index over its tp ranks, one per tp index
+over its dp ranks, and the EP group is every rank (the default group).
+``sp > 1`` (ring attention) is refused by name.
 
 Backend rule (logged, and no knob): ``nccl`` when every rank has a CUDA
 card of its own, ``gloo`` on the CPU and when ranks share a card (NCCL
@@ -84,11 +90,7 @@ def select_devices(config: Optional[MeshConfig], devices: Sequence,
 
 
 def check_served(config: MeshConfig) -> None:
-    """Refuse the mesh axes this slice does not serve, by name."""
-    if config.dp > 1:
-        raise ValueError(
-            f"mesh {config}: dp > 1 (DP attention, the stacked KV pool) is "
-            "not served by the port yet")
+    """Refuse the mesh axes the port does not serve, by name."""
     if config.sp > 1:
         raise ValueError(
             f"mesh {config}: sp > 1 (ring attention) is not served by the "

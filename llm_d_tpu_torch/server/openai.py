@@ -85,9 +85,21 @@ than the host's card count.  On a mesh P/D, the host tier, spec decode,
 EPLB and (gloo on CUDA) ``--num-scheduler-steps`` > 1 are refused by
 name.
 
+Data parallelism on one host, in the JAX server's two modes
+(``--data-parallel-size D``, ``--data-parallel-size-local`` equal to it):
+``--data-parallel-mode spmd`` (the default) serves one mesh
+``MeshConfig(dp=D, tp=N)`` as ``D x N`` ranks started as above (DP
+attention, the experts over every rank); ``ranks`` serves a
+``DPEngineGroup`` of D one-device engines in this process behind a
+least-loaded dispatcher (``engine/dp_group.py``; one device a rank, so
+``--tensor-parallel-size`` > 1 is refused there).
+
 Not served (each refused with a message naming it, not quietly
-dropped): the DP and DBO flags (``UNSERVED_FLAGS``), and the relay half
-of resume (the DP leader's).
+dropped): multi-host DP (``--data-parallel-start-rank``, ``-address``,
+``-rpc-port``, ``-hybrid-lb``, ``-workers``, and a
+``--data-parallel-size-local`` below ``--data-parallel-size``: the
+leader's dispatch over worker hosts), the DBO flags (``UNSERVED_FLAGS``),
+and the relay half of resume (the DP leader's).
 """
 
 from __future__ import annotations
@@ -104,9 +116,10 @@ import threading
 import time
 import urllib.request
 import uuid as uuid_mod
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Union
 
 from llm_d_tpu_torch.engine.async_engine import AsyncEngine
+from llm_d_tpu_torch.engine.dp_group import DPEngineGroup
 from llm_d_tpu_torch.engine.engine import EngineConfig, EngineCore
 from llm_d_tpu_torch.engine.request import Request, RequestOutput
 from llm_d_tpu_torch.ops.sampling import SamplingParams
@@ -177,7 +190,8 @@ def attach_tokenizer(engine: EngineCore, tokenizer) -> None:
 
 
 class ModelServer:
-    def __init__(self, engine: EngineCore, tokenizer, model_name: str) -> None:
+    def __init__(self, engine: Union[EngineCore, DPEngineGroup], tokenizer,
+                 model_name: str) -> None:
         self.engine = engine
         self.async_engine = AsyncEngine(engine)
         self.tokenizer = tokenizer
@@ -779,11 +793,29 @@ class ModelServer:
 def build_server(engine_config: EngineConfig,
                  tokenizer_name: Optional[str] = None,
                  model_name: Optional[str] = None,
-                 engine: Optional[EngineCore] = None) -> ModelServer:
+                 engine: Optional[Union[EngineCore, DPEngineGroup]] = None
+                 ) -> ModelServer:
     engine = engine or EngineCore(engine_config)
     tok = get_tokenizer(tokenizer_name)
     return ModelServer(engine, tok,
                        model_name or engine_config.resolve_model().name)
+
+
+def mesh_from_args(args) -> Optional[MeshConfig]:
+    """The JAX server's mapping: ``--data-parallel-mode spmd`` puts dp and
+    tp on one mesh (the experts over all ``dp * tp`` ranks); ``ranks``
+    keeps dp out of it (the DP group's engines are its ranks)."""
+    dp, tp = args.data_parallel_size, args.tensor_parallel_size
+    if dp > 1 and args.data_parallel_mode == "spmd":
+        return MeshConfig(dp=dp, tp=tp)
+    return MeshConfig(tp=tp) if tp > 1 else None
+
+
+def world_from_args(args) -> int:
+    """The rank processes ``args`` serves: the mesh's devices (1 for one
+    engine or a DP group in this process)."""
+    mesh = mesh_from_args(args)
+    return mesh.num_devices if mesh is not None else 1
 
 
 def engine_config_from_args(args) -> EngineConfig:
@@ -805,8 +837,7 @@ def engine_config_from_args(args) -> EngineConfig:
         eplb_config=json.loads(args.eplb_config) if args.eplb_config else None,
         spec_k=args.spec_k,
         spec_strict=True if args.spec_strict else None,
-        mesh=(MeshConfig(tp=args.tensor_parallel_size)
-              if args.tensor_parallel_size > 1 else None),
+        mesh=mesh_from_args(args),
         allow_device_subset=args.allow_device_subset,
         device=args.device)
 
@@ -814,19 +845,17 @@ def engine_config_from_args(args) -> EngineConfig:
 # The JAX server's flags this server does not serve, by argparse dest,
 # with what is missing.  Each is refused when set to anything but its
 # default.
-_MULTI_DEVICE = ("DP attention is not served by the port yet (one mesh "
-                 "of --tensor-parallel-size ranks)")
+_MULTI_HOST = ("multi-host data parallelism (the leader's dispatch over "
+               "worker hosts) is not served by the port yet; it serves "
+               "--data-parallel-size on one host")
 UNSERVED_FLAGS = {
     "compilation_cache_dir": "XLA's compilation cache has no counterpart "
                              "(the kernels build with nvcc)",
-    "data_parallel_size": _MULTI_DEVICE,
-    "data_parallel_size_local": _MULTI_DEVICE,
-    "data_parallel_start_rank": _MULTI_DEVICE,
-    "data_parallel_address": _MULTI_DEVICE,
-    "data_parallel_rpc_port": _MULTI_DEVICE,
-    "data_parallel_hybrid_lb": _MULTI_DEVICE,
-    "data_parallel_workers": _MULTI_DEVICE,
-    "data_parallel_mode": _MULTI_DEVICE,
+    "data_parallel_start_rank": _MULTI_HOST,
+    "data_parallel_address": _MULTI_HOST,
+    "data_parallel_rpc_port": _MULTI_HOST,
+    "data_parallel_hybrid_lb": _MULTI_HOST,
+    "data_parallel_workers": _MULTI_HOST,
     "enable_dbo": "dual-batch overlap is not ported",
     "dbo_decode_token_threshold": "dual-batch overlap is not ported",
     "dbo_prefill_token_threshold": "dual-batch overlap is not ported",
@@ -1015,12 +1044,41 @@ def check_served(parser: argparse.ArgumentParser, args) -> None:
                      "host tier's blocks)")
 
 
+def check_dp_flags(parser: argparse.ArgumentParser, args) -> None:
+    """``parser.error`` for the data-parallel layouts the port does not
+    serve: more than one host, and ``ranks`` with ranks wider than one
+    device."""
+    dp = args.data_parallel_size
+    if dp < 1:
+        parser.error(f"--data-parallel-size {dp} must be >= 1")
+    dp_local = args.data_parallel_size_local or dp
+    if dp_local > dp or dp % dp_local:
+        parser.error(f"--data-parallel-size-local {dp_local} must divide "
+                     f"--data-parallel-size {dp}")
+    if dp_local < dp:
+        parser.error(f"--data-parallel-size-local {dp_local} below "
+                     f"--data-parallel-size {dp} is not served by the "
+                     f"PyTorch port: {_MULTI_HOST}")
+    if dp > 1 and args.data_parallel_mode == "ranks" \
+            and args.tensor_parallel_size > 1:
+        parser.error(
+            "--data-parallel-mode ranks with --tensor-parallel-size "
+            f"{args.tensor_parallel_size} is not served by the PyTorch port "
+            "(a rank's submesh needs a process group of its own): use "
+            "--data-parallel-mode spmd, or one device a rank")
+
+
 def check_mesh_flags(parser: argparse.ArgumentParser, args) -> None:
     """``parser.error`` for a flag the engine refuses on a mesh, before
     any rank starts."""
-    tp = args.tensor_parallel_size
-    if tp <= 1:
+    check_dp_flags(parser, args)
+    world = world_from_args(args)
+    if world <= 1:
         return
+    layout = (f"--data-parallel-size {args.data_parallel_size} "
+              f"--tensor-parallel-size {args.tensor_parallel_size}"
+              if args.data_parallel_size > 1
+              else f"--tensor-parallel-size {args.tensor_parallel_size}")
     refused = {
         "--kv-transfer-config": bool(args.kv_transfer_config),
         "--kv-offload-blocks": args.kv_offload_blocks > 0,
@@ -1029,20 +1087,21 @@ def check_mesh_flags(parser: argparse.ArgumentParser, args) -> None:
     }
     for flag, on in refused.items():
         if on:
-            parser.error(f"{flag} is not served on a mesh "
-                         f"(--tensor-parallel-size {tp}) by the PyTorch port")
+            parser.error(f"{flag} is not served on a mesh ({layout}) by the "
+                         "PyTorch port")
     if args.num_scheduler_steps > 1 and args.device != "cpu":
         import torch
         from llm_d_tpu_torch.parallel.mesh import backend_for
-        if backend_for(torch.device("cuda"), tp) == "gloo":
+        if backend_for(torch.device("cuda"), world) == "gloo":
             parser.error(
                 f"--num-scheduler-steps {args.num_scheduler_steps} is not "
-                f"served on {tp} ranks that share a card: their gloo "
+                f"served on {world} ranks that share a card: their gloo "
                 "collectives cannot be captured in a CUDA graph")
 
 
 def _rank_main(rank: int, world: int, address: str, argv: List[str]) -> None:
-    """Ranks 1..N-1 of ``--tensor-parallel-size N``: the same flags, the
+    """Ranks 1..N-1 of a mesh (``--tensor-parallel-size``, with
+    ``--data-parallel-size`` in spmd mode): the same flags, the
     engine on this rank's card, then rank 0's steps until it stops the
     mesh.  SIGTERM and SIGINT are rank 0's to act on."""
     signal.signal(signal.SIGTERM, signal.SIG_IGN)
@@ -1086,21 +1145,22 @@ def _watch_ranks(server: "ModelServer", procs, loop, stopping) -> None:
 
 
 def _serve_mesh(args, argv: List[str]) -> int:
-    """Rank 0 of ``--tensor-parallel-size N``: start the other ranks,
+    """Rank 0 of a mesh of ``dp * tp`` ranks: start the other ranks,
     build, wait until every rank has built, serve; then stop every
     rank."""
     import torch.distributed as dist
     from llm_d_tpu_torch.parallel.launch import free_port, start_ranks
     from llm_d_tpu_torch.parallel.mesh import init_distributed
     from llm_d_tpu_torch.utils.device import resolve_device
-    world = args.tensor_parallel_size
+    world = world_from_args(args)
     address = f"127.0.0.1:{free_port()}"
     procs = start_ranks(world, address, _rank_main, (argv,))
     stopping = threading.Event()
     try:
         backend = init_distributed(0, world, address,
                                    resolve_device(args.device, 0))
-        logger.info("mesh: tp=%d ranks on %s", world, backend)
+        logger.info("mesh: %s, %d ranks on %s", mesh_from_args(args),
+                    world, backend)
         server = build_server(engine_config_from_args(args), args.tokenizer)
         dist.barrier()               # every rank has built
         if args.latency_training_url:
@@ -1136,17 +1196,26 @@ def _serve_mesh(args, argv: List[str]) -> int:
                 p.join(timeout=10)
 
 
-def kv_connector_from_args(args):
-    """The engine's KV connector of ``--kv-transfer-config``, or None."""
+def kv_connector_config_from_args(args):
+    """The ``KVConnectorConfig`` of ``--kv-transfer-config``, or None."""
     if not args.kv_transfer_config:
         return None
-    from llm_d_tpu_torch.transfer import KVConnectorConfig, TpuConnector
+    from llm_d_tpu_torch.transfer import KVConnectorConfig
     ktc = json.loads(args.kv_transfer_config)
-    return TpuConnector(KVConnectorConfig(
+    return KVConnectorConfig(
         kv_role=ktc.get("kv_role", "kv_both"),
         host=ktc.get("kv_ip", "127.0.0.1"),
         port=int(ktc.get("kv_port", 0)),
-        kv_load_failure_policy=ktc.get("kv_load_failure_policy", "fail")))
+        kv_load_failure_policy=ktc.get("kv_load_failure_policy", "fail"))
+
+
+def kv_connector_from_args(args):
+    """The engine's KV connector of ``--kv-transfer-config``, or None."""
+    config = kv_connector_config_from_args(args)
+    if config is None:
+        return None
+    from llm_d_tpu_torch.transfer import TpuConnector
+    return TpuConnector(config)
 
 
 def kv_event_publisher_from_args(args):
@@ -1180,20 +1249,38 @@ def main(argv: Optional[List[str]] = None) -> None:
     check_served(p, args)
     check_mesh_flags(p, args)
     logging.basicConfig(level=logging.INFO)
-    if args.tensor_parallel_size > 1:
+    if world_from_args(args) > 1:
         sys.exit(_serve_mesh(args, list(sys.argv[1:] if argv is None
                                         else argv)))
-    server = build_server(engine_config_from_args(args), args.tokenizer)
+    cfg = engine_config_from_args(args)
+    engine = None
+    if args.data_parallel_size > 1:
+        # --data-parallel-mode ranks: one-device engines behind the local
+        # least-loaded dispatcher.
+        engine = DPEngineGroup(cfg, dp_size=args.data_parallel_size)
+        logger.info("DP group: %d ranks on %s", args.data_parallel_size,
+                    [str(e.device) for e in engine.engines])
+    server = build_server(cfg, args.tokenizer, engine=engine)
     if args.latency_training_url:
         server.latency_training_url = args.latency_training_url.rstrip("/")
-    connector = kv_connector_from_args(args)
-    if connector is not None:
+    conn_cfg = kv_connector_config_from_args(args)
+    if conn_cfg is not None and engine is not None:
+        # A connector a rank, explicit ports offset by the rank.
+        engine.set_kv_connectors(conn_cfg)
+        logger.info("KV connectors: role=%s serving on ports %s",
+                    conn_cfg.kv_role, [c.port for c in engine.kv_connectors])
+    elif conn_cfg is not None:
+        connector = kv_connector_from_args(args)
         server.engine.kv_connector = connector
         logger.info("KV connector: role=%s serving on %s:%s",
                     connector.config.kv_role, connector.host, connector.port)
     publisher = kv_event_publisher_from_args(args)
     if publisher is not None:
-        publisher.attach(server.engine.kv_manager)
+        # A DP group caches blocks in every rank's manager: the EPP's
+        # prefix index must see them all.
+        for km in getattr(server.engine, "kv_managers",
+                          [server.engine.kv_manager]):
+            publisher.attach(km)
         publisher.start()
         server.kv_event_publisher = publisher
         logger.info("KV events: publishing %s to %s",

@@ -256,6 +256,15 @@ class TpuConnector:
                          name=f"kv-cancel-{request_id[:8]}",
                          daemon=True).start()
 
+    @property
+    def num_pending_loads(self) -> int:
+        """In-flight and retry-parked KV pulls: load the scheduler cannot
+        see yet (a DP group's dispatcher counts these, or every P/D
+        request would pile onto one rank while its pulls are in
+        flight)."""
+        with self._inflight_mu:
+            return self._inflight + len(self._retry)
+
     def has_pending(self) -> bool:
         with self._inflight_mu:
             if self._inflight > 0:

@@ -102,8 +102,11 @@ def test_lws_args_from_the_jax_env_dicts():
 
 
 def test_dp_and_sp_refused_by_name():
-    with pytest.raises(ValueError, match="dp > 1"):
-        check_served(MeshConfig(dp=2, tp=2))
+    """sp > 1 (ring attention) is refused by name, beside dp too; dp > 1
+    (DP attention) is served."""
+    check_served(MeshConfig(dp=2, tp=2))
+    with pytest.raises(ValueError, match="sp > 1"):
+        check_served(MeshConfig(dp=2, sp=2))
     with pytest.raises(ValueError, match="sp > 1"):
         check_served(MeshConfig(sp=2))
 

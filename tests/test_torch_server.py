@@ -710,7 +710,7 @@ def test_out_of_vocabulary_resume_ids_are_refused(tiny, journal, stream):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--data-parallel-size", "2"],
+    ["--data-parallel-start-rank", "2"],
     ["--kv-shared-tier-peers", "dns:kv-peers:5999",
      "--kv-offload-blocks", "8"], ["--dbo-decode-token-threshold", "8"],
     ["--enable-dbo"], ["--compilation-cache-dir", "/tmp/x"]])
@@ -781,6 +781,27 @@ def test_an_observability_flag_is_served(argv, capsys):
     assert capsys.readouterr().err == ""
     jargs = JServer.build_arg_parser().parse_args(["--model", "tiny"] + argv)
     dest = argv[0][2:].replace("-", "_")
+    assert getattr(args, dest) == getattr(jargs, dest)
+    assert getattr(args, dest) != p.get_default(dest)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--data-parallel-size", "2"],
+    ["--data-parallel-size", "2", "--data-parallel-size-local", "2"],
+    ["--data-parallel-size", "2", "--data-parallel-mode", "ranks"]],
+    ids=lambda a: a[-2])
+def test_a_data_parallel_flag_is_served(argv, capsys):
+    """``--data-parallel-size``, ``--data-parallel-size-local`` (equal to
+    the size: one host) and ``--data-parallel-mode`` pass ``check_served``
+    and ``check_mesh_flags`` and parse into what the JAX server's parser
+    builds."""
+    p = TServer.build_arg_parser()
+    args = p.parse_args(["--model", "tiny"] + argv)
+    TServer.check_served(p, args)
+    TServer.check_mesh_flags(p, args)
+    assert capsys.readouterr().err == ""
+    jargs = JServer.build_arg_parser().parse_args(["--model", "tiny"] + argv)
+    dest = argv[-2][2:].replace("-", "_")
     assert getattr(args, dest) == getattr(jargs, dest)
     assert getattr(args, dest) != p.get_default(dest)
 

@@ -10,8 +10,8 @@ engine on ``MeshConfig(tp=2)``, and what the port refuses on a mesh.
   (the deadline read against rank 0's clock).
 * Refused by name: spec decode, the host tier, P/D, EPLB at ep > 1, a
   step-time target and captured blocks on a gloo mesh on CUDA on a mesh;
-  DBO everywhere; dp and sp meshes; the server's flags for them before
-  any rank starts, and ``--tensor-parallel-size`` /
+  DBO everywhere; sp meshes; the server's flags for them and the
+  multi-host DP flags before any rank starts, and ``--tensor-parallel-size`` /
   ``--allow-device-subset`` map to the engine's mesh.
 """
 
@@ -144,7 +144,7 @@ def test_refused_by_name_on_a_mesh(pool):
     (["--enable-eplb"], "--enable-eplb"),
     (["--num-scheduler-steps", "4", "--async-scheduling"],
      "--num-scheduler-steps 4"),
-    (["--data-parallel-size", "2"], "--data-parallel-size"),
+    (["--data-parallel-workers", "w1:8200"], "--data-parallel-workers"),
     (["--enable-dbo"], "--enable-dbo")])
 def test_the_server_refuses_by_name_before_any_rank_starts(flags, named,
                                                            capsys):
@@ -186,8 +186,8 @@ def test_gloo_on_cuda_refuses_captured_blocks_and_dbo_is_refused():
         EngineCore._check_mesh(fake)
     with pytest.raises(ValueError, match="enable_dbo"):
         EngineCore(EngineConfig(enable_dbo=True, device="cpu"))
-    with pytest.raises(ValueError, match="dp > 1"):
-        EngineCore(EngineConfig(mesh=MeshConfig(dp=2, tp=2), device="cpu"))
+    with pytest.raises(ValueError, match="sp > 1"):
+        EngineCore(EngineConfig(mesh=MeshConfig(sp=2, tp=2), device="cpu"))
     with pytest.raises(RuntimeError, match="process group"):
         EngineCore(EngineConfig(mesh=MeshConfig(tp=2), device="cpu"))
 
