@@ -24,7 +24,7 @@ Phases (each raises on failure; the script then exits non-zero):
             block (8 rows at temperature 0.7, half seeded); one replay of
             the S = 8 and S = 128 greedy graphs and of the sampled one,
             each bit-equal to the block's eager body on the same inputs
-            and cache; and waves 1-3 served in alternating rounds (5 a
+            and cache; and waves 1-3 served in alternating rounds (1 a
             side) by the classic loop (one step per dispatch, the same
             weights) and the bench-configured engine: greedy tokens
             identical, decode tok/s and prefill seconds of each side;
@@ -46,7 +46,7 @@ Phases (each raises on failure; the script then exits non-zero):
             at every live position whose reference top-2 margin exceeds
             2 * 5e-2 * max|logit|; (c) bench_spec's
             shape, 256 x 128-token prompts and 128 new tokens at the
-            fixed acceptance 0.7: a warm-up and 3 timed runs (accepted
+            fixed acceptance 0.7: a warm-up and 1 timed run (accepted
             decode tok/s, acceptance, tokens per step), every request
             ending by length, the pool whole after each run, the
             acceptance coin of a run's steps drawn on the card bit-equal
@@ -79,7 +79,7 @@ Phases (each raises on failure; the script then exits non-zero):
             classic step's top-2 margin and decision bar (reported), and
             EPLB on and off token for token (required); (b) 256 x
             128-token prompts, 128 new at the fixed acceptance 0.7, a
-            warm-up and 3 timed runs a side in alternating rounds:
+            warm-up and 1 timed run a side in alternating rounds:
             accepted decode tok/s (EPLB's collection cost is on against
             off), acceptance and engine steps per dispatch, the
             imbalance, the routed ids recorded and migrations (0), every
@@ -141,7 +141,8 @@ Phases (each raises on failure; the script then exits non-zero):
             for bit, and kernels C, D and E through the new tables (T =
             16, 256, 2048) give the logical launch's output; (c) the
             attribution sweep as bench.py --stub runs it: bench_model's
-            engine at batch sizes 64 and 256, unstubbed and with each of
+            engine at batch sizes 64 and 256 (256 runs kernel D),
+            unstubbed and with each of
             attn, moe_ffn and shared_expert stubbed (a warm-up of one
             decode block, one timed run each): decode and prefill ms per
             step and each component's cost by difference; (d) pool
@@ -241,7 +242,7 @@ Phases (each raises on failure; the script then exits non-zero):
             the classic loop's with its top-2 margins (reported).
             Kernels A-E must launch in the in-process part;
 8. path (vii) MoE with GQA attention, once phase 7 has freed the
-            card: qwen3-30b-a3b at full width, its depth cut to 16 of
+            card: qwen3-30b-a3b at full width, its depth cut to 8 of
             48 layers for the time limit (128 experts, top-8; random
             weights from a
             seed, the int8 experts drawn and quantized plane by plane)
@@ -252,7 +253,7 @@ Phases (each raises on failure; the script then exits non-zero):
             every decode in 32-step blocks, kernels C, D, E, G and H
             launching (G, C and D inside graph replays); the in-process
             server (wave 1 one at a time, each reply the direct engine's
-            tokens for that prompt alone); waves 1-3 in 3 alternating
+            tokens for that prompt alone); waves 1-3 in 1 alternating
             rounds a side against the classic loop (tokens identical);
             the f32 head's time (``compute_logits``) against one bf16
             matmul; the first two layers against the CPU reference (a
@@ -263,7 +264,7 @@ Phases (each raises on failure; the script then exits non-zero):
             against their plain versions at the path's recorded inputs
             (G and H also timed as one SDPA call on the K/V gathered and
             dequantized to bf16).  Then the mixtral-8x22b witness, its
-            depth cut to 4 of 56 layers (one card cannot hold 135 GB of
+            depth cut to 2 of 56 layers (one card cannot hold 135 GB of
             int8 experts): waves 1 and 3 and wave 1 again, the 2-layer
             reference check on the 100- and 37-token batch, C, E, G and
             H at its recorded inputs and D from a seed at T = 256.
@@ -275,10 +276,10 @@ Phases (each raises on failure; the script then exits non-zero):
             through host memory; classic steps, since gloo collectives
             cannot be captured), each holding its shards of seed 0's
             draws (path (i)'s weights).  Wave 1 to ``MESH_W1_NEW`` (16)
-            new tokens (A at 4 heads a rank, E on each rank's received
-            rows), wave 3 to 2 new tokens (its 8192-token prefill: B at 4
-            heads, E on two 1024-token dispatch chunks a rank), and wave
-            1 to 4 new tokens on the
+            new tokens (A and B at 4 heads a rank, E on each rank's
+            received rows; wave 3, its 8192-token prefill, cut for the
+            time limit: phase 10 runs it), and wave
+            1 to 2 new tokens on the
             bf16 wire and with the psum dispatch: every rank's tokens
             identical, A, B and E launching on every rank; the a2a int8
             and int8-dispatch wires and the psum dispatch against a2a on
@@ -290,10 +291,10 @@ Phases (each raises on failure; the script then exits non-zero):
             against the one-rank engine on the same weights (relative max
             logit error <= 5e-2, the same argmax, with and without the
             mesh's expert choice replayed); the qwen3-30b-a3b witness at
-            tp = ep = 4 cut to 4 of 48 layers (wave 1 and one 8192-token
+            tp = ep = 4 cut to 2 of 48 layers (wave 1 and one 8192-token
             prefill: G at one KV head, H, E); the tp server (``python -m
             llm_d_tpu_torch.server.openai --tensor-parallel-size 4`` with
-            path (i)'s flags in classic steps): wave 1's first 4 prompts
+            path (i)'s flags in classic steps): wave 1's first 2 prompts
             one at a time, each reply the direct tp engine's tokens for
             that prompt alone, then SIGTERM: exit 0 and no rank left;
             last, the one-rank classic loop's wave 1 at full depth
@@ -317,7 +318,7 @@ Phases (each raises on failure; the script then exits non-zero):
             same argmax, with and without the dp mesh's routing replayed.
             Then the dp server (``--data-parallel-size 2
             --tensor-parallel-size 2``, path (i)'s flags in classic
-            steps, log build/dp_server.log): wave 1's first 4 prompts one
+            steps, log build/dp_server.log): wave 1's first 2 prompts one
             at a time, each reply the direct dp engine's, SIGTERM: exit 0
             and no rank left; the one-rank classic loop's wave 1 against the
             dp mesh's, with and without its routing replayed; last a
@@ -326,6 +327,36 @@ Phases (each raises on failure; the script then exits non-zero):
             1 4 / 4, tokens against the one engine serving the same
             requests, and where they differ again with its routing
             replayed.
+11. path (x) the wide-EP recipe (``deploy/wide-ep-lws``) on phase 10's
+            ranks and mesh, once its engine is torn down: (a) DBO at the
+            recipe's threshold (32): deepseek-v3-bench in phase 10's
+            configuration with ``enable_dbo``, wave 1 to ``MESH_W1_NEW``
+            and wave 3 to 2 new tokens: the EP exchange's chunks a rank
+            (2 where phase 10 ran 1), tokens against phase 10's (equal, or
+            differing first where the run's top-2 margin is within 2 x
+            5e-2 x max|logit|), one MoE layer within 1e-2 of DBO off, the
+            step times both ways (gloo is no interconnect: no claim);
+            (b) EPLB at ep = 4 (68 physical slots, 17 a rank) on
+            bench_eplb_skew's first 8 prompts (12 new tokens) and its
+            Zipf trace, with an interval of 4 steps: at least one flip
+            that moves slots between ranks, identical tables on every
+            rank, each moved slot's bytes its source's (checksums),
+            moves, bytes across ranks, stage and flip ms, tokens against
+            EPLB off (DBO off on (a)'s engine) judged as in (a); (c) a
+            producer engine of prefill-lws.yaml's flags and a consumer of
+            decode-lws.yaml's (dp = 2, tp = 2, deepseek-v3-bench, less the
+            16-step async blocks gloo cannot capture) on the same four
+            ranks: the consumer's own wave 1 (8 new tokens), then 4
+            prompts one at a time and wave 1 disaggregated over the
+            native transport, and wave 1 again with the consumer's own
+            routing replayed (the witness, as path (v)(a)'s): every
+            region rank's scattered shard equal to the slab, the pins
+            released on every rank, tokens against the consumer's own
+            prefill reported, the witness's differing first only at near
+            ties; (d) the two servers with those flags (logs
+            build/wide_producer.log, build/wide_consumer.log), this
+            process playing the sidecar: 4 prompts one at a time, each
+            reply the direct pair's; SIGTERM: exit 0, no rank left.
 
 Launch counts: every count is set to 0 just before a path is driven and
 read just after it; kernels A-F count path (i), G and H path (ii), and
@@ -346,7 +377,9 @@ every rank (``mesh_launches``; its one-at-a-time yardstick for the
 server does not count), and each row lists its rank-local inputs'
 checks as ``mesh_inputs``; A, B and E add path (ix)'s waves on every
 rank (``dp_launches``; the one-at-a-time yardstick, the 2-layer check
-and the DP group do not count), its checks as ``dp_inputs``.  A
+and the DP group do not count), its checks as ``dp_inputs``; A, B and E
+add path (x)'s waves and P/D runs on every rank (``wide_launches``; its
+inputs' checks as ``wide_inputs``).  A
 count is the wrapper's own (eager launches, graph warm-ups included)
 plus the launches inside graph replays: a capture records each graph's
 launches, and every replay adds them (``engine/cuda_graph.py``); the
@@ -365,6 +398,7 @@ the card's name and power limit), an ``{"everything_on": ...}`` line
 limit), a ``{"moe_gqa": ...}`` line (path (vii) and the witness, with
 the card's name and power limit), a ``{"mesh": ...}`` line (path (viii),
 likewise), a ``{"dp": ...}`` line (path (ix), likewise), a
+``{"wide_ep": ...}`` line (path (x), likewise), a
 ``{"kernels": [...]}`` line (one row per
 kernel at its first launch: measured launches, errors and times, with
 ``bound_ms``), the card's name and power limit, and last ``{"ok": true,
@@ -416,7 +450,7 @@ WAVE3 = dict(n=64, prompt=128, new=16)       # bench.py's prefill shape
 DENSE_WAVE = dict(n=64, prompt=128, new=32)
 BENCH_T = WAVE3["n"] * WAVE3["prompt"]       # 8192-token prefill step
 BENCH_K = 32                                 # bench.py's num_scheduler_steps
-ROUNDS = 5                                   # classic vs multistep, a side
+ROUNDS = 1                                   # classic vs multistep, a side
 WAVE2_S = 128                                # wave 2's sequence bucket
 DENSE_MODES = (("bf16", None), ("int8", "token"), ("int8", "head"))
 # Phase 7(b): the server entry point with path (i)'s configuration
@@ -434,12 +468,16 @@ SPEC_ACCEPT = 0.7                            # SPEC_BENCH_ACCEPT
 SPEC_WAVE = dict(n=256, prompt=128, new=128)
 MIXED_SHARE = 0.25                           # MIXED_BENCH_SHARE
 MIXED_JOIN = dict(n=int(MIXED_SHARE * SPEC_WAVE["n"]), prompt=128, new=64)
-SPEC_ROUNDS = 3                              # timed runs after a warm-up
+SPEC_ROUNDS = 1                              # timed runs after a warm-up
 EON_N = 4                                    # EVERYTHING_BENCH_ROUNDS
 
 
+# The smoke's clock: each log line says when, in seconds of this process.
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
 
 
 def clone(obj, keep=frozenset()):
@@ -1790,12 +1828,13 @@ def profile_eon(engine, prompts) -> dict:
 # (bench.py --stub, :1096-1110) and the pool-sizing check.
 EPLB_SKEW_CONFIG = {"window_size": 512, "step_interval": 32}
 EPLB_ZIPF = 1.2                              # EPLB_BENCH_ZIPF
-EPLB_RUNS = 2                                # timed runs after a warm-up
+EPLB_RUNS = 1                                # timed runs after a warm-up
 CTRL_EP = 4
 CTRL_TS = (16, 256, 2048)                    # kernels C, D, E
 STUB_COMPONENTS = ("attn", "moe_ffn", "shared_expert")
 ATTR_SIZES = (64, 256)
-ATTR_PROMPT = ATTR_DECODE = 128
+ATTR_PROMPT = 128
+ATTR_DECODE = 64                             # cut from 128: the time limit
 SIZING_BUDGET = 4 << 30
 
 
@@ -2039,14 +2078,16 @@ def bench_workload(engine, reqs):
 
 def attribution(params) -> tuple:
     """The attribution sweep as ``bench.py --stub`` runs it, on path (i)'s
-    weights: deepseek-v3-bench at bench_model's configuration for batch
-    sizes 64 and 256 (block 64, 32-step decode blocks, async scheduling,
-    8192-token steps, 256 sequences, 1344 blocks), once unstubbed and
+    weights: deepseek-v3-bench at bench_model's configuration for the
+    batch sizes ``ATTR_SIZES`` (block 64, 32-step decode blocks, async
+    scheduling, 8192-token steps, the largest size's sequences and
+    blocks for them), once unstubbed and
     once with each of ``attn``, ``moe_ffn`` and ``shared_expert`` (each an
     engine of its own, capturing its own stubbed blocks).  Per batch
     size a warm-up (the prefill and one decode block: the keys' captures)
-    and one timed run (128-token prompts, 128 decode steps): decode and
-    prefill ms per step, and the components' cost by difference.
+    and one timed run (128-token prompts, ``ATTR_DECODE`` decode steps):
+    decode and prefill ms per step, and the components' cost by
+    difference.
     Returns (the sweep, the kernels' launches, inside graph replays)."""
     import gc
     import torch
@@ -2113,7 +2154,7 @@ def sizing_check(engine, label: str) -> dict:
 TIER_WAVE = dict(n=64, prompt=128, new=128)
 TIER_BLOCKS = 448
 TIER_HOST_BLOCKS = 2048
-TIER_ROUNDS = 3                              # a side, alternating
+TIER_ROUNDS = 1                              # a side, alternating
 
 
 def pd_engines(params):
@@ -3400,7 +3441,7 @@ def load_stats(res, new: int, vocab: int) -> dict:
 
 
 # Phase 7(c): observability and resume, on path (i)'s engine and flags.
-OBS_ROUNDS = 3                       # tracing on / off, a side, alternating
+OBS_ROUNDS = 1                       # tracing on / off, a side, alternating
 RESUME_AT = 8                        # the journal's length at the kill
 RESUME_NEW = 3 * BENCH_K + 1         # the stream is mid-way at the kill
 PHASE_COUNT = "llmd_tpu:request_phase_seconds_count{"
@@ -3911,10 +3952,10 @@ def resume_pair(root: str, prompt, yardstick) -> dict:
 # mixtral-8x22b at full width with its depth cut: 56 layers of int8
 # experts (135 GB) cannot fit one card.
 GQA_MOE_MODEL = "qwen3-30b-a3b"
-GQA_MOE_LAYERS = 16
-GQA_MOE_ROUNDS = 3                           # classic vs multistep, a side
+GQA_MOE_LAYERS = 8
+GQA_MOE_ROUNDS = 1                           # classic vs multistep, a side
 WITNESS_MODEL = "mixtral-8x22b"
-WITNESS_LAYERS = 4
+WITNESS_LAYERS = 2
 GQA_MOE_KERNELS = ("moe_dense_int8", "moe_routed_int8", "moe_streamed_int8",
                    "paged_decode", "flash_prefill")
 
@@ -4141,7 +4182,6 @@ def gqa_moe_path(name: str, kernels, check, smi: str, witness: bool,
         rec = recs[k["name"]]
         for label, (args, kw) in rec.calls.items():
             check(k, label, args, kw, count=False,
-                  library=k["name"] in ("paged_decode", "flash_prefill"),
                   live_tokens=rec.notes[label], keep=keep)
             checked.append(label)
         rec.calls.clear()
@@ -4221,15 +4261,17 @@ MESH_MODEL = "deepseek-v3-bench"
 MESH_WITNESS = "qwen3-30b-a3b"
 # The witness's depth, cut for the smoke's time limit (48 layers at
 # tp = 4 over gloo take ~125 s for wave 1 and the prefill).
-MESH_WITNESS_LAYERS = 4
+MESH_WITNESS_LAYERS = 2
 # New tokens of wave 1 on the meshes (phases 9 and 10, the witness, and
 # their one-rank yardstick), cut from wave 1's 32 for the time limit; and
 # the prompts each mesh server serves one at a time (wave 1's first).
 MESH_W1_NEW = 16
-MESH_SERVER_PROMPTS = 4
+MESH_SERVER_PROMPTS = 2
+# Phase 11's servers (the recipe's) and their direct yardstick.
+WIDE_SERVER_PROMPTS = 4
 # New tokens of the waves on the bf16 wire and the psum dispatch, of
 # wave 3 on the mesh, and of each request the tp server serves alone.
-MESH_SIDE_NEW = 4
+MESH_SIDE_NEW = 2
 MESH_W3_NEW = 2
 MESH_SERVER_NEW = 2
 MESH_KERNELS = ("mla_decode", "mla_prefill", "moe_streamed_int8")
@@ -4314,23 +4356,33 @@ def mesh_setup(model: str, names, layers=None, record: bool = True,
     MESH_STATE.clear()
     MESH_STATE.update(engine=eng, names=tuple(names), recs={})
     if eng.mesh.rank == 0 and record:
-        keep = tensor_ptrs(eng.params)
-        MESH_STATE["keep"] = keep
-        for n in names:
-            mod, fn, _ = MESH_WRAPPERS[n]
-            MESH_STATE["recs"][n] = Recorder(_mesh_module(mod), fn, keep,
-                                             mesh_label(n, path))
+        mesh_record([eng], names, path)
     return out
 
 
-def mesh_label(name: str, path: str = "viii"):
+def mesh_label(name: str, path="viii"):
     """Recorder label of a mesh path's launches: E by its received rows,
-    A and G by their sequences, B and H by sequences and query rows."""
+    A and G by their sequences, B and H by sequences and query rows;
+    ``path`` is the label's prefix, or a function that returns it at the
+    launch."""
+    tag = path if callable(path) else (lambda: path)
     if name == "moe_streamed_int8":
-        return lambda a, kw: f"{path} rows={a[0].shape[0]}"
+        return lambda a, kw: f"{tag()} rows={a[0].shape[0]}"
     if name in ("mla_prefill", "flash_prefill"):
-        return lambda a, kw: f"{path} S={a[0].shape[0]} Q={a[0].shape[1]}"
-    return lambda a, kw: f"{path} S={a[0].shape[0]}"
+        return lambda a, kw: f"{tag()} S={a[0].shape[0]} Q={a[0].shape[1]}"
+    return lambda a, kw: f"{tag()} S={a[0].shape[0]}"
+
+
+def mesh_record(engines, names, path) -> None:
+    """Rank 0: record the first inputs of each kernel label of ``names``
+    (``mesh_label``) the ``engines`` launch, their weights shared, for
+    ``mesh_kernel_checks``."""
+    keep = frozenset().union(*(tensor_ptrs(e.params) for e in engines))
+    MESH_STATE["keep"] = keep
+    for n in names:
+        mod, fn, _ = MESH_WRAPPERS[n]
+        MESH_STATE["recs"][n] = Recorder(_mesh_module(mod), fn, keep,
+                                         mesh_label(n, path))
 
 
 def mesh_wave(tag: str, prompts, new: int, env=None, tape: bool = False
@@ -4992,13 +5044,682 @@ def dp_group_check(one, prompts, new: int) -> dict:
     return out
 
 
+# Phase 11, path (x): the wide-EP recipe (deploy/wide-ep-lws) on phase 10's
+# dp = 2, tp = 2 mesh: (a) DBO in the EP exchange at the recipe's threshold
+# against phase 10's waves (DBO off, the same weights and configuration);
+# (b) EPLB at ep = 4 with live migrations between ranks, on
+# bench_eplb_skew's prompts and Zipf trace, against the same engine with
+# EPLB off; (c) a P/D pair of meshes on the same four ranks, built from the
+# recipe's flags; (d) the recipe's two servers.
+WIDE_DBO = 32                        # decode-lws.yaml's two thresholds
+# bench_eplb_skew's prompts (SPEC_WAVE, seed 5), the first of them, with
+# fewer new tokens: the smoke's time limit (a gloo step is ~0.4 s).
+WIDE_SKEW_PROMPTS = 8
+WIDE_SKEW_NEW = 12
+# New tokens of wave 1's P/D runs (and the consumer's own run), cut from
+# 32 for the time limit.
+WIDE_PD_NEW = 8
+# Flips within the wave: the interval after 4 steps, a budget that stages
+# a migration in a few ticks (the recipe's 1000 / 3000 never flips in a
+# smoke).
+WIDE_EPLB = {"num_redundant_experts": 4, "window_size": 512,
+             "step_interval": 4, "move_budget": 256}
+# The recipe's flag sets at dp = 2, tp = 2 on deepseek-v3-bench; the
+# decode set less --num-scheduler-steps 16 --async-scheduling (captured
+# blocks, refused where ranks share a card over gloo).
+WIDE_PREFILL_FLAGS = [
+    "--model", MESH_MODEL, *DP_LAYOUT, "--max-num-batched-tokens", "8192",
+    "--kv-transfer-config",
+    '{"kv_connector":"TPUConnector","kv_role":"kv_producer",'
+    '"kv_port":8300}']
+WIDE_DECODE_FLAGS = [
+    "--model", MESH_MODEL, *DP_LAYOUT, "--enable-eplb", "--eplb-config",
+    '{"window_size":1000,"step_interval":3000,"num_redundant_experts":32}',
+    "--enable-dbo", "--dbo-decode-token-threshold", str(WIDE_DBO),
+    "--dbo-prefill-token-threshold", str(WIDE_DBO), "--kv-transfer-config",
+    '{"kv_connector":"TPUConnector","kv_role":"kv_consumer",'
+    '"kv_load_failure_policy":"recompute"}']
+
+
+def wide_flags(flags, kv_port=None, port=None):
+    """A recipe flag set with this run's ports: the producer's transfer
+    port (the recipe's 8300) and the HTTP port (its 8200)."""
+    out = list(flags)
+    if kv_port is not None:
+        i = out.index("--kv-transfer-config") + 1
+        out[i] = out[i].replace('"kv_port":8300', f'"kv_port":{kv_port}')
+    if port is not None:
+        out += ["--host", "127.0.0.1", "--port", str(port)]
+    return out
+
+
+@contextlib.contextmanager
+def margin_spy(eng, margins: dict):
+    """Rank 0: each sampled row's top-2 logit margin and decision bar
+    ``2 * 5e-2 * max|logit|`` by (request id, output position), from the
+    rows a classic step's ``_build_batch`` maps to its requests."""
+    import torch
+    real_build, real_logits = eng._build_batch, eng._logits
+    state = {}
+
+    def build(sched):
+        batch, host = real_build(sched)
+        state["host"] = host
+        return batch, host
+
+    def logits(hidden):
+        out = real_logits(hidden)
+        host = state.pop("host", None)
+        if host is not None:
+            lg = out.float()
+            top2 = torch.topk(lg, 2, dim=-1).values
+            margin = (top2[:, 0] - top2[:, 1]).tolist()
+            bar = (2 * 5e-2 * lg.abs().amax(-1)).tolist()
+            for sr, row in zip(host["scheduled"], host["rows"]):
+                r = sr.request
+                margins[(r.request_id, len(r.output_token_ids))] = (
+                    margin[row], bar[row])
+        return out
+
+    eng._build_batch, eng._logits = build, logits
+    try:
+        yield margins
+    finally:
+        eng._build_batch, eng._logits = real_build, real_logits
+
+
+def near_tie_judge(tokens, ref, margins: dict, tag: str) -> dict:
+    """``tokens`` against ``ref`` (rows of the same prompts): each row's
+    first difference must fall where the run's top-2 margin is within its
+    bar (``margins`` by (request id, position); rows ``tag-i``)."""
+    out = dict(token_agreement(tokens, ref), near_ties=[])
+    for i, j in enumerate(out["first_difference"]):
+        if j is None:
+            continue
+        m = margins.get((f"{tag}-{i}", j))
+        out["near_ties"].append(dict(row=i, at=j, margin=m and m[0],
+                                     bar=m and m[1]))
+        if m is None or m[0] > m[1]:
+            raise RuntimeError(f"{tag}: row {i} differs at {j} where the "
+                               f"top-2 margin {m} is no near tie")
+    return out
+
+
+def _slot_sums(eng):
+    """This rank's expert slots' checksums, every expert-major key:
+    ``[Lm, slots, 2 * keys]`` (byte sum, position-weighted byte sum)."""
+    import torch
+    ml = eng.params["moe_layers"]
+    names = [n for n in sorted(ml) if n.startswith(("w_gate", "w_up",
+                                                    "w_down"))]
+    out = []
+    for n in names:
+        t = ml[n]
+        per = []
+        for li in range(t.shape[0]):
+            b = t[li].contiguous().view(torch.uint8).reshape(t.shape[1], -1)
+            w = torch.arange(b.shape[1], device=b.device) % 7 + 1
+            per.append(torch.stack([b.to(torch.int64).sum(-1),
+                                    (b.to(torch.int64) * w).sum(-1)], -1))
+        out.append(torch.stack(per))
+    return torch.cat(out, -1)
+
+
+def wide_instrument(eng) -> dict:
+    """Every rank: chunk counts of the EP exchange (by the step's rows),
+    and under EPLB the host ms of each staging tick and flip, each
+    migration's moves, and per flip (a collective: every rank flips at
+    the same step) whether each moved slot holds its source slot's bytes
+    and every other slot kept its own, with this rank's tables."""
+    import collections
+    import torch
+    from llm_d_tpu_torch.ops import moe as moe_ops
+    from llm_d_tpu_torch.parallel.eplb import plan_delta
+    from llm_d_tpu_torch.parallel.mesh import AXIS_EP
+    st = dict(chunks=collections.Counter(), stage_ms=[], flips=[])
+    real_chunks = moe_ops.dbo_chunk_tokens
+
+    def chunks(T, ep, chunk, thr):
+        c = real_chunks(T, ep, chunk, thr)
+        st["chunks"][f"T={T} chunks={T // ep // c}"] += 1
+        return c
+    moe_ops.dbo_chunk_tokens = chunks
+    st["restore"] = [(moe_ops, "dbo_chunk_tokens", real_chunks)]
+    ctl = eng.eplb
+    if ctl is None:
+        return st
+    real_stage, real_flip = ctl._stage_mesh, ctl._flip
+
+    def stage(batch, params):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = real_stage(batch, params)
+        torch.cuda.synchronize()
+        st["stage_ms"].append((time.perf_counter() - t0) * 1e3)
+        return n
+
+    def flip(params):
+        m = ctl._migration
+        moves = [(li, dst, src) for li, t in enumerate(m.plans)
+                 for dst, src in plan_delta(ctl.plans[li], t)]
+        before = eng.mesh.all_gather(_slot_sums(eng), AXIS_EP, dim=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_flip(params)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = eng.mesh.all_gather(_slot_sums(eng), AXIS_EP, dim=1)
+        want = before.clone()
+        for li, dst, src in moves:
+            want[li, dst] = before[li, src]
+        ml = out["moe_layers"]
+        st["flips"].append(dict(
+            moves=len(moves), flip_ms=ms,
+            moved_bytes_equal_sources=bool(torch.equal(after, want)),
+            cross_rank_moves=sum(dst // m.plans[0].slots_per_shard
+                                 != src // m.plans[0].slots_per_shard
+                                 for _, dst, src in moves),
+            tables=[ml["replica_table"].cpu().numpy().tolist(),
+                    ml["num_replicas"].cpu().numpy().tolist()]))
+        return out
+    ctl._stage_mesh, ctl._flip = stage, flip
+    return st
+
+
+def wide_wave(tag: str, prompts, new: int, dbo=None, skew: bool = False
+              ) -> dict:
+    """Rank side: ``mesh_wave`` on this rank's engine, DBO switched on or
+    off (``dbo``), with bench_eplb_skew's Zipf trace recorded into the
+    EPLB tracker first (``skew``, every rank the same draws), the chunk
+    counts and EPLB events of ``wide_instrument``, and on rank 0 the
+    margins of its sampled rows."""
+    import dataclasses
+    import numpy as np
+    eng = MESH_STATE["engine"]
+    if dbo is not None:
+        eng.config = dataclasses.replace(eng.config, enable_dbo=dbo)
+    if skew and eng.eplb is not None:
+        rng = np.random.RandomState(1234)
+        eng.eplb.tracker.record(rng.choice(
+            eng.eplb.E, size=(eng.eplb.n_layers, 4096, 2),
+            p=zipf_probs(eng.eplb.E)))
+    st = wide_instrument(eng)
+    margins = {}
+    calls0 = eng.mesh.calls.get("all_to_all", 0)
+    try:
+        with (margin_spy(eng, margins) if eng.mesh.rank == 0
+              else contextlib.nullcontext()):
+            res = mesh_wave(tag, prompts, new)
+    finally:
+        for mod, name, fn in st.pop("restore"):
+            setattr(mod, name, fn)
+    res.update(chunks=dict(st["chunks"]), stage_ms=st["stage_ms"],
+               flips=st["flips"], margins=margins if margins else None,
+               all_to_all_calls=eng.mesh.calls.get("all_to_all", 0) - calls0)
+    if eng.eplb is not None:
+        res.update(sent_bytes=eng.eplb.sent_bytes,
+                   received_bytes=eng.eplb.received_bytes,
+                   migrations=eng.eplb.num_rebalances,
+                   physical=eng.eplb.plans[0].num_physical)
+    return res
+
+
+def wide_layer(T: int, seed: int) -> dict:
+    """Rank side: the engine's first MoE layer on ``T`` rows a dp shard
+    (routing from ``seed``) through the a2a exchange with DBO at
+    ``WIDE_DBO`` and off: the relative max error, the chunks each ran."""
+    from llm_d_tpu_torch.ops import moe as moe_ops
+    from llm_d_tpu_torch.parallel.mesh import AXIS_DP
+    eng = MESH_STATE["engine"]
+    x, w, idx = moe_inputs(eng.model_config, T, seed=seed)
+    quant = {n: eng.params["moe_layers"][n] for n in
+             ("w_gate_q", "w_gate_s", "w_up_q", "w_up_s", "w_down_q",
+              "w_down_s")}
+    quant["layer"] = 0
+    outs, calls = {}, {}
+    for thr in (WIDE_DBO, -1):
+        c0 = eng.mesh.calls.get("all_to_all", 0)
+        outs[thr] = moe_ops.expert_ffn(x, w, idx, None, None, None,
+                                       quant=quant, mesh=eng.mesh,
+                                       dbo_min_tokens=thr).float()
+        calls[thr] = (eng.mesh.calls["all_to_all"] - c0) // 2
+    ref = outs[-1]
+    return dict(rows=T * eng.mesh.axis_size(AXIS_DP),
+                rel_max_err=float((outs[WIDE_DBO] - ref).abs().max()
+                                  / (ref.abs().max() + 1e-12)),
+                chunks_dbo=calls[WIDE_DBO], chunks_off=calls[-1])
+
+
+def wide_pd_setup(kv_port: int) -> dict:
+    """Rank side: the producer engine of the prefill recipe's flags and the
+    consumer of the decode recipe's (path (x)(c)), both on this rank's
+    card; rank 0 holds their KV connectors (the producer's transfer
+    server on ``kv_port``)."""
+    import torch
+    from llm_d_tpu_torch.engine import EngineCore
+    from llm_d_tpu_torch.server import openai as srv
+    p = srv.build_arg_parser()
+    t0 = time.perf_counter()
+    built = []
+    for flags in (wide_flags(WIDE_PREFILL_FLAGS, kv_port),
+                  WIDE_DECODE_FLAGS):
+        args = p.parse_args(flags)
+        srv.check_served(p, args)
+        srv.check_mesh_flags(p, args)
+        built.append((EngineCore(srv.engine_config_from_args(args)), args))
+    (prod, pargs), (cons, cargs) = built
+    MESH_STATE.clear()
+    MESH_STATE.update(prod=prod, cons=cons, names=MESH_KERNELS, recs={},
+                      role="x pd consumer")
+    if prod.mesh.rank == 0:
+        prod.kv_connector = srv.kv_connector_from_args(pargs)
+        cons.kv_connector = srv.kv_connector_from_args(cargs)
+        # Each engine's launches under its role's label.
+        mesh_record([prod, cons], MESH_KERNELS, lambda: MESH_STATE["role"])
+    torch.cuda.synchronize()
+    return dict(rank=prod.mesh.rank, build_s=time.perf_counter() - t0,
+                held_gib=torch.cuda.memory_allocated(prod.device) / 2**30,
+                consumer_physical=cons.eplb.plans[0].num_physical,
+                consumer_dbo=cons.config.enable_dbo)
+
+
+def _pd_scatter_checks():
+    """Every rank: wrap the connector's scatter (called on the ranks of
+    the blocks' region) to hold this rank's rows of the blocks to its
+    shard of the slab; returns the list of (region, held here, rows
+    equal)."""
+    import torch
+    from llm_d_tpu_torch.transfer import connector as conn
+    seen = []
+    real = conn.scatter_blocks
+
+    def checked(eng, block_ids, blob):
+        real(eng, block_ids, blob)
+        r, local = conn._local_blocks(eng, block_ids)
+        if r != eng.dp_index:
+            seen.append((r, False, None))
+            return
+        bs, nb = eng.config.block_size, len(block_ids)
+        bnb = conn._HEADER.unpack_from(blob, 0)[5]
+        ids = torch.tensor(local, device=eng.device)
+        same = True
+        for name, off, count, dtype, width in conn.check_slab(eng, blob, nb):
+            have = eng.kv_cache[name]
+            L, w = have.shape[0], have.shape[2]
+            wire = conn.host_tensor(blob, off, count, dtype, False).view(
+                L, bnb, bs, width)[:, :nb]
+            if w != width:
+                t = eng.mesh.axis_index("tp")
+                wire = wire[..., t * w:(t + 1) * w]
+            rows = have.view(L, -1, bs, w).index_select(1, ids).cpu()
+            same &= bool(torch.equal(rows, wire))
+        seen.append((r, True, same))
+    conn.scatter_blocks = checked
+    return seen, (conn, "scatter_blocks", real)
+
+
+def wide_pd_run(tag: str, prompts, new: int, alone: bool = False,
+                tape=None) -> dict:
+    """Rank side: ``prompts`` through the P/D pair (path (x)(c)): rank 0
+    prefills them on the producer (``do_remote_decode``, one token), the
+    consumer pulls each request's blocks over the native transport and
+    decodes ``new`` tokens, the producer steps until the consumer's
+    releases free its pins; the other ranks follow each engine in turn.
+    With ``alone`` the prompts go one at a time; with ``tape`` every
+    rank replays the taped expert choice on the consumer
+    (``routing_tape``).  Every rank checks the slabs it scattered; A, B
+    and E count from 0."""
+    import torch
+    from llm_d_tpu_torch.engine.request import Request, RequestState
+    from llm_d_tpu_torch.ops.sampling import SamplingParams
+    prod, cons = MESH_STATE["prod"], MESH_STATE["cons"]
+    _mesh_reset(MESH_KERNELS)
+    seen, restore = _pd_scatter_checks()
+    groups = [[i] for i in range(len(prompts))] if alone \
+        else [list(range(len(prompts)))]
+    out = dict(tokens=[None] * len(prompts))
+    t0 = time.perf_counter()
+    stack = contextlib.ExitStack()
+    if tape is not None:
+        stack.enter_context(routing_tape(cons, tape, replay=True))
+    try:
+        for group in groups:
+            if prod.mesh.rank != 0:
+                prod.follow(record=False)
+                got = cons.follow()
+                prod.follow(record=False)
+                for i in group:
+                    out["tokens"][i] = got[f"{tag}-{i}"]
+                continue
+            preqs = [Request(f"{tag}-{i}", prompts[i], SamplingParams(
+                temperature=0.0, max_tokens=1, ignore_eos=True),
+                do_remote_decode=True) for i in group]
+            for r in preqs:
+                prod.add_request(r)
+            MESH_STATE["role"] = "x pd producer"
+            while any(r.state is not RequestState.FINISHED_REMOTE_PREFILL
+                      for r in preqs):
+                prod.step()
+            prod.stop_mesh()
+            MESH_STATE["role"] = "x pd consumer"
+            dreqs = [Request(r.request_id, prompts[i], SamplingParams(
+                temperature=0.0, max_tokens=new, ignore_eos=True),
+                do_remote_prefill=True,
+                kv_transfer_params=r.kv_transfer_params)
+                for i, r in zip(group, preqs)]
+            got = cons.generate(dreqs)
+            cons.stop_mesh()
+            MESH_STATE["role"] = "x pd producer"
+            for _ in range(30000):
+                if not prod.pinned_transfers:
+                    break
+                prod.step()
+                time.sleep(0.001)
+            prod.stop_mesh()
+            MESH_STATE["role"] = "x pd consumer"
+            if prod.pinned_transfers:
+                raise RuntimeError(f"P/D {tag}: the producer kept its pins")
+            for i, r in zip(group, dreqs):
+                out["tokens"][i] = got[r.request_id]
+    finally:
+        stack.close()
+        setattr(*restore)
+    torch.cuda.synchronize()
+    out.update(seconds=time.perf_counter() - t0, scatters=seen,
+               pins_left=len(prod.pinned_transfers),
+               free_blocks=(prod.kv_manager.num_free_blocks,
+                            cons.kv_manager.num_free_blocks),
+               launches=_mesh_launches(MESH_KERNELS))
+    return out
+
+
+def wide_pd_local(tag: str, prompts, new: int) -> dict:
+    """Rank side: the consumer engine serves ``prompts`` itself (its own
+    prefill), rank 0 keeping each sampled row's margin and the first tp
+    rank of each dp shard taping its shard's expert choice: the
+    yardstick of the P/D runs' tokens."""
+    cons = MESH_STATE["cons"]
+    MESH_STATE["engine"] = cons
+    margins = {}
+    with (margin_spy(cons, margins) if cons.mesh.rank == 0
+          else contextlib.nullcontext()):
+        res = mesh_wave(tag, prompts, new, tape=True)
+    res["margins"] = margins or None
+    return res
+
+
+def wide_pd_teardown() -> dict:
+    """Rank side: close the connectors and free both engines."""
+    import torch
+    prod, cons = MESH_STATE["prod"], MESH_STATE["cons"]
+    for e in (prod, cons):
+        if e.kv_connector is not None:
+            e.kv_connector.close()
+    dev = prod.device
+    MESH_STATE.clear()
+    del prod, cons
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+
+
+def wide_pool_phase(pool, p1, p3, dp_tokens: dict) -> dict:
+    """Phase 11 (path (x)) on the pool's four ranks (module docstring):
+    (a) DBO at ``WIDE_DBO`` on phase 10's configuration against its
+    waves (``dp_tokens``: d1, d3, DBO off), one MoE layer both ways;
+    (b) EPLB at ep = 4 (``WIDE_EPLB``) on bench_eplb_skew's first
+    prompts and trace against the same engine with EPLB off; (c) the
+    recipe's producer and consumer engines: the consumer's own wave 1,
+    ``WIDE_SERVER_PROMPTS`` prompts one at a time disaggregated (the
+    servers' yardstick), then wave 1 disaggregated."""
+    import numpy as np
+    t0 = time.perf_counter()
+    out = dict(dp=DP_SIZE, tp=DP_TP, ep=DP_SIZE * DP_TP, model=MESH_MODEL,
+               steps="classic (gloo collectives are not capturable)")
+    launches, checks = {}, []
+
+    def count(res, key):
+        for n in MESH_KERNELS:
+            per_rank = [r["launches"][n] for r in res]
+            launches.setdefault(n, [0] * MESH_WORLD)
+            launches[n] = [a + b for a, b in zip(launches[n], per_rank)]
+        toks = [r["tokens"] for r in res]
+        if any(t != toks[0] for t in toks):
+            raise RuntimeError(f"path (x) {key}: the ranks' tokens differ")
+        return toks[0]
+
+    # (a) DBO.
+    ta = time.perf_counter()
+    pool.run(mesh_setup, MESH_MODEL, MESH_KERNELS, path="x", mesh=dp_mesh(),
+             enable_dbo=True, dbo_decode_token_threshold=WIDE_DBO,
+             dbo_prefill_token_threshold=WIDE_DBO)
+    dbo = {}
+    for tag, prompts, new, ref in (("x1", p1, MESH_W1_NEW, "d1"),
+                                   ("x3", p3, MESH_W3_NEW, "d3")):
+        res = pool.run(wide_wave, tag, prompts, new, True)
+        toks = count(res, tag)
+        want = [t[:new] for t in dp_tokens[ref]]
+        dbo[tag] = dict(res[0]["stats"], chunks=res[0]["chunks"],
+                        all_to_all_calls=res[0]["all_to_all_calls"],
+                        tokens_vs_dbo_off=near_tie_judge(
+                            toks, want, res[0]["margins"], tag))
+        log(f"path (x)(a) {tag}: {json.dumps(dbo[tag])}")
+    # The decode and both prefills above the threshold: 2 chunks a rank.
+    for tag in dbo:
+        if not any(k.endswith("chunks=2") for k in dbo[tag]["chunks"]):
+            raise RuntimeError(f"path (x)(a) {tag}: DBO never split the "
+                               f"exchange: {dbo[tag]['chunks']}")
+    layer = pool.run(wide_layer, 256, 256)
+    if any(abs(l["rel_max_err"]) > 1e-2 for l in layer):
+        raise RuntimeError(f"path (x)(a): one MoE layer with DBO "
+                           f"{layer[0]} off by more than 1e-2")
+    dbo["one_layer"] = layer[0]
+    # (b)'s yardstick: EPLB off (DBO off) on the skew prompts.
+    sp = prompts_for(np.random.default_rng(5), mesh_config(MESH_MODEL)
+                     .vocab_size, dict(SPEC_WAVE, n=WIDE_SKEW_PROMPTS))
+    off = pool.run(wide_wave, "xs", sp, WIDE_SKEW_NEW, False)
+    off_tokens = count(off, "xs off")
+    checks += pool.run(mesh_kernel_checks)[0]
+    pool.run(mesh_teardown)
+    dbo["seconds"] = time.perf_counter() - ta
+    out["dbo"] = dbo
+    # (b) EPLB at ep = 4 with migrations between ranks.
+    tb = time.perf_counter()
+    build = pool.run(mesh_setup, MESH_MODEL, MESH_KERNELS, path="x eplb",
+                     mesh=dp_mesh(), enable_eplb=True,
+                     eplb_config=dict(WIDE_EPLB))
+    install = pool.run(wide_install)
+    res = pool.run(wide_wave, "xs", sp, WIDE_SKEW_NEW, False, True)
+    toks = count(res, "xs eplb")
+    flips = [r["flips"] for r in res]
+    if not flips[0] or any(len(f) != len(flips[0]) for f in flips):
+        raise RuntimeError(f"path (x)(b): flips by rank "
+                           f"{[len(f) for f in flips]}")
+    for i in range(len(flips[0])):
+        if any(f[i]["tables"] != flips[0][i]["tables"] for f in flips):
+            raise RuntimeError(f"path (x)(b): flip {i}'s tables differ "
+                               f"between ranks")
+        if not all(f[i]["moved_bytes_equal_sources"] for f in flips):
+            raise RuntimeError(f"path (x)(b): flip {i}: a moved slot's "
+                               f"bytes are not its source's")
+    if not any(f["cross_rank_moves"] for f in flips[0]):
+        raise RuntimeError("path (x)(b): no slot moved between ranks")
+    out["eplb"] = dict(
+        config=WIDE_EPLB, prompts=WIDE_SKEW_PROMPTS, new=WIDE_SKEW_NEW,
+        zipf_skew=EPLB_ZIPF, physical=res[0]["physical"],
+        install=install, build_s=[b["init_s"] for b in build],
+        migrations=res[0]["migrations"],
+        flips=[{k: v for k, v in f.items() if k != "tables"}
+               for f in flips[0]],
+        flip_ms_by_rank=[[f["flip_ms"] for f in fl] for fl in flips],
+        stage_ms_by_rank=[r["stage_ms"] for r in res],
+        migration_bytes_sent_by_rank=[
+            r["sent_bytes"] - i["sent_bytes"] for r, i in zip(res, install)],
+        migration_bytes_received_by_rank=[
+            r["received_bytes"] - i["received_bytes"]
+            for r, i in zip(res, install)],
+        tables_identical_on_every_rank=True,
+        wave=res[0]["stats"], tokens_vs_eplb_off=near_tie_judge(
+            toks, off_tokens, res[0]["margins"], "xs"))
+    checks += pool.run(mesh_kernel_checks)[0]
+    pool.run(mesh_teardown)
+    out["eplb"]["seconds"] = time.perf_counter() - tb
+    log(f"path (x)(b): {json.dumps(out['eplb'])}")
+    # (c) P/D between two meshes on the same ranks: the consumer's own
+    # prefill of wave 1 first (the yardstick), then the servers' prompts
+    # one at a time on a producer as fresh as theirs, then wave 1.
+    tc = time.perf_counter()
+    pd = dict(build=pool.run(wide_pd_setup, free_port()))
+    local = pool.run(wide_pd_local, "xp", p1, WIDE_PD_NEW)
+    local_tokens = count(local, "xp local")
+    alone = pool.run(wide_pd_run, "xq", p1[:WIDE_SERVER_PROMPTS],
+                     MESH_SERVER_NEW, True)
+    count(alone, "xq alone")
+    run = pool.run(wide_pd_run, "xp", p1, WIDE_PD_NEW)
+    toks = count(run, "xp P/D")
+    # The witness, as path (v)(a)'s: the same prompts again, the consumer
+    # replaying its own run's expert choice (the producer's prompt KV
+    # comes from other kernels' rounding, and at 64 experts a one-ulp
+    # router difference flips top-8 near ties): every row must keep the
+    # consumer's own tokens up to a near tie.
+    tape = {}
+    for r in local:
+        tape.update(r["tape"] or {})
+    witness = pool.run(wide_pd_run, "xp", p1, WIDE_PD_NEW, False, tape)
+    if any(w["tokens"] != witness[0]["tokens"] for w in witness):
+        raise RuntimeError("path (x)(c) witness: the ranks' tokens differ")
+    # Only a request's region's ranks write its slab, each its shard,
+    # equal to the producer's bytes; the region's ranks write the same
+    # slabs, and every request's slab is written.
+    for res in (run, witness):
+        for rank, r in enumerate(res):
+            if not all(h and same and reg == rank // DP_TP
+                       for reg, h, same in r["scatters"]) or \
+                    r["scatters"] != res[rank // DP_TP * DP_TP]["scatters"]:
+                raise RuntimeError(f"path (x)(c) rank {rank}: scatters "
+                                   f"{r['scatters']}")
+            if r["pins_left"]:
+                raise RuntimeError(f"path (x)(c) rank {rank}: pins left")
+        if sum(len(res[d * DP_TP]["scatters"]) for d in range(DP_SIZE)) \
+                != len(p1):
+            raise RuntimeError("path (x)(c): a request's slab was not "
+                               "written")
+    regions = sorted({reg for r in run for reg, _, _ in r["scatters"]})
+    pd.update(requests=len(p1), new=WIDE_PD_NEW, regions_served=regions,
+              scattered_bytes_equal_producer=True, pins_released=True,
+              seconds_pd=run[0]["seconds"],
+              free_blocks_after=run[0]["free_blocks"],
+              local=local[0]["stats"],
+              tokens_vs_local_prefill=token_agreement(toks, local_tokens),
+              local_routing_replayed=near_tie_judge(
+                  witness[0]["tokens"], local_tokens, local[0]["margins"],
+                  "xp"))
+    checks += pool.run(mesh_kernel_checks)[0]
+    pd["peak_gib_by_rank"] = [r["peak_gib"]
+                              for r in pool.run(wide_pd_teardown)]
+    pd["seconds"] = time.perf_counter() - tc
+    out["pd"] = pd
+    log(f"path (x)(c): {json.dumps(pd)}")
+    for n, per_rank in launches.items():
+        if min(per_rank) == 0:
+            raise RuntimeError(f"{n} never launched on a rank of path (x): "
+                               f"{per_rank}")
+    out["pool_s"] = time.perf_counter() - t0
+    return dict(out=out, launches={n: sum(v) for n, v in launches.items()},
+                checks=checks, alone=alone[0]["tokens"])
+
+
+def wide_install() -> dict:
+    """Rank side: the EPLB engine's installed table on this rank: its
+    slots, the bytes its install sent and received, the tables."""
+    eng = MESH_STATE["engine"]
+    ctl = eng.eplb
+    ml = eng.params["moe_layers"]
+    return dict(slots=int(ml["w_gate_q"].shape[1]),
+                physical=ctl.plans[0].num_physical,
+                sent_bytes=ctl.sent_bytes, received_bytes=ctl.received_bytes)
+
+
+def wide_servers(root: str, prompts, direct) -> dict:
+    """Path (x)(d): ``python -m llm_d_tpu_torch.server.openai`` with the
+    prefill recipe's flags (the producer) and the decode recipe's (the
+    consumer), each at dp = 2, tp = 2 (four ranks: eight on the card);
+    this process plays the routing sidecar: each prompt alone to the
+    producer with ``do_remote_decode`` and one token, then to the
+    consumer with the producer's params, streamed; each reply must be
+    the direct pair's (``direct``).  Then SIGTERM: exit 0 and no rank
+    left."""
+    import signal
+    procs, urls, logs = {}, {}, {}
+    t0 = time.perf_counter()
+    for role, flags in (("producer", wide_flags(WIDE_PREFILL_FLAGS,
+                                                free_port())),
+                        ("consumer", WIDE_DECODE_FLAGS)):
+        port = free_port()
+        urls[role] = f"http://127.0.0.1:{port}"
+        logs[role] = os.path.join(root, "build", f"wide_{role}.log")
+        procs[role] = start_server(root, wide_flags(flags, port=port),
+                                   f"wide_{role}.log")
+    out = dict(flags=dict(producer=WIDE_PREFILL_FLAGS,
+                          consumer=WIDE_DECODE_FLAGS))
+    try:
+        for role, url in urls.items():
+            wait_ready(procs[role], url, limit_s=600)
+        out["startup_s"] = time.perf_counter() - t0
+        ranks = {role: _child_pids(p.pid) for role, p in procs.items()}
+        tokens = []
+        for p in prompts:
+            body = greedy_body(p, MESH_SERVER_NEW, True)
+            pbody = dict(body, stream=False, max_tokens=1,
+                         kv_transfer_params={"do_remote_decode": True})
+            status, _, reply = http_call(urls["producer"], "/v1/completions",
+                                         pbody)
+            if status != 200 or "kv_transfer_params" not in reply:
+                raise RuntimeError(f"producer: HTTP {status}: {reply}")
+            res = completion(urls["consumer"], dict(
+                body, kv_transfer_params=reply["kv_transfer_params"]))
+            tokens.append(res["tokens"])
+        if tokens != direct:
+            raise RuntimeError(f"the recipe servers' replies differ from "
+                               f"the direct pair's: "
+                               f"{token_agreement(tokens, direct)}")
+        out["replies_equal_direct"] = len(tokens)
+        out["exit"] = {}
+        for role, proc in procs.items():
+            t_term = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=DRAIN_S + 120)
+            time.sleep(1.0)
+            left = [p for p in ranks[role] if _pid_alive(p)]
+            out["exit"][role] = dict(code=rc, ranks=len(ranks[role]) + 1,
+                                     seconds=time.perf_counter() - t_term,
+                                     ranks_left=left)
+            if rc != 0 or left:
+                raise RuntimeError(f"the {role} exited with {rc} on "
+                                   f"SIGTERM; ranks left: {left}")
+    except BaseException:
+        for role, path in logs.items():
+            with open(path, "rb") as f:
+                sys.stderr.write(f"--- {role} ---\n"
+                                 + f.read()[-4000:].decode(errors="replace"))
+        raise
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+            for pid in _child_pids(proc.pid):
+                os.kill(pid, 9)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def mesh_path(root: str, smi: str) -> tuple:
     """Phase 9, path (viii): ``MESH_TP`` rank processes on the card (a
     ``RankPool``; the backend the rule picks) serve deepseek-v3-bench at
-    full width and depth, tp = ep = 4: wave 1 (A at 4 heads, E on the
-    received rows at decode size), wave 3 (the 8192-token prefill: B at
-    4 heads, E on two dispatch chunks of 1024 tokens a rank), and wave 1
-    again on the bf16 wire and with the psum dispatch.  Every rank's
+    full width and depth, tp = ep = 4: wave 1 (A and B at 4 heads, E on
+    the received rows), and wave 1 again on the bf16 wire and with the
+    psum dispatch.  Every rank's
     tokens identical; the wires against each other on one MoE layer
     (2% rel-RMS); each recorded kernel input against its plain version;
     each rank's peak; ``collective_bytes_total`` beside the bytes the
@@ -5010,8 +5731,11 @@ def mesh_path(root: str, smi: str) -> tuple:
     10 (path (ix)) shares the pool and the one-rank engine: its pool
     part (``dp_pool_phase``) runs after the witness, its server after
     phase 9's, its one-rank comparison and the DP group
-    (``dp_group_check``) after phase 9's.  Returns (result, launches by
-    kernel, per-kernel checks, path (ix)'s {out, launches, checks})."""
+    (``dp_group_check``) after phase 9's.  Phase 11 (path (x)) runs on
+    the pool after phase 10 (``wide_pool_phase``), its servers after
+    phase 10's (``wide_servers``).  Returns (result, launches by kernel,
+    per-kernel checks, path (ix)'s {out, launches, checks}, path (x)'s
+    {out, launches, checks, alone})."""
     import numpy as np
     import torch
     from llm_d_tpu_torch.parallel.launch import RankPool
@@ -5039,7 +5763,6 @@ def mesh_path(root: str, smi: str) -> tuple:
         waves = {}
         for tag, prompts, new, env, tape in (
                 ("m1", p1, MESH_W1_NEW, None, True),
-                ("m3", p3, MESH_W3_NEW, None, False),
                 ("m1bf16", p1, MESH_SIDE_NEW,
                  {"LLMD_COLLECTIVE_DTYPE": "bf16"}, False),
                 ("m1psum", p1, MESH_SIDE_NEW, {"LLMD_MOE_DISPATCH": "psum"},
@@ -5061,7 +5784,7 @@ def mesh_path(root: str, smi: str) -> tuple:
                 waves[tag]["tape"] = res[0]["tape"]
             log(f"mesh wave {tag}: {json.dumps(res[0]['stats'])}, "
                 f"launches {json.dumps(res[0]['launches'])}")
-        main_runs = ("m1", "m3")
+        main_runs = ("m1",)
         for n in MESH_KERNELS:
             per_rank = [sum(waves[w]["launches_by_rank"][r][n]
                             for w in main_runs) for r in range(MESH_TP)]
@@ -5153,6 +5876,9 @@ def mesh_path(root: str, smi: str) -> tuple:
         out["seconds_pool"] = time.perf_counter() - t_path
         # Phase 10, path (ix): the dp mesh on the same ranks.
         dp = dp_pool_phase(pool, p1, p3)
+        # Phase 11, path (x): the wide-EP recipe on the dp mesh.
+        wide = wide_pool_phase(pool, p1, p3, {
+            k: dp["waves"][k]["tokens"] for k in ("d1", "d3")})
     finally:
         pool.close()
     gc.collect()
@@ -5169,6 +5895,10 @@ def mesh_path(root: str, smi: str) -> tuple:
                                 log_name="dp_server.log")
     dpo["server"]["seconds"] = time.perf_counter() - t0
     log(f"dp server: {json.dumps(dpo['server'])}")
+    wo = wide["out"]
+    wo["servers"] = wide_servers(root, p1[:WIDE_SERVER_PROMPTS],
+                                 wide["alone"])
+    log(f"path (x)(d): {json.dumps(wo['servers'])}")
     # The one-rank classic loop's wave 1 at full depth on the same
     # weights, without and with the mesh's routing replayed.
     t0 = time.perf_counter()
@@ -5206,9 +5936,9 @@ def mesh_path(root: str, smi: str) -> tuple:
     dp["waves"]["d3"].pop("tokens", None)
     dpo["waves"] = dp["waves"]
     out["seconds"] = time.perf_counter() - t_path
-    dpo["card"] = smi
+    dpo["card"] = wo["card"] = smi
     return out, launches, checks, dict(out=dpo, launches=dp["launches"],
-                                       checks=dp["checks"])
+                                       checks=dp["checks"]), wide
 
 
 
@@ -5427,7 +6157,7 @@ def main() -> int:
     spec["bench_spec"] = spec_bench(spec_eng, sp)
     log(f"spec (c) bench_spec: {json.dumps(spec['bench_spec'])}")
     joiners = spec_prompts(22, MIXED_JOIN["n"], MIXED_JOIN["prompt"], vocab)
-    spec["bench_mixed"] = mixed_bench(spec_eng, sp, joiners)
+    spec["bench_mixed"] = mixed_bench(spec_eng, sp, joiners, runs=1)
     spec_eng.set_spec_fixed_accept(None)
     alone = [run_wave(spec_eng, [p], WAVE1["new"], f"salone{i}")[0][0]
              for i, p in enumerate(p1)]
@@ -5731,8 +6461,8 @@ def main() -> int:
     raw = {n: rec.fn for n, rec in recorders.items()}
     attention = ("mla_decode", "mla_prefill", "paged_decode", "flash_prefill")
 
-    def check(k, label, args, kw, count: bool, library: bool = False,
-              live_tokens=None, keep=None):
+    def check(k, label, args, kw, count: bool, live_tokens=None,
+              keep=None):
         """``k``'s kernel against its plain version on ``(args, kw)``
         (copies, but of the tensors in ``keep``: path (i)'s weights by
         default), then timed."""
@@ -5783,11 +6513,10 @@ def main() -> int:
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=None)
-        # One SDPA call on the gathered (dequantized) latent computes A's
-        # and B's function at every input; G and H as phase 4 chose.
-        if k["name"] in ("mla_decode", "mla_prefill") or (
-                (count or library) and k["name"] in attention
-                and (library or kw.get("k_scale") is None)):
+        # One SDPA call on the gathered K/V (an int8 cache or latent
+        # dequantized to bf16 as it is gathered) computes each attention
+        # kernel's function at every input.
+        if k["name"] in attention:
             row["library_ms"] = sdpa_ms(k["name"], a_k, kw_k)
         if count:
             rows.append(row)
@@ -5848,12 +6577,11 @@ def main() -> int:
     # Kernels A and B on bf16 latents at wave 1's decode and wave 3's
     # prefill shapes, each also timed as one SDPA call (library_ms).
     check(decode, "bf16 S=8 keys=160",
-          *decode_inputs(False, 64, [160] * 8, seed=13), count=False,
-          library=True)
+          *decode_inputs(False, 64, [160] * 8, seed=13), count=False)
     prefill = next(k for k in kernels if k["name"] == "mla_prefill")
     check(prefill, "bf16 S=64 Q=128",
           *mla_prefill_inputs(64, [128] * 64, [128] * 64, seed=14),
-          count=False, library=True)
+          count=False)
     for rec in recorders.values():
         setattr(rec.module, rec.name, rec.fn)
 
@@ -5899,11 +6627,11 @@ def main() -> int:
         check(dense_decode, label,
               *dense_decode_inputs(sw, 256, [5, 256, 300, 769, 1, 0],
                                    seed=20 + sw, D=128, scale=0.09),
-              count=False, library=True)
+              count=False)
         check(dense_prefill, label,
               *dense_prefill_inputs(sw, 256, [300, 256, 600, 0],
                                     [300, 44, 72, 0], seed=30 + sw),
-              count=False, library=True)
+              count=False)
         parity["dense_pages"].append(label)
     parity["llama3-8b"] = dense_large_page_reference(
         [(paged_attention, "paged_attention_decode_update"),
@@ -6027,7 +6755,7 @@ def main() -> int:
     # 10. path (ix): dp = 2 x tp = 2 on the same ranks, its server and a
     # DP group of two engines (inside mesh_path: they share its pool and
     # its one-rank engine).
-    mesh, mesh_counts, mesh_checks, dp = mesh_path(root, smi)
+    mesh, mesh_counts, mesh_checks, dp, wide = mesh_path(root, smi)
     for row in rows:
         n = row["name"]
         row["mesh_launches"] = mesh_counts.get(n, 0) + \
@@ -6039,7 +6767,11 @@ def main() -> int:
         row["launches"] += row["dp_launches"]
         row["dp_inputs"] = [{k: v for k, v in c.items() if k != "name"}
                             for c in dp["checks"] if c["name"] == n]
-    log(f"paths (viii) and (ix): {mesh['seconds']:.1f} s")
+        row["wide_launches"] = wide["launches"].get(n, 0)
+        row["launches"] += row["wide_launches"]
+        row["wide_inputs"] = [{k: v for k, v in c.items() if k != "name"}
+                              for c in wide["checks"] if c["name"] == n]
+    log(f"paths (viii)-(x): {mesh['seconds']:.1f} s")
     if prof is not None:
         # The first decode block of a fresh process, part by part.
         prof["cold_first_block"] = []
@@ -6070,6 +6802,7 @@ def main() -> int:
     print(json.dumps({"moe_gqa": gqa}))
     print(json.dumps({"mesh": mesh}))
     print(json.dumps({"dp": dp["out"]}))
+    print(json.dumps({"wide_ep": wide["out"]}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -87,9 +87,9 @@ deadlines; the others run ``follow()``, the same schedule step by step,
 and sample the same all-gathered logits with the same keys, so every
 rank holds the same tokens.  ``llmd_tpu:collective_bytes_total`` charges
 each computed token's EP exchange bytes (the JAX byte model).  Refused
-by name on a mesh: the SP axis, spec decode, P/D, the host tier,
-EPLB at ep > 1, a step-time target, and captured decode blocks where
-the collectives cannot be captured (gloo on CUDA); DBO everywhere.
+by name on a mesh: the SP axis, spec decode, the host tier, a
+step-time target, and captured decode blocks where the collectives
+cannot be captured (gloo on CUDA).
 
 Data parallelism on the mesh (``MeshConfig(dp, tp)``, the JAX engine's
 stacked mode, the attention half of wide EP): the pool is split into
@@ -104,6 +104,28 @@ ranks, and the sampling rows of every shard are all-gathered over dp
 (the flat rows ``r * S_l + s``), so every rank samples the same tokens.
 ``kv_cache_hbm_bytes`` is a per-device budget: the block count scales
 by dp.
+
+The wide-EP recipe's features on a mesh (``deploy/wide-ep-lws``):
+
+* DBO (``enable_dbo``, ``dbo_{decode,prefill}_token_threshold``): the
+  model passes the phase's threshold (a pure-decode batch the decode
+  one; -1 with DBO off) to the EP exchange, which from there runs in
+  at least two chunks, one chunk's exchange in flight while the other's
+  experts compute (``ops.moe.expert_ffn_a2a``).  A dense model is
+  refused; one device has no exchange and ignores it.
+* EPLB at ep > 1: each rank holds its ``P / ep`` physical slots; every
+  retire point gathers the shards' routed ids over dp, so rank 0 plans
+  from the whole step's load; rank 0's decision (begin a migration with
+  its plans, stage a batch, or stage and flip) rides the next step's
+  order and every rank carries it out at the top of that step
+  (``parallel/eplb.py``).
+* P/D: rank 0 holds the connector.  A producer's finished prefill is
+  gathered from its region's ranks at the retire every rank takes; a
+  pulled request's admission (``admit_pulled``) rides rank 0's step
+  order (each rank allocates the same blocks), and at the top of that
+  step rank 0 sends the slab to the region's ranks, which write their
+  shard of it; pin releases ride the order too
+  (``transfer/connector.py``).
 """
 
 from __future__ import annotations
@@ -130,8 +152,9 @@ from llm_d_tpu_torch.ops.moe import DENSE_DISPATCH_MAX_T
 from llm_d_tpu_torch.ops.quant import (
     KV_CACHE_DTYPES, KV_SCALE_GRANULARITIES, MLA_LATENT_DTYPES,
     kv_scale_width, quantize_moe_experts)
-from llm_d_tpu_torch.parallel.mesh import (AXIS_DP, Mesh, MeshConfig,
-                                           StepChannel, check_served)
+from llm_d_tpu_torch.parallel.mesh import (AXIS_DP, AXIS_TP, Mesh,
+                                           MeshConfig, StepChannel,
+                                           check_served)
 from llm_d_tpu_torch.parallel.sharding import (shard_shape, shard_tree,
                                                validate_divisibility)
 from llm_d_tpu_torch.utils import tracing
@@ -265,9 +288,14 @@ class EngineConfig:
     # Permit a mesh smaller than the host's card count (tests / dryruns).
     # Otherwise idle cards are a misconfiguration that fails fast.
     allow_device_subset: bool = False
-    # DBO (dual-batch overlap; reference --enable-dbo): refused by name
-    # until the port serves it.
+    # DBO (MoE models): dual-batch overlap -- from the phase's token
+    # threshold on, the EP dispatch runs in >= 2 chunks, chunk i+1's
+    # exchange in flight while chunk i's experts compute (reference:
+    # --enable-dbo --dbo-{decode,prefill}-token-threshold,
+    # decode.yaml:78,98-99).  One device has no exchange to overlap.
     enable_dbo: bool = False
+    dbo_decode_token_threshold: int = 32
+    dbo_prefill_token_threshold: int = 32
 
     def resolve_model(self) -> ModelConfig:
         return self.model_config or get_config(self.model)
@@ -285,12 +313,12 @@ class EngineCore:
         ``metrics`` may be shared with other engines (a DP group's
         ranks); by default the engine has its own."""
         self.config = config
-        if config.enable_dbo:
-            raise ValueError(
-                "enable_dbo (dual-batch overlap of the EP exchange with the "
-                "expert GEMMs) is not served by the port yet")
         self.model_config = config.resolve_model()
         c = self.model_config
+        if config.enable_dbo and not c.is_moe:
+            raise ValueError(
+                "enable_dbo overlaps MoE dispatch with expert compute; "
+                f"model {c.name!r} is dense")
         self.model = get_model(c)
         self.mesh: Optional[Mesh] = None
         if config.mesh is not None and config.mesh.num_devices > 1:
@@ -433,14 +461,16 @@ class EngineCore:
                 # Drops each bf16 stack from the tree as it goes.
                 params = quantize_moe_experts(params)
         self.params = params
-        # EPLB on the engine's one device (ep = 1): the physical expert
-        # table replaces the logical weights (copies the controller owns).
+        # EPLB: the physical expert table replaces the logical weights
+        # (copies the controller owns); on a mesh each rank holds its
+        # P / ep slots, and rank 0's step messages carry its schedule.
         self.eplb = None
         if config.enable_eplb and c.is_moe:
             from llm_d_tpu_torch.parallel.eplb import (EplbConfig,
                                                        EplbController)
             self.eplb = EplbController(
-                c.num_experts, 1, EplbConfig.from_dict(config.eplb_config))
+                c.num_experts, self.mesh.size if self.mesh else 1,
+                EplbConfig.from_dict(config.eplb_config), mesh=self.mesh)
             self.params = self.eplb.install(self.params)
 
         # A dp rank holds its region's plane only: [L, slots / dp, W].
@@ -537,7 +567,11 @@ class EngineCore:
         # A mesh: rank 0's orders to the other ranks; every rank reads
         # deadlines against rank 0's clock at the step's order.
         self._channel: Optional[StepChannel] = None
-        self._pending_ops: List[Tuple[str, bytes]] = []
+        self._eplb_decision: Optional[tuple] = None
+        self._pending_ops: List[Tuple[str, Any]] = []
+        # P/D on a mesh: admitted slabs (block ids, the slab on rank 0 or
+        # its size elsewhere) to broadcast and scatter this step.
+        self._scatters: List[Tuple[List[int], Any]] = []
         self._followed: Dict[str, Request] = {}
         self._record_followed = True
         if self.mesh is not None:
@@ -609,9 +643,6 @@ class EngineCore:
         if cfg.kv_offload_blocks > 0 or cfg.kv_shared_tier_port is not None \
                 or cfg.kv_shared_tier_peers:
             refused.append("the host and shared KV tiers")
-        if cfg.enable_eplb and mesh.config.ep > 1:
-            refused.append(f"EPLB at ep = {mesh.config.ep} (cross-device "
-                           "expert migrations)")
         if self._step_time_target_ms > 0:
             refused.append("LLMD_STEP_TIME_TARGET_MS (each rank would size "
                            "its prefill chunks from its own step times)")
@@ -665,11 +696,23 @@ class EngineCore:
                                          self.model_config, **kw)
 
     def _moe_opts(self) -> Optional[Dict[str, Any]]:
-        """MoE forward knobs every step body passes: the attribution stubs
-        (None on a dense model, and when nothing is stubbed)."""
-        if not self.model_config.is_moe or not self.config.stub_components:
+        """MoE forward knobs every step body passes (None on a dense
+        model): the DBO thresholds, which the model picks by phase (a
+        pure-decode batch the decode one), -1 when DBO is off so an
+        engine never inherits the op's ``LLMD_MOE_DBO`` fallback; and the
+        attribution stubs."""
+        if not self.model_config.is_moe:
             return None
-        return dict(stub_components=tuple(self.config.stub_components))
+        cfg = self.config
+        if not cfg.enable_dbo:
+            opts = dict(dbo_decode_min_tokens=-1, dbo_prefill_min_tokens=-1)
+        else:
+            opts = dict(
+                dbo_decode_min_tokens=cfg.dbo_decode_token_threshold,
+                dbo_prefill_min_tokens=cfg.dbo_prefill_token_threshold)
+        if cfg.stub_components:
+            opts["stub_components"] = tuple(cfg.stub_components)
+        return opts
 
     def _forward(self, batch: Dict[str, torch.Tensor]
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -694,6 +737,20 @@ class EngineCore:
             hidden = self.mesh.all_gather(hidden, AXIS_DP, dim=0)
         return hidden, routed
 
+    def _planned_routed(self, routed: torch.Tensor, dim: int
+                        ) -> Optional[torch.Tensor]:
+        """The routed ids rank 0's EPLB plans from (only rank 0 plans; a
+        retire point, never inside a step body): on a dp mesh every
+        shard's, concatenated along ``dim`` in dp order by a gather over
+        rank 0's dp group (the other tp ranks hold the same ids and skip
+        it); None on the other ranks, whose trackers stay empty."""
+        if self.mesh is None:
+            return routed
+        if self.dp > 1 and self.mesh.coord[AXIS_TP] == 0:
+            routed = self.mesh.all_gather(routed.to(self.device), AXIS_DP,
+                                          dim=dim).to(routed.device)
+        return routed if self.mesh.rank == 0 else None
+
     def _routed_shape(self, T: int) -> Tuple[int, int, int]:
         c = self.model_config
         return (c.num_layers - c.first_dense_layers, T,
@@ -702,8 +759,12 @@ class EngineCore:
     # ---------- public API ----------
 
     def add_request(self, request: Request) -> None:
-        if self._channel is not None:
-            self._order("add", request)
+        if self._channel is not None and not self._channel.leader:
+            # A follower: rank 0 already admitted it.
+            if self._record_followed:
+                self._followed[request.request_id] = request
+            self.scheduler.add_request(request)
+            return
         if request.do_remote_decode and (
                 self.kv_connector is None
                 or getattr(self.kv_connector, "server", None) is None):
@@ -723,9 +784,12 @@ class EngineCore:
                     "connector is configured; rejecting", request.request_id)
                 self._reject(request)
                 return
-            # PD consumer: pull remote KV before the request is schedulable.
+            # PD consumer: pull remote KV before the request is schedulable
+            # (on a mesh its admission is ordered to the other ranks).
             self.kv_connector.start_load_kv(self, request)
             return
+        if self._channel is not None:
+            self._order("add", request)
         self.scheduler.add_request(request)
 
     def _reject(self, request: Request) -> None:
@@ -750,22 +814,104 @@ class EngineCore:
     # ---------- the ranks of a mesh ----------
 
     def _order(self, kind: str, arg) -> None:
-        """Rank 0 queues an add or abort for the other ranks (sent with
-        the next step's order); the other ranks record the requests they
-        follow."""
+        """Rank 0 queues an add, abort or pin release for the other ranks
+        (sent with the next step's order)."""
         if self._channel.leader:
             if kind == "add":
-                import pickle
-                arg = pickle.dumps(dataclasses.replace(arg, trace_ctx=None))
+                arg = self._snapshot(arg)
             self._pending_ops.append((kind, arg))
-        elif kind == "add" and self._record_followed:
-            self._followed[arg.request_id] = arg
+
+    @staticmethod
+    def _snapshot(request: Request) -> bytes:
+        """A request as the other ranks of a mesh receive it."""
+        import pickle
+        return pickle.dumps(dataclasses.replace(request, trace_ctx=None))
+
+    def admit_pulled(self, request: Request, blob) -> bool:
+        """P/D consumer: make a pulled request schedulable.  It takes its
+        KV region and fresh blocks for the prompt, the slab is written
+        into them, and its last prompt token is left to compute here.
+        False when the blocks are not free (nothing held: the caller
+        retries); ``ValueError`` on a slab the cache cannot take (nothing
+        held, nothing ordered).  On a mesh every rank runs this: rank 0
+        with the slab (``blob``), ordering the admission of the request
+        as it stood before it, so each rank allocates the same blocks;
+        the other ranks at that order, ``blob`` the slab's size.  The
+        slab is written at the top of the step every rank takes part in
+        (:meth:`_run_scatters`)."""
+        from llm_d_tpu_torch.transfer.connector import (check_slab,
+                                                         scatter_blocks)
+        leader = self._channel is None or self._channel.leader
+        snapshot = (self._snapshot(request)
+                    if self._channel is not None and leader else None)
+        km = self.kv_manager
+        P = request.num_prompt_tokens
+        region = km.assign_region(request)
+        if not km.can_allocate(-(-P // self.config.block_size), region) \
+                or km.allocate(request, P) is None:
+            if not leader:
+                raise RuntimeError(
+                    f"rank {self.mesh.rank}: cannot allocate the blocks rank "
+                    f"0 allocated for {request.request_id}")
+            km.unpin(request)
+            return False
+        if leader:
+            try:
+                if self._channel is None:
+                    # Validates the whole slab before the first write.
+                    scatter_blocks(self, request.block_ids, blob)
+                else:
+                    check_slab(self, blob, len(request.block_ids))
+            except Exception:
+                km.free(request)
+                raise
+        if self._channel is not None:
+            if leader:
+                self._pending_ops.append(("admit", (snapshot, len(blob))))
+            elif self._record_followed:
+                self._followed[request.request_id] = request
+            self._scatters.append((list(request.block_ids), blob))
+        request.num_computed_tokens = P - 1
+        request.kv_transfer_params = None
+        self.scheduler.add_request(request)
+        return True
+
+    def readmit(self, request: Request) -> None:
+        """Schedule a request whose pull failed for a full local prefill
+        (the ``recompute`` policy), on every rank of a mesh."""
+        if self._channel is not None:
+            self._order("add", request)
+        self.scheduler.add_request(request)
+
+    def _run_scatters(self) -> None:
+        """Every rank of a mesh, in order: rank 0 sends each admitted slab
+        to the ranks of its request's region, which write their shard of
+        it (``transfer.connector.scatter_blocks``)."""
+        from llm_d_tpu_torch.transfer.connector import scatter_blocks
+        for block_ids, blob in self._scatters:
+            ranks = self.mesh.region_ranks(
+                self.kv_manager.region_of_block(block_ids[0]))
+            if self._channel.leader:
+                t = torch.from_numpy(np.frombuffer(blob, np.uint8).copy())
+                for dst in ranks:
+                    if dst != 0:
+                        self.mesh.send(t, dst)
+            elif self.mesh.rank in ranks:
+                blob = self.mesh.recv((blob,), torch.uint8,
+                                      0).cpu().numpy().tobytes()
+            if self.mesh.rank in ranks:
+                scatter_blocks(self, block_ids, blob)
+        self._scatters = []
 
     def _send_step(self) -> None:
         """Rank 0: order the other ranks to take this step, with the adds
-        and aborts since the last one and rank 0's clock."""
+        and aborts since the last one, rank 0's clock and its EPLB
+        decision (which every rank carries out at the top of the step)."""
         self._step_now = time.monotonic()
-        self._channel.send((self._pending_ops, self._step_now))
+        self._eplb_decision = (self.eplb.take_decision()
+                               if self.eplb is not None else None)
+        self._channel.send((self._pending_ops, self._step_now,
+                            self._eplb_decision))
         self._pending_ops = []
 
     def follow(self, record: bool = True) -> Dict[str, List[int]]:
@@ -782,10 +928,15 @@ class EngineCore:
             msg = self._channel.recv()
             if msg is None:
                 break
-            ops, self._step_now = msg
+            ops, self._step_now, self._eplb_decision = msg
             for kind, arg in ops:
                 if kind == "add":
                     self.add_request(pickle.loads(arg))
+                elif kind == "admit":
+                    snapshot, nbytes = arg
+                    self.admit_pulled(pickle.loads(snapshot), nbytes)
+                elif kind == "release":
+                    self.release_pinned(arg)
                 else:
                     self.abort_request(arg)
             self.step()
@@ -804,9 +955,12 @@ class EngineCore:
                 or self._inflight is not None or self._connector_pending())
 
     def release_pinned(self, request_id: str) -> None:
-        """Producer side: transfer complete, free the pinned prefill blocks."""
+        """Producer side: transfer complete, free the pinned prefill blocks
+        (on every rank of a mesh)."""
         req = self.pinned_transfers.pop(request_id, None)
         if req is not None:
+            if self._channel is not None:
+                self._order("release", request_id)
             self.kv_manager.free(req)
 
     def _connector_pending(self) -> bool:
@@ -961,17 +1115,23 @@ class EngineCore:
         shards = []
         scheduled: List = []
         rows: List[int] = []
+        real_rows: List[np.ndarray] = []
         for r, shard in enumerate(per):
             arrs = self._empty_batch_np(T, S, Q, self.max_blocks_per_seq)
             self._fill_batch(arrs, shard)
             shards.append(arrs)
             scheduled.extend(shard)
             rows.extend(r * S + s for s in range(len(shard)))
+            real_rows.append(r * T + np.arange(
+                sum(sr.num_new_tokens for sr in shard)))
         own = shards[self.dp_index]
         host = {k: torch.from_numpy(np.concatenate([a[k] for a in shards]))
                 for k in self._HOST_KEYS}
         host["scheduled"] = scheduled
         host["rows"] = np.asarray(rows, np.int64)
+        # The token rows of real tokens in every shard's rows, stacked
+        # (the JAX engine's ``_routed_valid``).
+        host["real_rows"] = np.concatenate(real_rows)
         batch = {k: torch.from_numpy(v).to(self.device)
                  for k, v in own.items() if k not in self._HOST_KEYS}
         return batch, host
@@ -1057,7 +1217,8 @@ class EngineCore:
             gen0=z(S, i32), keys=z((K, 2), torch.int64))
         outputs = dict(ids=z((K, S), i32))
         if self.eplb is not None:
-            T = _next_bucket(S, self.config.min_token_bucket,
+            # This rank's token rows (its dp shard's S / dp, bucketed).
+            T = _next_bucket(S // self.dp, self.config.min_token_bucket,
                              self.config.max_num_batched_tokens)
             outputs["routed"] = z((K,) + self._routed_shape(T), i32)
         return inputs, outputs
@@ -1196,12 +1357,22 @@ class EngineCore:
         self.metrics.engine_steps.inc(K)
         if self.eplb is not None:
             # The block's real rows only, [K, Lm, T, k] -> the
-            # layer-leading [Lm, K*S, k] the tracker takes.
-            routed = inflight["routed_host"].numpy()[:, :, inflight["rows"]]
-            routed = np.moveaxis(routed, 1, 0)
-            self.params = self.eplb.on_step(
-                routed.reshape(routed.shape[0], -1, routed.shape[-1]),
-                self._step_count, self.params)
+            # layer-leading [Lm, K*S, k] the tracker takes.  On a dp
+            # mesh every shard's rows, gathered: flat row r * S_l + i is
+            # row r * T + i of the gathered tokens.
+            routed = inflight["routed_host"]
+            rows = inflight["rows"]
+            if self.dp > 1:
+                T = routed.shape[2]
+                S_l = inflight["meta"]["pos0"].shape[0] // self.dp
+                rows = rows // S_l * T + rows % S_l
+            routed = self._planned_routed(routed, dim=2)
+            if routed is not None:
+                routed = np.moveaxis(routed.numpy()[:, :, rows], 1, 0)
+                routed = routed.reshape(routed.shape[0], -1,
+                                        routed.shape[-1])
+            self.params = self.eplb.on_step(routed, self._step_count,
+                                            self.params)
         outputs: List[RequestOutput] = []
         now = time.monotonic()
         # The block's step span, from the dispatch's and this retire's
@@ -1984,19 +2155,26 @@ class EngineCore:
         # engine fails every stream, /health turns 500).  Keyed by model
         # name, so a harness can kill one replica of several.
         get_injector().check("engine.step", key=str(self.config.model))
-        if self._channel is not None and self._channel.leader:
-            if self.kv_connector is not None:
-                raise ValueError("P/D (a KV connector) is not served on "
-                                 f"mesh {self.mesh.config}")
-            self._send_step()
-        outputs: List[RequestOutput] = list(self._rejected)
-        self._rejected.clear()
+        polled: List[RequestOutput] = []
         if self.kv_connector is not None:
             # Pump the connector before an in-flight block is extended or
             # retired: admit finished KV pulls (their scatter queued behind
             # the in-flight replay), surface failed ones, release producer
-            # pins the consumer acknowledged.
-            outputs.extend(self.kv_connector.poll(self))
+            # pins the consumer acknowledged.  On a mesh (rank 0) before
+            # the step's order, which carries the admissions and releases.
+            polled = self.kv_connector.poll(self)
+        if self._channel is not None:
+            if self._channel.leader:
+                self._send_step()
+            self._run_scatters()
+        if self._eplb_decision is not None:
+            # Rank 0's EPLB decision, on every rank before this step's
+            # dispatch (a flip writes the serving tensors in place).
+            self.params = self.eplb.apply(self._eplb_decision, self.params)
+            self._eplb_decision = None
+        outputs: List[RequestOutput] = list(self._rejected)
+        self._rejected.clear()
+        outputs.extend(polled)
         if self._inflight is not None:
             # Pipelined decode: queue the successor block on the device
             # first, then retire the in-flight one, so the host's token
@@ -2077,8 +2255,14 @@ class EngineCore:
             fetch.extend(sampling_ops.compute_top_logprobs(logits, ids))
         elif want_lp:
             fetch.append(sampling_ops.compute_logprobs(logits, ids))
-        if routed is not None:
-            fetch.append(routed)
+        eplb_tick = routed is not None
+        if eplb_tick:
+            # On a dp mesh every shard's routing ([Lm, dp * T_l, k]), so
+            # rank 0 plans from the whole step's load, as JAX's stacked
+            # ids.
+            routed = self._planned_routed(routed, dim=1)
+            if routed is not None:
+                fetch.append(routed)
         # The step's one host sync: the first copy waits for the device;
         # the rest are already computed.
         fetched = [t.cpu() for t in fetch]
@@ -2086,11 +2270,12 @@ class EngineCore:
         self._step_count += 1
         self.metrics.engine_dispatches.inc()
         self.metrics.engine_steps.inc()
-        if routed is not None:
+        if eplb_tick:
             # The real tokens' routing (the bucket's pad rows would skew
             # the load toward the pad token's favorite experts).
             self.params = self.eplb.on_step(
-                fetched.pop().numpy()[:, :sched.total_tokens, :],
+                None if routed is None
+                else fetched.pop().numpy()[:, host["real_rows"], :],
                 self._step_count, self.params)
         ids_h = fetched[0].numpy()
         logprobs = fetched[1].numpy() if want_lp else None
@@ -2166,6 +2351,10 @@ class EngineCore:
         self.pinned_transfers[req.request_id] = req
         if self.kv_connector is not None:
             self.kv_connector.register_transfer(self, req)
+        elif self._channel is not None:
+            # A follower's half of rank 0's gather of the blocks.
+            from llm_d_tpu_torch.transfer.connector import gather_blocks
+            gather_blocks(self, req.block_ids)
         params: Dict[str, Any] = {
             "remote_block_ids": list(req.block_ids),
             "remote_host": getattr(self.kv_connector, "host", "localhost"),

@@ -178,6 +178,9 @@ def forward(params: Params, kv_cache: Dict[str, torch.Tensor],
     physical table) a token's logical experts go to physical replicas
     (``ops.moe.to_physical_experts``, phased by the MoE layer index), and
     the expert weights are the ``[Lm, P, ...]`` physical ones.
+    ``moe_opts["dbo_decode_min_tokens"]`` / ``["dbo_prefill_min_tokens"]``
+    is the EP exchange's DBO threshold of a pure-decode batch (one query
+    a sequence) / of any other (``ops.moe.expert_ffn_a2a``).
     ``moe_opts["stub_components"]`` drops components for the attribution
     sweep, as the JAX forward does: ``attn`` (the whole attention block,
     cache writes included: the block contributes zeros), ``moe_ffn`` (the
@@ -205,6 +208,12 @@ def forward(params: Params, kv_cache: Dict[str, torch.Tensor],
         caches = tuple(kv_cache[n] for n in names)
     dl, ml = params["dense_layers"], params["moe_layers"]
     stub = frozenset((moe_opts or {}).get("stub_components") or ())
+    # DBO threshold by phase: a pure-decode batch (one query a sequence)
+    # takes the decode threshold, anything else the prefill one; no opts
+    # leave the op its environment fallback, -1 is off.
+    is_decode = batch["qtok_idx"].shape[-1] == 1
+    dbo_min_tokens = (moe_opts or {}).get(
+        "dbo_decode_min_tokens" if is_decode else "dbo_prefill_min_tokens")
     quant_stacked = ({k: ml[k] for k in QUANT_KEYS}
                      if "w_gate_q" in ml else None)
     routed = []
@@ -256,7 +265,8 @@ def forward(params: Params, kv_cache: Dict[str, torch.Tensor],
                 # the MoE layer index phasing the walk.
                 phys_idx = moe_ops.to_physical_experts(
                     idx, lp["replica_table"], lp["num_replicas"],
-                    phase=li - Ld)
+                    phase=li - Ld, row0=0 if mesh is None else
+                    mesh.axis_index("dp") * idx.shape[0])
             if collect_moe_trace:
                 # The operands the EP dispatch ships: the normed rows and
                 # the routing the combine applies.
@@ -268,10 +278,12 @@ def forward(params: Params, kv_cache: Dict[str, torch.Tensor],
             elif quant_stacked is not None:
                 m = moe_ops.expert_ffn(
                     hn, weights, phys_idx, None, None, None,
-                    quant=dict(quant_stacked, layer=li - Ld), mesh=mesh)
+                    quant=dict(quant_stacked, layer=li - Ld), mesh=mesh,
+                    dbo_min_tokens=dbo_min_tokens)
             else:
                 m = moe_ops.expert_ffn(hn, weights, phys_idx, lp["w_gate"],
-                                       lp["w_up"], lp["w_down"], mesh=mesh)
+                                       lp["w_up"], lp["w_down"], mesh=mesh,
+                                       dbo_min_tokens=dbo_min_tokens)
             if "shared_gate" in lp and "shared_expert" not in stub:
                 m = m + L.swiglu_mlp(hn, lp["shared_gate"], lp["shared_up"],
                                      lp["shared_down"], mesh)

@@ -22,10 +22,15 @@ the rank's dp shard's ``[T_l, H]`` (the same on its tp ranks): each rank
 dispatches its ``T_l / tp`` slice over the EP group of all ``dp * tp``
 ranks, as the JAX package's stacked ``[dp * T_l]`` rows split over EP,
 and the shard's rows come back by an all-gather over its tp group.
+DBO (``dbo_min_tokens``, the engine's ``enable_dbo``): from the
+threshold on the a2a exchange runs in at least two chunks a rank, the
+next chunk's exchange issued before this chunk's experts run
+(``expert_ffn_a2a``).
 """
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Optional, Tuple
 
@@ -103,17 +108,18 @@ def route(router_logits: torch.Tensor, config: ModelConfig,
 
 def to_physical_experts(idx: torch.Tensor, replica_table: torch.Tensor,
                         num_replicas: torch.Tensor,
-                        phase: int = 0) -> torch.Tensor:
+                        phase: int = 0, row0: int = 0) -> torch.Tensor:
     """EPLB: map routed logical experts ``idx [T, k]`` to physical replica
     slots ``[T, k]`` (int32) through ``replica_table [E, max_r]`` and
     ``num_replicas [E]``.  The replica is round-robin over the (token,
     slot) index plus the layer's ``phase``, as in the JAX package:
     replicas hold identical weights, so the choice never changes the
-    output.  Plain tensor ops (no host read), so a captured body may
-    call it."""
+    output.  ``row0`` is the first row's index in the step's rows (a dp
+    shard's offset in the JAX package's stacked rows).  Plain tensor ops
+    (no host read), so a captured body may call it."""
     T, k = idx.shape
     il = idx.long()
-    slot = torch.arange(T * k, dtype=torch.int32,
+    slot = torch.arange(row0 * k, (row0 + T) * k, dtype=torch.int32,
                         device=idx.device).reshape(T, k) + phase
     r = slot % num_replicas[il]
     return replica_table[il, r.long()].to(torch.int32)
@@ -404,7 +410,8 @@ def expert_ffn(x: torch.Tensor, weights: torch.Tensor, idx: torch.Tensor,
                w_down: Optional[torch.Tensor],
                quant: Optional[dict] = None, mesh=None,
                dispatch: str = "auto",
-               collective_dtype: Optional[str] = None) -> torch.Tensor:
+               collective_dtype: Optional[str] = None,
+               dbo_min_tokens: Optional[int] = None) -> torch.Tensor:
     """Routed-expert FFN: [T, H] in x.dtype, on every rank of ``mesh``.
 
     One device: ``quant`` carries stacked int8 payloads ``{w_gate_q,
@@ -419,11 +426,14 @@ def expert_ffn(x: torch.Tensor, weights: torch.Tensor, idx: torch.Tensor,
     its experts on all tokens, partial outputs all-reduced, quantized
     under the int8 wire); ``dense`` / ``ragged`` are one-device modes and
     raise.  ``collective_dtype`` is the wire (None resolves
-    ``LLMD_COLLECTIVE_DTYPE``)."""
+    ``LLMD_COLLECTIVE_DTYPE``); ``dbo_min_tokens`` is the a2a exchange's
+    DBO threshold (:func:`expert_ffn_a2a`; one device has no exchange to
+    overlap and ignores it)."""
     T = x.shape[0]
     if mesh is not None and mesh.size > 1:
         return _expert_ffn_mesh(x, weights, idx, w_gate, w_up, w_down,
-                                quant, mesh, dispatch, collective_dtype)
+                                quant, mesh, dispatch, collective_dtype,
+                                dbo_min_tokens)
     if quant is not None and x.is_cuda:
         path = {"dense": _dense_int8_kernel_path,
                 "routed": _routed_int8_kernel_path,
@@ -441,7 +451,8 @@ def expert_ffn(x: torch.Tensor, weights: torch.Tensor, idx: torch.Tensor,
 
 # ---------- expert parallelism over a mesh ----------
 # (port of the mesh half of ``llm_d_tpu.ops.moe``: ``_a2a_moe_chunk``,
-# ``expert_ffn_a2a`` and the psum branch of ``expert_ffn``)
+# as ``_a2a_send`` and ``_a2a_finish``, ``expert_ffn_a2a`` and the psum
+# branch of ``expert_ffn``)
 
 
 def _wire_backend(x: torch.Tensor) -> str:
@@ -449,7 +460,7 @@ def _wire_backend(x: torch.Tensor) -> str:
 
 
 def _expert_ffn_mesh(x, weights, idx, w_gate, w_up, w_down, quant, mesh,
-                     dispatch, collective_dtype):
+                     dispatch, collective_dtype, dbo_min_tokens=None):
     from llm_d_tpu_torch.parallel.mesh import AXIS_DP, AXIS_EP
     from llm_d_tpu_torch.parallel.quant_collectives import (
         quantized_psum, resolve_collective_dtype)
@@ -470,8 +481,8 @@ def _expert_ffn_mesh(x, weights, idx, w_gate, w_up, w_down, quant, mesh,
         dispatch = "a2a" if (T % ep == 0 and E % ep == 0) else "psum"
     if dispatch == "a2a":
         return expert_ffn_a2a(x, weights, idx, w_gate, w_up, w_down, mesh,
-                              quant=quant,
-                              collective_dtype=collective_dtype)
+                              quant=quant, collective_dtype=collective_dtype,
+                              dbo_min_tokens=dbo_min_tokens)
     if dispatch != "psum":
         raise ValueError(f"unknown dispatch {dispatch!r}")
     if quant is not None:
@@ -495,8 +506,8 @@ def _expert_ffn_mesh(x, weights, idx, w_gate, w_up, w_down, quant, mesh,
 def _pack_rows(*planes: torch.Tensor) -> torch.Tensor:
     """Row-aligned planes (``[N, ...]`` of any dtypes) as one int8 byte
     matrix ``[N, bytes a row]``: one exchange carries them all."""
-    return torch.cat([p.reshape(p.shape[0], -1).contiguous().view(torch.int8)
-                      for p in planes], dim=1)
+    return torch.cat([p.reshape(p.shape[0], math.prod(p.shape[1:]))
+                      .contiguous().view(torch.int8) for p in planes], dim=1)
 
 
 def _unpack_rows(buf: torch.Tensor, *specs):
@@ -511,10 +522,11 @@ def _unpack_rows(buf: torch.Tensor, *specs):
     return out
 
 
-def _a2a_moe_chunk(x_c, w_c, idx_c, w_gate, w_up, w_down, mesh,
-                   quant: Optional[dict], wire: str) -> torch.Tensor:
-    """One chunk of the dispatch / expert FFN / combine pipeline:
-    ``[Tc, H]`` f32.
+def _a2a_send(x_c, w_c, idx_c, w_gate, mesh, quant: Optional[dict],
+              wire: str) -> dict:
+    """One chunk of the dispatch / expert FFN / combine pipeline, its
+    dispatch side: the packed send buffer (``"send"``) and what
+    :func:`_a2a_finish` needs of the chunk.
 
     Fixed-region layout (the JAX package's off the TPU): the receive
     buffer has one region of ``S = Tc * k`` rows per source rank, source
@@ -536,8 +548,7 @@ def _a2a_moe_chunk(x_c, w_c, idx_c, w_gate, w_up, w_down, mesh,
     origin after dequantization, each token's copies summed in a fixed
     order (the same tokens on every run)."""
     from llm_d_tpu_torch.parallel.mesh import AXIS_EP
-    from llm_d_tpu_torch.parallel.quant_collectives import (
-        dequantize_rows, quantize_rows)
+    from llm_d_tpu_torch.parallel.quant_collectives import quantize_rows
     Tc, H = x_c.shape
     k = idx_c.shape[1]
     dev = x_c.device
@@ -574,13 +585,32 @@ def _a2a_moe_chunk(x_c, w_c, idx_c, w_gate, w_up, w_down, mesh,
     send[:, -4:] = torch.full((rows, 1), -1, dtype=torch.int32,
                               device=dev).view(torch.int8)
     send[pidx] = packed
-    recv = _unpack_rows(mesh.all_to_all(send, AXIS_EP), *specs)
+    return dict(send=send, specs=specs, pidx=pidx, ol=ol, w_c=w_c,
+                Tc=Tc, H=H, k=k, rows=rows, E_loc=E_loc, dtype=x_c.dtype,
+                quant_dispatch=quant_dispatch, quant_combine=quant_combine)
+
+
+def _a2a_finish(st: dict, received: torch.Tensor, w_gate, w_up, w_down,
+                mesh, quant: Optional[dict]) -> torch.Tensor:
+    """A chunk's rows ``received`` by the dispatch exchange through the
+    expert FFN, back by the combine exchange, weighted and summed per
+    token: ``[Tc, H]`` f32."""
+    from llm_d_tpu_torch.parallel.mesh import AXIS_EP
+    from llm_d_tpu_torch.parallel.quant_collectives import (
+        dequantize_rows, quantize_rows)
+    Tc, H, k, rows, E_loc = st["Tc"], st["H"], st["k"], st["rows"], \
+        st["E_loc"]
+    pidx, ol, w_c = st["pidx"], st["ol"], st["w_c"]
+    quant_dispatch, quant_combine = st["quant_dispatch"], st["quant_combine"]
+    S = Tc * k
+    dev = received.device
+    recv = _unpack_rows(received, *st["specs"])
     recv_e = recv[-1]
     valid = recv_e >= 0
     if quant_dispatch:
-        recv_x = dequantize_rows(recv[0], recv[1], x_c.dtype)
+        recv_x = dequantize_rows(recv[0], recv[1], st["dtype"])
     else:
-        recv_x = recv[0].to(x_c.dtype)
+        recv_x = recv[0].to(st["dtype"])
 
     if quant is not None:
         y = _streamed_int8_kernel_path(
@@ -612,22 +642,55 @@ def _a2a_moe_chunk(x_c, w_c, idx_c, w_gate, w_up, w_down, mesh,
     return contrib.reshape(Tc, k, H).sum(dim=1)
 
 
+def dbo_chunk_tokens(T: int, ep: int, chunk_tokens: int,
+                     dbo_min_tokens: Optional[int]) -> int:
+    """Tokens a dispatch chunk of each EP rank's ``T / ep`` rows (the JAX
+    package's rule, on the step's global row count ``T``: every dp
+    shard's rows).  DBO: once ``T`` reaches ``max(dbo_min_tokens, 2 *
+    ep)`` and a rank has at least 2 rows, at most half of them a chunk,
+    so a rank runs at least two chunks; then the largest divisor of the
+    rank's rows at or below.  ``dbo_min_tokens`` None reads
+    ``LLMD_MOE_DBO`` / ``LLMD_DBO_TOKEN_THRESHOLD`` (a standalone op's
+    fallback); below 0 it is off (an engine with DBO off passes -1, so
+    the environment never reaches it)."""
+    T_loc = T // ep
+    if dbo_min_tokens is None and os.environ.get("LLMD_MOE_DBO", "0") == "1":
+        dbo_min_tokens = env_int("LLMD_DBO_TOKEN_THRESHOLD", 32)
+    if dbo_min_tokens is not None and dbo_min_tokens >= 0 \
+            and T >= max(dbo_min_tokens, 2 * ep) and T_loc >= 2:
+        chunk_tokens = min(chunk_tokens, T_loc // 2)
+    chunk_tokens = max(1, min(chunk_tokens, T_loc))
+    while T_loc % chunk_tokens:
+        chunk_tokens -= 1
+    return chunk_tokens
+
+
 def expert_ffn_a2a(x, weights, idx, w_gate, w_up, w_down, mesh,
                    chunk_tokens: Optional[int] = None,
                    quant: Optional[dict] = None,
-                   collective_dtype: Optional[str] = None) -> torch.Tensor:
+                   collective_dtype: Optional[str] = None,
+                   dbo_min_tokens: Optional[int] = None) -> torch.Tensor:
     """Sparse all-to-all EP dispatch over every rank of ``mesh``.
 
     ``x`` is replicated over the rank's tp group (the whole batch at dp
     = 1, the rank's dp shard otherwise).  Each rank takes its ``T / tp``
     slice of it, in chunks of ``LLMD_MOE_DP_CHUNK_SIZE`` tokens (1024;
-    the largest divisor of the slice at or below it) through
-    :func:`_a2a_moe_chunk` over the EP group of every rank, then one
+    :func:`dbo_chunk_tokens` with the DBO threshold ``dbo_min_tokens``)
+    through the dispatch / expert FFN / combine of :func:`_a2a_send` and
+    :func:`_a2a_finish` over the EP group of every rank, then one
     all-gather over tp puts the ``[T, H]`` (in x.dtype) back on each of
     them.  Rank ``(d, t)`` so dispatches rows ``d * T + t * T / tp`` of
     the JAX package's stacked ``[dp * T]`` rows, as its EP split of them
-    does.  Needs ``dp * T % ep == 0`` and ``E % ep == 0``."""
-    from llm_d_tpu_torch.parallel.mesh import AXIS_EP, AXIS_TP
+    does, and runs as many chunks as each JAX shard does.  Needs ``dp *
+    T % ep == 0`` and ``E % ep == 0``.
+
+    DBO (dual-batch overlap): chunk ``i + 1``'s dispatch exchange is
+    issued (``Mesh.all_to_all_async``) before chunk ``i``'s expert FFN
+    and combine run, and waited on after them, so the exchange of one
+    chunk overlaps the expert compute of the other.  Chunks share no
+    state, so the result is the chunk-by-chunk one, and the exchanges
+    carry the same bytes as one chunk's."""
+    from llm_d_tpu_torch.parallel.mesh import AXIS_DP, AXIS_EP, AXIS_TP
     from llm_d_tpu_torch.parallel.quant_collectives import (
         resolve_collective_dtype)
     wire = resolve_collective_dtype(collective_dtype, _wire_backend(x))
@@ -640,14 +703,25 @@ def expert_ffn_a2a(x, weights, idx, w_gate, w_up, w_down, mesh,
     T_loc = T // tp
     if chunk_tokens is None:
         chunk_tokens = env_int("LLMD_MOE_DP_CHUNK_SIZE", 1024)
-    chunk_tokens = max(1, min(chunk_tokens, T_loc))
-    while T_loc % chunk_tokens:
-        chunk_tokens -= 1
+    chunk_tokens = dbo_chunk_tokens(T * mesh.axis_size(AXIS_DP), ep,
+                                    chunk_tokens, dbo_min_tokens)
     r0 = mesh.axis_index(AXIS_TP) * T_loc
-    outs = []
-    for c0 in range(r0, r0 + T_loc, chunk_tokens):
+    starts = range(r0, r0 + T_loc, chunk_tokens)
+
+    def send(c0):
         sl = slice(c0, c0 + chunk_tokens)
-        outs.append(_a2a_moe_chunk(x[sl], weights[sl], idx[sl], w_gate,
-                                   w_up, w_down, mesh, quant, wire))
+        st = _a2a_send(x[sl], weights[sl], idx[sl], w_gate, mesh, quant,
+                       wire)
+        return st, mesh.all_to_all_async(st["send"], AXIS_EP)
+
+    outs = []
+    nxt = send(starts[0])
+    for i in range(len(starts)):
+        st, pending = nxt
+        received = pending.wait()
+        if i + 1 < len(starts):
+            nxt = send(starts[i + 1])
+        outs.append(_a2a_finish(st, received, w_gate, w_up, w_down, mesh,
+                                quant))
     out = torch.cat(outs) if len(outs) > 1 else outs[0]
     return mesh.all_gather(out.to(x.dtype), AXIS_TP, dim=0)

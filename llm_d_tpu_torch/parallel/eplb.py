@@ -42,6 +42,21 @@ to the identity, so the engine's controller records routed ids, publishes
 the imbalance gauge and suppresses; the staging and the flip are exercised
 at ``ep`` > 1 on one device by the tests and the smoke.
 
+On a mesh (``EplbController(..., mesh=)``, the JAX controller's install
+and staging over an EP-sharded array): each rank holds its ``P / ep``
+physical slots ``[Lm, P / ep, ...]`` and the replicated tables.
+``install`` moves each slot's logical expert to its rank, and a move
+whose source slot lies on another rank ships that slot's rows (every
+expert-major key: the int8 planes and their scales) by one uneven
+``all_to_all`` a staging tick (:func:`exchange_slots`); the bytes each
+rank sends and receives across ranks are counted.  The schedule is rank
+0's alone: at each retire it decides (``on_step``) whether the next step
+begins a migration (shipping its target plans), stages a batch or
+flips, and every rank, rank 0 included, carries the decision out at the
+top of the next step (``apply``), when rank 0's step message has
+brought it.  The staging exchange runs on the compute stream, so the
+flip that follows a tick's last batch needs no event.
+
 Plan algorithm (greedy, deterministic):
   1. replicas per logical expert ∝ load (largest-remainder rounding, every
      expert gets ≥ 1);
@@ -355,6 +370,49 @@ class _Migration:
     event: Any = None                          # staging done (CUDA only)
 
 
+def exchange_slots(mesh, planes: Sequence[torch.Tensor],
+                   moves: Sequence[Tuple[int, int, int]],
+                   src_per_rank: int, dst_per_rank: int
+                   ) -> Tuple[List[torch.Tensor], int, int]:
+    """The rows of slot moves ``(layer, dst_slot, src_slot)`` (global
+    slot ids) whose destination lies on this rank, in move order, for
+    every plane: ``planes`` are this rank's ``[Lm * src_per_rank, ...]``
+    row views of the source layout (``src_per_rank`` slots a rank), the
+    destination layout has ``dst_per_rank`` slots a rank.  One uneven
+    ``all_to_all`` over the EP group carries every plane's rows packed;
+    a move within a rank crosses no wire.  Every rank runs it with the
+    same moves.  Returns (rows per plane, bytes sent to other ranks,
+    bytes received from them)."""
+    from llm_d_tpu_torch.ops.moe import _pack_rows, _unpack_rows
+    from llm_d_tpu_torch.parallel.mesh import AXIS_EP
+    ep = mesh.axis_size(AXIS_EP)
+    me = mesh.axis_index(AXIS_EP)
+    send: List[List[int]] = [[] for _ in range(ep)]
+    recv: List[List[int]] = [[] for _ in range(ep)]
+    for i, (li, dst, src) in enumerate(moves):
+        s_rank, d_rank = src // src_per_rank, dst // dst_per_rank
+        if s_rank == me:
+            send[d_rank].append(li * src_per_rank + src % src_per_rank)
+        if d_rank == me:
+            recv[s_rank].append(i)
+    dev = planes[0].device
+    rows = _index([r for d in send for r in d], dev)
+    packed = _pack_rows(*(p.index_select(0, rows) for p in planes))
+    got = mesh.all_to_all(packed, AXIS_EP, [len(d) for d in send],
+                          [len(r) for r in recv])
+    # Received source-major; back to move order.
+    arrival = [i for r in recv for i in r]
+    got = got.index_select(0, _index(np.argsort(arrival, kind="stable"),
+                                     dev))
+    row_bytes = packed.shape[1]
+    sent = sum(len(d) for r, d in enumerate(send) if r != me) * row_bytes
+    received = sum(len(x) for r, x in enumerate(recv) if r != me) * row_bytes
+    widths = [(p.dtype, p[0].numel()) for p in planes]
+    out = [u.reshape((-1,) + tuple(p.shape[1:]))
+           for u, p in zip(_unpack_rows(got, *widths), planes)]
+    return out, sent, received
+
+
 def _index(values: Sequence[int], device) -> torch.Tensor:
     """int64 index tensor on ``device`` (through pinned memory on a card,
     so the copy queues without a host wait)."""
@@ -373,14 +431,25 @@ class EplbController:
 
     Plans are per MoE layer; one move budget is amortized across layers.
     ``metrics`` (utils.metrics.EngineMetrics) is an optional sink the
-    engine wires after construction.  There is no mesh: the physical
-    table lives on the engine's one device, and ``ep`` only shapes the
-    plans."""
+    engine wires after construction.  Without ``mesh`` the physical table
+    lives on the engine's one device, and ``ep`` only shapes the plans;
+    with it, ``ep`` is the mesh's and each rank holds its slots (module
+    docstring)."""
 
-    def __init__(self, num_experts: int, ep: int, config: EplbConfig) -> None:
+    def __init__(self, num_experts: int, ep: int, config: EplbConfig,
+                 mesh=None) -> None:
         self.E = num_experts
         self.ep = ep
         self.config = config
+        self.mesh = mesh
+        if mesh is not None and mesh.size != ep:
+            raise ValueError(f"eplb: ep {ep} is not the mesh's {mesh.size}")
+        # Bytes this rank sent to / received from other ranks (mesh).
+        self.sent_bytes = 0
+        self.received_bytes = 0
+        # Rank 0's decision for the next step (mesh): None, ("tick",) or
+        # ("begin", step, [phys_to_logical per layer]).
+        self._decision: Optional[tuple] = None
         r = config.num_redundant_experts
         if r <= 0:
             # Auto: one extra slot per shard after padding E up to a multiple.
@@ -467,10 +536,30 @@ class EplbController:
         dev = ml["router"].device
         self.n_layers = n_layers
         self.plans = [self.plans[0]] * n_layers
-        phys = torch.as_tensor(self.plans[0].phys_to_logical,
-                               dtype=torch.long, device=dev)
-        for name in _expert_major_keys(ml):
-            ml[name] = ml[name].index_select(1, phys).contiguous()
+        p2l = self.plans[0].phys_to_logical
+        if self.mesh is not None:
+            # This rank's slots, layer by layer, from the logical
+            # experts' ranks ([Lm, E / ep, ...] -> [Lm, P / ep, ...]).
+            e_loc = self.E // self.ep
+            spp = self.plans[0].slots_per_shard
+            names = _expert_major_keys(ml)
+            out = {n: torch.empty((n_layers, spp) + tuple(ml[n].shape[2:]),
+                                  dtype=ml[n].dtype, device=dev)
+                   for n in names}
+            moves = [(0, p, int(e)) for p, e in enumerate(p2l)]
+            for li in range(n_layers):
+                rows, sent, got = exchange_slots(
+                    self.mesh, [ml[n][li] for n in names], moves, e_loc,
+                    spp)
+                for n, r in zip(names, rows):
+                    out[n][li] = r
+                self.sent_bytes += sent
+                self.received_bytes += got
+            ml.update(out)
+        else:
+            phys = torch.as_tensor(p2l, dtype=torch.long, device=dev)
+            for name in _expert_major_keys(ml):
+                ml[name] = ml[name].index_select(1, phys).contiguous()
         rt, nr = self._stacked_tables(n_layers)
         ml["replica_table"] = torch.tensor(rt, device=dev)
         ml["num_replicas"] = torch.tensor(nr, device=dev)
@@ -503,54 +592,94 @@ class EplbController:
         imb = self.tracker.imbalance()
         if self.metrics is not None:
             self.metrics.eplb_imbalance.set(imb)
-        if self._migration is not None:
-            return self._migration_tick(params)
-        if step - self._last_rebalance_step >= c.step_interval \
-                and self.tracker.load.sum() > 0:
-            self._last_rebalance_step = step
-            if imb < self.imbalance_threshold:
-                # Hysteresis: already balanced enough — re-check next
-                # interval instead of churning weights for noise.
-                self.num_suppressed += 1
-                logger.debug("eplb: imbalance %.3f < threshold %.3f, "
-                             "skipping rebalance", imb,
-                             self.imbalance_threshold)
-            else:
-                self._begin_migration(step)
-                if self._migration is not None:
-                    params = self._migration_tick(params)
+        if self.mesh is None:
+            # One device: decide and act at this retire.
+            return self.apply(self._decide(step, imb), params)
+        if self.mesh.rank == 0:
+            self._decision = self._decide(step, imb)
         return params
 
-    # ---------- migration machinery ----------
+    # ---------- the schedule (on a mesh rank 0 decides, every rank acts) --
 
-    def _begin_migration(self, step: int) -> None:
-        """Plan per-layer targets from the observed (per-layer when
-        available) load, align each to its serving plan, and queue the
-        delta moves.  Suppresses when fewer than ``min_delta_slots``
-        slots would change."""
-        n_layers = self.n_layers
-        layer_load = self.tracker.layer_load
-        if layer_load is None or layer_load.shape[0] != n_layers:
-            layer_load = np.broadcast_to(
-                self.tracker.load, (n_layers, self.E))
-        targets: List[EplbPlan] = []
-        moves: Deque[Tuple[int, int, int]] = collections.deque()
-        for li in range(n_layers):
-            new = plan_placement(layer_load[li] + 1e-9,
-                                 self.num_redundant, self.ep)
-            aligned = align_plan(new, self.plans[li])
-            targets.append(aligned)
-            for dst, src in plan_delta(self.plans[li], aligned):
-                moves.append((li, dst, src))
-        if len(moves) < max(1, self.config.min_delta_slots):
+    def _decide(self, step: int, imb: float) -> Optional[tuple]:
+        """At a retire: advance an in-flight migration (``("tick",)``), or
+        on the interval begin one to freshly planned targets (``("begin",
+        step, [phys_to_logical per layer])``), or nothing (None).  One
+        device acts on it at once; on a mesh rank 0 decides and every rank
+        acts at the top of the next step."""
+        if self._migration is not None:
+            return ("tick",)
+        if step - self._last_rebalance_step < self.config.step_interval \
+                or self.tracker.load.sum() <= 0:
+            return None
+        self._last_rebalance_step = step
+        if imb < self.imbalance_threshold:
+            # Hysteresis: already balanced enough -- re-check next
+            # interval instead of churning weights for noise.
+            self.num_suppressed += 1
+            logger.debug("eplb: imbalance %.3f < threshold %.3f, skipping "
+                         "rebalance", imb, self.imbalance_threshold)
+            return None
+        targets = self._plan()
+        moves = sum(len(plan_delta(p, t)) for p, t in zip(self.plans,
+                                                            targets))
+        if moves < max(1, self.config.min_delta_slots):
             # Min-delta suppression: an identity (or near-identity) plan
             # performs zero moves and costs nothing.
             if moves:
                 self.num_suppressed += 1
             logger.debug("eplb: delta of %d move(s) below min %d, "
-                         "suppressed", len(moves),
-                         self.config.min_delta_slots)
-            return
+                         "suppressed", moves, self.config.min_delta_slots)
+            return None
+        return ("begin", step, [t.phys_to_logical for t in targets])
+
+    def take_decision(self) -> Optional[tuple]:
+        """Rank 0: the decision its next step message carries (once)."""
+        d, self._decision = self._decision, None
+        return d
+
+    def apply(self, decision: Optional[tuple],
+              params: Dict[str, Any]) -> Dict[str, Any]:
+        """Carry out a decision (:meth:`_decide`; on a mesh every rank at
+        the top of a step, in rank 0's order): begin a migration to the
+        given plans (and stage its first batch), or stage the next batch;
+        a tick whose staged slab is ready after its last batch flips."""
+        if decision is None:
+            return params
+        if decision[0] == "begin":
+            if self._migration is not None:
+                raise RuntimeError("eplb: rank 0 began a migration while "
+                                   "this rank has one in flight")
+            _, step, p2ls = decision
+            spp = self.plans[0].slots_per_shard
+            targets = [_plan_from_p2l(np.asarray(p), self.E, spp)
+                       for p in p2ls]
+            self._start(targets, step)
+        elif self._migration is None:
+            raise RuntimeError("eplb: rank 0 ordered a staging tick but "
+                               "this rank has no migration in flight")
+        return self._migration_tick(params)
+
+    # ---------- migration machinery ----------
+
+    def _plan(self) -> List[EplbPlan]:
+        """Per-layer targets from the observed (per-layer when available)
+        load, each aligned to its serving plan."""
+        n_layers = self.n_layers
+        layer_load = self.tracker.layer_load
+        if layer_load is None or layer_load.shape[0] != n_layers:
+            layer_load = np.broadcast_to(
+                self.tracker.load, (n_layers, self.E))
+        return [align_plan(plan_placement(layer_load[li] + 1e-9,
+                                          self.num_redundant, self.ep),
+                           self.plans[li]) for li in range(n_layers)]
+
+    def _start(self, targets: List[EplbPlan], step: int) -> None:
+        """Queue the delta moves from the serving plans to ``targets``."""
+        moves: Deque[Tuple[int, int, int]] = collections.deque(
+            (li, dst, src) for li, t in enumerate(targets)
+            for dst, src in plan_delta(self.plans[li], t))
+        n_layers = self.n_layers
         self._migration = _Migration(
             plans=targets, moves=moves, total_moves=len(moves),
             started_step=step)
@@ -569,7 +698,8 @@ class EplbController:
         if m.moves:
             batch = [m.moves.popleft()
                      for _ in range(min(self.move_budget, len(m.moves)))]
-            staged_bytes = self._stage(batch, params)
+            staged_bytes = (self._stage(batch, params) if self.mesh is None
+                            else self._stage_mesh(batch, params))
             m.staged_bytes += staged_bytes
             if self.metrics is not None:
                 self.metrics.eplb_migrated_bytes.inc(staged_bytes)
@@ -636,6 +766,40 @@ class EplbController:
                 m.event = torch.cuda.Event()
                 m.event.record(side)
         return nbytes
+
+    def _stage_mesh(self, batch: List[Tuple[int, int, int]],
+                    params: Dict[str, Any]) -> int:
+        """:meth:`_stage` on a mesh: the batch's rows that land on this
+        rank come from their source slots' ranks by
+        :func:`exchange_slots` into the slab, in move order; each move is
+        shipped once (the budget's padding would only re-ship a row).
+        Runs on the compute stream.  Returns the bytes staged here."""
+        m = self._migration
+        assert m is not None
+        ml = params["moe_layers"]
+        names = _expert_major_keys(ml)
+        spp = ml[names[0]].shape[1]
+        me = self.mesh.rank
+        mine = [(li, dst - me * spp) for li, dst, _ in batch
+                if dst // spp == me]
+        if not m.staged:
+            n_mine = len(mine) + sum(1 for _, dst, _ in m.moves
+                                     if dst // spp == me)
+            for name in names:
+                cur = ml[name]
+                m.staged[name] = torch.empty(
+                    (n_mine,) + tuple(cur.shape[2:]), dtype=cur.dtype,
+                    device=cur.device)
+        planes = [ml[n].view((-1,) + tuple(ml[n].shape[2:])) for n in names]
+        rows, sent, got = exchange_slots(self.mesh, planes, batch, spp, spp)
+        base = len(m.targets)
+        for name, r in zip(names, rows):
+            m.staged[name][base:base + len(mine)] = r
+        m.targets.extend(mine)
+        self.sent_bytes += sent
+        self.received_bytes += got
+        return sum(ml[n][0, 0].numel() * ml[n].element_size()
+                   for n in names) * len(mine)
 
     @staticmethod
     def _staged_ready(m: _Migration) -> bool:

@@ -131,7 +131,8 @@ class RankPool:
                 self.close(kill=True)
                 raise TimeoutError(
                     f"ranks {sorted(pending)} missed the {timeout_s:.0f} s "
-                    f"deadline {what}" + (f" (dead: {dead})" if dead else ""))
+                    f"deadline {what}" + (f" (dead: {dead})" if dead else "")
+                    + "".join(f"\n{e}" for e in errors))
             pending.discard(rank)
             if ok:
                 out[rank] = value

@@ -34,7 +34,7 @@ import dataclasses
 import datetime
 import logging
 import os
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -164,12 +164,15 @@ class Mesh:
         self.backend = backend
         # gloo on CUDA tensors: stage each collective through the host.
         self.stage_host = backend == "gloo" and self.device.type == "cuda"
+        self._grid = grid
         pos = np.argwhere(grid == rank)[0]
         self.coord = dict(zip(MESH_AXES, (int(p) for p in pos)))
         self.shape = dict(zip(MESH_AXES, grid.shape))
         self._groups = groups if groups is not None else {}
-        # Bytes each rank put on the wire, by collective (host counts).
+        # Bytes each rank put on the wire, and the calls it made, by
+        # collective (host counts).
         self.wire_bytes: Dict[str, int] = {}
+        self.calls: Dict[str, int] = {}
 
     @classmethod
     def from_process_group(cls, config: MeshConfig, device: torch.device,
@@ -232,6 +235,7 @@ class Mesh:
     def _count(self, kind: str, t: torch.Tensor, factor: float) -> None:
         self.wire_bytes[kind] = self.wire_bytes.get(kind, 0) + int(
             t.numel() * t.element_size() * factor)
+        self.calls[kind] = self.calls.get(kind, 0) + 1
 
     def all_reduce(self, x: torch.Tensor, axis=AXIS_TP,
                    op: str = "sum") -> torch.Tensor:
@@ -261,19 +265,84 @@ class Mesh:
         dist.all_gather(outs, xs, group=self.group(axis))
         return torch.cat(outs, dim=dim).to(x.device)
 
-    def all_to_all(self, x: torch.Tensor, axis=AXIS_EP) -> torch.Tensor:
+    def all_to_all(self, x: torch.Tensor, axis=AXIS_EP,
+                   in_splits: Optional[Sequence[int]] = None,
+                   out_splits: Optional[Sequence[int]] = None
+                   ) -> torch.Tensor:
         """Equal split of dim 0 over ``axis``: chunk ``i`` goes to rank
         ``i``, and the chunks received land in source order (JAX's tiled
-        ``all_to_all`` with split and concat axis 0)."""
+        ``all_to_all`` with split and concat axis 0).  ``in_splits`` /
+        ``out_splits`` (rows sent to / received from each rank, known on
+        both sides) make the split uneven."""
+        return self.all_to_all_async(x, axis, in_splits, out_splits).wait()
+
+    def all_to_all_async(self, x: torch.Tensor, axis=AXIS_EP,
+                         in_splits: Optional[Sequence[int]] = None,
+                         out_splits: Optional[Sequence[int]] = None
+                         ) -> "PendingExchange":
+        """:meth:`all_to_all` issued without waiting for it: ``.wait()``
+        on the result returns what :meth:`all_to_all` would.  Under gloo
+        on CUDA tensors the copy to the host runs before the issue (the
+        caller waits for it), the copy back after the wait.  The same
+        bytes are counted."""
         import torch.distributed as dist
         n = self.axis_size(axis)
         if n == 1:
-            return x
+            return PendingExchange(None, x, x.device)
         xs = self._wire(x)
-        out = torch.empty_like(xs)
-        self._count("all_to_all", xs, (n - 1) / n)
-        dist.all_to_all_single(out, xs, group=self.group(axis))
-        return out.to(x.device)
+        if out_splits is None:
+            out = torch.empty_like(xs)
+            self._count("all_to_all", xs, (n - 1) / n)
+        else:
+            out = xs.new_empty((sum(out_splits),) + tuple(xs.shape[1:]))
+            me = self.axis_index(axis)
+            row = xs[0].numel() * xs.element_size() if xs.shape[0] else 0
+            sent = sum(c for i, c in enumerate(in_splits) if i != me)
+            self.wire_bytes["all_to_all"] = \
+                self.wire_bytes.get("all_to_all", 0) + sent * row
+            self.calls["all_to_all"] = self.calls.get("all_to_all", 0) + 1
+        work = dist.all_to_all_single(
+            out, xs, output_split_sizes=None if out_splits is None
+            else list(out_splits), input_split_sizes=None
+            if in_splits is None else list(in_splits),
+            group=self.group(axis), async_op=True)
+        return PendingExchange(work, out, x.device)
+
+    def region_ranks(self, dp_index: int) -> List[int]:
+        """The ranks of dp shard ``dp_index``, in tp order."""
+        return [int(r) for r in self._grid[dp_index].reshape(-1)]
+
+    def send(self, x: torch.Tensor, dst: int) -> None:
+        """Point to point: ``x`` (on the host or this rank's device) to
+        rank ``dst``, which calls :meth:`recv` with its shape and dtype."""
+        import torch.distributed as dist
+        xs = x.contiguous().to("cpu" if self.stage_host else self.device)
+        self._count("send", xs, 1)
+        dist.send(xs, dst)
+
+    def recv(self, shape, dtype: torch.dtype, src: int) -> torch.Tensor:
+        """Point to point: the tensor rank ``src`` sends, on this rank's
+        device."""
+        import torch.distributed as dist
+        out = torch.empty(tuple(shape), dtype=dtype,
+                          device="cpu" if self.stage_host else self.device)
+        dist.recv(out, src)
+        return out.to(self.device)
+
+
+class PendingExchange:
+    """An issued :meth:`Mesh.all_to_all_async`: :meth:`wait` blocks until
+    the exchange is done and returns the rows received, on the caller's
+    device.  A failed exchange raises there."""
+
+    def __init__(self, work, out: torch.Tensor, device: torch.device):
+        self._work, self._out, self._device = work, out, device
+
+    def wait(self) -> torch.Tensor:
+        if self._work is not None:
+            self._work.wait()
+            self._work = None
+        return self._out.to(self._device)
 
 
 # A follower's wait for rank 0's next step is cut into waits this long
@@ -292,8 +361,17 @@ class StepChannel:
     def __init__(self, mesh: Mesh):
         import torch.distributed as dist
         from torch.distributed import distributed_c10d
-        self._store = dist.PrefixStore(
-            "llmd_steps/", distributed_c10d._get_default_store())
+        store = distributed_c10d._get_default_store()
+        # The channel's key: rank 0 draws it from the store's counter and
+        # broadcasts it, so every rank addresses the same messages however
+        # many channels (a P/D pair on the same ranks builds two) this
+        # process made before.
+        key = torch.zeros(1, dtype=torch.int64, device=mesh.device
+                          if mesh.backend == "nccl" else "cpu")
+        if mesh.rank == 0:
+            key += store.add("llmd_steps/channels", 1)
+        dist.broadcast(key, src=0)
+        self._store = dist.PrefixStore(f"llmd_steps/{int(key)}/", store)
         self._readers = mesh.world - 1
         self._seq = 0
         self.leader = mesh.rank == 0

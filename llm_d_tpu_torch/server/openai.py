@@ -81,9 +81,12 @@ card over gloo where there are fewer cards); readiness comes once every
 rank has built.  Drain and SIGTERM stop every rank (exit 0).  If a rank
 dies, ``/health`` fails and the server exits non-zero: it never serves
 on with fewer ranks.  ``--allow-device-subset`` permits a mesh smaller
-than the host's card count.  On a mesh P/D, the host tier, spec decode,
-EPLB and (gloo on CUDA) ``--num-scheduler-steps`` > 1 are refused by
-name.
+than the host's card count.  A mesh serves the wide-EP recipe's flags
+(``deploy/wide-ep-lws``): ``--enable-dbo`` and its thresholds,
+``--enable-eplb`` / ``--eplb-config`` (migrations between ranks) and
+``--kv-transfer-config`` (rank 0 holds the connector).  On a mesh the
+host tier, spec decode and (gloo on CUDA) ``--num-scheduler-steps`` > 1
+are refused by name.
 
 Data parallelism on one host, in the JAX server's two modes
 (``--data-parallel-size D``, ``--data-parallel-size-local`` equal to it):
@@ -98,8 +101,8 @@ Not served (each refused with a message naming it, not quietly
 dropped): multi-host DP (``--data-parallel-start-rank``, ``-address``,
 ``-rpc-port``, ``-hybrid-lb``, ``-workers``, and a
 ``--data-parallel-size-local`` below ``--data-parallel-size``: the
-leader's dispatch over worker hosts), the DBO flags (``UNSERVED_FLAGS``),
-and the relay half of resume (the DP leader's).
+leader's dispatch over worker hosts; ``UNSERVED_FLAGS``), and the relay
+half of resume (the DP leader's).
 """
 
 from __future__ import annotations
@@ -835,6 +838,9 @@ def engine_config_from_args(args) -> EngineConfig:
                             if args.kv_cache_hbm_gb else None),
         enable_eplb=args.enable_eplb,
         eplb_config=json.loads(args.eplb_config) if args.eplb_config else None,
+        enable_dbo=args.enable_dbo,
+        dbo_decode_token_threshold=args.dbo_decode_token_threshold,
+        dbo_prefill_token_threshold=args.dbo_prefill_token_threshold,
         spec_k=args.spec_k,
         spec_strict=True if args.spec_strict else None,
         mesh=mesh_from_args(args),
@@ -856,9 +862,6 @@ UNSERVED_FLAGS = {
     "data_parallel_rpc_port": _MULTI_HOST,
     "data_parallel_hybrid_lb": _MULTI_HOST,
     "data_parallel_workers": _MULTI_HOST,
-    "enable_dbo": "dual-batch overlap is not ported",
-    "dbo_decode_token_threshold": "dual-batch overlap is not ported",
-    "dbo_prefill_token_threshold": "dual-batch overlap is not ported",
 }
 
 # Served flags that need a module beyond the standard library, by
@@ -932,14 +935,26 @@ def build_arg_parser() -> argparse.ArgumentParser:
         help="size the block pool from this device-memory budget in GiB "
              "(dtype-aware: an int8 cache fits ~2x the blocks); overrides "
              "--num-blocks")
-    p.add_argument("--enable-dbo", action="store_true")
-    p.add_argument("--dbo-decode-token-threshold", type=int, default=32)
-    p.add_argument("--dbo-prefill-token-threshold", type=int, default=32)
+    p.add_argument(
+        "--enable-dbo", action="store_true",
+        help="dual-batch overlap on a mesh: from the phase's threshold on, "
+             "the EP dispatch runs in >= 2 chunks, one chunk's exchange in "
+             "flight while the other's experts compute (reference: "
+             "--enable-dbo, decode.yaml:78); MoE models only, nothing to "
+             "overlap on one device")
+    p.add_argument(
+        "--dbo-decode-token-threshold", type=int, default=32,
+        help="min tokens before DBO splits a decode batch (decode.yaml:98)")
+    p.add_argument(
+        "--dbo-prefill-token-threshold", type=int, default=32,
+        help="min tokens before DBO splits a prefill batch (prefill.yaml:79)")
     p.add_argument(
         "--enable-eplb", action="store_true",
         help="MoE expert load balancing with redundant experts (reference: "
              "--enable-eplb, decode.yaml:79); one card: the identity "
-             "placement, routed ids collected, imbalance published")
+             "placement, routed ids collected, imbalance published; a "
+             "mesh: each rank its P / ep physical slots, live migrations "
+             "between ranks")
     p.add_argument(
         "--eplb-config", default=None,
         help='JSON eplb config, e.g. \'{"window_size":1000,'
@@ -1080,10 +1095,8 @@ def check_mesh_flags(parser: argparse.ArgumentParser, args) -> None:
               if args.data_parallel_size > 1
               else f"--tensor-parallel-size {args.tensor_parallel_size}")
     refused = {
-        "--kv-transfer-config": bool(args.kv_transfer_config),
         "--kv-offload-blocks": args.kv_offload_blocks > 0,
         "--spec-k": bool(args.spec_k),
-        "--enable-eplb": args.enable_eplb,
     }
     for flag, on in refused.items():
         if on:
@@ -1162,6 +1175,13 @@ def _serve_mesh(args, argv: List[str]) -> int:
         logger.info("mesh: %s, %d ranks on %s", mesh_from_args(args),
                     world, backend)
         server = build_server(engine_config_from_args(args), args.tokenizer)
+        connector = kv_connector_from_args(args)
+        if connector is not None:
+            # Rank 0's: the transport server and the pulls are its own.
+            server.engine.kv_connector = connector
+            logger.info("KV connector: role=%s serving on %s:%s",
+                        connector.config.kv_role, connector.host,
+                        connector.port)
         dist.barrier()               # every rank has built
         if args.latency_training_url:
             server.latency_training_url = \

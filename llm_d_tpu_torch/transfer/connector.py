@@ -27,9 +27,20 @@ the old memory.  It is queued on the current stream behind any in-flight
 graph replay, from pinned host memory, and the host does not wait for it.
 
 ``kv_load_failure_policy`` follows decode.yaml:96: "fail" aborts the request
-loudly; "recompute" falls back to a full local prefill.  Only the flat
-cache of one device is served (the JAX package's stacked data-parallel
-caches have no counterpart here).
+loudly; "recompute" falls back to a full local prefill.
+
+On a ``dp x tp`` mesh (the JAX package's stacked caches) a request's
+blocks lie in its KV region's plane, on that region's ranks (``[L, slots
+/ dp, W]``, W split over tp where the cache shards), and the connector,
+its transport server and the scheduler are rank 0's.  The producer's
+gather runs on every rank at the retire that finishes the prefill: the
+request's region gathers its tp shards and its first rank sends the rows
+to rank 0.  The consumer's admission (``EngineCore.admit_pulled``, on
+every rank) rides rank 0's step order, so every rank allocates the same
+blocks, and at the top of that step rank 0 sends the slab to the
+region's ranks, which write their shard of it.  Neither runs on a connector thread.  The
+wire is the one-device engine's, so a mesh and one device serve each
+other both ways.
 """
 
 from __future__ import annotations
@@ -325,36 +336,21 @@ class TpuConnector:
         return outputs
 
     def _admit(self, engine, req: Request, blob: bytes) -> Optional[RequestOutput]:
-        """Scatter the fetched KV into local blocks and make req schedulable."""
-        P = req.num_prompt_tokens
-        bs = engine.config.block_size
-        nb = -(-P // bs)
-        km = engine.kv_manager
-        region = km.assign_region(req)
-        if not km.can_allocate(nb, region):
-            # Cache pressure: hold the slab and retry next poll (the blocks
-            # will free as running requests finish). Still abortable.
-            km.unpin(req)
-            self._retry.append((req, blob))
-            with self._inflight_mu:
-                self._pending_ids.add(req.request_id)
-            return None
-        attached = km.allocate(req, P)
-        if attached is None:
-            km.unpin(req)
-            self._retry.append((req, blob))
-            with self._inflight_mu:
-                self._pending_ids.add(req.request_id)
-            return None
+        """Hand the fetched KV to the engine (``EngineCore.admit_pulled``:
+        local blocks, the scatter, the scheduler); park it for the next
+        poll under cache pressure, or apply the failure policy to a slab
+        the cache cannot take."""
         try:
-            _scatter_blocks(engine, req.block_ids, blob)
+            admitted = engine.admit_pulled(req, blob)
         except (ValueError, struct.error) as e:
-            engine.kv_manager.free(req)
             return_list = self._load_failed(engine, req, f"bad slab: {e}")
             return return_list[0] if return_list else None
-        req.num_computed_tokens = P - 1   # last prompt token recomputed locally
-        req.kv_transfer_params = None
-        engine.scheduler.add_request(req)
+        if not admitted:
+            # Cache pressure: hold the slab and retry next poll (the blocks
+            # will free as running requests finish). Still abortable.
+            self._retry.append((req, blob))
+            with self._inflight_mu:
+                self._pending_ids.add(req.request_id)
         return None
 
     def _load_failed(self, engine, req: Request, error: str
@@ -364,7 +360,7 @@ class TpuConnector:
                            req.request_id, error)
             req.do_remote_prefill = False
             req.kv_transfer_params = None
-            engine.scheduler.add_request(req)
+            engine.readmit(req)
             return []
         logger.error("kv load failed for %s: %s", req.request_id, error)
         req.state = RequestState.FINISHED_ABORTED
@@ -408,14 +404,67 @@ def block_ids_on(device: torch.device, block_ids: Sequence[int]) -> torch.Tensor
     return to_device(torch.tensor(list(block_ids), dtype=torch.long), device)
 
 
+def _local_blocks(engine, block_ids: Sequence[int]) -> Tuple[int, List[int]]:
+    """Global block ids of one request -> (its KV region, the ids in the
+    region's plane); region 0 and the ids themselves off dp."""
+    km = engine.kv_manager
+    regions = {km.region_of_block(b) for b in block_ids} or {0}
+    if len(regions) != 1:
+        raise ValueError(f"transfer blocks span KV regions {sorted(regions)}")
+    r = regions.pop()
+    return r, [b - r * km.blocks_per_region for b in block_ids]
+
+
+def _tp_sharded(engine, name: str) -> bool:
+    """Whether cache buffer ``name`` splits its row width over tp on the
+    engine's mesh (GQA K/V, and per-head scales beside them)."""
+    mesh = engine.mesh
+    if mesh is None or mesh.axis_size("tp") == 1:
+        return False
+    spec = engine.model.kv_cache_spec(engine.model_config).get(
+        name.replace("_scale", ""), ())
+    if name.endswith("_scale") and engine.kv_scale_width <= 1:
+        return False
+    return "tp" in spec
+
+
 def gather_blocks(engine, block_ids: Sequence[int]
                   ) -> List[Tuple[str, torch.Tensor]]:
     """Every cache buffer's rows of ``block_ids``, on the device:
-    ``[(name, [L, nb, bs, W])]`` in wire order."""
-    ids = block_ids_on(engine.device, block_ids)
+    ``[(name, [L, nb, bs, W])]`` in wire order.  On a mesh a collective
+    of the request's region and rank 0, which every rank calls: the
+    region's ranks gather their tp shards where the buffer shards, and
+    the region's first rank sends the rows to rank 0 (region 0's first);
+    the rows are rank 0's, an empty list elsewhere."""
+    from llm_d_tpu_torch.parallel.mesh import AXIS_TP
+    r, local = _local_blocks(engine, block_ids)
+    ids = block_ids_on(engine.device, local)
     bs = engine.config.block_size
-    return [(name, _blocks(buf, bs).index_select(1, ids))
-            for name, buf in _cache_items(engine)]
+    mesh = engine.mesh
+    if mesh is None:
+        return [(name, _blocks(buf, bs).index_select(1, ids))
+                for name, buf in _cache_items(engine)]
+    here = engine.dp_index == r
+    first = mesh.region_ranks(r)[0]
+    if not here and mesh.rank != 0:
+        return []
+    out = []
+    for name, buf in _cache_items(engine):
+        sharded = _tp_sharded(engine, name)
+        rows = None
+        if not here:
+            width = buf.shape[2] * (mesh.axis_size(AXIS_TP) if sharded
+                                    else 1)
+            rows = mesh.recv((buf.shape[0], len(local), bs, width),
+                             buf.dtype, first)
+        elif sharded or mesh.rank == first:
+            rows = _blocks(buf, bs).index_select(1, ids)
+            if sharded:
+                rows = mesh.all_gather(rows, AXIS_TP, dim=3)
+            if mesh.rank == first and first != 0:
+                mesh.send(rows, 0)
+        out.append((name, rows))
+    return out if mesh.rank == 0 else []
 
 
 def scatter_block_rows(engine, name: str, block_ids: torch.Tensor,
@@ -461,10 +510,12 @@ def _pack_blocks(engine, block_ids: List[int]) -> bytes:
     return b"".join(parts)
 
 
-def _scatter_blocks(engine, block_ids: List[int], blob: bytes) -> None:
-    """Write wire v2 ``blob`` into ``block_ids`` of the engine's cache;
-    ``ValueError`` on a layout, version or dtype the cache does not
-    have (nothing is written then)."""
+def check_slab(engine, blob: bytes, nb: int) -> List[Tuple]:
+    """Validate wire v2 ``blob`` against the engine's cache for ``nb``
+    blocks (``ValueError`` on a layout, version, width or dtype the cache
+    does not have); returns each buffer's segment ``(name, offset, count,
+    dtype, full width)``.  Widths are the whole rows the wire carries (a
+    tp rank's buffer holds its share of them)."""
     bs = engine.config.block_size
     magic, ver, bL, bbs, n_bufs, bnb = _HEADER.unpack_from(blob, 0)
     if magic != _MAGIC:
@@ -480,18 +531,18 @@ def _scatter_blocks(engine, block_ids: List[int], blob: bytes) -> None:
             f"slab layout {(bL, bbs, n_bufs)} != cache layout "
             f"{(L, bs, len(items))} (kv_cache_dtype mismatch between "
             "producer and consumer changes the buffer set)")
-    nb = len(block_ids)
     if bnb < nb:
         raise ValueError(f"slab has {bnb} blocks, need {nb}")
-    # Validate every segment before the first write.
+    tp = engine.mesh.axis_size("tp") if engine.mesh is not None else 1
     off = _HEADER.size
     segments = []
     for name, buf in items:
         width, code = _BUF_HEADER.unpack_from(blob, off)
         off += _BUF_HEADER.size
-        if width != buf.shape[2]:
+        have = buf.shape[2] * (tp if _tp_sharded(engine, name) else 1)
+        if width != have:
             raise ValueError(
-                f"buffer {name!r}: slab width {width} != cache {buf.shape[2]}")
+                f"buffer {name!r}: slab width {width} != cache {have}")
         try:
             dtype = transport.wire_dtype(code)
         except transport.TransferError as e:
@@ -508,9 +559,28 @@ def _scatter_blocks(engine, block_ids: List[int], blob: bytes) -> None:
         off += count * buf.element_size()
     if off > len(blob):
         raise ValueError(f"slab truncated: {len(blob)} bytes, need {off}")
+    return segments
+
+
+def scatter_blocks(engine, block_ids: List[int], blob: bytes) -> None:
+    """Write wire v2 ``blob`` into ``block_ids`` of the engine's cache;
+    ``ValueError`` on a layout, version or dtype the cache does not
+    have (nothing is written then).  On a mesh only the ranks of the
+    blocks' region write, each its tp shard of a sharded buffer's rows."""
+    bs = engine.config.block_size
+    nb = len(block_ids)
+    segments = check_slab(engine, blob, nb)
+    _, _, L, _, _, bnb = _HEADER.unpack_from(blob, 0)
+    r, local = _local_blocks(engine, block_ids)
+    if r != engine.dp_index:
+        return
     dev = engine.device
-    ids = block_ids_on(dev, block_ids)
+    ids = block_ids_on(dev, local)
     for name, seg_off, count, dtype, width in segments:
         rows = host_tensor(blob, seg_off, count, dtype, dev.type == "cuda")
-        rows = to_device(rows, dev).view(L, bnb, bs, width)[:, :nb]
-        scatter_block_rows(engine, name, ids, rows)
+        rows = rows.view(L, bnb, bs, width)[:, :nb]
+        if _tp_sharded(engine, name):
+            w = engine.kv_cache[name].shape[2]
+            t = engine.mesh.axis_index("tp")
+            rows = rows[..., t * w:(t + 1) * w].contiguous()
+        scatter_block_rows(engine, name, ids, to_device(rows, dev))

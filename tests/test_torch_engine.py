@@ -360,9 +360,9 @@ def test_int8_engine_steps_past_512_tokens_matches_jax(monkeypatch):
     seen = []
     real = TMoE.forward
 
-    def forward(params, kv, batch, *a):
+    def forward(params, kv, batch, *a, **kw):
         seen.append(batch["token_ids"].shape[0])
-        return real(params, kv, batch, *a)
+        return real(params, kv, batch, *a, **kw)
 
     monkeypatch.setattr(TMoE, "forward", forward)
     got = teng.generate([Request(f"r{i}", p, SamplingParams(

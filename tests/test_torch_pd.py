@@ -155,7 +155,7 @@ def test_wire_bytes_equal_and_scatter_both_ways(mode):
     # in place (the tensors graphs captured), and nowhere else.
     _, tdst, _ = _filled_pair(mode, seed=1)
     before = {n: (t.data_ptr(), t.clone()) for n, t in tdst.kv_cache.items()}
-    TConn._scatter_blocks(tdst, DST_BLOCKS, jblob)
+    TConn.scatter_blocks(tdst, DST_BLOCKS, jblob)
     for name, t in tdst.kv_cache.items():
         assert t.data_ptr() == before[name][0]
         got = _port_np(t)
@@ -188,15 +188,15 @@ def test_wire_rejects_dtype_layout_and_version_mismatches():
     blob16 = TConn._pack_blocks(bf, SRC_BLOCKS)
     assert len(blob8) < 0.65 * len(blob16)
     with pytest.raises(ValueError, match="layout"):
-        TConn._scatter_blocks(bf, DST_BLOCKS, blob8)
+        TConn.scatter_blocks(bf, DST_BLOCKS, blob8)
     with pytest.raises(ValueError, match="layout"):
-        TConn._scatter_blocks(q8, DST_BLOCKS, blob16)
+        TConn.scatter_blocks(q8, DST_BLOCKS, blob16)
     tampered = bytearray(blob8)
     hdr = list(TConn._HEADER.unpack_from(bytes(tampered), 0))
     hdr[1] = TConn._WIRE_VERSION + 1
     tampered[:TConn._HEADER.size] = TConn._HEADER.pack(*hdr)
     with pytest.raises(ValueError, match="version"):
-        TConn._scatter_blocks(q8, DST_BLOCKS, bytes(tampered))
+        TConn.scatter_blocks(q8, DST_BLOCKS, bytes(tampered))
     # A structurally valid slab whose dtype code lies: named rejection,
     # and nothing is written.
     tampered = bytearray(blob8)
@@ -206,10 +206,10 @@ def test_wire_rejects_dtype_layout_and_version_mismatches():
                      0 if code != 0 else 1)
     before = {n: t.clone() for n, t in q8.kv_cache.items()}
     with pytest.raises(ValueError, match="shipped"):
-        TConn._scatter_blocks(q8, DST_BLOCKS, bytes(tampered))
+        TConn.scatter_blocks(q8, DST_BLOCKS, bytes(tampered))
     assert all(torch.equal(before[n], t) for n, t in q8.kv_cache.items())
     with pytest.raises(ValueError, match="truncated"):
-        TConn._scatter_blocks(q8, DST_BLOCKS, blob8[:-1])
+        TConn.scatter_blocks(q8, DST_BLOCKS, blob8[:-1])
 
 
 # ---------------------------------------------------------------------------

@@ -712,8 +712,8 @@ def test_out_of_vocabulary_resume_ids_are_refused(tiny, journal, stream):
 @pytest.mark.parametrize("flag", [
     ["--data-parallel-start-rank", "2"],
     ["--kv-shared-tier-peers", "dns:kv-peers:5999",
-     "--kv-offload-blocks", "8"], ["--dbo-decode-token-threshold", "8"],
-    ["--enable-dbo"], ["--compilation-cache-dir", "/tmp/x"]])
+     "--kv-offload-blocks", "8"], ["--data-parallel-rpc-port", "8"],
+    ["--data-parallel-hybrid-lb"], ["--compilation-cache-dir", "/tmp/x"]])
 def test_an_unserved_cli_flag_is_a_parser_error(flag, capsys):
     p = TServer.build_arg_parser()
     with pytest.raises(SystemExit) as e:

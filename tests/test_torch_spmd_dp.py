@@ -217,9 +217,9 @@ def rank_refusals():
 
 
 def test_refused_by_name_on_the_dp_mesh(pool):
-    """Spec decode, the host tier, EPLB at ep > 1 and a step-time target
-    stay refused on a dp mesh, each error naming the feature and the
-    mesh; so is a pool that does not split into dp regions."""
+    """Spec decode, the host tier and a step-time target stay refused on
+    a dp mesh, each error naming the feature and the mesh; so is a pool
+    that does not split into dp regions."""
     for errors, regions in pool.run(rank_refusals):
         for name, msg in errors.items():
             assert msg is not None and "not served on mesh" in msg, name

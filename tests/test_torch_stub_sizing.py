@@ -64,7 +64,9 @@ def test_stubbed_forward_matches_jax(stub):
         kv_cache_dtype="int8", enable_prefix_caching=False,
         attn_backend="reference", stub_components=(stub,), device="cpu"),
         params=params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu"))
-    assert eng._moe_opts() == {"stub_components": (stub,)}
+    assert eng._moe_opts() == {"dbo_decode_min_tokens": -1,
+                               "dbo_prefill_min_tokens": -1,
+                               "stub_components": (stub,)}
     rng = np.random.default_rng(1)
     for i, n in enumerate((5, 40, 17)):
         eng.add_request(Request(f"r{i}", rng.integers(

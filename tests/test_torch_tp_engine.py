@@ -8,11 +8,13 @@ engine on ``MeshConfig(tp=2)``, and what the port refuses on a mesh.
   deadline).
 * An abort and a deadline reach every rank at the step that sees them
   (the deadline read against rank 0's clock).
-* Refused by name: spec decode, the host tier, P/D, EPLB at ep > 1, a
-  step-time target and captured blocks on a gloo mesh on CUDA on a mesh;
-  DBO everywhere; sp meshes; the server's flags for them and the
-  multi-host DP flags before any rank starts, and ``--tensor-parallel-size`` /
-  ``--allow-device-subset`` map to the engine's mesh.
+* Refused by name: spec decode, the host tier, a step-time target and
+  captured blocks on a gloo mesh on CUDA on a mesh; DBO on a dense model;
+  sp meshes; the server's flags for them and the multi-host DP flags
+  before any rank starts, and ``--tensor-parallel-size`` /
+  ``--allow-device-subset`` map to the engine's mesh.  (P/D, EPLB at ep
+  > 1 and DBO on a mesh are served: ``tests/test_torch_wide_ep.py``,
+  ``tests/test_torch_pd_mesh.py``.)
 """
 
 import time
@@ -84,7 +86,6 @@ def test_aborts_and_deadlines_reach_every_rank(pool):
 REFUSALS = {
     "spec decode": dict(spec_k=2),
     "host and shared KV tiers": dict(kv_offload_blocks=8),
-    "EPLB at ep = 2": dict(model="tiny-moe", enable_eplb=True),
     "LLMD_STEP_TIME_TARGET_MS": dict(env=("LLMD_STEP_TIME_TARGET_MS", "50")),
 }
 
@@ -112,40 +113,22 @@ def rank_refusals():
     return out
 
 
-def rank_pd_refusal():
-    """Rank side: a KV connector (P/D) on a mesh engine is refused at
-    its first step, by name."""
-    eng = EngineCore(EngineConfig(model="tiny", device="cpu",
-                                  mesh=MeshConfig(tp=TP), **ENGINE))
-    if eng.mesh.rank != 0:
-        return None
-    eng.kv_connector = object()
-    try:
-        eng.step()
-    except ValueError as e:
-        return str(e)
-    return None
-
-
 def test_refused_by_name_on_a_mesh(pool):
     for errors in pool.run(rank_refusals):
         for name, msg in errors.items():
             assert msg is not None and "not served on mesh" in msg, name
             assert name.split()[0] in msg, (name, msg)
-    msg = pool.run(rank_pd_refusal)[0]
-    assert msg is not None and "P/D" in msg
 
 
 @pytest.mark.parametrize("flags,named", [
-    (["--kv-transfer-config", '{"kv_role": "kv_producer"}'],
-     "--kv-transfer-config"),
+    (["--data-parallel-address", "10.0.0.1"], "--data-parallel-address"),
     (["--kv-offload-blocks", "8"], "--kv-offload-blocks"),
     (["--spec-k", "2"], "--spec-k"),
-    (["--enable-eplb"], "--enable-eplb"),
+    (["--data-parallel-rpc-port", "5555"], "--data-parallel-rpc-port"),
     (["--num-scheduler-steps", "4", "--async-scheduling"],
      "--num-scheduler-steps 4"),
     (["--data-parallel-workers", "w1:8200"], "--data-parallel-workers"),
-    (["--enable-dbo"], "--enable-dbo")])
+    (["--data-parallel-hybrid-lb"], "--data-parallel-hybrid-lb")])
 def test_the_server_refuses_by_name_before_any_rank_starts(flags, named,
                                                            capsys):
     """With ``--tensor-parallel-size 2`` on the card (no ``--device
