@@ -275,7 +275,7 @@ Phases (each raises on failure; the script then exits non-zero):
             GPU, so the backend rule picks gloo, each collective staged
             through host memory; classic steps, since gloo collectives
             cannot be captured), each holding its shards of seed 0's
-            draws (path (i)'s weights).  Wave 1 to ``MESH_W1_NEW`` (16)
+            draws (path (i)'s weights).  Wave 1 to ``MESH_W1_NEW`` (8)
             new tokens (A and B at 4 heads a rank, E on each rank's
             received rows; wave 3, its 8192-token prefill, cut for the
             time limit: phase 10 runs it), and wave
@@ -345,18 +345,45 @@ Phases (each raises on failure; the script then exits non-zero):
             EPLB off (DBO off on (a)'s engine) judged as in (a); (c) a
             producer engine of prefill-lws.yaml's flags and a consumer of
             decode-lws.yaml's (dp = 2, tp = 2, deepseek-v3-bench, less the
-            16-step async blocks gloo cannot capture) on the same four
-            ranks: the consumer's own wave 1 (8 new tokens), then 4
-            prompts one at a time and wave 1 disaggregated over the
+            16-step async blocks: the judges read classic steps' margins)
+            on the same four ranks: the consumer's own wave 1 (8 new
+            tokens), then 2 prompts one at a time and wave 1 disaggregated over the
             native transport, and wave 1 again with the consumer's own
             routing replayed (the witness, as path (v)(a)'s): every
             region rank's scattered shard equal to the slab, the pins
             released on every rank, tokens against the consumer's own
             prefill reported, the witness's differing first only at near
-            ties; (d) the two servers with those flags (logs
+            ties; (d) the two servers with those flags, the consumer's
+            with decode-lws.yaml's whole set (its 16-step async blocks,
+            run eagerly where the ranks share the card) (logs
             build/wide_producer.log, build/wide_consumer.log), this
-            process playing the sidecar: 4 prompts one at a time, each
+            process playing the sidecar: 2 prompts one at a time, each
             reply the direct pair's; SIGTERM: exit 0, no rank left.
+12. path (xi) spec decode, the fused rounds and the host tier on phase
+            10's ranks and mesh (dp = 2, tp = 2, deepseek-v3-bench at full
+            width and depth, int8 experts and latent, block 64), every
+            decode block and fused round run eagerly (gloo collectives
+            go through the host: no CUDA graph can hold them): (a) wave
+            1 to 8 new tokens with spec K = 4 (one fused round a step),
+            against the same engine with spec set aside (its classic
+            steps, to 16 new tokens, rank 0 taking the margins, each
+            shard's expert choice taped), the spec run with that routing
+            replayed on every rank: acceptance, tokens a step, tokens
+            equal or differing first at a near tie (as path (iii) judges
+            its witness), every rank's tokens identical and its free
+            blocks back; (b) everything-on: N = 4
+            rounds a dispatch, async scheduling and EPLB at ep = 4
+            (bench_eplb_skew's trace, 68 physical slots) to 16 new tokens:
+            at least one flip, tables identical on every rank, moved
+            slots' bytes their sources', tokens judged as in (a), free
+            blocks back; rank 0's kernel inputs of (a) and (b) (B at the
+            verify shape, E at 17 slots a rank) held to their plain
+            versions before each teardown; (c) the host tier (16 blocks,
+            64 host blocks, prefix caching): a 257-token prompt served
+            and served again from the device cache, 4 fillers thrash both
+            regions, the prompt once more: each restored block's bytes
+            on every rank of its region equal rank 0's saved slab, the
+            tokens the run's before the thrash.
 
 Launch counts: every count is set to 0 just before a path is driven and
 read just after it; kernels A-F count path (i), G and H path (ii), and
@@ -379,7 +406,9 @@ checks as ``mesh_inputs``; A, B and E add path (ix)'s waves on every
 rank (``dp_launches``; the one-at-a-time yardstick, the 2-layer check
 and the DP group do not count), its checks as ``dp_inputs``; A, B and E
 add path (x)'s waves and P/D runs on every rank (``wide_launches``; its
-inputs' checks as ``wide_inputs``).  A
+inputs' checks as ``wide_inputs``); A, B and E add path (xi)'s (a) and
+(b) waves on every rank (``xi_launches``; the plain yardstick and the
+tier's run do not count; its inputs' checks as ``xi_inputs``).  A
 count is the wrapper's own (eager launches, graph warm-ups included)
 plus the launches inside graph replays: a capture records each graph's
 launches, and every replay adds them (``engine/cuda_graph.py``); the
@@ -398,8 +427,8 @@ the card's name and power limit), an ``{"everything_on": ...}`` line
 limit), a ``{"moe_gqa": ...}`` line (path (vii) and the witness, with
 the card's name and power limit), a ``{"mesh": ...}`` line (path (viii),
 likewise), a ``{"dp": ...}`` line (path (ix), likewise), a
-``{"wide_ep": ...}`` line (path (x), likewise), a
-``{"kernels": [...]}`` line (one row per
+``{"wide_ep": ...}`` line (path (x), likewise), a ``{"spec_mesh": ...}``
+line (path (xi), likewise), a ``{"kernels": [...]}`` line (one row per
 kernel at its first launch: measured launches, errors and times, with
 ``bound_ms``), the card's name and power limit, and last ``{"ok": true,
 "device": ...}``.  The engine line
@@ -527,9 +556,11 @@ def note_live_tokens(engine) -> None:
         LIVE_TOKENS[0] = out.total_tokens
         return build(out, *a, **kw)
 
-    def fms_build(specs, *a, **kw):
-        LIVE_TOKENS[0] = sum(sp["stride"] for sp in specs if sp["active"])
-        return fused(specs, *a, **kw)
+    def fms_build(shards, *a, **kw):
+        # This rank's shard (its forward's tokens).
+        own = shards[engine.dp_index] if len(shards) > 1 else shards[0]
+        LIVE_TOKENS[0] = sum(sp["stride"] for sp in own if sp["active"])
+        return fused(shards, *a, **kw)
 
     def ms_dispatch(meta, scheduled, *a, **kw):
         LIVE_TOKENS[0] = len(scheduled)
@@ -4262,13 +4293,15 @@ MESH_WITNESS = "qwen3-30b-a3b"
 # The witness's depth, cut for the smoke's time limit (48 layers at
 # tp = 4 over gloo take ~125 s for wave 1 and the prefill).
 MESH_WITNESS_LAYERS = 2
-# New tokens of wave 1 on the meshes (phases 9 and 10, the witness, and
-# their one-rank yardstick), cut from wave 1's 32 for the time limit; and
-# the prompts each mesh server serves one at a time (wave 1's first).
-MESH_W1_NEW = 16
+# New tokens of wave 1 on the meshes (phases 9-11, the witness, and
+# their one-rank yardstick), cut from wave 1's 32 for the time limit (16
+# before phase 12); and the prompts each mesh server serves one at a time
+# (wave 1's first).
+MESH_W1_NEW = 8
 MESH_SERVER_PROMPTS = 2
-# Phase 11's servers (the recipe's) and their direct yardstick.
-WIDE_SERVER_PROMPTS = 4
+# Phase 11's servers (the recipe's) and their direct yardstick (cut from 4
+# for the time limit).
+WIDE_SERVER_PROMPTS = 2
 # New tokens of the waves on the bf16 wire and the psum dispatch, of
 # wave 3 on the mesh, and of each request the tp server serves alone.
 MESH_SIDE_NEW = 2
@@ -5064,9 +5097,10 @@ WIDE_PD_NEW = 8
 # smoke).
 WIDE_EPLB = {"num_redundant_experts": 4, "window_size": 512,
              "step_interval": 4, "move_budget": 256}
-# The recipe's flag sets at dp = 2, tp = 2 on deepseek-v3-bench; the
-# decode set less --num-scheduler-steps 16 --async-scheduling (captured
-# blocks, refused where ranks share a card over gloo).
+# The recipe's flag sets at dp = 2, tp = 2 on deepseek-v3-bench; (c)'s
+# engines take the decode set less --num-scheduler-steps 16
+# --async-scheduling (its judges read the margins of classic steps), (d)'s
+# consumer server the whole set (WIDE_DECODE_SERVER_FLAGS).
 WIDE_PREFILL_FLAGS = [
     "--model", MESH_MODEL, *DP_LAYOUT, "--max-num-batched-tokens", "8192",
     "--kv-transfer-config",
@@ -5654,14 +5688,14 @@ def wide_servers(root: str, prompts, direct) -> dict:
     t0 = time.perf_counter()
     for role, flags in (("producer", wide_flags(WIDE_PREFILL_FLAGS,
                                                 free_port())),
-                        ("consumer", WIDE_DECODE_FLAGS)):
+                        ("consumer", WIDE_DECODE_SERVER_FLAGS)):
         port = free_port()
         urls[role] = f"http://127.0.0.1:{port}"
         logs[role] = os.path.join(root, "build", f"wide_{role}.log")
         procs[role] = start_server(root, wide_flags(flags, port=port),
                                    f"wide_{role}.log")
     out = dict(flags=dict(producer=WIDE_PREFILL_FLAGS,
-                          consumer=WIDE_DECODE_FLAGS))
+                          consumer=WIDE_DECODE_SERVER_FLAGS))
     try:
         for role, url in urls.items():
             wait_ready(procs[role], url, limit_s=600)
@@ -5714,6 +5748,308 @@ def wide_servers(root: str, prompts, direct) -> dict:
     return out
 
 
+# Phase 12 (path (xi)): spec decode, the fused rounds and the host tier
+# on phase 10's dp mesh, every body run eagerly (gloo through the host).
+# (a) wave 1 to XI_NEW new tokens with spec K = 4, one fused round a
+# step, against the same engine with spec set aside (the plain mesh's
+# classic steps, rank 0 taking its rows' margins); (b) everything-on:
+# N = XI_EON_N rounds a dispatch, async, EPLB at ep = 4 on bench_eplb_skew's
+# trace, to XI_EON_NEW new tokens (an N-round dispatch is one EPLB tick:
+# the tokens give it the ticks to begin a migration and flip it); (c) the
+# host tier on a pool of XI_TIER_BLOCKS blocks.
+XI_NEW = 8
+XI_EON_N = 4
+XI_EON_NEW = 16
+# Phase 11's EPLB with a move budget that stages a migration in one tick.
+XI_EPLB = dict(WIDE_EPLB, move_budget=4096)
+XI_TIER_BLOCKS = 16
+XI_TIER_HOST = 64
+XI_TIER_PROMPT = 4 * 64 + 1          # four full blocks and one token
+XI_TIER_FILLERS = 4
+XI_TIER_NEW = 4
+# The decode recipe's whole flag set for path (x)(d)'s consumer server.
+WIDE_DECODE_SERVER_FLAGS = WIDE_DECODE_FLAGS + [
+    "--num-scheduler-steps", "16", "--async-scheduling"]
+
+
+def xi_wave(tag: str, prompts, new: int, plain: bool = False,
+            skew: bool = False, tape=None) -> dict:
+    """Rank side: ``mesh_wave`` on this rank's spec engine, or with
+    ``plain`` on the same engine with spec decode set aside (its classic
+    steps: rank 0 takes its rows' margins, each dp shard's first tp rank
+    tapes its expert choice); with ``tape`` (every shard's, merged) that
+    expert choice replayed on every rank (``routing_tape``); EPLB's
+    events (``wide_instrument``), bench_eplb_skew's trace recorded first
+    with ``skew``; each rank's free blocks before and after."""
+    import numpy as np
+    eng = MESH_STATE["engine"]
+    k = eng.spec_k
+    free0 = eng.kv_manager.num_free_blocks
+    if skew and eng.eplb is not None:
+        rng = np.random.RandomState(1234)
+        eng.eplb.tracker.record(rng.choice(
+            eng.eplb.E, size=(eng.eplb.n_layers, 4096, 2),
+            p=zipf_probs(eng.eplb.E)))
+    st = wide_instrument(eng)
+    margins, taped = {}, None
+    if plain:
+        eng.spec_k = 0
+    try:
+        with contextlib.ExitStack() as stack:
+            if plain and eng.mesh.rank == 0:
+                stack.enter_context(margin_spy(eng, margins))
+            if plain and eng.mesh.coord["tp"] == 0:
+                taped = {}
+                stack.enter_context(routing_tape(eng, taped, replay=False))
+            replayed = [0]
+            if tape is not None:
+                replayed = stack.enter_context(
+                    routing_tape(eng, tape, replay=True))
+            res = mesh_wave(tag, prompts, new)
+    finally:
+        eng.spec_k = k
+        for mod, name, fn in st.pop("restore"):
+            setattr(mod, name, fn)
+    res.update(free_before=free0, free_after=eng.kv_manager.num_free_blocks,
+               graphs=eng._graphs is not None, flips=st["flips"],
+               stage_ms=st["stage_ms"], margins=margins or None, tape=taped,
+               token_layers_replayed=replayed[0])
+    if eng.eplb is not None:
+        res.update(migrations=eng.eplb.num_rebalances,
+                   physical=eng.eplb.plans[0].num_physical)
+    stats = res["stats"]
+    if stats is not None and stats.get("spec_drafted") is not None:
+        stats["acceptance"] = stats["spec_accepted"] / max(
+            1, stats["spec_drafted"])
+        stats["tokens_a_step"] = stats["decode_tokens"] / max(
+            1, stats["decode_engine_steps"]) / len(prompts)
+    return res
+
+
+def _sha(t) -> str:
+    """A tensor's bytes' sha256."""
+    import hashlib
+    import torch
+    return hashlib.sha256(t.contiguous().view(-1).view(torch.uint8).cpu()
+                          .numpy().tobytes()).hexdigest()
+
+
+def xi_tier(prompt, fillers, new: int) -> dict:
+    """Rank side, path (xi)(c): ``prompt`` served (its blocks saved), again
+    from the device prefix cache (the control), ``fillers`` thrash both
+    regions, then ``prompt`` once more from the host tier.  Each restore
+    (``secondary_lookup``) is read back on the ranks of its region, each
+    buffer's rows hashed, beside the hash of rank 0's saved slab."""
+    import torch
+    from llm_d_tpu_torch.engine.offload import _unpack_block_slab
+    eng = MESH_STATE["engine"]
+    km, tier = eng.kv_manager, eng.host_tier
+    bs = eng.config.block_size
+    L = eng.model_config.num_layers
+    restored = []
+    real = km.secondary_lookup
+
+    def lookup(h, protected=frozenset(), region=0):
+        b = real(h, protected, region)
+        if b is not None:
+            entry = dict(block=b, region=km.region_of_block(b), rows=None)
+            if entry["region"] == eng.dp_index:
+                local = km.local_block_id(b)
+                entry["rows"] = {
+                    name: _sha(buf.view(L, -1, bs, buf.shape[2])[:, local])
+                    for name, buf in eng.kv_cache.items()}
+            if tier.leader:
+                slab = _unpack_block_slab(tier._store[h], tier._full_layout(),
+                                          L, bs)
+                entry["slab"] = {n: _sha(v) for n, v in slab.items()}
+            restored.append(entry)
+        return b
+
+    km.secondary_lookup = lookup
+    out = dict(rank=eng.mesh.rank, dp=eng.dp_index)
+    try:
+        if eng.mesh.rank != 0:
+            eng.follow()
+        else:
+            t0 = time.perf_counter()
+            first, _ = run_wave(eng, [prompt], new, "xt0")
+            control, _ = run_wave(eng, [prompt], new, "xt1")
+            out["saves"] = tier.saves
+            for i, f in enumerate(fillers):
+                run_wave(eng, [f], 2, f"xf{i}")
+            out.update(evictions=km.eviction_count, loads_before=tier.loads)
+            again, st = run_wave(eng, [prompt], new, "xt2")
+            eng.stop_mesh()
+            out.update(first=first[0], control=control[0], again=again[0],
+                       restore_wave=st, seconds=time.perf_counter() - t0)
+    finally:
+        km.secondary_lookup = real
+    torch.cuda.synchronize()
+    out.update(restored=restored, loads=tier.loads,
+               host_blocks=tier.num_blocks)
+    return out
+
+
+def spec_mesh_phase(pool, p1) -> dict:
+    """Phase 12 (path (xi)) on the pool's four ranks (constants above):
+    (a) spec alone and (b) everything-on, each wave's tokens judged
+    against the plain mesh's (equal, or first different at a near tie of
+    the plain run), every rank's tokens identical and its free blocks
+    back; rank 0's kernel inputs held to their plain versions before each
+    teardown; (c) the host tier's restore: bytes equal to the saved slab
+    on every rank of the region, tokens equal to the run before the
+    thrash."""
+    import numpy as np
+    t0 = time.perf_counter()
+    out = dict(dp=DP_SIZE, tp=DP_TP, ep=DP_SIZE * DP_TP, model=MESH_MODEL,
+               spec_k=SPEC_K, bodies="eager (gloo through the host)")
+    launches, checks = {}, []
+
+    def count(res, key):
+        for n in MESH_KERNELS:
+            per_rank = [r["launches"][n] for r in res]
+            launches.setdefault(n, [0] * MESH_WORLD)
+            launches[n] = [a + b for a, b in zip(launches[n], per_rank)]
+        toks = [r["tokens"] for r in res]
+        if any(t != toks[0] for t in toks):
+            raise RuntimeError(f"path (xi) {key}: the ranks' tokens differ")
+        leaks = [(r["free_before"], r["free_after"]) for r in res
+                 if r["free_after"] != r["free_before"]]
+        if leaks:
+            raise RuntimeError(f"path (xi) {key}: blocks leaked: {leaks}")
+        if any(r["graphs"] for r in res):
+            raise RuntimeError(f"path (xi) {key}: graphs on a gloo mesh")
+        return toks[0]
+
+    # (a) spec alone; the plain yardstick on the same engine first, its
+    # expert choice taped.  Random weights put top-8 choices at near ties
+    # that the verify rows' other rounding flips (path (iii); a spec run
+    # without the replay kept 13 of 64 tokens): the spec run with the
+    # plain run's routing replayed must keep the plain tokens up to a
+    # near tie.
+    ta = time.perf_counter()
+    build = pool.run(mesh_setup, MESH_MODEL, MESH_KERNELS, path="xi spec",
+                     mesh=dp_mesh(), spec_k=SPEC_K)
+    plain = pool.run(xi_wave, "xa", p1, XI_EON_NEW, True)
+    plain_tokens = count(plain, "plain")
+    margins = plain[0]["margins"] or {}
+    tape = {}
+    for r in plain:
+        tape.update(r["tape"] or {})
+    plain_launches = {n: list(v) for n, v in launches.items()}
+    launches.clear()
+    ref = [t[:XI_NEW] for t in plain_tokens]
+    res = pool.run(xi_wave, "xa", p1, XI_NEW, False, False, tape)
+    toks = count(res, "spec, plain routing replayed")
+    out["spec"] = dict(
+        build_s=[b["init_s"] for b in build], plain=plain[0]["stats"],
+        wave=res[0]["stats"], new=XI_NEW,
+        plain_routing_replayed=dict(
+            near_tie_judge(toks, ref, margins, "xa"),
+            token_layers_replayed=[r["token_layers_replayed"] for r in res]),
+        free_blocks_by_rank=[r["free_after"] for r in res])
+    if min(r["token_layers_replayed"] for r in res) == 0:
+        raise RuntimeError("path (xi)(a): the replay replayed nothing")
+    checks += pool.run(mesh_kernel_checks)[0]
+    out["spec"]["peak_gib_by_rank"] = [r["peak_gib"]
+                                       for r in pool.run(mesh_teardown)]
+    out["spec"]["seconds"] = time.perf_counter() - ta
+    log(f"path (xi)(a): {json.dumps(out['spec'])}")
+    # (b) everything-on with EPLB at ep = 4, the plain run's routing
+    # replayed (the judge as (a)'s witness); EPLB records the replayed ids.
+    tb = time.perf_counter()
+    build = pool.run(mesh_setup, MESH_MODEL, MESH_KERNELS, path="xi eon",
+                     mesh=dp_mesh(), spec_k=SPEC_K,
+                     num_scheduler_steps=XI_EON_N, async_scheduling=True,
+                     enable_eplb=True, eplb_config=dict(XI_EPLB))
+    res = pool.run(xi_wave, "xa", p1, XI_EON_NEW, False, True, tape)
+    toks = count(res, "everything-on")
+    flips = [r["flips"] for r in res]
+    if not flips[0] or any(len(f) != len(flips[0]) for f in flips):
+        raise RuntimeError(f"path (xi)(b): flips by rank "
+                           f"{[len(f) for f in flips]}")
+    for i in range(len(flips[0])):
+        if any(f[i]["tables"] != flips[0][i]["tables"] for f in flips):
+            raise RuntimeError(f"path (xi)(b): flip {i}'s tables differ "
+                               f"between ranks")
+        if not all(f[i]["moved_bytes_equal_sources"] for f in flips):
+            raise RuntimeError(f"path (xi)(b): flip {i}: a moved slot's "
+                               f"bytes are not its source's")
+    out["everything_on"] = dict(
+        build_s=[b["init_s"] for b in build], N=XI_EON_N, new=XI_EON_NEW,
+        eplb=XI_EPLB, physical=res[0]["physical"],
+        migrations=res[0]["migrations"],
+        flips=[{k: v for k, v in f.items() if k != "tables"}
+               for f in flips[0]],
+        stage_ms_by_rank=[r["stage_ms"] for r in res],
+        wave=res[0]["stats"],
+        plain_routing_replayed=dict(
+            near_tie_judge(toks, plain_tokens, margins, "xa"),
+            token_layers_replayed=[r["token_layers_replayed"] for r in res]),
+        free_blocks_by_rank=[r["free_after"] for r in res])
+    checks += pool.run(mesh_kernel_checks)[0]
+    out["everything_on"]["peak_gib_by_rank"] = [
+        r["peak_gib"] for r in pool.run(mesh_teardown)]
+    out["everything_on"]["seconds"] = time.perf_counter() - tb
+    log(f"path (xi)(b): {json.dumps(out['everything_on'])}")
+    for n, per_rank in launches.items():
+        if min(per_rank) == 0:
+            raise RuntimeError(f"{n} never launched on a rank of path (xi) "
+                               f"(a)-(b): {per_rank}")
+    # (c) the host tier.
+    tc = time.perf_counter()
+    pool.run(mesh_setup, MESH_MODEL, MESH_KERNELS, record=False,
+             path="xi tier", mesh=dp_mesh(), num_blocks=XI_TIER_BLOCKS,
+             kv_offload_blocks=XI_TIER_HOST, enable_prefix_caching=True)
+    rng = np.random.default_rng(12)
+    vocab = mesh_config(MESH_MODEL).vocab_size
+    prompt = rng.integers(1, vocab, XI_TIER_PROMPT).tolist()
+    fillers = [rng.integers(1, vocab, XI_TIER_PROMPT).tolist()
+               for _ in range(XI_TIER_FILLERS)]
+    tier = pool.run(xi_tier, prompt, fillers, XI_TIER_NEW)
+    lead = tier[0]
+    if not lead["evictions"] or lead["loads"] <= lead["loads_before"]:
+        raise RuntimeError(f"path (xi)(c): no restore: {lead['evictions']} "
+                           f"evictions, loads {lead['loads_before']} -> "
+                           f"{lead['loads']}")
+    if any(len(t["restored"]) != len(lead["restored"]) for t in tier):
+        raise RuntimeError("path (xi)(c): the ranks restored differently")
+    equal = 0
+    for t in tier:
+        for e, e0 in zip(t["restored"], lead["restored"]):
+            if (e["block"], e["region"]) != (e0["block"], e0["region"]):
+                raise RuntimeError(f"path (xi)(c): rank {t['rank']} "
+                                   f"restored {e}, rank 0 {e0}")
+            if e["region"] != t["dp"]:
+                continue
+            if e["rows"] != e0["slab"]:
+                raise RuntimeError(f"path (xi)(c): rank {t['rank']}'s "
+                                   f"restored rows differ from the slab")
+            equal += 1
+    if lead["again"] != lead["control"]:
+        raise RuntimeError(f"path (xi)(c): restored tokens "
+                           f"{lead['again']} != {lead['control']}")
+    out["tier"] = dict(
+        blocks=XI_TIER_BLOCKS, host_blocks=XI_TIER_HOST,
+        prompt=XI_TIER_PROMPT, fillers=XI_TIER_FILLERS,
+        saves=lead["saves"], evictions=lead["evictions"],
+        loads=lead["loads"] - lead["loads_before"],
+        restored_blocks=len(lead["restored"]),
+        regions=sorted({e["region"] for e in lead["restored"]}),
+        restored_shards_equal_slab=equal,
+        tokens_equal_before_thrash=lead["again"] == lead["control"],
+        tokens_equal_first_run=lead["again"] == lead["first"],
+        restore_wave=lead["restore_wave"], seconds_scenario=lead["seconds"])
+    out["tier"]["peak_gib_by_rank"] = [r["peak_gib"]
+                                       for r in pool.run(mesh_teardown)]
+    out["tier"]["seconds"] = time.perf_counter() - tc
+    log(f"path (xi)(c): {json.dumps(out['tier'])}")
+    out["plain_launches"] = {n: sum(v) for n, v in plain_launches.items()}
+    out["pool_s"] = time.perf_counter() - t0
+    return dict(out=out, launches={n: sum(v) for n, v in launches.items()},
+                checks=checks)
+
+
 def mesh_path(root: str, smi: str) -> tuple:
     """Phase 9, path (viii): ``MESH_TP`` rank processes on the card (a
     ``RankPool``; the backend the rule picks) serve deepseek-v3-bench at
@@ -5733,9 +6069,11 @@ def mesh_path(root: str, smi: str) -> tuple:
     phase 9's, its one-rank comparison and the DP group
     (``dp_group_check``) after phase 9's.  Phase 11 (path (x)) runs on
     the pool after phase 10 (``wide_pool_phase``), its servers after
-    phase 10's (``wide_servers``).  Returns (result, launches by kernel,
-    per-kernel checks, path (ix)'s {out, launches, checks}, path (x)'s
-    {out, launches, checks, alone})."""
+    phase 10's (``wide_servers``).  Phase 12 (path (xi)) runs on the pool
+    after phase 11 (``spec_mesh_phase``).  Returns (result, launches by
+    kernel, per-kernel checks, path (ix)'s {out, launches, checks}, path
+    (x)'s {out, launches, checks, alone}, path (xi)'s {out, launches,
+    checks})."""
     import numpy as np
     import torch
     from llm_d_tpu_torch.parallel.launch import RankPool
@@ -5879,6 +6217,9 @@ def mesh_path(root: str, smi: str) -> tuple:
         # Phase 11, path (x): the wide-EP recipe on the dp mesh.
         wide = wide_pool_phase(pool, p1, p3, {
             k: dp["waves"][k]["tokens"] for k in ("d1", "d3")})
+        # Phase 12, path (xi): spec decode, the fused rounds and the host
+        # tier on the dp mesh.
+        xi = spec_mesh_phase(pool, p1)
     finally:
         pool.close()
     gc.collect()
@@ -5936,9 +6277,9 @@ def mesh_path(root: str, smi: str) -> tuple:
     dp["waves"]["d3"].pop("tokens", None)
     dpo["waves"] = dp["waves"]
     out["seconds"] = time.perf_counter() - t_path
-    dpo["card"] = wo["card"] = smi
+    dpo["card"] = wo["card"] = xi["out"]["card"] = smi
     return out, launches, checks, dict(out=dpo, launches=dp["launches"],
-                                       checks=dp["checks"]), wide
+                                       checks=dp["checks"]), wide, xi
 
 
 
@@ -6755,7 +7096,7 @@ def main() -> int:
     # 10. path (ix): dp = 2 x tp = 2 on the same ranks, its server and a
     # DP group of two engines (inside mesh_path: they share its pool and
     # its one-rank engine).
-    mesh, mesh_counts, mesh_checks, dp, wide = mesh_path(root, smi)
+    mesh, mesh_counts, mesh_checks, dp, wide, xi = mesh_path(root, smi)
     for row in rows:
         n = row["name"]
         row["mesh_launches"] = mesh_counts.get(n, 0) + \
@@ -6771,7 +7112,11 @@ def main() -> int:
         row["launches"] += row["wide_launches"]
         row["wide_inputs"] = [{k: v for k, v in c.items() if k != "name"}
                               for c in wide["checks"] if c["name"] == n]
-    log(f"paths (viii)-(x): {mesh['seconds']:.1f} s")
+        row["xi_launches"] = xi["launches"].get(n, 0)
+        row["launches"] += row["xi_launches"]
+        row["xi_inputs"] = [{k: v for k, v in c.items() if k != "name"}
+                            for c in xi["checks"] if c["name"] == n]
+    log(f"paths (viii)-(xi): {mesh['seconds']:.1f} s")
     if prof is not None:
         # The first decode block of a fresh process, part by part.
         prof["cold_first_block"] = []
@@ -6803,6 +7148,7 @@ def main() -> int:
     print(json.dumps({"mesh": mesh}))
     print(json.dumps({"dp": dp["out"]}))
     print(json.dumps({"wide_ep": wide["out"]}))
+    print(json.dumps({"spec_mesh": xi["out"]}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

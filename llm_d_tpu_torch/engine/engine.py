@@ -87,9 +87,10 @@ deadlines; the others run ``follow()``, the same schedule step by step,
 and sample the same all-gathered logits with the same keys, so every
 rank holds the same tokens.  ``llmd_tpu:collective_bytes_total`` charges
 each computed token's EP exchange bytes (the JAX byte model).  Refused
-by name on a mesh: the SP axis, spec decode, the host tier, a
-step-time target, and captured decode blocks where the collectives
-cannot be captured (gloo on CUDA).
+by name on a mesh: the SP axis, the shared KV tier and a step-time
+target.  Where the collectives go through the host (gloo on CUDA: ranks
+that share a card) no CUDA graph can hold them, so decode blocks and
+fused rounds run their bodies eagerly there (``captures_bodies``).
 
 Data parallelism on the mesh (``MeshConfig(dp, tp)``, the JAX engine's
 stacked mode, the attention half of wide EP): the pool is split into
@@ -124,8 +125,21 @@ The wide-EP recipe's features on a mesh (``deploy/wide-ep-lws``):
   pulled request's admission (``admit_pulled``) rides rank 0's step
   order (each rank allocates the same blocks), and at the top of that
   step rank 0 sends the slab to the region's ranks, which write their
-  shard of it; pin releases ride the order too
+  shard of it; pin releases ride the order too, and so does whether a
+  pull is in flight, which drains a pipelined dispatch on every rank
   (``transfer/connector.py``).
+
+Spec decode and the fused rounds on a mesh: a dispatch's rows are the
+JAX engine's stacked ``[dp, S_l]`` rows flattened shard-major, each
+shard's live strides padded to common ``S_l`` / ``T_l`` buckets
+(``_fms_build``); a rank's forward runs its shard (``_fms_shard``), the
+sampling rows and the carry are every shard's, and each dp shard drafts
+its own rows (the drafter's embedding and head over tp), gathered over
+dp.  Every rank plans alike from the same schedule; rank 0's plan, each
+bail-out and each extension ride the step channel, and a rank whose own
+differs raises (``_agree``): a rank that dispatched alone would deadlock
+the EP exchange.  The host tier keeps its bytes on rank 0
+(``engine/offload.py``).
 """
 
 from __future__ import annotations
@@ -568,6 +582,8 @@ class EngineCore:
         # deadlines against rank 0's clock at the step's order.
         self._channel: Optional[StepChannel] = None
         self._eplb_decision: Optional[tuple] = None
+        # Rank 0's connector had a KV pull in flight at this step's order.
+        self._step_pending = False
         self._pending_ops: List[Tuple[str, Any]] = []
         # P/D on a mesh: admitted slabs (block ids, the slab on rank 0 or
         # its size elsewhere) to broadcast and scatter this step.
@@ -582,18 +598,37 @@ class EngineCore:
         # dispatches (none on the CPU, where their bodies run eagerly):
         # at most CUDA_GRAPH_MAX_KEYS graphs, their pool at most half the
         # card's memory still free beside the weights and the KV pool.
+        # On a mesh whose collectives go through the host (gloo on CUDA)
+        # the bodies run eagerly on the card too: a gloo collective cannot
+        # be captured.  Decided here, once, from the backend.
         self._graphs = None
-        if self.device.type == "cuda" \
-                and (config.num_scheduler_steps > 1 or self.spec_k):
-            self._check_capturable()
-            self._graphs = DecodeGraphs(
-                self.device, max_graphs=CUDA_GRAPH_MAX_KEYS,
-                max_pool_bytes=torch.cuda.mem_get_info(self.device)[0] // 2)
+        if config.num_scheduler_steps > 1 or self.spec_k:
+            if self.captures_bodies(self.device, self.mesh):
+                self._check_capturable()
+                self._graphs = DecodeGraphs(
+                    self.device, max_graphs=CUDA_GRAPH_MAX_KEYS,
+                    max_pool_bytes=torch.cuda.mem_get_info(
+                        self.device)[0] // 2)
+            elif self.device.type == "cuda":
+                logger.info(
+                    "mesh %s on %s: decode blocks and fused rounds run "
+                    "their bodies eagerly (gloo collectives go through the "
+                    "host and cannot be captured in a CUDA graph)",
+                    config.mesh, self.mesh.backend)
         self._last_evictions = 0
         self._last_preemptions = 0
         self.eos_token_id: Optional[int] = None
         # Optional tokenizer enables engine-side stop-string detection.
         self.tokenizer = None
+
+    @staticmethod
+    def captures_bodies(device: torch.device, mesh: Optional[Mesh]) -> bool:
+        """Whether decode blocks and fused rounds run as CUDA graph
+        replays: on a card, unless the mesh's collectives go through the
+        host (gloo where ranks share a card), which no graph can hold;
+        their bodies then run eagerly, as on the CPU."""
+        return device.type == "cuda" and not (mesh is not None
+                                              and mesh.stage_host)
 
     def _check_capturable(self) -> None:
         """Refuse a configuration whose captured steps would reach a
@@ -634,26 +669,33 @@ class EngineCore:
         """Refuse, by name, what this slice does not serve on a mesh."""
         cfg, mesh = self.config, self.mesh
         refused = []
-        spec_mode = cfg.spec_decode or env_choice(
-            "LLMD_SPEC_DECODE", "auto", SPEC_DECODE_MODES)
-        spec_k = (cfg.spec_k if cfg.spec_k is not None
-                  else env_int("LLMD_SPEC_K", 0))
-        if spec_mode != "off" and spec_k > 0:
-            refused.append("spec decode (spec_k > 0) and the fused rounds")
-        if cfg.kv_offload_blocks > 0 or cfg.kv_shared_tier_port is not None \
-                or cfg.kv_shared_tier_peers:
-            refused.append("the host and shared KV tiers")
+        if cfg.kv_shared_tier_port is not None or cfg.kv_shared_tier_peers:
+            refused.append("the shared KV tier (--kv-shared-tier-port, "
+                           "--kv-shared-tier-peers)")
         if self._step_time_target_ms > 0:
             refused.append("LLMD_STEP_TIME_TARGET_MS (each rank would size "
                            "its prefill chunks from its own step times)")
-        if mesh.stage_host and cfg.num_scheduler_steps > 1:
-            refused.append(
-                "captured decode blocks (num_scheduler_steps > 1) on a gloo "
-                "mesh on CUDA: gloo collectives cannot be captured in a "
-                "CUDA graph")
         if refused:
             raise ValueError(f"not served on mesh {mesh.config}: "
                              + "; ".join(refused))
+
+    def _agree(self, what: str, value):
+        """Rank 0's decision ``value`` (a plan's shape and covers, an
+        extension, a bail-out: None) to the other ranks of a mesh, in
+        step order on the step channel; each of them raises where its
+        own differs.  Every rank runs the same program, so a rank that
+        dispatched, extended or bailed alone would deadlock the EP
+        exchange.  Off a mesh a no-op."""
+        if self._channel is None:
+            return
+        if self._channel.leader:
+            self._channel.send((what, value))
+            return
+        got = self._channel.recv()
+        if got != (what, value):
+            raise RuntimeError(
+                f"rank {self.mesh.rank} disagrees with rank 0 on {what}: "
+                f"rank 0 {got!r}, here {(what, value)!r}")
 
     def _collective_setup(self) -> None:
         """EP wire accounting (the JAX engine's): on a multi-device MoE
@@ -905,13 +947,16 @@ class EngineCore:
 
     def _send_step(self) -> None:
         """Rank 0: order the other ranks to take this step, with the adds
-        and aborts since the last one, rank 0's clock and its EPLB
-        decision (which every rank carries out at the top of the step)."""
+        and aborts since the last one, rank 0's clock, its EPLB decision
+        (which every rank carries out at the top of the step) and whether
+        its connector has a pull in flight (which drains a pipelined
+        dispatch on every rank: the other ranks hold no connector)."""
         self._step_now = time.monotonic()
         self._eplb_decision = (self.eplb.take_decision()
                                if self.eplb is not None else None)
+        self._step_pending = self._connector_pending()
         self._channel.send((self._pending_ops, self._step_now,
-                            self._eplb_decision))
+                            self._eplb_decision, self._step_pending))
         self._pending_ops = []
 
     def follow(self, record: bool = True) -> Dict[str, List[int]]:
@@ -928,7 +973,8 @@ class EngineCore:
             msg = self._channel.recv()
             if msg is None:
                 break
-            ops, self._step_now, self._eplb_decision = msg
+            ops, self._step_now, self._eplb_decision, \
+                self._step_pending = msg
             for kind, arg in ops:
                 if kind == "add":
                     self.add_request(pickle.loads(arg))
@@ -965,6 +1011,14 @@ class EngineCore:
 
     def _connector_pending(self) -> bool:
         return self.kv_connector is not None and self.kv_connector.has_pending()
+
+    def _pull_drains(self) -> bool:
+        """Whether a KV pull in flight drains a pipelined dispatch this
+        step: on a mesh rank 0's connector as its step order saw it (every
+        rank then drains alike), else this engine's."""
+        if self._channel is not None:
+            return self._step_pending
+        return self._connector_pending()
 
     # ---------- feature composition and chunk budgeting ----------
 
@@ -1431,8 +1485,7 @@ class EngineCore:
         in-flight record, or None when the pipeline must drain (new
         arrivals, rejections, an expired deadline, allocation failure,
         or every request ending within the current block)."""
-        if self._rejected or self.scheduler.waiting \
-                or self._connector_pending():
+        if self._rejected or self.scheduler.waiting or self._pull_drains():
             return None
         scheduled, K = inflight["scheduled"], inflight["K"]
         meta = inflight["meta"]
@@ -1544,7 +1597,7 @@ class EngineCore:
         still on the device."""
         c, K = self.model_config, self.spec_k
         hidden, routed = self._forward(batch)            # [S*(K+1), D]
-        logits = self.model.compute_logits(self.params, hidden, c)
+        logits = self._logits(hidden)
         ids, accepted = sampling_ops.spec_verify(
             logits, verify["draft_tokens"], verify["spec_n"],
             verify["temperature"], verify["top_k"], verify["top_p"], key,
@@ -1555,8 +1608,20 @@ class EngineCore:
         rows = torch.arange(S, device=ids.device)
         h_a = hidden.reshape(S, K + 1, -1)[rows, accepted]
         bonus = ids[rows, accepted]
-        drafts = self.model.draft_propose(self.params, self.draft_params,
-                                          h_a, bonus, K, c)
+        if self.mesh is None:
+            drafts = self.model.draft_propose(self.params, self.draft_params,
+                                              h_a, bonus, K, c)
+        else:
+            # One draft a shard: each dp shard's ranks draft its rows (the
+            # embedding and head over tp, as the target's), gathered over
+            # dp like the sampling rows.
+            S_l = S // self.dp
+            own = slice(self.dp_index * S_l, (self.dp_index + 1) * S_l)
+            drafts = self.model.draft_propose(
+                self.params, self.draft_params, h_a[own], bonus[own], K, c,
+                mesh=self.mesh)
+            if self.dp > 1:
+                drafts = self.mesh.all_gather(drafts, AXIS_DP, dim=0)
         out = [ids, accepted, drafts]
         if want_top:
             out.extend(sampling_ops.verify_logprobs(logits, ids, top_n=20))
@@ -1576,7 +1641,9 @@ class EngineCore:
         last token, slots 1..nd its drafts; slots past nd and pad tokens
         write block-0 trash.  Tokens past every row's stride are left as
         the plan laid them out (token 0 at position 0, slot 0: the single
-        round's pad tokens; the JAX program patches them as row 0's)."""
+        round's pad tokens; the JAX program patches them as row 0's).
+        On a dp mesh ``inp`` and the carry are this rank's shard
+        (``_fms_shard``): rows ``[S_l]``, token slots ``[T_l]``."""
         K, bs = self.spec_k, self.config.block_size
         bt = inp["block_tables"]
         row = inp["slot_row"].long()
@@ -1615,18 +1682,21 @@ class EngineCore:
         ``out["ids"][r]``, ``out["accepted"][r]`` (and the logprobs, and
         under EPLB the round's routed ids ``out["routed"][r]``), and
         the final carry lands in ``out``'s carry tensors (the inputs are
-        left as they were).  Rows are flat ``[S]``: the port has one
-        device, so the JAX program's stacked ``[dp, S_l]`` rows do not
-        arise."""
+        left as they were).  Rows are flat ``[S]``; on a dp mesh they are
+        the JAX program's stacked ``[dp, S_l]`` rows flattened shard-major
+        (token slots ``[dp, T_l]`` alike): every rank samples and carries
+        all of them, its forward runs its own shard's (``_fms_shard``)."""
         active = inp["active"]
         pos, last, drafts, gen0 = (inp[k] for k in
                                    ("pos", "last", "drafts", "gen0"))
         keys = inp["keys"]
         params = {k: inp[k] for k in ("temperature", "top_k", "top_p",
                                       "seeds")}
+        loc, own = self._fms_shard(inp)
         for r in range(n):
             is_dec, comp = inp["is_dec"][r], inp["completing"][r]
-            batch = self._fms_round_batch(inp, r, pos, last, drafts)
+            batch = self._fms_round_batch(loc, r, pos[own], last[own],
+                                          drafts[own])
             res, routed = self._fused_body(
                 batch, dict(params, gen0=gen0, draft_tokens=drafts,
                             spec_n=inp["spec_n"][r], coin=inp["coin"][r],
@@ -1658,6 +1728,31 @@ class EngineCore:
         for name, t in (("pos", pos), ("last", last), ("drafts", drafts),
                         ("gen0", gen0)):
             out[name].copy_(t)
+
+    _FMS_ROW_KEYS = ("block_tables", "active", "seq_lens", "qtok_idx",
+                     "spec_n", "is_dec")
+    _FMS_TOKEN_KEYS = ("slot_row", "slot_q", "in_row", "token_ids",
+                       "positions", "slot_mapping", "dead", "sample_idx")
+
+    def _fms_shard(self, inp: Dict[str, torch.Tensor]
+                   ) -> Tuple[Dict[str, torch.Tensor], slice]:
+        """This rank's shard of a dispatch's inputs (views, no copies):
+        the per-row inputs its forward reads at its ``S_l`` rows, the
+        per-token ones at its ``T_l`` slots (``sample_idx`` at its ``S_l
+        * (K+1)``); and the slice of its rows in the flat ``[S]``.  Off
+        dp, the inputs and every row."""
+        S = inp["active"].shape[0]
+        if self.dp == 1:
+            return inp, slice(0, S)
+        d, dp = self.dp_index, self.dp
+        loc = dict(inp)
+        for k in self._FMS_ROW_KEYS + self._FMS_TOKEN_KEYS:
+            v = inp[k]
+            ax = 0 if v.dim() == 1 or k == "block_tables" else 1
+            w = v.shape[ax] // dp
+            loc[k] = v.narrow(ax, d * w, w)
+        S_l = S // dp
+        return loc, slice(d * S_l, (d + 1) * S_l)
 
     def _fms_outputs(self, S: int, T: int, N: int, want_lp: bool,
                      want_top: bool) -> Dict[str, torch.Tensor]:
@@ -1748,35 +1843,47 @@ class EngineCore:
                 self._disable_feature("fused_multistep", "kv_allocation")
                 return None
             allocated.append((spec["req"], got))
-        return self._fms_build(specs, N, self._step_count)
+        shards: List[List[Dict[str, Any]]] = [[] for _ in range(self.dp)]
+        for spec in specs:
+            shards[self.kv_manager.region_of_request(
+                spec["req"])].append(spec)
+        return self._fms_build(shards, N, self._step_count)
 
-    def _fms_build(self, specs: List[Dict[str, Any]], N: int,
-                   step_base: int, S: Optional[int] = None
+    def _fms_build(self, shards: List[List[Dict[str, Any]]], N: int,
+                   step_base: int, S_l: Optional[int] = None
                    ) -> Dict[str, Any]:
         """Host arrays of an N-round dispatch (the JAX engine's
-        ``_fms_build`` with one shard): per-row statics (``sbatch``:
-        sampling parameters, block tables, the fixed ``slot_row`` /
-        ``slot_q`` token layout and ``in_row``, the tokens inside a live
-        row's stride), per-round content (``xs``, leading dim N) and the
-        initial carry.  Inactive specs keep their row (a successor's
-        carry is positional) but add no tokens.  ``S`` pins the row
-        bucket of a successor whose carry stays on the device."""
+        ``_fms_build``): per-row statics (``sbatch``: sampling
+        parameters, block tables, the fixed ``slot_row`` / ``slot_q``
+        token layout and ``in_row``, the tokens inside a live row's
+        stride), per-round content (``xs``, leading dim N) and the
+        initial carry.  ``shards`` are the specs of each dp region in row
+        order (one list off dp): every shard pads to common ``S_l`` /
+        ``T_l`` buckets and its block ids are rebased to its plane; rows
+        are flat ``r * S_l + i``, token slots ``r * T_l + t``, and
+        ``slot_row`` / ``sample_idx`` / ``qtok_idx`` index within the
+        shard.  Inactive specs keep their row (a successor's carry is
+        positional) but add no tokens.  ``S_l`` pins the row bucket of a
+        successor whose carry stays on the device."""
         cfg = self.config
         K = self.spec_k
         Qv = K + 1
         B = self.max_blocks_per_seq
         bs = cfg.block_size
-        live = [sp_ for sp_ in specs if sp_["active"]]
-        if S is None:
-            S = _next_bucket(len(specs),
-                             min(cfg.min_seq_bucket, cfg.max_num_seqs),
-                             cfg.max_num_seqs)
-        T = _next_bucket(sum(sp_["stride"] for sp_ in live)
-                         or cfg.min_token_bucket,
-                         cfg.min_token_bucket, cfg.max_num_batched_tokens)
-        max_q = max((sp_["stride"] for sp_ in live), default=1)
+        dp = len(shards)
+        if S_l is None:
+            S_l = _next_bucket(max(len(sh) for sh in shards),
+                               min(cfg.min_seq_bucket, cfg.max_num_seqs),
+                               cfg.max_num_seqs)
+        T_l = _next_bucket(
+            max(sum(sp_["stride"] for sp_ in sh if sp_["active"])
+                for sh in shards) or cfg.min_token_bucket,
+            cfg.min_token_bucket, cfg.max_num_batched_tokens)
+        max_q = max((sp_["stride"] for sh in shards for sp_ in sh
+                     if sp_["active"]), default=1)
         Q = 1 if max_q == 1 else _next_bucket(
             max_q, cfg.min_token_bucket, cfg.max_num_batched_tokens)
+        S, T = dp * S_l, dp * T_l
         sb = dict(
             temperature=np.zeros(S, np.float32), top_k=np.zeros(S, np.int32),
             top_p=np.ones(S, np.float32), seeds=np.full(S, -1, np.int32),
@@ -1790,7 +1897,7 @@ class EngineCore:
             dead=np.ones((N, T), bool),
             seq_lens=np.zeros((N, S), np.int32),
             sample_idx=np.zeros((N, S * Qv), np.int32),
-            qtok_idx=np.full((N, S, Q), T, np.int32),
+            qtok_idx=np.full((N, S, Q), T_l, np.int32),
             spec_n=np.zeros((N, S), np.int32),
             is_dec=np.zeros((N, S), bool),
             completing=np.zeros((N, S), bool),
@@ -1798,60 +1905,81 @@ class EngineCore:
         carry = dict(pos=np.zeros(S, np.int32), last=np.zeros(S, np.int32),
                      drafts=np.zeros((S, K), np.int32),
                      gen0=np.zeros(S, np.int32))
-        t = 0
-        offs = np.zeros(len(specs), np.int64)
-        for i, sp_ in enumerate(specs):
-            if not sp_["active"]:
-                continue
-            offs[i] = t
-            req, stride = sp_["req"], sp_["stride"]
-            sampling = req.sampling
-            sb["temperature"][i] = sampling.temperature
-            sb["top_k"][i] = sampling.top_k
-            sb["top_p"][i] = sampling.top_p
-            if sampling.seed is not None:
-                sb["seeds"][i] = int(sampling.seed) & 0x7FFFFFFF
-            blocks = np.asarray(req.block_ids, np.int32)
-            sb["block_tables"][i, :len(blocks)] = blocks
-            sb["active"][i] = True
-            sb["slot_row"][t:t + stride] = i
-            sb["slot_q"][t:t + stride] = np.arange(stride)
-            sb["in_row"][t:t + stride] = True
-            done = req.num_computed_tokens
-            carry["pos"][i] = done
-            carry["gen0"][i] = len(req.output_token_ids)
-            if sp_["rounds"][0][0] == "dec" and req.output_token_ids:
-                carry["last"][i] = req.all_token_ids[done]
-                d = req.spec_drafts[:K]
-                carry["drafts"][i, :len(d)] = d
-            for rno, (kind, val) in enumerate(sp_["rounds"]):
-                if kind == "chunk":
-                    pos = np.arange(done, done + val)
-                    x["token_ids"][rno, t:t + val] = \
-                        req.all_token_ids[done:done + val]
-                    x["positions"][rno, t:t + val] = pos
-                    x["slot_mapping"][rno, t:t + val] = \
-                        blocks[pos // bs] * bs + pos % bs
-                    x["dead"][rno, t:t + val] = False
-                    x["seq_lens"][rno, i] = done + val
-                    x["sample_idx"][rno, i * Qv:(i + 1) * Qv] = t + val - 1
-                    x["qtok_idx"][rno, i, :val] = np.arange(t, t + val)
-                    done += val
-                    x["completing"][rno, i] = done == req.num_tokens
-                    x["next_pos"][rno, i] = done
-                else:
-                    used = val + 1
-                    x["dead"][rno, t:t + used] = False
-                    x["is_dec"][rno, i] = True
-                    x["spec_n"][rno, i] = val
-                    x["sample_idx"][rno, i * Qv:(i + 1) * Qv] = \
-                        t + np.minimum(np.arange(Qv), val)
-                    x["qtok_idx"][rno, i, :used] = np.arange(t, t + used)
-            t += stride
+        specs: List[Dict[str, Any]] = []
+        rows: List[int] = []
+        offs: List[int] = []
+        for r, shard in enumerate(shards):
+            t = 0
+            for i, sp_ in enumerate(shard):
+                specs.append(sp_)
+                s = r * S_l + i
+                rows.append(s)
+                offs.append(r * T_l + t)
+                if not sp_["active"]:
+                    continue
+                req, stride = sp_["req"], sp_["stride"]
+                g = r * T_l + t                 # the flat token slot
+                sampling = req.sampling
+                sb["temperature"][s] = sampling.temperature
+                sb["top_k"][s] = sampling.top_k
+                sb["top_p"][s] = sampling.top_p
+                if sampling.seed is not None:
+                    sb["seeds"][s] = int(sampling.seed) & 0x7FFFFFFF
+                blocks = np.asarray(req.block_ids, np.int32) \
+                    - self._block_offset(req)
+                sb["block_tables"][s, :len(blocks)] = blocks
+                sb["active"][s] = True
+                sb["slot_row"][g:g + stride] = i
+                sb["slot_q"][g:g + stride] = np.arange(stride)
+                sb["in_row"][g:g + stride] = True
+                done = req.num_computed_tokens
+                carry["pos"][s] = done
+                carry["gen0"][s] = len(req.output_token_ids)
+                if sp_["rounds"][0][0] == "dec" and req.output_token_ids:
+                    carry["last"][s] = req.all_token_ids[done]
+                    d = req.spec_drafts[:K]
+                    carry["drafts"][s, :len(d)] = d
+                sidx = slice(s * Qv, (s + 1) * Qv)
+                for rno, (kind, val) in enumerate(sp_["rounds"]):
+                    if kind == "chunk":
+                        pos = np.arange(done, done + val)
+                        x["token_ids"][rno, g:g + val] = \
+                            req.all_token_ids[done:done + val]
+                        x["positions"][rno, g:g + val] = pos
+                        x["slot_mapping"][rno, g:g + val] = \
+                            blocks[pos // bs] * bs + pos % bs
+                        x["dead"][rno, g:g + val] = False
+                        x["seq_lens"][rno, s] = done + val
+                        x["sample_idx"][rno, sidx] = t + val - 1
+                        x["qtok_idx"][rno, s, :val] = np.arange(t, t + val)
+                        done += val
+                        x["completing"][rno, s] = done == req.num_tokens
+                        x["next_pos"][rno, s] = done
+                    else:
+                        used = val + 1
+                        x["dead"][rno, g:g + used] = False
+                        x["is_dec"][rno, s] = True
+                        x["spec_n"][rno, s] = val
+                        x["sample_idx"][rno, sidx] = \
+                            t + np.minimum(np.arange(Qv), val)
+                        x["qtok_idx"][rno, s, :used] = np.arange(t, t + used)
+                t += stride
         return dict(
-            kind="fms", N=N, S=S, T=T, Q=Q, step_base=step_base,
-            specs=specs, offs=offs, sbatch=sb, xs=x, carry=carry,
-            covers={sp_["req"].request_id: sp_["cover"] for sp_ in live})
+            kind="fms", N=N, S=S, S_l=S_l, T=T_l, Q=Q, step_base=step_base,
+            specs=specs, rows=np.asarray(rows, np.int64),
+            offs=np.asarray(offs, np.int64), sbatch=sb, xs=x, carry=carry,
+            covers={sp_["req"].request_id: sp_["cover"] for sp_ in specs
+                    if sp_["active"]})
+
+    @staticmethod
+    def _fms_digest(plan: Optional[Dict[str, Any]]):
+        """What the ranks of a mesh must agree on about a dispatch: its
+        shape and every row's cover (None: no dispatch)."""
+        if plan is None:
+            return None
+        return (plan["N"], plan["S"], plan["T"], plan["Q"],
+                plan["step_base"], tuple(plan["rows"].tolist()),
+                tuple(sorted(plan["covers"].items())))
 
     def _fms_coins(self, plan: Dict[str, Any]
                    ) -> Tuple[np.ndarray, np.ndarray]:
@@ -1950,14 +2078,15 @@ class EngineCore:
         outputs: List[RequestOutput] = []
         now = time.monotonic()
         pre_toks = dec_toks = total_drafted = total_accepted = 0
-        # EPLB: the token slots whose routing counts, round by round.
-        valid = (np.zeros((N, plan["T"]), bool)
+        # EPLB: the token slots whose routing counts, round by round (on
+        # a dp mesh every shard's, ``r * T_l + t``).
+        valid = (np.zeros((N, self.dp * plan["T"]), bool)
                  if self.eplb is not None else None)
-        for s, sp_ in enumerate(plan["specs"]):
+        for s, off, sp_ in zip(plan["rows"].tolist(), plan["offs"].tolist(),
+                               plan["specs"]):
             if not sp_["active"]:
                 continue
             req = sp_["req"]
-            off = int(plan["offs"][s])
             pre_toks += sum(v for k, v in sp_["rounds"] if k == "chunk")
             dec_toks += sum(v + 1 for k, v in sp_["rounds"] if k == "dec")
             if req.state is not RequestState.RUNNING:
@@ -2056,10 +2185,15 @@ class EngineCore:
                     req.request_id, keep))
             self.kv_manager.trim_request(req, keep)
         if valid is not None:
-            routed = h["routed"]                         # [N, Lm, T, k]
-            self.params = self.eplb.on_step(np.concatenate(
-                [routed[rno][:, np.flatnonzero(valid[rno]), :]
-                 for rno in range(N)], axis=1), self._step_count, self.params)
+            # [N, Lm, T_l, k] a rank; rank 0 plans from every shard's.
+            routed = self._planned_routed(rec["out_host"]["routed"], dim=2)
+            if routed is not None:
+                routed = routed.numpy()
+                routed = np.concatenate(
+                    [routed[rno][:, np.flatnonzero(valid[rno]), :]
+                     for rno in range(N)], axis=1)
+            self.params = self.eplb.on_step(routed, self._step_count,
+                                            self.params)
         if pre_toks:
             self.metrics.step_prefill_tokens.inc(pre_toks)
         if dec_toks:
@@ -2086,15 +2220,15 @@ class EngineCore:
 
     def _fms_try_extend(self, rec: Dict[str, Any]
                         ) -> Optional[Dict[str, Any]]:
-        """Dispatch the in-flight fused dispatch's successor from its
+        """Plan the in-flight fused dispatch's successor, to run from its
         device carry (``_ms_try_extend``'s double buffering, the JAX
         engine's ``_fms_try_extend``): rows continue as N decode rounds
         at their last depth, their worst-case tails allocated now.  A
         row still mid-prompt, new arrivals, rejections, an expired
         deadline, pool pressure or a ``max_model_len`` horizon drain the
-        pipeline (None), so the next step's schedule pass re-plans."""
-        if self._rejected or self.scheduler.waiting \
-                or self._connector_pending():
+        pipeline (None), so the next step's schedule pass re-plans.
+        Rows keep their shard and position."""
+        if self._rejected or self.scheduler.waiting or self._pull_drains():
             return None
         plan = rec["plan"]
         N = plan["N"]
@@ -2131,10 +2265,11 @@ class EngineCore:
                     self.kv_manager.release_tail(r_, blocks)
                 return None
             allocated.append((nxt["req"], got))
-        nplan = self._fms_build(next_specs, N, self._step_count + N,
-                                S=plan["S"])
-        return self._fms_dispatch(nplan, carry_dev={
-            k: rec["out_dev"][k] for k in ("pos", "last", "drafts", "gen0")})
+        shards: List[List[Dict[str, Any]]] = [[] for _ in range(self.dp)]
+        for nxt, row in zip(next_specs, plan["rows"].tolist()):
+            shards[row // plan["S_l"]].append(nxt)
+        return self._fms_build(shards, N, self._step_count + N,
+                               S_l=plan["S_l"])
 
     def _run_fused(self, sched: SchedulerOutput) -> List[RequestOutput]:
         """One fused mixed-round step, whatever the row mix: the fused
@@ -2146,7 +2281,9 @@ class EngineCore:
         drafts proposed from it, so the request's first decode step is
         already spec-armed."""
         # The scheduler funded this round's tokens: the plan always fits.
-        return self._fms_retire(self._fms_dispatch(self._fms_plan(sched, 1)))
+        plan = self._fms_plan(sched, 1)
+        self._agree("round", self._fms_digest(plan))
+        return self._fms_retire(self._fms_dispatch(plan))
 
     # ---------- step ----------
 
@@ -2181,7 +2318,11 @@ class EngineCore:
             # processing runs while the device computes the successor.
             rec = self._inflight
             if rec["kind"] == "fms":
-                nxt = self._fms_try_extend(rec)
+                nplan = self._fms_try_extend(rec)
+                self._agree("extension", self._fms_digest(nplan))
+                nxt = None if nplan is None else self._fms_dispatch(
+                    nplan, carry_dev={k: rec["out_dev"][k] for k in
+                                      ("pos", "last", "drafts", "gen0")})
                 outputs.extend(self._fms_retire(rec, successor=nxt))
             else:
                 nxt = self._ms_try_extend(rec)
@@ -2217,6 +2358,7 @@ class EngineCore:
             # dispatch, pipelined under async scheduling.
             N = self.config.num_scheduler_steps
             plan = self._fms_plan(sched, N) if N > 1 else None
+            self._agree("plan", self._fms_digest(plan))
             if plan is not None:
                 rec = self._fms_dispatch(plan)
                 if self.config.async_scheduling:

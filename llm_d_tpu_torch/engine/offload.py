@@ -21,6 +21,18 @@ The reference's tiered-prefix-cache path offloads KV to CPU RAM via vLLM's
     (``KVCacheManager.secondary_lookup``);
   - device eviction does NOT remove the host copy.
 
+On a mesh (``EngineCore`` over a dp x tp mesh) every rank runs the same
+scheduler, so every rank stores, flushes and looks up the same blocks in
+the same order.  The host copy lives on rank 0, whose scheduler decides:
+a flush gathers each block's rows from the ranks of its region (the
+gather P/D uses, ``transfer.connector.gather_blocks``) at the step's end,
+which every rank takes part in, and the other ranks keep only the key
+set, in the same LRU order.  A restore is rank 0's verdict, sent on the
+engine's step channel; its slab goes to the ranks of the requesting
+request's region, which write their tp shard of it.  A rank whose key
+set lacks a block rank 0 restores raises.  The shared tier is refused on
+a mesh.
+
 Cross-pod sharing (the LMCache/InfiniStore role): with ``serve_port`` set,
 the tier registers every host-resident block with a transfer server under
 its CHAIN HASH (sha256, deterministic across pods), and with ``peers`` set,
@@ -42,12 +54,13 @@ import struct
 import time
 from typing import Deque, Dict, List, Optional, Set, Tuple
 
+import numpy as np
 import torch
 
 from llm_d_tpu_torch.transfer import transport
 from llm_d_tpu_torch.transfer.connector import (
-    _cache_items, block_ids_on, gather_blocks, host_tensor,
-    scatter_block_rows, tensor_bytes, to_device)
+    _cache_items, _local_blocks, _tp_sharded, block_ids_on, gather_blocks,
+    host_tensor, scatter_block_rows, tensor_bytes, to_device)
 from llm_d_tpu_torch.utils import tracing
 from llm_d_tpu_torch.utils.config import env_float, env_int
 from llm_d_tpu_torch.utils.faultinject import FaultInjected, get_injector
@@ -156,7 +169,13 @@ class HostKVTier:
                 "(dns:/k8s:) is not ported (the JAX package resolves them "
                 "through the EPP's aiohttp resolvers); pass static "
                 "host:port peers")
+        if engine.mesh is not None and (serve_port is not None or peers):
+            raise ValueError(
+                f"the shared KV tier is not served on mesh "
+                f"{engine.mesh.config}: the host tier is")
         self.engine = engine
+        # On a mesh rank 0 holds the bytes; the others the key set.
+        self.leader = engine.mesh is None or engine.mesh.rank == 0
         self.capacity_blocks = capacity_blocks
         # hash -> PACKED block bytes (LRU, oldest first).  The shared-tier
         # server's registry holds the same bytes objects, so host memory
@@ -224,6 +243,9 @@ class HostKVTier:
         if not self._pending:
             return
         pending, self._pending = self._pending, []
+        if self.engine.mesh is not None:
+            self._flush_mesh(pending)
+            return
         cuda = self.engine.device.type == "cuda"
         hosts = {}
         for name, rows in gather_blocks(self.engine, [b for _, b in pending]):
@@ -237,6 +259,28 @@ class HostKVTier:
         self._gathers.append((event, pending, hosts))
         if not cuda:
             self.complete()
+
+    def _flush_mesh(self, pending: List[Tuple[bytes, int]]) -> None:
+        """A mesh's flush, on every rank: one gather of each region's
+        blocks (a collective of the region's ranks and rank 0, region by
+        region), packed on rank 0 at once; the other ranks record the
+        keys.  Each gather's rows are read to the host at once, so
+        nothing is left in flight."""
+        e = self.engine
+        km = e.kv_manager
+        for r in range(e.dp):
+            group = [(h, b) for h, b in pending if km.region_of_block(b) == r]
+            if not group:
+                continue
+            hosts = {name: rows.cpu() for name, rows in
+                     gather_blocks(e, [b for _, b in group])}
+            for i, (h, _) in enumerate(group):
+                self._staged.discard(h)
+                self._insert(h, _pack_block_slab(
+                    {name: arr[:, i] for name, arr in hosts.items()})
+                    if self.leader else None)
+                self.saves += 1
+                e.metrics.kv_offload_saves.inc()
 
     def complete(self, wait: bool = False) -> None:
         """Pack every queued gather whose copy has landed into the store
@@ -280,6 +324,8 @@ class HostKVTier:
         already-matched blocks: they MUST NOT be chosen as the restore
         target."""
         t0 = time.time()
+        if self.engine.mesh is not None:
+            return self._restore_mesh(block_hash, protected, region, t0)
         try:
             # A fired fault IS a miss: the caller recomputes.
             get_injector().check("kv.restore", key=block_hash.hex()[:16])
@@ -331,17 +377,109 @@ class HostKVTier:
             # The taken block is not registered anywhere yet: hand it back.
             km._release(b)
             raise
+        self._register(block_hash, b, t0, "host" if local else "peer",
+                       len(blob))
+        return b
+
+    def _register(self, block_hash: bytes, b: int, t0: float, tier: str,
+                  nbytes: int) -> None:
+        """A restored block enters the prefix cache, parked in the
+        evictor like a freed cached block."""
+        km = self.engine.kv_manager
         self._store.move_to_end(block_hash)
         km._hash_of[b] = block_hash
         km._cached[block_hash] = b
         km._evictor[km.region_of_block(b)][b] = None
         self.loads += 1
-        e.metrics.kv_offload_loads.inc()
+        self.engine.metrics.kv_offload_loads.inc()
         tracing.get_tracer("engine").record_span(
             "kv.restore", t0, time.time(),
-            block=block_hash.hex()[:16], verdict="hit",
-            tier="host" if local else "peer", bytes=len(blob))
+            block=block_hash.hex()[:16], verdict="hit", tier=tier,
+            bytes=nbytes)
+
+    def _restore_mesh(self, block_hash: bytes, protected: frozenset,
+                      region: int, t0: float) -> Optional[int]:
+        """A mesh's restore, on every rank at the same lookup: rank 0's
+        verdict (the slab's size, or None: a miss) on the step channel;
+        on a hit every rank takes the same block of ``region``, rank 0
+        sends the slab to the region's ranks and each writes its tp
+        shard.  A rank whose key set lacks the block raises; a slab that
+        cannot be written raises (no fallback)."""
+        e = self.engine
+        mesh, km, channel = e.mesh, e.kv_manager, e._channel
+        if block_hash in self._staged:
+            self.flush()                 # every rank stages alike
+        blob = None
+        if self.leader:
+            try:
+                get_injector().check("kv.restore", key=block_hash.hex()[:16])
+                blob = self._store.get(block_hash)
+            except FaultInjected as exc:
+                logger.warning("kv.restore fault: treating tier restore as "
+                               "a miss (%s)", exc)
+            channel.send(("restore", block_hash,
+                          None if blob is None else len(blob)))
+            nbytes = None if blob is None else len(blob)
+        else:
+            what, h, nbytes = channel.recv()
+            if (what, h) != ("restore", block_hash):
+                raise RuntimeError(
+                    f"rank {mesh.rank}: rank 0 sent {(what, h.hex()[:16])}"
+                    f" where this rank restores {block_hash.hex()[:16]}")
+            if nbytes is not None and block_hash not in self._store:
+                raise RuntimeError(
+                    f"rank {mesh.rank}: rank 0 restores block "
+                    f"{block_hash.hex()[:16]}, which this rank's host-tier "
+                    "key set does not hold")
+        if nbytes is None:
+            tracing.trace_event("engine", "kv.restore",
+                                block=block_hash.hex()[:16], verdict="miss")
+            return None
+        b = km.take_block(protected, region=region)
+        if b is None:
+            return None          # everything free is protected; recompute
+        ranks = mesh.region_ranks(region)
+        if self.leader:
+            t = torch.from_numpy(np.frombuffer(blob, np.uint8).copy())
+            for dst in ranks:
+                if dst != 0:
+                    mesh.send(t, dst)
+        elif mesh.rank in ranks:
+            blob = mesh.recv((nbytes,), torch.uint8,
+                             0).cpu().numpy().tobytes()
+        if mesh.rank in ranks:
+            try:
+                self._write_slab(blob, b)
+            except Exception:
+                km._release(b)
+                raise
+        self._register(block_hash, b, t0, "host", nbytes)
         return b
+
+    def _write_slab(self, blob: bytes, b: int) -> None:
+        """Write a packed slab into global block ``b`` of this rank's
+        plane, its tp shard of each sharded buffer."""
+        e = self.engine
+        L = _cache_items(e)[0][1].shape[0]
+        slab = _unpack_block_slab(blob, self._full_layout(), L,
+                                  e.config.block_size,
+                                  pin=e.device.type == "cuda")
+        _, local = _local_blocks(e, [b])
+        ids = block_ids_on(e.device, local)
+        for name, arr in slab.items():
+            if _tp_sharded(e, name):
+                w = e.kv_cache[name].shape[2]
+                t = e.mesh.axis_index("tp")
+                arr = arr[..., t * w:(t + 1) * w].contiguous()
+            scatter_block_rows(e, name, ids, to_device(arr, e.device)[:, None])
+
+    def _full_layout(self) -> List[tuple]:
+        """The slab's segments as the wire carries them: whole rows (a tp
+        rank's buffer holds its share of a sharded one)."""
+        e = self.engine
+        tp = e.mesh.axis_size("tp") if e.mesh is not None else 1
+        return [(name, width * (tp if _tp_sharded(e, name) else 1), dtype)
+                for name, width, dtype in _slab_layout(e)]
 
     def _fetch_from_peers(self, block_hash: bytes) -> Optional[bytes]:
         """Shared-tier lookup before recompute: try each peer's server.

@@ -347,19 +347,21 @@ def init_draft_params(config: ModelConfig, generator: torch.Generator,
 
 def draft_propose(params: Params, draft_params: Params, hidden: torch.Tensor,
                   last_ids: torch.Tensor, K: int,
-                  config: ModelConfig) -> torch.Tensor:
+                  config: ModelConfig, mesh=None) -> torch.Tensor:
     """Greedy MTP rollout (``llama.draft_propose``): ``K`` draft ids
     ``[S, K]`` from the target's hidden state ``hidden [S, D]`` at the
     position that sampled ``last_ids [S]``; each depth folds the previous
     draft's embedding back in.  Drafts are greedy whatever the request's
     sampling (ties to the lower id): the verifier compares them with the
-    target's own samples."""
+    target's own samples.  Under tp the embedding and the head are the
+    target's shards (gathered rows, gathered or summed logits, as in its
+    forward); the drafter's own weights are whole on every rank."""
     c, dp = config, draft_params
     eps = c.rms_norm_eps
     h, tok = hidden, last_ids.long()
     out = []
     for _ in range(K):
-        e = params["embed"][tok].to(h.dtype)
+        e = embed_tokens(params, tok, mesh).to(h.dtype)
         x = torch.cat([L.rms_norm(h, dp["h_norm"], eps),
                        L.rms_norm(e, dp["e_norm"], eps)], dim=-1)
         # Under jit XLA feeds the MLP's norm the f32 product (the f32 ->
@@ -370,7 +372,7 @@ def draft_propose(params: Params, draft_params: Params, hidden: torch.Tensor,
         hn = L.rms_norm(h2_32, dp["mlp_norm"], eps).to(h.dtype)
         h = h2 + L.swiglu_mlp(hn, dp["gate_proj"], dp["up_proj"],
                               dp["down_proj"])
-        tok = torch.argmax(compute_logits(params, h, c), dim=-1)
+        tok = torch.argmax(compute_logits(params, h, c, mesh), dim=-1)
         out.append(tok)
     return torch.stack(out, dim=1).to(torch.int32)
 

@@ -84,9 +84,12 @@ on with fewer ranks.  ``--allow-device-subset`` permits a mesh smaller
 than the host's card count.  A mesh serves the wide-EP recipe's flags
 (``deploy/wide-ep-lws``): ``--enable-dbo`` and its thresholds,
 ``--enable-eplb`` / ``--eplb-config`` (migrations between ranks) and
-``--kv-transfer-config`` (rank 0 holds the connector).  On a mesh the
-host tier, spec decode and (gloo on CUDA) ``--num-scheduler-steps`` > 1
-are refused by name.
+``--kv-transfer-config`` (rank 0 holds the connector), and spec decode
+(``--spec-k``, the fused rounds), ``--num-scheduler-steps`` > 1 with
+``--async-scheduling`` and the host tier (``--kv-offload-blocks``; rank 0
+holds the host copy).  Ranks that share a card (gloo) run the decode
+blocks and fused rounds eagerly.  On a mesh the shared tier is refused by
+name.
 
 Data parallelism on one host, in the JAX server's two modes
 (``--data-parallel-size D``, ``--data-parallel-size-local`` equal to it):
@@ -1094,22 +1097,18 @@ def check_mesh_flags(parser: argparse.ArgumentParser, args) -> None:
               f"--tensor-parallel-size {args.tensor_parallel_size}"
               if args.data_parallel_size > 1
               else f"--tensor-parallel-size {args.tensor_parallel_size}")
+    # Spec decode, the fused rounds, the host tier and multistep blocks
+    # are served on a mesh (ranks that share a card run the bodies
+    # eagerly); the shared tier is not.
     refused = {
-        "--kv-offload-blocks": args.kv_offload_blocks > 0,
-        "--spec-k": bool(args.spec_k),
+        "--kv-shared-tier-port": args.kv_shared_tier_port is not None,
+        "--kv-shared-tier-peers": bool(shared_tier_peers(args)),
     }
     for flag, on in refused.items():
         if on:
             parser.error(f"{flag} is not served on a mesh ({layout}) by the "
-                         "PyTorch port")
-    if args.num_scheduler_steps > 1 and args.device != "cpu":
-        import torch
-        from llm_d_tpu_torch.parallel.mesh import backend_for
-        if backend_for(torch.device("cuda"), world) == "gloo":
-            parser.error(
-                f"--num-scheduler-steps {args.num_scheduler_steps} is not "
-                f"served on {world} ranks that share a card: their gloo "
-                "collectives cannot be captured in a CUDA graph")
+                         "PyTorch port: the shared KV tier serves one "
+                         "device's host tier")
 
 
 def _rank_main(rank: int, world: int, address: str, argv: List[str]) -> None:

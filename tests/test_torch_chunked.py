@@ -23,6 +23,11 @@ from llm_d_tpu.ops import attention as JA
 from llm_d_tpu.ops.quant import quantize_kv_block as _jquant_raw
 from llm_d_tpu_torch.ops import attention as TA
 
+# One intra-op thread: these tests' tensors are tiny, and the suite's
+# parallel workers, each with a thread pool as wide as the machine, would
+# oversubscribe its cores (the pools' waiting threads spin).
+torch.set_num_threads(1)
+
 TOL = dict(atol=2e-2, rtol=2e-2)
 _jquant = jax.jit(_jquant_raw, static_argnums=1)
 

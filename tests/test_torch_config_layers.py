@@ -24,6 +24,13 @@ from llm_d_tpu.utils import config as jconfig
 from llm_d_tpu_torch.server import openai as TServer
 from llm_d_tpu_torch.utils import config as tconfig
 
+import torch
+
+# One intra-op thread: these tests' tensors are tiny, and the suite's
+# parallel workers, each with a thread pool as wide as the machine, would
+# oversubscribe its cores (the pools' waiting threads spin).
+torch.set_num_threads(1)
+
 BASE = """
 model: deepseek-v3-bench
 quantization: int8

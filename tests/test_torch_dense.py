@@ -35,6 +35,11 @@ from llm_d_tpu_torch.ops import attention as TA
 from llm_d_tpu_torch.ops import flash_prefill as TF
 from llm_d_tpu_torch.ops import paged_attention as TP
 
+# One intra-op thread: these tests' tensors are tiny, and the suite's
+# parallel workers, each with a thread pool as wide as the machine, would
+# oversubscribe its cores (the pools' waiting threads spin).
+torch.set_num_threads(1)
+
 TOL = dict(atol=2e-2, rtol=2e-2)
 _jquant = jax.jit(j_quant, static_argnums=1)
 

@@ -14,9 +14,9 @@ flags in both modes.
   mode (two rank processes, a ``MeshConfig(dp=2)`` mesh) and in ranks
   mode; the spmd server exits 0 on SIGTERM with no rank left.
 * What stays refused is refused by name before anything starts: the
-  multi-host flags, a ``--data-parallel-size-local`` below the size, and
-  ranks mode with ``--tensor-parallel-size`` > 1; a group asked for more
-  devices than it was given.
+  multi-host flags, a ``--data-parallel-size-local`` below the size,
+  ranks mode with ``--tensor-parallel-size`` > 1 and the shared KV tier
+  on the mesh; a group asked for more devices than it was given.
 """
 
 import signal
@@ -35,6 +35,11 @@ from llm_d_tpu_torch.ops.sampling import SamplingParams
 
 from test_torch_tp_server import (GREEDY, TIMEOUT, _alive, _children,
                                   _frames, _Server, _strip)
+
+# One intra-op thread: these tests' tensors are tiny, and the suite's
+# parallel workers, each with a thread pool as wide as the machine, would
+# oversubscribe its cores (the pools' waiting threads spin).
+torch.set_num_threads(1)
 
 ENGINE_KW = dict(model="tiny", device="cpu", block_size=4, num_blocks=64,
                  max_num_seqs=8, max_num_batched_tokens=64,
@@ -203,7 +208,8 @@ def test_a_group_refuses_what_it_does_not_serve():
     (["--data-parallel-size-local", "1"], "--data-parallel-size-local"),
     (["--data-parallel-mode", "ranks", "--tensor-parallel-size", "2"],
      "--data-parallel-mode ranks"),
-    (["--tensor-parallel-size", "2", "--spec-k", "2"], "--spec-k")])
+    (["--tensor-parallel-size", "2", "--kv-offload-blocks", "8",
+      "--kv-shared-tier-port", "0"], "--kv-shared-tier-port")])
 def test_what_dp_does_not_serve_is_refused_by_name(flags, named, capsys):
     from llm_d_tpu_torch.server import openai as TServer
     p = TServer.build_arg_parser()

@@ -30,6 +30,11 @@ from llm_d_tpu_torch.ops import moe as TMoeOps
 from llm_d_tpu_torch.parallel.launch import RankPool
 from llm_d_tpu_torch.parallel.mesh import Mesh, MeshConfig
 
+# One intra-op thread: these tests' tensors are tiny, and the suite's
+# parallel workers, each with a thread pool as wide as the machine, would
+# oversubscribe its cores (the pools' waiting threads spin).
+torch.set_num_threads(1)
+
 WORLD = 4
 TOL = dict(atol=3e-2, rtol=3e-2)
 TOL_INT8 = dict(atol=6e-2, rtol=6e-2)

@@ -57,6 +57,11 @@ from test_torch_everything_on import MLA_KW as EON_MLA_KW
 from test_torch_everything_on import FmsReplay, greedy_req, seeded_req
 from test_torch_spec import step_log
 
+# One intra-op thread: these tests' tensors are tiny, and the suite's
+# parallel workers, each with a thread pool as wide as the machine, would
+# oversubscribe its cores (the pools' waiting threads spin).
+torch.set_num_threads(1)
+
 E64 = 64
 ZIPF_SEEDS = (0, 1, 2)
 

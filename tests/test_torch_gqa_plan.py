@@ -30,6 +30,11 @@ from llm_d_tpu_torch.ops import flash_prefill as TF
 from llm_d_tpu_torch.ops import paged_attention as TP
 from test_torch_dense import TOL, _caches, _f32, _jquant, _t, _tables
 
+# One intra-op thread: these tests' tensors are tiny, and the suite's
+# parallel workers, each with a thread pool as wide as the machine, would
+# oversubscribe its cores (the pools' waiting threads spin).
+torch.set_num_threads(1)
+
 BLOCK_SIZES = tuple(range(16, 513, 16))
 # (H, KVH): G = 1 .. 16 over KV head counts of 1 to 32.
 GROUPS = [(8, 8), (32, 32), (16, 8), (12, 4), (32, 8), (24, 4), (48, 8),

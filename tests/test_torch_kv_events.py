@@ -33,6 +33,13 @@ from llm_d_tpu_torch.models.convert import params_from_numpy
 from llm_d_tpu_torch.ops.sampling import SamplingParams
 from llm_d_tpu_torch.server import openai as TServer
 
+import torch
+
+# One intra-op thread: these tests' tensors are tiny, and the suite's
+# parallel workers, each with a thread pool as wide as the machine, would
+# oversubscribe its cores (the pools' waiting threads spin).
+torch.set_num_threads(1)
+
 ENGINE_KW = dict(model="tiny", block_size=4, num_blocks=12, max_num_seqs=4,
                  max_num_batched_tokens=64, min_token_bucket=16,
                  min_seq_bucket=4, enable_prefix_caching=True)

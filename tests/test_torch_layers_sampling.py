@@ -20,6 +20,11 @@ from llm_d_tpu_torch.ops import layers as TL
 from llm_d_tpu_torch.ops import prng
 from llm_d_tpu_torch.ops import sampling as TS
 
+# One intra-op thread: these tests' tensors are tiny, and the suite's
+# parallel workers, each with a thread pool as wide as the machine, would
+# oversubscribe its cores (the pools' waiting threads spin).
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 
 

@@ -44,6 +44,11 @@ from llm_d_tpu_torch.models.config import get_config as tget_config
 from llm_d_tpu_torch.ops.quant import quantize_moe_experts
 from llm_d_tpu_torch.ops.sampling import SamplingParams
 
+# One intra-op thread: these tests' tensors are tiny, and the suite's
+# parallel workers, each with a thread pool as wide as the machine, would
+# oversubscribe its cores (the pools' waiting threads spin).
+torch.set_num_threads(1)
+
 _MOE0 = dict(first_dense_layers=0, num_shared_experts=0, head_dim=32,
              qk_norm=True)
 CHECKPOINTS = {

@@ -36,6 +36,11 @@ from llm_d_tpu_torch.parallel.mesh import (Mesh, MeshConfig, check_served,
                                            lws_distributed_args,
                                            select_devices)
 
+# One intra-op thread: these tests' tensors are tiny, and the suite's
+# parallel workers, each with a thread pool as wide as the machine, would
+# oversubscribe its cores (the pools' waiting threads spin).
+torch.set_num_threads(1)
+
 WORLD = 4
 
 

@@ -36,6 +36,13 @@ from test_torch_spec import (
     K, MODELS, PROMPTS, greedy_req, jax_pair, kw_of, port_engine,
     seeded_req, step_log)
 
+import torch
+
+# One intra-op thread: these tests' tensors are tiny, and the suite's
+# parallel workers, each with a thread pool as wide as the machine, would
+# oversubscribe its cores (the pools' waiting threads spin).
+torch.set_num_threads(1)
+
 
 def _free_blocks(engine):
     return engine.kv_manager.num_free_blocks

@@ -26,6 +26,11 @@ from llm_d_tpu_torch.models.convert import params_from_numpy, \
     tensor_from_numpy
 from llm_d_tpu_torch.ops import mla_decode, mla_prefill
 
+# One intra-op thread: these tests' tensors are tiny, and the suite's
+# parallel workers, each with a thread pool as wide as the machine, would
+# oversubscribe its cores (the pools' waiting threads spin).
+torch.set_num_threads(1)
+
 TOL = dict(atol=2e-2, rtol=2e-2)
 
 

@@ -25,6 +25,11 @@ from llm_d_tpu_torch.models.config import get_config as tget_config
 from llm_d_tpu_torch.models.convert import tensor_from_numpy
 from llm_d_tpu_torch.ops import moe as TM
 
+# One intra-op thread: these tests' tensors are tiny, and the suite's
+# parallel workers, each with a thread pool as wide as the machine, would
+# oversubscribe its cores (the pools' waiting threads spin).
+torch.set_num_threads(1)
+
 
 def _t(a):
     return tensor_from_numpy(np.asarray(a), "cpu")

@@ -58,6 +58,11 @@ from llm_d_tpu_torch.ops import moe as TMoeOps
 from llm_d_tpu_torch.ops.quant import quantize_moe_experts
 from llm_d_tpu_torch.ops.sampling import SamplingParams
 
+# One intra-op thread: these tests' tensors are tiny, and the suite's
+# parallel workers, each with a thread pool as wide as the machine, would
+# oversubscribe its cores (the pools' waiting threads spin).
+torch.set_num_threads(1)
+
 TOL = dict(atol=2e-2, rtol=2e-2)
 TOL_KERNEL = dict(atol=6e-2, rtol=6e-2)
 BS = 16

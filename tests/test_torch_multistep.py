@@ -34,6 +34,13 @@ from llm_d_tpu_torch.engine.request import Request
 from llm_d_tpu_torch.models.convert import params_from_numpy
 from llm_d_tpu_torch.ops.sampling import SamplingParams
 
+import torch
+
+# One intra-op thread: these tests' tensors are tiny, and the suite's
+# parallel workers, each with a thread pool as wide as the machine, would
+# oversubscribe its cores (the pools' waiting threads spin).
+torch.set_num_threads(1)
+
 K = 4
 MODES = {
     "tiny-mla": dict(model="tiny-mla", quantization="int8",

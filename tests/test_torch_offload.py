@@ -37,6 +37,11 @@ from llm_d_tpu_torch.engine.request import Request
 from llm_d_tpu_torch.models.convert import params_from_numpy, tensor_from_numpy
 from llm_d_tpu_torch.ops.sampling import SamplingParams
 
+# One intra-op thread: these tests' tensors are tiny, and the suite's
+# parallel workers, each with a thread pool as wide as the machine, would
+# oversubscribe its cores (the pools' waiting threads spin).
+torch.set_num_threads(1)
+
 BS = 4
 TIER_KW = dict(block_size=BS, num_blocks=16, max_num_seqs=4,
                max_num_batched_tokens=64, min_token_bucket=16,

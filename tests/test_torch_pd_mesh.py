@@ -20,7 +20,8 @@ again until its pins are released.
 * The flag sets of ``prefill-lws.yaml`` and ``decode-lws.yaml`` (at dp =
   2, tp = 2) parse into the mesh config, and the servers' engines built
   from them on the ranks (``tiny-moe``, 16-step async blocks on the CPU)
-  serve a request disaggregated.
+  serve a request disaggregated; the decode set passes whole where the
+  ranks share a card (its bodies then run eagerly).
 """
 
 import time
@@ -38,6 +39,11 @@ from llm_d_tpu_torch.parallel.mesh import MeshConfig
 
 from test_torch_spmd_dp import DP, TP, WORLD
 from test_torch_tp import ENGINE, MODELS
+
+# One intra-op thread: these tests' tensors are tiny, and the suite's
+# parallel workers, each with a thread pool as wide as the machine, would
+# oversubscribe its cores (the pools' waiting threads spin).
+torch.set_num_threads(1)
 
 PROMPTS = {"pd-a": [3, 1, 4, 1, 5, 9, 2, 6, 5, 3],
            "pd-b": [7, 3, 9, 1, 4, 6, 2, 8, 5]}
@@ -358,16 +364,18 @@ def test_the_recipe_flag_sets_parse_into_the_mesh_config(flags):
 
 def test_the_recipe_keeps_captured_blocks_refused_on_a_shared_card(capsys):
     """Without ``--device cpu`` four ranks share the card over gloo: the
-    decode recipe's 16-step blocks are refused by name, and the recipe
-    without them passes."""
+    decode recipe passes whole, its 16-step async blocks included, and
+    their bodies run eagerly (no CUDA graph holds a gloo collective)."""
     from llm_d_tpu_torch.server import openai as TServer
     p = TServer.build_arg_parser()
-    with pytest.raises(SystemExit):
-        TServer.check_mesh_flags(p, p.parse_args(DECODE_LWS))
-    assert "--num-scheduler-steps 16" in capsys.readouterr().err
-    i = DECODE_LWS.index("--num-scheduler-steps")
-    card = DECODE_LWS[:i] + DECODE_LWS[i + 3:]
-    TServer.check_mesh_flags(p, p.parse_args(card))
+    args = p.parse_args(DECODE_LWS)
+    TServer.check_mesh_flags(p, args)
+    assert capsys.readouterr().err == ""
+    assert args.num_scheduler_steps == 16 and args.async_scheduling
+
+    class Shared:
+        stage_host = True
+    assert not EngineCore.captures_bodies(torch.device("cuda"), Shared())
 
 
 def rank_recipe(kv_port):

@@ -19,6 +19,11 @@ from llm_d_tpu.ops import sampling as JS
 from llm_d_tpu_torch.ops import prng as P
 from llm_d_tpu_torch.ops import sampling as TS
 
+# One intra-op thread: these tests' tensors are tiny, and the suite's
+# parallel workers, each with a thread pool as wide as the machine, would
+# oversubscribe its cores (the pools' waiting threads spin).
+torch.set_num_threads(1)
+
 SEEDS = (0, 7, 2**31 - 1)
 GEN_IDX = (0, 1, 15, 1000)
 

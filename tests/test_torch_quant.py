@@ -17,6 +17,11 @@ from llm_d_tpu.ops import quant as JQ
 from llm_d_tpu_torch.models.convert import tensor_from_numpy
 from llm_d_tpu_torch.ops import quant as TQ
 
+# One intra-op thread: these tests' tensors are tiny, and the suite's
+# parallel workers, each with a thread pool as wide as the machine, would
+# oversubscribe its cores (the pools' waiting threads spin).
+torch.set_num_threads(1)
+
 
 def _np(x):
     return np.asarray(x)

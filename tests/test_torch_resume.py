@@ -43,6 +43,13 @@ from llm_d_tpu_torch.utils import faultinject
 from llm_d_tpu_torch.utils.faultinject import FaultInjected, FaultInjector
 from test_torch_server import TIMEOUT, _Pair, _serve_jax, _serve_port, _sse
 
+import torch
+
+# One intra-op thread: these tests' tensors are tiny, and the suite's
+# parallel workers, each with a thread pool as wide as the machine, would
+# oversubscribe its cores (the pools' waiting threads spin).
+torch.set_num_threads(1)
+
 ENGINE_KW = dict(model="tiny", block_size=4, num_blocks=64, max_num_seqs=8,
                  max_num_batched_tokens=64, min_token_bucket=16,
                  min_seq_bucket=4)

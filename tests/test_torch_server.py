@@ -73,6 +73,13 @@ from llm_d_tpu_torch.engine import EngineConfig, EngineCore
 from llm_d_tpu_torch.models.convert import params_from_numpy
 from llm_d_tpu_torch.server import openai as TServer
 
+import torch
+
+# One intra-op thread: these tests' tensors are tiny, and the suite's
+# parallel workers, each with a thread pool as wide as the machine, would
+# oversubscribe its cores (the pools' waiting threads spin).
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TIMEOUT = 120          # seconds, per HTTP call (first calls compile in JAX)
 

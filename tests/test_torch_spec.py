@@ -64,6 +64,11 @@ from llm_d_tpu_torch.ops import sampling as TSampling
 from llm_d_tpu_torch.ops.sampling import SamplingParams
 from llm_d_tpu_torch.utils.predictor import SpecAcceptanceTracker
 
+# One intra-op thread: these tests' tensors are tiny, and the suite's
+# parallel workers, each with a thread pool as wide as the machine, would
+# oversubscribe its cores (the pools' waiting threads spin).
+torch.set_num_threads(1)
+
 K = 4
 ENGINE_KW = dict(block_size=4, num_blocks=64, max_num_seqs=8,
                  max_num_batched_tokens=64, min_token_bucket=16,

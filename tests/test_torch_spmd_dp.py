@@ -35,6 +35,11 @@ from llm_d_tpu_torch.parallel.mesh import Mesh, MeshConfig
 
 from test_torch_tp import ENGINE, MODELS, collective_bytes
 
+# One intra-op thread: these tests' tensors are tiny, and the suite's
+# parallel workers, each with a thread pool as wide as the machine, would
+# oversubscribe its cores (the pools' waiting threads spin).
+torch.set_num_threads(1)
+
 DP, TP = 2, 2
 WORLD = DP * TP
 # Six requests of 3-9 tokens: the two regions get different token counts,
@@ -217,8 +222,8 @@ def rank_refusals():
 
 
 def test_refused_by_name_on_the_dp_mesh(pool):
-    """Spec decode, the host tier and a step-time target stay refused on
-    a dp mesh, each error naming the feature and the mesh; so is a pool
+    """The shared KV tier and a step-time target stay refused on a dp
+    mesh, each error naming the feature and the mesh; so is a pool
     that does not split into dp regions."""
     for errors, regions in pool.run(rank_refusals):
         for name, msg in errors.items():

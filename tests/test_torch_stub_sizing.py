@@ -47,6 +47,11 @@ from llm_d_tpu_torch.models.convert import params_from_numpy
 from llm_d_tpu_torch.ops.quant import kv_scale_width as tkv_scale_width
 from llm_d_tpu_torch.ops.sampling import SamplingParams
 
+# One intra-op thread: these tests' tensors are tiny, and the suite's
+# parallel workers, each with a thread pool as wide as the machine, would
+# oversubscribe its cores (the pools' waiting threads spin).
+torch.set_num_threads(1)
+
 STUBS = ("attn", "moe_ffn", "shared_expert")
 TOL = dict(atol=2e-2, rtol=2e-2)
 

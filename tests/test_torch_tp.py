@@ -33,6 +33,11 @@ from llm_d_tpu_torch.parallel.launch import RankPool
 from llm_d_tpu_torch.parallel.mesh import Mesh, MeshConfig
 from llm_d_tpu_torch.parallel.sharding import shard_shape
 
+# One intra-op thread: these tests' tensors are tiny, and the suite's
+# parallel workers, each with a thread pool as wide as the machine, would
+# oversubscribe its cores (the pools' waiting threads spin).
+torch.set_num_threads(1)
+
 TP = 2
 TOL = dict(atol=2e-2, rtol=2e-2)
 BS = 4

@@ -8,13 +8,14 @@ engine on ``MeshConfig(tp=2)``, and what the port refuses on a mesh.
   deadline).
 * An abort and a deadline reach every rank at the step that sees them
   (the deadline read against rank 0's clock).
-* Refused by name: spec decode, the host tier, a step-time target and
-  captured blocks on a gloo mesh on CUDA on a mesh; DBO on a dense model;
-  sp meshes; the server's flags for them and the multi-host DP flags
-  before any rank starts, and ``--tensor-parallel-size`` /
-  ``--allow-device-subset`` map to the engine's mesh.  (P/D, EPLB at ep
-  > 1 and DBO on a mesh are served: ``tests/test_torch_wide_ep.py``,
-  ``tests/test_torch_pd_mesh.py``.)
+* Refused by name: the shared KV tier and a step-time target on a mesh;
+  DBO on a dense model; sp meshes; the server's flags for them and the
+  multi-host DP flags before any rank starts, and
+  ``--tensor-parallel-size`` / ``--allow-device-subset`` map to the
+  engine's mesh.  A gloo mesh on CUDA runs its blocks eagerly.  (P/D,
+  EPLB at ep > 1, DBO, spec decode, the fused rounds and the host tier
+  on a mesh are served: ``tests/test_torch_wide_ep.py``,
+  ``tests/test_torch_pd_mesh.py``, ``tests/test_torch_spec_mesh.py``.)
 """
 
 import time
@@ -30,6 +31,11 @@ from llm_d_tpu_torch.parallel.launch import RankPool
 from llm_d_tpu_torch.parallel.mesh import MeshConfig
 
 from test_torch_tp import ENGINE, MODELS, TP, jax_generate, rank_generate
+
+# One intra-op thread: these tests' tensors are tiny, and the suite's
+# parallel workers, each with a thread pool as wide as the machine, would
+# oversubscribe its cores (the pools' waiting threads spin).
+torch.set_num_threads(1)
 
 BLOCKS = dict(num_scheduler_steps=4, async_scheduling=True)
 
@@ -84,8 +90,9 @@ def test_aborts_and_deadlines_reach_every_rank(pool):
 
 
 REFUSALS = {
-    "spec decode": dict(spec_k=2),
-    "host and shared KV tiers": dict(kv_offload_blocks=8),
+    "shared KV tier port": dict(kv_offload_blocks=8, kv_shared_tier_port=0),
+    "shared KV tier peers": dict(kv_offload_blocks=8,
+                                 kv_shared_tier_peers=("127.0.0.1:9",)),
     "LLMD_STEP_TIME_TARGET_MS": dict(env=("LLMD_STEP_TIME_TARGET_MS", "50")),
 }
 
@@ -122,18 +129,21 @@ def test_refused_by_name_on_a_mesh(pool):
 
 @pytest.mark.parametrize("flags,named", [
     (["--data-parallel-address", "10.0.0.1"], "--data-parallel-address"),
-    (["--kv-offload-blocks", "8"], "--kv-offload-blocks"),
-    (["--spec-k", "2"], "--spec-k"),
+    (["--kv-offload-blocks", "8", "--kv-shared-tier-port", "0"],
+     "--kv-shared-tier-port"),
+    (["--kv-offload-blocks", "8", "--kv-shared-tier-peers", "h:9"],
+     "--kv-shared-tier-peers"),
     (["--data-parallel-rpc-port", "5555"], "--data-parallel-rpc-port"),
-    (["--num-scheduler-steps", "4", "--async-scheduling"],
-     "--num-scheduler-steps 4"),
+    (["--data-parallel-size-local", "1", "--data-parallel-size", "2"],
+     "--data-parallel-size-local 1"),
     (["--data-parallel-workers", "w1:8200"], "--data-parallel-workers"),
     (["--data-parallel-hybrid-lb"], "--data-parallel-hybrid-lb")])
 def test_the_server_refuses_by_name_before_any_rank_starts(flags, named,
                                                            capsys):
     """With ``--tensor-parallel-size 2`` on the card (no ``--device
-    cpu``): ranks sharing a card would run gloo, so captured blocks are
-    refused too."""
+    cpu``): the shared tier and multi-host data parallelism.  Spec decode,
+    the host tier and multistep blocks are served on a mesh
+    (``tests/test_torch_spec_mesh.py``)."""
     from llm_d_tpu_torch.server import openai as TServer
     p = TServer.build_arg_parser()
     args = p.parse_args(["--tensor-parallel-size", "2"] + flags)
@@ -158,15 +168,17 @@ def test_tensor_parallel_flags_map_to_the_mesh():
 
 
 def test_gloo_on_cuda_refuses_captured_blocks_and_dbo_is_refused():
+    """A gloo mesh on CUDA captures no block: its 4-step async blocks are
+    served with the bodies run eagerly (the rule is the backend's, decided
+    at build)."""
     class FakeMesh:
         stage_host = True
         config = MeshConfig(tp=TP)
     fake = type("Fake", (), {})()
     fake.config = EngineConfig(num_scheduler_steps=4, async_scheduling=True)
     fake.mesh, fake.spec_k, fake._step_time_target_ms = FakeMesh(), 0, 0.0
-    with pytest.raises(ValueError, match="gloo collectives cannot be "
-                                         "captured"):
-        EngineCore._check_mesh(fake)
+    EngineCore._check_mesh(fake)
+    assert not EngineCore.captures_bodies(torch.device("cuda"), FakeMesh())
     with pytest.raises(ValueError, match="enable_dbo"):
         EngineCore(EngineConfig(enable_dbo=True, device="cpu"))
     with pytest.raises(ValueError, match="sp > 1"):

@@ -22,6 +22,13 @@ from pathlib import Path
 import pytest
 import requests
 
+import torch
+
+# One intra-op thread: these tests' tensors are tiny, and the suite's
+# parallel workers, each with a thread pool as wide as the machine, would
+# oversubscribe its cores (the pools' waiting threads spin).
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 FLAGS = ["--model", "tiny", "--device", "cpu", "--host", "127.0.0.1",
          "--block-size", "8", "--num-blocks", "64",

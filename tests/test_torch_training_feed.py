@@ -22,6 +22,13 @@ from llm_d_tpu_torch.ops.sampling import SamplingParams
 from llm_d_tpu_torch.server import openai as TServer
 from test_torch_server import _Pair, _serve_jax
 
+import torch
+
+# One intra-op thread: these tests' tensors are tiny, and the suite's
+# parallel workers, each with a thread pool as wide as the machine, would
+# oversubscribe its cores (the pools' waiting threads spin).
+torch.set_num_threads(1)
+
 
 def _samples(trainer, target):
     return list(trainer.store._samples[target])

@@ -34,6 +34,11 @@ from test_torch_spmd_dp import DP, TP, WORLD
 from test_torch_spmd_dp import PROMPTS as SPMD_PROMPTS
 from test_torch_tp import ENGINE
 
+# One intra-op thread: these tests' tensors are tiny, and the suite's
+# parallel workers, each with a thread pool as wide as the machine, would
+# oversubscribe its cores (the pools' waiting threads spin).
+torch.set_num_threads(1)
+
 TOL = dict(atol=3e-2, rtol=3e-2)
 # Steps run 32 rows over the mesh (16-row shards): the prefill splits,
 # the decode does not.
