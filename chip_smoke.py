@@ -384,6 +384,36 @@ Phases (each raises on failure; the script then exits non-zero):
             regions, the prompt once more: each restored block's bytes
             on every rank of its region equal rank 0's saved slab, the
             tokens the run's before the thrash.
+13. path (xii) multi-host data parallelism in ranks mode, once phase
+            12's ranks are gone: deepseek-v3-bench at full width and
+            depth in path (i)'s configuration, classic steps, two hosts
+            of one rank each (``--data-parallel-size 2
+            --data-parallel-size-local 1``) sharing the card; five entry
+            points start at once.  (a) The leader in this process, built
+            by the entry point's ``server_from_args`` (a
+            ``DPEngineGroup(dp_size=1, start_rank=0)`` and a
+            ``DPWorkerPool`` on one worker entry point started with
+            ``--data-parallel-start-rank 1``, log build/mh_worker.log;
+            both from seed 0): a 128-token prompt served locally, then
+            forced to the worker (its tokens equal the local ones); a
+            whole reply forced remote after the worker's depth was set
+            stale (the reply's depth header taken by the pool); a
+            1024-token prompt locally (E); a second prompt locally (32
+            new), then forced remote with the worker SIGKILLed after two
+            token chunks: the stream ends with [DONE], continuous
+            (``verify_continuity``), its tokens equal to the leader's
+            uninterrupted classic run or first different at a near tie
+            (``classic_margins``, ``divergence``), the leader's
+            ``llmd_tpu:stream_resume_total`` and recovery counted; after
+            each exchange the pool's ``inflight`` and ``dispatching`` at
+            0 and ``depth`` at 0 or above; the leader's kernel inputs held
+            to their plain versions.  (b) Both hosts as entry points
+            (logs build/mh_leader.log, mh_b_worker.log): the first
+            prompt to the leader, the second once it is busy (proxied),
+            each reply's tokens equal (a)'s, each host's /metrics one
+            request served; then a pair with --data-parallel-hybrid-lb
+            (logs build/mh_hybrid_*.log): each host its own request, the
+            leader with no pool; every entry point exits 0 on SIGTERM.
 
 Launch counts: every count is set to 0 just before a path is driven and
 read just after it; kernels A-F count path (i), G and H path (ii), and
@@ -408,7 +438,10 @@ and the DP group do not count), its checks as ``dp_inputs``; A, B and E
 add path (x)'s waves and P/D runs on every rank (``wide_launches``; its
 inputs' checks as ``wide_inputs``); A, B and E add path (xi)'s (a) and
 (b) waves on every rank (``xi_launches``; the plain yardstick and the
-tier's run do not count; its inputs' checks as ``xi_inputs``).  A
+tier's run do not count; its inputs' checks as ``xi_inputs``); A-E add
+path (xii)'s leader (``multihost_launches``; the yardstick engine does
+not count, the worker processes' launches are not seen; its inputs'
+checks as ``multihost_inputs``).  A
 count is the wrapper's own (eager launches, graph warm-ups included)
 plus the launches inside graph replays: a capture records each graph's
 launches, and every replay adds them (``engine/cuda_graph.py``); the
@@ -428,7 +461,8 @@ limit), a ``{"moe_gqa": ...}`` line (path (vii) and the witness, with
 the card's name and power limit), a ``{"mesh": ...}`` line (path (viii),
 likewise), a ``{"dp": ...}`` line (path (ix), likewise), a
 ``{"wide_ep": ...}`` line (path (x), likewise), a ``{"spec_mesh": ...}``
-line (path (xi), likewise), a ``{"kernels": [...]}`` line (one row per
+line (path (xi), likewise), a ``{"multihost": ...}`` line (path (xii),
+likewise), a ``{"kernels": [...]}`` line (one row per
 kernel at its first launch: measured launches, errors and times, with
 ``bound_ms``), the card's name and power limit, and last ``{"ok": true,
 "device": ...}``.  The engine line
@@ -3527,10 +3561,12 @@ def check_trace(spans, fused: int) -> int:
     return len(spans)
 
 
-def sse_stream(url: str, body: dict, headers=None, stop_after=None):
+def sse_stream(url: str, body: dict, headers=None, stop_after=None,
+               on_frame=None):
     """One streamed /v1/completions call: the chunks' ``llmd`` metas and
     whether ``[DONE]`` came.  With ``stop_after`` the client hangs up once
-    it holds that many tokens."""
+    it holds that many tokens; ``on_frame(n)`` is called after the n-th
+    token chunk."""
     import urllib.request
     req = urllib.request.Request(
         url + "/v1/completions", data=json.dumps(body).encode(),
@@ -3546,6 +3582,8 @@ def sse_stream(url: str, body: dict, headers=None, stop_after=None):
                 break
             metas.append(json.loads(data)["llmd"])
             n += len(metas[-1]["tok"])
+            if on_frame is not None:
+                on_frame(len(metas))
             if stop_after is not None and n >= stop_after:
                 break
     return metas, done
@@ -4320,6 +4358,9 @@ MESH_WRAPPERS = {
                     "mla_flash_prefill_plain"),
     "moe_streamed_int8": ("moe_routed_stream", "streamed_moe_int8",
                           "streamed_moe_int8_plain"),
+    "moe_dense_int8": ("moe_int8", "dense_moe_int8", "dense_moe_int8_plain"),
+    "moe_routed_int8": ("moe_routed", "routed_moe_int8",
+                        "routed_moe_int8_plain"),
     "paged_decode": ("paged_attention", "paged_attention_decode_update",
                      "paged_attention_decode_update_plain"),
     "flash_prefill": ("flash_prefill", "flash_prefill_paged",
@@ -4399,7 +4440,7 @@ def mesh_label(name: str, path="viii"):
     ``path`` is the label's prefix, or a function that returns it at the
     launch."""
     tag = path if callable(path) else (lambda: path)
-    if name == "moe_streamed_int8":
+    if name.startswith("moe_"):
         return lambda a, kw: f"{tag()} rows={a[0].shape[0]}"
     if name in ("mla_prefill", "flash_prefill"):
         return lambda a, kw: f"{tag()} S={a[0].shape[0]} Q={a[0].shape[1]}"
@@ -4493,14 +4534,15 @@ def mesh_wires(T: int, seed: int) -> dict:
             for k, v in outs.items() if k != "a2a bf16"}
 
 
-def mesh_kernel_checks() -> list:
+def mesh_kernel_checks(notes: bool = False) -> list:
     """Rank side (rank 0): each recorded kernel input (rank-local shapes)
     against the kernel's plain version with phase 4's tolerances, timed
     (eager ms, device ms, the plain version's ms), with its bound from
     ``work``; G and H also as one SDPA call on the dequantized K/V.  E's
     live work is its received rows with a nonzero combine weight (the
     fixed-region layout's empty region tails go to expert 0 with weight
-    0)."""
+    0); with ``notes`` (one engine, no mesh) an MoE kernel's is the step's
+    live tokens (``note_live_tokens``), as in phase 4."""
     import torch
     keep = MESH_STATE.get("keep")
     out = []
@@ -4535,7 +4577,8 @@ def mesh_kernel_checks() -> list:
                 if err / scale > 1e-2:
                     raise RuntimeError(f"{name}: error {err} / scale "
                                        f"{scale} > 1e-2")
-                live = int((args[2] != 0).sum())
+                live = (rec.notes[label] if notes
+                        else int((args[2] != 0).sum()))
             ms = time_ms(lambda: fn(*a_k, **kw_k), iters=20)
             dev_ms, _ = device_ms(lambda: fn(*a_k, **kw_k))
             plain_ms = time_ms(lambda: plain(*a_p, **kw_p), iters=3,
@@ -6283,6 +6326,339 @@ def mesh_path(root: str, smi: str) -> tuple:
 
 
 
+# Phase 13, path (xii): multi-host data parallelism in ranks mode, two
+# hosts on the one card (each its own process and engine; the leader's
+# engine in this process in (a)): deepseek-v3-bench at full width and
+# depth in path (i)'s configuration, classic steps (a captured block would
+# only add capture time here).
+MH_FLAGS = MESH_SERVER_FLAGS + ["--host", "127.0.0.1"]
+MH_RANKS = ["--data-parallel-mode", "ranks", "--data-parallel-size", "2",
+            "--data-parallel-size-local", "1"]
+MH_NEW = 16                 # new tokens of a request
+MH_STREAM_NEW = 32          # of the second prompt's requests (the killed
+#                             stream and its yardsticks)
+MH_LONG = 1024              # a prompt whose prefill passes 512 tokens (E)
+MH_KILL_AFTER = 2           # token chunks before the worker's SIGKILL
+MH_KERNELS = ("mla_decode", "mla_prefill", "moe_dense_int8",
+              "moe_routed_int8", "moe_streamed_int8")
+MH_LOGS = {"a_worker": "mh_worker.log", "b_leader": "mh_leader.log",
+           "b_worker": "mh_b_worker.log",
+           "h_leader": "mh_hybrid_leader.log",
+           "h_worker": "mh_hybrid_worker.log"}
+
+
+def mh_metric(m: dict, name: str) -> float:
+    """The sum of ``name``'s labelled samples in a parsed scrape."""
+    return sum(v for k, v in m.items() if k.startswith(name + "{"))
+
+
+def mh_settled(pool, what: str) -> list:
+    """After an exchange: every worker's slot settled (the leader's
+    finally runs just after the client has read the reply's end)."""
+    deadline = time.monotonic() + 10
+    while any(w["inflight"] for w in pool.workers) \
+            and time.monotonic() < deadline:
+        time.sleep(0.02)
+    state = [dict(inflight=w["inflight"], dispatching=len(w["dispatching"]),
+                  depth=w["depth"]) for w in pool.workers]
+    if any(st["inflight"] or st["dispatching"] or st["depth"] < 0
+           for st in state):
+        raise RuntimeError(f"path (xii) {what}: the pool's slots are not "
+                           f"settled: {state}")
+    return state
+
+
+@contextlib.contextmanager
+def mh_forced(pool, worker: int):
+    """The pool's pick forced to its ``worker``-th worker inside the
+    block (an idle leader serves locally otherwise)."""
+    pool.pick = lambda engine: pool.workers[worker]
+    try:
+        yield
+    finally:
+        del pool.pick
+
+
+def mh_leader_exchanges(lurl, server, worker_proc, p0, p1, long_p,
+                        yardstick) -> dict:
+    """Phase 13(a) through the in-process leader at ``lurl``: (1) ``p0``
+    alone, served locally (nothing dispatched); (2) ``p0`` forced to the
+    worker, its tokens equal (1)'s; (3) a whole reply forced remote after
+    the worker's depth was set stale (99): the reply carries the depth,
+    the pool takes it; (4) ``long_p`` locally (its prefill launches E);
+    (5) ``p1`` locally (the served, uninterrupted run); (6) ``p1`` forced
+    remote, the worker SIGKILLed after ``MH_KILL_AFTER`` token chunks:
+    the stream must end with [DONE], continuous, its tokens equal to
+    ``yardstick``'s (the leader engine's uninterrupted classic run) or
+    first different at a near tie; the leader counts the resume and its
+    recovery.  The pool's slots are settled after each exchange."""
+    import signal
+    from llm_d_tpu_torch.server.stream_resume import verify_continuity
+    from llm_d_tpu_torch.utils.lifecycle import SCHED_DEPTH_HEADER
+    pool = server.dp_pool
+    w = pool.workers[0]
+    out = {}
+    seq = w["seq"]
+    t0 = time.perf_counter()
+    local0 = completion(lurl, greedy_body(p0, MH_NEW, True))
+    if w["seq"] != seq:
+        raise RuntimeError("path (xii): an idle leader dispatched p0")
+    out["local_s"] = time.perf_counter() - t0
+    with mh_forced(pool, 0):
+        t0 = time.perf_counter()
+        remote0 = completion(lurl, greedy_body(p0, MH_NEW, True))
+        out["remote_s"] = time.perf_counter() - t0
+    out["after_remote"] = mh_settled(pool, "remote")
+    if remote0["tokens"] != local0["tokens"] or w["seq"] != seq + 1:
+        raise RuntimeError(f"path (xii): the remote reply differs from the "
+                           f"local one: {remote0['tokens']} against "
+                           f"{local0['tokens']}")
+    w["depth"] = 99
+    with mh_forced(pool, 0):
+        status, headers, reply = http_call(
+            lurl, "/v1/completions", greedy_body(p0, MH_NEW, False))
+    out["after_whole"] = mh_settled(pool, "whole")
+    depth = headers.get(SCHED_DEPTH_HEADER)
+    if status != 200 or depth is None or w["depth"] >= 99 \
+            or reply["usage"]["completion_tokens"] != MH_NEW:
+        raise RuntimeError(f"path (xii): the depth report: HTTP {status}, "
+                           f"header {depth}, pool depth {w['depth']}")
+    out["depth_reported"] = int(depth)
+    long_r = completion(lurl, greedy_body(long_p, MH_NEW, True))
+    local1 = completion(lurl, greedy_body(p1, MH_STREAM_NEW, True))
+    for r in (long_r, local1):
+        if r["finish"] != "length":
+            raise RuntimeError(f"path (xii): a local reply ended by "
+                               f"{r['finish']}")
+    ref, _, margins, bars = yardstick
+    out["served_equal_yardstick"] = local1["tokens"] == ref[0]
+
+    def kill(n):
+        if n == MH_KILL_AFTER:
+            worker_proc.send_signal(signal.SIGKILL)
+
+    seq = w["seq"]
+    with mh_forced(pool, 0):
+        t0 = time.perf_counter()
+        metas, done = sse_stream(lurl, greedy_body(p1, MH_STREAM_NEW, True),
+                                 on_frame=kill)
+        out["killed_stream_s"] = time.perf_counter() - t0
+    out["worker_rc"] = worker_proc.wait(timeout=60)
+    out["after_kill"] = mh_settled(pool, "kill")
+    got = [t for m in metas for t in m["tok"]]
+    problems = verify_continuity(metas, MH_STREAM_NEW)
+    srcs = [m["src"] for m in metas if "src" in m]
+    if not done or problems or len(srcs) != 1 or w["seq"] != seq + 1:
+        raise RuntimeError(f"path (xii): the killed stream: done {done}, "
+                           f"{problems}, src {srcs}")
+    div = divergence([got], ref, margins, bars)
+    at = div["first_divergence_per_row"][0]
+    if at < len(got) and not margins[at][0] <= bars[at][0]:
+        raise RuntimeError(f"path (xii): the resumed stream differs from "
+                           f"the uninterrupted run at {at}, where the "
+                           f"top-2 margin {margins[at][0]} is no near tie "
+                           f"(bar {bars[at][0]})")
+    m = scrape(lurl)
+    resumes = mh_metric(m, "llmd_tpu:stream_resume_total")
+    n_rec = mh_metric(m, "llmd_tpu:request_recovery_seconds_count")
+    rec_s = mh_metric(m, "llmd_tpu:request_recovery_seconds_sum")
+    if resumes < 1 or n_rec < 1:
+        raise RuntimeError(f"path (xii): the leader counted {resumes} "
+                           f"resumes, {n_rec} recoveries")
+    out.update(
+        resume_src=srcs[0], resume_chunk_offset=next(
+            mm["off"] for mm in metas if "src" in mm),
+        stream_resume_total=resumes, recoveries=n_rec,
+        recovery_s=rec_s / n_rec, tokens=len(got),
+        vs_uninterrupted=div,
+        worker_backed_off=w["down_until"] > time.monotonic())
+    return dict(out, p0_tokens=local0["tokens"], p1_tokens=local1["tokens"])
+
+
+def mh_entry_points(root, procs, url, want) -> dict:
+    """Phase 13(b): both hosts as entry points, this process the client.
+    The pair (the leader with ``--data-parallel-workers``): ``p0`` to the
+    leader, then ``p1`` to the leader once it is busy (proxied, the
+    worker less loaded); each reply's tokens equal (a)'s (``want``), each
+    host's /metrics shows one request served.  Then the hybrid-lb pair:
+    each host its own request at once, served where it was sent (the
+    leader has no pool).  SIGTERM: every process exits 0."""
+    from concurrent.futures import ThreadPoolExecutor
+    import signal
+    (p0, tok0), (p1, tok1) = want
+    out = {}
+    for tag, lead, work, hybrid in (("pair", "b_leader", "b_worker", False),
+                                    ("hybrid_lb", "h_leader", "h_worker",
+                                     True)):
+        t0 = time.perf_counter()
+        res = dict(ready_after_s=[wait_ready(procs[n], url[n])
+                                  for n in (work, lead)])
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(2) as ex:
+            first = ex.submit(completion, url[lead],
+                              greedy_body(p0, MH_NEW, True))
+            if not hybrid:
+                # The leader is busy once p0 is in its scheduler.
+                deadline = time.monotonic() + 60
+                while time.monotonic() < deadline:
+                    m = scrape(url[lead])
+                    if mh_metric(m, "vllm:num_requests_running") \
+                            + mh_metric(m, "vllm:num_requests_waiting") >= 1:
+                        break
+                    time.sleep(0.01)
+            second = ex.submit(completion, url[work if hybrid else lead],
+                               greedy_body(p1, MH_STREAM_NEW, True))
+            r0, r1 = first.result(), second.result()
+        res["requests_s"] = time.perf_counter() - t1
+        if r0["tokens"] != tok0 or r1["tokens"] != tok1:
+            raise RuntimeError(f"path (xii)(b) {tag}: the replies differ "
+                               f"from (a)'s direct ones")
+        served = [mh_metric(scrape(url[n]), "vllm:request_success_total")
+                  for n in (lead, work)]
+        if served != [1, 1]:
+            raise RuntimeError(f"path (xii)(b) {tag}: requests served by "
+                               f"leader and worker {served}, want [1, 1]")
+        for n in (lead, work):
+            procs[n].send_signal(signal.SIGTERM)
+        res["exit_codes"] = [procs[n].wait(timeout=DRAIN_S + 60)
+                             for n in (lead, work)]
+        if res["exit_codes"] != [0, 0]:
+            raise RuntimeError(f"path (xii)(b) {tag}: exit codes "
+                               f"{res['exit_codes']}")
+        with open(os.path.join(root, "build", MH_LOGS[lead]),
+                  errors="replace") as f:
+            text = f.read()
+        pooled = "DP leader dispatching across 1 worker hosts" in text
+        if pooled == hybrid or ("hybrid-lb" in text) != hybrid:
+            raise RuntimeError(f"path (xii)(b) {tag}: the leader's pool "
+                               f"attached: {pooled}")
+        res.update(served_by_leader_worker=served, leader_pool=pooled,
+                   proxied=0 if hybrid else 1,
+                   seconds=time.perf_counter() - t0)
+        out[tag] = res
+        log(f"path (xii)(b) {tag}: {json.dumps(res)}")
+    return out
+
+
+def multihost_path(root: str, smi: str) -> tuple:
+    """Phase 13, path (xii): multi-host DP in ranks mode
+    (``--data-parallel-size 2 --data-parallel-size-local 1``), every host
+    started at once: (a) the leader in this process, built by the entry
+    point's own ``server_from_args`` (``DPEngineGroup(dp_size=1,
+    start_rank=0)`` with a ``DPWorkerPool`` on one worker host, the entry
+    point with ``--data-parallel-start-rank 1``; both from seed 0), its
+    kernel inputs recorded and its launches counted
+    (``mh_leader_exchanges``); (b) two pairs of entry points, the second
+    with ``--data-parallel-hybrid-lb`` (``mh_entry_points``).  The
+    yardstick of the killed stream is an engine of the leader's
+    configuration and weights without prefix caching (the leader's
+    uninterrupted classic run, margins taped).  Returns (result, launches
+    by kernel, per-kernel checks against the plain versions)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from llm_d_tpu_torch.engine import EngineCore
+    from llm_d_tpu_torch.server import openai as srv
+    t_path = time.perf_counter()
+    ports = {n: free_port() for n in MH_LOGS}
+    url = {n: f"http://127.0.0.1:{p}" for n, p in ports.items()}
+    argv = {"a_worker": ["--data-parallel-start-rank", "1"],
+            "b_worker": ["--data-parallel-start-rank", "1"],
+            "b_leader": ["--data-parallel-workers", url["b_worker"]],
+            "h_worker": ["--data-parallel-start-rank", "1",
+                         "--data-parallel-hybrid-lb"],
+            "h_leader": ["--data-parallel-hybrid-lb",
+                         "--data-parallel-workers", url["h_worker"]]}
+    out = dict(card=smi, model=MH_FLAGS[MH_FLAGS.index("--model") + 1],
+               layout="--data-parallel-mode ranks --data-parallel-size 2 "
+                      "--data-parallel-size-local 1: two hosts of one "
+                      "rank each, sharing the card",
+               steps="classic", new_tokens=[MH_NEW, MH_STREAM_NEW],
+               long_prompt=MH_LONG)
+    procs = {}
+    try:
+        for n in ("a_worker", "b_worker", "b_leader", "h_worker",
+                  "h_leader"):
+            procs[n] = start_server(
+                root, [*MH_FLAGS, *MH_RANKS, "--port", str(ports[n]),
+                       *argv[n]], MH_LOGS[n])
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        p = srv.build_arg_parser()
+        args = p.parse_args([*MH_FLAGS, *MH_RANKS,
+                             "--data-parallel-start-rank", "0",
+                             "--data-parallel-workers", url["a_worker"]])
+        srv.check_served(p, args)
+        srv.check_mesh_flags(p, args)
+        server = srv.server_from_args(args)
+        group, pool = server.engine, server.dp_pool
+        if pool is None or group.start_rank != 0 or len(group.engines) != 1:
+            raise RuntimeError("path (xii): the leader was not wired as "
+                               "one rank with a worker pool")
+        eng = group.engines[0]
+        out["leader_build_s"] = time.perf_counter() - t0
+        vocab = eng.model_config.vocab_size
+        rng = np.random.default_rng(13)
+        p0, p1 = prompts_for(rng, vocab, dict(WAVE1, n=2))
+        long_p = rng.integers(1, vocab, MH_LONG).tolist()
+        t0 = time.perf_counter()
+        yard = EngineCore(dataclasses.replace(
+            eng.config, enable_prefix_caching=False), params=eng.params)
+        yardstick = classic_margins(yard, [p1], MH_STREAM_NEW)
+        del yard
+        out["yardstick_s"] = time.perf_counter() - t0
+        note_live_tokens(eng)
+        MESH_STATE.clear()
+        MESH_STATE.update(recs={}, names=MH_KERNELS)
+        mesh_record([eng], MH_KERNELS, "xii")
+        _mesh_reset(MH_KERNELS)
+        t0 = time.perf_counter()
+        out["worker_ready_after_s"] = wait_ready(procs["a_worker"],
+                                                 url["a_worker"])
+        lurl, close = serve_in_thread(server)
+        try:
+            a = mh_leader_exchanges(lurl, server, procs["a_worker"], p0, p1,
+                                    long_p, yardstick)
+        finally:
+            close()
+        launches = _mesh_launches(MH_KERNELS)
+        torch.cuda.synchronize()
+        out["leader_peak_gib"] = \
+            torch.cuda.max_memory_allocated(eng.device) / 2**30
+        want = [(p0, a.pop("p0_tokens")), (p1, a.pop("p1_tokens"))]
+        a["seconds"] = time.perf_counter() - t0
+        out["a"] = a
+        log(f"path (xii)(a): {json.dumps(a)}, launches "
+            f"{json.dumps(launches)}")
+        missing = [n for n, c in launches.items() if c == 0]
+        if missing:
+            raise RuntimeError(f"kernels never launched by the leader of "
+                               f"path (xii): {missing}")
+        t0 = time.perf_counter()
+        checks = mesh_kernel_checks(notes=True)
+        out["checks_s"] = time.perf_counter() - t0
+        MESH_STATE.clear()
+        del server, group, pool, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["b"] = mh_entry_points(root, procs, url, want)
+    except BaseException:
+        for n, name in MH_LOGS.items():
+            path = os.path.join(root, "build", name)
+            if os.path.exists(path):
+                with open(path, "rb") as f:
+                    sys.stderr.write(f"--- {name}\n" + f.read()[-3000:]
+                                     .decode(errors="replace"))
+        raise
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+    out["seconds"] = time.perf_counter() - t_path
+    return out, launches, checks
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7117,6 +7493,17 @@ def main() -> int:
         row["xi_inputs"] = [{k: v for k, v in c.items() if k != "name"}
                             for c in xi["checks"] if c["name"] == n]
     log(f"paths (viii)-(xi): {mesh['seconds']:.1f} s")
+    # 13. path (xii): multi-host DP in ranks mode, with phase 12's ranks
+    # gone.
+    multihost, mh_counts, mh_checks = multihost_path(root, smi)
+    for row in rows:
+        n = row["name"]
+        row["multihost_launches"] = mh_counts.get(n, 0)
+        row["launches"] += row["multihost_launches"]
+        row["multihost_inputs"] = [{k: v for k, v in c.items()
+                                    if k != "name"}
+                                   for c in mh_checks if c["name"] == n]
+    log(f"path (xii): {multihost['seconds']:.1f} s")
     if prof is not None:
         # The first decode block of a fresh process, part by part.
         prof["cold_first_block"] = []
@@ -7149,6 +7536,7 @@ def main() -> int:
     print(json.dumps({"dp": dp["out"]}))
     print(json.dumps({"wide_ep": wide["out"]}))
     print(json.dumps({"spec_mesh": xi["out"]}))
+    print(json.dumps({"multihost": multihost}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

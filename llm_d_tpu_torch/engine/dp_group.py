@@ -14,6 +14,11 @@ KV pulls in flight), the engine-level counterpart of the EPP's queue
 scorer; prefix affinity across replicas stays the EPP's job.  This port
 serves one device a rank: ``tp > 1`` per rank needs a process group per
 rank's submesh and is refused by name.
+
+Across hosts (``--data-parallel-size-local`` below the size) each host
+runs a group of its local ranks, ``start_rank`` naming the first one's
+global rank; the leader host's server proxies requests to the others
+(``server/openai.py``, ``DPWorkerPool``).
 """
 
 from __future__ import annotations
@@ -57,8 +62,19 @@ class DPEngineGroup:
 
     def __init__(self, config: EngineConfig, dp_size: int, params=None,
                  metrics: Optional[EngineMetrics] = None,
-                 devices: Optional[List[torch.device]] = None) -> None:
-        """``devices`` are the ranks' devices, one a rank (the same card
+                 devices: Optional[List[torch.device]] = None,
+                 start_rank: int = 0) -> None:
+        """``start_rank`` is this host's first global rank in a multi-host
+        deployment (``--data-parallel-start-rank``): it names the host's
+        range of ranks, and the host with rank 0 is the leader that
+        dispatches across hosts (the server's ``DPWorkerPool``).  Local
+        resources, such as the offset of a rank's shared-tier port, stay
+        offset by the local rank ``r``: ports are a namespace of the host,
+        so a global offset would only set peers' configs apart across
+        hosts.  The devices are this host's: ranks on different hosts are
+        independent engines, never one mesh.
+
+        ``devices`` are the ranks' devices, one a rank (the same card
         may come more than once: those ranks share it); by default rank
         ``r`` takes ``cuda:r % cards`` (``"cpu"`` for every rank with
         ``config.device="cpu"``).  A list of another length than
@@ -69,6 +85,7 @@ class DPEngineGroup:
         devices (shared where the device is the same)."""
         if dp_size < 1:
             raise ValueError(f"dp_size must be >= 1, got {dp_size}")
+        self.start_rank = start_rank
         tp = config.mesh.tp if config.mesh else 1
         sp = config.mesh.sp if config.mesh else 1
         if tp * sp > 1:

@@ -93,6 +93,8 @@ class Request:
         self.method = method
         parts = urllib.parse.urlsplit(target)
         self.path = parts.path
+        # The request target as sent: path and query (a proxy forwards it).
+        self.path_qs = target
         # Query parameters; a repeated name keeps its last value.
         self.query = dict(urllib.parse.parse_qsl(parts.query))
         self.version = version

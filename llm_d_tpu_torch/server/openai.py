@@ -91,21 +91,40 @@ holds the host copy).  Ranks that share a card (gloo) run the decode
 blocks and fused rounds eagerly.  On a mesh the shared tier is refused by
 name.
 
-Data parallelism on one host, in the JAX server's two modes
-(``--data-parallel-size D``, ``--data-parallel-size-local`` equal to it):
-``--data-parallel-mode spmd`` (the default) serves one mesh
-``MeshConfig(dp=D, tp=N)`` as ``D x N`` ranks started as above (DP
-attention, the experts over every rank); ``ranks`` serves a
-``DPEngineGroup`` of D one-device engines in this process behind a
-least-loaded dispatcher (``engine/dp_group.py``; one device a rank, so
-``--tensor-parallel-size`` > 1 is refused there).
+Data parallelism, in the JAX server's two modes (``--data-parallel-size
+D``): ``--data-parallel-mode spmd`` (the default) serves one mesh
+``MeshConfig(dp=D, tp=N)`` on this host as ``D x N`` ranks started as
+above (DP attention, the experts over every rank); ``ranks`` serves a
+``DPEngineGroup`` of this host's one-device engines in this process
+behind a least-loaded dispatcher (``engine/dp_group.py``; one device a
+rank, so ``--tensor-parallel-size`` > 1 is refused there).
+
+Across hosts, in ranks mode (``--data-parallel-size-local L`` below
+``D``): each host serves its L ranks, the first of them global rank
+``--data-parallel-start-rank`` (default ``LWS_WORKER_INDEX * L``).  The
+host with start rank 0 is the leader: it takes the external traffic and
+its ``DPWorkerPool`` proxies a request to the least-loaded worker host
+(judged by the ``x-llmd-sched-depth`` each worker reports) when that
+worker is less loaded than the local ranks, relaying the worker's SSE
+stream through a ``StreamJournal``; when a worker dies mid-stream the
+stream resumes on another worker, or on the leader's own engine
+(``resume_local``), with no missing and no duplicated token.  The workers
+are ``--data-parallel-workers`` (comma-separated ``http://host:port``),
+else derived from ``--data-parallel-address`` (or
+``LWS_LEADER_ADDRESS``) and ``--data-parallel-rpc-port`` (default
+``--port``) by the LeaderWorkerSet naming; with no address the leader
+warns and serves its local ranks only.  With ``--data-parallel-hybrid-lb``
+no host proxies: each takes external traffic for its own ranks.  The
+proxy's client is the standard library's (``server/http_client.py``).
+``server.dp_dispatch`` and ``server.resume_local`` spans and
+``llmd_tpu:stream_resume_total`` / ``llmd_tpu:request_recovery_seconds``
+record the leader's side.
 
 Not served (each refused with a message naming it, not quietly
-dropped): multi-host DP (``--data-parallel-start-rank``, ``-address``,
-``-rpc-port``, ``-hybrid-lb``, ``-workers``, and a
-``--data-parallel-size-local`` below ``--data-parallel-size``: the
-leader's dispatch over worker hosts; ``UNSERVED_FLAGS``), and the relay
-half of resume (the DP leader's).
+dropped): one mesh across hosts (``--data-parallel-mode spmd`` with
+``--data-parallel-size-local`` below the size), ranks wider than one
+device (``--data-parallel-mode ranks`` with ``--tensor-parallel-size`` >
+1), and ``--compilation-cache-dir`` (``UNSERVED_FLAGS``).
 """
 
 from __future__ import annotations
@@ -116,6 +135,7 @@ import contextlib
 import json
 import logging
 import importlib
+import os
 import queue
 import signal
 import threading
@@ -130,14 +150,17 @@ from llm_d_tpu_torch.engine.engine import EngineConfig, EngineCore
 from llm_d_tpu_torch.engine.request import Request, RequestOutput
 from llm_d_tpu_torch.ops.sampling import SamplingParams
 from llm_d_tpu_torch.parallel.mesh import MeshConfig
-from llm_d_tpu_torch.server import stream_resume
+from llm_d_tpu_torch.server import http_client, stream_resume
 from llm_d_tpu_torch.server.http_server import (
-    HTTPServer, Response, json_response, text_response)
+    HTTPServer, Response, StreamResponse, json_response, text_response)
 from llm_d_tpu_torch.server.http_server import Request as HTTPRequest
+from llm_d_tpu_torch.server.stream_resume import StreamJournal
 from llm_d_tpu_torch.utils import tracing
 from llm_d_tpu_torch.utils.config import (
     apply_file_config, env_float, env_int, load_layers)
+from llm_d_tpu_torch.utils.faultinject import FaultInjected
 from llm_d_tpu_torch.utils.lifecycle import (
+    CRITICALITY_SHEDDABLE,
     DEADLINE_EXCEEDED_HEADER,
     DRAINING_HEADER,
     REQUEST_ID_HEADER,
@@ -145,6 +168,7 @@ from llm_d_tpu_torch.utils.lifecycle import (
     SCHED_DEPTH_HEADER,
     parse_criticality,
     parse_deadline,
+    remaining_s,
 )
 from llm_d_tpu_torch.utils.tokenizer import get_tokenizer
 
@@ -195,6 +219,323 @@ def attach_tokenizer(engine: EngineCore, tokenizer) -> None:
     engine.tokenizer = tokenizer
 
 
+class DPWorkerPool:
+    """The leader's dispatch across hosts in multi-host data parallelism
+    (ranks mode: ``--data-parallel-address`` / ``--data-parallel-rpc-port``
+    / ``--data-parallel-workers``), a port of the JAX server's pool.
+
+    The leader host takes every external request and serves it on its
+    local ``DPEngineGroup`` or proxies it as it came to a worker host's
+    OpenAI server (the "RPC" is the same HTTP surface), through the
+    standard-library client of ``server/http_client.py``.  The policy is
+    least outstanding work over comparable loads: both sides count
+    scheduler depth (waiting + running requests).  The local depth comes
+    from the engine; a worker's is the one it reported (every inference
+    reply carries ``x-llmd-sched-depth`` from the worker's scheduler) plus
+    the dispatches whose reply headers have not arrived yet (requests the
+    last report cannot see), so a long SSE stream does not pin a worker
+    at load 1 while its scheduler is empty.  With
+    ``--data-parallel-hybrid-lb`` there is no pool: every host takes
+    external traffic and balances only its local ranks.
+    """
+
+    # The default of the LLMD_WORKER_BACKOFF_S knob (invalid values fall
+    # back to it).
+    WORKER_BACKOFF_S = 15.0
+    DEPTH_HEADER = SCHED_DEPTH_HEADER
+    CONNECT_TIMEOUT_S = 5.0
+
+    def __init__(self, workers: List[str]) -> None:
+        self.worker_backoff_s = env_float("LLMD_WORKER_BACKOFF_S",
+                                          self.WORKER_BACKOFF_S)
+        # inflight: open proxied exchanges (metrics only, not load);
+        # dispatching: sequence numbers of dispatches no depth report has
+        # covered yet (see load()); depth: the worker's last reported
+        # scheduler depth; seq: the dispatch counter.
+        self.workers = [{"url": u.rstrip("/"), "inflight": 0,
+                         "dispatching": set(), "seq": 0,
+                         "depth": 0, "down_until": 0.0}
+                        for u in workers if u.strip()]
+        # Upstream replies being read, closed by close().
+        self._open: set = set()
+
+    @staticmethod
+    def load(worker: dict) -> int:
+        """A worker's comparable load: its last reported scheduler depth
+        plus the dispatches no report has counted yet.  A dispatch leaves
+        ``dispatching`` when its own headers arrive or when a later
+        dispatch's report lands (sampled after this one reached the
+        worker, that depth includes it already)."""
+        return worker["depth"] + len(worker["dispatching"])
+
+    def pick(self, engine) -> Optional[dict]:
+        """The worker to proxy to, or None to serve locally.  A worker
+        that failed recently is skipped until its backoff ends, so a dead
+        host does not keep winning the least-loaded race."""
+        now = time.monotonic()
+        live = [w for w in self.workers if w["down_until"] <= now]
+        if not live:
+            return None
+        local = engine.scheduler.num_waiting + engine.scheduler.num_running
+        best = min(live, key=self.load)
+        return best if self.load(best) < local else None
+
+    # Hop-by-hop headers stay on their hop; every other header is
+    # forwarded both ways (a proxied request and a local one look alike
+    # to clients and gateways).
+    _HOP = {"host", "content-length", "transfer-encoding", "connection",
+            "keep-alive", "upgrade", "te", "trailer",
+            "proxy-authorization", "proxy-authenticate"}
+
+    def alternates(self, dead: set) -> Optional[dict]:
+        """The least-loaded live worker outside ``dead`` (a resume's
+        target)."""
+        now = time.monotonic()
+        live = [w for w in self.workers
+                if w["down_until"] <= now and w["url"] not in dead]
+        return min(live, key=self.load) if live else None
+
+    async def proxy(self, request: HTTPRequest, body: Dict[str, Any],
+                    worker: dict, server=None) -> Optional[StreamResponse]:
+        """Proxy one inference request to ``worker``, streaming its reply
+        through.
+
+        Returns None when the worker could not be reached before any byte
+        of the reply was committed: the caller serves the request
+        locally.  A journaled SSE stream (``LLMD_STREAM_RESUME``) whose
+        worker dies mid-stream resumes on the least-loaded surviving
+        worker, or on the local engine through ``server`` when none is
+        left, deduped by token offset: the client's stream goes on with
+        no missing and no duplicated token.  Each attempt settles its
+        worker's slot, so the dead worker's stream is released and the
+        resume target counts the stream once."""
+        policy = stream_resume.resume_policy()
+        headers = request.headers
+        journal = None
+        if policy.enabled and bool(body.get("stream", False)):
+            try:
+                criticality = parse_criticality(headers, body)
+            except ValueError:
+                criticality = "standard"
+            try:
+                deadline_epoch = parse_deadline(headers, body)
+            except ValueError:
+                deadline_epoch = None
+            if criticality != CRITICALITY_SHEDDABLE:
+                journal = StreamJournal(body, criticality=criticality,
+                                        deadline_epoch=deadline_epoch)
+        # One span for the dispatch (its attempts as events), parented on
+        # the incoming hop, so the leader's decision reads in the trace.
+        span = tracing.get_tracer("server").start_span(
+            "server.dp_dispatch",
+            parent=tracing.parse_trace_headers(headers),
+            request_id=headers.get(REQUEST_ID_HEADER)
+            or str(body.get("request_id") or "") or None,
+            worker=worker["url"])
+        try:
+            return await self._proxy_attempts(
+                request, body, worker, server, policy, journal, span)
+        finally:
+            span.end()
+
+    async def _proxy_attempts(self, request, body, worker, server,
+                              policy, journal, span):
+        resp: Optional[StreamResponse] = None
+        current: dict = worker
+        dead: set = set()
+        while True:
+            send_body = body
+            extra_headers: Dict[str, str] = {}
+            if journal is not None and journal.resume_count:
+                send_body = journal.resume_body()
+                extra_headers = journal.resume_headers()
+            extra_headers.update(tracing.trace_headers(span.ctx()))
+            span.add_event("dispatch", worker=current["url"],
+                           attempt=(journal.resume_count
+                                    if journal is not None else 0))
+            resp, broke_exc = await self._attempt(
+                request, send_body, extra_headers, current, journal,
+                resp, policy, span=span)
+            self._settle_recoveries(journal, server)
+            if broke_exc is None:
+                # Relayed to its end, or None: nothing was committed and
+                # the caller serves locally.
+                return resp
+            dead.add(current["url"])
+            if journal.finish_reason and not journal.done:
+                # The finish chunk was delivered and only [DONE] was lost:
+                # close the stream here (a resume would decode past the
+                # delivered stop).
+                journal.done = True
+                try:
+                    await resp.write(b"data: [DONE]\n\n")
+                    await resp.write_eof()
+                except (ConnectionResetError, OSError):
+                    pass
+                return resp
+            if not journal.resumable \
+                    or journal.resume_count >= policy.max_attempts \
+                    or self._budget_gone(journal):
+                # Past the resume contract: re-raise, so the client's
+                # connection closes abruptly (a clean end would hide the
+                # truncation from a plain SSE client).
+                if server is not None:
+                    server.engine.metrics.inc_stream_resume(
+                        stream_resume.OUTCOME_FAILED)
+                raise broke_exc
+            journal.resume_count += 1
+            journal.mark_break()
+            span.add_event("resume", attempt=journal.resume_count,
+                           offset=journal.offset, dead=current["url"],
+                           error=f"{type(broke_exc).__name__}: "
+                                 f"{broke_exc}")
+            target = self.alternates(dead)
+            if target is None and server is not None:
+                # Every worker host is down: the leader's own engine is
+                # the last resume target.
+                ok = await server.resume_local(request, resp, journal,
+                                               parent=span)
+                self._settle_recoveries(journal, server)
+                if not journal.done:
+                    server.engine.metrics.inc_stream_resume(
+                        stream_resume.OUTCOME_FAILED)
+                    if not ok:
+                        raise broke_exc
+                return resp
+            if target is None:
+                if server is not None:
+                    server.engine.metrics.inc_stream_resume(
+                        stream_resume.OUTCOME_FAILED)
+                raise broke_exc
+            logger.warning(
+                "DP worker %s died mid-stream at token %d; resuming on "
+                "%s (attempt %d/%d)", current["url"], journal.offset,
+                target["url"], journal.resume_count, policy.max_attempts)
+            current = target
+
+    def _budget_gone(self, journal: StreamJournal) -> bool:
+        left = remaining_s(journal.deadline_epoch)
+        return left is not None and left <= 0
+
+    @staticmethod
+    def _settle_recoveries(journal: Optional[StreamJournal],
+                           server) -> None:
+        """The journal's completed (outcome, seconds) recoveries into the
+        leader's metrics."""
+        if journal is None or server is None:
+            return
+        for outcome, secs in journal.take_recoveries():
+            server.engine.metrics.inc_stream_resume(outcome)
+            server.engine.metrics.request_recovery.observe(secs)
+
+    async def _attempt(self, request: HTTPRequest, body: Dict[str, Any],
+                       extra_headers: Dict[str, str], worker: dict,
+                       journal: Optional[StreamJournal],
+                       resp: Optional[StreamResponse],
+                       policy, span=None) -> tuple:
+        """One forward to one worker, with the worker's load accounting.
+
+        Returns ``(resp, exc)``: ``exc`` set when the stream died
+        mid-relay after bytes were committed (resumable, or re-raised by
+        the caller when recovery is off the table); ``resp`` None with no
+        ``exc`` when nothing was committed (the caller serves locally)."""
+        fwd_headers = {k: v for k, v in request.headers.items()
+                       if k not in self._HOP and k != "content-type"}
+        fwd_headers.update(extra_headers)
+        seq = worker["seq"]
+        worker["seq"] += 1
+        worker["dispatching"].add(seq)
+        headers_seen = False
+        counted_self = False
+        upstream = None
+        # The slot is counted last, just before the try whose finally
+        # settles it: nothing may raise in between.
+        worker["inflight"] += 1
+        try:
+            async with await http_client.post_json(
+                    worker["url"], request.path_qs, body, fwd_headers,
+                    connect_timeout=self.CONNECT_TIMEOUT_S) as upstream:
+                self._open.add(upstream)
+                # The reply's headers arrived: this dispatch is in the
+                # worker's own depth report now (or done), and so is every
+                # older one, which reached the worker before this reply
+                # left it.
+                depth = upstream.headers.get(self.DEPTH_HEADER)
+                worker["dispatching"] = {
+                    p for p in worker["dispatching"] if p > seq}
+                headers_seen = True
+                # A streamed reply's report leaves at its start and counts
+                # the request itself: when the exchange ends the request
+                # has left the worker's scheduler, so it is taken back out
+                # (in the finally).  A whole reply's report leaves at its
+                # end and excludes it already.  A resumed stream settles
+                # each attempt's worker here: the dead one's slot is
+                # released, the stream counts once, where it is served.
+                counted_self = upstream.headers.get(
+                    "content-type", "").startswith("text/event-stream")
+                if depth is not None:
+                    try:
+                        worker["depth"] = max(0, int(depth))
+                    except ValueError:
+                        pass
+                if not counted_self:
+                    # An error body or a whole reply: relayed verbatim;
+                    # journals and resumes are for committed SSE streams.
+                    journal = None
+                if resp is not None and (upstream.status != 200
+                                         or not counted_self):
+                    # A resume target that refused (draining, dead on
+                    # arrival): a mid-stream failure of this worker.
+                    logger.warning("DP resume on %s refused: HTTP %d",
+                                   worker["url"], upstream.status)
+                    return resp, RuntimeError(
+                        f"resume target {worker['url']} refused: "
+                        f"HTTP {upstream.status}")
+                if resp is None:
+                    resp = await request.stream(
+                        {k: v for k, v in upstream.headers.items()
+                         if k not in self._HOP}, status=upstream.status)
+                if journal is None:
+                    while True:
+                        chunk = await upstream.readany()
+                        if not chunk:
+                            break
+                        await resp.write(chunk)
+                else:
+                    await stream_resume.relay_stream(
+                        resp, upstream, journal, fault_key=worker["url"],
+                        stall_timeout_s=policy.stall_timeout_s, span=span)
+                try:
+                    await resp.write_eof()
+                except (ConnectionResetError, OSError):
+                    pass        # the client left after the last frame
+                return resp, None
+        except (http_client.ClientError, asyncio.TimeoutError, OSError,
+                FaultInjected, stream_resume.StreamBroken) as exc:
+            worker["down_until"] = time.monotonic() + self.worker_backoff_s
+            logger.warning("DP worker %s unreachable (%s); backing off %.0fs",
+                           worker["url"], exc, self.worker_backoff_s)
+            if resp is None:
+                return None, None    # nothing committed: serve locally
+            if journal is None:
+                raise                # an unjournaled break: the client
+            #                          sees it, as without a resume
+            return resp, exc         # a mid-stream break (resumable)
+        finally:
+            self._open.discard(upstream)
+            worker["inflight"] -= 1
+            if not headers_seen:
+                worker["dispatching"].discard(seq)
+            elif counted_self:
+                worker["depth"] = max(0, worker["depth"] - 1)
+
+    async def close(self) -> None:
+        """Close the connections of the replies being relayed."""
+        for upstream in list(self._open):
+            upstream.close()
+        self._open.clear()
+
+
 class ModelServer:
     def __init__(self, engine: Union[EngineCore, DPEngineGroup], tokenizer,
                  model_name: str) -> None:
@@ -203,6 +544,8 @@ class ModelServer:
         self.tokenizer = tokenizer
         self.model_name = model_name
         self.model_loaded = False
+        # Multi-host DP: the leader's worker pool (set by main or tests).
+        self.dp_pool: Optional[DPWorkerPool] = None
         self.started_at = time.time()
         self.app: Optional[HTTPServer] = None
         # The latency-training sidecar's base URL (--latency-training-url)
@@ -271,6 +614,8 @@ class ModelServer:
         self.async_engine.stop()
         if self.kv_event_publisher is not None:
             self.kv_event_publisher.stop()
+        if self.dp_pool is not None:
+            await self.dp_pool.close()
 
     # ---------- probes / meta ----------
 
@@ -469,6 +814,13 @@ class ModelServer:
         refused = self._refuse_draining()
         if refused is not None:
             return refused
+        if self.dp_pool is not None:
+            worker = self.dp_pool.pick(self.engine)
+            if worker is not None:
+                proxied = await self.dp_pool.proxy(request, body, worker,
+                                                   server=self)
+                if proxied is not None:
+                    return proxied
         missing = _unported(body, self.engine)
         if missing is not None:
             return json_response({"error": f"not served: {missing}"},
@@ -692,12 +1044,18 @@ class ModelServer:
 
     async def _stream_tokens_into(self, resp, req: Request,
                                   body: Dict[str, Any], chat: bool,
-                                  created: int) -> None:
+                                  created: int,
+                                  journal: Optional[StreamJournal] = None
+                                  ) -> None:
         """Generate and write one (possibly resumed) request's SSE token
-        stream, then the usage frame (when asked for) and ``[DONE]``."""
+        stream, then the usage frame (when asked for) and ``[DONE]``.
+        ``journal`` (the DP leader's local resume) sees every frame, so
+        the offset dedupe and the recovery accounting work as for a
+        proxied resume."""
         async def write_frame(payload: Dict[str, Any]) -> None:
-            await resp.write(b"data: " + json.dumps(payload).encode()
-                             + b"\n\n")
+            frame = b"data: " + json.dumps(payload).encode() + b"\n\n"
+            if journal is None or journal.admit_frame(frame):
+                await resp.write(frame)
 
         if req.resume_offset >= req.sampling.max_tokens:
             # The break fell between the last token and [DONE]: every
@@ -718,7 +1076,10 @@ class ModelServer:
                 "choices": [],
                 "usage": self._usage(req, body),
             })
-        await resp.write(b"data: [DONE]\n\n")
+        done = b"data: [DONE]\n\n"
+        if journal is not None:
+            journal.admit_frame(done)
+        await resp.write(done)
 
     async def _generate_stream(self, req: Request, chat: bool,
                                created: int, write_frame) -> None:
@@ -756,6 +1117,58 @@ class ModelServer:
                     break
                 if finished:
                     break
+
+    async def resume_local(self, http_req: HTTPRequest, resp,
+                           journal: StreamJournal, parent=None) -> bool:
+        """Resume a journaled stream on the local engine (the DP leader's
+        last resort when every worker host is down): the remaining tokens
+        go into the client's reply already committed.  True when the
+        stream reached ``[DONE]``.  ``parent``: the dispatch span the
+        resume's span hangs under, so it stays in the request's trace."""
+        body = journal.resume_body()
+        chat = http_req.path.endswith("/chat/completions")
+        headers = http_req.headers
+        try:
+            req = self._make_request(
+                body, self._prompt_ids(body, chat), headers)
+        except (TypeError, ValueError) as exc:
+            logger.error("local resume rejected: %s", exc)
+            return False
+        if req.deadline_expired():
+            return False
+        span = tracing.get_tracer("server").start_span(
+            "server.resume_local",
+            parent=parent if parent is not None
+            else tracing.parse_trace_headers(headers),
+            request_id=req.request_id, offset=journal.offset)
+        req.trace_ctx = span.ctx()
+        logger.warning("resuming stream %s on the local engine at token "
+                       "%d", req.request_id, journal.offset)
+        # The resumed stream is the client's work in flight: a drain
+        # waits for it.
+        self._inflight += 1
+        try:
+            if self.draining:
+                self.engine.metrics.drain_inflight.set(self._inflight)
+            await self._stream_tokens_into(
+                resp, req, body, chat, int(time.time()), journal=journal)
+            await resp.write_eof()
+        except (ConnectionResetError, OSError):
+            # The client's transport died: free the engine's slot rather
+            # than decode for nobody.
+            self.async_engine.abort(req.request_id)
+            span.end(error="client gone")
+            return False
+        except asyncio.CancelledError:
+            self.async_engine.abort(req.request_id)
+            span.end(error="cancelled")
+            raise
+        finally:
+            self._inflight -= 1
+            if self.draining:
+                self.engine.metrics.drain_inflight.set(self._inflight)
+        span.end(done=journal.done)
+        return journal.done
 
     def _sched_depth(self) -> int:
         """Scheduler depth (waiting + running)."""
@@ -807,6 +1220,59 @@ def build_server(engine_config: EngineConfig,
                        model_name or engine_config.resolve_model().name)
 
 
+def derive_dp_workers(leader_address: str, n_workers: int,
+                      rpc_port: int) -> List[str]:
+    """Worker base URLs by the LeaderWorkerSet naming: the leader pod
+    ``<lws>-<g>`` has workers ``<lws>-<g>-<i>`` in the same headless
+    subdomain."""
+    host = leader_address
+    if "//" in host:
+        host = host.split("//", 1)[1]
+    host = host.split(":", 1)[0]
+    pod, dot, domain = host.partition(".")
+    suffix = f"{dot}{domain}" if dot else ""
+    return [f"http://{pod}-{i}{suffix}:{rpc_port}"
+            for i in range(1, n_workers + 1)]
+
+
+def dp_local_size(args) -> int:
+    """The DP ranks on this host (``--data-parallel-size-local``, by
+    default all of ``--data-parallel-size``)."""
+    return args.data_parallel_size_local or args.data_parallel_size
+
+
+def dp_start_rank(args) -> int:
+    """This host's first global DP rank: ``--data-parallel-start-rank``,
+    else ``LWS_WORKER_INDEX`` times the local ranks in multi-host ranks
+    mode, else 0."""
+    dp_local = dp_local_size(args)
+    if args.data_parallel_mode != "ranks" \
+            or dp_local >= args.data_parallel_size:
+        return 0
+    if args.data_parallel_start_rank is not None:
+        return args.data_parallel_start_rank
+    return int(os.environ.get("LWS_WORKER_INDEX", "0")) * dp_local
+
+
+def dp_workers_from_args(args) -> List[str]:
+    """The worker hosts' URLs the leader dispatches to:
+    ``--data-parallel-workers``, else derived from the leader's address
+    (``--data-parallel-address`` or ``LWS_LEADER_ADDRESS``) and
+    ``--data-parallel-rpc-port`` (default ``--port``); empty when there
+    is no address."""
+    workers = [w.strip() for w in args.data_parallel_workers.split(",")
+               if w.strip()]
+    if workers:
+        return workers
+    leader = (args.data_parallel_address
+              or os.environ.get("LWS_LEADER_ADDRESS", ""))
+    if not leader:
+        return []
+    n_hosts = args.data_parallel_size // dp_local_size(args)
+    return derive_dp_workers(leader, n_hosts - 1,
+                             args.data_parallel_rpc_port or args.port)
+
+
 def mesh_from_args(args) -> Optional[MeshConfig]:
     """The JAX server's mapping: ``--data-parallel-mode spmd`` puts dp and
     tp on one mesh (the experts over all ``dp * tp`` ranks); ``ranks``
@@ -854,18 +1320,15 @@ def engine_config_from_args(args) -> EngineConfig:
 # The JAX server's flags this server does not serve, by argparse dest,
 # with what is missing.  Each is refused when set to anything but its
 # default.
-_MULTI_HOST = ("multi-host data parallelism (the leader's dispatch over "
-               "worker hosts) is not served by the port yet; it serves "
-               "--data-parallel-size on one host")
 UNSERVED_FLAGS = {
     "compilation_cache_dir": "XLA's compilation cache has no counterpart "
                              "(the kernels build with nvcc)",
-    "data_parallel_start_rank": _MULTI_HOST,
-    "data_parallel_address": _MULTI_HOST,
-    "data_parallel_rpc_port": _MULTI_HOST,
-    "data_parallel_hybrid_lb": _MULTI_HOST,
-    "data_parallel_workers": _MULTI_HOST,
 }
+
+# The flags of multi-host data parallelism, served in ranks mode.
+MULTI_HOST_FLAGS = ("--data-parallel-start-rank", "--data-parallel-address",
+                    "--data-parallel-rpc-port", "--data-parallel-hybrid-lb",
+                    "--data-parallel-workers")
 
 # Served flags that need a module beyond the standard library, by
 # argparse dest.  Where one is missing the flag is refused by name:
@@ -1064,21 +1527,27 @@ def check_served(parser: argparse.ArgumentParser, args) -> None:
 
 def check_dp_flags(parser: argparse.ArgumentParser, args) -> None:
     """``parser.error`` for the data-parallel layouts the port does not
-    serve: more than one host, and ``ranks`` with ranks wider than one
-    device."""
+    serve: one mesh across hosts (spmd with ``--data-parallel-size-local``
+    below the size), and ``ranks`` with ranks wider than one device, on
+    one host or across hosts."""
     dp = args.data_parallel_size
     if dp < 1:
         parser.error(f"--data-parallel-size {dp} must be >= 1")
-    dp_local = args.data_parallel_size_local or dp
+    dp_local = dp_local_size(args)
     if dp_local > dp or dp % dp_local:
         parser.error(f"--data-parallel-size-local {dp_local} must divide "
                      f"--data-parallel-size {dp}")
-    if dp_local < dp:
-        parser.error(f"--data-parallel-size-local {dp_local} below "
-                     f"--data-parallel-size {dp} is not served by the "
-                     f"PyTorch port: {_MULTI_HOST}")
-    if dp > 1 and args.data_parallel_mode == "ranks" \
-            and args.tensor_parallel_size > 1:
+    ranks = args.data_parallel_mode == "ranks"
+    if dp_local < dp and not ranks:
+        parser.error(
+            f"--data-parallel-size-local {dp_local} below "
+            f"--data-parallel-size {dp} in --data-parallel-mode spmd is not "
+            "served by the PyTorch port: one mesh across hosts needs a "
+            "process group that spans them, and a mesh here is one host's "
+            "processes.  Multi-host data parallelism is served in "
+            "--data-parallel-mode ranks, with "
+            f"{', '.join(MULTI_HOST_FLAGS)}")
+    if dp > 1 and ranks and args.tensor_parallel_size > 1:
         parser.error(
             "--data-parallel-mode ranks with --tensor-parallel-size "
             f"{args.tensor_parallel_size} is not served by the PyTorch port "
@@ -1271,15 +1740,48 @@ def main(argv: Optional[List[str]] = None) -> None:
     if world_from_args(args) > 1:
         sys.exit(_serve_mesh(args, list(sys.argv[1:] if argv is None
                                         else argv)))
+    server = server_from_args(args)
+    asyncio.run(server.serve(args.host, args.port))
+
+
+def server_from_args(args) -> ModelServer:
+    """The server of one process (one engine, or this host's DP group in
+    ranks mode, with the leader's worker pool across hosts), its KV
+    connectors and KV-events publisher attached: what ``main`` serves
+    when no mesh is asked for."""
     cfg = engine_config_from_args(args)
     engine = None
-    if args.data_parallel_size > 1:
-        # --data-parallel-mode ranks: one-device engines behind the local
-        # least-loaded dispatcher.
-        engine = DPEngineGroup(cfg, dp_size=args.data_parallel_size)
-        logger.info("DP group: %d ranks on %s", args.data_parallel_size,
+    dp, dp_local = args.data_parallel_size, dp_local_size(args)
+    multi_host = dp_local < dp           # ranks mode (check_dp_flags)
+    start_rank = dp_start_rank(args)
+    if multi_host:
+        # The hosts run independent engine ranks (no process group spans
+        # them); the LWS environment drives only the rank arithmetic and
+        # the workers' addresses.
+        logger.info("multi-host DP: local ranks %d..%d of %d (%s)",
+                    start_rank, start_rank + dp_local - 1, dp,
+                    "hybrid-lb" if args.data_parallel_hybrid_lb
+                    else "leader dispatch")
+    if dp > 1:
+        # --data-parallel-mode ranks: this host's one-device engines
+        # behind the local least-loaded dispatcher.
+        engine = DPEngineGroup(cfg, dp_size=dp_local, start_rank=start_rank)
+        logger.info("DP group: ranks %d..%d on %s", start_rank,
+                    start_rank + dp_local - 1,
                     [str(e.device) for e in engine.engines])
     server = build_server(cfg, args.tokenizer, engine=engine)
+    if multi_host and not args.data_parallel_hybrid_lb and start_rank == 0:
+        # The leader's dispatch across hosts, over the OpenAI HTTP surface.
+        workers = dp_workers_from_args(args)
+        if workers:
+            server.dp_pool = DPWorkerPool(workers)
+            logger.info("DP leader dispatching across %d worker hosts: %s",
+                        len(workers), workers)
+        else:
+            logger.warning(
+                "multi-host DP leader has no worker addresses (pass "
+                "--data-parallel-workers or run under LWS); serving "
+                "local ranks only")
     if args.latency_training_url:
         server.latency_training_url = args.latency_training_url.rstrip("/")
     conn_cfg = kv_connector_config_from_args(args)
@@ -1304,7 +1806,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         server.kv_event_publisher = publisher
         logger.info("KV events: publishing %s to %s",
                     publisher.topic.decode(), publisher.endpoint)
-    asyncio.run(server.serve(args.host, args.port))
+    return server
 
 
 if __name__ == "__main__":

@@ -120,3 +120,12 @@ def parse_deadline(headers: Dict[str, str],
     if budget_ms <= 0:
         raise ValueError(f"deadline budget must be > 0, got {budget_ms}")
     return (now if now is not None else time.time()) + budget_ms / 1000.0
+
+
+def remaining_s(deadline_epoch: Optional[float],
+                now: Optional[float] = None) -> Optional[float]:
+    """Seconds left until an epoch deadline (may be negative); None when
+    there is none."""
+    if deadline_epoch is None:
+        return None
+    return deadline_epoch - (now if now is not None else time.time())

@@ -412,6 +412,10 @@ class EngineMetrics:
             model_name=self.model_name, criticality=criticality).observe(
             seconds)
 
+    def inc_stream_resume(self, outcome: str) -> None:
+        self._stream_resume.labels(
+            model_name=self.model_name, outcome=outcome).inc()
+
     def inc_deadline_exceeded(self, criticality: str) -> None:
         self._deadline_exceeded.labels(
             model_name=self.model_name, criticality=criticality).inc()

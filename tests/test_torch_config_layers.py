@@ -104,17 +104,18 @@ def test_file_config_on_the_flags_equals_the_jax_server(layers, cli):
 
 
 def test_a_layer_that_sets_an_unserved_flag_is_refused(tmp_path, capsys):
-    path = tmp_path / "dp.yaml"
-    path.write_text("data-parallel-start-rank: 2\n")
+    # The one flag of the JAX server's the port does not serve.
+    path = tmp_path / "cache.yaml"
+    path.write_text("compilation-cache-dir: /tmp/xla\n")
     argv = ["--config", str(path)]
     p = TServer.build_arg_parser()
     args = p.parse_args(argv)
     TServer.apply_config_layers(p, args, argv)
-    assert args.data_parallel_start_rank == 2
+    assert args.compilation_cache_dir == "/tmp/xla"
     with pytest.raises(SystemExit) as e:
         TServer.check_served(p, args)
     assert e.value.code == 2
-    assert "--data-parallel-start-rank" in capsys.readouterr().err
+    assert "--compilation-cache-dir" in capsys.readouterr().err
 
 
 def test_without_yaml_the_layers_are_refused_by_name(layers, monkeypatch,

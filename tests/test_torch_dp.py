@@ -13,10 +13,12 @@ flags in both modes.
   text prompts, a streamed one) equal to the one-engine server's, in spmd
   mode (two rank processes, a ``MeshConfig(dp=2)`` mesh) and in ranks
   mode; the spmd server exits 0 on SIGTERM with no rank left.
-* What stays refused is refused by name before anything starts: the
-  multi-host flags, a ``--data-parallel-size-local`` below the size,
-  ranks mode with ``--tensor-parallel-size`` > 1 and the shared KV tier
-  on the mesh; a group asked for more devices than it was given.
+* What stays refused is refused by name before anything starts: a
+  ``--data-parallel-size-local`` below the size in spmd mode (one mesh
+  across hosts; the message names the multi-host flags, which serve
+  ranks mode: ``tests/test_torch_dp_multihost.py``), ranks mode with
+  ``--tensor-parallel-size`` > 1 and the shared KV tier on the mesh; a
+  group asked for more devices than it was given.
 """
 
 import signal
@@ -199,12 +201,22 @@ def test_a_group_refuses_what_it_does_not_serve():
                       devices=[torch.device("cpu")])
 
 
+# The multi-host flags are served in ranks mode; in spmd mode across
+# hosts the refusal names each of them as ranks mode's.
+SPMD_ACROSS_HOSTS = ["--data-parallel-size-local", "1"]
+
+
 @pytest.mark.parametrize("flags,named", [
-    (["--data-parallel-start-rank", "2"], "--data-parallel-start-rank"),
-    (["--data-parallel-address", "leader:8200"], "--data-parallel-address"),
-    (["--data-parallel-rpc-port", "9000"], "--data-parallel-rpc-port"),
-    (["--data-parallel-hybrid-lb"], "--data-parallel-hybrid-lb"),
-    (["--data-parallel-workers", "w1:8200"], "--data-parallel-workers"),
+    (SPMD_ACROSS_HOSTS + ["--data-parallel-start-rank", "1"],
+     "--data-parallel-start-rank"),
+    (SPMD_ACROSS_HOSTS + ["--data-parallel-address", "leader:8200"],
+     "--data-parallel-address"),
+    (SPMD_ACROSS_HOSTS + ["--data-parallel-rpc-port", "9000"],
+     "--data-parallel-rpc-port"),
+    (SPMD_ACROSS_HOSTS + ["--data-parallel-hybrid-lb"],
+     "--data-parallel-hybrid-lb"),
+    (SPMD_ACROSS_HOSTS + ["--data-parallel-workers", "w1:8200"],
+     "--data-parallel-workers"),
     (["--data-parallel-size-local", "1"], "--data-parallel-size-local"),
     (["--data-parallel-mode", "ranks", "--tensor-parallel-size", "2"],
      "--data-parallel-mode ranks"),

@@ -716,24 +716,42 @@ def test_out_of_vocabulary_resume_ids_are_refused(tiny, journal, stream):
     assert r.json()["usage"]["completion_tokens"] == 2
 
 
+# One mesh across hosts (spmd with --data-parallel-size-local below the
+# size): refused, its message naming the multi-host flags as ranks
+# mode's, where they are served.
+SPMD_ACROSS_HOSTS = ["--data-parallel-size", "2",
+                     "--data-parallel-size-local", "1"]
+
+
 @pytest.mark.parametrize("flag", [
-    ["--data-parallel-start-rank", "2"],
+    ["--data-parallel-start-rank", "2"] + SPMD_ACROSS_HOSTS,
     ["--kv-shared-tier-peers", "dns:kv-peers:5999",
-     "--kv-offload-blocks", "8"], ["--data-parallel-rpc-port", "8"],
-    ["--data-parallel-hybrid-lb"], ["--compilation-cache-dir", "/tmp/x"]])
+     "--kv-offload-blocks", "8"],
+    ["--data-parallel-rpc-port", "8"] + SPMD_ACROSS_HOSTS,
+    ["--data-parallel-hybrid-lb"] + SPMD_ACROSS_HOSTS,
+    ["--compilation-cache-dir", "/tmp/x"]])
 def test_an_unserved_cli_flag_is_a_parser_error(flag, capsys):
     p = TServer.build_arg_parser()
+    args = p.parse_args(["--model", "tiny"] + flag)
     with pytest.raises(SystemExit) as e:
-        TServer.check_served(p, p.parse_args(["--model", "tiny"] + flag))
+        TServer.check_served(p, args)
+        TServer.check_mesh_flags(p, args)
     assert e.value.code == 2
     assert flag[0] in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("dest", sorted(TServer.UNSERVED_FLAGS))
+MULTI_HOST_DESTS = sorted(f[2:].replace("-", "_")
+                          for f in TServer.MULTI_HOST_FLAGS)
+
+
+@pytest.mark.parametrize("dest", sorted(TServer.UNSERVED_FLAGS)
+                         + MULTI_HOST_DESTS)
 def test_every_unserved_flag_is_still_refused(dest, capsys):
     """Each entry of ``UNSERVED_FLAGS`` (the P/D and tier flags are no
     longer among them) set to a value other than its default is a parser
-    error naming the flag."""
+    error naming the flag; so is each multi-host flag (served in ranks
+    mode since the leader's dispatch was ported) with one mesh across
+    hosts."""
     p = TServer.build_arg_parser()
     action = next(a for a in p._actions if a.dest == dest)
     flag = action.option_strings[0]
@@ -748,8 +766,12 @@ def test_every_unserved_flag_is_still_refused(dest, capsys):
                            if c != action.default)]
     else:
         argv = [flag, "x"]
+    if dest in MULTI_HOST_DESTS:
+        argv += SPMD_ACROSS_HOSTS
+    args = p.parse_args(argv)
     with pytest.raises(SystemExit) as e:
-        TServer.check_served(p, p.parse_args(argv))
+        TServer.check_served(p, args)
+        TServer.check_mesh_flags(p, args)
     assert e.value.code == 2
     assert flag in capsys.readouterr().err
 

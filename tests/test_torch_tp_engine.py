@@ -127,22 +127,33 @@ def test_refused_by_name_on_a_mesh(pool):
             assert name.split()[0] in msg, (name, msg)
 
 
+# One spmd mesh across hosts: its refusal names each multi-host flag as
+# ranks mode's (where they are served since the leader's dispatch).
+ACROSS_HOSTS = ["--data-parallel-size", "2", "--data-parallel-size-local",
+                "1"]
+
+
 @pytest.mark.parametrize("flags,named", [
-    (["--data-parallel-address", "10.0.0.1"], "--data-parallel-address"),
+    (ACROSS_HOSTS + ["--data-parallel-address", "10.0.0.1"],
+     "--data-parallel-address"),
     (["--kv-offload-blocks", "8", "--kv-shared-tier-port", "0"],
      "--kv-shared-tier-port"),
     (["--kv-offload-blocks", "8", "--kv-shared-tier-peers", "h:9"],
      "--kv-shared-tier-peers"),
-    (["--data-parallel-rpc-port", "5555"], "--data-parallel-rpc-port"),
+    (ACROSS_HOSTS + ["--data-parallel-rpc-port", "5555"],
+     "--data-parallel-rpc-port"),
     (["--data-parallel-size-local", "1", "--data-parallel-size", "2"],
      "--data-parallel-size-local 1"),
-    (["--data-parallel-workers", "w1:8200"], "--data-parallel-workers"),
-    (["--data-parallel-hybrid-lb"], "--data-parallel-hybrid-lb")])
+    (ACROSS_HOSTS + ["--data-parallel-workers", "w1:8200"],
+     "--data-parallel-workers"),
+    (ACROSS_HOSTS + ["--data-parallel-hybrid-lb"],
+     "--data-parallel-hybrid-lb")])
 def test_the_server_refuses_by_name_before_any_rank_starts(flags, named,
                                                            capsys):
     """With ``--tensor-parallel-size 2`` on the card (no ``--device
-    cpu``): the shared tier and multi-host data parallelism.  Spec decode,
-    the host tier and multistep blocks are served on a mesh
+    cpu``): the shared tier and one mesh across hosts (the multi-host
+    flags are served in ranks mode, ``tests/test_torch_dp_multihost.py``).
+    Spec decode, the host tier and multistep blocks are served on a mesh
     (``tests/test_torch_spec_mesh.py``)."""
     from llm_d_tpu_torch.server import openai as TServer
     p = TServer.build_arg_parser()
