@@ -414,6 +414,31 @@ Phases (each raises on failure; the script then exits non-zero):
             request served; then a pair with --data-parallel-hybrid-lb
             (logs build/mh_hybrid_*.log): each host its own request, the
             leader with no pool; every entry point exits 0 on SIGTERM.
+14. path (xiii) the port's mesh as far as JAX's, once phase 13's hosts
+            are gone: (a) one spmd mesh across the hosts of an LWS group:
+            two entry points with phase 10's dp server flags and
+            LWS_LEADER_ADDRESS=127.0.0.1:<port>, LWS_GROUP_SIZE=2 and
+            LWS_WORKER_INDEX 0 / 1, two ranks each (logs
+            build/lws_leader.log, build/lws_worker.log; started first,
+            they build while (b) and (c) run): wave 1's first 2
+            prompts to the leader one at a time, each reply equal to
+            phase 10's direct dp engine; the worker answers /health and
+            /v1/models and a completion with 404; SIGTERM to the leader:
+            both exit 0 with no rank left; the four ranks' logged kernel
+            launches show A, B and E on each.  (b) A fresh pool of four
+            ranks: deepseek-v3-bench at full width and depth on
+            ``MeshConfig(sp=2, tp=2)`` (each rank the whole KV pool, a
+            quarter of the experts), wave 1 to 2 new tokens (every rank's
+            tokens identical, A, B and E on every rank, rank 0's inputs
+            against their plain versions), the 2-layer check against the
+            one-rank engine within 5e-2, same argmax, with and without
+            the routing replayed.  (c) Ring attention on those ranks at
+            sp = 4 and sp = 2 x tp = 2, causal and not, T = 8192, H = KVH
+            = 16, D = 128, bf16: each rank's rows against the dense
+            oracle at 3e-2, timed.  (d) The int8-latent absorption report
+            on the rows a bf16-latent 2-layer engine wrote serving wave 1
+            (8 new): the card's report equal to the CPU's at 1e-3,
+            ``within_bounds`` reported.
 
 Launch counts: every count is set to 0 just before a path is driven and
 read just after it; kernels A-F count path (i), G and H path (ii), and
@@ -441,7 +466,10 @@ inputs' checks as ``wide_inputs``); A, B and E add path (xi)'s (a) and
 tier's run do not count; its inputs' checks as ``xi_inputs``); A-E add
 path (xii)'s leader (``multihost_launches``; the yardstick engine does
 not count, the worker processes' launches are not seen; its inputs'
-checks as ``multihost_inputs``).  A
+checks as ``multihost_inputs``); A, B and E add path (xiii)(b)'s wave on
+every rank and (a)'s four ranks' counts, each rank's logged as it stops
+(``xiii_launches``; the 2-layer check, ring attention and (d) do not
+count; (b)'s checks as ``xiii_inputs``).  A
 count is the wrapper's own (eager launches, graph warm-ups included)
 plus the launches inside graph replays: a capture records each graph's
 launches, and every replay adds them (``engine/cuda_graph.py``); the
@@ -462,7 +490,8 @@ the card's name and power limit), a ``{"mesh": ...}`` line (path (viii),
 likewise), a ``{"dp": ...}`` line (path (ix), likewise), a
 ``{"wide_ep": ...}`` line (path (x), likewise), a ``{"spec_mesh": ...}``
 line (path (xi), likewise), a ``{"multihost": ...}`` line (path (xii),
-likewise), a ``{"kernels": [...]}`` line (one row per
+likewise), a ``{"lws_sp": ...}`` line (path (xiii), likewise), a
+``{"kernels": [...]}`` line (one row per
 kernel at its first launch: measured launches, errors and times, with
 ``bound_ms``), the card's name and power limit, and last ``{"ok": true,
 "device": ...}``.  The engine line
@@ -3298,16 +3327,18 @@ def serve_in_thread(server):
     return f"http://127.0.0.1:{box['port']}", close
 
 
-def start_server(root: str, argv, log_name: str):
+def start_server(root: str, argv, log_name: str, env=None):
     """``python -m llm_d_tpu_torch.server.openai`` with ``argv`` (its log
-    in build/``log_name``); returns the process."""
+    in build/``log_name``; ``env`` added to the environment); returns the
+    process."""
     log_path = os.path.join(root, "build", log_name)
     os.makedirs(os.path.dirname(log_path), exist_ok=True)
     with open(log_path, "wb") as log_f:
         return subprocess.Popen(
             [sys.executable, "-m", "llm_d_tpu_torch.server.openai", *argv],
             cwd=root, stdout=log_f, stderr=subprocess.STDOUT,
-            env=dict(os.environ, LLMD_DRAIN_TIMEOUT_S=str(DRAIN_S)))
+            env=dict(os.environ, LLMD_DRAIN_TIMEOUT_S=str(DRAIN_S),
+                     **(env or {})))
 
 
 def wait_ready(proc, url: str, limit_s: float = 300) -> float:
@@ -4632,7 +4663,7 @@ def mesh_teardown() -> dict:
     return dict(peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
 
 
-def mesh_two_layer(prompt_lens, seed: int) -> dict:
+def mesh_two_layer(prompt_lens, seed: int, **over) -> dict:
     """Rank side: the first two layers of deepseek-v3-bench (seed 0's
     draws of a 2-layer model) on the mesh, through the kernels: a prefill
     step of ``prompt_lens`` and one decode step of each row's argmax.
@@ -4645,7 +4676,7 @@ def mesh_two_layer(prompt_lens, seed: int) -> dict:
     from llm_d_tpu_torch.ops import moe as moe_ops
     from llm_d_tpu_torch.ops.sampling import SamplingParams
     mesh_setup(MESH_MODEL, (), layers=2, record=False, num_blocks=24,
-               max_num_seqs=8, max_num_batched_tokens=1024)
+               max_num_seqs=8, max_num_batched_tokens=1024, **over)
     eng = MESH_STATE["engine"]
     mc = eng.model_config
     rng = np.random.default_rng(seed)
@@ -6322,7 +6353,8 @@ def mesh_path(root: str, smi: str) -> tuple:
     out["seconds"] = time.perf_counter() - t_path
     dpo["card"] = wo["card"] = xi["out"]["card"] = smi
     return out, launches, checks, dict(out=dpo, launches=dp["launches"],
-                                       checks=dp["checks"]), wide, xi
+                                       checks=dp["checks"],
+                                       alone=dp["alone"]), wide, xi
 
 
 
@@ -6657,6 +6689,352 @@ def multihost_path(root: str, smi: str) -> tuple:
                 proc.wait(timeout=60)
     out["seconds"] = time.perf_counter() - t_path
     return out, launches, checks
+
+
+# Phase 14, path (xiii): the port's mesh as far as JAX's.  (a) One spmd
+# mesh across the hosts of a LeaderWorkerSet group: two entry points with
+# phase 10's dp server flags and LWS_LEADER_ADDRESS / LWS_GROUP_SIZE=2 /
+# LWS_WORKER_INDEX on loopback, two ranks each, all sharing the card over
+# gloo.  (b) deepseek-v3-bench at full width and depth (16 layers) on a
+# MeshConfig(sp=2, tp=2) engine of four ranks, classic steps.  (c) Ring
+# attention on the same ranks.  (d) The int8-latent absorption report on
+# rows a bf16-latent engine wrote.
+LWS_LOGS = {"leader": "lws_leader.log", "worker": "lws_worker.log"}
+SP_MESH = (1, 2, 2)                  # (dp, sp, tp)
+SP_NEW = 2                           # wave 1's new tokens on the sp mesh
+RING_SHAPE = dict(T=8192, H=16, KVH=16, D=128)
+RING_MESHES = {"sp4": (1, 4, 1), "sp2-tp2": (1, 2, 2)}
+ABSORB_LAYERS = 2
+ABSORB_RTOL = 1e-3                   # the card's report against the CPU's
+
+
+def sp_mesh():
+    from llm_d_tpu_torch.parallel.mesh import MeshConfig
+    return MeshConfig(*SP_MESH)
+
+
+def lws_start(root: str) -> dict:
+    """Phase 14(a)'s start: the leader and the worker host of an LWS
+    group as entry points (``MESH_SERVER_FLAGS`` + ``DP_LAYOUT``, logs
+    build/lws_leader.log and build/lws_worker.log), started at once and
+    left to build while (b) and (c) run."""
+    leader_port = free_port()
+    ports = {n: free_port() for n in LWS_LOGS}
+    procs = {}
+    for i, n in enumerate(LWS_LOGS):
+        procs[n] = start_server(
+            root, [*MESH_SERVER_FLAGS, *DP_LAYOUT, "--host", "127.0.0.1",
+                   "--port", str(ports[n])], LWS_LOGS[n],
+            env={"LWS_LEADER_ADDRESS": f"127.0.0.1:{leader_port}",
+                 "LWS_GROUP_SIZE": "2", "LWS_WORKER_INDEX": str(i)})
+    return dict(procs=procs, t0=time.perf_counter(),
+                url={n: f"http://127.0.0.1:{p}" for n, p in ports.items()})
+
+
+def lws_stop(started: dict) -> None:
+    for p in started["procs"].values():
+        if p.poll() is None:
+            p.kill()
+            p.wait(timeout=60)
+        for c in _child_pids(p.pid):
+            os.kill(c, 9)
+
+
+def lws_group(root: str, started: dict, prompts, direct) -> dict:
+    """Phase 14(a) on the entry points ``lws_start`` started: both ready;
+    ``prompts`` to the leader one at a time (``MESH_SERVER_NEW`` greedy
+    tokens, streamed): each reply's tokens equal ``direct`` (phase 10's
+    dp engine, each prompt alone); the worker answers /health and
+    /v1/models and refuses a completion (404); SIGTERM to the leader:
+    both exit 0 with no rank left.  Each rank logs its kernel launches as
+    it stops: A, B and E must have launched on all four."""
+    import re
+    import signal
+    procs, url, t0 = started["procs"], started["url"], started["t0"]
+    try:
+        waited = time.perf_counter()
+        out = dict(flags=[*DP_LAYOUT], hosts=2,
+                   ready_wait_s=[wait_ready(procs[n], url[n], limit_s=600)
+                                 for n in LWS_LOGS],
+                   started_before_s=waited - t0)
+        ranks = {n: _child_pids(procs[n].pid) for n in LWS_LOGS}
+        out["rank_processes"] = {n: len(r) + (n == "leader")
+                                 for n, r in ranks.items()}
+        if out["rank_processes"] != {"leader": 2, "worker": 2}:
+            raise RuntimeError(f"path (xiii)(a): rank processes "
+                               f"{out['rank_processes']}, want 2 a host")
+        t1 = time.perf_counter()
+        got = [completion(url["leader"],
+                          greedy_body(p, MESH_SERVER_NEW, True))["tokens"]
+               for p in prompts]
+        out["serve_s"] = time.perf_counter() - t1
+        if got != direct:
+            raise RuntimeError(f"path (xiii)(a): the leader's replies "
+                               f"differ from the direct dp engine's: "
+                               f"{token_agreement(got, direct)}")
+        out["replies_equal_direct"] = True
+        probes = {p: http_call(url["worker"], p)[0]
+                  for p in ("/health", "/v1/models")}
+        refused = http_call(url["worker"], "/v1/completions",
+                            greedy_body(prompts[0], 1, False))[0]
+        if probes != {"/health": 200, "/v1/models": 200} or refused != 404:
+            raise RuntimeError(f"path (xiii)(a): the worker answered "
+                               f"{probes}, a completion with {refused}")
+        out.update(worker_probes=probes, worker_completion_status=refused)
+        t_term = time.perf_counter()
+        procs["leader"].send_signal(signal.SIGTERM)
+        out["exit_codes"] = [procs[n].wait(timeout=DRAIN_S + 120)
+                             for n in LWS_LOGS]
+        out["exit_s"] = time.perf_counter() - t_term
+        time.sleep(1.0)
+        left = [p for r in ranks.values() for p in r if _pid_alive(p)]
+        if out["exit_codes"] != [0, 0] or left:
+            raise RuntimeError(f"path (xiii)(a): after SIGTERM exit codes "
+                               f"{out['exit_codes']}, ranks left {left}")
+        by_rank = {}
+        for n in LWS_LOGS:
+            with open(os.path.join(root, "build", LWS_LOGS[n]),
+                      errors="replace") as f:
+                for m in re.finditer(r"mesh rank (\d+) stopped: kernel "
+                                     r"launches (\{.*\})", f.read()):
+                    by_rank[int(m.group(1))] = json.loads(m.group(2))
+        wrappers = {n: MESH_WRAPPERS[n][1] for n in MESH_KERNELS}
+        launches = {n: [by_rank.get(r, {}).get(w, 0) for r in range(4)]
+                    for n, w in wrappers.items()}
+        if sorted(by_rank) != [0, 1, 2, 3] or \
+                min(min(v) for v in launches.values()) == 0:
+            raise RuntimeError(f"path (xiii)(a): kernel launches by rank "
+                               f"{launches} (ranks logged "
+                               f"{sorted(by_rank)})")
+        out["launches_by_rank"] = launches
+    except BaseException:
+        for n in procs:
+            with open(os.path.join(root, "build", LWS_LOGS[n]), "rb") as f:
+                sys.stderr.write(f"--- {LWS_LOGS[n]}\n")
+                sys.stderr.write(f.read()[-6000:].decode(errors="replace"))
+        raise
+    finally:
+        lws_stop(started)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def ring_rank(label: str, causal: bool, seed: int, iters: int = 3) -> dict:
+    """Rank side of phase 14(c): the full ``RING_SHAPE`` q, k, v from
+    ``seed`` (bf16, the same on every rank), this rank's ``P(sp, tp,
+    None)`` shards through ``ring_attention`` on a ``RING_MESHES[label]``
+    mesh of the pool's ranks (one untimed call, then ``iters`` timed),
+    held to ``attention_reference_dense`` on its rows and heads (computed
+    a head at a time) at 3e-2."""
+    import torch
+    import torch.distributed as dist
+    from llm_d_tpu_torch.ops.ring_attention import (
+        attention_reference_dense, ring_attention, shard_qkv)
+    from llm_d_tpu_torch.parallel.mesh import Mesh, MeshConfig
+    from llm_d_tpu_torch.utils.device import resolve_device
+    dev = resolve_device(None, dist.get_rank())
+    mesh = Mesh.from_process_group(MeshConfig(*RING_MESHES[label]), dev)
+    T, H, KVH, D = (RING_SHAPE[k] for k in ("T", "H", "KVH", "D"))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    q, k, v = (torch.randn((T, h, D), generator=gen, device=dev,
+                           dtype=torch.float32).to(torch.bfloat16)
+               for h in (H, KVH, KVH))
+    parts = [shard_qkv(x, mesh) for x in (q, k, v)]
+    out = ring_attention(*parts, mesh, causal=causal)
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = ring_attention(*parts, mesh, causal=causal)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / iters * 1e3
+    Tl, Hl = out.shape[0], out.shape[1]
+    r0, h0 = mesh.coord["sp"] * Tl, mesh.coord["tp"] * Hl
+    G = H // KVH
+    err = 0.0
+    for h in range(h0, h0 + Hl, G):
+        kv = h // G
+        ref = attention_reference_dense(q[:, h:h + G], k[:, kv:kv + 1],
+                                         v[:, kv:kv + 1], causal=causal)
+        got = out[:, h - h0:h - h0 + G]
+        want = ref[r0:r0 + Tl]
+        torch.testing.assert_close(got.float(), want.float(), atol=3e-2,
+                                   rtol=3e-2)
+        err = max(err, float((got.float() - want.float()).abs().max()))
+        del ref
+    res = dict(mesh=label, causal=causal, rank=mesh.rank,
+               rows=list(parts[0].shape), ms=ms, max_abs_err=err,
+               ring_bytes=mesh.wire_bytes.get("ring_shift", 0) // (iters + 1),
+               backend=mesh.backend, staged_through_host=mesh.stage_host)
+    del q, k, v, parts, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def sp_pool_phase(pool, p1) -> dict:
+    """Phase 14(b) and (c) on a pool of four ranks: deepseek-v3-bench at
+    ``MeshConfig(sp=2, tp=2)``, full width and depth, classic steps: each
+    rank's KV plane (the whole pool: attention is replicated over sp) and
+    routed-expert bytes (a quarter), wave 1 to ``SP_NEW`` new tokens
+    (every rank's tokens identical, A, B and E launching on every rank),
+    each recorded rank-local kernel input against its plain version, the
+    2-layer check against the one-rank engine with and without the sp
+    mesh's routing replayed; then ring attention at sp = 4 and sp = 2 x
+    tp = 2, causal and not."""
+    t0 = time.perf_counter()
+    mc = mesh_config(MESH_MODEL)
+    dp, sp, tp = SP_MESH
+    out = dict(dp=dp, sp=sp, tp=tp, ep=dp * sp * tp, model=MESH_MODEL,
+               layers=mc.num_layers,
+               steps="classic (gloo collectives are not capturable)")
+    out["build"] = pool.run(mesh_setup, MESH_MODEL, MESH_KERNELS,
+                            path="xiii", mesh=sp_mesh())
+    out["build_s"] = time.perf_counter() - t0
+    total = _expert_total_bytes(mc)
+    for b in out["build"]:
+        want_kv = [mc.num_layers, b["pool_slots"],
+                   -(-(mc.kv_lora_rank + mc.qk_rope_head_dim) // 128) * 128]
+        if b["kv_planes"]["kv"] != want_kv or \
+                b["expert_bytes"] * dp * sp * tp != total:
+            raise RuntimeError(f"sp rank {b['rank']}: KV plane "
+                               f"{b['kv_planes']['kv']} (want {want_kv}), "
+                               f"{b['expert_bytes']} expert bytes (want "
+                               f"{total} / {dp * sp * tp})")
+    res = pool.run(mesh_wave, "s1", p1, SP_NEW, None, True)
+    toks = [r["tokens"] for r in res]
+    if any(t != toks[0] for t in toks):
+        raise RuntimeError("sp wave s1: the ranks' tokens differ")
+    out["wave"] = dict(res[0]["stats"], ranks_identical=True,
+                       launches_by_rank=[r["launches"] for r in res],
+                       wire_bytes_by_rank=[r["wire_bytes"] for r in res],
+                       peak_gib_by_rank=[r["peak_gib"] for r in res],
+                       timing="gloo through the host, classic steps")
+    launches = {}
+    for n in MESH_KERNELS:
+        per_rank = [r["launches"][n] for r in res]
+        if min(per_rank) == 0:
+            raise RuntimeError(f"{n} never launched on a rank of path "
+                               f"(xiii)(b): {per_rank}")
+        launches[n] = sum(per_rank)
+    log(f"sp wave s1: {json.dumps(res[0]['stats'])}, launches "
+        f"{json.dumps([r['launches'] for r in res])}")
+    checks = pool.run(mesh_kernel_checks)[0]
+    pool.run(mesh_teardown)
+    t1 = time.perf_counter()
+    two = pool.run(mesh_two_layer, [100, 37], 27, mesh=sp_mesh())[0]
+    out["reference"] = [mesh_reference(two, replay)
+                        for replay in (False, True)]
+    out["reference_s"] = time.perf_counter() - t1
+    log(f"sp reference: {json.dumps(out['reference'])}")
+    for ref in out["reference"]:
+        if not ref["top1_agree"] or ref["rel_max_err"] > 5e-2:
+            raise RuntimeError(f"the sp mesh disagrees with the one-rank "
+                               f"engine: {ref}")
+    out["mesh_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    ring = []
+    for i, (label, causal) in enumerate(
+            (lb, c) for lb in RING_MESHES for c in (True, False)):
+        by_rank = pool.run(ring_rank, label, causal, 100 + i)
+        ring.append(dict(mesh=label, causal=causal, shape=RING_SHAPE,
+                         ms_by_rank=[r["ms"] for r in by_rank],
+                         max_abs_err=max(r["max_abs_err"] for r in by_rank),
+                         rows_by_rank=[r["rows"] for r in by_rank],
+                         ring_bytes_by_rank=[r["ring_bytes"]
+                                             for r in by_rank],
+                         timing="perf_counter around 3 calls after one "
+                                "untimed, gloo through the host"))
+        log(f"ring {label} causal={causal}: {json.dumps(ring[-1])}")
+    out["ring"] = dict(cases=ring, tolerance=3e-2,
+                       seconds=time.perf_counter() - t1)
+    return dict(out=out, launches=launches, checks=checks)
+
+
+def absorption_check(p1) -> dict:
+    """Phase 14(d): a bf16-latent deepseek-v3-bench engine of
+    ``ABSORB_LAYERS`` layers (seed 0) serves wave 1 (``MESH_W1_NEW`` new
+    tokens); the latent rows it wrote, and its first MoE layer's absorbed
+    queries of 8 hidden rows from a seed, through
+    ``absorption_error_report`` on the card and on the CPU: the two
+    reports' numbers equal at ``ABSORB_RTOL``; ``within_bounds`` is
+    reported, not required (a miss is a finding)."""
+    import torch
+    from llm_d_tpu_torch.ops import mla_accuracy as acc
+    t0 = time.perf_counter()
+    eng = path_i_engine(1, model_config=mesh_config(MESH_MODEL,
+                                                    ABSORB_LAYERS),
+                        kv_cache_dtype="bf16")
+    if eng.kv_cache["kv"].dtype != torch.bfloat16:
+        raise RuntimeError("path (xiii)(d): the latent is not bf16")
+    run_wave(eng, p1, MESH_W1_NEW, "ab")
+    mc = eng.model_config
+    rows = acc.harvest_latent_rows(eng)
+    lp = {k: v[0] for k, v in eng.params["moe_layers"].items()}
+    gen = torch.Generator(device=eng.device)
+    gen.manual_seed(0)
+    x = torch.randn((8, mc.hidden_size), generator=gen, device=eng.device
+                    ).to(torch.bfloat16)
+    pos = torch.arange(8, dtype=torch.int32, device=eng.device)
+    q_eff, w_uv = acc.absorbed_queries(lp, mc, x, pos)
+    scale = (mc.qk_nope_head_dim + mc.qk_rope_head_dim) ** -0.5
+    card = acc.absorption_error_report(rows, q_eff, w_uv, mc.kv_lora_rank,
+                                       scale=scale)
+    cpu = acc.absorption_error_report(rows.cpu(), q_eff.cpu(), w_uv.cpu(),
+                                      mc.kv_lora_rank, scale=scale)
+    del eng
+    for term in ("score", "value", "end_to_end"):
+        for key in ("max_abs", "rel_rms"):
+            a, b = card[term][key], cpu[term][key]
+            if abs(a - b) > ABSORB_RTOL * abs(b):
+                raise RuntimeError(f"path (xiii)(d): {term} {key} on the "
+                                   f"card {a}, on the CPU {b}")
+    return dict(layers=ABSORB_LAYERS, rows=card["rows"],
+                row_width=int(rows.shape[1]), card=card, cpu=cpu,
+                within_bounds=card["within_bounds"], rtol=ABSORB_RTOL,
+                seconds=time.perf_counter() - t0)
+
+
+def lws_sp_path(root: str, smi: str, dp_alone) -> tuple:
+    """Phase 14, path (xiii), after phase 13: (a)'s entry points start
+    (``lws_start``) and build while (b) and (c) run ``sp_pool_phase`` on a
+    fresh pool of four ranks (eight ranks share the card meanwhile); then
+    (a) ``lws_group`` against phase 10's one-at-a-time tokens
+    ``dp_alone``, once the pool is gone; (d) ``absorption_check``.
+    Returns (result, launches by kernel: (b)'s waves on every rank plus
+    (a)'s ranks' logged counts, (b)'s per-kernel checks against the plain
+    versions)."""
+    import numpy as np
+    import torch
+    from llm_d_tpu_torch.parallel.launch import RankPool
+    t_path = time.perf_counter()
+    rng = np.random.default_rng(0)
+    p1 = prompts_for(rng, mesh_config(MESH_MODEL).vocab_size, WAVE1)
+    out = dict(card=smi)
+    started = lws_start(root)
+    try:
+        pool = RankPool(MESH_WORLD, device=None, threads=2, timeout_s=900)
+        try:
+            sp = sp_pool_phase(pool, p1)
+        finally:
+            pool.close()
+    except BaseException:
+        lws_stop(started)
+        raise
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["sp"] = sp["out"]
+    log(f"path (xiii)(b), (c): {json.dumps(out['sp'])}")
+    out["lws"] = lws_group(root, started, p1[:MESH_SERVER_PROMPTS], dp_alone)
+    log(f"path (xiii)(a): {json.dumps(out['lws'])}")
+    out["absorption"] = absorption_check(p1)
+    log(f"path (xiii)(d): {json.dumps(out['absorption'])}")
+    launches = dict(sp["launches"])
+    for n, per_rank in out["lws"]["launches_by_rank"].items():
+        launches[n] = launches.get(n, 0) + sum(per_rank)
+    out["seconds"] = time.perf_counter() - t_path
+    return out, launches, sp["checks"]
+
 
 
 def main() -> int:
@@ -7504,6 +7882,16 @@ def main() -> int:
                                     if k != "name"}
                                    for c in mh_checks if c["name"] == n]
     log(f"path (xii): {multihost['seconds']:.1f} s")
+    # 14. path (xiii): an LWS group's mesh, the sp engine, ring attention
+    # and the absorption report, with phase 13's hosts gone.
+    lws_sp, xiii_counts, xiii_checks = lws_sp_path(root, smi, dp["alone"])
+    for row in rows:
+        n = row["name"]
+        row["xiii_launches"] = xiii_counts.get(n, 0)
+        row["launches"] += row["xiii_launches"]
+        row["xiii_inputs"] = [{k: v for k, v in c.items() if k != "name"}
+                              for c in xiii_checks if c["name"] == n]
+    log(f"path (xiii): {lws_sp['seconds']:.1f} s")
     if prof is not None:
         # The first decode block of a fresh process, part by part.
         prof["cold_first_block"] = []
@@ -7537,6 +7925,7 @@ def main() -> int:
     print(json.dumps({"wide_ep": wide["out"]}))
     print(json.dumps({"spec_mesh": xi["out"]}))
     print(json.dumps({"multihost": multihost}))
+    print(json.dumps({"lws_sp": lws_sp}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -89,7 +89,8 @@ KERNEL_WRAPPERS = (
 )
 
 
-def _counts() -> Dict[str, int]:
+def kernel_counts() -> Dict[str, int]:
+    """Each kernel wrapper's launch count in this process, by name."""
     return {name: getattr(mod, name).launches
             for mod, name in KERNEL_WRAPPERS}
 
@@ -216,7 +217,7 @@ class DecodeGraphs:
             body(1)
         cur.wait_stream(side)
         torch.cuda.synchronize(self.device)
-        before = _counts()
+        before = kernel_counts()
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
         graph = torch.cuda.CUDAGraph()
@@ -231,7 +232,7 @@ class DecodeGraphs:
         finally:
             if collecting:
                 gc.enable()
-            after = _counts()
+            after = kernel_counts()
             for mod, name in KERNEL_WRAPPERS:
                 getattr(mod, name).launches = before[name]
         t4 = time.perf_counter()

@@ -86,11 +86,15 @@ goes to the other ranks with the order of the step that sees it
 deadlines; the others run ``follow()``, the same schedule step by step,
 and sample the same all-gathered logits with the same keys, so every
 rank holds the same tokens.  ``llmd_tpu:collective_bytes_total`` charges
-each computed token's EP exchange bytes (the JAX byte model).  Refused
-by name on a mesh: the SP axis, the shared KV tier and a step-time
-target.  Where the collectives go through the host (gloo on CUDA: ranks
-that share a card) no CUDA graph can hold them, so decode blocks and
-fused rounds run their bodies eagerly there (``captures_bodies``).
+each computed token's EP exchange bytes (the JAX byte model).  An ``sp``
+axis (``MeshConfig(sp, tp)``) is served as the JAX engine serves it:
+attention and the KV pool are replicated over sp and split over tp, the
+routed experts span all ``sp * tp`` ranks; dp and sp together are refused
+in the JAX engine's words (``parallel.mesh.check_served``).  Refused by
+name on a mesh: the shared KV tier and a step-time target.  Where the
+collectives go through the host (gloo on CUDA: ranks that share a card)
+no CUDA graph can hold them, so decode blocks and fused rounds run their
+bodies eagerly there (``captures_bodies``).
 
 Data parallelism on the mesh (``MeshConfig(dp, tp)``, the JAX engine's
 stacked mode, the attention half of wide EP): the pool is split into
@@ -168,7 +172,7 @@ from llm_d_tpu_torch.ops.quant import (
     kv_scale_width, quantize_moe_experts)
 from llm_d_tpu_torch.parallel.mesh import (AXIS_DP, AXIS_TP, Mesh,
                                            MeshConfig, StepChannel,
-                                           check_served)
+                                           check_served, local_rank)
 from llm_d_tpu_torch.parallel.sharding import (shard_shape, shard_tree,
                                                validate_divisibility)
 from llm_d_tpu_torch.utils import tracing
@@ -342,7 +346,7 @@ class EngineCore:
                 raise RuntimeError(
                     f"mesh {config.mesh}: join the ranks' process group "
                     "first (parallel.mesh.init_distributed)")
-            self.device = resolve_device(config.device, dist.get_rank())
+            self.device = resolve_device(config.device, local_rank())
             self.mesh = Mesh.from_process_group(
                 config.mesh, self.device, config.allow_device_subset)
             self._check_cards(config)

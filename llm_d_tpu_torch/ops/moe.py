@@ -672,17 +672,19 @@ def expert_ffn_a2a(x, weights, idx, w_gate, w_up, w_down, mesh,
                    dbo_min_tokens: Optional[int] = None) -> torch.Tensor:
     """Sparse all-to-all EP dispatch over every rank of ``mesh``.
 
-    ``x`` is replicated over the rank's tp group (the whole batch at dp
-    = 1, the rank's dp shard otherwise).  Each rank takes its ``T / tp``
-    slice of it, in chunks of ``LLMD_MOE_DP_CHUNK_SIZE`` tokens (1024;
+    ``x`` is replicated over the rank's ``(sp, tp)`` ranks (the whole
+    batch at dp = 1, the rank's dp shard otherwise; dp and sp are never
+    both above 1).  Each rank takes its ``T / (sp * tp)`` slice of it, in
+    chunks of ``LLMD_MOE_DP_CHUNK_SIZE`` tokens (1024;
     :func:`dbo_chunk_tokens` with the DBO threshold ``dbo_min_tokens``)
     through the dispatch / expert FFN / combine of :func:`_a2a_send` and
     :func:`_a2a_finish` over the EP group of every rank, then one
-    all-gather over tp puts the ``[T, H]`` (in x.dtype) back on each of
-    them.  Rank ``(d, t)`` so dispatches rows ``d * T + t * T / tp`` of
-    the JAX package's stacked ``[dp * T]`` rows, as its EP split of them
-    does, and runs as many chunks as each JAX shard does.  Needs ``dp *
-    T % ep == 0`` and ``E % ep == 0``.
+    all-gather over ``(sp, tp)`` puts the ``[T, H]`` (in x.dtype) back on
+    each of them.  Rank ``(d, s, t)`` so dispatches rows ``d * T + (s *
+    tp + t) * T / (sp * tp)`` of the JAX package's stacked ``[dp * T]``
+    rows, as its EP split over ``(dp, sp, tp)`` does, and runs as many
+    chunks as each JAX shard does.  Needs ``dp * T % ep == 0`` and ``E %
+    ep == 0``.
 
     DBO (dual-batch overlap): chunk ``i + 1``'s dispatch exchange is
     issued (``Mesh.all_to_all_async``) before chunk ``i``'s expert FFN
@@ -690,22 +692,25 @@ def expert_ffn_a2a(x, weights, idx, w_gate, w_up, w_down, mesh,
     chunk overlaps the expert compute of the other.  Chunks share no
     state, so the result is the chunk-by-chunk one, and the exchanges
     carry the same bytes as one chunk's."""
-    from llm_d_tpu_torch.parallel.mesh import AXIS_DP, AXIS_EP, AXIS_TP
+    from llm_d_tpu_torch.parallel.mesh import (AXIS_DP, AXIS_EP, AXIS_SP,
+                                               AXIS_TP)
     from llm_d_tpu_torch.parallel.quant_collectives import (
         resolve_collective_dtype)
     wire = resolve_collective_dtype(collective_dtype, _wire_backend(x))
     ep = mesh.axis_size(AXIS_EP)
-    tp = mesh.axis_size(AXIS_TP)
+    # The ranks that hold the same rows: every rank but the dp axis's.
+    rep = (AXIS_SP, AXIS_TP)
+    n_rep = mesh.axis_size(rep)
     T = x.shape[0]
-    if T % tp:
+    if T % n_rep:
         raise ValueError(f"a2a dispatch needs the step's tokens to divide "
-                         f"over ep (T={T * (ep // tp)}, ep={ep})")
-    T_loc = T // tp
+                         f"over ep (T={T * (ep // n_rep)}, ep={ep})")
+    T_loc = T // n_rep
     if chunk_tokens is None:
         chunk_tokens = env_int("LLMD_MOE_DP_CHUNK_SIZE", 1024)
     chunk_tokens = dbo_chunk_tokens(T * mesh.axis_size(AXIS_DP), ep,
                                     chunk_tokens, dbo_min_tokens)
-    r0 = mesh.axis_index(AXIS_TP) * T_loc
+    r0 = mesh.axis_index(rep) * T_loc
     starts = range(r0, r0 + T_loc, chunk_tokens)
 
     def send(c0):
@@ -724,4 +729,4 @@ def expert_ffn_a2a(x, weights, idx, w_gate, w_up, w_down, mesh,
         outs.append(_a2a_finish(st, received, w_gate, w_up, w_down, mesh,
                                 quant))
     out = torch.cat(outs) if len(outs) > 1 else outs[0]
-    return mesh.all_gather(out.to(x.dtype), AXIS_TP, dim=0)
+    return mesh.all_gather(out.to(x.dtype), rep, dim=0)

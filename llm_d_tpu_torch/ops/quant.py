@@ -48,19 +48,26 @@ def kv_scale_width(num_kv_heads: int, granularity: str) -> int:
 
 
 def quantize_kv_block(rows: torch.Tensor, scale_width: int,
-                      amax_reduce=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                      amax_reduce=None, divide: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 over KV rows ``[..., N, F]``: returns (q int8
     ``[..., N, F]``, scales f32 ``[..., N, SW]``), each scale covering one
     contiguous ``F / SW`` column group of its row.  ``amax_reduce`` maps
     the group amax first (under tensor parallelism, the max over the
-    ranks that hold the rest of a row)."""
+    ranks that hold the rest of a row).  The scale is ``amax`` times the
+    reciprocal of 127, as XLA computes it under jit (the engine's
+    quantizer); ``divide`` divides instead, as an eager ``jnp`` call does
+    (the accuracy harness's), by a 0-dim tensor: PyTorch's CUDA kernel
+    turns a Python-number divisor into a reciprocal multiply."""
     f32 = rows.float()
     *lead, n, f = f32.shape
     g = f32.reshape(*lead, n, scale_width, f // scale_width)
     amax = g.abs().amax(dim=-1)
     if amax_reduce is not None:
         amax = amax_reduce(amax)
-    scales = torch.clamp_min(amax, 1e-8) * _INV_127
+    scales = (torch.clamp_min(amax, 1e-8)
+              / torch.full((), 127.0, device=amax.device) if divide
+              else torch.clamp_min(amax, 1e-8) * _INV_127)
     q = torch.clamp(torch.round(g / scales[..., None]), -127, 127)
     return q.reshape(f32.shape).to(torch.int8), scales
 

@@ -1,10 +1,12 @@
 """Starting the ranks of a mesh: one process per rank, joined by
-``torch.distributed`` at ``127.0.0.1:<free port>`` (rank 0 hosts the
-store).
+``torch.distributed`` at ``127.0.0.1:<free port>`` on one host, or at the
+leader's address across the hosts of a LeaderWorkerSet group (rank 0
+hosts the store).
 
-* :func:`start_ranks` starts ranks 1..N-1 as ``spawn`` processes running
-  ``target(rank, world, address, *args)``; the caller is rank 0 (the
-  server's entry point, ``server/openai.py``).
+* :func:`start_ranks` starts ranks 1..N-1, or a worker host's share of
+  the ranks, as ``spawn`` processes running ``target(rank, world,
+  address, *args)``; on rank 0's host the caller is rank 0 (the server's
+  entry point, ``server/openai.py``).
 * :class:`RankPool` keeps N worker ranks alive and runs one function on
   all of them at a time (SPMD), each call with a deadline: a rank that
   misses it (say, hung in a collective) has the whole pool killed, and the
@@ -22,7 +24,7 @@ import queue
 import socket
 import time
 import traceback
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, List, Optional, Sequence
 
 # How often an idle rank checks that its parent is alive.
 PARENT_POLL_S = 2.0
@@ -39,13 +41,15 @@ def _context():
     return multiprocessing.get_context("spawn")
 
 
-def start_ranks(world: int, address: str, target: Callable, args=()
-                ) -> List[Any]:
-    """Start ranks 1..world-1 as processes running ``target(rank, world,
-    address, *args)``; the caller joins as rank 0."""
+def start_ranks(world: int, address: str, target: Callable, args=(),
+                ranks: Optional[Sequence[int]] = None) -> List[Any]:
+    """Start ranks 1..world-1 (or the global ``ranks`` given: this host's
+    share of a mesh across hosts) as processes running ``target(rank,
+    world, address, *args)``; on the host of rank 0 the caller joins as
+    rank 0."""
     ctx = _context()
     procs = []
-    for rank in range(1, world):
+    for rank in range(1, world) if ranks is None else ranks:
         p = ctx.Process(target=target, args=(rank, world, address) + tuple(
             args), name=f"llmd-rank{rank}", daemon=False)
         p.start()

@@ -17,13 +17,19 @@ Expert parallelism runs over the flattened ``(dp, sp, tp)`` axes, so the
 EP degree is the whole mesh.  The ranks lie on the grid row-major, as
 :func:`select_devices` (JAX's ``make_mesh``) arranges them: rank ``d * tp
 + t`` is dp index ``d``, tp index ``t``.  :meth:`Mesh.from_process_group`
-makes one process group per dp index over its tp ranks, one per tp index
-over its dp ranks, and the EP group is every rank (the default group).
-``sp > 1`` (ring attention) is refused by name.
+makes one process group for each line of ranks along each axis (the tp
+ranks of one ``(dp, sp)`` index, the sp ranks of one ``(dp, tp)`` index,
+...), and the EP group is every rank (the default group).  A mesh with an
+sp axis carries ring attention (``ops/ring_attention.py``); the engine
+serves ``sp > 1`` by the JAX engine's rule (:func:`check_served`).
 
-Backend rule (logged, and no knob): ``nccl`` when every rank has a CUDA
-card of its own, ``gloo`` on the CPU and when ranks share a card (NCCL
-refuses two ranks on one GPU).  Under gloo on CUDA tensors every
+Across hosts (a LeaderWorkerSet group) every host runs its share of the
+ranks, joined into one process group at the leader's address
+(:func:`lws_distributed_args`, :func:`lws_rank_layout`).
+
+Backend rule (logged, and no knob): ``nccl`` when every rank of this host
+has a CUDA card of its own, ``gloo`` on the CPU and when ranks share a
+card (NCCL refuses two ranks on one GPU).  Under gloo on CUDA tensors every
 collective is staged through host memory (``Mesh.stage_host``): that is
 the transport of ranks that share a card.
 """
@@ -90,17 +96,19 @@ def select_devices(config: Optional[MeshConfig], devices: Sequence,
 
 
 def check_served(config: MeshConfig) -> None:
-    """Refuse the mesh axes the port does not serve, by name."""
-    if config.sp > 1:
+    """The engine's rule, the JAX engine's (``engine/engine.py``): dp and
+    sp on one mesh are refused, in its words; either alone is served."""
+    if config.dp > 1 and config.sp > 1:
         raise ValueError(
-            f"mesh {config}: sp > 1 (ring attention) is not served by the "
-            "port yet")
+            "SPMD dp and sp are mutually exclusive in-engine (ring "
+            "attention shards sequences, dp shards requests)")
 
 
-def backend_for(device: torch.device, world: int) -> str:
-    """The process-group backend: ``nccl`` when every rank has its own
-    CUDA card, ``gloo`` on the CPU or when ranks share a card."""
-    if device.type == "cuda" and torch.cuda.device_count() >= world:
+def backend_for(device: torch.device, local_ranks: int) -> str:
+    """The process-group backend: ``nccl`` when each of this host's
+    ``local_ranks`` ranks has its own CUDA card, ``gloo`` on the CPU or
+    when ranks share a card."""
+    if device.type == "cuda" and torch.cuda.device_count() >= local_ranks:
         return "nccl"
     return "gloo"
 
@@ -122,13 +130,75 @@ def lws_distributed_args(env: Optional[dict] = None,
         rank=int(env.get("LWS_WORKER_INDEX", "0")))
 
 
+@dataclasses.dataclass(frozen=True)
+class RankLayout:
+    """Where this host's ranks lie in a mesh of ``world`` ranks: ``local``
+    ranks, global ranks ``first .. first + local - 1``, joined at
+    ``address`` ("host:port"; global rank 0 hosts the store)."""
+    world: int
+    local: int
+    first: int
+    address: str
+    hosts: int
+
+    @property
+    def leader(self) -> bool:
+        """This host holds global rank 0."""
+        return self.first == 0
+
+
+def lws_rank_layout(world: int, env: Optional[dict] = None
+                    ) -> Optional[RankLayout]:
+    """The rank layout of a mesh of ``world`` ranks across the hosts of a
+    LeaderWorkerSet group (:func:`lws_distributed_args`): each of the
+    ``LWS_GROUP_SIZE`` hosts runs ``world / LWS_GROUP_SIZE`` ranks, host
+    ``LWS_WORKER_INDEX`` global ranks ``index * local + r``, all joined at
+    the leader's address (JAX's coordinator port 8476 unless it names
+    one).  None outside a group of more than one host; a mesh that does not
+    divide over the hosts raises, by name."""
+    lws = lws_distributed_args(env)
+    if lws is None or lws["world_size"] <= 1:
+        return None
+    hosts, index = lws["world_size"], lws["rank"]
+    if world % hosts:
+        raise ValueError(
+            f"a mesh of {world} ranks does not divide over the "
+            f"LWS_GROUP_SIZE={hosts} hosts of the LeaderWorkerSet group")
+    if not 0 <= index < hosts:
+        raise ValueError(f"LWS_WORKER_INDEX={index} lies outside the "
+                         f"LWS_GROUP_SIZE={hosts} hosts")
+    local = world // hosts
+    return RankLayout(world=world, local=local, first=index * local,
+                      address=lws["init_method"][len("tcp://"):],
+                      hosts=hosts)
+
+
+# This process's rank among its host's ranks (set by init_distributed).
+_local_rank: Optional[int] = None
+
+
+def local_rank() -> int:
+    """This process's rank among its host's ranks: the index that picks
+    its card (the global rank when one host runs the whole mesh)."""
+    if _local_rank is not None:
+        return _local_rank
+    import torch.distributed as dist
+    return dist.get_rank()
+
+
 def init_distributed(rank: int, world: int, address: str,
                      device: torch.device,
-                     timeout_s: float = DEFAULT_TIMEOUT_S) -> str:
+                     timeout_s: float = DEFAULT_TIMEOUT_S,
+                     local: Optional[Tuple[int, int]] = None) -> str:
     """Join the ranks' process group at ``address`` ("host:port"; rank 0
-    hosts it) on the backend :func:`backend_for` picks; returns it."""
+    hosts its store, which listens on every interface) on the backend
+    :func:`backend_for` picks for this host's ranks; returns it.
+    ``local`` is ``(this process's rank on its host, the host's rank
+    count)``, by default ``(rank, world)``: one host runs the mesh."""
     import torch.distributed as dist
-    backend = backend_for(device, world)
+    global _local_rank
+    _local_rank, local_ranks = local if local is not None else (rank, world)
+    backend = backend_for(device, local_ranks)
     kw = {}
     if backend == "nccl":
         kw["device_id"] = device
@@ -153,7 +223,6 @@ class Mesh:
     def __init__(self, config: MeshConfig, rank: int, world: int,
                  device: torch.device, backend: str = "gloo",
                  allow_subset: bool = False, groups: Optional[Dict] = None):
-        check_served(config)
         grid = select_devices(config, list(range(world)), allow_subset)
         if rank >= config.num_devices:
             raise ValueError(f"rank {rank} lies outside mesh {config}")
@@ -222,6 +291,7 @@ class Mesh:
         axes = axis if isinstance(axis, tuple) else (axis,)
         if self.axis_size(axes) == self.world:
             return None                       # the default (world) group
+        axes = tuple(a for a in axes if self.shape[a] > 1)
         if len(axes) == 1:
             return self._groups[axes[0]]
         raise ValueError(f"no process group for axes {axes}")
@@ -328,6 +398,28 @@ class Mesh:
                           device="cpu" if self.stage_host else self.device)
         dist.recv(out, src)
         return out.to(self.device)
+
+    def ring_shift(self, x: torch.Tensor, axis=AXIS_SP) -> torch.Tensor:
+        """``x`` to the next rank along ``axis`` (index ``i`` to ``i + 1``
+        mod n, the other coordinates kept), and the previous rank's ``x``
+        back (JAX's ``ppermute`` with ``[(i, (i + 1) % n)]``).  Both are
+        posted at once, so the ring cannot deadlock."""
+        import torch.distributed as dist
+        i = MESH_AXES.index(axis)
+        n = self._grid.shape[i]
+        if n == 1:
+            return x
+        pos = [self.coord[a] for a in MESH_AXES]
+        nxt, prv = list(pos), list(pos)
+        nxt[i], prv[i] = (pos[i] + 1) % n, (pos[i] - 1) % n
+        xs = self._wire(x)
+        out = torch.empty_like(xs)
+        self._count("ring_shift", xs, 1)
+        works = [dist.isend(xs, int(self._grid[tuple(nxt)])),
+                 dist.irecv(out, int(self._grid[tuple(prv)]))]
+        for w in works:
+            w.wait()
+        return out.to(x.device)
 
 
 class PendingExchange:

@@ -13,12 +13,12 @@ JAX's ``NamedSharding(mesh, spec).shard_shape`` for the same table,
 shape and mesh, and its values JAX's addressable shard on that device.
 The model modules run the collectives those tables imply.
 
-On a ``(dp, tp)`` mesh the rules name ``dp`` only in the routed experts'
-EP entry ``("dp", "sp", "tp")``: those shard ``1/(dp*tp)`` over every
-rank, while dense weights, attention and the shared expert shard over
-``tp`` and are replicated over ``dp`` (each dp index holds the same tp
-shards), as JAX places them.  The KV pool's dp split is the engine's
-(``[L, slots / dp, W]`` a rank, ``engine/engine.py``).
+The rules name ``dp`` and ``sp`` only in the routed experts' EP entry
+``("dp", "sp", "tp")``: those shard ``1/(dp*sp*tp)`` over every rank,
+while dense weights, attention and the shared expert shard over ``tp``
+and are replicated over ``dp`` and ``sp`` (each ``(dp, sp)`` index holds
+the same tp shards), as JAX places them.  The KV pool's dp split is the
+engine's (``[L, slots / dp, W]`` a rank, ``engine/engine.py``).
 """
 
 from __future__ import annotations

@@ -93,11 +93,25 @@ name.
 
 Data parallelism, in the JAX server's two modes (``--data-parallel-size
 D``): ``--data-parallel-mode spmd`` (the default) serves one mesh
-``MeshConfig(dp=D, tp=N)`` on this host as ``D x N`` ranks started as
-above (DP attention, the experts over every rank); ``ranks`` serves a
+``MeshConfig(dp=D, tp=N)`` as ``D x N`` ranks started as above (DP
+attention, the experts over every rank); ``ranks`` serves a
 ``DPEngineGroup`` of this host's one-device engines in this process
 behind a least-loaded dispatcher (``engine/dp_group.py``; one device a
 rank, so ``--tensor-parallel-size`` > 1 is refused there).
+
+One spmd (or tp-only) mesh across the hosts of a LeaderWorkerSet group,
+as the JAX server joins them (``deploy/wide-ep-lws``): with
+``LWS_LEADER_ADDRESS``, ``LWS_GROUP_SIZE`` > 1 and ``LWS_WORKER_INDEX``
+set, each of the G hosts runs ``D * N / G`` of the ranks (refused by name
+where that does not divide), host ``i`` global ranks ``i * D * N / G +
+r``, all joined at the leader's address (port 8476, JAX's coordinator
+port, unless the address names one).  The leader host (index 0) holds
+rank 0 and serves as above; a worker host starts its ranks as followers
+of rank 0 and answers only ``/health`` and ``/v1/models`` on ``--port``
+(its pod's probes).  When rank 0 stops the mesh every host exits 0; when
+a rank of a worker host fails (the leader died) that host exits
+non-zero.  ``--data-parallel-size-local`` must then equal ``D / G``;
+without a group one host serves the whole mesh, whatever it says.
 
 Across hosts, in ranks mode (``--data-parallel-size-local L`` below
 ``D``): each host serves its L ranks, the first of them global rank
@@ -121,10 +135,11 @@ proxy's client is the standard library's (``server/http_client.py``).
 record the leader's side.
 
 Not served (each refused with a message naming it, not quietly
-dropped): one mesh across hosts (``--data-parallel-mode spmd`` with
-``--data-parallel-size-local`` below the size), ranks wider than one
-device (``--data-parallel-mode ranks`` with ``--tensor-parallel-size`` >
-1), and ``--compilation-cache-dir`` (``UNSERVED_FLAGS``).
+dropped): ranks mode's multi-host flags in spmd mode, a mesh that does not
+divide over an LWS group's hosts or a ``--data-parallel-size-local`` that
+contradicts the group, ranks wider than one device
+(``--data-parallel-mode ranks`` with ``--tensor-parallel-size`` > 1), and
+``--compilation-cache-dir`` (``UNSERVED_FLAGS``).
 """
 
 from __future__ import annotations
@@ -142,7 +157,7 @@ import threading
 import time
 import urllib.request
 import uuid as uuid_mod
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 from llm_d_tpu_torch.engine.async_engine import AsyncEngine
 from llm_d_tpu_torch.engine.dp_group import DPEngineGroup
@@ -1290,6 +1305,20 @@ def world_from_args(args) -> int:
     return mesh.num_devices if mesh is not None else 1
 
 
+def lws_layout_from_args(args, env: Optional[dict] = None):
+    """This host's share of one mesh across the hosts of a LeaderWorkerSet
+    group (``parallel.mesh.lws_rank_layout``: ``LWS_LEADER_ADDRESS``,
+    ``LWS_GROUP_SIZE`` > 1, ``LWS_WORKER_INDEX``), the JAX server's rule:
+    the hosts join one process group in spmd mode and with tp alone, while
+    ranks mode with dp > 1 keeps independent hosts.  None outside a
+    group; raises ValueError, naming the sizes, where the mesh does not
+    divide over the hosts."""
+    from llm_d_tpu_torch.parallel.mesh import lws_rank_layout
+    if args.data_parallel_mode == "ranks" and args.data_parallel_size > 1:
+        return None
+    return lws_rank_layout(world_from_args(args), env)
+
+
 def engine_config_from_args(args) -> EngineConfig:
     """Parsed CLI flags -> EngineConfig."""
     return EngineConfig(
@@ -1527,9 +1556,10 @@ def check_served(parser: argparse.ArgumentParser, args) -> None:
 
 def check_dp_flags(parser: argparse.ArgumentParser, args) -> None:
     """``parser.error`` for the data-parallel layouts the port does not
-    serve: one mesh across hosts (spmd with ``--data-parallel-size-local``
-    below the size), and ``ranks`` with ranks wider than one device, on
-    one host or across hosts."""
+    serve: a mesh that does not divide over an LWS group's hosts, a
+    ``--data-parallel-size-local`` that contradicts the group, ranks mode's
+    multi-host flags in spmd mode, and ``ranks`` with ranks wider than one
+    device, on one host or across hosts."""
     dp = args.data_parallel_size
     if dp < 1:
         parser.error(f"--data-parallel-size {dp} must be >= 1")
@@ -1538,15 +1568,29 @@ def check_dp_flags(parser: argparse.ArgumentParser, args) -> None:
         parser.error(f"--data-parallel-size-local {dp_local} must divide "
                      f"--data-parallel-size {dp}")
     ranks = args.data_parallel_mode == "ranks"
-    if dp_local < dp and not ranks:
+    if not ranks:
+        for flag in MULTI_HOST_FLAGS:
+            dest = flag[2:].replace("-", "_")
+            if getattr(args, dest) != parser.get_default(dest):
+                parser.error(
+                    f"{flag} is not served in --data-parallel-mode spmd: "
+                    "it belongs to --data-parallel-mode ranks (independent "
+                    f"hosts: {', '.join(MULTI_HOST_FLAGS)}); in spmd mode "
+                    "the hosts of a LeaderWorkerSet group join one mesh "
+                    "from LWS_LEADER_ADDRESS, LWS_GROUP_SIZE and "
+                    "LWS_WORKER_INDEX")
+    try:
+        layout = lws_layout_from_args(args)
+    except ValueError as exc:
+        parser.error(f"--data-parallel-size {dp} --tensor-parallel-size "
+                     f"{args.tensor_parallel_size}: {exc}")
+    if layout is not None and args.data_parallel_size_local \
+            and dp_local * layout.hosts != dp:
         parser.error(
-            f"--data-parallel-size-local {dp_local} below "
-            f"--data-parallel-size {dp} in --data-parallel-mode spmd is not "
-            "served by the PyTorch port: one mesh across hosts needs a "
-            "process group that spans them, and a mesh here is one host's "
-            "processes.  Multi-host data parallelism is served in "
-            "--data-parallel-mode ranks, with "
-            f"{', '.join(MULTI_HOST_FLAGS)}")
+            f"--data-parallel-size-local {dp_local} contradicts the "
+            f"LeaderWorkerSet group: LWS_GROUP_SIZE={layout.hosts} hosts "
+            f"hold --data-parallel-size {dp} as {dp // layout.hosts} dp "
+            "ranks a host")
     if dp > 1 and ranks and args.tensor_parallel_size > 1:
         parser.error(
             "--data-parallel-mode ranks with --tensor-parallel-size "
@@ -1580,11 +1624,21 @@ def check_mesh_flags(parser: argparse.ArgumentParser, args) -> None:
                          "device's host tier")
 
 
-def _rank_main(rank: int, world: int, address: str, argv: List[str]) -> None:
+def _local(rank: int, world: int, layout) -> Tuple[int, int]:
+    """(this rank's index on its host, the host's rank count)."""
+    if layout is None:
+        return rank, world
+    return rank - layout.first, layout.local
+
+
+def _rank_main(rank: int, world: int, address: str, argv: List[str],
+               layout=None, ready=None) -> None:
     """Ranks 1..N-1 of a mesh (``--tensor-parallel-size``, with
-    ``--data-parallel-size`` in spmd mode): the same flags, the
-    engine on this rank's card, then rank 0's steps until it stops the
-    mesh.  SIGTERM and SIGINT are rank 0's to act on."""
+    ``--data-parallel-size`` in spmd mode), or a worker host's ranks of an
+    LWS group's mesh (``layout``): the same flags, the engine on this
+    rank's card, then rank 0's steps until it stops the mesh.  ``ready``
+    is set once every rank has built.  SIGTERM and SIGINT are rank 0's to
+    act on."""
     signal.signal(signal.SIGTERM, signal.SIG_IGN)
     signal.signal(signal.SIGINT, signal.SIG_IGN)
     logging.basicConfig(level=logging.INFO)
@@ -1594,13 +1648,30 @@ def _rank_main(rank: int, world: int, address: str, argv: List[str]) -> None:
     p = build_arg_parser()
     args = p.parse_args(argv)
     apply_config_layers(p, args, argv)
+    local = _local(rank, world, layout)
     init_distributed(rank, world, address,
-                     resolve_device(args.device, rank))
+                     resolve_device(args.device, local[0]), local=local)
     engine = EngineCore(engine_config_from_args(args))
     attach_tokenizer(engine, get_tokenizer(args.tokenizer))
     dist.barrier()                   # every rank has built
+    if ready is not None:
+        ready.set()
     engine.follow(record=False)
+    dist.barrier()                   # every rank has read the stop
+    _log_kernel_launches(rank, engine)
     dist.destroy_process_group()
+
+
+def _log_kernel_launches(rank: int, engine: EngineCore) -> None:
+    """A stopping rank's kernel launches (each wrapper's eager count plus
+    what its block graphs' replays launched), one log line."""
+    from llm_d_tpu_torch.engine.cuda_graph import kernel_counts
+    counts = kernel_counts()
+    if engine._graphs is not None:
+        for name, n in engine._graphs.launches.items():
+            counts[name] += n
+    logger.info("mesh rank %d stopped: kernel launches %s", rank,
+                json.dumps(counts))
 
 
 # After a rank dies, /health answers 500 this long before the server
@@ -1625,21 +1696,30 @@ def _watch_ranks(server: "ModelServer", procs, loop, stopping) -> None:
         stopping.wait(0.5)
 
 
-def _serve_mesh(args, argv: List[str]) -> int:
-    """Rank 0 of a mesh of ``dp * tp`` ranks: start the other ranks,
-    build, wait until every rank has built, serve; then stop every
-    rank."""
+def _serve_mesh(args, argv: List[str], layout=None) -> int:
+    """Rank 0 of a mesh of ``dp * tp`` ranks: start the other ranks of
+    this host (all of them, or with an LWS group's ``layout`` the leader
+    host's share, the rest joining from the worker hosts), build, wait
+    until every rank has built, serve; then stop every rank."""
     import torch.distributed as dist
     from llm_d_tpu_torch.parallel.launch import free_port, start_ranks
     from llm_d_tpu_torch.parallel.mesh import init_distributed
     from llm_d_tpu_torch.utils.device import resolve_device
     world = world_from_args(args)
-    address = f"127.0.0.1:{free_port()}"
-    procs = start_ranks(world, address, _rank_main, (argv,))
+    if layout is None:
+        address, ranks = f"127.0.0.1:{free_port()}", None
+    else:
+        address, ranks = layout.address, range(1, layout.local)
+        logger.info("LWS group: leader host, ranks 0..%d of %d; the %d "
+                    "other hosts join at %s", layout.local - 1, world,
+                    layout.hosts - 1, address)
+    procs = start_ranks(world, address, _rank_main, (argv, layout),
+                        ranks=ranks)
     stopping = threading.Event()
     try:
         backend = init_distributed(0, world, address,
-                                   resolve_device(args.device, 0))
+                                   resolve_device(args.device, 0),
+                                   local=_local(0, world, layout))
         logger.info("mesh: %s, %d ranks on %s", mesh_from_args(args),
                     world, backend)
         server = build_server(engine_config_from_args(args), args.tokenizer)
@@ -1672,12 +1752,94 @@ def _serve_mesh(args, argv: List[str]) -> int:
         if server.rank_failure is not None:
             return 1
         server.engine.stop_mesh()
+        dist.barrier()               # every rank has read the stop
+        _log_kernel_launches(0, server.engine)
         for p in procs:
             p.join(timeout=60)
         dist.destroy_process_group()
         return 0 if all(p.exitcode == 0 for p in procs) else 1
     finally:
         stopping.set()
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+
+
+def _serve_worker_host(args, argv: List[str], layout) -> int:
+    """A worker host of an LWS group's mesh: start this host's ranks as
+    followers of rank 0 (on the leader host) and answer the pod's probes,
+    ``/health`` and ``/v1/models`` on ``--port``, and nothing else: rank 0
+    serves the completions.  Returns 0 once rank 0 has stopped the mesh
+    and every rank here exited 0; non-zero at once when a rank here fails
+    (the leader died, or a rank crashed), so the group is recreated
+    instead of hanging."""
+    import multiprocessing
+    from llm_d_tpu_torch.parallel.launch import start_ranks
+    world = world_from_args(args)
+    model_name = engine_config_from_args(args).resolve_model().name
+    ready = multiprocessing.get_context("spawn").Event()
+    first, last = layout.first, layout.first + layout.local - 1
+    logger.info("LWS group: worker host, ranks %d..%d of %d, joining the "
+                "leader at %s", first, last, world, layout.address)
+    procs = start_ranks(world, layout.address, _rank_main,
+                        (argv, layout, ready),
+                        ranks=range(first, last + 1))
+    failure: List[str] = []
+    started = time.time()
+
+    async def health(request: HTTPRequest) -> Response:
+        if failure:
+            return text_response(failure[0], status=500)
+        return text_response("ok")
+
+    async def models(request: HTTPRequest) -> Response:
+        if not ready.is_set():
+            return json_response({"error": "model loading"}, status=503)
+        return json_response({
+            "object": "list",
+            "data": [{"id": model_name, "object": "model",
+                      "created": int(started), "owned_by": "llm-d-tpu"}]})
+
+    def watch(app: HTTPServer, loop) -> None:
+        while True:
+            for p in procs:
+                if not p.is_alive() and p.exitcode != 0:
+                    failure.append(f"rank {p.name} exited with code "
+                                   f"{p.exitcode}")
+                    logger.error("LWS worker host: %s; stopping",
+                                 failure[0])
+                    loop.call_soon_threadsafe(app.stop)
+                    return
+            if not any(p.is_alive() for p in procs):
+                logger.info("LWS worker host: rank 0 stopped the mesh")
+                loop.call_soon_threadsafe(app.stop)
+                return
+            time.sleep(0.2)
+
+    async def serve() -> None:
+        app = HTTPServer({("GET", "/health"): health,
+                          ("GET", "/v1/models"): models})
+        bound = await app.start(args.host, args.port)
+        logger.info("LWS worker host: probes on %s:%d", args.host, bound)
+        loop = asyncio.get_running_loop()
+        # SIGTERM: the ranks are rank 0's to stop (the leader's drain).
+        loop.add_signal_handler(signal.SIGTERM, lambda: logger.info(
+            "LWS worker host: SIGTERM; the ranks follow rank 0"))
+        threading.Thread(target=watch, args=(app, loop), name="rank-watch",
+                         daemon=True).start()
+        try:
+            await app.wait_stopped()
+        finally:
+            await app.close()
+
+    try:
+        asyncio.run(serve())
+        for p in procs:
+            p.join(timeout=30)
+        return 0 if not failure and all(p.exitcode == 0 for p in procs) \
+            else 1
+    finally:
         for p in procs:
             if p.is_alive():
                 p.kill()
@@ -1737,9 +1899,12 @@ def main(argv: Optional[List[str]] = None) -> None:
     check_served(p, args)
     check_mesh_flags(p, args)
     logging.basicConfig(level=logging.INFO)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    layout = lws_layout_from_args(args)
+    if layout is not None and not layout.leader:
+        sys.exit(_serve_worker_host(args, argv, layout))
     if world_from_args(args) > 1:
-        sys.exit(_serve_mesh(args, list(sys.argv[1:] if argv is None
-                                        else argv)))
+        sys.exit(_serve_mesh(args, argv, layout))
     server = server_from_args(args)
     asyncio.run(server.serve(args.host, args.port))
 

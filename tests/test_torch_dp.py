@@ -13,12 +13,13 @@ flags in both modes.
   text prompts, a streamed one) equal to the one-engine server's, in spmd
   mode (two rank processes, a ``MeshConfig(dp=2)`` mesh) and in ranks
   mode; the spmd server exits 0 on SIGTERM with no rank left.
-* What stays refused is refused by name before anything starts: a
-  ``--data-parallel-size-local`` below the size in spmd mode (one mesh
-  across hosts; the message names the multi-host flags, which serve
-  ranks mode: ``tests/test_torch_dp_multihost.py``), ranks mode with
+* What stays refused is refused by name before anything starts: ranks
+  mode's multi-host flags in spmd mode (they serve ranks mode:
+  ``tests/test_torch_dp_multihost.py``), ranks mode with
   ``--tensor-parallel-size`` > 1 and the shared KV tier on the mesh; a
-  group asked for more devices than it was given.
+  group asked for more devices than it was given.  A
+  ``--data-parallel-size-local`` below the size in spmd mode is served
+  (one host holds the mesh outside an LWS group).
 """
 
 import signal
@@ -201,8 +202,10 @@ def test_a_group_refuses_what_it_does_not_serve():
                       devices=[torch.device("cpu")])
 
 
-# The multi-host flags are served in ranks mode; in spmd mode across
-# hosts the refusal names each of them as ranks mode's.
+# The multi-host flags are served in ranks mode; in spmd mode the refusal
+# names each of them as ranks mode's.  A --data-parallel-size-local below
+# the size in spmd mode is served as the JAX server serves it (one host
+# holds the whole mesh outside an LWS group: tests/test_torch_lws.py).
 SPMD_ACROSS_HOSTS = ["--data-parallel-size-local", "1"]
 
 
@@ -217,16 +220,24 @@ SPMD_ACROSS_HOSTS = ["--data-parallel-size-local", "1"]
      "--data-parallel-hybrid-lb"),
     (SPMD_ACROSS_HOSTS + ["--data-parallel-workers", "w1:8200"],
      "--data-parallel-workers"),
-    (["--data-parallel-size-local", "1"], "--data-parallel-size-local"),
+    # Served since: the case keeps its id.
+    pytest.param(["--data-parallel-size-local", "1"], None,
+                 id="flags5---data-parallel-size-local"),
     (["--data-parallel-mode", "ranks", "--tensor-parallel-size", "2"],
      "--data-parallel-mode ranks"),
     (["--tensor-parallel-size", "2", "--kv-offload-blocks", "8",
       "--kv-shared-tier-port", "0"], "--kv-shared-tier-port")])
 def test_what_dp_does_not_serve_is_refused_by_name(flags, named, capsys):
+    """``named`` None: a layout served since, accepted without a word."""
     from llm_d_tpu_torch.server import openai as TServer
     p = TServer.build_arg_parser()
     args = p.parse_args(["--data-parallel-size", "2", "--device", "cpu"]
                         + flags)
+    if named is None:
+        TServer.check_served(p, args)
+        TServer.check_mesh_flags(p, args)
+        assert capsys.readouterr().err == ""
+        return
     with pytest.raises(SystemExit) as e:
         TServer.check_served(p, args)
         TServer.check_mesh_flags(p, args)

@@ -449,7 +449,7 @@ def test_server_from_args_attaches_the_pool_only_on_the_leader(
 
 @pytest.mark.parametrize("flags,named", [
     (["--data-parallel-size", "2", "--data-parallel-size-local", "1"],
-     "--data-parallel-mode spmd"),
+     None),
     (["--data-parallel-size", "2", "--data-parallel-mode", "ranks",
       "--tensor-parallel-size", "2"], "--data-parallel-mode ranks"),
     (["--data-parallel-size", "4", "--data-parallel-size-local", "2",
@@ -459,17 +459,25 @@ def test_server_from_args_attaches_the_pool_only_on_the_leader(
       "--data-parallel-mode", "ranks"], "must divide")],
     ids=["spmd_across_hosts", "ranks_tp", "ranks_tp_across_hosts",
          "local_not_dividing"])
-def test_what_stays_refused_is_refused_by_name(flags, named, capsys):
+def test_what_stays_refused_is_refused_by_name(flags, named, capsys,
+                                              monkeypatch):
+    """``spmd_across_hosts`` is served since (``named`` None): outside an
+    LWS group one host holds the whole mesh, as in the JAX server
+    (``tests/test_torch_lws.py`` joins a group's hosts)."""
+    for k in ("LWS_GROUP_SIZE", "LWS_LEADER_ADDRESS"):
+        monkeypatch.delenv(k, raising=False)
     p = TServer.build_arg_parser()
     args = p.parse_args(["--device", "cpu"] + flags)
     TServer.check_served(p, args)
+    if named is None:
+        TServer.check_mesh_flags(p, args)
+        assert capsys.readouterr().err == ""
+        assert TServer.lws_layout_from_args(args) is None
+        return
     with pytest.raises(SystemExit) as e:
         TServer.check_mesh_flags(p, args)
     assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert named in err
-    if "spmd" in named:
-        assert all(f in err for f in TServer.MULTI_HOST_FLAGS)
+    assert named in capsys.readouterr().err
 
 
 # ---------- the entry points ----------

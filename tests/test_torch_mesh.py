@@ -3,7 +3,7 @@
 
 * ``select_devices`` arranges devices as JAX's ``make_mesh`` does, with
   the same errors; ``lws_distributed_args`` reads the same LWS env dicts
-  as JAX's; dp and sp meshes are refused by name.
+  as JAX's; dp and sp together are refused in the JAX engine's words.
 * On 4 gloo ranks (spawned once for the file, each call with a
   deadline): every rank's ``(dp, sp, tp)`` coordinate, its axis indices,
   and the all-reduce, all-gather and all-to-all results.
@@ -107,13 +107,17 @@ def test_lws_args_from_the_jax_env_dicts():
 
 
 def test_dp_and_sp_refused_by_name():
-    """sp > 1 (ring attention) is refused by name, beside dp too; dp > 1
-    (DP attention) is served."""
+    """The JAX engine's rule: dp > 1 (DP attention) and sp > 1 (ring
+    attention) are each served, and refused together in its words; a
+    ``Mesh`` with both axes is built (ring attention runs on it)."""
     check_served(MeshConfig(dp=2, tp=2))
-    with pytest.raises(ValueError, match="sp > 1"):
+    check_served(MeshConfig(sp=2))
+    check_served(MeshConfig(sp=2, tp=2))
+    with pytest.raises(ValueError, match="SPMD dp and sp are mutually "
+                       "exclusive in-engine"):
         check_served(MeshConfig(dp=2, sp=2))
-    with pytest.raises(ValueError, match="sp > 1"):
-        check_served(MeshConfig(sp=2))
+    m = Mesh(MeshConfig(dp=2, sp=2), 3, 4, "cpu")
+    assert m.coord == {"dp": 1, "sp": 1, "tp": 0}
 
 
 def rank_collectives():

@@ -716,9 +716,8 @@ def test_out_of_vocabulary_resume_ids_are_refused(tiny, journal, stream):
     assert r.json()["usage"]["completion_tokens"] == 2
 
 
-# One mesh across hosts (spmd with --data-parallel-size-local below the
-# size): refused, its message naming the multi-host flags as ranks
-# mode's, where they are served.
+# The multi-host flags in spmd mode: refused, the message naming each as
+# ranks mode's, where they are served.
 SPMD_ACROSS_HOSTS = ["--data-parallel-size", "2",
                      "--data-parallel-size-local", "1"]
 

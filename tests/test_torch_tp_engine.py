@@ -127,8 +127,8 @@ def test_refused_by_name_on_a_mesh(pool):
             assert name.split()[0] in msg, (name, msg)
 
 
-# One spmd mesh across hosts: its refusal names each multi-host flag as
-# ranks mode's (where they are served since the leader's dispatch).
+# The multi-host flags in spmd mode: each refused by name as ranks mode's
+# (where they are served since the leader's dispatch).
 ACROSS_HOSTS = ["--data-parallel-size", "2", "--data-parallel-size-local",
                 "1"]
 
@@ -142,8 +142,10 @@ ACROSS_HOSTS = ["--data-parallel-size", "2", "--data-parallel-size-local",
      "--kv-shared-tier-peers"),
     (ACROSS_HOSTS + ["--data-parallel-rpc-port", "5555"],
      "--data-parallel-rpc-port"),
-    (["--data-parallel-size-local", "1", "--data-parallel-size", "2"],
-     "--data-parallel-size-local 1"),
+    # Served since: the case keeps its id.
+    pytest.param(["--data-parallel-size-local", "1",
+                  "--data-parallel-size", "2"], None,
+                 id="flags4---data-parallel-size-local 1"),
     (ACROSS_HOSTS + ["--data-parallel-workers", "w1:8200"],
      "--data-parallel-workers"),
     (ACROSS_HOSTS + ["--data-parallel-hybrid-lb"],
@@ -158,6 +160,13 @@ def test_the_server_refuses_by_name_before_any_rank_starts(flags, named,
     from llm_d_tpu_torch.server import openai as TServer
     p = TServer.build_arg_parser()
     args = p.parse_args(["--tensor-parallel-size", "2"] + flags)
+    if named is None:
+        # A --data-parallel-size-local below the size is served since: one
+        # host holds the mesh outside an LWS group (tests/test_torch_lws.py).
+        TServer.check_served(p, args)
+        TServer.check_mesh_flags(p, args)
+        assert capsys.readouterr().err == ""
+        return
     with pytest.raises(SystemExit) as e:
         TServer.check_served(p, args)
         TServer.check_mesh_flags(p, args)
@@ -192,7 +201,11 @@ def test_gloo_on_cuda_refuses_captured_blocks_and_dbo_is_refused():
     assert not EngineCore.captures_bodies(torch.device("cuda"), FakeMesh())
     with pytest.raises(ValueError, match="enable_dbo"):
         EngineCore(EngineConfig(enable_dbo=True, device="cpu"))
-    with pytest.raises(ValueError, match="sp > 1"):
+    # dp and sp together are refused in the JAX engine's words; sp alone
+    # is served (tests/test_torch_sp.py), so it gets as far as the ranks.
+    with pytest.raises(ValueError, match="dp and sp are mutually exclusive"):
+        EngineCore(EngineConfig(mesh=MeshConfig(dp=2, sp=2), device="cpu"))
+    with pytest.raises(RuntimeError, match="process group"):
         EngineCore(EngineConfig(mesh=MeshConfig(sp=2, tp=2), device="cpu"))
     with pytest.raises(RuntimeError, match="process group"):
         EngineCore(EngineConfig(mesh=MeshConfig(tp=2), device="cpu"))
