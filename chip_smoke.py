@@ -439,6 +439,26 @@ Phases (each raises on failure; the script then exits non-zero):
             on the rows a bf16-latent 2-layer engine wrote serving wave 1
             (8 new): the card's report equal to the CPU's at 1e-3,
             ``within_bounds`` reported.
+15. path (xiv) the tiered-prefix-cache recipe
+            (``deploy/tiered-prefix-cache``) on two port meshes, once
+            phase 14 is done: two pods (``chip_smoke.py --tier-pod``, the
+            entry point's ``main`` with the recipe's flags: qwen3-32b at
+            its published widths cut to 8 of 64 layers, tp 8 cut to 4,
+            ``--kv-offload-blocks`` 41000 cut to 256, each pod's
+            ``--kv-shared-tier-peers dns:localhost:<the other's port>``,
+            ``--kv-events-endpoint`` where zmq imports, both under
+            ``LLMD_STEP_TIME_TARGET_MS``; logs build/tier_a.log and
+            build/tier_b.log), started once 14(a)'s hosts have exited and
+            built while 14(d) runs: eight ranks share the card over gloo.  (a) A 1040-token
+            prompt (32 full blocks) to A, then to B: B's shared-tier hits
+            count the 32 blocks, B's tokens equal A's (or differ first at
+            a near tie, top-2 logprob gaps reported), both TTFTs; (b) A
+            SIGKILLed, a 512-token prompt (16 new) to B: recomputed, A's
+            address backed off after one failure; (c) a 4096-token prompt
+            to B once its step-time model has trained; SIGTERM: B exits 0
+            with no rank left, its four ranks' prefill chunk sequences
+            equal; (d) B's rank 0 holds its recorded G and H inputs to
+            their plain versions as it stops (build/tier_b.json).
 
 Launch counts: every count is set to 0 just before a path is driven and
 read just after it; kernels A-F count path (i), G and H path (ii), and
@@ -469,7 +489,9 @@ not count, the worker processes' launches are not seen; its inputs'
 checks as ``multihost_inputs``); A, B and E add path (xiii)(b)'s wave on
 every rank and (a)'s four ranks' counts, each rank's logged as it stops
 (``xiii_launches``; the 2-layer check, ring attention and (d) do not
-count; (b)'s checks as ``xiii_inputs``).  A
+count; (b)'s checks as ``xiii_inputs``); G and H add path (xiv)'s pod B's
+four ranks' counts, each rank's logged as it stops (``xiv_launches``; pod
+A is killed in (b) and logs none; rank 0's checks as ``xiv_inputs``).  A
 count is the wrapper's own (eager launches, graph warm-ups included)
 plus the launches inside graph replays: a capture records each graph's
 launches, and every replay adds them (``engine/cuda_graph.py``); the
@@ -491,6 +513,7 @@ likewise), a ``{"dp": ...}`` line (path (ix), likewise), a
 ``{"wide_ep": ...}`` line (path (x), likewise), a ``{"spec_mesh": ...}``
 line (path (xi), likewise), a ``{"multihost": ...}`` line (path (xii),
 likewise), a ``{"lws_sp": ...}`` line (path (xiii), likewise), a
+``{"tiered": ...}`` line (path (xiv), likewise), a
 ``{"kernels": [...]}`` line (one row per
 kernel at its first launch: measured launches, errors and times, with
 ``bound_ms``), the card's name and power limit, and last ``{"ok": true,
@@ -6995,12 +7018,13 @@ def absorption_check(p1) -> dict:
                 seconds=time.perf_counter() - t0)
 
 
-def lws_sp_path(root: str, smi: str, dp_alone) -> tuple:
+def lws_sp_path(root: str, smi: str, dp_alone, hosts_gone=None) -> tuple:
     """Phase 14, path (xiii), after phase 13: (a)'s entry points start
     (``lws_start``) and build while (b) and (c) run ``sp_pool_phase`` on a
     fresh pool of four ranks (eight ranks share the card meanwhile); then
     (a) ``lws_group`` against phase 10's one-at-a-time tokens
-    ``dp_alone``, once the pool is gone; (d) ``absorption_check``.
+    ``dp_alone``, once the pool is gone; ``hosts_gone()``, where given,
+    once (a)'s hosts have exited; (d) ``absorption_check``.
     Returns (result, launches by kernel: (b)'s waves on every rank plus
     (a)'s ranks' logged counts, (b)'s per-kernel checks against the plain
     versions)."""
@@ -7027,6 +7051,8 @@ def lws_sp_path(root: str, smi: str, dp_alone) -> tuple:
     log(f"path (xiii)(b), (c): {json.dumps(out['sp'])}")
     out["lws"] = lws_group(root, started, p1[:MESH_SERVER_PROMPTS], dp_alone)
     log(f"path (xiii)(a): {json.dumps(out['lws'])}")
+    if hosts_gone is not None:
+        hosts_gone()
     out["absorption"] = absorption_check(p1)
     log(f"path (xiii)(d): {json.dumps(out['absorption'])}")
     launches = dict(sp["launches"])
@@ -7037,8 +7063,320 @@ def lws_sp_path(root: str, smi: str, dp_alone) -> tuple:
 
 
 
+# Phase 15, path (xiv): the tiered-prefix-cache recipe
+# (deploy/tiered-prefix-cache/modelserver.yaml) on two port meshes: two
+# entry points with the recipe's flags, each the other's shared-tier peer
+# by a dns: spec, qwen3-32b at its published widths on tp = 4 (eight ranks
+# share the card over gloo), both under LLMD_STEP_TIME_TARGET_MS.  Each
+# pod is ``chip_smoke.py --tier-pod``: the entry point's own ``main`` with
+# the preset cut to XIV_LAYERS (random weights from the seed; the spawned
+# ranks import this file as their main module and cut it too), rank 0
+# recording G's and H's inputs and, once the server has stopped, holding
+# them to their plain versions.
+XIV_MODEL = "qwen3-32b"
+XIV_LAYERS = 8                      # of 64: the time limit
+XIV_TP = 4                          # the recipe's tp = 8: one card
+XIV_HOST_BLOCKS = 256               # the recipe's 41000 (1 MiB a block)
+XIV_DEVICE_BLOCKS = 512             # the entry point's 2048 (memory)
+XIV_BLOCK = 32                      # the entry point's block size
+XIV_BATCH = 2048                    # its max_num_batched_tokens
+XIV_PROMPT = 32 * XIV_BLOCK + 16   # (a): 32 full blocks and 16 tokens
+XIV_NEW = 4
+XIV_TRAIN = dict(prompt=512, new=16)   # (b): B's step-time model trains
+XIV_LONG = 4096                     # (c)
+XIV_TARGET_MS = 1500                # LLMD_STEP_TIME_TARGET_MS of both pods
+XIV_NEAR_TIE = 0.1                  # top-2 logprob gap (nats) of a near tie
+XIV_KERNELS = ("paged_decode", "flash_prefill")
+XIV_LOGS = {"a": "tier_a.log", "b": "tier_b.log"}
+DEPTH_ENV = "LLMD_SMOKE_DEPTH"
+
+
+def xiv_start(root: str) -> dict:
+    """Phase 15's start: pods A and B (logs build/tier_a.log and
+    build/tier_b.log, results build/tier_*.json), each in a process group
+    of its own, left to build."""
+    ports = {n: free_port() for n in XIV_LOGS}
+    tier = {n: free_port() for n in XIV_LOGS}
+    events = importable("zmq", "msgpack")
+    procs, results = {}, {}
+    for n, other in (("a", "b"), ("b", "a")):
+        flags = ["--model", XIV_MODEL,
+                 "--tensor-parallel-size", str(XIV_TP),
+                 "--kv-offload-blocks", str(XIV_HOST_BLOCKS),
+                 "--kv-shared-tier-port", str(tier[n]),
+                 "--kv-shared-tier-peers", f"dns:localhost:{tier[other]}",
+                 "--pod-identity", f"127.0.0.1:{ports[n]}",
+                 "--host", "127.0.0.1", "--port", str(ports[n]),
+                 "--num-blocks", str(XIV_DEVICE_BLOCKS)]
+        if events:
+            flags += ["--kv-events-endpoint",
+                      f"tcp://127.0.0.1:{free_port()}"]
+        results[n] = os.path.join(root, "build", f"tier_{n}.json")
+        if os.path.exists(results[n]):
+            os.remove(results[n])
+        log_path = os.path.join(root, "build", XIV_LOGS[n])
+        os.makedirs(os.path.dirname(log_path), exist_ok=True)
+        with open(log_path, "wb") as log_f:
+            procs[n] = subprocess.Popen(
+                [sys.executable, os.path.join(root, "chip_smoke.py"),
+                 "--tier-pod", results[n], *flags],
+                cwd=root, stdout=log_f, stderr=subprocess.STDOUT,
+                start_new_session=True,
+                env=dict(os.environ, LLMD_DRAIN_TIMEOUT_S=str(DRAIN_S),
+                         LLMD_STEP_TIME_TARGET_MS=str(XIV_TARGET_MS),
+                         **{DEPTH_ENV: f"{XIV_MODEL}={XIV_LAYERS}"}))
+    return dict(procs=procs, results=results, tier=tier, events=events,
+                t0=time.perf_counter(),
+                url={n: f"http://127.0.0.1:{p}" for n, p in ports.items()})
+
+
+def xiv_stop(started: dict) -> None:
+    import signal
+    for p in started["procs"].values():
+        if p.poll() is None:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            p.wait(timeout=60)
+
+
+def _cut_depth() -> None:
+    """With ``LLMD_SMOKE_DEPTH=<model>=<layers>`` set (phase 15's pods and
+    the ranks they spawn), the model's preset cut to that depth."""
+    spec = os.environ.get(DEPTH_ENV)
+    if not spec:
+        return
+    import dataclasses
+    from llm_d_tpu_torch.models import config as model_configs
+    name, layers = spec.split("=")
+    model_configs.PRESETS[name] = dataclasses.replace(
+        model_configs.PRESETS[name], num_layers=int(layers))
+
+
+_cut_depth()
+
+
+def xiv_pod_main(argv) -> int:
+    """One pod of phase 15 (``chip_smoke.py --tier-pod RESULT FLAGS``): the
+    entry point's ``main(FLAGS)`` with G's and H's first inputs of each
+    label recorded on rank 0; after the server stops, those inputs against
+    the plain versions (skipped on the CPU, where the wrappers ran their
+    plain versions), written to RESULT.  Exits with the server's code, or
+    1 when a check failed."""
+    import torch
+    from llm_d_tpu_torch.server import openai as srv
+    result_path, flags = argv[0], argv[1:]
+    MESH_STATE.clear()
+    MESH_STATE.update(recs={}, names=XIV_KERNELS)
+    mesh_record([], XIV_KERNELS, "xiv")
+    code = 0
+    try:
+        srv.main(flags)
+    except SystemExit as e:
+        code = e.code if isinstance(e.code, int) else 1
+    out = dict(server_exit=code, labels={
+        n: sorted(r.calls) for n, r in MESH_STATE["recs"].items()})
+    if code == 0 and torch.cuda.is_available():
+        out["rank0_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        try:
+            out["checks"] = mesh_kernel_checks()
+        except Exception as e:                  # reported to the smoke
+            out["error"] = repr(e)
+            code = 1
+    with open(result_path, "w") as f:
+        json.dump(out, f)
+    return code
+
+
+def xiv_tie(url: dict, prompt, new: int) -> dict:
+    """Both pods' top-2 logprob gaps at each of ``new`` greedy tokens of
+    ``prompt`` (a whole reply with ``logprobs`` = 2)."""
+    gaps = {}
+    for n, u in url.items():
+        status, _, reply = http_call(u, "/v1/completions", dict(
+            greedy_body(prompt, new, False), logprobs=2))
+        if status != 200:
+            raise RuntimeError(f"path (xiv): logprobs: HTTP {status}")
+        tops = reply["choices"][0]["logprobs"]["top_logprobs"]
+        gaps[n] = [None if len(t) < 2 else
+                   float(sorted(t.values())[-1] - sorted(t.values())[-2])
+                   for t in tops]
+    return gaps
+
+
+def xiv_log_lines(root: str, name: str, pattern: str) -> list:
+    import re
+    with open(os.path.join(root, "build", XIV_LOGS[name]),
+              errors="replace") as f:
+        return re.findall(pattern, f.read())
+
+
+def xiv_run(root: str, started: dict) -> dict:
+    """Phase 15's checks on the pods ``xiv_start`` started: (a) a prompt
+    of 32 full blocks to A, then to B: B's shared-tier hits count them,
+    B's tokens equal A's (or differ first at a near tie, both gaps
+    reported), both TTFTs; (b) A SIGKILLed, a new prompt to B: served by
+    recompute, A's address backed off after one failure (its log), B's
+    step-time model trained by the request's steps; (c) a 4096-token
+    prompt to B; SIGTERM: B exits 0, its four ranks logged the same
+    prefill chunk sequence and their kernel launches, and rank 0's G and H
+    inputs held to their plain versions (build/tier_b.json)."""
+    import signal
+    import numpy as np
+    from llm_d_tpu_torch.models.config import get_config
+    procs, url, tier = started["procs"], started["url"], started["tier"]
+    t0 = time.perf_counter()
+    out = dict(model=XIV_MODEL, layers=XIV_LAYERS, tp=XIV_TP,
+               host_blocks=XIV_HOST_BLOCKS,
+               device_blocks=XIV_DEVICE_BLOCKS,
+               step_time_target_ms=XIV_TARGET_MS,
+               kv_events=started["events"],
+               peers={n: f"dns:localhost:{tier[o]}"
+                      for n, o in (("a", "b"), ("b", "a"))})
+    out["ready_wait_s"] = [wait_ready(procs[n], url[n], limit_s=600)
+                           for n in XIV_LOGS]
+    out["started_before_s"] = t0 - started["t0"]
+    out["card_memory_used"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    ranks = {n: _child_pids(procs[n].pid) for n in XIV_LOGS}
+    out["rank_processes"] = {n: len(r) + 1 for n, r in ranks.items()}
+    if out["rank_processes"] != {"a": XIV_TP, "b": XIV_TP}:
+        raise RuntimeError(f"path (xiv): rank processes "
+                           f"{out['rank_processes']}, want {XIV_TP} a pod")
+    vocab = get_config(XIV_MODEL).vocab_size
+    rng = np.random.default_rng(15)
+    prompt = rng.integers(1, vocab, XIV_PROMPT).tolist()
+    # (a) A prefills; B pulls A's blocks.
+    full = (XIV_PROMPT - 1) // XIV_BLOCK
+    hits0 = mh_metric(scrape(url["b"]), "llmd_tpu:kv_shared_tier_hits_total")
+    got = {n: completion(url[n], greedy_body(prompt, XIV_NEW, True))
+           for n in ("a", "b")}
+    m_b = scrape(url["b"])
+    hits = mh_metric(m_b, "llmd_tpu:kv_shared_tier_hits_total") - hits0
+    a = dict(prompt=XIV_PROMPT, full_blocks=full, new=XIV_NEW,
+             b_shared_tier_hits=hits,
+             b_restored_blocks=mh_metric(
+                 m_b, "llmd_tpu:kv_offload_loaded_blocks_total"),
+             ttft_s={n: r["t_first"] - r["t_send"] for n, r in got.items()},
+             seconds={n: r["t_end"] - r["t_send"] for n, r in got.items()},
+             tokens=got["a"]["tokens"])
+    if hits < full:
+        raise RuntimeError(f"path (xiv)(a): B counted {hits} shared-tier "
+                           f"hits for a prompt of {full} full blocks")
+    if got["b"]["tokens"] != got["a"]["tokens"]:
+        i = next(k for k, (x, y) in enumerate(zip(got["a"]["tokens"],
+                                                  got["b"]["tokens"]))
+                 if x != y)
+        gaps = xiv_tie(url, prompt, i + 1)
+        a.update(first_difference=i, b_tokens=got["b"]["tokens"],
+                 gap={n: g[i] for n, g in gaps.items()})
+        if min(g for g in a["gap"].values() if g is not None) \
+                > XIV_NEAR_TIE:
+            raise RuntimeError(f"path (xiv)(a): B's tokens differ from A's "
+                               f"at {i} outside a near tie: {a}")
+    a["tokens_equal"] = got["b"]["tokens"] == got["a"]["tokens"]
+    out["a"] = a
+    log(f"path (xiv)(a): {json.dumps(a)}")
+    # (b) A dies; B recomputes a new prompt and backs A off.
+    refused = (rf"shared-tier peer 127\.0\.0\.1:{tier['a']} failed "
+               r"\(unreachable, backing off\)")
+    before = len(xiv_log_lines(root, "b", refused))
+    os.killpg(procs["a"].pid, signal.SIGKILL)
+    procs["a"].wait(timeout=60)
+    misses0 = mh_metric(scrape(url["b"]),
+                        "llmd_tpu:kv_shared_tier_misses_total")
+    p2 = rng.integers(1, vocab, XIV_TRAIN["prompt"]).tolist()
+    r2 = completion(url["b"], greedy_body(p2, XIV_TRAIN["new"], True))
+    m_b = scrape(url["b"])
+    b = dict(prompt=XIV_TRAIN["prompt"], new=XIV_TRAIN["new"],
+             tokens=r2["n"], seconds=r2["t_end"] - r2["t_send"],
+             ttft_s=r2["t_first"] - r2["t_send"],
+             b_misses=mh_metric(m_b, "llmd_tpu:kv_shared_tier_misses_total")
+             - misses0,
+             a_backoffs=len(xiv_log_lines(root, "b", refused)) - before,
+             ipv6_peer_backoffs=len(xiv_log_lines(
+                 root, "b", r"shared-tier peer \[::1\]:\d+ failed "
+                            r"\(unreachable, backing off\)")))
+    out["b"] = b
+    log(f"path (xiv)(b): {json.dumps(b)}")
+    if r2["n"] != XIV_TRAIN["new"] or r2["finish"] != "length" \
+            or b["a_backoffs"] != 1 or b["b_misses"] < 1:
+        raise RuntimeError(f"path (xiv)(b): {b}")
+    # (c) A long prompt once B's step-time model has trained.
+    p3 = rng.integers(1, vocab, XIV_LONG).tolist()
+    r3 = completion(url["b"], greedy_body(p3, 2, True))
+    c = dict(prompt=XIV_LONG, seconds=r3["t_end"] - r3["t_send"],
+             ttft_s=r3["t_first"] - r3["t_send"], tokens=r3["n"])
+    t_term = time.perf_counter()
+    procs["b"].send_signal(signal.SIGTERM)
+    out["b_exit_code"] = procs["b"].wait(timeout=DRAIN_S + 300)
+    out["b_exit_s"] = time.perf_counter() - t_term
+    time.sleep(1.0)
+    left = [p for r in ranks.values() for p in r if _pid_alive(p)]
+    if out["b_exit_code"] != 0 or left:
+        raise RuntimeError(f"path (xiv): B exited with "
+                           f"{out['b_exit_code']}, ranks left {left}")
+    chunks = {int(r): json.loads(v) for r, v in xiv_log_lines(
+        root, "b", r"mesh rank (\d+) prefill chunks (\[.*\])")}
+    # (c)'s steps: the last chunks, summing to its prompt.
+    steps, total = 0, 0
+    for n in reversed(chunks.get(0, [])):
+        if total >= XIV_LONG:
+            break
+        steps, total = steps + 1, total + n
+    c.update(chunks_by_rank=chunks, chunks=chunks.get(0), steps=steps,
+             capped=steps > -(-XIV_LONG // XIV_BATCH))
+    out["c"] = c
+    log(f"path (xiv)(c): {json.dumps(c)}")
+    if sorted(chunks) != list(range(XIV_TP)) or any(
+            v != chunks[0] for v in chunks.values()):
+        raise RuntimeError(f"path (xiv)(c): the ranks' prefill chunks "
+                           f"differ: {chunks}")
+    by_rank = {int(r): json.loads(v) for r, v in xiv_log_lines(
+        root, "b", r"mesh rank (\d+) stopped: kernel launches (\{.*\})")}
+    launches = {n: [by_rank.get(r, {}).get(MESH_WRAPPERS[n][1], 0)
+                    for r in range(XIV_TP)] for n in XIV_KERNELS}
+    if min(min(v) for v in launches.values()) == 0:
+        raise RuntimeError(f"path (xiv)(d): kernel launches by rank "
+                           f"{launches}")
+    with open(started["results"]["b"]) as f:
+        pod = json.load(f)
+    if pod.get("error") or not pod.get("checks"):
+        raise RuntimeError(f"path (xiv)(d): rank 0's checks: {pod}")
+    out["d"] = dict(launches_by_rank=launches, labels=pod["labels"],
+                    rank0_peak_gib=pod.get("rank0_peak_gib"))
+    out["seconds"] = time.perf_counter() - t0
+    return dict(out=out, launches={n: sum(v) for n, v in launches.items()},
+                checks=pod["checks"])
+
+
+def xiv_path(root: str, started: dict) -> tuple:
+    """Phase 15, path (xiv), after phase 14: ``xiv_run`` on the pods
+    ``xiv_start`` started before it; the pods' logs go to stderr if it
+    fails.  Returns (result, launches by kernel summed over B's ranks,
+    rank 0's per-kernel checks)."""
+    try:
+        res = xiv_run(root, started)
+    except BaseException:
+        for n, name in XIV_LOGS.items():
+            path = os.path.join(root, "build", name)
+            if os.path.exists(path):
+                with open(path, "rb") as f:
+                    sys.stderr.write(f"--- {name}\n" + f.read()[-6000:]
+                                     .decode(errors="replace"))
+        raise
+    finally:
+        xiv_stop(started)
+    return res["out"], res["launches"], res["checks"]
+
+
 def main() -> int:
     import torch
+    if "--tier-pod" in sys.argv[1:]:
+        # One of phase 15's pods (on the CPU too, for a rehearsal).
+        return xiv_pod_main(sys.argv[sys.argv.index("--tier-pod") + 1:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -7883,8 +8221,18 @@ def main() -> int:
                                    for c in mh_checks if c["name"] == n]
     log(f"path (xii): {multihost['seconds']:.1f} s")
     # 14. path (xiii): an LWS group's mesh, the sp engine, ring attention
-    # and the absorption report, with phase 13's hosts gone.
-    lws_sp, xiii_counts, xiii_checks = lws_sp_path(root, smi, dp["alone"])
+    # and the absorption report, with phase 13's hosts gone; phase 15's
+    # pods start once 14(a)'s hosts have exited (the card's memory would
+    # not hold both builds) and build while 14(d) runs.
+    tier = {}
+    try:
+        lws_sp, xiii_counts, xiii_checks = lws_sp_path(
+            root, smi, dp["alone"],
+            hosts_gone=lambda: tier.update(xiv_start(root)))
+    except BaseException:
+        if tier:
+            xiv_stop(tier)
+        raise
     for row in rows:
         n = row["name"]
         row["xiii_launches"] = xiii_counts.get(n, 0)
@@ -7892,6 +8240,16 @@ def main() -> int:
         row["xiii_inputs"] = [{k: v for k, v in c.items() if k != "name"}
                               for c in xiii_checks if c["name"] == n]
     log(f"path (xiii): {lws_sp['seconds']:.1f} s")
+    # 15. path (xiv): the tiered-prefix-cache recipe on two tp = 4 pods.
+    tiered, xiv_counts, xiv_checks = xiv_path(root, tier)
+    tiered["card"] = smi
+    for row in rows:
+        n = row["name"]
+        row["xiv_launches"] = xiv_counts.get(n, 0)
+        row["launches"] += row["xiv_launches"]
+        row["xiv_inputs"] = [{k: v for k, v in c.items() if k != "name"}
+                             for c in xiv_checks if c["name"] == n]
+    log(f"path (xiv): {tiered['seconds']:.1f} s")
     if prof is not None:
         # The first decode block of a fresh process, part by part.
         prof["cold_first_block"] = []
@@ -7926,6 +8284,7 @@ def main() -> int:
     print(json.dumps({"spec_mesh": xi["out"]}))
     print(json.dumps({"multihost": multihost}))
     print(json.dumps({"lws_sp": lws_sp}))
+    print(json.dumps({"tiered": tiered}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -90,11 +90,12 @@ each computed token's EP exchange bytes (the JAX byte model).  An ``sp``
 axis (``MeshConfig(sp, tp)``) is served as the JAX engine serves it:
 attention and the KV pool are replicated over sp and split over tp, the
 routed experts span all ``sp * tp`` ranks; dp and sp together are refused
-in the JAX engine's words (``parallel.mesh.check_served``).  Refused by
-name on a mesh: the shared KV tier and a step-time target.  Where the
-collectives go through the host (gloo on CUDA: ranks that share a card)
-no CUDA graph can hold them, so decode blocks and fused rounds run their
-bodies eagerly there (``captures_bodies``).
+in the JAX engine's words (``parallel.mesh.check_served``).  Under
+``LLMD_STEP_TIME_TARGET_MS`` rank 0's step-time model sizes the prefill
+chunks and its cap rides the step channel (``_prefill_chunk_cap``).
+Where the collectives go through the host (gloo on CUDA: ranks that share
+a card) no CUDA graph can hold them, so decode blocks and fused rounds run
+their bodies eagerly there (``captures_bodies``).
 
 Data parallelism on the mesh (``MeshConfig(dp, tp)``, the JAX engine's
 stacked mode, the attention half of wide EP): the pool is split into
@@ -142,17 +143,18 @@ its own rows (the drafter's embedding and head over tp), gathered over
 dp.  Every rank plans alike from the same schedule; rank 0's plan, each
 bail-out and each extension ride the step channel, and a rank whose own
 differs raises (``_agree``): a rank that dispatched alone would deadlock
-the EP exchange.  The host tier keeps its bytes on rank 0
-(``engine/offload.py``).
+the EP exchange.  The host and shared tiers keep their bytes on rank 0,
+which alone serves and dials peers (``engine/offload.py``).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
 import os
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -191,6 +193,8 @@ SPEC_DECODE_MODES = ("auto", "off")
 # (iii)'s bench_spec and bench_mixed traffic, the server's mixed requests
 # included, captures fewer.
 CUDA_GRAPH_MAX_KEYS = 64
+# Steps of prefill chunk sizes an engine keeps (``prefill_chunks``).
+PREFILL_CHUNK_LOG = 1024
 
 
 def _next_bucket(n: int, lo: int, hi: int) -> int:
@@ -449,9 +453,12 @@ class EngineCore:
         self._step_time_target_ms = env_float("LLMD_STEP_TIME_TARGET_MS", 0.0)
         self.step_time_model = StepTimeModel()
         self.scheduler.prefill_chunk_cap = self._prefill_chunk_cap
+        # The prefill tokens of the last PREFILL_CHUNK_LOG steps that
+        # prefilled (on a mesh every rank's are rank 0's).
+        self.prefill_chunks: Deque[int] = collections.deque(
+            maxlen=PREFILL_CHUNK_LOG)
 
         if self.mesh is not None:
-            self._check_mesh()
             # Heads that do not divide over tp are refused here, by name.
             local_config(c, self.mesh)
         if params is None:
@@ -512,6 +519,10 @@ class EngineCore:
                                  self.kv_scale_width), s_spec, mesh_shape),
                     dtype=torch.float32, device=self.device)
         self._collective_setup()
+        if self.mesh is not None and self.device.type == "cuda":
+            # Ranks may share a card: the build's temporaries (every rank
+            # draws each full plane of its shards) go back to it.
+            torch.cuda.empty_cache()
 
         self.max_blocks_per_seq = -(-c.max_model_len // config.block_size)
         # The sampling key, split once per step as the JAX engine splits
@@ -668,20 +679,6 @@ class EngineCore:
             raise ValueError(
                 f"mesh {config.mesh} needs {config.mesh.num_devices} "
                 f"devices, got {cards}")
-
-    def _check_mesh(self) -> None:
-        """Refuse, by name, what this slice does not serve on a mesh."""
-        cfg, mesh = self.config, self.mesh
-        refused = []
-        if cfg.kv_shared_tier_port is not None or cfg.kv_shared_tier_peers:
-            refused.append("the shared KV tier (--kv-shared-tier-port, "
-                           "--kv-shared-tier-peers)")
-        if self._step_time_target_ms > 0:
-            refused.append("LLMD_STEP_TIME_TARGET_MS (each rank would size "
-                           "its prefill chunks from its own step times)")
-        if refused:
-            raise ValueError(f"not served on mesh {mesh.config}: "
-                             + "; ".join(refused))
 
     def _agree(self, what: str, value):
         """Rank 0's decision ``value`` (a plan's shape and covers, an
@@ -1066,19 +1063,34 @@ class EngineCore:
         scheduler's callback, after ``decode_tokens`` of decode and spec
         lookahead are funded): LLMD_PREFILL_CHUNK when fixed, else the
         step-latency model's chunk under LLMD_STEP_TIME_TARGET_MS, else
-        None (budget-bound only)."""
+        None (budget-bound only).  On a mesh rank 0's model sizes it and
+        the cap rides the step channel: the other ranks take it and never
+        consult their own step times, which differ from rank 0's."""
         if self._prefill_chunk_fixed is not None:
             return self._prefill_chunk_fixed
-        if self._step_time_target_ms <= 0.0 \
-                or not self.step_time_model.trained:
+        if self._step_time_target_ms <= 0.0:
             return None
-        # Under the fused multistep pipeline the funded chunk runs once a
-        # round, N rounds between host looks: size it per round.
-        rounds = max(1, self.config.num_scheduler_steps) if self.spec_k else 1
-        return self.step_time_model.chunk_for(
-            decode_tokens, self._step_time_target_ms,
-            lo=self.config.min_token_bucket,
-            hi=self.config.max_num_batched_tokens, rounds=rounds)
+        if self._channel is not None and not self._channel.leader:
+            got = self._channel.recv()
+            if got[:2] != ("chunk_cap", decode_tokens):
+                raise RuntimeError(
+                    f"rank {self.mesh.rank} disagrees with rank 0 on the "
+                    f"chunk cap's decode load: rank 0 {got!r}, here "
+                    f"{decode_tokens}")
+            return got[2]
+        cap = None
+        if self.step_time_model.trained:
+            # Under the fused multistep pipeline the funded chunk runs once
+            # a round, N rounds between host looks: size it per round.
+            rounds = (max(1, self.config.num_scheduler_steps)
+                      if self.spec_k else 1)
+            cap = self.step_time_model.chunk_for(
+                decode_tokens, self._step_time_target_ms,
+                lo=self.config.min_token_bucket,
+                hi=self.config.max_num_batched_tokens, rounds=rounds)
+        if self._channel is not None:
+            self._channel.send(("chunk_cap", decode_tokens, cap))
+        return cap
 
     # ---------- batch building ----------
 
@@ -2335,6 +2347,8 @@ class EngineCore:
             return outputs
         sched = self.scheduler.schedule()
         sched_now = time.monotonic()
+        if sched.prefill_tokens:
+            self.prefill_chunks.append(sched.prefill_tokens)
         for sr in sched.scheduled:
             if sr.is_first_schedule and not sr.request.queue_wait_observed:
                 sr.request.queue_wait_observed = True

@@ -28,18 +28,26 @@ a flush gathers each block's rows from the ranks of its region (the
 gather P/D uses, ``transfer.connector.gather_blocks``) at the step's end,
 which every rank takes part in, and the other ranks keep only the key
 set, in the same LRU order.  A restore is rank 0's verdict, sent on the
-engine's step channel; its slab goes to the ranks of the requesting
+engine's step channel: the slab's size and where it came from (this
+tier, a peer, or a miss); its slab goes to the ranks of the requesting
 request's region, which write their tp shard of it.  A rank whose key
-set lacks a block rank 0 restores raises.  The shared tier is refused on
-a mesh.
+set lacks a block rank 0 restores from this tier raises; on a peer hit
+every rank adds the key, in rank 0's LRU order.
 
 Cross-pod sharing (the LMCache/InfiniStore role): with ``serve_port`` set,
 the tier registers every host-resident block with a transfer server under
 its CHAIN HASH (sha256, deterministic across pods), and with ``peers`` set,
-a local miss falls through to the peers' servers before recompute.  Peers
-are static ``host:port`` entries; the JAX package's dynamic discovery specs
-(``dns:`` / ``k8s:``) resolve through the EPP's aiohttp resolvers, which
-the port does not have, so they are refused by name.
+a local miss falls through to the peers' servers before recompute.  A
+blob holds whole rows whatever the pod's tp (the JAX stacked flush's
+layout), so pods of either package and any mesh read each other's.  Peers
+are static ``host:port`` entries and discovery specs (``dns:`` /
+``k8s:``, ``utils/discovery.py``), the latter re-resolved every
+``PEER_REFRESH_S`` on a thread of their own: static peers first, then the
+resolved ones sorted, departed peers' health dropped.  On a mesh only
+rank 0 serves, resolves and dials peers (with the peers' health, backoff
+and the ``kv.peer_fetch`` fault point); the other ranks never open a
+connection, and rank 0's verdict makes a failed or faulted fetch a miss
+on every rank.
 
 Wire metrics: ``llmd_tpu:kv_offload_{saved,loaded}_blocks_total`` and
 ``llmd_tpu:kv_shared_tier_{hits,misses}_total``.
@@ -51,6 +59,7 @@ import collections
 import errno
 import logging
 import struct
+import threading
 import time
 from typing import Deque, Dict, List, Optional, Set, Tuple
 
@@ -61,7 +70,7 @@ from llm_d_tpu_torch.transfer import transport
 from llm_d_tpu_torch.transfer.connector import (
     _cache_items, _local_blocks, _tp_sharded, block_ids_on, gather_blocks,
     host_tensor, scatter_block_rows, tensor_bytes, to_device)
-from llm_d_tpu_torch.utils import tracing
+from llm_d_tpu_torch.utils import discovery, tracing
 from llm_d_tpu_torch.utils.config import env_float, env_int
 from llm_d_tpu_torch.utils.faultinject import FaultInjected, get_injector
 
@@ -74,8 +83,6 @@ logger = logging.getLogger(__name__)
 _SLAB_VERSION = 2
 _SLAB_HEADER = struct.Struct("<IIII")   # version, num_buffers, L, bs
 _SLAB_BUF = struct.Struct("<IB")        # (row width, dtype code)
-
-DYNAMIC_PEER_PREFIXES = ("dns:", "k8s:")
 
 
 def _shared_key(block_hash: bytes) -> str:
@@ -146,8 +153,12 @@ class HostKVTier:
     """Host-RAM block store between the device prefix cache and recompute.
 
     ``serve_port``: also serve host-resident blocks to peer pods (0 =
-    ephemeral port, None = don't serve).  ``peers``: static "host:port"
-    shared-tier servers consulted on local miss.
+    ephemeral port, None = don't serve).  ``peers``: shared-tier servers
+    consulted on local miss, static "host:port" entries and discovery
+    specs ("dns:<name>:<port>" / "k8s:[ns/]<svc>:<port>"), the latter
+    re-resolved every ``PEER_REFRESH_S``.  A pod may resolve itself; its
+    own fetches are loopback misses.  On a mesh only rank 0 serves and
+    dials.
     """
 
     # A peer with this many consecutive transport failures is skipped for
@@ -156,25 +167,16 @@ class HostKVTier:
     # read the LLMD_PEER_FAILURE_LIMIT / LLMD_PEER_BACKOFF_S knobs.
     PEER_FAILURE_LIMIT = 3
     PEER_BACKOFF_S = 30.0
+    # Seconds between two resolves of the discovery specs.
+    PEER_REFRESH_S = 5.0
 
     def __init__(self, engine, capacity_blocks: int,
                  serve_port: Optional[int] = None,
                  peers: Optional[List[str]] = None,
                  peer_timeout_ms: int = 500) -> None:
-        dynamic = [p for p in (peers or [])
-                   if p.startswith(DYNAMIC_PEER_PREFIXES)]
-        if dynamic:
-            raise ValueError(
-                f"shared-tier peer specs {dynamic}: dynamic peer discovery "
-                "(dns:/k8s:) is not ported (the JAX package resolves them "
-                "through the EPP's aiohttp resolvers); pass static "
-                "host:port peers")
-        if engine.mesh is not None and (serve_port is not None or peers):
-            raise ValueError(
-                f"the shared KV tier is not served on mesh "
-                f"{engine.mesh.config}: the host tier is")
         self.engine = engine
-        # On a mesh rank 0 holds the bytes; the others the key set.
+        # On a mesh rank 0 holds the bytes, serves and dials; the others
+        # hold the key set.
         self.leader = engine.mesh is None or engine.mesh.rank == 0
         self.capacity_blocks = capacity_blocks
         # hash -> PACKED block bytes (LRU, oldest first).  The shared-tier
@@ -194,25 +196,68 @@ class HostKVTier:
         self.remote_hits = 0
         self.remote_misses = 0
         self.server = None
-        if serve_port is not None:
+        if serve_port is not None and self.leader:
             self.server = transport.PyTransferServer("0.0.0.0", serve_port)
         self.peer_failure_limit = env_int("LLMD_PEER_FAILURE_LIMIT",
                                           self.PEER_FAILURE_LIMIT)
         self.peer_backoff_s = env_float("LLMD_PEER_BACKOFF_S",
                                         self.PEER_BACKOFF_S)
-        self.peers = list(peers or [])
+        entries = list(peers or []) if self.leader else []
+        specs = [p for p in entries if discovery.is_dynamic(p)]
+        self._static_peers = [p for p in entries
+                              if not discovery.is_dynamic(p)]
+        self.peers = list(self._static_peers)
         self.peer_timeout_ms = peer_timeout_ms
         # peer -> (consecutive_failures, retry_after_monotonic)
         self._peer_health: Dict[str, tuple] = {}
+        self._peer_resolver = None
+        self._stop: Optional[threading.Event] = None
+        if specs:
+            rs = [discovery.parse_discover_spec(s) for s in specs]
+            self._peer_resolver = (rs[0] if len(rs) == 1
+                                   else discovery.MultiResolver(rs))
+            self._refresh_peers()            # the first resolve, here
+            self._stop = threading.Event()
+            self._refresh_thread = threading.Thread(
+                target=self._refresh_loop, name="kv-peer-refresh",
+                daemon=True)
+            self._refresh_thread.start()
         km = engine.kv_manager
         km.on_block_stored.append(self._on_stored)
         km.secondary_lookup = self._restore
+
+    def _refresh_peers(self) -> None:
+        """One resolve of the discovery specs: the static peers, then the
+        resolved ones sorted; an outage (None) keeps the last view."""
+        try:
+            resolved = self._peer_resolver.resolve()
+        except Exception as exc:
+            logger.warning("shared-tier peer resolve failed: %s", exc)
+            return
+        if resolved is None:
+            return
+        addrs = sorted({addr for addr, _role in resolved}
+                       - set(self._static_peers))
+        new = self._static_peers + addrs
+        if new != self.peers:
+            logger.info("shared-tier peers: %s", new)
+            self.peers = new
+            # Departed peers' health goes with them.
+            self._peer_health = {p: v for p, v in self._peer_health.items()
+                                 if p in new}
+
+    def _refresh_loop(self) -> None:
+        while not self._stop.wait(self.PEER_REFRESH_S):
+            self._refresh_peers()
 
     @property
     def port(self) -> int:
         return self.server.port if self.server is not None else 0
 
     def close(self) -> None:
+        if self._stop is not None:
+            self._stop.set()
+            self._refresh_thread.join(timeout=2 * self.PEER_REFRESH_S)
         if self.server is not None:
             self.server.close()
 
@@ -400,33 +445,41 @@ class HostKVTier:
     def _restore_mesh(self, block_hash: bytes, protected: frozenset,
                       region: int, t0: float) -> Optional[int]:
         """A mesh's restore, on every rank at the same lookup: rank 0's
-        verdict (the slab's size, or None: a miss) on the step channel;
-        on a hit every rank takes the same block of ``region``, rank 0
-        sends the slab to the region's ranks and each writes its tp
-        shard.  A rank whose key set lacks the block raises; a slab that
-        cannot be written raises (no fallback)."""
+        verdict on the step channel, the slab's size and its tier
+        ("host", "peer", or None: a miss; rank 0 alone looks in its store
+        and asks the peers); on a peer hit every rank adds the key to its
+        key set, as rank 0's store took the blob.  On a hit every rank
+        takes the same block of ``region``, rank 0 sends the slab to the
+        region's ranks and each writes its tp shard.  A rank whose key
+        set lacks a block rank 0 restores from this tier raises; a slab
+        that cannot be written raises (no fallback)."""
         e = self.engine
         mesh, km, channel = e.mesh, e.kv_manager, e._channel
         if block_hash in self._staged:
             self.flush()                 # every rank stages alike
-        blob = None
         if self.leader:
+            blob, tier = None, None
             try:
                 get_injector().check("kv.restore", key=block_hash.hex()[:16])
                 blob = self._store.get(block_hash)
+                tier = "host"
+                if blob is None and self.peers:
+                    blob, tier = self._fetch_from_peers(block_hash), "peer"
             except FaultInjected as exc:
                 logger.warning("kv.restore fault: treating tier restore as "
                                "a miss (%s)", exc)
-            channel.send(("restore", block_hash,
-                          None if blob is None else len(blob)))
             nbytes = None if blob is None else len(blob)
+            tier = None if blob is None else tier
+            channel.send(("restore", block_hash, nbytes, tier))
         else:
-            what, h, nbytes = channel.recv()
+            what, h, nbytes, tier = channel.recv()
             if (what, h) != ("restore", block_hash):
                 raise RuntimeError(
                     f"rank {mesh.rank}: rank 0 sent {(what, h.hex()[:16])}"
                     f" where this rank restores {block_hash.hex()[:16]}")
-            if nbytes is not None and block_hash not in self._store:
+            if tier == "peer":
+                self._insert(block_hash, None)
+            elif tier == "host" and block_hash not in self._store:
                 raise RuntimeError(
                     f"rank {mesh.rank}: rank 0 restores block "
                     f"{block_hash.hex()[:16]}, which this rank's host-tier "
@@ -453,7 +506,7 @@ class HostKVTier:
             except Exception:
                 km._release(b)
                 raise
-        self._register(block_hash, b, t0, "host", nbytes)
+        self._register(block_hash, b, t0, tier, nbytes)
         return b
 
     def _write_slab(self, blob: bytes, b: int) -> None:
@@ -487,7 +540,9 @@ class HostKVTier:
         (validated)."""
         e = self.engine
         key = _shared_key(block_hash)
-        layout = _slab_layout(e)
+        # Whole rows, whatever this pod's tp: a peer's blob is the JAX
+        # stacked flush's layout.
+        layout = self._full_layout()
         L = _cache_items(e)[0][1].shape[0]
         bs = e.config.block_size
         now = time.monotonic()
@@ -498,7 +553,8 @@ class HostKVTier:
             host, _, port = peer.rpartition(":")
             try:
                 get_injector().check("kv.peer_fetch", key=peer)
-                blob = transport.fetch(host, int(port), key,
+                # A resolved IPv6 peer is bracketed ("[::1]:8700").
+                blob = transport.fetch(host.strip("[]"), int(port), key,
                                        timeout_ms=self.peer_timeout_ms)
                 # Validate layout AND dtype: a mismatched peer's blob is a
                 # ValueError here, counted as a peer failure below.

@@ -45,9 +45,11 @@ its final body (or last streamed chunk) carries the ``kv_transfer_params``
 a decode server pulls by; a body carrying those params on a consumer pulls
 the blocks and decodes.  The routing sidecar (``llm_d_tpu.sidecar``) or
 any client that passes the params on drives the pair.  The tiered prefix
-cache: ``--kv-offload-blocks``, ``--kv-shared-tier-port`` and static
-``host:port`` entries of ``--kv-shared-tier-peers`` (dynamic ``dns:`` /
-``k8s:`` specs are refused by name).  On the CPU,
+cache (``deploy/tiered-prefix-cache``): ``--kv-offload-blocks``,
+``--kv-shared-tier-port`` and ``--kv-shared-tier-peers``, whose entries
+are static ``host:port`` peers or discovery specs (``dns:<name>:<port>``,
+``k8s:[<ns>/]<service>:<port>``) re-resolved every few seconds by the
+standard library (``utils/discovery.py``).  On the CPU,
 ``tests/test_torch_pd.py`` drives two such servers behind the JAX
 sidecar; on the card, ``chip_smoke.py`` path (v)(c) runs a producer and a
 consumer process.
@@ -86,10 +88,13 @@ than the host's card count.  A mesh serves the wide-EP recipe's flags
 ``--enable-eplb`` / ``--eplb-config`` (migrations between ranks) and
 ``--kv-transfer-config`` (rank 0 holds the connector), and spec decode
 (``--spec-k``, the fused rounds), ``--num-scheduler-steps`` > 1 with
-``--async-scheduling`` and the host tier (``--kv-offload-blocks``; rank 0
-holds the host copy).  Ranks that share a card (gloo) run the decode
-blocks and fused rounds eagerly.  On a mesh the shared tier is refused by
-name.
+``--async-scheduling``, the host tier (``--kv-offload-blocks``; rank 0
+holds the host copy) and the tiered-prefix-cache recipe's shared tier
+(``--kv-shared-tier-port``, ``--kv-shared-tier-peers``: rank 0 alone
+serves, resolves and dials peers, its blobs whole rows as a one-device
+pod's) with ``LLMD_STEP_TIME_TARGET_MS`` (rank 0 sizes the prefill
+chunks).  Ranks that share a card (gloo) run the decode blocks and fused
+rounds eagerly.
 
 Data parallelism, in the JAX server's two modes (``--data-parallel-size
 D``): ``--data-parallel-mode spmd`` (the default) serves one mesh
@@ -1415,9 +1420,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
              "role)")
     p.add_argument(
         "--kv-shared-tier-peers", default="",
-        help="comma list of static host:port shared-tier servers consulted "
-             "on prefix miss before recompute (dynamic dns:/k8s: specs are "
-             "not served)")
+        help="comma list of shared-tier servers consulted on prefix miss "
+             "before recompute: static host:port entries and discovery "
+             "specs (dns:<name>:<port>, k8s:[<ns>/]<service>:<port>), "
+             "re-resolved every few seconds")
     p.add_argument("--quantization", default=None, choices=[None, "int8"],
                    help="MoE expert-weight quantization")
     p.add_argument("--kv-cache-dtype", default=None,
@@ -1529,22 +1535,21 @@ def apply_config_layers(parser: argparse.ArgumentParser, args,
 
 def check_served(parser: argparse.ArgumentParser, args) -> None:
     """``parser.error`` for the first unserved flag set to anything but
-    its default, for a served flag whose module is missing, for dynamic
-    shared-tier peer specs, and for a shared tier without the host tier
-    it serves from."""
+    its default, for a served flag whose module is missing, for a
+    shared-tier discovery spec that does not parse, and for a shared tier
+    without the host tier it serves from."""
     for dest, why in UNSERVED_FLAGS.items():
         if getattr(args, dest) != parser.get_default(dest):
             flag = "--" + dest.replace("_", "-")
             parser.error(f"{flag} is not served by the PyTorch port: {why}")
     check_modules(parser, args)
-    from llm_d_tpu_torch.engine.offload import DYNAMIC_PEER_PREFIXES
-    dynamic = [p for p in shared_tier_peers(args)
-               if p.startswith(DYNAMIC_PEER_PREFIXES)]
-    if dynamic:
-        parser.error(
-            f"--kv-shared-tier-peers {','.join(dynamic)} is not served by "
-            "the PyTorch port: dynamic peer discovery (dns:/k8s:) needs the "
-            "EPP's aiohttp resolvers; pass static host:port peers")
+    from llm_d_tpu_torch.utils import discovery
+    for spec in shared_tier_peers(args):
+        if discovery.is_dynamic(spec):
+            try:
+                discovery.parse_discover_spec(spec)
+            except ValueError as exc:
+                parser.error(f"--kv-shared-tier-peers {spec}: {exc}")
     if (args.kv_shared_tier_port is not None or shared_tier_peers(args)) \
             and args.kv_offload_blocks <= 0:
         # Running with the cross-pod cache off while the operator
@@ -1600,28 +1605,11 @@ def check_dp_flags(parser: argparse.ArgumentParser, args) -> None:
 
 
 def check_mesh_flags(parser: argparse.ArgumentParser, args) -> None:
-    """``parser.error`` for a flag the engine refuses on a mesh, before
-    any rank starts."""
+    """``parser.error`` for a mesh layout the port does not serve,
+    before any rank starts.  Spec decode, the fused rounds, multistep
+    blocks (ranks that share a card run the bodies eagerly), the host and
+    shared tiers are served on a mesh."""
     check_dp_flags(parser, args)
-    world = world_from_args(args)
-    if world <= 1:
-        return
-    layout = (f"--data-parallel-size {args.data_parallel_size} "
-              f"--tensor-parallel-size {args.tensor_parallel_size}"
-              if args.data_parallel_size > 1
-              else f"--tensor-parallel-size {args.tensor_parallel_size}")
-    # Spec decode, the fused rounds, the host tier and multistep blocks
-    # are served on a mesh (ranks that share a card run the bodies
-    # eagerly); the shared tier is not.
-    refused = {
-        "--kv-shared-tier-port": args.kv_shared_tier_port is not None,
-        "--kv-shared-tier-peers": bool(shared_tier_peers(args)),
-    }
-    for flag, on in refused.items():
-        if on:
-            parser.error(f"{flag} is not served on a mesh ({layout}) by the "
-                         "PyTorch port: the shared KV tier serves one "
-                         "device's host tier")
 
 
 def _local(rank: int, world: int, layout) -> Tuple[int, int]:
@@ -1664,7 +1652,8 @@ def _rank_main(rank: int, world: int, address: str, argv: List[str],
 
 def _log_kernel_launches(rank: int, engine: EngineCore) -> None:
     """A stopping rank's kernel launches (each wrapper's eager count plus
-    what its block graphs' replays launched), one log line."""
+    what its block graphs' replays launched), one log line, and its last
+    steps' prefill chunk sizes (every rank's are rank 0's), another."""
     from llm_d_tpu_torch.engine.cuda_graph import kernel_counts
     counts = kernel_counts()
     if engine._graphs is not None:
@@ -1672,6 +1661,8 @@ def _log_kernel_launches(rank: int, engine: EngineCore) -> None:
             counts[name] += n
     logger.info("mesh rank %d stopped: kernel launches %s", rank,
                 json.dumps(counts))
+    logger.info("mesh rank %d prefill chunks %s", rank,
+                json.dumps(list(engine.prefill_chunks)))
 
 
 # After a rank dies, /health answers 500 this long before the server

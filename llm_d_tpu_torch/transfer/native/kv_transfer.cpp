@@ -27,6 +27,7 @@
 #include <unistd.h>
 
 #include <atomic>
+#include <cerrno>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
@@ -141,7 +142,9 @@ int connect_to(const char* host, int port, int timeout_ms) {
     return -1;
   }
   if (::connect(fd, reinterpret_cast<sockaddr*>(&addr), sizeof(addr)) != 0) {
+    int err = errno;  // why the connection failed, for the caller
     ::close(fd);
+    errno = err;
     return -1;
   }
   int one = 1;
@@ -227,13 +230,14 @@ void kvts_destroy(void* handle) {
 }
 
 // Fetches uuid's blob; *out receives a malloc'd buffer the caller frees
-// with kvts_free.  Returns payload size, -1 on connection/protocol error,
-// -2 when the server does not have the uuid.
+// with kvts_free.  Returns payload size, -1 on a protocol error, -2 when
+// the server does not have the uuid, -3 when no connection was made (errno
+// says why: a refused or unreachable peer).
 int64_t kvts_fetch(const char* host, int port, const char* uuid,
                    int timeout_ms, char** out) {
   *out = nullptr;
   int fd = connect_to(host, port, timeout_ms);
-  if (fd < 0) return -1;
+  if (fd < 0) return -3;
   uint64_t size = 0;
   if (!send_header(fd, 1, uuid) || !read_full(fd, &size, 8)) {
     ::close(fd);

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import errno
 import hashlib
 import logging
 import os
@@ -65,7 +66,7 @@ def _load_native() -> Optional[ctypes.CDLL]:
                 subprocess.run(["g++", *_CXX_FLAGS, "-o", str(tmp),
                                 str(_SRC)], check=True, capture_output=True)
                 os.replace(tmp, path)
-            lib = ctypes.CDLL(str(path))
+            lib = ctypes.CDLL(str(path), use_errno=True)
             lib.kvts_create.restype = ctypes.c_void_p
             lib.kvts_create.argtypes = [ctypes.c_char_p, ctypes.c_int]
             lib.kvts_port.restype = ctypes.c_int
@@ -206,6 +207,12 @@ def native_fetch(host: str, port: int, uuid: str,
     if n == -2:
         raise TransferNotFound(f"uuid {uuid!r} not registered on "
                                f"{host}:{port}")
+    if n == -3:
+        # No connection: the peer is down or unreachable (an OSError, as
+        # the Python client raises, so callers can back off at once).
+        err = ctypes.get_errno() or errno.ECONNREFUSED
+        raise OSError(err, f"fetch {uuid!r}: no connection to {host}:{port} "
+                      f"({os.strerror(err)})")
     if n < 0:
         raise TransferError(f"fetch {uuid!r} from {host}:{port} failed")
     try:
@@ -352,7 +359,9 @@ def make_server(host: str = "0.0.0.0", port: int = 0):
 
 
 def fetch(host: str, port: int, uuid: str, timeout_ms: int = 30000) -> bytes:
-    if _load_native() is not None:
+    # The native client speaks IPv4 only: an IPv6 literal goes through the
+    # Python client.
+    if ":" not in host and _load_native() is not None:
         return native_fetch(host, port, uuid, timeout_ms)
     return py_fetch(host, port, uuid, timeout_ms)
 

@@ -225,8 +225,10 @@ SPMD_ACROSS_HOSTS = ["--data-parallel-size-local", "1"]
                  id="flags5---data-parallel-size-local"),
     (["--data-parallel-mode", "ranks", "--tensor-parallel-size", "2"],
      "--data-parallel-mode ranks"),
-    (["--tensor-parallel-size", "2", "--kv-offload-blocks", "8",
-      "--kv-shared-tier-port", "0"], "--kv-shared-tier-port")])
+    # Served since (the shared tier on a mesh): the case keeps its id.
+    pytest.param(["--tensor-parallel-size", "2", "--kv-offload-blocks", "8",
+                  "--kv-shared-tier-port", "0"], None,
+                 id="flags7---kv-shared-tier-port")])
 def test_what_dp_does_not_serve_is_refused_by_name(flags, named, capsys):
     """``named`` None: a layout served since, accepted without a word."""
     from llm_d_tpu_torch.server import openai as TServer

@@ -15,8 +15,7 @@ against the JAX package's ``HostKVTier``, on the CPU.
   decode blocks with async scheduling; int8 blocks restore with their
   scale planes byte-exact; the shared tier serves a cross-pod prefix hit
   port to port, JAX pod to port pod and port pod to JAX pod; a dead peer
-  degrades to recompute; dynamic peer specs (``dns:`` / ``k8s:``) are
-  refused by name.
+  degrades to recompute (discovery specs: ``tests/test_torch_discovery.py``).
 """
 
 import jax
@@ -287,9 +286,3 @@ def test_shared_tier_peer_down_degrades_to_recompute(jparams):
     assert pod.generate([greedy("x", prompt, 3)])["x"] == want
     assert pod.host_tier.remote_hits == 0
 
-
-@pytest.mark.parametrize("spec", ["dns:kv-peers:5999", "k8s:ns/kv:5999"])
-def test_dynamic_peer_specs_are_refused_by_name(spec, jparams):
-    with pytest.raises(ValueError, match="dynamic peer discovery") as e:
-        _port(jparams, kv_shared_tier_peers=("10.0.0.9:5999", spec))
-    assert spec in str(e.value)

@@ -722,13 +722,15 @@ SPMD_ACROSS_HOSTS = ["--data-parallel-size", "2",
                      "--data-parallel-size-local", "1"]
 
 
+# (flag1, a dns: shared-tier peer, is served since: tests/test_torch_discovery.py.)
 @pytest.mark.parametrize("flag", [
-    ["--data-parallel-start-rank", "2"] + SPMD_ACROSS_HOSTS,
-    ["--kv-shared-tier-peers", "dns:kv-peers:5999",
-     "--kv-offload-blocks", "8"],
-    ["--data-parallel-rpc-port", "8"] + SPMD_ACROSS_HOSTS,
-    ["--data-parallel-hybrid-lb"] + SPMD_ACROSS_HOSTS,
-    ["--compilation-cache-dir", "/tmp/x"]])
+    pytest.param(["--data-parallel-start-rank", "2"] + SPMD_ACROSS_HOSTS,
+                 id="flag0"),
+    pytest.param(["--data-parallel-rpc-port", "8"] + SPMD_ACROSS_HOSTS,
+                 id="flag2"),
+    pytest.param(["--data-parallel-hybrid-lb"] + SPMD_ACROSS_HOSTS,
+                 id="flag3"),
+    pytest.param(["--compilation-cache-dir", "/tmp/x"], id="flag4")])
 def test_an_unserved_cli_flag_is_a_parser_error(flag, capsys):
     p = TServer.build_arg_parser()
     args = p.parse_args(["--model", "tiny"] + flag)

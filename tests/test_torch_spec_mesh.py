@@ -19,7 +19,8 @@ processes spawned once for the file, each call with a deadline.
 * The server's flags: ``--spec-k 4`` and ``--kv-offload-blocks 64`` build
   at dp = tp = 2; ``--num-scheduler-steps 16 --async-scheduling`` passes
   for ranks that share a card, whose engines run the bodies eagerly; the
-  shared tier stays refused by name.
+  shared tier's flags pass too (served on a mesh since:
+  ``tests/test_torch_shared_tier_mesh.py``).
 * A follower whose plan, extension or bail-out differs from rank 0's
   raises; a KV pull in flight drains every rank by rank 0's reading.
 """
@@ -273,15 +274,13 @@ def test_the_mesh_flags_are_served_and_the_shared_tier_refused(pool,
     assert EngineCore.captures_bodies(cuda, Nccl())
     assert EngineCore.captures_bodies(cuda, None)
     assert not EngineCore.captures_bodies(torch.device("cpu"), None)
-    for flags, named in (
-            (["--kv-offload-blocks", "8", "--kv-shared-tier-port", "0"],
-             "--kv-shared-tier-port"),
-            (["--kv-offload-blocks", "8", "--kv-shared-tier-peers",
-              "127.0.0.1:9"], "--kv-shared-tier-peers")):
-        with pytest.raises(SystemExit) as e:
-            TServer.check_mesh_flags(p, p.parse_args(mesh + flags))
-        assert e.value.code == 2
-        assert named in capsys.readouterr().err
+    for flags in (["--kv-offload-blocks", "8", "--kv-shared-tier-port", "0"],
+                  ["--kv-offload-blocks", "8", "--kv-shared-tier-peers",
+                   "127.0.0.1:9"]):
+        args = p.parse_args(mesh + flags)
+        TServer.check_served(p, args)
+        TServer.check_mesh_flags(p, args)
+        assert capsys.readouterr().err == ""
 
 
 def test_a_rank_that_disagrees_with_rank_0_raises():

@@ -1,5 +1,6 @@
 """Port parity: the tp engine's 4-step async decode blocks against the JAX
-engine on ``MeshConfig(tp=2)``, and what the port refuses on a mesh.
+engine on ``MeshConfig(tp=2)``, a step-time target on the mesh, and what
+the port refuses on a mesh.
 
 * Greedy tokens at tp = 2 with ``num_scheduler_steps=4`` and async
   scheduling equal the JAX engine's on ``tiny``, ``tiny-mla`` (int8
@@ -8,18 +9,22 @@ engine on ``MeshConfig(tp=2)``, and what the port refuses on a mesh.
   deadline).
 * An abort and a deadline reach every rank at the step that sees them
   (the deadline read against rank 0's clock).
-* Refused by name: the shared KV tier and a step-time target on a mesh;
-  DBO on a dense model; sp meshes; the server's flags for them and the
-  multi-host DP flags before any rank starts, and
-  ``--tensor-parallel-size`` / ``--allow-device-subset`` map to the
-  engine's mesh.  A gloo mesh on CUDA runs its blocks eagerly.  (P/D,
-  EPLB at ep > 1, DBO, spec decode, the fused rounds and the host tier
-  on a mesh are served: ``tests/test_torch_wide_ep.py``,
-  ``tests/test_torch_pd_mesh.py``, ``tests/test_torch_spec_mesh.py``.)
+* ``LLMD_STEP_TIME_TARGET_MS`` on the mesh: rank 1's step-time model is
+  fed other samples than rank 0's, yet every rank's prefill chunks are
+  rank 0's (its cap rides the step channel) and the tokens equal the JAX
+  engine's at tp = 2.
+* Refused by name: DBO on a dense model; the multi-host DP flags before
+  any rank starts, and ``--tensor-parallel-size`` /
+  ``--allow-device-subset`` map to the engine's mesh.  A gloo mesh on
+  CUDA runs its blocks eagerly.  (P/D, EPLB at ep > 1, DBO, spec decode,
+  the fused rounds, the host tier and the shared tier on a mesh are
+  served: ``tests/test_torch_wide_ep.py``, ``tests/test_torch_pd_mesh.py``,
+  ``tests/test_torch_spec_mesh.py``, ``tests/test_torch_shared_tier_mesh.py``.)
 """
 
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -89,42 +94,82 @@ def test_aborts_and_deadlines_reach_every_rank(pool):
     assert len(out[0]["r2"]) == 2
 
 
-REFUSALS = {
-    "shared KV tier port": dict(kv_offload_blocks=8, kv_shared_tier_port=0),
-    "shared KV tier peers": dict(kv_offload_blocks=8,
-                                 kv_shared_tier_peers=("127.0.0.1:9",)),
-    "LLMD_STEP_TIME_TARGET_MS": dict(env=("LLMD_STEP_TIME_TARGET_MS", "50")),
-}
+# LLMD_STEP_TIME_TARGET_MS on the mesh: rank 0's model learns
+# ``step_ms = 1 + 0.1 * prefill + 0.2 * decode`` (a cap of 24 tokens at no
+# decode load under 3.4 ms); rank 1's learns a law that would cap nothing.
+STEP_TARGET_MS = "3.4"
+STEP_PROMPTS = {"p1": list(range(3, 63)), "p2": [5, 9, 2, 7, 11]}
 
 
-def rank_refusals():
-    """Rank side: each refused configuration's error on this rank."""
+def _train(model, law):
+    for p in range(0, 64, 8):
+        for d in (0, 4, 8):
+            model.observe(p, d, law(p, d))
+
+
+def _law_rank0(p, d):
+    return 1.0 + 0.1 * p + 0.2 * d
+
+
+def _step_requests(R, SP):
+    return [R(request_id=r, prompt_token_ids=list(p), sampling=SP(
+        temperature=0.0, max_tokens=5, ignore_eos=True))
+        for r, p in STEP_PROMPTS.items()]
+
+
+def rank_step_time(model, tree):
+    """Rank side: a tp engine under the step-time target, rank 0's model
+    trained on ``_law_rank0`` and frozen there, rank 1's on another law
+    and left to learn its own step times.  Returns (tokens, this rank's
+    prefill chunk sizes)."""
     import os
-    out = {}
-    for name, over in REFUSALS.items():
-        over = dict(over)
-        env = over.pop("env", None)
-        if env:
-            os.environ[env[0]] = env[1]
-        cfg = dict(ENGINE, model="tiny", device="cpu",
-                   mesh=MeshConfig(tp=TP))
-        cfg.update(over)
-        try:
-            EngineCore(EngineConfig(**cfg))
-            out[name] = None
-        except ValueError as e:
-            out[name] = str(e)
-        finally:
-            if env:
-                del os.environ[env[0]]
-    return out
+    os.environ["LLMD_STEP_TIME_TARGET_MS"] = STEP_TARGET_MS
+    try:
+        eng = EngineCore(EngineConfig(model=model, device="cpu",
+                                      mesh=MeshConfig(tp=TP), **ENGINE,
+                                      **MODELS[model]),
+                         params=params_from_numpy(tree, "cpu"))
+    finally:
+        del os.environ["LLMD_STEP_TIME_TARGET_MS"]
+    if eng.mesh.rank != 0:
+        _train(eng.step_time_model, lambda p, d: 1.0 + 0.001 * p)
+        return eng.follow(), list(eng.prefill_chunks)
+    _train(eng.step_time_model, _law_rank0)
+    eng.step_time_model.observe = lambda *a: None
+    out = eng.generate(_step_requests(Request, SamplingParams))
+    eng.stop_mesh()
+    return out, list(eng.prefill_chunks)
 
 
-def test_refused_by_name_on_a_mesh(pool):
-    for errors in pool.run(rank_refusals):
-        for name, msg in errors.items():
-            assert msg is not None and "not served on mesh" in msg, name
-            assert name.split()[0] in msg, (name, msg)
+@pytest.mark.parametrize("model", ["tiny", "tiny-mla"])
+def test_step_time_target_on_the_mesh_follows_rank_0(pool, devices, model,
+                                                     monkeypatch):
+    import jax
+    from llm_d_tpu.engine.engine import EngineConfig as JEngineConfig
+    from llm_d_tpu.engine.engine import EngineCore as JEngineCore
+    from llm_d_tpu.engine.request import Request as JRequest
+    from llm_d_tpu.ops.sampling import SamplingParams as JSamplingParams
+    from llm_d_tpu.parallel.mesh import MeshConfig as JMeshConfig
+    monkeypatch.setenv("LLMD_STEP_TIME_TARGET_MS", STEP_TARGET_MS)
+    monkeypatch.delenv("LLMD_PREFILL_CHUNK", raising=False)
+    e = JEngineCore(JEngineConfig(model=model, mesh=JMeshConfig(tp=TP),
+                                  allow_device_subset=True, **ENGINE,
+                                  **MODELS[model]),
+                    devices=list(devices)[:TP])
+    _train(e.step_time_model, _law_rank0)
+    e.step_time_model.observe = lambda *a: None
+    want = e.generate(_step_requests(JRequest, JSamplingParams))
+    tree = jax.tree.map(np.asarray, e.params)
+    out = pool.run(rank_step_time, model, tree)
+    assert out[0][0] == want
+    assert out[1][0] == want
+    chunks = out[0][1]
+    assert out[1][1] == chunks
+    # The cap engaged: the 60-token prompt, whole in one step of the 64
+    # token budget without it, took chunks of at most 24 (the first step
+    # also prefilled the 5-token prompt).
+    assert len(chunks) >= 3 and max(chunks[1:]) <= 24
+    assert sum(chunks) == sum(len(p) for p in STEP_PROMPTS.values())
 
 
 # The multi-host flags in spmd mode: each refused by name as ranks mode's
@@ -136,10 +181,11 @@ ACROSS_HOSTS = ["--data-parallel-size", "2", "--data-parallel-size-local",
 @pytest.mark.parametrize("flags,named", [
     (ACROSS_HOSTS + ["--data-parallel-address", "10.0.0.1"],
      "--data-parallel-address"),
-    (["--kv-offload-blocks", "8", "--kv-shared-tier-port", "0"],
-     "--kv-shared-tier-port"),
-    (["--kv-offload-blocks", "8", "--kv-shared-tier-peers", "h:9"],
-     "--kv-shared-tier-peers"),
+    # Served since (the shared tier on a mesh): the cases keep their ids.
+    pytest.param(["--kv-offload-blocks", "8", "--kv-shared-tier-port", "0"],
+                 None, id="flags1---kv-shared-tier-port"),
+    pytest.param(["--kv-offload-blocks", "8", "--kv-shared-tier-peers",
+                  "h:9"], None, id="flags2---kv-shared-tier-peers"),
     (ACROSS_HOSTS + ["--data-parallel-rpc-port", "5555"],
      "--data-parallel-rpc-port"),
     # Served since: the case keeps its id.
@@ -153,16 +199,18 @@ ACROSS_HOSTS = ["--data-parallel-size", "2", "--data-parallel-size-local",
 def test_the_server_refuses_by_name_before_any_rank_starts(flags, named,
                                                            capsys):
     """With ``--tensor-parallel-size 2`` on the card (no ``--device
-    cpu``): the shared tier and one mesh across hosts (the multi-host
-    flags are served in ranks mode, ``tests/test_torch_dp_multihost.py``).
-    Spec decode, the host tier and multistep blocks are served on a mesh
-    (``tests/test_torch_spec_mesh.py``)."""
+    cpu``): one mesh across hosts (the multi-host flags are served in
+    ranks mode, ``tests/test_torch_dp_multihost.py``).  Spec decode, the
+    host and shared tiers and multistep blocks are served on a mesh
+    (``tests/test_torch_spec_mesh.py``,
+    ``tests/test_torch_shared_tier_mesh.py``)."""
     from llm_d_tpu_torch.server import openai as TServer
     p = TServer.build_arg_parser()
     args = p.parse_args(["--tensor-parallel-size", "2"] + flags)
     if named is None:
         # A --data-parallel-size-local below the size is served since: one
-        # host holds the mesh outside an LWS group (tests/test_torch_lws.py).
+        # host holds the mesh outside an LWS group (tests/test_torch_lws.py);
+        # so is the shared tier on a mesh.
         TServer.check_served(p, args)
         TServer.check_mesh_flags(p, args)
         assert capsys.readouterr().err == ""
@@ -194,10 +242,6 @@ def test_gloo_on_cuda_refuses_captured_blocks_and_dbo_is_refused():
     class FakeMesh:
         stage_host = True
         config = MeshConfig(tp=TP)
-    fake = type("Fake", (), {})()
-    fake.config = EngineConfig(num_scheduler_steps=4, async_scheduling=True)
-    fake.mesh, fake.spec_k, fake._step_time_target_ms = FakeMesh(), 0, 0.0
-    EngineCore._check_mesh(fake)
     assert not EngineCore.captures_bodies(torch.device("cuda"), FakeMesh())
     with pytest.raises(ValueError, match="enable_dbo"):
         EngineCore(EngineConfig(enable_dbo=True, device="cpu"))
