@@ -459,6 +459,57 @@ Phases (each raises on failure; the script then exits non-zero):
             with no rank left, its four ranks' prefill chunk sequences
             equal; (d) B's rank 0 holds its recorded G and H inputs to
             their plain versions as it stops (build/tier_b.json).
+16. path (xv) the inference-scheduling recipe
+            (``deploy/inference-scheduling``) and the pd-disaggregation
+            recipe (``deploy/pd-disaggregation/pd.yaml``) through the
+            port's own EPP gateway and routing sidecar, once phase 15's
+            pods have exited: every process starts at the phase's start,
+            each given its container's args and environment from the
+            recipe file (the EPP configs from the recipes' ConfigMaps),
+            the model servers as ``chip_smoke.py --gw-pod`` (the entry
+            point's ``main``); qwen3-0.6b at its published widths, one
+            card (logs build/xv_*.log).  (a) Two model servers (64-token
+            blocks, the EPP profiles' size; ``--num-blocks`` 2048 cut to
+            256, ``--kv-offload-blocks`` 4096 to 512) behind the gateway
+            (``--discover dns:localhost:<port>`` twice,
+            ``--kv-events-bind``): 4 prefix groups of 4 prompts (1024
+            shared tokens, 64 of their own, 16 new), each group's first
+            alone, the other 12 at once: every later request on its
+            group's pod by the destination header, the ``local_hit``
+            placement and the precise scorer's 16/17 in the gateway's
+            traces; each reply's tokens those of the prompt straight to
+            its pod (or first different at a near tie, top-2 logprob gap
+            reported); the gateway's request count; the 12-way burst's
+            TTFT beside the same burst (fresh suffixes on the same
+            prefixes) straight to the groups' pods (gateway, pod, pod,
+            gateway); the gateway's added
+            TTFT against the pod's (alternating rounds) and its
+            scheduling time; then a 512-token stream (32 new) whose pod
+            is SIGKILLed after 8 tokens with three requests of its
+            prefix in flight there: the stream reaches [DONE] on the
+            survivor, continuous, the breaker opens, the in-flight
+            requests and the next ones are served by the survivor.  (b) Two producers and a consumer
+            (``--num-blocks`` 2048 cut to 512; llama3-70b at tp 8 cut to
+            qwen3-0.6b at tp 1), the sidecar in front of the consumer
+            (``--prefiller`` the first producer), the gateway with
+            ``pd-config.yaml`` and ``--endpoints``: first each prompt's
+            reference, served plainly by a producer that never prefills
+            it; then 8 prompts of 1024 tokens (16 new) through the
+            gateway, alternating with a fresh prompt straight to the
+            consumer (its cold prefill's TTFT), each prefilled on the
+            sidecar's prefiller (the recipe's config names none: it has
+            no prefill-header-handler), the consumer's pulled bytes
+            equal to that producer's staged bytes (their traces), tokens
+            those of the reference (or a near tie); the first producer
+            SIGKILLed, two fresh prompts carrying the hint the EPP's
+            prefill-header-handler would send (the dead producer first)
+            fail over to the second; it SIGKILLed too, the next request
+            is prefilled on the consumer and carries
+            ``x-llmd-prefill-fallback``, then one more through the
+            gateway, each with its reference's tokens (or a near tie).
+            (c) (a)'s survivor and the consumer exit 0 on SIGTERM and
+            hold their recorded G and H inputs to their plain versions
+            (build/xv_*.json).
 
 Launch counts: every count is set to 0 just before a path is driven and
 read just after it; kernels A-F count path (i), G and H path (ii), and
@@ -491,7 +542,10 @@ every rank and (a)'s four ranks' counts, each rank's logged as it stops
 (``xiii_launches``; the 2-layer check, ring attention and (d) do not
 count; (b)'s checks as ``xiii_inputs``); G and H add path (xiv)'s pod B's
 four ranks' counts, each rank's logged as it stops (``xiv_launches``; pod
-A is killed in (b) and logs none; rank 0's checks as ``xiv_inputs``).  A
+A is killed in (b) and logs none; rank 0's checks as ``xiv_inputs``); G
+and H add path (xv)'s counts of (a)'s survivor and (b)'s consumer, each
+written as it stops (``gateway_launches``; the killed pods write none;
+their checks as ``gateway_inputs``).  A
 count is the wrapper's own (eager launches, graph warm-ups included)
 plus the launches inside graph replays: a capture records each graph's
 launches, and every replay adds them (``engine/cuda_graph.py``); the
@@ -513,8 +567,8 @@ likewise), a ``{"dp": ...}`` line (path (ix), likewise), a
 ``{"wide_ep": ...}`` line (path (x), likewise), a ``{"spec_mesh": ...}``
 line (path (xi), likewise), a ``{"multihost": ...}`` line (path (xii),
 likewise), a ``{"lws_sp": ...}`` line (path (xiii), likewise), a
-``{"tiered": ...}`` line (path (xiv), likewise), a
-``{"kernels": [...]}`` line (one row per
+``{"tiered": ...}`` line (path (xiv), likewise), a ``{"gateway": ...}``
+line (path (xv), likewise), a ``{"kernels": [...]}`` line (one row per
 kernel at its first launch: measured launches, errors and times, with
 ``bound_ms``), the card's name and power limit, and last ``{"ok": true,
 "device": ...}``.  The engine line
@@ -3241,16 +3295,19 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def http_call(url: str, path: str, body=None, timeout: float = 600.0):
+def http_call(url: str, path: str, body=None, timeout: float = 600.0,
+              headers=None):
     """``(status, headers, reply)`` of one call (a POST when ``body`` is
-    given); a JSON reply is parsed, any other is text.  ``headers`` look
-    names up without regard to case."""
+    given, with the request ``headers`` added); a JSON reply is parsed,
+    any other is text.  The reply's ``headers`` look names up without
+    regard to case."""
     import urllib.error
     import urllib.request
     data = None if body is None else json.dumps(body).encode()
     req = urllib.request.Request(
         url + path, data=data,
-        headers={"Content-Type": "application/json"} if data else {})
+        headers={**({"Content-Type": "application/json"} if data else {}),
+                 **(headers or {})})
     try:
         with urllib.request.urlopen(req, timeout=timeout) as r:
             status, headers, raw = r.status, r.headers, r.read()
@@ -3261,17 +3318,20 @@ def http_call(url: str, path: str, body=None, timeout: float = 600.0):
     return status, headers, raw.decode()
 
 
-def completion(url: str, body: dict, timeout: float = 600.0) -> dict:
-    """One /v1/completions call, streamed or not: its token count (from
-    the usage block of a whole reply), its token ids (a stream's from each
-    chunk's ``llmd`` meta; a whole reply's from its text, read as the
-    ``DecimalTokenizer`` writes it, when the server uses that tokenizer),
-    finish reason, and client-side clock readings (``perf_counter``) at
-    the send, the first and the last token chunk, and the end."""
+def completion(url: str, body: dict, timeout: float = 600.0,
+               headers=None) -> dict:
+    """One /v1/completions call (the request ``headers`` added), streamed
+    or not: its token count (from the usage block of a whole reply), its
+    token ids (a stream's from each chunk's ``llmd`` meta; a whole reply's
+    from its text, read as the ``DecimalTokenizer`` writes it, when the
+    server uses that tokenizer), finish reason, the reply's headers, and
+    client-side clock readings (``perf_counter``) at the send, the first
+    and the last token chunk, and the end."""
     import urllib.request
     t_send = time.perf_counter()
     if not body.get("stream"):
-        status, _, reply = http_call(url, "/v1/completions", body, timeout)
+        status, hdr, reply = http_call(url, "/v1/completions", body, timeout,
+                                       headers)
         if status != 200:
             raise RuntimeError(f"completion: HTTP {status}: {reply}")
         choice = reply["choices"][0]
@@ -3280,12 +3340,14 @@ def completion(url: str, body: dict, timeout: float = 600.0) -> dict:
                     tokens=([int(t) for t in words]
                             if all(w.isdigit() for w in words) else None),
                     finish=choice["finish_reason"], t_send=t_send,
-                    t_first=None, t_last=None, t_end=time.perf_counter())
+                    t_first=None, t_last=None, t_end=time.perf_counter(),
+                    headers=hdr)
     req = urllib.request.Request(
         url + "/v1/completions", data=json.dumps(body).encode(),
-        headers={"Content-Type": "application/json"})
+        headers={"Content-Type": "application/json", **(headers or {})})
     tokens, finish, t_first, t_last, done = [], None, None, None, False
     with urllib.request.urlopen(req, timeout=timeout) as r:
+        hdr = r.headers
         for line in r:
             if not line.startswith(b"data: "):
                 continue
@@ -3303,7 +3365,8 @@ def completion(url: str, body: dict, timeout: float = 600.0) -> dict:
     if not done:
         raise RuntimeError("completion: the stream ended before [DONE]")
     return dict(n=len(tokens), tokens=tokens, finish=finish, t_send=t_send,
-                t_first=t_first, t_last=t_last, t_end=time.perf_counter())
+                t_first=t_first, t_last=t_last, t_end=time.perf_counter(),
+                headers=hdr)
 
 
 def concurrently(url: str, bodies) -> list:
@@ -7372,11 +7435,729 @@ def xiv_path(root: str, started: dict) -> tuple:
     return res["out"], res["launches"], res["checks"]
 
 
+# Phase 16, path (xv): the inference-scheduling recipe
+# (deploy/inference-scheduling/{gateway,modelserver}.yaml) and the
+# pd-disaggregation recipe (deploy/pd-disaggregation/pd.yaml) end to end on
+# the port's own EPP gateway (``python -m llm_d_tpu_torch.epp.service``) and
+# routing sidecar (``python -m llm_d_tpu_torch.sidecar.proxy``), each entry
+# point given its container's args and environment as the recipe file
+# writes them (the EPP configs read from the recipes' ConfigMaps), with the
+# cuts below.  Every model server is ``chip_smoke.py --gw-pod``: the entry
+# point's own ``main``, its kernel launches (and, where it records, G's and
+# H's first inputs of each shape class held to their plain versions after
+# it stops) written to build/xv_<pod>.json.  All eight processes start at
+# the phase's start, so their builds overlap.
+XV_MODEL = "qwen3-0.6b"             # the inference-scheduling recipe's
+XV_BLOCK = 64                       # the EPP profiles' blockSize
+XV_DEVICE_BLOCKS = 256              # (a) the entry point's 2048 (memory)
+XV_PD_DEVICE_BLOCKS = 512           # (b) the same, at 32-token blocks
+XV_OFFLOAD_BLOCKS = 512             # (a) the recipe's 4096 (host memory)
+XV_GROUPS, XV_GROUP = 4, 4          # (a) prefix groups, requests a group
+XV_PREFIX, XV_OWN, XV_NEW = 1024, 64, 16
+XV_STREAM = dict(prompt=512, new=32, kill_after=8, inflight=3, after=2)
+XV_ROUNDS, XV_PROBE = 8, 128        # (a) overhead rounds, probe prompt
+XV_PD = dict(prompts=8, prompt=1024, new=16)
+XV_NEAR_TIE = XIV_NEAR_TIE
+XV_KERNELS = XIV_KERNELS
+XV_RECORD = ("a1", "a2", "c")       # the pods that record G's and H's inputs
+XV_EXTRA = []                       # every model server's extra flags
+XV_RECIPES = dict(
+    sched_gw="deploy/inference-scheduling/gateway.yaml",
+    sched_ms="deploy/inference-scheduling/modelserver.yaml",
+    pd="deploy/pd-disaggregation/pd.yaml")
+
+
+def xv_docs(root: str, rel: str) -> list:
+    import yaml
+    with open(os.path.join(root, rel)) as f:
+        return [d for d in yaml.safe_load_all(f) if d]
+
+
+def xv_container(root: str, rel: str, deployment: str, container: str):
+    """(args, env) of ``container`` in ``deployment`` of a recipe file
+    (env entries with a literal value)."""
+    dep = next(d for d in xv_docs(root, rel) if d.get("kind") ==
+               "Deployment" and d["metadata"]["name"] == deployment)
+    c = next(c for c in dep["spec"]["template"]["spec"]["containers"]
+             if c["name"] == container)
+    return ([str(a) for a in c.get("args", [])],
+            {e["name"]: str(e["value"]) for e in c.get("env", [])
+             if "value" in e})
+
+
+def xv_configmap(root: str, rel: str, key: str) -> str:
+    return next(d for d in xv_docs(root, rel)
+                if d.get("kind") == "ConfigMap")["data"][key]
+
+
+def xv_flags(args, sub: dict, add=()) -> list:
+    """``args`` with each flag of ``sub`` given its value there (a flag the
+    recipe lacks raises: the recipe drifted), then ``add``."""
+    out = list(args)
+    for flag, val in sub.items():
+        out[out.index(flag) + 1] = str(val)
+    return out + [str(a) for a in add]
+
+
+def xv_label(name: str):
+    """G's and H's recording labels: a shape class each (G: one row or
+    several; H: a prompt's whole prefill or a short tail), so a pod keeps
+    at most four copies of its stacked cache."""
+    if name == "flash_prefill":
+        return lambda a, kw: ("xv prefill Q>256" if a[0].shape[1] > 256
+                              else "xv prefill Q<=256")
+    return lambda a, kw: ("xv decode S=1" if a[0].shape[0] == 1
+                          else "xv decode S>1")
+
+
+def xv_start(root: str) -> dict:
+    """Phase 16's start: (a)'s two model servers and gateway, (b)'s two
+    producers, consumer, sidecar and gateway, each in a process group of
+    its own (logs build/xv_*.log)."""
+    ports = {n: free_port() for n in ("a1", "a2", "ga", "p1", "p2", "c",
+                                      "side", "gb", "kv1", "kv2")}
+    kv_bind = f"tcp://127.0.0.1:{free_port()}"
+    url = {n: f"http://127.0.0.1:{ports[n]}" for n in ports}
+    build = os.path.join(root, "build")
+    os.makedirs(build, exist_ok=True)
+    procs, results = {}, {}
+    started = dict(procs=procs, results=results, url=url, ports=ports,
+                   t0=time.perf_counter())
+
+    def spawn(name, cmd, env):
+        with open(os.path.join(build, f"xv_{name}.log"), "wb") as f:
+            procs[name] = subprocess.Popen(
+                cmd, cwd=root, stdout=f, stderr=subprocess.STDOUT,
+                start_new_session=True, env=dict(os.environ, **env))
+
+    def pod(name, flags, env):
+        results[name] = os.path.join(build, f"xv_{name}.json")
+        if os.path.exists(results[name]):
+            os.remove(results[name])
+        spawn(name, [sys.executable, os.path.join(root, "chip_smoke.py"),
+                     "--gw-pod", results[name],
+                     "1" if name in XV_RECORD else "0",
+                     *flags, *XV_EXTRA], env)
+
+    try:
+        _xv_spawn_all(root, build, ports, url, kv_bind, spawn, pod)
+    except BaseException:
+        xv_stop(started)
+        raise
+    return started
+
+
+def _xv_spawn_all(root, build, ports, url, kv_bind, spawn, pod) -> None:
+    # (a) the inference-scheduling recipe.
+    args, env = xv_container(root, XV_RECIPES["sched_ms"],
+                             "ms-inference-scheduling", "vllm")
+    for n in ("a1", "a2"):
+        pod(n, xv_flags(args, {
+            "--model": XV_MODEL, "--port": ports[n],
+            "--kv-offload-blocks": XV_OFFLOAD_BLOCKS,
+            "--kv-events-endpoint": kv_bind,
+            "--pod-identity": f"127.0.0.1:{ports[n]}"},
+            ["--host", "127.0.0.1", "--block-size", XV_BLOCK,
+             "--num-blocks", XV_DEVICE_BLOCKS]), env)
+    cfg = {"a": os.path.join(build, "xv_default-config.yaml"),
+           "b": os.path.join(build, "xv_pd-config.yaml")}
+    with open(cfg["a"], "w") as f:
+        f.write(xv_configmap(root, XV_RECIPES["sched_gw"],
+                             "default-config.yaml"))
+    with open(cfg["b"], "w") as f:
+        f.write(xv_configmap(root, XV_RECIPES["pd"], "pd-config.yaml"))
+    args, env = xv_container(root, XV_RECIPES["sched_gw"],
+                             "gaie-inference-scheduling", "epp")
+    spawn("ga", [sys.executable, "-m", "llm_d_tpu_torch.epp.service",
+                 *xv_flags(args, {
+                     "--port": ports["ga"], "--config": cfg["a"],
+                     "--discover": f"dns:localhost:{ports['a1']},"
+                                   f"dns:localhost:{ports['a2']}",
+                     "--kv-events-bind": kv_bind},
+                     ["--host", "127.0.0.1"])], env)
+    # (b) the pd-disaggregation recipe.
+    args, env = xv_container(root, XV_RECIPES["pd"], "ms-pd-prefill", "vllm")
+    for n, kv in (("p1", "kv1"), ("p2", "kv2")):
+        conf = json.loads(args[args.index("--kv-transfer-config") + 1])
+        conf.update(kv_ip="127.0.0.1", kv_port=ports[kv])
+        pod(n, xv_flags(args, {
+            "--model": XV_MODEL, "--port": ports[n],
+            "--tensor-parallel-size": 1,
+            "--kv-transfer-config": json.dumps(conf)},
+            ["--host", "127.0.0.1", "--num-blocks", XV_PD_DEVICE_BLOCKS]),
+            env)
+    args, env = xv_container(root, XV_RECIPES["pd"], "ms-pd-decode", "vllm")
+    pod("c", xv_flags(args, {"--model": XV_MODEL, "--port": ports["c"],
+                             "--tensor-parallel-size": 1},
+                      ["--host", "127.0.0.1",
+                       "--num-blocks", XV_PD_DEVICE_BLOCKS]), env)
+    args, env = xv_container(root, XV_RECIPES["pd"], "ms-pd-decode",
+                             "routing-proxy")
+    spawn("side", [sys.executable, "-m", "llm_d_tpu_torch.sidecar.proxy",
+                   *xv_flags(args, {
+                       "--port": ports["side"], "--decode-url": url["c"],
+                       "--prefiller": f"127.0.0.1:{ports['p1']}"},
+                       ["--host", "127.0.0.1"])], env)
+    args, env = xv_container(root, XV_RECIPES["pd"], "gaie-pd", "epp")
+    spawn("gb", [sys.executable, "-m", "llm_d_tpu_torch.epp.service",
+                 *xv_flags(args, {
+                     "--port": ports["gb"], "--config": cfg["b"],
+                     "--endpoints": f"127.0.0.1:{ports['p1']}=prefill,"
+                                    f"127.0.0.1:{ports['p2']}=prefill,"
+                                    f"127.0.0.1:{ports['side']}=decode"},
+                     ["--host", "127.0.0.1"])], env)
+
+
+def xv_stop(started: dict) -> None:
+    import signal
+    for p in started["procs"].values():
+        if p.poll() is None:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            p.wait(timeout=60)
+
+
+def xv_pod_main(argv) -> int:
+    """One model server of phase 16 (``chip_smoke.py --gw-pod RESULT
+    RECORD FLAGS``): the entry point's ``main(FLAGS)`` with the
+    ``DecimalTokenizer`` (token-id prompts; each id's text its own);
+    with RECORD 1, G's
+    and H's first inputs of each ``xv_label`` class recorded and, once the
+    server has stopped, held to their plain versions (skipped on the CPU).
+    RESULT gets the exit code, the kernel launches and the checks; exits
+    with the server's code, or 1 when a check failed."""
+    import torch
+    from llm_d_tpu_torch.engine.cuda_graph import kernel_counts
+    from llm_d_tpu_torch.server import openai as srv
+    result_path, record, flags = argv[0], argv[1] == "1", argv[2:]
+    # Each id's own text, so a reply's top_logprobs keep both of a near
+    # tie's tokens apart (the byte tokenizer writes every id past 255 as
+    # the same empty text).
+    srv.get_tokenizer = lambda name: DecimalTokenizer()
+    MESH_STATE.clear()
+    MESH_STATE.update(recs={}, names=XV_KERNELS, keep=frozenset())
+    if record:
+        for n in XV_KERNELS:
+            mod, fn, _ = MESH_WRAPPERS[n]
+            MESH_STATE["recs"][n] = Recorder(_mesh_module(mod), fn,
+                                             frozenset(), xv_label(n))
+    code = 0
+    try:
+        srv.main(flags)
+    except SystemExit as e:
+        code = e.code if isinstance(e.code, int) else 1
+    out = dict(server_exit=code, launches=kernel_counts(), labels={
+        n: sorted(r.calls) for n, r in MESH_STATE["recs"].items()})
+    print(f"xv pod stopped: kernel launches {json.dumps(out['launches'])}",
+          flush=True)
+    if code == 0 and record and torch.cuda.is_available():
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        try:
+            out["checks"] = mesh_kernel_checks()
+        except Exception as e:                  # reported to the smoke
+            out["error"] = repr(e)
+            code = 1
+    with open(result_path, "w") as f:
+        json.dump(out, f)
+    return code
+
+
+def xv_traces(url: str) -> list:
+    """The spans of ``url``'s ``/debug/traces`` (JSON lines)."""
+    import urllib.request
+    with urllib.request.urlopen(url + "/debug/traces", timeout=60) as r:
+        return [json.loads(ln) for ln in r.read().decode().splitlines()
+                if ln.strip()]
+
+
+def xv_tie(url: str, prompt, got, want) -> dict:
+    """The first difference of ``got`` from ``want`` (``url``'s own greedy
+    tokens for ``prompt``) and that pod's top-2 logprob gap there."""
+    i = next(k for k, (x, y) in enumerate(zip(got, want)) if x != y)
+    return dict(first_difference=i,
+                gap=xiv_tie({"pod": url}, prompt, i + 1)["pod"][i])
+
+
+def xv_ready(started: dict, names, limit_s: float = 600) -> dict:
+    """Seconds after the phase's start at which each of ``names`` answered
+    /v1/models with 200 (the gateways: once their scrapes found a ready
+    model server)."""
+    out = {}
+    for n in names:
+        wait_ready(started["procs"][n], started["url"][n], limit_s=limit_s)
+        out[n] = time.perf_counter() - started["t0"]
+    return out
+
+
+def xv_sched(root: str, started: dict, vocab: int) -> dict:
+    """Phase 16(a) on the pods ``xv_start`` started (module comment)."""
+    import signal
+    import threading
+    import numpy as np
+    from llm_d_tpu_torch.server.stream_resume import verify_continuity
+    url, procs = started["url"], started["procs"]
+    out = dict(ready_s=xv_ready(started, ("a1", "a2", "ga")))
+    pods = {f"127.0.0.1:{started['ports'][n]}": n for n in ("a1", "a2")}
+    gw = url["ga"]
+    time.sleep(0.5)             # two scrapes: both pods ready at the gateway
+    rng = np.random.default_rng(16)
+    prefixes = [rng.integers(1, vocab, XV_PREFIX).tolist()
+                for _ in range(XV_GROUPS)]
+    prompts = [[p + rng.integers(1, vocab, XV_OWN).tolist()
+                for _ in range(XV_GROUP)] for p in prefixes]
+    full = (XV_PREFIX + XV_OWN) // XV_BLOCK
+    shared = XV_PREFIX // XV_BLOCK
+    replies, home = {}, {}
+
+    def send(g, k):
+        rid = f"xv-a-{g}-{k}"
+        replies[(g, k)] = completion(gw, greedy_body(
+            prompts[g][k], XV_NEW, True), headers={"x-request-id": rid})
+
+    for g in range(XV_GROUPS):
+        send(g, 0)
+        home[g] = replies[(g, 0)]["headers"][
+            "x-gateway-destination-endpoint"]
+    t0 = time.perf_counter()
+    while scrape(gw).get("inference_extension_prefix_indexer_size", 0) \
+            < full * XV_GROUPS:
+        if time.perf_counter() - t0 > 30:
+            raise RuntimeError(f"path (xv)(a): the gateway's index holds "
+                               f"{scrape(gw)} blocks")
+        time.sleep(0.05)
+    out["index_wait_s"] = time.perf_counter() - t0
+    from concurrent.futures import ThreadPoolExecutor
+    later = [(g, k) for g in range(XV_GROUPS) for k in range(1, XV_GROUP)]
+    with ThreadPoolExecutor(len(later)) as ex:
+        list(ex.map(lambda gk: send(*gk), later))
+    bad = {}
+    for (g, k), r in replies.items():
+        dest = r["headers"]["x-gateway-destination-endpoint"]
+        if r["n"] != XV_NEW:
+            bad[(g, k)] = f"{r['n']} tokens"
+        elif k and dest != home[g]:
+            bad[(g, k)] = f"routed to {dest}, its group's pod is {home[g]}"
+        elif k and r["headers"].get("x-llmd-kv-placement") != "local_hit":
+            bad[(g, k)] = "placement " \
+                f"{r['headers'].get('x-llmd-kv-placement')}"
+    if bad:
+        raise RuntimeError(f"path (xv)(a): {bad}")
+    # The precise index's score of the chosen pod: the group's shared
+    # blocks of the prompt's full ones.
+    spans = xv_traces(gw)
+    rid_of = {s["trace"]: s["attrs"].get("request_id") for s in spans
+              if s["name"] == "gateway.request"}
+    precise = {}
+    sched_ms = []
+    for s in spans:
+        if s["name"] != "gateway.schedule":
+            continue
+        sched_ms.append(s["dur"] * 1e3)
+        rid = rid_of.get(s["trace"]) or ""
+        if rid.startswith("xv-a-") and not rid.endswith("-0"):
+            precise[rid] = s["attrs"]["scores"]["default"][
+                "precise-prefix-cache-scorer"]
+    low = {r: v for r, v in precise.items() if v < shared / full - 1e-6}
+    if len(precise) != XV_GROUPS * (XV_GROUP - 1) or low:
+        raise RuntimeError(f"path (xv)(a): precise scores {precise}")
+    # Each reply's tokens against the same prompt straight to its pod.
+    ties = {}
+    replay_ttft = []
+    for (g, k), r in sorted(replies.items()):
+        d = completion(f"http://{home[g]}", greedy_body(prompts[g][k],
+                                                        XV_NEW, True))
+        replay_ttft.append(d["t_first"] - d["t_send"])
+        if d["tokens"] != r["tokens"]:
+            ties[f"{g}-{k}"] = xv_tie(f"http://{home[g]}", prompts[g][k],
+                                      r["tokens"], d["tokens"])
+    far = {k: v for k, v in ties.items()
+           if v["gap"] is None or v["gap"] > XV_NEAR_TIE}
+    if far:
+        raise RuntimeError(f"path (xv)(a): tokens differ from the pod's "
+                           f"outside a near tie: {far}")
+    m = scrape(gw)
+    counted = sum(v for k, v in m.items()
+                  if k.startswith("inference_objective_request_total{"))
+    if counted != XV_GROUPS * XV_GROUP:
+        raise RuntimeError(f"path (xv)(a): the gateway counted {counted} "
+                           f"requests of {XV_GROUPS * XV_GROUP}")
+    # The control of the 12-way burst: the same burst of fresh suffixes
+    # on the same prefixes straight to each group's pod, twice, then once
+    # more through the gateway (gateway, pod, pod, gateway).
+    runs = [("via", [replies[gk]["t_first"] - replies[gk]["t_send"]
+                     for gk in later])]
+    for side in ("direct", "direct", "via"):
+        urls = [gw if side == "via" else f"http://{home[g]}"
+                for g, _ in later]
+        bodies = [greedy_body(prefixes[g] + rng.integers(
+            1, vocab, XV_OWN).tolist(), XV_NEW, True) for g, _ in later]
+        with ThreadPoolExecutor(len(later)) as ex:
+            runs.append((side, [r["t_first"] - r["t_send"]
+                                for r in ex.map(completion, urls, bodies)]))
+    burst = {n: [t for side, ts in runs if side == n for t in ts]
+             for n in ("via", "direct")}
+    out.update(groups=XV_GROUPS, per_group=XV_GROUP, prefix=XV_PREFIX,
+               own=XV_OWN, new=XV_NEW, homes={g: pods[h]
+                                              for g, h in home.items()},
+               precise_scores=sorted(set(precise.values())),
+               near_ties=ties, tokens_equal=not ties,
+               ttft_s=spread([r["t_first"] - r["t_send"]
+                              for r in replies.values()]),
+               burst=dict(
+                   requests=len(later), order="gateway pod pod gateway",
+                   runs_ttft_s=[spread(ts) for _, ts in runs],
+                   via_gateway_ttft_s=spread(burst["via"]),
+                   direct_ttft_s=spread(burst["direct"]),
+                   added_ms=(float(np.median(burst["via"]))
+                             - float(np.median(burst["direct"]))) * 1e3),
+               replay_ttft_s=spread(replay_ttft),
+               gateway_requests_counted=counted)
+    # The gateway's cost: TTFT of a fresh prompt through the gateway and
+    # straight to the pod it picked, in alternating rounds.
+    via, direct = [], []
+    for r in range(XV_ROUNDS):
+        pa, pb = (rng.integers(1, vocab, XV_PROBE).tolist()
+                  for _ in range(2))
+        order = ("gw", "pod") if r % 2 == 0 else ("pod", "gw")
+        target = None
+        for side in order:
+            if side == "gw":
+                res = completion(gw, greedy_body(pa, 1, True))
+                via.append(res["t_first"] - res["t_send"])
+                target = res["headers"]["x-gateway-destination-endpoint"]
+            else:
+                res = completion(f"http://{target or home[0]}",
+                                 greedy_body(pb, 1, True))
+                direct.append(res["t_first"] - res["t_send"])
+    out["overhead"] = dict(
+        rounds=XV_ROUNDS, probe=XV_PROBE, via_gateway_ttft_s=spread(via),
+        direct_ttft_s=spread(direct),
+        added_ms=(float(np.median(via)) - float(np.median(direct))) * 1e3)
+    buckets = sorted((float(k.split('le="')[1].split('"')[0]), v)
+                     for k, v in scrape(gw).items() if k.startswith(
+        "inference_extension_scheduler_e2e_duration_seconds_bucket{"))
+    n_obs = buckets[-1][1]
+    out["scheduling"] = dict(
+        histogram_median_le_s=next(b for b, c in buckets
+                                   if c >= n_obs / 2),
+        observations=n_obs, span_ms=spread(sched_ms))
+    # Failure: the pod serving a stream dies after 8 tokens, with
+    # requests of the same prefix in flight on it (sent once the
+    # gateway's index holds the stream's prompt blocks, so they go where
+    # those blocks are).
+    stream_prompt = rng.integers(1, vocab, XV_STREAM["prompt"]).tolist()
+    state, inflight = {}, []
+    base = scrape(gw).get("inference_extension_prefix_indexer_size", 0)
+    first = threading.Event()
+    counted = [0]
+
+    def killer():
+        first.wait(120)
+        t0 = time.perf_counter()
+        while scrape(gw).get("inference_extension_prefix_indexer_size",
+                             0) < base + XV_STREAM["prompt"] // XV_BLOCK:
+            if time.perf_counter() - t0 > 30:
+                state["error"] = "the stream's blocks never reached the index"
+                return
+            time.sleep(0.01)
+        # Released together, so the gateway schedules them all before a
+        # scrape can count them on the pod.
+        gate = threading.Barrier(XV_STREAM["inflight"])
+
+        def one(j):
+            body = greedy_body(stream_prompt + [j + 1] * 8,
+                               XV_STREAM["new"], False)
+            gate.wait()
+            state[j] = http_call(gw, "/v1/completions", body)
+
+        for j in range(XV_STREAM["inflight"]):
+            t = threading.Thread(target=one, args=(j,))
+            t.start()
+            inflight.append(t)
+        time.sleep(0.05)            # the in-flight requests reach the pod
+        while counted[0] < XV_STREAM["kill_after"]:
+            time.sleep(0.002)
+        victim = pods[state["dest"]]
+        os.killpg(procs[victim].pid, signal.SIGKILL)
+        state.update(killed=victim, t_kill=time.perf_counter(),
+                     killed_at=counted[0])
+
+    kill_thread = threading.Thread(target=killer)
+    kill_thread.start()
+    body = greedy_body(stream_prompt, XV_STREAM["new"], True)
+    import urllib.request
+    req = urllib.request.Request(
+        gw + "/v1/completions", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    metas, toks, done = [], [], False
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            state["dest"] = r.headers["x-gateway-destination-endpoint"]
+            for line in r:
+                if not line.startswith(b"data: "):
+                    continue
+                data = line[len(b"data: "):].strip()
+                if data == b"[DONE]":
+                    done = True
+                    break
+                meta = json.loads(data)["llmd"]
+                metas.append(meta)
+                toks += meta["tok"]
+                counted[0] = len(toks)
+                if meta["tok"]:
+                    first.set()
+    finally:
+        first.set()
+        counted[0] = 1 << 30
+        kill_thread.join()
+    if "killed" not in state or state["killed_at"] >= XV_STREAM["new"]:
+        raise RuntimeError(f"path (xv)(a): the kill missed the stream "
+                           f"({state.get('error')}, at "
+                           f"{state.get('killed_at')} tokens)")
+    t_done = time.perf_counter()
+    for t in inflight:
+        t.join()
+    procs[state["killed"]].wait(timeout=60)
+    survivor = next(a for a, n in pods.items() if n != state["killed"])
+    problems = verify_continuity(metas, XV_STREAM["new"])
+    m = scrape(gw)
+    breaker = m.get(f'llmd_tpu:endpoint_breaker_state{{endpoint='
+                    f'"{state["dest"]}"}}')
+    retried = {j: (status, hdr.get("x-gateway-destination-endpoint"),
+                   hdr.get("x-llmd-retry-budget"))
+               for j, (status, hdr, _) in sorted(
+                   (k, v) for k, v in state.items() if isinstance(k, int))}
+    after = [completion(gw, greedy_body(rng.integers(1, vocab, 64).tolist(),
+                                        4, False))["headers"].get(
+        "x-gateway-destination-endpoint") for _ in range(2)]
+    fail = dict(prompt=XV_STREAM["prompt"], new=XV_STREAM["new"],
+                killed=state["killed"], done=done, tokens=len(toks),
+                continuity=problems, breaker_state=breaker,
+                breaker_opened=m.get(
+                    f'llmd_tpu:endpoint_breaker_transitions_total{{endpoint='
+                    f'"{state["dest"]}",to="open"}}'),
+                killed_at_token=state["killed_at"],
+                inflight=retried, next_requests=after,
+                recovery_s=m.get("llmd_tpu:request_recovery_seconds_sum"),
+                resumes={k.split('"')[1]: v for k, v in m.items()
+                         if k.startswith("llmd_tpu:stream_resume_total{")},
+                kill_to_done_s=t_done - state["t_kill"])
+    out["failure"] = fail
+    log(f"path (xv)(a): {json.dumps(out)}")
+    if not done or problems or breaker != 1.0 \
+            or any(v[0] != 200 or v[1] != survivor for v in retried.values()) \
+            or len(retried) != XV_STREAM["inflight"] \
+            or any(a != survivor for a in after):
+        raise RuntimeError(f"path (xv)(a) failure: {fail}")
+    out["survivor"] = pods[survivor]
+    return out
+
+
+def xv_pd(root: str, started: dict, vocab: int) -> dict:
+    """Phase 16(b) on the pods ``xv_start`` started (module comment)."""
+    import signal
+    import numpy as np
+    url, procs, ports = started["url"], started["procs"], started["ports"]
+    out = dict(ready_s=xv_ready(started, ("p1", "p2", "c", "side", "gb")))
+    time.sleep(0.5)             # the gateway's scrapes see every pod
+    rng = np.random.default_rng(161)
+
+    def fresh(n):
+        return [rng.integers(1, vocab, XV_PD["prompt"]).tolist()
+                for _ in range(n)]
+
+    # The P/D prompts, fresh prompts straight to the consumer (its cold
+    # prefill), and those of the failovers and the local fallbacks.
+    prompts, cold, fo_prompts, local_prompts = (
+        fresh(XV_PD["prompts"]), fresh(XV_PD["prompts"]), fresh(2), fresh(2))
+    kv_of = {f"127.0.0.1:{ports['kv1']}": "p1",
+             f"127.0.0.1:{ports['kv2']}": "p2"}
+
+    def staged(name):
+        """request id -> bytes each producer staged (its kv.stage spans)."""
+        return {s["attrs"]["request_id"]: s["attrs"]["bytes"]
+                for s in xv_traces(url[name]) if s["name"] == "kv.stage"}
+
+    def pulled():
+        """request id -> (bytes, producer) of the consumer's pulls."""
+        return {s["attrs"]["request_id"]: (s["attrs"]["bytes"],
+                                           kv_of.get(s["attrs"]["source"]))
+                for s in xv_traces(url["c"]) if s["name"] == "kv.transfer"}
+
+    # The references, before any P/D traffic: each prompt served plainly
+    # by a producer that will not prefill it (the P/D prompts by p2, the
+    # failover and fallback prompts by p1), so no reply below can share
+    # its KV with its reference.
+    ref = {}
+    for name, ps in (("p2", prompts), ("p1", fo_prompts + local_prompts)):
+        for p in ps:
+            ref[tuple(p)] = (name, completion(url[name],
+                                           greedy_body(p, XV_PD["new"], True)))
+    ref_ttft = [r["t_first"] - r["t_send"] for _, r in ref.values()]
+
+    def tie(p, got, live):
+        """None where ``got`` holds ``p``'s reference tokens, else the
+        first difference and its top-2 gap on the pod ``live``."""
+        want = ref[tuple(p)][1]["tokens"]
+        return None if got == want else xv_tie(url[live], p, got, want)
+
+    via, direct, ties = [], [], {}
+    for i, p in enumerate(prompts):
+        body = greedy_body(p, XV_PD["new"], True)
+        for side in (("gw", "c") if i % 2 == 0 else ("c", "gw")):
+            if side == "c":
+                d = completion(url["c"], greedy_body(cold[i], XV_PD["new"],
+                                                     True))
+                direct.append(d["t_first"] - d["t_send"])
+                continue
+            r = completion(url["gb"], body,
+                           headers={"x-request-id": f"xv-b-{i}"})
+            if r["headers"].get("x-gateway-destination-endpoint") != \
+                    f"127.0.0.1:{ports['side']}":
+                raise RuntimeError(f"path (xv)(b): request {i} routed to "
+                                   f"{dict(r['headers'])}")
+            via.append(r["t_first"] - r["t_send"])
+            t = tie(p, r["tokens"], "p2")
+            if t is not None:
+                ties[i] = t
+    far = {k: v for k, v in ties.items()
+           if v["gap"] is None or v["gap"] > XV_NEAR_TIE}
+    got_pulls, by_producer = pulled(), {n: staged(n) for n in ("p1", "p2")}
+    rids = [f"xv-b-{i}" for i in range(len(prompts))]
+    where = {rid: [n for n, s in by_producer.items() if rid in s]
+             for rid in rids}
+    mismatch = {rid: (got_pulls.get(rid), {n: by_producer[n].get(rid)
+                                           for n in by_producer})
+                for rid in rids
+                if rid not in got_pulls or len(where[rid]) != 1
+                or got_pulls[rid][1] != where[rid][0]
+                or got_pulls[rid][0] != by_producer[where[rid][0]][rid]}
+    out.update(prompts=len(prompts), prompt=XV_PD["prompt"],
+               new=XV_PD["new"], prefilled_on={r: w for r, w in
+                                               where.items()},
+               sidecar_prefiller="p1", reference_pods=dict(
+                   pd="p2", failover_and_fallback="p1"),
+               pulled_bytes=sorted({v[0] for v in got_pulls.values()}),
+               via_gateway_sidecar_ttft_s=spread(via),
+               direct_consumer_cold_ttft_s=spread(direct),
+               reference_producer_cold_ttft_s=spread(ref_ttft),
+               near_ties=ties, tokens_equal=not ties)
+    if far or mismatch or any(w != ["p1"] for w in where.values()):
+        raise RuntimeError(f"path (xv)(b): far from a tie {far}, pulls "
+                           f"{mismatch}, prefilled on {where}")
+    # Failure: p1 dies; the next two requests carry the hint the EPP's
+    # prefill-header-handler would send (p1 first) and fail over to p2;
+    # then p2 dies and the next request is prefilled on the consumer.
+    hint = {"x-prefiller-host-port":
+            f"127.0.0.1:{ports['p1']},127.0.0.1:{ports['p2']}"}
+    os.killpg(procs["p1"].pid, signal.SIGKILL)
+    procs["p1"].wait(timeout=60)
+    fo = []
+    for j, p in enumerate(fo_prompts):
+        rid = f"xv-b-fo-{j}"
+        r = completion(url["side"], greedy_body(p, XV_PD["new"], True),
+                       headers=dict(hint, **{"x-request-id": rid}))
+        fo.append(dict(rid=rid,
+                       fallback=r["headers"].get("x-llmd-prefill-fallback"),
+                       tie=tie(p, r["tokens"], "p2"),
+                       seconds=r["t_end"] - r["t_send"]))
+    p2_staged = staged("p2")
+    os.killpg(procs["p2"].pid, signal.SIGKILL)
+    procs["p2"].wait(timeout=60)
+    r = completion(url["side"], greedy_body(local_prompts[0], XV_PD["new"],
+                                            True),
+                   headers=dict(hint, **{"x-request-id": "xv-b-local"}))
+    g = completion(url["gb"], greedy_body(local_prompts[1], XV_PD["new"],
+                                          True),
+                   headers={"x-request-id": "xv-b-local-gw"})
+    local = dict(fallback=r["headers"].get("x-llmd-prefill-fallback"),
+                 tie=tie(local_prompts[0], r["tokens"], "c"),
+                 seconds=r["t_end"] - r["t_send"], via_gateway=dict(
+                     tie=tie(local_prompts[1], g["tokens"], "c"),
+                     seconds=g["t_end"] - g["t_send"]))
+    out["failover"] = fo
+    out["local"] = local
+    out["failover_prefilled_on_p2"] = [f["rid"] in p2_staged for f in fo]
+    log(f"path (xv)(b): {json.dumps(out)}")
+    far = [t for t in [f["tie"] for f in fo] + [local["tie"],
+                                                local["via_gateway"]["tie"]]
+           if t is not None and (t["gap"] is None or t["gap"] > XV_NEAR_TIE)]
+    if any(f["fallback"] for f in fo) \
+            or not all(out["failover_prefilled_on_p2"]) \
+            or local["fallback"] != "local" or far:
+        raise RuntimeError(f"path (xv)(b) failure: {fo}, {local}")
+    return out
+
+
+def xv_path(root: str, started: dict) -> tuple:
+    """Phase 16, path (xv), after phase 15: (a) and (b) on the pods
+    ``xv_start`` started at the phase's start, then (c): the launches of
+    the pods that stopped cleanly (the survivor of (a), the consumer of
+    (b)) and their G and H inputs against the plain versions.  The logs
+    go to stderr if it fails.  Returns (result, launches by kernel,
+    checks)."""
+    import signal
+    from llm_d_tpu_torch.models.config import get_config
+    vocab = get_config(XV_MODEL).vocab_size
+    t0 = time.perf_counter()
+    try:
+        out = dict(model=XV_MODEL, block=XV_BLOCK,
+                   device_blocks=dict(a=XV_DEVICE_BLOCKS,
+                                      b=XV_PD_DEVICE_BLOCKS),
+                   offload_blocks=XV_OFFLOAD_BLOCKS)
+        out["a"] = xv_sched(root, started, vocab)
+        out["b"] = xv_pd(root, started, vocab)
+        # (a)'s survivor and (b)'s consumer stop together; their launches
+        # and checks are in their results.
+        stopping = (out["a"]["survivor"], "c")
+        t_term = time.perf_counter()
+        for name in stopping:
+            started["procs"][name].send_signal(signal.SIGTERM)
+        out["exit"] = {name: started["procs"][name].wait(
+            timeout=DRAIN_S + 300) for name in stopping}
+        out["exit_s"] = time.perf_counter() - t_term
+        if any(out["exit"].values()):
+            raise RuntimeError(f"path (xv): exit codes {out['exit']}")
+        launches, checks, pods = {}, [], {}
+        for name in stopping:
+            with open(started["results"][name]) as f:
+                res = json.load(f)
+            pods[name] = {k: res.get(k) for k in ("labels", "peak_gib",
+                                                  "launches")}
+            if res.get("error") or not res.get("checks"):
+                raise RuntimeError(f"path (xv)(c): {name}'s checks: {res}")
+            checks += res["checks"]
+            for n in XV_KERNELS:
+                k = MESH_WRAPPERS[n][1]
+                launches[n] = launches.get(n, 0) + res["launches"].get(k, 0)
+        if min(launches.values()) == 0:
+            raise RuntimeError(f"path (xv)(c): launches {launches}")
+        out["c"] = dict(launches=launches, pods=pods)
+        out["seconds"] = time.perf_counter() - t0
+        out["since_start_s"] = time.perf_counter() - started["t0"]
+    except BaseException:
+        for n in started["procs"]:
+            path = os.path.join(root, "build", f"xv_{n}.log")
+            if os.path.exists(path):
+                with open(path, "rb") as f:
+                    sys.stderr.write(f"--- xv_{n}.log\n" + f.read()[-4000:]
+                                     .decode(errors="replace"))
+        raise
+    finally:
+        xv_stop(started)
+    return out, launches, checks
+
+
 def main() -> int:
     import torch
     if "--tier-pod" in sys.argv[1:]:
         # One of phase 15's pods (on the CPU too, for a rehearsal).
         return xiv_pod_main(sys.argv[sys.argv.index("--tier-pod") + 1:])
+    if "--gw-pod" in sys.argv[1:]:
+        # One of phase 16's model servers (on the CPU too, for a rehearsal).
+        return xv_pod_main(sys.argv[sys.argv.index("--gw-pod") + 1:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -8250,6 +9031,18 @@ def main() -> int:
         row["xiv_inputs"] = [{k: v for k, v in c.items() if k != "name"}
                              for c in xiv_checks if c["name"] == n]
     log(f"path (xiv): {tiered['seconds']:.1f} s")
+    # 16. path (xv): the inference-scheduling and pd-disaggregation
+    # recipes through the port's gateway and sidecar, once phase 15's pods
+    # have exited.
+    gateway, xv_counts, xv_checks = xv_path(root, xv_start(root))
+    gateway["card"] = smi
+    for row in rows:
+        n = row["name"]
+        row["gateway_launches"] = xv_counts.get(n, 0)
+        row["launches"] += row["gateway_launches"]
+        row["gateway_inputs"] = [{k: v for k, v in c.items() if k != "name"}
+                                 for c in xv_checks if c["name"] == n]
+    log(f"path (xv): {gateway['since_start_s']:.1f} s")
     if prof is not None:
         # The first decode block of a fresh process, part by part.
         prof["cold_first_block"] = []
@@ -8285,6 +9078,7 @@ def main() -> int:
     print(json.dumps({"multihost": multihost}))
     print(json.dumps({"lws_sp": lws_sp}))
     print(json.dumps({"tiered": tiered}))
+    print(json.dumps({"gateway": gateway}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """A small HTTP/1.1 client on asyncio streams, standard library only.
 
-The DP leader's worker pool (``server/openai.py``) proxies requests to
-worker hosts with it: the card machine has no aiohttp.  One call is one
-connection (``Connection: close``):
+The DP leader's worker pool (``server/openai.py``), the EPP gateway and
+its datastore (``epp/``) and the routing sidecar (``sidecar/proxy.py``)
+talk to model servers with it: the card machine has no aiohttp.  One
+call is one connection (``Connection: close``):
 
     async with await post_json("http://10.0.0.2:8200", "/v1/completions",
                                body, headers) as resp:
@@ -15,13 +16,17 @@ The body is decoded from ``Content-Length``, chunked transfer encoding
 refused connection, a connect timeout, a reset, a read timeout, an
 unparseable reply and a reply that ends early (inside a chunk, or before
 its last chunk or its ``Content-Length``) all raise :class:`ClientError`:
-the one failure the pool backs a worker off for.
+the one failure the pool backs a worker off for.  :func:`get` and
+:func:`request` make the other calls (a scrape, a probe, a proxied
+method); :meth:`ClientResponse.read` and :meth:`ClientResponse.json` read
+a whole body.
 """
 
 from __future__ import annotations
 
 import asyncio
 import json
+import ssl
 import urllib.parse
 from typing import Any, Dict, Optional
 
@@ -127,6 +132,19 @@ class ClientResponse:
             self._done = True
         return data
 
+    async def read(self) -> bytes:
+        """The rest of the body."""
+        parts = []
+        while True:
+            data = await self.readany()
+            if not data:
+                return b"".join(parts)
+            parts.append(data)
+
+    async def json(self) -> Any:
+        """The rest of the body as JSON; ``ValueError`` when it is not."""
+        return json.loads((await self.read()).decode("utf-8"))
+
     def close(self) -> None:
         self._writer.close()
 
@@ -147,19 +165,47 @@ async def post_json(base_url: str, path: str, body: Any,
                     read_timeout: Optional[float] = None
                     ) -> ClientResponse:
     """POST ``body`` as JSON to ``base_url`` + ``path`` (an ``http://``
-    URL); returns once the reply's status and headers have arrived.
+    URL, or ``https://`` with the system's certificate check); returns once the reply's status and headers have arrived.
     ``headers`` are sent as given, but those this call sets itself (the
     host, the body's type and length, the connection)."""
+    return await request("POST", base_url, path, json.dumps(body).encode(),
+                         headers, connect_timeout, read_timeout,
+                         content_type="application/json")
+
+
+async def get(base_url: str, path: str,
+              headers: Optional[Dict[str, str]] = None,
+              connect_timeout: float = 5.0,
+              read_timeout: Optional[float] = None) -> ClientResponse:
+    """GET ``base_url`` + ``path``, as :func:`post_json` posts."""
+    return await request("GET", base_url, path, None, headers,
+                         connect_timeout, read_timeout)
+
+
+async def request(method: str, base_url: str, path: str,
+                  data: Optional[bytes] = None,
+                  headers: Optional[Dict[str, str]] = None,
+                  connect_timeout: float = 5.0,
+                  read_timeout: Optional[float] = None,
+                  content_type: Optional[str] = None) -> ClientResponse:
+    """Send ``method`` with the body ``data`` (None: no body) to
+    ``base_url`` + ``path``; returns once the reply's status and headers
+    have arrived.  ``content_type`` replaces a ``Content-Type`` among
+    ``headers``."""
     url = urllib.parse.urlsplit(base_url)
-    if url.scheme != "http" or not url.hostname:
-        raise ValueError(f"not an http:// URL: {base_url!r}")
-    host, port = url.hostname, url.port or 80
-    data = json.dumps(body).encode()
-    own = {"host", "content-type", "content-length", "connection",
-           "transfer-encoding"}
-    lines = [f"POST {path} HTTP/1.1", f"Host: {host}:{port}",
-             "Content-Type: application/json",
-             f"Content-Length: {len(data)}", "Connection: close"]
+    if url.scheme not in ("http", "https") or not url.hostname:
+        raise ValueError(f"not an http:// or https:// URL: {base_url!r}")
+    tls = url.scheme == "https"
+    host, port = url.hostname, url.port or (443 if tls else 80)
+    own = {"host", "content-length", "connection", "transfer-encoding"}
+    netloc = f"[{host}]:{port}" if ":" in host else f"{host}:{port}"
+    lines = [f"{method} {path} HTTP/1.1", f"Host: {netloc}",
+             "Connection: close"]
+    if content_type is not None:
+        own.add("content-type")
+        lines.append(f"Content-Type: {content_type}")
+    if data is not None:
+        lines.append(f"Content-Length: {len(data)}")
     for k, v in (headers or {}).items():
         if k.lower() not in own:
             if any(c in f"{k}{v}" for c in "\r\n"):
@@ -168,14 +214,16 @@ async def post_json(base_url: str, path: str, body: Any,
     head = ("\r\n".join(lines) + "\r\n\r\n").encode("latin-1")
     try:
         reader, writer = await asyncio.wait_for(
-            asyncio.open_connection(host, port), connect_timeout)
+            asyncio.open_connection(
+                host, port, ssl=ssl.create_default_context() if tls
+                else None), connect_timeout)
     except asyncio.TimeoutError as e:
         raise ClientError(f"connecting to {host}:{port} timed out after "
                           f"{connect_timeout} s") from e
     except OSError as e:
         raise ClientError(f"cannot connect to {host}:{port}: {e}") from e
     try:
-        writer.write(head + data)
+        writer.write(head + (data or b""))
         await writer.drain()
         return await _read_head(reader, writer, read_timeout)
     except (ConnectionError, OSError) as e:

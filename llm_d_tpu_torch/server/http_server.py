@@ -185,15 +185,17 @@ async def _read_request(reader: asyncio.StreamReader,
 
 class HTTPServer:
     """Routes ``{(method, path): handler}`` served on one listening
-    socket.  ``start`` runs the startup hooks and binds; ``stop`` asks
-    ``wait_stopped`` to return; ``close`` unbinds and runs the cleanup
-    hooks."""
+    socket; ``fallback``, when given, serves every other method and path
+    (a proxy's pass-through) instead of the 404 / 405.  ``start`` runs the
+    startup hooks and binds; ``stop`` asks ``wait_stopped`` to return;
+    ``close`` unbinds and runs the cleanup hooks."""
 
     def __init__(self, routes: Dict[Tuple[str, str], Handler],
                  on_startup: Iterable[Callable[[], Awaitable[None]]] = (),
-                 on_cleanup: Iterable[Callable[[], Awaitable[None]]] = ()
-                 ) -> None:
+                 on_cleanup: Iterable[Callable[[], Awaitable[None]]] = (),
+                 fallback: Optional[Handler] = None) -> None:
         self.routes = dict(routes)
+        self.fallback = fallback
         self._paths = {p for _, p in self.routes}
         self.on_startup = list(on_startup)
         self.on_cleanup = list(on_cleanup)
@@ -271,7 +273,7 @@ class HTTPServer:
     async def _respond(self, req: Request, writer: asyncio.StreamWriter,
                        gone: asyncio.Event) -> bool:
         """Serve one request; returns whether the connection stays open."""
-        handler = self.routes.get((req.method, req.path))
+        handler = self.routes.get((req.method, req.path), self.fallback)
         if handler is None:
             status = 405 if req.path in self._paths else 404
             resp = text_response(
@@ -312,3 +314,22 @@ class HTTPServer:
         writer.write(_head(resp.status, headers) + resp.body)
         await writer.drain()
         return keep
+
+
+def run_app(app: HTTPServer, host: str, port: int) -> None:
+    """Serve ``app`` until SIGTERM or SIGINT, then close it (what
+    aiohttp's ``web.run_app`` does for the JAX package's services)."""
+    import signal
+
+    async def serve() -> None:
+        bound = await app.start(host, port)
+        logger.info("serving on %s:%d", host, bound)
+        loop = asyncio.get_running_loop()
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            loop.add_signal_handler(sig, app.stop)
+        try:
+            await app.wait_stopped()
+        finally:
+            await app.close()
+
+    asyncio.run(serve())

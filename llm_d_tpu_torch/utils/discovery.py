@@ -1,6 +1,7 @@
-"""Dynamic peer discovery for the shared KV tier (port of the resolvers
-``engine/offload.py`` takes from ``llm_d_tpu.epp.discovery``; the EPP
-itself is not ported).
+"""Dynamic discovery for the shared KV tier's peers and the EPP's
+endpoints (port of the resolvers of ``llm_d_tpu.epp.discovery``: the
+tier's refresh thread calls them, and the port's EPP datastore
+(``epp/datastore.py``) runs them in an executor for ``--discover``).
 
 The tiered-prefix-cache recipe names its peers by a discovery spec
 (``deploy/tiered-prefix-cache/modelserver.yaml``: ``--kv-shared-tier-peers

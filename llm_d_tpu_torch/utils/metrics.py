@@ -1,5 +1,6 @@
-"""Engine metrics in the llm-d taxonomy (port of ``EngineMetrics`` and
-``parse_prometheus_text`` in ``llm_d_tpu.utils.metrics``).
+"""Engine and scheduler metrics in the llm-d taxonomy (port of
+``EngineMetrics``, ``EppMetrics`` and ``parse_prometheus_text`` in
+``llm_d_tpu.utils.metrics``).
 
 Every model-server replica exposes the ``vllm:*`` family that the EPP's
 load-aware scorers scrape (``vllm:num_requests_waiting``,
@@ -44,6 +45,11 @@ EPLB_IMBALANCE_METRIC = "llmd_tpu:eplb_imbalance"
 EPLB_MIGRATIONS_METRIC = "llmd_tpu:eplb_migrations_total"
 EPLB_MIGRATED_BYTES_METRIC = "llmd_tpu:eplb_migrated_bytes_total"
 EPLB_MIGRATION_STALL_METRIC = "llmd_tpu:eplb_migration_stall_seconds"
+# The EPP's precise prefix index: KV block events ingested, by type; the
+# kv-placement-scorer's verdict on each pick (local_hit | peer_restore |
+# recompute).
+KV_EVENTS_METRIC = "llmd_tpu:kv_events_total"
+KV_PLACEMENT_DECISION_METRIC = "llmd_tpu:kv_placement_decision_total"
 
 # Buckets mirroring vLLM's TTFT / TPOT histograms (seconds).
 _TIME_BUCKETS = (
@@ -161,8 +167,35 @@ class _Metric:
             self.buckets = tuple(bounds)
         self._lock = threading.Lock()
         self._children: Dict[Tuple[str, ...], _Child] = {}
+        if not self.labelnames:
+            # An unlabelled metric is its one child, rendered from the
+            # start (as prometheus_client renders it).
+            self._children[()] = self.child_type(self)
         if registry is not None:
             registry.register(self)
+
+    def _only(self) -> _Child:
+        if self.labelnames:
+            raise ValueError(f"{self.name}: labelled metric; use labels()")
+        return self._children[()]
+
+    def inc(self, amount: float = 1) -> None:
+        self._only().inc(amount)
+
+    def set(self, value: float) -> None:
+        self._only().set(value)
+
+    def observe(self, amount: float) -> None:
+        self._only().observe(amount)
+
+    def remove(self, *labelvalues: str) -> None:
+        """Drop one child (``KeyError`` when it does not exist)."""
+        key = tuple(str(v) for v in labelvalues)
+        if len(key) != len(self.labelnames):
+            raise ValueError(f"{self.name}: {len(key)} label values for "
+                             f"{len(self.labelnames)} labels")
+        with self._lock:
+            del self._children[key]
 
     def labels(self, **labels: str):
         if set(labels) != set(self.labelnames):
@@ -430,6 +463,101 @@ class EngineMetrics:
         self._collective_bytes.labels(
             model_name=self.model_name, collective=collective,
             dtype=dtype).inc(n)
+
+    def render(self) -> bytes:
+        return self.registry.render()
+
+
+class EppMetrics:
+    """Scheduler-side metrics (the ``inference_extension_*`` family, the
+    P/D decision counter and the gateway's resilience counters), with the
+    JAX package's names, help strings, labels and buckets."""
+
+    def __init__(self, registry: Optional[CollectorRegistry] = None):
+        self.registry = registry or CollectorRegistry()
+        r = self.registry
+        self.scheduling_duration = Histogram(
+            "inference_extension_scheduler_e2e_duration_seconds",
+            "End-to-end scheduling latency per request.", registry=r,
+            buckets=(0.0001, 0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5))
+        self.plugin_duration = Histogram(
+            "inference_extension_scheduler_plugin_duration_seconds",
+            "Per-plugin processing latency.", ["plugin"], registry=r,
+            buckets=(0.00001, 0.0001, 0.001, 0.01, 0.1))
+        self.pd_decisions = Counter(
+            "llm_d_inference_scheduler_pd_decision_total",
+            "Prefill/decode disaggregation decisions.", ["decision_type"],
+            registry=r)
+        self.prefix_indexer_size = Gauge(
+            "inference_extension_prefix_indexer_size",
+            "Blocks tracked by the prefix indexer.", registry=r)
+        self.prefix_indexer_hit_ratio = Gauge(
+            "inference_extension_prefix_indexer_hit_ratio",
+            "Prefix indexer hit ratio over recent requests.", registry=r)
+        self.kv_events = Counter(
+            KV_EVENTS_METRIC,
+            "KV block events ingested by the prefix index, by type "
+            "(BlockStored | BlockRemoved | AllBlocksCleared).",
+            ["type"], registry=r)
+        self.kv_placement_decisions = Counter(
+            KV_PLACEMENT_DECISION_METRIC,
+            "kv-placement-scorer verdicts on picked endpoints "
+            "(local_hit | peer_restore | recompute).",
+            ["verdict"], registry=r)
+        self.flow_control_queue = Gauge(
+            "inference_extension_flow_control_queue_size",
+            "Requests held by gateway flow control.", registry=r)
+        self.flow_control_rejects = Counter(
+            "inference_extension_flow_control_rejects_total",
+            "Requests rejected by gateway flow control.", ["reason"],
+            registry=r)
+        self.requests_total = Counter(
+            "inference_objective_request_total",
+            "Requests scheduled.", ["target"], registry=r)
+        self.shed_total = Counter(
+            "inference_objective_request_shed_total",
+            "Requests shed due to SLO headroom exhaustion.", registry=r)
+        self.breaker_state = Gauge(
+            "llmd_tpu:endpoint_breaker_state",
+            "Per-endpoint circuit breaker state (0=closed, 1=open, "
+            "2=half-open).", ["endpoint"], registry=r)
+        self.breaker_transitions = Counter(
+            "llmd_tpu:endpoint_breaker_transitions_total",
+            "Breaker state transitions.", ["endpoint", "to"], registry=r)
+        self.gateway_retries = Counter(
+            "llmd_tpu:gateway_retries_total",
+            "Forwards retried on an alternate endpoint.", ["reason"],
+            registry=r)
+        self.gateway_retry_exhausted = Counter(
+            "llmd_tpu:gateway_retry_exhausted_total",
+            "Requests that failed after the full retry budget.",
+            registry=r)
+        self.gateway_deadline_exceeded = Counter(
+            "llmd_tpu:gateway_deadline_exceeded_total",
+            "Requests 504'd at the gateway because their deadline passed.",
+            ["criticality"], registry=r)
+        self.stream_resume = Counter(
+            STREAM_RESUME_METRIC,
+            "Mid-stream resumes at the gateway relay, by outcome "
+            "(restored | recomputed | failed).",
+            ["outcome"], registry=r)
+        self.request_recovery = Histogram(
+            REQUEST_RECOVERY_METRIC,
+            "Mid-stream break detection to first resumed token.",
+            buckets=_TIME_BUCKETS, registry=r)
+        # The gateway's phases: queue (flow-control wait), schedule (the
+        # plugin pipeline's decision), resume.
+        self._request_phase = Histogram(
+            REQUEST_PHASE_METRIC,
+            "Per-request phase duration at the gateway (TTFT "
+            "attribution), by phase and criticality class.",
+            ["phase", "criticality"], buckets=_TIME_BUCKETS, registry=r)
+
+    def observe_phase(self, phase: str, criticality: str,
+                      seconds: float) -> None:
+        self._request_phase.labels(
+            phase=phase, criticality=criticality).observe(
+            max(0.0, seconds))
 
     def render(self) -> bytes:
         return self.registry.render()

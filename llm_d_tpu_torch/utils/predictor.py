@@ -1,12 +1,14 @@
-"""Online models the engine consults while scheduling (port of
-``SpecAcceptanceTracker`` and ``StepTimeModel`` from
-``llm_d_tpu.predictor.model``; numpy only).
+"""Online models the engine and the EPP consult while scheduling (port
+of ``SpecAcceptanceTracker``, ``StepTimeModel`` and ``TransferCostModel``
+from ``llm_d_tpu.predictor.model``; numpy only).
 
 * ``SpecAcceptanceTracker`` keeps each request's draft-acceptance rate
   (an EMA) and answers the draft depth worth paying for next step.
 * ``StepTimeModel`` fits ``step_ms ~ base + a_p * prefill_tokens + a_d *
   decode_tokens`` online and sizes prefill chunks against a target step
   time.
+* ``TransferCostModel`` prices a KV restore per link class for the EPP's
+  kv-placement-scorer (its analytic prior).
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import numpy as np
+
+from llm_d_tpu_torch.utils.config import env_float
 
 
 class SpecAcceptanceTracker:
@@ -116,3 +120,36 @@ class StepTimeModel:
             else:
                 hi_b = mid
         return lo_b
+
+
+class TransferCostModel:
+    """KV restore-link cost model for transfer-aware placement:
+
+        restore_ms(source)  ~=  setup + nbytes / rate(source)
+
+    one rate per link class — ``peer`` (replica-to-replica over the
+    data-plane interconnect) and ``host`` (shared host-offload tier) —
+    from the LLMD_KV_TRANSFER_* knobs: the analytic prior of the JAX
+    package's model, which nothing in the port calibrates yet.
+    """
+
+    SOURCES = ("peer", "host")
+
+    def __init__(self, peer_gbps: Optional[float] = None,
+                 host_gbps: Optional[float] = None,
+                 setup_ms: Optional[float] = None) -> None:
+        self.peer_gbps = (env_float("LLMD_KV_TRANSFER_PEER_GBPS", 16.0)
+                          if peer_gbps is None else float(peer_gbps))
+        self.host_gbps = (env_float("LLMD_KV_TRANSFER_HOST_GBPS", 64.0)
+                          if host_gbps is None else float(host_gbps))
+        self.setup_ms = (env_float("LLMD_KV_TRANSFER_SETUP_MS", 2.0)
+                         if setup_ms is None else float(setup_ms))
+
+    def restore_ms(self, nbytes: int, source: str = "peer") -> float:
+        """Predicted wall-clock (ms) to restore ``nbytes`` from a link
+        class (an unknown class is priced as ``peer``)."""
+        if nbytes <= 0:
+            return 0.0
+        gbps = self.host_gbps if source == "host" else self.peer_gbps
+        # bytes -> ms over a gigabit/s link: nbytes * 8 / (gbps * 1e9) s.
+        return self.setup_ms + float(nbytes) * 8e-6 / max(gbps, 1e-6)

@@ -416,10 +416,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "llm_d_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
-    # Nor ml_dtypes, aiohttp or safetensors: the card machine has none of
-    # them (the loader reads safetensors files itself).
+    # Nor ml_dtypes, aiohttp, prometheus_client, grpc or safetensors: the
+    # card machine has none of them (the loader reads safetensors files
+    # itself; the metrics and the gateway's HTTP are the port's own).
     banned = re.compile(
-        r"^(jax|jaxlib|llm_d_tpu|ml_dtypes|aiohttp|safetensors)(\.|$)")
+        r"^(jax|jaxlib|llm_d_tpu|ml_dtypes|aiohttp|prometheus_client|grpc"
+        r"|safetensors)(\.|$)")
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imports(p) if banned.match(m)]
     assert not bad, bad
